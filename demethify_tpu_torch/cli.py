@@ -1,7 +1,8 @@
-"""Command-line interface of the port: the reference-based mode (``--ref``
-without ``--nbunknown``) and the partial-reference mode (``--ref
---nbunknown k``), flag-compatible with ``demethify_tpu/cli.py`` for
-these modes.
+"""Command-line interface of the port, flag-compatible with
+``demethify_tpu/cli.py`` for its four modes: reference-based (``--ref``
+without ``--nbunknown``), partial-reference (``--ref --nbunknown k``),
+purity-constrained (``--ref --nbunknown k --purity p_1 ... p_n``) and
+unsupervised (``--nbunknown k`` without ``--ref``).
 
 ``--device {cuda,cpu}`` (default cuda; a missing GPU is an error, never a
 silent fallback) and ``--dtype {float32,float64}`` replace the JAX CLI's
@@ -9,8 +10,10 @@ silent fallback) and ``--dtype {float32,float64}`` replace the JAX CLI's
 slices port exit with an error naming the ROADMAP port-queue item.
 
 Reproduced conventions: ``nargs=1`` flags arrive as 1-lists and are
-unwrapped; the default iterations are (10000, 20); the termination
-resolution warning is printed unless ``--reltol``.
+unwrapped; the default iterations are (10000, 20), or (100, 500) with
+``--purity``; purity values are percentages in [0, 100], one per sample,
+flipped to the known-block mass 1 - p/100; the termination resolution
+warning is printed unless ``--reltol``.
 """
 
 import argparse
@@ -31,7 +34,6 @@ LOGO = r"""
 
 # flag -> the ROADMAP port-queue item that ports it
 NOT_PORTED = {
-    "purity": "item 2 (K3 and purity mode)",
     "ic": "item 6 (model selection)",
     "icmax": "item 6 (model selection)",
     "confidence": "item 7 (bootstrap CIs)",
@@ -58,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Methylation reference matrix file path')
     parser.add_argument('--iterations', nargs=2, type=int,
                         help='Numbers of iterations for outer and inner '
-                             'loops (default 10000, 20)')
+                             'loops (default 10000, 20; 100, 500 with '
+                             '--purity)')
     parser.add_argument('--nbunknown', nargs=1, type=int,
                         help='Number of unknown cell types to estimate')
     parser.add_argument('--termination', nargs=1, type=float, default=1e-2,
@@ -93,9 +96,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--trace', action='store_true',
                         help='Record and write the solver cost trajectory '
                              'to <outdir>/cost_trajectory.csv')
-    # accepted so that a JAX-CLI command line fails with a clear message
     parser.add_argument('--purity', nargs='+', type=float,
-                        help='Not ported yet')
+                        help='Purity of each sample in percent (one value '
+                             'per sample): the known cell types make up '
+                             '1 - p/100 of it')
+    # accepted so that a JAX-CLI command line fails with a clear message
     parser.add_argument('--ic', nargs='+', help='Not ported yet')
     parser.add_argument('--icmax', nargs=1, type=int, help='Not ported yet')
     parser.add_argument('--confidence', nargs=2, type=int,
@@ -118,12 +123,29 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag):
             sys.exit(f"Error: --{flag} is not ported to PyTorch yet "
                      f"(ROADMAP port queue {item}).")
-    if not args.ref:
-        sys.exit("Error: running without --ref (unsupervised mode) is not "
-                 "ported to PyTorch yet (ROADMAP port queue item 1).")
     if args.dtype == "bfloat16":
         sys.exit("Error: --dtype bfloat16 is not ported to PyTorch yet "
                  "(ROADMAP port queue item 9).")
+
+
+def flip_purity(percent, n_samples: int):
+    """Purity percentages -> the known-block mass 1 - p/100 per sample,
+    validated as the JAX CLI does (``demethify_tpu/cli.py:226-242``)."""
+    purity_arr = np.array(percent, dtype=np.float64)
+    if np.any((purity_arr < 0) | (purity_arr > 100)):
+        sys.stderr.write("Error: Invalid value for purity, not within "
+                         "[0,100] bounds.")
+        sys.exit(1)
+    if np.any((purity_arr >= 0) & (purity_arr <= 1)):
+        print("Purity is between 0 and 1, are you sure that it's a "
+              "percentage?")
+    purity = 1.0 - (purity_arr / 100.0)
+    if len(purity) != n_samples:
+        sys.stderr.write(
+            f"Error: --purity needs one value per sample ({n_samples} "
+            f"samples, {len(purity)} purity values given).\n")
+        sys.exit(1)
+    return purity
 
 
 def main(argv=None):
@@ -141,8 +163,11 @@ def main(argv=None):
     )
     from demethify_tpu_torch.solvers.api import (
         partial_reference_deconv,
+        purity_deconv,
         supervised_deconv,
+        unsupervised_deconv,
     )
+    from demethify_tpu_torch.state import purity_from_numpy
     from demethify_tpu_torch.utils import (
         SolveStats,
         termination_resolution_warning,
@@ -153,7 +178,9 @@ def main(argv=None):
     dtype = resolve_dtype(args.dtype)
     restart = 1 if args.restart is None else args.restart[0]
     if not args.iterations:
-        args.iterations = [10000, 20]
+        args.iterations = [100, 500] if args.purity else [10000, 20]
+    purity = (flip_purity(args.purity, len(args.methfreq)) if args.purity
+              else None)
     termination = (args.termination[0] if isinstance(args.termination, list)
                    else args.termination)
     seed = args.seed[0] if isinstance(args.seed, list) else args.seed
@@ -165,7 +192,7 @@ def main(argv=None):
         print(f'Creating directory {outdir} to store results')
         os.makedirs(outdir, exist_ok=True)
     n_u = 0 if args.nbunknown is None else args.nbunknown[0]
-    if n_u < 0:
+    if n_u < 0 or (n_u == 0 and not args.ref):
         sys.exit(f'Invalid number of unknown value! : "{n_u}" ')
 
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -179,19 +206,26 @@ def main(argv=None):
             print(msg)
     y = torch.as_tensor(ds.meth_f).to(device)
     d = torch.as_tensor(ds.counts).to(device)
-    ref_mat = torch.as_tensor(ds.ref).to(device)
+    ref_mat = None if ds.ref is None else torch.as_tensor(ds.ref).to(device)
     header = list(ds.header)
 
     time_start = time()
     stats = SolveStats(y.shape[0], y.shape[1])
+    kw = dict(init=args.init, seed=seed, n_restarts=restart,
+              n_iter1=args.iterations[0], n_iter2=args.iterations[1],
+              tol=termination, tol_relative=args.reltol,
+              record_trace=args.trace)
     if n_u > 0:
-        res = partial_reference_deconv(
-            y, d, ref_mat, n_u, init=args.init, seed=seed,
-            n_restarts=restart, n_iter1=args.iterations[0],
-            n_iter2=args.iterations[1], tol=termination,
-            tol_relative=args.reltol, record_trace=args.trace)
+        if ref_mat is None:
+            res = unsupervised_deconv(y, d, n_u, **kw)
+        elif purity is not None:
+            res = purity_deconv(y, d, ref_mat, n_u, purity_from_numpy(
+                purity, device=device, dtype=y.dtype), **kw)
+        else:
+            res = partial_reference_deconv(y, d, ref_mat, n_u, **kw)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
-        header += unknown_header
+        header = (unknown_header if ref_mat is None
+                  else header + unknown_header)
         write_profile_estimate(outdir, res.u.cpu().numpy(), unknown_header)
     else:
         res = supervised_deconv(y, d, ref_mat)

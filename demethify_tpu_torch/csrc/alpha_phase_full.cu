@@ -1,13 +1,13 @@
-// K2: the alpha glue kernel of the partial-reference solve, for Hopper.
+// K2: the alpha glue kernel of the partial-reference and unsupervised
+// solves, for Hopper.
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
 // :: _alpha_full_kernel (called through alpha_phase_full). In one launch:
 //
 //   - assemble the per-sample Grams from the loop-invariant known blocks
-//     and K1's new-u blocks (as _assemble_G_b):
-//       G[s][c][c'] = gtt[s,c,c'],  G[s][c][n_ct+u] = gu[s,u,c],
-//       G[s][n_ct+u][q] = gu[s,u,q],  b = [bt; bu];
-//   - l_h = (||Rt||^2 + usq) dmax^2;
+//     and K1's new-u blocks (as _assemble_G_b; with no known block,
+//     n_ct = 0, G and b are K1's blocks alone);
+//   - l_h = (||Rt||^2 + usq) dmax^2  (||Rt||^2 = 0 without a known block);
 //   - n_steps alpha FISTA steps with the simplex projection of each
 //     column (the plain form of ops/fista.fista_alpha_gram);
 //   - l_w = ||alpha_unknown||^2 dmax^2 and the Gram-identity cost
@@ -37,23 +37,12 @@
 
 #include <cuda_runtime.h>
 
+#include "small_common.cuh"
+
 namespace {
 
-constexpr int kMaxP = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-
-template <typename T>
-__device__ __forceinline__ T nesterov(T a) {
-    return (T(1) + sqrt_t(T(1) + T(4) * a * a)) / T(2);
-}
-
-template <typename T>
-__device__ __forceinline__ T min_nan(T x, T y) {
-    return (x < y || x != x) ? x : y;
-}
+using dm::kFull;
+using dm::kMaxP;
 
 // Projection of one column (lane q holds v_q, lanes >= p are padding)
 // onto the probability simplex, inside one warp.
@@ -94,7 +83,6 @@ __global__ void alpha_phase_full_kernel(
         const T* __restrict__ usq, const T* __restrict__ ydy,
         T* __restrict__ alpha, T* __restrict__ alpha_prev,
         T* __restrict__ scal, int n_s, int n_ct, int n_u, int n_steps) {
-    __shared__ T red[3][32];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
@@ -108,39 +96,18 @@ __global__ void alpha_phase_full_kernel(
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
     for (int s = warp; s < n_s; s += n_warps) {
-        // row `lane` of G_s and b_s
-        T g[kMaxP];
-#pragma unroll
-        for (int r = 0; r < kMaxP; ++r) {
-            T x = T(0);
-            if (row && r < p) {
-                if (lane >= n_ct)
-                    x = gu[(s * n_u + (lane - n_ct)) * p + r];
-                else if (r >= n_ct)
-                    x = gu[(s * n_u + (r - n_ct)) * p + lane];
-                else
-                    x = gtt[(s * n_ct + lane) * n_ct + r];
-            }
-            g[r] = x;
-        }
-        const T b = row ? (lane < n_ct ? bt[lane * n_s + s]
-                                       : bu[(lane - n_ct) * n_s + s])
-                        : T(0);
+        T g[kMaxP], b;
+        dm::load_gram_row(g, b, gtt, bt, gu, bu, s, lane, n_s, n_ct, n_u);
         T al = row ? alpha[lane * n_s + s] : T(0);
         T ap = row ? alpha_prev[lane * n_s + s] : T(0);
 
         T a = a0, l_prev = l_h_prev0;
         for (int step = 0; step < n_steps; ++step) {
-            const T a2n = nesterov(a);
-            const T beta = min_nan((a - T(1)) / a2n,
-                                   T(0.9999) * sqrt_t(l_prev / l_h));
+            const T a2n = dm::nesterov(a);
+            const T beta = dm::min_nan((a - T(1)) / a2n,
+                                       T(0.9999) * dm::sqrt_t(l_prev / l_h));
             const T at = al + beta * (al - ap);
-            T ga = T(0);
-#pragma unroll
-            for (int r = 0; r < kMaxP; ++r) {
-                const T atr = __shfl_sync(kFull, at, r);
-                if (r < p) ga += g[r] * atr;
-            }
+            const T ga = dm::gram_matvec(g, at, p);
             const T v = at + (b - ga) / l_h;
             const T proj = project_simplex_warp(v, lane, p);
             ap = al;
@@ -149,50 +116,20 @@ __global__ void alpha_phase_full_kernel(
             l_prev = l_h;
         }
 
-        // gradient at the final alpha, for the Gram-identity cost
-        T ga = T(0);
-#pragma unroll
-        for (int r = 0; r < kMaxP; ++r) {
-            const T ar = __shfl_sync(kFull, al, r);
-            if (r < p) ga += g[r] * ar;
-        }
-        T ba = row ? b * al : T(0);
-        T ag = row ? al * (b - ga) : T(0);
-        T lw = (row && lane >= p - n_u) ? al * al : T(0);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            ba += __shfl_down_sync(kFull, ba, off);
-            ag += __shfl_down_sync(kFull, ag, off);
-            lw += __shfl_down_sync(kFull, lw, off);
-        }
-        sum_ba += ba;
-        sum_ag += ag;
-        sum_lw += lw;
+        dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag, sum_lw);
         if (row) {
             alpha[lane * n_s + s] = al;
             alpha_prev[lane * n_s + s] = ap;
         }
     }
-    if (lane == 0) {
-        red[0][warp] = sum_ba;
-        red[1][warp] = sum_ag;
-        red[2][warp] = sum_lw;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
-        for (int s = 0; s < n_s; ++s) s_ydy += ydy[s];
-        for (int w = 0; w < n_warps; ++w) {
-            s_ba += red[0][w];
-            s_ag += red[1][w];
-            s_lw += red[2][w];
-        }
+    T cost, lw;
+    if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
         T a = a0;
-        for (int step = 0; step < n_steps; ++step) a = nesterov(a);
-        scal[1] = s_lw * dmax2;
+        for (int step = 0; step < n_steps; ++step) a = dm::nesterov(a);
+        scal[1] = lw * dmax2;
         scal[3] = a;
         if (n_steps > 0) scal[4] = l_h;
-        scal[5] = s_ydy - s_ba - s_ag;
+        scal[5] = cost;
     }
 }
 

@@ -1,0 +1,160 @@
+// K3: the Frank-Wolfe glue kernel of the purity-constrained solve, for
+// Hopper.
+//
+// Replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
+// :: _fw_full_kernel (called through fw_phase_full), whose schedule is
+// _fw_run. In one launch:
+//
+//   - assemble the per-sample Grams from the loop-invariant known blocks
+//     and K1's new-u blocks (as _assemble_G_b);
+//   - n_steps Frank-Wolfe steps on each column of alpha = [known; unknown]
+//     (the reference's frank_wolfe_nmf): the gradient G_s a - b_s, the
+//     block linear minimisation -- the FIRST row of the smallest gradient
+//     in the known rows (q < n_ct) and in the unknown rows (q >= n_ct) --,
+//     the vertex purity_s e_idx1 + (1 - purity_s) e_idx2, and the step
+//     a = (1 - gamma) a + gamma vertex with gamma = 2 / (k + 2);
+//   - l_w = ||alpha_unknown||^2 dmax^2 and the Gram-identity cost
+//     sum(ydy) - sum(b * alpha) - sum(alpha * (b - G alpha)).
+//
+// What bounds it on an H100: latency. The data is tiny (p <= 32, n_s ~ 10)
+// and the schedule is a serial chain of 500 steps by default (the purity
+// solve's n_iter2), each a matrix-vector product and two reductions. All
+// warps of the one block share one SM, and each step issues ~42 shuffles
+// per warp (32 for the product, unrolled over every lane, 10 for the two
+// minima): about 0.6 us a step at n_s = 10, whatever p is.
+//
+// What the design does about it: one thread block, one warp per sample
+// column (a warp loops over columns when n_s > 32), as in K2. Lane q holds
+// row q of G_s, b_s and alpha in registers; the product reads a from the
+// other lanes by shuffle; each block's minimum is a butterfly of
+// NaN-propagating minima over the warp (padding lanes hold +inf, the
+// other block's rows the TPU kernel's 3.4e38 mask), and the first row
+// holding it is the lowest set bit of a ballot -- the tie rule of _fw_run
+// and of argmin. Nothing leaves registers until the epilogue, whose cost
+// and l_w reductions are those of K2 (small_common.cuh).
+//
+// Device scalars `scal` (shared with K1 and K2): 1 l_w and 5 cost
+// (written), 7 dmax^2 (read).
+//
+// Plain C interface (ctypes): pointers and the stream as void*, launches
+// on that stream, allocates nothing, returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "small_common.cuh"
+
+namespace {
+
+using dm::kFull;
+using dm::kMaxP;
+
+template <typename T> __device__ __forceinline__ T pos_inf();
+template <> __device__ __forceinline__ float pos_inf<float>() {
+    return CUDART_INF_F;
+}
+template <> __device__ __forceinline__ double pos_inf<double>() {
+    return CUDART_INF;
+}
+
+// NaN-propagating minimum over the warp, in every lane
+template <typename T>
+__device__ __forceinline__ T warp_min(T x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        x = dm::min_nan(x, __shfl_xor_sync(kFull, x, off));
+    return x;
+}
+
+// first row (lane < p) whose value equals the minimum m, else p
+__device__ __forceinline__ int first_row(bool hit, int p) {
+    const unsigned who = __ballot_sync(kFull, hit);
+    return who ? __ffs(who) - 1 : p;
+}
+
+template <typename T>
+__global__ void fw_phase_full_kernel(
+        const T* __restrict__ gtt, const T* __restrict__ bt,
+        const T* __restrict__ gu, const T* __restrict__ bu,
+        const T* __restrict__ ydy, T* __restrict__ alpha,
+        const T* __restrict__ purity, T* __restrict__ scal, int n_s,
+        int n_ct, int n_u, int n_steps) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const int p = n_ct + n_u;
+    const bool row = lane < p;
+    const bool known = lane < n_ct;
+    const T big = T(3.4e38);                // the TPU kernel's block mask
+    const T pad = pos_inf<T>();
+    const T dmax2 = scal[7];
+
+    T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
+    for (int s = warp; s < n_s; s += n_warps) {
+        T g[kMaxP], b;
+        dm::load_gram_row(g, b, gtt, bt, gu, bu, s, lane, n_s, n_ct, n_u);
+        T al = row ? alpha[lane * n_s + s] : T(0);
+        const T pur = purity[s];
+        const T pur2 = T(1) - pur;
+
+        for (int k = 0; k < n_steps; ++k) {
+            const T grad = -(b - dm::gram_matvec(g, al, p));
+            const T g1 = row ? (known ? grad : big) : pad;
+            const T g2 = row ? (known ? big : grad) : pad;
+            const T m1 = warp_min(g1);
+            const T m2 = warp_min(g2);
+            const int idx1 = first_row(row && g1 == m1, p);
+            const int idx2 = first_row(row && g2 == m2, p);
+            const T e1 = (row && lane == idx1) ? T(1) : T(0);
+            const T e2 = (row && lane == idx2) ? T(1) : T(0);
+            const T vert = e1 * pur + e2 * pur2;
+            const T gamma = T(2) / (static_cast<T>(k) + T(2));
+            al = (T(1) - gamma) * al + gamma * vert;
+        }
+
+        dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag, sum_lw);
+        if (row) alpha[lane * n_s + s] = al;
+    }
+    T cost, lw;
+    if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
+        scal[1] = lw * dmax2;
+        scal[5] = cost;
+    }
+}
+
+template <typename T>
+int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
+           const void* ydy, void* alpha, const void* purity, void* scal,
+           int n_s, int n_ct, int n_u, int n_steps, void* stream) {
+    const int n_warps = n_s < 32 ? n_s : 32;
+    fw_phase_full_kernel<T><<<1, 32 * n_warps, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(ydy), static_cast<T*>(alpha),
+        static_cast<const T*>(purity), static_cast<T*>(scal), n_s, n_ct,
+        n_u, n_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int dm_fw_phase_full_f32(const void* gtt, const void* bt, const void* gu,
+                         const void* bu, const void* ydy, void* alpha,
+                         const void* purity, void* scal, int n_s, int n_ct,
+                         int n_u, int n_steps, void* stream) {
+    return launch<float>(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_s,
+                         n_ct, n_u, n_steps, stream);
+}
+
+int dm_fw_phase_full_f64(const void* gtt, const void* bt, const void* gu,
+                         const void* bu, const void* ydy, void* alpha,
+                         const void* purity, void* scal, int n_s, int n_ct,
+                         int n_u, int n_steps, void* stream) {
+    return launch<double>(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_s,
+                          n_ct, n_u, n_steps, stream);
+}
+
+}  // extern "C"

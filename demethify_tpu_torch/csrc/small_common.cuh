@@ -1,0 +1,127 @@
+// Pieces shared by the port's kernels: the FISTA scalar arithmetic (K1,
+// K2), and for the single-block kernels K2 (alpha_phase_full.cu) and K3
+// (fw_phase_full.cu) -- one thread block, one warp per sample column,
+// lane q holding row q of alpha and of the column's Gram matrix (p <= 32)
+// -- the Gram row assembly, the product and the cost epilogue.
+//
+// Device scalars `scal` (shared with K1): 1 l_w, 3 a (alpha Nesterov
+// scalar), 4 l_h_prev, 5 cost, 6 ||Rt||^2, 7 dmax^2.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace dm {
+
+constexpr int kMaxP = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+
+template <typename T>
+__device__ __forceinline__ T nesterov(T a) {
+    return (T(1) + sqrt_t(T(1) + T(4) * a * a)) / T(2);
+}
+
+// NaN-propagating minimum, as jnp.minimum / torch.minimum
+template <typename T>
+__device__ __forceinline__ T min_nan(T x, T y) {
+    return (x < y || x != x) ? x : y;
+}
+
+// Row `lane` of the per-sample Gram G_s and of b_s, assembled from the
+// loop-invariant known blocks and K1's new-u blocks (as _assemble_G_b):
+//   G[s][c][c'] = gtt[s,c,c'],  G[s][c][n_ct+u] = gu[s,u,c],
+//   G[s][n_ct+u][q] = gu[s,u,q],  b = [bt; bu].
+// With n_ct = 0 gtt and bt are not read. Lanes >= p get zeros.
+template <typename T>
+__device__ __forceinline__ void load_gram_row(
+        T (&g)[kMaxP], T& b, const T* __restrict__ gtt,
+        const T* __restrict__ bt, const T* __restrict__ gu,
+        const T* __restrict__ bu, int s, int lane, int n_s, int n_ct,
+        int n_u) {
+    const int p = n_ct + n_u;
+    const bool row = lane < p;
+#pragma unroll
+    for (int r = 0; r < kMaxP; ++r) {
+        T x = T(0);
+        if (row && r < p) {
+            if (lane >= n_ct)
+                x = gu[(s * n_u + (lane - n_ct)) * p + r];
+            else if (r >= n_ct)
+                x = gu[(s * n_u + (r - n_ct)) * p + lane];
+            else
+                x = gtt[(s * n_ct + lane) * n_ct + r];
+        }
+        g[r] = x;
+    }
+    b = row ? (lane < n_ct ? bt[lane * n_s + s] : bu[(lane - n_ct) * n_s + s])
+            : T(0);
+}
+
+// (G_s a)_lane, with a_r read from lane r by shuffle
+template <typename T>
+__device__ __forceinline__ T gram_matvec(const T (&g)[kMaxP], T a, int p) {
+    T ga = T(0);
+#pragma unroll
+    for (int r = 0; r < kMaxP; ++r) {
+        const T ar = __shfl_sync(kFull, a, r);
+        if (r < p) ga += g[r] * ar;
+    }
+    return ga;
+}
+
+// Adds one column's terms of the Gram-identity cost, b.a and a.(b - G a),
+// and of ||alpha_unknown||^2 to the warp's running sums (valid in lane 0).
+template <typename T>
+__device__ __forceinline__ void add_column_sums(
+        const T (&g)[kMaxP], T b, T al, int lane, int p, int n_u,
+        T& sum_ba, T& sum_ag, T& sum_lw) {
+    const bool row = lane < p;
+    const T ga = gram_matvec(g, al, p);
+    T ba = row ? b * al : T(0);
+    T ag = row ? al * (b - ga) : T(0);
+    T lw = (row && lane >= p - n_u) ? al * al : T(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        ba += __shfl_down_sync(kFull, ba, off);
+        ag += __shfl_down_sync(kFull, ag, off);
+        lw += __shfl_down_sync(kFull, lw, off);
+    }
+    sum_ba += ba;
+    sum_ag += ag;
+    sum_lw += lw;
+}
+
+// Sums the warps' running sums in a fixed order. In thread 0 returns true
+// and sets cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and
+// lw = ||alpha_unknown||^2; other threads return false.
+template <typename T>
+__device__ __forceinline__ bool block_cost(T sum_ba, T sum_ag, T sum_lw,
+                                           const T* __restrict__ ydy,
+                                           int n_s, T& cost, T& lw) {
+    __shared__ T red[3][32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    if (lane == 0) {
+        red[0][warp] = sum_ba;
+        red[1][warp] = sum_ag;
+        red[2][warp] = sum_lw;
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return false;
+    T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
+    for (int s = 0; s < n_s; ++s) s_ydy += ydy[s];
+    for (int w = 0; w < n_warps; ++w) {
+        s_ba += red[0][w];
+        s_ag += red[1][w];
+        s_lw += red[2][w];
+    }
+    cost = s_ydy - s_ba - s_ag;
+    lw = s_lw;
+    return true;
+}
+
+}  // namespace dm

@@ -1,32 +1,47 @@
-// K1: the U-phase megakernel of the partial-reference solve, for Hopper.
+// K1: the U-phase megakernel of the partial-reference, purity and
+// unsupervised solves, for Hopper.
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
-// :: _u_phase_grams_kernel (called through u_phase_grams_packed). One
-// outer iteration of the solve makes ONE pass over the CpG axis:
+// :: _u_phase_grams_kernel (called through u_phase_grams_packed and
+// u_phase_grams). One outer iteration of the solve makes ONE pass over
+// the CpG axis:
 //
-//   per site i (one thread each):
-//     C[u]    = sum_s a2[u,s] (d_is y_is - d_is (a1' rt_i)_s)
-//     M[u][v] = sum_s (a2[u,s] a2[v,s]) d_is
+//   per site i (one thread each), with dres_s = d_is y_is - d_is (a1' rt_i)_s
+//   (just d_is y_is when there is no known block, n_ct = 0):
 //     n_steps FISTA steps on u_i in registers:
 //       beta = min((a-1)/a', 0.9999 sqrt(l_prev/l_w))
 //       u_t  = u + beta (u - u_prev)
-//       u    = clip(u_t + (C - M u_t) / l_w, 0, 1)
+//       g    = u_t, or the OLD u when `lagged` (the reference's unsupervised
+//              quirk: the gradient is taken at the previous iterate)
+//       u    = clip(u_t + grad(g) / l_w, 0, 1)
+//     with grad(g) in one of the TPU kernel's two dataflows, chosen by the
+//     caller with the same rule (gram form where n_u^2 <= 3 n_s):
+//       gram form:   grad = C - M g,  C[u] = sum_s a2[u,s] dres_s,
+//                    M[u][v] = sum_s (a2[u,s] a2[v,s]) d_is  (in registers)
+//       direct form: model_s = sum_u a2[u,s] g_u,
+//                    grad[u] = sum_s a2[u,s] (dres_s - d_is model_s)
+//                    (dres kept in shared memory)
 //     (this is the plain form of ops/fista.fista_u_gram; the TPU kernel's
 //      1/l_w pre-scaled form rounds differently and is not used)
 //   per block, with the NEW u:
 //     gu[s,u,q] = sum_i u_iu d_is [Rt | u]_iq,  b_u[u,s] = sum_i u_iu d_is y_is,
 //     usq = sum_i sum_u u_iu^2
 //
-// What bounds it on an H100: memory traffic. At 1M sites x 10 samples,
-// 5 + 1 cell types in float32 it reads Y, D, Rt, u, u_prev (~108 MB) and
-// writes u, u_prev (~8 MB) per outer iteration, ~35 us at 3.35 TB/s; the
-// arithmetic is a few hundred flops per site.
+// What bounds it on an H100: memory traffic at the partial-reference
+// schedule. At 1M sites x 10 samples, 5 + 1 cell types in float32 it reads
+// Y, D, Rt, u, u_prev (~108 MB) and writes u, u_prev (~8 MB) per outer
+// iteration, ~35 us at 3.35 TB/s; the arithmetic is a few hundred flops
+// per site. The purity schedule (500 steps) makes it bound by instruction
+// issue: ~65 instructions per warp and step in the n_u = 1 gram form,
+// most of them the scalar momentum chain (two IEEE divisions, two square
+// roots) that every thread replays beside its ~10 flops.
 //
 // What the design does about it:
 //   - the big arrays stay in the transposed (rows, N) layout, so the
 //     threads of a warp read neighbouring addresses of every row once;
-//   - C, M and the FISTA state live in registers (n_u is a template
-//     parameter, 1..4), so the n_steps loop touches no memory;
+//   - C, M (its upper triangle: M is symmetric) and the FISTA state live
+//     in registers (n_u is a template parameter, 1..8), so the n_steps loop
+//     of the gram form touches no memory;
 //   - the site columns a block read are staged in shared memory (row
 //     stride T + 1 against bank conflicts) and reused for the Gram sums,
 //     so Y, D and Rt are read from device memory exactly once;
@@ -43,30 +58,23 @@
 // kernel advances them after the main pass, so the host never syncs.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
-// on that stream, allocates nothing, returns cudaGetLastError().
+// on that stream, allocates nothing, returns cudaGetLastError(). Pointers
+// of an empty known block (n_ct = 0) are never dereferenced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "small_common.cuh"
+
 namespace {
+
+using dm::min_nan;
+using dm::nesterov;
+using dm::sqrt_t;
 
 constexpr int kSites = 128;        // sites (threads) per block of the main pass
 constexpr int kLd = kSites + 1;    // shared row stride: avoids bank conflicts
 constexpr int kRedThreads = 256;   // threads per block of the reduction pass
-
-__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-
-template <typename T>
-__device__ __forceinline__ T nesterov(T a) {
-    return (T(1) + sqrt_t(T(1) + T(4) * a * a)) / T(2);
-}
-
-// NaN-propagating minimum, as jnp.minimum / torch.minimum
-template <typename T>
-__device__ __forceinline__ T min_nan(T x, T y) {
-    return (x < y || x != x) ? x : y;
-}
 
 // clip to [0, 1]; NaN passes through, as torch.clamp
 template <typename T>
@@ -74,19 +82,97 @@ __device__ __forceinline__ T clip01(T x) {
     return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
 }
 
-template <typename T, int NU>
+// index of M[v][w] in the packed upper triangle of a symmetric NU x NU
+// matrix (constant-folded inside the unrolled loops)
+template <int NU>
+__device__ __forceinline__ constexpr int sym(int v, int w) {
+    return v <= w ? v * NU - v * (v - 1) / 2 + (w - v)
+                  : w * NU - w * (w - 1) / 2 + (v - w);
+}
+
+// The n_steps FISTA loop of the gram form, in registers; LAG takes each
+// step's gradient at the old u (an instantiation each, so the step loop
+// carries no per-step test).
+template <typename T, int NU, bool LAG>
+__device__ __forceinline__ void gram_steps(
+        T (&u)[NU], T (&up)[NU], const T (&cc)[NU],
+        const T (&m)[NU * (NU + 1) / 2], T a, T l_prev, const T l_w,
+        int n_steps) {
+    for (int step = 0; step < n_steps; ++step) {
+        const T a1n = nesterov(a);
+        const T beta = min_nan((a - T(1)) / a1n,
+                               T(0.9999) * sqrt_t(l_prev / l_w));
+        T ut[NU], un[NU];
+#pragma unroll
+        for (int v = 0; v < NU; ++v) ut[v] = u[v] + beta * (u[v] - up[v]);
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            T mu = T(0);
+#pragma unroll
+            for (int w = 0; w < NU; ++w)
+                mu += m[sym<NU>(v, w)] * (LAG ? u[w] : ut[w]);
+            un[v] = clip01(ut[v] + (cc[v] - mu) / l_w);
+        }
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            up[v] = u[v];
+            u[v] = un[v];
+        }
+        a = a1n;
+        l_prev = l_w;
+    }
+}
+
+// The n_steps FISTA loop of the direct form: dres (the known-block
+// residual) and d of this thread's site in shared memory, row stride kLd.
+template <typename T, int NU, bool LAG>
+__device__ __forceinline__ void direct_steps(
+        T (&u)[NU], T (&up)[NU], const T* __restrict__ s_a2,
+        const T* __restrict__ s_res, const T* __restrict__ s_d, int n_s,
+        T a, T l_prev, const T l_w, int n_steps) {
+    for (int step = 0; step < n_steps; ++step) {
+        const T a1n = nesterov(a);
+        const T beta = min_nan((a - T(1)) / a1n,
+                               T(0.9999) * sqrt_t(l_prev / l_w));
+        T ut[NU], gr[NU];
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            ut[v] = u[v] + beta * (u[v] - up[v]);
+            gr[v] = T(0);
+        }
+        for (int s = 0; s < n_s; ++s) {
+            T model = T(0);
+#pragma unroll
+            for (int w = 0; w < NU; ++w)
+                model += s_a2[w * n_s + s] * (LAG ? u[w] : ut[w]);
+            const T res = s_res[s * kLd] - s_d[s * kLd] * model;
+#pragma unroll
+            for (int v = 0; v < NU; ++v) gr[v] += s_a2[v * n_s + s] * res;
+        }
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            up[v] = u[v];
+            u[v] = clip01(ut[v] + gr[v] / l_w);
+        }
+        a = a1n;
+        l_prev = l_w;
+    }
+}
+
+template <typename T, int NU, bool DIRECT>
 __global__ void __launch_bounds__(kSites)
 u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
                      const T* __restrict__ a1b, const T* __restrict__ a2b,
                      T* __restrict__ uut, const T* __restrict__ scal,
                      T* __restrict__ partials, int64_t n, int n_s, int n_ct,
-                     int n_steps, int n_blocks) {
+                     int n_steps, int n_blocks, int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s_y = reinterpret_cast<T*>(smem_raw);   // n_s rows
     T* s_d = s_y + n_s * kLd;                   // n_s rows
     T* s_r = s_d + n_s * kLd;                   // n_ct + NU rows: [Rt | u]
     T* s_a1 = s_r + (n_ct + NU) * kLd;          // (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // (NU, n_s)
+    T* s_res = s_a2 + NU * n_s;                 // direct form: n_s rows
 
     const int tid = threadIdx.x;
     for (int k = tid; k < n_ct * n_s; k += kSites) s_a1[k] = a1b[k];
@@ -102,54 +188,64 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
         s_r[c * kLd + tid] = live ? rtt[c * n + i] : T(0);
     __syncthreads();
 
-    // ---- C and M for this site, in registers --------------------------
-    T u[NU], up[NU], cc[NU], m[NU][NU];
+    T u[NU], up[NU];
 #pragma unroll
     for (int v = 0; v < NU; ++v) {
         u[v] = live ? uut[v * n + i] : T(0);
         up[v] = live ? uut[(NU + v) * n + i] : T(0);
-        cc[v] = T(0);
-#pragma unroll
-        for (int w = 0; w < NU; ++w) m[v][w] = T(0);
     }
-    for (int s = 0; s < n_s; ++s) {
-        const T y = s_y[s * kLd + tid];
-        const T d = s_d[s * kLd + tid];
-        T known = T(0);
-        for (int c = 0; c < n_ct; ++c)
-            known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
-        const T dres = d * y - d * known;
-#pragma unroll
-        for (int v = 0; v < NU; ++v) {
-            const T av = s_a2[v * n_s + s];
-            cc[v] += av * dres;
-#pragma unroll
-            for (int w = 0; w < NU; ++w)
-                m[v][w] += (av * s_a2[w * n_s + s]) * d;
-        }
-    }
-
-    // ---- the whole U FISTA loop, in registers ------------------------
-    T a = scal[0];
+    const T a = scal[0];
     const T l_w = scal[1];
-    T l_prev = scal[2];
-    for (int step = 0; step < n_steps; ++step) {
-        const T a1n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a1n,
-                               T(0.9999) * sqrt_t(l_prev / l_w));
-        T ut[NU];
+    const T l_prev = scal[2];
+
+    if constexpr (!DIRECT) {
+        // ---- C and M for this site, in registers ----------------------
+        constexpr int kTri = NU * (NU + 1) / 2;
+        T cc[NU], m[kTri];
 #pragma unroll
-        for (int v = 0; v < NU; ++v) ut[v] = u[v] + beta * (u[v] - up[v]);
+        for (int v = 0; v < NU; ++v) cc[v] = T(0);
 #pragma unroll
-        for (int v = 0; v < NU; ++v) {
-            T mu = T(0);
+        for (int k = 0; k < kTri; ++k) m[k] = T(0);
+        for (int s = 0; s < n_s; ++s) {
+            const T y = s_y[s * kLd + tid];
+            const T d = s_d[s * kLd + tid];
+            T known = T(0);
+            for (int c = 0; c < n_ct; ++c)
+                known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
+            const T dres = d * y - d * known;
 #pragma unroll
-            for (int w = 0; w < NU; ++w) mu += m[v][w] * ut[w];
-            up[v] = u[v];
-            u[v] = clip01(ut[v] + (cc[v] - mu) / l_w);
+            for (int v = 0; v < NU; ++v) {
+                const T av = s_a2[v * n_s + s];
+                cc[v] += av * dres;
+#pragma unroll
+                for (int w = v; w < NU; ++w)
+                    m[sym<NU>(v, w)] += (av * s_a2[w * n_s + s]) * d;
+            }
         }
-        a = a1n;
-        l_prev = l_w;
+
+        // ---- the whole U FISTA loop, in registers --------------------
+        if (lagged)
+            gram_steps<T, NU, true>(u, up, cc, m, a, l_prev, l_w, n_steps);
+        else
+            gram_steps<T, NU, false>(u, up, cc, m, a, l_prev, l_w, n_steps);
+    } else {
+        // ---- the known-block residual, kept in shared memory ----------
+        for (int s = 0; s < n_s; ++s) {
+            const T y = s_y[s * kLd + tid];
+            const T d = s_d[s * kLd + tid];
+            T known = T(0);
+            for (int c = 0; c < n_ct; ++c)
+                known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
+            s_res[s * kLd + tid] = d * y - d * known;
+        }
+
+        // ---- the whole U FISTA loop, direct form ----------------------
+        if (lagged)
+            direct_steps<T, NU, true>(u, up, s_a2, s_res + tid, s_d + tid,
+                                      n_s, a, l_prev, l_w, n_steps);
+        else
+            direct_steps<T, NU, false>(u, up, s_a2, s_res + tid, s_d + tid,
+                                       n_s, a, l_prev, l_w, n_steps);
     }
 #pragma unroll
     for (int v = 0; v < NU; ++v) {
@@ -228,16 +324,22 @@ reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
     }
 }
 
-template <typename T, int NU>
+size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u, bool direct) {
+    const size_t p = static_cast<size_t>(n_ct + n_u);
+    const size_t rows = 2 * static_cast<size_t>(n_s) + p
+                        + (direct ? static_cast<size_t>(n_s) : 0);
+    return itemsize * (rows * kLd + p * n_s);
+}
+
+template <typename T, int NU, bool DIRECT>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* partials, void* out, int64_t n,
-           int n_s, int n_ct, int n_steps, cudaStream_t stream) {
+           int n_s, int n_ct, int n_steps, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int p = n_ct + NU;
     const int n_entries = n_s * NU * p + NU * n_s + 1;
-    const size_t smem = sizeof(T) * (static_cast<size_t>(2 * n_s + p) * kLd
-                                     + static_cast<size_t>(p) * n_s);
-    auto kern = u_phase_grams_kernel<T, NU>;
+    const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, DIRECT);
+    auto kern = u_phase_grams_kernel<T, NU, DIRECT>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -248,7 +350,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<const T*>(ydt), static_cast<const T*>(rtt),
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
-        static_cast<T*>(partials), n, n_s, n_ct, n_steps, n_blocks);
+        static_cast<T*>(partials), n, n_s, n_ct, n_steps, n_blocks, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     reduce_partials_kernel<T><<<n_entries, kRedThreads, 0, stream>>>(
@@ -257,23 +359,43 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool DIRECT>
+int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
+                const void* a2b, void* uut, void* scal, void* partials,
+                void* out, int64_t n, int n_s, int n_ct, int n_u,
+                int n_steps, int lagged, cudaStream_t st) {
+#define DM_K1_CASE(NU)                                                      \
+    case NU:                                                                \
+        return launch<T, NU, DIRECT>(ydt, rtt, a1b, a2b, uut, scal,         \
+                                     partials, out, n, n_s, n_ct, n_steps,  \
+                                     lagged, st);
+    switch (n_u) {
+        DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
+        DM_K1_CASE(6) DM_K1_CASE(7) DM_K1_CASE(8)
+        case 1:
+            // n_u = 1 always takes the gram form (1 <= 3 n_s)
+            if constexpr (!DIRECT)
+                return launch<T, 1, false>(ydt, rtt, a1b, a2b, uut, scal,
+                                           partials, out, n, n_s, n_ct,
+                                           n_steps, lagged, st);
+            return static_cast<int>(cudaErrorInvalidValue);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DM_K1_CASE
+}
+
 template <typename T>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              const void* a2b, void* uut, void* scal, void* partials,
              void* out, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-             void* stream) {
+             int lagged, int direct, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (n_u) {
-        case 1: return launch<T, 1>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                    out, n, n_s, n_ct, n_steps, st);
-        case 2: return launch<T, 2>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                    out, n, n_s, n_ct, n_steps, st);
-        case 3: return launch<T, 3>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                    out, n, n_s, n_ct, n_steps, st);
-        case 4: return launch<T, 4>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                    out, n, n_s, n_ct, n_steps, st);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (direct)
+        return dispatch_nu<T, true>(ydt, rtt, a1b, a2b, uut, scal, partials,
+                                    out, n, n_s, n_ct, n_u, n_steps, lagged,
+                                    st);
+    return dispatch_nu<T, false>(ydt, rtt, a1b, a2b, uut, scal, partials,
+                                 out, n, n_s, n_ct, n_u, n_steps, lagged, st);
 }
 
 }  // namespace
@@ -282,9 +404,10 @@ extern "C" {
 
 // Shared memory the main pass needs, in bytes (the wrapper checks it
 // against the card's limit before launching).
-long long dm_u_phase_grams_smem(int itemsize, int n_s, int n_ct, int n_u) {
-    const long long p = n_ct + n_u;
-    return itemsize * ((2LL * n_s + p) * kLd + p * n_s);
+long long dm_u_phase_grams_smem(int itemsize, int n_s, int n_ct, int n_u,
+                                int direct) {
+    return static_cast<long long>(
+        smem_bytes(itemsize, n_s, n_ct, n_u, direct != 0));
 }
 
 int dm_u_phase_grams_blocks(long long n) {
@@ -294,17 +417,19 @@ int dm_u_phase_grams_blocks(long long n) {
 int dm_u_phase_grams_f32(const void* ydt, const void* rtt, const void* a1b,
                          const void* a2b, void* uut, void* scal,
                          void* partials, void* out, long long n, int n_s,
-                         int n_ct, int n_u, int n_steps, void* stream) {
+                         int n_ct, int n_u, int n_steps, int lagged,
+                         int direct, void* stream) {
     return dispatch<float>(ydt, rtt, a1b, a2b, uut, scal, partials, out, n,
-                           n_s, n_ct, n_u, n_steps, stream);
+                           n_s, n_ct, n_u, n_steps, lagged, direct, stream);
 }
 
 int dm_u_phase_grams_f64(const void* ydt, const void* rtt, const void* a1b,
                          const void* a2b, void* uut, void* scal,
                          void* partials, void* out, long long n, int n_s,
-                         int n_ct, int n_u, int n_steps, void* stream) {
+                         int n_ct, int n_u, int n_steps, int lagged,
+                         int direct, void* stream) {
     return dispatch<double>(ydt, rtt, a1b, a2b, uut, scal, partials, out, n,
-                            n_s, n_ct, n_u, n_steps, stream);
+                            n_s, n_ct, n_u, n_steps, lagged, direct, stream);
 }
 
 }  // extern "C"

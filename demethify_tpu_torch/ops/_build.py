@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes``; no PyTorch headers are included, so
-the build takes seconds. The library lands in ``build/demethify_tpu_torch/``
+``nvcc`` compiles every ``csrc/*.cu`` into an object file, all sources at
+once in parallel processes, and links them into one shared library with
+a plain C interface, loaded with ``ctypes``; no PyTorch headers are
+included, so the build takes seconds. The library lands in
+``build/demethify_tpu_torch/``
 beside the package (or under the temporary directory when that is not
 writable), named by a hash of the sources and flags, and is built at
 first use. Nothing is fetched: the only inputs are the repository's
@@ -23,8 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def build_dir() -> str:
@@ -71,15 +72,59 @@ _INT = ctypes.c_int
 def _declare(lib: ctypes.CDLL) -> None:
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"dm_u_phase_grams_{dt}")
-        fn.argtypes = [_VOID] * 8 + [ctypes.c_longlong] + [_INT] * 4 + [_VOID]
+        fn.argtypes = [_VOID] * 8 + [ctypes.c_longlong] + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
         fn.argtypes = [_VOID] * 9 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
-    lib.dm_u_phase_grams_smem.argtypes = [_INT] * 4
+        fn = getattr(lib, f"dm_fw_phase_full_{dt}")
+        fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
+        fn.restype = _INT
+    lib.dm_u_phase_grams_smem.argtypes = [_INT] * 5
     lib.dm_u_phase_grams_smem.restype = ctypes.c_longlong
     lib.dm_u_phase_grams_blocks.argtypes = [ctypes.c_longlong]
     lib.dm_u_phase_grams_blocks.restype = _INT
+
+
+def _compile(out: str) -> str:
+    """One nvcc process per source, all started together, then one link.
+    Returns what the compilers printed (ptxas register and spill lines)."""
+    nvcc = _nvcc()
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    objs = [f"{out}.{os.path.basename(src)}.{os.getpid()}.o"
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    try:
+        for src, proc in zip(sources, procs):
+            text, _ = proc.communicate(timeout=600)
+            logs.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} (exit "
+                              f"{proc.returncode})")
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                               + "".join(logs))
+        tmp = f"{out}.{os.getpid()}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=600)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{''.join(logs)}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(logs)
 
 
 def load() -> KernelLibrary:
@@ -88,9 +133,8 @@ def load() -> KernelLibrary:
     global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(build_dir(),
@@ -98,13 +142,7 @@ def load() -> KernelLibrary:
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(out):
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True, timeout=600)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
+        log = _compile(out)
     lib = ctypes.CDLL(out)
     _declare(lib)
     _LIBRARY = KernelLibrary(lib, out, time.perf_counter() - t0, log)

@@ -2,17 +2,22 @@
 
 ``u_phase_grams`` replaces the Pallas kernel
 ``demethify_tpu/ops/pallas_kernels.py::_u_phase_grams_kernel`` (through
-its packed wrapper ``u_phase_grams_packed``). The kernel is
-``csrc/u_phase_grams.cu``; its source note says what bounds it on an H100
-(memory traffic: one read of Y, D, Rt, u, u_prev and one write of u,
+its wrappers ``u_phase_grams_packed`` and ``u_phase_grams``). The kernel
+is ``csrc/u_phase_grams.cu``; its source note says what bounds it on an
+H100 (memory traffic: one read of Y, D, Rt, u, u_prev and one write of u,
 u_prev per outer iteration) and what the design does about it.
+
+Forms, as the JAX kernel has them: with or without a known block (the
+unsupervised solve has none), the gradient at u_t or, ``lagged``, at the
+old u (the reference's unsupervised quirk), and the gram or the direct
+dataflow, chosen by ``gram_form`` (the JAX kernel's rule).
 
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_plain``, which
 computes the same function with ordinary tensor ops.
 
 Device scalars: the solver keeps its scalars in one small vector on the
-data's device (slots below), which K1 and K2 read and advance, so an
+data's device (slots below), which the kernels read and advance, so an
 outer iteration needs no host sync apart from the termination test.
 """
 
@@ -25,8 +30,15 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 A_U, L_W, L_W_PREV, A_ALPHA, L_H_PREV, COST, RT_SQ, DMAX2 = range(8)
 N_SCAL = 8
 
-MAX_N_U = 4
+MAX_N_U = 8
 _SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into (H100)
+
+
+def gram_form(n_u: int, n_s: int) -> bool:
+    """The JAX kernel's choice of dataflow (``pallas_kernels.py:298``):
+    the gram form keeps n_u^2 curvature terms per site, the direct form
+    redoes two small products over the n_s samples each step."""
+    return n_u * n_u <= 3 * n_s
 
 
 def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
@@ -54,29 +66,33 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
             f"scal {tuple(scal.shape)}")
     if n == 0:
         raise ValueError("u_phase_grams: no CpG sites")
-    if n_ct == 0:
-        raise NotImplementedError(
-            "u_phase_grams without a known block (n_ct = 0, unsupervised "
-            "mode) is ROADMAP port queue item 1")
     if not 1 <= n_u <= MAX_N_U:
         raise NotImplementedError(
-            f"u_phase_grams takes 1 <= n_u <= {MAX_N_U}, got {n_u} "
-            f"(larger n_u is ROADMAP port queue item 1)")
-    if n_u * n_u > 3 * n_s:
-        raise NotImplementedError(
-            f"n_u = {n_u} with n_s = {n_s} needs the kernel's direct form "
-            f"(n_u^2 > 3 n_s): ROADMAP port queue item 1")
+            f"u_phase_grams takes 1 <= n_u <= {MAX_N_U}, got {n_u} (larger "
+            f"n_u is ROADMAP port queue item 12)")
     return n, n_s, n_ct, n_u
 
 
-def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int):
+def _known_block(ydt, rtt, a1_block, n_s):
+    """None for the known block means none (n_ct = 0): empty operands."""
+    if rtt is None:
+        rtt = ydt.new_empty((0, ydt.shape[1]))
+    if a1_block is None:
+        a1_block = ydt.new_empty((0, n_s))
+    return rtt, a1_block
+
+
+def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
+                  lagged: bool = False):
     """One outer iteration's U phase: the whole n_steps FISTA loop on U,
     then the new-u Gram blocks.
 
     ydt (2 n_s, N) = [Y.T; D.T]; rtt (n_ct, N) = Rt.T; a1_block
     (n_ct, n_s) and a2_block (n_u, n_s) are the known and unknown rows of
-    alpha; uut (2 n_u, N) = [u.T; u_prev.T]; scal the solver's scalar
-    vector (slots A_U, L_W, L_W_PREV read).
+    alpha (rtt and a1_block None, or with n_ct = 0, when there is no known
+    block); uut (2 n_u, N) = [u.T; u_prev.T]; scal the solver's scalar
+    vector (slots A_U, L_W, L_W_PREV read). ``lagged`` takes each step's
+    gradient at the old u (the unsupervised solve).
 
     Updates ``uut`` and ``scal[A_U]``, ``scal[L_W_PREV]`` in place (the
     JAX package donates the same buffers) and returns (gu (n_s, n_u, p),
@@ -84,15 +100,17 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int):
     gu[s, u, q] = sum_i u_iu d_is [Rt | u]_iq, b_u = u'(d * y),
     usq = sum u^2.
     """
+    rtt, a1_block = _known_block(ydt, rtt, a1_block, a2_block.shape[1])
     n, n_s, n_ct, n_u = _check_args(ydt, rtt, a1_block, a2_block, uut, scal)
     if ydt.device.type == "cpu":
         return u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
-                                   n_steps)
+                                   n_steps, lagged)
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams: unsupported device {ydt.device}")
     lib = _build.load().lib
-    itemsize = ydt.element_size()
-    smem = lib.dm_u_phase_grams_smem(itemsize, n_s, n_ct, n_u)
+    direct = not gram_form(n_u, n_s)
+    smem = lib.dm_u_phase_grams_smem(ydt.element_size(), n_s, n_ct, n_u,
+                                     int(direct))
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"u_phase_grams needs {smem} bytes of shared memory at n_s = "
@@ -111,7 +129,7 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int):
         err = fn(ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
                  a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
                  partials.data_ptr(), out.data_ptr(), n, n_s, n_ct, n_u,
-                 n_steps, stream)
+                 n_steps, int(lagged), int(direct), stream)
     _build.check(err, "u_phase_grams")
     u_phase_grams.launches += 1
     gu = out[:n_s * n_u * p].view(n_s, n_u, p)
@@ -123,26 +141,34 @@ u_phase_grams.launches = 0
 
 
 def u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
-                        n_steps: int):
+                        n_steps: int, lagged: bool = False):
     """The same function as ``u_phase_grams`` in ordinary tensor ops (the
     kernel's twin: the CPU path, and what the kernel is checked against
-    on the card)."""
+    on the card), in the same gram or direct dataflow."""
+    rtt, a1_block = _known_block(ydt, rtt, a1_block, a2_block.shape[1])
     n_u, n_s = a2_block.shape
     yt, dt = ydt[:n_s], ydt[n_s:]
     dy = dt * yt
-    dresid = dy - dt * (a1_block.T @ rtt)                     # (n_s, N)
-    C = a2_block @ dresid                                      # (n_u, N)
-    w2 = (a2_block[:, None, :] * a2_block[None, :, :]).reshape(n_u * n_u,
-                                                               n_s)
-    M = (w2 @ dt).reshape(n_u, n_u, -1)
+    dresid = dy if rtt.shape[0] == 0 else dy - dt * (a1_block.T @ rtt)
+    if gram_form(n_u, n_s):
+        C = a2_block @ dresid                                  # (n_u, N)
+        w2 = (a2_block[:, None, :] * a2_block[None, :, :]).reshape(
+            n_u * n_u, n_s)
+        M = (w2 @ dt).reshape(n_u, n_u, -1)
+
+        def grad(g):
+            return C - torch.einsum("uvn,vn->un", M, g)
+    else:
+        def grad(g):
+            return a2_block @ (dresid - dt * (a2_block.T @ g))
     u, u_prev = uut[:n_u].clone(), uut[n_u:].clone()
     a, l_w, l_prev = (scal[k].clone() for k in (A_U, L_W, L_W_PREV))
     for _ in range(n_steps):
         a1 = nesterov_step(a)
         beta = momentum(a, a1, l_prev, l_w)
         u_t = u + beta * (u - u_prev)
-        grad = C - torch.einsum("uvn,vn->un", M, u_t)
-        u, u_prev = torch.clamp(u_t + grad / l_w, 0.0, 1.0), u
+        step = grad(u if lagged else u_t)
+        u, u_prev = torch.clamp(u_t + step / l_w, 0.0, 1.0), u
         a, l_prev = a1, l_w
     rext = torch.cat([rtt, u], dim=0)
     gu = torch.einsum("sn,un,qn->suq", dt, u, rext)

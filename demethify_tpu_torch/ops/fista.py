@@ -21,32 +21,36 @@ def momentum(a0, a1, l_prev, l_cur):
     return torch.minimum((a0 - 1.0) / a1, 0.9999 * torch.sqrt(l_prev / l_cur))
 
 
-def fista_u_gram(u, u_prev, a, l_w_prev, l_w, C, M, n_steps: int):
+def fista_u_gram(u, u_prev, a, l_w_prev, l_w, C, M, n_steps: int,
+                 lagged: bool = False):
     """n_steps FISTA steps on U in Gram form.
 
     u, u_prev, C: (n_cpg, n_u); M: (n_cpg, n_u, n_u). The gradient
-    (D * (Y - Rt a1 - u_t a2)) a2' equals C - M u_t row by row.
-    Returns (u, u_prev, a, l_w_prev).
+    (D * (Y - Rt a1 - u_t a2)) a2' equals C - M u_t row by row. ``lagged``
+    takes it at the old u instead (the reference's unsupervised quirk,
+    ``deconvolution.py:163``). Returns (u, u_prev, a, l_w_prev).
     """
     for _ in range(n_steps):
         a1 = nesterov_step(a)
         beta = momentum(a, a1, l_w_prev, l_w)
         u_t = u + beta * (u - u_prev)
-        grad = C - torch.einsum("iuv,iv->iu", M, u_t)
+        grad = C - torch.einsum("iuv,iv->iu", M, u if lagged else u_t)
         u, u_prev = torch.clamp(u_t + grad / l_w, 0.0, 1.0), u
         a, l_w_prev = a1, l_w
     return u, u_prev, a, l_w_prev
 
 
 def fista_u_direct(u, u_prev, a, l_w_prev, l_w, y, d, R_trunc, a1_block,
-                   a2_block, n_steps: int):
-    """Reference-dataflow U loop; R_trunc=None means no known block."""
+                   a2_block, n_steps: int, lagged: bool = False):
+    """Reference-dataflow U loop; R_trunc=None means no known block,
+    ``lagged`` as for ``fista_u_gram``."""
     y_eff = y if R_trunc is None else y - R_trunc @ a1_block
     for _ in range(n_steps):
         a1 = nesterov_step(a)
         beta = momentum(a, a1, l_w_prev, l_w)
         u_t = u + beta * (u - u_prev)
-        grad = (d * (y_eff - u_t @ a2_block)) @ a2_block.T
+        at = u if lagged else u_t
+        grad = (d * (y_eff - at @ a2_block)) @ a2_block.T
         u, u_prev = torch.clamp(u_t + grad / l_w, 0.0, 1.0), u
         a, l_w_prev = a1, l_w
     return u, u_prev, a, l_w_prev

@@ -1,11 +1,12 @@
-"""High-level deconvolution: init + solve + restarts.
+"""High-level deconvolution: init + solve + restarts, for the four modes.
 
-Counterpart of ``demethify_tpu/solvers/api.py`` for the reference-based
-and partial-reference modes. Routing: tensors on ``cuda`` use the kernel
-solver (``solvers/fused.py``), tensors on ``cpu`` the plain one
-(``solvers/partial_ref.py``); there is no other route. Restarts run as a
-sequential loop with one generator each; the batched multi-member kernel
-(K4-K6) is ROADMAP port queue item 3. The restart with the lowest cost
+Counterpart of ``demethify_tpu/solvers/api.py``: reference-based,
+partial-reference, purity-constrained and unsupervised. Routing: tensors
+on ``cuda`` use the kernel solvers (``solvers/fused.py``), tensors on
+``cpu`` the plain ones (``solvers/partial_ref.py``, ``purity.py``,
+``unsupervised.py``); there is no other route. Restarts run as a
+sequential loop with one generator each; the batched multi-member kernels
+(K4-K6) are ROADMAP port queue item 3. The restart with the lowest cost
 wins (first minimum; a NaN cost never wins).
 """
 
@@ -18,9 +19,15 @@ import torch
 from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
-from demethify_tpu_torch.solvers.fused import partial_ref_solve_fused
-from demethify_tpu_torch.solvers.init import init_partial
+from demethify_tpu_torch.solvers import fused
+from demethify_tpu_torch.solvers.init import (
+    init_partial,
+    init_purity,
+    init_unsupervised,
+)
 from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+from demethify_tpu_torch.solvers.purity import purity_solve
+from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
 
 
 @dataclass
@@ -63,6 +70,21 @@ def supervised_deconv(y, d, R) -> DeconvolutionResult:
                                cost=float(cost), n_iter=0)
 
 
+def _restarts(solve, init_fn, y, seed, n_restarts, init_provided):
+    """Init + solve per restart (one generator each), or once from
+    ``init_provided`` = (u0, alpha0); the first minimum cost wins."""
+    if init_provided is not None:
+        results = [solve(*init_provided)]
+    else:
+        results = [solve(*init_fn(g))
+                   for g in restart_generators(seed, n_restarts, y.device)]
+    u, alpha, info = _select_best(results)
+    return DeconvolutionResult(u=u, proportions=alpha,
+                               cost=float(info["cost"]),
+                               n_iter=int(info["n_iter"]),
+                               trace=info["trace"])
+
+
 def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
                              init: str = "uniform_",
                              seed: int = 1,
@@ -74,28 +96,87 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
                              init_provided=None) -> DeconvolutionResult:
     """Partial-reference mode (``--ref --nbunknown k``). ``init_provided``
     = (u0, alpha0) skips the random init (and makes restarts moot)."""
+    kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
+              tol_relative=tol_relative, record_trace=record_trace)
     if y.device.type == "cuda":
         def solve(u0, a0):
-            return partial_ref_solve_fused(
-                u0, a0, y, d, R_trunc, n_u, n_iter1=n_iter1,
-                n_iter2=n_iter2, tol=tol, tol_relative=tol_relative,
-                record_trace=record_trace)
+            return fused.partial_ref_solve_fused(u0, a0, y, d, R_trunc, n_u,
+                                                 **kw)
     else:
         gram_u = fista.use_gram_u(n_u, y.shape[1], n_iter2)
 
         def solve(u0, a0):
-            return partial_ref_solve(
-                u0, a0, y, d, R_trunc, n_u, n_iter1=n_iter1,
-                n_iter2=n_iter2, tol=tol, use_gram_u=gram_u,
-                tol_relative=tol_relative, record_trace=record_trace)
+            return partial_ref_solve(u0, a0, y, d, R_trunc, n_u,
+                                     use_gram_u=gram_u, **kw)
 
-    if init_provided is not None:
-        results = [solve(*init_provided)]
+    return _restarts(
+        solve, lambda g: init_partial(g, init, y, d, R_trunc, n_u), y, seed,
+        n_restarts, init_provided)
+
+
+def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
+                  init: str = "uniform_",
+                  seed: int = 1,
+                  n_restarts: int = 1,
+                  n_iter1: int = 100, n_iter2: int = 500,
+                  tol: float = 1e-2,
+                  tol_relative: bool = False,
+                  record_trace: bool = False,
+                  init_provided=None) -> DeconvolutionResult:
+    """Purity-constrained mode (``--ref --nbunknown k --purity ...``);
+    purity (n_s,) is the already-flipped 1 - p/100 per-sample vector."""
+    purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
+    kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
+              tol_relative=tol_relative, record_trace=record_trace)
+    if y.device.type == "cuda":
+        def solve(u0, a0):
+            return fused.purity_solve_fused(u0, a0, y, d, R_trunc, purity,
+                                            n_u, **kw)
     else:
-        results = [solve(*init_partial(g, init, y, d, R_trunc, n_u))
-                   for g in restart_generators(seed, n_restarts, y.device)]
-    u, alpha, info = _select_best(results)
-    return DeconvolutionResult(u=u, proportions=alpha,
-                               cost=float(info["cost"]),
-                               n_iter=int(info["n_iter"]),
-                               trace=info["trace"])
+        def solve(u0, a0):
+            return purity_solve(u0, a0, y, d, R_trunc, purity, n_u, **kw)
+
+    return _restarts(
+        solve, lambda g: init_purity(g, init, y, d, R_trunc, n_u), y, seed,
+        n_restarts, init_provided)
+
+
+def unsupervised_deconv(y, d, n_u: int, *,
+                        init: str = "uniform_",
+                        seed: int = 1,
+                        n_restarts: int = 1,
+                        n_iter1: int = 10000, n_iter2: int = 20,
+                        tol: float = 1e-2,
+                        tol_relative: bool = False,
+                        record_trace: bool = False,
+                        init_provided=None) -> DeconvolutionResult:
+    """Unsupervised mode (no ``--ref``): proportions (n_u, n_s) and the
+    profiles of all n_u cell types."""
+    kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
+              tol_relative=tol_relative, record_trace=record_trace)
+    if y.device.type == "cuda":
+        def solve(u0, a0):
+            return fused.unsupervised_solve_fused(u0, a0, y, d, n_u, **kw)
+    else:
+        gram_u = fista.use_gram_u(n_u, y.shape[1], n_iter2)
+
+        def solve(u0, a0):
+            return unsupervised_solve(u0, a0, y, d, n_u, use_gram_u=gram_u,
+                                      **kw)
+
+    return _restarts(
+        solve, lambda g: init_unsupervised(g, init, y, d, n_u), y, seed,
+        n_restarts, init_provided)
+
+
+def deconvolve(y, d, R=None, n_u: int = 0, purity=None,
+               **kwargs) -> DeconvolutionResult:
+    """Dispatch to one of the four modes, as the reference CLI does
+    (``demethify/demethify.py:151-217``)."""
+    if R is None:
+        return unsupervised_deconv(y, d, n_u, **kwargs)
+    if n_u == 0:
+        return supervised_deconv(y, d, R)
+    if purity is not None:
+        return purity_deconv(y, d, R, n_u, purity, **kwargs)
+    return partial_reference_deconv(y, d, R, n_u, **kwargs)

@@ -1,9 +1,13 @@
-"""Initialisation for the partial-reference solve.
+"""Initialisation for the iterative solves.
 
-Counterpart of ``demethify_tpu/solvers/init.py::init_partial`` (reference
-``init_BSSMF_md``): the options uniform, uniform_ and beta, the fallback
-rule (n_u > n_samples forces uniform_) and the zero-guard on the first
-unknown alpha row. Every draw takes an explicit ``torch.Generator``.
+Counterpart of ``demethify_tpu/solvers/init.py``: ``init_partial``
+(reference ``init_BSSMF_md``), ``init_purity`` (``init_BSSMF_md_p``) and
+``init_unsupervised`` (the inlined options of ``unsupervised_deconv``).
+The options uniform, uniform_ and beta; the fallback rule (n_u >
+n_samples forces uniform_, before anything else); the zero-guard on the
+first unknown alpha row in the partial-reference init only. The SVD and
+ICA options are ROADMAP port queue item 4. Every draw takes an explicit
+``torch.Generator``.
 
 torch cannot reproduce ``jax.random`` draws, so the distributions are
 matched instead: Dirichlet(1, ..., 1) columns are column-normalised
@@ -51,20 +55,25 @@ def zero_guard(alpha, n_u: int):
                      dim=0)
 
 
-def init_partial(gen: torch.Generator, init_option: str, y, d, R_trunc,
-                 n_u: int):
-    """-> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)) on y's device and dtype."""
-    n_cpg, n_s = y.shape
-    p = R_trunc.shape[1] + n_u
+def _resolve_option(init_option: str, n_u: int, n_s: int) -> str:
+    """The reference's fallback (n_u > n_samples forces uniform_), then
+    the options this slice has."""
+    if init_option != "uniform_" and n_u > n_s:
+        return "uniform_"
+    if init_option not in INIT_OPTIONS:
+        raise ValueError(f"Unknown init option: {init_option!r}")
     if init_option in ("SVD", "ICA"):
         raise NotImplementedError(
             f"--init {init_option} is ROADMAP port queue item 4 "
             f"(the SVD/ICA inits)")
-    if init_option not in INIT_OPTIONS:
-        raise ValueError(f"Unknown init option: {init_option!r}")
-    if init_option != "uniform_" and n_u > n_s:
-        init_option = "uniform_"
+    return init_option
 
+
+def _draw(gen, init_option, y, d, R_trunc, n_u):
+    """u and alpha of the uniform, uniform_ and beta options; R_trunc
+    (n_cpg, n_ct) or None for no known block."""
+    n_cpg, n_s = y.shape
+    p = n_u if R_trunc is None else R_trunc.shape[1] + n_u
     if init_option == "uniform":
         u = _rand_u(gen, n_cpg, n_u, y)
         alpha = wls_intercept_batch(y, d, torch.cat([R_trunc, u], dim=1))
@@ -74,4 +83,35 @@ def init_partial(gen: torch.Generator, init_option: str, y, d, R_trunc,
     else:                                                    # beta
         u = _rand_beta_half(gen, n_cpg, n_u, y)
         alpha = _rand_dirichlet_ones(gen, p, n_s, y)
+    return u, alpha
+
+
+def init_partial(gen: torch.Generator, init_option: str, y, d, R_trunc,
+                 n_u: int):
+    """-> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)) on y's device and dtype."""
+    option = _resolve_option(init_option, n_u, y.shape[1])
+    u, alpha = _draw(gen, option, y, d, R_trunc, n_u)
     return u, zero_guard(alpha, n_u)
+
+
+def init_purity(gen: torch.Generator, init_option: str, y, d, R_trunc,
+                n_u: int):
+    """Purity-constrained init (reference ``deconvolution.py:228-267``)
+    -> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)). The uniform, uniform_
+    and beta options draw as ``init_partial`` does, without its
+    zero-guard; only the SVD/ICA options (item 4) scale alpha's blocks by
+    the purity."""
+    option = _resolve_option(init_option, n_u, y.shape[1])
+    return _draw(gen, option, y, d, R_trunc, n_u)
+
+
+def init_unsupervised(gen: torch.Generator, init_option: str, y, d,
+                      n_u: int):
+    """Unsupervised init -> (u (n_cpg, n_u), alpha (n_u, n_s)). The
+    reference's 'uniform' branch reads an undefined variable
+    (``deconvolution.py:117``), so, as in the JAX package, it takes the
+    'uniform_' draws; no zero-guard."""
+    option = _resolve_option(init_option, n_u, y.shape[1])
+    if option == "uniform":
+        option = "uniform_"
+    return _draw(gen, option, y, d, None, n_u)

@@ -1,0 +1,75 @@
+"""Purity-constrained partial-reference deconvolution, plain PyTorch.
+
+Counterpart of ``demethify_tpu/solvers/purity.py`` (reference
+``mdwbssmf_deconv_p``, ``deconvolution.py:305-337``): the U update of the
+partial-reference solve, then ``n_iter2`` (default 500) Frank-Wolfe steps
+on alpha over the per-sample purity-scaled simplexes, on the per-sample
+Grams (``ops/frank_wolfe.frank_wolfe_gram``); the termination cost falls
+out of the same Grams. This is the CPU path and the oracle the kernel
+solver (``solvers/fused.purity_solve_fused``) is held against on the GPU.
+``row_weights`` waits for the bootstrap slice.
+"""
+
+import torch
+
+from demethify_tpu_torch.ops import fista
+from demethify_tpu_torch.ops.cost import weighted_cost, weighted_cost_gram
+from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
+from demethify_tpu_torch.ops.gram import (
+    accum_dtype,
+    known_block_grams,
+    sample_grams_incremental,
+    site_curvature,
+    u_constant_term,
+)
+
+
+def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
+                 n_iter1: int = 100, n_iter2: int = 500, tol: float = 1e-2,
+                 use_gram_u: bool = True, record_trace: bool = False,
+                 tol_relative: bool = False):
+    """u (n_cpg, n_u); alpha (p, n_s) stacked [known; unknown]; purity
+    (n_s,) the known-block mass of each sample, already flipped to
+    1 - p/100 (reference ``demethify.py:77``). Returns (u, alpha, info) as
+    ``partial_ref_solve`` does."""
+    dtype = accum_dtype(y)
+    u = u.to(dtype)
+    alpha = alpha.to(dtype)
+    R_trunc = R_trunc.to(dtype)
+    purity = purity.to(dtype)
+    dmax2 = torch.max(d).to(dtype) ** 2
+    R0 = torch.cat([R_trunc, u], dim=1)
+    l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
+    cf = weighted_cost(y, R0, alpha, d)
+    tol = tol * cf if tol_relative else tol
+    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y)
+
+    trace = torch.full((n_iter1 if record_trace else 0,), float("nan"),
+                       dtype=dtype, device=y.device)
+    u_prev = u
+    a1 = torch.ones((), dtype=dtype, device=y.device)
+    l_w_prev = l_w
+    cf_prev = torch.full((), float("inf"), dtype=dtype, device=y.device)
+    k = 0
+    while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
+        a1_block, a2_block = alpha[:-n_u], alpha[-n_u:]
+        if use_gram_u:
+            C = u_constant_term(y, d, R_trunc, a1_block, a2_block)
+            M = site_curvature(d, a2_block)
+            u, u_prev, a1, l_w_prev = fista.fista_u_gram(
+                u, u_prev, a1, l_w_prev, l_w, C, M, n_iter2)
+        else:
+            u, u_prev, a1, l_w_prev = fista.fista_u_direct(
+                u, u_prev, a1, l_w_prev, l_w, y, d, R_trunc, a1_block,
+                a2_block, n_iter2)
+
+        G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y)
+        alpha1, alpha2 = frank_wolfe_gram(a1_block, a2_block, G, b, purity,
+                                          n_iter2)
+        alpha = torch.cat([alpha1, alpha2], dim=0)
+        l_w = torch.sum(alpha2 * alpha2) * dmax2
+        cf_prev, cf = cf, weighted_cost_gram(G, b, ydy, alpha)
+        if record_trace:
+            trace[k] = cf
+        k += 1
+    return u, alpha, {"cost": cf, "n_iter": k, "trace": trace}

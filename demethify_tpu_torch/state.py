@@ -4,7 +4,8 @@ and the data (Y, D, R).
 ``from_numpy`` takes the JAX package's arrays in its layout (the
 ``init_provided`` contract of its ``solvers/api.py`` and the argument order
 of ``partial_ref_solve_fused``) and returns the port's tensors;
-``to_numpy`` goes back. Reading the JAX package's orbax checkpoints is
+``purity_from_numpy`` does the same for the purity vector of the purity
+mode; ``to_numpy`` goes back. Reading the JAX package's orbax checkpoints is
 ROADMAP port queue item 5.
 """
 
@@ -22,6 +23,18 @@ def from_numpy(u, alpha, y, d, R_trunc, *, device, dtype):
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=device, dtype=dtype)
     return tuple(conv(x) for x in (u, alpha, y, d, R_trunc))
+
+
+def purity_from_numpy(purity, *, device, dtype):
+    """The JAX package's purity vector (n_s,) -> a contiguous tensor on
+    ``device`` in ``dtype``. It is the known-block mass of each sample,
+    already flipped to 1 - p/100 from the percentages the CLI takes, as
+    ``purity_solve`` of both packages expects it."""
+    purity = np.ascontiguousarray(purity)
+    if purity.ndim != 1:
+        raise ValueError(f"purity must be one value per sample, got shape "
+                         f"{purity.shape}")
+    return torch.as_tensor(purity).to(device=device, dtype=dtype)
 
 
 def to_numpy(*tensors):

@@ -102,15 +102,15 @@ def test_partial_ref_close_to_jax(tmp_path, fixture_files):
     assert prof_t.shape == prof_j.shape == (N_CPG, 1)
 
 
-@pytest.mark.parametrize("flag", [["--purity", "50", "50", "50", "50"],
+@pytest.mark.parametrize("flag", [["--confidence", "95", "10"],
                                   ["--ic", "AIC"], ["--savestate", "x"],
-                                  ["--dtype", "bfloat16"], ["--no-ref"]])
+                                  ["--dtype", "bfloat16"], ["--shard"]])
 def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,
                                                flag, capsys):
     samples, ref = fixture_files
     argv = ["--methfreq", *samples, "--bedmethyl", "--noprint",
-            "--outdir", str(tmp_path / "o"), "--device", "cpu"]
-    argv += [] if flag == ["--no-ref"] else ["--ref", ref, *flag]
+            "--outdir", str(tmp_path / "o"), "--device", "cpu",
+            "--ref", ref, *flag]
     with pytest.raises(SystemExit) as exc:
         torch_cli_main(argv)
     assert "ROADMAP port queue item" in str(exc.value.code)

@@ -23,7 +23,9 @@ def _all_modules():
 
 def test_every_module_imports_without_jax():
     names = _all_modules()
-    assert "demethify_tpu_torch.solvers.fused" in names
+    for mod in ("solvers.fused", "solvers.purity", "solvers.unsupervised",
+                "ops.frank_wolfe", "ops.cuda_small", "ops.cuda_kernels"):
+        assert f"demethify_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"

@@ -162,22 +162,22 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("bad", ["n_u5", "direct_form", "no_known",
+@pytest.mark.parametrize("bad", ["n_u9", "no_sites", "shape",
                                  "noncontig", "dtype"])
 def test_u_phase_grams_rejects(bad):
-    n_u = 5 if bad == "n_u5" else (3 if bad == "direct_form" else 1)
-    n_s = 2 if bad == "direct_form" else N_S
-    n_ct = 0 if bad == "no_known" else N_CT
+    n_u = 9 if bad == "n_u9" else 1
+    n = 0 if bad == "no_sites" else 8
+    n_s, n_ct = N_S, N_CT
     dt = torch.float16 if bad == "dtype" else torch.float64
-    ydt = torch.zeros((2 * n_s, 8), dtype=dt)
-    rtt = torch.zeros((n_ct, 8), dtype=dt)
+    ydt = torch.zeros((2 * n_s, n), dtype=dt)
+    rtt = torch.zeros((n_ct + (bad == "shape"), n), dtype=dt)
     if bad == "noncontig":
-        rtt = torch.zeros((8, n_ct), dtype=dt).T
+        rtt = torch.zeros((n, n_ct), dtype=dt).T
     a1 = torch.zeros((n_ct, n_s), dtype=dt)
     a2 = torch.zeros((n_u, n_s), dtype=dt)
-    uut = torch.zeros((2 * n_u, 8), dtype=dt)
+    uut = torch.zeros((2 * n_u, n), dtype=dt)
     scal = torch.zeros(N_SCAL, dtype=dt)
-    expected = {"noncontig": ValueError, "dtype": TypeError}.get(
-        bad, NotImplementedError)
-    with pytest.raises(expected):
+    expected = {"dtype": TypeError, "n_u9": NotImplementedError}.get(
+        bad, ValueError)
+    with pytest.raises(expected, match="item 12" if bad == "n_u9" else None):
         cuda_kernels.u_phase_grams(ydt, rtt, a1, a2, uut, scal, 3)
