@@ -20,22 +20,39 @@ non-zero and prints no result line):
 5. K3 ``fw_phase_full`` against its twin at p = 6 and p = 26, 500
    Frank-Wolfe steps, float32 and float64, with the count of (step,
    column) vertex choices that differ from the twin's at the same iterate;
+   then the multi-member kernels of the batched restarts against their
+   twins, float32 and float64, with some members inactive (their state
+   must come back bit-unchanged) and one active member against the
+   single-member kernel on its own inputs (bit for bit?): K4
+   ``u_phase_grams_multi`` at 1M sites (5 + 1, B = 16, 20 steps; n_ct = 0,
+   n_u = 3, lagged, B = 8; 5 + 1, B = 8, 500 steps), K5
+   ``alpha_phase_full_multi`` (B = 16, p = 6 and p = 3 without a known
+   block) and K6 ``fw_phase_full_multi`` (B = 8, p = 6, 500 steps, with
+   its vertex flips counted);
 6. solvers: each kernel solver against its plain solver on the card in
    float64 at 200k sites (partial-reference 50 x 20 in float32 too,
-   purity 20 x 500, unsupervised 50 x 20: cost trajectories, alpha);
-7. the three paths at full width, each with the launch counters set to 0
-   just before it and read just after: the main path, ``bench.py``'s
-   workload (1M x 10, 5 + 1, float32, 1000 x 20, tol = 0) through
+   purity 20 x 500, unsupervised 50 x 20: cost trajectories, alpha); the
+   three multi-member kernel solvers (B = 4, float64, 200k sites) against
+   the plain solver and against the sequential single-member kernel
+   solver on each member, and a loose relative tol at which the members
+   stop at different iterations;
+7. the paths at full width, each with the launch counters set to 0 just
+   before it and read just after: the main path, ``bench.py``'s workload
+   (1M x 10, 5 + 1, float32, 1000 x 20, tol = 0) through
    ``solvers.api.partial_reference_deconv``; the purity path (1M x 10,
    5 + 1, purity drawn in [0.3, 0.9], float32, 100 x 500) through
    ``purity_deconv``; the unsupervised path (1M x 10, n_u = 3, float32,
    1000 x 20) through ``unsupervised_deconv``; each beside the plain
-   solver;
+   solver; then the batched random restarts through the same entry
+   points: partial-reference with 16 restarts, purity and unsupervised
+   with 8, beside the sequential loop's figure per restart;
 8. CLI: a simulated 50,000-site bedmethyl fixture through
-   ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``.
+   ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
+   and with ``--restart 4`` in the three iterative modes.
 
 The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
+package, and checks that the port's sources reach no file of it.
 """
 
 import json
@@ -81,6 +98,9 @@ K3_TOL = {"float64": 1e-12, "float32": 1e-5}
 # two solvers' costs agree only to ~1e-3 relative; float64 is tight.
 TRAJ_TOL = {"float64": {"cost": 1e-9, "alpha": 1e-9},
             "float32": {"cost": 1e-2, "alpha": 2e-3}}
+# a relative tolerance at which the members of the loose-tol comparison
+# stop at different iterations (33 to 67 on the 200k problem, 6 members)
+LOOSE_TOL = 1e-5
 # the full-width runs in float64 (rounding grows along the flat direction
 # over 1000 iterations; ~1e6 x eps on this problem)
 LONG_TOL64 = {"cost": 1e-9, "alpha": 1e-6}
@@ -129,10 +149,12 @@ def timed_ms(fn):
 
 
 def counters():
-    from demethify_tpu_torch.ops import cuda_kernels, cuda_small
+    from demethify_tpu_torch.ops import cuda_kernels, cuda_multi, cuda_small
 
     return (cuda_kernels.u_phase_grams, cuda_small.alpha_phase_full,
-            cuda_small.fw_phase_full)
+            cuda_small.fw_phase_full, cuda_multi.u_phase_grams_multi,
+            cuda_small.alpha_phase_full_multi,
+            cuda_small.fw_phase_full_multi)
 
 
 def reset_counts():
@@ -142,6 +164,57 @@ def reset_counts():
 
 def read_counts():
     return {fn.__name__: fn.launches for fn in counters()}
+
+
+def expect_counts(launches, **want):
+    """True when the named kernels launched ``want`` times and every
+    other kernel not at all."""
+    return all(launches[name] == want.get(name, 0) for name in launches)
+
+
+# ------------------------------------------------------------------ bounds
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the peak rate of their type
+# (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32 and
+# 34 TFLOP/s float64 outside the tensor cores).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
+
+
+def bound(n_bytes, flops, dtype_name):
+    """(bound_ms, bound_by) of work of n_bytes and flops."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOP_S[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, n_members=1):
+    """(bytes, flops) of K1 (one member) or K4 (n_members active members)
+    on n sites: Y, D, Rt read once; each member's u, u_prev read and
+    written; per site and member the C/M build, the FISTA steps and the
+    Gram sums of the new u (the scalar momentum chain, the same for every
+    site, is not counted)."""
+    p = n_ct + n_u
+    n_bytes = itemsize * n * ((2 * n_s + n_ct) + n_members * 4 * n_u)
+    per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 3 * n_u * (n_u + 1) // 2)
+                + steps * (6 * n_u + 2 * n_u * n_u)
+                + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u)
+    return n_bytes, per_site * n * n_members
+
+
+def glue_work(p, n_s, n_ct, steps, itemsize, n_members=1, fw=False):
+    """(bytes, flops) of K2/K5 (alpha FISTA) or K3/K6 (Frank-Wolfe, ``fw``)
+    for n_members members: the shared known blocks read once; each
+    member's K1/K4 blocks read and its alpha (and alpha_prev) read and
+    written; per step and column the p x p product and the projection or
+    the block argmin (about 6 p operations)."""
+    n_u = p - n_ct
+    shared = n_s * n_ct * n_ct + n_ct * n_s + n_s
+    member = n_s * n_u * p + n_u * n_s + 1 + (2 if fw else 4) * p * n_s
+    flops = n_members * n_s * (steps * (2 * p * p + 6 * p) + 4 * p * p)
+    return itemsize * (shared + n_members * member), flops
 
 
 # ---------------------------------------------------------------- phase 1
@@ -455,6 +528,368 @@ def phase_k3():
     return cases[0]
 
 
+# ------------------------------------------------------- phases 5b-5d: K4-K6
+def _multi_inputs(n, n_s, n_ct, n_u, n_b, dtype, seed, inactive=()):
+    """Shared Y, D, Rt of a K1-style problem and B members' alpha stack,
+    [u.T; u_prev.T] rows and scalar rows (the members in ``inactive``
+    frozen) on the card."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, ACTIVE, L_W, L_W_PREV, N_SCAL_MULTI)
+
+    ydt, rtt, _, _, _ = _k1_inputs(n, n_s, n_ct, n_u, dtype, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    e = torch.empty((n_b, n_ct + n_u, n_s), device=DEV,
+                    dtype=dtype).exponential_(generator=g)
+    alpha_b = (e / e.sum(1, keepdim=True)).contiguous()
+    u = torch.rand((n_b, n_u, n), generator=g, device=DEV, dtype=dtype)
+    u_prev = (u + 0.05 * torch.randn(u.shape, generator=g, device=DEV,
+                                     dtype=dtype)).clamp(0, 1)
+    uut_b = torch.cat([u, u_prev], dim=1).contiguous()
+    l_w = torch.sum(alpha_b[:, -n_u:] ** 2, dim=(1, 2)) * ydt[n_s:].max() ** 2
+    scal_b = torch.zeros((n_b, N_SCAL_MULTI), device=DEV, dtype=dtype)
+    scal_b[:, A_U] = 1.0 + 2.0 * torch.rand(n_b, generator=g, device=DEV,
+                                            dtype=dtype)
+    scal_b[:, L_W], scal_b[:, L_W_PREV] = l_w, 0.9 * l_w
+    scal_b[:, ACTIVE] = 1.0
+    scal_b[list(inactive), ACTIVE] = 0.0
+    return ydt, rtt if n_ct else None, alpha_b, uut_b, scal_b
+
+
+def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
+             inactive=(), seed=20, timed=False, label=""):
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, ACTIVE, L_W_PREV, N_SCAL, SITES_PER_BLOCK, gram_entries,
+        u_phase_grams)
+    from demethify_tpu_torch.ops.cuda_multi import (
+        u_phase_grams_multi, u_phase_grams_multi_plain)
+
+    dtype = getattr(torch, dtype_name)
+    ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+        N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    a1 = alpha_b[:, :-n_u] if n_ct else None
+    a2 = alpha_b[:, -n_u:]
+    uk, sk = uut_b.clone(), scal_b.clone()
+    gk, bk, qk = u_phase_grams_multi(ydt, rtt, a1, a2, uk, sk, steps, lagged)
+    up, sp = uut_b.clone(), scal_b.clone()
+    gp, bp, qp = u_phase_grams_multi_plain(ydt, rtt, a1, a2, up, sp, steps,
+                                           lagged)
+    torch.cuda.synchronize()
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_u = float((uk[act] - up[act]).abs().max())
+    scale = gp[act].abs().amax(dim=(1, 2, 3))
+    err_g = float(((gk[act] - gp[act]).abs().amax(dim=(1, 2, 3))
+                   / scale).max())
+    err_b = float(((bk[act] - bp[act]).abs().amax(dim=(1, 2))
+                   / scale).max())
+    err_q = float(((qk[act] - qp[act]).abs() / qp[act].abs()).max())
+    err_s = float(((sk[act] - sp[act]).abs()
+                   / sp[act].abs().clamp_min(1e-30)).max())
+    frozen = (torch.equal(uk[ina], uut_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    # the first active member against K1 on the same inputs: bit for bit?
+    b0 = act[0]
+    u1, s1 = uut_b[b0].clone(), scal_b[b0, :N_SCAL].clone()
+    g1, b1, q1 = u_phase_grams(ydt, rtt, None if a1 is None else a1[b0],
+                               a2[b0], u1, s1, steps, lagged)
+    torch.cuda.synchronize()
+    same_k1 = (torch.equal(u1, uk[b0]) and torch.equal(g1, gk[b0])
+               and torch.equal(b1, bk[b0]) and torch.equal(q1, qk[b0])
+               and torch.equal(s1[[A_U, L_W_PREV]], sk[b0, [A_U, L_W_PREV]]))
+    tol = TOL[dtype_name]
+    res = {"n": N_CPG, "n_ct": n_ct, "n_u": n_u, "members": n_b,
+           "inactive": ina, "steps": steps, "lagged": lagged,
+           "dtype": dtype_name, "u_max_abs": err_u, "gu_rel": err_g,
+           "b_u_rel": err_b, "usq_rel": err_q, "scal_rel": err_s,
+           "frozen_unchanged": frozen, "member_equals_k1": same_k1}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        u_all = uut_b.clone()
+        res["ms"] = median_ms(lambda: u_phase_grams_multi(
+            ydt, rtt, a1, a2, u_all, s_all, steps, lagged), inner=3)
+        res["plain_ms"] = median_ms(lambda: u_phase_grams_multi_plain(
+            ydt, rtt, a1, a2, up, sp, steps, lagged), reps=3, inner=1,
+            warmup=1)
+        res["k1_ms"] = median_ms(lambda: u_phase_grams(
+            ydt, rtt, None if a1 is None else a1[0], a2[0], u1, s1, steps,
+            lagged), inner=10)
+        n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+                                      ydt.element_size(), n_b)
+        res["bytes"] = n_bytes
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+        res["partial_bytes"] = (ydt.element_size() * n_b
+                                * gram_entries(N_S, n_ct, n_u)
+                                * -(-N_CPG // SITES_PER_BLOCK))
+    log(f"[K4]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
+        f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
+        f"{dtype_name}: active members' u/u_prev max|diff| {err_u:.3e} (tol "
+        f"{tol['u']:.0e}); gu rel {err_g:.3e}, b_u rel {err_b:.3e}, usq rel "
+        f"{err_q:.3e} (tol {tol['gram']:.0e}); scalars rel {err_s:.3e}; "
+        f"inactive members bit-unchanged: {frozen}; member {b0} "
+        f"bit-identical to K1 on its inputs: {same_k1}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+           f"{res['plain_ms']:.4f} ms, K1 alone {res['k1_ms']:.4f} ms x "
+           f"{n_b} = {n_b * res['k1_ms']:.4f} ms; {res['bytes'] / 1e6:.1f} "
+           f"MB to move, bound {res['bound_ms']:.4f} ms ({res['bound_by']}),"
+           f" partial buffer {res['partial_bytes'] / 1e6:.1f} MB"
+           if timed else ""))
+    check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K4 non-finite")
+    check(err_u <= tol["u"], f"K4 u differs from its twin by {err_u}")
+    check(max(err_g, err_b, err_q) <= tol["gram"],
+          f"K4 Grams differ from the twin by {max(err_g, err_b, err_q)}")
+    check(err_s <= tol["gram"], f"K4 scalars differ by {err_s}")
+    check(frozen, "K4 changed an inactive member")
+    return res
+
+
+def phase_k4():
+    inactive = (3, 7, 11)
+    main = _k4_case(N_U, "float32", 16, N_INNER, inactive=inactive,
+                    timed=True, label="[restarts]")
+    _k4_case(N_U, "float64", 16, N_INNER, inactive=inactive)
+    uns = _k4_case(U_N_U, "float32", 8, N_INNER, n_ct=0, lagged=True,
+                   inactive=(5,), seed=21, timed=True,
+                   label="[unsupervised]")
+    _k4_case(U_N_U, "float64", 8, N_INNER, n_ct=0, lagged=True,
+             inactive=(5,), seed=21)
+    pur = _k4_case(N_U, "float32", 8, P_INNER, inactive=(2,), seed=22,
+                   timed=True, label="[purity]")
+    _k4_case(N_U, "float64", 8, P_INNER, inactive=(2,), seed=22)
+    return main, uns, pur
+
+
+def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed):
+    """Shared known blocks and B members' K4 blocks (from K4's twin) of a
+    200k-site problem, alpha stacks and scalar rows on the card."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, COST, DMAX2, L_H_PREV, RT_SQ, TOL)
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi_plain
+    from demethify_tpu_torch.ops.gram import known_block_grams
+
+    dtype = getattr(torch, dtype_name)
+    n = 200_000
+    ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+        n, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    gu, bu, usq = u_phase_grams_multi_plain(
+        ydt, rtt, alpha_b[:, :-n_u] if n_ct else None, alpha_b[:, -n_u:],
+        uut_b.clone(), scal_b.clone(), 3)
+    rt = ydt.new_empty((n, 0)) if rtt is None else rtt.T
+    gtt, bt, ydy = (x.contiguous() for x in known_block_grams(
+        rt, ydt[N_S:].T, ydt[:N_S].T))
+    dmax2 = ydt[N_S:].max() ** 2
+    rt_sq = torch.sum(rt * rt)
+    g = torch.Generator(device=DEV).manual_seed(seed + 2000)
+    scal_b[:, A_ALPHA] = 1.0 + torch.rand(n_b, generator=g, device=DEV,
+                                          dtype=dtype)
+    scal_b[:, RT_SQ], scal_b[:, DMAX2] = rt_sq, dmax2
+    scal_b[:, L_H_PREV] = 1.05 * (rt_sq + usq) * dmax2
+    scal_b[:, COST], scal_b[:, TOL] = 0.0, 0.0
+    e = torch.empty_like(alpha_b).exponential_(generator=g)
+    alpha_prev_b = (e / e.sum(1, keepdim=True)).contiguous()
+    return (gtt, bt, gu.contiguous(), bu.contiguous(), usq.contiguous(),
+            ydy, alpha_b, alpha_prev_b, scal_b)
+
+
+def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, N_SCAL
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, alpha_phase_full_multi,
+        alpha_phase_full_multi_plain)
+
+    (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+     scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed)
+    args = (gtt, bt, gu, bu, usq, ydy)
+    ak, apk, sk = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
+    alpha_phase_full_multi(*args, ak, apk, sk, N_INNER, n_u)
+    ap_, app, sp = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
+    alpha_phase_full_multi_plain(*args, ap_, app, sp, N_INNER, n_u)
+    torch.cuda.synchronize()
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_a = float(torch.maximum((ak[act] - ap_[act]).abs().max(),
+                                (apk[act] - app[act]).abs().max()))
+    scale = float(ydy.sum())
+    err_c = float((sk[act, COST] - sp[act, COST]).abs().max()) / scale
+    err_s = float(((sk[act, :N_SCAL] - sp[act, :N_SCAL]).abs()
+                   / sp[act, :N_SCAL].abs().clamp_min(1e-30)).max())
+    flags = torch.equal(sk[:, ACTIVE], sp[:, ACTIVE])
+    frozen = (torch.equal(ak[ina], alpha_b[ina])
+              and torch.equal(apk[ina], alpha_prev_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    b0 = act[0]
+    a1, ap1, s1 = (alpha_b[b0].clone(), alpha_prev_b[b0].clone(),
+                   scal_b[b0, :N_SCAL].clone())
+    alpha_phase_full(gtt, bt, gu[b0], bu[b0], usq[b0:b0 + 1], ydy, a1, ap1,
+                     s1, N_INNER, n_u)
+    torch.cuda.synchronize()
+    same_k2 = (torch.equal(a1, ak[b0]) and torch.equal(ap1, apk[b0])
+               and torch.equal(s1, sk[b0, :N_SCAL]))
+    p = n_ct + n_u
+    tol = TOL[dtype_name]
+    res = {"p": p, "n_ct": n_ct, "members": n_b, "inactive": ina,
+           "dtype": dtype_name, "alpha_max_abs": err_a,
+           "cost_rel_to_sum_ydy": err_c, "scal_rel": err_s,
+           "frozen_unchanged": frozen, "member_equals_k2": same_k2}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        a_all, ap_all = alpha_b.clone(), alpha_prev_b.clone()
+        res["ms"] = median_ms(lambda: alpha_phase_full_multi(
+            *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
+        res["plain_ms"] = median_ms(lambda: alpha_phase_full_multi_plain(
+            *args, ap_, app, sp, N_INNER, n_u), inner=5)
+        n_bytes, flops = glue_work(p, N_S, n_ct, N_INNER,
+                                   alpha_b.element_size(), n_b)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+    log(f"[K5] B={n_b} (inactive {ina}) p={p} n_ct={n_ct} n_s={N_S} "
+        f"{N_INNER} steps {dtype_name}: active alpha/alpha_prev max|diff| "
+        f"{err_a:.3e} (tol {tol['alpha']:.0e}); cost diff / sum(ydy) "
+        f"{err_c:.3e}, scalars rel {err_s:.3e} (tol {tol['cost']:.0e}); "
+        f"active flags equal: {flags}; inactive members bit-unchanged: "
+        f"{frozen}; member {b0} bit-identical to K2: {same_k2}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms"
+           if timed else ""))
+    check(np.isfinite([err_a, err_c, err_s]).all(), "K5 non-finite")
+    check(err_a <= tol["alpha"], f"K5 alpha differs by {err_a}")
+    check(max(err_c, err_s) <= tol["cost"], "K5 cost / scalars differ")
+    check(flags and frozen, "K5 active flags or an inactive member differ")
+    return res
+
+
+def phase_k5():
+    main = _k5_case(N_CT, N_U, "float32", 16, (2, 9), timed=True)
+    _k5_case(N_CT, N_U, "float64", 16, (2, 9))
+    _k5_case(0, U_N_U, "float32", 16, (4,), seed=31)
+    _k5_case(0, U_N_U, "float64", 16, (4,), seed=31)
+    return main
+
+
+def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
+    """K6's (step, column) vertex choices that differ from the twin's LMO
+    at the same iterate, over the given members (as ``_fw_flips``)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_small import (
+        assemble_G_b_multi, fw_phase_full_multi)
+
+    gtt, bt, gu, bu, ydy = args
+    traj = [alpha0_b.clone()]
+    for k in range(1, n_steps + 1):
+        a = alpha0_b.clone()
+        fw_phase_full_multi(gtt, bt, gu, bu, ydy, a, purity, scal_b.clone(),
+                            k, n_u)
+        traj.append(a)
+    traj = torch.stack(traj)[:, members]          # (n_steps + 1, B', p, n_s)
+    G, b = assemble_G_b_multi(gtt, bt, gu, bu)
+    G, b = G[members], b[members]
+    n_ct = alpha0_b.shape[1] - n_u
+    k = torch.arange(n_steps, device=alpha0_b.device, dtype=alpha0_b.dtype)
+    gamma = (2.0 / (k + 2.0))[:, None, None, None]
+    vert = (traj[1:] - (1.0 - gamma) * traj[:-1]) / gamma
+    grad = torch.einsum("bspq,kbqs->kbps", G, traj[:-1]) - b
+    flips = 0
+    for lo, hi in ((0, n_ct), (n_ct, alpha0_b.shape[1])):
+        want = torch.argmin(grad[:, :, lo:hi], dim=2)
+        got = torch.argmax(vert[:, :, lo:hi], dim=2)
+        flips += int((want != got).sum())
+    return flips
+
+
+def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W, N_SCAL
+    from demethify_tpu_torch.ops.cuda_small import (
+        fw_phase_full, fw_phase_full_multi, fw_phase_full_multi_plain)
+
+    (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+     scal_b) = _glue_multi_inputs(N_CT, N_U, dtype_name, n_b, inactive, seed)
+    rng = np.random.default_rng(seed)
+    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S), device=DEV,
+                             dtype=alpha_b.dtype)
+    alpha_b = torch.cat([
+        alpha_b[:, :N_CT] / alpha_b[:, :N_CT].sum(1, keepdim=True) * purity,
+        alpha_b[:, N_CT:] / alpha_b[:, N_CT:].sum(1, keepdim=True)
+        * (1 - purity)], dim=1).contiguous()
+    args = (gtt, bt, gu, bu, ydy)
+    ak, sk = alpha_b.clone(), scal_b.clone()
+    fw_phase_full_multi(*args, ak, purity, sk, P_INNER, N_U)
+    ap_, sp = alpha_b.clone(), scal_b.clone()
+    fw_phase_full_multi_plain(*args, ap_, purity, sp, P_INNER, N_U)
+    torch.cuda.synchronize()
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_a = float((ak[act] - ap_[act]).abs().max())
+    scale = float(ydy.sum())
+    err_c = float((sk[act, COST] - sp[act, COST]).abs().max()) / scale
+    err_w = float(((sk[act, L_W] - sp[act, L_W]).abs()
+                   / sp[act, L_W].abs()).max())
+    err_m = float((ak[act, :N_CT].sum(1) - purity).abs().max())
+    frozen = (torch.equal(ak[ina], alpha_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, P_INNER, act)
+    b0 = act[0]
+    a1, s1 = alpha_b[b0].clone(), scal_b[b0, :N_SCAL].clone()
+    fw_phase_full(gtt, bt, gu[b0], bu[b0], ydy, a1, purity, s1, P_INNER, N_U)
+    torch.cuda.synchronize()
+    same_k3 = torch.equal(a1, ak[b0]) and torch.equal(s1, sk[b0, :N_SCAL])
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
+    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / P_INNER
+    res = {"p": N_CT + N_U, "members": n_b, "inactive": ina,
+           "dtype": dtype_name, "alpha_max_abs": err_a,
+           "cost_rel_to_sum_ydy": err_c, "l_w_rel": err_w, "flips": flips,
+           "tol_alpha": tol_a, "frozen_unchanged": frozen,
+           "member_equals_k3": same_k3}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        a_all = alpha_b.clone()
+        res["ms"] = median_ms(lambda: fw_phase_full_multi(
+            *args, a_all, purity, s_all, P_INNER, N_U), inner=10)
+        res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
+            *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
+            warmup=1)
+        n_bytes, flops = glue_work(N_CT + N_U, N_S, N_CT, P_INNER,
+                                   alpha_b.element_size(), n_b, fw=True)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+    log(f"[K6] B={n_b} (inactive {ina}) p={N_CT + N_U} n_s={N_S} {P_INNER} "
+        f"steps {dtype_name}: active alpha max|diff| {err_a:.3e} (tol "
+        f"{tol_a:.1e}); vertex choices that differ from the twin's at the "
+        f"same iterate: {flips} of {2 * P_INNER * N_S * len(act)}; cost "
+        f"diff / sum(ydy) {err_c:.3e}, l_w rel {err_w:.3e} (tol "
+        f"{tol_c:.0e}); known mass - purity {err_m:.2e}; inactive members "
+        f"bit-unchanged: {frozen}; member {b0} bit-identical to K3: "
+        f"{same_k3}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms"
+           if timed else ""))
+    check(np.isfinite([err_a, err_c, err_w]).all(), "K6 non-finite")
+    check(err_a <= tol_a, f"K6 alpha differs from its twin by {err_a}")
+    check(dtype_name == "float32" or flips == 0,
+          f"K6 float64 vertex choices differ ({flips})")
+    check(max(err_c, err_w) <= tol_c, "K6 cost / l_w differ")
+    check(err_m <= 10 * K3_TOL[dtype_name] + 1e-6,
+          f"K6 known-block mass off the purity by {err_m}")
+    check(frozen, "K6 changed an inactive member")
+    return res
+
+
+def phase_k6():
+    main = _k6_case("float32", timed=True)
+    _k6_case("float64")
+    return main
+
+
 # ---------------------------------------------------------------- phase 6
 def make_problem(dtype=np.float32, seed=0, n_cpg=None):
     """bench.py's workload recipe (numpy, seeded), at N_CPG sites unless
@@ -537,6 +972,112 @@ def phase_solver_trajectory():
              fused.unsupervised_solve_fused(u, alpha, y, d, U_N_U, **kw),
              unsupervised_solve(u, alpha, y, d, U_N_U, **kw),
              TRAJ_TOL["float64"], 50)
+
+
+def _member_inits(n_cpg, n_b, n_ct, n_u, seed, purity=None):
+    """B members' seeded initial factors (numpy): u (B, n_cpg, n_u) and
+    alpha (B, p, n_s), the known rows scaled to ``purity`` when given."""
+    rng = np.random.default_rng(seed + 300)
+    u_b = rng.uniform(size=(n_b, n_cpg, n_u))
+    a_b = np.stack([rng.dirichlet(np.ones(n_ct + n_u), size=N_S).T
+                    for _ in range(n_b)])
+    if purity is not None:
+        a_b[:, :n_ct] *= purity / a_b[:, :n_ct].sum(1, keepdims=True)
+        a_b[:, n_ct:] *= (1 - purity) / a_b[:, n_ct:].sum(1, keepdims=True)
+    return u_b, a_b
+
+
+def _multi_vs_members(tag, multi, members, against, tol):
+    """The multi solver's members against per-member solves: n_iter each,
+    cost trace and alpha max|diff|; 'bit-identical' when u, alpha, cost
+    and trace are all equal."""
+    import torch
+
+    u_b, a_b, info = multi
+    n_iters, errs_a, errs_c, same = [], [], [], []
+    for b, (u1, a1, i1) in enumerate(members):
+        n_iters.append((int(info["n_iter"][b]), int(i1["n_iter"])))
+        errs_a.append(float((a_b[b] - a1).abs().max()))
+        tk = info["trace"][b].double().cpu().numpy()
+        t1 = i1["trace"].double().cpu().numpy()
+        live = ~np.isnan(t1)
+        errs_c.append(float(np.max(np.abs(tk[live] - t1[live])
+                                   / np.abs(t1[live]))))
+        same.append(torch.equal(u_b[b], u1) and torch.equal(a_b[b], a1)
+                    and bool((info["cost"][b] == i1["cost"]).item())
+                    and np.array_equal(tk, t1, equal_nan=True))
+    verdict = ("bit-identical" if all(same) else
+               f"alpha max|diff| {max(errs_a):.3e}, cost trace max rel "
+               f"diff {max(errs_c):.3e} (tol {tol:.0e})")
+    log(f"[multi] {tag} vs {against}: n_iter per member (multi, other) "
+        f"{n_iters}; {verdict}")
+    check(all(m == o for m, o in n_iters), f"{tag}: n_iter differs")
+    check(max(errs_a) <= tol and max(errs_c) <= tol,
+          f"{tag}: members differ from {against}")
+    return all(same), n_iters
+
+
+def phase_multi_solvers():
+    """The three multi-member kernel solvers, float64 at 200k sites, from
+    the same stacked inits: against the plain solver on each member, and
+    against the sequential single-member kernel solver."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+    from demethify_tpu_torch.solvers.purity import purity_solve
+    from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
+
+    n_b, f64 = 4, torch.float64
+    _, _, y, d, Rt = make_problem(np.float64, seed=1, n_cpg=N_TRAJ)
+    purity = purity_draw(1)
+    pur = state.purity_from_numpy(purity, device=DEV, dtype=f64)
+    modes = (
+        ("partial-ref", N_CT, N_U, None, Rt, 50, N_INNER,
+         fused.partial_ref_solve_fused_multi, fused.partial_ref_solve_fused,
+         partial_ref_solve, ()),
+        ("purity", N_CT, N_U, purity, Rt, 20, P_INNER,
+         fused.purity_solve_fused_multi, fused.purity_solve_fused,
+         purity_solve, (pur,)),
+        ("unsupervised", 0, U_N_U, None, None, 50, N_INNER,
+         fused.unsupervised_solve_fused_multi, fused.unsupervised_solve_fused,
+         unsupervised_solve, ()))
+    identical = {}
+    for name, n_ct, n_u, pu, R, n1, n2, multi, single, plain, extra in modes:
+        u_b, a_b = _member_inits(N_TRAJ, n_b, n_ct, n_u, seed=len(name),
+                                 purity=pu)
+        u_b, a_b, yt, dt, Rtt = state.from_numpy_batch(
+            u_b, a_b, y, d, R, device=DEV, dtype=f64)
+        data = (yt, dt) if Rtt is None else (yt, dt, Rtt)
+        kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True)
+        res = multi(u_b, a_b, *data, *extra, n_u, **kw)
+        tag = f"{name} B={n_b} {n1}x{n2} float64 N={N_TRAJ}"
+        _multi_vs_members(tag, res, [plain(u_b[b], a_b[b], *data, *extra,
+                                           n_u, **kw) for b in range(n_b)],
+                          "the plain solver per member",
+                          TRAJ_TOL["float64"]["cost"])
+        identical[name], _ = _multi_vs_members(
+            tag, res, [single(u_b[b], a_b[b], *data, *extra, n_u, **kw)
+                       for b in range(n_b)],
+            "the sequential single-member kernel solver", 1e-12)
+
+    # a loose relative tolerance: the members stop at different iterations
+    u_b, a_b = _member_inits(N_TRAJ, 6, N_CT, N_U, seed=9)
+    u_b, a_b, yt, dt, Rtt = state.from_numpy_batch(u_b, a_b, y, d, Rt,
+                                                   device=DEV, dtype=f64)
+    kw = dict(n_iter1=400, n_iter2=N_INNER, tol=LOOSE_TOL, tol_relative=True,
+              record_trace=True)
+    res = fused.partial_ref_solve_fused_multi(u_b, a_b, yt, dt, Rtt, N_U,
+                                              **kw)
+    identical["loose tol"], n_iters = _multi_vs_members(
+        f"partial-ref B=6 tol={LOOSE_TOL:g} relative float64", res,
+        [fused.partial_ref_solve_fused(u_b[b], a_b[b], yt, dt, Rtt, N_U,
+                                       **kw) for b in range(6)],
+        "the sequential single-member kernel solver", 1e-12)
+    check(len({m for m, _ in n_iters}) > 1,
+          f"loose tol: every member stopped at the same iteration {n_iters}")
+    return identical
 
 
 # ---------------------------------------------------------------- phase 7
@@ -645,8 +1186,8 @@ def phase_main_path(problem32, card):
         lambda: partial_reference_deconv(y, d, Rt, N_U,
                                          init_provided=(u0, a0), **kw),
         N_OUTER, enqueue_ms)
-    check(launches == {"u_phase_grams": N_OUTER,
-                       "alpha_phase_full": N_OUTER, "fw_phase_full": 0},
+    check(expect_counts(launches, u_phase_grams=N_OUTER,
+                        alpha_phase_full=N_OUTER),
           f"launch counts {launches} != {N_OUTER} outer iterations")
     props = res.proportions
     check(res.u.shape == (N_CPG, N_U) and props.shape == (N_CT + N_U, N_S),
@@ -706,8 +1247,8 @@ def phase_purity_path(problem32, card):
         f"{card}",
         lambda: purity_deconv(y, d, Rt, N_U, pur, init_provided=(u0, a0),
                               **kw), P_OUTER, enqueue_ms)
-    check(launches == {"u_phase_grams": P_OUTER, "alpha_phase_full": 0,
-                       "fw_phase_full": P_OUTER},
+    check(expect_counts(launches, u_phase_grams=P_OUTER,
+                        fw_phase_full=P_OUTER),
           f"purity launch counts {launches}")
     props = res.proportions
     err_m = float((props[:N_CT].sum(0) - pur).abs().max())
@@ -754,8 +1295,8 @@ def phase_unsupervised_path(problem32, card):
         f"card {card}",
         lambda: unsupervised_deconv(y, d, U_N_U, init_provided=(u0, a0),
                                     **kw), N_OUTER, enqueue_ms)
-    check(launches == {"u_phase_grams": N_OUTER,
-                       "alpha_phase_full": N_OUTER, "fw_phase_full": 0},
+    check(expect_counts(launches, u_phase_grams=N_OUTER,
+                        alpha_phase_full=N_OUTER),
           f"unsupervised launch counts {launches}")
     check(res.u.shape == (N_CPG, U_N_U)
           and res.proportions.shape == (U_N_U, N_S), "unsupervised shapes")
@@ -773,6 +1314,78 @@ def phase_unsupervised_path(problem32, card):
         f"{TRAJ_TOL['float32']['cost']:.0e})")
     check(err_c <= TRAJ_TOL["float32"]["cost"], "unsupervised cost vs plain")
     return launches, ms_iter, plain_ms
+
+
+def phase_restarts(problem32, card, k4_times):
+    """Batched random restarts at full width through ``solvers.api``, each
+    with the launch counters set to 0 just before and read just after,
+    beside the sequential loop's figure (one single-member kernel solve of
+    restart 0's init, shorter)."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv, restart_generators,
+        restart_route, unsupervised_deconv)
+    from demethify_tpu_torch.solvers.init import (
+        init_partial, init_purity, init_unsupervised)
+
+    _, _, y, d, Rt = state.from_numpy(*problem32, device=DEV,
+                                      dtype=torch.float32)
+    pur = state.purity_from_numpy(purity_draw(0), device=DEV,
+                                  dtype=torch.float32)
+    seed = 3
+    cases = (
+        ("partial-ref", N_U, 16, N_OUTER, N_INNER, "alpha_phase_full_multi",
+         lambda **kw: partial_reference_deconv(y, d, Rt, N_U, **kw),
+         lambda g: init_partial(g, "uniform_", y, d, Rt, N_U),
+         lambda u, a, **kw: fused.partial_ref_solve_fused(u, a, y, d, Rt,
+                                                          N_U, **kw)),
+        ("purity", N_U, 8, P_OUTER, P_INNER, "fw_phase_full_multi",
+         lambda **kw: purity_deconv(y, d, Rt, N_U, pur, **kw),
+         lambda g: init_purity(g, "uniform_", y, d, Rt, N_U),
+         lambda u, a, **kw: fused.purity_solve_fused(u, a, y, d, Rt, pur,
+                                                     N_U, **kw)),
+        ("unsupervised", U_N_U, 8, N_OUTER, N_INNER, "alpha_phase_full_multi",
+         lambda **kw: unsupervised_deconv(y, d, U_N_U, **kw),
+         lambda g: init_unsupervised(g, "uniform_", y, d, U_N_U),
+         lambda u, a, **kw: fused.unsupervised_solve_fused(u, a, y, d, U_N_U,
+                                                           **kw)))
+    out = {}
+    for name, n_u, n_r, n1, n2, glue, deconv, init, single in cases:
+        check(restart_route(DEV, n_u, N_S, n_r) == "batch",
+              f"{name}: restarts not routed to the batch")
+        free = fused.free_device_bytes(DEV)
+        n_ct = 0 if name == "unsupervised" else N_CT
+        cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, free)
+        log(f"[restarts {name}] member cap {cap} at {free / 1e9:.2f} GB free")
+        check(cap >= n_r, f"{name}: {n_r} restarts would run in chunks")
+        kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True,
+                  seed=seed, n_restarts=n_r)
+        deconv(**dict(kw, n_iter1=2))                               # warm
+        torch.cuda.synchronize()
+        _, ms_iter, launches = _drive(
+            f"restarts {name}", f"1M x 10, n_u={n_u}, {n_r} restarts, "
+            f"float32, {n1}x{n2}, tol=0 via solvers.api, card {card}",
+            lambda: deconv(**kw), n1)
+        check(expect_counts(launches, u_phase_grams_multi=n1, **{glue: n1}),
+              f"{name} restart launch counts {launches}")
+        u0, a0 = init(restart_generators(seed, n_r, DEV)[0])
+        n_seq = max(2, n1 // 10)
+        _, seq_ms = _per_iter_ms(
+            lambda: single(u0, a0, n_iter1=n_seq, n_iter2=n2, tol=0.0),
+            n_seq)
+        k4_ms = k4_times[name]
+        log(f"[restarts {name}] {ms_iter / n_r:.4f} ms per outer iteration "
+            f"per restart batched ({n_r} members) against {seq_ms:.4f} for "
+            f"the sequential loop (one single-member kernel solve, "
+            f"{n_seq} iterations) -> {seq_ms * n_r / ms_iter:.2f}x; K4 alone "
+            f"at this shape {k4_ms:.4f} ms ({k4_ms / n_r:.4f} per member)")
+        out[name] = {"restarts": n_r, "ms_per_iter": ms_iter,
+                     "ms_per_iter_per_restart": ms_iter / n_r,
+                     "sequential_ms_per_iter": seq_ms, "launches": launches}
+    return out
 
 
 # ---------------------------------------------------------------- phase 8
@@ -866,6 +1479,68 @@ def phase_cli():
                 f"{props.shape} column sums within "
                 f"{np.abs(props.sum(axis=0) - 1).max():.1e} of 1, launches "
                 f"{moved}")
+        # --restart 4 on the card: the batched kernels, not K1
+        for mode, with_ref, extra, n_rows in modes[1:]:
+            before = read_counts()
+            outdir = os.path.join(root, f"{mode}-restart")
+            t0 = time.perf_counter()
+            rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                           "--noprint", "--outdir", outdir, "--device", DEV,
+                           "--restart", "4",
+                           *(["--ref", ref] if with_ref else []), *extra])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"CLI {mode} --restart 4 exit {rc}")
+            _, rows = _read_csv(
+                os.path.join(outdir, "celltypes_proportions.csv"))
+            props = np.array([[float(x) for x in r[1:]] for r in rows])
+            check(props.shape == (n_rows, N_S)
+                  and np.abs(props.sum(axis=0) - 1).max() <= 1e-5,
+                  f"CLI {mode} --restart 4 proportions")
+            moved = {k: v - before[k] for k, v in read_counts().items()}
+            check(moved["u_phase_grams_multi"] > 0
+                  and moved["u_phase_grams"] == 0,
+                  f"CLI {mode} --restart 4 launches {moved}")
+            log(f"[cli] {mode} --restart 4: exit 0 in {wall:.2f} s, "
+                f"launches {moved}")
+
+
+# ------------------------------------------------------ parent/change timing
+def time_main_path(root):
+    """Times the single-restart main path of the tree at ``root`` on one
+    GPU and prints one JSON line: the card's ``nvidia-smi`` name and power
+    limit, K1 and K2 at the main path's shape (the timed cases of phases
+    3 and 4) and the main path's ms per outer iteration, 300 x 20 through
+    ``solvers.api.partial_reference_deconv`` on ``make_problem``'s data
+    (tol = 0), five times. Two trees unpacked side by side, a change and
+    its parent, are compared on one card by timing them in turns, one
+    process each (parent, change, change, parent):
+
+        python3 -c 'import chip_smoke; chip_smoke.time_main_path("DIR")'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers.api import partial_reference_deconv
+
+    check(torch.cuda.is_available(), "time_main_path needs a GPU")
+    card = phase_device()
+    k1 = _k1_case(N_CPG, N_U, "float32", timed=True)
+    k2 = _k2_case(N_CT, "float32", timed=True)
+    u0, a0, y, d, Rt = state.from_numpy(*make_problem(), device=DEV,
+                                        dtype=torch.float32)
+    kw = dict(n_iter2=N_INNER, tol=0.0, init_provided=(u0, a0))
+    partial_reference_deconv(y, d, Rt, N_U, n_iter1=5, **kw)        # warm
+    n_iter, main_ms = 300, []
+    for _ in range(5):
+        res, ms = timed_ms(lambda: partial_reference_deconv(
+            y, d, Rt, N_U, n_iter1=n_iter, **kw))
+        check(res.n_iter == n_iter, f"main path ran {res.n_iter} iterations")
+        main_ms.append(ms / n_iter)
+    print(json.dumps({"root": root, "card": card, "k1_ms": k1["ms"],
+                      "k2_ms": k2["ms"], "main_ms_per_iter": main_ms}),
+          flush=True)
 
 
 def main():
@@ -889,13 +1564,33 @@ def main():
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
+    k4, k4_uns, k4_pur = phase_k4()
+    k5 = phase_k5()
+    k6 = phase_k6()
     phase_solver_trajectory()
+    identical = phase_multi_solvers()
     problem32 = make_problem(np.float32, seed=0)
     launches = phase_main_path(problem32, card)
     p_launches, _, _ = phase_purity_path(problem32, card)
     phase_unsupervised_path(problem32, card)
+    restarts = phase_restarts(problem32, card, {
+        "partial-ref": k4["ms"], "purity": k4_pur["ms"],
+        "unsupervised": k4_uns["ms"]})
     phase_cli()
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
+                  for m in sys.modules), "a JAX-package module was imported")
+    from demethify_tpu_torch.isolation import jax_package_references
+
+    refs = jax_package_references(HERE)
+    check(not refs, f"the port reaches the JAX package's files: {refs}")
+    log(f"[done] no jax, no JAX-package module and no path into the JAX "
+        f"package in the port's sources; multi-member solvers bit-identical "
+        f"to the sequential kernel solves: {identical}")
+    k1_b = bound(*u_phase_work(N_CPG, N_S, N_CT, N_U, N_INNER, 4), "float32")
+    k2_b = bound(*glue_work(N_CT + N_U, N_S, N_CT, N_INNER, 4), "float32")
+    k3_b = bound(*glue_work(N_CT + N_U, N_S, N_CT, P_INNER, 4, fw=True),
+                 "float32")
     kernels = {"kernels": [
         {"name": "u_phase_grams", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/u_phase_grams.cu",
@@ -903,19 +1598,45 @@ def main():
                      "and :499)",
          "launches": launches["u_phase_grams"],
          "max_abs_err": k1["u_max_abs"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
+         "plain_ms": k1["plain_ms"], "bound_ms": k1_b[0],
+         "bound_by": k1_b[1], "library_ms": None},
         {"name": "alpha_phase_full", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
          "replaces": "demethify_tpu/ops/pallas_small.py:261",
          "launches": launches["alpha_phase_full"],
          "max_abs_err": k2["alpha_max_abs"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+         "plain_ms": k2["plain_ms"], "bound_ms": k2_b[0],
+         "bound_by": k2_b[1], "library_ms": None},
         {"name": "fw_phase_full", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/fw_phase_full.cu",
          "replaces": "demethify_tpu/ops/pallas_small.py:636",
          "launches": p_launches["fw_phase_full"],
          "max_abs_err": k3["alpha_max_abs"], "ms": k3["ms"],
-         "plain_ms": k3["plain_ms"]}]}
+         "plain_ms": k3["plain_ms"], "bound_ms": k3_b[0],
+         "bound_by": k3_b[1], "library_ms": None},
+        {"name": "u_phase_grams_multi", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (via :1123)",
+         "launches": restarts["partial-ref"]["launches"][
+             "u_phase_grams_multi"],
+         "max_abs_err": k4["u_max_abs"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None},
+        {"name": "alpha_phase_full_multi", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
+         "replaces": "demethify_tpu/ops/pallas_small.py:388 (via :485)",
+         "launches": restarts["partial-ref"]["launches"][
+             "alpha_phase_full_multi"],
+         "max_abs_err": k5["alpha_max_abs"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None},
+        {"name": "fw_phase_full_multi", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/fw_phase_full.cu",
+         "replaces": "demethify_tpu/ops/pallas_small.py:571 (via :592)",
+         "launches": restarts["purity"]["launches"]["fw_phase_full_multi"],
+         "max_abs_err": k6["alpha_max_abs"], "ms": k6["ms"],
+         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None}]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

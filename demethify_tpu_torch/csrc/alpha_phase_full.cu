@@ -1,12 +1,16 @@
-// K2: the alpha glue kernel of the partial-reference and unsupervised
-// solves, for Hopper.
+// K2 and K5: the alpha glue kernel of the partial-reference and
+// unsupervised solves, for Hopper; K5 is its member-gridded form for the
+// batched random restarts.
 //
-// Replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
-// :: _alpha_full_kernel (called through alpha_phase_full). In one launch:
+// K2 replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
+// :: _alpha_full_kernel (called through alpha_phase_full); K5 replaces
+// _alpha_full_multi_kernel (called through alpha_phase_full_multi). In
+// one launch, for one member (K2) or for each of B restart members (K5):
 //
 //   - assemble the per-sample Grams from the loop-invariant known blocks
-//     and K1's new-u blocks (as _assemble_G_b; with no known block,
-//     n_ct = 0, G and b are K1's blocks alone);
+//     (shared by the members) and the member's new-u blocks from K1 or K4
+//     (as _assemble_G_b; with no known block, n_ct = 0, G and b are those
+//     blocks alone);
 //   - l_h = (||Rt||^2 + usq) dmax^2  (||Rt||^2 = 0 without a known block);
 //   - n_steps alpha FISTA steps with the simplex projection of each
 //     column (the plain form of ops/fista.fista_alpha_gram);
@@ -17,20 +21,26 @@
 // and the n_steps steps are serial; a launch per step would cost more
 // than the arithmetic.
 //
-// What the design does about it: one thread block, one warp per sample
-// column (a warp loops over columns when n_s > 32; columns are
-// independent given the data-free momentum scalars). Lane q holds row q
-// of alpha and of G_s in registers (so p <= 32), the matrix-vector
-// product reads a_t from the other lanes by shuffle, and the projection
-// runs inside the warp: a stable descending rank by comparison, the
-// cumulative sum taken in sorted order (ballot finds the lane of each
-// rank), and rho as the LAST lane whose condition holds (highest bit of
-// a ballot) -- the reference's last-index rho. Cost and l_w are reduced
-// across the block in a fixed order.
+// What the design does about it: one thread block per member
+// (blockIdx.x = b; K2 is the grid of one), one warp per sample column (a
+// warp loops over columns when n_s > 32; columns are independent given
+// the data-free momentum scalars). Lane q holds row q of alpha and of G_s
+// in registers (so p <= 32), the matrix-vector product reads a_t from the
+// other lanes by shuffle, and the projection runs inside the warp: a
+// stable descending rank by comparison, the cumulative sum taken in sorted
+// order (ballot finds the lane of each rank), and rho as the LAST lane
+// whose condition holds (highest bit of a ballot) -- the reference's
+// last-index rho. Cost and l_w are reduced across the block in a fixed
+// order. A member's column sums stay inside its block, so up to 132
+// members run on separate SMs and a K5 launch takes about K2's time
+// whatever B is (the TPU kernel folds the members into its column axis
+// for the same reason); each member's arithmetic is K2's, bit for bit.
 //
-// Device scalars `scal` (shared with K1): 1 l_w (written), 3 a (the
-// alpha Nesterov scalar, advanced), 4 l_h_prev (advanced), 5 cost
-// (written), 6 ||Rt||^2 and 7 dmax^2 (read).
+// Device scalars `scal` (shared with K1 and K4; one row per member, row
+// stride in MemberStrides): kLW (written), kAAlpha and kLHPrev (advanced),
+// kCost (written), kRtSq and kDmax2 (read). K5 (MULTI) skips a member
+// whose kActive slot is 0 -- it is left exactly as it was -- and sets
+// kActive for the next outer iteration from |new cost - old cost| >= kTol.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
@@ -76,23 +86,35 @@ __device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
     return out < T(0) ? T(0) : out;
 }
 
-template <typename T>
+template <typename T, bool MULTI>
 __global__ void alpha_phase_full_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ usq, const T* __restrict__ ydy,
         T* __restrict__ alpha, T* __restrict__ alpha_prev,
-        T* __restrict__ scal, int n_s, int n_ct, int n_u, int n_steps) {
+        T* __restrict__ scal, int n_s, int n_ct, int n_u, int n_steps,
+        dm::MemberStrides st) {
+    if constexpr (MULTI) {                     // block b: member b
+        const long long mb = blockIdx.x;
+        gu += mb * st.gu;
+        bu += mb * st.bu;
+        usq += mb * st.usq;
+        alpha += mb * st.alpha;
+        alpha_prev += mb * st.alpha;
+        scal += mb * st.scal;
+        if (scal[dm::kActive] == T(0)) return;        // uniform per block
+    }
+
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
     const int p = n_ct + n_u;
     const bool row = lane < p;
 
-    const T a0 = scal[3];
-    const T l_h_prev0 = scal[4];
-    const T dmax2 = scal[7];
-    const T l_h = (scal[6] + usq[0]) * dmax2;
+    const T a0 = scal[dm::kAAlpha];
+    const T l_h_prev0 = scal[dm::kLHPrev];
+    const T dmax2 = scal[dm::kDmax2];
+    const T l_h = (scal[dm::kRtSq] + usq[0]) * dmax2;
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
     for (int s = warp; s < n_s; s += n_warps) {
@@ -126,26 +148,26 @@ __global__ void alpha_phase_full_kernel(
     if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
         T a = a0;
         for (int step = 0; step < n_steps; ++step) a = dm::nesterov(a);
-        scal[1] = lw * dmax2;
-        scal[3] = a;
-        if (n_steps > 0) scal[4] = l_h;
-        scal[5] = cost;
+        scal[dm::kLW] = lw * dmax2;
+        scal[dm::kAAlpha] = a;
+        if (n_steps > 0) scal[dm::kLHPrev] = l_h;
+        dm::set_cost<MULTI>(scal, cost);
     }
 }
 
-template <typename T>
+template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* usq, const void* ydy, void* alpha, void* alpha_prev,
            void* scal, int n_s, int n_ct, int n_u, int n_steps,
-           void* stream) {
+           int n_members, dm::MemberStrides st, void* stream) {
     const int n_warps = n_s < 32 ? n_s : 32;
-    alpha_phase_full_kernel<T><<<1, 32 * n_warps, 0,
+    alpha_phase_full_kernel<T, MULTI><<<n_members, 32 * n_warps, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(usq), static_cast<const T*>(ydy),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
-        static_cast<T*>(scal), n_s, n_ct, n_u, n_steps);
+        static_cast<T*>(scal), n_s, n_ct, n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,8 +180,9 @@ int dm_alpha_phase_full_f32(const void* gtt, const void* bt, const void* gu,
                             void* alpha, void* alpha_prev, void* scal,
                             int n_s, int n_ct, int n_u, int n_steps,
                             void* stream) {
-    return launch<float>(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
-                         n_s, n_ct, n_u, n_steps, stream);
+    return launch<float, false>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                alpha_prev, scal, n_s, n_ct, n_u, n_steps,
+                                1, dm::MemberStrides{}, stream);
 }
 
 int dm_alpha_phase_full_f64(const void* gtt, const void* bt, const void* gu,
@@ -167,8 +190,39 @@ int dm_alpha_phase_full_f64(const void* gtt, const void* bt, const void* gu,
                             void* alpha, void* alpha_prev, void* scal,
                             int n_s, int n_ct, int n_u, int n_steps,
                             void* stream) {
-    return launch<double>(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
-                          n_s, n_ct, n_u, n_steps, stream);
+    return launch<double, false>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                 alpha_prev, scal, n_s, n_ct, n_u, n_steps,
+                                 1, dm::MemberStrides{}, stream);
+}
+
+// K5: B members, member b's operands at b times the given element strides
+// (gtt, bt, ydy shared); scal_stride is the scalar row length.
+int dm_alpha_phase_full_multi_f32(
+        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* usq,
+        long long usq_stride, const void* ydy, void* alpha,
+        void* alpha_prev, long long alpha_stride, void* scal,
+        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
+        int n_members, void* stream) {
+    const dm::MemberStrides st{gu_stride, bu_stride, usq_stride,
+                               alpha_stride, scal_stride};
+    return launch<float, true>(gtt, bt, gu, bu, usq, ydy, alpha,
+                               alpha_prev, scal, n_s, n_ct, n_u, n_steps,
+                               n_members, st, stream);
+}
+
+int dm_alpha_phase_full_multi_f64(
+        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* usq,
+        long long usq_stride, const void* ydy, void* alpha,
+        void* alpha_prev, long long alpha_stride, void* scal,
+        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
+        int n_members, void* stream) {
+    const dm::MemberStrides st{gu_stride, bu_stride, usq_stride,
+                               alpha_stride, scal_stride};
+    return launch<double, true>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                alpha_prev, scal, n_s, n_ct, n_u, n_steps,
+                                n_members, st, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
-// K3: the Frank-Wolfe glue kernel of the purity-constrained solve, for
-// Hopper.
+// K3 and K6: the Frank-Wolfe glue kernel of the purity-constrained
+// solve, for Hopper; K6 is its member-gridded form for the batched random
+// restarts.
 //
-// Replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
+// K3 replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
 // :: _fw_full_kernel (called through fw_phase_full), whose schedule is
-// _fw_run. In one launch:
+// _fw_run; K6 replaces _fw_full_multi_kernel (called through
+// fw_phase_full_multi). In one launch, for one member (K3) or for each of
+// B restart members (K6):
 //
 //   - assemble the per-sample Grams from the loop-invariant known blocks
-//     and K1's new-u blocks (as _assemble_G_b);
+//     (shared by the members) and the member's new-u blocks from K1 or K4
+//     (as _assemble_G_b);
 //   - n_steps Frank-Wolfe steps on each column of alpha = [known; unknown]
 //     (the reference's frank_wolfe_nmf): the gradient G_s a - b_s, the
 //     block linear minimisation -- the FIRST row of the smallest gradient
@@ -19,22 +23,27 @@
 // What bounds it on an H100: latency. The data is tiny (p <= 32, n_s ~ 10)
 // and the schedule is a serial chain of 500 steps by default (the purity
 // solve's n_iter2), each a matrix-vector product and two reductions. All
-// warps of the one block share one SM, and each step issues ~42 shuffles
-// per warp (32 for the product, unrolled over every lane, 10 for the two
-// minima): about 0.6 us a step at n_s = 10, whatever p is.
+// warps of a member's block share one SM, and each step issues ~42
+// shuffles per warp (32 for the product, unrolled over every lane, 10 for
+// the two minima): about 0.6 us a step at n_s = 10, whatever p is.
 //
-// What the design does about it: one thread block, one warp per sample
-// column (a warp loops over columns when n_s > 32), as in K2. Lane q holds
+// What the design does about it: one thread block per member
+// (blockIdx.x = b; K3 is the grid of one), one warp per sample column (a
+// warp loops over columns when n_s > 32), as in K2 and K5. Lane q holds
 // row q of G_s, b_s and alpha in registers; the product reads a from the
 // other lanes by shuffle; each block's minimum is a butterfly of
 // NaN-propagating minima over the warp (padding lanes hold +inf, the
 // other block's rows the TPU kernel's 3.4e38 mask), and the first row
 // holding it is the lowest set bit of a ballot -- the tie rule of _fw_run
 // and of argmin. Nothing leaves registers until the epilogue, whose cost
-// and l_w reductions are those of K2 (small_common.cuh).
+// and l_w reductions are those of K2 (small_common.cuh). The members'
+// blocks run on separate SMs, so a K6 launch takes about K3's time
+// whatever B is, and each member's arithmetic is K3's, bit for bit.
 //
-// Device scalars `scal` (shared with K1 and K2): 1 l_w and 5 cost
-// (written), 7 dmax^2 (read).
+// Device scalars `scal` (shared with K1 and K4; one row per member):
+// kLW and kCost (written), kDmax2 (read). K6 (MULTI) skips a member
+// whose kActive slot is 0 and sets kActive for the next outer iteration
+// from |new cost - old cost| >= kTol.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
@@ -72,13 +81,22 @@ __device__ __forceinline__ int first_row(bool hit, int p) {
     return who ? __ffs(who) - 1 : p;
 }
 
-template <typename T>
+template <typename T, bool MULTI>
 __global__ void fw_phase_full_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ ydy, T* __restrict__ alpha,
         const T* __restrict__ purity, T* __restrict__ scal, int n_s,
-        int n_ct, int n_u, int n_steps) {
+        int n_ct, int n_u, int n_steps, dm::MemberStrides st) {
+    if constexpr (MULTI) {                     // block b: member b
+        const long long mb = blockIdx.x;
+        gu += mb * st.gu;
+        bu += mb * st.bu;
+        alpha += mb * st.alpha;
+        scal += mb * st.scal;
+        if (scal[dm::kActive] == T(0)) return;        // uniform per block
+    }
+
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
@@ -87,7 +105,7 @@ __global__ void fw_phase_full_kernel(
     const bool known = lane < n_ct;
     const T big = T(3.4e38);                // the TPU kernel's block mask
     const T pad = pos_inf<T>();
-    const T dmax2 = scal[7];
+    const T dmax2 = scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
     for (int s = warp; s < n_s; s += n_warps) {
@@ -117,23 +135,24 @@ __global__ void fw_phase_full_kernel(
     }
     T cost, lw;
     if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
-        scal[1] = lw * dmax2;
-        scal[5] = cost;
+        scal[dm::kLW] = lw * dmax2;
+        dm::set_cost<MULTI>(scal, cost);
     }
 }
 
-template <typename T>
+template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* ydy, void* alpha, const void* purity, void* scal,
-           int n_s, int n_ct, int n_u, int n_steps, void* stream) {
+           int n_s, int n_ct, int n_u, int n_steps, int n_members,
+           dm::MemberStrides st, void* stream) {
     const int n_warps = n_s < 32 ? n_s : 32;
-    fw_phase_full_kernel<T><<<1, 32 * n_warps, 0,
+    fw_phase_full_kernel<T, MULTI><<<n_members, 32 * n_warps, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(ydy), static_cast<T*>(alpha),
         static_cast<const T*>(purity), static_cast<T*>(scal), n_s, n_ct,
-        n_u, n_steps);
+        n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,16 +164,46 @@ int dm_fw_phase_full_f32(const void* gtt, const void* bt, const void* gu,
                          const void* bu, const void* ydy, void* alpha,
                          const void* purity, void* scal, int n_s, int n_ct,
                          int n_u, int n_steps, void* stream) {
-    return launch<float>(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_s,
-                         n_ct, n_u, n_steps, stream);
+    return launch<float, false>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
+                                n_s, n_ct, n_u, n_steps, 1,
+                                dm::MemberStrides{}, stream);
 }
 
 int dm_fw_phase_full_f64(const void* gtt, const void* bt, const void* gu,
                          const void* bu, const void* ydy, void* alpha,
                          const void* purity, void* scal, int n_s, int n_ct,
                          int n_u, int n_steps, void* stream) {
-    return launch<double>(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_s,
-                          n_ct, n_u, n_steps, stream);
+    return launch<double, false>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
+                                 n_s, n_ct, n_u, n_steps, 1,
+                                 dm::MemberStrides{}, stream);
+}
+
+// K6: B members, member b's operands at b times the given element strides
+// (gtt, bt, ydy, purity shared); scal_stride is the scalar row length.
+int dm_fw_phase_full_multi_f32(
+        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* ydy, void* alpha,
+        long long alpha_stride, const void* purity, void* scal,
+        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
+        int n_members, void* stream) {
+    const dm::MemberStrides st{gu_stride, bu_stride, 0, alpha_stride,
+                               scal_stride};
+    return launch<float, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
+                               n_s, n_ct, n_u, n_steps, n_members, st,
+                               stream);
+}
+
+int dm_fw_phase_full_multi_f64(
+        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* ydy, void* alpha,
+        long long alpha_stride, const void* purity, void* scal,
+        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
+        int n_members, void* stream) {
+    const dm::MemberStrides st{gu_stride, bu_stride, 0, alpha_stride,
+                               scal_stride};
+    return launch<double, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
+                                n_s, n_ct, n_u, n_steps, n_members, st,
+                                stream);
 }
 
 }  // extern "C"

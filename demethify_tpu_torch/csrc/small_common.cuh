@@ -1,11 +1,9 @@
-// Pieces shared by the port's kernels: the FISTA scalar arithmetic (K1,
-// K2), and for the single-block kernels K2 (alpha_phase_full.cu) and K3
-// (fw_phase_full.cu) -- one thread block, one warp per sample column,
-// lane q holding row q of alpha and of the column's Gram matrix (p <= 32)
-// -- the Gram row assembly, the product and the cost epilogue.
-//
-// Device scalars `scal` (shared with K1): 1 l_w, 3 a (alpha Nesterov
-// scalar), 4 l_h_prev, 5 cost, 6 ||Rt||^2, 7 dmax^2.
+// Pieces shared by the port's kernels: the solver's scalar slots and the
+// FISTA scalar arithmetic (K1, K2, K4, K5), and for the glue kernels K2
+// and K5 (alpha_phase_full.cu), K3 and K6 (fw_phase_full.cu) -- one thread
+// block per member, one warp per sample column, lane q holding row q of
+// alpha and of the column's Gram matrix (p <= 32) -- the Gram row
+// assembly, the product, the cost epilogue and the member bookkeeping.
 
 #pragma once
 
@@ -13,8 +11,36 @@
 
 namespace dm {
 
+// Slots of the solver's device scalar vector `scal` (one row per member
+// in the multi-member solves; ops/cuda_kernels.py names the same slots):
+// the U Nesterov scalar, l_w, l_w_prev, the alpha Nesterov scalar,
+// l_h_prev, the cost, ||Rt||^2, dmax^2; the multi-member rows add the
+// member's termination tolerance and its active flag.
+constexpr int kAU = 0, kLW = 1, kLWPrev = 2, kAAlpha = 3, kLHPrev = 4,
+              kCost = 5, kRtSq = 6, kDmax2 = 7, kTol = 8, kActive = 9;
+
 constexpr int kMaxP = 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Per-member element strides of the glue kernels' operands: K2 and K3
+// are the one-member case (all zero).
+struct MemberStrides {
+    long long gu, bu, usq, alpha, scal;
+};
+
+// A glue kernel's last word on its member (thread 0): the new cost and,
+// in the multi-member form, whether the member stays active,
+// |cost - old cost| >= tol in the working dtype (the reference's
+// termination test; NaN stops).
+template <bool MULTI, typename T>
+__device__ __forceinline__ void set_cost(T* __restrict__ sc, T cost) {
+    if constexpr (MULTI) {
+        const T diff = cost - sc[kCost];
+        const T mag = diff < T(0) ? -diff : diff;
+        sc[kActive] = mag >= sc[kTol] ? T(1) : T(0);
+    }
+    sc[kCost] = cost;
+}
 
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }

@@ -1,0 +1,221 @@
+// Pieces shared by the U-phase megakernels: K1 (u_phase_grams.cu, one
+// member) and K4 (u_phase_grams_multi.cu, B restart members on the same
+// Y, D, Rt). One thread per CpG site, kSites sites per block; the block's
+// site columns of Y, D and [Rt | u] are staged in shared memory (row
+// stride kLd against bank conflicts) and reused for the Gram sums. The
+// per-site arithmetic and the per-block and cross-block summation orders
+// live here once, so K4's members follow K1's arithmetic bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "small_common.cuh"
+
+namespace dm {
+
+constexpr int kSites = 128;        // sites (threads) per main-pass block
+constexpr int kLd = kSites + 1;    // shared row stride: avoids bank conflicts
+constexpr int kRedThreads = 256;   // threads per block of the reduction pass
+
+// clip to [0, 1]; NaN passes through, as torch.clamp
+template <typename T>
+__device__ __forceinline__ T clip01(T x) {
+    return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
+}
+
+// index of M[v][w] in the packed upper triangle of a symmetric NU x NU
+// matrix (constant-folded inside the unrolled loops)
+template <int NU>
+__device__ __forceinline__ constexpr int sym(int v, int w) {
+    return v <= w ? v * NU - v * (v - 1) / 2 + (w - v)
+                  : w * NU - w * (w - 1) / 2 + (v - w);
+}
+
+// Gram entries of one member: [gu (n_s, n_u, p) | b_u (n_u, n_s) | usq]
+__host__ __device__ __forceinline__ int gram_entries(int n_s, int n_ct,
+                                                     int n_u) {
+    return n_s * n_u * (n_ct + n_u) + n_u * n_s + 1;
+}
+
+// Stages this block's site columns of Y and D (s_y, s_d: n_s rows each)
+// and Rt (the first n_ct rows of s_r); the ragged tail is zero.
+template <typename T>
+__device__ __forceinline__ void stage_sites(
+        T* __restrict__ s_y, T* __restrict__ s_d, T* __restrict__ s_r,
+        const T* __restrict__ ydt, const T* __restrict__ rtt, int64_t i,
+        bool live, int64_t n, int n_s, int n_ct, int tid) {
+    for (int s = 0; s < n_s; ++s) {
+        s_y[s * kLd + tid] = live ? ydt[s * n + i] : T(0);
+        s_d[s * kLd + tid] = live ? ydt[(n_s + s) * n + i] : T(0);
+    }
+    for (int c = 0; c < n_ct; ++c)
+        s_r[c * kLd + tid] = live ? rtt[c * n + i] : T(0);
+}
+
+// The known-block residual of sample s at this thread's site, given its
+// y and d: d y - d (a1' rt)  (just d y when n_ct = 0)
+template <typename T>
+__device__ __forceinline__ T known_resid(
+        T y, T d, const T* __restrict__ s_r, const T* __restrict__ s_a1,
+        int s, int n_s, int n_ct, int tid) {
+    T known = T(0);
+    for (int c = 0; c < n_ct; ++c)
+        known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
+    return d * y - d * known;
+}
+
+// C[u] = sum_s a2[u,s] dres_s and the upper triangle of
+// M[u][v] = sum_s (a2[u,s] a2[v,s]) d_s at this thread's site
+template <typename T, int NU>
+__device__ __forceinline__ void build_cm(
+        T (&cc)[NU], T (&m)[NU * (NU + 1) / 2], const T* __restrict__ s_y,
+        const T* __restrict__ s_d, const T* __restrict__ s_r,
+        const T* __restrict__ s_a1, const T* __restrict__ s_a2, int n_s,
+        int n_ct, int tid) {
+#pragma unroll
+    for (int v = 0; v < NU; ++v) cc[v] = T(0);
+#pragma unroll
+    for (int k = 0; k < NU * (NU + 1) / 2; ++k) m[k] = T(0);
+    for (int s = 0; s < n_s; ++s) {
+        const T y = s_y[s * kLd + tid];
+        const T d = s_d[s * kLd + tid];
+        const T dres = known_resid(y, d, s_r, s_a1, s, n_s, n_ct, tid);
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            const T av = s_a2[v * n_s + s];
+            cc[v] += av * dres;
+#pragma unroll
+            for (int w = v; w < NU; ++w)
+                m[sym<NU>(v, w)] += (av * s_a2[w * n_s + s]) * d;
+        }
+    }
+}
+
+// The n_steps FISTA loop of the gram form, in registers; LAG takes each
+// step's gradient at the old u (an instantiation each, so the step loop
+// carries no per-step test).
+template <typename T, int NU, bool LAG>
+__device__ __forceinline__ void gram_steps(
+        T (&u)[NU], T (&up)[NU], const T (&cc)[NU],
+        const T (&m)[NU * (NU + 1) / 2], T a, T l_prev, const T l_w,
+        int n_steps) {
+    for (int step = 0; step < n_steps; ++step) {
+        const T a1n = nesterov(a);
+        const T beta = min_nan((a - T(1)) / a1n,
+                               T(0.9999) * sqrt_t(l_prev / l_w));
+        T ut[NU], un[NU];
+#pragma unroll
+        for (int v = 0; v < NU; ++v) ut[v] = u[v] + beta * (u[v] - up[v]);
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            T mu = T(0);
+#pragma unroll
+            for (int w = 0; w < NU; ++w)
+                mu += m[sym<NU>(v, w)] * (LAG ? u[w] : ut[w]);
+            un[v] = clip01(ut[v] + (cc[v] - mu) / l_w);
+        }
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            up[v] = u[v];
+            u[v] = un[v];
+        }
+        a = a1n;
+        l_prev = l_w;
+    }
+}
+
+// This block's Gram partial sums with the new u (rows n_ct .. n_ct+NU-1
+// of s_r): entry e of [gu (n_s, NU, p) | b_u (NU, n_s) | usq], one thread
+// each, summed over the block's sites in site order, written to
+// out[e * n_blocks] (the caller points out at this block's column).
+template <typename T, int NU>
+__device__ __forceinline__ void gram_partials(
+        const T* __restrict__ s_y, const T* __restrict__ s_d,
+        const T* __restrict__ s_r, int n_s, int n_ct, int tid,
+        T* __restrict__ out, int n_blocks) {
+    const int p = n_ct + NU;
+    const int e_gu = n_s * NU * p;
+    const int e_bu = NU * n_s;
+    const int n_entries = e_gu + e_bu + 1;
+    for (int e = tid; e < n_entries; e += kSites) {
+        T acc = T(0);
+        if (e < e_gu) {
+            const int s = e / (NU * p);
+            const int v = (e / p) % NU;
+            const int q = e % p;
+            const T* ds = s_d + s * kLd;
+            const T* uv = s_r + (n_ct + v) * kLd;
+            const T* rq = s_r + q * kLd;
+            for (int j = 0; j < kSites; ++j) acc += (ds[j] * uv[j]) * rq[j];
+        } else if (e < e_gu + e_bu) {
+            const int v = (e - e_gu) / n_s;
+            const int s = (e - e_gu) % n_s;
+            const T* ds = s_d + s * kLd;
+            const T* ys = s_y + s * kLd;
+            const T* uv = s_r + (n_ct + v) * kLd;
+            for (int j = 0; j < kSites; ++j) acc += uv[j] * (ds[j] * ys[j]);
+        } else {
+            for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+                for (int v = 0; v < NU; ++v) {
+                    const T x = s_r[(n_ct + v) * kLd + j];
+                    acc += x * x;
+                }
+            }
+        }
+        out[static_cast<int64_t>(e) * n_blocks] = acc;
+    }
+}
+
+// Second pass: row r of the (members x n_entries, n_blocks) partials is
+// summed in a FIXED order (strided per thread, then a fixed tree) into
+// out[r]; r = b * n_entries + e for member b, whose scalar row is
+// scal + b * scal_stride. The row e = 0 of each member also advances that
+// member's Nesterov scalar n_steps times and sets l_w_prev = l_w. With
+// MULTI (K4), inactive members (slot kActive 0) are skipped: their
+// outputs and scalars are left as they are; K1 (one member) has no
+// member arithmetic at all.
+// (In an unnamed namespace: each source that includes this header
+// registers its own copy of the kernel.)
+namespace {
+
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(kRedThreads)
+reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
+                       T* __restrict__ scal, int n_blocks, int n_steps,
+                       int n_entries, int scal_stride) {
+    __shared__ T buf[kRedThreads];
+    const int r = blockIdx.x;
+    int e = r;
+    T* sc = scal;
+    if constexpr (MULTI) {
+        e = r % n_entries;
+        sc += static_cast<int64_t>(r / n_entries) * scal_stride;
+        if (sc[kActive] == T(0)) return;           // uniform over the block
+    }
+    const int tid = threadIdx.x;
+    const T* row = partials + static_cast<int64_t>(r) * n_blocks;
+    T acc = T(0);
+    for (int b = tid; b < n_blocks; b += kRedThreads) acc += row[b];
+    buf[tid] = acc;
+    __syncthreads();
+    for (int w = kRedThreads / 2; w > 0; w >>= 1) {
+        if (tid < w) buf[tid] += buf[tid + w];
+        __syncthreads();
+    }
+    if (tid == 0) {
+        out[r] = buf[0];
+        if (e == 0) {
+            T a = sc[kAU];
+            for (int step = 0; step < n_steps; ++step) a = nesterov(a);
+            sc[kAU] = a;
+            if (n_steps > 0) sc[kLWPrev] = sc[kLW];
+        }
+    }
+}
+
+}  // namespace
+
+}  // namespace dm

@@ -52,6 +52,8 @@
 //     from run to run, which |delta cost| < tol termination needs;
 //   - the ragged tail is masked (zero columns contribute nothing);
 //     nothing is padded.
+// The staging, the per-site gram-form arithmetic, the Gram partial sums
+// and the reduction pass live in u_phase_common.cuh, shared with K4.
 //
 // The Nesterov scalar and l_w_prev live in a small device vector `scal`
 // (slot 0: a, 1: l_w, 2: l_w_prev) that every thread reads; the reduction
@@ -64,64 +66,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "small_common.cuh"
+#include "u_phase_common.cuh"
 
 namespace {
 
+using dm::kLd;
+using dm::kRedThreads;
+using dm::kSites;
 using dm::min_nan;
 using dm::nesterov;
 using dm::sqrt_t;
-
-constexpr int kSites = 128;        // sites (threads) per block of the main pass
-constexpr int kLd = kSites + 1;    // shared row stride: avoids bank conflicts
-constexpr int kRedThreads = 256;   // threads per block of the reduction pass
-
-// clip to [0, 1]; NaN passes through, as torch.clamp
-template <typename T>
-__device__ __forceinline__ T clip01(T x) {
-    return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
-}
-
-// index of M[v][w] in the packed upper triangle of a symmetric NU x NU
-// matrix (constant-folded inside the unrolled loops)
-template <int NU>
-__device__ __forceinline__ constexpr int sym(int v, int w) {
-    return v <= w ? v * NU - v * (v - 1) / 2 + (w - v)
-                  : w * NU - w * (w - 1) / 2 + (v - w);
-}
-
-// The n_steps FISTA loop of the gram form, in registers; LAG takes each
-// step's gradient at the old u (an instantiation each, so the step loop
-// carries no per-step test).
-template <typename T, int NU, bool LAG>
-__device__ __forceinline__ void gram_steps(
-        T (&u)[NU], T (&up)[NU], const T (&cc)[NU],
-        const T (&m)[NU * (NU + 1) / 2], T a, T l_prev, const T l_w,
-        int n_steps) {
-    for (int step = 0; step < n_steps; ++step) {
-        const T a1n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a1n,
-                               T(0.9999) * sqrt_t(l_prev / l_w));
-        T ut[NU], un[NU];
-#pragma unroll
-        for (int v = 0; v < NU; ++v) ut[v] = u[v] + beta * (u[v] - up[v]);
-#pragma unroll
-        for (int v = 0; v < NU; ++v) {
-            T mu = T(0);
-#pragma unroll
-            for (int w = 0; w < NU; ++w)
-                mu += m[sym<NU>(v, w)] * (LAG ? u[w] : ut[w]);
-            un[v] = clip01(ut[v] + (cc[v] - mu) / l_w);
-        }
-#pragma unroll
-        for (int v = 0; v < NU; ++v) {
-            up[v] = u[v];
-            u[v] = un[v];
-        }
-        a = a1n;
-        l_prev = l_w;
-    }
-}
 
 // The n_steps FISTA loop of the direct form: dres (the known-block
 // residual) and d of this thread's site in shared memory, row stride kLd.
@@ -152,7 +106,7 @@ __device__ __forceinline__ void direct_steps(
 #pragma unroll
         for (int v = 0; v < NU; ++v) {
             up[v] = u[v];
-            u[v] = clip01(ut[v] + gr[v] / l_w);
+            u[v] = dm::clip01(ut[v] + gr[v] / l_w);
         }
         a = a1n;
         l_prev = l_w;
@@ -180,12 +134,7 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
 
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
     const bool live = i < n;
-    for (int s = 0; s < n_s; ++s) {
-        s_y[s * kLd + tid] = live ? ydt[s * n + i] : T(0);
-        s_d[s * kLd + tid] = live ? ydt[(n_s + s) * n + i] : T(0);
-    }
-    for (int c = 0; c < n_ct; ++c)
-        s_r[c * kLd + tid] = live ? rtt[c * n + i] : T(0);
+    dm::stage_sites(s_y, s_d, s_r, ydt, rtt, i, live, n, n_s, n_ct, tid);
     __syncthreads();
 
     T u[NU], up[NU];
@@ -194,49 +143,28 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
         u[v] = live ? uut[v * n + i] : T(0);
         up[v] = live ? uut[(NU + v) * n + i] : T(0);
     }
-    const T a = scal[0];
-    const T l_w = scal[1];
-    const T l_prev = scal[2];
+    const T a = scal[dm::kAU];
+    const T l_w = scal[dm::kLW];
+    const T l_prev = scal[dm::kLWPrev];
 
     if constexpr (!DIRECT) {
-        // ---- C and M for this site, in registers ----------------------
-        constexpr int kTri = NU * (NU + 1) / 2;
-        T cc[NU], m[kTri];
-#pragma unroll
-        for (int v = 0; v < NU; ++v) cc[v] = T(0);
-#pragma unroll
-        for (int k = 0; k < kTri; ++k) m[k] = T(0);
-        for (int s = 0; s < n_s; ++s) {
-            const T y = s_y[s * kLd + tid];
-            const T d = s_d[s * kLd + tid];
-            T known = T(0);
-            for (int c = 0; c < n_ct; ++c)
-                known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
-            const T dres = d * y - d * known;
-#pragma unroll
-            for (int v = 0; v < NU; ++v) {
-                const T av = s_a2[v * n_s + s];
-                cc[v] += av * dres;
-#pragma unroll
-                for (int w = v; w < NU; ++w)
-                    m[sym<NU>(v, w)] += (av * s_a2[w * n_s + s]) * d;
-            }
-        }
-
-        // ---- the whole U FISTA loop, in registers --------------------
+        // ---- C and M for this site, then the whole U FISTA loop, in
+        // registers
+        T cc[NU], m[NU * (NU + 1) / 2];
+        dm::build_cm(cc, m, s_y, s_d, s_r, s_a1, s_a2, n_s, n_ct, tid);
         if (lagged)
-            gram_steps<T, NU, true>(u, up, cc, m, a, l_prev, l_w, n_steps);
+            dm::gram_steps<T, NU, true>(u, up, cc, m, a, l_prev, l_w,
+                                        n_steps);
         else
-            gram_steps<T, NU, false>(u, up, cc, m, a, l_prev, l_w, n_steps);
+            dm::gram_steps<T, NU, false>(u, up, cc, m, a, l_prev, l_w,
+                                         n_steps);
     } else {
         // ---- the known-block residual, kept in shared memory ----------
         for (int s = 0; s < n_s; ++s) {
             const T y = s_y[s * kLd + tid];
             const T d = s_d[s * kLd + tid];
-            T known = T(0);
-            for (int c = 0; c < n_ct; ++c)
-                known += s_a1[c * n_s + s] * s_r[c * kLd + tid];
-            s_res[s * kLd + tid] = d * y - d * known;
+            s_res[s * kLd + tid] = dm::known_resid(y, d, s_r, s_a1, s, n_s,
+                                                   n_ct, tid);
         }
 
         // ---- the whole U FISTA loop, direct form ----------------------
@@ -258,70 +186,8 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
     __syncthreads();
 
     // ---- this block's Gram partial sums with the new u ----------------
-    // entry e: [gu (n_s, NU, p) | b_u (NU, n_s) | usq], one thread each,
-    // summed over the block's sites in site order
-    const int p = n_ct + NU;
-    const int e_gu = n_s * NU * p;
-    const int e_bu = NU * n_s;
-    const int n_entries = e_gu + e_bu + 1;
-    for (int e = tid; e < n_entries; e += kSites) {
-        T acc = T(0);
-        if (e < e_gu) {
-            const int s = e / (NU * p);
-            const int v = (e / p) % NU;
-            const int q = e % p;
-            const T* ds = s_d + s * kLd;
-            const T* uv = s_r + (n_ct + v) * kLd;
-            const T* rq = s_r + q * kLd;
-            for (int j = 0; j < kSites; ++j) acc += (ds[j] * uv[j]) * rq[j];
-        } else if (e < e_gu + e_bu) {
-            const int v = (e - e_gu) / n_s;
-            const int s = (e - e_gu) % n_s;
-            const T* ds = s_d + s * kLd;
-            const T* ys = s_y + s * kLd;
-            const T* uv = s_r + (n_ct + v) * kLd;
-            for (int j = 0; j < kSites; ++j) acc += uv[j] * (ds[j] * ys[j]);
-        } else {
-            for (int j = 0; j < kSites; ++j) {
-#pragma unroll
-                for (int v = 0; v < NU; ++v) {
-                    const T x = s_r[(n_ct + v) * kLd + j];
-                    acc += x * x;
-                }
-            }
-        }
-        partials[static_cast<int64_t>(e) * n_blocks + blockIdx.x] = acc;
-    }
-}
-
-// Second pass: out[e] = sum over blocks of partials[e, :], in a fixed
-// order (strided per thread, then a fixed tree). Block 0 also advances
-// the Nesterov scalar n_steps times and sets l_w_prev = l_w.
-template <typename T>
-__global__ void __launch_bounds__(kRedThreads)
-reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
-                       T* __restrict__ scal, int n_blocks, int n_steps) {
-    __shared__ T buf[kRedThreads];
-    const int e = blockIdx.x;
-    const int tid = threadIdx.x;
-    const T* row = partials + static_cast<int64_t>(e) * n_blocks;
-    T acc = T(0);
-    for (int b = tid; b < n_blocks; b += kRedThreads) acc += row[b];
-    buf[tid] = acc;
-    __syncthreads();
-    for (int w = kRedThreads / 2; w > 0; w >>= 1) {
-        if (tid < w) buf[tid] += buf[tid + w];
-        __syncthreads();
-    }
-    if (tid == 0) {
-        out[e] = buf[0];
-        if (e == 0) {
-            T a = scal[0];
-            for (int step = 0; step < n_steps; ++step) a = nesterov(a);
-            scal[0] = a;
-            if (n_steps > 0) scal[2] = scal[1];
-        }
-    }
+    dm::gram_partials<T, NU>(s_y, s_d, s_r, n_s, n_ct, tid,
+                             partials + blockIdx.x, n_blocks);
 }
 
 size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u, bool direct) {
@@ -336,8 +202,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* partials, void* out, int64_t n,
            int n_s, int n_ct, int n_steps, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
-    const int p = n_ct + NU;
-    const int n_entries = n_s * NU * p + NU * n_s + 1;
+    const int n_entries = dm::gram_entries(n_s, n_ct, NU);
     const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, DIRECT);
     auto kern = u_phase_grams_kernel<T, NU, DIRECT>;
     if (smem > 48 * 1024) {
@@ -353,9 +218,10 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<T*>(partials), n, n_s, n_ct, n_steps, n_blocks, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    reduce_partials_kernel<T><<<n_entries, kRedThreads, 0, stream>>>(
-        static_cast<const T*>(partials), static_cast<T*>(out),
-        static_cast<T*>(scal), n_blocks, n_steps);
+    dm::reduce_partials_kernel<T, false>
+        <<<n_entries, kRedThreads, 0, stream>>>(
+            static_cast<const T*>(partials), static_cast<T*>(out),
+            static_cast<T*>(scal), n_blocks, n_steps, n_entries, 0);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 """ctypes binding for the native TSV/CSV column parser.
 
-The C++ source stays single: this module compiles the JAX package's
-``demethify_tpu/io/_fastbed.cpp`` by path (no Python import of that
-package) into the port's build directory. ``available()`` is False when
+The port keeps its own copy of the parser's C++ source, ``_fastbed.cpp``
+beside this module (the same parser as ``demethify_tpu/io/_fastbed.cpp``:
+the port reads no file of the JAX package), and compiles it with g++ into
+the port's build directory at first use. ``available()`` is False when
 g++ or the source is missing, and the readers then parse with the
 ``csv`` module instead.
 """
@@ -17,8 +18,7 @@ import numpy as np
 
 from demethify_tpu_torch.ops._build import PKG_DIR, build_dir
 
-SRC = os.path.join(os.path.dirname(PKG_DIR), "demethify_tpu", "io",
-                   "_fastbed.cpp")
+SRC = os.path.join(PKG_DIR, "io", "_fastbed.cpp")
 
 
 class _Native:

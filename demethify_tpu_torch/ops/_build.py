@@ -69,10 +69,13 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
+_LL = ctypes.c_longlong
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"dm_u_phase_grams_{dt}")
-        fn.argtypes = [_VOID] * 8 + [ctypes.c_longlong] + [_INT] * 6 + [_VOID]
+        fn.argtypes = [_VOID] * 8 + [_LL] + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
         fn.argtypes = [_VOID] * 9 + [_INT] * 4 + [_VOID]
@@ -80,9 +83,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"dm_fw_phase_full_{dt}")
         fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
+        # the multi-member kernels: pointers with their member strides
+        fn = getattr(lib, f"dm_u_phase_grams_multi_{dt}")
+        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2 + [_INT]
+                       + [_VOID] * 2 + [_LL] + [_INT] * 6 + [_VOID])
+        fn.restype = _INT
+        fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
+        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL, _VOID, _LL]
+                       + [_VOID] * 3 + [_LL, _VOID, _LL] + [_INT] * 5
+                       + [_VOID])
+        fn.restype = _INT
+        fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
+        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
+                       + [_LL] + [_VOID] * 2 + [_LL] + [_INT] * 5 + [_VOID])
+        fn.restype = _INT
     lib.dm_u_phase_grams_smem.argtypes = [_INT] * 5
-    lib.dm_u_phase_grams_smem.restype = ctypes.c_longlong
-    lib.dm_u_phase_grams_blocks.argtypes = [ctypes.c_longlong]
+    lib.dm_u_phase_grams_smem.restype = _LL
+    lib.dm_u_phase_grams_multi_smem.argtypes = [_INT] * 4
+    lib.dm_u_phase_grams_multi_smem.restype = _LL
+    lib.dm_u_phase_grams_blocks.argtypes = [_LL]
     lib.dm_u_phase_grams_blocks.restype = _INT
 
 

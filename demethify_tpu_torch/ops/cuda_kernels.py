@@ -18,7 +18,10 @@ computes the same function with ordinary tensor ops.
 
 Device scalars: the solver keeps its scalars in one small vector on the
 data's device (slots below), which the kernels read and advance, so an
-outer iteration needs no host sync apart from the termination test.
+outer iteration needs no host sync apart from the termination test. The
+multi-member solves keep one row of N_SCAL_MULTI slots per restart
+member: the same slots plus the member's tolerance TOL and its ACTIVE
+flag (``csrc/small_common.cuh`` names the same slots).
 """
 
 import torch
@@ -27,10 +30,13 @@ from demethify_tpu_torch.ops import _build
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
 # slots of the solver's device scalar vector `scal`
-A_U, L_W, L_W_PREV, A_ALPHA, L_H_PREV, COST, RT_SQ, DMAX2 = range(8)
+A_U, L_W, L_W_PREV, A_ALPHA, L_H_PREV, COST, RT_SQ, DMAX2, TOL, ACTIVE = (
+    range(10))
 N_SCAL = 8
+N_SCAL_MULTI = 10
 
 MAX_N_U = 8
+SITES_PER_BLOCK = 128    # K1's and K4's sites per block (u_phase_common.cuh)
 _SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into (H100)
 
 
@@ -73,12 +79,29 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
     return n, n_s, n_ct, n_u
 
 
-def _known_block(ydt, rtt, a1_block, n_s):
-    """None for the known block means none (n_ct = 0): empty operands."""
+def gram_entries(n_s: int, n_ct: int, n_u: int) -> int:
+    """Gram entries per member: gu (n_s, n_u, p), b_u (n_u, n_s), usq."""
+    return n_s * n_u * (n_ct + n_u) + n_u * n_s + 1
+
+
+def member_stride(t, name: str) -> int:
+    """Elements between the members of ``t`` (B, ...), whose per-member
+    block must be contiguous (a slice of a (B, p, n_s) alpha stack is)."""
+    block = t[0]
+    if not block.is_contiguous() or (t.shape[0] > 1 and block.numel() > 0
+                                     and t.stride(0) < block.numel()):
+        raise ValueError(f"{name}: each member's block must be contiguous "
+                         f"and apart from the others")
+    return t.stride(0)
+
+
+def known_block(ydt, rtt, a1_block, a1_shape):
+    """None for the known block means none (n_ct = 0): empty operands,
+    a1 of the empty ``a1_shape``."""
     if rtt is None:
         rtt = ydt.new_empty((0, ydt.shape[1]))
     if a1_block is None:
-        a1_block = ydt.new_empty((0, n_s))
+        a1_block = ydt.new_empty(a1_shape)
     return rtt, a1_block
 
 
@@ -100,7 +123,7 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     gu[s, u, q] = sum_i u_iu d_is [Rt | u]_iq, b_u = u'(d * y),
     usq = sum u^2.
     """
-    rtt, a1_block = _known_block(ydt, rtt, a1_block, a2_block.shape[1])
+    rtt, a1_block = known_block(ydt, rtt, a1_block, (0, a2_block.shape[1]))
     n, n_s, n_ct, n_u = _check_args(ydt, rtt, a1_block, a2_block, uut, scal)
     if ydt.device.type == "cpu":
         return u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
@@ -117,7 +140,7 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
             f"{n_s}, n_ct = {n_ct}, n_u = {n_u}; wider shapes are ROADMAP "
             f"port queue item 12")
     p = n_ct + n_u
-    n_entries = n_s * n_u * p + n_u * n_s + 1
+    n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
     partials = torch.empty((n_entries, n_blocks), dtype=ydt.dtype,
                            device=ydt.device)
@@ -145,7 +168,7 @@ def u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
     """The same function as ``u_phase_grams`` in ordinary tensor ops (the
     kernel's twin: the CPU path, and what the kernel is checked against
     on the card), in the same gram or direct dataflow."""
-    rtt, a1_block = _known_block(ydt, rtt, a1_block, a2_block.shape[1])
+    rtt, a1_block = known_block(ydt, rtt, a1_block, (0, a2_block.shape[1]))
     n_u, n_s = a2_block.shape
     yt, dt = ydt[:n_s], ydt[n_s:]
     dy = dt * yt

@@ -1,21 +1,29 @@
-"""K2 and K3, the single-block glue kernels: wrappers, launch counts and
-plain twins.
+"""K2, K3, K5 and K6, the glue kernels: wrappers, launch counts and plain
+twins.
 
 ``alpha_phase_full`` (K2) replaces the Pallas kernel
 ``demethify_tpu/ops/pallas_small.py::_alpha_full_kernel`` (through
 ``alpha_phase_full``); ``fw_phase_full`` (K3) replaces
-``_fw_full_kernel`` (through ``fw_phase_full``). The kernels are
-``csrc/alpha_phase_full.cu`` and ``csrc/fw_phase_full.cu``; their source
-notes say what bounds them on an H100 (latency: tiny data, n_steps serial
-steps) and what the design does about it (one thread block, one warp per
-sample column; the simplex projection, or the Frank-Wolfe block argmin,
-inside the warp).
+``_fw_full_kernel`` (through ``fw_phase_full``). Their member-gridded
+forms for the batched restarts, ``alpha_phase_full_multi`` (K5) and
+``fw_phase_full_multi`` (K6), replace ``_alpha_full_multi_kernel`` and
+``_fw_full_multi_kernel`` (through the wrappers of the same names). The
+kernels are ``csrc/alpha_phase_full.cu`` (K2, K5) and
+``csrc/fw_phase_full.cu`` (K3, K6); their source notes say what bounds
+them on an H100 (latency: tiny data, n_steps serial steps) and what the
+design does about it (one thread block per member, one warp per sample
+column; the simplex projection, or the Frank-Wolfe block argmin, inside
+the warp).
 
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
-tensors take the plain PyTorch twins ``alpha_phase_full_plain`` and
-``fw_phase_full_plain``. Without a known block (n_ct = 0, the
-unsupervised solve) the known operands are empty and never read.
-``row_mask`` (the model-selection sweep) is ROADMAP port queue item 6.
+tensors take the plain PyTorch twins (``*_plain``; the multi twins write
+the member axis out as more columns). Without a known block (n_ct = 0,
+the unsupervised solve) the known operands are empty and never read.
+The multi forms leave a member whose ACTIVE slot is 0 exactly as it was
+and set an active member's ACTIVE slot for the next outer iteration from
+|new cost - old cost| >= TOL (the reference's termination test, per
+member). ``row_mask`` and ``row_mask_b`` (the model-selection sweep) are
+ROADMAP port queue item 6.
 """
 
 import torch
@@ -23,12 +31,16 @@ import torch
 from demethify_tpu_torch.ops import _build
 from demethify_tpu_torch.ops.cuda_kernels import (
     A_ALPHA,
+    ACTIVE,
     COST,
     DMAX2,
     L_H_PREV,
     L_W,
     N_SCAL,
+    N_SCAL_MULTI,
     RT_SQ,
+    TOL,
+    member_stride,
 )
 from demethify_tpu_torch.ops.fista import fista_alpha_gram
 from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
@@ -178,3 +190,211 @@ def fw_phase_full_plain(gtt, bt, gu, bu, ydy, alpha, purity, scal,
     alpha.copy_(al)
     scal[L_W] = torch.sum(a2 * a2) * scal[DMAX2]
     scal[COST] = torch.sum(ydy) - torch.sum(b * al) - torch.sum(al * grad)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the same kernels with one thread block per restart member
+# ---------------------------------------------------------------------------
+
+
+def _check_multi(name, alpha_b, n_u, shared, members, scal_b):
+    """Device, dtype and, for the kernel, layout of the multi forms'
+    operands: ``shared`` (gtt, bt, ydy, ...) contiguous, ``members``
+    (B, ...) with contiguous per-member blocks, scal_b (B, N_SCAL_MULTI)
+    contiguous. Returns (n_b, p, n_s, n_ct)."""
+    dev, dt = alpha_b.device, alpha_b.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {dt}")
+    for t in (*shared, *members, scal_b):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: all operands must share one device "
+                             f"and dtype")
+    n_b, p, n_s = alpha_b.shape
+    n_ct = p - n_u
+    if n_b < 1 or scal_b.shape != (n_b, N_SCAL_MULTI):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if dev.type == "cuda":
+        for t in (*shared, scal_b):
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: operands must be contiguous")
+        for t in members:
+            member_stride(t, name)
+    if p > MAX_P:
+        raise NotImplementedError(
+            f"{name} takes p <= {MAX_P} rows, got {p} (ROADMAP port queue "
+            f"item 12)")
+    return n_b, p, n_s, n_ct
+
+
+def _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy):
+    return (1 <= n_u <= p and gtt.shape == (n_s, n_ct, n_ct)
+            and bt.shape == (n_ct, n_s) and gu_b.shape == (n_b, n_s, n_u, p)
+            and bu_b.shape == (n_b, n_u, n_s) and ydy.shape == (n_s,))
+
+
+def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
+                           alpha_prev_b, scal_b, n_steps: int, n_u: int,
+                           row_mask_b=None):
+    """One launch (K5): ``alpha_phase_full`` for each active member.
+
+    gtt, bt, ydy are the known blocks, shared by the members; gu_b
+    (B, n_s, n_u, p), bu_b (B, n_u, n_s), usq_b (B,) come from K4 (views
+    of its output rows are taken as they are); alpha_b, alpha_prev_b
+    (B, p, n_s) and scal_b (B, N_SCAL_MULTI) are updated in place for the
+    active members (A_ALPHA, L_H_PREV advanced; L_W, COST, ACTIVE
+    written; RT_SQ, DMAX2, TOL read). Returns nothing.
+    """
+    if row_mask_b is not None:
+        raise NotImplementedError(
+            "alpha_phase_full_multi: row_mask_b (the model-selection sweep) "
+            "is ROADMAP port queue item 6")
+    name = "alpha_phase_full_multi"
+    n_b, p, n_s, n_ct = _check_multi(
+        name, alpha_b, n_u, (gtt, bt, ydy),
+        (gu_b, bu_b, usq_b, alpha_b, alpha_prev_b), scal_b)
+    if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
+            or usq_b.shape != (n_b,) or alpha_prev_b.shape != alpha_b.shape
+            or alpha_prev_b.stride(0) != alpha_b.stride(0)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if alpha_b.device.type == "cpu":
+        alpha_phase_full_multi_plain(gtt, bt, gu_b, bu_b, usq_b, ydy,
+                                     alpha_b, alpha_prev_b, scal_b, n_steps,
+                                     n_u)
+        return
+    if alpha_b.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {alpha_b.device}")
+    lib = _build.load().lib
+    fn = (lib.dm_alpha_phase_full_multi_f32
+          if alpha_b.dtype == torch.float32
+          else lib.dm_alpha_phase_full_multi_f64)
+    with torch.cuda.device(alpha_b.device):
+        err = fn(gtt.data_ptr(), bt.data_ptr(), gu_b.data_ptr(),
+                 gu_b.stride(0), bu_b.data_ptr(), bu_b.stride(0),
+                 usq_b.data_ptr(), usq_b.stride(0), ydy.data_ptr(),
+                 alpha_b.data_ptr(), alpha_prev_b.data_ptr(),
+                 alpha_b.stride(0), scal_b.data_ptr(), N_SCAL_MULTI, n_s,
+                 n_ct, n_u, n_steps, n_b, _stream(alpha_b))
+    _build.check(err, name)
+    alpha_phase_full_multi.launches += 1
+
+
+alpha_phase_full_multi.launches = 0
+
+
+def _columns(x_b):
+    """(B, r, n_s) -> (r, B n_s), column c = b n_s + s."""
+    return x_b.transpose(0, 1).reshape(x_b.shape[1], -1)
+
+
+def _members(x_c, n_b):
+    """(r, B n_s) -> (B, r, n_s), the inverse of ``_columns``."""
+    return x_c.reshape(x_c.shape[0], n_b, -1).transpose(0, 1)
+
+
+def assemble_G_b_multi(gtt, bt, gu_b, bu_b):
+    """Per-member full Grams G (B, n_s, p, p) and b (B, p, n_s) from the
+    shared known blocks and the members' K4 blocks."""
+    n_b, n_ct = gu_b.shape[0], gtt.shape[1]
+    top = torch.cat([gtt.expand(n_b, -1, -1, -1),
+                     gu_b[..., :n_ct].transpose(2, 3)], dim=3)
+    return (torch.cat([top, gu_b], dim=2),
+            torch.cat([bt.expand(n_b, -1, -1), bu_b], dim=1))
+
+
+def _finish_members(scal_b, alpha_b, al_b, b_b, grad_b, ydy, n_u,
+                    updates):
+    """The multi twins' epilogue: per-member cost and l_w; the active
+    members' alpha, scalar ``updates`` {slot: (B,) value}, COST and
+    ACTIVE written in place."""
+    act = scal_b[:, ACTIVE] != 0
+    cost = (torch.sum(ydy) - torch.sum(b_b * al_b, dim=(1, 2))
+            - torch.sum(al_b * grad_b, dim=(1, 2)))
+    updates[L_W] = torch.sum(al_b[:, -n_u:] ** 2, dim=(1, 2)) * scal_b[:,
+                                                                       DMAX2]
+    still = (torch.abs(cost - scal_b[:, COST]) >= scal_b[:, TOL]).to(
+        scal_b.dtype)
+    updates[ACTIVE] = still
+    updates[COST] = cost
+    alpha_b[act] = al_b[act]
+    for slot, value in updates.items():
+        scal_b[:, slot] = torch.where(act, value, scal_b[:, slot])
+    return act
+
+
+def alpha_phase_full_multi_plain(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
+                                 alpha_prev_b, scal_b, n_steps: int,
+                                 n_u: int):
+    """The same function as ``alpha_phase_full_multi`` in ordinary tensor
+    ops: the members' columns side by side, per-column scalars."""
+    n_b, p, n_s = alpha_b.shape
+    G, b = assemble_G_b_multi(gtt, bt, gu_b, bu_b)
+    G_c, b_c = G.reshape(n_b * n_s, p, p), _columns(b)
+    l_h = (scal_b[:, RT_SQ] + usq_b) * scal_b[:, DMAX2]
+
+    def per_col(v):
+        return v.repeat_interleave(n_s)
+
+    al, ap, a, l_h_prev = fista_alpha_gram(
+        _columns(alpha_b), _columns(alpha_prev_b),
+        per_col(scal_b[:, A_ALPHA]), per_col(scal_b[:, L_H_PREV]),
+        per_col(l_h), G_c, b_c, n_steps)
+    grad = b_c - torch.einsum("spq,qs->ps", G_c, al)
+    act = _finish_members(
+        scal_b, alpha_b, _members(al, n_b), b, _members(grad, n_b), ydy,
+        n_u, {A_ALPHA: a[::n_s], L_H_PREV: l_h_prev[::n_s]})
+    alpha_prev_b[act] = _members(ap, n_b)[act]
+
+
+def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
+                        n_steps: int, n_u: int):
+    """One launch (K6): ``fw_phase_full`` for each active member.
+
+    gtt, bt, ydy and purity (n_s,) are shared by the members; gu_b, bu_b
+    come from K4; alpha_b (B, p, n_s) = [known; unknown] and scal_b
+    (B, N_SCAL_MULTI) are updated in place for the active members (L_W,
+    COST, ACTIVE written; DMAX2, TOL read). Returns nothing.
+    """
+    name = "fw_phase_full_multi"
+    n_b, p, n_s, n_ct = _check_multi(name, alpha_b, n_u,
+                                     (gtt, bt, ydy, purity),
+                                     (gu_b, bu_b, alpha_b), scal_b)
+    if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
+            or purity.shape != (n_s,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if alpha_b.device.type == "cpu":
+        fw_phase_full_multi_plain(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity,
+                                  scal_b, n_steps, n_u)
+        return
+    if alpha_b.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {alpha_b.device}")
+    lib = _build.load().lib
+    fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
+          else lib.dm_fw_phase_full_multi_f64)
+    with torch.cuda.device(alpha_b.device):
+        err = fn(gtt.data_ptr(), bt.data_ptr(), gu_b.data_ptr(),
+                 gu_b.stride(0), bu_b.data_ptr(), bu_b.stride(0),
+                 ydy.data_ptr(), alpha_b.data_ptr(), alpha_b.stride(0),
+                 purity.data_ptr(), scal_b.data_ptr(), N_SCAL_MULTI, n_s,
+                 n_ct, n_u, n_steps, n_b, _stream(alpha_b))
+    _build.check(err, name)
+    fw_phase_full_multi.launches += 1
+
+
+fw_phase_full_multi.launches = 0
+
+
+def fw_phase_full_multi_plain(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity,
+                              scal_b, n_steps: int, n_u: int):
+    """The same function as ``fw_phase_full_multi`` in ordinary tensor ops:
+    the members' columns side by side."""
+    n_b, p, n_s = alpha_b.shape
+    n_ct = p - n_u
+    G, b = assemble_G_b_multi(gtt, bt, gu_b, bu_b)
+    G_c, b_c = G.reshape(n_b * n_s, p, p), _columns(b)
+    al = _columns(alpha_b)
+    a1, a2 = frank_wolfe_gram(al[:n_ct], al[n_ct:], G_c, b_c,
+                              purity.repeat(n_b), n_steps)
+    al = torch.cat([a1, a2], dim=0)
+    grad = b_c - torch.einsum("spq,qs->ps", G_c, al)
+    _finish_members(scal_b, alpha_b, _members(al, n_b), b,
+                    _members(grad, n_b), ydy, n_u, {})

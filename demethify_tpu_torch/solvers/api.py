@@ -4,10 +4,15 @@ Counterpart of ``demethify_tpu/solvers/api.py``: reference-based,
 partial-reference, purity-constrained and unsupervised. Routing: tensors
 on ``cuda`` use the kernel solvers (``solvers/fused.py``), tensors on
 ``cpu`` the plain ones (``solvers/partial_ref.py``, ``purity.py``,
-``unsupervised.py``); there is no other route. Restarts run as a
-sequential loop with one generator each; the batched multi-member kernels
-(K4-K6) are ROADMAP port queue item 3. The restart with the lowest cost
-wins (first minimum; a NaN cost never wins).
+``unsupervised.py``); there is no other route. Each restart draws its
+init from its own generator (``restart_generators``). On the card, with
+more than one restart, no ``init_provided`` and the gram form
+(n_u^2 <= 3 n_s, the JAX API's rule), the restarts run together through
+the multi-member solvers (``fused.*_solve_fused_multi``: K4 and K5 or
+K6), in chunks of at most ``fused.max_multi_members``; otherwise (the
+direct form, the CPU) they run as a sequential loop of single solves
+(``restart_route``). The restart with the lowest cost wins (first
+minimum in restart order, across chunks; a NaN cost never wins).
 """
 
 from dataclasses import dataclass
@@ -18,6 +23,8 @@ import torch
 
 from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost
+from demethify_tpu_torch.ops.cuda_kernels import gram_form
+from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.solvers import fused
 from demethify_tpu_torch.solvers.init import (
@@ -70,15 +77,60 @@ def supervised_deconv(y, d, R) -> DeconvolutionResult:
                                cost=float(cost), n_iter=0)
 
 
-def _restarts(solve, init_fn, y, seed, n_restarts, init_provided):
-    """Init + solve per restart (one generator each), or once from
-    ``init_provided`` = (u0, alpha0); the first minimum cost wins."""
-    if init_provided is not None:
-        results = [solve(*init_provided)]
+def restart_route(device, n_u: int, n_s: int, n_restarts: int,
+                  init_provided=None) -> str:
+    """'batch' when the restarts run together through the multi-member
+    kernels: on a CUDA device, more than one restart, no
+    ``init_provided``, and the gram form (n_u^2 <= 3 n_s, the rule by
+    which the JAX API routes restarts to its multi kernel). 'sequential'
+    otherwise: the direct form (the JAX API vmaps its single solver
+    there; the per-member results are the same), the CPU's plain solvers,
+    one restart, or a provided init (one solve)."""
+    if (torch.device(device).type == "cuda" and n_restarts > 1
+            and init_provided is None and gram_form(n_u, n_s)):
+        return "batch"
+    return "sequential"
+
+
+def _batched_restarts(solve_multi, init_fn, device, seed, n_restarts, cap):
+    """The restarts through ``solve_multi`` in chunks of at most ``cap``
+    members, each init drawn from its restart's generator in restart
+    order. Returns the winner (u, alpha, info): the first minimum cost
+    across all chunks, so the result does not depend on the chunking."""
+    gens = restart_generators(seed, n_restarts, device)
+    best = []
+    for lo in range(0, n_restarts, cap):
+        u0_b, a0_b = (torch.stack(x) for x in zip(
+            *(init_fn(g) for g in gens[lo:lo + cap])))
+        u_b, alpha_b, info = solve_multi(u0_b, a0_b)
+        u, alpha, info = _select_best(best + [
+            (u_b[b], alpha_b[b], {k: v[b] for k, v in info.items()})
+            for b in range(u_b.shape[0])])
+        # a copy, so that the next chunk runs without this one's batch
+        best = [(u.clone(), alpha.clone(), info)]
+    return best[0]
+
+
+def _restarts(solve, solve_multi, init_fn, y, n_u, n_ct, seed, n_restarts,
+              init_provided):
+    """Init + solve per restart (one generator each) by ``restart_route``,
+    or once from ``init_provided`` = (u0, alpha0); the first minimum cost
+    wins."""
+    if restart_route(y.device, n_u, y.shape[1], n_restarts,
+                     init_provided) == "batch":
+        itemsize = torch.finfo(accum_dtype(y)).bits // 8
+        cap = fused.max_multi_members(y.shape[0], y.shape[1], n_ct, n_u,
+                                      itemsize,
+                                      fused.free_device_bytes(y.device))
+        u, alpha, info = _batched_restarts(solve_multi, init_fn, y.device,
+                                           seed, n_restarts, cap)
     else:
-        results = [solve(*init_fn(g))
-                   for g in restart_generators(seed, n_restarts, y.device)]
-    u, alpha, info = _select_best(results)
+        if init_provided is not None:
+            results = [solve(*init_provided)]
+        else:
+            results = [solve(*init_fn(g)) for g in
+                       restart_generators(seed, n_restarts, y.device)]
+        u, alpha, info = _select_best(results)
     return DeconvolutionResult(u=u, proportions=alpha,
                                cost=float(info["cost"]),
                                n_iter=int(info["n_iter"]),
@@ -109,9 +161,14 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
             return partial_ref_solve(u0, a0, y, d, R_trunc, n_u,
                                      use_gram_u=gram_u, **kw)
 
+    def solve_multi(u0_b, a0_b):
+        return fused.partial_ref_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
+                                                   n_u, **kw)
+
     return _restarts(
-        solve, lambda g: init_partial(g, init, y, d, R_trunc, n_u), y, seed,
-        n_restarts, init_provided)
+        solve, solve_multi,
+        lambda g: init_partial(g, init, y, d, R_trunc, n_u), y, n_u,
+        R_trunc.shape[1], seed, n_restarts, init_provided)
 
 
 def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
@@ -136,9 +193,14 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
         def solve(u0, a0):
             return purity_solve(u0, a0, y, d, R_trunc, purity, n_u, **kw)
 
+    def solve_multi(u0_b, a0_b):
+        return fused.purity_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
+                                              purity, n_u, **kw)
+
     return _restarts(
-        solve, lambda g: init_purity(g, init, y, d, R_trunc, n_u), y, seed,
-        n_restarts, init_provided)
+        solve, solve_multi,
+        lambda g: init_purity(g, init, y, d, R_trunc, n_u), y, n_u,
+        R_trunc.shape[1], seed, n_restarts, init_provided)
 
 
 def unsupervised_deconv(y, d, n_u: int, *,
@@ -164,9 +226,13 @@ def unsupervised_deconv(y, d, n_u: int, *,
             return unsupervised_solve(u0, a0, y, d, n_u, use_gram_u=gram_u,
                                       **kw)
 
+    def solve_multi(u0_b, a0_b):
+        return fused.unsupervised_solve_fused_multi(u0_b, a0_b, y, d, n_u,
+                                                    **kw)
+
     return _restarts(
-        solve, lambda g: init_unsupervised(g, init, y, d, n_u), y, seed,
-        n_restarts, init_provided)
+        solve, solve_multi, lambda g: init_unsupervised(g, init, y, d, n_u),
+        y, n_u, 0, seed, n_restarts, init_provided)
 
 
 def deconvolve(y, d, R=None, n_u: int = 0, purity=None,

@@ -17,6 +17,21 @@ The solver's scalars stay on the device (``cuda_kernels.N_SCAL`` slots);
 the only host read per outer iteration is the cost, for the reference's
 termination test ``|cf - cf_prev| >= tol``, made in the working dtype as
 the JAX while_loop makes it.
+
+The batched random restarts (``*_solve_fused_multi``, counterparts of the
+JAX package's solvers of the same names) run B members on the same data:
+each outer iteration launches K4 (``ops/cuda_multi.u_phase_grams_multi``:
+one pass over Y, D and Rt for all members) and then K5 or K6
+(``ops/cuda_small.alpha_phase_full_multi`` / ``fw_phase_full_multi``:
+one thread block per member). Every member keeps its own row of
+``N_SCAL_MULTI`` device scalars, its own tolerance and its own ACTIVE
+flag. The flags are computed on the device: the solver sets them once
+from the starting costs, and K5/K6 set each active member's flag for the
+next iteration from |new cost - old cost| >= tol, in the working dtype;
+K4 and K5/K6 leave an inactive member untouched. The only host read per
+outer iteration is one copy of the (B, N_SCAL_MULTI) scalar rows (costs
+and flags), for the trace, the members' iteration counts and the loop's
+"any member active" test. No member padding: that is a TPU sublane rule.
 """
 
 import numpy as np
@@ -25,28 +40,43 @@ import torch
 from demethify_tpu_torch.ops.cuda_kernels import (
     A_ALPHA,
     A_U,
+    ACTIVE,
     COST,
     DMAX2,
     L_H_PREV,
     L_W,
     L_W_PREV,
     N_SCAL,
+    N_SCAL_MULTI,
     RT_SQ,
+    SITES_PER_BLOCK,
+    TOL,
+    gram_entries,
     u_phase_grams,
 )
-from demethify_tpu_torch.ops.cuda_small import alpha_phase_full, fw_phase_full
+from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+from demethify_tpu_torch.ops.cuda_small import (
+    alpha_phase_full,
+    alpha_phase_full_multi,
+    fw_phase_full,
+    fw_phase_full_multi,
+)
 from demethify_tpu_torch.ops.gram import accum_dtype, known_block_grams
 
 
-def _transposed(u, y, d, R_trunc, dtype):
+def _data_t(y, d, R_trunc, dtype):
     """ydt (2 n_s, N) = [Y.T; D.T], rtt (n_ct, N) = Rt.T (None without a
-    known block), uut (2 n_u, N) = [u.T; u.T], and dmax^2."""
+    known block), and dmax^2."""
     ydt = torch.cat([y.T, d.T], dim=0).to(dtype).contiguous()
     rtt = None if R_trunc is None else R_trunc.T.to(dtype).contiguous()
-    ut = u.T.to(dtype)
-    uut = torch.cat([ut, ut], dim=0).contiguous()
     dmax2 = torch.max(ydt[y.shape[1]:]) ** 2
-    return ydt, rtt, uut, dmax2
+    return ydt, rtt, dmax2
+
+
+def _uut(u, dtype):
+    """[u.T; u.T]: u (..., N, n_u) -> (..., 2 n_u, N), contiguous."""
+    ut = u.transpose(-1, -2).to(dtype)
+    return torch.cat([ut, ut], dim=-2).contiguous()
 
 
 def _cost_t(ydt, rt_full, alpha):
@@ -55,14 +85,45 @@ def _cost_t(ydt, rt_full, alpha):
     return torch.sum(ydt[n_s:] * resid * resid)
 
 
-def _scalars(dtype, device, **slots):
-    scal = torch.zeros(N_SCAL, dtype=dtype, device=device)
+def _scalars(dtype, device, n=N_SCAL, **slots):
+    scal = torch.zeros(n, dtype=dtype, device=device)
     names = {"a_u": A_U, "l_w": L_W, "l_w_prev": L_W_PREV,
              "a_alpha": A_ALPHA, "l_h_prev": L_H_PREV, "cost": COST,
              "rt_sq": RT_SQ, "dmax2": DMAX2}
     for name, value in slots.items():
         scal[names[name]] = value
     return scal
+
+
+def _start(ydt, rtt, uut, alpha, n_u, dmax2, alpha_fista):
+    """One member's starting scalars (the same arithmetic in the single-
+    and the multi-member solves, so their members start bit-equal):
+    Nesterov scalars 1, l_w = l_w_prev = ||alpha_unknown||^2 dmax^2 and
+    the cost; with ``alpha_fista`` (not the Frank-Wolfe purity solve)
+    also l_h_prev = ||[Rt | u]||^2 dmax^2 and ||Rt||^2."""
+    ut = uut[:n_u]
+    rt0 = ut if rtt is None else torch.cat([rtt, ut], dim=0)
+    l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
+    slots = dict(a_u=1.0, l_w=l_w0, l_w_prev=l_w0,
+                 cost=_cost_t(ydt, rt0, alpha), dmax2=dmax2)
+    if alpha_fista:
+        slots.update(a_alpha=1.0, l_h_prev=torch.sum(rt0 * rt0) * dmax2)
+        if rtt is not None:
+            slots["rt_sq"] = torch.sum(rtt * rtt)
+    return slots
+
+
+def _known_grams(R_trunc, y, d, dtype):
+    """The loop-invariant known-block Grams (G_tt, b_t, ydy), contiguous."""
+    return tuple(x.contiguous() for x in known_block_grams(
+        R_trunc.to(dtype), d.to(dtype), y.to(dtype)))
+
+
+def _no_known_grams(ydt):
+    """Empty known blocks and ydy for the solves without a reference."""
+    n_s = ydt.shape[0] // 2
+    ydy = torch.sum(ydt[n_s:] * ydt[:n_s] * ydt[:n_s], dim=1).contiguous()
+    return ydt.new_empty((n_s, 0, 0)), ydt.new_empty((0, n_s)), ydy
 
 
 def _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
@@ -100,16 +161,11 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
     """
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, rtt, uut, dmax2 = _transposed(u, y, d, R_trunc, dtype)
-    rt0 = torch.cat([rtt, uut[:n_u]], dim=0)
-    l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
-    G_tt, b_t, ydy = (x.contiguous() for x in
-                      known_block_grams(R_trunc.to(dtype), d.to(dtype),
-                                        y.to(dtype)))
-    rt_sq = torch.sum(rtt * rtt)
-    scal = _scalars(dtype, y.device, a_u=1.0, a_alpha=1.0, l_w=l_w0,
-                    l_w_prev=l_w0, l_h_prev=torch.sum(rt0 * rt0) * dmax2,
-                    cost=_cost_t(ydt, rt0, alpha), rt_sq=rt_sq, dmax2=dmax2)
+    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    uut = _uut(u, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    scal = _scalars(dtype, y.device,
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax2, True))
     alpha_prev = alpha.clone()
 
     def one_iteration():
@@ -134,17 +190,12 @@ def unsupervised_solve_fused(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
     (n_u, n_s). Returns (u, alpha, info) as
     ``partial_ref_solve_fused``."""
     dtype = accum_dtype(y)
-    n_s = y.shape[1]
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, _, uut, dmax2 = _transposed(u, y, d, None, dtype)
-    ut = uut[:n_u]
-    l_w0 = torch.sum(alpha * alpha) * dmax2
-    ydy = torch.sum(ydt[n_s:] * ydt[:n_s] * ydt[:n_s], dim=1).contiguous()
-    G_tt = ydt.new_empty((n_s, 0, 0))
-    b_t = ydt.new_empty((0, n_s))
-    scal = _scalars(dtype, y.device, a_u=1.0, a_alpha=1.0, l_w=l_w0,
-                    l_w_prev=l_w0, l_h_prev=torch.sum(ut * ut) * dmax2,
-                    cost=_cost_t(ydt, ut, alpha), dmax2=dmax2)
+    ydt, _, dmax2 = _data_t(y, d, None, dtype)
+    uut = _uut(u, dtype)
+    G_tt, b_t, ydy = _no_known_grams(ydt)
+    scal = _scalars(dtype, y.device,
+                    **_start(ydt, None, uut, alpha, n_u, dmax2, True))
     alpha_prev = alpha.clone()
 
     def one_iteration():
@@ -170,14 +221,11 @@ def purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u: int,
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
-    ydt, rtt, uut, dmax2 = _transposed(u, y, d, R_trunc, dtype)
-    rt0 = torch.cat([rtt, uut[:n_u]], dim=0)
-    l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
-    G_tt, b_t, ydy = (x.contiguous() for x in
-                      known_block_grams(R_trunc.to(dtype), d.to(dtype),
-                                        y.to(dtype)))
-    scal = _scalars(dtype, y.device, a_u=1.0, l_w=l_w0, l_w_prev=l_w0,
-                    cost=_cost_t(ydt, rt0, alpha), dmax2=dmax2)
+    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    uut = _uut(u, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    scal = _scalars(dtype, y.device,
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax2, False))
 
     def one_iteration():
         gu, b_u, _ = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
@@ -189,3 +237,200 @@ def purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u: int,
                            record_trace)
     return uut[:n_u].T.contiguous(), alpha, {
         "cost": scal[COST].clone(), "n_iter": k, "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# batched random restarts
+# ---------------------------------------------------------------------------
+
+def free_device_bytes(device) -> int:
+    """Device memory free for new tensors on ``device``: the driver's free
+    memory plus the blocks torch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+
+
+def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
+                      itemsize: int, free_bytes: int) -> int:
+    """Largest restart batch one multi-member solve takes on the card
+    (replaces the JAX package's VMEM model of the same name), given the
+    device memory ``free_bytes`` free when the restarts start (y, d and
+    Rt already on the device; ``free_device_bytes``).
+
+    What grows with B, per member, in bytes:
+      - K4's partial buffer, E ceil(n_cpg / 128) itemsize, with
+        E = n_s n_u (n_ct + n_u) + n_u n_s + 1 Gram entries;
+      - the member's u and u_prev rows (2 n_u n_cpg itemsize), its
+        stacked starting u and its returned u (2 n_u n_cpg itemsize);
+      - shared memory: nothing. K4 stages one member's alpha blocks at a
+        time and K5/K6 give each member its own thread block, so neither
+        grows with B.
+    What does not: the solver's copies [Y.T; D.T] and Rt.T,
+    itemsize n_cpg (2 n_s + n_ct) bytes. The members may take half of
+    the free memory less those copies; the other half is room for the
+    set-up's transients (the starting costs' residuals and the known
+    block's Gram products, each a few (n_s, n_cpg) arrays) and for the
+    allocator's rounding. So
+        B_max = max(1, (free_bytes // 2 - itemsize n_cpg (2 n_s + n_ct))
+                       // (itemsize (E ceil(n_cpg / 128) + 4 n_u n_cpg))).
+    Above it the restarts run in chunks of B_max.
+    """
+    n_blocks = -(-n_cpg // SITES_PER_BLOCK)
+    per_member = itemsize * (gram_entries(n_s, n_ct, n_u) * n_blocks
+                             + 4 * n_u * n_cpg)
+    shared = itemsize * n_cpg * (2 * n_s + n_ct)
+    return max(1, (free_bytes // 2 - shared) // per_member)
+
+
+def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax2, dtype, tol,
+                 tol_relative, alpha_fista):
+    """The members' [u.T; u_prev.T] rows, alpha stack and scalar rows.
+
+    Each member's starting scalars are the single-member solve's
+    (``_start``). Its tolerance is tol, or tol times its starting cost
+    when ``tol_relative``, and it starts active when |cost - inf| >= tol,
+    both in the working dtype on the host, as ``_outer_loop`` tests them
+    (a NaN starting cost makes the member inactive from the start)."""
+    alpha_b = alpha_b.to(dtype).contiguous().clone()
+    uut_b = _uut(u_b, dtype)
+    scal_b = torch.stack([
+        _scalars(dtype, ydt.device, n=N_SCAL_MULTI,
+                 **_start(ydt, rtt, uut_b[b], alpha_b[b], n_u, dmax2,
+                          alpha_fista))
+        for b in range(alpha_b.shape[0])])
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    cf0 = scal_b[:, COST].cpu().numpy().astype(np_dtype)
+    tol_b = np_dtype(tol) * cf0 if tol_relative else np.full_like(
+        cf0, np_dtype(tol))
+    active = np.abs(cf0 - np_dtype(np.inf)) >= tol_b
+    scal_b[:, TOL] = torch.as_tensor(tol_b, device=ydt.device)
+    scal_b[:, ACTIVE] = torch.as_tensor(active.astype(np_dtype),
+                                        device=ydt.device)
+    return uut_b, alpha_b, scal_b
+
+
+def _outer_loop_multi(one_iteration, scal_b, n_iter1, record_trace):
+    """Calls ``one_iteration()`` while any member is active and fewer than
+    n_iter1 calls were made; one host read of scal_b per call. Returns
+    (n_iter (B,) int64, trace (B, n_iter1) NaN-padded or (B, 0))."""
+    host = scal_b.cpu()
+    active = host[:, ACTIVE] != 0
+    n_iter = torch.zeros(scal_b.shape[0], dtype=torch.int64)
+    trace = torch.full((scal_b.shape[0], n_iter1 if record_trace else 0),
+                       float("nan"), dtype=scal_b.dtype)
+    k = 0
+    while k < n_iter1 and bool(active.any()):
+        one_iteration()
+        host = scal_b.cpu()                  # the host read: B scalar rows
+        n_iter += active
+        if record_trace:
+            trace[active, k] = host[active, COST]
+        active = host[:, ACTIVE] != 0
+        k += 1
+    return n_iter, trace.to(scal_b.device)
+
+
+def _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace):
+    return uut_b[:, :n_u].transpose(1, 2).contiguous(), alpha_b, {
+        "cost": scal_b[:, COST].clone(), "n_iter": n_iter, "trace": trace}
+
+
+def _no_row_weights(row_weights_b):
+    if row_weights_b is not None:
+        raise NotImplementedError(
+            "per-member row weights (the weighted bootstrap) are ROADMAP "
+            "port queue item 7")
+
+
+def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
+                                  n_iter1: int = 10000, n_iter2: int = 20,
+                                  tol: float = 1e-2,
+                                  record_trace: bool = False,
+                                  tol_relative: bool = False,
+                                  row_weights_b=None):
+    """Batched-restart partial-reference solve: the same per-member
+    trajectories as ``partial_ref_solve_fused`` on each member.
+
+    u_b (B, n_cpg, n_u), alpha_b (B, p, n_s); y, d, R_trunc as for the
+    single solve. Returns (u_b, alpha_b, info) with per-member info
+    {'cost': (B,), 'n_iter': (B,) int64 on the host, 'trace':
+    (B, n_iter1) NaN-padded when record_trace, else (B, 0)}. Gram form
+    only (n_u^2 <= 3 n_s), at most ``max_multi_members`` members (the
+    caller chunks; ``solvers/api.py`` does)."""
+    _no_row_weights(row_weights_b)
+    dtype = accum_dtype(y)
+    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
+                                          dmax2, dtype, tol, tol_relative,
+                                          True)
+    alpha_prev_b = alpha_b.clone()
+
+    def one_iteration():
+        gu, b_u, usq = u_phase_grams_multi(
+            ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
+            n_iter2)
+        alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
+                               alpha_prev_b, scal_b, n_iter2, n_u)
+
+    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
+                                      record_trace)
+    return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
+
+
+def unsupervised_solve_fused_multi(u_b, alpha_b, y, d, n_u: int,
+                                   n_iter1: int = 10000, n_iter2: int = 20,
+                                   tol: float = 1e-2,
+                                   record_trace: bool = False,
+                                   tol_relative: bool = False):
+    """Batched-restart unsupervised solve (R = U, the lagged u-gradient):
+    K4 lagged without a known block, then K5 without one. u_b
+    (B, n_cpg, n_u), alpha_b (B, n_u, n_s). Returns as
+    ``partial_ref_solve_fused_multi``."""
+    dtype = accum_dtype(y)
+    ydt, _, dmax2 = _data_t(y, d, None, dtype)
+    G_tt, b_t, ydy = _no_known_grams(ydt)
+    uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, None, n_u,
+                                          dmax2, dtype, tol, tol_relative,
+                                          True)
+    alpha_prev_b = alpha_b.clone()
+
+    def one_iteration():
+        gu, b_u, usq = u_phase_grams_multi(ydt, None, None, alpha_b, uut_b,
+                                           scal_b, n_iter2, lagged=True)
+        alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
+                               alpha_prev_b, scal_b, n_iter2, n_u)
+
+    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
+                                      record_trace)
+    return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
+
+
+def purity_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, purity, n_u: int,
+                             n_iter1: int = 100, n_iter2: int = 500,
+                             tol: float = 1e-2, record_trace: bool = False,
+                             tol_relative: bool = False,
+                             row_weights_b=None):
+    """Batched-restart purity-constrained solve: K4 (n_iter2 steps,
+    default 500) then K6, the whole Frank-Wolfe loop of every active
+    member. Returns as ``partial_ref_solve_fused_multi``."""
+    _no_row_weights(row_weights_b)
+    dtype = accum_dtype(y)
+    purity = purity.to(device=y.device, dtype=dtype).contiguous()
+    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
+                                          dmax2, dtype, tol, tol_relative,
+                                          False)
+
+    def one_iteration():
+        gu, b_u, _ = u_phase_grams_multi(
+            ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
+            n_iter2)
+        fw_phase_full_multi(G_tt, b_t, gu, b_u, ydy, alpha_b, purity, scal_b,
+                            n_iter2, n_u)
+
+    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
+                                      record_trace)
+    return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)

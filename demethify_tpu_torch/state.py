@@ -4,6 +4,8 @@ and the data (Y, D, R).
 ``from_numpy`` takes the JAX package's arrays in its layout (the
 ``init_provided`` contract of its ``solvers/api.py`` and the argument order
 of ``partial_ref_solve_fused``) and returns the port's tensors;
+``from_numpy_batch`` does the same for B restart members' stacked initial
+factors (the argument order of ``partial_ref_solve_fused_multi``);
 ``purity_from_numpy`` does the same for the purity vector of the purity
 mode; ``to_numpy`` goes back. Reading the JAX package's orbax checkpoints is
 ROADMAP port queue item 5.
@@ -23,6 +25,22 @@ def from_numpy(u, alpha, y, d, R_trunc, *, device, dtype):
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=device, dtype=dtype)
     return tuple(conv(x) for x in (u, alpha, y, d, R_trunc))
+
+
+def from_numpy_batch(u_b, alpha_b, y, d, R_trunc, *, device, dtype):
+    """(u_b (B, n_cpg, n_u), alpha_b (B, p, n_s), y, d (n_cpg, n_s),
+    R_trunc (n_cpg, n_ct) or None) as numpy arrays -> the same tuple of
+    contiguous tensors on ``device`` in ``dtype``: the stacked initial
+    factors of a batch of restart members and the data they share."""
+    u_b, alpha_b = np.asarray(u_b), np.asarray(alpha_b)
+    n_cpg, n_s = np.shape(y)
+    if (u_b.ndim != 3 or alpha_b.ndim != 3 or u_b.shape[0] != alpha_b.shape[0]
+            or u_b.shape[1] != n_cpg or alpha_b.shape[2] != n_s):
+        raise ValueError(f"from_numpy_batch: u_b {u_b.shape} and alpha_b "
+                         f"{alpha_b.shape} are not (B, {n_cpg}, n_u) and "
+                         f"(B, p, {n_s})")
+    return from_numpy(u_b, alpha_b, y, d, R_trunc, device=device,
+                      dtype=dtype)
 
 
 def purity_from_numpy(purity, *, device, dtype):
