@@ -28,14 +28,25 @@ non-zero and prints no result line):
    n_u = 3, lagged, B = 8; 5 + 1, B = 8, 500 steps), K5
    ``alpha_phase_full_multi`` (B = 16, p = 6 and p = 3 without a known
    block) and K6 ``fw_phase_full_multi`` (B = 8, p = 6, 500 steps, with
-   its vertex flips counted);
+   its vertex flips counted); then the weighted bootstrap's forms of the
+   same kernels, float32 and float64: K4 with its weights operand
+   (resample multiplicities; 5 + 1, B = 32, 20 steps; n_ct = 0, n_u = 3,
+   lagged, B = 8; 5 + 1, B = 8, 500 steps), inactive members
+   bit-unchanged and all-ones weights bit-identical to unweighted K4; K5
+   (B = 32, p = 6; p = 3) and K6 (B = 8, 500 steps) with per-member
+   weighted known blocks, and their shared-block form bit-identical to
+   per-member copies of the same blocks;
 6. solvers: each kernel solver against its plain solver on the card in
    float64 at 200k sites (partial-reference 50 x 20 in float32 too,
    purity 20 x 500, unsupervised 50 x 20: cost trajectories, alpha); the
    three multi-member kernel solvers (B = 4, float64, 200k sites) against
    the plain solver and against the sequential single-member kernel
    solver on each member, and a loose relative tol at which the members
-   stop at different iterations;
+   stop at different iterations; the same three with ``row_weights_b``
+   against the plain weighted solver per member (n_iter, cost trace
+   rtol 1e-9, alpha, u); ``bootstrap_ci`` on the card against
+   ``bootstrap_ci`` on the CPU with the same injected draws and inits
+   (20k sites, both layouts, three modes);
 7. the paths at full width, each with the launch counters set to 0 just
    before it and read just after: the main path, ``bench.py``'s workload
    (1M x 10, 5 + 1, float32, 1000 x 20, tol = 0) through
@@ -45,10 +56,16 @@ non-zero and prints no result line):
    1000 x 20) through ``unsupervised_deconv``; each beside the plain
    solver; then the batched random restarts through the same entry
    points: partial-reference with 16 restarts, purity and unsupervised
-   with 8, beside the sequential loop's figure per restart;
+   with 8, beside the sequential loop's figure per restart; then
+   bootstrap CIs through ``uncertainty.bootstrap.bootstrap_ci``: the
+   weights layout for partial-reference (B = 32, 1000 x 20), purity
+   (B = 8, 100 x 500) and unsupervised (n_u = 3, B = 8, 1000 x 20), and
+   the resample layout for partial-reference (B = 4, 200 x 20), per
+   replicate and outer iteration;
 8. CLI: a simulated 50,000-site bedmethyl fixture through
    ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
-   and with ``--restart 4`` in the three iterative modes.
+   with ``--restart 4`` in the three iterative modes, and with
+   ``--confidence 95 8`` under both ``--cimethod`` layouts in all four.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -190,31 +207,39 @@ def bound(n_bytes, flops, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, n_members=1):
+def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, n_members=1,
+                 weighted=False):
     """(bytes, flops) of K1 (one member) or K4 (n_members active members)
     on n sites: Y, D, Rt read once; each member's u, u_prev read and
-    written; per site and member the C/M build, the FISTA steps and the
-    Gram sums of the new u (the scalar momentum chain, the same for every
-    site, is not counted)."""
+    written (and, ``weighted``, its weight row read); per site and member
+    the C/M build, the FISTA steps and the Gram sums of the new u (plus,
+    weighted, one multiply per Gram entry); the scalar momentum chain, the
+    same for every site, is not counted."""
     p = n_ct + n_u
-    n_bytes = itemsize * n * ((2 * n_s + n_ct) + n_members * 4 * n_u)
+    n_bytes = itemsize * n * ((2 * n_s + n_ct)
+                              + n_members * (4 * n_u + int(weighted)))
     per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 3 * n_u * (n_u + 1) // 2)
                 + steps * (6 * n_u + 2 * n_u * n_u)
                 + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u)
+    if weighted:
+        per_site += n_s * n_u * p + n_u * n_s + n_u
     return n_bytes, per_site * n * n_members
 
 
-def glue_work(p, n_s, n_ct, steps, itemsize, n_members=1, fw=False):
+def glue_work(p, n_s, n_ct, steps, itemsize, n_members=1, fw=False,
+              own_known=False):
     """(bytes, flops) of K2/K5 (alpha FISTA) or K3/K6 (Frank-Wolfe, ``fw``)
-    for n_members members: the shared known blocks read once; each
+    for n_members members: the known blocks read once (once per member
+    with ``own_known``, the weighted bootstrap's per-member blocks); each
     member's K1/K4 blocks read and its alpha (and alpha_prev) read and
     written; per step and column the p x p product and the projection or
     the block argmin (about 6 p operations)."""
     n_u = p - n_ct
-    shared = n_s * n_ct * n_ct + n_ct * n_s + n_s
+    known = n_s * n_ct * n_ct + n_ct * n_s + n_s
     member = n_s * n_u * p + n_u * n_s + 1 + (2 if fw else 4) * p * n_s
     flops = n_members * n_s * (steps * (2 * p * p + 6 * p) + 4 * p * p)
-    return itemsize * (shared + n_members * member), flops
+    return itemsize * (known * (n_members if own_known else 1)
+                       + n_members * member), flops
 
 
 # ---------------------------------------------------------------- phase 1
@@ -663,28 +688,52 @@ def phase_k4():
     return main, uns, pur
 
 
-def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed):
+def resample_weights(n_b, n, dtype, seed):
+    """B members' row multiplicities of a with-replacement resample of n
+    rows (the bincount of seeded draws), (B, n) on the card."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.stack([
+        torch.bincount(torch.randint(n, (n,), generator=g, device=DEV),
+                       minlength=n) for _ in range(n_b)]).to(dtype)
+
+
+def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
+                       weighted=False):
     """Shared known blocks and B members' K4 blocks (from K4's twin) of a
-    200k-site problem, alpha stacks and scalar rows on the card."""
+    200k-site problem, alpha stacks and scalar rows on the card; with
+    ``weighted``, resample weights per member, each member's own weighted
+    known blocks, ||Rt||^2 and surviving-row max coverage (the weighted
+    bootstrap's operands)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_ALPHA, COST, DMAX2, L_H_PREV, RT_SQ, TOL)
     from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi_plain
-    from demethify_tpu_torch.ops.gram import known_block_grams
+    from demethify_tpu_torch.ops.gram import (
+        known_block_grams, weighted_known_grams)
 
     dtype = getattr(torch, dtype_name)
     n = 200_000
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
         n, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    w = resample_weights(n_b, n, dtype, seed) if weighted else None
     gu, bu, usq = u_phase_grams_multi_plain(
         ydt, rtt, alpha_b[:, :-n_u] if n_ct else None, alpha_b[:, -n_u:],
-        uut_b.clone(), scal_b.clone(), 3)
+        uut_b.clone(), scal_b.clone(), 3, weights=w)
     rt = ydt.new_empty((n, 0)) if rtt is None else rtt.T
-    gtt, bt, ydy = (x.contiguous() for x in known_block_grams(
-        rt, ydt[N_S:].T, ydt[:N_S].T))
-    dmax2 = ydt[N_S:].max() ** 2
-    rt_sq = torch.sum(rt * rt)
+    if weighted:
+        gtt, bt, ydy = (x.contiguous() for x in weighted_known_grams(
+            rt, ydt[N_S:].T, ydt[:N_S].T, w))
+        rowmax = ydt[N_S:].max(0).values
+        dmax2 = torch.where(w > 0, rowmax, 0.0).max(1).values ** 2
+        rt_sq = w @ torch.sum(rt * rt, dim=1)
+    else:
+        gtt, bt, ydy = (x.contiguous() for x in known_block_grams(
+            rt, ydt[N_S:].T, ydt[:N_S].T))
+        dmax2 = ydt[N_S:].max() ** 2
+        rt_sq = torch.sum(rt * rt)
     g = torch.Generator(device=DEV).manual_seed(seed + 2000)
     scal_b[:, A_ALPHA] = 1.0 + torch.rand(n_b, generator=g, device=DEV,
                                           dtype=dtype)
@@ -890,6 +939,308 @@ def phase_k6():
     return main
 
 
+# --------------------------------- phases 5e-5g: the weighted bootstrap's K4-K6
+def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
+              inactive=(), seed=50, timed=False, label=""):
+    """K4 with its weights operand (resample multiplicities per member)
+    against its twin; inactive members bit-unchanged; all-ones weights
+    against the unweighted K4, bit for bit."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE
+    from demethify_tpu_torch.ops.cuda_multi import (
+        u_phase_grams_multi, u_phase_grams_multi_plain)
+
+    dtype = getattr(torch, dtype_name)
+    ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+        N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    w = resample_weights(n_b, N_CPG, dtype, seed)
+    a1 = alpha_b[:, :-n_u] if n_ct else None
+    a2 = alpha_b[:, -n_u:]
+    uk, sk = uut_b.clone(), scal_b.clone()
+    gk, bk, qk = u_phase_grams_multi(ydt, rtt, a1, a2, uk, sk, steps, lagged,
+                                     weights=w)
+    up, sp = uut_b.clone(), scal_b.clone()
+    gp, bp, qp = u_phase_grams_multi_plain(ydt, rtt, a1, a2, up, sp, steps,
+                                           lagged, weights=w)
+    u1, s1 = uut_b.clone(), scal_b.clone()
+    g1, b1, q1 = u_phase_grams_multi(ydt, rtt, a1, a2, u1, s1, steps, lagged,
+                                     weights=torch.ones_like(w))
+    u0, s0 = uut_b.clone(), scal_b.clone()
+    g0, b0, q0 = u_phase_grams_multi(ydt, rtt, a1, a2, u0, s0, steps, lagged)
+    torch.cuda.synchronize()
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_u = float((uk[act] - up[act]).abs().max())
+    scale = gp[act].abs().amax(dim=(1, 2, 3))
+    err_g = float(((gk[act] - gp[act]).abs().amax(dim=(1, 2, 3))
+                   / scale).max())
+    err_b = float(((bk[act] - bp[act]).abs().amax(dim=(1, 2))
+                   / scale).max())
+    err_q = float(((qk[act] - qp[act]).abs() / qp[act].abs()).max())
+    err_s = float(((sk[act] - sp[act]).abs()
+                   / sp[act].abs().clamp_min(1e-30)).max())
+    frozen = (torch.equal(uk[ina], uut_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    ones_equal = (torch.equal(u1, u0) and torch.equal(s1, s0)
+                  and torch.equal(g1[act], g0[act])
+                  and torch.equal(b1[act], b0[act])
+                  and torch.equal(q1[act], q0[act]))
+    # the weights reach the Grams (and only the Grams: u is the same)
+    moved = float(((gk[act] - g0[act]).abs().amax(dim=(1, 2, 3))
+                   / scale).min())
+    same_u = torch.equal(uk, u0)
+    tol = TOL[dtype_name]
+    res = {"n": N_CPG, "n_ct": n_ct, "n_u": n_u, "members": n_b,
+           "inactive": ina, "steps": steps, "lagged": lagged,
+           "dtype": dtype_name, "u_max_abs": err_u, "gu_rel": err_g,
+           "b_u_rel": err_b, "usq_rel": err_q, "scal_rel": err_s,
+           "frozen_unchanged": frozen, "ones_equal_unweighted": ones_equal}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        u_all = uut_b.clone()
+        res["ms"] = median_ms(lambda: u_phase_grams_multi(
+            ydt, rtt, a1, a2, u_all, s_all, steps, lagged, weights=w),
+            inner=3)
+        res["unweighted_ms"] = median_ms(lambda: u_phase_grams_multi(
+            ydt, rtt, a1, a2, u_all, s_all, steps, lagged), inner=3)
+        res["plain_ms"] = median_ms(lambda: u_phase_grams_multi_plain(
+            ydt, rtt, a1, a2, up, sp, steps, lagged, weights=w), reps=3,
+            inner=1, warmup=1)
+        n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+                                      ydt.element_size(), n_b, weighted=True)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+    log(f"[K4w]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
+        f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
+        f"{dtype_name}, resample weights: active u/u_prev max|diff| "
+        f"{err_u:.3e} (tol {tol['u']:.0e}); gu rel {err_g:.3e}, b_u rel "
+        f"{err_b:.3e}, usq rel {err_q:.3e} (tol {tol['gram']:.0e}); scalars "
+        f"rel {err_s:.3e}; inactive members bit-unchanged: {frozen}; "
+        f"all-ones weights bit-identical to unweighted K4: {ones_equal}; u "
+        f"bit-identical to unweighted K4: {same_u}; weighted vs unweighted "
+        f"gu rel (min over members) {moved:.3e}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), unweighted "
+           f"{res['unweighted_ms']:.4f} ms ({res['ms'] / res['unweighted_ms']:.3f}x), "
+           f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+           f"({res['bound_by']})" if timed else ""))
+    check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K4w non-finite")
+    check(err_u <= tol["u"], f"K4w u differs from its twin by {err_u}")
+    check(max(err_g, err_b, err_q) <= tol["gram"],
+          f"K4w Grams differ from the twin by {max(err_g, err_b, err_q)}")
+    check(err_s <= tol["gram"], f"K4w scalars differ by {err_s}")
+    check(frozen, "K4w changed an inactive member")
+    check(ones_equal, "K4 with all-ones weights differs from unweighted K4")
+    check(same_u, "K4's weights changed the U steps")
+    # resample weights move a sum over 1M sites by ~1e-3 of itself, 20x
+    # above the float32 tolerance
+    check(moved > 1e-4, "K4's weights did not reach the Grams")
+    return res
+
+
+def phase_k4_weighted():
+    inactive = (3, 7, 11, 30)
+    main = _k4w_case(N_U, "float32", 32, N_INNER, inactive=inactive,
+                     timed=True, label="[bootstrap]")
+    _k4w_case(N_U, "float64", 32, N_INNER, inactive=inactive)
+    uns = _k4w_case(U_N_U, "float32", 8, N_INNER, n_ct=0, lagged=True,
+                    inactive=(5,), seed=51, timed=True,
+                    label="[unsupervised]")
+    _k4w_case(U_N_U, "float64", 8, N_INNER, n_ct=0, lagged=True,
+              inactive=(5,), seed=51)
+    pur = _k4w_case(N_U, "float32", 8, P_INNER, inactive=(2,), seed=52,
+                    timed=True, label="[purity]")
+    _k4w_case(N_U, "float64", 8, P_INNER, inactive=(2,), seed=52)
+    return main, uns, pur
+
+
+def _expanded(n_b, *blocks):
+    """Shared known blocks copied out per member (B, ...), contiguous."""
+    return tuple(x.expand(n_b, *x.shape).contiguous() for x in blocks)
+
+
+def _k5w_case(n_ct, n_u, dtype_name, n_b, inactive, seed=60, timed=False):
+    """K5 with per-member known blocks against its twin; and per-member
+    copies of shared blocks against the shared-block launch, bit for
+    bit."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, N_SCAL
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full_multi, alpha_phase_full_multi_plain)
+
+    (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+     scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
+                                  weighted=True)
+    args = (gtt, bt, gu, bu, usq, ydy)
+    ak, apk, sk = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
+    alpha_phase_full_multi(*args, ak, apk, sk, N_INNER, n_u)
+    ap_, app, sp = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
+    alpha_phase_full_multi_plain(*args, ap_, app, sp, N_INNER, n_u)
+    # the shared-block form (the restarts' K5) against per-member copies
+    (sgtt, sbt, sgu, sbu, susq, sydy, s_alpha, s_prev,
+     s_scal) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive,
+                                  seed + 1)
+    outs = []
+    for known in ((sgtt, sbt, sydy), _expanded(n_b, sgtt, sbt, sydy)):
+        a, ap, sc = s_alpha.clone(), s_prev.clone(), s_scal.clone()
+        alpha_phase_full_multi(known[0], known[1], sgu, sbu, susq, known[2],
+                               a, ap, sc, N_INNER, n_u)
+        outs.append((a, ap, sc))
+    torch.cuda.synchronize()
+    shared_same = all(torch.equal(x, y) for x, y in zip(*outs))
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_a = float(torch.maximum((ak[act] - ap_[act]).abs().max(),
+                                (apk[act] - app[act]).abs().max()))
+    scale = ydy.sum(1)[act]
+    err_c = float(((sk[act, COST] - sp[act, COST]).abs() / scale).max())
+    err_s = float(((sk[act, :N_SCAL] - sp[act, :N_SCAL]).abs()
+                   / sp[act, :N_SCAL].abs().clamp_min(1e-30)).max())
+    flags = torch.equal(sk[:, ACTIVE], sp[:, ACTIVE])
+    frozen = (torch.equal(ak[ina], alpha_b[ina])
+              and torch.equal(apk[ina], alpha_prev_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    p = n_ct + n_u
+    tol = TOL[dtype_name]
+    res = {"p": p, "n_ct": n_ct, "members": n_b, "inactive": ina,
+           "dtype": dtype_name, "alpha_max_abs": err_a,
+           "cost_rel_to_sum_ydy": err_c, "scal_rel": err_s,
+           "frozen_unchanged": frozen, "shared_equals_copies": shared_same}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        a_all, ap_all = alpha_b.clone(), alpha_prev_b.clone()
+        res["ms"] = median_ms(lambda: alpha_phase_full_multi(
+            *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
+        res["plain_ms"] = median_ms(lambda: alpha_phase_full_multi_plain(
+            *args, ap_, app, sp, N_INNER, n_u), inner=5)
+        n_bytes, flops = glue_work(p, N_S, n_ct, N_INNER,
+                                   alpha_b.element_size(), n_b,
+                                   own_known=True)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+    log(f"[K5w] B={n_b} (inactive {ina}) p={p} n_ct={n_ct} n_s={N_S} "
+        f"{N_INNER} steps {dtype_name}, per-member weighted known blocks: "
+        f"active alpha/alpha_prev max|diff| {err_a:.3e} (tol "
+        f"{tol['alpha']:.0e}); cost diff / sum(ydy) {err_c:.3e}, scalars rel "
+        f"{err_s:.3e} (tol {tol['cost']:.0e}); active flags equal: {flags}; "
+        f"inactive members bit-unchanged: {frozen}; shared blocks "
+        f"bit-identical to per-member copies of them: {shared_same}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms"
+           if timed else ""))
+    check(np.isfinite([err_a, err_c, err_s]).all(), "K5w non-finite")
+    check(err_a <= tol["alpha"], f"K5w alpha differs by {err_a}")
+    check(max(err_c, err_s) <= tol["cost"], "K5w cost / scalars differ")
+    check(flags and frozen, "K5w active flags or an inactive member differ")
+    check(shared_same, "K5: shared blocks differ from per-member copies")
+    return res
+
+
+def phase_k5_weighted():
+    main = _k5w_case(N_CT, N_U, "float32", 32, (2, 9), timed=True)
+    _k5w_case(N_CT, N_U, "float64", 32, (2, 9))
+    _k5w_case(0, U_N_U, "float32", 8, (4,), seed=61)
+    _k5w_case(0, U_N_U, "float64", 8, (4,), seed=61)
+    return main
+
+
+def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False):
+    """K6 with per-member known blocks against its twin; and per-member
+    copies of shared blocks against the shared-block launch, bit for
+    bit."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W
+    from demethify_tpu_torch.ops.cuda_small import (
+        fw_phase_full_multi, fw_phase_full_multi_plain)
+
+    rng = np.random.default_rng(seed)
+    purity = None
+
+    def inputs(weighted, sd):
+        nonlocal purity
+        (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+         scal_b) = _glue_multi_inputs(N_CT, N_U, dtype_name, n_b, inactive,
+                                      sd, weighted=weighted)
+        if purity is None:
+            purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S),
+                                     device=DEV, dtype=alpha_b.dtype)
+        alpha_b = torch.cat([
+            alpha_b[:, :N_CT] / alpha_b[:, :N_CT].sum(1, keepdim=True)
+            * purity,
+            alpha_b[:, N_CT:] / alpha_b[:, N_CT:].sum(1, keepdim=True)
+            * (1 - purity)], dim=1).contiguous()
+        return (gtt, bt, gu, bu, ydy), alpha_b, scal_b
+
+    args, alpha_b, scal_b = inputs(True, seed)
+    ak, sk = alpha_b.clone(), scal_b.clone()
+    fw_phase_full_multi(*args, ak, purity, sk, P_INNER, N_U)
+    ap_, sp = alpha_b.clone(), scal_b.clone()
+    fw_phase_full_multi_plain(*args, ap_, purity, sp, P_INNER, N_U)
+    (sgtt, sbt, sgu, sbu, sydy), s_alpha, s_scal = inputs(False, seed + 1)
+    outs = []
+    for known in ((sgtt, sbt, sydy), _expanded(n_b, sgtt, sbt, sydy)):
+        a, sc = s_alpha.clone(), s_scal.clone()
+        fw_phase_full_multi(known[0], known[1], sgu, sbu, known[2], a,
+                            purity, sc, P_INNER, N_U)
+        outs.append((a, sc))
+    torch.cuda.synchronize()
+    shared_same = all(torch.equal(x, y) for x, y in zip(*outs))
+    act = [b for b in range(n_b) if b not in inactive]
+    ina = list(inactive)
+    err_a = float((ak[act] - ap_[act]).abs().max())
+    scale = args[4].sum(1)[act]
+    err_c = float(((sk[act, COST] - sp[act, COST]).abs() / scale).max())
+    err_w = float(((sk[act, L_W] - sp[act, L_W]).abs()
+                   / sp[act, L_W].abs()).max())
+    frozen = (torch.equal(ak[ina], alpha_b[ina])
+              and torch.equal(sk[ina], scal_b[ina])) if ina else True
+    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, P_INNER, act)
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
+    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / P_INNER
+    res = {"p": N_CT + N_U, "members": n_b, "inactive": ina,
+           "dtype": dtype_name, "alpha_max_abs": err_a,
+           "cost_rel_to_sum_ydy": err_c, "l_w_rel": err_w, "flips": flips,
+           "frozen_unchanged": frozen, "shared_equals_copies": shared_same}
+    if timed:
+        s_all = scal_b.clone()
+        s_all[:, ACTIVE] = 1.0
+        a_all = alpha_b.clone()
+        res["ms"] = median_ms(lambda: fw_phase_full_multi(
+            *args, a_all, purity, s_all, P_INNER, N_U), inner=10)
+        res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
+            *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
+            warmup=1)
+        n_bytes, flops = glue_work(N_CT + N_U, N_S, N_CT, P_INNER,
+                                   alpha_b.element_size(), n_b, fw=True,
+                                   own_known=True)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+    log(f"[K6w] B={n_b} (inactive {ina}) p={N_CT + N_U} n_s={N_S} {P_INNER} "
+        f"steps {dtype_name}, per-member weighted known blocks: active alpha "
+        f"max|diff| {err_a:.3e} (tol {tol_a:.1e}); vertex flips {flips}; "
+        f"cost diff / sum(ydy) {err_c:.3e}, l_w rel {err_w:.3e} (tol "
+        f"{tol_c:.0e}); inactive members bit-unchanged: {frozen}; shared "
+        f"blocks bit-identical to per-member copies of them: {shared_same}"
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms"
+           if timed else ""))
+    check(np.isfinite([err_a, err_c, err_w]).all(), "K6w non-finite")
+    check(err_a <= tol_a, f"K6w alpha differs from its twin by {err_a}")
+    check(dtype_name == "float32" or flips == 0,
+          f"K6w float64 vertex choices differ ({flips})")
+    check(max(err_c, err_w) <= tol_c, "K6w cost / l_w differ")
+    check(frozen, "K6w changed an inactive member")
+    check(shared_same, "K6: shared blocks differ from per-member copies")
+    return res
+
+
+def phase_k6_weighted():
+    main = _k6w_case("float32", timed=True)
+    _k6w_case("float64")
+    return main
+
+
 # ---------------------------------------------------------------- phase 6
 def make_problem(dtype=np.float32, seed=0, n_cpg=None):
     """bench.py's workload recipe (numpy, seeded), at N_CPG sites unless
@@ -1078,6 +1429,52 @@ def phase_multi_solvers():
     check(len({m for m, _ in n_iters}) > 1,
           f"loose tol: every member stopped at the same iteration {n_iters}")
     return identical
+
+
+def phase_weighted_solvers():
+    """The three multi-member kernel solvers with ``row_weights_b`` (the
+    weighted bootstrap; B = 4 resample weight rows, float64, 200k sites)
+    against the plain solver with ``row_weights`` on each member: n_iter,
+    cost trace (rtol 1e-9), alpha and u."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+    from demethify_tpu_torch.solvers.purity import purity_solve
+    from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
+
+    n_b, f64 = 4, torch.float64
+    _, _, y, d, Rt = make_problem(np.float64, seed=2, n_cpg=N_TRAJ)
+    purity = purity_draw(2)
+    pur = state.purity_from_numpy(purity, device=DEV, dtype=f64)
+    w_b = resample_weights(n_b, N_TRAJ, f64, seed=80)
+    modes = (
+        ("partial-ref", N_CT, N_U, None, Rt, 50, N_INNER,
+         fused.partial_ref_solve_fused_multi, partial_ref_solve, ()),
+        ("purity", N_CT, N_U, purity, Rt, 20, P_INNER,
+         fused.purity_solve_fused_multi, purity_solve, (pur,)),
+        ("unsupervised", 0, U_N_U, None, None, 50, N_INNER,
+         fused.unsupervised_solve_fused_multi, unsupervised_solve, ()))
+    tol = TRAJ_TOL["float64"]["cost"]
+    for name, n_ct, n_u, pu, R, n1, n2, multi, plain, extra in modes:
+        u_b, a_b = _member_inits(N_TRAJ, n_b, n_ct, n_u, seed=20 + len(name),
+                                 purity=pu)
+        u_b, a_b, yt, dt, Rtt = state.from_numpy_batch(
+            u_b, a_b, y, d, R, device=DEV, dtype=f64)
+        data = (yt, dt) if Rtt is None else (yt, dt, Rtt)
+        kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True)
+        res = multi(u_b, a_b, *data, *extra, n_u, row_weights_b=w_b, **kw)
+        members = [plain(u_b[b], a_b[b], *data, *extra, n_u,
+                         row_weights=w_b[b], **kw) for b in range(n_b)]
+        err_u = max(float((res[0][b] - m[0]).abs().max())
+                    for b, m in enumerate(members))
+        _multi_vs_members(
+            f"weighted {name} B={n_b} {n1}x{n2} float64 N={N_TRAJ}", res,
+            members, "the plain weighted solver per member", tol)
+        log(f"[multi] weighted {name}: u max|diff| {err_u:.3e} (tol "
+            f"{tol:.0e})")
+        check(err_u <= tol, f"weighted {name}: u differs from plain")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1388,6 +1785,136 @@ def phase_restarts(problem32, card, k4_times):
     return out
 
 
+def phase_bootstrap_parity():
+    """bootstrap_ci on the card against bootstrap_ci on the CPU (the plain
+    twins and solvers), float64, 20k sites, B = 4, with the same injected
+    resample draws and inits, both layouts, three iterative modes."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    n, n_b = 20_000, 4
+    _, _, y, d, Rt = make_problem(np.float64, seed=3, n_cpg=n)
+    purity = purity_draw(3)
+    rng = np.random.default_rng(90)
+    indices = rng.integers(0, n, size=(n_b, n))
+    for name, n_u, R, pu, n1, n2 in (
+            ("partial-ref", N_U, Rt, None, 30, N_INNER),
+            ("purity", N_U, Rt, purity, 10, P_INNER),
+            ("unsupervised", U_N_U, None, None, 30, N_INNER)):
+        n_ct = 0 if R is None else N_CT
+        u_b, a_b = _member_inits(n, n_b, n_ct, n_u, seed=90, purity=pu)
+        inits = list(zip(u_b, a_b))
+        for method in ("weights", "resample"):
+            out = {}
+            for dev in (DEV, "cpu"):
+                _, _, yt, dt, Rtt = state.from_numpy(
+                    None, None, y, d, R, device=dev, dtype=torch.float64)
+                out[dev] = bootstrap_ci(
+                    yt, dt, Rtt, n_u, level=90, n_bootstrap=n_b,
+                    n_iter1=n1, n_iter2=n2, tol=0.0, method=method,
+                    purity=pu, indices=indices, inits=inits)
+            err = max(float(np.abs(a - b).max())
+                      for a, b in zip(out[DEV], out["cpu"]))
+            log(f"[bootstrap] {name} {method} B={n_b} {n1}x{n2} float64 "
+                f"N={n}: card vs CPU with the same draws and inits, CI "
+                f"bounds max|diff| {err:.3e} (tol 1e-8)")
+            check(err <= 1e-8, f"bootstrap {name} {method}: card vs CPU")
+
+
+def phase_bootstrap(problem32, card):
+    """Bootstrap CIs at full width through ``bootstrap_ci``, each run with
+    the launch counters set to 0 just before and read just after: the
+    weights layout in the three iterative modes (K4 weighted + K5/K6 with
+    per-member blocks) and the resample layout (K1 + K2 per replicate)."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.uncertainty.bootstrap import (
+        _percentiles, bootstrap_ci)
+
+    _, _, y, d, Rt = state.from_numpy(*problem32, device=DEV,
+                                      dtype=torch.float32)
+    pur = state.purity_from_numpy(purity_draw(0), device=DEV,
+                                  dtype=torch.float32)
+    cases = (
+        ("weights partial-ref", "weights", N_U, Rt, None, 32, N_OUTER,
+         N_INNER, dict(u_phase_grams_multi=N_OUTER,
+                       alpha_phase_full_multi=N_OUTER)),
+        ("weights purity", "weights", N_U, Rt, pur, 8, P_OUTER, P_INNER,
+         dict(u_phase_grams_multi=P_OUTER, fw_phase_full_multi=P_OUTER)),
+        ("weights unsupervised", "weights", U_N_U, None, None, 8, N_OUTER,
+         N_INNER, dict(u_phase_grams_multi=N_OUTER,
+                       alpha_phase_full_multi=N_OUTER)),
+        ("resample partial-ref", "resample", N_U, Rt, None, 4, 200,
+         N_INNER, dict(u_phase_grams=800, alpha_phase_full=800)))
+    out = {}
+    for name, method, n_u, R, pu, n_b, n1, n2, want in cases:
+        n_ct = 0 if R is None else N_CT
+        p = n_ct + n_u
+        if method == "weights":
+            free = fused.free_device_bytes(DEV)
+            cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, free,
+                                          weighted=True)
+            log(f"[bootstrap {name}] member cap {cap} at {free / 1e9:.2f} "
+                f"GB free")
+            check(cap >= n_b, f"{name}: {n_b} replicates would run in "
+                              f"chunks")
+
+        def run(n_iter1, n_boot=n_b):
+            return bootstrap_ci(y, d, R, n_u, level=95, n_bootstrap=n_boot,
+                                n_iter1=n_iter1, n_iter2=n2, tol=0.0,
+                                purity=pu, seed=5, method=method)
+
+        run(2, 2)                                                  # warm
+        # the fixed cost: draws, inits, weighted set-up, copies to the
+        # host and percentiles, with 2 outer iterations
+        _, fixed_ms = timed_ms(lambda: run(2))
+        reset_counts()
+        t0 = time.perf_counter()
+        (lo_p, hi_p, lo_u, hi_u), ms = timed_ms(lambda: run(n1))
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        per = ms / (n_b * n1)
+        marginal = (ms - fixed_ms) / (n_b * (n1 - 2))
+        # the host's share of the fixed cost: the percentiles of the
+        # replicates' u, (B, n_cpg, n_u), in numpy
+        u_all = np.random.default_rng(0).uniform(
+            size=(n_b, N_CPG, n_u)).astype(np.float32)
+        t0 = time.perf_counter()
+        _percentiles(u_all, 95)
+        pct_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[bootstrap {name}] 1M x 10, n_u={n_u}, B={n_b} replicates, "
+            f"float32, {n1}x{n2}, tol=0 via uncertainty.bootstrap_ci, card "
+            f"{card}: {ms:.1f} ms ({per:.4f} ms per replicate and outer "
+            f"iteration, set-up and percentiles included), wall "
+            f"{wall:.3f} s; the same with 2 outer iterations {fixed_ms:.1f} "
+            f"ms (of which the host's percentiles of u {pct_ms:.1f} ms), so "
+            f"{marginal:.4f} ms per replicate and further outer iteration; "
+            f"launches {launches}")
+        check(expect_counts(launches, **want),
+              f"{name}: launch counts {launches} != {want}")
+        check(lo_p.shape == hi_p.shape == (p, N_S)
+              and lo_u.shape == hi_u.shape == (N_CPG, n_u),
+              f"{name}: CI shapes")
+        check(np.isfinite(lo_p).all() and np.isfinite(hi_u).all()
+              and (lo_p <= hi_p).all() and (lo_u <= hi_u).all()
+              and lo_p.min() >= 0 and hi_p.max() <= 1 + 1e-6
+              and lo_u.min() >= 0 and hi_u.max() <= 1,
+              f"{name}: CI bounds out of order or range")
+        out[name] = {"ms_per_rep_iter": per, "marginal": marginal,
+                     "launches": launches}
+    w, r = out["weights partial-ref"], out["resample partial-ref"]
+    log(f"[bootstrap] per replicate and outer iteration, all in (further "
+        f"iterations): weights layout {w['ms_per_rep_iter']:.4f} "
+        f"({w['marginal']:.4f}) ms at B = 32 against "
+        f"{r['ms_per_rep_iter']:.4f} ({r['marginal']:.4f}) for the resample "
+        f"layout (sequential single solves)")
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 def _write_fixture(root, seed=7):
     n = N_CLI
@@ -1423,6 +1950,18 @@ def _read_csv(path):
         header = f.readline().strip().split(",")
         rows = [ln.strip().split(",") for ln in f if ln.strip()]
     return header, rows
+
+
+def _read_ci(path, index=True):
+    """A confidence-interval CSV ("(lo, hi)" cells) -> (lower, upper)."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    cells = [r[1:] if index else r for r in rows]
+    pairs = np.array([[[float(x) for x in c.strip("()").split(",")]
+                       for c in r] for r in cells])
+    return pairs[..., 0], pairs[..., 1]
 
 
 def phase_cli():
@@ -1502,6 +2041,41 @@ def phase_cli():
                   f"CLI {mode} --restart 4 launches {moved}")
             log(f"[cli] {mode} --restart 4: exit 0 in {wall:.2f} s, "
                 f"launches {moved}")
+        # --confidence 95 8 on the card, both layouts, all four modes
+        for mode, with_ref, extra, n_rows in modes:
+            for cimethod in ("resample", "weights"):
+                before = read_counts()
+                outdir = os.path.join(root, f"{mode}-ci-{cimethod}")
+                t0 = time.perf_counter()
+                rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                               "--noprint", "--outdir", outdir, "--device",
+                               DEV, "--confidence", "95", "8", "--cimethod",
+                               cimethod,
+                               *(["--ref", ref] if with_ref else []), *extra])
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"CLI {mode} --confidence exit {rc}")
+                lo, hi = _read_ci(os.path.join(
+                    outdir, "confidence_interval_celltypes_proportions.csv"))
+                check(lo.shape == (n_rows, N_S) and (lo <= hi).all()
+                      and lo.min() >= 0 and hi.max() <= 1 + 1e-6,
+                      f"CLI {mode} --confidence proportion intervals")
+                if mode != "supervised":
+                    ulo, uhi = _read_ci(os.path.join(
+                        outdir, "confidence_interval_methylation_estimate.csv"),
+                        index=False)
+                    check(ulo.shape == (N_CLI, n_rows - (N_CT if with_ref
+                                                          else 0))
+                          and (ulo <= uhi).all(),
+                          f"CLI {mode} --confidence profile intervals")
+                moved = {k: v - before[k] for k, v in read_counts().items()}
+                if mode != "supervised":
+                    batched = moved["u_phase_grams_multi"] > 0
+                    check(batched == (cimethod == "weights"),
+                          f"CLI {mode} --cimethod {cimethod} launches "
+                          f"{moved}")
+                log(f"[cli] {mode} --confidence 95 8 --cimethod {cimethod}: "
+                    f"exit 0 in {wall:.2f} s, intervals {lo.shape}, launches "
+                    f"{moved}")
 
 
 # ------------------------------------------------------ parent/change timing
@@ -1567,8 +2141,13 @@ def main():
     k4, k4_uns, k4_pur = phase_k4()
     k5 = phase_k5()
     k6 = phase_k6()
+    k4w, _, _ = phase_k4_weighted()
+    k5w = phase_k5_weighted()
+    k6w = phase_k6_weighted()
     phase_solver_trajectory()
     identical = phase_multi_solvers()
+    phase_weighted_solvers()
+    phase_bootstrap_parity()
     problem32 = make_problem(np.float32, seed=0)
     launches = phase_main_path(problem32, card)
     p_launches, _, _ = phase_purity_path(problem32, card)
@@ -1576,6 +2155,7 @@ def main():
     restarts = phase_restarts(problem32, card, {
         "partial-ref": k4["ms"], "purity": k4_pur["ms"],
         "unsupervised": k4_uns["ms"]})
+    boot = phase_bootstrap(problem32, card)
     phase_cli()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
@@ -1636,7 +2216,36 @@ def main():
          "launches": restarts["purity"]["launches"]["fw_phase_full_multi"],
          "max_abs_err": k6["alpha_max_abs"], "ms": k6["ms"],
          "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None}]}
+         "bound_by": k6["bound_by"], "library_ms": None},
+        {"name": "u_phase_grams_multi[weights]", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (weights "
+                     "operand :1015-1120, via :1123)",
+         "launches": boot["weights partial-ref"]["launches"][
+             "u_phase_grams_multi"],
+         "max_abs_err": k4w["u_max_abs"], "ms": k4w["ms"],
+         "plain_ms": k4w["plain_ms"], "bound_ms": k4w["bound_ms"],
+         "bound_by": k4w["bound_by"], "library_ms": None},
+        {"name": "alpha_phase_full_multi[per-member known blocks]",
+         "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
+         "replaces": "demethify_tpu/ops/pallas_small.py:388 (per-member "
+                     "gtt/bt/ydy, via :485)",
+         "launches": boot["weights partial-ref"]["launches"][
+             "alpha_phase_full_multi"],
+         "max_abs_err": k5w["alpha_max_abs"], "ms": k5w["ms"],
+         "plain_ms": k5w["plain_ms"], "bound_ms": k5w["bound_ms"],
+         "bound_by": k5w["bound_by"], "library_ms": None},
+        {"name": "fw_phase_full_multi[per-member known blocks]",
+         "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/fw_phase_full.cu",
+         "replaces": "demethify_tpu/ops/pallas_small.py:571 (per-member "
+                     "gtt/bt/ydy, via :592)",
+         "launches": boot["weights purity"]["launches"][
+             "fw_phase_full_multi"],
+         "max_abs_err": k6w["alpha_max_abs"], "ms": k6w["ms"],
+         "plain_ms": k6w["plain_ms"], "bound_ms": k6w["bound_ms"],
+         "bound_by": k6w["bound_by"], "library_ms": None}]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ unsupervised (``--nbunknown k`` without ``--ref``).
 
 ``--device {cuda,cpu}`` (default cuda; a missing GPU is an error, never a
 silent fallback) and ``--dtype {float32,float64}`` replace the JAX CLI's
-``--platform`` and ``--dtype``. Flags of modes and features that later
+``--platform`` and ``--dtype``. ``--confidence LEVEL B`` (bootstrap
+confidence intervals, before the point estimate, as the reference runs
+them) and ``--cimethod {auto,resample,weights}`` run through
+``uncertainty/bootstrap.py``. Flags of modes and features that later
 slices port exit with an error naming the ROADMAP port-queue item.
 
 Reproduced conventions: ``nargs=1`` flags arrive as 1-lists and are
@@ -36,8 +39,6 @@ LOGO = r"""
 NOT_PORTED = {
     "ic": "item 6 (model selection)",
     "icmax": "item 6 (model selection)",
-    "confidence": "item 7 (bootstrap CIs)",
-    "cimethod": "item 7 (bootstrap CIs)",
     "shard": "item 8 (torch.distributed)",
     "multihost": "item 8 (torch.distributed)",
     "savestate": "item 5 (checkpoints)",
@@ -100,12 +101,24 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Purity of each sample in percent (one value '
                              'per sample): the known cell types make up '
                              '1 - p/100 of it')
+    parser.add_argument('--confidence', nargs=2, type=int,
+                        help='Outputs bootstrap confidence intervals, takes '
+                             'confidence level and bootstrap iterations '
+                             'number as input, example : --confidence 95 '
+                             '1000')
+    parser.add_argument('--cimethod', choices=['auto', 'resample',
+                                               'weights'],
+                        default='auto',
+                        help='Bootstrap layout: "resample" gathers '
+                             'replicate copies of (Y, D, R); "weights" '
+                             'solves the equivalent row-multiplicity '
+                             'problem with no copies (on the GPU all '
+                             'replicates of a chunk share one pass over the '
+                             'data); "auto" takes weights from 2M data '
+                             'elements on')
     # accepted so that a JAX-CLI command line fails with a clear message
     parser.add_argument('--ic', nargs='+', help='Not ported yet')
     parser.add_argument('--icmax', nargs=1, type=int, help='Not ported yet')
-    parser.add_argument('--confidence', nargs=2, type=int,
-                        help='Not ported yet')
-    parser.add_argument('--cimethod', help='Not ported yet')
     parser.add_argument('--plot', action='store_true', help='Not ported yet')
     parser.add_argument('--shard', action='store_true',
                         help='Not ported yet')
@@ -157,6 +170,8 @@ def main(argv=None):
     from demethify_tpu_torch.device import resolve_device, resolve_dtype
     from demethify_tpu_torch.io.readers import load_dataset
     from demethify_tpu_torch.io.writers import (
+        write_ci_profile,
+        write_ci_proportions,
         write_log,
         write_profile_estimate,
         write_proportions,
@@ -168,6 +183,7 @@ def main(argv=None):
         unsupervised_deconv,
     )
     from demethify_tpu_torch.state import purity_from_numpy
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
     from demethify_tpu_torch.utils import (
         SolveStats,
         termination_resolution_warning,
@@ -192,6 +208,10 @@ def main(argv=None):
         print(f'Creating directory {outdir} to store results')
         os.makedirs(outdir, exist_ok=True)
     n_u = 0 if args.nbunknown is None else args.nbunknown[0]
+    if args.confidence and not args.ref and n_u == 0:
+        sys.stderr.write("Error: --confidence without --ref needs "
+                         "--nbunknown (unsupervised bootstrap).\n")
+        sys.exit(1)
     if n_u < 0 or (n_u == 0 and not args.ref):
         sys.exit(f'Invalid number of unknown value! : "{n_u}" ')
 
@@ -210,6 +230,22 @@ def main(argv=None):
     header = list(ds.header)
 
     time_start = time()
+    purity_t = (None if purity is None else
+                purity_from_numpy(purity, device=device, dtype=y.dtype))
+    # bootstrap CIs first, like the reference (demethify.py:151-152)
+    if args.confidence:
+        level, n_boot = args.confidence
+        lo_p, hi_p, lo_u, hi_u = bootstrap_ci(
+            y, d, ref_mat, n_u, level=level, n_bootstrap=n_boot,
+            init_option=args.init, n_iter1=args.iterations[0],
+            n_iter2=args.iterations[1], tol=termination, purity=purity_t,
+            seed=seed, method=args.cimethod, tol_relative=args.reltol)
+        unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
+        write_ci_proportions(outdir, lo_p, hi_p, header + unknown_header,
+                             ds.sample_names)
+        if n_u > 0:
+            write_ci_profile(outdir, lo_u, hi_u, unknown_header)
+
     stats = SolveStats(y.shape[0], y.shape[1])
     kw = dict(init=args.init, seed=seed, n_restarts=restart,
               n_iter1=args.iterations[0], n_iter2=args.iterations[1],
@@ -219,8 +255,7 @@ def main(argv=None):
         if ref_mat is None:
             res = unsupervised_deconv(y, d, n_u, **kw)
         elif purity is not None:
-            res = purity_deconv(y, d, ref_mat, n_u, purity_from_numpy(
-                purity, device=device, dtype=y.dtype), **kw)
+            res = purity_deconv(y, d, ref_mat, n_u, purity_t, **kw)
         else:
             res = partial_reference_deconv(y, d, ref_mat, n_u, **kw)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]

@@ -8,9 +8,10 @@
 // one launch, for one member (K2) or for each of B restart members (K5):
 //
 //   - assemble the per-sample Grams from the loop-invariant known blocks
-//     (shared by the members) and the member's new-u blocks from K1 or K4
-//     (as _assemble_G_b; with no known block, n_ct = 0, G and b are those
-//     blocks alone);
+//     (shared by the members, or the member's own in the weighted
+//     bootstrap: its w-weighted G_tt, b_t and ydy at a member stride) and
+//     the member's new-u blocks from K1 or K4 (as _assemble_G_b; with no
+//     known block, n_ct = 0, G and b are those blocks alone);
 //   - l_h = (||Rt||^2 + usq) dmax^2  (||Rt||^2 = 0 without a known block);
 //   - n_steps alpha FISTA steps with the simplex projection of each
 //     column (the plain form of ops/fista.fista_alpha_gram);
@@ -38,7 +39,9 @@
 //
 // Device scalars `scal` (shared with K1 and K4; one row per member, row
 // stride in MemberStrides): kLW (written), kAAlpha and kLHPrev (advanced),
-// kCost (written), kRtSq and kDmax2 (read). K5 (MULTI) skips a member
+// kCost (written), kRtSq and kDmax2 (read; per member, so a bootstrap
+// replicate has its own weighted ||Rt||^2 and surviving-row max
+// coverage). K5 (MULTI) skips a member
 // whose kActive slot is 0 -- it is left exactly as it was -- and sets
 // kActive for the next outer iteration from |new cost - old cost| >= kTol.
 //
@@ -96,6 +99,9 @@ __global__ void alpha_phase_full_kernel(
         dm::MemberStrides st) {
     if constexpr (MULTI) {                     // block b: member b
         const long long mb = blockIdx.x;
+        gtt += mb * st.gtt;
+        bt += mb * st.bt;
+        ydy += mb * st.ydy;
         gu += mb * st.gu;
         bu += mb * st.bu;
         usq += mb * st.usq;
@@ -196,15 +202,18 @@ int dm_alpha_phase_full_f64(const void* gtt, const void* bt, const void* gu,
 }
 
 // K5: B members, member b's operands at b times the given element strides
-// (gtt, bt, ydy shared); scal_stride is the scalar row length.
+// (gtt, bt, ydy: 0 when the members share them); scal_stride is the
+// scalar row length.
 int dm_alpha_phase_full_multi_f32(
-        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* gtt, long long gtt_stride, const void* bt,
+        long long bt_stride, const void* gu, long long gu_stride,
         const void* bu, long long bu_stride, const void* usq,
-        long long usq_stride, const void* ydy, void* alpha,
-        void* alpha_prev, long long alpha_stride, void* scal,
+        long long usq_stride, const void* ydy, long long ydy_stride,
+        void* alpha, void* alpha_prev, long long alpha_stride, void* scal,
         long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
         int n_members, void* stream) {
-    const dm::MemberStrides st{gu_stride, bu_stride, usq_stride,
+    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
+                               gu_stride,  bu_stride, usq_stride,
                                alpha_stride, scal_stride};
     return launch<float, true>(gtt, bt, gu, bu, usq, ydy, alpha,
                                alpha_prev, scal, n_s, n_ct, n_u, n_steps,
@@ -212,13 +221,15 @@ int dm_alpha_phase_full_multi_f32(
 }
 
 int dm_alpha_phase_full_multi_f64(
-        const void* gtt, const void* bt, const void* gu, long long gu_stride,
+        const void* gtt, long long gtt_stride, const void* bt,
+        long long bt_stride, const void* gu, long long gu_stride,
         const void* bu, long long bu_stride, const void* usq,
-        long long usq_stride, const void* ydy, void* alpha,
-        void* alpha_prev, long long alpha_stride, void* scal,
+        long long usq_stride, const void* ydy, long long ydy_stride,
+        void* alpha, void* alpha_prev, long long alpha_stride, void* scal,
         long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
         int n_members, void* stream) {
-    const dm::MemberStrides st{gu_stride, bu_stride, usq_stride,
+    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
+                               gu_stride,  bu_stride, usq_stride,
                                alpha_stride, scal_stride};
     return launch<double, true>(gtt, bt, gu, bu, usq, ydy, alpha,
                                 alpha_prev, scal, n_s, n_ct, n_u, n_steps,

@@ -9,7 +9,8 @@
 // B restart members (K6):
 //
 //   - assemble the per-sample Grams from the loop-invariant known blocks
-//     (shared by the members) and the member's new-u blocks from K1 or K4
+//     (shared by the members, or the member's own w-weighted blocks in
+//     the weighted bootstrap) and the member's new-u blocks from K1 or K4
 //     (as _assemble_G_b);
 //   - n_steps Frank-Wolfe steps on each column of alpha = [known; unknown]
 //     (the reference's frank_wolfe_nmf): the gradient G_s a - b_s, the
@@ -90,6 +91,9 @@ __global__ void fw_phase_full_kernel(
         int n_ct, int n_u, int n_steps, dm::MemberStrides st) {
     if constexpr (MULTI) {                     // block b: member b
         const long long mb = blockIdx.x;
+        gtt += mb * st.gtt;
+        bt += mb * st.bt;
+        ydy += mb * st.ydy;
         gu += mb * st.gu;
         bu += mb * st.bu;
         alpha += mb * st.alpha;
@@ -179,28 +183,33 @@ int dm_fw_phase_full_f64(const void* gtt, const void* bt, const void* gu,
 }
 
 // K6: B members, member b's operands at b times the given element strides
-// (gtt, bt, ydy, purity shared); scal_stride is the scalar row length.
+// (gtt, bt, ydy: 0 when the members share them; purity shared);
+// scal_stride is the scalar row length.
 int dm_fw_phase_full_multi_f32(
-        const void* gtt, const void* bt, const void* gu, long long gu_stride,
-        const void* bu, long long bu_stride, const void* ydy, void* alpha,
-        long long alpha_stride, const void* purity, void* scal,
-        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
-        int n_members, void* stream) {
-    const dm::MemberStrides st{gu_stride, bu_stride, 0, alpha_stride,
-                               scal_stride};
+        const void* gtt, long long gtt_stride, const void* bt,
+        long long bt_stride, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* ydy,
+        long long ydy_stride, void* alpha, long long alpha_stride,
+        const void* purity, void* scal, long long scal_stride, int n_s,
+        int n_ct, int n_u, int n_steps, int n_members, void* stream) {
+    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
+                               gu_stride,  bu_stride, 0,
+                               alpha_stride, scal_stride};
     return launch<float, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
                                n_s, n_ct, n_u, n_steps, n_members, st,
                                stream);
 }
 
 int dm_fw_phase_full_multi_f64(
-        const void* gtt, const void* bt, const void* gu, long long gu_stride,
-        const void* bu, long long bu_stride, const void* ydy, void* alpha,
-        long long alpha_stride, const void* purity, void* scal,
-        long long scal_stride, int n_s, int n_ct, int n_u, int n_steps,
-        int n_members, void* stream) {
-    const dm::MemberStrides st{gu_stride, bu_stride, 0, alpha_stride,
-                               scal_stride};
+        const void* gtt, long long gtt_stride, const void* bt,
+        long long bt_stride, const void* gu, long long gu_stride,
+        const void* bu, long long bu_stride, const void* ydy,
+        long long ydy_stride, void* alpha, long long alpha_stride,
+        const void* purity, void* scal, long long scal_stride, int n_s,
+        int n_ct, int n_u, int n_steps, int n_members, void* stream) {
+    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
+                               gu_stride,  bu_stride, 0,
+                               alpha_stride, scal_stride};
     return launch<double, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
                                 n_s, n_ct, n_u, n_steps, n_members, st,
                                 stream);

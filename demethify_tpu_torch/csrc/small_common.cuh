@@ -23,9 +23,12 @@ constexpr int kMaxP = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Per-member element strides of the glue kernels' operands: K2 and K3
-// are the one-member case (all zero).
+// are the one-member case (all zero). The known blocks gtt, bt and ydy
+// have stride 0 when the members share them (the batched restarts) and
+// their block size when each member has its own (the weighted bootstrap:
+// each replicate's w-weighted known blocks).
 struct MemberStrides {
-    long long gu, bu, usq, alpha, scal;
+    long long gtt, bt, ydy, gu, bu, usq, alpha, scal;
 };
 
 // A glue kernel's last word on its member (thread 0): the new cost and,

@@ -130,11 +130,18 @@ __device__ __forceinline__ void gram_steps(
 // of s_r): entry e of [gu (n_s, NU, p) | b_u (NU, n_s) | usq], one thread
 // each, summed over the block's sites in site order, written to
 // out[e * n_blocks] (the caller points out at this block's column).
-template <typename T, int NU>
+// With W (K4's weighted bootstrap) the LEFT u of every sum is the
+// weighted row s_wu[v] = w u_v (NU rows, stride kLd, formed by the caller
+// once per site), so each sum carries the site weight exactly once --
+// gu[s,v,q] = sum (w u_v) d_s [Rt|u]_q, b_u = sum (w u_v) d y,
+// usq = sum (w u_v) u_v -- with the same shared loads per term as the
+// unweighted sums, and weights of 1 give those sums bit for bit.
+template <typename T, int NU, bool W = false>
 __device__ __forceinline__ void gram_partials(
         const T* __restrict__ s_y, const T* __restrict__ s_d,
         const T* __restrict__ s_r, int n_s, int n_ct, int tid,
-        T* __restrict__ out, int n_blocks) {
+        T* __restrict__ out, int n_blocks,
+        const T* __restrict__ s_wu = nullptr) {
     const int p = n_ct + NU;
     const int e_gu = n_s * NU * p;
     const int e_bu = NU * n_s;
@@ -146,7 +153,7 @@ __device__ __forceinline__ void gram_partials(
             const int v = (e / p) % NU;
             const int q = e % p;
             const T* ds = s_d + s * kLd;
-            const T* uv = s_r + (n_ct + v) * kLd;
+            const T* uv = W ? s_wu + v * kLd : s_r + (n_ct + v) * kLd;
             const T* rq = s_r + q * kLd;
             for (int j = 0; j < kSites; ++j) acc += (ds[j] * uv[j]) * rq[j];
         } else if (e < e_gu + e_bu) {
@@ -154,14 +161,14 @@ __device__ __forceinline__ void gram_partials(
             const int s = (e - e_gu) % n_s;
             const T* ds = s_d + s * kLd;
             const T* ys = s_y + s * kLd;
-            const T* uv = s_r + (n_ct + v) * kLd;
+            const T* uv = W ? s_wu + v * kLd : s_r + (n_ct + v) * kLd;
             for (int j = 0; j < kSites; ++j) acc += uv[j] * (ds[j] * ys[j]);
         } else {
             for (int j = 0; j < kSites; ++j) {
 #pragma unroll
                 for (int v = 0; v < NU; ++v) {
                     const T x = s_r[(n_ct + v) * kLd + j];
-                    acc += x * x;
+                    acc += (W ? s_wu[v * kLd + j] : x) * x;
                 }
             }
         }

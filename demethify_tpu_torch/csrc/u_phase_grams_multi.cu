@@ -15,6 +15,21 @@
 // Gram form only, as the TPU kernel; the solver routes the direct form
 // (n_u^2 > 3 n_s) to sequential single-member solves, as the JAX API does.
 //
+// Weighted form (W, the weighted bootstrap: one replicate per member):
+// each member also has a row of per-site weights w_b (its resample's row
+// multiplicities), which multiply the LEFT u of every Gram sum exactly
+// once (gu = sum w u d [Rt | u], b_u = sum w u d y, usq = sum w u^2), as
+// the TPU kernel folds its `weights` operand into the u rows of its Gram
+// dots. The FISTA steps stay raw, so rows with w = 0 still move. Each
+// thread forms its site's weighted rows w u_v once and stages them in NU
+// more shared rows (s_wu) beside [Rt | u_b]: the Gram sums read the
+// weighted row as their left u and the raw rows of s_r as their right
+// [Rt | u], so the self block's right-hand u is not weighted a second
+// time and each term costs the unweighted kernel's shared loads. Cost per
+// site and member: one more read (itemsize bytes) and NU multiplies; with
+// all weights 1 every sum equals the unweighted kernel's bit for bit
+// (1 u = u).
+//
 // What bounds it on an H100: at the restart shapes it is bound by
 // instruction issue, not memory. The bytes it must move per outer
 // iteration at 1M sites x 10 samples, 5 + 1, B = 16, float32 are Y, D, Rt
@@ -46,7 +61,8 @@
 //     does not grow with B.
 //
 // Scalars: `scal` is (B, scal_stride) with K1's slots per member (kAU,
-// kLW, kLWPrev read) plus kActive.
+// kLW, kLWPrev read) plus kActive. Weights: `w` is (B, w_stride), NULL for
+// the unweighted form.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
@@ -63,12 +79,13 @@ using dm::kLd;
 using dm::kRedThreads;
 using dm::kSites;
 
-template <typename T, int NU>
+template <typename T, int NU, bool W>
 __global__ void __launch_bounds__(kSites)
 u_phase_grams_multi_kernel(
         const T* __restrict__ ydt, const T* __restrict__ rtt,
         const T* __restrict__ a1b, int64_t a1_stride,
         const T* __restrict__ a2b, int64_t a2_stride, T* __restrict__ uut,
+        const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
         T* __restrict__ partials, int64_t n, int n_s, int n_ct, int n_steps,
         int n_blocks, int n_members, int lagged) {
@@ -78,6 +95,7 @@ u_phase_grams_multi_kernel(
     T* s_r = s_d + n_s * kLd;                   // n_ct + NU rows: [Rt | u_b]
     T* s_a1 = s_r + (n_ct + NU) * kLd;          // member b's (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // member b's (NU, n_s)
+    T* s_wu = s_a2 + NU * n_s;                  // member b's w u rows (W)
 
     const int tid = threadIdx.x;
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
@@ -120,30 +138,39 @@ u_phase_grams_multi_kernel(
             }
             s_r[(n_ct + v) * kLd + tid] = live ? u[v] : T(0);
         }
+        if constexpr (W) {
+            const T wi = live ? w[static_cast<int64_t>(b) * w_stride + i]
+                              : T(0);
+#pragma unroll
+            for (int v = 0; v < NU; ++v)
+                s_wu[v * kLd + tid] = live ? wi * u[v] : T(0);
+        }
         __syncthreads();
-        dm::gram_partials<T, NU>(
+        dm::gram_partials<T, NU, W>(
             s_y, s_d, s_r, n_s, n_ct, tid,
             partials + static_cast<int64_t>(b) * n_entries * n_blocks
                 + blockIdx.x,
-            n_blocks);
+            n_blocks, s_wu);
     }
 }
 
-size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u) {
+size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u,
+                  bool weighted) {
     const size_t p = static_cast<size_t>(n_ct + n_u);
-    return itemsize * ((2 * static_cast<size_t>(n_s) + p) * kLd + p * n_s);
+    return itemsize * ((2 * static_cast<size_t>(n_s) + p) * kLd + p * n_s
+                       + (weighted ? n_u * kLd : 0));
 }
 
-template <typename T, int NU>
+template <typename T, int NU, bool W>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
-           void* scal, int scal_stride, void* partials, void* out, int64_t n,
-           int n_s, int n_ct, int n_steps, int n_members, int lagged,
-           cudaStream_t stream) {
+           const void* w, int64_t w_stride, void* scal, int scal_stride,
+           void* partials, void* out, int64_t n, int n_s, int n_ct,
+           int n_steps, int n_members, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, NU);
-    const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU);
-    auto kern = u_phase_grams_multi_kernel<T, NU>;
+    const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, W);
+    auto kern = u_phase_grams_multi_kernel<T, NU, W>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -153,9 +180,9 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     kern<<<n_blocks, kSites, smem, stream>>>(
         static_cast<const T*>(ydt), static_cast<const T*>(rtt),
         static_cast<const T*>(a1b), a1_stride, static_cast<const T*>(a2b),
-        a2_stride, static_cast<T*>(uut), static_cast<const T*>(scal),
-        scal_stride, static_cast<T*>(partials), n, n_s, n_ct, n_steps,
-        n_blocks, n_members, lagged);
+        a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
+        static_cast<const T*>(scal), scal_stride, static_cast<T*>(partials),
+        n, n_s, n_ct, n_steps, n_blocks, n_members, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dm::reduce_partials_kernel<T, true>
@@ -166,18 +193,19 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* ydt, const void* rtt, const void* a1b,
-             long long a1_stride, const void* a2b, long long a2_stride,
-             void* uut, void* scal, int scal_stride, void* partials,
-             void* out, long long n, int n_s, int n_ct, int n_u,
-             int n_steps, int n_members, int lagged, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T, bool W>
+int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
+                long long a1_stride, const void* a2b, long long a2_stride,
+                void* uut, const void* w, long long w_stride, void* scal,
+                int scal_stride, void* partials, void* out, long long n,
+                int n_s, int n_ct, int n_u, int n_steps, int n_members,
+                int lagged, cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
-        return launch<T, NU>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, \
-                             scal, scal_stride, partials, out, n, n_s,      \
-                             n_ct, n_steps, n_members, lagged, st);
+        return launch<T, NU, W>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,   \
+                                uut, w, w_stride, scal, scal_stride,        \
+                                partials, out, n, n_s, n_ct, n_steps,       \
+                                n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
@@ -186,38 +214,63 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 #undef DM_K4_CASE
 }
 
+template <typename T>
+int dispatch(const void* ydt, const void* rtt, const void* a1b,
+             long long a1_stride, const void* a2b, long long a2_stride,
+             void* uut, const void* w, long long w_stride, void* scal,
+             int scal_stride, void* partials, void* out, long long n,
+             int n_s, int n_ct, int n_u, int n_steps, int n_members,
+             int lagged, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (w != nullptr)
+        return dispatch_nu<T, true>(ydt, rtt, a1b, a1_stride, a2b,
+                                    a2_stride, uut, w, w_stride, scal,
+                                    scal_stride, partials, out, n, n_s, n_ct,
+                                    n_u, n_steps, n_members, lagged, st);
+    return dispatch_nu<T, false>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,
+                                 uut, w, w_stride, scal, scal_stride,
+                                 partials, out, n, n_s, n_ct, n_u, n_steps,
+                                 n_members, lagged, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory the main pass needs, in bytes (independent of B).
 long long dm_u_phase_grams_multi_smem(int itemsize, int n_s, int n_ct,
-                                      int n_u) {
-    return static_cast<long long>(smem_bytes(itemsize, n_s, n_ct, n_u));
+                                      int n_u, int weighted) {
+    return static_cast<long long>(
+        smem_bytes(itemsize, n_s, n_ct, n_u, weighted != 0));
 }
 
+// w: the members' weight rows (B, w_stride), or NULL (unweighted).
 int dm_u_phase_grams_multi_f32(const void* ydt, const void* rtt,
                                const void* a1b, long long a1_stride,
                                const void* a2b, long long a2_stride,
-                               void* uut, void* scal, int scal_stride,
-                               void* partials, void* out, long long n,
-                               int n_s, int n_ct, int n_u, int n_steps,
-                               int n_members, int lagged, void* stream) {
-    return dispatch<float>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-                           scal, scal_stride, partials, out, n, n_s, n_ct,
-                           n_u, n_steps, n_members, lagged, stream);
+                               void* uut, const void* w, long long w_stride,
+                               void* scal, int scal_stride, void* partials,
+                               void* out, long long n, int n_s, int n_ct,
+                               int n_u, int n_steps, int n_members,
+                               int lagged, void* stream) {
+    return dispatch<float>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w,
+                           w_stride, scal, scal_stride, partials, out, n,
+                           n_s, n_ct, n_u, n_steps, n_members, lagged,
+                           stream);
 }
 
 int dm_u_phase_grams_multi_f64(const void* ydt, const void* rtt,
                                const void* a1b, long long a1_stride,
                                const void* a2b, long long a2_stride,
-                               void* uut, void* scal, int scal_stride,
-                               void* partials, void* out, long long n,
-                               int n_s, int n_ct, int n_u, int n_steps,
-                               int n_members, int lagged, void* stream) {
+                               void* uut, const void* w, long long w_stride,
+                               void* scal, int scal_stride, void* partials,
+                               void* out, long long n, int n_s, int n_ct,
+                               int n_u, int n_steps, int n_members,
+                               int lagged, void* stream) {
     return dispatch<double>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-                            scal, scal_stride, partials, out, n, n_s, n_ct,
-                            n_u, n_steps, n_members, lagged, stream);
+                            w, w_stride, scal, scal_stride, partials, out, n,
+                            n_s, n_ct, n_u, n_steps, n_members, lagged,
+                            stream);
 }
 
 }  // extern "C"

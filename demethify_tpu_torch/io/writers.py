@@ -55,3 +55,39 @@ def write_log(outdir: str, total_time: float,
             f.write("Number of unknowns that minimises " + ic_name + " : "
                     + str(ic_n_u))
     return path
+
+
+def _interval(lo, hi) -> str:
+    """A "(lo, hi)" cell as pandas renders a tuple of two floats."""
+    return str((float(lo), float(hi)))
+
+
+def write_ci_proportions(outdir: str, lower: np.ndarray, upper: np.ndarray,
+                         cell_types: List[str],
+                         sample_names: List[str]) -> str:
+    """``confidence_interval_celltypes_proportions.csv``: index label
+    "Cell Type", one "(lo, hi)" cell per cell type and sample (reference
+    ``bootstrap.py:60-70``). lower/upper: (p, n_s). Returns the path."""
+    lower, upper = np.asarray(lower), np.asarray(upper)
+    path = os.path.join(outdir,
+                        "confidence_interval_celltypes_proportions.csv")
+    _write_rows(path, ["Cell Type", *sample_names],
+                ([name, *(_interval(lo, hi) for lo, hi in zip(lr, hr))]
+                 for name, lr, hr in zip(cell_types, lower, upper)))
+    return path
+
+
+def write_ci_profile(outdir: str, lower: np.ndarray, upper: np.ndarray,
+                     unknown_header: List[str]) -> str:
+    """``confidence_interval_methylation_estimate.csv`` (reference
+    ``bootstrap.py:80-89``): one "(lo, hi)" cell per CpG site and unknown
+    cell type, no index. lower/upper: (n_cpg, n_u). Returns the path."""
+    lo = np.asarray(lower, np.float64).tolist()
+    hi = np.asarray(upper, np.float64).tolist()
+    path = os.path.join(outdir,
+                        "confidence_interval_methylation_estimate.csv")
+    with open(path, "w") as f:
+        f.write(",".join(unknown_header) + "\n")
+        f.writelines(",".join(f'"({a!r}, {b!r})"' for a, b in zip(lr, hr))
+                     + "\n" for lr, hr in zip(lo, hi))
+    return path

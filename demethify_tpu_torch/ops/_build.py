@@ -85,21 +85,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
         # the multi-member kernels: pointers with their member strides
         fn = getattr(lib, f"dm_u_phase_grams_multi_{dt}")
-        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2 + [_INT]
-                       + [_VOID] * 2 + [_LL] + [_INT] * 6 + [_VOID])
-        fn.restype = _INT
-        fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
-        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL, _VOID, _LL]
-                       + [_VOID] * 3 + [_LL, _VOID, _LL] + [_INT] * 5
+        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2 + [_LL]
+                       + [_VOID, _INT] + [_VOID] * 2 + [_LL] + [_INT] * 6
                        + [_VOID])
         fn.restype = _INT
+        fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
+        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL, _VOID, _LL]
+                       + [_INT] * 5 + [_VOID])
+        fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
-        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
-                       + [_LL] + [_VOID] * 2 + [_LL] + [_INT] * 5 + [_VOID])
+        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_INT] * 5
+                       + [_VOID])
         fn.restype = _INT
     lib.dm_u_phase_grams_smem.argtypes = [_INT] * 5
     lib.dm_u_phase_grams_smem.restype = _LL
-    lib.dm_u_phase_grams_multi_smem.argtypes = [_INT] * 4
+    lib.dm_u_phase_grams_multi_smem.argtypes = [_INT] * 5
     lib.dm_u_phase_grams_multi_smem.restype = _LL
     lib.dm_u_phase_grams_blocks.argtypes = [_LL]
     lib.dm_u_phase_grams_blocks.restype = _INT

@@ -3,16 +3,20 @@
 Counterpart of ``demethify_tpu/ops/cost.py``: ``weighted_cost`` is the
 direct pass over (Y, D); ``weighted_cost_gram`` the Gram identity
 ``cost_s = y'Dy_s - 2 b_s.a_s + a_s' G_s a_s`` on precomputed per-sample
-Grams. Row weights (the bootstrap's form) wait for the bootstrap slice.
+Grams.
 """
 
 import torch
 
 
-def weighted_cost(y, R, alpha, d) -> torch.Tensor:
-    """sum(d * (y - R @ alpha)**2), a 0-d tensor."""
+def weighted_cost(y, R, alpha, d, row_weights=None) -> torch.Tensor:
+    """sum(d * (y - R @ alpha)**2), a 0-d tensor; ``row_weights``
+    ((n_cpg,), the bootstrap's row multiplicities) scales each row."""
     resid = y - R @ alpha
-    return torch.sum(d * resid * resid)
+    sq = d * resid * resid
+    if row_weights is not None:
+        sq = row_weights.to(sq.dtype)[:, None] * sq
+    return torch.sum(sq)
 
 
 def weighted_cost_gram(G, b, ydy, alpha) -> torch.Tensor:

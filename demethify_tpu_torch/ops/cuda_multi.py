@@ -15,8 +15,14 @@ slot is 0 are frozen: u, u_prev, A_U and L_W_PREV stay as they are, and
 the kernel does not write their Gram blocks (the solver does not read
 them; the twin computes them with the frozen u, as the JAX kernel does).
 Gram form only, as the JAX kernel: the solver routes the direct form
-(n_u^2 > 3 n_s) to sequential single-member solves. The JAX kernel's
-``weights`` operand (the weighted bootstrap) is ROADMAP port queue item 7.
+(n_u^2 > 3 n_s) to sequential single-member solves.
+
+``weights`` (B, N), the JAX kernel's operand of the same name (the
+weighted bootstrap: one resample replicate per member, w its row
+multiplicities), folds each member's weight row into its Gram sums only:
+it multiplies the left u of every u-involved sum exactly once
+(gu = sum w u d [Rt | u], b_u = sum w u d y, usq = sum w u^2); the FISTA
+steps stay raw, so a row with w = 0 still moves.
 
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
@@ -43,19 +49,16 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
 
 def _check_args(ydt, rtt, a1_b, a2_b, uut_b, scal_b, weights):
-    if weights is not None:
-        raise NotImplementedError(
-            "u_phase_grams_multi: per-member row weights (the weighted "
-            "bootstrap) are ROADMAP port queue item 7")
     dev, dt = ydt.device, ydt.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"u_phase_grams_multi takes float32 or float64, not "
                         f"{dt} (bf16 storage is ROADMAP port queue item 9)")
-    for t in (ydt, rtt, a1_b, a2_b, uut_b, scal_b):
+    given = [t for t in (weights,) if t is not None]
+    for t in (ydt, rtt, a1_b, a2_b, uut_b, scal_b, *given):
         if t.device != dev or t.dtype != dt:
             raise ValueError("u_phase_grams_multi: all operands must share "
                              "one device and dtype")
-    for t in (ydt, rtt, uut_b, scal_b):
+    for t in (ydt, rtt, uut_b, scal_b, *given):
         if not t.is_contiguous():
             raise ValueError("u_phase_grams_multi: operands must be "
                              "contiguous")
@@ -65,12 +68,14 @@ def _check_args(ydt, rtt, a1_b, a2_b, uut_b, scal_b, weights):
     if (n_b < 1 or ydt.shape != (2 * n_s, n) or rtt.shape != (n_ct, n)
             or a1_b.shape != (n_b, n_ct, n_s)
             or uut_b.shape != (n_b, 2 * n_u, n)
-            or scal_b.shape != (n_b, N_SCAL_MULTI)):
+            or scal_b.shape != (n_b, N_SCAL_MULTI)
+            or any(t.shape != (n_b, n) for t in given)):
         raise ValueError(
             f"u_phase_grams_multi: inconsistent shapes ydt "
             f"{tuple(ydt.shape)}, rtt {tuple(rtt.shape)}, a1_b "
             f"{tuple(a1_b.shape)}, a2_b {tuple(a2_b.shape)}, uut_b "
-            f"{tuple(uut_b.shape)}, scal_b {tuple(scal_b.shape)}")
+            f"{tuple(uut_b.shape)}, scal_b {tuple(scal_b.shape)}, weights "
+            f"{None if weights is None else tuple(weights.shape)}")
     if n == 0:
         raise ValueError("u_phase_grams_multi: no CpG sites")
     if dev.type == "cuda":
@@ -107,8 +112,9 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     and a2_b (B, n_u, n_s) are the members' known and unknown alpha rows
     (each member's block contiguous, e.g. slices of a (B, p, n_s) stack;
     a1_b None without a known block); uut_b (B, 2 n_u, N) the members'
-    [u.T; u_prev.T]; scal_b (B, N_SCAL_MULTI) the members' scalar rows.
-    ``lagged`` as for ``u_phase_grams``.
+    [u.T; u_prev.T]; scal_b (B, N_SCAL_MULTI) the members' scalar rows;
+    weights (B, N) the members' row weights, or None. ``lagged`` as for
+    ``u_phase_grams``.
 
     Updates the active members' ``uut_b`` rows and their A_U and L_W_PREV
     slots in place and returns (gu (B, n_s, n_u, p), b_u (B, n_u, n_s),
@@ -120,13 +126,13 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                                          scal_b, weights)
     if ydt.device.type == "cpu":
         return u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
-                                         n_steps, lagged)
+                                         n_steps, lagged, weights)
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams_multi: unsupported device "
                          f"{ydt.device}")
     lib = _build.load().lib
     smem = lib.dm_u_phase_grams_multi_smem(ydt.element_size(), n_s, n_ct,
-                                           n_u)
+                                           n_u, int(weights is not None))
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"u_phase_grams_multi needs {smem} bytes of shared memory at "
@@ -143,8 +149,10 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
         err = fn(ydt.data_ptr(), rtt.data_ptr(), a1_b.data_ptr(),
                  a1_b.stride(0), a2_b.data_ptr(), a2_b.stride(0),
-                 uut_b.data_ptr(), scal_b.data_ptr(), N_SCAL_MULTI,
-                 partials.data_ptr(),
+                 uut_b.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 0 if weights is None else weights.stride(0),
+                 scal_b.data_ptr(), N_SCAL_MULTI, partials.data_ptr(),
                  out.data_ptr(), n, n_s, n_ct, n_u, n_steps, n_b,
                  int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")
@@ -156,7 +164,8 @@ u_phase_grams_multi.launches = 0
 
 
 def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
-                              n_steps: int, lagged: bool = False):
+                              n_steps: int, lagged: bool = False,
+                              weights=None):
     """The same function as ``u_phase_grams_multi`` in ordinary tensor ops,
     the member axis a batch dimension (the kernel's twin: the CPU path,
     and what the kernel is checked against on the card). The Grams of an
@@ -189,9 +198,10 @@ def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
     u = torch.where(col(act), u, uut_b[:, :n_u])
     u_prev = torch.where(col(act), u_prev, uut_b[:, n_u:])
     rext = torch.cat([rtt.expand(n_b, -1, -1), u], dim=1)
-    gu = torch.einsum("sn,bun,bqn->bsuq", dt, u, rext)
-    b_u = u @ dy.T
-    usq = torch.sum(u * u, dim=(1, 2))
+    u_w = u if weights is None else weights[:, None, :] * u
+    gu = torch.einsum("sn,bun,bqn->bsuq", dt, u_w, rext)
+    b_u = u_w @ dy.T
+    usq = torch.sum(u_w * u, dim=(1, 2))
     uut_b[:, :n_u] = u
     uut_b[:, n_u:] = u_prev
     scal_b[:, A_U] = torch.where(act, a, scal_b[:, A_U])

@@ -15,6 +15,12 @@ design does about it (one thread block per member, one warp per sample
 column; the simplex projection, or the Frank-Wolfe block argmin, inside
 the warp).
 
+The multi forms take the known blocks (gtt, bt, ydy) either shared by the
+members, as the batched restarts have them, or one per member with a
+leading member axis, as the weighted bootstrap has them (each replicate's
+w-weighted blocks); the kernels read the latter at a member stride and
+the former at stride 0, one body for both.
+
 On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain PyTorch twins (``*_plain``; the multi twins write
 the member axis out as more columns). Without a known block (n_ct = 0,
@@ -226,10 +232,26 @@ def _check_multi(name, alpha_b, n_u, shared, members, scal_b):
     return n_b, p, n_s, n_ct
 
 
+def _known_split(gtt, bt, ydy):
+    """The known blocks as (shared, per_member) operand lists: per-member
+    when gtt has a leading member axis."""
+    known = (gtt, bt, ydy)
+    return ((), known) if gtt.dim() == 4 else (known, ())
+
+
+def _known_strides(gtt, bt, ydy):
+    """Member strides of the known blocks, 0 when they are shared."""
+    if gtt.dim() == 3:
+        return 0, 0, 0
+    return gtt.stride(0), bt.stride(0), ydy.stride(0)
+
+
 def _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy):
-    return (1 <= n_u <= p and gtt.shape == (n_s, n_ct, n_ct)
-            and bt.shape == (n_ct, n_s) and gu_b.shape == (n_b, n_s, n_u, p)
-            and bu_b.shape == (n_b, n_u, n_s) and ydy.shape == (n_s,))
+    lead = () if gtt.dim() == 3 else (n_b,)
+    return (1 <= n_u <= p and gtt.shape == lead + (n_s, n_ct, n_ct)
+            and bt.shape == lead + (n_ct, n_s)
+            and gu_b.shape == (n_b, n_s, n_u, p)
+            and bu_b.shape == (n_b, n_u, n_s) and ydy.shape == lead + (n_s,))
 
 
 def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
@@ -237,7 +259,8 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
                            row_mask_b=None):
     """One launch (K5): ``alpha_phase_full`` for each active member.
 
-    gtt, bt, ydy are the known blocks, shared by the members; gu_b
+    gtt, bt, ydy are the known blocks, shared by the members, or one per
+    member (B, n_s, n_ct, n_ct), (B, n_ct, n_s), (B, n_s); gu_b
     (B, n_s, n_u, p), bu_b (B, n_u, n_s), usq_b (B,) come from K4 (views
     of its output rows are taken as they are); alpha_b, alpha_prev_b
     (B, p, n_s) and scal_b (B, N_SCAL_MULTI) are updated in place for the
@@ -249,9 +272,10 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
             "alpha_phase_full_multi: row_mask_b (the model-selection sweep) "
             "is ROADMAP port queue item 6")
     name = "alpha_phase_full_multi"
+    shared, own = _known_split(gtt, bt, ydy)
     n_b, p, n_s, n_ct = _check_multi(
-        name, alpha_b, n_u, (gtt, bt, ydy),
-        (gu_b, bu_b, usq_b, alpha_b, alpha_prev_b), scal_b)
+        name, alpha_b, n_u, shared,
+        (*own, gu_b, bu_b, usq_b, alpha_b, alpha_prev_b), scal_b)
     if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
             or usq_b.shape != (n_b,) or alpha_prev_b.shape != alpha_b.shape
             or alpha_prev_b.stride(0) != alpha_b.stride(0)):
@@ -267,13 +291,15 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     fn = (lib.dm_alpha_phase_full_multi_f32
           if alpha_b.dtype == torch.float32
           else lib.dm_alpha_phase_full_multi_f64)
+    st_gtt, st_bt, st_ydy = _known_strides(gtt, bt, ydy)
     with torch.cuda.device(alpha_b.device):
-        err = fn(gtt.data_ptr(), bt.data_ptr(), gu_b.data_ptr(),
-                 gu_b.stride(0), bu_b.data_ptr(), bu_b.stride(0),
-                 usq_b.data_ptr(), usq_b.stride(0), ydy.data_ptr(),
-                 alpha_b.data_ptr(), alpha_prev_b.data_ptr(),
-                 alpha_b.stride(0), scal_b.data_ptr(), N_SCAL_MULTI, n_s,
-                 n_ct, n_u, n_steps, n_b, _stream(alpha_b))
+        err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
+                 gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
+                 bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
+                 ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
+                 alpha_prev_b.data_ptr(), alpha_b.stride(0),
+                 scal_b.data_ptr(), N_SCAL_MULTI, n_s, n_ct, n_u, n_steps,
+                 n_b, _stream(alpha_b))
     _build.check(err, name)
     alpha_phase_full_multi.launches += 1
 
@@ -293,8 +319,8 @@ def _members(x_c, n_b):
 
 def assemble_G_b_multi(gtt, bt, gu_b, bu_b):
     """Per-member full Grams G (B, n_s, p, p) and b (B, p, n_s) from the
-    shared known blocks and the members' K4 blocks."""
-    n_b, n_ct = gu_b.shape[0], gtt.shape[1]
+    known blocks (shared, or one per member) and the members' K4 blocks."""
+    n_b, n_ct = gu_b.shape[0], gtt.shape[-1]
     top = torch.cat([gtt.expand(n_b, -1, -1, -1),
                      gu_b[..., :n_ct].transpose(2, 3)], dim=3)
     return (torch.cat([top, gu_b], dim=2),
@@ -307,7 +333,7 @@ def _finish_members(scal_b, alpha_b, al_b, b_b, grad_b, ydy, n_u,
     members' alpha, scalar ``updates`` {slot: (B,) value}, COST and
     ACTIVE written in place."""
     act = scal_b[:, ACTIVE] != 0
-    cost = (torch.sum(ydy) - torch.sum(b_b * al_b, dim=(1, 2))
+    cost = (torch.sum(ydy, dim=-1) - torch.sum(b_b * al_b, dim=(1, 2))
             - torch.sum(al_b * grad_b, dim=(1, 2)))
     updates[L_W] = torch.sum(al_b[:, -n_u:] ** 2, dim=(1, 2)) * scal_b[:,
                                                                        DMAX2]
@@ -349,15 +375,16 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
                         n_steps: int, n_u: int):
     """One launch (K6): ``fw_phase_full`` for each active member.
 
-    gtt, bt, ydy and purity (n_s,) are shared by the members; gu_b, bu_b
-    come from K4; alpha_b (B, p, n_s) = [known; unknown] and scal_b
+    gtt, bt, ydy as for ``alpha_phase_full_multi`` (shared or one per
+    member); purity (n_s,) is shared by the members; gu_b, bu_b come from
+    K4; alpha_b (B, p, n_s) = [known; unknown] and scal_b
     (B, N_SCAL_MULTI) are updated in place for the active members (L_W,
     COST, ACTIVE written; DMAX2, TOL read). Returns nothing.
     """
     name = "fw_phase_full_multi"
-    n_b, p, n_s, n_ct = _check_multi(name, alpha_b, n_u,
-                                     (gtt, bt, ydy, purity),
-                                     (gu_b, bu_b, alpha_b), scal_b)
+    shared, own = _known_split(gtt, bt, ydy)
+    n_b, p, n_s, n_ct = _check_multi(name, alpha_b, n_u, (*shared, purity),
+                                     (*own, gu_b, bu_b, alpha_b), scal_b)
     if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
             or purity.shape != (n_s,)):
         raise ValueError(f"{name}: inconsistent shapes")
@@ -370,12 +397,14 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     lib = _build.load().lib
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
+    st_gtt, st_bt, st_ydy = _known_strides(gtt, bt, ydy)
     with torch.cuda.device(alpha_b.device):
-        err = fn(gtt.data_ptr(), bt.data_ptr(), gu_b.data_ptr(),
-                 gu_b.stride(0), bu_b.data_ptr(), bu_b.stride(0),
-                 ydy.data_ptr(), alpha_b.data_ptr(), alpha_b.stride(0),
-                 purity.data_ptr(), scal_b.data_ptr(), N_SCAL_MULTI, n_s,
-                 n_ct, n_u, n_steps, n_b, _stream(alpha_b))
+        err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
+                 gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
+                 bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
+                 alpha_b.stride(0), purity.data_ptr(), scal_b.data_ptr(),
+                 N_SCAL_MULTI, n_s, n_ct, n_u, n_steps, n_b,
+                 _stream(alpha_b))
     _build.check(err, name)
     fw_phase_full_multi.launches += 1
 

@@ -32,6 +32,16 @@ K4 and K5/K6 leave an inactive member untouched. The only host read per
 outer iteration is one copy of the (B, N_SCAL_MULTI) scalar rows (costs
 and flags), for the trace, the members' iteration counts and the loop's
 "any member active" test. No member padding: that is a TPU sublane rule.
+
+With ``row_weights_b`` (B, n_cpg) the multi solvers run the weighted
+bootstrap: member b solves its own row-multiplicity problem (one
+resample replicate, w_b its row multiplicities) on the shared Y, D and
+Rt, as the plain solvers' ``row_weights`` does. K4 folds each member's
+weight row into its Gram sums (the U steps stay raw); each member has its
+own w-weighted known blocks (K5/K6 read them at a member stride), its own
+||Rt||^2 and max coverage over its surviving rows (per-member RT_SQ and
+DMAX2 slots), and its own weighted starting cost, tolerance and ACTIVE
+flag.
 """
 
 import numpy as np
@@ -61,7 +71,12 @@ from demethify_tpu_torch.ops.cuda_small import (
     fw_phase_full,
     fw_phase_full_multi,
 )
-from demethify_tpu_torch.ops.gram import accum_dtype, known_block_grams
+from demethify_tpu_torch.ops.gram import (
+    accum_dtype,
+    coverage_max2,
+    known_block_grams,
+    weighted_known_grams,
+)
 
 
 def _data_t(y, d, R_trunc, dtype):
@@ -79,10 +94,13 @@ def _uut(u, dtype):
     return torch.cat([ut, ut], dim=-2).contiguous()
 
 
-def _cost_t(ydt, rt_full, alpha):
+def _cost_t(ydt, rt_full, alpha, w=None):
+    """The weighted cost in the transposed layout; ``w`` (N,) weights each
+    site (the weighted bootstrap's row multiplicities)."""
     n_s = alpha.shape[1]
     resid = ydt[:n_s] - alpha.T @ rt_full
-    return torch.sum(ydt[n_s:] * resid * resid)
+    sq = ydt[n_s:] * resid * resid
+    return torch.sum(sq if w is None else sq * w)
 
 
 def _scalars(dtype, device, n=N_SCAL, **slots):
@@ -95,21 +113,30 @@ def _scalars(dtype, device, n=N_SCAL, **slots):
     return scal
 
 
-def _start(ydt, rtt, uut, alpha, n_u, dmax2, alpha_fista):
+def _start(ydt, rtt, uut, alpha, n_u, dmax2, alpha_fista, w=None):
     """One member's starting scalars (the same arithmetic in the single-
     and the multi-member solves, so their members start bit-equal):
     Nesterov scalars 1, l_w = l_w_prev = ||alpha_unknown||^2 dmax^2 and
     the cost; with ``alpha_fista`` (not the Frank-Wolfe purity solve)
-    also l_h_prev = ||[Rt | u]||^2 dmax^2 and ||Rt||^2."""
+    also l_h_prev = ||[Rt | u]||^2 dmax^2 and ||Rt||^2. With site weights
+    ``w`` (N,) the cost and the norms are w-weighted, as the plain
+    solvers' ``row_weights`` makes them (dmax2 is then the member's)."""
     ut = uut[:n_u]
     rt0 = ut if rtt is None else torch.cat([rtt, ut], dim=0)
     l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
     slots = dict(a_u=1.0, l_w=l_w0, l_w_prev=l_w0,
-                 cost=_cost_t(ydt, rt0, alpha), dmax2=dmax2)
+                 cost=_cost_t(ydt, rt0, alpha, w), dmax2=dmax2)
     if alpha_fista:
-        slots.update(a_alpha=1.0, l_h_prev=torch.sum(rt0 * rt0) * dmax2)
-        if rtt is not None:
-            slots["rt_sq"] = torch.sum(rtt * rtt)
+        if w is None:
+            l_h = torch.sum(rt0 * rt0)
+            rt_sq = None if rtt is None else torch.sum(rtt * rtt)
+        else:
+            l_h = torch.sum(w * ut * ut)
+            rt_sq = None if rtt is None else torch.sum(w * rtt * rtt)
+            l_h = l_h if rt_sq is None else rt_sq + l_h
+        slots.update(a_alpha=1.0, l_h_prev=l_h * dmax2)
+        if rt_sq is not None:
+            slots["rt_sq"] = rt_sq
     return slots
 
 
@@ -252,7 +279,8 @@ def free_device_bytes(device) -> int:
 
 
 def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
-                      itemsize: int, free_bytes: int) -> int:
+                      itemsize: int, free_bytes: int,
+                      weighted: bool = False) -> int:
     """Largest restart batch one multi-member solve takes on the card
     (replaces the JAX package's VMEM model of the same name), given the
     device memory ``free_bytes`` free when the restarts start (y, d and
@@ -263,6 +291,7 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
         E = n_s n_u (n_ct + n_u) + n_u n_s + 1 Gram entries;
       - the member's u and u_prev rows (2 n_u n_cpg itemsize), its
         stacked starting u and its returned u (2 n_u n_cpg itemsize);
+      - ``weighted`` (the bootstrap): its weight row, itemsize n_cpg;
       - shared memory: nothing. K4 stages one member's alpha blocks at a
         time and K5/K6 give each member its own thread block, so neither
         grows with B.
@@ -273,31 +302,36 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
     block's Gram products, each a few (n_s, n_cpg) arrays) and for the
     allocator's rounding. So
         B_max = max(1, (free_bytes // 2 - itemsize n_cpg (2 n_s + n_ct))
-                       // (itemsize (E ceil(n_cpg / 128) + 4 n_u n_cpg))).
-    Above it the restarts run in chunks of B_max.
+                       // (itemsize (E ceil(n_cpg / 128)
+                                     + (4 n_u + weighted) n_cpg))).
+    Above it the restarts (or bootstrap replicates) run in chunks of
+    B_max.
     """
     n_blocks = -(-n_cpg // SITES_PER_BLOCK)
     per_member = itemsize * (gram_entries(n_s, n_ct, n_u) * n_blocks
-                             + 4 * n_u * n_cpg)
+                             + (4 * n_u + int(weighted)) * n_cpg)
     shared = itemsize * n_cpg * (2 * n_s + n_ct)
     return max(1, (free_bytes // 2 - shared) // per_member)
 
 
 def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax2, dtype, tol,
-                 tol_relative, alpha_fista):
+                 tol_relative, alpha_fista, w_t=None):
     """The members' [u.T; u_prev.T] rows, alpha stack and scalar rows.
 
     Each member's starting scalars are the single-member solve's
-    (``_start``). Its tolerance is tol, or tol times its starting cost
-    when ``tol_relative``, and it starts active when |cost - inf| >= tol,
-    both in the working dtype on the host, as ``_outer_loop`` tests them
-    (a NaN starting cost makes the member inactive from the start)."""
+    (``_start``; with weight rows ``w_t`` (B, N), the member's weighted
+    ones, dmax2 (B,) then per member). Its tolerance is tol, or tol times
+    its starting cost when ``tol_relative``, and it starts active when
+    |cost - inf| >= tol, both in the working dtype on the host, as
+    ``_outer_loop`` tests them (a NaN starting cost makes the member
+    inactive from the start)."""
     alpha_b = alpha_b.to(dtype).contiguous().clone()
     uut_b = _uut(u_b, dtype)
     scal_b = torch.stack([
         _scalars(dtype, ydt.device, n=N_SCAL_MULTI,
-                 **_start(ydt, rtt, uut_b[b], alpha_b[b], n_u, dmax2,
-                          alpha_fista))
+                 **_start(ydt, rtt, uut_b[b], alpha_b[b], n_u,
+                          dmax2 if w_t is None else dmax2[b], alpha_fista,
+                          None if w_t is None else w_t[b]))
         for b in range(alpha_b.shape[0])])
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     cf0 = scal_b[:, COST].cpu().numpy().astype(np_dtype)
@@ -336,11 +370,26 @@ def _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace):
         "cost": scal_b[:, COST].clone(), "n_iter": n_iter, "trace": trace}
 
 
-def _no_row_weights(row_weights_b):
-    if row_weights_b is not None:
-        raise NotImplementedError(
-            "per-member row weights (the weighted bootstrap) are ROADMAP "
-            "port queue item 7")
+def _multi_data(y, d, R_trunc, dtype, row_weights_b):
+    """The multi solvers' shared data and known blocks: ydt, rtt, dmax2
+    and (G_tt, b_t, ydy), shared by the members; with ``row_weights_b``
+    also the members' weight rows w_t (B, N), and then dmax2 (B,) (the
+    max coverage over each member's surviving rows) and the known blocks
+    one per member, w-weighted (else w_t is None)."""
+    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    if row_weights_b is None:
+        known = (_no_known_grams(ydt) if R_trunc is None
+                 else _known_grams(R_trunc, y, d, dtype))
+        return ydt, rtt, dmax2, known, None
+    w_t = row_weights_b.to(device=ydt.device, dtype=dtype).contiguous()
+    if w_t.shape != (row_weights_b.shape[0], ydt.shape[1]):
+        raise ValueError(f"row_weights_b must be (B, n_cpg), got "
+                         f"{tuple(row_weights_b.shape)}")
+    dmax2 = torch.stack([coverage_max2(d, w, dtype) for w in w_t])
+    R = y.new_empty((y.shape[0], 0)) if R_trunc is None else R_trunc
+    known = tuple(x.contiguous() for x in weighted_known_grams(
+        R.to(dtype), d.to(dtype), y.to(dtype), w_t))
+    return ydt, rtt, dmax2, known, w_t
 
 
 def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
@@ -350,7 +399,10 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
                                   tol_relative: bool = False,
                                   row_weights_b=None):
     """Batched-restart partial-reference solve: the same per-member
-    trajectories as ``partial_ref_solve_fused`` on each member.
+    trajectories as ``partial_ref_solve_fused`` on each member, or, with
+    ``row_weights_b`` (B, n_cpg), as the plain
+    ``partial_ref_solve(row_weights=row_weights_b[b])`` (the weighted
+    bootstrap).
 
     u_b (B, n_cpg, n_u), alpha_b (B, p, n_s); y, d, R_trunc as for the
     single solve. Returns (u_b, alpha_b, info) with per-member info
@@ -358,19 +410,18 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
     (B, n_iter1) NaN-padded when record_trace, else (B, 0)}. Gram form
     only (n_u^2 <= 3 n_s), at most ``max_multi_members`` members (the
     caller chunks; ``solvers/api.py`` does)."""
-    _no_row_weights(row_weights_b)
     dtype = accum_dtype(y)
-    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    ydt, rtt, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(
+        y, d, R_trunc, dtype, row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
                                           dmax2, dtype, tol, tol_relative,
-                                          True)
+                                          True, w_t)
     alpha_prev_b = alpha_b.clone()
 
     def one_iteration():
         gu, b_u, usq = u_phase_grams_multi(
             ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
-            n_iter2)
+            n_iter2, weights=w_t)
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
@@ -383,22 +434,26 @@ def unsupervised_solve_fused_multi(u_b, alpha_b, y, d, n_u: int,
                                    n_iter1: int = 10000, n_iter2: int = 20,
                                    tol: float = 1e-2,
                                    record_trace: bool = False,
-                                   tol_relative: bool = False):
+                                   tol_relative: bool = False,
+                                   row_weights_b=None):
     """Batched-restart unsupervised solve (R = U, the lagged u-gradient):
     K4 lagged without a known block, then K5 without one. u_b
-    (B, n_cpg, n_u), alpha_b (B, n_u, n_s). Returns as
-    ``partial_ref_solve_fused_multi``."""
+    (B, n_cpg, n_u), alpha_b (B, n_u, n_s). ``row_weights_b`` as for
+    ``partial_ref_solve_fused_multi`` (each member then follows the plain
+    ``unsupervised_solve(row_weights=)``; K4's weighted form without a
+    known block). Returns as ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
-    ydt, _, dmax2 = _data_t(y, d, None, dtype)
-    G_tt, b_t, ydy = _no_known_grams(ydt)
+    ydt, _, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(y, d, None, dtype,
+                                                      row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, None, n_u,
                                           dmax2, dtype, tol, tol_relative,
-                                          True)
+                                          True, w_t)
     alpha_prev_b = alpha_b.clone()
 
     def one_iteration():
         gu, b_u, usq = u_phase_grams_multi(ydt, None, None, alpha_b, uut_b,
-                                           scal_b, n_iter2, lagged=True)
+                                           scal_b, n_iter2, lagged=True,
+                                           weights=w_t)
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
@@ -414,20 +469,20 @@ def purity_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, purity, n_u: int,
                              row_weights_b=None):
     """Batched-restart purity-constrained solve: K4 (n_iter2 steps,
     default 500) then K6, the whole Frank-Wolfe loop of every active
-    member. Returns as ``partial_ref_solve_fused_multi``."""
-    _no_row_weights(row_weights_b)
+    member. ``row_weights_b`` as for ``partial_ref_solve_fused_multi``.
+    Returns as ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
-    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    ydt, rtt, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(
+        y, d, R_trunc, dtype, row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
                                           dmax2, dtype, tol, tol_relative,
-                                          False)
+                                          False, w_t)
 
     def one_iteration():
         gu, b_u, _ = u_phase_grams_multi(
             ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
-            n_iter2)
+            n_iter2, weights=w_t)
         fw_phase_full_multi(G_tt, b_t, gu, b_u, ydy, alpha_b, purity, scal_b,
                             n_iter2, n_u)
 

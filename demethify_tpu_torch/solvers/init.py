@@ -7,7 +7,9 @@ The options uniform, uniform_ and beta; the fallback rule (n_u >
 n_samples forces uniform_, before anything else); the zero-guard on the
 first unknown alpha row in the partial-reference init only. The SVD and
 ICA options are ROADMAP port queue item 4. Every draw takes an explicit
-``torch.Generator``.
+``torch.Generator``. ``row_weights`` (the bootstrap's row multiplicities)
+weights the 'uniform' option's WLS coverage, which is the WLS on the
+resampled rows; the other options draw without looking at the data.
 
 torch cannot reproduce ``jax.random`` draws, so the distributions are
 matched instead: Dirichlet(1, ..., 1) columns are column-normalised
@@ -69,14 +71,15 @@ def _resolve_option(init_option: str, n_u: int, n_s: int) -> str:
     return init_option
 
 
-def _draw(gen, init_option, y, d, R_trunc, n_u):
+def _draw(gen, init_option, y, d, R_trunc, n_u, row_weights=None):
     """u and alpha of the uniform, uniform_ and beta options; R_trunc
     (n_cpg, n_ct) or None for no known block."""
     n_cpg, n_s = y.shape
     p = n_u if R_trunc is None else R_trunc.shape[1] + n_u
     if init_option == "uniform":
         u = _rand_u(gen, n_cpg, n_u, y)
-        alpha = wls_intercept_batch(y, d, torch.cat([R_trunc, u], dim=1))
+        dw = d if row_weights is None else d * row_weights[:, None]
+        alpha = wls_intercept_batch(y, dw, torch.cat([R_trunc, u], dim=1))
     elif init_option == "uniform_":
         u = _rand_u(gen, n_cpg, n_u, y)
         alpha = _rand_dirichlet_ones(gen, p, n_s, y)
@@ -87,22 +90,22 @@ def _draw(gen, init_option, y, d, R_trunc, n_u):
 
 
 def init_partial(gen: torch.Generator, init_option: str, y, d, R_trunc,
-                 n_u: int):
+                 n_u: int, row_weights=None):
     """-> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)) on y's device and dtype."""
     option = _resolve_option(init_option, n_u, y.shape[1])
-    u, alpha = _draw(gen, option, y, d, R_trunc, n_u)
+    u, alpha = _draw(gen, option, y, d, R_trunc, n_u, row_weights)
     return u, zero_guard(alpha, n_u)
 
 
 def init_purity(gen: torch.Generator, init_option: str, y, d, R_trunc,
-                n_u: int):
+                n_u: int, row_weights=None):
     """Purity-constrained init (reference ``deconvolution.py:228-267``)
     -> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)). The uniform, uniform_
     and beta options draw as ``init_partial`` does, without its
     zero-guard; only the SVD/ICA options (item 4) scale alpha's blocks by
     the purity."""
     option = _resolve_option(init_option, n_u, y.shape[1])
-    return _draw(gen, option, y, d, R_trunc, n_u)
+    return _draw(gen, option, y, d, R_trunc, n_u, row_weights)
 
 
 def init_unsupervised(gen: torch.Generator, init_option: str, y, d,

@@ -7,7 +7,14 @@ the U FISTA loop on (C, M), the u-involved Gram blocks, the alpha FISTA
 loop on (G, b), and the cost by the Gram identity; stop when
 ``|cf - cf_prev| < tol``. This is the CPU path and the oracle the kernel
 solver (``solvers/fused.py``) is held against on the GPU. ``row_mask``
-and ``row_weights`` wait for the sweep and bootstrap slices.
+waits for the sweep slice (ROADMAP port queue item 6).
+
+``row_weights`` ((n_cpg,) nonnegative, the bootstrap's row multiplicities)
+solves the problem in which row i appears w_i times, without gathered
+copies: the U update is row-separable and stays raw (rows with w = 0 still
+move), while every cross-row reduction takes the weights -- the Grams and
+the cost, ||Rt||^2 and sum u^2 in the Lipschitz constants, and the max
+coverage, taken over the rows with w > 0 only.
 """
 
 import torch
@@ -16,7 +23,9 @@ from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost, weighted_cost_gram
 from demethify_tpu_torch.ops.gram import (
     accum_dtype,
+    coverage_max2,
     known_block_grams,
+    row_sum_sq,
     sample_grams_incremental,
     site_curvature,
     u_constant_term,
@@ -27,23 +36,25 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
                       n_iter1: int = 10000, n_iter2: int = 20,
                       tol: float = 1e-2, use_gram_u: bool = True,
                       record_trace: bool = False,
-                      tol_relative: bool = False):
+                      tol_relative: bool = False, row_weights=None):
     """u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
-    (n_cpg, n_ct). Returns (u, alpha, info) with info = {'cost': 0-d
-    tensor, 'n_iter': int, 'trace': (n_iter1,) NaN-padded cost history
-    when record_trace, else empty}."""
+    (n_cpg, n_ct), row_weights (n_cpg,) or None. Returns (u, alpha, info)
+    with info = {'cost': 0-d tensor, 'n_iter': int, 'trace': (n_iter1,)
+    NaN-padded cost history when record_trace, else empty}."""
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
     R_trunc = R_trunc.to(dtype)
     R0 = torch.cat([R_trunc, u], dim=1)
-    dmax2 = torch.max(d).to(dtype) ** 2
-    rt_sq = torch.sum(R_trunc * R_trunc)
-    l_h = torch.sum(R0 * R0) * dmax2
+    dmax2 = coverage_max2(d, row_weights, dtype)
+    u_sq = row_sum_sq(row_weights, dtype)
+    rt_sq = u_sq(R_trunc)
+    l_h = ((rt_sq + u_sq(u)) if row_weights is not None
+           else torch.sum(R0 * R0)) * dmax2
     l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
-    cf = weighted_cost(y, R0, alpha, d)
+    cf = weighted_cost(y, R0, alpha, d, row_weights)
     tol = tol * cf if tol_relative else tol
-    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y)
+    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y, row_weights)
 
     trace = torch.full((n_iter1 if record_trace else 0,), float("nan"),
                        dtype=dtype, device=y.device)
@@ -66,8 +77,9 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
                 u, u_prev, a1, l_w_prev, l_w, y, d, R_trunc,
                 a1_block, a2_block, n_iter2)
 
-        G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y)
-        l_h = (rt_sq + torch.sum(u * u)) * dmax2
+        G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y,
+                                        row_weights)
+        l_h = (rt_sq + u_sq(u)) * dmax2
         alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
             alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2)
         l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2

@@ -7,7 +7,8 @@ on alpha over the per-sample purity-scaled simplexes, on the per-sample
 Grams (``ops/frank_wolfe.frank_wolfe_gram``); the termination cost falls
 out of the same Grams. This is the CPU path and the oracle the kernel
 solver (``solvers/fused.purity_solve_fused``) is held against on the GPU.
-``row_weights`` waits for the bootstrap slice.
+``row_weights`` is the bootstrap's row-multiplicity form, as in
+``partial_ref.py``.
 """
 
 import torch
@@ -17,6 +18,7 @@ from demethify_tpu_torch.ops.cost import weighted_cost, weighted_cost_gram
 from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
 from demethify_tpu_torch.ops.gram import (
     accum_dtype,
+    coverage_max2,
     known_block_grams,
     sample_grams_incremental,
     site_curvature,
@@ -27,22 +29,22 @@ from demethify_tpu_torch.ops.gram import (
 def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
                  n_iter1: int = 100, n_iter2: int = 500, tol: float = 1e-2,
                  use_gram_u: bool = True, record_trace: bool = False,
-                 tol_relative: bool = False):
+                 tol_relative: bool = False, row_weights=None):
     """u (n_cpg, n_u); alpha (p, n_s) stacked [known; unknown]; purity
     (n_s,) the known-block mass of each sample, already flipped to
-    1 - p/100 (reference ``demethify.py:77``). Returns (u, alpha, info) as
-    ``partial_ref_solve`` does."""
+    1 - p/100 (reference ``demethify.py:77``); row_weights (n_cpg,) or
+    None. Returns (u, alpha, info) as ``partial_ref_solve`` does."""
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
     R_trunc = R_trunc.to(dtype)
     purity = purity.to(dtype)
-    dmax2 = torch.max(d).to(dtype) ** 2
+    dmax2 = coverage_max2(d, row_weights, dtype)
     R0 = torch.cat([R_trunc, u], dim=1)
     l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
-    cf = weighted_cost(y, R0, alpha, d)
+    cf = weighted_cost(y, R0, alpha, d, row_weights)
     tol = tol * cf if tol_relative else tol
-    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y)
+    G_tt, b_t, ydy = known_block_grams(R_trunc, d, y, row_weights)
 
     trace = torch.full((n_iter1 if record_trace else 0,), float("nan"),
                        dtype=dtype, device=y.device)
@@ -63,7 +65,8 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
                 u, u_prev, a1, l_w_prev, l_w, y, d, R_trunc, a1_block,
                 a2_block, n_iter2)
 
-        G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y)
+        G, b = sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y,
+                                        row_weights)
         alpha1, alpha2 = frank_wolfe_gram(a1_block, a2_block, G, b, purity,
                                           n_iter2)
         alpha = torch.cat([alpha1, alpha2], dim=0)

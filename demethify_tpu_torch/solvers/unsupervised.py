@@ -9,8 +9,9 @@ for trajectory parity: the ``lagged`` form of ``ops/fista``'s U loops.
 The same Gram-form dataflow as ``partial_ref.py``, with the whole factor
 as the unknown block. This is the CPU path and the oracle the kernel
 solver (``solvers/fused.unsupervised_solve_fused``) is held against on
-the GPU. ``row_mask`` and ``row_weights`` wait for the sweep and
-bootstrap slices.
+the GPU. ``row_weights`` is the bootstrap's row-multiplicity form, as in
+``partial_ref.py``; ``row_mask`` waits for the sweep slice (ROADMAP port
+queue item 6).
 """
 
 import torch
@@ -19,6 +20,8 @@ from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost, weighted_cost_gram
 from demethify_tpu_torch.ops.gram import (
     accum_dtype,
+    coverage_max2,
+    row_sum_sq,
     sample_grams,
     site_curvature,
 )
@@ -27,16 +30,18 @@ from demethify_tpu_torch.ops.gram import (
 def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
                        n_iter2: int = 20, tol: float = 1e-2,
                        use_gram_u: bool = True, record_trace: bool = False,
-                       tol_relative: bool = False):
-    """u (n_cpg, n_u), alpha (n_u, n_s), y, d (n_cpg, n_s). Returns
-    (u, alpha, info) as ``partial_ref_solve`` does."""
+                       tol_relative: bool = False, row_weights=None):
+    """u (n_cpg, n_u), alpha (n_u, n_s), y, d (n_cpg, n_s), row_weights
+    (n_cpg,) or None. Returns (u, alpha, info) as ``partial_ref_solve``
+    does."""
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
-    dmax2 = torch.max(d).to(dtype) ** 2
+    dmax2 = coverage_max2(d, row_weights, dtype)
+    u_sq = row_sum_sq(row_weights, dtype)
     l_w = torch.sum(alpha * alpha) * dmax2      # alpha is the unknown block
-    l_h = torch.sum(u * u) * dmax2
-    cf = weighted_cost(y, u, alpha, d)
+    l_h = u_sq(u) * dmax2
+    cf = weighted_cost(y, u, alpha, d, row_weights)
     tol = tol * cf if tol_relative else tol
 
     trace = torch.full((n_iter1 if record_trace else 0,), float("nan"),
@@ -58,8 +63,8 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
                 u, u_prev, a1, l_w_prev, l_w, y, d, None, None, alpha,
                 n_iter2, lagged=True)
 
-        G, b, ydy = sample_grams(u, d, y)
-        l_h = torch.sum(u * u) * dmax2
+        G, b, ydy = sample_grams(u, d, y, row_weights)
+        l_h = u_sq(u) * dmax2
         alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
             alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2)
         l_w = torch.sum(alpha * alpha) * dmax2

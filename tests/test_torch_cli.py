@@ -102,7 +102,7 @@ def test_partial_ref_close_to_jax(tmp_path, fixture_files):
     assert prof_t.shape == prof_j.shape == (N_CPG, 1)
 
 
-@pytest.mark.parametrize("flag", [["--confidence", "95", "10"],
+@pytest.mark.parametrize("flag", [["--initstate", "x"],
                                   ["--ic", "AIC"], ["--savestate", "x"],
                                   ["--dtype", "bfloat16"], ["--shard"]])
 def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,

@@ -295,11 +295,13 @@ def test_multi_wrappers_reject(bad):
             cuda_small.alpha_phase_full_multi(*args, scal, 3, 1,
                                               row_mask_b=torch.ones(n_b, p))
         return
-    expected, match = {"weights": (NotImplementedError, "item 7"),
+    # weights: a row per member and site, in the operands' dtype
+    expected, match = {"weights": (ValueError, "weights"),
                        "n_u9": (NotImplementedError, "item 12"),
                        "direct": (ValueError, "gram form only")}.get(
         bad, (ValueError, None))
     with pytest.raises(expected, match=match):
         cuda_multi.u_phase_grams_multi(
             ydt, None, None, a2, uut, scal, 3, lagged=True,
-            weights=torch.ones(n_b, 8) if bad == "weights" else None)
+            weights=torch.ones(n_b, 7, dtype=dt) if bad == "weights"
+            else None)

@@ -241,18 +241,26 @@ def test_restart_route(device, n_u, n_s, n_restarts, provided, want):
 
 
 def test_row_weights_and_row_mask_raise_naming_their_items(small_problem):
+    """Row weights are ported (the weighted bootstrap): all-ones weights
+    give the unweighted restarts, and a weight row of the wrong length is
+    refused; K5's row_mask_b still names its item."""
     p = small_problem
     u_b, a_b = _batch(p, 2, p["n_u"], True, seed=1)
     u_t, a_t, (y, d, Rt) = _torch(u_b, a_b, (p["y"], p["d"], p["R_trunc"]),
                                   torch.float64)
     w = torch.ones(2, y.shape[0], dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fused.partial_ref_solve_fused_multi(u_t, a_t, y, d, Rt, p["n_u"],
-                                            row_weights_b=w)
+    kw = dict(n_iter1=4, n_iter2=5, tol=1e-9, record_trace=True)
+    ones = fused.partial_ref_solve_fused_multi(u_t, a_t, y, d, Rt, p["n_u"],
+                                               row_weights_b=w, **kw)
+    plain = fused.partial_ref_solve_fused_multi(u_t, a_t, y, d, Rt, p["n_u"],
+                                                **kw)
+    np.testing.assert_allclose(ones[1].numpy(), plain[1].numpy(), atol=1e-12)
+    np.testing.assert_allclose(ones[2]["trace"].numpy(),
+                               plain[2]["trace"].numpy(), rtol=1e-12)
     pur = torch.full((y.shape[1],), 0.5, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="row_weights_b"):
         fused.purity_solve_fused_multi(u_t, a_t, y, d, Rt, pur, p["n_u"],
-                                       row_weights_b=w)
+                                       row_weights_b=w[:, 1:])
     with pytest.raises(NotImplementedError, match="item 6"):
         cuda_small.alpha_phase_full_multi(
             *(torch.zeros(1) for _ in range(8)), torch.zeros(1, 10), 3, 1,
