@@ -152,6 +152,29 @@ def median_ms(fn, reps=7, inner=1, warmup=2):
     return statistics.median(times)
 
 
+def queued_ms(fn, inner, reps=7):
+    """Median device time in ms of one of ``inner`` back-to-back calls of
+    ``fn``, enqueued behind a device sleep of about 10 ms so that the card
+    runs them one after another whatever each launch costs the host (for
+    kernels shorter than their wrapper's host time, where ``median_ms``
+    reads the host)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return statistics.median(times)
+
+
 def timed_ms(fn):
     """(result, device ms) of one call, from CUDA events."""
     import torch
@@ -213,16 +236,16 @@ def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, n_members=1,
     on n sites: Y, D, Rt read once; each member's u, u_prev read and
     written (and, ``weighted``, its weight row read); per site and member
     the C/M build, the FISTA steps and the Gram sums of the new u (plus,
-    weighted, one multiply per Gram entry); the scalar momentum chain, the
-    same for every site, is not counted."""
+    weighted, the n_u products w u_v formed once per site, which the Gram
+    sums then read in place of u_v); the scalar momentum chain, the same
+    for every site, is not counted."""
     p = n_ct + n_u
     n_bytes = itemsize * n * ((2 * n_s + n_ct)
                               + n_members * (4 * n_u + int(weighted)))
     per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 3 * n_u * (n_u + 1) // 2)
                 + steps * (6 * n_u + 2 * n_u * n_u)
-                + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u)
-    if weighted:
-        per_site += n_s * n_u * p + n_u * n_s + n_u
+                + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u
+                + n_u * int(weighted))
     return n_bytes, per_site * n * n_members
 
 
@@ -711,19 +734,23 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_ALPHA, COST, DMAX2, L_H_PREV, RT_SQ, TOL)
     from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi_plain
-    from demethify_tpu_torch.ops.gram import (
-        known_block_grams, weighted_known_grams)
+    from demethify_tpu_torch.ops.gram import known_block_grams
 
     dtype = getattr(torch, dtype_name)
     n = 200_000
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
         n, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    # the weights only where they are used, so that the unweighted cases
+    # also run on a tree from before the weights operand (time_main_path)
     w = resample_weights(n_b, n, dtype, seed) if weighted else None
     gu, bu, usq = u_phase_grams_multi_plain(
         ydt, rtt, alpha_b[:, :-n_u] if n_ct else None, alpha_b[:, -n_u:],
-        uut_b.clone(), scal_b.clone(), 3, weights=w)
+        uut_b.clone(), scal_b.clone(), 3, **({"weights": w} if weighted
+                                              else {}))
     rt = ydt.new_empty((n, 0)) if rtt is None else rtt.T
     if weighted:
+        from demethify_tpu_torch.ops.gram import weighted_known_grams
+
         gtt, bt, ydy = (x.contiguous() for x in weighted_known_grams(
             rt, ydt[N_S:].T, ydt[:N_S].T, w))
         rowmax = ydt[N_S:].max(0).values
@@ -794,6 +821,8 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
         a_all, ap_all = alpha_b.clone(), alpha_prev_b.clone()
         res["ms"] = median_ms(lambda: alpha_phase_full_multi(
             *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
+        res["queued_ms"] = queued_ms(lambda: alpha_phase_full_multi(
+            *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_multi_plain(
             *args, ap_, app, sp, N_INNER, n_u), inner=5)
         n_bytes, flops = glue_work(p, N_S, n_ct, N_INNER,
@@ -805,7 +834,8 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
         f"{err_c:.3e}, scalars rel {err_s:.3e} (tol {tol['cost']:.0e}); "
         f"active flags equal: {flags}; inactive members bit-unchanged: "
         f"{frozen}; member {b0} bit-identical to K2: {same_k2}"
-        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), plain "
+        + (f"; kernel {res['ms']:.4f} ms (all {n_b} active; "
+           f"{res['queued_ms']:.4f} ms queued behind a device sleep), plain "
            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms"
            if timed else ""))
     check(np.isfinite([err_a, err_c, err_s]).all(), "K5 non-finite")
@@ -2083,7 +2113,10 @@ def time_main_path(root):
     """Times the single-restart main path of the tree at ``root`` on one
     GPU and prints one JSON line: the card's ``nvidia-smi`` name and power
     limit, K1 and K2 at the main path's shape (the timed cases of phases
-    3 and 4) and the main path's ms per outer iteration, 300 x 20 through
+    3 and 4), K4 and K5 at the partial-reference restart path's shape
+    (B = 16, shared known blocks: the timed cases of phase 5; K5 also
+    queued behind a device sleep, its device time alone) and the
+    main path's ms per outer iteration, 300 x 20 through
     ``solvers.api.partial_reference_deconv`` on ``make_problem``'s data
     (tol = 0), five times. Two trees unpacked side by side, a change and
     its parent, are compared on one card by timing them in turns, one
@@ -2102,6 +2135,9 @@ def time_main_path(root):
     card = phase_device()
     k1 = _k1_case(N_CPG, N_U, "float32", timed=True)
     k2 = _k2_case(N_CT, "float32", timed=True)
+    k4 = _k4_case(N_U, "float32", 16, N_INNER, inactive=(3, 7, 11),
+                  timed=True, label="[restarts]")
+    k5 = _k5_case(N_CT, N_U, "float32", 16, (2, 9), timed=True)
     u0, a0, y, d, Rt = state.from_numpy(*make_problem(), device=DEV,
                                         dtype=torch.float32)
     kw = dict(n_iter2=N_INNER, tol=0.0, init_provided=(u0, a0))
@@ -2113,8 +2149,9 @@ def time_main_path(root):
         check(res.n_iter == n_iter, f"main path ran {res.n_iter} iterations")
         main_ms.append(ms / n_iter)
     print(json.dumps({"root": root, "card": card, "k1_ms": k1["ms"],
-                      "k2_ms": k2["ms"], "main_ms_per_iter": main_ms}),
-          flush=True)
+                      "k2_ms": k2["ms"], "k4_ms": k4["ms"], "k5_ms": k5["ms"],
+                      "k5_queued_ms": k5["queued_ms"],
+                      "main_ms_per_iter": main_ms}), flush=True)
 
 
 def main():

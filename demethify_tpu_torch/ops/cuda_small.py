@@ -232,22 +232,17 @@ def _check_multi(name, alpha_b, n_u, shared, members, scal_b):
     return n_b, p, n_s, n_ct
 
 
-def _known_split(gtt, bt, ydy):
-    """The known blocks as (shared, per_member) operand lists: per-member
-    when gtt has a leading member axis."""
+def _known_layout(n_b, gtt, bt, ydy):
+    """Where the known blocks live: shared by the members (gtt 3-d) or one
+    per member (a leading member axis). Returns (shared operands,
+    per-member operands, leading shape, member strides, 0 when shared)."""
     known = (gtt, bt, ydy)
-    return ((), known) if gtt.dim() == 4 else (known, ())
-
-
-def _known_strides(gtt, bt, ydy):
-    """Member strides of the known blocks, 0 when they are shared."""
     if gtt.dim() == 3:
-        return 0, 0, 0
-    return gtt.stride(0), bt.stride(0), ydy.stride(0)
+        return known, (), (), (0, 0, 0)
+    return (), known, (n_b,), tuple(x.stride(0) for x in known)
 
 
-def _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy):
-    lead = () if gtt.dim() == 3 else (n_b,)
+def _shapes_ok(lead, n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy):
     return (1 <= n_u <= p and gtt.shape == lead + (n_s, n_ct, n_ct)
             and bt.shape == lead + (n_ct, n_s)
             and gu_b.shape == (n_b, n_s, n_u, p)
@@ -272,11 +267,13 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
             "alpha_phase_full_multi: row_mask_b (the model-selection sweep) "
             "is ROADMAP port queue item 6")
     name = "alpha_phase_full_multi"
-    shared, own = _known_split(gtt, bt, ydy)
+    shared, own, lead, (st_gtt, st_bt, st_ydy) = _known_layout(
+        alpha_b.shape[0], gtt, bt, ydy)
     n_b, p, n_s, n_ct = _check_multi(
         name, alpha_b, n_u, shared,
         (*own, gu_b, bu_b, usq_b, alpha_b, alpha_prev_b), scal_b)
-    if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
+    if (not _shapes_ok(lead, n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b,
+                       ydy)
             or usq_b.shape != (n_b,) or alpha_prev_b.shape != alpha_b.shape
             or alpha_prev_b.stride(0) != alpha_b.stride(0)):
         raise ValueError(f"{name}: inconsistent shapes")
@@ -291,7 +288,6 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     fn = (lib.dm_alpha_phase_full_multi_f32
           if alpha_b.dtype == torch.float32
           else lib.dm_alpha_phase_full_multi_f64)
-    st_gtt, st_bt, st_ydy = _known_strides(gtt, bt, ydy)
     with torch.cuda.device(alpha_b.device):
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
@@ -382,10 +378,12 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     COST, ACTIVE written; DMAX2, TOL read). Returns nothing.
     """
     name = "fw_phase_full_multi"
-    shared, own = _known_split(gtt, bt, ydy)
+    shared, own, lead, (st_gtt, st_bt, st_ydy) = _known_layout(
+        alpha_b.shape[0], gtt, bt, ydy)
     n_b, p, n_s, n_ct = _check_multi(name, alpha_b, n_u, (*shared, purity),
                                      (*own, gu_b, bu_b, alpha_b), scal_b)
-    if (not _shapes_ok(n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b, ydy)
+    if (not _shapes_ok(lead, n_b, p, n_s, n_ct, n_u, gtt, bt, gu_b, bu_b,
+                       ydy)
             or purity.shape != (n_s,)):
         raise ValueError(f"{name}: inconsistent shapes")
     if alpha_b.device.type == "cpu":
@@ -397,7 +395,6 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     lib = _build.load().lib
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
-    st_gtt, st_bt, st_ydy = _known_strides(gtt, bt, ydy)
     with torch.cuda.device(alpha_b.device):
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),

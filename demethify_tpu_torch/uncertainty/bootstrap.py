@@ -98,8 +98,7 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
                  seed: int = 1, method: str = "auto",
                  tol_relative: bool = False,
                  indices: Optional[Sequence] = None,
-                 inits: Optional[Sequence] = None,
-                 max_members: Optional[int] = None):
+                 inits: Optional[Sequence] = None):
     """Returns (lower_props, upper_props, lower_u, upper_u) as numpy
     arrays; the u bounds are None in the supervised mode (n_u == 0).
 
@@ -108,9 +107,9 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     ``indices`` (n_bootstrap, n_cpg) and ``inits`` (n_bootstrap pairs
     (u0 (n_cpg, n_u), alpha0 (p, n_s)), on the original rows in the
     weights layout and on the gathered rows in the resample layout)
-    replace the replicates' own draws. ``max_members`` caps the
-    replicates per multi-solver call (default: ``fused.max_multi_members``
-    on the card, CPU_MEMBERS on the CPU)."""
+    replace the replicates' own draws. The replicates per multi-solver
+    call are ``fused.max_multi_members`` on the card, CPU_MEMBERS on the
+    CPU."""
     unsupervised = ref is None
     supervised = n_u == 0
     if unsupervised and supervised:
@@ -224,13 +223,11 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         us.append(None if u is None else u.cpu().numpy())
 
     if method == "weights" and not supervised and gram_form(n_u, n_s):
-        cap = max_members
-        if cap is None:
-            cap = CPU_MEMBERS if y.device.type == "cpu" else (
-                fused.max_multi_members(
-                    n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
-                    torch.finfo(dtype).bits // 8,
-                    fused.free_device_bytes(y.device), weighted=True))
+        cap = CPU_MEMBERS if y.device.type == "cpu" else (
+            fused.max_multi_members(
+                n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
+                torch.finfo(dtype).bits // 8,
+                fused.free_device_bytes(y.device), weighted=True))
         for lo in range(0, n_bootstrap, cap):
             alpha_b, u_b = weighted_chunk(lo, min(lo + cap, n_bootstrap))
             props.extend(alpha_b.cpu().numpy())

@@ -117,7 +117,7 @@ def test_bootstrap_ci_matches_jax_replicates(small_problem, mode, method):
     assert cuda_multi.u_phase_grams_multi.launches == 0
 
 
-def test_chunking_does_not_change_the_intervals(small_problem):
+def test_chunking_does_not_change_the_intervals(small_problem, monkeypatch):
     """Replicates per multi-solver call 3 (chunks 3 + 3 + 1) or 8 (one
     call): the same draws by the same generators, the same intervals."""
     p = small_problem
@@ -125,8 +125,10 @@ def test_chunking_does_not_change_the_intervals(small_problem):
             torch.tensor(p["R_trunc"]), p["n_u"])
     kw = dict(level=LEVEL, n_bootstrap=7, method="weights", seed=3,
               init_option="uniform", **KW)
-    small = bootstrap_ci(*args, max_members=3, **kw)
-    whole = bootstrap_ci(*args, max_members=8, **kw)
+    monkeypatch.setattr(bootstrap, "CPU_MEMBERS", 3)
+    small = bootstrap_ci(*args, **kw)
+    monkeypatch.setattr(bootstrap, "CPU_MEMBERS", 8)
+    whole = bootstrap_ci(*args, **kw)
     for a, b in zip(small, whole):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
 
