@@ -115,6 +115,20 @@ K3_TOL = {"float64": 1e-12, "float32": 1e-5}
 # two solvers' costs agree only to ~1e-3 relative; float64 is tight.
 TRAJ_TOL = {"float64": {"cost": 1e-9, "alpha": 1e-9},
             "float32": {"cost": 1e-2, "alpha": 2e-3}}
+# bf16_compute on the card against the same solver on the CPU (its
+# twins): each side rounds u to bf16 after float32 sums taken in its own
+# order, so a site whose u lies within rounding of a bf16 step rounds the
+# other way (one bf16 step, 2^-8 relative) in its Gram terms. The
+# Gram-identity cost cancels about three digits, so those few sites move
+# the cost trace by up to 1.05e-2 relative over 50 iterations (measured
+# on an NVIDIA H100 80GB HBM3, seed 1; held on two seeds' problems);
+# alpha holds the float32 bound.
+BF16C_TRAJ_TOL = {"cost": 3e-2, "alpha": 2e-3}
+# bf16 storage against the float32 solve from the same init at the JAX
+# package's own bf16 test schedule (30 x 5): alpha to 5e-3 (both forms
+# read 6.2e-4 and 6.3e-4 at full width on an NVIDIA H100 80GB HBM3; the
+# JAX test's own bound is 5e-2), column sums to 1e-3
+BF16_SHORT_TOL = {"alpha": 5e-3, "sum": 1e-3}
 # a relative tolerance at which the members of the loose-tol comparison
 # stop at different iterations (33 to 67 on the 200k problem, 6 members)
 LOOSE_TOL = 1e-5
@@ -189,21 +203,31 @@ def timed_ms(fn):
 
 
 def counters():
+    """(wrapper, its counter attribute, the name the counts go by): one
+    counter per kernel form, bf16 data apart from float32/float64."""
     from demethify_tpu_torch.ops import cuda_kernels, cuda_multi, cuda_small
 
-    return (cuda_kernels.u_phase_grams, cuda_small.alpha_phase_full,
-            cuda_small.fw_phase_full, cuda_multi.u_phase_grams_multi,
-            cuda_small.alpha_phase_full_multi,
-            cuda_small.fw_phase_full_multi)
+    k1, k4 = cuda_kernels.u_phase_grams, cuda_multi.u_phase_grams_multi
+    return ((k1, "launches", "u_phase_grams"),
+            (k1, "launches_bf16", "u_phase_grams[bf16]"),
+            (k1, "launches_bf16_compute", "u_phase_grams[bf16_compute]"),
+            (cuda_small.alpha_phase_full, "launches", "alpha_phase_full"),
+            (cuda_small.fw_phase_full, "launches", "fw_phase_full"),
+            (k4, "launches", "u_phase_grams_multi"),
+            (k4, "launches_bf16", "u_phase_grams_multi[bf16]"),
+            (cuda_small.alpha_phase_full_multi, "launches",
+             "alpha_phase_full_multi"),
+            (cuda_small.fw_phase_full_multi, "launches",
+             "fw_phase_full_multi"))
 
 
 def reset_counts():
-    for fn in counters():
-        fn.launches = 0
+    for fn, attr, _ in counters():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {fn.__name__: fn.launches for fn in counters()}
+    return {name: getattr(fn, attr, 0) for fn, attr, name in counters()}
 
 
 def expect_counts(launches, **want):
@@ -230,18 +254,21 @@ def bound(n_bytes, flops, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, n_members=1,
-                 weighted=False):
+def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, data_itemsize,
+                 n_members=1, weighted=False):
     """(bytes, flops) of K1 (one member) or K4 (n_members active members)
-    on n sites: Y, D, Rt read once; each member's u, u_prev read and
-    written (and, ``weighted``, its weight row read); per site and member
-    the C/M build, the FISTA steps and the Gram sums of the new u (plus,
-    weighted, the n_u products w u_v formed once per site, which the Gram
-    sums then read in place of u_v); the scalar momentum chain, the same
-    for every site, is not counted."""
+    on n sites: Y, D, Rt read once (``data_itemsize`` bytes each, 2 under
+    bf16 storage; ``itemsize`` is the state's); each member's
+    u, u_prev read and written (and, ``weighted``, its weight row read);
+    per site and member the C/M build, the FISTA steps and the Gram sums
+    of the new u (plus, weighted, the n_u products w u_v formed once per
+    site, which the Gram sums then read in place of u_v); the scalar
+    momentum chain, the same for every site, is not counted, nor are the
+    conversions of bf16 data (one per value read) or bf16_compute's
+    roundings."""
     p = n_ct + n_u
-    n_bytes = itemsize * n * ((2 * n_s + n_ct)
-                              + n_members * (4 * n_u + int(weighted)))
+    n_bytes = n * (data_itemsize * (2 * n_s + n_ct)
+                   + itemsize * n_members * (4 * n_u + int(weighted)))
     per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 3 * n_u * (n_u + 1) // 2)
                 + steps * (6 * n_u + 2 * n_u * n_u)
                 + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u
@@ -337,7 +364,11 @@ def _k1_inputs(n, n_s, n_ct, n_u, dtype, seed):
 
 
 def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
-             n_s=N_S, n_ct=N_CT, lagged=False, label=""):
+             n_s=N_S, n_ct=N_CT, lagged=False, label="", data=None,
+             bf16_compute=False):
+    """K1 against its twin. ``data`` "bfloat16" stores Y, D and Rt in bf16
+    (the state stays ``dtype_name``, float32), ``bf16_compute`` runs that
+    form's roundings; both are held to the float32 tolerances."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -345,13 +376,18 @@ def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
 
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype, seed)
+    if data is not None:
+        ydt, rtt = (x.to(getattr(torch, data)) for x in (ydt, rtt))
     a1, a2 = alpha[:-n_u], alpha[-n_u:]
     if n_ct == 0:
         rtt = a1 = None
+    form_kw = {"bf16_compute": True} if bf16_compute else {}
     uk, sk = uut.clone(), scal.clone()
-    gk, bk, qk = u_phase_grams(ydt, rtt, a1, a2, uk, sk, steps, lagged)
+    gk, bk, qk = u_phase_grams(ydt, rtt, a1, a2, uk, sk, steps, lagged,
+                               **form_kw)
     up, sp = uut.clone(), scal.clone()
-    gp, bp, qp = u_phase_grams_plain(ydt, rtt, a1, a2, up, sp, steps, lagged)
+    gp, bp, qp = u_phase_grams_plain(ydt, rtt, a1, a2, up, sp, steps, lagged,
+                                     **form_kw)
     torch.cuda.synchronize()
     err_u = float((uk - up).abs().max())
     scale = float(gp.abs().max())
@@ -361,24 +397,33 @@ def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
     err_s = float((sk - sp).abs().max() / sp.abs().max())
     tol = TOL[dtype_name]
     form = "gram" if gram_form(n_u, n_s) else "direct"
+    data_name = str(ydt.dtype).replace("torch.", "")
     res = {"n": n, "n_s": n_s, "n_ct": n_ct, "n_u": n_u, "steps": steps,
            "lagged": lagged, "form": form, "dtype": dtype_name,
+           "data": data_name, "bf16_compute": bf16_compute,
            "u_max_abs": err_u, "gu_rel": err_g, "b_u_rel": err_b,
            "usq_rel": err_q, "scal_rel": err_s, "tol_u": tol["u"],
            "tol_gram": tol["gram"]}
     if timed:
         res["ms"] = median_ms(lambda: u_phase_grams(
-            ydt, rtt, a1, a2, uk, sk, steps, lagged), inner=10)
+            ydt, rtt, a1, a2, uk, sk, steps, lagged, **form_kw), inner=10)
         res["plain_ms"] = median_ms(lambda: u_phase_grams_plain(
-            ydt, rtt, a1, a2, up, sp, steps, lagged), reps=3, inner=2,
-            warmup=1)
+            ydt, rtt, a1, a2, up, sp, steps, lagged, **form_kw), reps=3,
+            inner=2, warmup=1)
+        n_bytes, flops = u_phase_work(n, n_s, n_ct, n_u, steps,
+                                      uut.element_size(), ydt.element_size())
+        res["bytes"] = n_bytes
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
     log(f"[K1]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} {form} form"
-        f"{' lagged' if lagged else ''} {steps} steps {dtype_name}: u "
+        f"{' lagged' if lagged else ''} {steps} steps {dtype_name} state, "
+        f"{data_name} data{', bf16_compute' if bf16_compute else ''}: u "
         f"max|diff| {err_u:.3e} (tol {tol['u']:.0e}); gu rel {err_g:.3e}, b_u "
         f"rel {err_b:.3e}, usq rel {err_q:.3e} (tol {tol['gram']:.0e}); "
         f"scalars rel {err_s:.3e}"
         + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
-           f"(median of back-to-back launches, CUDA events)" if timed
+           f"(median of back-to-back launches, CUDA events); "
+           f"{res['bytes'] / 1e6:.1f} MB to move, bound "
+           f"{res['bound_ms']:.4f} ms ({res['bound_by']})" if timed
            else ""))
     check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K1 non-finite")
     check(err_u <= tol["u"], f"K1 u differs from its twin by {err_u}")
@@ -401,6 +446,26 @@ def phase_k1():
         _k1_case(N_CPG, N_U, dt, steps=P_INNER, seed=7, timed=True,
                  label="[purity]")
     return main
+
+
+def phase_k1_bf16():
+    """K1's bf16 forms against the twin at the main path's shape: Y, D and
+    Rt in bf16 with a float32 state (gram form with and without a known
+    block, lagged; the direct form; the purity schedule), and the
+    bf16_compute form (gram form only). Returns the main shape's timed
+    (storage, bf16_compute) cases."""
+    kw = dict(data="bfloat16")
+    main = _k1_case(N_CPG, N_U, "float32", timed=True, label="[bf16]", **kw)
+    _k1_case(N_CPG, U_N_U, "float32", seed=4, n_ct=0, lagged=True,
+             label="[bf16 unsupervised]", **kw)
+    _k1_case(N_CPG, 2, "float32", seed=5, n_s=1, label="[bf16 direct]", **kw)
+    _k1_case(N_CPG, N_U, "float32", steps=P_INNER, seed=7,
+             label="[bf16 purity]", **kw)
+    compute = _k1_case(N_CPG, N_U, "float32", timed=True, bf16_compute=True,
+                       label="[bf16_compute]", **kw)
+    _k1_case(N_CPG, U_N_U, "float32", seed=4, n_ct=0, lagged=True,
+             bf16_compute=True, label="[bf16_compute unsupervised]", **kw)
+    return main, compute
 
 
 # ---------------------------------------------------------------- phase 4
@@ -606,7 +671,9 @@ def _multi_inputs(n, n_s, n_ct, n_u, n_b, dtype, seed, inactive=()):
 
 
 def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
-             inactive=(), seed=20, timed=False, label=""):
+             inactive=(), seed=20, timed=False, label="", data=None):
+    """K4 against its twin; ``data`` "bfloat16" stores Y, D and Rt in bf16
+    (state float32, the float32 tolerances)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -618,6 +685,9 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
         N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    if data is not None:
+        ydt = ydt.to(getattr(torch, data))
+        rtt = None if rtt is None else rtt.to(ydt.dtype)
     a1 = alpha_b[:, :-n_u] if n_ct else None
     a2 = alpha_b[:, -n_u:]
     uk, sk = uut_b.clone(), scal_b.clone()
@@ -667,15 +737,17 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
             ydt, rtt, None if a1 is None else a1[0], a2[0], u1, s1, steps,
             lagged), inner=10)
         n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+                                      uut_b.element_size(),
                                       ydt.element_size(), n_b)
         res["bytes"] = n_bytes
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-        res["partial_bytes"] = (ydt.element_size() * n_b
+        res["partial_bytes"] = (uut_b.element_size() * n_b
                                 * gram_entries(N_S, n_ct, n_u)
                                 * -(-N_CPG // SITES_PER_BLOCK))
     log(f"[K4]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
-        f"{dtype_name}: active members' u/u_prev max|diff| {err_u:.3e} (tol "
+        f"{dtype_name} state, {str(ydt.dtype)[6:]} data: active members' "
+        f"u/u_prev max|diff| {err_u:.3e} (tol "
         f"{tol['u']:.0e}); gu rel {err_g:.3e}, b_u rel {err_b:.3e}, usq rel "
         f"{err_q:.3e} (tol {tol['gram']:.0e}); scalars rel {err_s:.3e}; "
         f"inactive members bit-unchanged: {frozen}; member {b0} "
@@ -971,10 +1043,11 @@ def phase_k6():
 
 # --------------------------------- phases 5e-5g: the weighted bootstrap's K4-K6
 def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
-              inactive=(), seed=50, timed=False, label=""):
+              inactive=(), seed=50, timed=False, label="", data=None):
     """K4 with its weights operand (resample multiplicities per member)
     against its twin; inactive members bit-unchanged; all-ones weights
-    against the unweighted K4, bit for bit."""
+    against the unweighted K4, bit for bit. ``data`` as for ``_k4_case``
+    (the weight rows keep the state dtype)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE
@@ -984,6 +1057,9 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
         N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+    if data is not None:
+        ydt = ydt.to(getattr(torch, data))
+        rtt = None if rtt is None else rtt.to(ydt.dtype)
     w = resample_weights(n_b, N_CPG, dtype, seed)
     a1 = alpha_b[:, :-n_u] if n_ct else None
     a2 = alpha_b[:, -n_u:]
@@ -1039,11 +1115,13 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
             ydt, rtt, a1, a2, up, sp, steps, lagged, weights=w), reps=3,
             inner=1, warmup=1)
         n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+                                      uut_b.element_size(),
                                       ydt.element_size(), n_b, weighted=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
     log(f"[K4w]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
-        f"{dtype_name}, resample weights: active u/u_prev max|diff| "
+        f"{dtype_name} state, {str(ydt.dtype)[6:]} data, resample weights: "
+        f"active u/u_prev max|diff| "
         f"{err_u:.3e} (tol {tol['u']:.0e}); gu rel {err_g:.3e}, b_u rel "
         f"{err_b:.3e}, usq rel {err_q:.3e} (tol {tol['gram']:.0e}); scalars "
         f"rel {err_s:.3e}; inactive members bit-unchanged: {frozen}; "
@@ -1082,6 +1160,28 @@ def phase_k4_weighted():
                     timed=True, label="[purity]")
     _k4w_case(N_U, "float64", 8, P_INNER, inactive=(2,), seed=52)
     return main, uns, pur
+
+
+def phase_k4_bf16(k4, k4w):
+    """K4's bf16 form (Y, D, Rt in bf16, state float32) against its twin:
+    unweighted at the restarts' shape (B = 16) and lagged without a known
+    block (n_u = 3, B = 8), weighted at the bootstrap's (B = 32), each
+    timed beside float32 K4 at the same B (``k4``, ``k4w``: the timed
+    float32 cases of phases 5b and 5e)."""
+    main = _k4_case(N_U, "float32", 16, N_INNER, inactive=(3, 7, 11),
+                    timed=True, label="[bf16 restarts]", data="bfloat16")
+    _k4_case(U_N_U, "float32", 8, N_INNER, n_ct=0, lagged=True,
+             inactive=(5,), seed=21, label="[bf16 unsupervised]",
+             data="bfloat16")
+    weighted = _k4w_case(N_U, "float32", 32, N_INNER, inactive=(3, 7, 11, 30),
+                         timed=True, label="[bf16 bootstrap]",
+                         data="bfloat16")
+    for name, bf, f32 in (("K4 B=16", main, k4), ("K4w B=32", weighted, k4w)):
+        log(f"[K4 bf16] {name}: bf16 data {bf['ms']:.4f} ms against float32 "
+            f"{f32['ms']:.4f} ms ({bf['ms'] / f32['ms']:.3f}x); bound "
+            f"{bf['bound_ms']:.4f} ms ({bf['bound_by']}) against "
+            f"{f32['bound_ms']:.4f} ms")
+    return main, weighted
 
 
 def _expanded(n_b, *blocks):
@@ -1353,6 +1453,57 @@ def phase_solver_trajectory():
              fused.unsupervised_solve_fused(u, alpha, y, d, U_N_U, **kw),
              unsupervised_solve(u, alpha, y, d, U_N_U, **kw),
              TRAJ_TOL["float64"], 50)
+
+
+def phase_bf16_solvers():
+    """The kernel solvers on bf16 storage (Y, D, R in bf16, state float32)
+    against the plain solvers on the card, at 200k sites, with the float32
+    trajectory tolerances: partial-reference and unsupervised, 50 x 20.
+    The bf16_compute form against the same solver on the CPU, where it
+    runs the kernels' twins (the plain solvers have no such form), at
+    BF16C_TRAJ_TOL, on the problems of two seeds."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+    from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
+
+    problem = make_problem(np.float32, seed=1, n_cpg=N_TRAJ)
+    kw = dict(n_iter1=50, n_iter2=N_INNER, tol=0.0, record_trace=True)
+    t = state.from_numpy(*problem, device=DEV, dtype=torch.bfloat16)
+    check(t[2].dtype == torch.bfloat16 and t[0].dtype == torch.float32,
+          "bf16 storage: from_numpy dtypes")
+    reset_counts()
+    kernel = fused.partial_ref_solve_fused(*t, N_U, **kw)
+    check(read_counts()["u_phase_grams[bf16]"] == 50,
+          f"bf16 partial-ref solve launches {read_counts()}")
+    _compare(f"partial-ref 50x{N_INNER} bf16 data", f"N={N_TRAJ}", kernel,
+             partial_ref_solve(*t, N_U, **kw), TRAJ_TOL["float32"], 50)
+    for seed in (1, 2):
+        prob = problem if seed == 1 else make_problem(np.float32, seed=seed,
+                                                      n_cpg=N_TRAJ)
+        t_dev = state.from_numpy(*prob, device=DEV, dtype=torch.bfloat16)
+        t_cpu = state.from_numpy(*prob, device="cpu", dtype=torch.bfloat16)
+        reset_counts()
+        kernel = fused.partial_ref_solve_fused(*t_dev, N_U, bf16_compute=True,
+                                               **kw)
+        check(read_counts()["u_phase_grams[bf16_compute]"] == 50,
+              f"bf16_compute solve launches {read_counts()}")
+        twins = fused.partial_ref_solve_fused(*t_cpu, N_U, bf16_compute=True,
+                                              **kw)
+        _compare(f"partial-ref 50x{N_INNER} bf16_compute, card vs CPU twins",
+                 f"N={N_TRAJ} seed {seed}", kernel,
+                 tuple(x.to(DEV) if torch.is_tensor(x) else x
+                       for x in twins[:2]) + (twins[2],), BF16C_TRAJ_TOL, 50)
+    u0, a0 = unsupervised_init(N_TRAJ, np.float32, seed=1)
+    u, alpha, y, d, _ = state.from_numpy(u0, a0, problem[2], problem[3], None,
+                                         device=DEV, dtype=torch.bfloat16)
+    _compare(f"unsupervised 50x{N_INNER} n_u={U_N_U} bf16 data",
+             f"N={N_TRAJ}",
+             fused.unsupervised_solve_fused(u, alpha, y, d, U_N_U, **kw),
+             unsupervised_solve(u, alpha, y, d, U_N_U, **kw),
+             TRAJ_TOL["float32"], 50)
 
 
 def _member_inits(n_cpg, n_b, n_ct, n_u, seed, purity=None):
@@ -1785,7 +1936,7 @@ def phase_restarts(problem32, card, k4_times):
               f"{name}: restarts not routed to the batch")
         free = fused.free_device_bytes(DEV)
         n_ct = 0 if name == "unsupervised" else N_CT
-        cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, free)
+        cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, 4, free)
         log(f"[restarts {name}] member cap {cap} at {free / 1e9:.2f} GB free")
         check(cap >= n_r, f"{name}: {n_r} restarts would run in chunks")
         kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True,
@@ -1886,7 +2037,7 @@ def phase_bootstrap(problem32, card):
         p = n_ct + n_u
         if method == "weights":
             free = fused.free_device_bytes(DEV)
-            cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, free,
+            cap = fused.max_multi_members(N_CPG, N_S, n_ct, n_u, 4, 4, free,
                                           weighted=True)
             log(f"[bootstrap {name}] member cap {cap} at {free / 1e9:.2f} "
                 f"GB free")
@@ -1945,6 +2096,222 @@ def phase_bootstrap(problem32, card):
     return out
 
 
+def _load_and_solve(problem, dtype, solve):
+    """from_numpy of ``problem`` in ``dtype`` storage, then ``solve(t)``:
+    (what solve returns, the MB the loaded data hold on the device, the
+    solve's peak MB above them)."""
+    import gc
+
+    import torch
+
+    from demethify_tpu_torch import state
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t = state.from_numpy(*problem, device=DEV, dtype=dtype)
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = solve(t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, (loaded - base) / 1e6, (peak - loaded) / 1e6
+
+
+def phase_bf16_paths(problem32, card):
+    """The paths with bf16 storage at full width, each with the launch
+    counters set to 0 just before and read just after: the main path beside
+    the float32 run from the same init in this process (ms per outer
+    iteration, peak device memory); the bf16_compute form through
+    ``fused.partial_ref_solve_fused``; the purity and unsupervised paths;
+    16 batched restarts; the weights bootstrap at B = 32. Alpha on bf16
+    storage is held to the JAX package's own bf16 bounds (max|d alpha| <
+    0.05 against the float32 solve from the same init, column sums within
+    1e-3) after the main path's 1000 x 20, and both forms to
+    BF16_SHORT_TOL at that test's schedule, 30 x 5, here at full width.
+    bf16_compute's alpha after 1000 x 20 is reported with its column
+    sums held: it drifts along the objective's flat direction, as two
+    float32 solvers drift apart there (the port's and the JAX package's
+    float32 solves differ by 0.11 after 1000 x 20 on 200k sites of this
+    workload on a CPU, ``python -m tests.test_torch_bf16 200000 1000``)."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv, unsupervised_deconv)
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    bf16 = torch.bfloat16
+    kw = dict(n_iter1=N_OUTER, n_iter2=N_INNER, tol=0.0, record_trace=True)
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bf16", bf16)):
+        def main_run(t):
+            u0, a0, y, d, Rt = t
+            partial_reference_deconv(y, d, Rt, N_U, init_provided=(u0, a0),
+                                     **dict(kw, n_iter1=5))        # warm
+            torch.cuda.synchronize()
+            return _drive(
+                f"{name} main", f"1M x 10, 5+1, {name} storage, "
+                f"{N_OUTER}x{N_INNER}, tol=0 via "
+                f"solvers.api.partial_reference_deconv, card {card}",
+                lambda: partial_reference_deconv(
+                    y, d, Rt, N_U, init_provided=(u0, a0), **kw), N_OUTER)
+        (res, ms_iter, launches), data_mb, peak_mb = _load_and_solve(
+            problem32, dtype, main_run)
+        k1 = "u_phase_grams" + ("[bf16]" if dtype == bf16 else "")
+        check(expect_counts(launches, **{k1: N_OUTER,
+                                         "alpha_phase_full": N_OUTER}),
+              f"{name} main path launches {launches}")
+        log(f"[{name} main] device memory: data {data_mb:.1f} MB, the "
+            f"solve's peak above it {peak_mb:.1f} MB, together "
+            f"{data_mb + peak_mb:.1f} MB (torch.cuda.max_memory_allocated)")
+        out[name] = {"ms_per_iter": ms_iter, "launches": launches,
+                     "data_mb": data_mb, "peak_mb": peak_mb,
+                     "alpha": res.proportions.float()}
+    a32, a16 = out["float32"]["alpha"], out["bf16"]["alpha"]
+    err_a = float((a16 - a32).abs().max())
+    err_s = float((a16.sum(0) - 1).abs().max())
+    log(f"[bf16 main] {out['bf16']['ms_per_iter']:.4f} ms per outer "
+        f"iteration against float32 {out['float32']['ms_per_iter']:.4f} "
+        f"({out['bf16']['ms_per_iter'] / out['float32']['ms_per_iter']:.3f}"
+        f"x); peak device memory (data + solve) "
+        f"{out['bf16']['data_mb'] + out['bf16']['peak_mb']:.1f} MB against "
+        f"{out['float32']['data_mb'] + out['float32']['peak_mb']:.1f} MB; "
+        f"alpha vs the float32 solve after {N_OUTER}x{N_INNER} max|diff| "
+        f"{err_a:.3e} (tol 5e-2), column sums within {err_s:.1e} of 1 (tol "
+        f"1e-3)")
+    check(err_a < 5e-2 and err_s < 1e-3,
+          "bf16 main path: alpha vs the float32 solve")
+
+    u0, a0, y, d, Rt = state.from_numpy(*problem32, device=DEV, dtype=bf16)
+    fused.partial_ref_solve_fused(u0, a0, y, d, Rt, N_U,
+                                  **dict(kw, n_iter1=5), bf16_compute=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    (_, a_c, info), ms = timed_ms(lambda: fused.partial_ref_solve_fused(
+        u0, a0, y, d, Rt, N_U, bf16_compute=True, **kw))
+    launches = read_counts()
+    err_c = float((a_c - a32).abs().max())
+    err_cs = float((a_c.sum(0) - 1).abs().max())
+    trace = info["trace"].cpu().numpy()
+    log(f"[bf16_compute main] 1M x 10, 5+1, {N_OUTER}x{N_INNER}, tol=0 via "
+        f"solvers.fused.partial_ref_solve_fused(bf16_compute=True), card "
+        f"{card}: {ms / N_OUTER:.4f} ms per outer iteration; alpha vs the "
+        f"float32 solve max|diff| {err_c:.3e} (drift, not held), column "
+        f"sums within {err_cs:.1e} of 1 (tol 1e-3); launches {launches}")
+    check(expect_counts(launches, **{"u_phase_grams[bf16_compute]": N_OUTER,
+                                     "alpha_phase_full": N_OUTER}),
+          f"bf16_compute launches {launches}")
+    check(info["n_iter"] == N_OUTER and np.isfinite(trace).all()
+          and trace[-1] < trace[0] and err_cs < 1e-3,
+          "bf16_compute main path")
+    out["bf16_compute"] = {"ms_per_iter": ms / N_OUTER, "launches": launches}
+
+    # the JAX package's own bf16 test (tests/test_solvers.py,
+    # TestBfloat16Storage) at its schedule, here at full width
+    jkw = dict(n_iter1=30, n_iter2=5, tol=0.0)
+    t32 = state.from_numpy(*problem32, device=DEV, dtype=torch.float32)
+    a_ref = fused.partial_ref_solve_fused(*t32, N_U, **jkw)[1]
+    for form, extra in (("bf16", {}), ("bf16_compute",
+                                       {"bf16_compute": True})):
+        a_f = fused.partial_ref_solve_fused(u0, a0, y, d, Rt, N_U, **jkw,
+                                            **extra)[1]
+        err_f = float((a_f - a_ref).abs().max())
+        err_fs = float((a_f.sum(0) - 1).abs().max())
+        log(f"[{form} 30x5] 1M x 10, 5+1, the JAX package's bf16 test at its "
+            f"schedule: alpha vs the float32 solve max|diff| {err_f:.3e} (tol "
+            f"{BF16_SHORT_TOL['alpha']:.0e}), column sums within "
+            f"{err_fs:.1e} of 1 (tol {BF16_SHORT_TOL['sum']:.0e})")
+        check(err_f < BF16_SHORT_TOL["alpha"]
+              and err_fs < BF16_SHORT_TOL["sum"],
+              f"{form}: alpha vs float32 at 30 x 5")
+
+    pur = state.purity_from_numpy(purity_draw(0), device=DEV, dtype=bf16)
+    pkw = dict(n_iter1=P_OUTER, n_iter2=P_INNER, tol=0.0, record_trace=True)
+    purity_deconv(y, d, Rt, N_U, pur, init_provided=(u0, a0),
+                  **dict(pkw, n_iter1=2))                            # warm
+    torch.cuda.synchronize()
+    res, ms_iter, launches = _drive(
+        "bf16 purity", f"1M x 10, 5+1, bf16 storage, {P_OUTER}x{P_INNER}, "
+        f"tol=0 via solvers.api.purity_deconv, card {card}",
+        lambda: purity_deconv(y, d, Rt, N_U, pur, init_provided=(u0, a0),
+                              **pkw), P_OUTER)
+    check(expect_counts(launches, **{"u_phase_grams[bf16]": P_OUTER,
+                                     "fw_phase_full": P_OUTER}),
+          f"bf16 purity launches {launches}")
+    err_m = float((res.proportions[:N_CT].sum(0) - pur.float()).abs().max())
+    log(f"[bf16 purity] known-block mass - bf16 purity: max {err_m:.3e} "
+        f"(tol 1e-5)")
+    check(err_m <= 1e-5, "bf16 purity: known-block mass off the purity")
+    out["purity"] = {"ms_per_iter": ms_iter, "launches": launches}
+
+    uu0, ua0 = unsupervised_init(N_CPG)
+    uu0, ua0, _, _, _ = state.from_numpy(uu0, ua0, problem32[2], problem32[3],
+                                         None, device=DEV, dtype=bf16)
+    unsupervised_deconv(y, d, U_N_U, init_provided=(uu0, ua0),
+                        **dict(kw, n_iter1=5))                       # warm
+    torch.cuda.synchronize()
+    _, ms_iter, launches = _drive(
+        "bf16 unsupervised", f"1M x 10, n_u={U_N_U}, bf16 storage, "
+        f"{N_OUTER}x{N_INNER}, tol=0 via solvers.api.unsupervised_deconv, "
+        f"card {card}",
+        lambda: unsupervised_deconv(y, d, U_N_U, init_provided=(uu0, ua0),
+                                    **kw), N_OUTER)
+    check(expect_counts(launches, **{"u_phase_grams[bf16]": N_OUTER,
+                                     "alpha_phase_full": N_OUTER}),
+          f"bf16 unsupervised launches {launches}")
+    out["unsupervised"] = {"ms_per_iter": ms_iter, "launches": launches}
+
+    n_r = 16
+    free = fused.free_device_bytes(DEV)
+    cap = fused.max_multi_members(N_CPG, N_S, N_CT, N_U, 4, 2, free)
+    log(f"[bf16 restarts] member cap {cap} at {free / 1e9:.2f} GB free "
+        f"(float32 storage: "
+        f"{fused.max_multi_members(N_CPG, N_S, N_CT, N_U, 4, 4, free)})")
+    rkw = dict(kw, seed=3, n_restarts=n_r)
+    partial_reference_deconv(y, d, Rt, N_U, **dict(rkw, n_iter1=2))  # warm
+    torch.cuda.synchronize()
+    _, ms_iter, launches = _drive(
+        "bf16 restarts", f"1M x 10, 5+1, {n_r} restarts, bf16 storage, "
+        f"{N_OUTER}x{N_INNER}, tol=0 via solvers.api, card {card}",
+        lambda: partial_reference_deconv(y, d, Rt, N_U, **rkw), N_OUTER)
+    check(expect_counts(launches, **{"u_phase_grams_multi[bf16]": N_OUTER,
+                                     "alpha_phase_full_multi": N_OUTER}),
+          f"bf16 restart launches {launches}")
+    out["restarts"] = {"ms_per_iter": ms_iter, "launches": launches,
+                       "restarts": n_r}
+
+    n_b = 32
+
+    def boot(n_iter1, n_boot=n_b):
+        return bootstrap_ci(y, d, Rt, N_U, level=95, n_bootstrap=n_boot,
+                            n_iter1=n_iter1, n_iter2=N_INNER, tol=0.0,
+                            seed=5, method="weights")
+
+    boot(2, 2)                                                      # warm
+    _, fixed_ms = timed_ms(lambda: boot(2))
+    reset_counts()
+    (lo_p, hi_p, lo_u, hi_u), ms = timed_ms(lambda: boot(N_OUTER))
+    launches = read_counts()
+    marginal = (ms - fixed_ms) / (n_b * (N_OUTER - 2))
+    log(f"[bf16 bootstrap] weights layout, 1M x 10, 5+1, B={n_b}, bf16 "
+        f"storage, {N_OUTER}x{N_INNER}, tol=0 via uncertainty.bootstrap_ci, "
+        f"card {card}: {ms:.1f} ms ({ms / (n_b * N_OUTER):.4f} ms per "
+        f"replicate and outer iteration, all in), {marginal:.4f} ms per "
+        f"replicate and further outer iteration; launches {launches}")
+    check(expect_counts(launches, **{"u_phase_grams_multi[bf16]": N_OUTER,
+                                     "alpha_phase_full_multi": N_OUTER}),
+          f"bf16 bootstrap launches {launches}")
+    check(np.isfinite(lo_p).all() and (lo_p <= hi_p).all()
+          and (lo_u <= hi_u).all(), "bf16 bootstrap intervals")
+    out["bootstrap"] = {"ms_per_rep_iter": ms / (n_b * N_OUTER),
+                        "marginal": marginal, "launches": launches}
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 def _write_fixture(root, seed=7):
     n = N_CLI
@@ -1995,6 +2362,8 @@ def _read_ci(path, index=True):
 
 
 def phase_cli():
+    """The CLI in float32 storage (the default) and with ``--dtype
+    bfloat16``, whose runs must launch the bf16 forms of K1 and K4."""
     from demethify_tpu_torch.cli import main as cli_main
 
     percent = [float(p) for p in np.linspace(10, 70, N_S)]
@@ -2008,104 +2377,122 @@ def phase_cli():
                                  "500", "20"], U_N_U))
     with tempfile.TemporaryDirectory() as root:
         samples, ref = _write_fixture(root)
-        for mode, with_ref, extra, n_rows in modes:
+        for storage in ("float32", "bfloat16"):
+            _cli_runs(cli_main, root, samples, ref, modes, percent, storage)
+
+
+def _cli_runs(cli_main, root, samples, ref, modes, percent, storage):
+    """The four modes, ``--restart 4`` and ``--confidence 95 8`` in both
+    layouts, with ``--dtype storage``, checking the launches of each."""
+    import torch
+
+    sfx = "" if storage == "float32" else "[bf16]"
+    k1, k4 = "u_phase_grams" + sfx, "u_phase_grams_multi" + sfx
+    other = "u_phase_grams" + ("[bf16]" if not sfx else "")
+    dflag = ["--dtype", storage]
+    for mode, with_ref, extra, n_rows in modes:
+        before = read_counts()
+        outdir = os.path.join(root, f"{mode}-{storage}")
+        t0 = time.perf_counter()
+        rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                       "--noprint", "--outdir", outdir, "--device", DEV,
+                       *dflag, *(["--ref", ref] if with_ref else []),
+                       *extra])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI {mode} exit {rc}")
+        header, rows = _read_csv(
+            os.path.join(outdir, "celltypes_proportions.csv"))
+        props = np.array([[float(x) for x in r[1:]] for r in rows])
+        labels = [r[0] for r in rows]
+        check(header[0] == "Cell types" and len(header) == N_S + 1,
+              "CLI header")
+        check(props.shape == (n_rows, N_S), f"CLI {mode} shape")
+        check(np.abs(props.sum(axis=0) - 1).max() <= 1e-5,
+              f"CLI {mode} proportions do not sum to 1")
+        moved = {k: v - before[k] for k, v in read_counts().items()}
+        if mode != "supervised":
+            prof_header, prof = _read_csv(os.path.join(
+                outdir, "methylation_profile_estimate.csv"))
+            check(len(prof) == N_CLI, f"CLI {mode} profile rows")
+            check(moved[k1] > 0 and moved[other] == 0,
+                  f"CLI {mode} {storage} launches {moved}")
+        if mode == "purity":
+            check(moved["fw_phase_full"] > 0, "CLI purity launched no K3")
+            # the known-block mass, in the storage dtype (the CSV keeps
+            # six digits)
+            mass = torch.tensor(1 - np.asarray(percent) / 100).to(
+                getattr(torch, storage)).double().numpy()
+            check(np.abs(props[:N_CT].sum(0) - mass).max() <= 1e-5,
+                  "CLI purity: known mass != 1 - p/100")
+        if mode == "unsupervised":
+            want = [f"unknown_cell_{i + 1}" for i in range(U_N_U)]
+            check(labels == want and len(prof_header) == U_N_U,
+                  f"CLI unsupervised labels {labels}")
+            check(moved["alpha_phase_full"] > 0,
+                  "CLI unsupervised launched no K2")
+        log(f"[cli] {mode} {storage}: exit 0 in {wall:.2f} s, proportions "
+            f"{props.shape} column sums within "
+            f"{np.abs(props.sum(axis=0) - 1).max():.1e} of 1, launches "
+            f"{moved}")
+    # --restart 4 on the card: the batched kernels, not K1
+    for mode, with_ref, extra, n_rows in modes[1:]:
+        before = read_counts()
+        outdir = os.path.join(root, f"{mode}-restart-{storage}")
+        t0 = time.perf_counter()
+        rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                       "--noprint", "--outdir", outdir, "--device", DEV,
+                       "--restart", "4", *dflag,
+                       *(["--ref", ref] if with_ref else []), *extra])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI {mode} --restart 4 exit {rc}")
+        _, rows = _read_csv(
+            os.path.join(outdir, "celltypes_proportions.csv"))
+        props = np.array([[float(x) for x in r[1:]] for r in rows])
+        check(props.shape == (n_rows, N_S)
+              and np.abs(props.sum(axis=0) - 1).max() <= 1e-5,
+              f"CLI {mode} --restart 4 proportions")
+        moved = {k: v - before[k] for k, v in read_counts().items()}
+        check(moved[k4] > 0 and moved[k1] == 0,
+              f"CLI {mode} --restart 4 launches {moved}")
+        log(f"[cli] {mode} {storage} --restart 4: exit 0 in {wall:.2f} s, "
+            f"launches {moved}")
+    # --confidence 95 8 on the card, both layouts, all four modes
+    for mode, with_ref, extra, n_rows in modes:
+        for cimethod in ("resample", "weights"):
             before = read_counts()
-            outdir = os.path.join(root, mode)
+            outdir = os.path.join(root, f"{mode}-ci-{cimethod}-{storage}")
             t0 = time.perf_counter()
             rc = cli_main(["--methfreq", *samples, "--bedmethyl",
-                           "--noprint", "--outdir", outdir, "--device", DEV,
+                           "--noprint", "--outdir", outdir, "--device",
+                           DEV, "--confidence", "95", "8", "--cimethod",
+                           cimethod, *dflag,
                            *(["--ref", ref] if with_ref else []), *extra])
             wall = time.perf_counter() - t0
-            check(rc == 0, f"CLI {mode} exit {rc}")
-            header, rows = _read_csv(
-                os.path.join(outdir, "celltypes_proportions.csv"))
-            props = np.array([[float(x) for x in r[1:]] for r in rows])
-            labels = [r[0] for r in rows]
-            check(header[0] == "Cell types" and len(header) == N_S + 1,
-                  "CLI header")
-            check(props.shape == (n_rows, N_S), f"CLI {mode} shape")
-            check(np.abs(props.sum(axis=0) - 1).max() <= 1e-5,
-                  f"CLI {mode} proportions do not sum to 1")
+            check(rc == 0, f"CLI {mode} --confidence exit {rc}")
+            lo, hi = _read_ci(os.path.join(
+                outdir, "confidence_interval_celltypes_proportions.csv"))
+            check(lo.shape == (n_rows, N_S) and (lo <= hi).all()
+                  and lo.min() >= 0 and hi.max() <= 1 + 1e-6,
+                  f"CLI {mode} --confidence proportion intervals")
+            if mode != "supervised":
+                ulo, uhi = _read_ci(os.path.join(
+                    outdir, "confidence_interval_methylation_estimate.csv"),
+                    index=False)
+                check(ulo.shape == (N_CLI, n_rows - (N_CT if with_ref
+                                                      else 0))
+                      and (ulo <= uhi).all(),
+                      f"CLI {mode} --confidence profile intervals")
             moved = {k: v - before[k] for k, v in read_counts().items()}
             if mode != "supervised":
-                prof_header, prof = _read_csv(os.path.join(
-                    outdir, "methylation_profile_estimate.csv"))
-                check(len(prof) == N_CLI, f"CLI {mode} profile rows")
-                check(moved["u_phase_grams"] > 0,
-                      f"CLI {mode} launched no K1")
-            if mode == "purity":
-                check(moved["fw_phase_full"] > 0, "CLI purity launched no K3")
-                mass = 1 - np.asarray(percent) / 100
-                check(np.abs(props[:N_CT].sum(0) - mass).max() <= 1e-5,
-                      "CLI purity: known mass != 1 - p/100")
-            if mode == "unsupervised":
-                want = [f"unknown_cell_{i + 1}" for i in range(U_N_U)]
-                check(labels == want and len(prof_header) == U_N_U,
-                      f"CLI unsupervised labels {labels}")
-                check(moved["alpha_phase_full"] > 0,
-                      "CLI unsupervised launched no K2")
-            log(f"[cli] {mode}: exit 0 in {wall:.2f} s, proportions "
-                f"{props.shape} column sums within "
-                f"{np.abs(props.sum(axis=0) - 1).max():.1e} of 1, launches "
+                batched = moved[k4] > 0
+                check(batched == (cimethod == "weights")
+                      and moved[k1] + moved[k4] > 0,
+                      f"CLI {mode} --cimethod {cimethod} launches "
+                      f"{moved}")
+            log(f"[cli] {mode} {storage} --confidence 95 8 --cimethod "
+                f"{cimethod}: "
+                f"exit 0 in {wall:.2f} s, intervals {lo.shape}, launches "
                 f"{moved}")
-        # --restart 4 on the card: the batched kernels, not K1
-        for mode, with_ref, extra, n_rows in modes[1:]:
-            before = read_counts()
-            outdir = os.path.join(root, f"{mode}-restart")
-            t0 = time.perf_counter()
-            rc = cli_main(["--methfreq", *samples, "--bedmethyl",
-                           "--noprint", "--outdir", outdir, "--device", DEV,
-                           "--restart", "4",
-                           *(["--ref", ref] if with_ref else []), *extra])
-            wall = time.perf_counter() - t0
-            check(rc == 0, f"CLI {mode} --restart 4 exit {rc}")
-            _, rows = _read_csv(
-                os.path.join(outdir, "celltypes_proportions.csv"))
-            props = np.array([[float(x) for x in r[1:]] for r in rows])
-            check(props.shape == (n_rows, N_S)
-                  and np.abs(props.sum(axis=0) - 1).max() <= 1e-5,
-                  f"CLI {mode} --restart 4 proportions")
-            moved = {k: v - before[k] for k, v in read_counts().items()}
-            check(moved["u_phase_grams_multi"] > 0
-                  and moved["u_phase_grams"] == 0,
-                  f"CLI {mode} --restart 4 launches {moved}")
-            log(f"[cli] {mode} --restart 4: exit 0 in {wall:.2f} s, "
-                f"launches {moved}")
-        # --confidence 95 8 on the card, both layouts, all four modes
-        for mode, with_ref, extra, n_rows in modes:
-            for cimethod in ("resample", "weights"):
-                before = read_counts()
-                outdir = os.path.join(root, f"{mode}-ci-{cimethod}")
-                t0 = time.perf_counter()
-                rc = cli_main(["--methfreq", *samples, "--bedmethyl",
-                               "--noprint", "--outdir", outdir, "--device",
-                               DEV, "--confidence", "95", "8", "--cimethod",
-                               cimethod,
-                               *(["--ref", ref] if with_ref else []), *extra])
-                wall = time.perf_counter() - t0
-                check(rc == 0, f"CLI {mode} --confidence exit {rc}")
-                lo, hi = _read_ci(os.path.join(
-                    outdir, "confidence_interval_celltypes_proportions.csv"))
-                check(lo.shape == (n_rows, N_S) and (lo <= hi).all()
-                      and lo.min() >= 0 and hi.max() <= 1 + 1e-6,
-                      f"CLI {mode} --confidence proportion intervals")
-                if mode != "supervised":
-                    ulo, uhi = _read_ci(os.path.join(
-                        outdir, "confidence_interval_methylation_estimate.csv"),
-                        index=False)
-                    check(ulo.shape == (N_CLI, n_rows - (N_CT if with_ref
-                                                          else 0))
-                          and (ulo <= uhi).all(),
-                          f"CLI {mode} --confidence profile intervals")
-                moved = {k: v - before[k] for k, v in read_counts().items()}
-                if mode != "supervised":
-                    batched = moved["u_phase_grams_multi"] > 0
-                    check(batched == (cimethod == "weights"),
-                          f"CLI {mode} --cimethod {cimethod} launches "
-                          f"{moved}")
-                log(f"[cli] {mode} --confidence 95 8 --cimethod {cimethod}: "
-                    f"exit 0 in {wall:.2f} s, intervals {lo.shape}, launches "
-                    f"{moved}")
 
 
 # ------------------------------------------------------ parent/change timing
@@ -2118,7 +2505,8 @@ def time_main_path(root):
     queued behind a device sleep, its device time alone) and the
     main path's ms per outer iteration, 300 x 20 through
     ``solvers.api.partial_reference_deconv`` on ``make_problem``'s data
-    (tol = 0), five times. Two trees unpacked side by side, a change and
+    (tol = 0), five times, and the same call at 1 x 20 (the solve's fixed
+    cost, set-up and result, plus one iteration), seven times. Two trees unpacked side by side, a change and
     its parent, are compared on one card by timing them in turns, one
     process each (parent, change, change, parent):
 
@@ -2148,10 +2536,13 @@ def time_main_path(root):
             y, d, Rt, N_U, n_iter1=n_iter, **kw))
         check(res.n_iter == n_iter, f"main path ran {res.n_iter} iterations")
         main_ms.append(ms / n_iter)
+    one_ms = [timed_ms(lambda: partial_reference_deconv(
+        y, d, Rt, N_U, n_iter1=1, **kw))[1] for _ in range(7)]
     print(json.dumps({"root": root, "card": card, "k1_ms": k1["ms"],
                       "k2_ms": k2["ms"], "k4_ms": k4["ms"], "k5_ms": k5["ms"],
                       "k5_queued_ms": k5["queued_ms"],
-                      "main_ms_per_iter": main_ms}), flush=True)
+                      "main_ms_per_iter": main_ms,
+                      "one_iteration_solve_ms": one_ms}), flush=True)
 
 
 def main():
@@ -2173,15 +2564,18 @@ def main():
     card = phase_device()
     phase_build()
     k1 = phase_k1()
+    k1_bf16, k1_bf16c = phase_k1_bf16()
     k2 = phase_k2()
     k3 = phase_k3()
     k4, k4_uns, k4_pur = phase_k4()
     k5 = phase_k5()
     k6 = phase_k6()
     k4w, _, _ = phase_k4_weighted()
+    k4_bf16, k4w_bf16 = phase_k4_bf16(k4, k4w)
     k5w = phase_k5_weighted()
     k6w = phase_k6_weighted()
     phase_solver_trajectory()
+    phase_bf16_solvers()
     identical = phase_multi_solvers()
     phase_weighted_solvers()
     phase_bootstrap_parity()
@@ -2193,6 +2587,7 @@ def main():
         "partial-ref": k4["ms"], "purity": k4_pur["ms"],
         "unsupervised": k4_uns["ms"]})
     boot = phase_bootstrap(problem32, card)
+    bf16 = phase_bf16_paths(problem32, card)
     phase_cli()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
@@ -2204,7 +2599,8 @@ def main():
     log(f"[done] no jax, no JAX-package module and no path into the JAX "
         f"package in the port's sources; multi-member solvers bit-identical "
         f"to the sequential kernel solves: {identical}")
-    k1_b = bound(*u_phase_work(N_CPG, N_S, N_CT, N_U, N_INNER, 4), "float32")
+    k1_b = bound(*u_phase_work(N_CPG, N_S, N_CT, N_U, N_INNER, 4, 4),
+                 "float32")
     k2_b = bound(*glue_work(N_CT + N_U, N_S, N_CT, N_INNER, 4), "float32")
     k3_b = bound(*glue_work(N_CT + N_U, N_S, N_CT, P_INNER, 4, fw=True),
                  "float32")
@@ -2282,7 +2678,42 @@ def main():
              "fw_phase_full_multi"],
          "max_abs_err": k6w["alpha_max_abs"], "ms": k6w["ms"],
          "plain_ms": k6w["plain_ms"], "bound_ms": k6w["bound_ms"],
-         "bound_by": k6w["bound_by"], "library_ms": None}]}
+         "bound_by": k6w["bound_by"], "library_ms": None},
+        {"name": "u_phase_grams[bf16]", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:218 (bf16 blocks "
+                     ":255-265, via :499)",
+         "launches": bf16["bf16"]["launches"]["u_phase_grams[bf16]"],
+         "max_abs_err": k1_bf16["u_max_abs"], "ms": k1_bf16["ms"],
+         "plain_ms": k1_bf16["plain_ms"], "bound_ms": k1_bf16["bound_ms"],
+         "bound_by": k1_bf16["bound_by"], "library_ms": None},
+        {"name": "u_phase_grams[bf16_compute]", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:218 "
+                     "(bf16_compute :229-311, :464-479, via :499)",
+         "launches": bf16["bf16_compute"]["launches"][
+             "u_phase_grams[bf16_compute]"],
+         "max_abs_err": k1_bf16c["u_max_abs"], "ms": k1_bf16c["ms"],
+         "plain_ms": k1_bf16c["plain_ms"], "bound_ms": k1_bf16c["bound_ms"],
+         "bound_by": k1_bf16c["bound_by"], "library_ms": None},
+        {"name": "u_phase_grams_multi[bf16]", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (bf16 blocks "
+                     ":835-836, :853, via :1123)",
+         "launches": bf16["restarts"]["launches"][
+             "u_phase_grams_multi[bf16]"],
+         "max_abs_err": k4_bf16["u_max_abs"], "ms": k4_bf16["ms"],
+         "plain_ms": k4_bf16["plain_ms"], "bound_ms": k4_bf16["bound_ms"],
+         "bound_by": k4_bf16["bound_by"], "library_ms": None},
+        {"name": "u_phase_grams_multi[bf16,weights]", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
+         "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (bf16 blocks "
+                     "with the weights operand :1015-1120, via :1123)",
+         "launches": bf16["bootstrap"]["launches"][
+             "u_phase_grams_multi[bf16]"],
+         "max_abs_err": k4w_bf16["u_max_abs"], "ms": k4w_bf16["ms"],
+         "plain_ms": k4w_bf16["plain_ms"], "bound_ms": k4w_bf16["bound_ms"],
+         "bound_by": k4w_bf16["bound_by"], "library_ms": None}]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

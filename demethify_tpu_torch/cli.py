@@ -5,8 +5,11 @@ purity-constrained (``--ref --nbunknown k --purity p_1 ... p_n``) and
 unsupervised (``--nbunknown k`` without ``--ref``).
 
 ``--device {cuda,cpu}`` (default cuda; a missing GPU is an error, never a
-silent fallback) and ``--dtype {float32,float64}`` replace the JAX CLI's
-``--platform`` and ``--dtype``. ``--confidence LEVEL B`` (bootstrap
+silent fallback) replaces the JAX CLI's ``--platform``. ``--dtype
+{float32,float64,bfloat16}`` is the JAX CLI's: bfloat16 loads the data
+in float32, moves it to the device and stores Y, D and R there in bf16,
+with a float32 solver state (the termination warning then speaks of
+float32, as the JAX CLI's does). ``--confidence LEVEL B`` (bootstrap
 confidence intervals, before the point estimate, as the reference runs
 them) and ``--cimethod {auto,resample,weights}`` run through
 ``uncertainty/bootstrap.py``. Flags of modes and features that later
@@ -136,9 +139,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag):
             sys.exit(f"Error: --{flag} is not ported to PyTorch yet "
                      f"(ROADMAP port queue {item}).")
-    if args.dtype == "bfloat16":
-        sys.exit("Error: --dtype bfloat16 is not ported to PyTorch yet "
-                 "(ROADMAP port queue item 9).")
 
 
 def flip_purity(percent, n_samples: int):
@@ -167,7 +167,11 @@ def main(argv=None):
 
     import torch
 
-    from demethify_tpu_torch.device import resolve_device, resolve_dtype
+    from demethify_tpu_torch.device import (
+        resolve_device,
+        resolve_dtype,
+        state_dtype,
+    )
     from demethify_tpu_torch.io.readers import load_dataset
     from demethify_tpu_torch.io.writers import (
         write_ci_profile,
@@ -215,18 +219,23 @@ def main(argv=None):
     if n_u < 0 or (n_u == 0 and not args.ref):
         sys.exit(f'Invalid number of unknown value! : "{n_u}" ')
 
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     ds = load_dataset(args.methfreq, ref=args.ref, bedmethyl=args.bedmethyl,
                       fillna=args.fillna, dtype=np_dtype)
     if not args.reltol:
         cost_scale = float(np.einsum("is,is,is->", ds.counts, ds.meth_f,
                                      ds.meth_f, dtype=np.float64))
-        msg = termination_resolution_warning(termination, cost_scale, dtype)
+        msg = termination_resolution_warning(termination, cost_scale,
+                                             state_dtype(dtype))
         if msg:
             print(msg)
-    y = torch.as_tensor(ds.meth_f).to(device)
-    d = torch.as_tensor(ds.counts).to(device)
-    ref_mat = None if ds.ref is None else torch.as_tensor(ds.ref).to(device)
+
+    def on_device(x):
+        """numpy -> the device, then cast there to the storage dtype"""
+        return torch.as_tensor(x).to(device).to(dtype)
+
+    y, d = on_device(ds.meth_f), on_device(ds.counts)
+    ref_mat = None if ds.ref is None else on_device(ds.ref)
     header = list(ds.header)
 
     time_start = time()

@@ -5,9 +5,26 @@
 // stride kLd against bank conflicts) and reused for the Gram sums. The
 // per-site arithmetic and the per-block and cross-block summation orders
 // live here once, so K4's members follow K1's arithmetic bit for bit.
+//
+// Data and state types: the data rows (Y, D, Rt) are of type TD, the
+// state and every sum of type T. TD = T is the float32 and float64 forms;
+// TD = __nv_bfloat16 with T = float is bf16 storage: stage_sites converts
+// each value once as it stages it, and the staged rows are T in shared
+// memory, so from there on the arithmetic is the float32 form's,
+// instruction for instruction (bf16 -> float32 is exact). Keeping the
+// staged rows in bf16 would halve their shared memory but put a convert
+// in every read of the C/M build and the Gram sums; at these shapes
+// shared memory does not limit the blocks, so the rows stay T.
+//
+// BF16C (K1's bf16_compute form, T = float, gram form only) rounds with
+// __float2bfloat16_rn at the points where the JAX kernel's bf16_compute
+// branch forms bf16 products (pallas_kernels.py:263-334, 464-479): d y,
+// d rt, the alpha operands a2, a2 a1 and a2 a2 of the C and M sums, and u
+// and d u in the Gram sums. Every sum stays float32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,19 +56,32 @@ __host__ __device__ __forceinline__ int gram_entries(int n_s, int n_ct,
     return n_s * n_u * (n_ct + n_u) + n_u * n_s + 1;
 }
 
+// a data value in the state type (the identity when TD = T)
+__device__ __forceinline__ float to_state(float x) { return x; }
+__device__ __forceinline__ double to_state(double x) { return x; }
+__device__ __forceinline__ float to_state(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+// x rounded to bf16 (to nearest, ties to even) and back: BF16C's rounding
+__device__ __forceinline__ float bf16r(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Stages this block's site columns of Y and D (s_y, s_d: n_s rows each)
-// and Rt (the first n_ct rows of s_r); the ragged tail is zero.
-template <typename T>
+// and Rt (the first n_ct rows of s_r), converted to T; the ragged tail is
+// zero.
+template <typename T, typename TD>
 __device__ __forceinline__ void stage_sites(
         T* __restrict__ s_y, T* __restrict__ s_d, T* __restrict__ s_r,
-        const T* __restrict__ ydt, const T* __restrict__ rtt, int64_t i,
+        const TD* __restrict__ ydt, const TD* __restrict__ rtt, int64_t i,
         bool live, int64_t n, int n_s, int n_ct, int tid) {
     for (int s = 0; s < n_s; ++s) {
-        s_y[s * kLd + tid] = live ? ydt[s * n + i] : T(0);
-        s_d[s * kLd + tid] = live ? ydt[(n_s + s) * n + i] : T(0);
+        s_y[s * kLd + tid] = live ? to_state(ydt[s * n + i]) : T(0);
+        s_d[s * kLd + tid] = live ? to_state(ydt[(n_s + s) * n + i]) : T(0);
     }
     for (int c = 0; c < n_ct; ++c)
-        s_r[c * kLd + tid] = live ? rtt[c * n + i] : T(0);
+        s_r[c * kLd + tid] = live ? to_state(rtt[c * n + i]) : T(0);
 }
 
 // The known-block residual of sample s at this thread's site, given its
@@ -67,8 +97,12 @@ __device__ __forceinline__ T known_resid(
 }
 
 // C[u] = sum_s a2[u,s] dres_s and the upper triangle of
-// M[u][v] = sum_s (a2[u,s] a2[v,s]) d_s at this thread's site
-template <typename T, int NU>
+// M[u][v] = sum_s (a2[u,s] a2[v,s]) d_s at this thread's site. BF16C
+// builds C as the JAX kernel's bf16 branch does, c1 - c2 with
+// c1[u] = sum_s bf16(a2[u,s]) bf16(d_s y_s) and
+// c2[u] = sum_{s,c} bf16(a2[u,s] a1[c,s]) bf16(d_s rt_c), and M from
+// bf16(a2[u,s] a2[v,s]).
+template <typename T, int NU, bool BF16C = false>
 __device__ __forceinline__ void build_cm(
         T (&cc)[NU], T (&m)[NU * (NU + 1) / 2], const T* __restrict__ s_y,
         const T* __restrict__ s_d, const T* __restrict__ s_r,
@@ -78,6 +112,29 @@ __device__ __forceinline__ void build_cm(
     for (int v = 0; v < NU; ++v) cc[v] = T(0);
 #pragma unroll
     for (int k = 0; k < NU * (NU + 1) / 2; ++k) m[k] = T(0);
+    if constexpr (BF16C) {
+        T c2[NU];
+#pragma unroll
+        for (int v = 0; v < NU; ++v) c2[v] = T(0);
+        for (int s = 0; s < n_s; ++s) {
+            const T d = s_d[s * kLd + tid];
+            const T dy = bf16r(d * s_y[s * kLd + tid]);
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                const T av = s_a2[v * n_s + s];
+                cc[v] += bf16r(av) * dy;
+                for (int c = 0; c < n_ct; ++c)
+                    c2[v] += bf16r(av * s_a1[c * n_s + s])
+                             * bf16r(d * s_r[c * kLd + tid]);
+#pragma unroll
+                for (int w = v; w < NU; ++w)
+                    m[sym<NU>(v, w)] += bf16r(av * s_a2[w * n_s + s]) * d;
+            }
+        }
+#pragma unroll
+        for (int v = 0; v < NU; ++v) cc[v] -= c2[v];
+        return;
+    }
     for (int s = 0; s < n_s; ++s) {
         const T y = s_y[s * kLd + tid];
         const T d = s_d[s * kLd + tid];
@@ -131,17 +188,20 @@ __device__ __forceinline__ void gram_steps(
 // each, summed over the block's sites in site order, written to
 // out[e * n_blocks] (the caller points out at this block's column).
 // With W (K4's weighted bootstrap) the LEFT u of every sum is the
-// weighted row s_wu[v] = w u_v (NU rows, stride kLd, formed by the caller
+// weighted row s_xu[v] = w u_v (NU rows, stride kLd, formed by the caller
 // once per site), so each sum carries the site weight exactly once --
 // gu[s,v,q] = sum (w u_v) d_s [Rt|u]_q, b_u = sum (w u_v) d y,
 // usq = sum (w u_v) u_v -- with the same shared loads per term as the
 // unweighted sums, and weights of 1 give those sums bit for bit.
-template <typename T, int NU, bool W = false>
+// With BF16C the caller stages bf16(u) in s_r and the raw u in s_xu:
+// gu[s,v,q] = sum bf16(d_s bf16(u_v)) [Rt|bf16(u)]_q,
+// b_u = sum bf16(u_v) bf16(d y), usq = sum u_v^2 of the raw u.
+template <typename T, int NU, bool W = false, bool BF16C = false>
 __device__ __forceinline__ void gram_partials(
         const T* __restrict__ s_y, const T* __restrict__ s_d,
         const T* __restrict__ s_r, int n_s, int n_ct, int tid,
         T* __restrict__ out, int n_blocks,
-        const T* __restrict__ s_wu = nullptr) {
+        const T* __restrict__ s_xu = nullptr) {
     const int p = n_ct + NU;
     const int e_gu = n_s * NU * p;
     const int e_bu = NU * n_s;
@@ -153,22 +213,42 @@ __device__ __forceinline__ void gram_partials(
             const int v = (e / p) % NU;
             const int q = e % p;
             const T* ds = s_d + s * kLd;
-            const T* uv = W ? s_wu + v * kLd : s_r + (n_ct + v) * kLd;
+            const T* uv = W ? s_xu + v * kLd : s_r + (n_ct + v) * kLd;
             const T* rq = s_r + q * kLd;
-            for (int j = 0; j < kSites; ++j) acc += (ds[j] * uv[j]) * rq[j];
+            if constexpr (BF16C) {
+                for (int j = 0; j < kSites; ++j)
+                    acc += bf16r(ds[j] * uv[j]) * rq[j];
+            } else {
+                for (int j = 0; j < kSites; ++j)
+                    acc += (ds[j] * uv[j]) * rq[j];
+            }
         } else if (e < e_gu + e_bu) {
             const int v = (e - e_gu) / n_s;
             const int s = (e - e_gu) % n_s;
             const T* ds = s_d + s * kLd;
             const T* ys = s_y + s * kLd;
-            const T* uv = W ? s_wu + v * kLd : s_r + (n_ct + v) * kLd;
-            for (int j = 0; j < kSites; ++j) acc += uv[j] * (ds[j] * ys[j]);
+            const T* uv = W ? s_xu + v * kLd : s_r + (n_ct + v) * kLd;
+            if constexpr (BF16C) {
+                for (int j = 0; j < kSites; ++j)
+                    acc += uv[j] * bf16r(ds[j] * ys[j]);
+            } else {
+                for (int j = 0; j < kSites; ++j)
+                    acc += uv[j] * (ds[j] * ys[j]);
+            }
+        } else if constexpr (BF16C) {
+            for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+                for (int v = 0; v < NU; ++v) {
+                    const T x = s_xu[v * kLd + j];
+                    acc += x * x;
+                }
+            }
         } else {
             for (int j = 0; j < kSites; ++j) {
 #pragma unroll
                 for (int v = 0; v < NU; ++v) {
                     const T x = s_r[(n_ct + v) * kLd + j];
-                    acc += (W ? s_wu[v * kLd + j] : x) * x;
+                    acc += (W ? s_xu[v * kLd + j] : x) * x;
                 }
             }
         }

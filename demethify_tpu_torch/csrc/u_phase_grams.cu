@@ -55,6 +55,20 @@
 // The staging, the per-site gram-form arithmetic, the Gram partial sums
 // and the reduction pass live in u_phase_common.cuh, shared with K4.
 //
+// bf16 storage (the JAX kernel's bf16 blocks with a float32 state,
+// pallas_kernels.py:255-265 with data_dt = state_dt): Y, D and Rt arrive
+// as __nv_bfloat16 (TD) with a float32 state (T); each value is converted
+// once as it is staged, and the staged rows stay float32 in shared memory
+// (u_phase_common.cuh says why), so the bf16 form runs the float32 form's
+// arithmetic on the converted values and needs the float32 form's shared
+// memory. It halves the bytes of the data rows: at the shape above ~66 MB
+// per outer iteration instead of ~116 MB, ~20 us at 3.35 TB/s.
+// bf16_compute (BF16C, gram form only) additionally rounds to bf16 at the
+// JAX kernel's bf16_compute points (u_phase_common.cuh) and stages the raw
+// new u in NU more shared rows for sum u^2, since the Gram rows of s_r
+// then hold bf16(u). The direct form with bf16_compute is not built: the
+// wrapper raises for it.
+//
 // The Nesterov scalar and l_w_prev live in a small device vector `scal`
 // (slot 0: a, 1: l_w, 2: l_w_prev) that every thread reads; the reduction
 // kernel advances them after the main pass, so the host never syncs.
@@ -63,8 +77,11 @@
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
 // of an empty known block (n_ct = 0) are never dereferenced.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "u_phase_common.cuh"
 
@@ -113,9 +130,9 @@ __device__ __forceinline__ void direct_steps(
     }
 }
 
-template <typename T, int NU, bool DIRECT>
+template <typename T, typename TD, int NU, bool DIRECT, bool BF16C>
 __global__ void __launch_bounds__(kSites)
-u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
+u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                      const T* __restrict__ a1b, const T* __restrict__ a2b,
                      T* __restrict__ uut, const T* __restrict__ scal,
                      T* __restrict__ partials, int64_t n, int n_s, int n_ct,
@@ -127,6 +144,7 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
     T* s_a1 = s_r + (n_ct + NU) * kLd;          // (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // (NU, n_s)
     T* s_res = s_a2 + NU * n_s;                 // direct form: n_s rows
+    T* s_xu = s_a2 + NU * n_s;                  // BF16C: NU rows, raw u
 
     const int tid = threadIdx.x;
     for (int k = tid; k < n_ct * n_s; k += kSites) s_a1[k] = a1b[k];
@@ -151,7 +169,8 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
         // ---- C and M for this site, then the whole U FISTA loop, in
         // registers
         T cc[NU], m[NU * (NU + 1) / 2];
-        dm::build_cm(cc, m, s_y, s_d, s_r, s_a1, s_a2, n_s, n_ct, tid);
+        dm::build_cm<T, NU, BF16C>(cc, m, s_y, s_d, s_r, s_a1, s_a2, n_s,
+                                   n_ct, tid);
         if (lagged)
             dm::gram_steps<T, NU, true>(u, up, cc, m, a, l_prev, l_w,
                                         n_steps);
@@ -181,30 +200,40 @@ u_phase_grams_kernel(const T* __restrict__ ydt, const T* __restrict__ rtt,
             uut[v * n + i] = u[v];
             uut[(NU + v) * n + i] = up[v];
         }
-        s_r[(n_ct + v) * kLd + tid] = live ? u[v] : T(0);
+        if constexpr (BF16C) {
+            s_r[(n_ct + v) * kLd + tid] = live ? dm::bf16r(u[v]) : T(0);
+            s_xu[v * kLd + tid] = live ? u[v] : T(0);
+        } else {
+            s_r[(n_ct + v) * kLd + tid] = live ? u[v] : T(0);
+        }
     }
     __syncthreads();
 
     // ---- this block's Gram partial sums with the new u ----------------
-    dm::gram_partials<T, NU>(s_y, s_d, s_r, n_s, n_ct, tid,
-                             partials + blockIdx.x, n_blocks);
+    dm::gram_partials<T, NU, false, BF16C>(s_y, s_d, s_r, n_s, n_ct, tid,
+                                           partials + blockIdx.x, n_blocks,
+                                           s_xu);
 }
 
-size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u, bool direct) {
+// shared memory of the main pass; itemsize is the state's (the staged
+// data rows are of the state type whatever the data's)
+size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u, bool direct,
+                  bool bf16c) {
     const size_t p = static_cast<size_t>(n_ct + n_u);
     const size_t rows = 2 * static_cast<size_t>(n_s) + p
-                        + (direct ? static_cast<size_t>(n_s) : 0);
+                        + (direct ? static_cast<size_t>(n_s) : 0)
+                        + (bf16c ? static_cast<size_t>(n_u) : 0);
     return itemsize * (rows * kLd + p * n_s);
 }
 
-template <typename T, int NU, bool DIRECT>
+template <typename T, typename TD, int NU, bool DIRECT, bool BF16C>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* partials, void* out, int64_t n,
            int n_s, int n_ct, int n_steps, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, NU);
-    const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, DIRECT);
-    auto kern = u_phase_grams_kernel<T, NU, DIRECT>;
+    const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, DIRECT, BF16C);
+    auto kern = u_phase_grams_kernel<T, TD, NU, DIRECT, BF16C>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -212,7 +241,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     kern<<<n_blocks, kSites, smem, stream>>>(
-        static_cast<const T*>(ydt), static_cast<const T*>(rtt),
+        static_cast<const TD*>(ydt), static_cast<const TD*>(rtt),
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
         static_cast<T*>(partials), n, n_s, n_ct, n_steps, n_blocks, lagged);
@@ -225,43 +254,54 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool DIRECT>
+template <typename T, typename TD, bool DIRECT, bool BF16C>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 const void* a2b, void* uut, void* scal, void* partials,
                 void* out, int64_t n, int n_s, int n_ct, int n_u,
                 int n_steps, int lagged, cudaStream_t st) {
 #define DM_K1_CASE(NU)                                                      \
     case NU:                                                                \
-        return launch<T, NU, DIRECT>(ydt, rtt, a1b, a2b, uut, scal,         \
-                                     partials, out, n, n_s, n_ct, n_steps,  \
-                                     lagged, st);
+        return launch<T, TD, NU, DIRECT, BF16C>(                            \
+            ydt, rtt, a1b, a2b, uut, scal, partials, out, n, n_s, n_ct,     \
+            n_steps, lagged, st);
     switch (n_u) {
         DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
         DM_K1_CASE(6) DM_K1_CASE(7) DM_K1_CASE(8)
         case 1:
             // n_u = 1 always takes the gram form (1 <= 3 n_s)
             if constexpr (!DIRECT)
-                return launch<T, 1, false>(ydt, rtt, a1b, a2b, uut, scal,
-                                           partials, out, n, n_s, n_ct,
-                                           n_steps, lagged, st);
+                return launch<T, TD, 1, false, BF16C>(
+                    ydt, rtt, a1b, a2b, uut, scal, partials, out, n, n_s,
+                    n_ct, n_steps, lagged, st);
             return static_cast<int>(cudaErrorInvalidValue);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef DM_K1_CASE
 }
 
-template <typename T>
+// TD = T (float32, float64) or __nv_bfloat16 with T = float; BF16C only
+// in the gram form
+template <typename T, typename TD>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              const void* a2b, void* uut, void* scal, void* partials,
              void* out, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-             int lagged, int direct, void* stream) {
+             int lagged, int direct, int bf16c, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (std::is_same<TD, __nv_bfloat16>::value) {
+        if (bf16c) {
+            if (direct) return static_cast<int>(cudaErrorInvalidValue);
+            return dispatch_nu<T, TD, false, true>(
+                ydt, rtt, a1b, a2b, uut, scal, partials, out, n, n_s, n_ct,
+                n_u, n_steps, lagged, st);
+        }
+    }
     if (direct)
-        return dispatch_nu<T, true>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                    out, n, n_s, n_ct, n_u, n_steps, lagged,
-                                    st);
-    return dispatch_nu<T, false>(ydt, rtt, a1b, a2b, uut, scal, partials,
-                                 out, n, n_s, n_ct, n_u, n_steps, lagged, st);
+        return dispatch_nu<T, TD, true, false>(
+            ydt, rtt, a1b, a2b, uut, scal, partials, out, n, n_s, n_ct, n_u,
+            n_steps, lagged, st);
+    return dispatch_nu<T, TD, false, false>(
+        ydt, rtt, a1b, a2b, uut, scal, partials, out, n, n_s, n_ct, n_u,
+        n_steps, lagged, st);
 }
 
 }  // namespace
@@ -270,10 +310,11 @@ extern "C" {
 
 // Shared memory the main pass needs, in bytes (the wrapper checks it
 // against the card's limit before launching).
+// itemsize is the state's: the staged data rows are of the state type.
 long long dm_u_phase_grams_smem(int itemsize, int n_s, int n_ct, int n_u,
-                                int direct) {
+                                int direct, int bf16c) {
     return static_cast<long long>(
-        smem_bytes(itemsize, n_s, n_ct, n_u, direct != 0));
+        smem_bytes(itemsize, n_s, n_ct, n_u, direct != 0, bf16c != 0));
 }
 
 int dm_u_phase_grams_blocks(long long n) {
@@ -285,8 +326,9 @@ int dm_u_phase_grams_f32(const void* ydt, const void* rtt, const void* a1b,
                          void* partials, void* out, long long n, int n_s,
                          int n_ct, int n_u, int n_steps, int lagged,
                          int direct, void* stream) {
-    return dispatch<float>(ydt, rtt, a1b, a2b, uut, scal, partials, out, n,
-                           n_s, n_ct, n_u, n_steps, lagged, direct, stream);
+    return dispatch<float, float>(ydt, rtt, a1b, a2b, uut, scal, partials,
+                                  out, n, n_s, n_ct, n_u, n_steps, lagged,
+                                  direct, 0, stream);
 }
 
 int dm_u_phase_grams_f64(const void* ydt, const void* rtt, const void* a1b,
@@ -294,8 +336,22 @@ int dm_u_phase_grams_f64(const void* ydt, const void* rtt, const void* a1b,
                          void* partials, void* out, long long n, int n_s,
                          int n_ct, int n_u, int n_steps, int lagged,
                          int direct, void* stream) {
-    return dispatch<double>(ydt, rtt, a1b, a2b, uut, scal, partials, out, n,
-                            n_s, n_ct, n_u, n_steps, lagged, direct, stream);
+    return dispatch<double, double>(ydt, rtt, a1b, a2b, uut, scal, partials,
+                                    out, n, n_s, n_ct, n_u, n_steps, lagged,
+                                    direct, 0, stream);
+}
+
+// bf16 data (ydt, rtt) with a float32 state; bf16c: the bf16_compute form
+// (gram form only: with direct it returns cudaErrorInvalidValue)
+int dm_u_phase_grams_bf16(const void* ydt, const void* rtt, const void* a1b,
+                          const void* a2b, void* uut, void* scal,
+                          void* partials, void* out, long long n, int n_s,
+                          int n_ct, int n_u, int n_steps, int lagged,
+                          int direct, int bf16c, void* stream) {
+    return dispatch<float, __nv_bfloat16>(ydt, rtt, a1b, a2b, uut, scal,
+                                          partials, out, n, n_s, n_ct, n_u,
+                                          n_steps, lagged, direct, bf16c,
+                                          stream);
 }
 
 }  // extern "C"

@@ -60,6 +60,15 @@
 //   - shared memory is K1's (one member's alpha blocks at a time), so it
 //     does not grow with B.
 //
+// bf16 storage (pallas_kernels.py:835-836, 853: the data converted at
+// load, the state float32): Y, D and Rt arrive as __nv_bfloat16 (TD) with
+// a float32 state and weight rows (T); stage_sites converts each value
+// once, and from there on every member runs the float32 form's
+// arithmetic on the converted values (u_phase_common.cuh). It halves the
+// bytes of Y, D and Rt (50 MB instead of 100 MB per outer iteration at the
+// shape above), against a bound set by the operations, so the expected
+// gain is small.
+//
 // Scalars: `scal` is (B, scal_stride) with K1's slots per member (kAU,
 // kLW, kLWPrev read) plus kActive. Weights: `w` is (B, w_stride), NULL for
 // the unweighted form.
@@ -68,6 +77,7 @@
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
 // of an empty known block (n_ct = 0) are never dereferenced.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,10 +89,10 @@ using dm::kLd;
 using dm::kRedThreads;
 using dm::kSites;
 
-template <typename T, int NU, bool W>
+template <typename T, typename TD, int NU, bool W>
 __global__ void __launch_bounds__(kSites)
 u_phase_grams_multi_kernel(
-        const T* __restrict__ ydt, const T* __restrict__ rtt,
+        const TD* __restrict__ ydt, const TD* __restrict__ rtt,
         const T* __restrict__ a1b, int64_t a1_stride,
         const T* __restrict__ a2b, int64_t a2_stride, T* __restrict__ uut,
         const T* __restrict__ w, int64_t w_stride,
@@ -161,7 +171,7 @@ size_t smem_bytes(size_t itemsize, int n_s, int n_ct, int n_u,
                        + (weighted ? n_u * kLd : 0));
 }
 
-template <typename T, int NU, bool W>
+template <typename T, typename TD, int NU, bool W>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
@@ -170,7 +180,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, NU);
     const size_t smem = smem_bytes(sizeof(T), n_s, n_ct, NU, W);
-    auto kern = u_phase_grams_multi_kernel<T, NU, W>;
+    auto kern = u_phase_grams_multi_kernel<T, TD, NU, W>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -178,7 +188,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     kern<<<n_blocks, kSites, smem, stream>>>(
-        static_cast<const T*>(ydt), static_cast<const T*>(rtt),
+        static_cast<const TD*>(ydt), static_cast<const TD*>(rtt),
         static_cast<const T*>(a1b), a1_stride, static_cast<const T*>(a2b),
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
         static_cast<const T*>(scal), scal_stride, static_cast<T*>(partials),
@@ -193,7 +203,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool W>
+template <typename T, typename TD, bool W>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
@@ -202,10 +212,10 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 int lagged, cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
-        return launch<T, NU, W>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,   \
-                                uut, w, w_stride, scal, scal_stride,        \
-                                partials, out, n, n_s, n_ct, n_steps,       \
-                                n_members, lagged, st);
+        return launch<T, TD, NU, W>(ydt, rtt, a1b, a1_stride, a2b,          \
+                                    a2_stride, uut, w, w_stride, scal,      \
+                                    scal_stride, partials, out, n, n_s,     \
+                                    n_ct, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
@@ -214,7 +224,7 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
 #undef DM_K4_CASE
 }
 
-template <typename T>
+template <typename T, typename TD>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
@@ -223,11 +233,11 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
              int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (w != nullptr)
-        return dispatch_nu<T, true>(ydt, rtt, a1b, a1_stride, a2b,
+        return dispatch_nu<T, TD, true>(ydt, rtt, a1b, a1_stride, a2b,
                                     a2_stride, uut, w, w_stride, scal,
                                     scal_stride, partials, out, n, n_s, n_ct,
                                     n_u, n_steps, n_members, lagged, st);
-    return dispatch_nu<T, false>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,
+    return dispatch_nu<T, TD, false>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,
                                  uut, w, w_stride, scal, scal_stride,
                                  partials, out, n, n_s, n_ct, n_u, n_steps,
                                  n_members, lagged, st);
@@ -253,10 +263,10 @@ int dm_u_phase_grams_multi_f32(const void* ydt, const void* rtt,
                                void* out, long long n, int n_s, int n_ct,
                                int n_u, int n_steps, int n_members,
                                int lagged, void* stream) {
-    return dispatch<float>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w,
-                           w_stride, scal, scal_stride, partials, out, n,
-                           n_s, n_ct, n_u, n_steps, n_members, lagged,
-                           stream);
+    return dispatch<float, float>(ydt, rtt, a1b, a1_stride, a2b, a2_stride,
+                                  uut, w, w_stride, scal, scal_stride,
+                                  partials, out, n, n_s, n_ct, n_u, n_steps,
+                                  n_members, lagged, stream);
 }
 
 int dm_u_phase_grams_multi_f64(const void* ydt, const void* rtt,
@@ -267,10 +277,25 @@ int dm_u_phase_grams_multi_f64(const void* ydt, const void* rtt,
                                void* out, long long n, int n_s, int n_ct,
                                int n_u, int n_steps, int n_members,
                                int lagged, void* stream) {
-    return dispatch<double>(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-                            w, w_stride, scal, scal_stride, partials, out, n,
-                            n_s, n_ct, n_u, n_steps, n_members, lagged,
-                            stream);
+    return dispatch<double, double>(ydt, rtt, a1b, a1_stride, a2b,
+                                    a2_stride, uut, w, w_stride, scal,
+                                    scal_stride, partials, out, n, n_s, n_ct,
+                                    n_u, n_steps, n_members, lagged, stream);
+}
+
+// bf16 data (ydt, rtt) with a float32 state and float32 weight rows
+int dm_u_phase_grams_multi_bf16(const void* ydt, const void* rtt,
+                                const void* a1b, long long a1_stride,
+                                const void* a2b, long long a2_stride,
+                                void* uut, const void* w, long long w_stride,
+                                void* scal, int scal_stride, void* partials,
+                                void* out, long long n, int n_s, int n_ct,
+                                int n_u, int n_steps, int n_members,
+                                int lagged, void* stream) {
+    return dispatch<float, __nv_bfloat16>(
+        ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
+        scal_stride, partials, out, n, n_s, n_ct, n_u, n_steps, n_members,
+        lagged, stream);
 }
 
 }  // extern "C"

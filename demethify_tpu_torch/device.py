@@ -1,9 +1,15 @@
-"""Device selection and the float32 precision policy.
+"""Device selection, the storage dtypes and the float32 precision policy.
 
 Counterpart of the JAX CLI's ``--platform`` pin (``demethify_tpu/cli.py``)
 and the backend routing in ``demethify_tpu/solvers/api.py``: here the
 device is always named explicitly, and asking for ``cuda`` without a GPU
 raises instead of falling back to the CPU.
+
+``--dtype`` names the STORAGE dtype of Y, D and R. float32 and float64
+store and compute in the same dtype; bfloat16 stores the three data
+arrays in bf16 while u, alpha, the solver's scalars and every sum over the
+CpG axis stay in float32 (``state_dtype``), as the JAX package's
+``accum_dtype`` has it.
 """
 
 import torch
@@ -16,7 +22,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 DEVICES = ("cuda", "cpu")
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.bfloat16}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -36,8 +43,17 @@ def resolve_device(name: str) -> torch.device:
 
 
 def resolve_dtype(name: str) -> torch.dtype:
+    """``--dtype`` -> the storage dtype of Y, D and R."""
     if name not in DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; expected one of "
-                         f"{tuple(DTYPES)} (bfloat16 storage is ROADMAP "
-                         f"port queue item 9)")
+                         f"{tuple(DTYPES)}")
     return DTYPES[name]
+
+
+def state_dtype(storage: torch.dtype) -> torch.dtype:
+    """The dtype of the solver state and of every sum over the CpG axis
+    for data stored in ``storage``: 16-bit storage accumulates in float32;
+    float32 and float64 stay as they are."""
+    if storage in (torch.bfloat16, torch.float16):
+        return torch.float32
+    return storage

@@ -97,7 +97,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_INT] * 5
                        + [_VOID])
         fn.restype = _INT
-    lib.dm_u_phase_grams_smem.argtypes = [_INT] * 5
+    # bf16 data with a float32 state: K1 with its bf16_compute flag, K4
+    lib.dm_u_phase_grams_bf16.argtypes = [_VOID] * 8 + [_LL] + [_INT] * 7 + [
+        _VOID]
+    lib.dm_u_phase_grams_bf16.restype = _INT
+    lib.dm_u_phase_grams_multi_bf16.argtypes = (
+        lib.dm_u_phase_grams_multi_f32.argtypes)
+    lib.dm_u_phase_grams_multi_bf16.restype = _INT
+    lib.dm_u_phase_grams_smem.argtypes = [_INT] * 6
     lib.dm_u_phase_grams_smem.restype = _LL
     lib.dm_u_phase_grams_multi_smem.argtypes = [_INT] * 5
     lib.dm_u_phase_grams_multi_smem.restype = _LL

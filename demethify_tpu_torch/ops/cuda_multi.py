@@ -24,6 +24,13 @@ it multiplies the left u of every u-involved sum exactly once
 (gu = sum w u d [Rt | u], b_u = sum w u d y, usq = sum w u^2); the FISTA
 steps stay raw, so a row with w = 0 still moves.
 
+Dtypes as K1's (``cuda_kernels.check_dtypes``): ydt and rtt float32,
+float64 or bfloat16; the members' state and ``weights`` float32 or
+float64, float32 with bf16 data. bf16 data are converted once at load and
+the arithmetic is float32 from there on, as the JAX kernel's
+(``pallas_kernels.py:835-836, 853``); the weight rows keep the state
+dtype.
+
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
 same function with the member axis written out as a batch dimension.
@@ -40,6 +47,7 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     L_W_PREV,
     MAX_N_U,
     N_SCAL_MULTI,
+    check_dtypes,
     gram_entries,
     gram_form,
     known_block,
@@ -49,15 +57,10 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
 
 def _check_args(ydt, rtt, a1_b, a2_b, uut_b, scal_b, weights):
-    dev, dt = ydt.device, ydt.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"u_phase_grams_multi takes float32 or float64, not "
-                        f"{dt} (bf16 storage is ROADMAP port queue item 9)")
+    dev = ydt.device
     given = [t for t in (weights,) if t is not None]
-    for t in (ydt, rtt, a1_b, a2_b, uut_b, scal_b, *given):
-        if t.device != dev or t.dtype != dt:
-            raise ValueError("u_phase_grams_multi: all operands must share "
-                             "one device and dtype")
+    check_dtypes("u_phase_grams_multi", (ydt, rtt),
+                 (a1_b, a2_b, uut_b, scal_b, *given))
     for t in (ydt, rtt, uut_b, scal_b, *given):
         if not t.is_contiguous():
             raise ValueError("u_phase_grams_multi: operands must be "
@@ -121,7 +124,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     usq (B,)); an inactive member's entries are unspecified on the card.
     """
     n_b, n_u, n_s = a2_b.shape
-    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s))
+    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
     n, n_b, n_s, n_ct, n_u = _check_args(ydt, rtt, a1_b, a2_b, uut_b,
                                          scal_b, weights)
     if ydt.device.type == "cpu":
@@ -131,7 +134,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
         raise ValueError(f"u_phase_grams_multi: unsupported device "
                          f"{ydt.device}")
     lib = _build.load().lib
-    smem = lib.dm_u_phase_grams_multi_smem(ydt.element_size(), n_s, n_ct,
+    smem = lib.dm_u_phase_grams_multi_smem(uut_b.element_size(), n_s, n_ct,
                                            n_u, int(weights is not None))
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(
@@ -141,10 +144,11 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
-    partials = ydt.new_empty((n_b * n_entries, n_blocks))
-    out = ydt.new_empty((n_b, n_entries))
-    fn = (lib.dm_u_phase_grams_multi_f32 if ydt.dtype == torch.float32
-          else lib.dm_u_phase_grams_multi_f64)
+    partials = uut_b.new_empty((n_b * n_entries, n_blocks))
+    out = uut_b.new_empty((n_b, n_entries))
+    fn = {torch.float32: lib.dm_u_phase_grams_multi_f32,
+          torch.float64: lib.dm_u_phase_grams_multi_f64,
+          torch.bfloat16: lib.dm_u_phase_grams_multi_bf16}[ydt.dtype]
     with torch.cuda.device(ydt.device):
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
         err = fn(ydt.data_ptr(), rtt.data_ptr(), a1_b.data_ptr(),
@@ -156,11 +160,17 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  out.data_ptr(), n, n_s, n_ct, n_u, n_steps, n_b,
                  int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")
-    u_phase_grams_multi.launches += 1
+    if ydt.dtype == torch.bfloat16:
+        u_phase_grams_multi.launches_bf16 += 1
+    else:
+        u_phase_grams_multi.launches += 1
     return _split(out, n_s, n_u, p)
 
 
+# launches per form: float32/float64 data, and bf16 data (float32 state);
+# with or without weights
 u_phase_grams_multi.launches = 0
+u_phase_grams_multi.launches_bf16 = 0
 
 
 def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
@@ -169,10 +179,12 @@ def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
     """The same function as ``u_phase_grams_multi`` in ordinary tensor ops,
     the member axis a batch dimension (the kernel's twin: the CPU path,
     and what the kernel is checked against on the card). The Grams of an
-    inactive member are computed with its frozen u."""
+    inactive member are computed with its frozen u. bf16 data are upcast
+    to the state dtype."""
     n_b, n_u, n_s = a2_b.shape
-    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s))
-    yt, dt = ydt[:n_s], ydt[n_s:]
+    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
+    st = uut_b.dtype
+    yt, dt, rtt = ydt[:n_s].to(st), ydt[n_s:].to(st), rtt.to(st)
     dy = dt * yt
     dresid = (dy if rtt.shape[0] == 0
               else dy - dt * (a1_b.transpose(1, 2) @ rtt))   # (B|1, n_s, N)

@@ -28,8 +28,9 @@ the unsupervised solve) the known operands are empty and never read.
 The multi forms leave a member whose ACTIVE slot is 0 exactly as it was
 and set an active member's ACTIVE slot for the next outer iteration from
 |new cost - old cost| >= TOL (the reference's termination test, per
-member). ``row_mask`` and ``row_mask_b`` (the model-selection sweep) are
-ROADMAP port queue item 6.
+member). ``row_mask`` and ``row_mask_b`` (the JAX kernels' masks for the
+model-selection sweep, whose JAX route runs the XLA solvers instead) are
+ROADMAP port queue item 10.
 """
 
 import torch
@@ -265,7 +266,7 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     if row_mask_b is not None:
         raise NotImplementedError(
             "alpha_phase_full_multi: row_mask_b (the model-selection sweep) "
-            "is ROADMAP port queue item 6")
+            "is ROADMAP port queue item 10")
     name = "alpha_phase_full_multi"
     shared, own, lead, (st_gtt, st_bt, st_ydy) = _known_layout(
         alpha_b.shape[0], gtt, bt, ydy)

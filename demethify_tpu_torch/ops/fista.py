@@ -44,7 +44,8 @@ def fista_u_direct(u, u_prev, a, l_w_prev, l_w, y, d, R_trunc, a1_block,
                    a2_block, n_steps: int, lagged: bool = False):
     """Reference-dataflow U loop; R_trunc=None means no known block,
     ``lagged`` as for ``fista_u_gram``."""
-    y_eff = y if R_trunc is None else y - R_trunc @ a1_block
+    y_eff = (y if R_trunc is None
+             else y - R_trunc.to(a1_block.dtype) @ a1_block)
     for _ in range(n_steps):
         a1 = nesterov_step(a)
         beta = momentum(a, a1, l_w_prev, l_w)

@@ -10,52 +10,102 @@ JAX package. ``row_weights`` ((n_cpg,), the bootstrap's row-multiplicity
 form) scales every row of the CpG-axis contractions; ``weighted_known_grams``
 gives B members' weighted known blocks at once, as matrix products against
 the (B, n_cpg) weight rows.
+
+Every CpG-axis reduction takes its inputs in row chunks of CHUNK_ROWS,
+each upcast on its own to the accumulation dtype (bf16 -> float32 is
+exact), so no copy of the whole Y, D or R is made and no (n_cpg, ...)
+temporary outlives its chunk; under float32 and float64 the upcast is a
+view, and an array of up to CHUNK_ROWS rows is one chunk. Each chunk
+costs the host about 60 operator calls in a solve's set-up, so chunks
+are large (256k rows: four at 1M sites), while a chunk's temporaries
+stay a few (rows, n_s) and (rows, p^2) arrays. Under bfloat16
+storage every sum runs in float32, and products of bf16 values round
+where the JAX package's solvers, as XLA compiles them, round: a product
+that feeds a float32 sum is exact (d y in b, the Grams' d), ydy takes d y
+rounded to bf16 times y, ``u_constant_term`` rounds the known part and the
+residual, and the unweighted ||Rt||^2 rounds its float32 sum
+(``row_sum_sq``).
 """
 
 import torch
+
+from demethify_tpu_torch.device import state_dtype
+
+CHUNK_ROWS = 1 << 18
 
 
 def accum_dtype(x: torch.Tensor) -> torch.dtype:
     """Accumulation dtype for reductions over the CpG axis: 16-bit storage
     accumulates in float32; float32/float64 stay as they are."""
-    if x.dtype in (torch.bfloat16, torch.float16):
-        return torch.float32
-    return x.dtype
+    return state_dtype(x.dtype)
 
 
-def _weighted(d, row_weights):
-    return d if row_weights is None else d * row_weights.to(d.dtype)[:, None]
+def row_chunks(n: int, chunk: int = CHUNK_ROWS):
+    """[lo, hi) bounds of the row chunks the CpG-axis sums take."""
+    return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+
+def coverage_max(d, row_weights=None) -> torch.Tensor:
+    """max(D) in d's dtype; with ``row_weights`` over the rows with w > 0
+    only (a resample can drop the max-coverage row)."""
+    if row_weights is None:
+        return torch.max(d)
+    rowmax = torch.max(d, dim=1).values
+    return torch.max(torch.where(row_weights > 0, rowmax,
+                                 torch.zeros_like(rowmax)))
 
 
 def coverage_max2(d, row_weights, dtype) -> torch.Tensor:
-    """max(D)^2, the Lipschitz constants' coverage factor; with
-    ``row_weights`` the max runs over the rows with w > 0 only (a resample
-    can drop the max-coverage row)."""
-    if row_weights is None:
-        return torch.max(d).to(dtype) ** 2
-    rowmax = torch.max(d, dim=1).values
-    return torch.max(torch.where(row_weights > 0, rowmax,
-                                 torch.zeros_like(rowmax))).to(dtype) ** 2
+    """max(D)^2, the Lipschitz constants' coverage factor, squared in
+    ``dtype`` (the plain solvers; the JAX XLA solvers cast, then square)."""
+    return coverage_max(d, row_weights).to(dtype) ** 2
 
 
 def row_sum_sq(row_weights, dtype):
-    """x (n_cpg, k) -> sum(x^2), each row weighted by ``row_weights``
-    when given (the ||Rt||^2 and sum u^2 of the Lipschitz constants)."""
+    """x (n_cpg, k) -> sum(x^2) in ``dtype``, each row weighted by
+    ``row_weights`` when given (the ||Rt||^2 and sum u^2 of the Lipschitz
+    constants). Unweighted, a 16-bit x gives what the JAX XLA solvers'
+    ``jnp.sum(R * R)`` compiles to: the squares summed in float32, the
+    sum rounded once to the storage dtype."""
     if row_weights is None:
-        return lambda x: torch.sum(x * x)
+        def sq(x):
+            total = sum(torch.sum(xc * xc) for xc in
+                        (x[lo:hi].to(dtype) for lo, hi in
+                         row_chunks(x.shape[0])))
+            return total.to(x.dtype).to(dtype)
+        return sq
     w = row_weights.to(dtype)[:, None]
     return lambda x: torch.sum(w * x * x)
+
+
+def storage_dy(d, y, acc):
+    """(d y, d y y) in ``acc``, as the JAX package's compiled programs
+    form them under 16-bit storage: d y exact (the product of two bf16
+    values is exact in float32), and d y y from d y rounded to the
+    storage dtype, times y in float32. Under float32 and float64 plainly
+    d y and (d y) y."""
+    dc, yc = d.to(acc), y.to(acc)
+    return dc * yc, (d * y).to(acc) * yc
 
 
 def sample_grams(R, d, y, row_weights=None):
     """(G (n_s, p, p), b (p, n_s), ydy (n_s,)) in one pass over (Y, D, R),
     each row weighted by ``row_weights`` when given."""
     acc = accum_dtype(y)
-    R, d, y = R.to(acc), d.to(acc), y.to(acc)
-    dw = _weighted(d, row_weights)
-    G = torch.einsum("ip,is,iq->spq", R, dw, R)
-    b = torch.einsum("ip,is->ps", R, dw * y)
-    ydy = torch.sum(dw * y * y, dim=0)
+    n_s, p = d.shape[1], R.shape[1]
+    G = torch.zeros((n_s, p, p), dtype=acc, device=y.device)
+    b = torch.zeros((p, n_s), dtype=acc, device=y.device)
+    ydy = torch.zeros((n_s,), dtype=acc, device=y.device)
+    for lo, hi in row_chunks(y.shape[0]):
+        Rc, dc = R[lo:hi].to(acc), d[lo:hi].to(acc)
+        dy, dyy = storage_dy(d[lo:hi], y[lo:hi], acc)
+        if row_weights is not None:
+            w = row_weights[lo:hi].to(acc)[:, None]
+            dc, dy, dyy = dc * w, dy * w, dyy * w
+        rr = (Rc[:, :, None] * Rc[:, None, :]).reshape(hi - lo, p * p)
+        G += (dc.T @ rr).view(n_s, p, p)
+        b += Rc.T @ dy
+        ydy += torch.sum(dyy, dim=0)
     return G, b, ydy
 
 
@@ -71,19 +121,23 @@ def weighted_known_grams(R_trunc, d, y, w_b):
     member's equal to ``known_block_grams(R_trunc, d, y, w_b[b])``.
 
     Matrix products of the weight rows against per-sample site products,
-    one sample at a time: the largest temporary is (n_cpg, n_ct^2), never
-    (B, n_cpg, ...)."""
+    one sample at a time: the largest temporary is (rows, n_ct^2) of one
+    row chunk, never (B, n_cpg, ...)."""
     acc = accum_dtype(y)
-    R, d, y, w_b = (x.to(acc) for x in (R_trunc, d, y, w_b))
-    n_b, n_s, n_ct = w_b.shape[0], d.shape[1], R.shape[1]
-    rr = (R[:, :, None] * R[:, None, :]).reshape(R.shape[0], n_ct * n_ct)
-    G = w_b.new_empty((n_b, n_s, n_ct, n_ct))
-    b = w_b.new_empty((n_b, n_ct, n_s))
-    dy = d * y
-    for s in range(n_s):
-        G[:, s] = (w_b @ (d[:, s:s + 1] * rr)).view(n_b, n_ct, n_ct)
-        b[:, :, s] = w_b @ (R * dy[:, s:s + 1])
-    return G, b, w_b @ (dy * y)
+    n_b, n_s, n_ct = w_b.shape[0], d.shape[1], R_trunc.shape[1]
+    w_b = w_b.to(acc)
+    G = w_b.new_zeros((n_b, n_s, n_ct, n_ct))
+    b = w_b.new_zeros((n_b, n_ct, n_s))
+    ydy = w_b.new_zeros((n_b, n_s))
+    for lo, hi in row_chunks(y.shape[0]):
+        R, dc, w = R_trunc[lo:hi].to(acc), d[lo:hi].to(acc), w_b[:, lo:hi]
+        dy, dyy = storage_dy(d[lo:hi], y[lo:hi], acc)
+        rr = (R[:, :, None] * R[:, None, :]).reshape(hi - lo, n_ct * n_ct)
+        for s in range(n_s):
+            G[:, s] += (w @ (dc[:, s:s + 1] * rr)).view(n_b, n_ct, n_ct)
+            b[:, :, s] += w @ (R * dy[:, s:s + 1])
+        ydy += w @ dyy
+    return G, b, ydy
 
 
 def sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y, row_weights=None):
@@ -91,11 +145,19 @@ def sample_grams_incremental(G_tt, b_t, R_trunc, u, d, y, row_weights=None):
     are recomputed, each row weighted by ``row_weights`` when given.
     Equals sample_grams([Rt | u], d, y, row_weights)[:2]."""
     acc = accum_dtype(y)
-    R_trunc, u, d, y = (x.to(acc) for x in (R_trunc, u, d, y))
-    dw = _weighted(d, row_weights)
-    G_tu = torch.einsum("ip,is,iu->spu", R_trunc, dw, u)
-    G_uu = torch.einsum("iu,is,iv->suv", u, dw, u)
-    b_u = torch.einsum("iu,is->us", u, dw * y)
+    n_s, n_ct, n_u = d.shape[1], R_trunc.shape[1], u.shape[1]
+    G_tu = torch.zeros((n_s, n_ct, n_u), dtype=acc, device=y.device)
+    G_uu = torch.zeros((n_s, n_u, n_u), dtype=acc, device=y.device)
+    b_u = torch.zeros((n_u, n_s), dtype=acc, device=y.device)
+    for lo, hi in row_chunks(y.shape[0]):
+        R, uc, dc = R_trunc[lo:hi].to(acc), u[lo:hi].to(acc), d[lo:hi].to(acc)
+        dy = dc * y[lo:hi].to(acc)
+        if row_weights is not None:
+            w = row_weights[lo:hi].to(acc)[:, None]
+            dc, dy = dc * w, dy * w
+        G_tu += torch.einsum("ip,is,iu->spu", R, dc, uc)
+        G_uu += torch.einsum("iu,is,iv->suv", uc, dc, uc)
+        b_u += torch.einsum("iu,is->us", uc, dy)
     top = torch.cat([G_tt, G_tu], dim=2)
     bottom = torch.cat([G_tu.transpose(1, 2), G_uu], dim=2)
     G = torch.cat([top, bottom], dim=1)
@@ -111,8 +173,10 @@ def site_curvature(d, a2):
 
 def u_constant_term(y, d, R_trunc, a1, a2):
     """C = (D * (Y - R_trunc a1)) a2' (n_cpg, n_u); R_trunc=None gives the
-    Y-only form (no known block)."""
+    Y-only form (no known block). Under 16-bit storage the known part
+    R_trunc a1 and the residual are rounded to the storage dtype, and d
+    times the residual is exact in float32, as the JAX package's
+    ``u_constant_term`` compiles inside its solvers' loops."""
     acc = accum_dtype(y)
-    y, d = y.to(acc), d.to(acc)
-    resid = y if R_trunc is None else y - R_trunc.to(acc) @ a1
-    return (d * resid) @ a2.T
+    resid = y if R_trunc is None else y - (R_trunc.to(acc) @ a1).to(y.dtype)
+    return (d.to(acc) * resid.to(acc)) @ a2.T

@@ -10,6 +10,8 @@ explicit leading batch dimension where the JAX package vmaps.
 
 import torch
 
+from demethify_tpu_torch.ops.gram import accum_dtype
+
 
 def _power_iteration_sqnorm(G, n_iter: int = 50):
     """Largest eigenvalue of each PSD G (B, p, p), by power iteration."""
@@ -54,11 +56,15 @@ def nnls_gram(G, c, n_iter: int = 600):
 
 def wls_intercept_batch(Y, W, X, n_iter: int = 600):
     """All samples at once: Y, W (n_cpg, n_s); X (n_cpg, p) -> (p, n_s)
-    simplex-normalised nonnegative coefficients (intercept discarded)."""
+    simplex-normalised nonnegative coefficients (intercept discarded).
+    Runs in X's accumulation dtype (float32 for bf16 storage, as the JAX
+    package's ``wls_intercept``), one sample column upcast at a time."""
+    acc = accum_dtype(X)
+    X = X.to(acc)
     n_s = Y.shape[1]
     Gs, cs = [], []
     for s in range(n_s):               # n_s is small; keeps memory O(n p)
-        y, w = Y[:, s], W[:, s]
+        y, w = Y[:, s].to(acc), W[:, s].to(acc)
         wsum = torch.clamp_min(torch.sum(w), 1e-30)
         x_off = (w @ X) / wsum
         y_off = (w @ y) / wsum

@@ -118,10 +118,10 @@ def _restarts(solve, solve_multi, init_fn, y, n_u, n_ct, seed, n_restarts,
     wins."""
     if restart_route(y.device, n_u, y.shape[1], n_restarts,
                      init_provided) == "batch":
-        itemsize = torch.finfo(accum_dtype(y)).bits // 8
-        cap = fused.max_multi_members(y.shape[0], y.shape[1], n_ct, n_u,
-                                      itemsize,
-                                      fused.free_device_bytes(y.device))
+        cap = fused.max_multi_members(
+            y.shape[0], y.shape[1], n_ct, n_u,
+            torch.finfo(accum_dtype(y)).bits // 8, y.element_size(),
+            fused.free_device_bytes(y.device))
         u, alpha, info = _batched_restarts(solve_multi, init_fn, y.device,
                                            seed, n_restarts, cap)
     else:
@@ -181,7 +181,9 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
                   record_trace: bool = False,
                   init_provided=None) -> DeconvolutionResult:
     """Purity-constrained mode (``--ref --nbunknown k --purity ...``);
-    purity (n_s,) is the already-flipped 1 - p/100 per-sample vector."""
+    purity (n_s,) is the already-flipped 1 - p/100 per-sample vector,
+    taken in y's dtype as the JAX API takes it (a bf16 value under bf16
+    storage)."""
     purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)

@@ -2,8 +2,8 @@
 
 Counterparts of ``partial_ref_solve_fused``, ``unsupervised_solve_fused``
 and ``purity_solve_fused`` of ``demethify_tpu/solvers/fused.py`` (same
-arguments and results, minus the TPU knobs ``axis_name``,
-``bf16_compute``, ``packed_io`` and ``tile``). The big arrays live
+arguments and results, minus the TPU knobs ``axis_name``, ``packed_io``
+and ``tile``). The big arrays live
 transposed, (rows, n_cpg), which is internal to this module. Each outer
 iteration launches K1 (``ops/cuda_kernels.u_phase_grams``: the whole U
 FISTA loop plus the new-u Gram blocks) and then one single-block kernel
@@ -32,6 +32,18 @@ K4 and K5/K6 leave an inactive member untouched. The only host read per
 outer iteration is one copy of the (B, N_SCAL_MULTI) scalar rows (costs
 and flags), for the trace, the members' iteration counts and the loop's
 "any member active" test. No member padding: that is a TPU sublane rule.
+
+bfloat16 storage: y, d and R_trunc may be bf16. The transposed copies
+[Y.T; D.T] and Rt.T then stay bf16 (the kernels read them as such), while
+u, alpha, the scalars and every sum over the CpG axis are float32. The
+set-up sums (starting cost, norms, ydy, known blocks) upcast the data a
+chunk of sites at a time, never as a whole. The set-up rounds where the
+JAX fused solvers' compiled programs round (XLA forms a product of bf16
+values in float32, exactly, unless the program keeps it as a bf16
+array): the DMAX2 slot the loop reads is max(D)^2 rounded to bf16, while
+the starting l_w and l_h take it in float32 (``_start``); the ydy sums
+take d y rounded to bf16 where the JAX solver's expression does
+(``_no_known_grams``, ``ops/gram.py``).
 
 With ``row_weights_b`` (B, n_cpg) the multi solvers run the weighted
 bootstrap: member b solves its own row-multiplicity problem (one
@@ -73,19 +85,20 @@ from demethify_tpu_torch.ops.cuda_small import (
 )
 from demethify_tpu_torch.ops.gram import (
     accum_dtype,
-    coverage_max2,
+    coverage_max,
     known_block_grams,
+    row_chunks,
+    storage_dy,
     weighted_known_grams,
 )
 
 
 def _data_t(y, d, R_trunc, dtype):
-    """ydt (2 n_s, N) = [Y.T; D.T], rtt (n_ct, N) = Rt.T (None without a
-    known block), and dmax^2."""
-    ydt = torch.cat([y.T, d.T], dim=0).to(dtype).contiguous()
-    rtt = None if R_trunc is None else R_trunc.T.to(dtype).contiguous()
-    dmax2 = torch.max(ydt[y.shape[1]:]) ** 2
-    return ydt, rtt, dmax2
+    """ydt (2 n_s, N) = [Y.T; D.T] and rtt (n_ct, N) = Rt.T (None without a
+    known block), both in the storage dtype, and max(D) in ``dtype``."""
+    ydt = torch.cat([y.T, d.T], dim=0).contiguous()
+    rtt = None if R_trunc is None else R_trunc.T.contiguous()
+    return ydt, rtt, torch.max(ydt[y.shape[1]:]).to(dtype)
 
 
 def _uut(u, dtype):
@@ -103,6 +116,16 @@ def _cost_t(ydt, rt_full, alpha, w=None):
     return torch.sum(sq if w is None else sq * w)
 
 
+def _site_chunks(dtype, ydt, *rows):
+    """(ydt, *rows) over chunks of sites, ydt upcast to ``dtype`` one chunk
+    at a time (the set-up sums without a copy of the whole data under
+    16-bit storage, and without (rows, N) temporaries in any dtype). Each
+    of ``rows`` is (k, N), (N,) or None."""
+    for lo, hi in row_chunks(ydt.shape[1]):
+        yield (ydt[:, lo:hi].to(dtype),
+               *(None if r is None else r[..., lo:hi] for r in rows))
+
+
 def _scalars(dtype, device, n=N_SCAL, **slots):
     scal = torch.zeros(n, dtype=dtype, device=device)
     names = {"a_u": A_U, "l_w": L_W, "l_w_prev": L_W_PREV,
@@ -113,44 +136,79 @@ def _scalars(dtype, device, n=N_SCAL, **slots):
     return scal
 
 
-def _start(ydt, rtt, uut, alpha, n_u, dmax2, alpha_fista, w=None):
+def _start(ydt, rtt, uut, alpha, n_u, dmax, alpha_fista, w=None):
     """One member's starting scalars (the same arithmetic in the single-
     and the multi-member solves, so their members start bit-equal):
     Nesterov scalars 1, l_w = l_w_prev = ||alpha_unknown||^2 dmax^2 and
     the cost; with ``alpha_fista`` (not the Frank-Wolfe purity solve)
     also l_h_prev = ||[Rt | u]||^2 dmax^2 and ||Rt||^2. With site weights
     ``w`` (N,) the cost and the norms are w-weighted, as the plain
-    solvers' ``row_weights`` makes them (dmax2 is then the member's)."""
-    ut = uut[:n_u]
-    rt0 = ut if rtt is None else torch.cat([rtt, ut], dim=0)
+    solvers' ``row_weights`` makes them (dmax, max(D), is then the
+    member's). Under 16-bit storage the starting constants take dmax^2
+    in ``dtype``, and the DMAX2 slot the kernels read every iteration
+    takes it rounded to the storage dtype, as the JAX fused solvers'
+    compiled programs form the two (max(D) ** 2 is a bf16 value carried
+    into their loops, fused in float32 into the starting products)."""
+    dtype = alpha.dtype
+    dmax2 = dmax ** 2
+    sums = [_start_sums(y_c, r_c, u_c, alpha, alpha_fista, w_c)
+            for y_c, r_c, u_c, w_c in _site_chunks(dtype, ydt, rtt,
+                                                     uut[:n_u], w)]
+    cost, l_h, rt_sq = (None if x[0] is None else sum(x[1:], x[0])
+                        for x in zip(*sums))
     l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
-    slots = dict(a_u=1.0, l_w=l_w0, l_w_prev=l_w0,
-                 cost=_cost_t(ydt, rt0, alpha, w), dmax2=dmax2)
+    slots = dict(a_u=1.0, l_w=l_w0, l_w_prev=l_w0, cost=cost,
+                 dmax2=dmax2.to(ydt.dtype).to(dtype))
     if alpha_fista:
-        if w is None:
-            l_h = torch.sum(rt0 * rt0)
-            rt_sq = None if rtt is None else torch.sum(rtt * rtt)
-        else:
-            l_h = torch.sum(w * ut * ut)
-            rt_sq = None if rtt is None else torch.sum(w * rtt * rtt)
-            l_h = l_h if rt_sq is None else rt_sq + l_h
         slots.update(a_alpha=1.0, l_h_prev=l_h * dmax2)
         if rt_sq is not None:
             slots["rt_sq"] = rt_sq
     return slots
 
 
-def _known_grams(R_trunc, y, d, dtype):
-    """The loop-invariant known-block Grams (G_tt, b_t, ydy), contiguous."""
-    return tuple(x.contiguous() for x in known_block_grams(
-        R_trunc.to(dtype), d.to(dtype), y.to(dtype)))
+def _start_sums(ydt, rtt, ut, alpha, alpha_fista, w):
+    """The starting cost, ||[Rt | u]||^2 and ||Rt||^2 (w-weighted given
+    site weights ``w``; the norms None without ``alpha_fista``) of the
+    sites of ydt (in the state dtype) and rtt (in the storage dtype), all
+    in the state dtype."""
+    rtf = None if rtt is None else rtt.to(ut.dtype)
+    rt0 = ut if rtt is None else torch.cat([rtf, ut], dim=0)
+    cost = _cost_t(ydt, rt0, alpha, w)
+    if not alpha_fista:
+        return cost, None, None
+    if w is None:
+        l_h = torch.sum(rt0 * rt0)
+        rt_sq = None if rtt is None else torch.sum(rtf * rtf)
+    else:
+        l_h = torch.sum(w * ut * ut)
+        rt_sq = None if rtt is None else torch.sum(w * rtf * rtf)
+        l_h = l_h if rt_sq is None else rt_sq + l_h
+    return cost, l_h, rt_sq
 
 
-def _no_known_grams(ydt):
-    """Empty known blocks and ydy for the solves without a reference."""
+def _known_grams(R_trunc, y, d):
+    """The loop-invariant known-block Grams (G_tt, b_t, ydy), contiguous,
+    in the state dtype."""
+    return tuple(x.contiguous() for x in known_block_grams(R_trunc, d, y))
+
+
+def _no_known_grams(ydt, dtype, dy_once=False):
+    """Empty known blocks and ydy = sum_i d y y (n_s,) in ``dtype`` for the
+    solves without a reference. Under 16-bit storage the JAX single
+    solver's ``(dt * yt * yt).astype`` (``fused.py:272``) compiles to d y
+    rounded to the storage dtype times y in float32, as the known
+    blocks' ydy (``ops/gram.py``); with ``dy_once`` the multi solver's
+    ``(dt * yt).astype(dtype) * yt.astype(dtype)`` (``fused.py:988``)
+    compiles to the exact float32 product."""
     n_s = ydt.shape[0] // 2
-    ydy = torch.sum(ydt[n_s:] * ydt[:n_s] * ydt[:n_s], dim=1).contiguous()
-    return ydt.new_empty((n_s, 0, 0)), ydt.new_empty((0, n_s)), ydy
+    ydy = torch.zeros(n_s, dtype=dtype, device=ydt.device)
+    for lo, hi in row_chunks(ydt.shape[1]):
+        dy, dyy = storage_dy(ydt[n_s:, lo:hi], ydt[:n_s, lo:hi], dtype)
+        ydy += torch.sum(dy * ydt[:n_s, lo:hi].to(dtype) if dy_once
+                         else dyy, dim=1)
+    empty = dict(dtype=dtype, device=ydt.device)
+    return (torch.empty((n_s, 0, 0), **empty), torch.empty((0, n_s), **empty),
+            ydy.contiguous())
 
 
 def _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
@@ -178,26 +236,30 @@ def _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
 def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
                             n_iter1: int = 10000, n_iter2: int = 20,
                             tol: float = 1e-2, record_trace: bool = False,
-                            tol_relative: bool = False):
+                            tol_relative: bool = False,
+                            bf16_compute: bool = False):
     """Same trajectory as ``solvers/partial_ref.partial_ref_solve``.
 
     u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
-    (n_cpg, n_ct), all on one device. Returns (u, alpha, info) with
-    info = {'cost': 0-d tensor, 'n_iter': int, 'trace': (n_iter1,)
-    NaN-padded cost history when record_trace, else empty}.
+    (n_cpg, n_ct), all on one device. ``bf16_compute`` (bf16 storage
+    only; a no-op otherwise, as in the JAX solver) runs K1's bf16_compute
+    form. Returns (u, alpha, info) with info = {'cost': 0-d tensor,
+    'n_iter': int, 'trace': (n_iter1,) NaN-padded cost history when
+    record_trace, else empty}.
     """
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, rtt, uut, alpha, n_u, dmax2, True))
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax, True))
     alpha_prev = alpha.clone()
 
     def one_iteration():
         gu, b_u, usq = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
-                                     uut, scal, n_iter2)
+                                     uut, scal, n_iter2,
+                                     bf16_compute=bf16_compute)
         alpha_phase_full(G_tt, b_t, gu, b_u, usq, ydy, alpha, alpha_prev,
                          scal, n_iter2, n_u)
 
@@ -218,11 +280,11 @@ def unsupervised_solve_fused(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
     ``partial_ref_solve_fused``."""
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, _, dmax2 = _data_t(y, d, None, dtype)
+    ydt, _, dmax = _data_t(y, d, None, dtype)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _no_known_grams(ydt)
+    G_tt, b_t, ydy = _no_known_grams(ydt, dtype)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, None, uut, alpha, n_u, dmax2, True))
+                    **_start(ydt, None, uut, alpha, n_u, dmax, True))
     alpha_prev = alpha.clone()
 
     def one_iteration():
@@ -248,11 +310,11 @@ def purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u: int,
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
-    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, dtype)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, rtt, uut, alpha, n_u, dmax2, False))
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax, False))
 
     def one_iteration():
         gu, b_u, _ = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
@@ -279,14 +341,15 @@ def free_device_bytes(device) -> int:
 
 
 def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
-                      itemsize: int, free_bytes: int,
+                      itemsize: int, data_itemsize: int, free_bytes: int,
                       weighted: bool = False) -> int:
     """Largest restart batch one multi-member solve takes on the card
     (replaces the JAX package's VMEM model of the same name), given the
     device memory ``free_bytes`` free when the restarts start (y, d and
-    Rt already on the device; ``free_device_bytes``).
+    Rt already on the device; ``free_device_bytes``). ``itemsize`` is the
+    state's, ``data_itemsize`` the data's (2 under bf16 storage).
 
-    What grows with B, per member, in bytes:
+    What grows with B, per member, in bytes (``itemsize``):
       - K4's partial buffer, E ceil(n_cpg / 128) itemsize, with
         E = n_s n_u (n_ct + n_u) + n_u n_s + 1 Gram entries;
       - the member's u and u_prev rows (2 n_u n_cpg itemsize), its
@@ -296,12 +359,13 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
         time and K5/K6 give each member its own thread block, so neither
         grows with B.
     What does not: the solver's copies [Y.T; D.T] and Rt.T,
-    itemsize n_cpg (2 n_s + n_ct) bytes. The members may take half of
+    data_itemsize n_cpg (2 n_s + n_ct) bytes. The members may take half of
     the free memory less those copies; the other half is room for the
     set-up's transients (the starting costs' residuals and the known
     block's Gram products, each a few (n_s, n_cpg) arrays) and for the
     allocator's rounding. So
-        B_max = max(1, (free_bytes // 2 - itemsize n_cpg (2 n_s + n_ct))
+        B_max = max(1, (free_bytes // 2
+                        - data_itemsize n_cpg (2 n_s + n_ct))
                        // (itemsize (E ceil(n_cpg / 128)
                                      + (4 n_u + weighted) n_cpg))).
     Above it the restarts (or bootstrap replicates) run in chunks of
@@ -310,17 +374,17 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
     n_blocks = -(-n_cpg // SITES_PER_BLOCK)
     per_member = itemsize * (gram_entries(n_s, n_ct, n_u) * n_blocks
                              + (4 * n_u + int(weighted)) * n_cpg)
-    shared = itemsize * n_cpg * (2 * n_s + n_ct)
+    shared = data_itemsize * n_cpg * (2 * n_s + n_ct)
     return max(1, (free_bytes // 2 - shared) // per_member)
 
 
-def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax2, dtype, tol,
+def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax, dtype, tol,
                  tol_relative, alpha_fista, w_t=None):
     """The members' [u.T; u_prev.T] rows, alpha stack and scalar rows.
 
     Each member's starting scalars are the single-member solve's
     (``_start``; with weight rows ``w_t`` (B, N), the member's weighted
-    ones, dmax2 (B,) then per member). Its tolerance is tol, or tol times
+    ones, dmax (B,) then per member). Its tolerance is tol, or tol times
     its starting cost when ``tol_relative``, and it starts active when
     |cost - inf| >= tol, both in the working dtype on the host, as
     ``_outer_loop`` tests them (a NaN starting cost makes the member
@@ -330,7 +394,7 @@ def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax2, dtype, tol,
     scal_b = torch.stack([
         _scalars(dtype, ydt.device, n=N_SCAL_MULTI,
                  **_start(ydt, rtt, uut_b[b], alpha_b[b], n_u,
-                          dmax2 if w_t is None else dmax2[b], alpha_fista,
+                          dmax if w_t is None else dmax[b], alpha_fista,
                           None if w_t is None else w_t[b]))
         for b in range(alpha_b.shape[0])])
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -371,25 +435,24 @@ def _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace):
 
 
 def _multi_data(y, d, R_trunc, dtype, row_weights_b):
-    """The multi solvers' shared data and known blocks: ydt, rtt, dmax2
+    """The multi solvers' shared data and known blocks: ydt, rtt, dmax
     and (G_tt, b_t, ydy), shared by the members; with ``row_weights_b``
-    also the members' weight rows w_t (B, N), and then dmax2 (B,) (the
+    also the members' weight rows w_t (B, N), and then dmax (B,) (the
     max coverage over each member's surviving rows) and the known blocks
     one per member, w-weighted (else w_t is None)."""
-    ydt, rtt, dmax2 = _data_t(y, d, R_trunc, dtype)
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
     if row_weights_b is None:
-        known = (_no_known_grams(ydt) if R_trunc is None
-                 else _known_grams(R_trunc, y, d, dtype))
-        return ydt, rtt, dmax2, known, None
+        known = (_no_known_grams(ydt, dtype, dy_once=True) if R_trunc is None
+                 else _known_grams(R_trunc, y, d))
+        return ydt, rtt, dmax, known, None
     w_t = row_weights_b.to(device=ydt.device, dtype=dtype).contiguous()
     if w_t.shape != (row_weights_b.shape[0], ydt.shape[1]):
         raise ValueError(f"row_weights_b must be (B, n_cpg), got "
                          f"{tuple(row_weights_b.shape)}")
-    dmax2 = torch.stack([coverage_max2(d, w, dtype) for w in w_t])
+    dmax = torch.stack([coverage_max(d, w).to(dtype) for w in w_t])
     R = y.new_empty((y.shape[0], 0)) if R_trunc is None else R_trunc
-    known = tuple(x.contiguous() for x in weighted_known_grams(
-        R.to(dtype), d.to(dtype), y.to(dtype), w_t))
-    return ydt, rtt, dmax2, known, w_t
+    known = tuple(x.contiguous() for x in weighted_known_grams(R, d, y, w_t))
+    return ydt, rtt, dmax, known, w_t
 
 
 def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
@@ -411,10 +474,10 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
     only (n_u^2 <= 3 n_s), at most ``max_multi_members`` members (the
     caller chunks; ``solvers/api.py`` does)."""
     dtype = accum_dtype(y)
-    ydt, rtt, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(
+    ydt, rtt, dmax, (G_tt, b_t, ydy), w_t = _multi_data(
         y, d, R_trunc, dtype, row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
-                                          dmax2, dtype, tol, tol_relative,
+                                          dmax, dtype, tol, tol_relative,
                                           True, w_t)
     alpha_prev_b = alpha_b.clone()
 
@@ -443,10 +506,10 @@ def unsupervised_solve_fused_multi(u_b, alpha_b, y, d, n_u: int,
     ``unsupervised_solve(row_weights=)``; K4's weighted form without a
     known block). Returns as ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
-    ydt, _, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(y, d, None, dtype,
+    ydt, _, dmax, (G_tt, b_t, ydy), w_t = _multi_data(y, d, None, dtype,
                                                       row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, None, n_u,
-                                          dmax2, dtype, tol, tol_relative,
+                                          dmax, dtype, tol, tol_relative,
                                           True, w_t)
     alpha_prev_b = alpha_b.clone()
 
@@ -473,10 +536,10 @@ def purity_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, purity, n_u: int,
     Returns as ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
-    ydt, rtt, dmax2, (G_tt, b_t, ydy), w_t = _multi_data(
+    ydt, rtt, dmax, (G_tt, b_t, ydy), w_t = _multi_data(
         y, d, R_trunc, dtype, row_weights_b)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
-                                          dmax2, dtype, tol, tol_relative,
+                                          dmax, dtype, tol, tol_relative,
                                           False, w_t)
 
     def one_iteration():

@@ -16,12 +16,19 @@ matched instead: Dirichlet(1, ..., 1) columns are column-normalised
 Exp(1) draws, and Beta(1/2, 1/2) is ``sin(pi U / 2)^2`` with U uniform
 (the arcsine law). Runs that must match the JAX package exactly pass the
 same initial factors to both (``init_provided``).
+
+The draws come back in ``y.dtype``, as the JAX package's do: under
+bfloat16 storage u0 and alpha0 are bf16 values (the solvers then carry
+them in float32). Uniform u is drawn in bf16 directly; the Beta and
+Dirichlet draws are formed in float32 and rounded once, as the JAX
+package's ``.astype(dtype)`` rounds them.
 """
 
 import math
 
 import torch
 
+from demethify_tpu_torch.device import state_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 
 INIT_OPTIONS = ("uniform", "uniform_", "beta", "SVD", "ICA")
@@ -33,14 +40,16 @@ def _rand_u(gen, n_cpg, n_u, like):
 
 
 def _rand_beta_half(gen, n_cpg, n_u, like):
-    x = _rand_u(gen, n_cpg, n_u, like)
-    return torch.sin(0.5 * math.pi * x) ** 2
+    x = torch.rand((n_cpg, n_u), generator=gen,
+                   dtype=state_dtype(like.dtype), device=like.device)
+    return (torch.sin(0.5 * math.pi * x) ** 2).to(like.dtype)
 
 
 def _rand_dirichlet_ones(gen, p, n_s, like):
-    e = torch.empty((p, n_s), dtype=like.dtype, device=like.device)
+    e = torch.empty((p, n_s), dtype=state_dtype(like.dtype),
+                    device=like.device)
     e.exponential_(generator=gen)
-    return e / e.sum(dim=0, keepdim=True)
+    return (e / e.sum(dim=0, keepdim=True)).to(like.dtype)
 
 
 def zero_guard(alpha, n_u: int):
@@ -78,7 +87,10 @@ def _draw(gen, init_option, y, d, R_trunc, n_u, row_weights=None):
     p = n_u if R_trunc is None else R_trunc.shape[1] + n_u
     if init_option == "uniform":
         u = _rand_u(gen, n_cpg, n_u, y)
-        dw = d if row_weights is None else d * row_weights[:, None]
+        # the JAX package's weight rows are in y.dtype: w d is rounded
+        # to bf16 under bf16 storage
+        dw = (d if row_weights is None
+              else d * row_weights.to(d.dtype)[:, None])
         alpha = wls_intercept_batch(y, dw, torch.cat([R_trunc, u], dim=1))
     elif init_option == "uniform_":
         u = _rand_u(gen, n_cpg, n_u, y)

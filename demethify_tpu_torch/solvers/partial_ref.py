@@ -15,6 +15,12 @@ copies: the U update is row-separable and stays raw (rows with w = 0 still
 move), while every cross-row reduction takes the weights -- the Grams and
 the cost, ||Rt||^2 and sum u^2 in the Lipschitz constants, and the max
 coverage, taken over the rows with w > 0 only.
+
+bfloat16 storage (y, d, R_trunc bf16; u, alpha and every sum float32) as
+the JAX XLA solver runs it: R_trunc stays bf16, so the products that
+solver forms in bf16 stay rounded -- the unweighted ||Rt||^2 is a bf16
+sum of bf16 squares, the Grams' d y and the residual of C are bf16
+(``ops/gram.py``) -- and everything else runs in float32.
 """
 
 import torch
@@ -44,8 +50,7 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
-    R_trunc = R_trunc.to(dtype)
-    R0 = torch.cat([R_trunc, u], dim=1)
+    R0 = torch.cat([R_trunc.to(dtype), u], dim=1)
     dmax2 = coverage_max2(d, row_weights, dtype)
     u_sq = row_sum_sq(row_weights, dtype)
     rt_sq = u_sq(R_trunc)

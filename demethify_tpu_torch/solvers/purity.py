@@ -37,10 +37,12 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
-    R_trunc = R_trunc.to(dtype)
-    purity = purity.to(dtype)
+    if accum_dtype(purity) == purity.dtype:
+        # a 16-bit purity stays so, as in the JAX solver: its
+        # Frank-Wolfe step rounds 1 - purity to the storage dtype
+        purity = purity.to(dtype)
     dmax2 = coverage_max2(d, row_weights, dtype)
-    R0 = torch.cat([R_trunc, u], dim=1)
+    R0 = torch.cat([R_trunc.to(dtype), u], dim=1)
     l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
     cf = weighted_cost(y, R0, alpha, d, row_weights)
     tol = tol * cf if tol_relative else tol

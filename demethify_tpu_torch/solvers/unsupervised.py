@@ -54,7 +54,7 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
     k = 0
     while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
         if use_gram_u:
-            C = (d * y).to(dtype) @ alpha.T
+            C = (d.to(dtype) * y.to(dtype)) @ alpha.T
             M = site_curvature(d, alpha)
             u, u_prev, a1, l_w_prev = fista.fista_u_gram(
                 u, u_prev, a1, l_w_prev, l_w, C, M, n_iter2, lagged=True)

@@ -14,24 +14,31 @@ ROADMAP port queue item 5.
 import numpy as np
 import torch
 
+from demethify_tpu_torch.device import state_dtype
+
 
 def from_numpy(u, alpha, y, d, R_trunc, *, device, dtype):
     """(u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
     (n_cpg, n_ct)) as numpy arrays -> the same tuple of contiguous
-    tensors on ``device`` in ``dtype``. ``u`` and ``alpha`` may be None."""
-    def conv(x):
+    tensors on ``device``: the data y, d, R_trunc in the storage dtype
+    ``dtype``, the factors u, alpha in its state dtype (float32 for
+    bfloat16 storage). ``u`` and ``alpha`` may be None. The numpy arrays
+    are moved to the device first and cast there."""
+    def conv(x, dt):
         if x is None:
             return None
-        return torch.as_tensor(np.ascontiguousarray(x)).to(
-            device=device, dtype=dtype)
-    return tuple(conv(x) for x in (u, alpha, y, d, R_trunc))
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device).to(dt)
+    state = state_dtype(dtype)
+    return (conv(u, state), conv(alpha, state),
+            *(conv(x, dtype) for x in (y, d, R_trunc)))
 
 
 def from_numpy_batch(u_b, alpha_b, y, d, R_trunc, *, device, dtype):
     """(u_b (B, n_cpg, n_u), alpha_b (B, p, n_s), y, d (n_cpg, n_s),
     R_trunc (n_cpg, n_ct) or None) as numpy arrays -> the same tuple of
-    contiguous tensors on ``device`` in ``dtype``: the stacked initial
-    factors of a batch of restart members and the data they share."""
+    contiguous tensors on ``device``, dtypes as ``from_numpy``: the stacked
+    initial factors of a batch of restart members and the data they
+    share."""
     u_b, alpha_b = np.asarray(u_b), np.asarray(alpha_b)
     n_cpg, n_s = np.shape(y)
     if (u_b.ndim != 3 or alpha_b.ndim != 3 or u_b.shape[0] != alpha_b.shape[0]
@@ -45,9 +52,12 @@ def from_numpy_batch(u_b, alpha_b, y, d, R_trunc, *, device, dtype):
 
 def purity_from_numpy(purity, *, device, dtype):
     """The JAX package's purity vector (n_s,) -> a contiguous tensor on
-    ``device`` in ``dtype``. It is the known-block mass of each sample,
-    already flipped to 1 - p/100 from the percentages the CLI takes, as
-    ``purity_solve`` of both packages expects it."""
+    ``device`` in ``dtype``, the data's storage dtype: the JAX API casts
+    purity to ``y.dtype`` (``solvers/api.py:230``), so under bfloat16
+    storage the known-block mass is a bf16 value. It is the known-block
+    mass of each sample, already flipped to 1 - p/100 from the
+    percentages the CLI takes, as ``purity_solve`` of both packages
+    expects it."""
     purity = np.ascontiguousarray(purity)
     if purity.ndim != 1:
         raise ValueError(f"purity must be one value per sample, got shape "

@@ -34,6 +34,12 @@ chunking never changes a result. torch cannot reproduce ``jax.random``'s
 draws: the port's intervals agree with the JAX package's only when both
 are given the same draws. ``indices`` and ``inits`` inject them.
 
+bfloat16 storage: the resample layout gathers bf16 rows; the weights
+layout runs K4's bf16 form. The weight rows hold the JAX package's
+values, which it accumulates in y.dtype: under bf16 a row count stops at
+256 (256 + 1 rounds back to 256 in bf16), and the supervised WLS weights
+w d are bf16 products.
+
 Divergences kept from the JAX package: the bootstrap uses the main
 path's flipped purity 1 - p/100 (the reference's bootstrap uses p/100),
 and ``ref=None`` runs the unsupervised bootstrap (the reference crashes).
@@ -151,7 +157,10 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         return init_partial(g, init_option, yb, db, refb, n_u, w)
 
     def weights(idx):
-        return torch.bincount(idx, minlength=n_cpg).to(dtype)
+        w = torch.bincount(idx, minlength=n_cpg)
+        if y.dtype == torch.bfloat16:
+            w = torch.clamp(w, max=256)     # the JAX package's bf16 counts
+        return w.to(dtype)
 
     def resample_one(r):
         g, idx = draw(r)
@@ -177,7 +186,8 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         g, idx = draw(r)
         w = weights(idx)
         if supervised:
-            return wls_intercept_batch(d * y, w[:, None] * d, ref), None
+            return wls_intercept_batch(d * y, w.to(d.dtype)[:, None] * d,
+                                       ref), None
         u0, a0 = init(r, g, y, d, ref, w)
         gram_u = fista.use_gram_u(n_u, n_s, n_iter2)
         if unsupervised:
@@ -226,7 +236,7 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         cap = CPU_MEMBERS if y.device.type == "cpu" else (
             fused.max_multi_members(
                 n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
-                torch.finfo(dtype).bits // 8,
+                torch.finfo(dtype).bits // 8, y.element_size(),
                 fused.free_device_bytes(y.device), weighted=True))
         for lo in range(0, n_bootstrap, cap):
             alpha_b, u_b = weighted_chunk(lo, min(lo + cap, n_bootstrap))

@@ -104,7 +104,7 @@ def test_partial_ref_close_to_jax(tmp_path, fixture_files):
 
 @pytest.mark.parametrize("flag", [["--initstate", "x"],
                                   ["--ic", "AIC"], ["--savestate", "x"],
-                                  ["--dtype", "bfloat16"], ["--shard"]])
+                                  ["--profile", "x"], ["--shard"]])
 def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,
                                                flag, capsys):
     samples, ref = fixture_files

@@ -291,7 +291,7 @@ def test_multi_wrappers_reject(bad):
         args = [torch.zeros(s, dtype=dt) for s in (
             (n_s, N_CT, N_CT), (N_CT, n_s), (n_b, n_s, 1, p), (n_b, 1, n_s),
             (n_b,), (n_s,), (n_b, p, n_s), (n_b, p, n_s))]
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             cuda_small.alpha_phase_full_multi(*args, scal, 3, 1,
                                               row_mask_b=torch.ones(n_b, p))
         return

@@ -195,12 +195,12 @@ def test_member_cap_and_chunking(small_problem):
                + 4 * n_u * n_cpg)
     shared = 8 * n_cpg * (2 * n_s + n_ct)
     free = 2 * (shared + 3 * per)
-    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, free) == 3
-    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, free - 2) == 2
-    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, 0) == 1
+    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, 8, free) == 3
+    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, 8, free - 2) == 2
+    assert fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 8, 8, 0) == 1
     # 1M x 10, 5 + 1, float32, 79 GB free: 18.2 MB a member (2.2 MB of K4
     # partials), 100 MB shared -> 2162 members
-    assert fused.max_multi_members(1_000_000, 10, 5, 1, 4,
+    assert fused.max_multi_members(1_000_000, 10, 5, 1, 4, 4,
                                    79 * 10 ** 9) == 2162
 
     y, d, Rt = (torch.tensor(p[k]) for k in ("y", "d", "R_trunc"))
@@ -261,7 +261,7 @@ def test_row_weights_and_row_mask_raise_naming_their_items(small_problem):
     with pytest.raises(ValueError, match="row_weights_b"):
         fused.purity_solve_fused_multi(u_t, a_t, y, d, Rt, pur, p["n_u"],
                                        row_weights_b=w[:, 1:])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         cuda_small.alpha_phase_full_multi(
             *(torch.zeros(1) for _ in range(8)), torch.zeros(1, 10), 3, 1,
             row_mask_b=torch.ones(1, 3))

@@ -507,8 +507,8 @@ def test_weighted_multi_member_cap(small_problem):
     """The weight row joins the per-member bytes of the cap."""
     n_cpg, n_s, n_ct, n_u = 1_000_000, 10, 5, 1
     free = 79 * 10 ** 9
-    plain = fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 4, free)
-    weighted = fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 4, free,
+    plain = fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 4, 4, free)
+    weighted = fused.max_multi_members(n_cpg, n_s, n_ct, n_u, 4, 4, free,
                                        weighted=True)
     # 18.2 MB a member, 4 MB more with the weight row
     assert plain == 2162 and weighted == 1773
