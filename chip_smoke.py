@@ -62,7 +62,32 @@ non-zero and prints no result line):
    (B = 8, 100 x 500) and unsupervised (n_u = 3, B = 8, 1000 x 20), and
    the resample layout for partial-reference (B = 4, 200 x 20), per
    replicate and outer iteration;
-8. CLI: a simulated 50,000-site bedmethyl fixture through
+8. the envelope (after phase 5's kernels, and its paths after phase 7's):
+   each kernel's shared-memory plan against its source's ``*_smem``
+   export; every shape the kernels took before the wide layout plans the
+   resident layout unless the wide one fits twice its blocks per SM, and
+   the wide layout forced gives the resident one's bits (K1 at the main
+   path's shape, K4, float64, bf16, n_u = 12); K1 and K4 (B = 4)
+   against their twins at n_s in {64, 128, 256, 500} with 25 + 4 and
+   n_s = 256 with 5 + 1, 200k sites, float32, float64 and bf16, each
+   timed beside its bound; one K1 launch at 1M x 500, 25 + 4, float64
+   with its partial buffer; n_u in {9, 12, 16} in K1 (gram and direct)
+   and K4; p in {33, 40, 64} in K2, K3, K5 and K6; K2 and K5 with row
+   masks (all-ones bit-identical to none); K1 with Rt folded into the
+   data block, bit-identical to the unfolded launch; K1's bf16_compute in
+   the direct form against its twin and through
+   ``partial_ref_solve_fused(bf16_compute=True)`` card vs CPU; the
+   direct-form weights bootstrap card vs CPU (no kernel launches); the
+   padded ``partial_ref_solve_fused(row_mask=)`` against the lower-rank
+   solve; paths through ``solvers.api`` that run the wide layout
+   (1M x 100, 25 + 4, float64; 4 restarts) and p = 37, n_u = 12
+   (float64: partial-reference, purity, and both with 4 restarts), each
+   after its kernel solver against the plain solver on the same data and
+   inits over a short schedule; and the cohort
+   path, ``partial_reference_deconv`` at 1M x 100, 25 + 4, float32,
+   1000 x 20, with K1's and K2's times at that shape and the plain solver
+   over 20 x 20;
+9. CLI: a simulated 50,000-site bedmethyl fixture through
    ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
    with ``--restart 4`` in the three iterative modes, and with
    ``--confidence 95 8`` under both ``--cimethod`` layouts in all four.
@@ -72,6 +97,8 @@ The line before the last is the kernels' JSON record; the last line is
 package, and checks that the port's sources reach no file of it.
 """
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -203,12 +230,30 @@ def timed_ms(fn):
 
 
 def counters():
-    """(wrapper, its counter attribute, the name the counts go by): one
-    counter per kernel form, bf16 data apart from float32/float64."""
+    """(wrapper, its counter, the name the counts go by): one counter per
+    kernel form, bf16 data apart from float32/float64. A counter is an
+    attribute of the wrapper, or "forms:KEY", the entry KEY of the
+    wrapper's ``forms`` dict (the layouts and options of
+    ``cuda_kernels.count_forms``; a launch counts there and in its
+    attribute)."""
     from demethify_tpu_torch.ops import cuda_kernels, cuda_multi, cuda_small
 
     k1, k4 = cuda_kernels.u_phase_grams, cuda_multi.u_phase_grams_multi
-    return ((k1, "launches", "u_phase_grams"),
+    k2, k3 = cuda_small.alpha_phase_full, cuda_small.fw_phase_full
+    k5, k6 = cuda_small.alpha_phase_full_multi, cuda_small.fw_phase_full_multi
+    return ((k1, "forms:wide", "u_phase_grams{wide}"),
+            (k1, "forms:state_cols", "u_phase_grams{n_u>8}"),
+            (k1, "forms:bf16c_direct", "u_phase_grams{bf16_compute direct}"),
+            (k1, "forms:rt_folded", "u_phase_grams{rt folded}"),
+            (k4, "forms:wide", "u_phase_grams_multi{wide}"),
+            (k4, "forms:state_cols", "u_phase_grams_multi{n_u>8}"),
+            (k2, "forms:wide", "alpha_phase_full{p>32}"),
+            (k2, "forms:masked", "alpha_phase_full{masked}"),
+            (k3, "forms:wide", "fw_phase_full{p>32}"),
+            (k5, "forms:wide", "alpha_phase_full_multi{p>32}"),
+            (k5, "forms:masked", "alpha_phase_full_multi{masked}"),
+            (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
+            (k1, "launches", "u_phase_grams"),
             (k1, "launches_bf16", "u_phase_grams[bf16]"),
             (k1, "launches_bf16_compute", "u_phase_grams[bf16_compute]"),
             (cuda_small.alpha_phase_full, "launches", "alpha_phase_full"),
@@ -223,11 +268,16 @@ def counters():
 
 def reset_counts():
     for fn, attr, _ in counters():
-        setattr(fn, attr, 0)
+        if attr.startswith("forms:"):
+            fn.forms.clear()
+        else:
+            setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: getattr(fn, attr, 0) for fn, attr, name in counters()}
+    return {name: (getattr(fn, "forms", {}).get(attr[6:], 0)
+                   if attr.startswith("forms:") else getattr(fn, attr, 0))
+            for fn, attr, name in counters()}
 
 
 def expect_counts(launches, **want):
@@ -239,11 +289,11 @@ def expect_counts(launches, **want):
 # ------------------------------------------------------------------ bounds
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
-# memory rate and its operations over the peak rate of their type
-# (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32 and
-# 34 TFLOP/s float64 outside the tensor cores).
+# memory rate and its operations over the card's peak rate for their
+# type (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32
+# outside the tensor cores, 67 TFLOP/s float64 on them).
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12}
 
 
 def bound(n_bytes, flops, dtype_name):
@@ -259,21 +309,25 @@ def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, data_itemsize,
     """(bytes, flops) of K1 (one member) or K4 (n_members active members)
     on n sites: Y, D, Rt read once (``data_itemsize`` bytes each, 2 under
     bf16 storage; ``itemsize`` is the state's); each member's
-    u, u_prev read and written (and, ``weighted``, its weight row read);
-    per site and member the C/M build, the FISTA steps and the Gram sums
-    of the new u (plus, weighted, the n_u products w u_v formed once per
-    site, which the Gram sums then read in place of u_v); the scalar
-    momentum chain, the same for every site, is not counted, nor are the
-    conversions of bf16 data (one per value read) or bf16_compute's
-    roundings."""
+    u, u_prev read and written (and, ``weighted``, its weight row read).
+    Operations, the fewest the function needs: per site and member the
+    known-block residual (with d y), C and M (each pair product
+    a2[u,s] a2[v,s] formed once per launch and member, then one multiply
+    by d and one add per site), the FISTA steps, and the Gram sums of the
+    new u (d_s u_v formed once per (s, v), then a multiply-add per [Rt|u]
+    row; b_u a multiply-add per (v, s) on the d y already formed; sum u^2)
+    plus, weighted, the n_u products w u_v. The scalar momentum chain,
+    the same for every site, is not counted, nor are the conversions of
+    bf16 data (one per value read) or bf16_compute's roundings."""
     p = n_ct + n_u
+    pairs = n_u * (n_u + 1) // 2
     n_bytes = n * (data_itemsize * (2 * n_s + n_ct)
                    + itemsize * n_members * (4 * n_u + int(weighted)))
-    per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 3 * n_u * (n_u + 1) // 2)
+    per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 2 * pairs)
                 + steps * (6 * n_u + 2 * n_u * n_u)
-                + 3 * n_s * n_u * p + 3 * n_u * n_s + 2 * n_u
+                + 2 * n_s * n_u * p + n_s * n_u + 2 * n_u * n_s + 2 * n_u
                 + n_u * int(weighted))
-    return n_bytes, per_site * n * n_members
+    return n_bytes, (per_site * n + n_s * pairs) * n_members
 
 
 def glue_work(p, n_s, n_ct, steps, itemsize, n_members=1, fw=False,
@@ -365,14 +419,20 @@ def _k1_inputs(n, n_s, n_ct, n_u, dtype, seed):
 
 def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
              n_s=N_S, n_ct=N_CT, lagged=False, label="", data=None,
-             bf16_compute=False):
+             bf16_compute=False, inner=10, reps=7):
     """K1 against its twin. ``data`` "bfloat16" stores Y, D and Rt in bf16
     (the state stays ``dtype_name``, float32), ``bf16_compute`` runs that
-    form's roundings; both are held to the float32 tolerances."""
+    form's roundings; both are held to the float32 tolerances. ``reps``
+    timed repetitions of ``inner`` launches each."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         gram_form, u_phase_grams, u_phase_grams_plain)
+    try:
+        from demethify_tpu_torch.ops.cuda_kernels import u_phase_layout
+    except ImportError:   # a tree from before the wide layout (time_main_path)
+        def u_phase_layout(*_):
+            return ("resident",)
 
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype, seed)
@@ -397,25 +457,31 @@ def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
     err_s = float((sk - sp).abs().max() / sp.abs().max())
     tol = TOL[dtype_name]
     form = "gram" if gram_form(n_u, n_s) else "direct"
+    layout = u_phase_layout("K1", uut.element_size(), n_s, n_ct, n_u,
+                            form == "direct", bf16_compute
+                            and data == "bfloat16")[0]
     data_name = str(ydt.dtype).replace("torch.", "")
     res = {"n": n, "n_s": n_s, "n_ct": n_ct, "n_u": n_u, "steps": steps,
-           "lagged": lagged, "form": form, "dtype": dtype_name,
+           "lagged": lagged, "form": form, "layout": layout,
+           "dtype": dtype_name,
            "data": data_name, "bf16_compute": bf16_compute,
            "u_max_abs": err_u, "gu_rel": err_g, "b_u_rel": err_b,
            "usq_rel": err_q, "scal_rel": err_s, "tol_u": tol["u"],
            "tol_gram": tol["gram"]}
     if timed:
         res["ms"] = median_ms(lambda: u_phase_grams(
-            ydt, rtt, a1, a2, uk, sk, steps, lagged, **form_kw), inner=10)
+            ydt, rtt, a1, a2, uk, sk, steps, lagged, **form_kw),
+            reps=reps, inner=inner)
         res["plain_ms"] = median_ms(lambda: u_phase_grams_plain(
             ydt, rtt, a1, a2, up, sp, steps, lagged, **form_kw), reps=3,
-            inner=2, warmup=1)
+            inner=1 if reps < 7 else 2, warmup=1)
         n_bytes, flops = u_phase_work(n, n_s, n_ct, n_u, steps,
                                       uut.element_size(), ydt.element_size())
         res["bytes"] = n_bytes
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K1]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} {form} form"
-        f"{' lagged' if lagged else ''} {steps} steps {dtype_name} state, "
+    log(f"[K1]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} {form} form, "
+        f"{layout} layout{' lagged' if lagged else ''} {steps} steps "
+        f"{dtype_name} state, "
         f"{data_name} data{', bf16_compute' if bf16_compute else ''}: u "
         f"max|diff| {err_u:.3e} (tol {tol['u']:.0e}); gu rel {err_g:.3e}, b_u "
         f"rel {err_b:.3e}, usq rel {err_q:.3e} (tol {tol['gram']:.0e}); "
@@ -469,7 +535,7 @@ def phase_k1_bf16():
 
 
 # ---------------------------------------------------------------- phase 4
-def _small_inputs(n_ct, n_u, dtype_name, n, seed):
+def _small_inputs(n_ct, n_u, dtype_name, n, seed, n_s=N_S):
     """Known and new-u Gram blocks of a K1-style problem on the card."""
     import torch
 
@@ -477,16 +543,19 @@ def _small_inputs(n_ct, n_u, dtype_name, n, seed):
     from demethify_tpu_torch.ops.gram import known_block_grams
 
     dtype = getattr(torch, dtype_name)
-    ydt, rtt, alpha, uut, scal = _k1_inputs(n, N_S, n_ct, n_u, dtype, seed)
+    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype, seed)
     gu, bu, usq = u_phase_grams_plain(ydt, rtt, alpha[:-n_u],
                                       alpha[-n_u:], uut, scal, 3)
     gtt, bt, ydy = (x.contiguous() for x in known_block_grams(
-        rtt.T, ydt[N_S:].T, ydt[:N_S].T))
+        rtt.T, ydt[n_s:].T, ydt[:n_s].T))
     return (gtt, bt, gu.contiguous(), bu.contiguous(), usq.reshape(1),
             ydy, alpha, ydt, rtt, scal)
 
 
-def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U):
+def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U,
+             mask=None, n_s=N_S):
+    """K2 against its twin; ``mask`` (p,) its row mask, then also held
+    bit-identical to the unmasked launch when all ones."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -495,8 +564,8 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U):
         alpha_phase_full, alpha_phase_full_plain)
 
     gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
-        n_ct, n_u, dtype_name, n, seed)
-    dmax2 = ydt[N_S:].max() ** 2
+        n_ct, n_u, dtype_name, n, seed, n_s)
+    dmax2 = ydt[n_s:].max() ** 2
     rt_sq = torch.sum(rtt * rtt)
     scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, rt_sq, dmax2
     scal[L_H_PREV] = 1.05 * (rt_sq + usq[0]) * dmax2
@@ -504,11 +573,23 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U):
     e = torch.empty_like(alpha).exponential_(generator=g)
     alpha_prev = (e / e.sum(0)).contiguous()
     args = (gtt, bt, gu, bu, usq, ydy)
+    mask_kw = {} if mask is None else {"row_mask": torch.as_tensor(
+        mask, device=DEV, dtype=alpha.dtype)}
     ak, apk, sk = alpha.clone(), alpha_prev.clone(), scal.clone()
-    alpha_phase_full(*args, ak, apk, sk, N_INNER, n_u)
+    alpha_phase_full(*args, ak, apk, sk, N_INNER, n_u, **mask_kw)
     ap_, app, sp = alpha.clone(), alpha_prev.clone(), scal.clone()
-    alpha_phase_full_plain(*args, ap_, app, sp, N_INNER, n_u)
+    alpha_phase_full_plain(*args, ap_, app, sp, N_INNER, n_u,
+                           *mask_kw.values())
     torch.cuda.synchronize()
+    masked_zero = ones_same = True
+    if mask is not None:
+        keep = mask_kw["row_mask"] > 0
+        masked_zero = bool((ak[~keep] == 0).all())
+        if bool(keep.all()):
+            a0, ap0, s0 = alpha.clone(), alpha_prev.clone(), scal.clone()
+            alpha_phase_full(*args, a0, ap0, s0, N_INNER, n_u)
+            ones_same = (torch.equal(a0, ak) and torch.equal(ap0, apk)
+                         and torch.equal(s0, sk))
     err_a = float(torch.maximum((ak - ap_).abs().max(),
                                 (apk - app).abs().max()))
     scale = float(ydy.sum())
@@ -522,10 +603,18 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U):
            "tol_alpha": tol["alpha"], "tol_cost": tol["cost"]}
     if timed:
         res["ms"] = median_ms(lambda: alpha_phase_full(
-            *args, ak, apk, sk, N_INNER, n_u), inner=20)
+            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_plain(
-            *args, ap_, app, sp, N_INNER, n_u), inner=20)
-    log(f"[K2] p={p} n_ct={n_ct} n_s={N_S} {dtype_name}: alpha max|diff| "
+            *args, ap_, app, sp, N_INNER, n_u, *mask_kw.values()),
+            inner=20)
+        res["bound_ms"], res["bound_by"] = bound(
+            *glue_work(p, n_s, n_ct, N_INNER, alpha.element_size()),
+            dtype_name)
+    if mask is not None:
+        log(f"[K2] row mask {mask}: masked rows exactly 0: {masked_zero}; "
+            f"all-ones mask bit-identical to no mask: {ones_same}")
+        check(masked_zero and ones_same, "K2 row mask")
+    log(f"[K2] p={p} n_ct={n_ct} n_s={n_s} {dtype_name}: alpha max|diff| "
         f"{err_a:.3e} (tol {tol['alpha']:.0e}); cost diff / sum(ydy) "
         f"{err_c:.3e}, l_w rel {err_w:.3e} (tol {tol['cost']:.0e})"
         + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
@@ -552,7 +641,9 @@ def _fw_flips(gtt, bt, gu, bu, ydy, alpha0, purity, scal, n_u, n_steps):
     """Vertex choices of the kernel that differ from the twin's LMO at the
     same iterate, over all (step, column): the kernel's iterate after k
     steps is one launch of k steps from alpha0, and its vertex at step k
-    is (alpha_{k+1} - (1 - gamma_k) alpha_k) / gamma_k."""
+    is (alpha_{k+1} - (1 - gamma_k) alpha_k) / gamma_k; the twin's LMO is
+    the argmin of its own gradient expression (``frank_wolfe_gram``: the
+    same einsum on the same shapes, so the same bits) at that iterate."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_small import assemble_G_b, fw_phase_full
@@ -568,7 +659,8 @@ def _fw_flips(gtt, bt, gu, bu, ydy, alpha0, purity, scal, n_u, n_steps):
     k = torch.arange(n_steps, device=alpha0.device, dtype=alpha0.dtype)
     gamma = (2.0 / (k + 2.0))[:, None, None]
     vert = (traj[1:] - (1.0 - gamma) * traj[:-1]) / gamma
-    grad = torch.einsum("spq,kqs->kps", G, traj[:-1]) - b
+    grad = torch.stack([torch.einsum("spq,qs->ps", G, a) - b
+                        for a in traj[:-1]])
     flips = 0
     for lo, hi in ((0, n_ct), (n_ct, alpha0.shape[0])):
         want = torch.argmin(grad[:, lo:hi], dim=1)
@@ -577,7 +669,7 @@ def _fw_flips(gtt, bt, gu, bu, ydy, alpha0, purity, scal, n_u, n_steps):
     return flips
 
 
-def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9):
+def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import COST, DMAX2, L_W
@@ -585,10 +677,10 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9):
         fw_phase_full, fw_phase_full_plain)
 
     gtt, bt, gu, bu, _, ydy, alpha, ydt, _, scal = _small_inputs(
-        n_ct, N_U, dtype_name, n, seed)
-    scal[DMAX2] = ydt[N_S:].max() ** 2
+        n_ct, N_U, dtype_name, n, seed, n_s)
+    scal[DMAX2] = ydt[n_s:].max() ** 2
     rng = np.random.default_rng(seed)
-    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S),
+    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s),
                              device=DEV, dtype=alpha.dtype)
     args = (gtt, bt, gu, bu, ydy)
     ak, sk = alpha.clone(), scal.clone()
@@ -614,10 +706,10 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9):
         res["plain_ms"] = median_ms(lambda: fw_phase_full_plain(
             *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
             warmup=1)
-    log(f"[K3] p={p} n_s={N_S} {P_INNER} steps {dtype_name}: alpha "
+    log(f"[K3] p={p} n_s={n_s} {P_INNER} steps {dtype_name}: alpha "
         f"max|diff| {err_a:.3e} (tol {tol_a:.1e}); vertex choices that "
         f"differ from the twin's at the same iterate: {flips} of "
-        f"{2 * P_INNER * N_S}; cost diff / sum(ydy) {err_c:.3e}, l_w rel "
+        f"{2 * P_INNER * n_s}; cost diff / sum(ydy) {err_c:.3e}, l_w rel "
         f"{err_w:.3e} (tol {tol_c:.0e}); known mass - purity {err_m:.2e}"
         + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
            f"(median of back-to-back launches, CUDA events)" if timed
@@ -671,9 +763,11 @@ def _multi_inputs(n, n_s, n_ct, n_u, n_b, dtype, seed, inactive=()):
 
 
 def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
-             inactive=(), seed=20, timed=False, label="", data=None):
+             inactive=(), seed=20, timed=False, label="", data=None,
+             n=N_CPG, n_s=N_S, quick=False):
     """K4 against its twin; ``data`` "bfloat16" stores Y, D and Rt in bf16
-    (state float32, the float32 tolerances)."""
+    (state float32, the float32 tolerances); ``quick`` times 3 single
+    launches instead of 7 x 3 (and K1 alike)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -684,7 +778,7 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
 
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
-        N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+        n, n_s, n_ct, n_u, n_b, dtype, seed, inactive)
     if data is not None:
         ydt = ydt.to(getattr(torch, data))
         rtt = None if rtt is None else rtt.to(ydt.dtype)
@@ -719,7 +813,7 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
                and torch.equal(b1, bk[b0]) and torch.equal(q1, qk[b0])
                and torch.equal(s1[[A_U, L_W_PREV]], sk[b0, [A_U, L_W_PREV]]))
     tol = TOL[dtype_name]
-    res = {"n": N_CPG, "n_ct": n_ct, "n_u": n_u, "members": n_b,
+    res = {"n": n, "n_s": n_s, "n_ct": n_ct, "n_u": n_u, "members": n_b,
            "inactive": ina, "steps": steps, "lagged": lagged,
            "dtype": dtype_name, "u_max_abs": err_u, "gu_rel": err_g,
            "b_u_rel": err_b, "usq_rel": err_q, "scal_rel": err_s,
@@ -728,23 +822,25 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
         s_all = scal_b.clone()
         s_all[:, ACTIVE] = 1.0
         u_all = uut_b.clone()
+        reps, inner = (3, 1) if quick else (7, 3)
         res["ms"] = median_ms(lambda: u_phase_grams_multi(
-            ydt, rtt, a1, a2, u_all, s_all, steps, lagged), inner=3)
+            ydt, rtt, a1, a2, u_all, s_all, steps, lagged), reps=reps,
+            inner=inner)
         res["plain_ms"] = median_ms(lambda: u_phase_grams_multi_plain(
             ydt, rtt, a1, a2, up, sp, steps, lagged), reps=3, inner=1,
             warmup=1)
         res["k1_ms"] = median_ms(lambda: u_phase_grams(
             ydt, rtt, None if a1 is None else a1[0], a2[0], u1, s1, steps,
-            lagged), inner=10)
-        n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+            lagged), reps=reps, inner=1 if quick else 10)
+        n_bytes, flops = u_phase_work(n, n_s, n_ct, n_u, steps,
                                       uut_b.element_size(),
                                       ydt.element_size(), n_b)
         res["bytes"] = n_bytes
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
         res["partial_bytes"] = (uut_b.element_size() * n_b
-                                * gram_entries(N_S, n_ct, n_u)
-                                * -(-N_CPG // SITES_PER_BLOCK))
-    log(f"[K4]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
+                                * gram_entries(n_s, n_ct, n_u)
+                                * -(-n // SITES_PER_BLOCK))
+    log(f"[K4]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
         f"{dtype_name} state, {str(ydt.dtype)[6:]} data: active members' "
         f"u/u_prev max|diff| {err_u:.3e} (tol "
@@ -845,7 +941,10 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
             ydy, alpha_b, alpha_prev_b, scal_b)
 
 
-def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
+def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
+             mask=None):
+    """K5 against its twin; ``mask`` (B, p) the members' row masks, then
+    also an all-ones mask held bit-identical to no mask."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, N_SCAL
@@ -856,11 +955,34 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
     (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
      scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed)
     args = (gtt, bt, gu, bu, usq, ydy)
+    mk = None if mask is None else torch.as_tensor(mask, device=DEV,
+                                                   dtype=alpha_b.dtype)
+    # the mask only where it is used, so that the unmasked cases also run
+    # on a tree from before the masks (time_main_path)
+    mkw = () if mk is None else (mk,)
     ak, apk, sk = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
-    alpha_phase_full_multi(*args, ak, apk, sk, N_INNER, n_u)
+    alpha_phase_full_multi(*args, ak, apk, sk, N_INNER, n_u, *mkw)
     ap_, app, sp = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
-    alpha_phase_full_multi_plain(*args, ap_, app, sp, N_INNER, n_u)
+    alpha_phase_full_multi_plain(*args, ap_, app, sp, N_INNER, n_u, *mkw)
     torch.cuda.synchronize()
+    if mk is not None:
+        keep = mk > 0
+        act_rows = [b for b in range(n_b) if b not in inactive]
+        masked_zero = all(bool((ak[b][~keep[b]] == 0).all())
+                          for b in act_rows)
+        a1_, ap1_, s1_ = (alpha_b.clone(), alpha_prev_b.clone(),
+                          scal_b.clone())
+        alpha_phase_full_multi(*args, a1_, ap1_, s1_, N_INNER, n_u,
+                               torch.ones_like(mk))
+        a0_, ap0_, s0_ = (alpha_b.clone(), alpha_prev_b.clone(),
+                          scal_b.clone())
+        alpha_phase_full_multi(*args, a0_, ap0_, s0_, N_INNER, n_u)
+        ones_same = (torch.equal(a1_, a0_) and torch.equal(ap1_, ap0_)
+                     and torch.equal(s1_, s0_))
+        log(f"[K5] row masks: masked rows of the active members exactly 0: "
+            f"{masked_zero}; all-ones masks bit-identical to no mask: "
+            f"{ones_same}")
+        check(masked_zero and ones_same, "K5 row masks")
     act = [b for b in range(n_b) if b not in inactive]
     ina = list(inactive)
     err_a = float(torch.maximum((ak[act] - ap_[act]).abs().max(),
@@ -877,7 +999,7 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
     a1, ap1, s1 = (alpha_b[b0].clone(), alpha_prev_b[b0].clone(),
                    scal_b[b0, :N_SCAL].clone())
     alpha_phase_full(gtt, bt, gu[b0], bu[b0], usq[b0:b0 + 1], ydy, a1, ap1,
-                     s1, N_INNER, n_u)
+                     s1, N_INNER, n_u, *(m[b0] for m in mkw))
     torch.cuda.synchronize()
     same_k2 = (torch.equal(a1, ak[b0]) and torch.equal(ap1, apk[b0])
                and torch.equal(s1, sk[b0, :N_SCAL]))
@@ -892,11 +1014,11 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False):
         s_all[:, ACTIVE] = 1.0
         a_all, ap_all = alpha_b.clone(), alpha_prev_b.clone()
         res["ms"] = median_ms(lambda: alpha_phase_full_multi(
-            *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
+            *args, a_all, ap_all, s_all, N_INNER, n_u, *mkw), inner=20)
         res["queued_ms"] = queued_ms(lambda: alpha_phase_full_multi(
-            *args, a_all, ap_all, s_all, N_INNER, n_u), inner=20)
+            *args, a_all, ap_all, s_all, N_INNER, n_u, *mkw), inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_multi_plain(
-            *args, ap_, app, sp, N_INNER, n_u), inner=5)
+            *args, ap_, app, sp, N_INNER, n_u, *mkw), inner=5)
         n_bytes, flops = glue_work(p, N_S, n_ct, N_INNER,
                                    alpha_b.element_size(), n_b)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
@@ -931,7 +1053,7 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
     import torch
 
     from demethify_tpu_torch.ops.cuda_small import (
-        assemble_G_b_multi, fw_phase_full_multi)
+        _columns, _members, assemble_G_b_multi, fw_phase_full_multi)
 
     gtt, bt, gu, bu, ydy = args
     traj = [alpha0_b.clone()]
@@ -940,14 +1062,19 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
         fw_phase_full_multi(gtt, bt, gu, bu, ydy, a, purity, scal_b.clone(),
                             k, n_u)
         traj.append(a)
-    traj = torch.stack(traj)[:, members]          # (n_steps + 1, B', p, n_s)
+    traj = torch.stack(traj)                       # (n_steps + 1, B, p, n_s)
     G, b = assemble_G_b_multi(gtt, bt, gu, bu)
-    G, b = G[members], b[members]
+    n_b, p, n_s = alpha0_b.shape
+    G_c, b_c = G.reshape(n_b * n_s, p, p), _columns(b)
+    # the twin's gradient expression on its column layout, per step
+    grad = torch.stack([_members(torch.einsum("spq,qs->ps", G_c,
+                                              _columns(a)) - b_c, n_b)
+                        for a in traj[:-1]])[:, members]
+    traj = traj[:, members]
     n_ct = alpha0_b.shape[1] - n_u
     k = torch.arange(n_steps, device=alpha0_b.device, dtype=alpha0_b.dtype)
     gamma = (2.0 / (k + 2.0))[:, None, None, None]
     vert = (traj[1:] - (1.0 - gamma) * traj[:-1]) / gamma
-    grad = torch.einsum("bspq,kbqs->kbps", G, traj[:-1]) - b
     flips = 0
     for lo, hi in ((0, n_ct), (n_ct, alpha0_b.shape[1])):
         want = torch.argmin(grad[:, :, lo:hi], dim=2)
@@ -956,7 +1083,8 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
     return flips
 
 
-def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
+def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
+             n_ct=N_CT):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W, N_SCAL
@@ -964,13 +1092,13 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
         fw_phase_full, fw_phase_full_multi, fw_phase_full_multi_plain)
 
     (gtt, bt, gu, bu, _, ydy, alpha_b, _,
-     scal_b) = _glue_multi_inputs(N_CT, N_U, dtype_name, n_b, inactive, seed)
+     scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive, seed)
     rng = np.random.default_rng(seed)
     purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S), device=DEV,
                              dtype=alpha_b.dtype)
     alpha_b = torch.cat([
-        alpha_b[:, :N_CT] / alpha_b[:, :N_CT].sum(1, keepdim=True) * purity,
-        alpha_b[:, N_CT:] / alpha_b[:, N_CT:].sum(1, keepdim=True)
+        alpha_b[:, :n_ct] / alpha_b[:, :n_ct].sum(1, keepdim=True) * purity,
+        alpha_b[:, n_ct:] / alpha_b[:, n_ct:].sum(1, keepdim=True)
         * (1 - purity)], dim=1).contiguous()
     args = (gtt, bt, gu, bu, ydy)
     ak, sk = alpha_b.clone(), scal_b.clone()
@@ -985,7 +1113,7 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
     err_c = float((sk[act, COST] - sp[act, COST]).abs().max()) / scale
     err_w = float(((sk[act, L_W] - sp[act, L_W]).abs()
                    / sp[act, L_W].abs()).max())
-    err_m = float((ak[act, :N_CT].sum(1) - purity).abs().max())
+    err_m = float((ak[act, :n_ct].sum(1) - purity).abs().max())
     frozen = (torch.equal(ak[ina], alpha_b[ina])
               and torch.equal(sk[ina], scal_b[ina])) if ina else True
     flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, P_INNER, act)
@@ -996,7 +1124,7 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
     same_k3 = torch.equal(a1, ak[b0]) and torch.equal(s1, sk[b0, :N_SCAL])
     tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
     tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / P_INNER
-    res = {"p": N_CT + N_U, "members": n_b, "inactive": ina,
+    res = {"p": n_ct + N_U, "members": n_b, "inactive": ina,
            "dtype": dtype_name, "alpha_max_abs": err_a,
            "cost_rel_to_sum_ydy": err_c, "l_w_rel": err_w, "flips": flips,
            "tol_alpha": tol_a, "frozen_unchanged": frozen,
@@ -1010,10 +1138,10 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False):
         res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
             *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
             warmup=1)
-        n_bytes, flops = glue_work(N_CT + N_U, N_S, N_CT, P_INNER,
+        n_bytes, flops = glue_work(n_ct + N_U, N_S, n_ct, P_INNER,
                                    alpha_b.element_size(), n_b, fw=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K6] B={n_b} (inactive {ina}) p={N_CT + N_U} n_s={N_S} {P_INNER} "
+    log(f"[K6] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={N_S} {P_INNER} "
         f"steps {dtype_name}: active alpha max|diff| {err_a:.3e} (tol "
         f"{tol_a:.1e}); vertex choices that differ from the twin's at the "
         f"same iterate: {flips} of {2 * P_INNER * N_S * len(act)}; cost "
@@ -1506,12 +1634,12 @@ def phase_bf16_solvers():
              TRAJ_TOL["float32"], 50)
 
 
-def _member_inits(n_cpg, n_b, n_ct, n_u, seed, purity=None):
+def _member_inits(n_cpg, n_b, n_ct, n_u, seed, purity=None, n_s=N_S):
     """B members' seeded initial factors (numpy): u (B, n_cpg, n_u) and
     alpha (B, p, n_s), the known rows scaled to ``purity`` when given."""
     rng = np.random.default_rng(seed + 300)
     u_b = rng.uniform(size=(n_b, n_cpg, n_u))
-    a_b = np.stack([rng.dirichlet(np.ones(n_ct + n_u), size=N_S).T
+    a_b = np.stack([rng.dirichlet(np.ones(n_ct + n_u), size=n_s).T
                     for _ in range(n_b)])
     if purity is not None:
         a_b[:, :n_ct] *= purity / a_b[:, :n_ct].sum(1, keepdims=True)
@@ -1706,7 +1834,7 @@ def _enqueue_only_ms(t, n_iter, purity=None):
     return median_ms(run, reps=3, warmup=1) / n_iter
 
 
-def _drive(tag, what, call, n_outer, enqueue_ms=None):
+def _drive(tag, what, call, n_outer, enqueue_ms=None, n_sites=N_CPG):
     """One full-width run through an entry point, with the counters set to
     0 just before and read just after. Returns (result, ms per outer
     iteration, launches)."""
@@ -1724,7 +1852,7 @@ def _drive(tag, what, call, n_outer, enqueue_ms=None):
         extra = (f"; same launches without the per-iteration cost read "
                  f"{enqueue_ms:.4f} ms/iter -> host-read share {share:.3f}")
     log(f"[{tag}] {what}: {ms_iter:.4f} ms per outer iteration (CUDA "
-        f"events), {N_CPG * n_outer / (ms / 1e3):.4e} site-iters/s, wall "
+        f"events), {n_sites * n_outer / (ms / 1e3):.4e} site-iters/s, wall "
         f"{wall:.3f} s{extra}; launches {launches}")
     check(res.n_iter == n_outer, f"{tag} ran {res.n_iter} iterations")
     check(bool(torch.isfinite(res.proportions).all())
@@ -2496,6 +2624,811 @@ def _cli_runs(cli_main, root, samples, ref, modes, percent, storage):
 
 
 # ------------------------------------------------------ parent/change timing
+# ------------------------------------------------------------ phase 9
+# The envelope: the shapes the kernels once refused (wide n_s, n_u > 8,
+# p > 32, bf16_compute in the direct form, the weights bootstrap in the
+# direct form), the row masks and Rt folded into the data block.
+# K1 and K4 against their twins at n_s in {64, 128, 256, 500} with
+# 25 + 4 and n_s = 256 with 5 + 1, in float32, float64 and bf16 storage
+WIDE_SHAPES = ((64, 25, 4), (128, 25, 4), (256, 25, 4), (500, 25, 4),
+               (256, 5, 1))
+N_WIDE = 200_000
+# the cohort path: 1M sites x 100 samples against the 25-type panel
+COHORT = (1_000_000, 100, 25, 4)
+
+
+def phase_layouts():
+    """Each kernel's shared-memory plan in Python against the ``*_smem``
+    exports of its sources (``cuda_kernels.u_phase_smem``,
+    ``cuda_small.glue_smem``), over a grid of shapes in both layouts."""
+    from demethify_tpu_torch.ops import _build
+    from demethify_tpu_torch.ops.cuda_kernels import SMEM_LIMIT, u_phase_smem
+    from demethify_tpu_torch.ops.cuda_small import glue_smem
+
+    lib = _build.load().lib
+    bad, n_checked = [], 0
+    for itemsize in (4, 8):
+        for n_s in (1, 2, 6, 10, 64, 88, 100, 107, 108, 189, 190, 217, 218,
+                    256, 500, 512):
+            for n_ct, n_u in ((0, 1), (0, 3), (5, 1), (5, 2), (25, 4),
+                              (25, 9), (25, 16), (60, 4)):
+                for layout in ("resident", "wide"):
+                    sfx = "" if layout == "resident" else "_wide"
+                    k1 = getattr(lib, f"dm_u_phase_grams{sfx}_smem")
+                    k4 = getattr(lib, f"dm_u_phase_grams_multi{sfx}_smem")
+                    for direct in (False, True):
+                        for bf16c in (False, True):
+                            want = k1(itemsize, n_s, n_ct, n_u, int(direct),
+                                      int(bf16c))
+                            got = u_phase_smem(layout, itemsize, n_s, n_ct,
+                                               n_u, direct, bf16c)
+                            n_checked += 1
+                            if want != got:
+                                bad.append(("K1", layout, itemsize, n_s,
+                                            n_ct, n_u, direct, bf16c))
+                    for weighted in (False, True):
+                        want = k4(itemsize, n_s, n_ct, n_u, int(weighted))
+                        got = u_phase_smem(layout, itemsize, n_s, n_ct, n_u,
+                                           weighted=weighted)
+                        n_checked += 1
+                        if want != got:
+                            bad.append(("K4", layout, itemsize, n_s, n_ct,
+                                        n_u, weighted))
+        for p in (1, 6, 32, 33, 40, 64, 100, 170, 200):
+            for n_s in (1, 10, 100):
+                n_warps, smem = glue_smem(itemsize, p, n_s)
+                want = lib.dm_glue_smem(itemsize, p, n_s)
+                n_checked += 1
+                if want != smem:
+                    bad.append(("glue", itemsize, p, n_s, want, smem))
+    log(f"[layouts] {n_checked} shared-memory plans: Python against the "
+        f"kernels' *_smem exports, {len(bad)} differ {bad[:5]}; the card's "
+        f"limit {SMEM_LIMIT} bytes")
+    check(not bad, "shared-memory plans differ from the kernels'")
+
+
+@contextlib.contextmanager
+def forced_layout(layout):
+    """K1 and K4 launch in ``layout`` ("resident" or "wide") inside the
+    block, whatever ``cuda_kernels.u_phase_layout`` would plan (the shape
+    must fit that layout's shared memory)."""
+    from demethify_tpu_torch.ops import cuda_kernels
+
+    plan = cuda_kernels.u_phase_layout
+
+    def forced(name, itemsize, n_s, n_ct, n_u, direct=False, bf16c=False,
+               weighted=False):
+        return layout, cuda_kernels.u_phase_smem(
+            layout, itemsize, n_s, n_ct, n_u, direct, bf16c, weighted)
+
+    cuda_kernels.u_phase_layout = forced
+    try:
+        yield
+    finally:
+        cuda_kernels.u_phase_layout = plan
+
+
+def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
+                 steps=N_INNER):
+    """K1 (n_b = 0) or K4 (n_b members) in the resident layout and in the
+    wide layout forced, at a shape both take: the same bits?"""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+
+    dtype = getattr(torch, dtype_name)
+    if n_b:
+        ydt, rtt, alpha, uut, scal = _multi_inputs(n, n_s, n_ct, n_u, n_b,
+                                                   dtype, seed)
+        a1, a2 = alpha[:, :n_ct], alpha[:, n_ct:]
+        fn = u_phase_grams_multi
+    else:
+        ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype,
+                                                seed)
+        a1, a2 = alpha[:n_ct], alpha[n_ct:]
+        fn = u_phase_grams
+    if data is not None:
+        ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
+    outs = []
+    for layout in ("resident", "wide"):
+        u, sc = uut.clone(), scal.clone()
+        with forced_layout(layout):
+            outs.append((u, sc, *fn(ydt, rtt, a1, a2, u, sc, steps)))
+    same = all(torch.equal(x, y) for x, y in zip(*outs))
+    log(f"[layouts] {'K4 B=' + str(n_b) if n_b else 'K1'} N={n} n_s={n_s} "
+        f"n_ct={n_ct} n_u={n_u} {dtype_name} state, "
+        f"{str(ydt.dtype)[6:]} data: wide layout forced bit-identical to "
+        f"the resident layout: {same}")
+    check(same, "the wide layout differs from the resident layout")
+    return same
+
+
+def phase_narrow_bits():
+    """At the shapes the kernels took before the wide layout, the plan is
+    the resident layout (the kernel's one layout then) unless the wide one
+    fits at least twice its blocks per SM (``cuda_kernels.u_phase_layout``)
+    -- and the wide layout gives the resident one's bits, at the main
+    path's shape (which plans resident) and at shapes that plan wide."""
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        SMEM_LIMIT, blocks_per_sm, gram_form, u_phase_layout, u_phase_smem)
+
+    n_shapes, n_wide = 0, 0
+    for itemsize in (4, 8):
+        for n_s in range(1, 513):
+            for n_ct, n_u in ((0, 3), (5, 1), (5, 2), (25, 4), (25, 8)):
+                direct = not gram_form(n_u, n_s)
+                p = n_ct + n_u
+                for x_rows in (0, n_u):
+                    old = itemsize * ((2 * n_s + p + (n_s if direct else 0)
+                                       + x_rows) * 129 + p * n_s)
+                    if old > SMEM_LIMIT or (x_rows and direct):
+                        continue
+                    bf16c = bool(x_rows) and itemsize == 4
+                    weighted = bool(x_rows) and itemsize == 8
+                    layout, _ = u_phase_layout("K1", itemsize, n_s, n_ct,
+                                               n_u, direct, bf16c, weighted)
+                    wide = u_phase_smem("wide", itemsize, n_s, n_ct, n_u,
+                                        direct, bf16c, weighted)
+                    want = ("wide" if not direct and blocks_per_sm(wide)
+                            >= 2 * blocks_per_sm(old) else "resident")
+                    n_shapes += 1
+                    n_wide += layout == "wide"
+                    check(layout == want,
+                          f"a shape of the old layout plans {layout}")
+    log(f"[layouts] {n_shapes} shapes that the single layout took before "
+        f"the wide one existed: {n_shapes - n_wide} plan the resident "
+        f"layout, {n_wide} the wide one (at least twice the blocks per SM)")
+    main = _layout_bits(N_CPG, N_S, N_CT, N_U, "float32")
+    _layout_bits(N_WIDE, 64, 25, 4, "float64", seed=51)
+    _layout_bits(N_WIDE, 100, 25, 4, "float32", data="bfloat16", seed=52)
+    _layout_bits(N_WIDE, 100, 5, 1, "float32", seed=55)
+    _layout_bits(N_WIDE, N_S, N_CT, N_U, "float32", n_b=4, seed=53)
+    _layout_bits(N_WIDE, 64, 25, 12, "float64", seed=54)
+    return main
+
+
+def phase_wide_kernels():
+    """K1 and K4 (B = 4, one member inactive) against their twins at the
+    wide shapes, each storage; the one-off K1 launch at 1M x 500,
+    25 + 4, float64 with its partial buffer. Returns the timed cases of
+    n_s = 500, 25 + 4, float64 (the JSON rows of the wide forms)."""
+    out = {}
+    for n_s, n_ct, n_u in WIDE_SHAPES:
+        for dt, data in (("float32", None), ("float64", None),
+                         ("float32", "bfloat16")):
+            tag = f"[wide n_s={n_s} {n_ct}+{n_u} {data or dt}]"
+            k1 = _k1_case(N_WIDE, n_u, dt, n_s=n_s, n_ct=n_ct, data=data,
+                          seed=60 + n_s, timed=True, inner=1, reps=3,
+                          label=tag)
+            k4 = _k4_case(n_u, dt, 4, N_INNER, n_ct=n_ct, inactive=(1,),
+                          seed=61 + n_s, timed=True, label=tag, data=data,
+                          n=N_WIDE, n_s=n_s, quick=True)
+            out[(n_s, n_ct, n_u, data or dt)] = (k1, k4)
+    return out
+
+
+def phase_partial_buffer():
+    """One K1 launch at 1M sites x 500 samples, 25 + 4, float64 (Y + D
+    8 GB): its partial buffer, time and bound."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, L_W, L_W_PREV, N_SCAL, SITES_PER_BLOCK, gram_entries,
+        u_phase_grams, u_phase_layout)
+
+    n, n_s, n_ct, n_u = 1_000_000, 500, 25, 4
+    g = torch.Generator(device=DEV).manual_seed(70)
+    f64 = torch.float64
+    ydt = torch.rand((2 * n_s, n), generator=g, device=DEV, dtype=f64)
+    ydt[n_s:] = torch.floor(ydt[n_s:] * 100) + 1
+    rtt = torch.rand((n_ct, n), generator=g, device=DEV, dtype=f64)
+    e = torch.empty((n_ct + n_u, n_s), device=DEV, dtype=f64).exponential_(
+        generator=g)
+    alpha = e / e.sum(0)
+    uut = torch.rand((2 * n_u, n), generator=g, device=DEV, dtype=f64)
+    scal = torch.zeros(N_SCAL, device=DEV, dtype=f64)
+    scal[A_U], scal[L_W] = 1.5, float(torch.sum(alpha[-n_u:] ** 2)) * 1e4
+    scal[L_W_PREV] = scal[L_W]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (gu, bu, usq), ms = timed_ms(lambda: u_phase_grams(
+        ydt, rtt, alpha[:n_ct].contiguous(), alpha[n_ct:].contiguous(), uut,
+        scal, N_INNER))
+    peak = torch.cuda.max_memory_allocated() - base
+    partial = 8 * gram_entries(n_s, n_ct, n_u) * -(-n // SITES_PER_BLOCK)
+    yd = ydt.numel() * 8
+    layout = u_phase_layout("K1", 8, n_s, n_ct, n_u)[0]
+    b_ms, b_by = bound(*u_phase_work(n, n_s, n_ct, n_u, N_INNER, 8, 8),
+                       "float64")
+    finite = bool(torch.isfinite(gu).all() and torch.isfinite(bu).all()
+                  and torch.isfinite(usq))
+    log(f"[partial buffer] K1 at N={n} n_s={n_s} 25+4 float64 ({layout} "
+        f"layout): one launch {ms:.2f} ms (bound {b_ms:.3f} ms, {b_by}); "
+        f"partial buffer {partial / 1e9:.3f} GB against Y + D "
+        f"{yd / 1e9:.3f} GB ({partial / yd:.3f} of it); the launch's peak "
+        f"device memory above its inputs {peak / 1e9:.3f} GB; outputs "
+        f"finite: {finite}")
+    check(partial <= 0.5 * yd, "K1's partial buffer exceeds half of Y + D")
+    check(finite, "K1 at 1M x 500: non-finite Grams")
+    return {"partial_bytes": partial, "yd_bytes": yd, "ms": ms}
+
+
+def phase_state_cols():
+    """n_u in {9, 12, 16} (the state in scratch columns) in K1 (gram form
+    at n_s = 100, direct at n_s = 10 and, in the wide layout, at
+    n_s = 80 with 25 + 16) and K4 (B = 4), float64; n_u = 12 in float32.
+    Returns K1's and K4's timed n_u = 12 cases."""
+    timed = timed4 = None
+    for n_u in (9, 12, 16):
+        r = _k1_case(N_WIDE, n_u, "float64", n_s=100, n_ct=5, seed=80 + n_u,
+                     timed=n_u == 12, inner=1, reps=3,
+                     label="[n_u>8 gram]")
+        timed = r if n_u == 12 else timed
+        _k1_case(N_WIDE, n_u, "float64", n_s=10, n_ct=5, seed=81 + n_u,
+                 label="[n_u>8 direct]")
+        r4 = _k4_case(n_u, "float64", 4, N_INNER, n_ct=5, inactive=(2,),
+                      seed=82 + n_u, label="[n_u>8]", n=N_WIDE, n_s=100,
+                      timed=n_u == 12, quick=True)
+        timed4 = r4 if n_u == 12 else timed4
+    _k1_case(N_WIDE, 16, "float64", n_s=80, n_ct=25, seed=97,
+             label="[n_u>8 direct, wide]")
+    _k1_case(N_WIDE, 12, "float32", n_s=100, n_ct=5, seed=98,
+             label="[n_u>8 gram]")
+    _k1_case(N_WIDE, 12, "float32", n_s=10, n_ct=5, seed=99,
+             label="[n_u>8 direct]")
+    _k4_case(12, "float32", 4, N_INNER, n_ct=5, inactive=(2,), seed=100,
+             label="[n_u>8]", n=N_WIDE, n_s=100)
+    return timed, timed4
+
+
+def phase_wide_glue():
+    """K2, K3, K5 and K6 at p in {33, 40, 64} against their twins, float32
+    and float64. Returns the timed p = 40 float64 cases."""
+    timed = {}
+    for p in (33, 40, 64):
+        for dt in ("float64", "float32"):
+            t = p == 40 and dt == "float64"
+            k2 = _k2_case(p - 4, dt, n_u=4, seed=110 + p, timed=t)
+            k3 = _k3_case(p - 1, dt, seed=111 + p, timed=t)
+            k5 = _k5_case(p - 4, 4, dt, 8, (3,), seed=112 + p, timed=t)
+            k6 = _k6_case(dt, n_ct=p - 1, seed=113 + p, timed=t)
+            if t:
+                timed = {"k2": k2, "k3": k3, "k5": k5, "k6": k6}
+    # a block of 32 float64 warps of the register form passes the card's
+    # registers: the launchers cap the warps, which then loop over columns
+    for dt in ("float64", "float32"):
+        _k2_case(25, dt, n_u=4, seed=114, n_s=100)
+        _k2_case(33, dt, n_u=4, seed=115, n_s=100)
+        _k3_case(28, dt, seed=116, n_s=100)
+    return timed
+
+
+def phase_masks():
+    """K2 and K5 with row masks against their twins, the all-ones masks
+    bit-identical to none. Returns the timed float64 cases."""
+    p = N_CT + 3
+    k2 = _k2_case(N_CT, "float64", n_u=3, seed=120, timed=True,
+                  mask=[1, 1, 0, 1, 1, 1, 0, 1])
+    _k2_case(N_CT, "float32", n_u=3, seed=121, mask=[1] * p)
+    _k2_case(N_CT, "float64", n_u=3, seed=122, mask=[1] * p)
+    _k2_case(36, "float64", n_u=4, seed=123, mask=[1] * 38 + [0, 0])
+    masks = np.ones((8, p))
+    masks[0, -2:] = 0
+    masks[1, -1] = 0
+    masks[2, 0] = 0
+    masks[5, [1, 6]] = 0
+    reset_counts()
+    _k5_case(N_CT, 3, "float32", 8, (4,), seed=125, mask=masks)
+    check_launches = read_counts()["alpha_phase_full_multi{masked}"]
+    k5 = _k5_case(N_CT, 3, "float64", 8, (4,), seed=124, timed=True,
+                  mask=masks)
+    k5["launches"] = check_launches
+    return {"k2": k2, "k5": k5}
+
+
+def _padded_init(n, n_s, n_ct, n_u, n_u_max, seed, dtype):
+    """A rank-n_u init (u, alpha) on the card, its zero-padded rank-n_u_max
+    form and the mask of its rows."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    u = torch.rand((n, n_u), generator=g, device=DEV, dtype=dtype)
+    e = torch.empty((n_ct + n_u, n_s), device=DEV, dtype=dtype).exponential_(
+        generator=g)
+    a = e / e.sum(0)
+    u_pad = torch.zeros((n, n_u_max), device=DEV, dtype=dtype)
+    u_pad[:, :n_u] = u
+    a_pad = torch.zeros((n_ct + n_u_max, n_s), device=DEV, dtype=dtype)
+    a_pad[:n_ct + n_u] = a
+    mask = (torch.arange(n_ct + n_u_max, device=DEV) < n_ct + n_u)
+    return u, a, u_pad, a_pad, mask
+
+
+def _wide_problem(n, n_s, n_ct, n_u, dtype, seed):
+    """y, d, Rt (n, ...) of a simulated cohort on the card, made in bulk
+    from a seed: Rt and the true u uniform, proportions Dirichlet(1),
+    coverage Poisson(50) + 1, y the mixture plus N(0, 0.01^2), clipped."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    p = n_ct + n_u
+    R = torch.rand((n, p), generator=g, device=DEV, dtype=dtype)
+    e = torch.empty((p, n_s), device=DEV, dtype=dtype).exponential_(
+        generator=g)
+    y = (R @ (e / e.sum(0)) + 0.01 * torch.randn(
+        (n, n_s), generator=g, device=DEV, dtype=dtype)).clamp(0, 1)
+    d = (torch.poisson(torch.full((n, n_s), 50.0, device=DEV),
+                       generator=g) + 1).to(dtype)
+    return y, d, R[:, :n_ct].contiguous()
+
+
+def phase_mask_paths(card):
+    """The padded masked solve on the card: ``partial_ref_solve_fused
+    (row_mask=)`` (K1, then K2 with the mask every iteration) against the
+    lower-rank solve, float64, 200k sites, 5 + 1 padded to 5 + 3, 50 x 20,
+    with the counters set to 0 just before and read just after."""
+    import torch
+
+    from demethify_tpu_torch.solvers import fused
+
+    n, n_s, n_ct, n_u_max = N_WIDE, N_S, N_CT, 3
+    f64 = torch.float64
+    y, d, Rt = _wide_problem(n, n_s, n_ct, n_u_max, f64, seed=130)
+    kw = dict(n_iter1=50, n_iter2=N_INNER, tol=0.0, record_trace=True)
+    out = {}
+    u, a, u_pad, a_pad, mask = _padded_init(n, n_s, n_ct, 1, n_u_max, 131,
+                                            f64)
+    reset_counts()
+    (pu, pa, pinfo), ms = timed_ms(lambda: fused.partial_ref_solve_fused(
+        u_pad, a_pad, y, d, Rt, n_u_max, row_mask=mask, **kw))
+    out["single"] = read_counts()
+    lu, la, linfo = fused.partial_ref_solve_fused(u, a, y, d, Rt, 1, **kw)
+    zero = bool((pu[:, 1:] == 0).all() and (pa[n_ct + 1:] == 0).all())
+    err_a = float((pa[:n_ct + 1] - la).abs().max())
+    err_u = float((pu[:, :1] - lu).abs().max())
+    tk, tl = (x["trace"].cpu().numpy() for x in (pinfo, linfo))
+    err_c = float(np.max(np.abs(tk - tl) / np.abs(tl)))
+    log(f"[masks] padded partial_ref_solve_fused(row_mask=) N={n} n_s={n_s} "
+        f"{n_ct}+1 padded to {n_ct}+{n_u_max}, 50x{N_INNER} float64, card "
+        f"{card}: {ms / 50:.4f} ms per outer iteration; inactive u columns "
+        f"and alpha rows exactly 0: {zero}; against the lower-rank solve: "
+        f"alpha max|diff| {err_a:.3e}, u {err_u:.3e} (tol "
+        f"{TRAJ_TOL['float64']['alpha']:.0e}), cost trace rel {err_c:.3e} "
+        f"(tol {TRAJ_TOL['float64']['cost']:.0e}); launches "
+        f"{out['single']}")
+    check(zero, "padded masked solve: inactive rows moved")
+    check(max(err_a, err_u) <= TRAJ_TOL["float64"]["alpha"]
+          and err_c <= TRAJ_TOL["float64"]["cost"],
+          "padded masked solve differs from the lower-rank solve")
+    check(expect_counts(out["single"], u_phase_grams=50,
+                        alpha_phase_full=50,
+                        **{"alpha_phase_full{masked}": 50}),
+          f"padded solve launches {out['single']}")
+
+    return out
+
+
+def phase_rt_folded():
+    """K1 with Rt folded into the data block ([Y.T; D.T; Rt.T], rtt None)
+    against the unfolded launch on the same data: bit for bit, at the main
+    path's shape in float32 and a wide shape in float64. Counts its
+    launches (no solver keeps Rt folded). Returns (timed case, launches)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        u_phase_grams, u_phase_grams_plain, u_phase_layout)
+
+    res = {}
+    for n, n_s, n_ct, n_u, dt in ((N_CPG, N_S, N_CT, N_U, "float32"),
+                                  (N_WIDE, 256, 25, 4, "float64")):
+        ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                                getattr(torch, dt), 150)
+        folded = torch.cat([ydt, rtt]).contiguous()
+        a1, a2 = alpha[:n_ct], alpha[n_ct:]
+        u0, s0 = uut.clone(), scal.clone()
+        ref = u_phase_grams(ydt, rtt, a1, a2, u0, s0, N_INNER)
+        reset_counts()
+        u1, s1 = uut.clone(), scal.clone()
+        got = u_phase_grams(folded, None, a1, a2, u1, s1, N_INNER)
+        launches = read_counts()
+        same = (all(torch.equal(x, y) for x, y in zip(got, ref))
+                and torch.equal(u0, u1) and torch.equal(s0, s1))
+        if n == N_CPG:
+            res["ms"] = median_ms(lambda: u_phase_grams(
+                folded, None, a1, a2, u1, s1, N_INNER), inner=10)
+            res["unfolded_ms"] = median_ms(lambda: u_phase_grams(
+                ydt, rtt, a1, a2, u0, s0, N_INNER), inner=10)
+            up, sp = uut.clone(), scal.clone()
+            res["plain_ms"] = median_ms(lambda: u_phase_grams_plain(
+                folded, None, a1, a2, up, sp, N_INNER), reps=3, inner=2,
+                warmup=1)
+            res["launches"] = launches["u_phase_grams{rt folded}"]
+            res["max_abs_err"] = 0.0 if same else float("nan")
+            res["bound_ms"], res["bound_by"] = bound(
+                *u_phase_work(n, n_s, n_ct, n_u, N_INNER, 4, 4), dt)
+        log(f"[rt folded] K1 N={n} n_s={n_s} {n_ct}+{n_u} {dt}: Rt folded "
+            f"into [Y.T; D.T; Rt.T] bit-identical to the unfolded launch: "
+            f"{same}; launches {launches['u_phase_grams{rt folded}']}"
+            + (f"; folded {res['ms']:.4f} ms, unfolded "
+               f"{res['unfolded_ms']:.4f} ms" if n == N_CPG else ""))
+        check(same, "folded-Rt K1 differs from the unfolded launch")
+        wide = u_phase_layout("K1", ydt.element_size(), n_s, n_ct,
+                              n_u)[0] == "wide"
+        check(expect_counts(launches, u_phase_grams=1,
+                            **{"u_phase_grams{rt folded}": 1,
+                               "u_phase_grams{wide}": int(wide)}),
+              f"the folded launch was not counted: {launches}")
+    return res
+
+
+def phase_bf16c_direct(card):
+    """K1's bf16_compute form in the direct dataflow (n_u^2 > 3 n_s)
+    against its twin; then ``partial_ref_solve_fused(bf16_compute=True)``
+    at a direct shape (200k x 2 samples, 5 + 3, bf16 storage, 30 x 5) on
+    the card against the same call on the CPU (the twins), with the
+    counters set to 0 just before the card's run. Returns (timed case,
+    launches)."""
+    import torch
+
+    from demethify_tpu_torch.solvers import fused
+
+    main = _k1_case(N_CPG, 2, "float32", n_s=1, data="bfloat16",
+                    bf16_compute=True, timed=True, seed=160,
+                    label="[bf16_compute direct]")
+    _k1_case(N_CPG, 3, "float32", n_s=2, data="bfloat16", bf16_compute=True,
+             seed=161, label="[bf16_compute direct]")
+    _k1_case(N_WIDE, 16, "float32", n_s=20, n_ct=25, data="bfloat16",
+             bf16_compute=True, seed=162,
+             label="[bf16_compute direct, n_u>8]")
+    n, n_s, n_ct, n_u = N_WIDE, 2, N_CT, 3
+    y, d, Rt = (x.to(torch.bfloat16) for x in _wide_problem(
+        n, n_s, n_ct, n_u, torch.float32, seed=163))
+    g = torch.Generator(device=DEV).manual_seed(164)
+    u0 = torch.rand((n, n_u), generator=g, device=DEV)
+    e = torch.empty((n_ct + n_u, n_s), device=DEV).exponential_(generator=g)
+    a0 = e / e.sum(0)
+    kw = dict(n_iter1=30, n_iter2=5, tol=0.0, record_trace=True,
+              bf16_compute=True)
+    reset_counts()
+    card_out, ms = timed_ms(lambda: fused.partial_ref_solve_fused(
+        u0, a0, y, d, Rt, n_u, **kw))
+    launches = read_counts()
+    cpu_out = fused.partial_ref_solve_fused(
+        *(x.cpu() for x in (u0, a0, y, d, Rt)), n_u, **kw)
+    tk, tc = (o[2]["trace"].double().cpu().numpy()
+              for o in (card_out, cpu_out))
+    err_c = float(np.max(np.abs(tk - tc) / np.abs(tc)))
+    err_a = float((card_out[1].cpu() - cpu_out[1]).abs().max())
+    log(f"[bf16_compute direct] partial_ref_solve_fused(bf16_compute=True) "
+        f"N={n} n_s={n_s} {n_ct}+{n_u} (direct form) bf16 storage, 30x5, "
+        f"card {card}: {ms / 30:.4f} ms per outer iteration; card vs CPU "
+        f"twins: cost trace rel {err_c:.3e} (tol "
+        f"{BF16C_TRAJ_TOL['cost']:.0e}), alpha max|diff| {err_a:.3e} (tol "
+        f"{BF16C_TRAJ_TOL['alpha']:.0e}); launches {launches}")
+    check(err_c <= BF16C_TRAJ_TOL["cost"]
+          and err_a <= BF16C_TRAJ_TOL["alpha"],
+          "bf16_compute direct: card differs from its CPU twins")
+    check(expect_counts(launches, alpha_phase_full=30,
+                        **{"u_phase_grams[bf16_compute]": 30,
+                           "u_phase_grams{bf16_compute direct}": 30}),
+          f"bf16_compute direct launches {launches}")
+    main["launches"] = launches["u_phase_grams{bf16_compute direct}"]
+    return main
+
+
+def phase_bootstrap_direct():
+    """The weights bootstrap in the direct form (n_u^2 > 3 n_s: 2 samples,
+    5 + 3) on the card against the CPU with the same injected draws and
+    inits, float64, 20k sites, B = 4, in the partial-reference and purity
+    modes: the plain weighted solvers on the card's tensors, so no kernel
+    launches (counted)."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    n, n_s, n_u, n_b = 20_000, 2, 3, 4
+    y, d, Rt = (x.cpu().numpy() for x in _wide_problem(
+        n, n_s, N_CT, n_u, torch.float64, seed=170))
+    rng = np.random.default_rng(171)
+    indices = rng.integers(0, n, size=(n_b, n))
+    purity = rng.uniform(0.3, 0.9, size=n_s)
+    for name, pu, n1, n2 in (("partial-ref", None, 30, N_INNER),
+                             ("purity", purity, 10, 100)):
+        a_b = np.stack([rng.dirichlet(np.ones(N_CT + n_u), size=n_s).T
+                        for _ in range(n_b)])
+        if pu is not None:
+            a_b[:, :N_CT] *= pu / a_b[:, :N_CT].sum(1, keepdims=True)
+            a_b[:, N_CT:] *= (1 - pu) / a_b[:, N_CT:].sum(1, keepdims=True)
+        inits = list(zip(rng.uniform(size=(n_b, n, n_u)), a_b))
+        out = {}
+        for dev in (DEV, "cpu"):
+            _, _, yt, dt, Rtt = state.from_numpy(None, None, y, d, Rt,
+                                                 device=dev,
+                                                 dtype=torch.float64)
+            reset_counts()
+            out[dev] = bootstrap_ci(
+                yt, dt, Rtt, n_u, level=90, n_bootstrap=n_b, n_iter1=n1,
+                n_iter2=n2, tol=0.0, method="weights", purity=pu,
+                indices=indices, inits=inits)
+            if dev == DEV:
+                launches = read_counts()
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(out[DEV], out["cpu"]))
+        log(f"[bootstrap direct] {name} weights layout, direct form "
+            f"(n_u={n_u}, n_s={n_s}), B={n_b} {n1}x{n2} float64 N={n}: card "
+            f"vs CPU with the same draws and inits, CI bounds max|diff| "
+            f"{err:.3e} (tol 1e-8); kernel launches on the card "
+            f"{sum(launches.values())} (the plain weighted solvers)")
+        check(err <= 1e-8, f"bootstrap direct {name}: card vs CPU")
+        check(expect_counts(launches), "the direct-form bootstrap launched "
+              "a kernel")
+
+
+def _envelope_vs_plain(tag, n_b, y, d, Rt, n_u, pur, n1, n2, seed):
+    """The kernel solver an envelope path runs (``fused.*_solve_fused``,
+    or its ``_multi`` form for n_b > 1 restarts) against the plain solver
+    on the same data from the same seeded inits over n1 x n2, tol = 0:
+    cost trace and alpha at ``TRAJ_TOL`` of the data's dtype (each member
+    for the multi solver)."""
+    import torch
+
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+    from demethify_tpu_torch.solvers.purity import purity_solve
+
+    n, n_s = y.shape
+    n_ct = Rt.shape[1]
+    name = str(y.dtype).replace("torch.", "")
+    u_b, a_b = _member_inits(
+        n, n_b, n_ct, n_u, seed, n_s=n_s,
+        purity=None if pur is None else pur.cpu().numpy())
+    u_b, a_b = (torch.as_tensor(x, device=DEV, dtype=y.dtype)
+                for x in (u_b, a_b))
+    kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True)
+    extra = () if pur is None else (pur,)
+    plain = partial_ref_solve if pur is None else purity_solve
+    members = [plain(u_b[b], a_b[b], y, d, Rt, *extra, n_u, **kw)
+               for b in range(n_b)]
+    shape = f"N={n} n_s={n_s} {n_ct}+{n_u} {name}"
+    if n_b == 1:
+        single = (fused.partial_ref_solve_fused if pur is None
+                  else fused.purity_solve_fused)
+        _compare(f"{tag} {n1}x{n2}", shape,
+                 single(u_b[0], a_b[0], y, d, Rt, *extra, n_u, **kw),
+                 members[0], TRAJ_TOL[name], n1)
+        return
+    multi = (fused.partial_ref_solve_fused_multi if pur is None
+             else fused.purity_solve_fused_multi)
+    tol = TRAJ_TOL[name]
+    check(tol["cost"] == tol["alpha"], "one tolerance per member check")
+    _multi_vs_members(f"{tag} B={n_b} {n1}x{n2} {shape}",
+                      multi(u_b, a_b, y, d, Rt, *extra, n_u, **kw), members,
+                      "the plain solver per member", tol["cost"])
+
+
+def phase_envelope_paths(card):
+    """The wide forms on paths through ``solvers.api``, each run with the
+    counters set to 0 just before and read just after: partial-reference
+    at 1M x 100, 25 + 4 in float64 (K1 in the wide layout, 100 x 20), its
+    restarts (B = 4, 200k sites, 50 x 20: K4 wide); and 25 + 12 at
+    200k x 100, float64 (p = 37 and n_u > 8: K1 and K4 wide with the
+    state in scratch columns, K2, K3, K5 and K6 in the wide form): partial-
+    reference 50 x 20, purity 10 x 100, and both with 4 restarts. Before
+    each, the kernel solver that path runs against the plain solver on
+    the same data and inits over a short schedule (``_envelope_vs_plain``:
+    20 x 20, purity 5 x 100, restarts per member). Returns each run's
+    launches by name."""
+    import torch
+
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv)
+
+    out = {}
+    f64 = torch.float64
+    n, n_s, n_ct, n_u = COHORT
+    y, d, Rt = _wide_problem(n, n_s, n_ct, n_u, f64, seed=180)
+    _envelope_vs_plain("wide path", 1, y, d, Rt, n_u, None, 20, N_INNER, 10)
+    _, ms_it, out["wide"] = _drive(
+        "wide path", f"partial-ref 1M x 100, 25+4, float64, 100x{N_INNER}, "
+        f"card {card}", lambda: partial_reference_deconv(
+            y, d, Rt, n_u, n_iter1=100, n_iter2=N_INNER, tol=0.0,
+            record_trace=True, seed=4), 100, n_sites=n)
+    check(expect_counts(out["wide"], u_phase_grams=100, alpha_phase_full=100,
+                        **{"u_phase_grams{wide}": 100}),
+          f"wide path launches {out['wide']}")
+    del y, d, Rt
+    y, d, Rt = _wide_problem(N_WIDE, n_s, n_ct, n_u, f64, seed=181)
+    _envelope_vs_plain("wide restarts", 4, y, d, Rt, n_u, None, 20, N_INNER,
+                       11)
+    _, _, out["wide restarts"] = _drive(
+        "wide restarts", f"partial-ref 200k x 100, 25+4, float64, 4 "
+        f"restarts, 50x{N_INNER}", lambda: partial_reference_deconv(
+            y, d, Rt, n_u, n_iter1=50, n_iter2=N_INNER, tol=0.0,
+            record_trace=True, seed=5, n_restarts=4), 50, n_sites=N_WIDE)
+    check(expect_counts(out["wide restarts"], u_phase_grams_multi=50,
+                        alpha_phase_full_multi=50,
+                        **{"u_phase_grams_multi{wide}": 50}),
+          f"wide restart launches {out['wide restarts']}")
+
+    n_u = 12
+    y, d, Rt = _wide_problem(N_WIDE, n_s, n_ct, n_u, f64, seed=182)
+    pur = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=f64)
+    runs = (
+        ("p>32", 50, N_INNER, 1, None, "alpha_phase_full",
+         lambda n1, n2, r: partial_reference_deconv(
+             y, d, Rt, n_u, n_iter1=n1, n_iter2=n2, tol=0.0,
+             record_trace=True, seed=6, n_restarts=r)),
+        ("p>32 purity", 10, 100, 1, pur, "fw_phase_full",
+         lambda n1, n2, r: purity_deconv(
+             y, d, Rt, n_u, pur, n_iter1=n1, n_iter2=n2, tol=0.0,
+             record_trace=True, seed=7, n_restarts=r)),
+        ("p>32 restarts", 20, N_INNER, 4, None, "alpha_phase_full_multi",
+         lambda n1, n2, r: partial_reference_deconv(
+             y, d, Rt, n_u, n_iter1=n1, n_iter2=n2, tol=0.0,
+             record_trace=True, seed=8, n_restarts=r)),
+        ("p>32 purity restarts", 5, 100, 4, pur, "fw_phase_full_multi",
+         lambda n1, n2, r: purity_deconv(
+             y, d, Rt, n_u, pur, n_iter1=n1, n_iter2=n2, tol=0.0,
+             record_trace=True, seed=9, n_restarts=r)))
+    for tag, n1, n2, r, pu, glue, call in runs:
+        _envelope_vs_plain(tag, r, y, d, Rt, n_u, pu,
+                           20 if pu is None else 5, n2, 12 + r)
+        k = "u_phase_grams_multi" if r > 1 else "u_phase_grams"
+        _, _, out[tag] = _drive(
+            tag, f"200k x 100, {n_ct}+{n_u} (p = {n_ct + n_u}), float64, "
+            f"{r} restart(s), {n1}x{n2}",
+            lambda: call(n1, n2, r), n1, n_sites=N_WIDE)
+        check(expect_counts(out[tag], **{k: n1, glue: n1,
+                                         f"{k}{{n_u>8}}": n1,
+                                         f"{k}{{wide}}": n1,
+                                         f"{glue}{{p>32}}": n1}),
+              f"{tag} launches {out[tag]}")
+    return out
+
+
+def _cohort_k1_k2(y, d, Rt, alpha, n_u):
+    """K1 and K2 at the cohort shape: median device ms (CUDA events) of
+    back-to-back launches beside their bounds, and K1 in the resident
+    layout forced (the same bits; the plan there is the wide one) for
+    comparison."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, A_U, DMAX2, L_H_PREV, L_W, L_W_PREV, N_SCAL, RT_SQ,
+        u_phase_grams)
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase_full
+    from demethify_tpu_torch.ops.gram import known_block_grams
+
+    n, n_s = y.shape
+    n_ct = Rt.shape[1]
+    ydt = torch.cat([y.T, d.T]).contiguous()
+    rtt = Rt.T.contiguous()
+    u = torch.rand((n_u, n), device=DEV)
+    uut = torch.cat([u, u]).contiguous()
+    scal = torch.zeros(N_SCAL, device=DEV)
+    dmax2 = float(d.max()) ** 2
+    scal[A_U], scal[L_W] = 1.5, float(torch.sum(alpha[-n_u:] ** 2)) * dmax2
+    scal[L_W_PREV] = scal[L_W]
+    a1, a2 = alpha[:n_ct].contiguous(), alpha[n_ct:].contiguous()
+    res = {}
+    res["k1_ms"] = median_ms(lambda: u_phase_grams(
+        ydt, rtt, a1, a2, uut, scal, N_INNER), reps=5, inner=2)
+    with forced_layout("resident"):
+        res["k1_resident_ms"] = median_ms(lambda: u_phase_grams(
+            ydt, rtt, a1, a2, uut, scal, N_INNER), reps=5, inner=2)
+    res["k1_bound_ms"], res["k1_bound_by"] = bound(
+        *u_phase_work(n, n_s, n_ct, n_u, N_INNER, 4, 4), "float32")
+    gu, bu, usq = u_phase_grams(ydt, rtt, a1, a2, uut, scal, N_INNER)
+    gtt, bt, ydy = (x.contiguous() for x in known_block_grams(Rt, d, y))
+    scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.0, float(
+        torch.sum(Rt * Rt)), dmax2
+    scal[L_H_PREV] = (scal[RT_SQ] + usq) * dmax2
+    al, ap = alpha.clone(), alpha.clone()
+    res["k2_ms"] = median_ms(lambda: alpha_phase_full(
+        gtt, bt, gu, bu, usq.reshape(1), ydy, al, ap, scal, N_INNER, n_u),
+        inner=20)
+    res["k2_bound_ms"], res["k2_bound_by"] = bound(
+        *glue_work(n_ct + n_u, n_s, n_ct, N_INNER, 4), "float32")
+    return res
+
+
+def phase_cohort(card):
+    """The cohort path at full width: ``partial_reference_deconv`` at 1M
+    sites x 100 samples, 25 known + 4 unknown, float32, 1000 x 20,
+    tol = 0, with the counters set to 0 just before and read just after;
+    K1's and K2's times at that shape with their bounds; and the kernel
+    solver against the plain solver over 20 x 20 at the same width."""
+    import torch
+
+    from demethify_tpu_torch.solvers.api import partial_reference_deconv
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+
+    n, n_s, n_ct, n_u = COHORT
+    y, d, Rt = _wide_problem(n, n_s, n_ct, n_u, torch.float32, seed=190)
+    g = torch.Generator(device=DEV).manual_seed(191)
+    u0 = torch.rand((n, n_u), generator=g, device=DEV)
+    e = torch.empty((n_ct + n_u, n_s), device=DEV).exponential_(generator=g)
+    a0 = e / e.sum(0)
+    kw = dict(n_iter2=N_INNER, tol=0.0, record_trace=True,
+              init_provided=(u0, a0))
+    partial_reference_deconv(y, d, Rt, n_u, n_iter1=2, **kw)        # warm
+    res, ms_iter, launches = _drive(
+        "cohort", f"partial-ref 1M x 100, 25+4, float32, {N_OUTER}x"
+        f"{N_INNER}, tol=0 via solvers.api.partial_reference_deconv, card "
+        f"{card}", lambda: partial_reference_deconv(y, d, Rt, n_u,
+                                                    n_iter1=N_OUTER, **kw),
+        N_OUTER, n_sites=n)
+    check(expect_counts(launches, u_phase_grams=N_OUTER,
+                        alpha_phase_full=N_OUTER,
+                        **{"u_phase_grams{wide}": N_OUTER}),
+          f"cohort launches {launches}")
+    props = res.proportions
+    check(res.u.shape == (n, n_u) and props.shape == (n_ct + n_u, n_s),
+          "cohort output shapes")
+    check(float((props.sum(0) - 1).abs().max()) < 1e-4,
+          "cohort alpha off the simplex")
+    times = _cohort_k1_k2(y, d, Rt, a0, n_u)
+    log(f"[cohort] K1 at 1M x 100, 25+4 float32 (wide layout): "
+        f"{times['k1_ms']:.4f} ms (bound {times['k1_bound_ms']:.4f} ms, "
+        f"{times['k1_bound_by']}); the resident layout forced "
+        f"{times['k1_resident_ms']:.4f} ms; K2 {times['k2_ms']:.4f} ms (bound "
+        f"{times['k2_bound_ms']:.6f} ms, {times['k2_bound_by']}); K1 + K2 "
+        f"{times['k1_ms'] + times['k2_ms']:.4f} of {ms_iter:.4f} ms per "
+        f"outer iteration")
+    kw20 = dict(n_iter1=20, n_iter2=N_INNER, tol=0.0, record_trace=True)
+    kern = partial_reference_deconv(y, d, Rt, n_u, init_provided=(u0, a0),
+                                    **kw20)
+    (_, a_p, info_p), plain_ms = _per_iter_ms(
+        lambda: partial_ref_solve(u0, a0, y, d, Rt, n_u, **kw20), 20)
+    tk = kern.trace.double().cpu().numpy()
+    tp = info_p["trace"].double().cpu().numpy()
+    err_c = float(np.max(np.abs(tk - tp) / np.abs(tp)))
+    err_a = float((kern.proportions - a_p).abs().max())
+    log(f"[cohort] kernel solver vs plain solver over 20x{N_INNER} at the "
+        f"same width: cost trace max rel diff {err_c:.3e} (tol "
+        f"{TRAJ_TOL['float32']['cost']:.0e}), alpha max|diff| {err_a:.3e} "
+        f"(tol {TRAJ_TOL['float32']['alpha']:.0e}); plain solver "
+        f"{plain_ms:.4f} ms per outer iteration")
+    check(err_c <= TRAJ_TOL["float32"]["cost"]
+          and err_a <= TRAJ_TOL["float32"]["alpha"],
+          "cohort: kernel solver differs from the plain solver")
+    times.update(ms_iter=ms_iter, launches=launches, plain_ms=plain_ms)
+    return times
+
+
+def k1_main_outputs(root, path):
+    """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at the main
+    path's shape (1M x 10, 5 + 1, float32, 20 steps, ``_k1_inputs`` seed
+    0, one launch) from the tree at ``root`` to ``path``, for a bit-for-bit
+    comparison of two trees on one card:
+
+        python3 -c 'import chip_smoke; chip_smoke.k1_main_outputs("DIR", "OUT.pt")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
+
+    ydt, rtt, alpha, uut, scal = _k1_inputs(N_CPG, N_S, N_CT, N_U,
+                                            torch.float32, 0)
+    gu, bu, usq = u_phase_grams(ydt, rtt, alpha[:-N_U], alpha[-N_U:], uut,
+                                scal, N_INNER)
+    torch.save({k: v.cpu() for k, v in dict(
+        uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}, path)
+
+
+def same_outputs(path_a, path_b):
+    """Prints whether two ``k1_main_outputs`` files hold the same bits."""
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    same = {k: torch.equal(a[k], b[k]) for k in a}
+    print(json.dumps({"a": path_a, "b": path_b, "bit_identical": same}),
+          flush=True)
+
+
 def time_main_path(root):
     """Times the single-restart main path of the tree at ``root`` on one
     GPU and prints one JSON line: the card's ``nvidia-smi`` name and power
@@ -2545,6 +3478,205 @@ def time_main_path(root):
                       "one_iteration_solve_ms": one_ms}), flush=True)
 
 
+
+# K1 (B = 0) and K4 (B members) shapes that both layouts take:
+# (B, n_s, n_ct, n_u, steps, state, data, lagged, weighted); the main
+# path's shape first, then its storages and schedules, the direct form,
+# n_u > 8 and n_s from 10 to the resident layout's limit
+LAYOUT_TIMES = (
+    (0, 10, 5, 1, 20, "float32", None, False, False),
+    (0, 10, 5, 1, 20, "float64", None, False, False),
+    (0, 10, 5, 1, 20, "float32", "bfloat16", False, False),
+    (0, 10, 5, 1, 500, "float32", None, False, False),
+    (0, 10, 0, 3, 20, "float32", None, True, False),
+    (0, 5, 5, 4, 20, "float32", None, False, False),
+    (0, 16, 5, 8, 20, "float32", None, False, False),
+    (0, 10, 5, 12, 20, "float32", None, False, False),
+    (0, 100, 5, 12, 20, "float32", None, False, False),
+    (0, 25, 5, 1, 20, "float32", None, False, False),
+    (0, 50, 5, 1, 20, "float32", None, False, False),
+    (0, 100, 5, 1, 20, "float32", None, False, False),
+    (0, 200, 5, 1, 20, "float32", None, False, False),
+    (0, 10, 25, 4, 20, "float32", None, False, False),
+    (0, 25, 25, 4, 20, "float32", None, False, False),
+    (0, 50, 25, 4, 20, "float32", None, False, False),
+    (0, 100, 25, 4, 20, "float32", None, False, False),
+    (0, 128, 25, 4, 20, "float32", None, False, False),
+    (0, 50, 5, 1, 20, "float64", None, False, False),
+    (0, 100, 5, 1, 20, "float64", None, False, False),
+    (0, 25, 25, 4, 20, "float64", None, False, False),
+    (0, 50, 25, 4, 20, "float64", None, False, False),
+    (0, 88, 25, 4, 20, "float64", None, False, False),
+    (16, 10, 5, 1, 20, "float32", None, False, False),
+    (32, 10, 5, 1, 20, "float32", None, False, True),
+    (4, 50, 25, 4, 20, "float32", None, False, False),
+    (4, 100, 25, 4, 20, "float32", None, False, False),
+)
+
+
+def time_layouts(n=N_CPG):
+    """Times K1 and K4 in the resident and in the wide layout, each forced,
+    at every shape of ``LAYOUT_TIMES`` on ``n`` sites: the median device
+    ms of back-to-back launches (CUDA events), in the order resident,
+    wide, wide, resident, and the resident layout's shared memory and
+    blocks per SM beside the wide layout's. Prints one line per shape and
+    one JSON line:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_layouts()'
+    """
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        SMEM_LIMIT, blocks_per_sm, gram_form, u_phase_grams, u_phase_smem)
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+
+    check(torch.cuda.is_available(), "time_layouts needs a GPU")
+    card = phase_device()
+    rows = []
+    for n_b, n_s, n_ct, n_u, steps, dt, data, lagged, weighted in (
+            LAYOUT_TIMES):
+        dtype = getattr(torch, dt)
+        weights = None
+        if n_b:
+            ydt, rtt, alpha, uut, scal = _multi_inputs(n, n_s, n_ct, n_u,
+                                                       n_b, dtype, 210)
+            a1, a2 = alpha[:, :n_ct], alpha[:, n_ct:]
+            if weighted:
+                weights = resample_weights(n_b, n, dtype, 211)
+            fn = functools.partial(u_phase_grams_multi, weights=weights)
+        else:
+            ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype,
+                                                    210)
+            a1, a2 = alpha[:n_ct], alpha[n_ct:]
+            fn = u_phase_grams
+        if n_ct == 0:
+            rtt = a1 = None
+        if data is not None:
+            ydt = ydt.to(getattr(torch, data))
+            rtt = None if rtt is None else rtt.to(getattr(torch, data))
+        direct = not gram_form(n_u, n_s)
+        smem = {lay: u_phase_smem(lay, uut.element_size(), n_s, n_ct, n_u,
+                                  direct, weighted=weighted)
+                for lay in ("resident", "wide")}
+        check(smem["resident"] <= SMEM_LIMIT,
+              f"n_s={n_s} {n_ct}+{n_u} does not fit the resident layout")
+        inner = 10 if n_s * (n_ct + n_u) * max(n_b, 1) <= 2000 else 2
+        ms = {"resident": [], "wide": []}
+        for lay in ("resident", "wide", "wide", "resident"):
+            u, sc = uut.clone(), scal.clone()
+            with forced_layout(lay):
+                ms[lay].append(median_ms(lambda: fn(
+                    ydt, rtt, a1, a2, u, sc, steps, lagged), inner=inner))
+        per_sm = {lay: blocks_per_sm(b) for lay, b in smem.items()}
+        row = {"B": n_b, "n_s": n_s, "n_ct": n_ct, "n_u": n_u,
+               "steps": steps, "state": dt, "data": data or dt,
+               "lagged": lagged, "weighted": weighted,
+               "form": "direct" if direct else "gram",
+               "resident_ms": ms["resident"], "wide_ms": ms["wide"],
+               "wide_over_resident": statistics.mean(ms["wide"])
+               / statistics.mean(ms["resident"]),
+               "smem": smem, "blocks_per_sm": per_sm}
+        rows.append(row)
+        log(f"[layout times] {'K4 B=' + str(n_b) if n_b else 'K1'} "
+            f"N={n} n_s={n_s} {n_ct}+{n_u} {row['form']} {steps} steps "
+            f"{dt} state {data or dt} data{' lagged' if lagged else ''}"
+            f"{' weighted' if weighted else ''}: resident "
+            f"{ms['resident']} ms ({smem['resident']} B, "
+            f"{per_sm['resident']} blocks/SM), wide {ms['wide']} ms "
+            f"({smem['wide']} B, {per_sm['wide']} blocks/SM); wide / "
+            f"resident {row['wide_over_resident']:.4f}")
+        del ydt, rtt, alpha, uut, scal, weights
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "n": n, "layout_times": rows}),
+          flush=True)
+
+
+def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
+                   k1_bf16c_direct, mask_paths, env):
+    """The kernels JSON line's rows of the envelope's forms. ``launches``
+    is each form's count from the path run named in ``path``; the
+    folded-Rt form and K5's masks have no solver route, so their counts
+    are their checks'."""
+    src = "demethify_tpu_torch/csrc/"
+    k1_src, k4_src = src + "u_phase_grams", src + "u_phase_grams_multi"
+    k1_at = "demethify_tpu/ops/pallas_kernels.py:218"
+    k4_at = "demethify_tpu/ops/pallas_kernels.py:828"
+    w1, w4 = wide[(500, 25, 4, "float64")]
+    n_ct40 = 40 - 4
+
+    def row(name, source, replaces, case, launches, path, err=None,
+            bound_ms=None, bound_by=None):
+        if err is None:
+            err = case.get("alpha_max_abs", case.get("u_max_abs"))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": case["ms"],
+                "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"] if bound_ms is None
+                else bound_ms,
+                "bound_by": case["bound_by"] if bound_by is None
+                else bound_by, "library_ms": None, "path": path}
+
+    k3_b = bound(*glue_work(40, N_S, 39, P_INNER, 8, fw=True), "float64")
+    return [
+        row("u_phase_grams{wide}", k1_src + "_wide.cu",
+            k1_at + " (lane tile shrunk by fused.py:76-108, via :612)", w1,
+            env["wide"]["u_phase_grams{wide}"],
+            "partial-ref 1M x 100, 25+4, float64, 100x20 (times: n_s=500)"),
+        row("u_phase_grams_multi{wide}", k4_src + "_wide.cu",
+            k4_at + " (via :1123)", w4,
+            env["wide restarts"]["u_phase_grams_multi{wide}"],
+            "4 restarts 200k x 100, 25+4, float64 (times: n_s=500, B=4)"),
+        row("u_phase_grams{n_u>8}", k1_src + ".cu",
+            k1_at + " (no n_u cap, via :499)", k1_state,
+            env["p>32"]["u_phase_grams{n_u>8}"],
+            "partial-ref 200k x 100, 25+12, float64 (times: 5+12, n_s=100, "
+            "float64)"),
+        row("u_phase_grams_multi{n_u>8}", k4_src + ".cu",
+            k4_at + " (no n_u cap, via :1123)", k4_state,
+            env["p>32 restarts"]["u_phase_grams_multi{n_u>8}"],
+            "4 restarts 200k x 100, 25+12, float64 (times: 5+12, B=4, "
+            "float64)"),
+        row("alpha_phase_full{p>32}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (p > 32)", glue["k2"],
+            env["p>32"]["alpha_phase_full{p>32}"],
+            "partial-ref 200k x 100, 25+12 (times: p=40, float64)"),
+        row("fw_phase_full{p>32}", src + "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:636 (p > 32)", glue["k3"],
+            env["p>32 purity"]["fw_phase_full{p>32}"],
+            "purity 200k x 100, 25+12 (times: p=40, float64)",
+            bound_ms=k3_b[0], bound_by=k3_b[1]),
+        row("alpha_phase_full_multi{p>32}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:388 (p > 32, via :485)",
+            glue["k5"], env["p>32 restarts"]["alpha_phase_full_multi{p>32}"],
+            "4 restarts 200k x 100, 25+12 (times: p=40, B=8, float64)"),
+        row("fw_phase_full_multi{p>32}", src + "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:571 (p > 32, via :592)",
+            glue["k6"],
+            env["p>32 purity restarts"]["fw_phase_full_multi{p>32}"],
+            "4 purity restarts 200k x 100, 25+12 (times: p=40, B=8, "
+            "float64)"),
+        row("u_phase_grams{bf16_compute direct}", k1_src + ".cu",
+            k1_at + " (bf16_compute direct fallback :299-311, via :499)",
+            k1_bf16c_direct, k1_bf16c_direct["launches"],
+            "partial_ref_solve_fused(bf16_compute=True) 200k x 2, 5+3, "
+            "bf16 (times: 1M x 1, 5+2)"),
+        row("alpha_phase_full{masked}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (row_mask :281-282, via "
+            ":299)", masks["k2"],
+            mask_paths["single"]["alpha_phase_full{masked}"],
+            "padded partial_ref_solve_fused(row_mask=) 200k x 10"),
+        row("alpha_phase_full_multi{masked}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:388 (row_mask_b :409-410, "
+            "via :485)", masks["k5"], masks["k5"]["launches"],
+            "its float32 check against the twin (no solver route runs "
+            "K5's masks)"),
+        row("u_phase_grams{rt folded}", k1_src + ".cu",
+            k1_at + " (rt_folded :650-674, via :612)", folded,
+            folded["launches"],
+            "its bit check against the unfolded launch (no solver keeps Rt "
+            "folded)", err=folded["max_abs_err"])]
+
 def main():
     try:
         import torch
@@ -2574,11 +3706,21 @@ def main():
     k4_bf16, k4w_bf16 = phase_k4_bf16(k4, k4w)
     k5w = phase_k5_weighted()
     k6w = phase_k6_weighted()
+    phase_layouts()
+    phase_narrow_bits()
+    wide = phase_wide_kernels()
+    partial = phase_partial_buffer()
+    k1_state, k4_state = phase_state_cols()
+    glue = phase_wide_glue()
+    masks = phase_masks()
+    folded = phase_rt_folded()
+    k1_bf16c_direct = phase_bf16c_direct(card)
     phase_solver_trajectory()
     phase_bf16_solvers()
     identical = phase_multi_solvers()
     phase_weighted_solvers()
     phase_bootstrap_parity()
+    phase_bootstrap_direct()
     problem32 = make_problem(np.float32, seed=0)
     launches = phase_main_path(problem32, card)
     p_launches, _, _ = phase_purity_path(problem32, card)
@@ -2588,6 +3730,9 @@ def main():
         "unsupervised": k4_uns["ms"]})
     boot = phase_bootstrap(problem32, card)
     bf16 = phase_bf16_paths(problem32, card)
+    mask_paths = phase_mask_paths(card)
+    env = phase_envelope_paths(card)
+    cohort = phase_cohort(card)
     phase_cli()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
@@ -2714,6 +3859,13 @@ def main():
          "max_abs_err": k4w_bf16["u_max_abs"], "ms": k4w_bf16["ms"],
          "plain_ms": k4w_bf16["plain_ms"], "bound_ms": k4w_bf16["bound_ms"],
          "bound_by": k4w_bf16["bound_by"], "library_ms": None}]}
+    kernels["kernels"].extend(_envelope_rows(
+        wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
+        mask_paths, env))
+    log(f"[done] K1's partial buffer at 1M x 500, 25+4, float64: "
+        f"{partial['partial_bytes'] / 1e9:.3f} GB, "
+        f"{partial['partial_bytes'] / partial['yd_bytes']:.3f} of Y + D; the "
+        f"cohort path {cohort['ms_iter']:.4f} ms per outer iteration")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

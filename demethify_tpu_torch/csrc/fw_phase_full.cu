@@ -37,7 +37,15 @@
 // other block's rows the TPU kernel's 3.4e38 mask), and the first row
 // holding it is the lowest set bit of a ballot -- the tie rule of _fw_run
 // and of argmin. Nothing leaves registers until the epilogue, whose cost
-// and l_w reductions are those of K2 (small_common.cuh). The members'
+// and l_w reductions are those of K2 (small_common.cuh).
+// Above 32 rows (p > 32, e.g. the 25-type panel with 8 or more unknowns)
+// the wide form keeps each warp's column (G_s, b_s, alpha and the
+// gradient) in its own slab of shared memory and gives lane q the rows
+// q, q + 32, ...: the same products in the same order, each block's
+// minimum over the lanes' minima and its first row as the smallest row
+// index holding it. The block has as many warps as slabs fit
+// (small_common.cuh); past one slab (p ~ 170 in float64) the wrapper
+// raises. The members'
 // blocks run on separate SMs, so a K6 launch takes about K3's time
 // whatever B is, and each member's arithmetic is K3's, bit for bit.
 //
@@ -82,7 +90,55 @@ __device__ __forceinline__ int first_row(bool hit, int p) {
     return who ? __ffs(who) - 1 : p;
 }
 
-template <typename T, bool MULTI>
+// One column's Frank-Wolfe loop in the wide form (p > 32): the slab holds
+// G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
+// rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
+// of the lanes' minima over their rows, and its first row the smallest
+// row index holding it (else p): the register form's values and ties.
+template <typename T>
+__device__ __forceinline__ void fw_steps_wide(
+        const T* __restrict__ sg, const T* __restrict__ sb,
+        T* __restrict__ sal, T* __restrict__ sgr, int lane, int p, int n_ct,
+        T pur, T pur2, int n_steps) {
+    const T big = T(3.4e38);                // the TPU kernel's block mask
+    const T pad = pos_inf<T>();
+    for (int k = 0; k < n_steps; ++k) {
+        for (int q = lane; q < p; q += 32)
+            sgr[q] = -(sb[q] - dm::gram_row_dot(sg, sal, q, p));
+        __syncwarp();
+        T m1 = pad, m2 = pad;
+        for (int q = lane; q < p; q += 32) {
+            const bool known = q < n_ct;
+            m1 = dm::min_nan(m1, known ? sgr[q] : big);
+            m2 = dm::min_nan(m2, known ? big : sgr[q]);
+        }
+        m1 = warp_min(m1);
+        m2 = warp_min(m2);
+        int i1 = p, i2 = p;
+        for (int q = lane; q < p; q += 32) {
+            const bool known = q < n_ct;
+            if (i1 == p && (known ? sgr[q] : big) == m1) i1 = q;
+            if (i2 == p && (known ? big : sgr[q]) == m2) i2 = q;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const int o1 = __shfl_xor_sync(kFull, i1, off);
+            const int o2 = __shfl_xor_sync(kFull, i2, off);
+            i1 = o1 < i1 ? o1 : i1;
+            i2 = o2 < i2 ? o2 : i2;
+        }
+        const T gamma = T(2) / (static_cast<T>(k) + T(2));
+        for (int q = lane; q < p; q += 32) {
+            const T e1 = q == i1 ? T(1) : T(0);
+            const T e2 = q == i2 ? T(1) : T(0);
+            const T vert = e1 * pur + e2 * pur2;
+            sal[q] = (T(1) - gamma) * sal[q] + gamma * vert;
+        }
+        __syncwarp();
+    }
+}
+
+template <typename T, bool MULTI, bool WIDE>
 __global__ void fw_phase_full_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
@@ -112,30 +168,53 @@ __global__ void fw_phase_full_kernel(
     const T dmax2 = scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    for (int s = warp; s < n_s; s += n_warps) {
-        T g[kMaxP], b;
-        dm::load_gram_row(g, b, gtt, bt, gu, bu, s, lane, n_s, n_ct, n_u);
-        T al = row ? alpha[lane * n_s + s] : T(0);
-        const T pur = purity[s];
-        const T pur2 = T(1) - pur;
-
-        for (int k = 0; k < n_steps; ++k) {
-            const T grad = -(b - dm::gram_matvec(g, al, p));
-            const T g1 = row ? (known ? grad : big) : pad;
-            const T g2 = row ? (known ? big : grad) : pad;
-            const T m1 = warp_min(g1);
-            const T m2 = warp_min(g2);
-            const int idx1 = first_row(row && g1 == m1, p);
-            const int idx2 = first_row(row && g2 == m2, p);
-            const T e1 = (row && lane == idx1) ? T(1) : T(0);
-            const T e2 = (row && lane == idx2) ? T(1) : T(0);
-            const T vert = e1 * pur + e2 * pur2;
-            const T gamma = T(2) / (static_cast<T>(k) + T(2));
-            al = (T(1) - gamma) * al + gamma * vert;
+    if constexpr (WIDE) {
+        extern __shared__ __align__(16) unsigned char smem_raw[];
+        T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
+        T* sb = sg + p * p;
+        T* sal = sb + p;
+        T* sgr = sal + p;
+        for (int s = warp; s < n_s; s += n_warps) {
+            dm::load_gram_wide(sg, sb, gtt, bt, gu, bu, s, lane, n_s, n_ct,
+                               n_u);
+            for (int q = lane; q < p; q += 32) sal[q] = alpha[q * n_s + s];
+            __syncwarp();
+            const T pur = purity[s];
+            fw_steps_wide(sg, sb, sal, sgr, lane, p, n_ct, pur, T(1) - pur,
+                          n_steps);
+            dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba,
+                                     sum_ag, sum_lw);
+            for (int q = lane; q < p; q += 32) alpha[q * n_s + s] = sal[q];
+            __syncwarp();    // the slab is free for the next column
         }
+    } else {
+        for (int s = warp; s < n_s; s += n_warps) {
+            T g[kMaxP], b;
+            dm::load_gram_row(g, b, gtt, bt, gu, bu, s, lane, n_s, n_ct,
+                              n_u);
+            T al = row ? alpha[lane * n_s + s] : T(0);
+            const T pur = purity[s];
+            const T pur2 = T(1) - pur;
 
-        dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag, sum_lw);
-        if (row) alpha[lane * n_s + s] = al;
+            for (int k = 0; k < n_steps; ++k) {
+                const T grad = -(b - dm::gram_matvec(g, al, p));
+                const T g1 = row ? (known ? grad : big) : pad;
+                const T g2 = row ? (known ? big : grad) : pad;
+                const T m1 = warp_min(g1);
+                const T m2 = warp_min(g2);
+                const int idx1 = first_row(row && g1 == m1, p);
+                const int idx2 = first_row(row && g2 == m2, p);
+                const T e1 = (row && lane == idx1) ? T(1) : T(0);
+                const T e2 = (row && lane == idx2) ? T(1) : T(0);
+                const T vert = e1 * pur + e2 * pur2;
+                const T gamma = T(2) / (static_cast<T>(k) + T(2));
+                al = (T(1) - gamma) * al + gamma * vert;
+            }
+
+            dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag,
+                                sum_lw);
+            if (row) alpha[lane * n_s + s] = al;
+        }
     }
     T cost, lw;
     if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
@@ -144,20 +223,52 @@ __global__ void fw_phase_full_kernel(
     }
 }
 
-template <typename T, bool MULTI>
-int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
-           const void* ydy, void* alpha, const void* purity, void* scal,
-           int n_s, int n_ct, int n_u, int n_steps, int n_members,
-           dm::MemberStrides st, void* stream) {
-    const int n_warps = n_s < 32 ? n_s : 32;
-    fw_phase_full_kernel<T, MULTI><<<n_members, 32 * n_warps, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+template <typename T, bool MULTI, bool WIDE>
+int launch_form(const void* gtt, const void* bt, const void* gu,
+                const void* bu, const void* ydy, void* alpha,
+                const void* purity, void* scal, int n_s, int n_ct, int n_u,
+                int n_steps, int n_members, dm::MemberStrides st,
+                cudaStream_t stream) {
+    auto kern = fw_phase_full_kernel<T, MULTI, WIDE>;
+    const int p = n_ct + n_u;
+    static const int max_warps = dm::max_block_warps(kern);
+    int n_warps = n_s < 32 ? n_s : 32;
+    n_warps = n_warps < max_warps ? n_warps : max_warps;
+    size_t smem = 0;
+    if constexpr (WIDE) {
+        const int fit = dm::glue_warps(sizeof(T), p, n_s);
+        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+        n_warps = fit < n_warps ? fit : n_warps;
+        smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
+        if (smem > 48 * 1024) {
+            cudaError_t err = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+    }
+    kern<<<n_members, 32 * n_warps, smem, stream>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(ydy), static_cast<T*>(alpha),
         static_cast<const T*>(purity), static_cast<T*>(scal), n_s, n_ct,
         n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool MULTI>
+int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
+           const void* ydy, void* alpha, const void* purity, void* scal,
+           int n_s, int n_ct, int n_u, int n_steps, int n_members,
+           dm::MemberStrides st, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n_ct + n_u > kMaxP)
+        return launch_form<T, MULTI, true>(gtt, bt, gu, bu, ydy, alpha,
+                                           purity, scal, n_s, n_ct, n_u,
+                                           n_steps, n_members, st, s);
+    return launch_form<T, MULTI, false>(gtt, bt, gu, bu, ydy, alpha, purity,
+                                        scal, n_s, n_ct, n_u, n_steps,
+                                        n_members, st, s);
 }
 
 }  // namespace
@@ -192,9 +303,9 @@ int dm_fw_phase_full_multi_f32(
         long long ydy_stride, void* alpha, long long alpha_stride,
         const void* purity, void* scal, long long scal_stride, int n_s,
         int n_ct, int n_u, int n_steps, int n_members, void* stream) {
-    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
-                               gu_stride,  bu_stride, 0,
-                               alpha_stride, scal_stride};
+    const dm::MemberStrides st{gtt_stride, bt_stride,    ydy_stride,
+                               gu_stride,  bu_stride,    0,
+                               alpha_stride, scal_stride, 0};
     return launch<float, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
                                n_s, n_ct, n_u, n_steps, n_members, st,
                                stream);
@@ -207,9 +318,9 @@ int dm_fw_phase_full_multi_f64(
         long long ydy_stride, void* alpha, long long alpha_stride,
         const void* purity, void* scal, long long scal_stride, int n_s,
         int n_ct, int n_u, int n_steps, int n_members, void* stream) {
-    const dm::MemberStrides st{gtt_stride, bt_stride, ydy_stride,
-                               gu_stride,  bu_stride, 0,
-                               alpha_stride, scal_stride};
+    const dm::MemberStrides st{gtt_stride, bt_stride,    ydy_stride,
+                               gu_stride,  bu_stride,    0,
+                               alpha_stride, scal_stride, 0};
     return launch<double, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,
                                 n_s, n_ct, n_u, n_steps, n_members, st,
                                 stream);

@@ -1,9 +1,12 @@
 // Pieces shared by the port's kernels: the solver's scalar slots and the
 // FISTA scalar arithmetic (K1, K2, K4, K5), and for the glue kernels K2
 // and K5 (alpha_phase_full.cu), K3 and K6 (fw_phase_full.cu) -- one thread
-// block per member, one warp per sample column, lane q holding row q of
-// alpha and of the column's Gram matrix (p <= 32) -- the Gram row
-// assembly, the product, the cost epilogue and the member bookkeeping.
+// block per member, one warp per sample column -- the Gram row assembly,
+// the product, the cost epilogue and the member bookkeeping, in two
+// forms: lane q holds row q of alpha and of the column's Gram matrix in
+// registers (p <= 32), or, above 32 rows, each warp keeps its column's
+// Gram matrix, b and alpha in its own slab of shared memory and lane q
+// takes rows q, q + 32, ... (the wide form).
 
 #pragma once
 
@@ -19,8 +22,39 @@ namespace dm {
 constexpr int kAU = 0, kLW = 1, kLWPrev = 2, kAAlpha = 3, kLHPrev = 4,
               kCost = 5, kRtSq = 6, kDmax2 = 7, kTol = 8, kActive = 9;
 
-constexpr int kMaxP = 32;
+constexpr int kMaxP = 32;          // rows of the register form
 constexpr unsigned kFull = 0xffffffffu;
+
+// The wide form's shared memory: per warp the column's Gram matrix
+// (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
+// as many warps as fit under the card's opt-in limit (232,448 bytes on an
+// H100) less 1 KB for the kernels' static shared memory, at most 32 and
+// at most n_s. glue_warps returns 0 when one warp does not fit.
+constexpr long long kGlueSmemLimit = 232448 - 1024;
+
+__host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
+    return static_cast<long long>(p) * p + 6LL * p;
+}
+
+// The most warps one block of kernel `kern` can hold, given its register
+// use (cudaFuncGetAttributes): the glue kernels' register form holds a
+// Gram row per lane, 64 registers in float64, so 32 warps of it do not fit
+// one block's 65,536 registers. The launchers read it once per kernel (a
+// static in each instantiation) and give a block at most that many warps,
+// which then loop over the sample columns.
+template <typename K>
+int max_block_warps(K kern) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, kern) != cudaSuccess) return 1;
+    return attr.maxThreadsPerBlock / 32;
+}
+
+__host__ __device__ __forceinline__ int glue_warps(int itemsize, int p,
+                                                   int n_s) {
+    const long long fit = kGlueSmemLimit / (itemsize * glue_warp_elems(p));
+    const long long w = n_s < 32 ? n_s : 32;
+    return static_cast<int>(fit < w ? fit : w);
+}
 
 // Per-member element strides of the glue kernels' operands: K2 and K3
 // are the one-member case (all zero). The known blocks gtt, bt and ydy
@@ -28,7 +62,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // their block size when each member has its own (the weighted bootstrap:
 // each replicate's w-weighted known blocks).
 struct MemberStrides {
-    long long gtt, bt, ydy, gu, bu, usq, alpha, scal;
+    long long gtt, bt, ydy, gu, bu, usq, alpha, scal, mask;
 };
 
 // A glue kernel's last word on its member (thread 0): the new cost and,
@@ -151,6 +185,69 @@ __device__ __forceinline__ bool block_cost(T sum_ba, T sum_ag, T sum_lw,
     cost = s_ydy - s_ba - s_ag;
     lw = s_lw;
     return true;
+}
+
+// ---- the wide form (p > 32): this warp's slab of shared memory -------
+
+// G_s and b_s of column s into the slab (sg: p x p, sb: p), by the
+// assembly rule of load_gram_row; lane q fills entries q, q + 32, ...
+template <typename T>
+__device__ __forceinline__ void load_gram_wide(
+        T* __restrict__ sg, T* __restrict__ sb, const T* __restrict__ gtt,
+        const T* __restrict__ bt, const T* __restrict__ gu,
+        const T* __restrict__ bu, int s, int lane, int n_s, int n_ct,
+        int n_u) {
+    const int p = n_ct + n_u;
+    for (int k = lane; k < p * p; k += 32) {
+        const int q = k / p;
+        const int r = k % p;
+        T x;
+        if (q >= n_ct)
+            x = gu[(s * n_u + (q - n_ct)) * p + r];
+        else if (r >= n_ct)
+            x = gu[(s * n_u + (r - n_ct)) * p + q];
+        else
+            x = gtt[(s * n_ct + q) * n_ct + r];
+        sg[k] = x;
+    }
+    for (int q = lane; q < p; q += 32)
+        sb[q] = q < n_ct ? bt[q * n_s + s] : bu[(q - n_ct) * n_s + s];
+}
+
+// (G_s a)_q from the slab, summed over r in order as gram_matvec does
+template <typename T>
+__device__ __forceinline__ T gram_row_dot(const T* __restrict__ sg,
+                                          const T* __restrict__ a, int q,
+                                          int p) {
+    T ga = T(0);
+    for (int r = 0; r < p; ++r) ga += sg[q * p + r] * a[r];
+    return ga;
+}
+
+// add_column_sums for the wide form: each lane sums its rows in order,
+// then the same shuffle tree
+template <typename T>
+__device__ __forceinline__ void add_column_sums_wide(
+        const T* __restrict__ sg, const T* __restrict__ sb,
+        const T* __restrict__ al, int lane, int p, int n_u, T& sum_ba,
+        T& sum_ag, T& sum_lw) {
+    T ba = T(0), ag = T(0), lw = T(0);
+    for (int q = lane; q < p; q += 32) {
+        const T a = al[q];
+        const T ga = gram_row_dot(sg, al, q, p);
+        ba += sb[q] * a;
+        ag += a * (sb[q] - ga);
+        if (q >= p - n_u) lw += a * a;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        ba += __shfl_down_sync(kFull, ba, off);
+        ag += __shfl_down_sync(kFull, ag, off);
+        lw += __shfl_down_sync(kFull, lw, off);
+    }
+    sum_ba += ba;
+    sum_ag += ag;
+    sum_lw += lw;
 }
 
 }  // namespace dm

@@ -73,43 +73,45 @@ _LL = ctypes.c_longlong
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    # K1 and K4 in each shared-memory layout ("" resident, "_wide")
+    for layout in ("", "_wide"):
+        k1 = f"dm_u_phase_grams{layout}"
+        k4 = f"dm_u_phase_grams_multi{layout}"
+        for dt in ("f32", "f64", "bf16"):
+            fn = getattr(lib, f"{k1}_{dt}")
+            # bf16 data with a float32 state adds the bf16_compute flag
+            fn.argtypes = ([_VOID] * 9 + [_LL] + [_INT] * (7 if dt == "bf16"
+                                                           else 6) + [_VOID])
+            fn.restype = _INT
+            # the multi-member kernel: pointers with their member strides
+            fn = getattr(lib, f"{k4}_{dt}")
+            fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
+                           + [_LL] + [_VOID, _INT] + [_VOID] * 3 + [_LL]
+                           + [_INT] * 6 + [_VOID])
+            fn.restype = _INT
+        getattr(lib, f"{k1}_smem").argtypes = [_INT] * 6
+        getattr(lib, f"{k1}_smem").restype = _LL
+        getattr(lib, f"{k4}_smem").argtypes = [_INT] * 5
+        getattr(lib, f"{k4}_smem").restype = _LL
+    lib.dm_u_phase_grams_blocks.argtypes = [_LL]
+    lib.dm_u_phase_grams_blocks.restype = _INT
     for dt in ("f32", "f64"):
-        fn = getattr(lib, f"dm_u_phase_grams_{dt}")
-        fn.argtypes = [_VOID] * 8 + [_LL] + [_INT] * 6 + [_VOID]
-        fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
-        fn.argtypes = [_VOID] * 9 + [_INT] * 4 + [_VOID]
+        fn.argtypes = [_VOID] * 10 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_{dt}")
         fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
-        # the multi-member kernels: pointers with their member strides
-        fn = getattr(lib, f"dm_u_phase_grams_multi_{dt}")
-        fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2 + [_LL]
-                       + [_VOID, _INT] + [_VOID] * 2 + [_LL] + [_INT] * 6
-                       + [_VOID])
-        fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL, _VOID, _LL]
-                       + [_INT] * 5 + [_VOID])
+                       + [_VOID, _LL] + [_INT] * 5 + [_VOID])
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_INT] * 5
                        + [_VOID])
         fn.restype = _INT
-    # bf16 data with a float32 state: K1 with its bf16_compute flag, K4
-    lib.dm_u_phase_grams_bf16.argtypes = [_VOID] * 8 + [_LL] + [_INT] * 7 + [
-        _VOID]
-    lib.dm_u_phase_grams_bf16.restype = _INT
-    lib.dm_u_phase_grams_multi_bf16.argtypes = (
-        lib.dm_u_phase_grams_multi_f32.argtypes)
-    lib.dm_u_phase_grams_multi_bf16.restype = _INT
-    lib.dm_u_phase_grams_smem.argtypes = [_INT] * 6
-    lib.dm_u_phase_grams_smem.restype = _LL
-    lib.dm_u_phase_grams_multi_smem.argtypes = [_INT] * 5
-    lib.dm_u_phase_grams_multi_smem.restype = _LL
-    lib.dm_u_phase_grams_blocks.argtypes = [_LL]
-    lib.dm_u_phase_grams_blocks.restype = _INT
+    lib.dm_glue_smem.argtypes = [_INT] * 3
+    lib.dm_glue_smem.restype = _LL
 
 
 def _compile(out: str) -> str:

@@ -17,12 +17,29 @@ bfloat16 (storage); the state operands (``a1_block``, ``a2_block``,
 ``uut``, ``scal``) are float32 or float64, the same as the data except
 that bfloat16 data goes with a float32 state (the JAX kernel's bf16
 storage: the data converted once at load, float32 arithmetic from there
-on). ``bf16_compute`` (bf16 data only, gram form) rounds the products the
-JAX kernel's ``bf16_compute`` branch forms in bf16
-(``pallas_kernels.py:263-334, 464-479``): d y, d rt, the alpha operands
+on). ``bf16_compute`` (bf16 data only) rounds the products the JAX
+kernel's ``bf16_compute`` branch forms in bf16: in the gram form
+(``pallas_kernels.py:263-334, 464-479``) d y, d rt, the alpha operands
 a2, a2 a1 and a2 a2 of the C and M sums, and u and d u in the Gram sums;
-every sum stays float32. With float32 data the flag does nothing, as in
-the JAX kernel.
+in the direct form d y alone, as the JAX kernel's direct-form fallback
+(``pallas_kernels.py:299-311``). Every sum stays float32. With float32
+data the flag does nothing, as in the JAX kernel.
+
+Shapes: any n_s, n_ct and n_u >= 1. The kernel has two shared-memory
+layouts (``csrc/u_phase_common.cuh``) that give the same bits: the
+resident one (Y, D and alpha staged once) and the wide one (Y and D
+staged in chunks of samples; the same sums in the same orders), whose
+shared memory stops growing at 32 samples. ``u_phase_layout`` picks by the
+measured crossover: resident, unless it does not fit or the wide one
+fits at least twice as many blocks on an SM.
+n_u <= 8 keeps the per-site state in registers; above, one form keeps it
+in a scratch buffer the wrapper allocates (``scratch_rows`` x N).
+
+Rt may also arrive folded into the data block, ydt = [Y.T; D.T; Rt.T]
+(2 n_s + n_ct, N) with ``rtt`` None and ``a1_block`` given, as the JAX
+wrapper's ``rt_folded`` layout (``pallas_kernels.py:650-674``); the
+wrapper then points the kernel's Rt operand at row 2 n_s of the same
+buffer (a view, not a copy).
 
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_plain``, which
@@ -47,9 +64,12 @@ A_U, L_W, L_W_PREV, A_ALPHA, L_H_PREV, COST, RT_SQ, DMAX2, TOL, ACTIVE = (
 N_SCAL = 8
 N_SCAL_MULTI = 10
 
-MAX_N_U = 8
 SITES_PER_BLOCK = 128    # K1's and K4's sites per block (u_phase_common.cuh)
-_SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into (H100)
+SMEM_LIMIT = 232448      # bytes of shared memory a block may opt into (H100)
+SMEM_PER_SM = 233472     # bytes of shared memory of one SM (H100)
+_LD = SITES_PER_BLOCK + 1    # shared row stride (kLd)
+_CHUNK = 32                  # samples per staged chunk, wide layout (kChunk)
+REG_N_U = 8              # n_u above this keeps its state in scratch columns
 
 
 def gram_form(n_u: int, n_s: int) -> bool:
@@ -57,6 +77,77 @@ def gram_form(n_u: int, n_s: int) -> bool:
     the gram form keeps n_u^2 curvature terms per site, the direct form
     redoes two small products over the n_s samples each step."""
     return n_u * n_u <= 3 * n_s
+
+
+def u_phase_smem(layout: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
+                 direct: bool = False, bf16c: bool = False,
+                 weighted: bool = False) -> int:
+    """Shared memory of K1's (and, ``weighted`` or not, K4's) main pass in
+    bytes, for the "resident" or the "wide" layout; ``itemsize`` is the
+    state's (staged rows are of the state type). The same formula as the
+    kernels' ``*_smem`` exports (``csrc/u_phase_grams.cuh``,
+    ``u_phase_grams_multi.cuh``), which ``chip_smoke.py`` holds it to:
+    resident: (2 n_s + p [+ n_s direct] [+ n_u]) rows of 129 plus the
+    (p, n_s) alpha block; wide: (2 min(32, n_s) + p [+ n_u]) rows;
+    the n_u more rows hold the raw u of bf16_compute's gram form, or K4's
+    weighted u."""
+    p = n_ct + n_u
+    x_rows = n_u if (bf16c and not direct) or weighted else 0
+    if layout == "wide":
+        return itemsize * (2 * min(_CHUNK, n_s) + p + x_rows) * _LD
+    if layout != "resident":
+        raise ValueError(f"unknown layout {layout!r}")
+    rows = 2 * n_s + p + (n_s if direct else 0) + x_rows
+    return itemsize * (rows * _LD + p * n_s)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of SITES_PER_BLOCK threads that fit one SM by shared memory
+    (``smem`` bytes each, plus the 1 KB the card reserves per block) and
+    by threads (2048)."""
+    return min(2048 // SITES_PER_BLOCK, SMEM_PER_SM // (smem + 1024))
+
+
+def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
+                   direct: bool = False, bf16c: bool = False,
+                   weighted: bool = False):
+    """(layout, bytes). The resident layout reads Y and D from device
+    memory once; the wide one reads them twice (and, in the direct form,
+    once per FISTA step), but its shared memory stops growing with n_s at
+    32 samples, so more blocks share an SM. On an H100
+    (``chip_smoke.time_layouts``, 27 shapes) the wide layout was up to 27%
+    slower wherever it fitted fewer than twice the resident layout's
+    blocks per SM (at one such shape 5.7% faster), and 6-64% faster
+    wherever it fitted at least twice as many (the resident layout then
+    fits one or two); in the direct form it was up to 2x slower. So: the
+    resident layout, unless it passes SMEM_LIMIT or, in the gram form,
+    the wide one fits at least twice its blocks per SM. Raises
+    NotImplementedError, stating the shape and the bytes, where neither
+    fits (the wide layout needs SMEM_LIMIT from about p = 160 state rows
+    in float64, 350 in float32)."""
+    res = u_phase_smem("resident", itemsize, n_s, n_ct, n_u, direct, bf16c,
+                       weighted)
+    wide = u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
+                        weighted)
+    if res <= SMEM_LIMIT and (
+            direct or blocks_per_sm(wide) < 2 * blocks_per_sm(res)):
+        return "resident", res
+    if wide <= SMEM_LIMIT:
+        return "wide", wide
+    raise NotImplementedError(
+        f"{name} at n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u} ({itemsize}-byte "
+        f"state) needs {wide} bytes of shared memory even in its wide "
+        f"layout, above the {SMEM_LIMIT} a block may use")
+
+
+def scratch_rows(n_u: int, direct: bool) -> int:
+    """Rows of the n_u > REG_N_U form's per-site scratch (0 below), in the
+    order the kernels address them: C (n_u rows), M (n_u (n_u + 1) / 2)
+    and two step temporaries (n_u each) in the gram form, the two
+    temporaries alone in the direct form."""
+    if n_u <= REG_N_U:
+        return 0
+    return 2 * n_u if direct else n_u * (n_u + 1) // 2 + 3 * n_u
 
 
 def check_dtypes(name, data, state):
@@ -97,13 +188,22 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
             f"rtt {tuple(rtt.shape)}, a1 {tuple(a1_block.shape)}, "
             f"a2 {tuple(a2_block.shape)}, uut {tuple(uut.shape)}, "
             f"scal {tuple(scal.shape)}")
-    if n == 0:
-        raise ValueError("u_phase_grams: no CpG sites")
-    if not 1 <= n_u <= MAX_N_U:
-        raise NotImplementedError(
-            f"u_phase_grams takes 1 <= n_u <= {MAX_N_U}, got {n_u} (larger "
-            f"n_u is ROADMAP port queue item 12)")
+    if n == 0 or n_u < 1:
+        raise ValueError(f"u_phase_grams: no CpG sites or no unknown rows "
+                         f"(N = {n}, n_u = {n_u})")
     return n, n_s, n_ct, n_u
+
+
+def count_forms(forms: dict, **flags) -> None:
+    """Adds one launch to ``forms[name]`` for each name whose flag is set.
+    The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
+    K6), "state_cols" (n_u > REG_N_U, state in scratch columns),
+    "bf16c_direct" (bf16_compute in the direct form), "rt_folded" (Rt
+    folded into the data block), "masked" (K2/K5 with row masks). A
+    launch also counts in its wrapper's ``launches``."""
+    for name, on in flags.items():
+        if on:
+            forms[name] = forms.get(name, 0) + 1
 
 
 def gram_entries(n_s: int, n_ct: int, n_u: int) -> int:
@@ -123,14 +223,19 @@ def member_stride(t, name: str) -> int:
 
 
 def known_block(ydt, rtt, a1_block, a1_shape, state):
-    """None for the known block means none (n_ct = 0): empty operands,
-    rtt in the data's dtype, a1 of the empty ``a1_shape`` in the dtype of
-    the ``state`` tensor."""
+    """(ydt, rtt, a1): None for the known block means none (n_ct = 0):
+    empty operands, rtt in the data's dtype, a1 of the empty ``a1_shape``
+    in the dtype of the ``state`` tensor. With ``rtt`` None but a1 given,
+    Rt is folded into ydt as its rows from 2 n_s on (n_s = a1_shape[-1]):
+    ydt and rtt become row views of that buffer."""
+    if rtt is None and a1_block is not None:
+        n2 = 2 * a1_shape[-1]
+        return ydt[:n2], ydt[n2:], a1_block
     if rtt is None:
         rtt = ydt.new_empty((0, ydt.shape[1]))
     if a1_block is None:
         a1_block = state.new_empty(a1_shape)
-    return rtt, a1_block
+    return ydt, rtt, a1_block
 
 
 def bf16_round(x):
@@ -150,7 +255,8 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     block); uut (2 n_u, N) = [u.T; u_prev.T]; scal the solver's scalar
     vector (slots A_U, L_W, L_W_PREV read). ``lagged`` takes each step's
     gradient at the old u (the unsupervised solve). ``bf16_compute`` as in
-    the module docstring; on the card it has the gram form only.
+    the module docstring. ydt may hold Rt as its rows from 2 n_s on, with
+    rtt None (the folded layout).
 
     Updates ``uut`` and ``scal[A_U]``, ``scal[L_W_PREV]`` in place (the
     JAX package donates the same buffers) and returns (gu (n_s, n_u, p),
@@ -158,8 +264,9 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     gu[s, u, q] = sum_i u_iu d_is [Rt | u]_iq, b_u = u'(d * y),
     usq = sum u^2.
     """
-    rtt, a1_block = known_block(ydt, rtt, a1_block, (0, a2_block.shape[1]),
-                                uut)
+    folded = rtt is None and a1_block is not None
+    ydt, rtt, a1_block = known_block(ydt, rtt, a1_block,
+                                     (0, a2_block.shape[1]), uut)
     n, n_s, n_ct, n_u = _check_args(ydt, rtt, a1_block, a2_block, uut, scal)
     bf16c = bf16_compute and ydt.dtype == torch.bfloat16
     if ydt.device.type == "cpu":
@@ -168,36 +275,30 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams: unsupported device {ydt.device}")
     direct = not gram_form(n_u, n_s)
-    if bf16c and direct:
-        raise NotImplementedError(
-            f"u_phase_grams: bf16_compute has the gram form only on the card "
-            f"(n_u^2 <= 3 n_s; here n_u = {n_u}, n_s = {n_s}); the JAX "
-            f"kernel's direct-form fallback is ROADMAP port queue item 12")
+    layout, _ = u_phase_layout("u_phase_grams", uut.element_size(), n_s,
+                               n_ct, n_u, direct, bf16c)
     lib = _build.load().lib
-    smem = lib.dm_u_phase_grams_smem(uut.element_size(), n_s, n_ct, n_u,
-                                     int(direct), int(bf16c))
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"u_phase_grams needs {smem} bytes of shared memory at n_s = "
-            f"{n_s}, n_ct = {n_ct}, n_u = {n_u}; wider shapes are ROADMAP "
-            f"port queue item 12")
+    prefix = "dm_u_phase_grams" + ("_wide" if layout == "wide" else "")
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
     partials = uut.new_empty((n_entries, n_blocks))
     out = uut.new_empty((n_entries,))
+    rows = scratch_rows(n_u, direct)
+    scratch = uut.new_empty((rows, n)) if rows else None
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), n, n_s, n_ct, n_u, n_steps,
-            int(lagged), int(direct))
+            partials.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, n_s, n_ct,
+            n_u, n_steps, int(lagged), int(direct))
     with torch.cuda.device(ydt.device):
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
         if ydt.dtype == torch.bfloat16:
-            err = lib.dm_u_phase_grams_bf16(*args, int(bf16c), stream)
+            err = getattr(lib, prefix + "_bf16")(*args, int(bf16c), stream)
         elif ydt.dtype == torch.float32:
-            err = lib.dm_u_phase_grams_f32(*args, stream)
+            err = getattr(lib, prefix + "_f32")(*args, stream)
         else:
-            err = lib.dm_u_phase_grams_f64(*args, stream)
+            err = getattr(lib, prefix + "_f64")(*args, stream)
     _build.check(err, "u_phase_grams")
     if bf16c:
         u_phase_grams.launches_bf16_compute += 1
@@ -205,16 +306,21 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
         u_phase_grams.launches_bf16 += 1
     else:
         u_phase_grams.launches += 1
+    count_forms(u_phase_grams.forms, wide=layout == "wide",
+                state_cols=n_u > REG_N_U, bf16c_direct=bf16c and direct,
+                rt_folded=folded)
     gu = out[:n_s * n_u * p].view(n_s, n_u, p)
     b_u = out[n_s * n_u * p:-1].view(n_u, n_s)
     return gu, b_u, out[-1]
 
 
-# launches per form: float32/float64 data, bf16 data (float32 state), and
-# bf16 data with bf16_compute
+# launches per storage form: float32/float64 data, bf16 data (float32
+# state), and bf16 data with bf16_compute; and, apart, the launches of
+# each form named in ``count_forms`` (a launch counts in both)
 u_phase_grams.launches = 0
 u_phase_grams.launches_bf16 = 0
 u_phase_grams.launches_bf16_compute = 0
+u_phase_grams.forms = {}
 
 
 def u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
@@ -226,8 +332,8 @@ def u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
     upcast to the state dtype; ``bf16_compute`` (bf16 data only) rounds
     through ``bf16_round`` at the kernel's points, and in the direct form
     only d y, as the JAX kernel's direct-form fallback does."""
-    rtt, a1_block = known_block(ydt, rtt, a1_block, (0, a2_block.shape[1]),
-                                uut)
+    ydt, rtt, a1_block = known_block(ydt, rtt, a1_block,
+                                     (0, a2_block.shape[1]), uut)
     bf16c = bf16_compute and ydt.dtype == torch.bfloat16
     st = uut.dtype
     n_u, n_s = a2_block.shape

@@ -38,20 +38,21 @@ same function with the member axis written out as a batch dimension.
 
 import torch
 
-from demethify_tpu_torch.ops import _build
+from demethify_tpu_torch.ops import _build, cuda_kernels
 from demethify_tpu_torch.ops.cuda_kernels import (
-    _SMEM_LIMIT,
     A_U,
     ACTIVE,
     L_W,
     L_W_PREV,
-    MAX_N_U,
     N_SCAL_MULTI,
+    REG_N_U,
     check_dtypes,
+    count_forms,
     gram_entries,
     gram_form,
     known_block,
     member_stride,
+    scratch_rows,
 )
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
@@ -84,10 +85,8 @@ def _check_args(ydt, rtt, a1_b, a2_b, uut_b, scal_b, weights):
     if dev.type == "cuda":
         for t, name in ((a1_b, "a1_b"), (a2_b, "a2_b")):
             member_stride(t, f"u_phase_grams_multi: {name}")
-    if not 1 <= n_u <= MAX_N_U:
-        raise NotImplementedError(
-            f"u_phase_grams_multi takes 1 <= n_u <= {MAX_N_U}, got {n_u} "
-            f"(larger n_u is ROADMAP port queue item 12)")
+    if n_u < 1:
+        raise ValueError("u_phase_grams_multi: no unknown rows")
     if not gram_form(n_u, n_s):
         raise ValueError(
             f"u_phase_grams_multi has the gram form only (n_u^2 <= 3 n_s), "
@@ -117,14 +116,15 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     a1_b None without a known block); uut_b (B, 2 n_u, N) the members'
     [u.T; u_prev.T]; scal_b (B, N_SCAL_MULTI) the members' scalar rows;
     weights (B, N) the members' row weights, or None. ``lagged`` as for
-    ``u_phase_grams``.
+    ``u_phase_grams`` (the layouts and the n_u > 8 form are K1's:
+    ``cuda_kernels.u_phase_layout``).
 
     Updates the active members' ``uut_b`` rows and their A_U and L_W_PREV
     slots in place and returns (gu (B, n_s, n_u, p), b_u (B, n_u, n_s),
     usq (B,)); an inactive member's entries are unspecified on the card.
     """
     n_b, n_u, n_s = a2_b.shape
-    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
+    ydt, rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
     n, n_b, n_s, n_ct, n_u = _check_args(ydt, rtt, a1_b, a2_b, uut_b,
                                          scal_b, weights)
     if ydt.device.type == "cpu":
@@ -133,22 +133,20 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams_multi: unsupported device "
                          f"{ydt.device}")
+    layout, _ = cuda_kernels.u_phase_layout(
+        "u_phase_grams_multi", uut_b.element_size(), n_s, n_ct, n_u,
+        weighted=weights is not None)
     lib = _build.load().lib
-    smem = lib.dm_u_phase_grams_multi_smem(uut_b.element_size(), n_s, n_ct,
-                                           n_u, int(weights is not None))
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"u_phase_grams_multi needs {smem} bytes of shared memory at "
-            f"n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u}; wider shapes are "
-            f"ROADMAP port queue item 12")
+    prefix = "dm_u_phase_grams_multi" + ("_wide" if layout == "wide" else "")
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
     partials = uut_b.new_empty((n_b * n_entries, n_blocks))
     out = uut_b.new_empty((n_b, n_entries))
-    fn = {torch.float32: lib.dm_u_phase_grams_multi_f32,
-          torch.float64: lib.dm_u_phase_grams_multi_f64,
-          torch.bfloat16: lib.dm_u_phase_grams_multi_bf16}[ydt.dtype]
+    rows = scratch_rows(n_u, False)
+    scratch = uut_b.new_empty((rows, n)) if rows else None
+    fn = getattr(lib, prefix + {torch.float32: "_f32", torch.float64: "_f64",
+                                torch.bfloat16: "_bf16"}[ydt.dtype])
     with torch.cuda.device(ydt.device):
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
         err = fn(ydt.data_ptr(), rtt.data_ptr(), a1_b.data_ptr(),
@@ -157,13 +155,16 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  None if weights is None else weights.data_ptr(),
                  0 if weights is None else weights.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI, partials.data_ptr(),
-                 out.data_ptr(), n, n_s, n_ct, n_u, n_steps, n_b,
-                 int(lagged), stream)
+                 out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n, n_s,
+                 n_ct, n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")
     if ydt.dtype == torch.bfloat16:
         u_phase_grams_multi.launches_bf16 += 1
     else:
         u_phase_grams_multi.launches += 1
+    count_forms(u_phase_grams_multi.forms, wide=layout == "wide",
+                state_cols=n_u > REG_N_U)
     return _split(out, n_s, n_u, p)
 
 
@@ -171,6 +172,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
 # with or without weights
 u_phase_grams_multi.launches = 0
 u_phase_grams_multi.launches_bf16 = 0
+u_phase_grams_multi.forms = {}      # as u_phase_grams.forms
 
 
 def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
@@ -182,7 +184,7 @@ def u_phase_grams_multi_plain(ydt, rtt, a1_b, a2_b, uut_b, scal_b,
     inactive member are computed with its frozen u. bf16 data are upcast
     to the state dtype."""
     n_b, n_u, n_s = a2_b.shape
-    rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
+    ydt, rtt, a1_b = known_block(ydt, rtt, a1_b, (n_b, 0, n_s), uut_b)
     st = uut_b.dtype
     yt, dt, rtt = ydt[:n_s].to(st), ydt[n_s:].to(st), rtt.to(st)
     dy = dt * yt

@@ -28,9 +28,19 @@ the unsupervised solve) the known operands are empty and never read.
 The multi forms leave a member whose ACTIVE slot is 0 exactly as it was
 and set an active member's ACTIVE slot for the next outer iteration from
 |new cost - old cost| >= TOL (the reference's termination test, per
-member). ``row_mask`` and ``row_mask_b`` (the JAX kernels' masks for the
-model-selection sweep, whose JAX route runs the XLA solvers instead) are
-ROADMAP port queue item 10.
+member).
+
+Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers;
+above, the kernels' wide form keeps each warp's column in its own slab of
+shared memory (``glue_smem``); past one slab they raise, stating the
+shape.
+
+``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
+are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
+each projection the rows whose mask is not > 0 are set to -1e30, which
+projects them to exactly 0 and the other rows as the smaller vector
+would be. ``fused.partial_ref_solve_fused(row_mask=)`` runs K2's; no
+solver runs K5's yet.
 """
 
 import torch
@@ -46,13 +56,56 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     N_SCAL,
     N_SCAL_MULTI,
     RT_SQ,
+    SMEM_LIMIT,
     TOL,
+    count_forms,
     member_stride,
 )
 from demethify_tpu_torch.ops.fista import fista_alpha_gram
 from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
 
-MAX_P = 32     # one lane per row of alpha
+REG_P = 32     # rows the register form holds, one lane per row (kMaxP)
+# the wide form's slabs may take the card's limit less 1 KB for the
+# kernels' static shared memory (small_common.cuh, kGlueSmemLimit)
+_GLUE_LIMIT = SMEM_LIMIT - 1024
+
+
+def glue_smem(itemsize: int, p: int, n_s: int):
+    """(warps per block, dynamic shared memory in bytes) of the glue
+    kernels at p rows and n_s columns: (min(n_s, 32), 0) in the register
+    form (p <= 32); in the wide form one slab of p x p + 6 p values per
+    warp and as many warps as fit, at most min(n_s, 32) -- the kernels'
+    ``dm::glue_warps`` and ``dm_glue_smem``, which ``chip_smoke.py`` holds
+    this to. 0 warps when one slab does not fit. A launch may take fewer
+    warps where the kernel's registers allow fewer per block
+    (``dm::max_block_warps``); its warps then loop over the columns."""
+    n_warps = min(n_s, 32)
+    if p <= REG_P:
+        return n_warps, 0
+    slab = itemsize * (p * p + 6 * p)
+    n_warps = min(n_warps, _GLUE_LIMIT // slab)
+    return n_warps, max(n_warps, 1) * slab
+
+
+def _check_glue_shape(name, itemsize, p, n_s):
+    n_warps, smem = glue_smem(itemsize, p, n_s)
+    if n_warps < 1:
+        raise NotImplementedError(
+            f"{name} at p = {p} rows ({itemsize}-byte values) needs {smem} "
+            f"bytes of shared memory for one column, above the "
+            f"{_GLUE_LIMIT} a block may use")
+
+
+def _mask_arg(mask, like, shape, name):
+    """A row mask as the kernels read it: in ``like``'s dtype and device,
+    contiguous, of ``shape`` (None stays None)."""
+    if mask is None:
+        return None
+    mask = torch.as_tensor(mask).to(device=like.device, dtype=like.dtype)
+    if mask.shape != shape:
+        raise ValueError(f"{name}: the row mask must be {tuple(shape)}, got "
+                         f"{tuple(mask.shape)}")
+    return mask.contiguous()
 
 
 def _check_args(name, tensors, alpha, n_u, gtt, bt, gu, bu, ydy, scal,
@@ -74,10 +127,8 @@ def _check_args(name, tensors, alpha, n_u, gtt, bt, gu, bu, ydy, scal,
             and bu.shape == (n_u, n_s) and ydy.shape == (n_s,)
             and scal.shape == (N_SCAL,) and extra_ok(p, n_s)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if p > MAX_P:
-        raise NotImplementedError(
-            f"{name} takes p <= {MAX_P} rows, got {p} (ROADMAP port queue "
-            f"item 12)")
+    if dev.type == "cuda":
+        _check_glue_shape(name, alpha.element_size(), p, n_s)
     return p, n_s, n_ct
 
 
@@ -86,7 +137,7 @@ def _stream(t):
 
 
 def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
-                     n_steps: int, n_u: int):
+                     n_steps: int, n_u: int, row_mask=None):
     """One launch: Gram assembly, the alpha FISTA loop, l_w and the cost.
 
     gtt (n_s, n_ct, n_ct), bt (n_ct, n_s), ydy (n_s,) are the
@@ -94,16 +145,19 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     there is none); gu (n_s, n_u, p), bu (n_u, n_s), usq
     (0-d) come from K1. alpha, alpha_prev (p, n_s) and the scalar vector
     scal (slots A_ALPHA, L_H_PREV advanced; L_W, COST written; RT_SQ,
-    DMAX2 read) are updated in place. Returns nothing.
+    DMAX2 read) are updated in place. ``row_mask`` (p,), bool or numeric:
+    the rows not > 0 project to exactly 0 (the module docstring). Returns
+    nothing.
     """
     p, n_s, n_ct = _check_args(
         "alpha_phase_full",
         (gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal), alpha, n_u,
         gtt, bt, gu, bu, ydy, scal,
         lambda p, n_s: usq.numel() == 1 and alpha_prev.shape == (p, n_s))
+    mask = _mask_arg(row_mask, alpha, (p,), "alpha_phase_full")
     if alpha.device.type == "cpu":
         alpha_phase_full_plain(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev,
-                               scal, n_steps, n_u)
+                               scal, n_steps, n_u, mask)
         return
     if alpha.device.type != "cuda":
         raise ValueError(f"alpha_phase_full: unsupported device "
@@ -115,12 +169,16 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), usq.data_ptr(), ydy.data_ptr(),
                  alpha.data_ptr(), alpha_prev.data_ptr(), scal.data_ptr(),
-                 n_s, n_ct, n_u, n_steps, _stream(alpha))
+                 None if mask is None else mask.data_ptr(), n_s, n_ct, n_u,
+                 n_steps, _stream(alpha))
     _build.check(err, "alpha_phase_full")
     alpha_phase_full.launches += 1
+    count_forms(alpha_phase_full.forms, wide=p > REG_P,
+                masked=mask is not None)
 
 
 alpha_phase_full.launches = 0
+alpha_phase_full.forms = {}
 
 
 def assemble_G_b(gtt, bt, gu, bu):
@@ -132,13 +190,14 @@ def assemble_G_b(gtt, bt, gu, bu):
 
 
 def alpha_phase_full_plain(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev,
-                           scal, n_steps: int, n_u: int):
+                           scal, n_steps: int, n_u: int, row_mask=None):
     """The same function as ``alpha_phase_full`` in ordinary tensor ops."""
     G, b = assemble_G_b(gtt, bt, gu, bu)
     l_h = (scal[RT_SQ] + usq.reshape(())) * scal[DMAX2]
     al, ap, a, l_h_prev = fista_alpha_gram(
         alpha.clone(), alpha_prev.clone(), scal[A_ALPHA].clone(),
-        scal[L_H_PREV].clone(), l_h, G, b, n_steps)
+        scal[L_H_PREV].clone(), l_h, G, b, n_steps,
+        None if row_mask is None else row_mask > 0)
     grad = b - torch.einsum("spq,qs->ps", G, al)
     cost = torch.sum(ydy) - torch.sum(b * al) - torch.sum(al * grad)
     alpha.copy_(al)
@@ -180,9 +239,11 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
                  n_steps, _stream(alpha))
     _build.check(err, "fw_phase_full")
     fw_phase_full.launches += 1
+    count_forms(fw_phase_full.forms, wide=p > REG_P)
 
 
 fw_phase_full.launches = 0
+fw_phase_full.forms = {}
 
 
 def fw_phase_full_plain(gtt, bt, gu, bu, ydy, alpha, purity, scal,
@@ -226,10 +287,8 @@ def _check_multi(name, alpha_b, n_u, shared, members, scal_b):
                 raise ValueError(f"{name}: operands must be contiguous")
         for t in members:
             member_stride(t, name)
-    if p > MAX_P:
-        raise NotImplementedError(
-            f"{name} takes p <= {MAX_P} rows, got {p} (ROADMAP port queue "
-            f"item 12)")
+    if dev.type == "cuda":
+        _check_glue_shape(name, alpha_b.element_size(), p, n_s)
     return n_b, p, n_s, n_ct
 
 
@@ -261,12 +320,9 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     of its output rows are taken as they are); alpha_b, alpha_prev_b
     (B, p, n_s) and scal_b (B, N_SCAL_MULTI) are updated in place for the
     active members (A_ALPHA, L_H_PREV advanced; L_W, COST, ACTIVE
-    written; RT_SQ, DMAX2, TOL read). Returns nothing.
+    written; RT_SQ, DMAX2, TOL read). ``row_mask_b`` (B, p): each
+    member's row mask, as ``alpha_phase_full``'s. Returns nothing.
     """
-    if row_mask_b is not None:
-        raise NotImplementedError(
-            "alpha_phase_full_multi: row_mask_b (the model-selection sweep) "
-            "is ROADMAP port queue item 10")
     name = "alpha_phase_full_multi"
     shared, own, lead, (st_gtt, st_bt, st_ydy) = _known_layout(
         alpha_b.shape[0], gtt, bt, ydy)
@@ -278,10 +334,11 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
             or usq_b.shape != (n_b,) or alpha_prev_b.shape != alpha_b.shape
             or alpha_prev_b.stride(0) != alpha_b.stride(0)):
         raise ValueError(f"{name}: inconsistent shapes")
+    mask = _mask_arg(row_mask_b, alpha_b, (n_b, p), name)
     if alpha_b.device.type == "cpu":
         alpha_phase_full_multi_plain(gtt, bt, gu_b, bu_b, usq_b, ydy,
                                      alpha_b, alpha_prev_b, scal_b, n_steps,
-                                     n_u)
+                                     n_u, mask)
         return
     if alpha_b.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {alpha_b.device}")
@@ -295,13 +352,18 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
                  bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
                  ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_prev_b.data_ptr(), alpha_b.stride(0),
-                 scal_b.data_ptr(), N_SCAL_MULTI, n_s, n_ct, n_u, n_steps,
-                 n_b, _stream(alpha_b))
+                 scal_b.data_ptr(), N_SCAL_MULTI,
+                 None if mask is None else mask.data_ptr(),
+                 p,                               # the mask's row stride
+                 n_s, n_ct, n_u, n_steps, n_b, _stream(alpha_b))
     _build.check(err, name)
     alpha_phase_full_multi.launches += 1
+    count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
+                masked=mask is not None)
 
 
 alpha_phase_full_multi.launches = 0
+alpha_phase_full_multi.forms = {}
 
 
 def _columns(x_b):
@@ -346,9 +408,10 @@ def _finish_members(scal_b, alpha_b, al_b, b_b, grad_b, ydy, n_u,
 
 def alpha_phase_full_multi_plain(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
                                  alpha_prev_b, scal_b, n_steps: int,
-                                 n_u: int):
+                                 n_u: int, row_mask_b=None):
     """The same function as ``alpha_phase_full_multi`` in ordinary tensor
-    ops: the members' columns side by side, per-column scalars."""
+    ops: the members' columns side by side, per-column scalars (and, with
+    ``row_mask_b``, per-column masks)."""
     n_b, p, n_s = alpha_b.shape
     G, b = assemble_G_b_multi(gtt, bt, gu_b, bu_b)
     G_c, b_c = G.reshape(n_b * n_s, p, p), _columns(b)
@@ -357,10 +420,12 @@ def alpha_phase_full_multi_plain(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     def per_col(v):
         return v.repeat_interleave(n_s)
 
+    mask_c = (None if row_mask_b is None
+              else _columns(row_mask_b[:, :, None].expand(-1, -1, n_s) > 0))
     al, ap, a, l_h_prev = fista_alpha_gram(
         _columns(alpha_b), _columns(alpha_prev_b),
         per_col(scal_b[:, A_ALPHA]), per_col(scal_b[:, L_H_PREV]),
-        per_col(l_h), G_c, b_c, n_steps)
+        per_col(l_h), G_c, b_c, n_steps, mask_c)
     grad = b_c - torch.einsum("spq,qs->ps", G_c, al)
     act = _finish_members(
         scal_b, alpha_b, _members(al, n_b), b, _members(grad, n_b), ydy,
@@ -405,9 +470,11 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
                  _stream(alpha_b))
     _build.check(err, name)
     fw_phase_full_multi.launches += 1
+    count_forms(fw_phase_full_multi.forms, wide=p > REG_P)
 
 
 fw_phase_full_multi.launches = 0
+fw_phase_full_multi.forms = {}
 
 
 def fw_phase_full_multi_plain(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity,

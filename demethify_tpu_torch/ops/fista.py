@@ -10,7 +10,10 @@ fixed Lipschitz estimate, then clip to [0, 1] (U) or simplex projection
 
 import torch
 
-from demethify_tpu_torch.ops.simplex import project_columns_to_simplex
+from demethify_tpu_torch.ops.simplex import (
+    project_columns_to_simplex,
+    project_columns_to_simplex_masked,
+)
 
 
 def nesterov_step(a0):
@@ -58,16 +61,23 @@ def fista_u_direct(u, u_prev, a, l_w_prev, l_w, y, d, R_trunc, a1_block,
 
 
 def fista_alpha_gram(alpha, alpha_prev, a, l_h_prev, l_h, G, b,
-                     n_steps: int):
+                     n_steps: int, row_mask=None):
     """n_steps FISTA steps on alpha (p, n_s) in Gram form, G (n_s, p, p),
-    b (p, n_s). Returns (alpha, alpha_prev, a, l_h_prev). The masked
-    projection of the model-selection sweep waits for that slice."""
+    b (p, n_s). ``row_mask`` (bool, (p,), or (p, n_s) for a mask per
+    column) restricts the simplex projection to its rows (the padded
+    model-selection solve); None = all rows. Returns (alpha, alpha_prev,
+    a, l_h_prev)."""
+    if row_mask is None:
+        project = project_columns_to_simplex
+    else:
+        def project(v):
+            return project_columns_to_simplex_masked(v, row_mask)
     for _ in range(n_steps):
         a2 = nesterov_step(a)
         beta = momentum(a, a2, l_h_prev, l_h)
         a_t = alpha + beta * (alpha - alpha_prev)
         grad = b - torch.einsum("spq,qs->ps", G, a_t)
-        alpha, alpha_prev = project_columns_to_simplex(a_t + grad / l_h), alpha
+        alpha, alpha_prev = project(a_t + grad / l_h), alpha
         a, l_h_prev = a2, l_h
     return alpha, alpha_prev, a, l_h_prev
 

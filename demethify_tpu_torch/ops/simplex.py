@@ -8,6 +8,12 @@ threshold, so tie order cannot change the result.
 
 rho is the LAST sorted index j with ``u_j - (cumsum_j - z)/(j+1) > 0``,
 as in the reference's scan (``ops/simplex.py:54-56`` of the JAX package).
+
+``project_columns_to_simplex_masked`` (the JAX package's function of the
+same name, ``ops/simplex.py:65``) projects only the rows a mask keeps:
+the others are set to -1e30 first, so they sort last, never meet the
+threshold and come out exactly 0, and the kept rows get the projection
+of the shorter vector.
 """
 
 import torch
@@ -26,3 +32,17 @@ def project_columns_to_simplex(v: torch.Tensor, z: float = 1.0):
     rho = rho.clamp_min(0)
     theta = pi.gather(0, rho[None, :])[0] / (rho + 1).to(v.dtype)
     return torch.clamp_min(v - theta[None, :], 0.0)
+
+
+MASK_NEG = -1e30
+
+
+def project_columns_to_simplex_masked(v: torch.Tensor, row_mask,
+                                      z: float = 1.0):
+    """Project each column of ``v`` (p, n) onto the simplex over the rows
+    where ``row_mask`` (bool, (p,) or (p, n) for a mask per column) is
+    True; the other rows come out exactly 0."""
+    keep = row_mask[:, None] if row_mask.dim() == 1 else row_mask
+    v_m = torch.where(keep, v, torch.full((), MASK_NEG, dtype=v.dtype,
+                                          device=v.device))
+    return project_columns_to_simplex(v_m, z)

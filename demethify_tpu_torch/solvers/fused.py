@@ -3,7 +3,8 @@
 Counterparts of ``partial_ref_solve_fused``, ``unsupervised_solve_fused``
 and ``purity_solve_fused`` of ``demethify_tpu/solvers/fused.py`` (same
 arguments and results, minus the TPU knobs ``axis_name``, ``packed_io``
-and ``tile``). The big arrays live
+and ``tile``: K1 takes Rt folded into the data block too, but the solvers
+keep it apart, the JAX solvers' default). The big arrays live
 transposed, (rows, n_cpg), which is internal to this module. Each outer
 iteration launches K1 (``ops/cuda_kernels.u_phase_grams``: the whole U
 FISTA loop plus the new-u Gram blocks) and then one single-block kernel
@@ -74,6 +75,7 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     SITES_PER_BLOCK,
     TOL,
     gram_entries,
+    scratch_rows,
     u_phase_grams,
 )
 from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
@@ -237,12 +239,16 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
                             n_iter1: int = 10000, n_iter2: int = 20,
                             tol: float = 1e-2, record_trace: bool = False,
                             tol_relative: bool = False,
-                            bf16_compute: bool = False):
+                            row_mask=None, bf16_compute: bool = False):
     """Same trajectory as ``solvers/partial_ref.partial_ref_solve``.
 
     u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
-    (n_cpg, n_ct), all on one device. ``bf16_compute`` (bf16 storage
-    only; a no-op otherwise, as in the JAX solver) runs K1's bf16_compute
+    (n_cpg, n_ct), all on one device. ``row_mask`` ((p,) bool, or 0/1)
+    goes to K2 every iteration: its rows not kept project to exactly 0,
+    so with the other u columns and alpha rows starting at zero the
+    padded solve is the lower-rank solve (the JAX solver's ``row_mask``,
+    ``solvers/fused.py:124, 224``). ``bf16_compute`` (bf16 storage only;
+    a no-op otherwise, as in the JAX solver) runs K1's bf16_compute
     form. Returns (u, alpha, info) with info = {'cost': 0-d tensor,
     'n_iter': int, 'trace': (n_iter1,) NaN-padded cost history when
     record_trace, else empty}.
@@ -255,13 +261,15 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
     scal = _scalars(dtype, y.device,
                     **_start(ydt, rtt, uut, alpha, n_u, dmax, True))
     alpha_prev = alpha.clone()
+    if row_mask is not None:
+        row_mask = torch.as_tensor(row_mask).to(device=y.device, dtype=dtype)
 
     def one_iteration():
         gu, b_u, usq = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
                                      uut, scal, n_iter2,
                                      bf16_compute=bf16_compute)
         alpha_phase_full(G_tt, b_t, gu, b_u, usq, ydy, alpha, alpha_prev,
-                         scal, n_iter2, n_u)
+                         scal, n_iter2, n_u, row_mask)
 
     k, trace = _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
                            record_trace)
@@ -359,13 +367,14 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
         time and K5/K6 give each member its own thread block, so neither
         grows with B.
     What does not: the solver's copies [Y.T; D.T] and Rt.T,
-    data_itemsize n_cpg (2 n_s + n_ct) bytes. The members may take half of
-    the free memory less those copies; the other half is room for the
+    data_itemsize n_cpg (2 n_s + n_ct) bytes, and above n_u = 8 K4's
+    scratch columns, itemsize n_cpg ``scratch_rows(n_u)``: ``shared``. The
+    members may take half of the free memory less those; the other half
+    is room for the
     set-up's transients (the starting costs' residuals and the known
     block's Gram products, each a few (n_s, n_cpg) arrays) and for the
     allocator's rounding. So
-        B_max = max(1, (free_bytes // 2
-                        - data_itemsize n_cpg (2 n_s + n_ct))
+        B_max = max(1, (free_bytes // 2 - shared)
                        // (itemsize (E ceil(n_cpg / 128)
                                      + (4 n_u + weighted) n_cpg))).
     Above it the restarts (or bootstrap replicates) run in chunks of
@@ -374,7 +383,8 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
     n_blocks = -(-n_cpg // SITES_PER_BLOCK)
     per_member = itemsize * (gram_entries(n_s, n_ct, n_u) * n_blocks
                              + (4 * n_u + int(weighted)) * n_cpg)
-    shared = data_itemsize * n_cpg * (2 * n_s + n_ct)
+    shared = (data_itemsize * n_cpg * (2 * n_s + n_ct)
+              + itemsize * n_cpg * scratch_rows(n_u, False))
     return max(1, (free_bytes // 2 - shared) // per_member)
 
 

@@ -6,8 +6,12 @@ Counterpart of ``demethify_tpu/solvers/partial_ref.py`` (reference
 the U FISTA loop on (C, M), the u-involved Gram blocks, the alpha FISTA
 loop on (G, b), and the cost by the Gram identity; stop when
 ``|cf - cf_prev| < tol``. This is the CPU path and the oracle the kernel
-solver (``solvers/fused.py``) is held against on the GPU. ``row_mask``
-waits for the sweep slice (ROADMAP port queue item 6).
+solver (``solvers/fused.py``) is held against on the GPU.
+
+``row_mask`` ((p,) bool) restricts alpha to the rows it keeps, as the JAX
+solver's (``solvers/partial_ref.py:43-58``): with the other u columns and
+alpha rows starting at zero, the masked solve stays the lower-rank solve
+on the kept rows (the model-selection sweep's padded solve).
 
 ``row_weights`` ((n_cpg,) nonnegative, the bootstrap's row multiplicities)
 solves the problem in which row i appears w_i times, without gathered
@@ -42,9 +46,11 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
                       n_iter1: int = 10000, n_iter2: int = 20,
                       tol: float = 1e-2, use_gram_u: bool = True,
                       record_trace: bool = False,
-                      tol_relative: bool = False, row_weights=None):
+                      tol_relative: bool = False, row_mask=None,
+                      row_weights=None):
     """u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
-    (n_cpg, n_ct), row_weights (n_cpg,) or None. Returns (u, alpha, info)
+    (n_cpg, n_ct), row_mask (p,) bool or None, row_weights (n_cpg,) or
+    None. Returns (u, alpha, info)
     with info = {'cost': 0-d tensor, 'n_iter': int, 'trace': (n_iter1,)
     NaN-padded cost history when record_trace, else empty}."""
     dtype = accum_dtype(y)
@@ -68,6 +74,8 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
     a1, a2 = one, one
     l_w_prev, l_h_prev = l_w, l_h
     cf_prev = torch.full((), float("inf"), dtype=dtype, device=y.device)
+    if row_mask is not None:
+        row_mask = torch.as_tensor(row_mask, device=y.device).to(torch.bool)
     k = 0
     # the test runs in the working dtype, as the JAX while_loop's does
     while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
@@ -86,7 +94,7 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
                                         row_weights)
         l_h = (rt_sq + u_sq(u)) * dmax2
         alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
-            alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2)
+            alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2, row_mask)
         l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
         cf_prev, cf = cf, weighted_cost_gram(G, b, ydy, alpha)
         if record_trace:

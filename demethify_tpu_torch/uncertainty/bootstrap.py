@@ -17,9 +17,10 @@ modes, the unknown profiles. Two layouts, as in the JAX package:
   with ``row_weights_b``: on the card K4 with its weights operand, then K5
   or K6 with per-member known blocks), in chunks of at most
   ``fused.max_multi_members``; u intervals are per original row. The
-  direct form runs the plain weighted solvers one replicate at a time on
-  the CPU; on the card it is ROADMAP port queue item 12 (K1 has no
-  weights operand).
+  direct form (n_u^2 > 3 n_s) runs the plain weighted solvers one
+  replicate at a time, on the data's device (on the card no kernel runs:
+  the JAX package's XLA weighted solvers, chosen by its ``_fused_gate``
+  on the same shape rule, are their counterpart).
 - the supervised mode (no unknowns) solves the WLS on (d y, w d, ref).
 
 ``method="auto"`` takes weights from 2,000,000 data elements on, as the
@@ -181,8 +182,8 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         return res.proportions, res.u
 
     def weighted_one(r):
-        """One replicate through the plain weighted solver (the CPU's
-        direct form) or, supervised, the weighted WLS."""
+        """One replicate through the plain weighted solver (the direct
+        form, on the data's device) or, supervised, the weighted WLS."""
         g, idx = draw(r)
         w = weights(idx)
         if supervised:
@@ -243,12 +244,6 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
             props.extend(alpha_b.cpu().numpy())
             us.extend(u_b.cpu().numpy())
     elif method == "weights":
-        if not supervised and y.device.type == "cuda":
-            raise NotImplementedError(
-                f"the weights layout in the direct form (n_u^2 > 3 n_s: "
-                f"n_u = {n_u}, n_s = {n_s}) on the card is ROADMAP port "
-                f"queue item 12 (K1 has no weights operand); use "
-                f"--cimethod resample")
         for r in range(n_bootstrap):
             keep(*weighted_one(r))
     else:

@@ -53,15 +53,15 @@ def _t(x):
     return torch.tensor(np.ascontiguousarray(x))
 
 
-def _members(n_u, n_ct, n_b, dtype, seed):
+def _members(n_u, n_ct, n_b, dtype, seed, n_s=N_S):
     """Shared data and B members' factors of a random problem (numpy)."""
     rng = np.random.default_rng(seed)
     p = n_ct + n_u
     R = rng.uniform(size=(N, p))
-    alpha = rng.dirichlet(np.ones(p), size=N_S).T
-    d = rng.poisson(50, size=(N, N_S)) + 1.0
-    y = np.clip(R @ alpha + 0.01 * rng.normal(size=(N, N_S)), 0, 1)
-    alpha_b = np.stack([rng.dirichlet(np.ones(p), size=N_S).T
+    alpha = rng.dirichlet(np.ones(p), size=n_s).T
+    d = rng.poisson(50, size=(N, n_s)) + 1.0
+    y = np.clip(R @ alpha + 0.01 * rng.normal(size=(N, n_s)), 0, 1)
+    alpha_b = np.stack([rng.dirichlet(np.ones(p), size=n_s).T
                         for _ in range(n_b)])
     u_b = rng.uniform(size=(n_b, n_u, N))
     u_prev_b = np.clip(u_b + 0.05 * rng.normal(size=u_b.shape), 0, 1)
@@ -78,9 +78,15 @@ def _pad(x):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("n_u,known,lagged", FORMS, ids=FORM_IDS)
 def test_u_phase_grams_multi_matches_pallas(n_u, known, lagged, dtype):
+    _k4_parity(n_u, known, lagged, dtype)
+
+
+def _k4_parity(n_u, known, lagged, dtype, n_s=N_S):
+    """K4's twin against the JAX K4 (interpret mode) on one problem."""
     n_ct = N_CT if known else 0
     n_b = len(ACTIVE_MASK)
-    y, d, Rt, alpha_b, u_b, up_b = _members(n_u, n_ct, n_b, dtype, seed=n_u)
+    y, d, Rt, alpha_b, u_b, up_b = _members(n_u, n_ct, n_b, dtype, seed=n_u,
+                                            n_s=n_s)
     dmax2 = d.max() ** 2
     l_w = (np.sum(alpha_b[:, -n_u:] ** 2, axis=(1, 2)) * dmax2).astype(dtype)
     a = np.linspace(1.2, 2.4, n_b).astype(dtype)
@@ -156,6 +162,12 @@ def _scal_rows(dtype, slots, active=ACTIVE_MASK):
 @pytest.mark.parametrize("n_u,known", [(1, True), (3, False)],
                          ids=["p5-known", "p3-none"])
 def test_alpha_phase_full_multi_matches_pallas(n_u, known, dtype):
+    _k5_parity(n_u, known, dtype)
+
+
+def _k5_parity(n_u, known, dtype, row_mask_b=None):
+    """K5's twin against the JAX K5 (interpret mode) on one problem, with
+    the members' row masks ``row_mask_b`` (B, p) or none."""
     n_ct = N_CT if known else 0
     n_b = len(ACTIVE_MASK)
     (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b, dmax2,
@@ -167,7 +179,8 @@ def test_alpha_phase_full_multi_matches_pallas(n_u, known, dtype):
     steps = 7
     j = jnp.asarray
     want = j_k5(j(gtt), j(bt), j(gu), j(bu), j(usq), j(ydy), j(alpha_b),
-                j(alpha_prev_b), j(a), j(l_h_prev), rt_sq, dmax2, steps, n_u)
+                j(alpha_prev_b), j(a), j(l_h_prev), rt_sq, dmax2, steps, n_u,
+                row_mask_b=None if row_mask_b is None else j(row_mask_b))
     al_w, ap_w, a_w, lhp_w, lw_w, cost_w = (np.asarray(x) for x in want)
 
     old_cost = np.full(n_b, 0.5 * float(np.sum(ydy)), dtype)
@@ -176,9 +189,10 @@ def test_alpha_phase_full_multi_matches_pallas(n_u, known, dtype):
                                TOL: 0.05 * float(np.sum(ydy))})
     scal = _t(scal0)
     alpha_t, alpha_prev_t = _t(alpha_b), _t(alpha_prev_b)
-    cuda_small.alpha_phase_full_multi(_t(gtt), _t(bt), _t(gu), _t(bu),
-                                      _t(usq), _t(ydy), alpha_t,
-                                      alpha_prev_t, scal, steps, n_u)
+    cuda_small.alpha_phase_full_multi(
+        _t(gtt), _t(bt), _t(gu), _t(bu), _t(usq), _t(ydy), alpha_t,
+        alpha_prev_t, scal, steps, n_u,
+        row_mask_b=None if row_mask_b is None else _t(row_mask_b))
     tol = TOLS[dtype]
     act = ACTIVE_MASK > 0
     np.testing.assert_allclose(alpha_t[act].numpy(), al_w[act], **tol)
@@ -279,25 +293,28 @@ def test_fw_multi_exact_ties_take_the_first_row():
 @pytest.mark.parametrize("bad", ["weights", "row_mask_b", "direct", "n_u9",
                                  "members"])
 def test_multi_wrappers_reject(bad):
+    """The multi wrappers refuse what the kernels do not take. K5's
+    row_mask_b and n_u = 9 in K4 were refused once; they are parity cases
+    now: per-member masks against the JAX K5's row_mask_b (one member
+    all-ones, the others with one masked row each, known and unknown),
+    and K4 at n_u = 9 (gram form at n_s = 27) against the JAX K4."""
+    if bad == "row_mask_b":
+        mask = np.ones((len(ACTIVE_MASK), N_CT + 1))
+        mask[1, 4] = mask[2, 0] = mask[3, 2] = 0.0
+        _k5_parity(1, True, np.float64, row_mask_b=mask)
+        return
+    if bad == "n_u9":
+        _k4_parity(9, True, False, np.float64, n_s=27)
+        return
     n_b, n_s = 2, 2 if bad == "direct" else N_S
-    n_u = {"direct": 3, "n_u9": 9}.get(bad, 1)
+    n_u = 3 if bad == "direct" else 1
     dt = torch.float64
     ydt = torch.zeros((2 * n_s, 8), dtype=dt)
     a2 = torch.zeros((n_b, n_u, n_s), dtype=dt)
     uut = torch.zeros((n_b, 2 * n_u, 8), dtype=dt)
     scal = torch.zeros((n_b + (bad == "members"), N_SCAL_MULTI), dtype=dt)
-    if bad == "row_mask_b":
-        p = N_CT + 1
-        args = [torch.zeros(s, dtype=dt) for s in (
-            (n_s, N_CT, N_CT), (N_CT, n_s), (n_b, n_s, 1, p), (n_b, 1, n_s),
-            (n_b,), (n_s,), (n_b, p, n_s), (n_b, p, n_s))]
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cuda_small.alpha_phase_full_multi(*args, scal, 3, 1,
-                                              row_mask_b=torch.ones(n_b, p))
-        return
     # weights: a row per member and site, in the operands' dtype
     expected, match = {"weights": (ValueError, "weights"),
-                       "n_u9": (NotImplementedError, "item 12"),
                        "direct": (ValueError, "gram form only")}.get(
         bad, (ValueError, None))
     with pytest.raises(expected, match=match):

@@ -28,7 +28,14 @@ from demethify_tpu.solvers.fused import (
 )
 from demethify_tpu_torch import state
 from demethify_tpu_torch.ops import cuda_kernels, cuda_multi, cuda_small
-from demethify_tpu_torch.ops.cuda_kernels import gram_entries
+from demethify_tpu_torch.ops.cuda_kernels import (
+    A_ALPHA,
+    ACTIVE,
+    DMAX2,
+    L_H_PREV,
+    N_SCAL_MULTI,
+    gram_entries,
+)
 from demethify_tpu_torch.solvers import api, fused
 from demethify_tpu_torch.solvers.init import init_partial
 
@@ -243,7 +250,9 @@ def test_restart_route(device, n_u, n_s, n_restarts, provided, want):
 def test_row_weights_and_row_mask_raise_naming_their_items(small_problem):
     """Row weights are ported (the weighted bootstrap): all-ones weights
     give the unweighted restarts, and a weight row of the wrong length is
-    refused; K5's row_mask_b still names its item."""
+    refused. K5's row_mask_b, refused once, is ported too: an all-ones
+    mask gives the unmasked K5 bit for bit, and a mask of the wrong shape
+    is refused."""
     p = small_problem
     u_b, a_b = _batch(p, 2, p["n_u"], True, seed=1)
     u_t, a_t, (y, d, Rt) = _torch(u_b, a_b, (p["y"], p["d"], p["R_trunc"]),
@@ -261,10 +270,30 @@ def test_row_weights_and_row_mask_raise_naming_their_items(small_problem):
     with pytest.raises(ValueError, match="row_weights_b"):
         fused.purity_solve_fused_multi(u_t, a_t, y, d, Rt, pur, p["n_u"],
                                        row_weights_b=w[:, 1:])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cuda_small.alpha_phase_full_multi(
-            *(torch.zeros(1) for _ in range(8)), torch.zeros(1, 10), 3, 1,
-            row_mask_b=torch.ones(1, 3))
+    n_b, n_s, n_ct = 2, y.shape[1], Rt.shape[1]
+    pp = n_ct + p["n_u"]
+    rng = np.random.default_rng(5)
+    blocks = [torch.tensor(rng.uniform(size=shape)) for shape in (
+        (n_s, n_ct, n_ct), (n_ct, n_s), (n_b, n_s, p["n_u"], pp),
+        (n_b, p["n_u"], n_s), (n_b,), (n_s,))]
+    alpha0 = torch.tensor(np.stack([rng.dirichlet(np.ones(pp), size=n_s).T
+                                    for _ in range(n_b)]))
+    scal0 = torch.zeros(n_b, N_SCAL_MULTI, dtype=torch.float64)
+    scal0[:, A_ALPHA], scal0[:, L_H_PREV], scal0[:, DMAX2] = 1.0, 50.0, 1.0
+    scal0[:, ACTIVE] = 1.0
+    runs = []
+    for mask in (None, torch.ones(n_b, pp)):
+        al, ap, sc = alpha0.clone(), alpha0.clone(), scal0.clone()
+        cuda_small.alpha_phase_full_multi(*blocks, al, ap, sc, 3, p["n_u"],
+                                          row_mask_b=mask)
+        runs.append((al, ap, sc))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="row mask"):
+        cuda_small.alpha_phase_full_multi(*blocks, alpha0.clone(),
+                                          alpha0.clone(), scal0.clone(), 3,
+                                          p["n_u"],
+                                          row_mask_b=torch.ones(n_b, pp + 1))
     assert cuda_kernels.u_phase_grams.launches == 0
 
 
