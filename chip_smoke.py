@@ -87,7 +87,26 @@ non-zero and prints no result line):
    path, ``partial_reference_deconv`` at 1M x 100, 25 + 4, float32,
    1000 x 20, with K1's and K2's times at that shape and the plain solver
    over 20 x 20;
-9. CLI: a simulated 50,000-site bedmethyl fixture through
+9. the single-phase kernels, which no solver runs: K7 ``u_phase``
+   against its twin at the main path's shape (1M x 10, 5 + 1, 20 steps)
+   in float32, float64 and bf16 data, lagged without a known block
+   (n_u = 3), at 500 steps, at the cohort shape (1M x 100, 25 + 4,
+   float32), n_u = 12 (5 + 12, n_s = 100, float64, 200k sites) and a
+   ragged N, each timed beside K1 on the same data; K8 ``grams`` at
+   1M x 10, p = 6, in float32, float64 and bf16 data and at 1M x 100,
+   p = 29, with the PyTorch calls that compute the same sums timed beside
+   it, and on bf16 data at 200 sites, where its rounding shows, against
+   its twin's rounding summed in float64 and apart from
+   ``ops/gram.sample_grams``; K9
+   ``alpha_phase`` (p = 6, 20 steps, float32 and float64; masked; p = 40,
+   n_s = 100, float64) and K10 ``fw_phase`` (p = 6, 500 steps, float32
+   and float64, with its vertex flips; p = 40, float64), each also on
+   K2's or K3's assembled Grams against K2's or K3's bits; the composed
+   unfused outer iteration K7 -> K8 -> K9 (``composed_solve``) against
+   ``partial_ref_solve`` from the same inits (200k x 10, float64,
+   20 x 20) and timed at full width (1M x 10, float32, 1000 x 20,
+   tol = 0) beside the fused main path of phase 7, with its launches;
+10. CLI: a simulated 50,000-site bedmethyl fixture through
    ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
    with ``--restart 4`` in the three iterative modes, and with
    ``--confidence 95 8`` under both ``--cimethod`` layouts in all four.
@@ -241,7 +260,19 @@ def counters():
     k1, k4 = cuda_kernels.u_phase_grams, cuda_multi.u_phase_grams_multi
     k2, k3 = cuda_small.alpha_phase_full, cuda_small.fw_phase_full
     k5, k6 = cuda_small.alpha_phase_full_multi, cuda_small.fw_phase_full_multi
-    return ((k1, "forms:wide", "u_phase_grams{wide}"),
+    k7, k8 = cuda_kernels.u_phase, cuda_kernels.grams
+    k9, k10 = cuda_small.alpha_phase, cuda_small.fw_phase
+    return ((k7, "forms:state_cols", "u_phase{n_u>8}"),
+            (k9, "forms:wide", "alpha_phase{p>32}"),
+            (k9, "forms:masked", "alpha_phase{masked}"),
+            (k10, "forms:wide", "fw_phase{p>32}"),
+            (k7, "launches", "u_phase"),
+            (k7, "launches_bf16", "u_phase[bf16]"),
+            (k8, "launches", "grams"),
+            (k8, "launches_bf16", "grams[bf16]"),
+            (k9, "launches", "alpha_phase"),
+            (k10, "launches", "fw_phase"),
+            (k1, "forms:wide", "u_phase_grams{wide}"),
             (k1, "forms:state_cols", "u_phase_grams{n_u>8}"),
             (k1, "forms:bf16c_direct", "u_phase_grams{bf16_compute direct}"),
             (k1, "forms:rt_folded", "u_phase_grams{rt folded}"),
@@ -1927,7 +1958,7 @@ def phase_main_path(problem32, card):
         f"{LONG_TOL64['cost']:.0e})")
     check(err_a64 <= LONG_TOL64["alpha"] and err_c64 <= LONG_TOL64["cost"],
           "float64 long run: kernel solver differs from plain")
-    return launches
+    return launches, ms_iter
 
 
 def phase_purity_path(problem32, card):
@@ -3398,6 +3429,639 @@ def phase_cohort(card):
     return times
 
 
+# ------------------------------------------- phase 9: the single-phase kernels
+# K7 u_phase, K8 grams, K9 alpha_phase and K10 fw_phase: the JAX package's
+# single-phase Pallas kernels, which no solver of either package runs;
+# they compose into the plain solver's outer iteration (``composed_solve``).
+# K8's sums over 1M sites are held to TOL[...]["gram"] of each output's
+# largest entry (bf16 data: float32 sums, the float32 bound; the twin rounds
+# at the kernel's points).
+
+
+def composed_solve(u0, alpha0, y, d, Rt, n_u, n_iter1, n_iter2, tol=0.0):
+    """The outer iteration of ``solvers/partial_ref.partial_ref_solve``
+    composed from the single-phase kernels, unfused: K7 ``u_phase`` (the U
+    FISTA loop from the current alpha), K8 ``grams`` on [Rt | u], the
+    Lipschitz constants and the Gram-identity cost as that solver computes
+    them (``partial_ref.py:95-99``), then K9 ``alpha_phase``; the same
+    start, scalars and termination test. u0 (N, n_u), alpha0 (p, n_s), y,
+    d (N, n_s) and Rt (N, n_ct), float32 or float64, on one device: on the
+    card the kernels run, on the CPU their twins. A check that the
+    kernels compose into the plain solver's trajectory, not a solver of
+    the package. Returns (u (N, n_u), alpha, cost trace (n_iter,))."""
+    import torch
+
+    from demethify_tpu_torch.ops.cost import weighted_cost, weighted_cost_gram
+    from demethify_tpu_torch.ops.cuda_kernels import grams, u_phase
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase
+    from demethify_tpu_torch.ops.gram import (
+        accum_dtype, coverage_max2, row_sum_sq)
+
+    dtype = accum_dtype(y)
+    yt, dt, rtt = (x.T.contiguous() for x in (y, d, Rt))
+    alpha = alpha0.to(dtype)
+    R0 = torch.cat([Rt.to(dtype), u0.to(dtype)], dim=1)
+    dmax2 = coverage_max2(d, None, dtype)
+    u_sq = row_sum_sq(None, dtype)
+    rt_sq = u_sq(Rt)
+    l_h = torch.sum(R0 * R0) * dmax2
+    l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
+    cf = weighted_cost(y, R0, alpha, d)
+    one = torch.ones((), dtype=dtype, device=y.device)
+    ut = u0.to(dtype).T.contiguous()
+    u_prev_t, alpha_prev = ut, alpha
+    a1, a2, l_w_prev, l_h_prev = one, one, l_w, l_h
+    cf_prev = torch.full((), float("inf"), dtype=dtype, device=y.device)
+    trace = []
+    while len(trace) < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
+        ut, u_prev_t, a1, l_w_prev = u_phase(
+            yt, dt, rtt, alpha[:-n_u], alpha[-n_u:], ut, u_prev_t, a1, l_w,
+            l_w_prev, n_iter2)
+        G, b, ydy = grams(yt, dt, torch.cat([rtt, ut]))
+        l_h = (rt_sq + u_sq(ut.T)) * dmax2
+        alpha, alpha_prev, a2, l_h_prev = alpha_phase(
+            G, b, alpha, alpha_prev, a2, l_h_prev, l_h, n_iter2)
+        l_w = torch.sum(alpha[-n_u:] ** 2) * dmax2
+        cf_prev, cf = cf, weighted_cost_gram(G, b, ydy, alpha)
+        trace.append(cf)
+    return ut.T, alpha, torch.stack(trace)
+
+
+def k7_work(n, n_s, n_ct, n_u, steps, itemsize, data_itemsize):
+    """(bytes, flops) of K7 on n sites: Y, D, Rt read once, u and u_prev
+    read and written; per site the known-block residual d (y - a1' rt)
+    (d y without a known block), C and M (the pair products formed once
+    per launch) and the FISTA steps, counted as ``u_phase_work`` counts
+    K1's (which adds the Gram stage)."""
+    pairs = n_u * (n_u + 1) // 2
+    n_bytes = n * (data_itemsize * (2 * n_s + n_ct) + itemsize * 4 * n_u)
+    per_site = (n_s * (2 * n_ct + (2 if n_ct else 1) + 2 * n_u + 2 * pairs)
+                + steps * (6 * n_u + 2 * n_u * n_u))
+    return n_bytes, per_site * n + n_s * pairs
+
+
+def k8_work(n, n_s, p, data_itemsize, itemsize, rounded=False):
+    """(bytes, flops) of K8: Y, D and R read once, G, b and ydy written.
+    The fewest operations the function needs: G[s] is symmetric in float32
+    and float64, so per site the p (p + 1) / 2 pair products r_q r_r
+    (shared by the samples), and per site and sample the upper triangle's
+    terms (2 each, p (p + 1)), d y (1), b (2 p) and ydy (2). Under bf16
+    data (``rounded``) G's left factor is bf16(r d_s), so G is not
+    symmetric: per site and sample r d_s (p), every G term (2 p^2), d y,
+    b and ydy."""
+    n_bytes = (n * data_itemsize * (2 * n_s + p)
+               + itemsize * (n_s * p * p + p * n_s + n_s))
+    if rounded:
+        return n_bytes, n * n_s * (2 * p * p + 3 * p + 3)
+    return n_bytes, n * (p * (p + 1) // 2 + n_s * (p * p + 3 * p + 3))
+
+
+def phase_glue_work(p, n_s, steps, itemsize, fw=False):
+    """(bytes, flops) of K9 (alpha FISTA) or K10 (Frank-Wolfe, ``fw``): G
+    and b read, alpha (and alpha_prev, K9) read and written, purity read
+    (K10); per step and column the p x p product and the projection or the
+    block argmin (about 6 p operations)."""
+    n_bytes = itemsize * (n_s * p * p + p * n_s + (2 if fw else 4) * p * n_s
+                          + (n_s if fw else 0))
+    return n_bytes, n_s * steps * (2 * p * p + 6 * p)
+
+
+def _k7_case(n, n_u, dtype_name, steps=N_INNER, seed=300, timed=False,
+             n_s=N_S, n_ct=N_CT, lagged=False, label="", data=None,
+             with_k1=False):
+    """K7 against its twin: u, u_prev, the advanced scalars, and its inputs
+    left as they were. ``data`` "bfloat16" stores Y, D, Rt in bf16 (a
+    float32 state, held to the float32 bounds). ``timed`` adds the device
+    ms (back to back, and queued behind a device sleep where short), the
+    twin's, the bound and, ``with_k1``, K1's ms on the same data (K7's
+    work plus the Gram stage)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, L_W, L_W_PREV, u_phase, u_phase_grams, u_phase_plain)
+
+    dtype = getattr(torch, dtype_name)
+    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u, dtype, seed)
+    if data is not None:
+        ydt, rtt = (x.to(getattr(torch, data)) for x in (ydt, rtt))
+    yt, dt = ydt[:n_s], ydt[n_s:]
+    ut, up = uut[:n_u], uut[n_u:]
+    a1, a2 = alpha[:-n_u], alpha[-n_u:]
+    if n_ct == 0:
+        rtt = a1 = None
+    sc = (scal[A_U], scal[L_W], scal[L_W_PREV])
+    before = [x.clone() for x in (yt, dt, ut, up)]
+    uk, upk, ak, lk = u_phase(yt, dt, rtt, a1, a2, ut, up, *sc, steps,
+                              lagged=lagged)
+    u_p, upp, a_p, l_p = u_phase_plain(yt, dt, rtt, a1, a2, ut, up, *sc,
+                                       steps, lagged=lagged)
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(x, y) for x, y in zip(before,
+                                                      (yt, dt, ut, up)))
+    err_u = float(torch.maximum((uk - u_p).abs().max(),
+                                (upk - upp).abs().max()))
+    err_s = max(abs(float(ak) / float(a_p) - 1),
+                abs(float(lk) / float(l_p) - 1))
+    tol = TOL[dtype_name]
+    data_name = str(yt.dtype).replace("torch.", "")
+    res = {"n": n, "n_s": n_s, "n_ct": n_ct, "n_u": n_u, "steps": steps,
+           "lagged": lagged, "dtype": dtype_name,
+           "data": data_name, "u_max_abs": err_u, "scal_rel": err_s}
+    if timed:
+        def run():
+            return u_phase(yt, dt, rtt, a1, a2, ut, up, *sc, steps,
+                           lagged=lagged)
+        inner = 10 if n_s * (n_ct + n_u) <= 200 else 2
+        res["ms"] = median_ms(run, inner=inner)
+        if inner == 10:
+            res["queued_ms"] = queued_ms(run, inner=20)
+        res["plain_ms"] = median_ms(lambda: u_phase_plain(
+            yt, dt, rtt, a1, a2, ut, up, *sc, steps, lagged=lagged), reps=3,
+            inner=1, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(
+            *k7_work(n, n_s, n_ct, n_u, steps, ut.element_size(),
+                     yt.element_size()), dtype_name)
+        if with_k1:
+            uu, s1 = uut.clone(), scal.clone()
+            res["k1_ms"] = median_ms(lambda: u_phase_grams(
+                ydt, rtt, a1, a2, uu, s1, steps, lagged), inner=inner)
+    log(f"[K7]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u}"
+        f"{' lagged' if lagged else ''} {steps} steps {dtype_name} state, "
+        f"{data_name} data: u, u_prev max|diff| {err_u:.3e} (tol "
+        f"{tol['u']:.0e}); a, l_w_prev rel {err_s:.3e}; inputs unchanged: "
+        f"{unchanged}"
+        + ((f"; kernel {res['ms']:.4f} ms"
+            + (f" (queued {res['queued_ms']:.4f})" if "queued_ms" in res
+               else "")
+            + f", plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
+            + (f"; K1 on the same data {res['k1_ms']:.4f} ms (K7 / K1 "
+               f"{res['ms'] / res['k1_ms']:.3f})" if with_k1 else ""))
+           if timed else ""))
+    check(np.isfinite([err_u, err_s]).all(), "K7 non-finite")
+    check(err_u <= tol["u"], f"K7 u differs from its twin by {err_u}")
+    check(err_s <= (1e-12 if dtype_name == "float64" else 1e-6),
+          f"K7 scalars differ by {err_s}")
+    check(unchanged, "K7 changed its inputs")
+    return res
+
+
+def _grams_inputs(n, n_s, p, dtype, seed):
+    """Yt, Dt (n_s, n) and Rt (p, n) of a K1-style problem on the card."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rt = torch.rand((p, n), generator=g, device=DEV, dtype=dtype)
+    d = torch.poisson(torch.full((n_s, n), 50.0, device=DEV),
+                      generator=g).to(dtype) + 1
+    e = torch.empty((p, n_s), device=DEV, dtype=dtype).exponential_(
+        generator=g)
+    y = ((e / e.sum(0)).T @ rt).clamp(0, 1)
+    return y.contiguous(), d.contiguous(), rt
+
+
+def _k8_case(n, n_s, p, dtype_name, data=None, seed=320, timed=False,
+             library=False):
+    """K8 against its twin, each output relative to its largest entry;
+    ``timed`` takes its ms queued behind a device sleep (a launch at the
+    main path's shape is short beside its wrapper's host work), and the
+    back-to-back median beside it.
+    ``library`` times the PyTorch calls that compute the same (G, b, ydy),
+    which the port never calls: ``torch.einsum("sn,qn,rn->sqr", D, R,
+    R)``, ``R @ (D * Y).T`` and ``torch.sum(D * Y * Y, 1)``."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import grams, grams_plain
+
+    dtype = getattr(torch, dtype_name)
+    yt, dt, rt = _grams_inputs(n, n_s, p, dtype, seed)
+    if data is not None:
+        yt, dt, rt = (x.to(getattr(torch, data)) for x in (yt, dt, rt))
+    got = grams(yt, dt, rt)
+    want = grams_plain(yt, dt, rt)
+    torch.cuda.synchronize()
+    rel = [float((k - w).abs().max() / w.abs().max())
+           for k, w in zip(got, want)]
+    err = max(float((k - w).abs().max()) for k, w in zip(got, want))
+    tol = TOL[dtype_name]["gram"]
+    data_name = str(yt.dtype).replace("torch.", "")
+    res = {"n": n, "n_s": n_s, "p": p, "dtype": dtype_name,
+           "data": data_name, "rel": rel, "max_abs_err": err}
+    if timed:
+        res["ms"] = queued_ms(lambda: grams(yt, dt, rt), inner=10)
+        res["back_to_back_ms"] = median_ms(lambda: grams(yt, dt, rt),
+                                           inner=5)
+        res["plain_ms"] = median_ms(lambda: grams_plain(yt, dt, rt), reps=3,
+                                    inner=1, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(
+            *k8_work(n, n_s, p, yt.element_size(), got[0].element_size(),
+                     yt.dtype == torch.bfloat16), dtype_name)
+    if library:
+        def lib_calls():
+            return (torch.einsum("sn,qn,rn->sqr", dt, rt, rt),
+                    rt @ (dt * yt).T, torch.sum(dt * yt * yt, 1))
+        res["library_rel"] = [float((k - w).abs().max() / w.abs().max())
+                              for k, w in zip(got, lib_calls())]
+        res["library_ms"] = median_ms(lib_calls, reps=3, inner=1, warmup=1)
+    log(f"[K8] N={n} n_s={n_s} p={p} {data_name} data: G, b, ydy max|diff| "
+        f"/ max|entry| {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} (tol "
+        f"{tol:.0e})"
+        + (f"; kernel {res['ms']:.4f} ms queued behind a device sleep "
+           f"({res['back_to_back_ms']:.4f} back to back), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+           f"({res['bound_by']})" if timed else "")
+        + (f"; library calls (einsum, matmul, sum) {res['library_ms']:.4f} "
+           f"ms, their results within {max(res['library_rel']):.3e}"
+           if library else ""))
+    check(np.isfinite(rel).all(), "K8 non-finite")
+    check(max(rel) <= tol, f"K8 differs from its twin by {max(rel)}")
+    return res
+
+
+def _k8_rounding_case(n=200, n_s=N_S, p=N_CT + N_U, seed=321):
+    """K8 on bf16 data at a size where its rounding shows: held to its
+    twin's rounding points with the sums taken in float64 (each rounded
+    product of bf16 values, and its product with the other factor, is
+    exact in float32, so that reference leaves only the kernel's float32
+    summation error, within 1e-6 of each output's largest entry), and
+    apart from ``ops/gram.sample_grams``, which rounds neither r d_s nor
+    the G terms: G and b at least 100 times that bound away, as
+    ``tests/test_torch_phases.py`` holds the twin on the CPU. A kernel
+    that skipped the rounding would sit near ``sample_grams``."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        bf16_round, grams, grams_plain)
+    from demethify_tpu_torch.ops.gram import sample_grams
+
+    yt, dt, rt = (x.to(torch.bfloat16) for x in _grams_inputs(
+        n, n_s, p, torch.float32, seed))
+    got = grams(yt, dt, rt)
+    y, d, r = (x.float() for x in (yt, dt, rt))
+    dy = bf16_round(d * y)
+    rd = bf16_round(r[None] * d[:, None])
+    exact = (torch.einsum("sqn,rn->sqr", rd.double(), r.double()),
+             r.double() @ dy.double().T, (dy.double() * y.double()).sum(1))
+    refs = {"twin in float64": exact, "twin": grams_plain(yt, dt, rt),
+            "sample_grams": sample_grams(rt.T, dt.T, yt.T)}
+    torch.cuda.synchronize()
+    rel = {k: [float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max()) for g, w in zip(got, ref)]
+           for k, ref in refs.items()}
+    tol = 1e-6
+    log(f"[K8 rounding] N={n} n_s={n_s} p={p} bf16 data: G, b, ydy max|diff|"
+        f" / max|entry| against "
+        + "; ".join(f"{k} {v[0]:.3e}, {v[1]:.3e}, {v[2]:.3e}"
+                    for k, v in rel.items())
+        + f" (tol {tol:.0e} against the float64 twin; G and b at least "
+        f"{100 * tol:.0e} from sample_grams)")
+    check(max(rel["twin in float64"]) <= tol,
+          "K8 on bf16 data differs from its twin's rounding")
+    check(min(rel["sample_grams"][:2]) >= 100 * tol,
+          "K8 on bf16 data sits near the unrounded sums of sample_grams")
+    return rel
+
+
+def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S):
+    """K2's inputs (``_small_inputs``) with their assembled G, b, an
+    alpha_prev and the scalar vector K2 reads (A_ALPHA, L_H_PREV, RT_SQ,
+    DMAX2 set)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import assemble_G_b
+
+    gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
+        n_ct, p - n_ct, dtype_name, 200_000, seed, n_s)
+    dmax2 = ydt[n_s:].max() ** 2
+    rt_sq = torch.sum(rtt * rtt)
+    scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, rt_sq, dmax2
+    scal[L_H_PREV] = 1.05 * (rt_sq + usq[0]) * dmax2
+    G, b = (x.contiguous() for x in assemble_G_b(gtt, bt, gu, bu))
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    e = torch.empty_like(alpha).exponential_(generator=g)
+    alpha_prev = (e / e.sum(0)).contiguous()
+    return (gtt, bt, gu, bu, usq, ydy), G, b, alpha, alpha_prev, scal
+
+
+def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
+             timed=False):
+    """K9 against its twin; with K2's inputs, K9 on K2's assembled G and b
+    and K2's scalars gives K2's alpha, alpha_prev and scalars bit for bit
+    (one loop body, ``glue_steps.cuh``)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase, alpha_phase_full, alpha_phase_plain)
+
+    n_ct = p - N_U if n_ct is None else n_ct
+    blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
+        p, n_ct, dtype_name, seed, n_s)
+    l_h = (scal[RT_SQ] + blocks[4][0]) * scal[DMAX2]
+    sc = (scal[A_ALPHA], scal[L_H_PREV], l_h)
+    mask_t = None if mask is None else torch.as_tensor(
+        mask, device=DEV, dtype=alpha.dtype)
+    ak, apk, a_k, l_k = alpha_phase(G, b, alpha, alpha_prev, *sc, N_INNER,
+                                    row_mask=mask_t)
+    a_pl, ap_pl, a_p, l_p = alpha_phase_plain(G, b, alpha, alpha_prev, *sc,
+                                              N_INNER, mask_t)
+    a2, ap2, s2 = alpha.clone(), alpha_prev.clone(), scal.clone()
+    alpha_phase_full(*blocks, a2, ap2, s2, N_INNER, p - n_ct,
+                     **({} if mask_t is None else {"row_mask": mask_t}))
+    torch.cuda.synchronize()
+    same_k2 = (torch.equal(ak, a2) and torch.equal(apk, ap2)
+               and bool(a_k == s2[A_ALPHA]) and bool(l_k == s2[L_H_PREV]))
+    err_a = float(torch.maximum((ak - a_pl).abs().max(),
+                                (apk - ap_pl).abs().max()))
+    err_s = max(abs(float(a_k) / float(a_p) - 1),
+                abs(float(l_k) / float(l_p) - 1))
+    tol = TOL[dtype_name]
+    res = {"p": p, "n_s": n_s, "dtype": dtype_name, "masked": mask is not None,
+           "alpha_max_abs": err_a, "same_as_k2": same_k2}
+    if timed:
+        def run():
+            return alpha_phase(G, b, alpha, alpha_prev, *sc, N_INNER,
+                               row_mask=mask_t)
+        res["ms"] = queued_ms(run, inner=20)
+        res["plain_ms"] = median_ms(lambda: alpha_phase_plain(
+            G, b, alpha, alpha_prev, *sc, N_INNER, mask_t), inner=5)
+        res["bound_ms"], res["bound_by"] = bound(
+            *phase_glue_work(p, n_s, N_INNER, alpha.element_size()),
+            dtype_name)
+    log(f"[K9] p={p} n_s={n_s} {dtype_name}"
+        f"{' masked' if mask is not None else ''}: alpha, alpha_prev "
+        f"max|diff| {err_a:.3e} (tol {tol['alpha']:.0e}), a, l_h_prev rel "
+        f"{err_s:.3e}; on K2's assembled G, b: K2's bits {same_k2}"
+        + (f"; kernel {res['ms']:.4f} ms (queued behind a device sleep), "
+           f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.2e} ms "
+           f"({res['bound_by']})" if timed else ""))
+    check(np.isfinite([err_a, err_s]).all(), "K9 non-finite")
+    check(err_a <= tol["alpha"], f"K9 alpha differs from its twin by {err_a}")
+    check(err_s <= (1e-12 if dtype_name == "float64" else 1e-6),
+          "K9 scalars differ")
+    check(same_k2, "K9 on K2's assembled Grams differs from K2")
+    return res
+
+
+def _fw_phase_flips(G, b, a1, a2, purity, n_steps):
+    """``_fw_flips`` for K10: its iterate after k steps is one launch of k
+    steps, its vertex (alpha_{k+1} - (1 - gamma_k) alpha_k) / gamma_k,
+    against the argmin of the twin's gradient expression at that
+    iterate."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_small import fw_phase
+
+    p1 = a1.shape[0]
+    traj = [torch.cat([a1, a2])]
+    for k in range(1, n_steps + 1):
+        traj.append(torch.cat(fw_phase(G, b, a1, a2, purity, k)))
+    traj = torch.stack(traj)
+    k = torch.arange(n_steps, device=a1.device, dtype=a1.dtype)
+    gamma = (2.0 / (k + 2.0))[:, None, None]
+    vert = (traj[1:] - (1.0 - gamma) * traj[:-1]) / gamma
+    grad = torch.stack([torch.einsum("spq,qs->ps", G, a) - b
+                        for a in traj[:-1]])
+    flips = 0
+    for lo, hi in ((0, p1), (p1, traj.shape[1])):
+        flips += int((torch.argmin(grad[:, lo:hi], dim=1)
+                      != torch.argmax(vert[:, lo:hi], dim=1)).sum())
+    return flips
+
+
+def _k10_case(p, dtype_name, n_s=N_S, seed=360, timed=False, steps=P_INNER):
+    """K10 against its twin, with its vertex flips counted as K3's; with
+    K3's inputs, K10 on K3's assembled G and b gives K3's alpha bit for
+    bit."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_small import (
+        fw_phase, fw_phase_full, fw_phase_plain)
+
+    n_ct = p - N_U
+    blocks, G, b, alpha, _, scal = _phase_glue_inputs(p, n_ct, dtype_name,
+                                                      seed, n_s)
+    rng = np.random.default_rng(seed)
+    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s), device=DEV,
+                             dtype=alpha.dtype)
+    a1 = (alpha[:n_ct] / alpha[:n_ct].sum(0) * purity).contiguous()
+    a2 = (alpha[n_ct:] / alpha[n_ct:].sum(0) * (1 - purity)).contiguous()
+    k1, k2 = fw_phase(G, b, a1, a2, purity, steps)
+    p1, p2 = fw_phase_plain(G, b, a1, a2, purity, steps)
+    a3 = torch.cat([a1, a2])
+    gtt, bt, gu, bu, _, ydy = blocks
+    fw_phase_full(gtt, bt, gu, bu, ydy, a3, purity, scal.clone(), steps,
+                  N_U)
+    torch.cuda.synchronize()
+    same_k3 = torch.equal(torch.cat([k1, k2]), a3)
+    err_a = float(torch.maximum((k1 - p1).abs().max(),
+                                (k2 - p2).abs().max()))
+    flips = _fw_phase_flips(G, b, a1, a2, purity, steps)
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / steps
+    res = {"p": p, "n_s": n_s, "dtype": dtype_name, "alpha_max_abs": err_a,
+           "flips": flips, "same_as_k3": same_k3}
+    if timed:
+        res["ms"] = queued_ms(lambda: fw_phase(G, b, a1, a2, purity, steps),
+                              inner=10)
+        res["plain_ms"] = median_ms(lambda: fw_phase_plain(
+            G, b, a1, a2, purity, steps), reps=3, inner=1, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(
+            *phase_glue_work(p, n_s, steps, a1.element_size(), fw=True),
+            dtype_name)
+    log(f"[K10] p={p} n_s={n_s} {steps} steps {dtype_name}: alpha "
+        f"max|diff| {err_a:.3e} (tol {tol_a:.1e}); vertex choices that "
+        f"differ from the twin's at the same iterate: {flips} of "
+        f"{2 * steps * n_s}; on K3's assembled G, b: K3's bits {same_k3}"
+        + (f"; kernel {res['ms']:.4f} ms (queued behind a device sleep), "
+           f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.2e} ms "
+           f"({res['bound_by']})" if timed else ""))
+    check(np.isfinite(err_a), "K10 non-finite")
+    check(err_a <= tol_a, f"K10 alpha differs from its twin by {err_a}")
+    check(dtype_name == "float32" or flips == 0,
+          f"K10 float64 vertex choices differ ({flips})")
+    check(same_k3, "K10 on K3's assembled Grams differs from K3")
+    return res
+
+
+def _single_phase_plans():
+    """K7's and K8's shared-memory plans in Python against the sources'
+    ``dm_u_phase_smem`` and ``dm_grams_smem`` exports."""
+    from demethify_tpu_torch.ops import _build
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        grams_plan, grams_smem, k7_smem)
+
+    lib = _build.load().lib
+    bad, n_checked = [], 0
+    for itemsize in (4, 8):
+        for n_ct in (0, 1, 5, 25, 100, 225):
+            n_checked += 1
+            if lib.dm_u_phase_smem(itemsize, n_ct) != k7_smem(itemsize,
+                                                               n_ct):
+                bad.append(("K7", itemsize, n_ct))
+        for p in (1, 6, 29, 40, 64):
+            for n_s in (1, 10, 100):
+                for rounded in (False, True):
+                    sg = grams_plan(N_CPG, n_s, p, rounded)[0]
+                    n_checked += 1
+                    if lib.dm_grams_smem(itemsize, p, sg) != grams_smem(
+                            itemsize, p, sg):
+                        bad.append(("K8", itemsize, p, n_s, sg))
+    log(f"[K7/K8 plans] {n_checked} shared-memory plans against the "
+        f"sources' exports, {len(bad)} differ {bad[:5]}")
+    check(not bad, "K7/K8 shared-memory plans differ from the kernels'")
+
+
+def phase_single_phase_kernels(card, main_ms):
+    """Phase 9: K7-K10 against their twins on the card (K9 and K10 also
+    against K2's and K3's bits on the same Grams; K8 on bf16 data also
+    where its rounding shows), and the composed unfused outer iteration
+    K7 -> K8 -> K9 held to the plain solver (200k x 10, 5 + 1, float64,
+    20 x 20, the same seeded inits)
+    and timed at full width (1M x 10, 5 + 1, float32, 1000 x 20, tol = 0)
+    beside the fused main path's ``main_ms`` from the same run. Returns
+    the timed cases and the composed loop's launches and ms."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.ops import cuda_small
+    from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
+
+    _single_phase_plans()
+    out = {}
+    k7 = out["k7"] = _k7_case(N_CPG, N_U, "float32", timed=True,
+                              with_k1=True)
+    out["k7_f64"] = _k7_case(N_CPG, N_U, "float64", timed=True,
+                             with_k1=True)
+    out["k7_bf16"] = _k7_case(N_CPG, N_U, "float32", data="bfloat16",
+                              timed=True, label="[bf16]")
+    _k7_case(N_CPG, U_N_U, "float32", n_ct=0, lagged=True, seed=301,
+             label="[lagged, no known block]")
+    _k7_case(N_CPG, U_N_U, "float64", n_ct=0, lagged=True, seed=301,
+             label="[lagged, no known block]")
+    out["k7_purity"] = _k7_case(N_CPG, N_U, "float32", steps=P_INNER,
+                                seed=302, timed=True, with_k1=True,
+                                label="[500 steps]")
+    out["k7_cohort"] = _k7_case(COHORT[0], COHORT[3], "float32",
+                                n_s=COHORT[1], n_ct=COHORT[2], seed=303,
+                                timed=True, with_k1=True, label="[cohort]")
+    _k7_case(N_WIDE, 12, "float64", n_s=100, n_ct=5, seed=304,
+             label="[n_u=12]")
+    _k7_case(N_CPG + 3, N_U, "float32", seed=305, label="[ragged N]")
+
+    k8 = out["k8"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32", timed=True,
+                              library=True)
+    out["k8_f64"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float64", timed=True)
+    out["k8_bf16"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32",
+                              data="bfloat16", timed=True)
+    out["k8_cohort"] = _k8_case(COHORT[0], COHORT[1], COHORT[2] + COHORT[3],
+                                "float32", timed=True, library=True)
+    out["k8_rounding"] = _k8_rounding_case()
+
+    k9 = out["k9"] = _k9_case(N_CT + N_U, "float32", timed=True)
+    out["k9_f64"] = _k9_case(N_CT + N_U, "float64", timed=True)
+    _k9_case(N_CT + 3, "float64", n_ct=N_CT, mask=[1] * (N_CT + 2) + [0],
+             seed=341)
+    out["k9_wide"] = _k9_case(40, "float64", n_ct=36, n_s=100, seed=342,
+                              timed=True)
+
+    cuda_small.fw_phase.launches = 0
+    k10 = out["k10"] = _k10_case(N_CT + N_U, "float32", timed=True)
+    out["k10_f64"] = _k10_case(N_CT + N_U, "float64", timed=True)
+    out["k10_wide"] = _k10_case(40, "float64", seed=361, timed=True)
+    out["k10_launches"] = cuda_small.fw_phase.launches
+
+    # the composed iteration held to the plain solver, float64
+    t = state.from_numpy(*make_problem(np.float64, seed=1, n_cpg=N_TRAJ),
+                         device=DEV, dtype=torch.float64)
+    n1 = 20
+    u_c, a_c, tr_c = composed_solve(*t, N_U, n1, N_INNER)
+    u_p, a_p, info = partial_ref_solve(*t, N_U, n_iter1=n1, n_iter2=N_INNER,
+                                       tol=0.0, record_trace=True)
+    tc, tp = tr_c.cpu().numpy(), info["trace"].cpu().numpy()
+    err_c = float(np.max(np.abs(tc - tp) / np.abs(tp)))
+    err_a = float((a_c - a_p).abs().max())
+    err_u = float((u_c - u_p).abs().max())
+    tol = TRAJ_TOL["float64"]
+    log(f"[composed] K7 -> K8 -> K9, {n1}x{N_INNER}, N={N_TRAJ} float64, "
+        f"against partial_ref_solve from the same inits: cost trace max rel "
+        f"diff {err_c:.3e} (tol {tol['cost']:.0e}), alpha max|diff| "
+        f"{err_a:.3e} (tol {tol['alpha']:.0e}), u max|diff| {err_u:.3e}; "
+        f"cost {tc[0]:.6e} -> {tc[-1]:.6e}")
+    check(len(tc) == info["n_iter"] == n1, "composed: n_iter differs")
+    check(err_c <= tol["cost"] and err_a <= tol["alpha"]
+          and err_u <= tol["alpha"], "composed iteration differs from the "
+          "plain solver")
+    del t, u_c, a_c, u_p, a_p
+
+    # the composed iteration timed at full width, float32
+    u0, a0, y, d, Rt = state.from_numpy(*make_problem(), device=DEV,
+                                        dtype=torch.float32)
+    composed_solve(u0, a0, y, d, Rt, N_U, 5, N_INNER)                # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    (u_c, a_c, tr_c), ms = timed_ms(lambda: composed_solve(
+        u0, a0, y, d, Rt, N_U, N_OUTER, N_INNER))
+    launches = read_counts()
+    ms_iter = ms / N_OUTER
+    trace = tr_c.cpu().numpy()
+    log(f"[composed] K7 -> K8 -> K9 unfused, 1M x 10, 5+1, float32, "
+        f"{N_OUTER}x{N_INNER}, tol=0, card {card}: {ms_iter:.4f} ms per "
+        f"outer iteration (CUDA events) against the fused main path's "
+        f"{main_ms:.4f} (K1 + K2) in this run, {ms_iter / main_ms:.3f}x; "
+        f"launches {launches}")
+    check(expect_counts(launches, u_phase=N_OUTER, grams=N_OUTER,
+                        alpha_phase=N_OUTER),
+          f"composed launch counts {launches} != {N_OUTER} iterations")
+    check(np.isfinite(trace).all() and trace[-1] < trace[0],
+          "composed: cost did not decrease")
+    check(bool(torch.isfinite(a_c).all()) and float(u_c.min()) >= 0
+          and float(u_c.max()) <= 1, "composed: output off its range")
+    out["composed"] = {"ms_iter": ms_iter, "launches": launches}
+    del u0, a0, y, d, Rt, u_c, a_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def glue_main_outputs(root, path):
+    """Saves K2's and K3's outputs (alpha, alpha_prev, scalars) at the main
+    path's shape (``_k2_case`` / ``_k3_case`` inputs, p = 6, float32 and
+    float64, one launch each) from the tree at ``root`` to ``path``, for a
+    bit-for-bit comparison of two trees on one card with
+    ``same_outputs``:
+
+        python3 -c 'import chip_smoke; chip_smoke.glue_main_outputs("DIR", "OUT.pt")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, fw_phase_full)
+
+    saved = {}
+    for dt in ("float32", "float64"):
+        gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
+            N_CT, N_U, dt, 200_000, 3)
+        dmax2 = ydt[N_S:].max() ** 2
+        rt_sq = torch.sum(rtt * rtt)
+        scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, rt_sq, dmax2
+        scal[L_H_PREV] = 1.05 * (rt_sq + usq[0]) * dmax2
+        a, ap, sc = alpha.clone(), alpha.flip(0).contiguous(), scal.clone()
+        alpha_phase_full(gtt, bt, gu, bu, usq, ydy, a, ap, sc, N_INNER, N_U)
+        purity = torch.linspace(0.3, 0.9, N_S, device=DEV,
+                                dtype=alpha.dtype)
+        af, sf = alpha.clone(), scal.clone()
+        fw_phase_full(gtt, bt, gu, bu, ydy, af, purity, sf, P_INNER, N_U)
+        saved.update({f"k2_alpha_{dt}": a, f"k2_alpha_prev_{dt}": ap,
+                      f"k2_scal_{dt}": sc, f"k3_alpha_{dt}": af,
+                      f"k3_scal_{dt}": sf})
+    torch.save({k: v.cpu() for k, v in saved.items()}, path)
+
+
 def k1_main_outputs(root, path):
     """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at the main
     path's shape (1M x 10, 5 + 1, float32, 20 steps, ``_k1_inputs`` seed
@@ -3677,6 +4341,40 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             "its bit check against the unfolded launch (no solver keeps Rt "
             "folded)", err=folded["max_abs_err"])]
 
+
+def _single_phase_rows(single):
+    """The kernels JSON line's rows of K7-K10: K7, K8 and K9 with their
+    launches from the composed loop's full-width run, K10 with its
+    launches in its own checks (no path runs it); times and bounds at the
+    main path's shape (K8 with ``library_ms``, the einsum, matmul and sum
+    that compute the same Grams)."""
+    src = "demethify_tpu_torch/csrc/"
+    launches = single["composed"]["launches"]
+
+    def row(name, source, replaces, case, n_launches, err,
+            library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "library_ms": library_ms}
+
+    k7, k8, k9, k10 = (single[k] for k in ("k7", "k8", "k9", "k10"))
+    return [
+        row("u_phase", "u_phase.cu",
+            "demethify_tpu/ops/pallas_kernels.py:65 (via :117)", k7,
+            launches["u_phase"], k7["u_max_abs"]),
+        row("grams", "grams.cu",
+            "demethify_tpu/ops/pallas_kernels.py:743 (via :776)", k8,
+            launches["grams"], k8["max_abs_err"], k8["library_ms"]),
+        row("alpha_phase", "alpha_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:70 (via :97)", k9,
+            launches["alpha_phase"], k9["alpha_max_abs"]),
+        row("fw_phase", "fw_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:204 (via :213)", k10,
+            single["k10_launches"], k10["alpha_max_abs"])]
+
+
 def main():
     try:
         import torch
@@ -3722,7 +4420,7 @@ def main():
     phase_bootstrap_parity()
     phase_bootstrap_direct()
     problem32 = make_problem(np.float32, seed=0)
-    launches = phase_main_path(problem32, card)
+    launches, main_ms = phase_main_path(problem32, card)
     p_launches, _, _ = phase_purity_path(problem32, card)
     phase_unsupervised_path(problem32, card)
     restarts = phase_restarts(problem32, card, {
@@ -3733,6 +4431,7 @@ def main():
     mask_paths = phase_mask_paths(card)
     env = phase_envelope_paths(card)
     cohort = phase_cohort(card)
+    single = phase_single_phase_kernels(card, main_ms)
     phase_cli()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
@@ -3862,6 +4561,7 @@ def main():
     kernels["kernels"].extend(_envelope_rows(
         wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
         mask_paths, env))
+    kernels["kernels"].extend(_single_phase_rows(single))
     log(f"[done] K1's partial buffer at 1M x 500, 25+4, float64: "
         f"{partial['partial_bytes'] / 1e9:.3f} GB, "
         f"{partial['partial_bytes'] / partial['yd_bytes']:.3f} of Y + D; the "

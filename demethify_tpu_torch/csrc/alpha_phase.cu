@@ -1,0 +1,170 @@
+// K9: the alpha FISTA loop on an assembled per-sample Gram system, for
+// Hopper.
+//
+// Replaces the Pallas kernel demethify_tpu/ops/pallas_small.py
+// :: _alpha_kernel (called through alpha_phase). In one launch: n_steps
+// alpha FISTA steps from precomputed G (n_s, p, p) and b (p, n_s), each a
+// momentum-capped gradient step followed by the simplex projection of
+// every column, with an optional (p,) row mask (rows not > 0 set to
+// -1e30 before each projection, pallas_small.py:86-87). Unlike K2 it
+// assembles nothing and computes no cost or Lipschitz constant: l_h comes
+// in as a scalar.
+//
+// What bounds it on an H100: latency. The data is tiny (p ~ 6, n_s ~ 10)
+// and the n_steps steps are serial.
+//
+// What the design does about it: K2's loop (glue_steps.cuh) in one thread
+// block, one warp per sample column (a warp loops over columns when
+// n_s > 32 or the kernel's registers allow fewer warps): lane q holds row
+// q of G_s, b_s and the column in registers (p <= 32), or above 32 rows
+// the warp's column lives in its own slab of shared memory (the wide
+// form, dm_glue_smem's size). The scalar chain the JAX wrapper replays on
+// the host after the call (pallas_small.py:137-142) is replayed by thread
+// 0 on the device, so the call reads nothing back: the scalars arrive in
+// a small device vector (slots kPhA, kPhL = l_h, kPhLPrev = l_h_prev) and
+// the advanced a and l_h_prev are written to its slots kPhAOut and
+// kPhLPrevOut. alpha and alpha_prev are read from their inputs and written
+// to separate outputs, so the inputs stay as they were.
+//
+// Plain C interface (ctypes): pointers and the stream as void*, launches
+// on that stream, allocates nothing, returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include "glue_steps.cuh"
+#include "small_common.cuh"
+
+namespace {
+
+using dm::kMaxP;
+
+template <typename T, bool WIDE>
+__global__ void alpha_phase_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
+        T* __restrict__ alpha, T* __restrict__ alpha_prev,
+        T* __restrict__ scal, const T* __restrict__ mask, int p, int n_s,
+        int n_steps) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const bool row = lane < p;
+    const T a0 = scal[dm::kPhA];
+    const T l_h = scal[dm::kPhL];
+    const T l_prev0 = scal[dm::kPhLPrev];
+    const long long pp = static_cast<long long>(p) * p;
+
+    if constexpr (WIDE) {
+        extern __shared__ __align__(16) unsigned char smem_raw[];
+        T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
+        T* sb = sg + pp;
+        T* sal = sb + p;
+        T* sap = sal + p;
+        T* sat = sap + p;
+        T* sv = sat + p;
+        T* srt = sv + p;
+        for (int s = warp; s < n_s; s += n_warps) {
+            for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
+            for (int q = lane; q < p; q += 32) {
+                sb[q] = b[q * n_s + s];
+                sal[q] = alpha_in[q * n_s + s];
+                sap[q] = alpha_prev_in[q * n_s + s];
+            }
+            __syncwarp();
+            dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane,
+                                 p, a0, l_prev0, l_h, n_steps);
+            for (int q = lane; q < p; q += 32) {
+                alpha[q * n_s + s] = sal[q];
+                alpha_prev[q * n_s + s] = sap[q];
+            }
+            __syncwarp();    // the slab is free for the next column
+        }
+    } else {
+        const bool masked = mask != nullptr && row && !(mask[lane] > T(0));
+        for (int s = warp; s < n_s; s += n_warps) {
+            T g[kMaxP];
+#pragma unroll
+            for (int r = 0; r < kMaxP; ++r)
+                g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
+            const T bq = row ? b[lane * n_s + s] : T(0);
+            T al = row ? alpha_in[lane * n_s + s] : T(0);
+            T ap = row ? alpha_prev_in[lane * n_s + s] : T(0);
+            dm::alpha_steps_reg(g, bq, al, ap, masked, lane, p, a0, l_prev0,
+                                l_h, n_steps);
+            if (row) {
+                alpha[lane * n_s + s] = al;
+                alpha_prev[lane * n_s + s] = ap;
+            }
+        }
+    }
+    if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
+}
+
+template <typename T, bool WIDE>
+int launch_form(const void* G, const void* b, const void* alpha_in,
+                const void* alpha_prev_in, void* alpha, void* alpha_prev,
+                void* scal, const void* mask, int p, int n_s, int n_steps,
+                cudaStream_t stream) {
+    auto kern = alpha_phase_kernel<T, WIDE>;
+    static const int max_warps = dm::max_block_warps(kern);
+    int n_warps = n_s < 32 ? n_s : 32;
+    n_warps = n_warps < max_warps ? n_warps : max_warps;
+    size_t smem = 0;
+    if constexpr (WIDE) {
+        const int fit = dm::glue_warps(sizeof(T), p, n_s);
+        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+        n_warps = fit < n_warps ? fit : n_warps;
+        smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
+        if (smem > 48 * 1024) {
+            cudaError_t err = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+    }
+    kern<<<1, 32 * n_warps, smem, stream>>>(
+        static_cast<const T*>(G), static_cast<const T*>(b),
+        static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask), p, n_s, n_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* G, const void* b, const void* alpha_in,
+           const void* alpha_prev_in, void* alpha, void* alpha_prev,
+           void* scal, const void* mask, int p, int n_s, int n_steps,
+           void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (p < 1 || n_s < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (p > kMaxP)
+        return launch_form<T, true>(G, b, alpha_in, alpha_prev_in, alpha,
+                                    alpha_prev, scal, mask, p, n_s, n_steps,
+                                    s);
+    return launch_form<T, false>(G, b, alpha_in, alpha_prev_in, alpha,
+                                 alpha_prev, scal, mask, p, n_s, n_steps, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// G (n_s, p, p), b (p, n_s), alpha/alpha_prev in and out (p, n_s), scal
+// the 5-slot scalar vector; mask: the (p,) row mask or NULL
+int dm_alpha_phase_f32(const void* G, const void* b, const void* alpha_in,
+                       const void* alpha_prev_in, void* alpha,
+                       void* alpha_prev, void* scal, const void* mask, int p,
+                       int n_s, int n_steps, void* stream) {
+    return launch<float>(G, b, alpha_in, alpha_prev_in, alpha, alpha_prev,
+                         scal, mask, p, n_s, n_steps, stream);
+}
+
+int dm_alpha_phase_f64(const void* G, const void* b, const void* alpha_in,
+                       const void* alpha_prev_in, void* alpha,
+                       void* alpha_prev, void* scal, const void* mask, int p,
+                       int n_s, int n_steps, void* stream) {
+    return launch<double>(G, b, alpha_in, alpha_prev_in, alpha, alpha_prev,
+                          scal, mask, p, n_s, n_steps, stream);
+}
+
+}  // extern "C"

@@ -59,125 +59,20 @@
 // whose kActive slot is 0 -- it is left exactly as it was -- and sets
 // kActive for the next outer iteration from |new cost - old cost| >= kTol.
 //
+// The step loops and the projection live in glue_steps.cuh, shared with
+// K9 (alpha_phase.cu), which runs them on an assembled G and b.
+//
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "glue_steps.cuh"
 #include "small_common.cuh"
 
 namespace {
 
-using dm::kFull;
 using dm::kMaxP;
-
-// Projection of one column (lane q holds v_q, lanes >= p are padding)
-// onto the probability simplex, inside one warp.
-template <typename T>
-__device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
-    const bool row = lane < p;
-    int rank = 0;
-#pragma unroll
-    for (int r = 0; r < kMaxP; ++r) {
-        const T vr = __shfl_sync(kFull, v, r);
-        if (r < p && row) rank += (vr > v) || (vr == v && r < lane);
-    }
-    T csum = T(0), my_u = T(0), my_pi = T(0);
-#pragma unroll
-    for (int j = 0; j < kMaxP; ++j) {
-        if (j < p) {                         // uniform across the warp
-            const unsigned who = __ballot_sync(kFull, row && rank == j);
-            const T uj = __shfl_sync(kFull, v, __ffs(who) - 1);
-            csum += uj;
-            if (lane == j) {
-                my_u = uj;
-                my_pi = csum - T(1);
-            }
-        }
-    }
-    const unsigned cond = __ballot_sync(
-        kFull, row && (my_u - my_pi / T(lane + 1)) > T(0));
-    const int rho = cond ? 31 - __clz(cond) : 0;
-    const T theta = __shfl_sync(kFull, my_pi, rho) / T(rho + 1);
-    const T out = v - theta;
-    return out < T(0) ? T(0) : out;
-}
-
-// The same projection for the wide form: column v (p values) in this
-// warp's slab row sv; srt is a work row. Ranks as above (lane q takes rows
-// q, q + 32, ...), the cumulative sum and rho in lane 0 in rank order, so
-// each step is the register form's arithmetic in the same order. Returns
-// theta in every lane.
-template <typename T>
-__device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
-                                                T* __restrict__ srt,
-                                                int lane, int p) {
-    for (int q = lane; q < p; q += 32) {
-        const T v = sv[q];
-        int rank = 0;
-        for (int r = 0; r < p; ++r) {
-            const T vr = sv[r];
-            rank += (vr > v) || (vr == v && r < q);
-        }
-        srt[rank] = v;
-    }
-    __syncwarp();
-    T theta = T(0);
-    if (lane == 0) {
-        T csum = T(0), pi_rho = T(0);
-        int rho = 0;
-        for (int j = 0; j < p; ++j) {
-            const T uj = srt[j];
-            csum += uj;
-            const T pi = csum - T(1);
-            if (j == 0) pi_rho = pi;
-            if ((uj - pi / T(j + 1)) > T(0)) {
-                rho = j;
-                pi_rho = pi;
-            }
-        }
-        theta = pi_rho / T(rho + 1);
-    }
-    __syncwarp();            // srt is free again
-    return __shfl_sync(kFull, theta, 0);
-}
-
-// One column's alpha FISTA loop in the wide form (p > 32): the slab holds
-// G (sg), b (sb), alpha (sal), alpha_prev (sap) and the work rows at
-// (sat), v (sv) and the sorted values (srt). ``mask`` is this member's
-// (p,) row mask or null.
-template <typename T>
-__device__ __forceinline__ void alpha_steps_wide(
-        const T* __restrict__ sg, const T* __restrict__ sb,
-        T* __restrict__ sal, T* __restrict__ sap, T* __restrict__ sat,
-        T* __restrict__ sv, T* __restrict__ srt,
-        const T* __restrict__ mask, int lane, int p, T a, T l_prev,
-        const T l_h, int n_steps) {
-    for (int step = 0; step < n_steps; ++step) {
-        const T a2n = dm::nesterov(a);
-        const T beta = dm::min_nan((a - T(1)) / a2n,
-                                   T(0.9999) * dm::sqrt_t(l_prev / l_h));
-        for (int q = lane; q < p; q += 32)
-            sat[q] = sal[q] + beta * (sal[q] - sap[q]);
-        __syncwarp();
-        for (int q = lane; q < p; q += 32) {
-            const T ga = dm::gram_row_dot(sg, sat, q, p);
-            T v = sat[q] + (sb[q] - ga) / l_h;
-            if (mask != nullptr && !(mask[q] > T(0))) v = T(-1e30);
-            sv[q] = v;
-        }
-        __syncwarp();
-        const T theta = simplex_theta_wide(sv, srt, lane, p);
-        for (int q = lane; q < p; q += 32) {
-            const T out = sv[q] - theta;
-            sap[q] = sal[q];
-            sal[q] = out < T(0) ? T(0) : out;
-        }
-        __syncwarp();
-        a = a2n;
-        l_prev = l_h;
-    }
-}
 
 template <typename T, bool MULTI, bool WIDE>
 __global__ void alpha_phase_full_kernel(
@@ -231,8 +126,8 @@ __global__ void alpha_phase_full_kernel(
                 sap[q] = alpha_prev[q * n_s + s];
             }
             __syncwarp();
-            alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane, p,
-                             a0, l_h_prev0, l_h, n_steps);
+            dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane,
+                                 p, a0, l_h_prev0, l_h, n_steps);
             dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba,
                                      sum_ag, sum_lw);
             for (int q = lane; q < p; q += 32) {
@@ -250,21 +145,8 @@ __global__ void alpha_phase_full_kernel(
             T al = row ? alpha[lane * n_s + s] : T(0);
             T ap = row ? alpha_prev[lane * n_s + s] : T(0);
 
-            T a = a0, l_prev = l_h_prev0;
-            for (int step = 0; step < n_steps; ++step) {
-                const T a2n = dm::nesterov(a);
-                const T beta = dm::min_nan(
-                    (a - T(1)) / a2n, T(0.9999) * dm::sqrt_t(l_prev / l_h));
-                const T at = al + beta * (al - ap);
-                const T ga = dm::gram_matvec(g, at, p);
-                T v = at + (b - ga) / l_h;
-                if (masked) v = T(-1e30);
-                const T proj = project_simplex_warp(v, lane, p);
-                ap = al;
-                al = row ? proj : T(0);
-                a = a2n;
-                l_prev = l_h;
-            }
+            dm::alpha_steps_reg(g, b, al, ap, masked, lane, p, a0,
+                                l_h_prev0, l_h, n_steps);
 
             dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag,
                                 sum_lw);

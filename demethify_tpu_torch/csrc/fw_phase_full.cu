@@ -54,89 +54,20 @@
 // whose kActive slot is 0 and sets kActive for the next outer iteration
 // from |new cost - old cost| >= kTol.
 //
+// The step loops live in glue_steps.cuh, shared with
+// K10 (fw_phase.cu), which runs them on an assembled G and b.
+//
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
+#include "glue_steps.cuh"
 #include "small_common.cuh"
 
 namespace {
 
-using dm::kFull;
 using dm::kMaxP;
-
-template <typename T> __device__ __forceinline__ T pos_inf();
-template <> __device__ __forceinline__ float pos_inf<float>() {
-    return CUDART_INF_F;
-}
-template <> __device__ __forceinline__ double pos_inf<double>() {
-    return CUDART_INF;
-}
-
-// NaN-propagating minimum over the warp, in every lane
-template <typename T>
-__device__ __forceinline__ T warp_min(T x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        x = dm::min_nan(x, __shfl_xor_sync(kFull, x, off));
-    return x;
-}
-
-// first row (lane < p) whose value equals the minimum m, else p
-__device__ __forceinline__ int first_row(bool hit, int p) {
-    const unsigned who = __ballot_sync(kFull, hit);
-    return who ? __ffs(who) - 1 : p;
-}
-
-// One column's Frank-Wolfe loop in the wide form (p > 32): the slab holds
-// G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
-// rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
-// of the lanes' minima over their rows, and its first row the smallest
-// row index holding it (else p): the register form's values and ties.
-template <typename T>
-__device__ __forceinline__ void fw_steps_wide(
-        const T* __restrict__ sg, const T* __restrict__ sb,
-        T* __restrict__ sal, T* __restrict__ sgr, int lane, int p, int n_ct,
-        T pur, T pur2, int n_steps) {
-    const T big = T(3.4e38);                // the TPU kernel's block mask
-    const T pad = pos_inf<T>();
-    for (int k = 0; k < n_steps; ++k) {
-        for (int q = lane; q < p; q += 32)
-            sgr[q] = -(sb[q] - dm::gram_row_dot(sg, sal, q, p));
-        __syncwarp();
-        T m1 = pad, m2 = pad;
-        for (int q = lane; q < p; q += 32) {
-            const bool known = q < n_ct;
-            m1 = dm::min_nan(m1, known ? sgr[q] : big);
-            m2 = dm::min_nan(m2, known ? big : sgr[q]);
-        }
-        m1 = warp_min(m1);
-        m2 = warp_min(m2);
-        int i1 = p, i2 = p;
-        for (int q = lane; q < p; q += 32) {
-            const bool known = q < n_ct;
-            if (i1 == p && (known ? sgr[q] : big) == m1) i1 = q;
-            if (i2 == p && (known ? big : sgr[q]) == m2) i2 = q;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const int o1 = __shfl_xor_sync(kFull, i1, off);
-            const int o2 = __shfl_xor_sync(kFull, i2, off);
-            i1 = o1 < i1 ? o1 : i1;
-            i2 = o2 < i2 ? o2 : i2;
-        }
-        const T gamma = T(2) / (static_cast<T>(k) + T(2));
-        for (int q = lane; q < p; q += 32) {
-            const T e1 = q == i1 ? T(1) : T(0);
-            const T e2 = q == i2 ? T(1) : T(0);
-            const T vert = e1 * pur + e2 * pur2;
-            sal[q] = (T(1) - gamma) * sal[q] + gamma * vert;
-        }
-        __syncwarp();
-    }
-}
 
 template <typename T, bool MULTI, bool WIDE>
 __global__ void fw_phase_full_kernel(
@@ -162,9 +93,6 @@ __global__ void fw_phase_full_kernel(
     const int n_warps = blockDim.x >> 5;
     const int p = n_ct + n_u;
     const bool row = lane < p;
-    const bool known = lane < n_ct;
-    const T big = T(3.4e38);                // the TPU kernel's block mask
-    const T pad = pos_inf<T>();
     const T dmax2 = scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
@@ -180,8 +108,8 @@ __global__ void fw_phase_full_kernel(
             for (int q = lane; q < p; q += 32) sal[q] = alpha[q * n_s + s];
             __syncwarp();
             const T pur = purity[s];
-            fw_steps_wide(sg, sb, sal, sgr, lane, p, n_ct, pur, T(1) - pur,
-                          n_steps);
+            dm::fw_steps_wide(sg, sb, sal, sgr, lane, p, n_ct, pur,
+                              T(1) - pur, n_steps);
             dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba,
                                      sum_ag, sum_lw);
             for (int q = lane; q < p; q += 32) alpha[q * n_s + s] = sal[q];
@@ -196,20 +124,7 @@ __global__ void fw_phase_full_kernel(
             const T pur = purity[s];
             const T pur2 = T(1) - pur;
 
-            for (int k = 0; k < n_steps; ++k) {
-                const T grad = -(b - dm::gram_matvec(g, al, p));
-                const T g1 = row ? (known ? grad : big) : pad;
-                const T g2 = row ? (known ? big : grad) : pad;
-                const T m1 = warp_min(g1);
-                const T m2 = warp_min(g2);
-                const int idx1 = first_row(row && g1 == m1, p);
-                const int idx2 = first_row(row && g2 == m2, p);
-                const T e1 = (row && lane == idx1) ? T(1) : T(0);
-                const T e2 = (row && lane == idx2) ? T(1) : T(0);
-                const T vert = e1 * pur + e2 * pur2;
-                const T gamma = T(2) / (static_cast<T>(k) + T(2));
-                al = (T(1) - gamma) * al + gamma * vert;
-            }
+            dm::fw_steps_reg(g, b, al, lane, p, n_ct, pur, pur2, n_steps);
 
             dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag,
                                 sum_lw);

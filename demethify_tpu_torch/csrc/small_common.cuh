@@ -22,6 +22,14 @@ namespace dm {
 constexpr int kAU = 0, kLW = 1, kLWPrev = 2, kAAlpha = 3, kLHPrev = 4,
               kCost = 5, kRtSq = 6, kDmax2 = 7, kTol = 8, kActive = 9;
 
+// Slots of the single-phase kernels' scalar vector (K7: u_phase.cu, K9:
+// alpha_phase.cu): the Nesterov scalar, the Lipschitz constant and its
+// previous value (read), and the advanced Nesterov scalar and previous
+// Lipschitz constant (written), so the inputs stay as they were. K7's
+// first three slots are the solver's kAU, kLW, kLWPrev.
+constexpr int kPhA = 0, kPhL = 1, kPhLPrev = 2, kPhAOut = 3,
+              kPhLPrevOut = 4;
+
 constexpr int kMaxP = 32;          // rows of the register form
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -85,6 +93,20 @@ __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 template <typename T>
 __device__ __forceinline__ T nesterov(T a) {
     return (T(1) + sqrt_t(T(1) + T(4) * a * a)) / T(2);
+}
+
+// The single-phase kernels' scalar outputs (one thread): the Nesterov
+// scalar advanced n_steps times from sc[kPhA], and the previous Lipschitz
+// constant after them, sc[kPhL] (sc[kPhLPrev] when n_steps is 0), the
+// JAX wrappers' host replay (pallas_kernels.py:196-204,
+// pallas_small.py:137-142).
+template <typename T>
+__device__ __forceinline__ void phase_scalars_out(T* __restrict__ sc,
+                                                  int n_steps) {
+    T a = sc[kPhA];
+    for (int step = 0; step < n_steps; ++step) a = nesterov(a);
+    sc[kPhAOut] = a;
+    sc[kPhLPrevOut] = n_steps > 0 ? sc[kPhL] : sc[kPhLPrev];
 }
 
 // NaN-propagating minimum, as jnp.minimum / torch.minimum

@@ -1,0 +1,220 @@
+// K7: the single-phase U kernel, for Hopper.
+//
+// Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
+// :: _u_phase_kernel (called through u_phase). One pass over the CpG
+// axis, per site i (one thread each):
+//
+//   C[u] = sum_s a2[u,s] d_is (y_is - (a1' rt_i)_s)   (d_is y_is when there
+//          is no known block), M[u][v] = sum_s (a2[u,s] a2[v,s]) d_is,
+//   then n_steps FISTA steps on u_i:
+//       beta = min((a-1)/a', 0.9999 sqrt(l_prev/l_w))
+//       u_t  = u + beta (u - u_prev)
+//       u    = clip(u_t + (C - M g) / l_w, 0, 1),  g = u_t, or the OLD u
+//              when `lagged`
+//
+// This is K1's U phase (u_phase_common.cuh: the same C/M build and the
+// same steps, dividing by l_w as pallas_kernels.py:103 does) with three
+// differences that follow the JAX kernel: the known-block residual is
+// associated d (y - a1' rt) (pallas_kernels.py:78-85; K1 forms
+// d y - d (a1' rt)), the gram dataflow is taken at every n_u and n_s (the
+// JAX kernel has no direct form), and there is no Gram stage: the new u
+// and u_prev are written and nothing is summed across sites.
+//
+// What bounds it on an H100: memory traffic. It reads Y, D, Rt, u, u_prev
+// once and writes u, u_prev: at 1M sites x 10 samples, 5 + 1 cell types
+// in float32 ~116 MB, ~35 us at 3.35 TB/s; the arithmetic is a few
+// hundred flops per site (the n_u^2 M terms per step dominate from
+// n_u ~ 4).
+//
+// What the design does about it: one thread per site and 128 sites a
+// block, the big arrays in the transposed (rows, N) layout so a warp's
+// reads of each row are contiguous; C, M and the state in registers for
+// n_u <= 8 (a template parameter), in a scratch column per site above,
+// as K1. Only Rt is staged in shared memory (read n_s times per site by
+// the residual); each site's Y and D are read straight from device
+// memory, once, and the alpha entries as broadcasts. This is K1's wide
+// layout. With no Gram stage nothing reuses staged Y and D, so K1's
+// resident layout (Y, D and the alpha block staged too) bought nothing
+// here: timed forced against this one on an H100 it was as fast or
+// slower at every shape (PERF.md, K7), and it was removed. The JAX
+// wrapper replays the momentum scalars on the host after the call
+// (pallas_kernels.py:196-204); here thread 0 of block 0 replays them into
+// the scalar vector's output slots (small_common.cuh: kPhAOut,
+// kPhLPrevOut), so the host reads nothing. u and u_prev are read from
+// their inputs and written to separate outputs, so the inputs stay as
+// they were.
+//
+// bf16 storage (TD = __nv_bfloat16, T = float): each data value is
+// converted once as it is read, and the float32 arithmetic follows, as
+// the JAX kernel converts its blocks at load (pallas_kernels.py:73-74).
+//
+// Plain C interface (ctypes): pointers and the stream as void*, launches
+// on that stream, allocates nothing, returns cudaGetLastError(). Pointers
+// of an empty known block (n_ct = 0) are never dereferenced; `scratch` is
+// read only by the n_u > 8 form.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "u_phase_common.cuh"
+
+namespace {
+
+using dm::ColVec;
+using dm::kLd;
+using dm::kSites;
+using dm::RegVec;
+
+template <typename T, typename TD, int NU>
+__global__ void __launch_bounds__(kSites)
+u_phase_kernel(const TD* __restrict__ yt, const TD* __restrict__ dt,
+               const TD* __restrict__ rtt, const T* __restrict__ a1,
+               const T* __restrict__ a2, const T* __restrict__ u_in,
+               const T* __restrict__ up_in, T* __restrict__ u_out,
+               T* __restrict__ up_out, T* __restrict__ scal,
+               T* __restrict__ scratch, int64_t n, int n_s, int n_ct,
+               int n_u, int n_steps, int lagged) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s_r = reinterpret_cast<T*>(smem_raw);    // n_ct rows: Rt
+
+    const int tid = threadIdx.x;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
+    const bool live = i < n;
+    dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    __syncthreads();
+    // the output slots are written once; every thread reads only the
+    // input slots
+    if (blockIdx.x == 0 && tid == 0) dm::phase_scalars_out(scal, n_steps);
+    if (!live) return;
+
+    const T a = scal[dm::kPhA];
+    const T l_w = scal[dm::kPhL];
+    const T l_prev = scal[dm::kPhLPrev];
+    auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
+                   auto& t2) {
+        dm::build_cm<T, NU, dm::kResidFirst>(cc, m, t1, n_u, yt + i, dt + i,
+                                             n, s_r + tid, a1, a2, n_s,
+                                             n_ct);
+        if (lagged)
+            dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, a, l_prev,
+                                        l_w, n_steps);
+        else
+            dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, a,
+                                         l_prev, l_w, n_steps);
+    };
+    if constexpr (NU > 0) {
+        RegVec<T, NU> u, up, cc, t1, t2;
+        RegVec<T, NU * (NU + 1) / 2> m;
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            u[v] = u_in[v * n + i];
+            up[v] = up_in[v * n + i];
+        }
+        run(u, up, cc, m, t1, t2);
+#pragma unroll
+        for (int v = 0; v < NU; ++v) {
+            u_out[v * n + i] = u[v];
+            up_out[v * n + i] = up[v];
+        }
+    } else {
+        // u, u_prev updated in place in the outputs (copied from the
+        // inputs first); C, M and the temporaries in this site's scratch
+        // column
+        for (int v = 0; v < n_u; ++v) {
+            u_out[v * n + i] = u_in[v * n + i];
+            up_out[v * n + i] = up_in[v * n + i];
+        }
+        const int nm = n_u * (n_u + 1) / 2;
+        ColVec<T> u{u_out + i, n}, up{up_out + i, n};
+        ColVec<T> cc{scratch + i, n};
+        ColVec<T> m{scratch + static_cast<int64_t>(n_u) * n + i, n};
+        ColVec<T> t1{scratch + static_cast<int64_t>(n_u + nm) * n + i, n};
+        ColVec<T> t2{t1.p + static_cast<int64_t>(n_u) * n, n};
+        run(u, up, cc, m, t1, t2);
+    }
+}
+
+// shared memory of the kernel: the n_ct staged rows of Rt; itemsize is
+// the state's (the staged rows are of the state type whatever the data's)
+size_t smem_bytes(size_t itemsize, int n_ct) {
+    return itemsize * static_cast<size_t>(n_ct) * kLd;
+}
+
+template <typename T, typename TD, int NU>
+int launch(const void* yt, const void* dt, const void* rtt, const void* a1b,
+           const void* a2b, const void* u_in, const void* up_in, void* u_out,
+           void* up_out, void* scal, void* scratch, int64_t n, int n_s,
+           int n_ct, int n_u, int n_steps, int lagged, cudaStream_t stream) {
+    const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
+    const size_t smem = smem_bytes(sizeof(T), n_ct);
+    auto kern = u_phase_kernel<T, TD, NU>;
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kern<<<n_blocks, kSites, smem, stream>>>(
+        static_cast<const TD*>(yt), static_cast<const TD*>(dt),
+        static_cast<const TD*>(rtt), static_cast<const T*>(a1b),
+        static_cast<const T*>(a2b), static_cast<const T*>(u_in),
+        static_cast<const T*>(up_in), static_cast<T*>(u_out),
+        static_cast<T*>(up_out), static_cast<T*>(scal),
+        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, lagged);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TD>
+int dispatch(const void* yt, const void* dt, const void* rtt,
+             const void* a1b, const void* a2b, const void* u_in,
+             const void* up_in, void* u_out, void* up_out, void* scal,
+             void* scratch, int64_t n, int n_s, int n_ct, int n_u,
+             int n_steps, int lagged, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K7_CASE(NU)                                                       \
+    case NU:                                                                 \
+        return launch<T, TD, NU>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,  \
+                                 up_out, scal, scratch, n, n_s, n_ct, n_u,   \
+                                 n_steps, lagged, st);
+    switch (n_u) {
+        DM_K7_CASE(1) DM_K7_CASE(2) DM_K7_CASE(3) DM_K7_CASE(4)
+        DM_K7_CASE(5) DM_K7_CASE(6) DM_K7_CASE(7) DM_K7_CASE(8)
+        default:
+            if (n_u < 1 || scratch == nullptr)
+                return static_cast<int>(cudaErrorInvalidValue);
+            return launch<T, TD, 0>(yt, dt, rtt, a1b, a2b, u_in, up_in,
+                                    u_out, up_out, scal, scratch, n, n_s,
+                                    n_ct, n_u, n_steps, lagged, st);
+    }
+#undef DM_K7_CASE
+}
+
+}  // namespace
+
+// The C entry points:
+//   dm_u_phase_smem(itemsize, n_ct): the kernel's shared memory in bytes
+//     (itemsize is the state's), which the wrapper's plan matches;
+//   dm_u_phase_{f32,f64,bf16}(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,
+//     up_out, scal, scratch, n, n_s, n_ct, n_u, n_steps, lagged, stream):
+//     bf16 is bf16 data with a float32 state.
+#define DM_K7_ENTRY(NAME, T, TD)                                             \
+    int NAME(const void* yt, const void* dt, const void* rtt,                \
+             const void* a1b, const void* a2b, const void* u_in,             \
+             const void* up_in, void* u_out, void* up_out, void* scal,       \
+             void* scratch, long long n, int n_s, int n_ct, int n_u,         \
+             int n_steps, int lagged, void* stream) {                        \
+        return dispatch<T, TD>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,    \
+                               up_out, scal, scratch, n, n_s, n_ct, n_u,     \
+                               n_steps, lagged, stream);                     \
+    }
+extern "C" {
+long long dm_u_phase_smem(int itemsize, int n_ct) {
+    return static_cast<long long>(smem_bytes(itemsize, n_ct));
+}
+DM_K7_ENTRY(dm_u_phase_f32, float, float)
+DM_K7_ENTRY(dm_u_phase_f64, double, double)
+DM_K7_ENTRY(dm_u_phase_bf16, float, __nv_bfloat16)
+}
+#undef DM_K7_ENTRY

@@ -64,8 +64,10 @@ __host__ __device__ __forceinline__ constexpr int chunk_rows(int n_s) {
     return n_s < kChunk ? n_s : kChunk;
 }
 
-// bf16_compute roundings (RND)
-constexpr int kRoundNone = 0, kRoundAll = 1, kRoundDy = 2;
+// bf16_compute roundings (RND); kResidFirst is no rounding but K7's
+// association of the known-block residual, d (y - a1' rt) where K1 forms
+// d y - d (a1' rt) (u_phase.cu)
+constexpr int kRoundNone = 0, kRoundAll = 1, kRoundDy = 2, kResidFirst = 3;
 
 // clip to [0, 1]; NaN passes through, as torch.clamp
 template <typename T>
@@ -133,7 +135,8 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
 // The known-block residual of sample s at this thread's site, given its
 // y and d: d y - d (a1' rt)  (just d y when n_ct = 0); rt is this site's
 // column of the staged Rt rows (stride kLd), a1 the (n_ct, n_s) block.
-// kRoundDy rounds d y to bf16.
+// kRoundDy rounds d y to bf16; kResidFirst forms d (y - a1' rt), as the
+// JAX package's single-phase U kernel does (d y when n_ct = 0, exactly).
 template <int RND, typename T>
 __device__ __forceinline__ T known_resid(T y, T d, const T* __restrict__ rt,
                                          const T* __restrict__ a1, int s,
@@ -141,6 +144,7 @@ __device__ __forceinline__ T known_resid(T y, T d, const T* __restrict__ rt,
     T known = T(0);
     for (int c = 0; c < n_ct; ++c) known += a1[c * n_s + s] * rt[c * kLd];
     if constexpr (RND == kRoundDy) return bf16r(d * y) - d * known;
+    if constexpr (RND == kResidFirst) return d * (y - known);
     return d * y - d * known;
 }
 
@@ -188,7 +192,9 @@ __device__ __forceinline__ void build_cm(
     for (int s = 0; s < n_s; ++s) {
         const T yv = to_state(y[s * ld]);
         const T dv = to_state(d[s * ld]);
-        const T dres = known_resid<kRoundNone>(yv, dv, rt, a1, s, n_s, n_ct);
+        const T dres = known_resid<RND == kResidFirst ? kResidFirst
+                                                      : kRoundNone>(
+            yv, dv, rt, a1, s, n_s, n_ct);
 #pragma unroll
         for (int v = 0; v < nu; ++v) {
             const T av = a2[v * n_s + s];

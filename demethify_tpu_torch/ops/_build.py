@@ -112,6 +112,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
     lib.dm_glue_smem.argtypes = [_INT] * 3
     lib.dm_glue_smem.restype = _LL
+    # the single-phase kernels: K7, K8, K9, K10
+    lib.dm_u_phase_smem.argtypes = [_INT] * 2
+    lib.dm_u_phase_smem.restype = _LL
+    for dt in ("f32", "f64", "bf16"):
+        fn = getattr(lib, f"dm_u_phase_{dt}")
+        fn.argtypes = [_VOID] * 11 + [_LL] + [_INT] * 5 + [_VOID]
+        fn.restype = _INT
+        fn = getattr(lib, f"dm_grams_{dt}")
+        fn.argtypes = [_VOID] * 7 + [_LL] + [_INT] * 3 + [_LL, _INT, _VOID]
+        fn.restype = _INT
+    lib.dm_grams_smem.argtypes = [_INT] * 3
+    lib.dm_grams_smem.restype = _LL
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"dm_alpha_phase_{dt}")
+        fn.argtypes = [_VOID] * 8 + [_INT] * 3 + [_VOID]
+        fn.restype = _INT
+        fn = getattr(lib, f"dm_fw_phase_{dt}")
+        fn.argtypes = [_VOID] * 7 + [_INT] * 4 + [_VOID]
+        fn.restype = _INT
 
 
 def _compile(out: str) -> str:

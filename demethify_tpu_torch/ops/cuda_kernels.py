@@ -1,4 +1,5 @@
-"""K1, the U-phase megakernel: wrapper, launch count and plain twin.
+"""K1, the U-phase megakernel, and K7 and K8, the single-phase U kernel
+and the one-pass Gram system: wrappers, launch counts and plain twins.
 
 ``u_phase_grams`` replaces the Pallas kernel
 ``demethify_tpu/ops/pallas_kernels.py::_u_phase_grams_kernel`` (through
@@ -51,10 +52,23 @@ outer iteration needs no host sync apart from the termination test. The
 multi-member solves keep one row of N_SCAL_MULTI slots per restart
 member: the same slots plus the member's tolerance TOL and its ACTIVE
 flag (``csrc/small_common.cuh`` names the same slots).
+
+K7 ``u_phase`` replaces ``_u_phase_kernel`` (through ``u_phase``,
+``pallas_kernels.py:65, 117``): K1's U phase without its Gram stage, in
+the JAX kernel's association (``csrc/u_phase.cu``). K8 ``grams``
+replaces ``_gram_kernel`` (through ``grams``, ``pallas_kernels.py:743,
+776``): G, b and ydy in one pass over the sites (``csrc/grams.cu``). No
+solver runs either, in the JAX package or here; they take the JAX
+functions' operands (less the TPU lane ``tile``) and return new arrays,
+their scalars as 0-d tensors advanced on the device (slots PH_*), so a
+call reads nothing back. ``chip_smoke.composed_solve`` composes K7, K8
+and K9 (``cuda_small.alpha_phase``) into the plain solver's outer
+iteration.
 """
 
 import torch
 
+from demethify_tpu_torch.device import state_dtype
 from demethify_tpu_torch.ops import _build
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
@@ -385,3 +399,266 @@ def u_phase_grams_plain(ydt, rtt, a1_block, a2_block, uut, scal,
     scal[A_U] = a
     scal[L_W_PREV] = l_prev
     return gu, b_u, usq
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the single-phase U kernel and the one-pass Gram system
+# ---------------------------------------------------------------------------
+
+# slots of the single-phase kernels' scalar vector (K7 here, K9 in
+# ``cuda_small``; small_common.cuh's kPh*): the Nesterov scalar, the
+# Lipschitz constant and its previous value, read; the advanced scalar and
+# previous constant, written
+PH_A, PH_L, PH_L_PREV, PH_A_OUT, PH_L_PREV_OUT = range(5)
+
+
+def phase_scalars(like, a, lip, lip_prev):
+    """The single-phase kernels' scalar vector on ``like``'s device, in its
+    dtype: (a, lip, lip_prev, a, lip_prev); the last two slots are the
+    outputs. The inputs may be numbers or 0-d tensors on that device (no
+    host read)."""
+    def t(x):
+        return torch.as_tensor(x, dtype=like.dtype,
+                               device=like.device).reshape(())
+    a, lip, lip_prev = t(a), t(lip), t(lip_prev)
+    return torch.stack([a, lip, lip_prev, a, lip_prev])
+
+
+def k7_smem(itemsize: int, n_ct: int) -> int:
+    """Shared memory of K7 in bytes: the n_ct staged rows of Rt, 129
+    values each (``itemsize`` is the state's), the formula of the kernel's
+    ``dm_u_phase_smem`` export (``csrc/u_phase.cu``), which
+    ``chip_smoke.py`` holds it to. Y, D and the alpha block are read from
+    device memory: on an H100 staging them too (K1's resident layout) was
+    as fast or slower at every shape timed (PERF.md, K7). Raises
+    NotImplementedError, stating the bytes, where the rows pass the card's
+    limit (n_ct > 225 in float64, 450 in float32)."""
+    smem = itemsize * n_ct * _LD
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"u_phase at n_ct = {n_ct} ({itemsize}-byte state) needs {smem} "
+            f"bytes of shared memory, above the {SMEM_LIMIT} a block may use")
+    return smem
+
+
+def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
+            l_w_prev, n_steps: int, *, lagged: bool = False):
+    """The whole U FISTA inner loop in one pass (K7), the JAX package's
+    ``u_phase`` without its TPU lane ``tile``.
+
+    yt, dt (n_s, N) = Y.T, D.T; rtt (n_ct, N) = Rt.T and a1_block
+    (n_ct, n_s), or both None (no known block); a2_block (n_u, n_s); ut,
+    u_prev_t (n_u, N); a, l_w, l_w_prev numbers or 0-d tensors on the
+    data's device. Data float32, float64 or bfloat16 (with a float32
+    state), converted to the state dtype as it is read. ``lagged`` takes
+    each step's gradient at the old u. Always the gram dataflow:
+    C = a2 (D (Y - a1' Rt)), M rows a2 diag(d_i) a2', and
+    u = clip(u_t + (C - M g) / l_w, 0, 1). Returns new (ut, u_prev_t,
+    a_new, l_w_prev_new) and leaves the inputs as they were.
+    """
+    n_u, n_s = a2_block.shape
+    n = yt.shape[1]
+    if rtt is None:
+        rtt = yt.new_empty((0, n))
+    if a1_block is None:
+        a1_block = ut.new_empty((0, n_s))
+    check_dtypes("u_phase", (yt, dt, rtt), (a1_block, a2_block, ut,
+                                            u_prev_t))
+    n_ct = rtt.shape[0]
+    if (yt.shape != (n_s, n) or dt.shape != (n_s, n)
+            or rtt.shape != (n_ct, n) or a1_block.shape != (n_ct, n_s)
+            or ut.shape != (n_u, n) or u_prev_t.shape != (n_u, n)):
+        raise ValueError(
+            f"u_phase: inconsistent shapes yt {tuple(yt.shape)}, dt "
+            f"{tuple(dt.shape)}, rtt {tuple(rtt.shape)}, a1 "
+            f"{tuple(a1_block.shape)}, a2 {tuple(a2_block.shape)}, ut "
+            f"{tuple(ut.shape)}, u_prev_t {tuple(u_prev_t.shape)}")
+    if n == 0 or n_u < 1:
+        raise ValueError(f"u_phase: no CpG sites or no unknown rows (N = "
+                         f"{n}, n_u = {n_u})")
+    scal = phase_scalars(ut, a, l_w, l_w_prev)
+    if yt.device.type == "cpu":
+        return u_phase_plain(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t,
+                             scal[PH_A], scal[PH_L], scal[PH_L_PREV],
+                             n_steps, lagged=lagged)
+    if yt.device.type != "cuda":
+        raise ValueError(f"u_phase: unsupported device {yt.device}")
+    for t in (yt, dt, rtt, a1_block, a2_block, ut, u_prev_t):
+        if not t.is_contiguous():
+            raise ValueError("u_phase: operands must be contiguous")
+    k7_smem(ut.element_size(), n_ct)
+    lib = _build.load().lib
+    u_out, up_out = torch.empty_like(ut), torch.empty_like(u_prev_t)
+    rows = scratch_rows(n_u, False)
+    scratch = ut.new_empty((rows, n)) if rows else None
+    dt_name = {torch.float32: "f32", torch.float64: "f64",
+               torch.bfloat16: "bf16"}[yt.dtype]
+    fn = getattr(lib, "dm_u_phase_" + dt_name)
+    with torch.cuda.device(yt.device):
+        err = fn(yt.data_ptr(), dt.data_ptr(), rtt.data_ptr(),
+                 a1_block.data_ptr(), a2_block.data_ptr(), ut.data_ptr(),
+                 u_prev_t.data_ptr(), u_out.data_ptr(), up_out.data_ptr(),
+                 scal.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n, n_s,
+                 n_ct, n_u, n_steps, int(lagged),
+                 torch.cuda.current_stream(yt.device).cuda_stream)
+    _build.check(err, "u_phase")
+    if yt.dtype == torch.bfloat16:
+        u_phase.launches_bf16 += 1
+    else:
+        u_phase.launches += 1
+    count_forms(u_phase.forms, state_cols=n_u > REG_N_U)
+    return u_out, up_out, scal[PH_A_OUT], scal[PH_L_PREV_OUT]
+
+
+# launches on float32/float64 data and on bf16 data; and, apart, those of
+# each form named in ``count_forms``
+u_phase.launches = 0
+u_phase.launches_bf16 = 0
+u_phase.forms = {}
+
+
+def u_phase_plain(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
+                  l_w_prev, n_steps: int, *, lagged: bool = False):
+    """The same function as ``u_phase`` in ordinary tensor ops, in the JAX
+    kernel's association: C = a2 @ (dt * (yt - a1' rtt)) (just dt * yt
+    without a known block), M = (a2 a2 pairs) @ dt; a, l_w, l_w_prev 0-d
+    tensors or numbers."""
+    st = ut.dtype
+    y, d = yt.to(st), dt.to(st)
+    resid = y if rtt is None or rtt.shape[0] == 0 else (
+        y - a1_block.T @ rtt.to(st))
+    n_u, n_s = a2_block.shape
+    C = a2_block @ (d * resid)
+    w2 = (a2_block[:, None, :] * a2_block[None, :, :]).reshape(n_u * n_u,
+                                                               n_s)
+    M = (w2 @ d).reshape(n_u, n_u, -1)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=st, device=ut.device).reshape(())
+    u, u_prev, a, l_w, l_prev = ut, u_prev_t, t(a), t(l_w), t(l_w_prev)
+    for _ in range(n_steps):
+        a1 = nesterov_step(a)
+        beta = momentum(a, a1, l_prev, l_w)
+        u_t = u + beta * (u - u_prev)
+        grad = C - torch.einsum("uvn,vn->un", M, u if lagged else u_t)
+        u, u_prev = torch.clamp(u_t + grad / l_w, 0.0, 1.0), u
+        a, l_prev = a1, l_w
+    return u, u_prev, a, l_prev
+
+
+# K8's launch plan (csrc/grams.cu): 256 threads a block, tiles of 64
+# staged sites, 4 x 4 micro-tiles of the (p + 1)^2 entries, about
+# _GRAM_BLOCKS blocks in all
+_GRAM_THREADS, _GRAM_TILE, _GRAM_MT, _GRAM_BLOCKS = 256, 64, 4, 2048
+
+
+def grams_plan(n: int, n_s: int, p: int, rounded: bool = False):
+    """K8's (samples per group, groups, chunks, sites per chunk): a group
+    holds as many samples as give its block's threads one micro-tile each
+    (at least one sample) -- the nt (nt + 1) / 2 micro-tiles on or above
+    the diagonal of each sample's (p + 1)^2 matrix, all nt^2 under bf16
+    data (``rounded``, where the matrix is not symmetric); the sites split
+    into chunks of whole tiles so that groups x chunks is about 2048
+    blocks (a few per SM, so the partial buffer, one column per chunk,
+    stays small)."""
+    nt = -(-(p + 1) // _GRAM_MT)
+    tiles = nt * nt if rounded else nt * (nt + 1) // 2
+    sg = max(1, min(n_s, _GRAM_THREADS // tiles))
+    n_groups = -(-n_s // sg)
+    n_tiles = -(-n // _GRAM_TILE)
+    n_chunks = max(1, min(n_tiles, -(-_GRAM_BLOCKS // n_groups)))
+    chunk_sites = -(-n_tiles // n_chunks) * _GRAM_TILE
+    return sg, n_groups, -(-n // chunk_sites), chunk_sites
+
+
+def grams_smem(itemsize: int, p: int, sg: int) -> int:
+    """K8's shared memory in bytes (``itemsize`` the accumulation type's):
+    p rows of R, sg rows each of y and d and a zero row, 65 values each,
+    and the slices' sums (256 micro-tiles of 16); ``dm_grams_smem``."""
+    return itemsize * ((p + 2 * sg + 1) * (_GRAM_TILE + 1)
+                       + _GRAM_THREADS * _GRAM_MT * _GRAM_MT)
+
+
+def grams(yt, dt, rt):
+    """One-pass per-sample Gram system (K8), the JAX package's ``grams``
+    without its TPU lane ``tile``.
+
+    yt, dt (n_s, N), rt (p, N), one dtype (float32, float64 or bfloat16).
+    Returns (G (n_s, p, p), b (p, n_s), ydy (n_s,)) in the accumulation
+    dtype (float32 for bf16): G[s] = R' diag(d_s) R, b = R'(d_s y_s),
+    ydy = y_s' D y_s; in float32 and float64 G's upper triangle is summed
+    and mirrored. Under bf16 the products r d_s and d y are rounded to
+    bf16 where the JAX kernel's compiled program rounds them (each a dot
+    operand; (d y) y feeds a float32 sum unrounded), with float32 sums.
+    ``ops/gram.sample_grams`` leaves r d_s unrounded, as the solvers'
+    programs do, so it is not K8's bf16 twin.
+    """
+    n_s, n = yt.shape
+    p = rt.shape[0]
+    dd = yt.dtype
+    if dd not in (torch.float32, torch.float64, torch.bfloat16):
+        raise TypeError(f"grams takes float32, float64 or bfloat16, not {dd}")
+    for t in (dt, rt):
+        if t.dtype != dd or t.device != yt.device:
+            raise ValueError("grams: yt, dt and rt must share one dtype and "
+                             "device")
+    if dt.shape != (n_s, n) or rt.shape != (p, n) or n == 0 or p == 0:
+        raise ValueError(f"grams: inconsistent shapes yt {tuple(yt.shape)}, "
+                         f"dt {tuple(dt.shape)}, rt {tuple(rt.shape)}")
+    if yt.device.type == "cpu":
+        return grams_plain(yt, dt, rt)
+    if yt.device.type != "cuda":
+        raise ValueError(f"grams: unsupported device {yt.device}")
+    for t in (yt, dt, rt):
+        if not t.is_contiguous():
+            raise ValueError("grams: operands must be contiguous")
+    acc = state_dtype(dd)
+    itemsize = torch.empty((), dtype=acc).element_size()
+    sg, _, n_chunks, chunk_sites = grams_plan(n, n_s, p,
+                                              dd == torch.bfloat16)
+    smem = grams_smem(itemsize, p, sg)
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"grams at p = {p} ({itemsize}-byte sums) needs {smem} bytes of "
+            f"shared memory, above the {SMEM_LIMIT} a block may use")
+    lib = _build.load().lib
+    partials = torch.empty((n_s * (p + 1) ** 2, n_chunks), dtype=acc,
+                           device=yt.device)
+    G = torch.empty((n_s, p, p), dtype=acc, device=yt.device)
+    b = torch.empty((p, n_s), dtype=acc, device=yt.device)
+    ydy = torch.empty((n_s,), dtype=acc, device=yt.device)
+    dt_name = {torch.float32: "f32", torch.float64: "f64",
+               torch.bfloat16: "bf16"}[dd]
+    with torch.cuda.device(yt.device):
+        err = getattr(lib, f"dm_grams_{dt_name}")(
+            yt.data_ptr(), dt.data_ptr(), rt.data_ptr(), partials.data_ptr(),
+            G.data_ptr(), b.data_ptr(), ydy.data_ptr(), n, n_s, p, sg,
+            chunk_sites, n_chunks,
+            torch.cuda.current_stream(yt.device).cuda_stream)
+    _build.check(err, "grams")
+    if dd == torch.bfloat16:
+        grams.launches_bf16 += 1
+    else:
+        grams.launches += 1
+    return G, b, ydy
+
+
+grams.launches = 0
+grams.launches_bf16 = 0
+
+
+def grams_plain(yt, dt, rt):
+    """The same function as ``grams`` in ordinary tensor ops, rounding
+    through ``bf16_round`` where the kernel rounds under bf16 data; G one
+    sample at a time, so no (n_s, p, N) temporary is made."""
+    acc = state_dtype(yt.dtype)
+    bf = yt.dtype == torch.bfloat16
+    y, d, r = yt.to(acc), dt.to(acc), rt.to(acc)
+    dy = bf16_round(d * y) if bf else d * y
+    G = torch.empty((y.shape[0], r.shape[0], r.shape[0]), dtype=acc,
+                    device=y.device)
+    for s in range(y.shape[0]):
+        rs = r * d[s]
+        G[s] = (bf16_round(rs) if bf else rs) @ r.T
+    return G, r @ dy.T, torch.sum(dy * y, dim=1)

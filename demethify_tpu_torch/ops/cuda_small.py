@@ -1,5 +1,5 @@
-"""K2, K3, K5 and K6, the glue kernels: wrappers, launch counts and plain
-twins.
+"""K2, K3, K5 and K6, the glue kernels, and K9 and K10, their loops on an
+assembled Gram system: wrappers, launch counts and plain twins.
 
 ``alpha_phase_full`` (K2) replaces the Pallas kernel
 ``demethify_tpu/ops/pallas_small.py::_alpha_full_kernel`` (through
@@ -41,6 +41,16 @@ each projection the rows whose mask is not > 0 are set to -1e30, which
 projects them to exactly 0 and the other rows as the smaller vector
 would be. ``fused.partial_ref_solve_fused(row_mask=)`` runs K2's; no
 solver runs K5's yet.
+
+``alpha_phase`` (K9) replaces ``_alpha_kernel`` (through
+``alpha_phase``, ``pallas_small.py:70, 97``) and ``fw_phase`` (K10)
+``_fw_kernel`` (through ``fw_phase``, ``pallas_small.py:204, 213``):
+K2's and K3's loops (``csrc/glue_steps.cuh``, one body each) on a G and
+b the caller assembled, with no cost or Lipschitz epilogue
+(``csrc/alpha_phase.cu``, ``csrc/fw_phase.cu``). They take the JAX
+functions' operands, return new arrays and leave their inputs as they
+were; K9's scalars come back as 0-d tensors advanced on the device. No
+solver runs them.
 """
 
 import torch
@@ -55,11 +65,17 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     L_W,
     N_SCAL,
     N_SCAL_MULTI,
+    PH_A,
+    PH_A_OUT,
+    PH_L,
+    PH_L_PREV,
+    PH_L_PREV_OUT,
     RT_SQ,
     SMEM_LIMIT,
     TOL,
     count_forms,
     member_stride,
+    phase_scalars,
 )
 from demethify_tpu_torch.ops.fista import fista_alpha_gram
 from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
@@ -492,3 +508,134 @@ def fw_phase_full_multi_plain(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity,
     grad = b_c - torch.einsum("spq,qs->ps", G_c, al)
     _finish_members(scal_b, alpha_b, _members(al, n_b), b,
                     _members(grad, n_b), ydy, n_u, {})
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10: the alpha FISTA and Frank-Wolfe loops on an assembled G, b
+# ---------------------------------------------------------------------------
+
+
+def _check_phase(name, G, b, p, like, others):
+    """dtype (``like``'s, float32 or float64), device, contiguity on the
+    card and shapes of the single-phase glue kernels' operands at p rows
+    and n_s = like's columns; G and b are cast to that dtype, as the JAX
+    wrappers cast them. Returns (G, b, n_s)."""
+    dt, dev = like.dtype, like.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {dt}")
+    G, b = G.to(dt), b.to(dt)
+    n_s = like.shape[1]
+    for t in (G, b, *others):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: all operands must share one device "
+                             f"and dtype")
+    if G.shape != (n_s, p, p) or b.shape != (p, n_s):
+        raise ValueError(f"{name}: inconsistent shapes G {tuple(G.shape)}, "
+                         f"b {tuple(b.shape)} at p = {p}, n_s = {n_s}")
+    if dev.type == "cuda":
+        G, b = G.contiguous(), b.contiguous()
+        for t in others:
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: operands must be contiguous")
+        _check_glue_shape(name, like.element_size(), p, n_s)
+    elif dev.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return G, b, n_s
+
+
+def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
+                row_mask=None):
+    """The whole alpha FISTA inner loop in one launch (K9), the JAX
+    package's ``alpha_phase``.
+
+    G (n_s, p, p), b (p, n_s), alpha and alpha_prev (p, n_s), float32 or
+    float64; a, l_h_prev, l_h numbers or 0-d tensors on the data's device
+    (no host read); ``row_mask`` (p,): the rows not > 0 project to exactly
+    0. Returns new (alpha, alpha_prev, a_new, l_h_prev_new), the carry
+    convention of ``fista_alpha_gram``, and leaves the inputs as they
+    were.
+    """
+    p = alpha.shape[0]
+    G, b, n_s = _check_phase("alpha_phase", G, b, p, alpha,
+                             (alpha, alpha_prev))
+    if alpha_prev.shape != alpha.shape:
+        raise ValueError("alpha_phase: alpha_prev must be alpha's shape")
+    mask = _mask_arg(row_mask, alpha, (p,), "alpha_phase")
+    scal = phase_scalars(alpha, a, l_h, l_h_prev)
+    if alpha.device.type == "cpu":
+        return alpha_phase_plain(G, b, alpha, alpha_prev, scal[PH_A],
+                                 scal[PH_L_PREV], scal[PH_L], n_steps, mask)
+    lib = _build.load().lib
+    fn = (lib.dm_alpha_phase_f32 if alpha.dtype == torch.float32
+          else lib.dm_alpha_phase_f64)
+    al, ap = torch.empty_like(alpha), torch.empty_like(alpha_prev)
+    with torch.cuda.device(alpha.device):
+        err = fn(G.data_ptr(), b.data_ptr(), alpha.data_ptr(),
+                 alpha_prev.data_ptr(), al.data_ptr(), ap.data_ptr(),
+                 scal.data_ptr(), None if mask is None else mask.data_ptr(),
+                 p, n_s, n_steps, _stream(alpha))
+    _build.check(err, "alpha_phase")
+    alpha_phase.launches += 1
+    count_forms(alpha_phase.forms, wide=p > REG_P, masked=mask is not None)
+    return al, ap, scal[PH_A_OUT], scal[PH_L_PREV_OUT]
+
+
+alpha_phase.launches = 0
+alpha_phase.forms = {}
+
+
+def alpha_phase_plain(G, b, alpha, alpha_prev, a, l_h_prev, l_h,
+                      n_steps: int, row_mask=None):
+    """The same function as ``alpha_phase`` in ordinary tensor ops
+    (``fista_alpha_gram``); the scalars are 0-d tensors."""
+    return fista_alpha_gram(alpha, alpha_prev, a, l_h_prev, l_h, G, b,
+                            n_steps, None if row_mask is None
+                            else row_mask > 0)
+
+
+def fw_phase(G, b, alpha1, alpha2, purity, n_steps: int):
+    """The whole Frank-Wolfe loop in one launch (K10), the JAX package's
+    ``fw_phase``.
+
+    G (n_s, p, p), b (p, n_s) of the stacked R = [known | unknown];
+    alpha1 (p1, n_s) and alpha2 (p - p1, n_s), both blocks non-empty;
+    purity (n_s,) the known block's mass per column. Returns new
+    (alpha1, alpha2) and leaves the inputs as they were.
+    """
+    if (alpha1.dim() != 2 or alpha2.dim() != 2
+            or alpha2.shape[1] != alpha1.shape[1]
+            or min(alpha1.shape[0], alpha2.shape[0]) < 1):
+        raise ValueError(f"fw_phase: alpha1 and alpha2 must be non-empty "
+                         f"(rows, n_s), got {tuple(alpha1.shape)} and "
+                         f"{tuple(alpha2.shape)}")
+    p1, p = alpha1.shape[0], alpha1.shape[0] + alpha2.shape[0]
+    purity = torch.as_tensor(purity).to(device=alpha1.device,
+                                        dtype=alpha1.dtype)
+    G, b, n_s = _check_phase("fw_phase", G, b, p, alpha1,
+                             (alpha1, alpha2, purity))
+    if purity.shape != (n_s,):
+        raise ValueError("fw_phase: purity must be (n_s,)")
+    if alpha1.device.type == "cpu":
+        return fw_phase_plain(G, b, alpha1, alpha2, purity, n_steps)
+    lib = _build.load().lib
+    fn = (lib.dm_fw_phase_f32 if alpha1.dtype == torch.float32
+          else lib.dm_fw_phase_f64)
+    a1, a2 = torch.empty_like(alpha1), torch.empty_like(alpha2)
+    with torch.cuda.device(alpha1.device):
+        err = fn(G.data_ptr(), b.data_ptr(), alpha1.data_ptr(),
+                 alpha2.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+                 purity.data_ptr(), p, p1, n_s, n_steps, _stream(alpha1))
+    _build.check(err, "fw_phase")
+    fw_phase.launches += 1
+    count_forms(fw_phase.forms, wide=p > REG_P)
+    return a1, a2
+
+
+fw_phase.launches = 0
+fw_phase.forms = {}
+
+
+def fw_phase_plain(G, b, alpha1, alpha2, purity, n_steps: int):
+    """The same function as ``fw_phase`` in ordinary tensor ops
+    (``frank_wolfe_gram``)."""
+    return frank_wolfe_gram(alpha1, alpha2, G, b, purity, n_steps)
