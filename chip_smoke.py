@@ -16,7 +16,13 @@ non-zero and prints no result line):
    unsupervised shape, n_u = 3), the direct form (one sample, n_u = 2),
    n_u = 5, and the purity shape at 500 steps;
 4. K2 ``alpha_phase_full`` against its twin at p = 6 and p = 26, and
-   without a known block (p = 3);
+   without a known block (p = 3); then the redesigned pieces of K1 and
+   K2: the momentum tables of the prologue kernel against
+   ``momentum_table_plain`` bit for bit (float32, float64; 0, 1, 20 and
+   500 steps; l = 0 and NaN; K1's, K4's and K7's slots), the Gram
+   stage's plan against the kernels' export, K2 at each row bucket and
+   at the cohort shape (p = 29, n_s = 100, several blocks: a second
+   launch bit-identical, and K5's member bit-identical to K2);
 5. K3 ``fw_phase_full`` against its twin at p = 6 and p = 26, 500
    Frank-Wolfe steps, float32 and float64, with the count of (step,
    column) vertex choices that differ from the twin's at the same iterate;
@@ -635,6 +641,8 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U,
     if timed:
         res["ms"] = median_ms(lambda: alpha_phase_full(
             *args, ak, apk, sk, N_INNER, n_u, **mask_kw), inner=20)
+        res["queued_ms"] = queued_ms(lambda: alpha_phase_full(
+            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_plain(
             *args, ap_, app, sp, N_INNER, n_u, *mask_kw.values()),
             inner=20)
@@ -648,7 +656,8 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U,
     log(f"[K2] p={p} n_ct={n_ct} n_s={n_s} {dtype_name}: alpha max|diff| "
         f"{err_a:.3e} (tol {tol['alpha']:.0e}); cost diff / sum(ydy) "
         f"{err_c:.3e}, l_w rel {err_w:.3e} (tol {tol['cost']:.0e})"
-        + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
+        + (f"; kernel {res['ms']:.4f} ms ({res['queued_ms']:.4f} ms queued "
+           f"behind a device sleep), plain {res['plain_ms']:.4f} ms "
            f"(median of 7 x 20 launches, CUDA events)" if timed else ""))
     check(np.isfinite([err_a, err_c, err_w]).all(), "K2 non-finite")
     check(err_a <= tol["alpha"], f"K2 alpha differs by {err_a}")
@@ -665,6 +674,185 @@ def phase_k2():
              _k2_case(0, "float32", n_u=U_N_U, seed=8, timed=True),
              _k2_case(0, "float64", n_u=U_N_U, seed=8)]
     return cases[0]
+
+
+# ------------------------------------------------------------ phase 4b
+# The redesigned pieces of K1 and K2 (their source notes): the momentum
+# table K1, K4 and K7 compute once per launch, the Gram stage's plan, and
+# K2's row buckets and multi-block grid with its fixed cost order.
+
+# (label, a, l_prev, l): the regular chain, and the NaN cases the table
+# must keep (l_w = 0: 0/0 from step 1 on; NaN; l_prev = 0 at step 0)
+TABLE_CASES = (("regular", 2.5, 0.9, 1.0), ("l = 0", 2.5, 0.9, 0.0),
+               ("l = NaN", 2.5, 0.9, float("nan")),
+               ("l_prev = 0", 1.0, 0.0, 3.0))
+# (n_c, n_u, p, usq): the main shape, the cohort shape resident and in a
+# wide chunk (and its ragged last chunk), n_u > 8, and small shapes
+GRAM_PLAN_SHAPES = ((10, 1, 6, True), (100, 4, 29, True),
+                    (32, 4, 29, False), (4, 4, 29, True),
+                    (100, 12, 17, True), (10, 12, 17, True),
+                    (10, 3, 3, True), (1, 2, 7, True), (64, 1, 26, True),
+                    (10, 5, 10, True), (25, 9, 34, False))
+
+
+def same_bits(x, y):
+    """x and y hold the same values bit for bit, NaN for NaN (the card's
+    and the CPU's NaN payloads differ)."""
+    import torch
+
+    x, y = x.cpu(), y.cpu()
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    nan = torch.isnan(x)
+    if not torch.equal(nan, torch.isnan(y)):
+        return False
+    iv = {torch.float32: torch.int32, torch.float64: torch.int64}[x.dtype]
+    return torch.equal(x.view(iv)[~nan], y.view(iv)[~nan])
+
+
+def ieee_momentum_table(a, l_prev, lip, n_steps, dtype):
+    """The momentum table in numpy scalars of ``dtype`` (float32 or
+    float64: IEEE arithmetic, correctly rounded division and square root),
+    in the kernels' order: beta_k = min_nan((a_k - 1) / a_{k+1},
+    0.9999 sqrt(l_prev_k / lip)), a_{k+1} = (1 + sqrt(1 + (4 a_k) a_k)) / 2,
+    then a_{n_steps}. PyTorch's float32 square root on the CPU is not
+    always correctly rounded (it gives 22.778767 for sqrt(518.87225), not
+    22.778769), so the CPU twin is no bit reference in float32."""
+    nt = np.dtype(dtype).type
+    one, two, four, cap = nt(1), nt(2), nt(4), nt(0.9999)
+    a, lp, lip = nt(a), nt(l_prev), nt(lip)
+    out = []
+    with np.errstate(all="ignore"):
+        for _ in range(n_steps):
+            a1 = (one + np.sqrt(one + four * a * a)) / two
+            x, y = (a - one) / a1, cap * np.sqrt(lp / lip)
+            out.append(x if (x < y or x != x) else y)
+            a, lp = a1, lip
+    out.append(a)
+    return np.array(out, dtype=dtype)
+
+
+def phase_redesign():
+    """The momentum tables of the prologue kernel on the card against the
+    IEEE chain in numpy (``ieee_momentum_table``), bit for bit, and beside
+    them ``momentum_table_plain`` run on the card (float32, float64; 0, 1,
+    20, 500 steps; l = 0 and NaN; K1's vector, K4's member rows and K7's
+    single-phase vector with its output slots); the Gram stage's plan
+    (``dm_gram_tile_plan``) against ``gram_tile_plan``; K2 at every row
+    bucket and at the cohort shape (p = 29, n_s = 100: 13 blocks, the
+    ticketed fixed-order cost) against its twin, the same bits on a second
+    launch (the tickets reset), and K5 there with one member against K2
+    bit for bit. Returns K2's timed cohort case."""
+    import ctypes
+
+    import torch
+
+    from demethify_tpu_torch.ops import _build
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, L_W, L_W_PREV, N_SCAL, N_SCAL_MULTI, PH_A, PH_A_OUT, PH_L,
+        PH_L_PREV, PH_L_PREV_OUT, gram_tile_plan, momentum_table,
+        momentum_table_plain)
+    from demethify_tpu_torch.ops.cuda_small import alpha_plan
+
+    bad, twin_same, n_checked = [], 0, 0
+    for dt in (torch.float32, torch.float64):
+        npdt = np.float32 if dt == torch.float32 else np.float64
+        for steps in (0, 1, 20, 500):
+            for label, a, lp, lip in TABLE_CASES:
+                sc = torch.zeros(N_SCAL, dtype=dt)
+                sc[A_U], sc[L_W_PREV], sc[L_W] = a, lp, lip
+                rows = torch.zeros((3, N_SCAL_MULTI), dtype=dt)
+                rows[:, A_U] = torch.tensor([a, a + 1.0, 1.0], dtype=dt)
+                rows[:, L_W_PREV] = torch.tensor([lp, 2.0, lp], dtype=dt)
+                rows[:, L_W] = torch.tensor([lip, 3.0, lip], dtype=dt)
+                ph = torch.zeros(5, dtype=dt)
+                ph[PH_A], ph[PH_L], ph[PH_L_PREV] = a, lip, lp
+                for name, vec, slots in (
+                        ("K1", sc, (A_U, L_W_PREV, L_W)),
+                        ("K4", rows, (A_U, L_W_PREV, L_W)),
+                        ("K7", ph, (PH_A, PH_L_PREV, PH_L))):
+                    rows_in = vec.reshape(-1, vec.shape[-1])
+                    want = torch.from_numpy(np.stack([
+                        ieee_momentum_table(*(float(r[k]) for k in slots),
+                                            steps, npdt) for r in rows_in]))
+                    on_card = vec.to(DEV)
+                    got = momentum_table(on_card, steps,
+                                         phase=name == "K7").reshape(
+                                             want.shape)
+                    ok = same_bits(got, want)
+                    if name == "K7":
+                        out = on_card.cpu()
+                        l_out = ph[PH_L] if steps > 0 else ph[PH_L_PREV]
+                        ok = (ok and same_bits(out[PH_A_OUT], want[0, -1])
+                              and same_bits(out[PH_L_PREV_OUT], l_out))
+                    card_rows = vec.to(DEV).reshape(-1, vec.shape[-1])
+                    twin = torch.stack([momentum_table_plain(
+                        *(r[k] for k in slots), steps) for r in card_rows])
+                    twin_same += same_bits(twin, want)
+                    n_checked += 1
+                    if not ok:
+                        bad.append((str(dt), steps, label, name))
+    log(f"[redesign] momentum tables of the prologue kernel against the "
+        f"IEEE chain in numpy: {n_checked} cases, {len(bad)} not "
+        f"bit-identical {bad[:5]}; momentum_table_plain on the card "
+        f"bit-identical to it in {twin_same} of {n_checked}")
+    check(not bad, "momentum tables differ from the IEEE chain")
+
+    lib = _build.load().lib
+    plan_bad = []
+    keys = ("tiled", "rs", "rv", "ts", "tv", "tq", "n_tiles", "n_items")
+    for n_c, n_u, p, usq in GRAM_PLAN_SHAPES:
+        out = (ctypes.c_int * 8)()
+        lib.dm_gram_tile_plan(n_c, n_u, p, int(usq), out)
+        want = gram_tile_plan(n_c, n_u, p, usq)
+        if list(out) != [int(want[k]) for k in keys]:
+            plan_bad.append(((n_c, n_u, p, usq), list(out), want))
+    log(f"[redesign] Gram stage plans: {len(GRAM_PLAN_SHAPES)} shapes, "
+        f"dm_gram_tile_plan against gram_tile_plan, {len(plan_bad)} differ "
+        f"{plan_bad[:3]}")
+    check(not plan_bad, "Gram stage plans differ from the kernels'")
+
+    for n_ct, n_u in ((7, 1), (10, 2), (28, 4)):     # buckets 8, 16, 32
+        log(f"[redesign] K2 row bucket {alpha_plan(n_ct + n_u, N_S)[0]} at "
+            f"p = {n_ct + n_u}:")
+        _k2_case(n_ct, "float64", n_u=n_u, seed=40 + n_ct)
+    n, n_s, n_ct, n_u = COHORT
+    cohort = None
+    for dt in ("float32", "float64"):
+        res = _k2_case(n_ct, dt, n_u=n_u, n_s=n_s, seed=44,
+                       timed=dt == "float32")
+        cohort = cohort or res
+    again = _k2_repeat(n_ct, n_u, n_s)
+    log(f"[redesign] K2 at p = {n_ct + n_u}, n_s = {n_s} (plan "
+        f"{alpha_plan(n_ct + n_u, n_s)}): a second launch from the same "
+        f"inputs bit-identical: {again}")
+    check(again, "K2's multi-block launch does not repeat its bits")
+    k5 = _k5_case(n_ct, n_u, "float32", 4, (1,), seed=45, n_s=n_s)
+    check(k5["member_equals_k2"], "K5's member differs from K2 at n_s = 100")
+    return cohort
+
+
+def _k2_repeat(n_ct, n_u, n_s):
+    """K2 twice from the same inputs at a multi-block shape: the same
+    bits (the member's tickets are back at zero after each launch)."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase_full
+
+    gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
+        n_ct, n_u, "float32", 200_000, 46, n_s)
+    scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, torch.sum(rtt * rtt), (
+        ydt[n_s:].max() ** 2)
+    scal[L_H_PREV] = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
+    outs = []
+    for _ in range(2):
+        a, ap, sc = alpha.clone(), alpha.flip(0).contiguous(), scal.clone()
+        alpha_phase_full(gtt, bt, gu, bu, usq, ydy, a, ap, sc, N_INNER, n_u)
+        outs.append((a, ap, sc))
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -922,7 +1110,7 @@ def resample_weights(n_b, n, dtype, seed):
 
 
 def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
-                       weighted=False):
+                       weighted=False, n_s=N_S):
     """Shared known blocks and B members' K4 blocks (from K4's twin) of a
     200k-site problem, alpha stacks and scalar rows on the card; with
     ``weighted``, resample weights per member, each member's own weighted
@@ -938,7 +1126,7 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
     dtype = getattr(torch, dtype_name)
     n = 200_000
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
-        n, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+        n, n_s, n_ct, n_u, n_b, dtype, seed, inactive)
     # the weights only where they are used, so that the unweighted cases
     # also run on a tree from before the weights operand (time_main_path)
     w = resample_weights(n_b, n, dtype, seed) if weighted else None
@@ -951,14 +1139,14 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
         from demethify_tpu_torch.ops.gram import weighted_known_grams
 
         gtt, bt, ydy = (x.contiguous() for x in weighted_known_grams(
-            rt, ydt[N_S:].T, ydt[:N_S].T, w))
-        rowmax = ydt[N_S:].max(0).values
+            rt, ydt[n_s:].T, ydt[:n_s].T, w))
+        rowmax = ydt[n_s:].max(0).values
         dmax2 = torch.where(w > 0, rowmax, 0.0).max(1).values ** 2
         rt_sq = w @ torch.sum(rt * rt, dim=1)
     else:
         gtt, bt, ydy = (x.contiguous() for x in known_block_grams(
-            rt, ydt[N_S:].T, ydt[:N_S].T))
-        dmax2 = ydt[N_S:].max() ** 2
+            rt, ydt[n_s:].T, ydt[:n_s].T))
+        dmax2 = ydt[n_s:].max() ** 2
         rt_sq = torch.sum(rt * rt)
     g = torch.Generator(device=DEV).manual_seed(seed + 2000)
     scal_b[:, A_ALPHA] = 1.0 + torch.rand(n_b, generator=g, device=DEV,
@@ -973,7 +1161,7 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
 
 
 def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
-             mask=None):
+             mask=None, n_s=N_S):
     """K5 against its twin; ``mask`` (B, p) the members' row masks, then
     also an all-ones mask held bit-identical to no mask."""
     import torch
@@ -984,7 +1172,8 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
         alpha_phase_full_multi_plain)
 
     (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
-     scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed)
+     scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
+                                  n_s=n_s)
     args = (gtt, bt, gu, bu, usq, ydy)
     mk = None if mask is None else torch.as_tensor(mask, device=DEV,
                                                    dtype=alpha_b.dtype)
@@ -1050,10 +1239,10 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
             *args, a_all, ap_all, s_all, N_INNER, n_u, *mkw), inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_multi_plain(
             *args, ap_, app, sp, N_INNER, n_u, *mkw), inner=5)
-        n_bytes, flops = glue_work(p, N_S, n_ct, N_INNER,
+        n_bytes, flops = glue_work(p, n_s, n_ct, N_INNER,
                                    alpha_b.element_size(), n_b)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K5] B={n_b} (inactive {ina}) p={p} n_ct={n_ct} n_s={N_S} "
+    log(f"[K5] B={n_b} (inactive {ina}) p={p} n_ct={n_ct} n_s={n_s} "
         f"{N_INNER} steps {dtype_name}: active alpha/alpha_prev max|diff| "
         f"{err_a:.3e} (tol {tol['alpha']:.0e}); cost diff / sum(ydy) "
         f"{err_c:.3e}, scalars rel {err_s:.3e} (tol {tol['cost']:.0e}); "
@@ -4025,14 +4214,27 @@ def phase_single_phase_kernels(card, main_ms):
     return out
 
 
-def glue_main_outputs(root, path):
-    """Saves K2's and K3's outputs (alpha, alpha_prev, scalars) at the main
-    path's shape (``_k2_case`` / ``_k3_case`` inputs, p = 6, float32 and
-    float64, one launch each) from the tree at ``root`` to ``path``, for a
-    bit-for-bit comparison of two trees on one card with
+# K1 and K2 shapes of the parent/change bit comparisons: (n, n_s, n_ct,
+# n_u, steps, state dtype, data dtype) for K1, (n_ct, n_u, n_s) for K2
+K1_OUTPUT_SHAPES = {
+    "main": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", None),
+    "main64": (N_CPG, N_S, N_CT, N_U, N_INNER, "float64", None),
+    "purity": (N_CPG, N_S, N_CT, N_U, P_INNER, "float32", None),
+    "cohort": (1_000_000, 100, 25, 4, N_INNER, "float32", None),
+    "bf16": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", "bfloat16"),
+}
+GLUE_OUTPUT_SHAPES = {"main": (N_CT, N_U, N_S), "cohort": (25, 4, 100)}
+
+
+def glue_main_outputs(root, path, shape="main"):
+    """Saves K2's and K3's outputs (alpha, alpha_prev, scalars) from the
+    tree at ``root`` to ``path``: at ``shape`` "main" the main path's
+    (``_k2_case`` / ``_k3_case`` inputs, p = 6, float32 and float64, one
+    launch each), at "cohort" K2 alone at p = 29, n_s = 100 (float32 and
+    float64); for a bit-for-bit comparison of two trees on one card with
     ``same_outputs``:
 
-        python3 -c 'import chip_smoke; chip_smoke.glue_main_outputs("DIR", "OUT.pt")'
+        python3 -c 'import chip_smoke; chip_smoke.glue_main_outputs("DIR", "OUT.pt", "main")'
     """
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -4042,43 +4244,50 @@ def glue_main_outputs(root, path):
     from demethify_tpu_torch.ops.cuda_small import (
         alpha_phase_full, fw_phase_full)
 
+    n_ct, n_u, n_s = GLUE_OUTPUT_SHAPES[shape]
     saved = {}
     for dt in ("float32", "float64"):
         gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
-            N_CT, N_U, dt, 200_000, 3)
-        dmax2 = ydt[N_S:].max() ** 2
+            n_ct, n_u, dt, 200_000, 3, n_s)
+        dmax2 = ydt[n_s:].max() ** 2
         rt_sq = torch.sum(rtt * rtt)
         scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, rt_sq, dmax2
         scal[L_H_PREV] = 1.05 * (rt_sq + usq[0]) * dmax2
         a, ap, sc = alpha.clone(), alpha.flip(0).contiguous(), scal.clone()
-        alpha_phase_full(gtt, bt, gu, bu, usq, ydy, a, ap, sc, N_INNER, N_U)
-        purity = torch.linspace(0.3, 0.9, N_S, device=DEV,
-                                dtype=alpha.dtype)
-        af, sf = alpha.clone(), scal.clone()
-        fw_phase_full(gtt, bt, gu, bu, ydy, af, purity, sf, P_INNER, N_U)
+        alpha_phase_full(gtt, bt, gu, bu, usq, ydy, a, ap, sc, N_INNER, n_u)
         saved.update({f"k2_alpha_{dt}": a, f"k2_alpha_prev_{dt}": ap,
-                      f"k2_scal_{dt}": sc, f"k3_alpha_{dt}": af,
-                      f"k3_scal_{dt}": sf})
+                      f"k2_scal_{dt}": sc})
+        if shape == "main":
+            purity = torch.linspace(0.3, 0.9, n_s, device=DEV,
+                                    dtype=alpha.dtype)
+            af, sf = alpha.clone(), scal.clone()
+            fw_phase_full(gtt, bt, gu, bu, ydy, af, purity, sf, P_INNER, n_u)
+            saved.update({f"k3_alpha_{dt}": af, f"k3_scal_{dt}": sf})
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
 
 
-def k1_main_outputs(root, path):
-    """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at the main
-    path's shape (1M x 10, 5 + 1, float32, 20 steps, ``_k1_inputs`` seed
-    0, one launch) from the tree at ``root`` to ``path``, for a bit-for-bit
-    comparison of two trees on one card:
+def k1_main_outputs(root, path, shape="main"):
+    """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at ``shape``
+    of ``K1_OUTPUT_SHAPES`` (the main path's, 1M x 10, 5 + 1, 20 steps, in
+    float32 or float64; the purity schedule's 500 steps; the cohort shape,
+    1M x 100, 25 + 4, float32, the wide layout; bf16 data with a float32
+    state; ``_k1_inputs`` seed 0, one launch) from the tree at ``root`` to
+    ``path``, for a bit-for-bit comparison of two trees on one card:
 
-        python3 -c 'import chip_smoke; chip_smoke.k1_main_outputs("DIR", "OUT.pt")'
+        python3 -c 'import chip_smoke; chip_smoke.k1_main_outputs("DIR", "OUT.pt", "main")'
     """
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
 
-    ydt, rtt, alpha, uut, scal = _k1_inputs(N_CPG, N_S, N_CT, N_U,
-                                            torch.float32, 0)
-    gu, bu, usq = u_phase_grams(ydt, rtt, alpha[:-N_U], alpha[-N_U:], uut,
-                                scal, N_INNER)
+    n, n_s, n_ct, n_u, steps, dt, data = K1_OUTPUT_SHAPES[shape]
+    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                            getattr(torch, dt), 0)
+    if data is not None:
+        ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
+    gu, bu, usq = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:], uut,
+                                scal, steps)
     torch.save({k: v.cpu() for k, v in dict(
         uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}, path)
 
@@ -4097,7 +4306,9 @@ def time_main_path(root):
     """Times the single-restart main path of the tree at ``root`` on one
     GPU and prints one JSON line: the card's ``nvidia-smi`` name and power
     limit, K1 and K2 at the main path's shape (the timed cases of phases
-    3 and 4), K4 and K5 at the partial-reference restart path's shape
+    3 and 4), K1 at the purity schedule's 500 steps and at the cohort
+    shape (1M x 100, 25 + 4, float32), K2 there (p = 29, n_s = 100), K4
+    and K5 at the partial-reference restart path's shape
     (B = 16, shared known blocks: the timed cases of phase 5; K5 also
     queued behind a device sleep, its device time alone) and the
     main path's ms per outer iteration, 300 x 20 through
@@ -4120,6 +4331,13 @@ def time_main_path(root):
     card = phase_device()
     k1 = _k1_case(N_CPG, N_U, "float32", timed=True)
     k2 = _k2_case(N_CT, "float32", timed=True)
+    k1_purity = _k1_case(N_CPG, N_U, "float32", steps=P_INNER, seed=7,
+                         timed=True, label="[purity]")
+    n, n_s, n_ct, n_u = COHORT
+    k1_cohort = _k1_case(n, n_u, "float32", n_s=n_s, n_ct=n_ct, seed=8,
+                         timed=True, inner=2, reps=5, label="[cohort]")
+    k2_cohort = _k2_case(n_ct, "float32", n_u=n_u, n_s=n_s, seed=44,
+                         timed=True)
     k4 = _k4_case(N_U, "float32", 16, N_INNER, inactive=(3, 7, 11),
                   timed=True, label="[restarts]")
     k5 = _k5_case(N_CT, N_U, "float32", 16, (2, 9), timed=True)
@@ -4136,11 +4354,132 @@ def time_main_path(root):
     one_ms = [timed_ms(lambda: partial_reference_deconv(
         y, d, Rt, N_U, n_iter1=1, **kw))[1] for _ in range(7)]
     print(json.dumps({"root": root, "card": card, "k1_ms": k1["ms"],
-                      "k2_ms": k2["ms"], "k4_ms": k4["ms"], "k5_ms": k5["ms"],
+                      "k2_ms": k2["ms"], "k1_purity_ms": k1_purity["ms"],
+                      "k1_cohort_ms": k1_cohort["ms"],
+                      "k2_cohort_ms": k2_cohort["ms"],
+                      "k2_queued_ms": k2.get("queued_ms"),
+                      "k2_cohort_queued_ms": k2_cohort.get("queued_ms"),
+                      "k4_ms": k4["ms"], "k5_ms": k5["ms"],
                       "k5_queued_ms": k5["queued_ms"],
                       "main_ms_per_iter": main_ms,
                       "one_iteration_solve_ms": one_ms}), flush=True)
 
+
+
+def time_steps(root="."):
+    """K1 and K2 of the tree at ``root`` timed at several step counts on
+    one GPU (median device ms of back-to-back launches, CUDA events; K2
+    queued behind a device sleep, since back to back it times its Python
+    wrapper): K1 at the main path's shape and at the cohort shape
+    (1M x 100, 25 + 4), K2 at p = 6, n_s = 10 and at p = 29, n_s = 100,
+    so that each launch splits into a fixed cost and a cost per step.
+    Prints one JSON line:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_steps()'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ, u_phase_grams)
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase_full
+
+    check(torch.cuda.is_available(), "time_steps needs a GPU")
+    card = phase_device()
+    rows = []
+    for name, (n, n_s, n_ct, n_u), steps in (
+            ("K1 main", (N_CPG, N_S, N_CT, N_U), (0, 20, 100, 500)),
+            ("K1 cohort", COHORT, (0, 20, 100))):
+        ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                                torch.float32, 0)
+        a1, a2 = alpha[:-n_u], alpha[-n_u:]
+        for k in steps:
+            u, sc = uut.clone(), scal.clone()
+            ms = median_ms(lambda: u_phase_grams(ydt, rtt, a1, a2, u, sc, k),
+                           reps=5, inner=4 if n_s > N_S else 10)
+            rows.append({"kernel": name, "steps": k, "ms": ms})
+            log(f"[steps] {name} {k} steps: {ms:.4f} ms")
+        del ydt, rtt, alpha, uut, scal
+        torch.cuda.empty_cache()
+    for name, (n_ct, n_u, n_s), steps in (
+            ("K2 p=6", (N_CT, N_U, N_S), (0, 1, 20, 100)),
+            ("K2 cohort", (25, 4, 100), (0, 1, 20, 100))):
+        gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
+            n_ct, n_u, "float32", 200_000, 3, n_s)
+        scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, torch.sum(
+            rtt * rtt), ydt[n_s:].max() ** 2
+        scal[L_H_PREV] = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
+        for k in steps:
+            a, ap, sc = alpha.clone(), alpha.clone(), scal.clone()
+            ms = queued_ms(lambda: alpha_phase_full(
+                gtt, bt, gu, bu, usq, ydy, a, ap, sc, k, n_u), inner=20)
+            rows.append({"kernel": name, "steps": k, "ms": ms})
+            log(f"[steps] {name} {k} steps: {ms:.4f} ms")
+    print(json.dumps({"root": root, "card": card, "steps": rows}),
+          flush=True)
+
+
+def profile_kernels(root="."):
+    """Device time per CUDA kernel (``torch.profiler``, its key averages)
+    of K1 at the main path's and the cohort shape and of K2 at p = 6 and
+    at p = 29, n_s = 100, launched back to back from the tree at
+    ``root``: each launch's kernels (K1: the momentum-table prologue, the
+    main pass, the fixed-order reduction) with their mean device time.
+    Prints one JSON line:
+
+        python3 -c 'import chip_smoke; chip_smoke.profile_kernels()'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ, u_phase_grams)
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase_full
+
+    check(torch.cuda.is_available(), "profile_kernels needs a GPU")
+    card = phase_device()
+    calls = {}
+    for name, (n, n_s, n_ct, n_u) in (("K1 main", (N_CPG, N_S, N_CT, N_U)),
+                                      ("K1 cohort", COHORT)):
+        ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                                torch.float32, 0)
+        calls[name] = functools.partial(
+            u_phase_grams, ydt, rtt, alpha[:-n_u], alpha[-n_u:], uut, scal,
+            N_INNER)
+    for name, (n_ct, n_u, n_s) in (("K2 p=6", (N_CT, N_U, N_S)),
+                                   ("K2 cohort", (25, 4, 100))):
+        gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
+            n_ct, n_u, "float32", 200_000, 3, n_s)
+        scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, torch.sum(
+            rtt * rtt), ydt[n_s:].max() ** 2
+        scal[L_H_PREV] = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
+        calls[name] = functools.partial(
+            alpha_phase_full, gtt, bt, gu, bu, usq, ydy, alpha.clone(),
+            alpha.clone(), scal, N_INNER, n_u)
+    rows = []
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        act = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0))
+            if dev_us and "kernel" in evt.key:
+                rows.append({"call": name, "kernel": evt.key[:120],
+                             "count": evt.count,
+                             "device_us_mean": dev_us / evt.count})
+                log(f"[profile] {name}: {evt.key[:80]} x{evt.count}: "
+                    f"{dev_us / evt.count:.2f} us each")
+    print(json.dumps({"root": root, "card": card, "kernels": rows}),
+          flush=True)
 
 
 # K1 (B = 0) and K4 (B members) shapes that both layouts take:
@@ -4396,6 +4735,7 @@ def main():
     k1 = phase_k1()
     k1_bf16, k1_bf16c = phase_k1_bf16()
     k2 = phase_k2()
+    k2_cohort = phase_redesign()
     k3 = phase_k3()
     k4, k4_uns, k4_pur = phase_k4()
     k5 = phase_k5()
@@ -4456,14 +4796,29 @@ def main():
          "launches": launches["u_phase_grams"],
          "max_abs_err": k1["u_max_abs"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1_b[0],
-         "bound_by": k1_b[1], "library_ms": None},
+         "bound_by": k1_b[1], "library_ms": None,
+         "redesigned": "momentum table once per launch; Gram stage in "
+                       "register micro-tiles above 128 entries a block; "
+                       "cp.async staging"},
         {"name": "alpha_phase_full", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
          "replaces": "demethify_tpu/ops/pallas_small.py:261",
          "launches": launches["alpha_phase_full"],
          "max_abs_err": k2["alpha_max_abs"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2_b[0],
-         "bound_by": k2_b[1], "library_ms": None},
+         "bound_by": k2_b[1], "library_ms": None,
+         "redesigned": "collectives to a row bucket P >= p; a warp per "
+                       "column over several blocks; momentum table"},
+        {"name": "alpha_phase_full{cohort}", "route": "cuda",
+         "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
+         "replaces": "demethify_tpu/ops/pallas_small.py:261",
+         "launches": cohort["launches"]["alpha_phase_full"],
+         "max_abs_err": k2_cohort["alpha_max_abs"], "ms": k2_cohort["ms"],
+         "plain_ms": k2_cohort["plain_ms"],
+         "bound_ms": k2_cohort["bound_ms"],
+         "bound_by": k2_cohort["bound_by"], "library_ms": None,
+         "redesigned": "p = 29, n_s = 100: 13 blocks of 8 columns",
+         "path": "cohort 1M x 100, 25+4, float32, 1000x20"},
         {"name": "fw_phase_full", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/fw_phase_full.cu",
          "replaces": "demethify_tpu/ops/pallas_small.py:636",

@@ -16,9 +16,10 @@
 // What the design does about it: K2's loop (glue_steps.cuh) in one thread
 // block, one warp per sample column (a warp loops over columns when
 // n_s > 32 or the kernel's registers allow fewer warps): lane q holds row
-// q of G_s, b_s and the column in registers (p <= 32), or above 32 rows
-// the warp's column lives in its own slab of shared memory (the wide
-// form, dm_glue_smem's size). The scalar chain the JAX wrapper replays on
+// q of G_s, b_s and the column in registers (p <= 32; the loops run to
+// the row bucket P, 8, 16 or 32, the smallest >= p, as K2's), or above
+// 32 rows the warp's column lives in its own slab of shared memory (the
+// wide form, dm_glue_smem's size). The scalar chain the JAX wrapper replays on
 // the host after the call (pallas_small.py:137-142) is replayed by thread
 // 0 on the device, so the call reads nothing back: the scalars arrive in
 // a small device vector (slots kPhA, kPhL = l_h, kPhLPrev = l_h_prev) and
@@ -38,7 +39,7 @@ namespace {
 
 using dm::kMaxP;
 
-template <typename T, bool WIDE>
+template <typename T, bool WIDE, int P>
 __global__ void alpha_phase_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
@@ -82,14 +83,15 @@ __global__ void alpha_phase_kernel(
     } else {
         const bool masked = mask != nullptr && row && !(mask[lane] > T(0));
         for (int s = warp; s < n_s; s += n_warps) {
-            T g[kMaxP];
+            T g[P];
 #pragma unroll
-            for (int r = 0; r < kMaxP; ++r)
+            for (int r = 0; r < P; ++r)
                 g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
             const T bq = row ? b[lane * n_s + s] : T(0);
             T al = row ? alpha_in[lane * n_s + s] : T(0);
             T ap = row ? alpha_prev_in[lane * n_s + s] : T(0);
-            dm::alpha_steps_reg(g, bq, al, ap, masked, lane, p, a0, l_prev0,
+            dm::alpha_steps_reg(g, bq, al, ap, masked, lane, p,
+                                static_cast<const T*>(nullptr), a0, l_prev0,
                                 l_h, n_steps);
             if (row) {
                 alpha[lane * n_s + s] = al;
@@ -100,12 +102,12 @@ __global__ void alpha_phase_kernel(
     if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
 }
 
-template <typename T, bool WIDE>
+template <typename T, bool WIDE, int P>
 int launch_form(const void* G, const void* b, const void* alpha_in,
                 const void* alpha_prev_in, void* alpha, void* alpha_prev,
                 void* scal, const void* mask, int p, int n_s, int n_steps,
                 cudaStream_t stream) {
-    auto kern = alpha_phase_kernel<T, WIDE>;
+    auto kern = alpha_phase_kernel<T, WIDE, P>;
     static const int max_warps = dm::max_block_warps(kern);
     int n_warps = n_s < 32 ? n_s : 32;
     n_warps = n_warps < max_warps ? n_warps : max_warps;
@@ -138,11 +140,19 @@ int launch(const void* G, const void* b, const void* alpha_in,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p < 1 || n_s < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
-        return launch_form<T, true>(G, b, alpha_in, alpha_prev_in, alpha,
-                                    alpha_prev, scal, mask, p, n_s, n_steps,
-                                    s);
-    return launch_form<T, false>(G, b, alpha_in, alpha_prev_in, alpha,
-                                 alpha_prev, scal, mask, p, n_s, n_steps, s);
+        return launch_form<T, true, kMaxP>(G, b, alpha_in, alpha_prev_in,
+                                           alpha, alpha_prev, scal, mask, p,
+                                           n_s, n_steps, s);
+#define DM_K9_BUCKET(P)                                                      \
+    if (p <= P)                                                              \
+        return launch_form<T, false, P>(G, b, alpha_in, alpha_prev_in,       \
+                                        alpha, alpha_prev, scal, mask, p,    \
+                                        n_s, n_steps, s);
+    DM_K9_BUCKET(8)
+    DM_K9_BUCKET(16)
+    DM_K9_BUCKET(32)
+#undef DM_K9_BUCKET
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -20,29 +20,52 @@
 //
 // What bounds it on an H100: latency. The data is tiny (p ~ 6, n_s ~ 10)
 // and the n_steps steps are serial; a launch per step would cost more
-// than the arithmetic.
+// than the arithmetic. A step of a column is a chain of warp collectives
+// (the product's shuffles, the rank's, a ballot and a shuffle per rank)
+// and three IEEE divisions: measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.time_steps), ~1.06 us a step and ~6 us fixed at
+// p = 6, n_s = 10, ~3.3 us a step at p = 29 (PERF.md).
 //
-// What the design does about it: one thread block per member
-// (blockIdx.x = b; K2 is the grid of one), one warp per sample column (a
-// warp loops over columns when n_s > 32; columns are independent given
-// the data-free momentum scalars). Lane q holds row q of alpha and of G_s
-// in registers (so p <= 32), the matrix-vector product reads a_t from the
-// other lanes by shuffle, and the projection runs inside the warp: a
-// stable descending rank by comparison, the cumulative sum taken in sorted
-// order (ballot finds the lane of each rank), and rho as the LAST lane
-// whose condition holds (highest bit of a ballot) -- the reference's
-// last-index rho. Cost and l_w are reduced across the block in a fixed
-// order. Above 32 rows the wide form keeps each warp's column (G_s, b_s,
+// What the design does about it. Register form (p <= 32): one warp per
+// sample column, lane q holding row q of alpha and of G_s; the
+// matrix-vector product reads a_t from the other lanes by shuffle, and
+// the projection runs inside the warp: a stable descending rank by
+// comparison, the cumulative sum taken in sorted order (ballot finds the
+// lane of each rank), and rho as the LAST lane whose condition holds
+// (highest bit of a ballot) -- the reference's last-index rho.
+//   - The loops are templated on a row bucket P (8, 16 or 32: the
+//     smallest >= p, from the wrapper's plan, ops/cuda_small.alpha_plan),
+//     so at p = 6 each collective loop runs to 8 lanes, not 32, and a
+//     level of the cost's shuffle tree whose partners are all padding
+//     adds +0 without a shuffle (the same bits).
+//   - Each column has its own warp: up to 16 columns one block, above
+//     that blocks of 8 columns (a member's blocks on a grid's x axis), so
+//     no warp runs columns in turn. The block builds the steps'
+//     momentum table in shared memory (small_common.cuh momentum_table:
+//     thread 0 runs the Nesterov recursion, the threads form the betas)
+//     after the warps have asked for their columns; every lane then
+//     reads beta_k from it (past 48 KB of table, at thousands of steps,
+//     the lanes replay the chain: the same values).
+//   - The cost and l_w: each column's terms (its 32-lane shuffle tree)
+//     go to a per-column buffer, and the member's last block to
+//     finish (a ticket taken with an integer atomic, reset for the next
+//     launch) sums them in a fixed order that does not depend on the
+//     grid: column s into group s mod min(n_s, 32), each group in column
+//     order, then the groups in order -- the order of the one-block
+//     kernel with min(n_s, 32) warps, so K2 in float32 keeps its bits at
+//     every n_s and K5 at n_s <= 28; where the register count gave the
+//     one-block kernel fewer warps (float64 past 16 columns, K5 in
+//     float32 past 28) the cost and l_w now sum in the new order.
+// Above 32 rows the wide form keeps each warp's column (G_s, b_s,
 // alpha, alpha_prev and work rows) in its own slab of shared memory, lane
 // q takes rows q, q + 32, ..., the ranks are counted the same way and
 // lane 0 takes the cumulative sum and rho in rank order, so a step is the
 // register form's arithmetic in the same order; the block has as many
 // warps as slabs fit (small_common.cuh), and past one slab (p ~ 170 in
-// float64) the wrapper raises. A member's column sums stay inside its
-// block, so up to 132
-// members run on separate SMs and a K5 launch takes about K2's time
-// whatever B is (the TPU kernel folds the members into its column axis
-// for the same reason); each member's arithmetic is K2's, bit for bit.
+// float64) the wrapper raises. A member's columns stay inside its own
+// blocks, so a K5 launch takes about K2's time whatever B is (the TPU
+// kernel folds the members into its column axis for the same reason);
+// each member's arithmetic is K2's, bit for bit.
 //
 // Row masks (the JAX kernels' row_mask / row_mask_b, pallas_small.py
 // :281-282, :409-410): a (p,) mask per member, or none; before each
@@ -74,122 +97,244 @@ namespace {
 
 using dm::kMaxP;
 
-template <typename T, bool MULTI, bool WIDE>
-__global__ void alpha_phase_full_kernel(
+// the momentum table stays in shared memory up to this many bytes
+constexpr size_t kTabSmem = 48 * 1024;
+
+// Member mb's pointers (MULTI: K5's member grid; K2: all strides 0)
+template <typename T>
+struct Member {
+    const T *gtt, *bt, *gu, *bu, *usq, *ydy, *mask;
+    T *alpha, *alpha_prev, *scal;
+};
+
+template <typename T, bool MULTI>
+__device__ __forceinline__ Member<T> member(
+        long long mb, const T* gtt, const T* bt, const T* gu, const T* bu,
+        const T* usq, const T* ydy, T* alpha, T* alpha_prev, T* scal,
+        const T* mask, const dm::MemberStrides& st) {
+    if constexpr (!MULTI) mb = 0;
+    return Member<T>{gtt + mb * st.gtt, bt + mb * st.bt, gu + mb * st.gu,
+                     bu + mb * st.bu, usq + mb * st.usq, ydy + mb * st.ydy,
+                     mask == nullptr ? nullptr : mask + mb * st.mask,
+                     alpha + mb * st.alpha, alpha_prev + mb * st.alpha,
+                     scal + mb * st.scal};
+}
+
+// The member's epilogue (one thread): l_w, the advanced Nesterov scalar
+// a_fin, l_h_prev and the cost.
+template <typename T, bool MULTI>
+__device__ __forceinline__ void finish_member(T* __restrict__ scal, T cost,
+                                              T lw, T a_fin, T l_h,
+                                              int n_steps) {
+    scal[dm::kLW] = lw * scal[dm::kDmax2];
+    scal[dm::kAAlpha] = a_fin;
+    if (n_steps > 0) scal[dm::kLHPrev] = l_h;
+    dm::set_cost<MULTI>(scal, cost);
+}
+
+// The register form (p <= P <= 32): block (x, mb) runs columns
+// [x * cols, (x + 1) * cols) of member mb, one warp each; colsum (3, n_s)
+// per member receives each column's cost terms and tickets[mb] counts the
+// member's finished blocks (zero between launches).
+template <typename T, bool MULTI, int P>
+__global__ void __launch_bounds__(512)
+alpha_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
+                       const T* __restrict__ gu, const T* __restrict__ bu,
+                       const T* __restrict__ usq, const T* __restrict__ ydy,
+                       T* __restrict__ alpha, T* __restrict__ alpha_prev,
+                       T* __restrict__ scal, const T* __restrict__ mask,
+                       T* __restrict__ colsum, unsigned* __restrict__ tickets,
+                       int n_s, int n_ct, int n_u, int n_steps, int cols,
+                       int use_table, dm::MemberStrides st) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const long long mb = MULTI ? blockIdx.y : 0;
+    const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, usq, ydy,
+                                          alpha, alpha_prev, scal, mask, st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;     // uniform per member
+    }
+    T* cs = colsum + mb * 3 * n_s;
+    const int lane = threadIdx.x & 31;
+    const int s = blockIdx.x * cols + (threadIdx.x >> 5);
+    const int p = n_ct + n_u;
+    const bool row = lane < p;
+    const bool col = s < n_s;
+
+    const T a0 = m.scal[dm::kAAlpha];
+    const T l_h_prev0 = m.scal[dm::kLHPrev];
+    const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
+
+    T g[P], b = T(0), al = T(0), ap = T(0);
+    if (col) {
+        dm::load_gram_row(g, b, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s, n_ct,
+                          n_u);
+        if (row) {
+            al = m.alpha[lane * n_s + s];
+            ap = m.alpha_prev[lane * n_s + s];
+        }
+    }
+    T* tab = use_table ? reinterpret_cast<T*>(smem_raw) : nullptr;
+    if (use_table)                         // uniform over the block
+        dm::momentum_table(tab, a0, l_h_prev0, l_h, n_steps,
+                           static_cast<int>(threadIdx.x),
+                           static_cast<int>(blockDim.x),
+                           [] { __syncthreads(); });
+
+    if (col) {
+        const bool masked = m.mask != nullptr && row && !(m.mask[lane] > T(0));
+        dm::alpha_steps_reg(g, b, al, ap, masked, lane, p, tab, a0,
+                            l_h_prev0, l_h, n_steps);
+        T ba = T(0), ag = T(0), lw = T(0);
+        dm::add_column_sums(g, b, al, lane, p, n_u, ba, ag, lw);
+        if (row) {
+            m.alpha[lane * n_s + s] = al;
+            m.alpha_prev[lane * n_s + s] = ap;
+        }
+        if (lane == 0) {
+            cs[s] = ba;
+            cs[n_s + s] = ag;
+            cs[2 * n_s + s] = lw;
+        }
+    }
+    // the member's last block sums the columns in the fixed order
+    if (gridDim.x > 1) __threadfence();
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    if (gridDim.x > 1) {
+        if (atomicAdd(&tickets[mb], 1u) != gridDim.x - 1) return;
+        __threadfence();
+        tickets[mb] = 0;                   // zero for the next launch
+    }
+    const int groups = n_s < 32 ? n_s : 32;
+    T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
+    for (int k = 0; k < n_s; ++k) s_ydy += m.ydy[k];
+    for (int w = 0; w < groups; ++w) {
+        T g_ba = T(0), g_ag = T(0), g_lw = T(0);
+        for (int k = w; k < n_s; k += groups) {
+            g_ba += __ldcg(cs + k);
+            g_ag += __ldcg(cs + n_s + k);
+            g_lw += __ldcg(cs + 2 * n_s + k);
+        }
+        s_ba += g_ba;
+        s_ag += g_ag;
+        s_lw += g_lw;
+    }
+    T a_fin = a0;
+    if (use_table) {
+        a_fin = tab[n_steps];
+    } else {
+        for (int step = 0; step < n_steps; ++step) a_fin = dm::nesterov(a_fin);
+    }
+    finish_member<T, MULTI>(m.scal, s_ydy - s_ba - s_ag, s_lw, a_fin, l_h,
+                            n_steps);
+}
+
+// The wide form (p > 32): one block per member, each warp's column in its
+// slab of shared memory, warps looping over the columns; the cost summed
+// per warp, then over the warps in order (block_cost).
+template <typename T, bool MULTI>
+__global__ void alpha_phase_wide_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ usq, const T* __restrict__ ydy,
         T* __restrict__ alpha, T* __restrict__ alpha_prev,
         T* __restrict__ scal, const T* __restrict__ mask, int n_s, int n_ct,
         int n_u, int n_steps, dm::MemberStrides st) {
-    if constexpr (MULTI) {                     // block b: member b
-        const long long mb = blockIdx.x;
-        gtt += mb * st.gtt;
-        bt += mb * st.bt;
-        ydy += mb * st.ydy;
-        gu += mb * st.gu;
-        bu += mb * st.bu;
-        usq += mb * st.usq;
-        alpha += mb * st.alpha;
-        alpha_prev += mb * st.alpha;
-        scal += mb * st.scal;
-        if (mask != nullptr) mask += mb * st.mask;
-        if (scal[dm::kActive] == T(0)) return;        // uniform per block
+    const Member<T> m = member<T, MULTI>(blockIdx.x, gtt, bt, gu, bu, usq,
+                                          ydy, alpha, alpha_prev, scal, mask,
+                                          st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;     // uniform per block
     }
-
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
     const int p = n_ct + n_u;
-    const bool row = lane < p;
 
-    const T a0 = scal[dm::kAAlpha];
-    const T l_h_prev0 = scal[dm::kLHPrev];
-    const T dmax2 = scal[dm::kDmax2];
-    const T l_h = (scal[dm::kRtSq] + usq[0]) * dmax2;
+    const T a0 = m.scal[dm::kAAlpha];
+    const T l_h_prev0 = m.scal[dm::kLHPrev];
+    const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    if constexpr (WIDE) {
-        extern __shared__ __align__(16) unsigned char smem_raw[];
-        T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
-        T* sb = sg + p * p;
-        T* sal = sb + p;
-        T* sap = sal + p;
-        T* sat = sap + p;
-        T* sv = sat + p;
-        T* srt = sv + p;
-        for (int s = warp; s < n_s; s += n_warps) {
-            dm::load_gram_wide(sg, sb, gtt, bt, gu, bu, s, lane, n_s, n_ct,
-                               n_u);
-            for (int q = lane; q < p; q += 32) {
-                sal[q] = alpha[q * n_s + s];
-                sap[q] = alpha_prev[q * n_s + s];
-            }
-            __syncwarp();
-            dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane,
-                                 p, a0, l_h_prev0, l_h, n_steps);
-            dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba,
-                                     sum_ag, sum_lw);
-            for (int q = lane; q < p; q += 32) {
-                alpha[q * n_s + s] = sal[q];
-                alpha_prev[q * n_s + s] = sap[q];
-            }
-            __syncwarp();    // the slab is free for the next column
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
+    T* sb = sg + p * p;
+    T* sal = sb + p;
+    T* sap = sal + p;
+    T* sat = sap + p;
+    T* sv = sat + p;
+    T* srt = sv + p;
+    for (int s = warp; s < n_s; s += n_warps) {
+        dm::load_gram_wide(sg, sb, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s,
+                           n_ct, n_u);
+        for (int q = lane; q < p; q += 32) {
+            sal[q] = m.alpha[q * n_s + s];
+            sap[q] = m.alpha_prev[q * n_s + s];
         }
-    } else {
-        const bool masked = mask != nullptr && row && !(mask[lane] > T(0));
-        for (int s = warp; s < n_s; s += n_warps) {
-            T g[kMaxP], b;
-            dm::load_gram_row(g, b, gtt, bt, gu, bu, s, lane, n_s, n_ct,
-                              n_u);
-            T al = row ? alpha[lane * n_s + s] : T(0);
-            T ap = row ? alpha_prev[lane * n_s + s] : T(0);
-
-            dm::alpha_steps_reg(g, b, al, ap, masked, lane, p, a0,
-                                l_h_prev0, l_h, n_steps);
-
-            dm::add_column_sums(g, b, al, lane, p, n_u, sum_ba, sum_ag,
-                                sum_lw);
-            if (row) {
-                alpha[lane * n_s + s] = al;
-                alpha_prev[lane * n_s + s] = ap;
-            }
+        __syncwarp();
+        dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, m.mask, lane, p,
+                             a0, l_h_prev0, l_h, n_steps);
+        dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba, sum_ag,
+                                 sum_lw);
+        for (int q = lane; q < p; q += 32) {
+            m.alpha[q * n_s + s] = sal[q];
+            m.alpha_prev[q * n_s + s] = sap[q];
         }
+        __syncwarp();    // the slab is free for the next column
     }
     T cost, lw;
-    if (dm::block_cost(sum_ba, sum_ag, sum_lw, ydy, n_s, cost, lw)) {
+    if (dm::block_cost(sum_ba, sum_ag, sum_lw, m.ydy, n_s, cost, lw)) {
         T a = a0;
         for (int step = 0; step < n_steps; ++step) a = dm::nesterov(a);
-        scal[dm::kLW] = lw * dmax2;
-        scal[dm::kAAlpha] = a;
-        if (n_steps > 0) scal[dm::kLHPrev] = l_h;
-        dm::set_cost<MULTI>(scal, cost);
+        finish_member<T, MULTI>(m.scal, cost, lw, a, l_h, n_steps);
     }
 }
 
-template <typename T, bool MULTI, bool WIDE>
-int launch_form(const void* gtt, const void* bt, const void* gu,
+template <typename T, bool MULTI, int P>
+int launch_reg(const void* gtt, const void* bt, const void* gu,
+               const void* bu, const void* usq, const void* ydy, void* alpha,
+               void* alpha_prev, void* scal, const void* mask, void* colsum,
+               void* tickets, int n_s, int n_ct, int n_u, int n_steps,
+               int cols, int n_members, dm::MemberStrides st,
+               cudaStream_t stream) {
+    auto kern = alpha_phase_reg_kernel<T, MULTI, P>;
+    static const int max_warps = dm::max_block_warps(kern);
+    if (cols < 1 || cols > max_warps)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
+    const int use_table = tab <= kTabSmem;
+    const dim3 grid((n_s + cols - 1) / cols, MULTI ? n_members : 1);
+    kern<<<grid, 32 * cols, use_table ? tab : 0, stream>>>(
+        static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(usq), static_cast<const T*>(ydy),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask),
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
+        n_u, n_steps, cols, use_table, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool MULTI>
+int launch_wide(const void* gtt, const void* bt, const void* gu,
                 const void* bu, const void* usq, const void* ydy,
                 void* alpha, void* alpha_prev, void* scal, const void* mask,
                 int n_s, int n_ct, int n_u, int n_steps, int n_members,
                 dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = alpha_phase_full_kernel<T, MULTI, WIDE>;
+    auto kern = alpha_phase_wide_kernel<T, MULTI>;
     const int p = n_ct + n_u;
     static const int max_warps = dm::max_block_warps(kern);
     int n_warps = n_s < 32 ? n_s : 32;
     n_warps = n_warps < max_warps ? n_warps : max_warps;
-    size_t smem = 0;
-    if constexpr (WIDE) {
-        const int fit = dm::glue_warps(sizeof(T), p, n_s);
-        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-        n_warps = fit < n_warps ? fit : n_warps;
-        smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
-        if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
+    const int fit = dm::glue_warps(sizeof(T), p, n_s);
+    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    n_warps = fit < n_warps ? fit : n_warps;
+    const size_t smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
     }
     kern<<<n_members, 32 * n_warps, smem, stream>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
@@ -201,19 +346,33 @@ int launch_form(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
+// p > 32: the wide form; else the register form at row bucket `bucket`
+// (8, 16 or 32, >= p) with `cols` columns a block
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* usq, const void* ydy, void* alpha, void* alpha_prev,
-           void* scal, const void* mask, int n_s, int n_ct, int n_u,
-           int n_steps, int n_members, dm::MemberStrides st, void* stream) {
+           void* scal, const void* mask, void* colsum, void* tickets,
+           int n_s, int n_ct, int n_u, int n_steps, int bucket, int cols,
+           int n_members, dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n_ct + n_u > kMaxP)
-        return launch_form<T, MULTI, true>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                           alpha_prev, scal, mask, n_s, n_ct,
-                                           n_u, n_steps, n_members, st, s);
-    return launch_form<T, MULTI, false>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                        alpha_prev, scal, mask, n_s, n_ct,
-                                        n_u, n_steps, n_members, st, s);
+    const int p = n_ct + n_u;
+    if (p > kMaxP)
+        return launch_wide<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                     alpha_prev, scal, mask, n_s, n_ct, n_u,
+                                     n_steps, n_members, st, s);
+    if (p > bucket || colsum == nullptr || tickets == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K2_BUCKET(P)                                                      \
+    if (bucket == P)                                                         \
+        return launch_reg<T, MULTI, P>(gtt, bt, gu, bu, usq, ydy, alpha,     \
+                                       alpha_prev, scal, mask, colsum,       \
+                                       tickets, n_s, n_ct, n_u, n_steps,     \
+                                       cols, n_members, st, s);
+    DM_K2_BUCKET(8)
+    DM_K2_BUCKET(16)
+    DM_K2_BUCKET(32)
+#undef DM_K2_BUCKET
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -221,31 +380,28 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 extern "C" {
 
 // mask: the (p,) row mask (rows <= 0 pushed to -1e30 before each
-// projection) or NULL
-int dm_alpha_phase_full_f32(const void* gtt, const void* bt, const void* gu,
-                            const void* bu, const void* usq, const void* ydy,
-                            void* alpha, void* alpha_prev, void* scal,
-                            const void* mask, int n_s, int n_ct, int n_u,
-                            int n_steps, void* stream) {
-    return launch<float, false>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                alpha_prev, scal, mask, n_s, n_ct, n_u,
-                                n_steps, 1, dm::MemberStrides{}, stream);
-}
-
-int dm_alpha_phase_full_f64(const void* gtt, const void* bt, const void* gu,
-                            const void* bu, const void* usq, const void* ydy,
-                            void* alpha, void* alpha_prev, void* scal,
-                            const void* mask, int n_s, int n_ct, int n_u,
-                            int n_steps, void* stream) {
-    return launch<double, false>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                 alpha_prev, scal, mask, n_s, n_ct, n_u,
-                                 n_steps, 1, dm::MemberStrides{}, stream);
-}
+// projection) or NULL; colsum (3, n_s) and tickets (1, zero) the register
+// form's per-column cost terms and finished-block count (unread above
+// p = 32); bucket and cols the register form's plan
+// (ops/cuda_small.alpha_plan)
+#define DM_K2_ENTRY(NAME, T)                                                 \
+    int NAME(const void* gtt, const void* bt, const void* gu,                \
+             const void* bu, const void* usq, const void* ydy, void* alpha,  \
+             void* alpha_prev, void* scal, const void* mask, void* colsum,   \
+             void* tickets, int n_s, int n_ct, int n_u, int n_steps,         \
+             int bucket, int cols, void* stream) {                           \
+        return launch<T, false>(gtt, bt, gu, bu, usq, ydy, alpha,            \
+                                alpha_prev, scal, mask, colsum, tickets,     \
+                                n_s, n_ct, n_u, n_steps, bucket, cols, 1,    \
+                                dm::MemberStrides{}, stream);                \
+    }
+DM_K2_ENTRY(dm_alpha_phase_full_f32, float)
+DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 
 // K5: B members, member b's operands at b times the given element strides
 // (gtt, bt, ydy: 0 when the members share them); scal_stride is the
 // scalar row length; mask: the members' (B, p) row masks (row stride
-// mask_stride) or NULL.
+// mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's.
 #define DM_K5_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
@@ -253,14 +409,16 @@ int dm_alpha_phase_full_f64(const void* gtt, const void* bt, const void* gu,
              long long usq_stride, const void* ydy, long long ydy_stride,    \
              void* alpha, void* alpha_prev, long long alpha_stride,          \
              void* scal, long long scal_stride, const void* mask,            \
-             long long mask_stride, int n_s, int n_ct, int n_u, int n_steps, \
+             long long mask_stride, void* colsum, void* tickets, int n_s,    \
+             int n_ct, int n_u, int n_steps, int bucket, int cols,           \
              int n_members, void* stream) {                                  \
         const dm::MemberStrides st{gtt_stride,   bt_stride,  ydy_stride,     \
                                    gu_stride,    bu_stride,  usq_stride,     \
                                    alpha_stride, scal_stride, mask_stride};  \
         return launch<T, true>(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, \
-                               scal, mask, n_s, n_ct, n_u, n_steps,          \
-                               n_members, st, stream);                       \
+                               scal, mask, colsum, tickets, n_s, n_ct, n_u,  \
+                               n_steps, bucket, cols, n_members, st,         \
+                               stream);                                      \
     }
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f32, float)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f64, double)

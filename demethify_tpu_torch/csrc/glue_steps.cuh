@@ -16,6 +16,20 @@
 // the column lives in the warp's slab of shared memory and lane q takes
 // rows q, q + 32, ... (the wide form), with the register form's
 // arithmetic in the same order.
+//
+// What bounds the register form on an H100: latency. A step is a chain of
+// warp collectives (the product's shuffles, the rank's shuffles, a ballot
+// and a shuffle per rank of the cumulative sum, the threshold's ballot)
+// and divisions. The alpha loop is templated on a row bucket P (8, 16 or
+// 32, the smallest >= p, chosen by the wrapper), so each collective loop
+// runs to P lanes, not 32; where the registers allow (P <= 16, or float32)
+// the ranks' values are gathered by P independent ballots and shuffles
+// before the cumulative sum, so they overlap; and its betas can come from
+// a momentum table the kernel builds once (small_common.cuh), one
+// shared-memory read a step. None of this changes an operation on a
+// value: the product sums rows in index order, the rank is stable by
+// comparison, the cumulative sum runs in rank order and rho is the last
+// index, so the bits are those of a 32-lane loop.
 
 #pragma once
 
@@ -32,26 +46,49 @@ namespace dm {
 // onto the probability simplex, inside one warp: a stable descending rank
 // by comparison, the cumulative sum taken in sorted order (ballot finds
 // the lane of each rank), and rho as the LAST lane whose condition holds
-// (highest bit of a ballot) -- the reference's last-index rho.
-template <typename T>
+// (highest bit of a ballot) -- the reference's last-index rho. The rank
+// reads the P lanes of the row bucket (P >= p).
+template <typename T, int P = kMaxP>
 __device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
     const bool row = lane < p;
     int rank = 0;
 #pragma unroll
-    for (int r = 0; r < kMaxP; ++r) {
+    for (int r = 0; r < P; ++r) {
         const T vr = __shfl_sync(kFull, v, r);
         if (r < p && row) rank += (vr > v) || (vr == v && r < lane);
     }
     T csum = T(0), my_u = T(0), my_pi = T(0);
+    if constexpr (P <= 16 || sizeof(T) == 4) {
+        // the value of each rank: P ballots and shuffles, independent of
+        // each other, then the sum in rank order over the p ranks (a rank
+        // >= p has no lane; its shuffle is read by none)
+        T u_rank[P];
 #pragma unroll
-    for (int j = 0; j < kMaxP; ++j) {
-        if (j < p) {                         // uniform across the warp
+        for (int j = 0; j < P; ++j) {
             const unsigned who = __ballot_sync(kFull, row && rank == j);
-            const T uj = __shfl_sync(kFull, v, __ffs(who) - 1);
-            csum += uj;
-            if (lane == j) {
-                my_u = uj;
-                my_pi = csum - T(1);
+            u_rank[j] = __shfl_sync(kFull, v, __ffs(who) - 1);
+        }
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            if (j < p) {                     // uniform across the warp
+                csum += u_rank[j];
+                if (lane == j) {
+                    my_u = u_rank[j];
+                    my_pi = csum - T(1);
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            if (j < p) {                     // uniform across the warp
+                const unsigned who = __ballot_sync(kFull, row && rank == j);
+                const T uj = __shfl_sync(kFull, v, __ffs(who) - 1);
+                csum += uj;
+                if (lane == j) {
+                    my_u = uj;
+                    my_pi = csum - T(1);
+                }
             }
         }
     }
@@ -64,28 +101,35 @@ __device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
 }
 
 // n_steps alpha FISTA steps on one column in the register form: lane q
-// holds row q of G_s (g) and b_s (b), and al, ap (alpha, alpha_prev) are
-// updated in place; ``masked`` sets this lane's row to -1e30 before each
-// projection. The momentum scalars start at (a0, l_prev0) in every lane.
-template <typename T>
+// holds row q of G_s (g, the P entries of the row bucket) and b_s (b),
+// and al, ap (alpha, alpha_prev) are updated in place; ``masked`` sets
+// this lane's row to -1e30 before each projection. beta_tab is the
+// steps' momentum table (momentum_table from (a0, l_prev0, l_h)), or null:
+// then every lane replays the chain from (a0, l_prev0), the same values.
+template <typename T, int P>
 __device__ __forceinline__ void alpha_steps_reg(
-        const T (&g)[kMaxP], T b, T& al, T& ap, bool masked, int lane,
-        int p, T a0, T l_prev0, const T l_h, int n_steps) {
+        const T (&g)[P], T b, T& al, T& ap, bool masked, int lane, int p,
+        const T* __restrict__ beta_tab, T a0, T l_prev0, const T l_h,
+        int n_steps) {
     const bool row = lane < p;
     T a = a0, l_prev = l_prev0;
     for (int step = 0; step < n_steps; ++step) {
-        const T a2n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a2n,
-                               T(0.9999) * sqrt_t(l_prev / l_h));
+        T beta;
+        if (beta_tab != nullptr) {
+            beta = beta_tab[step];
+        } else {
+            const T a2n = nesterov(a);
+            beta = min_nan((a - T(1)) / a2n, T(0.9999) * sqrt_t(l_prev / l_h));
+            a = a2n;
+            l_prev = l_h;
+        }
         const T at = al + beta * (al - ap);
         const T ga = gram_matvec(g, at, p);
         T v = at + (b - ga) / l_h;
         if (masked) v = T(-1e30);
-        const T proj = project_simplex_warp(v, lane, p);
+        const T proj = project_simplex_warp<T, P>(v, lane, p);
         ap = al;
         al = row ? proj : T(0);
-        a = a2n;
-        l_prev = l_h;
     }
 }
 

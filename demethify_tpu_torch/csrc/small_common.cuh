@@ -115,21 +115,59 @@ __device__ __forceinline__ T min_nan(T x, T y) {
     return (x < y || x != x) ? x : y;
 }
 
+// The momentum table of an n_steps FISTA loop, built by n_threads
+// threads (thread ids tid) that share `tab` (n_steps + 1 values) and the
+// barrier sync(): tab[k] becomes step k's beta = min((a_k - 1) / a_{k+1},
+// 0.9999 sqrt(l_prev_k / l)), with a_0 = a, l_prev_0 = l_prev and
+// l_prev_k = l from step 1 on, and tab[n_steps] the advanced Nesterov
+// scalar a_{n_steps} -- the arithmetic every thread of a step loop used
+// to replay, in the same order, so the same bits (NaN and l = 0
+// included). Only the Nesterov recursion is serial: thread 0 runs it
+// into tab, then the threads form the betas side by side.
+template <typename T, class Sync>
+__device__ __forceinline__ void momentum_table(T* __restrict__ tab, T a,
+                                               const T l_prev, const T l,
+                                               int n_steps, int tid,
+                                               int n_threads, Sync sync) {
+    if (tid == 0) {
+        tab[0] = a;
+        for (int k = 0; k < n_steps; ++k) {
+            a = nesterov(a);
+            tab[k + 1] = a;
+        }
+    }
+    sync();
+    for (int k0 = 0; k0 < n_steps; k0 += n_threads) {
+        const int k = k0 + tid;
+        T ak = T(0), ak1 = T(1);
+        if (k < n_steps) {
+            ak = tab[k];
+            ak1 = tab[k + 1];
+        }
+        sync();
+        if (k < n_steps)
+            tab[k] = min_nan((ak - T(1)) / ak1,
+                             T(0.9999) * sqrt_t((k == 0 ? l_prev : l) / l));
+        sync();
+    }
+}
+
 // Row `lane` of the per-sample Gram G_s and of b_s, assembled from the
 // loop-invariant known blocks and K1's new-u blocks (as _assemble_G_b):
 //   G[s][c][c'] = gtt[s,c,c'],  G[s][c][n_ct+u] = gu[s,u,c],
 //   G[s][n_ct+u][q] = gu[s,u,q],  b = [bt; bu].
-// With n_ct = 0 gtt and bt are not read. Lanes >= p get zeros.
-template <typename T>
+// With n_ct = 0 gtt and bt are not read. Lanes >= p get zeros. P >= p is
+// the register form's row bucket (the register arrays' length).
+template <typename T, int P>
 __device__ __forceinline__ void load_gram_row(
-        T (&g)[kMaxP], T& b, const T* __restrict__ gtt,
+        T (&g)[P], T& b, const T* __restrict__ gtt,
         const T* __restrict__ bt, const T* __restrict__ gu,
         const T* __restrict__ bu, int s, int lane, int n_s, int n_ct,
         int n_u) {
     const int p = n_ct + n_u;
     const bool row = lane < p;
 #pragma unroll
-    for (int r = 0; r < kMaxP; ++r) {
+    for (int r = 0; r < P; ++r) {
         T x = T(0);
         if (row && r < p) {
             if (lane >= n_ct)
@@ -145,12 +183,13 @@ __device__ __forceinline__ void load_gram_row(
             : T(0);
 }
 
-// (G_s a)_lane, with a_r read from lane r by shuffle
-template <typename T>
-__device__ __forceinline__ T gram_matvec(const T (&g)[kMaxP], T a, int p) {
+// (G_s a)_lane, with a_r read from lane r by shuffle: P shuffles, the
+// terms r < p summed in index order whatever P is
+template <typename T, int P>
+__device__ __forceinline__ T gram_matvec(const T (&g)[P], T a, int p) {
     T ga = T(0);
 #pragma unroll
-    for (int r = 0; r < kMaxP; ++r) {
+    for (int r = 0; r < P; ++r) {
         const T ar = __shfl_sync(kFull, a, r);
         if (r < p) ga += g[r] * ar;
     }
@@ -158,10 +197,13 @@ __device__ __forceinline__ T gram_matvec(const T (&g)[kMaxP], T a, int p) {
 }
 
 // Adds one column's terms of the Gram-identity cost, b.a and a.(b - G a),
-// and of ||alpha_unknown||^2 to the warp's running sums (valid in lane 0).
-template <typename T>
+// and of ||alpha_unknown||^2 to the warp's running sums (valid in lane 0),
+// by a shuffle tree over the 32 lanes. Lanes >= p hold +0, so a level
+// whose partner lanes are all >= P adds +0 without a shuffle: the same
+// bits as the 32-lane tree (x + 0 is x, or +0 for -0, either way).
+template <typename T, int P>
 __device__ __forceinline__ void add_column_sums(
-        const T (&g)[kMaxP], T b, T al, int lane, int p, int n_u,
+        const T (&g)[P], T b, T al, int lane, int p, int n_u,
         T& sum_ba, T& sum_ag, T& sum_lw) {
     const bool row = lane < p;
     const T ga = gram_matvec(g, al, p);
@@ -170,9 +212,15 @@ __device__ __forceinline__ void add_column_sums(
     T lw = (row && lane >= p - n_u) ? al * al : T(0);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-        ba += __shfl_down_sync(kFull, ba, off);
-        ag += __shfl_down_sync(kFull, ag, off);
-        lw += __shfl_down_sync(kFull, lw, off);
+        if (off >= P) {
+            ba += T(0);
+            ag += T(0);
+            lw += T(0);
+        } else {
+            ba += __shfl_down_sync(kFull, ba, off);
+            ag += __shfl_down_sync(kFull, ag, off);
+            lw += __shfl_down_sync(kFull, lw, off);
+        }
     }
     sum_ba += ba;
     sum_ag += ag;

@@ -36,13 +36,16 @@
 // layout. With no Gram stage nothing reuses staged Y and D, so K1's
 // resident layout (Y, D and the alpha block staged too) bought nothing
 // here: timed forced against this one on an H100 it was as fast or
-// slower at every shape (PERF.md, K7), and it was removed. The JAX
-// wrapper replays the momentum scalars on the host after the call
-// (pallas_kernels.py:196-204); here thread 0 of block 0 replays them into
-// the scalar vector's output slots (small_common.cuh: kPhAOut,
-// kPhLPrevOut), so the host reads nothing. u and u_prev are read from
-// their inputs and written to separate outputs, so the inputs stay as
-// they were.
+// slower at every shape (PERF.md, K7), and it was removed. The momentum
+// scalars, the same in every thread, come from K1's prologue
+// (momentum_table_kernel, u_phase_common.cuh) on the single-phase slots:
+// one thread writes the steps' betas into a small table that every thread
+// reads one step ahead, and the advanced Nesterov scalar and previous
+// Lipschitz constant into the scalar vector's output slots (kPhAOut,
+// kPhLPrevOut), as the JAX wrapper replays them on the host after the
+// call (pallas_kernels.py:196-204), so the host reads nothing. u and
+// u_prev are read from their inputs and written to separate outputs, so
+// the inputs stay as they were.
 //
 // bf16 storage (TD = __nv_bfloat16, T = float): each data value is
 // converted once as it is read, and the float32 arithmetic follows, as
@@ -72,8 +75,9 @@ u_phase_kernel(const TD* __restrict__ yt, const TD* __restrict__ dt,
                const TD* __restrict__ rtt, const T* __restrict__ a1,
                const T* __restrict__ a2, const T* __restrict__ u_in,
                const T* __restrict__ up_in, T* __restrict__ u_out,
-               T* __restrict__ up_out, T* __restrict__ scal,
-               T* __restrict__ scratch, int64_t n, int n_s, int n_ct,
+               T* __restrict__ up_out, const T* __restrict__ scal,
+               const T* __restrict__ tab, T* __restrict__ scratch,
+               int64_t n, int n_s, int n_ct,
                int n_u, int n_steps, int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s_r = reinterpret_cast<T*>(smem_raw);    // n_ct rows: Rt
@@ -82,26 +86,22 @@ u_phase_kernel(const TD* __restrict__ yt, const TD* __restrict__ dt,
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
     const bool live = i < n;
     dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    dm::stage_wait();
     __syncthreads();
-    // the output slots are written once; every thread reads only the
-    // input slots
-    if (blockIdx.x == 0 && tid == 0) dm::phase_scalars_out(scal, n_steps);
     if (!live) return;
 
-    const T a = scal[dm::kPhA];
     const T l_w = scal[dm::kPhL];
-    const T l_prev = scal[dm::kPhLPrev];
     auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
                    auto& t2) {
         dm::build_cm<T, NU, dm::kResidFirst>(cc, m, t1, n_u, yt + i, dt + i,
                                              n, s_r + tid, a1, a2, n_s,
                                              n_ct);
         if (lagged)
-            dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, a, l_prev,
-                                        l_w, n_steps);
+            dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, tab, l_w,
+                                        n_steps);
         else
-            dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, a,
-                                         l_prev, l_w, n_steps);
+            dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, tab, l_w,
+                                         n_steps);
     };
     if constexpr (NU > 0) {
         RegVec<T, NU> u, up, cc, t1, t2;
@@ -144,9 +144,13 @@ size_t smem_bytes(size_t itemsize, int n_ct) {
 template <typename T, typename TD, int NU>
 int launch(const void* yt, const void* dt, const void* rtt, const void* a1b,
            const void* a2b, const void* u_in, const void* up_in, void* u_out,
-           void* up_out, void* scal, void* scratch, int64_t n, int n_s,
-           int n_ct, int n_u, int n_steps, int lagged, cudaStream_t stream) {
+           void* up_out, void* scal, void* tab, void* scratch, int64_t n,
+           int n_s, int n_ct, int n_u, int n_steps, int lagged,
+           cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
+    int err0 = dm::launch_momentum_table<T, true>(
+        static_cast<T*>(scal), 0, 1, static_cast<T*>(tab), n_steps, stream);
+    if (err0 != 0) return err0;
     const size_t smem = smem_bytes(sizeof(T), n_ct);
     auto kern = u_phase_kernel<T, TD, NU>;
     if (smem > 48 * 1024) {
@@ -160,8 +164,9 @@ int launch(const void* yt, const void* dt, const void* rtt, const void* a1b,
         static_cast<const TD*>(rtt), static_cast<const T*>(a1b),
         static_cast<const T*>(a2b), static_cast<const T*>(u_in),
         static_cast<const T*>(up_in), static_cast<T*>(u_out),
-        static_cast<T*>(up_out), static_cast<T*>(scal),
-        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, lagged);
+        static_cast<T*>(up_out), static_cast<const T*>(scal),
+        static_cast<const T*>(tab), static_cast<T*>(scratch), n, n_s, n_ct,
+        n_u, n_steps, lagged);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,15 +174,15 @@ template <typename T, typename TD>
 int dispatch(const void* yt, const void* dt, const void* rtt,
              const void* a1b, const void* a2b, const void* u_in,
              const void* up_in, void* u_out, void* up_out, void* scal,
-             void* scratch, int64_t n, int n_s, int n_ct, int n_u,
+             void* tab, void* scratch, int64_t n, int n_s, int n_ct, int n_u,
              int n_steps, int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DM_K7_CASE(NU)                                                       \
     case NU:                                                                 \
         return launch<T, TD, NU>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,  \
-                                 up_out, scal, scratch, n, n_s, n_ct, n_u,   \
-                                 n_steps, lagged, st);
+                                 up_out, scal, tab, scratch, n, n_s, n_ct,   \
+                                 n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K7_CASE(1) DM_K7_CASE(2) DM_K7_CASE(3) DM_K7_CASE(4)
         DM_K7_CASE(5) DM_K7_CASE(6) DM_K7_CASE(7) DM_K7_CASE(8)
@@ -185,8 +190,8 @@ int dispatch(const void* yt, const void* dt, const void* rtt,
             if (n_u < 1 || scratch == nullptr)
                 return static_cast<int>(cudaErrorInvalidValue);
             return launch<T, TD, 0>(yt, dt, rtt, a1b, a2b, u_in, up_in,
-                                    u_out, up_out, scal, scratch, n, n_s,
-                                    n_ct, n_u, n_steps, lagged, st);
+                                    u_out, up_out, scal, tab, scratch, n,
+                                    n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K7_CASE
 }
@@ -197,17 +202,18 @@ int dispatch(const void* yt, const void* dt, const void* rtt,
 //   dm_u_phase_smem(itemsize, n_ct): the kernel's shared memory in bytes
 //     (itemsize is the state's), which the wrapper's plan matches;
 //   dm_u_phase_{f32,f64,bf16}(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,
-//     up_out, scal, scratch, n, n_s, n_ct, n_u, n_steps, lagged, stream):
-//     bf16 is bf16 data with a float32 state.
+//     up_out, scal, tab, scratch, n, n_s, n_ct, n_u, n_steps, lagged,
+//     stream): tab is room for the momentum table (n_steps + 1 values of
+//     the state type); bf16 is bf16 data with a float32 state.
 #define DM_K7_ENTRY(NAME, T, TD)                                             \
     int NAME(const void* yt, const void* dt, const void* rtt,                \
              const void* a1b, const void* a2b, const void* u_in,             \
              const void* up_in, void* u_out, void* up_out, void* scal,       \
-             void* scratch, long long n, int n_s, int n_ct, int n_u,         \
-             int n_steps, int lagged, void* stream) {                        \
+             void* tab, void* scratch, long long n, int n_s, int n_ct,       \
+             int n_u, int n_steps, int lagged, void* stream) {               \
         return dispatch<T, TD>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,    \
-                               up_out, scal, scratch, n, n_s, n_ct, n_u,     \
-                               n_steps, lagged, stream);                     \
+                               up_out, scal, tab, scratch, n, n_s, n_ct,     \
+                               n_u, n_steps, lagged, stream);                \
     }
 extern "C" {
 long long dm_u_phase_smem(int itemsize, int n_ct) {

@@ -20,6 +20,41 @@
 //     order and every Gram entry its per-site order, so at a shape that
 //     both layouts take they give the same bits.
 //
+// What the pieces here do about what bounds the kernels (each keeps
+// every rounding, so the kernels' outputs do not depend on them):
+//
+//   - the momentum scalars of the n_steps FISTA steps are the same in
+//     every thread (a nesterov step, two IEEE divisions and two square
+//     roots a step, most of a step's instructions at n_u = 1), so they
+//     are computed once per launch: a prologue (momentum_table_kernel,
+//     one warp per member, launched just before the main pass into a
+//     buffer the wrapper allocates; no shared memory, so the layout rule
+//     does not move) writes the table of the steps' betas with the same
+//     arithmetic on the same inputs, and every thread reads beta_k from
+//     it one step ahead. The reduction pass takes the advanced Nesterov
+//     scalar from the table's last slot;
+//   - the Gram stage (gram_partials) at wide shapes would read three
+//     shared values per product with one thread per entry (~139k
+//     warp-level loads per block at 1M x 100, 25 + 4). Above kSites
+//     entries per block it deals register micro-tiles of RS samples x RV
+//     unknowns x kTileQ rows of [Rt | u] (gram_plan): the left factor
+//     d_s u_v is formed once per site and reused across the tile's rows,
+//     about half a shared load per product, and each entry is still
+//     summed over the block's sites in site order from 0. At or below
+//     kSites entries (the main shape's 71) every thread keeps one entry:
+//     tiles there were measured slower (a tile's 16 products a site are
+//     one thread's serial work while most threads wait);
+//   - staging copies the block's site columns with cp.async (TD = T), so
+//     all a thread's rows are in flight at once and nothing passes
+//     through registers (measured ~11% off K1 at the main and the cohort
+//     shape); bf16 data is converted as it is staged, through registers.
+//
+// Tensor cores are not used for the Gram stage: plain TF32 keeps 10
+// mantissa bits, which the float32 Gram tolerance (5e-5 of the largest
+// entry) rules out, and 3xTF32 or DMMA in float64 would sum each entry in
+// another order, so the kernels' outputs would no longer equal those of
+// the CUDA-core stage bit for bit (the check that holds them today).
+//
 // State: n_u = 1..8 is a template parameter and the per-site state (u,
 // u_prev, C, the n_u(n_u+1)/2 curvature terms, the step temporaries)
 // lives in registers (RegVec). Above 8 one form with NU = 0 takes n_u at
@@ -48,6 +83,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "small_common.cuh"
 
@@ -122,14 +159,36 @@ __device__ __forceinline__ float bf16r(float x) {
 
 // Stages rows [r0, r1) of this thread's site column of src (row stride n)
 // into dst (row r at dst[(r - r0) * kLd + tid]), converted to T; the
-// ragged tail is zero.
+// ragged tail is zero. With TD = T the rows are copied by cp.async (4 or
+// 8 bytes each, zero-filled past the last site), all in flight at once;
+// stage_wait() must come before the __syncthreads that publishes them.
+// bf16 data is converted through registers.
 template <typename T, typename TD>
 __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
                                            const TD* __restrict__ src,
                                            int r0, int r1, int64_t i,
                                            bool live, int64_t n, int tid) {
-    for (int r = r0; r < r1; ++r)
-        dst[(r - r0) * kLd + tid] = live ? to_state(src[r * n + i]) : T(0);
+    if constexpr (std::is_same<T, TD>::value) {
+        const int bytes = live ? static_cast<int>(sizeof(T)) : 0;
+        for (int r = r0; r < r1; ++r) {
+            const unsigned sa = static_cast<unsigned>(
+                __cvta_generic_to_shared(dst + (r - r0) * kLd + tid));
+            const T* g = live ? src + r * n + i : src;
+            asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                         :: "r"(sa), "l"(g), "n"(sizeof(T)), "r"(bytes)
+                         : "memory");
+        }
+    } else {
+        for (int r = r0; r < r1; ++r)
+            dst[(r - r0) * kLd + tid] = live ? to_state(src[r * n + i])
+                                             : T(0);
+    }
+}
+
+// Waits for this thread's cp.async copies (a no-op when there are none)
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The known-block residual of sample s at this thread's site, given its
@@ -208,16 +267,18 @@ __device__ __forceinline__ void build_cm(
 
 // The n_steps FISTA loop of the gram form; LAG takes each step's gradient
 // at the old u (an instantiation each, so the step loop carries no
-// per-step test). ut, un are step temporaries.
+// per-step test). beta is the launch's momentum table (n_steps + 1
+// values, momentum_table_kernel), read one step ahead; ut, un are step
+// temporaries.
 template <typename T, int NU, bool LAG, class VU, class VC, class VM>
 __device__ __forceinline__ void gram_steps(
         VU& u, VU& up, const VC& cc, const VM& m, VC& ut, VC& un, int n_u,
-        T a, T l_prev, const T l_w, int n_steps) {
+        const T* __restrict__ beta_tab, const T l_w, int n_steps) {
     const int nu = NU > 0 ? NU : n_u;
+    T beta_next = beta_tab[0];
     for (int step = 0; step < n_steps; ++step) {
-        const T a1n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a1n,
-                               T(0.9999) * sqrt_t(l_prev / l_w));
+        const T beta = beta_next;
+        beta_next = beta_tab[step + 1];
 #pragma unroll
         for (int v = 0; v < nu; ++v) ut[v] = u[v] + beta * (u[v] - up[v]);
 #pragma unroll
@@ -233,21 +294,186 @@ __device__ __forceinline__ void gram_steps(
             up[v] = u[v];
             u[v] = un[v];
         }
-        a = a1n;
-        l_prev = l_w;
     }
+}
+
+// The Gram stage's plan for one block (or one chunk of samples) of n_c
+// samples: at most kSites entries [gu | b_u | usq] get a thread each
+// (the "entry" form); above, gu is dealt in micro-tiles of RS samples x
+// RV unknowns x kTileQ rows of [Rt | u] and b_u and usq keep a thread
+// each (the "tile" form). RV is 1 at n_u = 1 (tiles of 4 samples), 2
+// otherwise (2 samples x 2 unknowns), so every tile forms 4 left factors
+// and reuses each across kTileQ = 4 rows. ops/cuda_kernels.gram_tile_plan
+// is the same plan; dm_gram_tile_plan exports it for chip_smoke.py.
+constexpr int kTileQ = 4;
+
+__host__ __device__ __forceinline__ constexpr int tile_rv(int n_u) {
+    return n_u == 1 ? 1 : 2;
+}
+
+struct GramPlan {
+    int tiled, rs, rv, ts, tv, tq, n_tiles, n_items;
+};
+
+__host__ __device__ __forceinline__ GramPlan gram_plan(int n_c, int n_u,
+                                                       int p, bool usq) {
+    GramPlan g{};
+    const int n_local = n_c * n_u * p + n_u * n_c + (usq ? 1 : 0);
+    g.rv = tile_rv(n_u);
+    g.rs = 4 / g.rv;
+    g.tiled = n_local > kSites;
+    if (!g.tiled) {
+        g.n_items = n_local;
+        return g;
+    }
+    g.ts = (n_c + g.rs - 1) / g.rs;
+    g.tv = (n_u + g.rv - 1) / g.rv;
+    g.tq = (p + kTileQ - 1) / kTileQ;
+    g.n_tiles = g.ts * g.tv * g.tq;
+    g.n_items = g.n_tiles + n_u * n_c + (usq ? 1 : 0);
+    return g;
+}
+
+// One Gram entry of this block, l in [0, n_local) of the local order
+// [gu (n_c, n_u, p) | b_u (n_u, n_c) | usq] (see gram_partials), summed
+// over the block's sites in site order and written to out[e * n_blocks].
+template <typename T, int NU, bool W, int RND>
+__device__ __forceinline__ void gram_entry(
+        int l, const T* __restrict__ s_y, const T* __restrict__ s_d,
+        const T* __restrict__ s_r, int n_s, int c0, int n_c, int n_ct,
+        int nu, T* __restrict__ out, int n_blocks,
+        const T* __restrict__ s_x) {
+    if constexpr (NU > 0) nu = NU;
+    const int p = n_ct + nu;
+    const int l_gu = n_c * nu * p;
+    const int l_bu = nu * n_c;
+    const int e_gu = n_s * nu * p;
+    const bool left_x = W || RND == kRoundAll;   // usq's left u in s_x
+    T acc = T(0);
+    int e;
+    if (l < l_gu) {
+        const int s = l / (nu * p);
+        const int v = (l / p) % nu;
+        const int q = l % p;
+        e = c0 * nu * p + l;
+        const T* ds = s_d + s * kLd;
+        const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+        const T* rq = s_r + q * kLd;
+        if constexpr (RND == kRoundAll) {
+            for (int j = 0; j < kSites; ++j)
+                acc += bf16r(ds[j] * uv[j]) * rq[j];
+        } else {
+            for (int j = 0; j < kSites; ++j)
+                acc += (ds[j] * uv[j]) * rq[j];
+        }
+    } else if (l < l_gu + l_bu) {
+        const int v = (l - l_gu) / n_c;
+        const int s = (l - l_gu) % n_c;
+        e = e_gu + v * n_s + c0 + s;
+        const T* ds = s_d + s * kLd;
+        const T* ys = s_y + s * kLd;
+        const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+        if constexpr (RND != kRoundNone) {
+            for (int j = 0; j < kSites; ++j)
+                acc += uv[j] * bf16r(ds[j] * ys[j]);
+        } else {
+            for (int j = 0; j < kSites; ++j)
+                acc += uv[j] * (ds[j] * ys[j]);
+        }
+    } else {
+        e = e_gu + nu * n_s;
+        const int nuc = NU > 0 ? NU : nu;
+        for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+            for (int v = 0; v < nuc; ++v) {
+                if constexpr (RND == kRoundAll) {
+                    const T x = s_x[v * kLd + j];
+                    acc += x * x;
+                } else {
+                    const T x = s_r[(n_ct + v) * kLd + j];
+                    acc += (left_x ? s_x[v * kLd + j] : x) * x;
+                }
+            }
+        }
+    }
+    out[static_cast<int64_t>(e) * n_blocks] = acc;
+}
+
+// One micro-tile of gu: samples [s0, s0 + RS) x unknowns [v0, v0 + RV) x
+// rows [q0, q0 + kTileQ) of [Rt | u], clamped to the block's entries.
+// Per site the RS x RV left factors d_s u_v (bf16(d_s u_v) under
+// kRoundAll; w u_v as the left u with W) are formed once and each is
+// multiplied into kTileQ accumulators, each entry summed in site order
+// from 0: the entry form's sum, bit for bit.
+template <typename T, int RS, int RV, bool W, int RND>
+__device__ __forceinline__ void gram_tile(
+        int s0, int v0, int q0, const T* __restrict__ s_d,
+        const T* __restrict__ s_r, int c0, int n_c, int n_ct, int nu,
+        T* __restrict__ out, int n_blocks, const T* __restrict__ s_x) {
+    const int p = n_ct + nu;
+    const T* ds[RS];
+    const T* uv[RV];
+    const T* rq[kTileQ];
+#pragma unroll
+    for (int a = 0; a < RS; ++a)
+        ds[a] = s_d + (s0 + a < n_c ? s0 + a : n_c - 1) * kLd;
+#pragma unroll
+    for (int b = 0; b < RV; ++b) {
+        const int v = v0 + b < nu ? v0 + b : nu - 1;
+        uv[b] = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+    }
+#pragma unroll
+    for (int c = 0; c < kTileQ; ++c)
+        rq[c] = s_r + (q0 + c < p ? q0 + c : p - 1) * kLd;
+    T acc[RS][RV][kTileQ];
+#pragma unroll
+    for (int a = 0; a < RS; ++a)
+#pragma unroll
+        for (int b = 0; b < RV; ++b)
+#pragma unroll
+            for (int c = 0; c < kTileQ; ++c) acc[a][b][c] = T(0);
+#pragma unroll 4
+    for (int j = 0; j < kSites; ++j) {
+        T r[kTileQ], u[RV];
+#pragma unroll
+        for (int c = 0; c < kTileQ; ++c) r[c] = rq[c][j];
+#pragma unroll
+        for (int b = 0; b < RV; ++b) u[b] = uv[b][j];
+#pragma unroll
+        for (int a = 0; a < RS; ++a) {
+            const T d = ds[a][j];
+#pragma unroll
+            for (int b = 0; b < RV; ++b) {
+                T x = d * u[b];
+                if constexpr (RND == kRoundAll) x = bf16r(x);
+#pragma unroll
+                for (int c = 0; c < kTileQ; ++c) acc[a][b][c] += x * r[c];
+            }
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < RS; ++a)
+#pragma unroll
+        for (int b = 0; b < RV; ++b)
+#pragma unroll
+            for (int c = 0; c < kTileQ; ++c) {
+                const int s = s0 + a, v = v0 + b, q = q0 + c;
+                if (s < n_c && v < nu && q < p)
+                    out[static_cast<int64_t>((c0 + s) * nu * p + v * p + q)
+                        * n_blocks] = acc[a][b][c];
+            }
 }
 
 // Gram entries of this block with the new u, for the samples [c0, c1)
 // whose Y and D rows are staged in s_y, s_d (row s at (s - c0) * kLd),
 // and [Rt | u] in s_r: gu[s,v,q] = sum_j (d_s u_v) [Rt|u]_q and
 // b_u[v,s] = sum_j u_v (d_s y_s) for those samples, and with `usq` the
-// entry sum_j sum_v u_v^2. One thread per entry, each summed over the
-// block's sites in site order, written to out[e * n_blocks] with e the
-// entry's index in [gu (n_s, n_u, p) | b_u (n_u, n_s) | usq] (the caller
-// points out at this block's column). Entries are dealt to the threads
-// in that order, so the resident layout (one range, [0, n_s), with usq)
-// gives each thread the entries e = tid, tid + kSites, ...
+// entry sum_j sum_v u_v^2. Each entry is summed over the block's sites in
+// site order and written to out[e * n_blocks] with e the entry's index in
+// [gu (n_s, n_u, p) | b_u (n_u, n_s) | usq] (the caller points out at
+// this block's column). The work follows gram_plan: one thread per entry
+// (entry l to thread l mod kSites), or gu's micro-tiles (gram_tile) then
+// b_u's and usq's entries, item k to thread k mod kSites.
 // With W (K4's weighted bootstrap) the LEFT u of every sum is the
 // weighted row s_x[v] = w u_v (formed by the caller once per site), so
 // each sum carries the site weight exactly once, and weights of 1 give
@@ -264,59 +490,28 @@ __device__ __forceinline__ void gram_partials(
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
     const int n_c = c1 - c0;
+    const GramPlan g = gram_plan(n_c, nu, p, usq);
+    if (!g.tiled) {
+        for (int l = tid; l < g.n_items; l += kSites)
+            gram_entry<T, NU, W, RND>(l, s_y, s_d, s_r, n_s, c0, n_c, n_ct,
+                                      nu, out, n_blocks, s_x);
+        return;
+    }
+    constexpr int RV = tile_rv(NU > 0 ? NU : 9);
+    constexpr int RS = 4 / RV;
     const int l_gu = n_c * nu * p;
-    const int l_bu = nu * n_c;
-    const int e_gu = n_s * nu * p;
-    const int n_local = l_gu + l_bu + (usq ? 1 : 0);
-    const bool left_x = W || RND == kRoundAll;   // usq's left u in s_x
-    for (int l = tid; l < n_local; l += kSites) {
-        T acc = T(0);
-        int e;
-        if (l < l_gu) {
-            const int s = l / (nu * p);
-            const int v = (l / p) % nu;
-            const int q = l % p;
-            e = c0 * nu * p + l;
-            const T* ds = s_d + s * kLd;
-            const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
-            const T* rq = s_r + q * kLd;
-            if constexpr (RND == kRoundAll) {
-                for (int j = 0; j < kSites; ++j)
-                    acc += bf16r(ds[j] * uv[j]) * rq[j];
-            } else {
-                for (int j = 0; j < kSites; ++j)
-                    acc += (ds[j] * uv[j]) * rq[j];
-            }
-        } else if (l < l_gu + l_bu) {
-            const int v = (l - l_gu) / n_c;
-            const int s = (l - l_gu) % n_c;
-            e = e_gu + v * n_s + c0 + s;
-            const T* ds = s_d + s * kLd;
-            const T* ys = s_y + s * kLd;
-            const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
-            if constexpr (RND != kRoundNone) {
-                for (int j = 0; j < kSites; ++j)
-                    acc += uv[j] * bf16r(ds[j] * ys[j]);
-            } else {
-                for (int j = 0; j < kSites; ++j)
-                    acc += uv[j] * (ds[j] * ys[j]);
-            }
-        } else {
-            e = e_gu + nu * n_s;
-            for (int j = 0; j < kSites; ++j) {
-#pragma unroll
-                for (int v = 0; v < nu; ++v) {
-                    if constexpr (RND == kRoundAll) {
-                        const T x = s_x[v * kLd + j];
-                        acc += x * x;
-                    } else {
-                        const T x = s_r[(n_ct + v) * kLd + j];
-                        acc += (left_x ? s_x[v * kLd + j] : x) * x;
-                    }
-                }
-            }
+    for (int k = tid; k < g.n_items; k += kSites) {
+        if (k >= g.n_tiles) {
+            gram_entry<T, NU, W, RND>(l_gu + k - g.n_tiles, s_y, s_d, s_r,
+                                      n_s, c0, n_c, n_ct, nu, out, n_blocks,
+                                      s_x);
+            continue;
         }
-        out[static_cast<int64_t>(e) * n_blocks] = acc;
+        const int qt = k % g.tq;
+        const int vt = (k / g.tq) % g.tv;
+        const int st = k / (g.tq * g.tv);
+        gram_tile<T, RS, RV, W, RND>(st * RS, vt * RV, qt * kTileQ, s_d, s_r,
+                                     c0, n_c, n_ct, nu, out, n_blocks, s_x);
     }
 }
 
@@ -336,36 +531,79 @@ __device__ __forceinline__ void gram_partials_chunked(
         stage_rows(s_y, ydt, c0, c1, i, live, n, tid);
         stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, c0, c1, i, live,
                    n, tid);
+        stage_wait();
         __syncthreads();
         gram_partials<T, NU, W, RND>(s_y, s_d, s_r, n_s, c0, c1, c1 == n_s,
                                      n_ct, n_u, tid, out, n_blocks, s_x);
     }
 }
 
+// The launch's prologue: warp b writes member b's momentum table (the
+// betas of its n_steps FISTA steps, then the advanced Nesterov scalar in
+// slot n_steps) at tab + b * (n_steps + 1), from its scalar row
+// scal + b * scal_stride: the solver's slots (kAU, kLWPrev, kLW) for K1
+// and K4, or with PH the single-phase slots (kPhA, kPhLPrev, kPhL) for
+// K7, whose prologue also writes the output slots kPhAOut and
+// kPhLPrevOut (phase_scalars_out's values). One tiny launch ahead of the
+// main pass, so no thread of the main pass replays the chain.
+// (In an unnamed namespace: each source that includes this header
+// registers its own copy of the kernels.)
+namespace {
+
+constexpr int kTabThreads = 32;
+
+template <typename T, bool PH>
+__global__ void __launch_bounds__(kTabThreads)
+momentum_table_kernel(T* __restrict__ scal, int scal_stride,
+                      T* __restrict__ tab, int n_steps) {
+    const int b = blockIdx.x;
+    T* sc = scal + static_cast<int64_t>(b) * scal_stride;
+    T* tb = tab + static_cast<int64_t>(b) * (n_steps + 1);
+    const T l = sc[PH ? kPhL : kLW];
+    const T l_prev = sc[PH ? kPhLPrev : kLWPrev];
+    momentum_table(tb, sc[PH ? kPhA : kAU], l_prev, l, n_steps,
+                   static_cast<int>(threadIdx.x), kTabThreads,
+                   [] { __syncwarp(); });
+    if constexpr (PH) {
+        if (threadIdx.x == 0) {
+            sc[kPhAOut] = tb[n_steps];
+            sc[kPhLPrevOut] = n_steps > 0 ? l : l_prev;
+        }
+    }
+}
+
+template <typename T, bool PH>
+int launch_momentum_table(T* scal, int scal_stride, int n_members, T* tab,
+                          int n_steps, cudaStream_t stream) {
+    momentum_table_kernel<T, PH><<<n_members, kTabThreads, 0, stream>>>(
+        scal, scal_stride, tab, n_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // Second pass: row r of the (members x n_entries, n_blocks) partials is
 // summed in a FIXED order (strided per thread, then a fixed tree) into
 // out[r]; r = b * n_entries + e for member b, whose scalar row is
-// scal + b * scal_stride. The row e = 0 of each member also advances that
-// member's Nesterov scalar n_steps times and sets l_w_prev = l_w. With
-// MULTI (K4), inactive members (slot kActive 0) are skipped: their
-// outputs and scalars are left as they are; K1 (one member) has no
-// member arithmetic at all.
-// (In an unnamed namespace: each source that includes this header
-// registers its own copy of the kernel.)
-namespace {
-
+// scal + b * scal_stride. The row e = 0 of each member also sets that
+// member's Nesterov scalar to its table's last slot (the chain advanced
+// n_steps times by the prologue) and l_w_prev = l_w. With MULTI (K4),
+// inactive members (slot kActive 0) are skipped: their outputs and
+// scalars are left as they are; K1 (one member) has no member arithmetic
+// at all.
 template <typename T, bool MULTI>
 __global__ void __launch_bounds__(kRedThreads)
 reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
-                       T* __restrict__ scal, int n_blocks, int n_steps,
-                       int n_entries, int scal_stride) {
+                       T* __restrict__ scal, const T* __restrict__ tab,
+                       int n_blocks, int n_steps, int n_entries,
+                       int scal_stride) {
     __shared__ T buf[kRedThreads];
     const int r = blockIdx.x;
     int e = r;
     T* sc = scal;
+    const T* tb = tab;
     if constexpr (MULTI) {
         e = r % n_entries;
         sc += static_cast<int64_t>(r / n_entries) * scal_stride;
+        tb += static_cast<int64_t>(r / n_entries) * (n_steps + 1);
         if (sc[kActive] == T(0)) return;           // uniform over the block
     }
     const int tid = threadIdx.x;
@@ -381,9 +619,7 @@ reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
     if (tid == 0) {
         out[r] = buf[0];
         if (e == 0) {
-            T a = sc[kAU];
-            for (int step = 0; step < n_steps; ++step) a = nesterov(a);
-            sc[kAU] = a;
+            sc[kAU] = tb[n_steps];
             if (n_steps > 0) sc[kLWPrev] = sc[kLW];
         }
     }

@@ -30,18 +30,31 @@
 //     gu[s,u,q] = sum_i u_iu d_is [Rt | u]_iq,  b_u[u,s] = sum_i u_iu d_is y_is,
 //     usq = sum_i sum_u u_iu^2
 //
-// What bounds it on an H100: memory traffic at the partial-reference
-// schedule. At 1M sites x 10 samples, 5 + 1 cell types in float32 it reads
-// Y, D, Rt, u, u_prev (~108 MB) and writes u, u_prev (~8 MB) per outer
-// iteration, ~35 us at 3.35 TB/s; the arithmetic is a few hundred flops
-// per site. The purity schedule (500 steps) makes it bound by instruction
-// issue: ~65 instructions per warp and step in the n_u = 1 gram form,
-// most of them the scalar momentum chain (two IEEE divisions, two square
-// roots) that every thread replays beside its ~10 flops. At wide shapes
-// (hundreds of samples, 25 known types) the Gram stage dominates: n_s n_u p
-// entries per block, each a 128-term sum over shared rows.
+// What bounds it on an H100 (measured on an NVIDIA H100 80GB HBM3 at
+// 700 W; chip_smoke.time_steps and profile_kernels, PERF.md):
+//   - at the partial-reference schedule, its fixed cost: at 1M sites x
+//     10 samples, 5 + 1 cell types in float32 it must move ~116 MB per
+//     outer iteration (Y, D, Rt, u, u_prev read; u, u_prev written),
+//     ~35 us at 3.35 TB/s, but a launch with no step takes ~0.11 ms:
+//     each block stages its columns, then computes, and the blocks of an
+//     SM do not overlap the two well; the 20 steps add ~0.02 ms;
+//   - at the purity schedule (500 steps), the step loop: ~0.88 us a step
+//     at that shape, instruction issue (an IEEE division a step and
+//     site is most of it);
+//   - at wide shapes (100 samples, 25 + 4) the Gram stage: n_s n_u p
+//     entries per block, each a 128-term sum over shared rows, about
+//     11.6 G products at 1M x 100 (two instructions each: the build keeps
+//     --fmad=false, so every rounding is the twin's), and the (E,
+//     n_blocks) buffer of per-block partial sums (375 MB there).
 //
 // What the design does about it:
+//   - the momentum chain runs once per launch: a one-warp prologue
+//     (momentum_table_kernel, u_phase_common.cuh) writes the steps' betas
+//     and the advanced Nesterov scalar into a small buffer, and every
+//     thread reads beta_k from it one step ahead; the same arithmetic on
+//     the same inputs, so the same bits. The buffer is device memory
+//     beside the partials: K1's shared memory, which the layout rule
+//     reads, does not change;
 //   - the big arrays stay in the transposed (rows, N) layout, so the
 //     threads of a warp read neighbouring addresses of every row once;
 //   - C, M (its upper triangle: M is symmetric) and the FISTA state live
@@ -49,12 +62,22 @@
 //     of the gram form touches no memory; above n_u = 8 one form keeps
 //     them in a scratch column per site (u_phase_common.cuh);
 //   - resident layout: the site columns a block reads are staged in
-//     shared memory (row stride T + 1 against bank conflicts) and reused
-//     for the Gram sums, so Y, D and Rt are read from device memory
-//     exactly once; the wide layout (chosen by the wrapper where the
-//     resident one does not fit or fits less than half its blocks per SM)
-//     stages Y and D in chunks of samples and reads them twice, with the
-//     same sums in the same orders;
+//     shared memory (row stride T + 1 against bank conflicts, cp.async
+//     for float32 and float64) and reused for the Gram sums, so Y, D and
+//     Rt are read from device memory exactly once; the wide layout
+//     (chosen by the wrapper where the resident one does not fit or fits
+//     less than half its blocks per SM) stages Y and D in chunks of
+//     samples and reads them twice, with the same sums in the same
+//     orders;
+//   - the Gram stage follows the block's entry count (gram_plan): one
+//     entry per thread up to 128 entries (the main shape's 71), register
+//     micro-tiles of 4 left factors x 4 rows above (about half a shared
+//     load per product at the cohort shape, against three), every entry
+//     summed in site order, so the bits do not move. Tensor cores are
+//     not used: TF32 keeps 10 mantissa bits, which the float32 Gram
+//     tolerance rules out, and 3xTF32 or float64 DMMA would reorder each
+//     entry's sum (PERF.md and ROADMAP queue a tensor-core stage with
+//     its reckoning);
 //   - blocks run in no order, so the TPU kernel's in-order accumulation
 //     across its grid becomes per-block partial sums (one column per
 //     block of an (E, n_blocks) buffer) and a second kernel that sums each
@@ -80,8 +103,9 @@
 // [Y.T; D.T; Rt.T]; the kernel is the same.
 //
 // The Nesterov scalar and l_w_prev live in a small device vector `scal`
-// (slot 0: a, 1: l_w, 2: l_w_prev) that every thread reads; the reduction
-// kernel advances them after the main pass, so the host never syncs.
+// (slot 0: a, 1: l_w, 2: l_w_prev): the prologue reads them into the
+// momentum table, every thread reads l_w, and the reduction kernel
+// advances a and l_w_prev after the main pass, so the host never syncs.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
@@ -105,29 +129,27 @@ using dm::kChunk;
 using dm::kLd;
 using dm::kRedThreads;
 using dm::kSites;
-using dm::min_nan;
-using dm::nesterov;
 using dm::RegVec;
-using dm::sqrt_t;
 
 // The n_steps FISTA loop of the direct form. Resident layout: dres (the
 // known-block residual) and d of this thread's site in shared rows
 // (res, d; stride kLd). Wide: y and d read from the data rows (stride
 // ld) and dres rebuilt each step (the same arithmetic as the resident
-// layout's one build). ut, gr are step temporaries.
+// layout's one build). beta_tab is the launch's momentum table, read one
+// step ahead; ut, gr are step temporaries.
 template <typename T, int NU, bool LAG, bool WIDE, int RND, typename TY,
           class VU, class VT>
 __device__ __forceinline__ void direct_steps(
         VU& u, VU& up, VT& ut, VT& gr, int n_u, const T* __restrict__ a1,
         const T* __restrict__ a2, const T* __restrict__ res,
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
-        const T* __restrict__ rt, int n_s, int n_ct, T a, T l_prev,
-        const T l_w, int n_steps) {
+        const T* __restrict__ rt, int n_s, int n_ct,
+        const T* __restrict__ beta_tab, const T l_w, int n_steps) {
     const int nu = NU > 0 ? NU : n_u;
+    T beta_next = beta_tab[0];
     for (int step = 0; step < n_steps; ++step) {
-        const T a1n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a1n,
-                               T(0.9999) * sqrt_t(l_prev / l_w));
+        const T beta = beta_next;
+        beta_next = beta_tab[step + 1];
 #pragma unroll
         for (int v = 0; v < nu; ++v) {
             ut[v] = u[v] + beta * (u[v] - up[v]);
@@ -155,8 +177,6 @@ __device__ __forceinline__ void direct_steps(
             up[v] = u[v];
             u[v] = dm::clip01(ut[v] + gr[v] / l_w);
         }
-        a = a1n;
-        l_prev = l_w;
     }
 }
 
@@ -170,16 +190,16 @@ __device__ __forceinline__ void site_phase(
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
         const T* __restrict__ rt, const T* __restrict__ a1,
         const T* __restrict__ a2, T* __restrict__ res, int n_s, int n_ct,
-        T a, T l_prev, T l_w, int n_steps, bool lagged) {
+        const T* __restrict__ tab, T l_w, int n_steps, bool lagged) {
     if constexpr (!DIRECT) {
         dm::build_cm<T, NU, RND>(cc, m, t1, n_u, y, d, ld, rt, a1, a2, n_s,
                                  n_ct);
         if (lagged)
-            dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, a,
-                                        l_prev, l_w, n_steps);
+            dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, tab,
+                                        l_w, n_steps);
         else
-            dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, a,
-                                         l_prev, l_w, n_steps);
+            dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, tab,
+                                         l_w, n_steps);
     } else {
         if constexpr (!WIDE) {
             // the known-block residual, kept in shared memory
@@ -190,13 +210,11 @@ __device__ __forceinline__ void site_phase(
         if (lagged)
             direct_steps<T, NU, true, WIDE, RND>(u, up, t1, t2, n_u, a1, a2,
                                                  res, y, d, ld, rt, n_s,
-                                                 n_ct, a, l_prev, l_w,
-                                                 n_steps);
+                                                 n_ct, tab, l_w, n_steps);
         else
             direct_steps<T, NU, false, WIDE, RND>(u, up, t1, t2, n_u, a1, a2,
                                                   res, y, d, ld, rt, n_s,
-                                                  n_ct, a, l_prev, l_w,
-                                                  n_steps);
+                                                  n_ct, tab, l_w, n_steps);
     }
 }
 
@@ -205,7 +223,8 @@ __global__ void __launch_bounds__(kSites)
 u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                      const T* __restrict__ a1b, const T* __restrict__ a2b,
                      T* __restrict__ uut, const T* __restrict__ scal,
-                     T* __restrict__ partials, T* __restrict__ scratch,
+                     const T* __restrict__ tab, T* __restrict__ partials,
+                     T* __restrict__ scratch,
                      int64_t n, int n_s, int n_ct, int n_u, int n_steps,
                      int n_blocks, int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -236,11 +255,10 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                        live, n, tid);
     }
     dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    dm::stage_wait();
     __syncthreads();
 
-    const T a = scal[dm::kAU];
     const T l_w = scal[dm::kLW];
-    const T l_prev = scal[dm::kLWPrev];
     T* u_rows = s_r + n_ct * kLd + tid;
     if (live) {
         auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
@@ -249,13 +267,12 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                 site_phase<T, NU, DIRECT, RND, WIDE>(
                     u, up, cc, m, t1, t2, n_u, ydt + i,
                     ydt + static_cast<int64_t>(n_s) * n + i, n, s_r + tid,
-                    a1, a2, s_x + tid, n_s, n_ct, a, l_prev, l_w, n_steps,
-                    lagged);
+                    a1, a2, s_x + tid, n_s, n_ct, tab, l_w, n_steps, lagged);
             else
                 site_phase<T, NU, DIRECT, RND, WIDE>(
                     u, up, cc, m, t1, t2, n_u, s_y + tid, s_d + tid,
-                    int64_t(kLd), s_r + tid, a1, a2, s_x + tid, n_s, n_ct, a,
-                    l_prev, l_w, n_steps, lagged);
+                    int64_t(kLd), s_r + tid, a1, a2, s_x + tid, n_s, n_ct,
+                    tab, l_w, n_steps, lagged);
 #pragma unroll
             for (int v = 0; v < nu; ++v) {
                 if constexpr (RND == dm::kRoundAll) {
@@ -331,11 +348,14 @@ size_t smem_bytes(bool wide, size_t itemsize, int n_s, int n_ct, int n_u,
 
 template <typename T, typename TD, int NU, bool DIRECT, int RND, bool WIDE>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
-           void* uut, void* scal, void* partials, void* out, void* scratch,
-           int64_t n, int n_s, int n_ct, int n_u, int n_steps, int lagged,
-           cudaStream_t stream) {
+           void* uut, void* scal, void* tab, void* partials, void* out,
+           void* scratch, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
+           int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
+    int err0 = dm::launch_momentum_table<T, false>(
+        static_cast<T*>(scal), 0, 1, static_cast<T*>(tab), n_steps, stream);
+    if (err0 != 0) return err0;
     const size_t smem = smem_bytes(WIDE, sizeof(T), n_s, n_ct, n_u, DIRECT,
                                    RND);
     auto kern = u_phase_grams_kernel<T, TD, NU, DIRECT, RND, WIDE>;
@@ -349,27 +369,29 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<const TD*>(ydt), static_cast<const TD*>(rtt),
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
-        static_cast<T*>(partials), static_cast<T*>(scratch), n, n_s, n_ct,
-        n_u, n_steps, n_blocks, lagged);
+        static_cast<const T*>(tab), static_cast<T*>(partials),
+        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, n_blocks,
+        lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dm::reduce_partials_kernel<T, false>
         <<<n_entries, kRedThreads, 0, stream>>>(
             static_cast<const T*>(partials), static_cast<T*>(out),
-            static_cast<T*>(scal), n_blocks, n_steps, n_entries, 0);
+            static_cast<T*>(scal), static_cast<const T*>(tab), n_blocks,
+            n_steps, n_entries, 0);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename TD, bool DIRECT, int RND, bool WIDE>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
-                const void* a2b, void* uut, void* scal, void* partials,
-                void* out, void* scratch, int64_t n, int n_s, int n_ct,
-                int n_u, int n_steps, int lagged, cudaStream_t st) {
+                const void* a2b, void* uut, void* scal, void* tab,
+                void* partials, void* out, void* scratch, int64_t n, int n_s,
+                int n_ct, int n_u, int n_steps, int lagged, cudaStream_t st) {
 #define DM_K1_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, DIRECT, RND, WIDE>(                        \
-            ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n, n_s,  \
-            n_ct, n_u, n_steps, lagged, st);
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,  \
+            n_s, n_ct, n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
         DM_K1_CASE(6) DM_K1_CASE(7) DM_K1_CASE(8)
@@ -377,14 +399,14 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
             // n_u = 1 always takes the gram form (1 <= 3 n_s)
             if constexpr (!DIRECT)
                 return launch<T, TD, 1, false, RND, WIDE>(
-                    ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n,
-                    n_s, n_ct, n_u, n_steps, lagged, st);
+                    ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
+                    scratch, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return static_cast<int>(cudaErrorInvalidValue);
         default:
             if (n_u < 1 || scratch == nullptr)
                 return static_cast<int>(cudaErrorInvalidValue);
             return launch<T, TD, 0, DIRECT, RND, WIDE>(
-                ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n,
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
                 n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K1_CASE
@@ -394,28 +416,29 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
 // data only): kRoundAll in the gram form, kRoundDy in the direct form
 template <typename T, typename TD, bool WIDE>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
-             const void* a2b, void* uut, void* scal, void* partials,
-             void* out, void* scratch, int64_t n, int n_s, int n_ct, int n_u,
-             int n_steps, int lagged, int direct, int bf16c, void* stream) {
+             const void* a2b, void* uut, void* scal, void* tab,
+             void* partials, void* out, void* scratch, int64_t n, int n_s,
+             int n_ct, int n_u, int n_steps, int lagged, int direct,
+             int bf16c, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (std::is_same<TD, __nv_bfloat16>::value) {
         if (bf16c) {
             if (direct)
                 return dispatch_nu<T, TD, true, dm::kRoundDy, WIDE>(
-                    ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n,
-                    n_s, n_ct, n_u, n_steps, lagged, st);
+                    ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
+                    scratch, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return dispatch_nu<T, TD, false, dm::kRoundAll, WIDE>(
-                ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n,
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
                 n_s, n_ct, n_u, n_steps, lagged, st);
         }
     }
     if (direct)
         return dispatch_nu<T, TD, true, dm::kRoundNone, WIDE>(
-            ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n, n_s,
-            n_ct, n_u, n_steps, lagged, st);
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
+            n_s, n_ct, n_u, n_steps, lagged, st);
     return dispatch_nu<T, TD, false, dm::kRoundNone, WIDE>(
-        ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n, n_s, n_ct,
-        n_u, n_steps, lagged, st);
+        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n, n_s,
+        n_ct, n_u, n_steps, lagged, st);
 }
 
 }  // namespace
@@ -425,8 +448,9 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //   PREFIX_smem(itemsize, n_s, n_ct, n_u, direct, bf16c): the main pass's
 //     shared memory in bytes (itemsize is the state's), which the wrapper
 //     checks against the card's limit before launching;
-//   PREFIX_{f32,f64}(ydt, rtt, a1b, a2b, uut, scal, partials, out,
-//     scratch, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream);
+//   PREFIX_{f32,f64}(ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
+//     scratch, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream): tab is
+//     room for the momentum table, n_steps + 1 values of the state type;
 //   PREFIX_bf16(..., direct, bf16c, stream): bf16 data with a float32
 //     state; bf16c the bf16_compute form.
 #define DM_K1_EXPORTS(PREFIX, WIDE)                                          \
@@ -439,32 +463,30 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
                                                  n_u, direct != 0, rnd));    \
     }                                                                        \
     int PREFIX##_f32(const void* ydt, const void* rtt, const void* a1b,      \
-                     const void* a2b, void* uut, void* scal, void* partials, \
-                     void* out, void* scratch, long long n, int n_s,         \
-                     int n_ct, int n_u, int n_steps, int lagged, int direct, \
-                     void* stream) {                                         \
-        return dispatch<float, float, WIDE>(ydt, rtt, a1b, a2b, uut, scal,   \
-                                            partials, out, scratch, n, n_s,  \
-                                            n_ct, n_u, n_steps, lagged,      \
-                                            direct, 0, stream);              \
+                     const void* a2b, void* uut, void* scal, void* tab,      \
+                     void* partials, void* out, void* scratch, long long n,  \
+                     int n_s, int n_ct, int n_u, int n_steps, int lagged,    \
+                     int direct, void* stream) {                             \
+        return dispatch<float, float, WIDE>(                                 \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
+            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
     }                                                                        \
     int PREFIX##_f64(const void* ydt, const void* rtt, const void* a1b,      \
-                     const void* a2b, void* uut, void* scal, void* partials, \
-                     void* out, void* scratch, long long n, int n_s,         \
-                     int n_ct, int n_u, int n_steps, int lagged, int direct, \
-                     void* stream) {                                         \
-        return dispatch<double, double, WIDE>(ydt, rtt, a1b, a2b, uut, scal, \
-                                              partials, out, scratch, n,     \
-                                              n_s, n_ct, n_u, n_steps,       \
-                                              lagged, direct, 0, stream);    \
+                     const void* a2b, void* uut, void* scal, void* tab,      \
+                     void* partials, void* out, void* scratch, long long n,  \
+                     int n_s, int n_ct, int n_u, int n_steps, int lagged,    \
+                     int direct, void* stream) {                             \
+        return dispatch<double, double, WIDE>(                               \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
+            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
     }                                                                        \
     int PREFIX##_bf16(const void* ydt, const void* rtt, const void* a1b,     \
-                      const void* a2b, void* uut, void* scal,                \
+                      const void* a2b, void* uut, void* scal, void* tab,     \
                       void* partials, void* out, void* scratch, long long n, \
                       int n_s, int n_ct, int n_u, int n_steps, int lagged,   \
                       int direct, int bf16c, void* stream) {                 \
         return dispatch<float, __nv_bfloat16, WIDE>(                         \
-            ydt, rtt, a1b, a2b, uut, scal, partials, out, scratch, n, n_s,   \
-            n_ct, n_u, n_steps, lagged, direct, bf16c, stream);              \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
+            n_s, n_ct, n_u, n_steps, lagged, direct, bf16c, stream);         \
     }                                                                        \
     }

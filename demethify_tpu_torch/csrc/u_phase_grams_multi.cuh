@@ -37,10 +37,14 @@
 // iteration at 1M sites x 10 samples, 5 + 1, B = 16, float32 are Y, D, Rt
 // (100 MB, read once) and the members' u, u_prev (128 MB read, 128 MB
 // written): ~356 MB, ~106 us at 3.35 TB/s. The work is B times K1's per
-// site: the C/M build, n_steps dependent FISTA steps (each replaying the
-// momentum chain: two IEEE divisions and two square roots) and the Gram
-// partial sums over the block's sites -- about 2,500 instructions a site
-// and member at 20 steps.
+// site: the C/M build, n_steps dependent FISTA steps and the Gram
+// partial sums over the block's sites. Each member's momentum chain (two
+// IEEE divisions and two square roots a step, the same in every thread)
+// is computed once per launch by the prologue, one thread per member,
+// into a (B, n_steps + 1) table (momentum_table_kernel), which every
+// thread reads as K1's threads do; the Gram stage follows K1's plan
+// (gram_plan: one entry per thread, or register micro-tiles above 128
+// entries a block).
 //
 // What the design does about it:
 //   - one block per 128 sites, as K1: the block stages its sites' Y, D and
@@ -74,8 +78,9 @@
 // gain is small.
 //
 // Scalars: `scal` is (B, scal_stride) with K1's slots per member (kAU,
-// kLW, kLWPrev read) plus kActive. Weights: `w` is (B, w_stride), NULL for
-// the unweighted form.
+// kLW, kLWPrev read) plus kActive; `tab` is room for the members'
+// momentum tables, B (n_steps + 1) values. Weights: `w` is (B, w_stride),
+// NULL for the unweighted form.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
@@ -106,7 +111,8 @@ u_phase_grams_multi_kernel(
         const T* __restrict__ a2b, int64_t a2_stride, T* __restrict__ uut,
         const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
-        T* __restrict__ partials, T* __restrict__ scratch, int64_t n,
+        const T* __restrict__ tab, T* __restrict__ partials,
+        T* __restrict__ scratch, int64_t n,
         int n_s, int n_ct, int n_u, int n_steps, int n_blocks,
         int n_members, int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -130,12 +136,14 @@ u_phase_grams_multi_kernel(
                        live, n, tid);
     }
     dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    dm::stage_wait();
     const int n_entries = dm::gram_entries(n_s, n_ct, nu);
     T* u_rows = s_r + n_ct * kLd + tid;
 
     for (int b = 0; b < n_members; ++b) {
         const T* sc = scal + static_cast<int64_t>(b) * scal_stride;
         if (sc[dm::kActive] == T(0)) continue;      // uniform per block
+        const T* tb = tab + static_cast<int64_t>(b) * (n_steps + 1);
         const T* a1 = a1b + b * a1_stride;
         const T* a2 = a2b + b * a2_stride;
         __syncthreads();     // the previous member's Gram sums are done
@@ -162,12 +170,10 @@ u_phase_grams_multi_kernel(
                     cc, m, t1, nu, s_y + tid, s_d + tid, int64_t(kLd),
                     s_r + tid, a1, a2, n_s, n_ct);
             if (lagged)
-                dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, nu,
-                                            sc[dm::kAU], sc[dm::kLWPrev],
+                dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, nu, tb,
                                             sc[dm::kLW], n_steps);
             else
-                dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, nu,
-                                             sc[dm::kAU], sc[dm::kLWPrev],
+                dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, nu, tb,
                                              sc[dm::kLW], n_steps);
 #pragma unroll
             for (int v = 0; v < nu; ++v) {
@@ -236,10 +242,14 @@ template <typename T, typename TD, int NU, bool W, bool WIDE>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
-           void* partials, void* out, void* scratch, int64_t n, int n_s,
-           int n_ct, int n_u, int n_steps, int n_members, int lagged,
-           cudaStream_t stream) {
+           void* tab, void* partials, void* out, void* scratch, int64_t n,
+           int n_s, int n_ct, int n_u, int n_steps, int n_members,
+           int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
+    int err0 = dm::launch_momentum_table<T, false>(
+        static_cast<T*>(scal), scal_stride, n_members, static_cast<T*>(tab),
+        n_steps, stream);
+    if (err0 != 0) return err0;
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
     const size_t smem = smem_bytes(WIDE, sizeof(T), n_s, n_ct, n_u, W);
     auto kern = u_phase_grams_multi_kernel<T, TD, NU, W, WIDE>;
@@ -253,16 +263,16 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
         static_cast<const TD*>(ydt), static_cast<const TD*>(rtt),
         static_cast<const T*>(a1b), a1_stride, static_cast<const T*>(a2b),
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
-        static_cast<const T*>(scal), scal_stride, static_cast<T*>(partials),
-        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, n_blocks,
-        n_members, lagged);
+        static_cast<const T*>(scal), scal_stride, static_cast<const T*>(tab),
+        static_cast<T*>(partials), static_cast<T*>(scratch), n, n_s, n_ct,
+        n_u, n_steps, n_blocks, n_members, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dm::reduce_partials_kernel<T, true>
         <<<n_members * n_entries, kRedThreads, 0, stream>>>(
             static_cast<const T*>(partials), static_cast<T*>(out),
-            static_cast<T*>(scal), n_blocks, n_steps, n_entries,
-            scal_stride);
+            static_cast<T*>(scal), static_cast<const T*>(tab), n_blocks,
+            n_steps, n_entries, scal_stride);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,15 +280,15 @@ template <typename T, typename TD, bool W, bool WIDE>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
-                int scal_stride, void* partials, void* out, void* scratch,
-                long long n, int n_s, int n_ct, int n_u, int n_steps,
-                int n_members, int lagged, cudaStream_t st) {
+                int scal_stride, void* tab, void* partials, void* out,
+                void* scratch, long long n, int n_s, int n_ct, int n_u,
+                int n_steps, int n_members, int lagged, cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, W, WIDE>(                                  \
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,     \
-            scal, scal_stride, partials, out, scratch, n, n_s, n_ct, n_u,   \
-            n_steps, n_members, lagged, st);
+            scal, scal_stride, tab, partials, out, scratch, n, n_s, n_ct,   \
+            n_u, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
@@ -287,8 +297,8 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 return static_cast<int>(cudaErrorInvalidValue);
             return launch<T, TD, 0, W, WIDE>(
                 ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,
-                scal, scal_stride, partials, out, scratch, n, n_s, n_ct, n_u,
-                n_steps, n_members, lagged, st);
+                scal, scal_stride, tab, partials, out, scratch, n, n_s, n_ct,
+                n_u, n_steps, n_members, lagged, st);
     }
 #undef DM_K4_CASE
 }
@@ -297,19 +307,19 @@ template <typename T, typename TD, bool WIDE>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
-             int scal_stride, void* partials, void* out, void* scratch,
-             long long n, int n_s, int n_ct, int n_u, int n_steps,
-             int n_members, int lagged, void* stream) {
+             int scal_stride, void* tab, void* partials, void* out,
+             void* scratch, long long n, int n_s, int n_ct, int n_u,
+             int n_steps, int n_members, int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (w != nullptr)
         return dispatch_nu<T, TD, true, WIDE>(
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-            scal_stride, partials, out, scratch, n, n_s, n_ct, n_u, n_steps,
-            n_members, lagged, st);
+            scal_stride, tab, partials, out, scratch, n, n_s, n_ct, n_u,
+            n_steps, n_members, lagged, st);
     return dispatch_nu<T, TD, false, WIDE>(
         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-        scal_stride, partials, out, scratch, n, n_s, n_ct, n_u, n_steps,
-        n_members, lagged, st);
+        scal_stride, tab, partials, out, scratch, n, n_s, n_ct, n_u,
+        n_steps, n_members, lagged, st);
 }
 
 }  // namespace
@@ -319,7 +329,7 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //   PREFIX_smem(itemsize, n_s, n_ct, n_u, weighted): the main pass's
 //     shared memory in bytes (independent of B);
 //   PREFIX_{f32,f64,bf16}(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-//     w, w_stride, scal, scal_stride, partials, out, scratch, n, n_s,
+//     w, w_stride, scal, scal_stride, tab, partials, out, scratch, n, n_s,
 //     n_ct, n_u, n_steps, n_members, lagged, stream): w the members'
 //     weight rows (B, w_stride) or NULL (unweighted); bf16: bf16 data
 //     with a float32 state and float32 weight rows.
@@ -328,14 +338,14 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
                        long long a1_stride, const void* a2b,                 \
                        long long a2_stride, void* uut, const void* w,        \
                        long long w_stride, void* scal, int scal_stride,      \
-                       void* partials, void* out, void* scratch, long long n, \
-                       int n_s, int n_ct, int n_u, int n_steps,              \
+                       void* tab, void* partials, void* out, void* scratch,  \
+                       long long n, int n_s, int n_ct, int n_u, int n_steps, \
                        int n_members, int lagged, void* stream) {            \
         return dispatch<T, TD, WIDE>(ydt, rtt, a1b, a1_stride, a2b,          \
                                      a2_stride, uut, w, w_stride, scal,      \
-                                     scal_stride, partials, out, scratch, n, \
-                                     n_s, n_ct, n_u, n_steps, n_members,     \
-                                     lagged, stream);                        \
+                                     scal_stride, tab, partials, out,        \
+                                     scratch, n, n_s, n_ct, n_u, n_steps,    \
+                                     n_members, lagged, stream);             \
     }
 #define DM_K4_EXPORTS(PREFIX, WIDE)                                          \
     extern "C" {                                                             \

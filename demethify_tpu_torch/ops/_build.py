@@ -80,13 +80,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         for dt in ("f32", "f64", "bf16"):
             fn = getattr(lib, f"{k1}_{dt}")
             # bf16 data with a float32 state adds the bf16_compute flag
-            fn.argtypes = ([_VOID] * 9 + [_LL] + [_INT] * (7 if dt == "bf16"
-                                                           else 6) + [_VOID])
+            fn.argtypes = ([_VOID] * 10 + [_LL] + [_INT] * (7 if dt == "bf16"
+                                                            else 6) + [_VOID])
             fn.restype = _INT
             # the multi-member kernel: pointers with their member strides
             fn = getattr(lib, f"{k4}_{dt}")
             fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
-                           + [_LL] + [_VOID, _INT] + [_VOID] * 3 + [_LL]
+                           + [_LL] + [_VOID, _INT] + [_VOID] * 4 + [_LL]
                            + [_INT] * 6 + [_VOID])
             fn.restype = _INT
         getattr(lib, f"{k1}_smem").argtypes = [_INT] * 6
@@ -95,16 +95,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, f"{k4}_smem").restype = _LL
     lib.dm_u_phase_grams_blocks.argtypes = [_LL]
     lib.dm_u_phase_grams_blocks.restype = _INT
+    lib.dm_gram_tile_plan.argtypes = [_INT] * 4 + [_VOID]
+    lib.dm_gram_tile_plan.restype = _INT
     for dt in ("f32", "f64"):
+        fn = getattr(lib, f"dm_momentum_table_{dt}")
+        fn.argtypes = [_VOID, _INT, _INT, _VOID, _INT, _INT, _VOID]
+        fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
-        fn.argtypes = [_VOID] * 10 + [_INT] * 4 + [_VOID]
+        fn.argtypes = [_VOID] * 12 + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_{dt}")
         fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL, _VOID, _LL]
-                       + [_VOID, _LL] + [_INT] * 5 + [_VOID])
+                       + [_VOID, _LL] + [_VOID] * 2 + [_INT] * 7 + [_VOID])
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_INT] * 5
@@ -117,7 +122,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_u_phase_smem.restype = _LL
     for dt in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"dm_u_phase_{dt}")
-        fn.argtypes = [_VOID] * 11 + [_LL] + [_INT] * 5 + [_VOID]
+        fn.argtypes = [_VOID] * 12 + [_LL] + [_INT] * 5 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_grams_{dt}")
         fn.argtypes = [_VOID] * 7 + [_LL] + [_INT] * 3 + [_LL, _INT, _VOID]

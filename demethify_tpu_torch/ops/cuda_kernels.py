@@ -6,7 +6,12 @@ and the one-pass Gram system: wrappers, launch counts and plain twins.
 its wrappers ``u_phase_grams_packed`` and ``u_phase_grams``). The kernel
 is ``csrc/u_phase_grams.cu``; its source note says what bounds it on an
 H100 (memory traffic: one read of Y, D, Rt, u, u_prev and one write of u,
-u_prev per outer iteration) and what the design does about it.
+u_prev per outer iteration; the Gram stage at wide shapes) and what the
+design does about it. Two of its pieces have Python counterparts here:
+the momentum table its prologue computes once per launch
+(``momentum_table``, twin ``momentum_table_plain``; the wrapper gives it
+room behind the partial sums) and the Gram stage's plan
+(``gram_tile_plan``: one entry per thread, or register micro-tiles).
 
 Forms, as the JAX kernel has them: with or without a known block (the
 unsupervised solve has none), the gradient at u_t or, ``lagged``, at the
@@ -129,11 +134,15 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     memory once; the wide one reads them twice (and, in the direct form,
     once per FISTA step), but its shared memory stops growing with n_s at
     32 samples, so more blocks share an SM. On an H100
-    (``chip_smoke.time_layouts``, 27 shapes) the wide layout was up to 27%
-    slower wherever it fitted fewer than twice the resident layout's
-    blocks per SM (at one such shape 5.7% faster), and 6-64% faster
-    wherever it fitted at least twice as many (the resident layout then
-    fits one or two); in the direct form it was up to 2x slower. So: the
+    (``chip_smoke.time_layouts``, 27 shapes, with the register-tiled Gram
+    stage) the wide layout was up to 36% slower wherever it fitted fewer
+    than twice the resident layout's blocks per SM (at one such shape,
+    50 samples in float64, 13% faster), and 3-39% faster wherever it
+    fitted at least twice as many at n_u <= 8 (the resident layout then
+    fits one or two); in the direct form up to 2.1x slower. At n_u = 12,
+    where the state lives in scratch columns, both measured shapes sit on
+    the other side (the gram form 17% slower wide, the direct form 27%
+    faster): too few shapes to fit a rule for that form yet. So: the
     resident layout, unless it passes SMEM_LIMIT or, in the gram form,
     the wide one fits at least twice its blocks per SM. Raises
     NotImplementedError, stating the shape and the bytes, where neither
@@ -225,6 +234,85 @@ def gram_entries(n_s: int, n_ct: int, n_u: int) -> int:
     return n_s * n_u * (n_ct + n_u) + n_u * n_s + 1
 
 
+def momentum_table_plain(a, l_prev, lip, n_steps: int):
+    """The momentum table of an n_steps FISTA loop, in ordinary tensor ops:
+    (n_steps + 1,) values in a's dtype, the steps' betas
+    ``momentum(a_k, a_{k+1}, l_prev_k, lip)`` (``ops/fista.py``) with
+    a_0 = a, l_prev_0 = l_prev and l_prev_k = lip from step 1 on, then
+    the advanced Nesterov scalar a_{n_steps}. The twin of the kernels'
+    prologue (``csrc/u_phase_common.cuh``, ``momentum_table_kernel``),
+    which computes the same values once per launch so that no thread
+    replays them; a, l_prev, lip are 0-d tensors."""
+    out = []
+    for _ in range(n_steps):
+        a1 = nesterov_step(a)
+        out.append(momentum(a, a1, l_prev, lip))
+        a, l_prev = a1, lip
+    out.append(a)
+    return torch.stack(out)
+
+
+def momentum_table(scal, n_steps: int, phase: bool = False):
+    """The momentum tables of the scalar rows ``scal`` ((N_SCAL,) or
+    (B, N_SCAL_MULTI); with ``phase`` the single-phase kernels' 5-slot
+    vector, slots PH_A, PH_L_PREV, PH_L), as K1, K4 and K7 build them
+    before their main pass: (n_steps + 1,) per row, (B, n_steps + 1) for
+    B rows. On the card the prologue kernel alone (with ``phase`` it also
+    writes the vector's output slots, as K7's launch does); on the CPU
+    ``momentum_table_plain``."""
+    rows = scal.reshape(-1, scal.shape[-1])
+    slots = (PH_A, PH_L_PREV, PH_L) if phase else (A_U, L_W_PREV, L_W)
+    if scal.device.type == "cpu":
+        tab = torch.stack([momentum_table_plain(*(r[k] for k in slots),
+                                                n_steps) for r in rows])
+    else:
+        if scal.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"momentum_table takes float32 or float64, not "
+                            f"{scal.dtype}")
+        if not scal.is_contiguous():
+            raise ValueError("momentum_table: scal must be contiguous")
+        tab = scal.new_empty((rows.shape[0], n_steps + 1))
+        lib = _build.load().lib
+        fn = (lib.dm_momentum_table_f32 if scal.dtype == torch.float32
+              else lib.dm_momentum_table_f64)
+        with torch.cuda.device(scal.device):
+            err = fn(scal.data_ptr(), rows.shape[1], rows.shape[0],
+                     tab.data_ptr(), n_steps, int(phase),
+                     torch.cuda.current_stream(scal.device).cuda_stream)
+        _build.check(err, "momentum_table")
+        momentum_table.launches += 1
+    return tab if scal.dim() > 1 else tab[0]
+
+
+momentum_table.launches = 0
+
+
+GRAM_TILE_Q = 4    # rows of [Rt | u] per Gram micro-tile (kTileQ)
+
+
+def gram_tile_plan(n_c: int, n_u: int, p: int, usq: bool) -> dict:
+    """The Gram stage's work plan for one block of 128 sites and n_c
+    staged samples (``csrc/u_phase_common.cuh``, ``gram_plan``; the
+    kernels' ``dm_gram_tile_plan`` export, which ``chip_smoke.py`` holds
+    this to): with at most SITES_PER_BLOCK entries [gu | b_u | usq] each
+    entry is a thread's item ("entry" form); above, gu is dealt in
+    micro-tiles of rs samples x rv unknowns x GRAM_TILE_Q rows (rv 1 at
+    n_u = 1, else 2; rs = 4 / rv), ts x tv x tq of them, followed by b_u's
+    entries and usq, each an item ("tile" form). Items go to the block's
+    threads round robin."""
+    n_local = n_c * n_u * p + n_u * n_c + int(usq)
+    rv = 1 if n_u == 1 else 2
+    rs = 4 // rv
+    if n_local <= SITES_PER_BLOCK:
+        return {"tiled": False, "rs": rs, "rv": rv, "ts": 0, "tv": 0,
+                "tq": 0, "n_tiles": 0, "n_items": n_local}
+    ts, tv = -(-n_c // rs), -(-n_u // rv)
+    tq = -(-p // GRAM_TILE_Q)
+    n_tiles = ts * tv * tq
+    return {"tiled": True, "rs": rs, "rv": rv, "ts": ts, "tv": tv, "tq": tq,
+            "n_tiles": n_tiles, "n_items": n_tiles + n_u * n_c + int(usq)}
+
+
 def member_stride(t, name: str) -> int:
     """Elements between the members of ``t`` (B, ...), whose per-member
     block must be contiguous (a slice of a (B, p, n_s) alpha stack is)."""
@@ -296,13 +384,15 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
-    partials = uut.new_empty((n_entries, n_blocks))
+    # the partial sums and, behind them, the momentum table (n_steps + 1)
+    partials = uut.new_empty((n_entries * n_blocks + n_steps + 1,))
+    tab = partials[n_entries * n_blocks:]
     out = uut.new_empty((n_entries,))
     rows = scratch_rows(n_u, direct)
     scratch = uut.new_empty((rows, n)) if rows else None
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
-            partials.data_ptr(), out.data_ptr(),
+            tab.data_ptr(), partials.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), n, n_s, n_ct,
             n_u, n_steps, int(lagged), int(direct))
     with torch.cuda.device(ydt.device):
@@ -489,6 +579,7 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
     k7_smem(ut.element_size(), n_ct)
     lib = _build.load().lib
     u_out, up_out = torch.empty_like(ut), torch.empty_like(u_prev_t)
+    tab = ut.new_empty((n_steps + 1,))
     rows = scratch_rows(n_u, False)
     scratch = ut.new_empty((rows, n)) if rows else None
     dt_name = {torch.float32: "f32", torch.float64: "f64",
@@ -498,7 +589,7 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
         err = fn(yt.data_ptr(), dt.data_ptr(), rtt.data_ptr(),
                  a1_block.data_ptr(), a2_block.data_ptr(), ut.data_ptr(),
                  u_prev_t.data_ptr(), u_out.data_ptr(), up_out.data_ptr(),
-                 scal.data_ptr(),
+                 scal.data_ptr(), tab.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, int(lagged),
                  torch.cuda.current_stream(yt.device).cuda_stream)

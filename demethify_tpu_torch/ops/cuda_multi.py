@@ -141,7 +141,10 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
-    partials = uut_b.new_empty((n_b * n_entries, n_blocks))
+    # the partial sums and, behind them, the members' momentum tables
+    partials = uut_b.new_empty((n_b * n_entries * n_blocks
+                                + n_b * (n_steps + 1),))
+    tab = partials[n_b * n_entries * n_blocks:]
     out = uut_b.new_empty((n_b, n_entries))
     rows = scratch_rows(n_u, False)
     scratch = uut_b.new_empty((rows, n)) if rows else None
@@ -154,8 +157,8 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  uut_b.data_ptr(),
                  None if weights is None else weights.data_ptr(),
                  0 if weights is None else weights.stride(0),
-                 scal_b.data_ptr(), N_SCAL_MULTI, partials.data_ptr(),
-                 out.data_ptr(),
+                 scal_b.data_ptr(), N_SCAL_MULTI, tab.data_ptr(),
+                 partials.data_ptr(), out.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")

@@ -33,7 +33,10 @@ member).
 Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers;
 above, the kernels' wide form keeps each warp's column in its own slab of
 shared memory (``glue_smem``); past one slab they raise, stating the
-shape.
+shape. K2's and K5's register form runs its warp collectives to a row
+bucket of 8, 16 or 32 lanes and gives every column its own warp, over
+several blocks past 16 columns (``alpha_plan``), with the cost summed in
+a fixed order that does not depend on the grid.
 
 ``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
 are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
@@ -84,12 +87,63 @@ REG_P = 32     # rows the register form holds, one lane per row (kMaxP)
 # the wide form's slabs may take the card's limit less 1 KB for the
 # kernels' static shared memory (small_common.cuh, kGlueSmemLimit)
 _GLUE_LIMIT = SMEM_LIMIT - 1024
+# K2/K5's register form: its row buckets, and how it spreads the columns
+# (one block up to ONE_BLOCK_COLUMNS, then blocks of BLOCK_COLUMNS)
+ROW_BUCKETS = (8, 16, 32)
+ONE_BLOCK_COLUMNS = 16
+BLOCK_COLUMNS = 8
+
+
+def alpha_plan(p: int, n_s: int):
+    """(row bucket, columns per block, blocks per member) of K2's and K5's
+    register form (p <= 32; ``csrc/alpha_phase_full.cu``): the smallest
+    bucket P >= p, to which every warp collective of a step runs; one warp
+    per column, all n_s columns in one block up to ONE_BLOCK_COLUMNS, else
+    blocks of BLOCK_COLUMNS (columns [x cols, (x + 1) cols) in block x).
+    The kernel sums the columns' cost terms in a fixed order whatever the
+    grid: column s into group s mod min(n_s, 32), each group in column
+    order, then the groups in order."""
+    bucket = next(b for b in ROW_BUCKETS if b >= p)
+    cols = n_s if n_s <= ONE_BLOCK_COLUMNS else BLOCK_COLUMNS
+    return bucket, cols, -(-n_s // cols)
+
+
+# per (device, dtype): K2/K5's per-column cost terms and their members'
+# finished-block tickets (int32, zero between launches: the last block
+# of a member resets its own). Reused by every launch, which is safe as
+# the launches run on one stream one after another (the solvers' way); a
+# fresh ticket buffer would cost a fill launch per call
+_GLUE_SCRATCH = {}
+
+
+def _glue_scratch(like, n_b: int, n_s: int):
+    """(colsum (n_b, 3, n_s), tickets (n_b,)) for a register-form launch."""
+    key = (like.device, like.dtype)
+    colsum, tickets = _GLUE_SCRATCH.get(key, (None, None))
+    if colsum is None or colsum.numel() < n_b * 3 * n_s:
+        colsum = like.new_empty((n_b * 3 * n_s,))
+    if tickets is None or tickets.numel() < n_b:
+        tickets = torch.zeros((n_b,), dtype=torch.int32, device=like.device)
+    _GLUE_SCRATCH[key] = (colsum, tickets)
+    return colsum, tickets
+
+
+def _reg_args(like, n_b, p, n_s):
+    """The register form's (colsum, tickets, bucket, cols) launch
+    arguments; null buffers in the wide form (p > 32)."""
+    if p > REG_P:
+        return None, None, 0, 0
+    bucket, cols, _ = alpha_plan(p, n_s)
+    colsum, tickets = _glue_scratch(like, n_b, n_s)
+    return colsum.data_ptr(), tickets.data_ptr(), bucket, cols
 
 
 def glue_smem(itemsize: int, p: int, n_s: int):
     """(warps per block, dynamic shared memory in bytes) of the glue
     kernels at p rows and n_s columns: (min(n_s, 32), 0) in the register
-    form (p <= 32); in the wide form one slab of p x p + 6 p values per
+    form (p <= 32; K2's and K5's register form spreads its columns by
+    ``alpha_plan`` instead); in the wide form one slab of p x p + 6 p
+    values per
     warp and as many warps as fit, at most min(n_s, 32) -- the kernels'
     ``dm::glue_warps`` and ``dm_glue_smem``, which ``chip_smoke.py`` holds
     this to. 0 warps when one slab does not fit. A launch may take fewer
@@ -182,11 +236,12 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     fn = (lib.dm_alpha_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_alpha_phase_full_f64)
     with torch.cuda.device(alpha.device):
+        colsum, tickets, bucket, cols = _reg_args(alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), usq.data_ptr(), ydy.data_ptr(),
                  alpha.data_ptr(), alpha_prev.data_ptr(), scal.data_ptr(),
-                 None if mask is None else mask.data_ptr(), n_s, n_ct, n_u,
-                 n_steps, _stream(alpha))
+                 None if mask is None else mask.data_ptr(), colsum, tickets,
+                 n_s, n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
     _build.check(err, "alpha_phase_full")
     alpha_phase_full.launches += 1
     count_forms(alpha_phase_full.forms, wide=p > REG_P,
@@ -363,6 +418,7 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
           if alpha_b.dtype == torch.float32
           else lib.dm_alpha_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
+        colsum, tickets, bucket, cols = _reg_args(alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
@@ -371,7 +427,8 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
                  scal_b.data_ptr(), N_SCAL_MULTI,
                  None if mask is None else mask.data_ptr(),
                  p,                               # the mask's row stride
-                 n_s, n_ct, n_u, n_steps, n_b, _stream(alpha_b))
+                 colsum, tickets, n_s, n_ct, n_u, n_steps, bucket, cols, n_b,
+                 _stream(alpha_b))
     _build.check(err, name)
     alpha_phase_full_multi.launches += 1
     count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
