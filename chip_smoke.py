@@ -22,14 +22,21 @@ non-zero and prints no result line):
    500 steps; l = 0 and NaN; K1's, K4's and K7's slots), the Gram
    stage's plan against the kernels' export, K2 at each row bucket and
    at the cohort shape (p = 29, n_s = 100, several blocks: a second
-   launch bit-identical, and K5's member bit-identical to K2);
+   launch bit-identical, and K5's member bit-identical to K2); then the
+   redesigned pieces of K4 and K3: K4's member plan and Gram-stage plan
+   against the kernels' exports (B 1-32, n_u 1, 3, 8, 12, both layouts,
+   weighted), K3's row bucket against ``alpha_plan`` at p = 3, 6, 12,
+   29 with K3 against its twin there, K3 at n_s = 100 (several blocks)
+   in float32 and float64, and a second launch of K4 (B = 16) and of K3
+   (p = 29, n_s = 100) bit-identical to the first;
 5. K3 ``fw_phase_full`` against its twin at p = 6 and p = 26, 500
    Frank-Wolfe steps, float32 and float64, with the count of (step,
    column) vertex choices that differ from the twin's at the same iterate;
    then the multi-member kernels of the batched restarts against their
    twins, float32 and float64, with some members inactive (their state
    must come back bit-unchanged) and one active member against the
-   single-member kernel on its own inputs (bit for bit?): K4
+   single-member kernel on its own inputs (bit for bit, held for K4
+   and K6, reported for K5): K4
    ``u_phase_grams_multi`` at 1M sites (5 + 1, B = 16, 20 steps; n_ct = 0,
    n_u = 3, lagged, B = 8; 5 + 1, B = 8, 500 steps), K5
    ``alpha_phase_full_multi`` (B = 16, p = 6 and p = 3 without a known
@@ -832,6 +839,112 @@ def phase_redesign():
     return cohort
 
 
+# K4's member plan: (itemsize, n_s, n_ct, n_u, weighted) at B = 1-32,
+# in both layouts (the resident shapes of the restart and bootstrap paths,
+# the cohort's, n_u > 8)
+K4_PLAN_SHAPES = ((4, 10, 5, 1, False), (8, 10, 5, 1, False),
+                  (4, 10, 5, 1, True), (8, 10, 5, 1, True),
+                  (4, 10, 0, 3, False), (4, 10, 5, 8, False),
+                  (4, 10, 5, 12, True), (4, 100, 25, 4, False),
+                  (8, 100, 25, 4, True), (8, 100, 5, 12, False),
+                  (4, 500, 25, 4, False), (8, 37, 7, 3, True))
+K4_PLAN_MEMBERS = (1, 2, 3, 8, 16, 17, 32)
+# K3's row buckets: p = 3, 6, 12, 29 (buckets 8, 8, 16, 32)
+K3_BUCKET_P = (3, 6, 12, 29)
+
+
+def phase_redesign_k4k3():
+    """The redesigned pieces of K4 and K3 (their source notes): K4's
+    member plan (``dm_k4_member_plan`` against ``k4_member_plan`` at
+    B = 1-32, n_u 1, 3, 8, 12, both layouts, weighted or not) and its
+    Gram stage's items (``dm_k4_gram_plan`` against ``k4_gram_plan``);
+    K3's row bucket (``dm_row_bucket`` against ``alpha_plan``) at
+    p = 3, 6, 12, 29, each against its twin; K3 at n_s = 100 (blocks of
+    8 columns, the ticketed cost) against its twin in float32 and
+    float64; and two launches from the same inputs giving the same bits,
+    K4 (B = 16, 1M x 10) and K3 (p = 29, n_s = 100)."""
+    import ctypes
+
+    import torch
+
+    from demethify_tpu_torch.ops import _build
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        DMAX2, u_phase_layout)
+    from demethify_tpu_torch.ops.cuda_multi import (
+        k4_gram_plan, k4_member_plan, u_phase_grams_multi)
+    from demethify_tpu_torch.ops.cuda_small import alpha_plan, fw_phase_full
+
+    lib = _build.load().lib
+    bad, n_plans = [], 0
+    g_keys = ("tiled", "ts", "tl", "tq", "tp", "tb", "n_x", "n_self", "n_bu",
+              "n_usq", "o_self", "o_bu", "o_usq", "n_items")
+    for it, n_s, n_ct, n_u, w in K4_PLAN_SHAPES:
+        for layout in ("resident", "wide"):
+            for n_b in K4_PLAN_MEMBERS:
+                want = k4_member_plan(it, n_s, n_ct, n_u, n_b, w, layout)
+                out = (ctypes.c_longlong * 3)()
+                lib.dm_k4_member_plan(it, n_s, n_ct, n_u, n_b, int(w),
+                                      int(layout == "wide"), out)
+                got = dict(zip(("group", "smem", "blocks"),
+                               list(out)))
+                n_c = min(32, n_s) if layout == "wide" else n_s
+                gw = k4_gram_plan(n_c, n_ct, n_u, want["group"], True)
+                gout = (ctypes.c_int * 14)()
+                lib.dm_k4_gram_plan(n_c, n_ct, n_u, want["group"], 1, gout)
+                n_plans += 1
+                if got != want or list(gout) != [int(gw[k]) for k in g_keys]:
+                    bad.append(((it, n_s, n_ct, n_u, w, layout, n_b), got,
+                                want))
+    log(f"[redesign] K4 member plans: {n_plans} (shape, layout, B), "
+        f"dm_k4_member_plan and dm_k4_gram_plan against k4_member_plan and "
+        f"k4_gram_plan, {len(bad)} differ {bad[:3]}; e.g. B = 16 at the "
+        f"main shape: {k4_member_plan(4, N_S, N_CT, N_U, 16, False, 'resident')}"
+        f", weighted B = 32: "
+        f"{k4_member_plan(4, N_S, N_CT, N_U, 32, True, 'resident')}, the "
+        f"cohort's B = 4: "
+        f"{k4_member_plan(4, 100, 25, 4, 4, False, u_phase_layout('K4', 4, 100, 25, 4)[0])}")
+    check(not bad, "K4 member plans differ from the kernels'")
+
+    buckets = {p: (lib.dm_row_bucket(p), alpha_plan(p, N_S)[0])
+               for p in K3_BUCKET_P}
+    log(f"[redesign] K3 row buckets (dm_row_bucket, alpha_plan) by p: "
+        f"{buckets}")
+    check(all(a == b for a, b in buckets.values()),
+          "K3's row bucket differs from alpha_plan's")
+    for p in K3_BUCKET_P:
+        _k3_case(p - N_U, "float32", seed=60 + p)
+    for dt in ("float32", "float64"):
+        _k3_case(28, dt, n_s=100, seed=61)
+
+    ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+        N_CPG, N_S, N_CT, N_U, 16, torch.float32, 25, (3, 7, 11))
+    runs = []
+    for _ in range(2):
+        u, sc = uut_b.clone(), scal_b.clone()
+        runs.append((u, sc, *u_phase_grams_multi(
+            ydt, rtt, alpha_b[:, :-N_U], alpha_b[:, -N_U:], u, sc, N_INNER)))
+    act = [b for b in range(16) if b not in (3, 7, 11)]
+    k4_same = all(torch.equal(x, y) for x, y in zip(runs[0][:2], runs[1][:2]))
+    k4_same = k4_same and all(torch.equal(x[act], y[act])
+                              for x, y in zip(runs[0][2:], runs[1][2:]))
+    del ydt, rtt, alpha_b, uut_b, scal_b, runs
+    gtt, bt, gu, bu, _, ydy, alpha, ydt, _, scal = _small_inputs(
+        28, 1, "float32", 200_000, 62, 100)
+    scal[DMAX2] = ydt[100:].max() ** 2
+    purity = torch.linspace(0.3, 0.9, 100, device=DEV, dtype=alpha.dtype)
+    k3 = []
+    for _ in range(2):
+        a, sc = alpha.clone(), scal.clone()
+        fw_phase_full(gtt, bt, gu, bu, ydy, a, purity, sc, P_INNER, 1)
+        k3.append((a, sc))
+    torch.cuda.synchronize()
+    k3_same = all(torch.equal(x, y) for x, y in zip(*k3))
+    log(f"[redesign] a second launch from the same inputs bit-identical: K4 "
+        f"(B = 16, 1M x 10) {k4_same}, K3 (p = 29, n_s = 100, "
+        f"{alpha_plan(29, 100)}) {k3_same}")
+    check(k4_same and k3_same, "K4 or K3 does not repeat its bits")
+
+
 def _k2_repeat(n_ct, n_u, n_s):
     """K2 twice from the same inputs at a multi-block shape: the same
     bits (the member's tickets are back at zero after each launch)."""
@@ -1079,6 +1192,7 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
           f"K4 Grams differ from the twin by {max(err_g, err_b, err_q)}")
     check(err_s <= tol["gram"], f"K4 scalars differ by {err_s}")
     check(frozen, "K4 changed an inactive member")
+    check(same_k1, f"K4's member {b0} differs from K1 on its inputs")
     return res
 
 
@@ -1380,6 +1494,7 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
     check(err_m <= 10 * K3_TOL[dtype_name] + 1e-6,
           f"K6 known-block mass off the purity by {err_m}")
     check(frozen, "K6 changed an inactive member")
+    check(same_k3, f"K6's member {b0} differs from K3 on its inputs")
     return res
 
 
@@ -4292,8 +4407,102 @@ def k1_main_outputs(root, path, shape="main"):
         uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}, path)
 
 
+# K4's outputs at the shapes its redesign keeps the bits of:
+# (n, n_s, n_ct, n_u, B, steps, state, data, lagged, weighted, inactive,
+# seed); "wide" and "n_u12" take the wide layout
+K4_OUTPUT_SHAPES = {
+    "main": (N_CPG, N_S, N_CT, N_U, 16, N_INNER, "float32", None, False,
+             False, (3, 7, 11), 20),
+    "main64": (N_CPG, N_S, N_CT, N_U, 16, N_INNER, "float64", None, False,
+               False, (3, 7, 11), 20),
+    "unsupervised": (N_CPG, N_S, 0, U_N_U, 8, N_INNER, "float32", None,
+                     True, False, (5,), 21),
+    "purity": (N_CPG, N_S, N_CT, N_U, 8, P_INNER, "float32", None, False,
+               False, (2,), 22),
+    "weighted": (N_CPG, N_S, N_CT, N_U, 32, N_INNER, "float32", None, False,
+                 True, (), 50),
+    "bf16": (N_CPG, N_S, N_CT, N_U, 16, N_INNER, "float32", "bfloat16",
+             False, False, (3,), 23),
+    "wide": (200_000, 100, 25, 4, 4, N_INNER, "float32", None, False, False,
+             (1,), 24),
+    "n_u12": (200_000, 100, 5, 12, 4, N_INNER, "float64", None, False,
+              False, (2,), 94),
+}
+
+
+def k4_main_outputs(root, path, shape="main"):
+    """Saves K4's outputs at ``shape`` of ``K4_OUTPUT_SHAPES`` from the
+    tree at ``root`` to ``path``: every member's [u; u_prev] rows and
+    scalar row (the inactive members' must come back unchanged) and the
+    active members' gu, b_u and usq (an inactive member's are
+    unspecified), one launch on ``_multi_inputs``' data; for a
+    bit-for-bit comparison of two trees on one card with
+    ``same_outputs``:
+
+        python3 -c 'import chip_smoke; chip_smoke.k4_main_outputs("DIR", "OUT.pt", "main")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+
+    (n, n_s, n_ct, n_u, n_b, steps, dt, data, lagged, weighted, inactive,
+     seed) = K4_OUTPUT_SHAPES[shape]
+    dtype = getattr(torch, dt)
+    ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+        n, n_s, n_ct, n_u, n_b, dtype, seed, inactive)
+    if data is not None:
+        ydt = ydt.to(getattr(torch, data))
+        rtt = None if rtt is None else rtt.to(ydt.dtype)
+    w = resample_weights(n_b, n, dtype, seed) if weighted else None
+    a1 = alpha_b[:, :-n_u] if n_ct else None
+    gu, bu, usq = u_phase_grams_multi(ydt, rtt, a1, alpha_b[:, -n_u:], uut_b,
+                                      scal_b, steps, lagged, weights=w)
+    act = [b for b in range(n_b) if b not in inactive]
+    torch.save({k: v.cpu() for k, v in dict(
+        uut=uut_b, scal=scal_b, gu=gu[act], bu=bu[act],
+        usq=usq[act]).items()}, path)
+
+
+def k3_main_outputs(root, path):
+    """Saves K3's outputs (alpha, scalars) at p = 6, n_s = 10 and at
+    p = 29, n_s = 100 (the cohort's, several blocks), 500 steps, float32
+    and float64, and K6's at B = 8 (p = 6, one member inactive), float32,
+    from the tree at ``root`` to ``path``, for a bit-for-bit comparison of
+    two trees on one card with ``same_outputs``:
+
+        python3 -c 'import chip_smoke; chip_smoke.k3_main_outputs("DIR", "OUT.pt")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import DMAX2
+    from demethify_tpu_torch.ops.cuda_small import (
+        fw_phase_full, fw_phase_full_multi)
+
+    saved = {}
+    for n_ct, n_u, n_s in GLUE_OUTPUT_SHAPES.values():
+        for dt in ("float32", "float64"):
+            gtt, bt, gu, bu, _, ydy, alpha, ydt, _, scal = _small_inputs(
+                n_ct, n_u, dt, 200_000, 3, n_s)
+            scal[DMAX2] = ydt[n_s:].max() ** 2
+            purity = torch.linspace(0.3, 0.9, n_s, device=DEV,
+                                    dtype=alpha.dtype)
+            fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal,
+                          P_INNER, n_u)
+            saved.update({f"k3_alpha_{n_s}_{dt}": alpha,
+                          f"k3_scal_{n_s}_{dt}": scal})
+    (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+     scal_b) = _glue_multi_inputs(N_CT, N_U, "float32", 8, (5,), 40)
+    purity = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=alpha_b.dtype)
+    fw_phase_full_multi(gtt, bt, gu, bu, ydy, alpha_b, purity, scal_b,
+                        P_INNER, N_U)
+    saved.update({"k6_alpha": alpha_b, "k6_scal": scal_b})
+    torch.save({k: v.cpu() for k, v in saved.items()}, path)
+
+
 def same_outputs(path_a, path_b):
-    """Prints whether two ``k1_main_outputs`` files hold the same bits."""
+    """Prints whether two ``*_main_outputs`` files hold the same bits."""
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
@@ -4310,11 +4519,16 @@ def time_main_path(root):
     shape (1M x 100, 25 + 4, float32), K2 there (p = 29, n_s = 100), K4
     and K5 at the partial-reference restart path's shape
     (B = 16, shared known blocks: the timed cases of phase 5; K5 also
-    queued behind a device sleep, its device time alone) and the
-    main path's ms per outer iteration, 300 x 20 through
+    queued behind a device sleep, its device time alone), K4 with weights
+    at B = 32, K3 at the purity schedule's 500 steps (p = 6, n_s = 10, and
+    p = 29, n_s = 100), K6 at B = 8, the main path's ms per outer
+    iteration, 300 x 20 through
     ``solvers.api.partial_reference_deconv`` on ``make_problem``'s data
     (tol = 0), five times, and the same call at 1 x 20 (the solve's fixed
-    cost, set-up and result, plus one iteration), seven times. Two trees unpacked side by side, a change and
+    cost, set-up and result, plus one iteration), seven times, the 16
+    batched restarts' ms per outer iteration (100 x 20, three times) and
+    the purity path's (20 x 500, three times). Two trees unpacked side by
+    side, a change and
     its parent, are compared on one card by timing them in turns, one
     process each (parent, change, change, parent):
 
@@ -4325,7 +4539,8 @@ def time_main_path(root):
     import torch
 
     from demethify_tpu_torch import state
-    from demethify_tpu_torch.solvers.api import partial_reference_deconv
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv)
 
     check(torch.cuda.is_available(), "time_main_path needs a GPU")
     card = phase_device()
@@ -4340,7 +4555,12 @@ def time_main_path(root):
                          timed=True)
     k4 = _k4_case(N_U, "float32", 16, N_INNER, inactive=(3, 7, 11),
                   timed=True, label="[restarts]")
+    k4w = _k4w_case(N_U, "float32", 32, N_INNER, inactive=(3, 7, 11, 30),
+                    timed=True, label="[bootstrap]")
     k5 = _k5_case(N_CT, N_U, "float32", 16, (2, 9), timed=True)
+    k3 = _k3_case(N_CT, "float32", timed=True)
+    k3_cohort = _k3_case(28, "float32", n_s=100, seed=61, timed=True)
+    k6 = _k6_case("float32", timed=True)
     u0, a0, y, d, Rt = state.from_numpy(*make_problem(), device=DEV,
                                         dtype=torch.float32)
     kw = dict(n_iter2=N_INNER, tol=0.0, init_provided=(u0, a0))
@@ -4353,16 +4573,30 @@ def time_main_path(root):
         main_ms.append(ms / n_iter)
     one_ms = [timed_ms(lambda: partial_reference_deconv(
         y, d, Rt, N_U, n_iter1=1, **kw))[1] for _ in range(7)]
+    # the 16 batched restarts (100 x 20) and the purity path (20 x 500)
+    kw_r = dict(n_iter2=N_INNER, tol=0.0, seed=3, n_restarts=16)
+    partial_reference_deconv(y, d, Rt, N_U, n_iter1=2, **kw_r)      # warm
+    restart_ms = [timed_ms(lambda: partial_reference_deconv(
+        y, d, Rt, N_U, n_iter1=100, **kw_r))[1] / 100 for _ in range(3)]
+    pur = state.purity_from_numpy(purity_draw(0), device=DEV,
+                                  dtype=torch.float32)
+    kw_p = dict(n_iter2=P_INNER, tol=0.0, init_provided=(u0, a0))
+    purity_deconv(y, d, Rt, N_U, pur, n_iter1=2, **kw_p)            # warm
+    purity_ms = [timed_ms(lambda: purity_deconv(
+        y, d, Rt, N_U, pur, n_iter1=20, **kw_p))[1] / 20 for _ in range(3)]
     print(json.dumps({"root": root, "card": card, "k1_ms": k1["ms"],
                       "k2_ms": k2["ms"], "k1_purity_ms": k1_purity["ms"],
                       "k1_cohort_ms": k1_cohort["ms"],
                       "k2_cohort_ms": k2_cohort["ms"],
                       "k2_queued_ms": k2.get("queued_ms"),
                       "k2_cohort_queued_ms": k2_cohort.get("queued_ms"),
-                      "k4_ms": k4["ms"], "k5_ms": k5["ms"],
-                      "k5_queued_ms": k5["queued_ms"],
-                      "main_ms_per_iter": main_ms,
-                      "one_iteration_solve_ms": one_ms}), flush=True)
+                      "k4_ms": k4["ms"], "k4w_ms": k4w["ms"],
+                      "k5_ms": k5["ms"], "k5_queued_ms": k5["queued_ms"],
+                      "k3_ms": k3["ms"], "k3_cohort_ms": k3_cohort["ms"],
+                      "k6_ms": k6["ms"], "main_ms_per_iter": main_ms,
+                      "one_iteration_solve_ms": one_ms,
+                      "restarts16_ms_per_iter": restart_ms,
+                      "purity_ms_per_iter": purity_ms}), flush=True)
 
 
 
@@ -4422,10 +4656,11 @@ def time_steps(root="."):
 
 def profile_kernels(root="."):
     """Device time per CUDA kernel (``torch.profiler``, its key averages)
-    of K1 at the main path's and the cohort shape and of K2 at p = 6 and
-    at p = 29, n_s = 100, launched back to back from the tree at
-    ``root``: each launch's kernels (K1: the momentum-table prologue, the
-    main pass, the fixed-order reduction) with their mean device time.
+    of K1 at the main path's and the cohort shape, of K2 and K3 (500
+    steps) at p = 6 and at p = 29, n_s = 100, and of K4 at B = 16 and
+    weighted at B = 32 (1M x 10), launched back to back from the tree at
+    ``root``: each launch's kernels (K1, K4: the prologue, the main pass,
+    the fixed-order reduction) with their mean device time.
     Prints one JSON line:
 
         python3 -c 'import chip_smoke; chip_smoke.profile_kernels()'
@@ -4436,7 +4671,9 @@ def profile_kernels(root="."):
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_ALPHA, DMAX2, L_H_PREV, RT_SQ, u_phase_grams)
-    from demethify_tpu_torch.ops.cuda_small import alpha_phase_full
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, fw_phase_full)
 
     check(torch.cuda.is_available(), "profile_kernels needs a GPU")
     card = phase_device()
@@ -4458,6 +4695,19 @@ def profile_kernels(root="."):
         calls[name] = functools.partial(
             alpha_phase_full, gtt, bt, gu, bu, usq, ydy, alpha.clone(),
             alpha.clone(), scal, N_INNER, n_u)
+        purity = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
+        calls["K3" + name[2:]] = functools.partial(
+            fw_phase_full, gtt, bt, gu, bu, ydy, alpha.clone(), purity,
+            scal.clone(), P_INNER, n_u)
+    for name, n_b, weighted in (("K4 B=16", 16, False),
+                                ("K4 weighted B=32", 32, True)):
+        ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+            N_CPG, N_S, N_CT, N_U, n_b, torch.float32, 20)
+        w = (resample_weights(n_b, N_CPG, torch.float32, 50) if weighted
+             else None)
+        calls[name] = functools.partial(
+            u_phase_grams_multi, ydt, rtt, alpha_b[:, :-N_U],
+            alpha_b[:, -N_U:], uut_b, scal_b, N_INNER, weights=w)
     rows = []
     for name, fn in calls.items():
         for _ in range(3):
@@ -4681,6 +4931,14 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             "folded)", err=folded["max_abs_err"])]
 
 
+# what the kernels line says of the kernels this round redesigned
+K3_REDESIGN = ("row bucket P >= p; step sizes from a table; a warp per "
+               "column over several blocks past 16 columns")
+K4_REDESIGN = ("members in groups (k4_member_plan): steps back to back, "
+               "one Gram stage a group in tiles across the members; "
+               "partials (n_blocks, B E)")
+
+
 def _single_phase_rows(single):
     """The kernels JSON line's rows of K7-K10: K7, K8 and K9 with their
     launches from the composed loop's full-width run, K10 with its
@@ -4709,9 +4967,11 @@ def _single_phase_rows(single):
         row("alpha_phase", "alpha_phase.cu",
             "demethify_tpu/ops/pallas_small.py:70 (via :97)", k9,
             launches["alpha_phase"], k9["alpha_max_abs"]),
-        row("fw_phase", "fw_phase.cu",
-            "demethify_tpu/ops/pallas_small.py:204 (via :213)", k10,
-            single["k10_launches"], k10["alpha_max_abs"])]
+        dict(row("fw_phase", "fw_phase.cu",
+                 "demethify_tpu/ops/pallas_small.py:204 (via :213)", k10,
+                 single["k10_launches"], k10["alpha_max_abs"]),
+             redesigned="K3's loop: row bucket P >= p; step sizes from a "
+                        "table")]
 
 
 def main():
@@ -4736,6 +4996,7 @@ def main():
     k1_bf16, k1_bf16c = phase_k1_bf16()
     k2 = phase_k2()
     k2_cohort = phase_redesign()
+    phase_redesign_k4k3()
     k3 = phase_k3()
     k4, k4_uns, k4_pur = phase_k4()
     k5 = phase_k5()
@@ -4825,7 +5086,8 @@ def main():
          "launches": p_launches["fw_phase_full"],
          "max_abs_err": k3["alpha_max_abs"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3_b[0],
-         "bound_by": k3_b[1], "library_ms": None},
+         "bound_by": k3_b[1], "library_ms": None,
+         "redesigned": K3_REDESIGN},
         {"name": "u_phase_grams_multi", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
          "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (via :1123)",
@@ -4833,7 +5095,8 @@ def main():
              "u_phase_grams_multi"],
          "max_abs_err": k4["u_max_abs"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-         "bound_by": k4["bound_by"], "library_ms": None},
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "redesigned": K4_REDESIGN},
         {"name": "alpha_phase_full_multi", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
          "replaces": "demethify_tpu/ops/pallas_small.py:388 (via :485)",
@@ -4848,7 +5111,8 @@ def main():
          "launches": restarts["purity"]["launches"]["fw_phase_full_multi"],
          "max_abs_err": k6["alpha_max_abs"], "ms": k6["ms"],
          "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None},
+         "bound_by": k6["bound_by"], "library_ms": None,
+         "redesigned": K3_REDESIGN},
         {"name": "u_phase_grams_multi[weights]", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
          "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (weights "
@@ -4857,7 +5121,8 @@ def main():
              "u_phase_grams_multi"],
          "max_abs_err": k4w["u_max_abs"], "ms": k4w["ms"],
          "plain_ms": k4w["plain_ms"], "bound_ms": k4w["bound_ms"],
-         "bound_by": k4w["bound_by"], "library_ms": None},
+         "bound_by": k4w["bound_by"], "library_ms": None,
+         "redesigned": K4_REDESIGN},
         {"name": "alpha_phase_full_multi[per-member known blocks]",
          "route": "cuda",
          "source": "demethify_tpu_torch/csrc/alpha_phase_full.cu",
@@ -4877,7 +5142,8 @@ def main():
              "fw_phase_full_multi"],
          "max_abs_err": k6w["alpha_max_abs"], "ms": k6w["ms"],
          "plain_ms": k6w["plain_ms"], "bound_ms": k6w["bound_ms"],
-         "bound_by": k6w["bound_by"], "library_ms": None},
+         "bound_by": k6w["bound_by"], "library_ms": None,
+         "redesigned": K3_REDESIGN},
         {"name": "u_phase_grams[bf16]", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/u_phase_grams.cu",
          "replaces": "demethify_tpu/ops/pallas_kernels.py:218 (bf16 blocks "
@@ -4903,7 +5169,8 @@ def main():
              "u_phase_grams_multi[bf16]"],
          "max_abs_err": k4_bf16["u_max_abs"], "ms": k4_bf16["ms"],
          "plain_ms": k4_bf16["plain_ms"], "bound_ms": k4_bf16["bound_ms"],
-         "bound_by": k4_bf16["bound_by"], "library_ms": None},
+         "bound_by": k4_bf16["bound_by"], "library_ms": None,
+         "redesigned": K4_REDESIGN},
         {"name": "u_phase_grams_multi[bf16,weights]", "route": "cuda",
          "source": "demethify_tpu_torch/csrc/u_phase_grams_multi.cu",
          "replaces": "demethify_tpu/ops/pallas_kernels.py:828 (bf16 blocks "
@@ -4912,7 +5179,8 @@ def main():
              "u_phase_grams_multi[bf16]"],
          "max_abs_err": k4w_bf16["u_max_abs"], "ms": k4w_bf16["ms"],
          "plain_ms": k4w_bf16["plain_ms"], "bound_ms": k4w_bf16["bound_ms"],
-         "bound_by": k4w_bf16["bound_by"], "library_ms": None}]}
+         "bound_by": k4w_bf16["bound_by"], "library_ms": None,
+         "redesigned": K4_REDESIGN}]}
     kernels["kernels"].extend(_envelope_rows(
         wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
         mask_paths, env))

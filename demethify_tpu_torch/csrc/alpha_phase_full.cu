@@ -197,36 +197,15 @@ alpha_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
         }
     }
     // the member's last block sums the columns in the fixed order
-    if (gridDim.x > 1) __threadfence();
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    if (gridDim.x > 1) {
-        if (atomicAdd(&tickets[mb], 1u) != gridDim.x - 1) return;
-        __threadfence();
-        tickets[mb] = 0;                   // zero for the next launch
-    }
-    const int groups = n_s < 32 ? n_s : 32;
-    T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
-    for (int k = 0; k < n_s; ++k) s_ydy += m.ydy[k];
-    for (int w = 0; w < groups; ++w) {
-        T g_ba = T(0), g_ag = T(0), g_lw = T(0);
-        for (int k = w; k < n_s; k += groups) {
-            g_ba += __ldcg(cs + k);
-            g_ag += __ldcg(cs + n_s + k);
-            g_lw += __ldcg(cs + 2 * n_s + k);
-        }
-        s_ba += g_ba;
-        s_ag += g_ag;
-        s_lw += g_lw;
-    }
+    T cost, lw;
+    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
     T a_fin = a0;
     if (use_table) {
         a_fin = tab[n_steps];
     } else {
         for (int step = 0; step < n_steps; ++step) a_fin = dm::nesterov(a_fin);
     }
-    finish_member<T, MULTI>(m.scal, s_ydy - s_ba - s_ag, s_lw, a_fin, l_h,
-                            n_steps);
+    finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
 }
 
 // The wide form (p > 32): one block per member, each warp's column in its
@@ -426,6 +405,9 @@ DM_K5_ENTRY(dm_alpha_phase_full_multi_f64, double)
 // The wide form's dynamic shared memory at p rows and n_s columns, in
 // bytes (0 in the register form, p <= 32); above the card's limit when
 // one warp's slab does not fit (the wrapper raises). Shared with K3/K6.
+// The register form's row bucket at p rows (K2, K3, K5, K6, K10)
+int dm_row_bucket(int p) { return dm::row_bucket(p); }
+
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     const int w = dm::glue_warps(itemsize, p, n_s);

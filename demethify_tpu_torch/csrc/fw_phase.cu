@@ -19,7 +19,9 @@
 // block, one warp per sample column: lane q holds row q of G_s, b_s and
 // the column in registers (p <= 32), the product reads the column from
 // the other lanes by shuffle and each block's minimum is a butterfly
-// inside the warp; above 32 rows the warp's column lives in its own slab
+// inside the warp, both over K3's row bucket (8, 16 or 32 lanes,
+// dm::row_bucket), with the step sizes from a table divided once per
+// launch, as K3; above 32 rows the warp's column lives in its own slab
 // of shared memory (the wide form, dm_glue_smem's size). alpha1 and
 // alpha2 are read from their inputs and written to separate outputs, so
 // the inputs stay as they were and no stacked copy is made.
@@ -43,12 +45,17 @@ __device__ __forceinline__ auto& alpha_at(P a1, P a2, int q, int s, int p1,
     return q < p1 ? a1[q * n_s + s] : a2[(q - p1) * n_s + s];
 }
 
-template <typename T, bool WIDE>
+// the step-size table stays in shared memory up to this many bytes
+constexpr size_t kTabSmem = 48 * 1024;
+
+// P: the register form's row bucket (0 in the wide form)
+template <typename T, bool WIDE, int P>
 __global__ void fw_phase_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ a1_in, const T* __restrict__ a2_in,
         T* __restrict__ a1, T* __restrict__ a2,
-        const T* __restrict__ purity, int p, int p1, int n_s, int n_steps) {
+        const T* __restrict__ purity, int p, int p1, int n_s, int n_steps,
+        int use_table) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
@@ -76,31 +83,43 @@ __global__ void fw_phase_kernel(
             __syncwarp();    // the slab is free for the next column
         }
     } else {
+        extern __shared__ __align__(16) unsigned char smem_raw[];
+        T* tab = use_table ? reinterpret_cast<T*>(smem_raw) : nullptr;
+        if (use_table) {
+            dm::fw_gamma_table(tab, n_steps, static_cast<int>(threadIdx.x),
+                               static_cast<int>(blockDim.x));
+            __syncthreads();
+        }
         for (int s = warp; s < n_s; s += n_warps) {
-            T g[kMaxP];
+            T g[P];
 #pragma unroll
-            for (int r = 0; r < kMaxP; ++r)
+            for (int r = 0; r < P; ++r)
                 g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
             const T bq = row ? b[lane * n_s + s] : T(0);
             T al = row ? alpha_at(a1_in, a2_in, lane, s, p1, n_s) : T(0);
             const T pur = purity[s];
-            dm::fw_steps_reg(g, bq, al, lane, p, p1, pur, T(1) - pur,
+            dm::fw_steps_reg(g, bq, al, lane, p, p1, pur, T(1) - pur, tab,
                              n_steps);
             if (row) alpha_at(a1, a2, lane, s, p1, n_s) = al;
         }
     }
 }
 
-template <typename T, bool WIDE>
+template <typename T, bool WIDE, int P>
 int launch_form(const void* G, const void* b, const void* a1_in,
                 const void* a2_in, void* a1, void* a2, const void* purity,
                 int p, int p1, int n_s, int n_steps, cudaStream_t stream) {
-    auto kern = fw_phase_kernel<T, WIDE>;
+    auto kern = fw_phase_kernel<T, WIDE, P>;
     static const int max_warps = dm::max_block_warps(kern);
     int n_warps = n_s < 32 ? n_s : 32;
     n_warps = n_warps < max_warps ? n_warps : max_warps;
     size_t smem = 0;
-    if constexpr (WIDE) {
+    int use_table = 0;
+    if constexpr (!WIDE) {
+        const size_t tab = static_cast<size_t>(n_steps) * sizeof(T);
+        use_table = tab <= kTabSmem;
+        smem = use_table ? tab : 0;
+    } else {
         const int fit = dm::glue_warps(sizeof(T), p, n_s);
         if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
         n_warps = fit < n_warps ? fit : n_warps;
@@ -116,7 +135,7 @@ int launch_form(const void* G, const void* b, const void* a1_in,
         static_cast<const T*>(G), static_cast<const T*>(b),
         static_cast<const T*>(a1_in), static_cast<const T*>(a2_in),
         static_cast<T*>(a1), static_cast<T*>(a2),
-        static_cast<const T*>(purity), p, p1, n_s, n_steps);
+        static_cast<const T*>(purity), p, p1, n_s, n_steps, use_table);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,10 +147,20 @@ int launch(const void* G, const void* b, const void* a1_in,
     if (p1 < 1 || p1 >= p || n_s < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
-        return launch_form<T, true>(G, b, a1_in, a2_in, a1, a2, purity, p,
-                                    p1, n_s, n_steps, s);
-    return launch_form<T, false>(G, b, a1_in, a2_in, a1, a2, purity, p, p1,
-                                 n_s, n_steps, s);
+        return launch_form<T, true, 0>(G, b, a1_in, a2_in, a1, a2, purity, p,
+                                       p1, n_s, n_steps, s);
+    switch (dm::row_bucket(p)) {
+        case 8:
+            return launch_form<T, false, 8>(G, b, a1_in, a2_in, a1, a2,
+                                            purity, p, p1, n_s, n_steps, s);
+        case 16:
+            return launch_form<T, false, 16>(G, b, a1_in, a2_in, a1, a2,
+                                             purity, p, p1, n_s, n_steps, s);
+        default:
+            return launch_form<T, false, kMaxP>(G, b, a1_in, a2_in, a1, a2,
+                                                purity, p, p1, n_s, n_steps,
+                                                s);
+    }
 }
 
 }  // namespace

@@ -26,10 +26,13 @@
 // the ranks' values are gathered by P independent ballots and shuffles
 // before the cumulative sum, so they overlap; and its betas can come from
 // a momentum table the kernel builds once (small_common.cuh), one
-// shared-memory read a step. None of this changes an operation on a
-// value: the product sums rows in index order, the rank is stable by
-// comparison, the cumulative sum runs in rank order and rho is the last
-// index, so the bits are those of a 32-lane loop.
+// shared-memory read a step. The Frank-Wolfe loop takes the same bucket
+// (its product and both block minima run to P lanes) and reads its step
+// sizes from a table divided once per launch (fw_gamma_table). None of
+// this changes an operation on a value: the product sums rows in index
+// order, the rank is stable by comparison, the cumulative sum runs in
+// rank order and rho is the last index, and a block minimum compares
+// equal to the 32-lane one, so the bits are those of a 32-lane loop.
 
 #pragma once
 
@@ -219,11 +222,12 @@ template <> __device__ __forceinline__ double pos_inf<double>() {
     return CUDART_INF;
 }
 
-// NaN-propagating minimum over the warp, in every lane
-template <typename T>
+// NaN-propagating minimum over lanes [0, P) (a butterfly of log2 P
+// levels), in each of those lanes; P = 32 is the whole warp
+template <typename T, int P = kMaxP>
 __device__ __forceinline__ T warp_min(T x) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+    for (int off = P / 2; off > 0; off >>= 1)
         x = min_nan(x, __shfl_xor_sync(kFull, x, off));
     return x;
 }
@@ -234,17 +238,35 @@ __device__ __forceinline__ int first_row(bool hit, int p) {
     return who ? __ffs(who) - 1 : p;
 }
 
-// n_steps Frank-Wolfe steps on one column in the register form: lane q
-// holds row q of G_s (g), b_s (b) and alpha (al, updated in place); rows
-// q < n_ct form the known block (vertex mass pur), the others the
-// unknown block (mass pur2). Each block's minimum is a butterfly of
-// NaN-propagating minima over the warp (padding lanes hold +inf, the
-// other block's rows the TPU kernel's 3.4e38 mask), and the first row
-// holding it is the lowest set bit of a ballot -- the tie rule of argmin.
+// The Frank-Wolfe step sizes gamma_k = 2 / (k + 2), k < n_steps, into
+// tab by n_threads threads (the division each step of the loop did, so
+// the same bits); the caller synchronises before the steps read them.
 template <typename T>
-__device__ __forceinline__ void fw_steps_reg(const T (&g)[kMaxP], T b,
-                                             T& al, int lane, int p,
-                                             int n_ct, T pur, T pur2,
+__device__ __forceinline__ void fw_gamma_table(T* __restrict__ tab,
+                                               int n_steps, int tid,
+                                               int n_threads) {
+    for (int k = tid; k < n_steps; k += n_threads)
+        tab[k] = T(2) / (static_cast<T>(k) + T(2));
+}
+
+// n_steps Frank-Wolfe steps on one column in the register form: lane q
+// holds row q of G_s (g, the P entries of the row bucket P >= p), b_s (b)
+// and alpha (al, updated in place); rows q < n_ct form the known block
+// (vertex mass pur), the others the unknown block (mass pur2). Each
+// block's minimum is a butterfly of NaN-propagating minima over the
+// bucket's P lanes (padding lanes hold +inf, the other block's rows the
+// TPU kernel's 3.4e38 mask; lanes >= P never take part), and the first
+// row holding it is the lowest set bit of a ballot -- the tie rule of
+// argmin. gamma_tab holds the step sizes (fw_gamma_table), or is null:
+// then each step divides, the same values. The bucket changes no value:
+// the product sums rows in index order, a minimum over the same values
+// compares equal to the 32-lane one (it may pick the other zero of -0 and
+// +0, which compare equal, and a NaN minimum matches no row either way).
+template <typename T, int P>
+__device__ __forceinline__ void fw_steps_reg(const T (&g)[P], T b, T& al,
+                                             int lane, int p, int n_ct,
+                                             T pur, T pur2,
+                                             const T* __restrict__ gamma_tab,
                                              int n_steps) {
     const bool row = lane < p;
     const bool known = lane < n_ct;
@@ -254,14 +276,16 @@ __device__ __forceinline__ void fw_steps_reg(const T (&g)[kMaxP], T b,
         const T grad = -(b - gram_matvec(g, al, p));
         const T g1 = row ? (known ? grad : big) : pad;
         const T g2 = row ? (known ? big : grad) : pad;
-        const T m1 = warp_min(g1);
-        const T m2 = warp_min(g2);
+        const T m1 = warp_min<T, P>(g1);
+        const T m2 = warp_min<T, P>(g2);
         const int idx1 = first_row(row && g1 == m1, p);
         const int idx2 = first_row(row && g2 == m2, p);
         const T e1 = (row && lane == idx1) ? T(1) : T(0);
         const T e2 = (row && lane == idx2) ? T(1) : T(0);
         const T vert = e1 * pur + e2 * pur2;
-        const T gamma = T(2) / (static_cast<T>(k) + T(2));
+        const T gamma = gamma_tab != nullptr
+                            ? gamma_tab[k]
+                            : T(2) / (static_cast<T>(k) + T(2));
         al = (T(1) - gamma) * al + gamma * vert;
     }
 }

@@ -257,6 +257,55 @@ __device__ __forceinline__ bool block_cost(T sum_ba, T sum_ag, T sum_lw,
     return true;
 }
 
+// The register forms' cost epilogue over a grid (K2, K5, K3, K6): each
+// column's warp has written its terms b.a, a.(b - G a) and
+// ||alpha_unknown||^2 to cs[s], cs[n_s + s], cs[2 n_s + s]. The member's
+// last block to finish (a ticket taken with an integer atomic on
+// tickets[mb], reset to zero for the next launch; no ticket with one
+// block) sums them in a fixed order that does not depend on the grid:
+// column s into group s mod min(n_s, 32), each group in column order,
+// then the groups in order -- the order of block_cost in one block of
+// min(n_s, 32) warps. Returns true in that block's thread 0, with
+// cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and lw.
+template <typename T>
+__device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
+                                            const T* __restrict__ ydy,
+                                            int n_s,
+                                            unsigned* __restrict__ tickets,
+                                            long long mb, T& cost, T& lw) {
+    if (gridDim.x > 1) __threadfence();
+    __syncthreads();
+    if (threadIdx.x != 0) return false;
+    if (gridDim.x > 1) {
+        if (atomicAdd(&tickets[mb], 1u) != gridDim.x - 1) return false;
+        __threadfence();
+        tickets[mb] = 0;                   // zero for the next launch
+    }
+    const int groups = n_s < 32 ? n_s : 32;
+    T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
+    for (int k = 0; k < n_s; ++k) s_ydy += ydy[k];
+    for (int w = 0; w < groups; ++w) {
+        T g_ba = T(0), g_ag = T(0), g_lw = T(0);
+        for (int k = w; k < n_s; k += groups) {
+            g_ba += __ldcg(cs + k);
+            g_ag += __ldcg(cs + n_s + k);
+            g_lw += __ldcg(cs + 2 * n_s + k);
+        }
+        s_ba += g_ba;
+        s_ag += g_ag;
+        s_lw += g_lw;
+    }
+    cost = s_ydy - s_ba - s_ag;
+    lw = s_lw;
+    return true;
+}
+
+// The register forms' row bucket: the smallest of 8, 16 and 32 lanes
+// holding p rows (ops/cuda_small.alpha_plan's rule; dm_row_bucket)
+__host__ __device__ __forceinline__ int row_bucket(int p) {
+    return p <= 8 ? 8 : (p <= 16 ? 16 : kMaxP);
+}
+
 // ---- the wide form (p > 32): this warp's slab of shared memory -------
 
 // G_s and b_s of column s into the slab (sg: p x p, sb: p), by the

@@ -26,14 +26,16 @@
 //   - the momentum scalars of the n_steps FISTA steps are the same in
 //     every thread (a nesterov step, two IEEE divisions and two square
 //     roots a step, most of a step's instructions at n_u = 1), so they
-//     are computed once per launch: a prologue (momentum_table_kernel,
-//     one warp per member, launched just before the main pass into a
+//     are computed once per launch: a prologue (momentum_table_kernel;
+//     K4's k4_prologue_kernel also lists its active members; one warp
+//     per member, launched just before the main pass into a
 //     buffer the wrapper allocates; no shared memory, so the layout rule
 //     does not move) writes the table of the steps' betas with the same
 //     arithmetic on the same inputs, and every thread reads beta_k from
 //     it one step ahead. The reduction pass takes the advanced Nesterov
 //     scalar from the table's last slot;
-//   - the Gram stage (gram_partials) at wide shapes would read three
+//   - K1's Gram stage (gram_partials; K4 sums a member group's entries
+//     in its own, u_phase_grams_multi.cuh) at wide shapes would read three
 //     shared values per product with one thread per entry (~139k
 //     warp-level loads per block at 1M x 100, 25 + 4). Above kSites
 //     entries per block it deals register micro-tiles of RS samples x RV
@@ -337,7 +339,7 @@ __host__ __device__ __forceinline__ GramPlan gram_plan(int n_c, int n_u,
 // One Gram entry of this block, l in [0, n_local) of the local order
 // [gu (n_c, n_u, p) | b_u (n_u, n_c) | usq] (see gram_partials), summed
 // over the block's sites in site order and written to out[e * n_blocks].
-template <typename T, int NU, bool W, int RND>
+template <typename T, int NU, int RND>
 __device__ __forceinline__ void gram_entry(
         int l, const T* __restrict__ s_y, const T* __restrict__ s_d,
         const T* __restrict__ s_r, int n_s, int c0, int n_c, int n_ct,
@@ -348,7 +350,6 @@ __device__ __forceinline__ void gram_entry(
     const int l_gu = n_c * nu * p;
     const int l_bu = nu * n_c;
     const int e_gu = n_s * nu * p;
-    const bool left_x = W || RND == kRoundAll;   // usq's left u in s_x
     T acc = T(0);
     int e;
     if (l < l_gu) {
@@ -357,7 +358,7 @@ __device__ __forceinline__ void gram_entry(
         const int q = l % p;
         e = c0 * nu * p + l;
         const T* ds = s_d + s * kLd;
-        const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+        const T* uv = s_r + (n_ct + v) * kLd;
         const T* rq = s_r + q * kLd;
         if constexpr (RND == kRoundAll) {
             for (int j = 0; j < kSites; ++j)
@@ -372,7 +373,7 @@ __device__ __forceinline__ void gram_entry(
         e = e_gu + v * n_s + c0 + s;
         const T* ds = s_d + s * kLd;
         const T* ys = s_y + s * kLd;
-        const T* uv = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+        const T* uv = s_r + (n_ct + v) * kLd;
         if constexpr (RND != kRoundNone) {
             for (int j = 0; j < kSites; ++j)
                 acc += uv[j] * bf16r(ds[j] * ys[j]);
@@ -391,7 +392,7 @@ __device__ __forceinline__ void gram_entry(
                     acc += x * x;
                 } else {
                     const T x = s_r[(n_ct + v) * kLd + j];
-                    acc += (left_x ? s_x[v * kLd + j] : x) * x;
+                    acc += x * x;
                 }
             }
         }
@@ -402,10 +403,10 @@ __device__ __forceinline__ void gram_entry(
 // One micro-tile of gu: samples [s0, s0 + RS) x unknowns [v0, v0 + RV) x
 // rows [q0, q0 + kTileQ) of [Rt | u], clamped to the block's entries.
 // Per site the RS x RV left factors d_s u_v (bf16(d_s u_v) under
-// kRoundAll; w u_v as the left u with W) are formed once and each is
+// kRoundAll) are formed once and each is
 // multiplied into kTileQ accumulators, each entry summed in site order
 // from 0: the entry form's sum, bit for bit.
-template <typename T, int RS, int RV, bool W, int RND>
+template <typename T, int RS, int RV, int RND>
 __device__ __forceinline__ void gram_tile(
         int s0, int v0, int q0, const T* __restrict__ s_d,
         const T* __restrict__ s_r, int c0, int n_c, int n_ct, int nu,
@@ -420,7 +421,7 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
     for (int b = 0; b < RV; ++b) {
         const int v = v0 + b < nu ? v0 + b : nu - 1;
-        uv[b] = W ? s_x + v * kLd : s_r + (n_ct + v) * kLd;
+        uv[b] = s_r + (n_ct + v) * kLd;
     }
 #pragma unroll
     for (int c = 0; c < kTileQ; ++c)
@@ -474,14 +475,13 @@ __device__ __forceinline__ void gram_tile(
 // this block's column). The work follows gram_plan: one thread per entry
 // (entry l to thread l mod kSites), or gu's micro-tiles (gram_tile) then
 // b_u's and usq's entries, item k to thread k mod kSites.
-// With W (K4's weighted bootstrap) the LEFT u of every sum is the
-// weighted row s_x[v] = w u_v (formed by the caller once per site), so
-// each sum carries the site weight exactly once, and weights of 1 give
-// the unweighted sums bit for bit. With kRoundAll the caller stages
+// (K1's and K7's stage; K4 sums a member group's entries in its own
+// stage, u_phase_grams_multi.cuh, with the same products.) With kRoundAll
+// the caller stages
 // bf16(u) in s_r and the raw u in s_x: gu = sum bf16(d_s bf16(u_v))
 // [Rt|bf16(u)]_q, b_u = sum bf16(u_v) bf16(d y), usq = sum u_v^2 of the
 // raw u; kRoundDy rounds d y in b_u.
-template <typename T, int NU, bool W, int RND>
+template <typename T, int NU, int RND>
 __device__ __forceinline__ void gram_partials(
         const T* __restrict__ s_y, const T* __restrict__ s_d,
         const T* __restrict__ s_r, int n_s, int c0, int c1, bool usq,
@@ -493,7 +493,7 @@ __device__ __forceinline__ void gram_partials(
     const GramPlan g = gram_plan(n_c, nu, p, usq);
     if (!g.tiled) {
         for (int l = tid; l < g.n_items; l += kSites)
-            gram_entry<T, NU, W, RND>(l, s_y, s_d, s_r, n_s, c0, n_c, n_ct,
+            gram_entry<T, NU, RND>(l, s_y, s_d, s_r, n_s, c0, n_c, n_ct,
                                       nu, out, n_blocks, s_x);
         return;
     }
@@ -502,7 +502,7 @@ __device__ __forceinline__ void gram_partials(
     const int l_gu = n_c * nu * p;
     for (int k = tid; k < g.n_items; k += kSites) {
         if (k >= g.n_tiles) {
-            gram_entry<T, NU, W, RND>(l_gu + k - g.n_tiles, s_y, s_d, s_r,
+            gram_entry<T, NU, RND>(l_gu + k - g.n_tiles, s_y, s_d, s_r,
                                       n_s, c0, n_c, n_ct, nu, out, n_blocks,
                                       s_x);
             continue;
@@ -510,7 +510,7 @@ __device__ __forceinline__ void gram_partials(
         const int qt = k % g.tq;
         const int vt = (k / g.tq) % g.tv;
         const int st = k / (g.tq * g.tv);
-        gram_tile<T, RS, RV, W, RND>(st * RS, vt * RV, qt * kTileQ, s_d, s_r,
+        gram_tile<T, RS, RV, RND>(st * RS, vt * RV, qt * kTileQ, s_d, s_r,
                                      c0, n_c, n_ct, nu, out, n_blocks, s_x);
     }
 }
@@ -519,7 +519,7 @@ __device__ __forceinline__ void gram_partials(
 // time into s_y, s_d, each chunk's entries summed by gram_partials (usq
 // with the last chunk). Called by every thread of the block after the
 // new u rows of s_r (and s_x) are written and synchronised.
-template <typename T, typename TD, int NU, bool W, int RND>
+template <typename T, typename TD, int NU, int RND>
 __device__ __forceinline__ void gram_partials_chunked(
         T* __restrict__ s_y, T* __restrict__ s_d, const T* __restrict__ s_r,
         const TD* __restrict__ ydt, int64_t i, bool live, int64_t n,
@@ -533,7 +533,7 @@ __device__ __forceinline__ void gram_partials_chunked(
                    n, tid);
         stage_wait();
         __syncthreads();
-        gram_partials<T, NU, W, RND>(s_y, s_d, s_r, n_s, c0, c1, c1 == n_s,
+        gram_partials<T, NU, RND>(s_y, s_d, s_r, n_s, c0, c1, c1 == n_s,
                                      n_ct, n_u, tid, out, n_blocks, s_x);
     }
 }
@@ -580,34 +580,21 @@ int launch_momentum_table(T* scal, int scal_stride, int n_members, T* tab,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Second pass: row r of the (members x n_entries, n_blocks) partials is
-// summed in a FIXED order (strided per thread, then a fixed tree) into
-// out[r]; r = b * n_entries + e for member b, whose scalar row is
-// scal + b * scal_stride. The row e = 0 of each member also sets that
-// member's Nesterov scalar to its table's last slot (the chain advanced
-// n_steps times by the prologue) and l_w_prev = l_w. With MULTI (K4),
-// inactive members (slot kActive 0) are skipped: their outputs and
-// scalars are left as they are; K1 (one member) has no member arithmetic
-// at all.
-template <typename T, bool MULTI>
+// Second pass (K1): row e of the (n_entries, n_blocks) partials is summed
+// in a FIXED order (strided per thread, then a fixed tree) into out[e].
+// The row e = 0 also sets the Nesterov scalar to the table's last slot
+// (the chain advanced n_steps times by the prologue) and l_w_prev = l_w.
+// K4 keeps this order in its own pass over a (n_blocks, B E) layout
+// (u_phase_grams_multi.cuh, reduce_group_partials_kernel).
+template <typename T>
 __global__ void __launch_bounds__(kRedThreads)
 reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
                        T* __restrict__ scal, const T* __restrict__ tab,
-                       int n_blocks, int n_steps, int n_entries,
-                       int scal_stride) {
+                       int n_blocks, int n_steps) {
     __shared__ T buf[kRedThreads];
-    const int r = blockIdx.x;
-    int e = r;
-    T* sc = scal;
-    const T* tb = tab;
-    if constexpr (MULTI) {
-        e = r % n_entries;
-        sc += static_cast<int64_t>(r / n_entries) * scal_stride;
-        tb += static_cast<int64_t>(r / n_entries) * (n_steps + 1);
-        if (sc[kActive] == T(0)) return;           // uniform over the block
-    }
+    const int e = blockIdx.x;
     const int tid = threadIdx.x;
-    const T* row = partials + static_cast<int64_t>(r) * n_blocks;
+    const T* row = partials + static_cast<int64_t>(e) * n_blocks;
     T acc = T(0);
     for (int b = tid; b < n_blocks; b += kRedThreads) acc += row[b];
     buf[tid] = acc;
@@ -617,10 +604,10 @@ reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
         __syncthreads();
     }
     if (tid == 0) {
-        out[r] = buf[0];
+        out[e] = buf[0];
         if (e == 0) {
-            sc[kAU] = tb[n_steps];
-            if (n_steps > 0) sc[kLWPrev] = sc[kLW];
+            scal[kAU] = tab[n_steps];
+            if (n_steps > 0) scal[kLWPrev] = scal[kLW];
         }
     }
 }

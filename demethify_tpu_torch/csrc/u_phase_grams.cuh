@@ -323,11 +323,11 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
 
     // ---- this block's Gram partial sums with the new u ----------------
     if constexpr (WIDE)
-        dm::gram_partials_chunked<T, TD, NU, false, RND>(
+        dm::gram_partials_chunked<T, TD, NU, RND>(
             s_y, s_d, s_r, ydt, i, live, n, n_s, n_ct, nu, tid,
             partials + blockIdx.x, n_blocks, s_x);
     else
-        dm::gram_partials<T, NU, false, RND>(
+        dm::gram_partials<T, NU, RND>(
             s_y, s_d, s_r, n_s, 0, n_s, true, n_ct, nu, tid,
             partials + blockIdx.x, n_blocks, s_x);
 }
@@ -374,11 +374,10 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dm::reduce_partials_kernel<T, false>
-        <<<n_entries, kRedThreads, 0, stream>>>(
-            static_cast<const T*>(partials), static_cast<T*>(out),
-            static_cast<T*>(scal), static_cast<const T*>(tab), n_blocks,
-            n_steps, n_entries, 0);
+    dm::reduce_partials_kernel<T><<<n_entries, kRedThreads, 0, stream>>>(
+        static_cast<const T*>(partials), static_cast<T*>(out),
+        static_cast<T*>(scal), static_cast<const T*>(tab), n_blocks,
+        n_steps);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,63 +24,77 @@
 // the TPU kernel folds its `weights` operand into the u rows of its Gram
 // dots. The FISTA steps stay raw, so rows with w = 0 still move. Each
 // thread forms its site's weighted rows w u_v once and stages them in NU
-// more shared rows (s_wu) beside [Rt | u_b]: the Gram sums read the
-// weighted row as their left u and the raw rows of s_r as their right
+// more shared rows per member (s_wu) beside its raw u rows: the Gram sums
+// read the weighted row as their left u and the raw rows as their right
 // [Rt | u], so the self block's right-hand u is not weighted a second
-// time and each term costs the unweighted kernel's shared loads. Cost per
-// site and member: one more read (itemsize bytes) and NU multiplies; with
-// all weights 1 every sum equals the unweighted kernel's bit for bit
-// (1 u = u).
+// time. With all weights 1 every sum equals the unweighted kernel's bit
+// for bit (1 u = u).
 //
-// What bounds it on an H100: at the restart shapes it is bound by
-// instruction issue, not memory. The bytes it must move per outer
-// iteration at 1M sites x 10 samples, 5 + 1, B = 16, float32 are Y, D, Rt
-// (100 MB, read once) and the members' u, u_prev (128 MB read, 128 MB
-// written): ~356 MB, ~106 us at 3.35 TB/s. The work is B times K1's per
-// site: the C/M build, n_steps dependent FISTA steps and the Gram
-// partial sums over the block's sites. Each member's momentum chain (two
-// IEEE divisions and two square roots a step, the same in every thread)
-// is computed once per launch by the prologue, one thread per member,
-// into a (B, n_steps + 1) table (momentum_table_kernel), which every
-// thread reads as K1's threads do; the Gram stage follows K1's plan
-// (gram_plan: one entry per thread, or register micro-tiles above 128
-// entries a block).
+// What bounds it on an H100: instruction issue, not memory. The bytes it
+// must move per outer iteration at 1M sites x 10 samples, 5 + 1, B = 16,
+// float32 are Y, D, Rt (100 MB, read once) and the members' u, u_prev
+// (128 MB read, 128 MB written): ~356 MB, ~106 us at 3.35 TB/s. The work
+// is B times K1's per site: the C/M build, n_steps dependent FISTA steps
+// and the Gram partial sums over the block's sites. Each member's momentum
+// chain is computed once per launch by the prologue (k4_prologue_kernel,
+// one warp per member) into a (B, n_steps + 1) table, which every thread
+// reads as K1's threads do.
 //
-// What the design does about it:
-//   - one block per 128 sites, as K1: the block stages its sites' Y, D and
-//     Rt columns in shared memory ONCE and then loops over the members, so
-//     Y, D and Rt are read from device memory once for all B members (the
-//     TPU kernel's member axis buys the same);
-//   - per member the block loads that member's alpha blocks into shared
-//     memory (the wide layout reads them from device memory), builds C
-//     and M in registers (n_u <= 8; a scratch column per site above) and
-//     runs the steps with K1's code (u_phase_common.cuh), so the
-//     per-thread register footprint is K1's whatever B is and every
-//     member follows K1's arithmetic bit for bit;
-//   - the Gram partials go to per-block columns of a
-//     (B x E, n_blocks) buffer (E = n_s n_u p + n_u n_s + 1 entries per
-//     member) and K1's fixed-order reduction kernel sums each row and
-//     advances each active member's scalars: no float atomics, so every
-//     member's sums are K1's sums. The buffer is B E n_blocks itemsize
-//     bytes, written and read back once an iteration: 35 MB at the shape
-//     above (10% of the bytes the kernel must move);
-//   - shared memory is K1's (one member's alpha blocks at a time), so it
-//     does not grow with B. The wide layout re-stages Y and D in chunks
-//     for each member's Gram sums, so it reads them 2 B times.
+// What the design does about it (measured on an NVIDIA H100 80GB HBM3 at
+// 700 W, PERF.md): one block per 128 sites stages its sites' Y, D and Rt
+// columns in shared memory ONCE and takes the active members in GROUPS of
+// G (k4_member_plan: the most members whose alpha blocks and u rows -- and
+// weighted, their w u rows -- fit next to the staged rows while the block
+// keeps min(kGroupBlocks, its one-member count) blocks per SM):
+//   - the group's alpha blocks are staged at once (the wide layout reads
+//     them from device memory); each thread then runs its site's steps for
+//     every member of the group back to back, with no barrier between
+//     members, each member into its own shared u rows. Members of
+//     n_u <= kPairNU go two at a time (build_cm_pair, gram_steps_pair):
+//     their chains interleave and the site's Y, D and Rt values are read
+//     once for both (measured: 1.00-1.02 against 1.15-1.16 ms one at a
+//     time, B = 16). Per member the arithmetic is K1's (u_phase_common.cuh
+//     build_cm, gram_steps), so every member follows K1 bit for bit;
+//   - one barrier, then ONE Gram stage over the group's G E entries
+//     (group_grams, plan k4_gram_plan): where the tiles give each of the
+//     128 threads one at least, register tiles whose rows run across the
+//     members -- 2 samples x 2 left rows (member, unknown) x 4 rows of Rt,
+//     so d_s and Rt_q are read once a site for both rows; 2 samples x 4
+//     (member, v, w) pairs of the self block; 2 samples x 4 left rows of
+//     b_u, the d y product formed once a site for all of them; one usq
+//     per member -- each kind from a warp boundary, so no warp runs two
+//     kinds (at the main shape B = 16 gives 136 tiles); below that, one
+//     entry per thread as K1's stage (a handful of long tiles would leave
+//     most threads waiting: B = 1 took 0.29 against K1's 0.14 ms).
+//     Every entry is still summed over the block's sites in site order
+//     from 0 with K1's products ((d_s u_v) r_q, u_v (d_s y_s), u_v u_v),
+//     so each sum is K1's, bit for bit;
+//   - the partials are laid out (n_blocks, B E): a block writes its
+//     group's values contiguously (the earlier (B E, n_blocks) layout put
+//     every value in its own 32-byte sector), members in active order.
+//     The reduction keeps each entry's order -- 256 strided sums, block
+//     t, t + 256, ..., then the same fixed tree as K1's
+//     reduce_partials_kernel -- in two passes: a thread for each strided
+//     sum, a warp reading 32 neighbouring entries of a block row
+//     (reduce_chains_kernel), then one tree per entry (reduce_tree_kernel);
+//   - the wide layout stages Y and D chunk by chunk once per group for the
+//     group's Gram sums (each member's C/M build still reads its site's Y
+//     and D from device memory), so its Gram stage reads them ceil(B / G)
+//     times instead of B.
+// The buffer is B E n_blocks itemsize bytes, as before (35 MB at the
+// shape above), and shared memory is capped by the plan, not by B.
 //
 // bf16 storage (pallas_kernels.py:835-836, 853: the data converted at
 // load, the state float32): Y, D and Rt arrive as __nv_bfloat16 (TD) with
 // a float32 state and weight rows (T); each value is converted as it is
 // read, and from there on every member runs the float32 form's
-// arithmetic on the converted values (u_phase_common.cuh). It halves the
-// bytes of Y, D and Rt (50 MB instead of 100 MB per outer iteration at the
-// shape above), against a bound set by the operations, so the expected
-// gain is small.
+// arithmetic on the converted values (u_phase_common.cuh).
 //
 // Scalars: `scal` is (B, scal_stride) with K1's slots per member (kAU,
 // kLW, kLWPrev read) plus kActive; `tab` is room for the members'
-// momentum tables, B (n_steps + 1) values. Weights: `w` is (B, w_stride),
-// NULL for the unweighted form.
+// momentum tables, B (n_steps + 1) values, and `list` for B + 1 ints (the
+// active members in order, then their count; written by the prologue).
+// Weights: `w` is (B, w_stride), NULL for the unweighted form.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
@@ -94,14 +108,450 @@
 
 #include "u_phase_common.cuh"
 
+namespace dm {
+
+// ---- the member plan (ops/cuda_multi.k4_member_plan is the same) -------
+
+constexpr int kGroupBlocks = 4;     // blocks per SM a member group keeps
+constexpr long long kSmemPerSm = 233472;   // bytes of shared memory an SM has
+constexpr long long kSmemBlock = 232448;   // bytes a block may opt into
+constexpr long long kSmemReserve = 1024;   // bytes the card keeps per block
+// Gram tiles of a member group: samples per tile, left rows (member,
+// unknown) per cross tile (x kTileQ rows of Rt), (member, v, w) pairs per
+// self tile, left rows per b_u tile
+constexpr int kGS = 2, kGL = 2, kGP = 4, kGB = 4;
+
+// shared memory of a group of `group` members (group = 1: the one-member
+// bytes the layout rule reads, the *_smem export)
+__host__ __device__ __forceinline__ long long k4_smem(
+        bool wide, long long itemsize, int n_s, int n_ct, int n_u,
+        bool weighted, int group) {
+    const long long rows = wide ? chunk_rows(n_s) : n_s;
+    const long long u_rows = static_cast<long long>(group) * n_u
+                             * (weighted ? 2 : 1);
+    const long long alpha = wide ? 0
+                                 : static_cast<long long>(group)
+                                       * (n_ct + n_u) * n_s;
+    return itemsize * ((2 * rows + n_ct + u_rows) * kLd + alpha);
+}
+
+struct K4MemberPlan {
+    long long smem;
+    int group, blocks;
+};
+
+// G, the group's shared memory and the blocks per SM it keeps: the
+// largest G <= n_b whose bytes leave min(kGroupBlocks, the one-member
+// layout's blocks per SM) blocks on an SM, at least 1
+__host__ __device__ __forceinline__ K4MemberPlan k4_member_plan(
+        long long itemsize, int n_s, int n_ct, int n_u, int n_b,
+        bool weighted, bool wide) {
+    K4MemberPlan g{};
+    const long long one = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted,
+                                  1);
+    const long long base = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted,
+                                   0);
+    long long fit = kSmemPerSm / (one + kSmemReserve);
+    fit = fit < 16 ? fit : 16;                     // 2048 threads an SM
+    g.blocks = static_cast<int>(fit < kGroupBlocks ? fit : kGroupBlocks);
+    if (g.blocks < 1) g.blocks = 1;
+    long long budget = kSmemPerSm / g.blocks - kSmemReserve;
+    budget = budget < kSmemBlock ? budget : kSmemBlock;
+    long long group = (budget - base) / (one - base);
+    group = group < n_b ? group : n_b;
+    g.group = static_cast<int>(group < 1 ? 1 : group);
+    g.smem = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted, g.group);
+    return g;
+}
+
+struct K4GramPlan {
+    int tiled, ts, tl, tq, tp, tb, n_x, n_self, n_bu, n_usq, o_self, o_bu,
+        o_usq, n_items;
+};
+
+// The Gram stage's work for gm members and n_c staged samples, as items
+// dealt to the block's threads (item k to thread k mod kSites). Tiled
+// when the tiles give every thread one at least: cross tiles (ts x tl x
+// tq: kGS samples x kGL left rows x kTileQ Rt rows) in items [0, n_x),
+// self tiles (ts x tp: kGS samples x kGP pairs) from o_self, b_u tiles
+// (ts x tb: kGS samples x kGB left rows) from o_bu and, with `usq`, one
+// item per member from o_usq, each kind from a warp boundary so that a
+// warp runs one kind (items between the kinds are idle); n_items is the
+// last item + 1. Otherwise one item per entry, member by member, K1's
+// local order each ([gu (n_c, n_u, p) | b_u (n_u, n_c) | usq]): fewer
+// tiles than threads would leave most threads waiting on a few long ones.
+__host__ __device__ __forceinline__ int warp_up(int x) {
+    return (x + 31) / 32 * 32;
+}
+
+__host__ __device__ __forceinline__ K4GramPlan k4_gram_plan(int n_c,
+                                                            int n_ct,
+                                                            int n_u, int gm,
+                                                            bool usq) {
+    K4GramPlan g{};
+    const int n_l = gm * n_u;
+    g.ts = (n_c + kGS - 1) / kGS;
+    g.tl = (n_l + kGL - 1) / kGL;
+    g.tq = (n_ct + kTileQ - 1) / kTileQ;
+    g.tp = (n_l * n_u + kGP - 1) / kGP;
+    g.tb = (n_l + kGB - 1) / kGB;
+    g.n_x = g.ts * g.tl * g.tq;
+    g.n_self = g.ts * g.tp;
+    g.n_bu = g.ts * g.tb;
+    g.n_usq = usq ? gm : 0;
+    g.tiled = g.n_x + g.n_self + g.n_bu + g.n_usq >= kSites;
+    if (!g.tiled) {
+        g.n_items = gm * (n_c * n_u * (n_ct + n_u) + n_u * n_c
+                          + (usq ? 1 : 0));
+        return g;
+    }
+    g.o_self = warp_up(g.n_x);
+    g.o_bu = g.o_self + warp_up(g.n_self);
+    g.o_usq = g.o_bu + warp_up(g.n_bu);
+    g.n_items = g.o_usq + g.n_usq;
+    return g;
+}
+
+}  // namespace dm
+
 namespace {
 
 using dm::ColVec;
 using dm::kChunk;
+using dm::kGB;
+using dm::kGL;
+using dm::kGP;
+using dm::kGS;
 using dm::kLd;
 using dm::kRedThreads;
 using dm::kSites;
+using dm::kTileQ;
 using dm::RegVec;
+
+__device__ __forceinline__ int clamp_hi(int x, int hi) {
+    return x < hi ? x : hi;
+}
+
+// One entry of member slot k in the entry form: l in [0, n_loc) of K1's
+// local order [gu (n_c, n_u, p) | b_u (n_u, n_c) | usq], summed over the
+// block's sites in site order with K1's products (gram_entry)
+template <typename T, int NU>
+__device__ __forceinline__ void group_entry(
+        int k, int l, const T* __restrict__ s_y, const T* __restrict__ s_d,
+        const T* __restrict__ s_rt, const T* __restrict__ s_u,
+        const T* __restrict__ s_x, int n_s, int c0, int n_c, int n_ct,
+        int nu, T* __restrict__ out, int n_entries) {
+    if constexpr (NU > 0) nu = NU;
+    const int p = n_ct + nu;
+    const int l_gu = n_c * nu * p;
+    const T* xk = s_x + k * nu * kLd;
+    const T* uk = s_u + k * nu * kLd;
+    T acc = T(0);
+    int e = n_entries - 1;
+    if (l < l_gu) {
+        const int s = l / (nu * p);
+        const int v = (l / p) % nu;
+        const int q = l % p;
+        e = c0 * nu * p + l;
+        const T* ds = s_d + s * kLd;
+        const T* xv = xk + v * kLd;
+        const T* rq = q < n_ct ? s_rt + q * kLd : uk + (q - n_ct) * kLd;
+        for (int j = 0; j < kSites; ++j) acc += (ds[j] * xv[j]) * rq[j];
+    } else if (l < l_gu + nu * n_c) {
+        const int v = (l - l_gu) / n_c;
+        const int s = (l - l_gu) % n_c;
+        e = n_s * nu * p + v * n_s + c0 + s;
+        const T* ds = s_d + s * kLd;
+        const T* ys = s_y + s * kLd;
+        const T* xv = xk + v * kLd;
+        for (int j = 0; j < kSites; ++j) acc += xv[j] * (ds[j] * ys[j]);
+    } else {
+        for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+            for (int v = 0; v < nu; ++v)
+                acc += xk[v * kLd + j] * uk[v * kLd + j];
+        }
+    }
+    out[static_cast<int64_t>(k) * n_entries + e] = acc;
+}
+
+// The Gram stage of one member group for the samples [c0, c0 + n_c)
+// staged in s_y, s_d (row s - c0); s_rt holds Rt (n_ct rows), s_u the
+// group's u rows (row k n_u + v: member slot k, unknown v) and s_x the
+// left u rows (s_u, or weighted the w u rows). Member slot k's entry e
+// goes to out[k E + e], e in [gu (n_s, n_u, p) | b_u (n_u, n_s) | usq]
+// (the caller points out at the block's row, at the group's first slot).
+template <typename T, int NU>
+__device__ __forceinline__ void group_grams(
+        const T* __restrict__ s_y, const T* __restrict__ s_d,
+        const T* __restrict__ s_rt, const T* __restrict__ s_u,
+        const T* __restrict__ s_x, int n_s, int c0, int n_c, bool usq,
+        int n_ct, int n_u, int gm, int tid, T* __restrict__ out,
+        int n_entries) {
+    const int nu = NU > 0 ? NU : n_u;
+    const int p = n_ct + nu;
+    const int n_l = gm * nu;
+    const int e_bu = n_s * nu * p;
+    const dm::K4GramPlan g = dm::k4_gram_plan(n_c, n_ct, nu, gm, usq);
+    if (!g.tiled) {
+        const int n_loc = g.n_items / gm;
+        for (int l = tid; l < g.n_items; l += kSites)
+            group_entry<T, NU>(l / n_loc, l % n_loc, s_y, s_d, s_rt, s_u,
+                               s_x, n_s, c0, n_c, n_ct, nu, out, n_entries);
+        return;
+    }
+    auto gu_at = [&](int s, int l, int q) -> T& {
+        return out[static_cast<int64_t>(l / nu) * n_entries
+                   + ((c0 + s) * nu + l % nu) * p + q];
+    };
+    for (int k = tid; k < g.n_items; k += kSites) {
+        if (k < g.n_x) {
+            // cross tile: (d_s x_l) Rt_q, d_s and Rt_q shared by the rows
+            const int q0 = (k % g.tq) * kTileQ;
+            const int l0 = ((k / g.tq) % g.tl) * kGL;
+            const int s0 = (k / (g.tq * g.tl)) * kGS;
+            const T* ds[kGS];
+            const T* xl[kGL];
+            const T* rq[kTileQ];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+                ds[a] = s_d + clamp_hi(s0 + a, n_c - 1) * kLd;
+#pragma unroll
+            for (int b = 0; b < kGL; ++b)
+                xl[b] = s_x + clamp_hi(l0 + b, n_l - 1) * kLd;
+#pragma unroll
+            for (int c = 0; c < kTileQ; ++c)
+                rq[c] = s_rt + clamp_hi(q0 + c, n_ct - 1) * kLd;
+            T acc[kGS][kGL][kTileQ];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int b = 0; b < kGL; ++b)
+#pragma unroll
+                    for (int c = 0; c < kTileQ; ++c) acc[a][b][c] = T(0);
+#pragma unroll 4
+            for (int j = 0; j < kSites; ++j) {
+                T r[kTileQ], x[kGL];
+#pragma unroll
+                for (int c = 0; c < kTileQ; ++c) r[c] = rq[c][j];
+#pragma unroll
+                for (int b = 0; b < kGL; ++b) x[b] = xl[b][j];
+#pragma unroll
+                for (int a = 0; a < kGS; ++a) {
+                    const T d = ds[a][j];
+#pragma unroll
+                    for (int b = 0; b < kGL; ++b) {
+                        const T lf = d * x[b];
+#pragma unroll
+                        for (int c = 0; c < kTileQ; ++c)
+                            acc[a][b][c] += lf * r[c];
+                    }
+                }
+            }
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int b = 0; b < kGL; ++b)
+#pragma unroll
+                    for (int c = 0; c < kTileQ; ++c)
+                        if (s0 + a < n_c && l0 + b < n_l && q0 + c < n_ct)
+                            gu_at(s0 + a, l0 + b, q0 + c) = acc[a][b][c];
+            continue;
+        }
+        if (k < g.o_self) continue;                 // between the kinds
+        int kk = k - g.o_self;
+        if (kk < g.n_self) {
+            // self tile: (d_s x_{k,v}) u_{k,w} over pairs (k n_u + v) n_u + w
+            const int n_pair = n_l * nu;
+            const int e0 = (kk % g.tp) * kGP;
+            const int s0 = (kk / g.tp) * kGS;
+            const T* ds[kGS];
+            const T* xl[kGP];
+            const T* ur[kGP];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+                ds[a] = s_d + clamp_hi(s0 + a, n_c - 1) * kLd;
+#pragma unroll
+            for (int e = 0; e < kGP; ++e) {
+                const int pr = clamp_hi(e0 + e, n_pair - 1);
+                const int l = pr / nu;
+                xl[e] = s_x + l * kLd;
+                ur[e] = s_u + (l - l % nu + pr % nu) * kLd;
+            }
+            T acc[kGS][kGP];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int e = 0; e < kGP; ++e) acc[a][e] = T(0);
+#pragma unroll 4
+            for (int j = 0; j < kSites; ++j) {
+                T x[kGP], r[kGP];
+#pragma unroll
+                for (int e = 0; e < kGP; ++e) {
+                    x[e] = xl[e][j];
+                    r[e] = ur[e][j];
+                }
+#pragma unroll
+                for (int a = 0; a < kGS; ++a) {
+                    const T d = ds[a][j];
+#pragma unroll
+                    for (int e = 0; e < kGP; ++e) {
+                        const T lf = d * x[e];
+                        acc[a][e] += lf * r[e];
+                    }
+                }
+            }
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int e = 0; e < kGP; ++e)
+                    if (s0 + a < n_c && e0 + e < n_pair)
+                        gu_at(s0 + a, (e0 + e) / nu,
+                              n_ct + (e0 + e) % nu) = acc[a][e];
+            continue;
+        }
+        if (k < g.o_bu) continue;
+        kk = k - g.o_bu;
+        if (kk < g.n_bu) {
+            // b_u tile: x_l (d_s y_s), d_s y_s formed once a site
+            const int l0 = (kk % g.tb) * kGB;
+            const int s0 = (kk / g.tb) * kGS;
+            const T* ds[kGS];
+            const T* ys[kGS];
+            const T* xl[kGB];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a) {
+                const int s = clamp_hi(s0 + a, n_c - 1);
+                ds[a] = s_d + s * kLd;
+                ys[a] = s_y + s * kLd;
+            }
+#pragma unroll
+            for (int b = 0; b < kGB; ++b)
+                xl[b] = s_x + clamp_hi(l0 + b, n_l - 1) * kLd;
+            T acc[kGS][kGB];
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int b = 0; b < kGB; ++b) acc[a][b] = T(0);
+#pragma unroll 4
+            for (int j = 0; j < kSites; ++j) {
+                T x[kGB];
+#pragma unroll
+                for (int b = 0; b < kGB; ++b) x[b] = xl[b][j];
+#pragma unroll
+                for (int a = 0; a < kGS; ++a) {
+                    const T dy = ds[a][j] * ys[a][j];
+#pragma unroll
+                    for (int b = 0; b < kGB; ++b) acc[a][b] += x[b] * dy;
+                }
+            }
+#pragma unroll
+            for (int a = 0; a < kGS; ++a)
+#pragma unroll
+                for (int b = 0; b < kGB; ++b) {
+                    const int l = l0 + b;
+                    if (s0 + a < n_c && l < n_l)
+                        out[static_cast<int64_t>(l / nu) * n_entries + e_bu
+                            + (l % nu) * n_s + c0 + s0 + a] = acc[a][b];
+                }
+            continue;
+        }
+        // usq of member slot kk: sum over sites, then unknowns, of x_v u_v
+        if (k < g.o_usq) continue;
+        kk = k - g.o_usq;
+        const T* xk = s_x + kk * nu * kLd;
+        const T* uk = s_u + kk * nu * kLd;
+        T acc = T(0);
+        for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+            for (int v = 0; v < nu; ++v) acc += xk[v * kLd + j] * uk[v * kLd + j];
+        }
+        out[static_cast<int64_t>(kk) * n_entries + n_entries - 1] = acc;
+    }
+}
+
+// Members of n_u <= kPairNU run two at a time in each thread
+// (build_cm_pair, gram_steps_pair): their chains are independent, so the
+// two interleave, and the site's Y, D and Rt values are read once for
+// both. Above, the state of two members would not fit the registers.
+constexpr int kPairNU = 4;
+
+// build_cm (u_phase_common.cuh, its plain form) for two members at once:
+// per member the same sums in the same order (the known residual
+// d y - d (a1' rt), C += a2 dres, M += (a2 a2') d), the site's y, d and Rt
+// values read once for both
+template <typename T, int NU, typename TY>
+__device__ __forceinline__ void build_cm_pair(
+        RegVec<T, NU> (&cc)[2], RegVec<T, NU * (NU + 1) / 2> (&m)[2],
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        const T* __restrict__ rt, const T* const (&a1)[2],
+        const T* const (&a2)[2], int n_s, int n_ct) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int v = 0; v < NU; ++v) cc[x][v] = T(0);
+#pragma unroll
+        for (int k = 0; k < NU * (NU + 1) / 2; ++k) m[x][k] = T(0);
+    }
+    for (int s = 0; s < n_s; ++s) {
+        const T yv = dm::to_state(y[s * ld]);
+        const T dv = dm::to_state(d[s * ld]);
+        T known[2] = {T(0), T(0)};
+        for (int c = 0; c < n_ct; ++c) {
+            const T r = rt[c * kLd];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) known[x] += a1[x][c * n_s + s] * r;
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+            const T dres = dv * yv - dv * known[x];
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                const T av = a2[x][v * n_s + s];
+                cc[x][v] += av * dres;
+#pragma unroll
+                for (int w = v; w < NU; ++w)
+                    m[x][dm::sym(v, w, NU)] += (av * a2[x][w * n_s + s]) * dv;
+            }
+        }
+    }
+}
+
+// gram_steps (u_phase_common.cuh) for two members at once, each with its
+// own momentum table and l_w: per member the same steps in the same order
+template <typename T, int NU, bool LAG>
+__device__ __forceinline__ void gram_steps_pair(
+        RegVec<T, NU> (&u)[2], RegVec<T, NU> (&up)[2],
+        const RegVec<T, NU> (&cc)[2],
+        const RegVec<T, NU * (NU + 1) / 2> (&m)[2], RegVec<T, NU> (&ut)[2],
+        RegVec<T, NU> (&un)[2], const T* const (&beta_tab)[2],
+        const T (&l_w)[2], int n_steps) {
+    T beta_next[2] = {beta_tab[0][0], beta_tab[1][0]};
+    for (int step = 0; step < n_steps; ++step) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+            const T beta = beta_next[x];
+            beta_next[x] = beta_tab[x][step + 1];
+#pragma unroll
+            for (int v = 0; v < NU; ++v)
+                ut[x][v] = u[x][v] + beta * (u[x][v] - up[x][v]);
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                T mu = T(0);
+#pragma unroll
+                for (int w = 0; w < NU; ++w)
+                    mu += m[x][dm::sym(v, w, NU)] * (LAG ? u[x][w]
+                                                         : ut[x][w]);
+                un[x][v] = dm::clip01(ut[x][v] + (cc[x][v] - mu) / l_w[x]);
+            }
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                up[x][v] = u[x][v];
+                u[x][v] = un[x][v];
+            }
+        }
+    }
+}
 
 template <typename T, typename TD, int NU, bool W, bool WIDE>
 __global__ void __launch_bounds__(kSites)
@@ -111,21 +561,22 @@ u_phase_grams_multi_kernel(
         const T* __restrict__ a2b, int64_t a2_stride, T* __restrict__ uut,
         const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
-        const T* __restrict__ tab, T* __restrict__ partials,
-        T* __restrict__ scratch, int64_t n,
-        int n_s, int n_ct, int n_u, int n_steps, int n_blocks,
-        int n_members, int lagged) {
+        const T* __restrict__ tab, const int* __restrict__ list,
+        T* __restrict__ partials, T* __restrict__ scratch, int64_t n,
+        int n_s, int n_ct, int n_u, int n_steps, int n_members, int group,
+        int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
-    // staged Y (and D) rows
+    // staged Y (and D) rows, Rt, then the group's rows
     const int rows = WIDE ? dm::chunk_rows(n_s) : n_s;
     T* s_y = reinterpret_cast<T*>(smem_raw);
     T* s_d = s_y + rows * kLd;
-    T* s_r = s_d + rows * kLd;                  // p rows: [Rt | u_b]
-    T* s_a1 = s_r + p * kLd;                    // resident: member b's a1
-    T* s_a2 = s_a1 + n_ct * n_s;                // resident: member b's a2
-    T* s_wu = WIDE ? s_a1 : s_a2 + nu * n_s;    // W: member b's w u rows
+    T* s_rt = s_d + rows * kLd;                     // n_ct rows
+    T* s_u = s_rt + n_ct * kLd;                     // group n_u rows of u
+    T* s_wu = s_u + group * nu * kLd;               // W: their w u rows
+    T* s_a = s_wu + (W ? group * nu * kLd : 0);     // resident: alpha blocks
+    const T* s_x = W ? s_wu : s_u;                  // the Gram sums' left u
 
     const int tid = threadIdx.x;
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
@@ -135,144 +586,337 @@ u_phase_grams_multi_kernel(
         dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, 0, n_s, i,
                        live, n, tid);
     }
-    dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    dm::stage_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
     dm::stage_wait();
     const int n_entries = dm::gram_entries(n_s, n_ct, nu);
-    T* u_rows = s_r + n_ct * kLd + tid;
+    const int n_act = list[n_members];
+    T* out_row = partials + static_cast<int64_t>(blockIdx.x) * n_members
+                                * n_entries;
 
-    for (int b = 0; b < n_members; ++b) {
-        const T* sc = scal + static_cast<int64_t>(b) * scal_stride;
-        if (sc[dm::kActive] == T(0)) continue;      // uniform per block
-        const T* tb = tab + static_cast<int64_t>(b) * (n_steps + 1);
-        const T* a1 = a1b + b * a1_stride;
-        const T* a2 = a2b + b * a2_stride;
-        __syncthreads();     // the previous member's Gram sums are done
+    for (int k0 = 0; k0 < n_act; k0 += group) {
+        const int gm = n_act - k0 < group ? n_act - k0 : group;
+        __syncthreads();     // staged rows published; previous group done
         if constexpr (!WIDE) {
-            for (int k = tid; k < n_ct * n_s; k += kSites) s_a1[k] = a1[k];
-            for (int k = tid; k < nu * n_s; k += kSites) s_a2[k] = a2[k];
-            a1 = s_a1;
-            a2 = s_a2;
-        }
-        __syncthreads();
-
-        T* ub = uut + static_cast<int64_t>(b) * (2 * nu) * n;
-        const T wi = (W && live) ? w[static_cast<int64_t>(b) * w_stride + i]
-                                 : T(0);
-        auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
-                       auto& t2) {
-            if constexpr (WIDE)
-                dm::build_cm<T, NU, dm::kRoundNone>(
-                    cc, m, t1, nu, ydt + i,
-                    ydt + static_cast<int64_t>(n_s) * n + i, n, s_r + tid,
-                    a1, a2, n_s, n_ct);
-            else
-                dm::build_cm<T, NU, dm::kRoundNone>(
-                    cc, m, t1, nu, s_y + tid, s_d + tid, int64_t(kLd),
-                    s_r + tid, a1, a2, n_s, n_ct);
-            if (lagged)
-                dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, nu, tb,
-                                            sc[dm::kLW], n_steps);
-            else
-                dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, nu, tb,
-                                             sc[dm::kLW], n_steps);
-#pragma unroll
-            for (int v = 0; v < nu; ++v) {
-                u_rows[v * kLd] = u[v];
-                if constexpr (W) s_wu[v * kLd + tid] = wi * u[v];
+            const int blk = p * n_s;
+            for (int x = tid; x < gm * blk; x += kSites) {
+                const int b = list[k0 + x / blk];
+                const int r = x % blk;
+                s_a[x] = r < n_ct * n_s ? a1b[b * a1_stride + r]
+                                        : a2b[b * a2_stride + r - n_ct * n_s];
             }
-        };
-        if (live) {
-            if constexpr (NU > 0) {
-                RegVec<T, NU> u, up, cc, t1, t2;
-                RegVec<T, NU * (NU + 1) / 2> m;
+            __syncthreads();
+        }
+        // the group's members back to back, no barrier between them: two
+        // at a time where n_u <= kPairNU, then one at a time
+        int k = 0;
+        if constexpr (NU > 0 && NU <= kPairNU) {
+            for (; k + 1 < gm; k += 2) {
+                const T* tb[2];
+                const T* a1[2];
+                const T* a2[2];
+                T* ub[2];
+                T lw[2], wi[2];
 #pragma unroll
-                for (int v = 0; v < NU; ++v) {
-                    u[v] = ub[v * n + i];
-                    up[v] = ub[(NU + v) * n + i];
+                for (int x = 0; x < 2; ++x) {
+                    const int b = list[k0 + k + x];
+                    lw[x] = scal[static_cast<int64_t>(b) * scal_stride
+                                 + dm::kLW];
+                    tb[x] = tab + static_cast<int64_t>(b) * (n_steps + 1);
+                    a1[x] = WIDE ? a1b + b * a1_stride
+                                 : s_a + (k + x) * p * n_s;
+                    a2[x] = WIDE ? a2b + b * a2_stride : a1[x] + n_ct * n_s;
+                    ub[x] = uut + static_cast<int64_t>(b) * (2 * NU) * n;
+                    wi[x] = (W && live)
+                                ? w[static_cast<int64_t>(b) * w_stride + i]
+                                : T(0);
                 }
-                run(u, up, cc, m, t1, t2);
+                T* u_rows = s_u + k * NU * kLd + tid;   // both members' rows
+                T* wu_rows = s_wu + k * NU * kLd + tid;
+                if (live) {
+                    RegVec<T, NU> u[2], up[2], cc[2], t1[2], t2[2];
+                    RegVec<T, NU * (NU + 1) / 2> m[2];
 #pragma unroll
-                for (int v = 0; v < NU; ++v) {
-                    ub[v * n + i] = u[v];
-                    ub[(NU + v) * n + i] = up[v];
+                    for (int x = 0; x < 2; ++x)
+#pragma unroll
+                        for (int v = 0; v < NU; ++v) {
+                            u[x][v] = ub[x][v * n + i];
+                            up[x][v] = ub[x][(NU + v) * n + i];
+                        }
+                    if constexpr (WIDE)
+                        build_cm_pair<T, NU>(
+                            cc, m, ydt + i,
+                            ydt + static_cast<int64_t>(n_s) * n + i, n,
+                            s_rt + tid, a1, a2, n_s, n_ct);
+                    else
+                        build_cm_pair<T, NU>(cc, m, s_y + tid, s_d + tid,
+                                             int64_t(kLd), s_rt + tid, a1,
+                                             a2, n_s, n_ct);
+                    if (lagged)
+                        gram_steps_pair<T, NU, true>(u, up, cc, m, t1, t2,
+                                                     tb, lw, n_steps);
+                    else
+                        gram_steps_pair<T, NU, false>(u, up, cc, m, t1, t2,
+                                                      tb, lw, n_steps);
+#pragma unroll
+                    for (int x = 0; x < 2; ++x)
+#pragma unroll
+                        for (int v = 0; v < NU; ++v) {
+                            ub[x][v * n + i] = u[x][v];
+                            ub[x][(NU + v) * n + i] = up[x][v];
+                            u_rows[(x * NU + v) * kLd] = u[x][v];
+                            if constexpr (W)
+                                wu_rows[(x * NU + v) * kLd] = wi[x] * u[x][v];
+                        }
+                } else {
+#pragma unroll
+                    for (int v = 0; v < 2 * NU; ++v) {
+                        u_rows[v * kLd] = T(0);
+                        if constexpr (W) wu_rows[v * kLd] = T(0);
+                    }
+                }
+            }
+        }
+        for (; k < gm; ++k) {
+            const int b = list[k0 + k];
+            const T* sc = scal + static_cast<int64_t>(b) * scal_stride;
+            const T* tb = tab + static_cast<int64_t>(b) * (n_steps + 1);
+            const T* a1 = WIDE ? a1b + b * a1_stride : s_a + k * p * n_s;
+            const T* a2 = WIDE ? a2b + b * a2_stride : a1 + n_ct * n_s;
+            T* ub = uut + static_cast<int64_t>(b) * (2 * nu) * n;
+            T* u_rows = s_u + k * nu * kLd + tid;
+            T* wu_rows = s_wu + k * nu * kLd + tid;
+            const T wi = (W && live)
+                             ? w[static_cast<int64_t>(b) * w_stride + i]
+                             : T(0);
+            auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
+                           auto& t2) {
+                if constexpr (WIDE)
+                    dm::build_cm<T, NU, dm::kRoundNone>(
+                        cc, m, t1, nu, ydt + i,
+                        ydt + static_cast<int64_t>(n_s) * n + i, n,
+                        s_rt + tid, a1, a2, n_s, n_ct);
+                else
+                    dm::build_cm<T, NU, dm::kRoundNone>(
+                        cc, m, t1, nu, s_y + tid, s_d + tid, int64_t(kLd),
+                        s_rt + tid, a1, a2, n_s, n_ct);
+                if (lagged)
+                    dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, nu, tb,
+                                                sc[dm::kLW], n_steps);
+                else
+                    dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, nu,
+                                                 tb, sc[dm::kLW], n_steps);
+#pragma unroll
+                for (int v = 0; v < nu; ++v) {
+                    u_rows[v * kLd] = u[v];
+                    if constexpr (W) wu_rows[v * kLd] = wi * u[v];
+                }
+            };
+            if (live) {
+                if constexpr (NU > 0) {
+                    RegVec<T, NU> u, up, cc, t1, t2;
+                    RegVec<T, NU * (NU + 1) / 2> m;
+#pragma unroll
+                    for (int v = 0; v < NU; ++v) {
+                        u[v] = ub[v * n + i];
+                        up[v] = ub[(NU + v) * n + i];
+                    }
+                    run(u, up, cc, m, t1, t2);
+#pragma unroll
+                    for (int v = 0; v < NU; ++v) {
+                        ub[v * n + i] = u[v];
+                        ub[(NU + v) * n + i] = up[v];
+                    }
+                } else {
+                    // u, u_prev updated in place in the member's state
+                    // rows; C, M and the temporaries in this site's
+                    // scratch column (reused by the next member)
+                    const int64_t nm = nu * (nu + 1) / 2;
+                    ColVec<T> u{ub + i, n}, up{ub + nu * n + i, n};
+                    ColVec<T> cc{scratch + i, n}, m{scratch + nu * n + i, n};
+                    ColVec<T> t1{scratch + (nu + nm) * n + i, n};
+                    ColVec<T> t2{scratch + (2 * nu + nm) * n + i, n};
+                    run(u, up, cc, m, t1, t2);
                 }
             } else {
-                // u, u_prev updated in place in the member's state rows;
-                // C, M and the temporaries in this site's scratch column
-                const int64_t nm = nu * (nu + 1) / 2;
-                ColVec<T> u{ub + i, n}, up{ub + nu * n + i, n};
-                ColVec<T> cc{scratch + i, n}, m{scratch + nu * n + i, n};
-                ColVec<T> t1{scratch + (nu + nm) * n + i, n};
-                ColVec<T> t2{scratch + (2 * nu + nm) * n + i, n};
-                run(u, up, cc, m, t1, t2);
-            }
-        } else {
 #pragma unroll
-            for (int v = 0; v < nu; ++v) {
-                u_rows[v * kLd] = T(0);
-                if constexpr (W) s_wu[v * kLd + tid] = T(0);
+                for (int v = 0; v < nu; ++v) {
+                    u_rows[v * kLd] = T(0);
+                    if constexpr (W) wu_rows[v * kLd] = T(0);
+                }
             }
         }
         __syncthreads();
-        T* out = partials + static_cast<int64_t>(b) * n_entries * n_blocks
-                 + blockIdx.x;
-        if constexpr (WIDE)
-            dm::gram_partials_chunked<T, TD, NU, W, dm::kRoundNone>(
-                s_y, s_d, s_r, ydt, i, live, n, n_s, n_ct, nu, tid, out,
-                n_blocks, s_wu);
-        else
-            dm::gram_partials<T, NU, W, dm::kRoundNone>(
-                s_y, s_d, s_r, n_s, 0, n_s, true, n_ct, nu, tid, out,
-                n_blocks, s_wu);
+        T* out = out_row + static_cast<int64_t>(k0) * n_entries;
+        if constexpr (WIDE) {
+            for (int c0 = 0; c0 < n_s; c0 += kChunk) {
+                const int c1 = c0 + kChunk < n_s ? c0 + kChunk : n_s;
+                if (c0 > 0) __syncthreads();   // the previous chunk's sums
+                dm::stage_rows(s_y, ydt, c0, c1, i, live, n, tid);
+                dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, c0,
+                               c1, i, live, n, tid);
+                dm::stage_wait();
+                __syncthreads();
+                group_grams<T, NU>(s_y, s_d, s_rt, s_u, s_x, n_s, c0,
+                                   c1 - c0, c1 == n_s, n_ct, nu, gm, tid,
+                                   out, n_entries);
+            }
+        } else {
+            group_grams<T, NU>(s_y, s_d, s_rt, s_u, s_x, n_s, 0, n_s, true,
+                               n_ct, nu, gm, tid, out, n_entries);
+        }
     }
 }
 
-size_t smem_bytes(bool wide, size_t itemsize, int n_s, int n_ct, int n_u,
-                  bool weighted) {
-    const size_t p = static_cast<size_t>(n_ct + n_u);
-    const size_t w_rows = weighted ? n_u : 0;
-    if (wide)
-        return itemsize
-               * ((2 * dm::chunk_rows(n_s) + p + w_rows) * kLd);
-    return itemsize * ((2 * static_cast<size_t>(n_s) + p + w_rows) * kLd
-                       + p * n_s);
+// The launch's prologue: warp b < B writes member b's momentum table
+// (momentum_table_kernel's arithmetic, the betas then the advanced
+// Nesterov scalar) at tab + b (n_steps + 1); warp B writes the active
+// members (kActive not 0) in order to list[0, n_act) and n_act to
+// list[B].
+template <typename T>
+__global__ void __launch_bounds__(32)
+k4_prologue_kernel(const T* __restrict__ scal, int scal_stride,
+                   T* __restrict__ tab, int* __restrict__ list,
+                   int n_steps, int n_members) {
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x;
+    if (b < n_members) {
+        const T* sc = scal + static_cast<int64_t>(b) * scal_stride;
+        dm::momentum_table(tab + static_cast<int64_t>(b) * (n_steps + 1),
+                           sc[dm::kAU], sc[dm::kLWPrev], sc[dm::kLW],
+                           n_steps, lane, 32, [] { __syncwarp(); });
+        return;
+    }
+    int n_act = 0;
+    for (int m0 = 0; m0 < n_members; m0 += 32) {
+        const int m = m0 + lane;
+        const bool act =
+            m < n_members
+            && !(scal[static_cast<int64_t>(m) * scal_stride + dm::kActive]
+                 == T(0));
+        const unsigned who = __ballot_sync(dm::kFull, act);
+        if (act) list[n_act + __popc(who & ((1u << lane) - 1u))] = m;
+        n_act += __popc(who);
+    }
+    if (lane == 0) list[n_members] = n_act;
+}
+
+// Second pass, in two kernels: column c = k E + e of the (n_blocks, B E)
+// partials (member list[k], entry e) summed in K1's order -- 256 sums, the
+// t-th over blocks t, t + 256, ... in block order, then the fixed tree
+// buf[t] += buf[t + w] for w = 128, ..., 1 -- into out[list[k] E + e].
+// reduce_chains_kernel: thread (t, c) forms the t-th sum of column c and
+// writes it over the partial it started from (row t, which no other
+// thread reads); a warp takes 32 neighbouring columns of one row, and
+// there is a thread for every (t, c), so even a few columns fill the
+// card. reduce_tree_kernel: a block stages the 256 sums of kTreeCols
+// columns and runs the tree; entry 0 also sets the member's Nesterov
+// scalar to its table's last slot and l_w_prev = l_w, as K1's
+// reduce_partials_kernel does.
+constexpr int kChainCols = 32;     // columns of a chain block (one warp)
+constexpr int kChainRows = kRedThreads / kChainCols;
+
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads)
+reduce_chains_kernel(T* __restrict__ partials, const int* __restrict__ list,
+                     int n_blocks, int n_entries, int n_members) {
+    const int col = blockIdx.x * kChainCols + threadIdx.x % kChainCols;
+    const int t = blockIdx.y * kChainRows + threadIdx.x / kChainCols;
+    if (col >= list[n_members] * n_entries || t >= n_blocks) return;
+    const int64_t row = static_cast<int64_t>(n_members) * n_entries;
+    T acc = T(0);
+#pragma unroll 8
+    for (int b = t; b < n_blocks; b += kRedThreads)
+        acc += partials[b * row + col];
+    partials[t * row + col] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads)
+reduce_tree_kernel(const T* __restrict__ partials, T* __restrict__ out,
+                   T* __restrict__ scal, const T* __restrict__ tab,
+                   const int* __restrict__ list, int n_blocks, int n_steps,
+                   int n_entries, int n_members, int scal_stride) {
+    constexpr int kCols = 128 / static_cast<int>(sizeof(T));
+    __shared__ T buf[kRedThreads][kCols];
+    const int n_cols = list[n_members] * n_entries;
+    const int c0 = blockIdx.x * kCols;
+    if (c0 >= n_cols) return;                       // uniform per block
+    const int tid = threadIdx.x;
+    const int64_t row = static_cast<int64_t>(n_members) * n_entries;
+    for (int x = tid; x < kRedThreads * kCols; x += kRedThreads) {
+        const int t = x / kCols, c = c0 + x % kCols;
+        buf[t][x % kCols] = (t < n_blocks && c < n_cols)
+                                ? partials[t * row + c] : T(0);
+    }
+    __syncthreads();
+    for (int wd = kRedThreads / 2; wd > 0; wd >>= 1) {
+        for (int x = tid; x < wd * kCols; x += kRedThreads)
+            buf[x / kCols][x % kCols] += buf[x / kCols + wd][x % kCols];
+        __syncthreads();
+    }
+    const int col = c0 + tid;
+    if (tid < kCols && col < n_cols) {
+        const int b = list[col / n_entries];
+        const int e = col % n_entries;
+        out[static_cast<int64_t>(b) * n_entries + e] = buf[0][tid];
+        if (e == 0) {
+            T* sc = scal + static_cast<int64_t>(b) * scal_stride;
+            sc[dm::kAU] = tab[static_cast<int64_t>(b) * (n_steps + 1)
+                              + n_steps];
+            if (n_steps > 0) sc[dm::kLWPrev] = sc[dm::kLW];
+        }
+    }
 }
 
 template <typename T, typename TD, int NU, bool W, bool WIDE>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
-           void* tab, void* partials, void* out, void* scratch, int64_t n,
-           int n_s, int n_ct, int n_u, int n_steps, int n_members,
-           int lagged, cudaStream_t stream) {
+           void* tab, void* list, void* partials, void* out, void* scratch,
+           int64_t n, int n_s, int n_ct, int n_u, int n_steps,
+           int n_members, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
-    int err0 = dm::launch_momentum_table<T, false>(
-        static_cast<T*>(scal), scal_stride, n_members, static_cast<T*>(tab),
-        n_steps, stream);
-    if (err0 != 0) return err0;
+    k4_prologue_kernel<T><<<n_members + 1, 32, 0, stream>>>(
+        static_cast<const T*>(scal), scal_stride, static_cast<T*>(tab),
+        static_cast<int*>(list), n_steps, n_members);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
-    const size_t smem = smem_bytes(WIDE, sizeof(T), n_s, n_ct, n_u, W);
+    const dm::K4MemberPlan plan = dm::k4_member_plan(
+        sizeof(T), n_s, n_ct, n_u, n_members, W, WIDE);
     auto kern = u_phase_grams_multi_kernel<T, TD, NU, W, WIDE>;
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
+    if (plan.smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+            static_cast<int>(plan.smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kern<<<n_blocks, kSites, smem, stream>>>(
+    kern<<<n_blocks, kSites, plan.smem, stream>>>(
         static_cast<const TD*>(ydt), static_cast<const TD*>(rtt),
         static_cast<const T*>(a1b), a1_stride, static_cast<const T*>(a2b),
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
         static_cast<const T*>(scal), scal_stride, static_cast<const T*>(tab),
-        static_cast<T*>(partials), static_cast<T*>(scratch), n, n_s, n_ct,
-        n_u, n_steps, n_blocks, n_members, lagged);
-    cudaError_t err = cudaGetLastError();
+        static_cast<const int*>(list), static_cast<T*>(partials),
+        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, n_members,
+        plan.group, lagged);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dm::reduce_partials_kernel<T, true>
-        <<<n_members * n_entries, kRedThreads, 0, stream>>>(
-            static_cast<const T*>(partials), static_cast<T*>(out),
-            static_cast<T*>(scal), static_cast<const T*>(tab), n_blocks,
-            n_steps, n_entries, scal_stride);
+    const int n_cols = n_members * n_entries;
+    const int n_rows = n_blocks < kRedThreads ? n_blocks : kRedThreads;
+    const dim3 chains((n_cols + kChainCols - 1) / kChainCols,
+                      (n_rows + kChainRows - 1) / kChainRows);
+    reduce_chains_kernel<T><<<chains, kRedThreads, 0, stream>>>(
+        static_cast<T*>(partials), static_cast<const int*>(list), n_blocks,
+        n_entries, n_members);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int kCols = 128 / static_cast<int>(sizeof(T));
+    reduce_tree_kernel<T><<<(n_cols + kCols - 1) / kCols, kRedThreads, 0,
+                            stream>>>(
+        static_cast<const T*>(partials), static_cast<T*>(out),
+        static_cast<T*>(scal), static_cast<const T*>(tab),
+        static_cast<const int*>(list), n_blocks, n_steps, n_entries,
+        n_members, scal_stride);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,15 +924,16 @@ template <typename T, typename TD, bool W, bool WIDE>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
-                int scal_stride, void* tab, void* partials, void* out,
-                void* scratch, long long n, int n_s, int n_ct, int n_u,
-                int n_steps, int n_members, int lagged, cudaStream_t st) {
+                int scal_stride, void* tab, void* list, void* partials,
+                void* out, void* scratch, long long n, int n_s, int n_ct,
+                int n_u, int n_steps, int n_members, int lagged,
+                cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, W, WIDE>(                                  \
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,     \
-            scal, scal_stride, tab, partials, out, scratch, n, n_s, n_ct,   \
-            n_u, n_steps, n_members, lagged, st);
+            scal, scal_stride, tab, list, partials, out, scratch, n, n_s,   \
+            n_ct, n_u, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
@@ -297,8 +942,8 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 return static_cast<int>(cudaErrorInvalidValue);
             return launch<T, TD, 0, W, WIDE>(
                 ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,
-                scal, scal_stride, tab, partials, out, scratch, n, n_s, n_ct,
-                n_u, n_steps, n_members, lagged, st);
+                scal, scal_stride, tab, list, partials, out, scratch, n, n_s,
+                n_ct, n_u, n_steps, n_members, lagged, st);
     }
 #undef DM_K4_CASE
 }
@@ -307,18 +952,19 @@ template <typename T, typename TD, bool WIDE>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
-             int scal_stride, void* tab, void* partials, void* out,
-             void* scratch, long long n, int n_s, int n_ct, int n_u,
-             int n_steps, int n_members, int lagged, void* stream) {
+             int scal_stride, void* tab, void* list, void* partials,
+             void* out, void* scratch, long long n, int n_s, int n_ct,
+             int n_u, int n_steps, int n_members, int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (n_members < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (w != nullptr)
         return dispatch_nu<T, TD, true, WIDE>(
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-            scal_stride, tab, partials, out, scratch, n, n_s, n_ct, n_u,
-            n_steps, n_members, lagged, st);
+            scal_stride, tab, list, partials, out, scratch, n, n_s, n_ct,
+            n_u, n_steps, n_members, lagged, st);
     return dispatch_nu<T, TD, false, WIDE>(
         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-        scal_stride, tab, partials, out, scratch, n, n_s, n_ct, n_u,
+        scal_stride, tab, list, partials, out, scratch, n, n_s, n_ct, n_u,
         n_steps, n_members, lagged, st);
 }
 
@@ -326,24 +972,26 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 
 // The C entry points of one layout (PREFIX dm_u_phase_grams_multi or
 // dm_u_phase_grams_multi_wide):
-//   PREFIX_smem(itemsize, n_s, n_ct, n_u, weighted): the main pass's
-//     shared memory in bytes (independent of B);
+//   PREFIX_smem(itemsize, n_s, n_ct, n_u, weighted): one member's shared
+//     memory in bytes (what the layout rule compares; a launch takes
+//     k4_member_plan's group bytes);
 //   PREFIX_{f32,f64,bf16}(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-//     w, w_stride, scal, scal_stride, tab, partials, out, scratch, n, n_s,
-//     n_ct, n_u, n_steps, n_members, lagged, stream): w the members'
-//     weight rows (B, w_stride) or NULL (unweighted); bf16: bf16 data
-//     with a float32 state and float32 weight rows.
+//     w, w_stride, scal, scal_stride, tab, list, partials, out, scratch, n,
+//     n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the members'
+//     weight rows (B, w_stride) or NULL (unweighted); list room for B + 1
+//     ints; bf16: bf16 data with a float32 state and float32 weight rows.
 #define DM_K4_ENTRY(PREFIX, SUFFIX, T, TD, WIDE)                             \
     int PREFIX##SUFFIX(const void* ydt, const void* rtt, const void* a1b,    \
                        long long a1_stride, const void* a2b,                 \
                        long long a2_stride, void* uut, const void* w,        \
                        long long w_stride, void* scal, int scal_stride,      \
-                       void* tab, void* partials, void* out, void* scratch,  \
-                       long long n, int n_s, int n_ct, int n_u, int n_steps, \
-                       int n_members, int lagged, void* stream) {            \
+                       void* tab, void* list, void* partials, void* out,     \
+                       void* scratch, long long n, int n_s, int n_ct,        \
+                       int n_u, int n_steps, int n_members, int lagged,      \
+                       void* stream) {                                       \
         return dispatch<T, TD, WIDE>(ydt, rtt, a1b, a1_stride, a2b,          \
                                      a2_stride, uut, w, w_stride, scal,      \
-                                     scal_stride, tab, partials, out,        \
+                                     scal_stride, tab, list, partials, out,  \
                                      scratch, n, n_s, n_ct, n_u, n_steps,    \
                                      n_members, lagged, stream);             \
     }
@@ -351,8 +999,8 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
     extern "C" {                                                             \
     long long PREFIX##_smem(int itemsize, int n_s, int n_ct, int n_u,        \
                             int weighted) {                                  \
-        return static_cast<long long>(                                       \
-            smem_bytes(WIDE, itemsize, n_s, n_ct, n_u, weighted != 0));      \
+        return dm::k4_smem(WIDE, itemsize, n_s, n_ct, n_u, weighted != 0,    \
+                           1);                                               \
     }                                                                        \
     DM_K4_ENTRY(PREFIX, _f32, float, float, WIDE)                            \
     DM_K4_ENTRY(PREFIX, _f64, double, double, WIDE)                          \

@@ -86,7 +86,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             # the multi-member kernel: pointers with their member strides
             fn = getattr(lib, f"{k4}_{dt}")
             fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
-                           + [_LL] + [_VOID, _INT] + [_VOID] * 4 + [_LL]
+                           + [_LL] + [_VOID, _INT] + [_VOID] * 5 + [_LL]
                            + [_INT] * 6 + [_VOID])
             fn.restype = _INT
         getattr(lib, f"{k1}_smem").argtypes = [_INT] * 6
@@ -97,6 +97,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_u_phase_grams_blocks.restype = _INT
     lib.dm_gram_tile_plan.argtypes = [_INT] * 4 + [_VOID]
     lib.dm_gram_tile_plan.restype = _INT
+    lib.dm_k4_member_plan.argtypes = [_INT] * 7 + [_VOID]
+    lib.dm_k4_member_plan.restype = _INT
+    lib.dm_k4_gram_plan.argtypes = [_INT] * 5 + [_VOID]
+    lib.dm_k4_gram_plan.restype = _INT
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"dm_momentum_table_{dt}")
         fn.argtypes = [_VOID, _INT, _INT, _VOID, _INT, _INT, _VOID]
@@ -105,16 +109,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_VOID] * 12 + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_{dt}")
-        fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
+        fn.argtypes = [_VOID] * 10 + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL, _VOID, _LL]
                        + [_VOID, _LL] + [_VOID] * 2 + [_INT] * 7 + [_VOID])
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
-        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_INT] * 5
-                       + [_VOID])
+        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_VOID] * 2
+                       + [_INT] * 7 + [_VOID])
         fn.restype = _INT
+    lib.dm_row_bucket.argtypes = [_INT]
+    lib.dm_row_bucket.restype = _INT
     lib.dm_glue_smem.argtypes = [_INT] * 3
     lib.dm_glue_smem.restype = _LL
     # the single-phase kernels: K7, K8, K9, K10

@@ -31,6 +31,16 @@ the arithmetic is float32 from there on, as the JAX kernel's
 (``pallas_kernels.py:835-836, 853``); the weight rows keep the state
 dtype.
 
+The kernel takes the active members in groups (``k4_member_plan``): the
+group's alpha blocks and u rows share the block's shared memory with the
+staged Y, D and Rt, each thread runs its site's steps for every member of
+the group, and one Gram stage sums the group's entries in register tiles
+whose rows run across the members (``k4_gram_plan``); every entry keeps
+K1's products and site order, so each member's outputs are K1's bits.
+``csrc/u_phase_grams_multi.cuh`` exports the same plans
+(``dm_k4_member_plan``, ``dm_k4_gram_plan``), which ``chip_smoke.py``
+holds these to.
+
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
 same function with the member axis written out as a batch dimension.
@@ -40,12 +50,19 @@ import torch
 
 from demethify_tpu_torch.ops import _build, cuda_kernels
 from demethify_tpu_torch.ops.cuda_kernels import (
+    _CHUNK,
+    _LD,
     A_U,
     ACTIVE,
+    GRAM_TILE_Q,
     L_W,
     L_W_PREV,
     N_SCAL_MULTI,
     REG_N_U,
+    SITES_PER_BLOCK,
+    SMEM_LIMIT,
+    SMEM_PER_SM,
+    blocks_per_sm,
     check_dtypes,
     count_forms,
     gram_entries,
@@ -55,6 +72,98 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     scratch_rows,
 )
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
+
+
+# blocks per SM a member group keeps, where one member's layout fits as
+# many (kGroupBlocks)
+K4_GROUP_BLOCKS = 4
+# the group Gram stage's tiles (kGS, kGL, kGP, kGB): samples per tile,
+# left rows (member, unknown) per cross tile (x GRAM_TILE_Q rows of Rt),
+# (member, v, w) pairs per self tile, left rows per b_u tile
+K4_TILE_S, K4_TILE_L, K4_TILE_P, K4_TILE_B = 2, 2, 4, 4
+
+
+def k4_smem(itemsize: int, n_s: int, n_ct: int, n_u: int, weighted: bool,
+            layout: str, group: int) -> int:
+    """K4's shared memory in bytes for a group of ``group`` members:
+    the staged Y and D rows (n_s, or one chunk of 32 in the wide layout)
+    and Rt's n_ct rows, each member's n_u u rows (and, ``weighted``, n_u
+    rows of w u), and in the resident layout each member's (p, n_s) alpha
+    block. At group 1 it is ``cuda_kernels.u_phase_smem(...,
+    weighted=)``, the bytes the layout rule compares."""
+    rows = min(_CHUNK, n_s) if layout == "wide" else n_s
+    u_rows = group * n_u * (2 if weighted else 1)
+    alpha = 0 if layout == "wide" else group * (n_ct + n_u) * n_s
+    return itemsize * ((2 * rows + n_ct + u_rows) * _LD + alpha)
+
+
+def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
+                   weighted: bool, layout: str) -> dict:
+    """K4's member groups (``csrc/u_phase_grams_multi.cuh``,
+    ``k4_member_plan``; the kernels' ``dm_k4_member_plan``): the group size
+    G is the most members, at most n_b and at least 1, whose alpha blocks
+    and u rows (``k4_smem``) leave the block min(K4_GROUP_BLOCKS, the
+    one-member layout's blocks per SM) blocks on an SM, so a group keeps
+    the occupancy the layout rule counted wherever that was at most
+    K4_GROUP_BLOCKS. Returns {"group", "smem", "blocks"}.
+    The cap comes from shared memory, never from B."""
+    one = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 1)
+    base = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 0)
+    blocks = max(1, min(blocks_per_sm(one), K4_GROUP_BLOCKS))
+    budget = min(SMEM_PER_SM // blocks - 1024, SMEM_LIMIT)
+    group = max(1, min(n_b, (budget - base) // (one - base)))
+    return {"group": group,
+            "smem": k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout,
+                            group),
+            "blocks": blocks}
+
+
+def k4_gram_plan(n_c: int, n_ct: int, n_u: int, gm: int, usq: bool) -> dict:
+    """The items of K4's Gram stage for a group of ``gm`` members and n_c
+    staged samples (``csrc/u_phase_grams_multi.cuh``, ``k4_gram_plan``;
+    ``dm_k4_gram_plan``), dealt to the block's 128 threads, item k to
+    thread k mod 128. "tiled" when the tiles give every thread one at
+    least:
+
+    - n_x cross tiles in items [0, n_x), ts x tl x tq: K4_TILE_S samples x
+      K4_TILE_L left rows (member, unknown) x GRAM_TILE_Q rows of Rt
+      (item k: q-tile k mod tq, row tile (k // tq) mod tl, sample tile
+      k // (tq tl));
+    - n_self self tiles from item o_self, ts x tp: K4_TILE_S samples x
+      K4_TILE_P pairs (member, v, w) of the u u' block (pair tile first);
+    - n_bu b_u tiles from o_bu, ts x tb: K4_TILE_S samples x K4_TILE_B
+      left rows (row tile first);
+    - with ``usq`` one item per member from o_usq;
+
+    each kind from a warp boundary (the items between are idle), so a
+    warp runs one kind; n_items = o_usq + n_usq. Rows past the edge are
+    clamped and write nothing. Otherwise (fewer tiles than threads) one
+    item per entry, member by member, K1's local order for each
+    ([gu (n_c, n_u, p) | b_u (n_u, n_c) | usq])."""
+    n_l = gm * n_u
+    ts = -(-n_c // K4_TILE_S)
+    tl = -(-n_l // K4_TILE_L)
+    tq = -(-n_ct // GRAM_TILE_Q)
+    tp = -(-(n_l * n_u) // K4_TILE_P)
+    tb = -(-n_l // K4_TILE_B)
+    plan = {"ts": ts, "tl": tl, "tq": tq, "tp": tp, "tb": tb,
+            "n_x": ts * tl * tq, "n_self": ts * tp, "n_bu": ts * tb,
+            "n_usq": gm if usq else 0}
+    n_tiles = plan["n_x"] + plan["n_self"] + plan["n_bu"] + plan["n_usq"]
+    plan["tiled"] = n_tiles >= SITES_PER_BLOCK
+    if not plan["tiled"]:
+        plan.update(o_self=0, o_bu=0, o_usq=0, n_items=gm * (
+            n_c * n_u * (n_ct + n_u) + n_u * n_c + int(usq)))
+        return plan
+
+    def warp_up(x):
+        return -(-x // 32) * 32
+
+    plan["o_self"] = warp_up(plan["n_x"])
+    plan["o_bu"] = plan["o_self"] + warp_up(plan["n_self"])
+    plan["o_usq"] = plan["o_bu"] + warp_up(plan["n_bu"])
+    plan["n_items"] = plan["o_usq"] + plan["n_usq"]
+    return plan
 
 
 def _check_args(ydt, rtt, a1_b, a2_b, uut_b, scal_b, weights):
@@ -141,10 +250,13 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
-    # the partial sums and, behind them, the members' momentum tables
-    partials = uut_b.new_empty((n_b * n_entries * n_blocks
-                                + n_b * (n_steps + 1),))
-    tab = partials[n_b * n_entries * n_blocks:]
+    # the partial sums and, behind them, the members' momentum tables and
+    # the list of active members (B + 1 int32)
+    n_part, n_tab = n_b * n_entries * n_blocks, n_b * (n_steps + 1)
+    n_list = -(-4 * (n_b + 1) // uut_b.element_size())
+    partials = uut_b.new_empty((n_part + n_tab + n_list,))
+    tab = partials[n_part:]
+    member_list = partials[n_part + n_tab:]
     out = uut_b.new_empty((n_b, n_entries))
     rows = scratch_rows(n_u, False)
     scratch = uut_b.new_empty((rows, n)) if rows else None
@@ -158,7 +270,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  None if weights is None else weights.data_ptr(),
                  0 if weights is None else weights.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI, tab.data_ptr(),
-                 partials.data_ptr(), out.data_ptr(),
+                 member_list.data_ptr(), partials.data_ptr(), out.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")

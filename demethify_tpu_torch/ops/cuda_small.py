@@ -33,10 +33,12 @@ member).
 Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers;
 above, the kernels' wide form keeps each warp's column in its own slab of
 shared memory (``glue_smem``); past one slab they raise, stating the
-shape. K2's and K5's register form runs its warp collectives to a row
-bucket of 8, 16 or 32 lanes and gives every column its own warp, over
-several blocks past 16 columns (``alpha_plan``), with the cost summed in
-a fixed order that does not depend on the grid.
+shape. The register form of K2, K3, K5 and K6 runs its warp collectives
+to a row bucket of 8, 16 or 32 lanes and gives every column its own
+warp, over several blocks past 16 columns (``alpha_plan``), with the cost
+summed in a fixed order that does not depend on the grid; K3 and K6 read
+their step sizes from a table built once per launch. K10 runs K3's loop
+at the same bucket, in one block.
 
 ``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
 are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
@@ -87,19 +89,22 @@ REG_P = 32     # rows the register form holds, one lane per row (kMaxP)
 # the wide form's slabs may take the card's limit less 1 KB for the
 # kernels' static shared memory (small_common.cuh, kGlueSmemLimit)
 _GLUE_LIMIT = SMEM_LIMIT - 1024
-# K2/K5's register form: its row buckets, and how it spreads the columns
-# (one block up to ONE_BLOCK_COLUMNS, then blocks of BLOCK_COLUMNS)
+# the register form of K2, K3, K5, K6: its row buckets, and how it spreads
+# the columns (one block up to ONE_BLOCK_COLUMNS, then blocks of
+# BLOCK_COLUMNS)
 ROW_BUCKETS = (8, 16, 32)
 ONE_BLOCK_COLUMNS = 16
 BLOCK_COLUMNS = 8
 
 
 def alpha_plan(p: int, n_s: int):
-    """(row bucket, columns per block, blocks per member) of K2's and K5's
-    register form (p <= 32; ``csrc/alpha_phase_full.cu``): the smallest
-    bucket P >= p, to which every warp collective of a step runs; one warp
-    per column, all n_s columns in one block up to ONE_BLOCK_COLUMNS, else
-    blocks of BLOCK_COLUMNS (columns [x cols, (x + 1) cols) in block x).
+    """(row bucket, columns per block, blocks per member) of the register
+    form of K2, K5 (``csrc/alpha_phase_full.cu``), K3 and K6
+    (``csrc/fw_phase_full.cu``), p <= 32: the smallest bucket P >= p
+    (``dm_row_bucket``; K10 takes the same), to which every warp
+    collective of a step runs; one warp per column, all n_s columns in one
+    block up to ONE_BLOCK_COLUMNS, else blocks of BLOCK_COLUMNS (columns
+    [x cols, (x + 1) cols) in block x).
     The kernel sums the columns' cost terms in a fixed order whatever the
     grid: column s into group s mod min(n_s, 32), each group in column
     order, then the groups in order."""
@@ -108,11 +113,12 @@ def alpha_plan(p: int, n_s: int):
     return bucket, cols, -(-n_s // cols)
 
 
-# per (device, dtype): K2/K5's per-column cost terms and their members'
-# finished-block tickets (int32, zero between launches: the last block
-# of a member resets its own). Reused by every launch, which is safe as
-# the launches run on one stream one after another (the solvers' way); a
-# fresh ticket buffer would cost a fill launch per call
+# per (device, dtype): the register form's per-column cost terms (K2, K3,
+# K5, K6) and their members' finished-block tickets (int32, zero between
+# launches: the last block of a member resets its own). Reused by every
+# launch, which is safe as the launches run on one stream one after
+# another (the solvers' way); a fresh ticket buffer would cost a fill
+# launch per call
 _GLUE_SCRATCH = {}
 
 
@@ -304,10 +310,11 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
     fn = (lib.dm_fw_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_fw_phase_full_f64)
     with torch.cuda.device(alpha.device):
+        colsum, tickets, bucket, cols = _reg_args(alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), ydy.data_ptr(), alpha.data_ptr(),
-                 purity.data_ptr(), scal.data_ptr(), n_s, n_ct, n_u,
-                 n_steps, _stream(alpha))
+                 purity.data_ptr(), scal.data_ptr(), colsum, tickets, n_s,
+                 n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
     _build.check(err, "fw_phase_full")
     fw_phase_full.launches += 1
     count_forms(fw_phase_full.forms, wide=p > REG_P)
@@ -535,12 +542,13 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
+        colsum, tickets, bucket, cols = _reg_args(alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_b.stride(0), purity.data_ptr(), scal_b.data_ptr(),
-                 N_SCAL_MULTI, n_s, n_ct, n_u, n_steps, n_b,
-                 _stream(alpha_b))
+                 N_SCAL_MULTI, colsum, tickets, n_s, n_ct, n_u, n_steps,
+                 bucket, cols, n_b, _stream(alpha_b))
     _build.check(err, name)
     fw_phase_full_multi.launches += 1
     count_forms(fw_phase_full_multi.forms, wide=p > REG_P)

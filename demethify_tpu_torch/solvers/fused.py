@@ -359,13 +359,16 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
 
     What grows with B, per member, in bytes (``itemsize``):
       - K4's partial buffer, E ceil(n_cpg / 128) itemsize, with
-        E = n_s n_u (n_ct + n_u) + n_u n_s + 1 Gram entries;
+        E = n_s n_u (n_ct + n_u) + n_u n_s + 1 Gram entries (laid out
+        (blocks, B E); behind it each member's momentum table and list
+        slot, n_steps + 2 values, which the formula leaves out);
       - the member's u and u_prev rows (2 n_u n_cpg itemsize), its
         stacked starting u and its returned u (2 n_u n_cpg itemsize);
       - ``weighted`` (the bootstrap): its weight row, itemsize n_cpg;
-      - shared memory: nothing. K4 stages one member's alpha blocks at a
-        time and K5/K6 give each member its own thread block, so neither
-        grows with B.
+      - shared memory: nothing. K4 stages its members' alpha blocks and
+        u rows a group at a time, and ``cuda_multi.k4_member_plan`` caps
+        the group by shared memory, never by B; K5/K6 give each member
+        its own thread blocks. So neither grows with B.
     What does not: the solver's copies [Y.T; D.T] and Rt.T,
     data_itemsize n_cpg (2 n_s + n_ct) bytes, and above n_u = 8 K4's
     scratch columns, itemsize n_cpg ``scratch_rows(n_u)``: ``shared``. The
