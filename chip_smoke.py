@@ -105,12 +105,14 @@ non-zero and prints no result line):
    in float32, float64 and bf16 data, lagged without a known block
    (n_u = 3), at 500 steps, at the cohort shape (1M x 100, 25 + 4,
    float32), n_u = 12 (5 + 12, n_s = 100, float64, 200k sites) and a
-   ragged N, each timed beside K1 on the same data; K8 ``grams`` at
-   1M x 10, p = 6, in float32, float64 and bf16 data and at 1M x 100,
-   p = 29, with the PyTorch calls that compute the same sums timed beside
-   it, and on bf16 data at 200 sites, where its rounding shows, against
-   its twin's rounding summed in float64 and apart from
-   ``ops/gram.sample_grams``; K9
+   ragged N, each timed beside K1 on the same data; K8 ``grams``, on the
+   tensor cores (its SASS holds HMMA and DMMA), at 1M x 10, p = 6 and at
+   1M x 100, p = 29, in float32, float64 and bf16 data, with the PyTorch
+   calls that compute the same sums timed beside it (float32), untimed at
+   a ragged N, n_s = 1 / p = 1, n_s = 13 / p = 11 and p = 64 / n_s = 500
+   (float64), each launched twice to the same bits, and on bf16 data at
+   200 sites, where its rounding shows, against its twin's rounding
+   summed in float64 and apart from ``ops/gram.sample_grams``; K9
    ``alpha_phase`` (p = 6, 20 steps, float32 and float64; masked; p = 40,
    n_s = 100, float64) and K10 ``fw_phase`` (p = 6, 500 steps, float32
    and float64, with its vertex flips; p = 40, float64), each also on
@@ -335,13 +337,21 @@ def expect_counts(launches, **want):
 # its bytes (each input read once, each output written once) over the
 # memory rate and its operations over the card's peak rate for their
 # type (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32
-# outside the tensor cores, 67 TFLOP/s float64 on them).
+# outside the tensor cores, 67 TFLOP/s float64 on them). K8 runs on the
+# tensor cores, so its bound takes its route's rate: 3xTF32 forms each
+# float32 product from three TF32 products (495 / 3 TFLOP/s), DMMA
+# float64 at 67 TFLOP/s, bf16 MMA at 989 TFLOP/s.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOP_S = {"float32": 67e12, "float64": 67e12, "3xTF32": 495e12 / 3,
+               "DMMA": 67e12, "bf16 MMA": 989e12}
+# K8's route by data type
+K8_ROUTE = {"float32": "3xTF32", "float64": "DMMA", "bfloat16": "bf16 MMA"}
 
 
 def bound(n_bytes, flops, dtype_name):
-    """(bound_ms, bound_by) of work of n_bytes and flops."""
+    """(bound_ms, bound_by) of work of n_bytes and flops, the operations
+    at the rate of ``dtype_name`` (a type, or a tensor-core route of
+    ``PEAK_FLOP_S``)."""
     t_bytes = n_bytes / HBM_BYTES_S
     t_ops = flops / PEAK_FLOP_S[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
@@ -3812,7 +3822,8 @@ def k8_work(n, n_s, p, data_itemsize, itemsize, rounded=False):
     terms (2 each, p (p + 1)), d y (1), b (2 p) and ydy (2). Under bf16
     data (``rounded``) G's left factor is bf16(r d_s), so G is not
     symmetric: per site and sample r d_s (p), every G term (2 p^2), d y,
-    b and ydy."""
+    b and ydy. ``bound`` takes these at the tensor-core route's rate
+    (``K8_ROUTE``) and, for the history, at 67 TFLOP/s."""
     n_bytes = (n * data_itemsize * (2 * n_s + p)
                + itemsize * (n_s * p * p + p * n_s + n_s))
     if rounded:
@@ -3925,11 +3936,13 @@ def _grams_inputs(n, n_s, p, dtype, seed):
 
 
 def _k8_case(n, n_s, p, dtype_name, data=None, seed=320, timed=False,
-             library=False):
-    """K8 against its twin, each output relative to its largest entry;
-    ``timed`` takes its ms queued behind a device sleep (a launch at the
-    main path's shape is short beside its wrapper's host work), and the
-    back-to-back median beside it.
+             library=False, label=""):
+    """K8 against its twin, each output relative to its largest entry, and
+    a second launch on the same inputs to the same bits; ``timed`` takes
+    its ms queued behind a device sleep (a launch at the main path's shape
+    is short beside its wrapper's host work), the back-to-back median
+    beside it, the twin's ms and the bound at the tensor-core route's rate
+    (``K8_ROUTE``) with the CUDA-core bound (67 TFLOP/s) beside it.
     ``library`` times the PyTorch calls that compute the same (G, b, ydy),
     which the port never calls: ``torch.einsum("sn,qn,rn->sqr", D, R,
     R)``, ``R @ (D * Y).T`` and ``torch.sum(D * Y * Y, 1)``."""
@@ -3942,24 +3955,31 @@ def _k8_case(n, n_s, p, dtype_name, data=None, seed=320, timed=False,
     if data is not None:
         yt, dt, rt = (x.to(getattr(torch, data)) for x in (yt, dt, rt))
     got = grams(yt, dt, rt)
+    again = grams(yt, dt, rt)
     want = grams_plain(yt, dt, rt)
     torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
     rel = [float((k - w).abs().max() / w.abs().max())
            for k, w in zip(got, want)]
     err = max(float((k - w).abs().max()) for k, w in zip(got, want))
     tol = TOL[dtype_name]["gram"]
     data_name = str(yt.dtype).replace("torch.", "")
     res = {"n": n, "n_s": n_s, "p": p, "dtype": dtype_name,
-           "data": data_name, "rel": rel, "max_abs_err": err}
+           "data": data_name, "rel": rel, "max_abs_err": err,
+           "repeat_same": same}
     if timed:
         res["ms"] = queued_ms(lambda: grams(yt, dt, rt), inner=10)
         res["back_to_back_ms"] = median_ms(lambda: grams(yt, dt, rt),
                                            inner=5)
         res["plain_ms"] = median_ms(lambda: grams_plain(yt, dt, rt), reps=3,
                                     inner=1, warmup=1)
-        res["bound_ms"], res["bound_by"] = bound(
-            *k8_work(n, n_s, p, yt.element_size(), got[0].element_size(),
-                     yt.dtype == torch.bfloat16), dtype_name)
+        work = k8_work(n, n_s, p, yt.element_size(), got[0].element_size(),
+                       yt.dtype == torch.bfloat16)
+        route = K8_ROUTE[data_name]
+        res["bound_ms"], res["bound_by"] = bound(*work, route)
+        res["bound_rate"] = route
+        res["cuda_core_bound_ms"], res["cuda_core_bound_by"] = bound(
+            *work, dtype_name)
     if library:
         def lib_calls():
             return (torch.einsum("sn,qn,rn->sqr", dt, rt, rt),
@@ -3967,19 +3987,53 @@ def _k8_case(n, n_s, p, dtype_name, data=None, seed=320, timed=False,
         res["library_rel"] = [float((k - w).abs().max() / w.abs().max())
                               for k, w in zip(got, lib_calls())]
         res["library_ms"] = median_ms(lib_calls, reps=3, inner=1, warmup=1)
-    log(f"[K8] N={n} n_s={n_s} p={p} {data_name} data: G, b, ydy max|diff| "
-        f"/ max|entry| {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} (tol "
-        f"{tol:.0e})"
+    log(f"[K8]{label} N={n} n_s={n_s} p={p} {data_name} data: G, b, ydy "
+        f"max|diff| / max|entry| {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} "
+        f"(tol {tol:.0e}); a second launch gives the same bits: {same}"
         + (f"; kernel {res['ms']:.4f} ms queued behind a device sleep "
            f"({res['back_to_back_ms']:.4f} back to back), plain "
            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-           f"({res['bound_by']})" if timed else "")
+           f"({res['bound_by']}, {route}; at 67 TFLOP/s "
+           f"{res['cuda_core_bound_ms']:.4f} ms, "
+           f"{res['cuda_core_bound_by']})" if timed else "")
         + (f"; library calls (einsum, matmul, sum) {res['library_ms']:.4f} "
            f"ms, their results within {max(res['library_rel']):.3e}"
            if library else ""))
     check(np.isfinite(rel).all(), "K8 non-finite")
     check(max(rel) <= tol, f"K8 differs from its twin by {max(rel)}")
+    check(same, "K8 gave other bits on a second launch")
     return res
+
+
+def _k8_sass():
+    """The tensor-core instructions in K8's main passes, from
+    ``cuobjdump -sass`` of the built library: HMMA in the float32 and bf16
+    kernels, DMMA in the float64 one. Returns the counts per kernel."""
+    from demethify_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.load().path],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, func = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            m2 = re.search(r"grams_kernelILi(\d)E", m.group(1))
+            func = ("float32", "float64", "bf16")[int(m2.group(1))] \
+                if m2 else None
+            if func:
+                counts[func] = {"HMMA": 0, "DMMA": 0}
+            continue
+        if func:
+            for op in ("HMMA", "DMMA"):
+                counts[func][op] += op in ln
+    log(f"[K8 SASS] tensor-core instructions in the main passes: {counts}")
+    check(set(counts) == {"float32", "float64", "bf16"}
+          and counts["float32"]["HMMA"] > 0 and counts["bf16"]["HMMA"] > 0
+          and counts["float64"]["DMMA"] > 0,
+          "K8's main passes do not run on the tensor cores")
+    return counts
 
 
 def _k8_rounding_case(n=200, n_s=N_S, p=N_CT + N_U, seed=321):
@@ -4192,7 +4246,8 @@ def _k10_case(p, dtype_name, n_s=N_S, seed=360, timed=False, steps=P_INNER):
 
 def _single_phase_plans():
     """K7's and K8's shared-memory plans in Python against the sources'
-    ``dm_u_phase_smem`` and ``dm_grams_smem`` exports."""
+    ``dm_u_phase_smem`` and ``dm_grams_smem`` exports (K8: the plan of
+    every data kind at 1M sites, n_s 1-500, p 1-64)."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
         grams_plan, grams_smem, k7_smem)
@@ -4205,14 +4260,16 @@ def _single_phase_plans():
             if lib.dm_u_phase_smem(itemsize, n_ct) != k7_smem(itemsize,
                                                                n_ct):
                 bad.append(("K7", itemsize, n_ct))
-        for p in (1, 6, 29, 40, 64):
-            for n_s in (1, 10, 100):
-                for rounded in (False, True):
-                    sg = grams_plan(N_CPG, n_s, p, rounded)[0]
-                    n_checked += 1
-                    if lib.dm_grams_smem(itemsize, p, sg) != grams_smem(
-                            itemsize, p, sg):
-                        bad.append(("K8", itemsize, p, n_s, sg))
+    for kind in (0, 1, 2):
+        for p in (1, 6, 11, 29, 40, 64):
+            for n_s in (1, 10, 13, 100, 500):
+                pl = grams_plan(N_CPG, n_s, p, kind)
+                args = (kind, p, pl.group_samples, pl.tile, pl.stages,
+                        pl.items, pl.slices)
+                n_checked += 1
+                if not (lib.dm_grams_smem(*args) == grams_smem(*args)
+                        == pl.smem):
+                    bad.append(("K8", kind, p, n_s))
     log(f"[K7/K8 plans] {n_checked} shared-memory plans against the "
         f"sources' exports, {len(bad)} differ {bad[:5]}")
     check(not bad, "K7/K8 shared-memory plans differ from the kernels'")
@@ -4255,13 +4312,31 @@ def phase_single_phase_kernels(card, main_ms):
              label="[n_u=12]")
     _k7_case(N_CPG + 3, N_U, "float32", seed=305, label="[ragged N]")
 
+    out["k8_sass"] = _k8_sass()
     k8 = out["k8"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32", timed=True,
                               library=True)
     out["k8_f64"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float64", timed=True)
     out["k8_bf16"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32",
                               data="bfloat16", timed=True)
-    out["k8_cohort"] = _k8_case(COHORT[0], COHORT[1], COHORT[2] + COHORT[3],
-                                "float32", timed=True, library=True)
+    p_c = COHORT[2] + COHORT[3]
+    out["k8_cohort"] = _k8_case(COHORT[0], COHORT[1], p_c, "float32",
+                                timed=True, library=True, label="[cohort]")
+    out["k8_cohort_f64"] = _k8_case(COHORT[0], COHORT[1], p_c, "float64",
+                                    timed=True, label="[cohort]")
+    out["k8_cohort_bf16"] = _k8_case(COHORT[0], COHORT[1], p_c, "float32",
+                                     data="bfloat16", timed=True,
+                                     label="[cohort]")
+    # untimed twins: ragged N; one sample and one type; an n_s and a p
+    # off the MMA tiles; the widest plan (p = 64, n_s = 500, float64)
+    for dt_name, data in (("float32", None), ("float64", None),
+                          ("float32", "bfloat16")):
+        _k8_case(N_CPG + 3, N_S, N_CT + N_U, dt_name, data=data, seed=322,
+                 label="[ragged N]")
+        _k8_case(N_TRAJ, 1, 1, dt_name, data=data, seed=323,
+                 label="[n_s = 1, p = 1]")
+        _k8_case(N_TRAJ, 13, 11, dt_name, data=data, seed=324,
+                 label="[n_s = 13, p = 11]")
+    _k8_case(70_000, 500, 64, "float64", seed=325, label="[widest]")
     out["k8_rounding"] = _k8_rounding_case()
 
     k9 = out["k9"] = _k9_case(N_CT + N_U, "float32", timed=True)
@@ -4600,6 +4675,77 @@ def time_main_path(root):
 
 
 
+def time_k8(root="."):
+    """K8 of the tree at ``root`` timed on one GPU, queued behind a device
+    sleep as ``_k8_case`` times it: at the main path's shape (1M x 10,
+    p = 6) and the cohort shape (1M x 100, p = 29), on float32, float64
+    and bf16 data, with the library calls (float32) beside it; and the
+    set-up sums the kernel solvers take before their loop,
+    ``ops/gram.known_block_grams`` (row chunks of plain tensor ops), at
+    the main path's known block (p = 5, n_s = 10) and the cohort's
+    (p = 25, n_s = 100), float32, beside K8 on the same data; and the
+    composed loop K7 -> K8 -> K9 (``composed_solve``, 1M x 10, 5 + 1,
+    float32, 200 x 20, three times). Prints one JSON line. A change and its parent, unpacked side by side, are
+    compared on one card in turns (parent, change, change, parent), one
+    process each:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_k8("DIR")'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import grams
+    from demethify_tpu_torch.ops.gram import known_block_grams
+
+    check(torch.cuda.is_available(), "time_k8 needs a GPU")
+    card = phase_device()
+    rows = []
+    for n, n_s, p in ((N_CPG, N_S, N_CT + N_U),
+                      (COHORT[0], COHORT[1], COHORT[2] + COHORT[3])):
+        for dt_name, data in (("float32", None), ("float64", None),
+                              ("float32", "bfloat16")):
+            yt, dt, rt = _grams_inputs(n, n_s, p, getattr(torch, dt_name),
+                                       320)
+            if data is not None:
+                yt, dt, rt = (x.to(getattr(torch, data)) for x in
+                              (yt, dt, rt))
+            row = {"n": n, "n_s": n_s, "p": p,
+                   "data": str(yt.dtype).replace("torch.", ""),
+                   "ms": queued_ms(lambda: grams(yt, dt, rt), inner=10)}
+            if data is None and dt_name == "float32":
+                row["library_ms"] = median_ms(lambda: (
+                    torch.einsum("sn,qn,rn->sqr", dt, rt, rt),
+                    rt @ (dt * yt).T, torch.sum(dt * yt * yt, 1)), reps=3,
+                    inner=1, warmup=1)
+            rows.append(row)
+            log(f"[time_k8] {row}")
+            del yt, dt, rt
+            torch.cuda.empty_cache()
+    setup = []
+    for n_s, p in ((N_S, N_CT), (COHORT[1], COHORT[2])):
+        yt, dt, rt = _grams_inputs(N_CPG, n_s, p, torch.float32, 330)
+        y, d, r = yt.T, dt.T, rt.T
+        row = {"n": N_CPG, "n_s": n_s, "p": p,
+               "known_block_grams_ms": median_ms(
+                   lambda: known_block_grams(r, d, y), reps=5, inner=1),
+               "k8_ms": queued_ms(lambda: grams(yt, dt, rt), inner=10)}
+        setup.append(row)
+        log(f"[time_k8] set-up sums {row}")
+        del yt, dt, rt, y, d, r
+        torch.cuda.empty_cache()
+    from demethify_tpu_torch import state
+    u0, a0, y, d, Rt = state.from_numpy(*make_problem(), device=DEV,
+                                        dtype=torch.float32)
+    composed_solve(u0, a0, y, d, Rt, N_U, 5, N_INNER)                # warm
+    composed = [timed_ms(lambda: composed_solve(
+        u0, a0, y, d, Rt, N_U, 200, N_INNER))[1] / 200 for _ in range(3)]
+    log(f"[time_k8] composed loop, ms per outer iteration: {composed}")
+    print(json.dumps({"root": root, "card": card, "k8": rows,
+                      "setup": setup, "composed_ms_per_iter": composed}),
+          flush=True)
+
+
 def time_steps(root="."):
     """K1 and K2 of the tree at ``root`` timed at several step counts on
     one GPU (median device ms of back-to-back launches, CUDA events; K2
@@ -4657,7 +4803,9 @@ def time_steps(root="."):
 def profile_kernels(root="."):
     """Device time per CUDA kernel (``torch.profiler``, its key averages)
     of K1 at the main path's and the cohort shape, of K2 and K3 (500
-    steps) at p = 6 and at p = 29, n_s = 100, and of K4 at B = 16 and
+    steps) at p = 6 and at p = 29, n_s = 100, of K8 (its main pass and its
+    second pass) at 1M x 10, p = 6 and at the cohort shape in its three
+    data types, and of K4 at B = 16 and
     weighted at B = 32 (1M x 10), launched back to back from the tree at
     ``root``: each launch's kernels (K1, K4: the prologue, the main pass,
     the fixed-order reduction) with their mean device time.
@@ -4699,6 +4847,19 @@ def profile_kernels(root="."):
         calls["K3" + name[2:]] = functools.partial(
             fw_phase_full, gtt, bt, gu, bu, ydy, alpha.clone(), purity,
             scal.clone(), P_INNER, n_u)
+    from demethify_tpu_torch.ops.cuda_kernels import grams
+    for name, (n, n_s, p), dt_name, data in (
+            ("K8 main", (N_CPG, N_S, N_CT + N_U), "float32", None),
+            ("K8 cohort", (COHORT[0], COHORT[1], COHORT[2] + COHORT[3]),
+             "float32", None),
+            ("K8 cohort float64", (COHORT[0], COHORT[1],
+                                   COHORT[2] + COHORT[3]), "float64", None),
+            ("K8 cohort bf16", (COHORT[0], COHORT[1], COHORT[2] + COHORT[3]),
+             "float32", "bfloat16")):
+        yt, dt, rt = _grams_inputs(n, n_s, p, getattr(torch, dt_name), 320)
+        if data is not None:
+            yt, dt, rt = (x.to(getattr(torch, data)) for x in (yt, dt, rt))
+        calls[name] = functools.partial(grams, yt, dt, rt)
     for name, n_b, weighted in (("K4 B=16", 16, False),
                                 ("K4 weighted B=32", 32, True)):
         ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
@@ -4939,12 +5100,18 @@ K4_REDESIGN = ("members in groups (k4_member_plan): steps back to back, "
                "partials (n_blocks, B E)")
 
 
+K8_REDESIGN = ("tensor cores: 3xTF32 (float32) and DMMA (float64) on the "
+               "pair form, bf16 MMA per sample; a cp.async ring, two operand "
+               "buffers")
+
+
 def _single_phase_rows(single):
     """The kernels JSON line's rows of K7-K10: K7, K8 and K9 with their
     launches from the composed loop's full-width run, K10 with its
     launches in its own checks (no path runs it); times and bounds at the
     main path's shape (K8 with ``library_ms``, the einsum, matmul and sum
-    that compute the same Grams)."""
+    that compute the same Grams, and its bound at its tensor-core route's
+    rate, the CUDA-core bound beside it)."""
     src = "demethify_tpu_torch/csrc/"
     launches = single["composed"]["launches"]
 
@@ -4961,9 +5128,11 @@ def _single_phase_rows(single):
         row("u_phase", "u_phase.cu",
             "demethify_tpu/ops/pallas_kernels.py:65 (via :117)", k7,
             launches["u_phase"], k7["u_max_abs"]),
-        row("grams", "grams.cu",
-            "demethify_tpu/ops/pallas_kernels.py:743 (via :776)", k8,
-            launches["grams"], k8["max_abs_err"], k8["library_ms"]),
+        dict(row("grams", "grams.cu",
+                 "demethify_tpu/ops/pallas_kernels.py:743 (via :776)", k8,
+                 launches["grams"], k8["max_abs_err"], k8["library_ms"]),
+             redesigned=K8_REDESIGN, bound_rate=k8["bound_rate"],
+             cuda_core_bound_ms=k8["cuda_core_bound_ms"]),
         row("alpha_phase", "alpha_phase.cu",
             "demethify_tpu/ops/pallas_small.py:70 (via :97)", k9,
             launches["alpha_phase"], k9["alpha_max_abs"]),

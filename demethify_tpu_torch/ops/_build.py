@@ -131,9 +131,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_VOID] * 12 + [_LL] + [_INT] * 5 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_grams_{dt}")
-        fn.argtypes = [_VOID] * 7 + [_LL] + [_INT] * 3 + [_LL, _INT, _VOID]
+        fn.argtypes = [_VOID] * 7 + [_LL] * 2 + [_INT] * 9 + [_VOID]
         fn.restype = _INT
-    lib.dm_grams_smem.argtypes = [_INT] * 3
+    lib.dm_grams_smem.argtypes = [_INT] * 7
     lib.dm_grams_smem.restype = _LL
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"dm_alpha_phase_{dt}")

@@ -71,6 +71,9 @@ and K9 (``cuda_small.alpha_phase``) into the plain solver's outer
 iteration.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from demethify_tpu_torch.device import state_dtype
@@ -638,37 +641,138 @@ def u_phase_plain(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
     return u, u_prev, a, l_prev
 
 
-# K8's launch plan (csrc/grams.cu): 256 threads a block, tiles of 64
-# staged sites, 4 x 4 micro-tiles of the (p + 1)^2 entries, about
-# _GRAM_BLOCKS blocks in all
-_GRAM_THREADS, _GRAM_TILE, _GRAM_MT, _GRAM_BLOCKS = 256, 64, 4, 2048
+# K8's launch plan (csrc/grams.cu): 16 warps a block; warp tiles of
+# _K8_WM x 4 MMA tiles; per data kind (0 float32, 1 float64, 2 bf16 data)
+# the MMA tile's rows, a k-step's sites, the m-tiles of a warp tile and a
+# lane's accumulators per MMA tile; the ring's (sites per tile, stages),
+# the first that fits
+_K8_WARPS, _K8_WN, _K8_MAX_SLICES = 16, 4, 8
+_K8_KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_K8_MR, _K8_KS, _K8_WM, _K8_ACC = (16, 8, 16), (8, 4, 16), (2, 4, 2), (4, 2, 4)
+_K8_DATA_SIZE, _K8_ACC_SIZE = (4, 8, 2), (4, 8, 4)
+_K8_RINGS = ((512, 3), (512, 2), (256, 3), (256, 2), (128, 4), (64, 4), (64, 3),
+             (64, 2), (32, 4), (32, 3), (32, 2))
+_K8_SMS = {}
 
 
-def grams_plan(n: int, n_s: int, p: int, rounded: bool = False):
-    """K8's (samples per group, groups, chunks, sites per chunk): a group
-    holds as many samples as give its block's threads one micro-tile each
-    (at least one sample) -- the nt (nt + 1) / 2 micro-tiles on or above
-    the diagonal of each sample's (p + 1)^2 matrix, all nt^2 under bf16
-    data (``rounded``, where the matrix is not symmetric); the sites split
-    into chunks of whole tiles so that groups x chunks is about 2048
-    blocks (a few per SM, so the partial buffer, one column per chunk,
-    stays small)."""
-    nt = -(-(p + 1) // _GRAM_MT)
-    tiles = nt * nt if rounded else nt * (nt + 1) // 2
-    sg = max(1, min(n_s, _GRAM_THREADS // tiles))
-    n_groups = -(-n_s // sg)
-    n_tiles = -(-n // _GRAM_TILE)
-    n_chunks = max(1, min(n_tiles, -(-_GRAM_BLOCKS // n_groups)))
-    chunk_sites = -(-n_tiles // n_chunks) * _GRAM_TILE
-    return sg, n_groups, -(-n // chunk_sites), chunk_sites
+class GramsPlan(NamedTuple):
+    """K8's launch plan: the data kind, sites per staged tile and ring
+    stages, samples a block holds and their groups, float32/float64's
+    column groups, warp tiles a block holds, the warps splitting each
+    one's k-steps, the chunks of sites (one a block row of the grid) and
+    the main pass's shared memory in bytes."""
+    kind: int
+    tile: int
+    stages: int
+    group_samples: int
+    n_groups: int
+    col_groups: int
+    items: int
+    slices: int
+    n_chunks: int
+    chunk_sites: int
+    smem: int
 
 
-def grams_smem(itemsize: int, p: int, sg: int) -> int:
-    """K8's shared memory in bytes (``itemsize`` the accumulation type's):
-    p rows of R, sg rows each of y and d and a zero row, 65 values each,
-    and the slices' sums (256 micro-tiles of 16); ``dm_grams_smem``."""
-    return itemsize * ((p + 2 * sg + 1) * (_GRAM_TILE + 1)
-                       + _GRAM_THREADS * _GRAM_MT * _GRAM_MT)
+def grams_entries(p: int, kind: int) -> int:
+    """Entries a sample has in K8's partial buffer: G's p (p + 1) / 2
+    pairs (all p^2 entries under bf16 data), b's p and ydy."""
+    return (p * p if kind == 2 else p * (p + 1) // 2) + p + 1
+
+
+def grams_smem(kind: int, p: int, group_samples: int, tile: int,
+               stages: int, items: int, slices: int) -> int:
+    """K8's shared memory in bytes (``dm_grams_smem``): the ring (stages x
+    (2 group_samples + p) rows of a tile of data and 16 bytes), two
+    operand buffers (float32/float64: D and D * Y on the samples padded to
+    the MMA tile, float32's split in hi and lo, and p + 2 rows of R, ones
+    and zeros; bf16: p rows of R and three (d, y, bf16(d y)) a sample and
+    a zero row), the staged rows' aligned starts and offsets (12 bytes a
+    row), and at a chunk's end the larger of the ydy sums and the slices'
+    sums, which reuse them."""
+    rows = 2 * group_samples + p
+    ring = stages * rows * (tile * _K8_DATA_SIZE[kind] + 16)
+    table = -(-12 * rows // 16) * 16
+    es = _K8_ACC_SIZE[kind]
+    if kind == 2:
+        ops, ydy = (p + 3 * group_samples + 1) * (tile + 8) * 2, 0
+    else:
+        mr = _K8_MR[kind]
+        a_rows = -(-group_samples // mr) * mr
+        lda = 2 * tile if kind == 0 else tile + 4
+        ldr = tile + 8 if kind == 0 else tile + 4
+        ops = (2 * a_rows * lda + (p + 2) * ldr) * es
+        ydy = a_rows * (tile // 2) * es
+    slice_sums = ((slices - 1) * items * _K8_WM[kind] * _K8_WN
+                  * _K8_ACC[kind] * 32 * es)
+    return max(ring + 2 * ops + table, ydy, slice_sums)
+
+
+@functools.lru_cache(maxsize=256)
+def grams_plan(n: int, n_s: int, p: int, kind: int = 0,
+               n_sm: int = 132) -> GramsPlan:
+    """K8's launch plan for ``kind`` (0 float32, 1 float64, 2 bf16 data).
+    float32 and float64 (the pair form): a block holds a group of samples
+    whose m-tiles fit one warp tile (32 samples), and every column in warp
+    tiles of 4 n-tiles, one a warp (G's pairs, then b's in tiles of their
+    own), in column groups of 16 warp tiles; bf16 (the per-sample form): a block holds as
+    many samples as its 16 warps hold X_s's warp tiles, at most 16. Where
+    a block has fewer warp tiles than warps, the others split the
+    k-steps (slices, at most 8). The ring takes the first (tile, stages)
+    that fits the card's shared memory; the sites split into chunks of
+    whole tiles, one block per SM (one wave) where every block holds the
+    same samples and columns, else two (the groups' work differs). Raises
+    NotImplementedError naming the shape and the bytes where nothing
+    fits."""
+    mr, wm = _K8_MR[kind], _K8_WM[kind]
+    if kind == 2:
+        mts, nts = -(-(p + 1) // 16), -(-(p + 1) // 8)
+        tps = -(-mts // wm) * -(-nts // _K8_WN)
+        if tps > _K8_WARPS:
+            raise NotImplementedError(
+                f"grams on bf16 data at p = {p} takes {tps} warp tiles a "
+                f"sample, above the {_K8_WARPS} warps of a block")
+        n_groups = -(-n_s // (_K8_WARPS // tps))
+        group = -(-n_s // n_groups)
+        col_groups, items = 1, group * tps
+    else:
+        mtiles = -(-n_s // mr)
+        per = -(-mtiles // -(-mtiles // wm))
+        group = min(n_s, per * mr)
+        n_groups = -(-n_s // group)
+        ranges = (-(-(p * (p + 1) // 2) // (8 * _K8_WN))
+                  + -(-p // (8 * _K8_WN)))
+        col_groups = -(-ranges // _K8_WARPS)
+        items = -(-ranges // col_groups)
+    for tile, stages in _K8_RINGS:
+        # float32/float64 convert at most 2048 site pairs a tile (a lane
+        # holds their ydy sums); bf16 data takes tiles of up to 512 sites
+        if (tile > 256 and kind != 2) or (
+                kind != 2 and -(-group // mr) * mr * tile // 2 > 2048):
+            continue
+        slices = max(1, min(_K8_MAX_SLICES, _K8_WARPS // items,
+                            tile // _K8_KS[kind]))
+        smem = grams_smem(kind, p, group, tile, stages, items, slices)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise NotImplementedError(
+            f"grams at n_s = {n_s}, p = {p} ({('float32', 'float64', 'bf16')[kind]}"
+            f" data) needs {smem} bytes of shared memory, above the "
+            f"{SMEM_LIMIT} a block may use")
+    n_tiles = -(-n // tile)
+    blocks = n_sm if n_groups * col_groups == 1 else 2 * n_sm
+    n_chunks = max(1, min(n_tiles, -(-blocks // (n_groups * col_groups))))
+    chunk_sites = -(-n_tiles // n_chunks) * tile
+    return GramsPlan(kind, tile, stages, group, n_groups, col_groups, items,
+                     slices, -(-n // chunk_sites), chunk_sites, smem)
+
+
+def _sm_count(device) -> int:
+    if device.index not in _K8_SMS:
+        _K8_SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _K8_SMS[device.index]
 
 
 def grams(yt, dt, rt):
@@ -678,12 +782,14 @@ def grams(yt, dt, rt):
     yt, dt (n_s, N), rt (p, N), one dtype (float32, float64 or bfloat16).
     Returns (G (n_s, p, p), b (p, n_s), ydy (n_s,)) in the accumulation
     dtype (float32 for bf16): G[s] = R' diag(d_s) R, b = R'(d_s y_s),
-    ydy = y_s' D y_s; in float32 and float64 G's upper triangle is summed
-    and mirrored. Under bf16 the products r d_s and d y are rounded to
-    bf16 where the JAX kernel's compiled program rounds them (each a dot
-    operand; (d y) y feeds a float32 sum unrounded), with float32 sums.
-    ``ops/gram.sample_grams`` leaves r d_s unrounded, as the solvers'
-    programs do, so it is not K8's bf16 twin.
+    ydy = y_s' D y_s. On the card the sums run on the tensor cores
+    (3xTF32 in float32, DMMA in float64, bf16 MMA under bf16 data), in
+    float32 and float64 as G's pairs summed once and mirrored. Under bf16
+    the products r d_s and d y are rounded to bf16 where the JAX kernel's
+    compiled program rounds them (each a dot operand; (d y) y feeds a
+    float32 sum unrounded), with float32 sums. ``ops/gram.sample_grams``
+    leaves r d_s unrounded, as the solvers' programs do, so it is not
+    K8's bf16 twin.
     """
     n_s, n = yt.shape
     p = rt.shape[0]
@@ -705,27 +811,20 @@ def grams(yt, dt, rt):
         if not t.is_contiguous():
             raise ValueError("grams: operands must be contiguous")
     acc = state_dtype(dd)
-    itemsize = torch.empty((), dtype=acc).element_size()
-    sg, _, n_chunks, chunk_sites = grams_plan(n, n_s, p,
-                                              dd == torch.bfloat16)
-    smem = grams_smem(itemsize, p, sg)
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"grams at p = {p} ({itemsize}-byte sums) needs {smem} bytes of "
-            f"shared memory, above the {SMEM_LIMIT} a block may use")
+    kind = _K8_KIND[dd]
+    plan = grams_plan(n, n_s, p, kind, _sm_count(yt.device))
     lib = _build.load().lib
-    partials = torch.empty((n_s * (p + 1) ** 2, n_chunks), dtype=acc,
-                           device=yt.device)
+    partials = torch.empty((plan.n_chunks, n_s * grams_entries(p, kind)),
+                           dtype=acc, device=yt.device)
     G = torch.empty((n_s, p, p), dtype=acc, device=yt.device)
     b = torch.empty((p, n_s), dtype=acc, device=yt.device)
     ydy = torch.empty((n_s,), dtype=acc, device=yt.device)
-    dt_name = {torch.float32: "f32", torch.float64: "f64",
-               torch.bfloat16: "bf16"}[dd]
     with torch.cuda.device(yt.device):
-        err = getattr(lib, f"dm_grams_{dt_name}")(
+        err = getattr(lib, f"dm_grams_{('f32', 'f64', 'bf16')[kind]}")(
             yt.data_ptr(), dt.data_ptr(), rt.data_ptr(), partials.data_ptr(),
-            G.data_ptr(), b.data_ptr(), ydy.data_ptr(), n, n_s, p, sg,
-            chunk_sites, n_chunks,
+            G.data_ptr(), b.data_ptr(), ydy.data_ptr(), n, plan.chunk_sites,
+            n_s, p, plan.tile, plan.stages, plan.group_samples,
+            plan.col_groups, plan.items, plan.slices, plan.n_chunks,
             torch.cuda.current_stream(yt.device).cuda_stream)
     _build.check(err, "grams")
     if dd == torch.bfloat16:

@@ -188,24 +188,28 @@ def test_grams_bf16_is_not_sample_grams():
 
 
 def test_grams_plan():
-    """K8's launch plan covers every site in whole 64-site tiles, every
-    sample in its groups, and keeps the shared memory under the card's
-    limit at the cohort width. A group fills the block's 256 threads with
-    micro-tiles: the 36 on or above the diagonal at p = 29 (8 x 8 tiles
-    of the 30 x 30 matrix) in float32 and float64, all 64 under bf16."""
+    """K8's launch plan covers every site in whole tiles (chunks of whole
+    tiles, the last one ragged), every sample in its groups and every
+    column in its warp tiles, and keeps the shared memory under the
+    card's limit at the main shape, the cohort shape, ragged N and
+    p = 64, n_s = 500 in float64 (the widest: 16 sample groups of 32, its
+    67 warp tiles of columns in five column groups)."""
     for n, n_s, p in ((1_000_000, 10, 6), (1_000_000, 100, 29),
-                      (1_000_003, 3, 1), (70, 500, 64)):
-        for rounded in (False, True):
-            sg, n_groups, n_chunks, chunk = cuda_kernels.grams_plan(
-                n, n_s, p, rounded)
-            assert chunk % 64 == 0 and (n_chunks - 1) * chunk < n <= (
-                n_chunks * chunk)
-            assert (n_groups - 1) * sg < n_s <= n_groups * sg
-            assert n_chunks <= 65535
-    assert cuda_kernels.grams_plan(1_000_000, 10, 6)[0] == 10
-    assert cuda_kernels.grams_plan(1_000_000, 100, 29)[0] == 7
-    assert cuda_kernels.grams_plan(1_000_000, 100, 29, True)[0] == 4
-    assert cuda_kernels.grams_smem(8, 29, 7) <= cuda_kernels.SMEM_LIMIT
+                      (1_000_003, 3, 1), (70_000, 500, 64)):
+        for kind in (0, 1, 2):
+            plan = cuda_kernels.grams_plan(n, n_s, p, kind)
+            chunk = plan.chunk_sites
+            assert chunk % plan.tile == 0
+            assert (plan.n_chunks - 1) * chunk < n <= plan.n_chunks * chunk
+            assert plan.n_chunks <= 65535
+            assert ((plan.n_groups - 1) * plan.group_samples < n_s
+                    <= plan.n_groups * plan.group_samples)
+            assert plan.smem == cuda_kernels.grams_smem(
+                kind, p, plan.group_samples, plan.tile, plan.stages,
+                plan.items, plan.slices) <= cuda_kernels.SMEM_LIMIT
+    wide = cuda_kernels.grams_plan(70_000, 500, 64, 1)
+    assert (wide.group_samples, wide.n_groups, wide.col_groups) == (32, 16, 5)
+    assert wide.col_groups * wide.items >= 2080 // 32 + 2
 
 
 # ------------------------------------------------------------- K9, K10
