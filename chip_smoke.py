@@ -124,7 +124,23 @@ non-zero and prints no result line):
 10. CLI: a simulated 50,000-site bedmethyl fixture through
    ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
    with ``--restart 4`` in the three iterative modes, and with
-   ``--confidence 95 8`` under both ``--cimethod`` layouts in all four.
+   ``--confidence 95 8`` under both ``--cimethod`` layouts in all four;
+11. the route by shape, the SVD/ICA inits and model selection, after the
+   CLI: shapes past the kernels' shared-memory plans (partial-reference
+   at p = 200 and purity at p = 180, float64, 20k x 10) through
+   ``solvers.api`` with no kernel launch, held to the CPU
+   (``phase_routed_solves``); ``tall_svd``, NNDSVD, the dual ICA at
+   1M x 10, the primal ICA at 4096 x 10 and the three modes' SVD and ICA
+   inits at 1M x 10, card against CPU in float64, timed in float64 and
+   float32, and the rotation search against a fixed trip with the test
+   on the device (``phase_inits``); ``evaluate_best_ic`` at 1M x 10, 5
+   known, float32 (AIC with SVD inits to 25 unknowns, minka, CCC with 5
+   restarts and BCV with 5 folds to 6; 100 x 20 a solve, the depth cut)
+   with its launches and the solve time per rank, each criterion first
+   held card against CPU at 20k sites in float64 on injected draws
+   (``phase_sweep``); and the CLI with ``--init SVD|ICA`` in the three
+   iterative modes and ``--ic AIC|BIC|CCC|BCV|minka`` (``--init SVD
+   --icmax 3``), card against ``--device cpu`` (``phase_cli_inits_ic``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -2968,6 +2984,464 @@ def _cli_runs(cli_main, root, samples, ref, modes, percent, storage):
                 f"{moved}")
 
 
+# ------------------------------------------------------------ phase 11
+# Item 13's route, the SVD/ICA inits and model selection. The routed
+# solves and the card-vs-CPU holds run at ROUTED / SWEEP_HOLD sites; the
+# sweeps at full width run SWEEP_OUTER outer iterations a solve (cut from
+# the CLI's 10000, with tol = 0 so that every solve runs them all).
+ROUTED = 20_000
+SWEEP_HOLD = 20_000
+SWEEP_OUTER = 100
+# card against the port's CPU path, float64: the inits (Gram eigh on
+# cuSOLVER against LAPACK, then the same arithmetic), relative to each
+# array's largest magnitude
+INIT_TOL64 = 1e-6
+# the sweeps held card vs CPU (float64, the same injected draws): the
+# criterion list relative, the chosen alpha absolute
+SWEEP_TOL64 = 1e-8
+# steps of the fixed-trip rotation search that phase_inits times (more
+# than the few rotations these data take, so it ends on the same W)
+FIXED_TRIP = 200
+
+
+def phase_routed_solves(card):
+    """Item 13: shapes past the kernels' shared-memory plans run the plain
+    solvers on the card's tensors through ``solvers.api``, each with the
+    counters at 0 just before and read just after, which must show no
+    kernel launch: partial-reference at p = 200 (190 + 10, the direct
+    form), float64, 20k x 10, 10 x 10, past the glue kernels' slab (K1's
+    wide layout still fits); purity at p = 180 (179 + 1), float64,
+    5 x 100, past the glue's slab. Each held to the same entry point on
+    the CPU (the plain solver) from the same inits: cost trace and alpha
+    at TRAJ_TOL["float64"]."""
+    import torch
+
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv, solver_route)
+
+    f64 = torch.float64
+    out = {}
+    for tag, n_ct, n_u, with_purity, n1, n2, seed in (
+            ("routed partial-ref p=200", 190, 10, False, 10, 10, 190),
+            ("routed purity p=180", 179, 1, True, 5, 100, 191)):
+        y, d, Rt = _wide_problem(ROUTED, N_S, n_ct, n_u, f64, seed)
+        check(solver_route(y.device, f64, N_S, n_ct, n_u) == "plain",
+              f"{tag}: the plans take this shape")
+        pur = (torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=f64)
+               if with_purity else None)
+        u_b, a_b = _member_inits(
+            ROUTED, 1, n_ct, n_u, seed, n_s=N_S,
+            purity=None if pur is None else pur.cpu().numpy())
+        u0, a0 = (torch.as_tensor(x[0], device=DEV, dtype=f64)
+                  for x in (u_b, a_b))
+
+        def call(dev):
+            t = [x.to(dev) for x in (y, d, Rt, u0, a0)]
+            kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True,
+                      init_provided=(t[3], t[4]))
+            if pur is None:
+                return partial_reference_deconv(*t[:3], n_u, **kw)
+            return purity_deconv(*t[:3], n_u, pur.to(dev), **kw)
+
+        res, _, out[tag] = _drive(
+            tag, f"{ROUTED} x {N_S}, {n_ct}+{n_u}, float64, {n1}x{n2}, "
+            f"card {card}", lambda: call(DEV), n1, n_sites=ROUTED)
+        check(expect_counts(out[tag]), f"{tag}: kernels launched")
+        ref = call("cpu")
+        tk, tp = (r.trace.double().cpu().numpy() for r in (res, ref))
+        err_c = float(np.max(np.abs(tk - tp) / np.abs(tp)))
+        err_a = float((res.proportions.cpu() - ref.proportions).abs().max())
+        log(f"[routed] {tag}: card vs the plain solver on the CPU, cost "
+            f"trace max rel diff {err_c:.3e}, alpha max|diff| {err_a:.3e} "
+            f"(tol {TRAJ_TOL['float64']['cost']:.0e})")
+        check(ref.n_iter == n1 and err_c <= TRAJ_TOL["float64"]["cost"]
+              and err_a <= TRAJ_TOL["float64"]["alpha"],
+              f"{tag}: card and CPU differ")
+    return out
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|, on the host in float64."""
+    a = a.double().cpu()
+    b = b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _rotation_search_fixed(Z, t_tol, i_max):
+    """The rotation search as a fixed trip of ``i_max`` steps with the
+    stopping test kept on the device (no host read): a step whose torque
+    is below ``t_tol`` rotates by a zero angle. Timed against
+    ``nnica._rotation_search`` (a host read a step, and a stop)."""
+    import torch
+
+    from demethify_tpu_torch.ops import nnica
+
+    n = Z.shape[0]
+    W = torch.eye(n, dtype=Z.dtype, device=Z.device)
+    Y = Z.clone()
+    zero = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    for _ in range(i_max):
+        t_max, flat = nnica.torque(Y)
+        idx = torch.stack([flat // n, flat % n])
+        yi, yj = Y.index_select(0, idx)
+        wi, wj = W.index_select(0, idx)
+        phi = torch.where(t_max >= t_tol, nnica._best_angle(yi, yj), zero)
+        Y.index_copy_(0, idx, torch.stack(nnica._rotate_rows(phi, yi, yj)))
+        W.index_copy_(0, idx, torch.stack(nnica._rotate_rows(phi, wi, wj)))
+    return W
+
+
+def phase_inits(card):
+    """The SVD/ICA inits on the card against the port's CPU path on the
+    same data in float64 (``INIT_TOL64`` of each array's largest
+    magnitude, the signs included: ``tall_svd``'s sign rule), each timed
+    with CUDA events, and timed again in float32 (the card-vs-CPU
+    difference printed, not held: float32 ICA is decided by rounding at
+    its whitening's null direction, README "Parity with the reference"):
+    ``tall_svd``, NNDSVD (rank 6) and the dual ICA (rank 3) at 1M x 10,
+    the primal ICA (rank 3) at 4096 x 10, and the three modes' SVD and
+    ICA inits at 1M x 10 with 5 known types (1 unknown; unsupervised 3).
+    The rotation search is timed as shipped (a host read a step, and a
+    stop) against a fixed trip with the test on the device
+    (``_rotation_search_fixed``, FIXED_TRIP steps), on the dual's and
+    the primal's whitened rows, both giving the same rotation; and the
+    inits' known-block NNLS alone. Returns the timings (ms)."""
+    import torch
+
+    from demethify_tpu_torch.ops import nnica, nndsvd, tall_svd
+    from demethify_tpu_torch.ops.nnls import wls_intercept_batch
+    from demethify_tpu_torch.solvers import init
+
+    f64 = torch.float64
+    y, d, Rt = _wide_problem(N_CPG, N_S, N_CT, N_U, f64, seed=200)
+    pur = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=f64)
+    small = y[:4096].contiguous()
+    cases = (
+        ("tall_svd 1M x 10", lambda y, d, R, p, s: tall_svd.tall_svd(y)),
+        ("NNDSVD 1M x 10 rank 6",
+         lambda y, d, R, p, s: nndsvd.nndsvd_initialize(y, 6)),
+        ("dual ICA 1M x 10 rank 3",
+         lambda y, d, R, p, s: nnica.run_nn_ica_dual(y, 3)),
+        ("primal ICA 4096 x 10 rank 3",
+         lambda y, d, R, p, s: nnica.run_nn_ica(s, 3)),
+        *((f"init_partial {o} 1M x 10, 5+1",
+           lambda y, d, R, p, s, o=o: init.init_partial(None, o, y, d, R, 1))
+          for o in ("SVD", "ICA")),
+        *((f"init_purity {o} 1M x 10, 5+1",
+           lambda y, d, R, p, s, o=o: init.init_purity(
+               None, o, y, d, R, 1, purity=p)) for o in ("SVD", "ICA")),
+        *((f"init_unsupervised {o} 1M x 10, 3",
+           lambda y, d, R, p, s, o=o: init.init_unsupervised(
+               None, o, y, d, 3)) for o in ("SVD", "ICA")))
+    f64 = [y, d, Rt, pur, small]
+    f32 = [x.float() for x in f64]
+    times = {}
+    for name, fn in cases:
+        fn(*f64)                                             # warm
+        got, ms = timed_ms(lambda: fn(*f64))
+        err = max(_rel(a, b) for a, b in zip(
+            got, fn(*(x.cpu() for x in f64))))
+        fn(*f32)
+        got32, ms32 = timed_ms(lambda: fn(*f32))
+        err32 = max(_rel(a, b) for a, b in zip(
+            got32, fn(*(x.cpu() for x in f32))))
+        times[name] = (ms, ms32)
+        log(f"[inits] {name}: card {ms:.3f} ms float64, {ms32:.3f} ms "
+            f"float32 (CUDA events, card {card}); card vs CPU float64 "
+            f"{err:.3e} of the largest entry (tol {INIT_TOL64:.0e}), "
+            f"float32 {err32:.3e} (not held)")
+        check(all(bool(torch.isfinite(a).all()) for a in got + got32),
+              f"{name}: non-finite")
+        check(err <= INIT_TOL64, f"{name}: card and CPU differ")
+    _, ms = timed_ms(lambda: wls_intercept_batch(y, d, Rt))
+    log(f"[inits] of which the known block's weighted NNLS (5 types, 1M x "
+        f"10, float64): {ms:.3f} ms")
+    B = tall_svd.tall_svd(y)[0]
+    for tag, Z in (("dual 10 x 10", nnica.whiten(B.T @ y)),
+                   ("primal 4096 x 10", nnica.whiten(small))):
+        W, ms = timed_ms(lambda: nnica._rotation_search(Z, 0.1, 1000))
+        W_fix, ms_fix = timed_ms(lambda: _rotation_search_fixed(
+            Z, 0.1, FIXED_TRIP))
+        log(f"[inits] rotation search, {tag}: as shipped {ms:.3f} ms, "
+            f"fixed trip of {FIXED_TRIP} steps with the test on the device "
+            f"{ms_fix:.3f} ms (i_max is 1000: {1000 // FIXED_TRIP}x that); "
+            f"rotations equal: {bool(torch.equal(W, W_fix))}")
+        check(bool(torch.equal(W, W_fix)), f"{tag}: the two searches differ")
+        times[f"rotation search {tag}"] = (ms, ms_fix)
+    return times
+
+
+@contextlib.contextmanager
+def _rank_times(times):
+    """Adds the CUDA-event ms of every solve the sweep makes to
+    ``times[rank]`` (the sweep's entry points wrapped for the block)."""
+    from demethify_tpu_torch.selection import sweep
+
+    names = ("partial_reference_deconv", "unsupervised_deconv",
+             "solve_members")
+    saved = {n: getattr(sweep, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            rank = args[2] if name == "unsupervised_deconv" else args[3]
+            out, ms = timed_ms(lambda: fn(*args, **kw))
+            times[rank] = times.get(rank, 0.0) + ms
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(sweep, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(sweep, n, fn)
+
+
+def _sweep_draws(n, n_ct, n_s, seed):
+    """Injected random inits (numpy, member (rank, j) from its own seed)
+    and three train masks, for holding a sweep on the card to the CPU."""
+    def inits(rank, j):
+        rng = np.random.default_rng((seed, rank, j))
+        return (rng.uniform(size=(n, rank)),
+                rng.dirichlet(np.ones(n_ct + rank), size=n_s).T)
+    rng = np.random.default_rng((seed, 0, 0, 0))
+    masks = [rng.uniform(size=(n, n_s)) < 0.3 for _ in range(3)]
+    return inits, masks
+
+
+def phase_sweep(problem32, card):
+    """Model selection through ``selection.sweep.evaluate_best_ic``.
+
+    At full width, ``bench.py``'s data (1M x 10, 5 known types, float32,
+    SWEEP_OUTER x 20, tol = 0), each with the counters at 0 just before
+    and read just after: AIC with SVD inits up to n_u_max = 25 (every
+    rank a single solve: K1 and K2; ranks 11-25 take the uniform_
+    fallback), minka (the device spectrum, then one solve), CCC with 5
+    restarts and BCV with 5 folds up to n_u_max = 6 (uniform_ inits: CCC's
+    ranks 1-5 run their restarts together through K4 and K5, rank 6, the
+    direct form, through K1 and K2). The depth cuts: SWEEP_OUTER outer
+    iterations (the CLI's default is 10000); n_u_max 6 for CCC and BCV
+    (the CLI's default is 25). Prints the solve time per rank.
+
+    Each criterion held to the same sweep on the CPU at SWEEP_HOLD sites
+    in float64 (30 x 10, tol = 0) with the same injected inits and train
+    masks (``_sweep_draws``; SVD inits computed on each side): the same
+    chosen rank, the criterion list within ``SWEEP_TOL64`` relative, the
+    chosen alpha within ``SWEEP_TOL64``."""
+    import torch
+
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+
+    out = {}
+    f64 = torch.float64
+    y, d, Rt = _wide_problem(SWEEP_HOLD, N_S, N_CT, N_U, f64, seed=210)
+    inits, masks = _sweep_draws(SWEEP_HOLD, N_CT, N_S, 211)
+    for ic, init, n_max in (("AIC", "SVD", 12), ("minka", "SVD", 0),
+                            ("CCC", "uniform_", 6), ("BCV", "uniform_", 6)):
+        kw = dict(iter1=30, iter2=10, tol=0.0, n_restarts=3, n_u_max=n_max,
+                  inits=inits, masks=masks)
+        reset_counts()
+        got = evaluate_best_ic(y, d, Rt, init, ic, **kw)
+        launches = {k: v for k, v in read_counts().items() if v}
+        want = evaluate_best_ic(y.cpu(), d.cpu(), Rt.cpu(), init, ic, **kw)
+        err_l = float(np.max(np.abs(np.subtract(got[3], want[3]))
+                             / np.maximum(np.abs(want[3]), 1e-300)))
+        err_a = float((got[1].cpu() - want[1]).abs().max())
+        log(f"[sweep] {ic} --init {init}, {SWEEP_HOLD} x {N_S}, float64, "
+            f"card vs CPU: rank {got[2]} / {want[2]}, criterion max rel "
+            f"diff {err_l:.3e}, alpha max|diff| {err_a:.3e} (tol "
+            f"{SWEEP_TOL64:.0e}); card launches {launches}")
+        check(got[2] == want[2] and err_l <= SWEEP_TOL64
+              and err_a <= SWEEP_TOL64, f"{ic} sweep: card and CPU differ")
+
+    y, d, Rt = (torch.as_tensor(x, device=DEV) for x in problem32[2:])
+    runs = (("AIC", "SVD", 25), ("minka", "SVD", 0), ("CCC", "uniform_", 6),
+            ("BCV", "uniform_", 6))
+    for ic, init, n_max in runs:
+        times = {}
+        reset_counts()
+        with _rank_times(times):
+            res, ms = timed_ms(lambda: evaluate_best_ic(
+                y, d, Rt, init, ic, iter1=SWEEP_OUTER, iter2=N_INNER,
+                tol=0.0, n_restarts=5, n_u_max=n_max, seed=3))
+        launches = {k: v for k, v in read_counts().items() if v}
+        u, alpha, n_u, lst = res
+        check(u.shape == (N_CPG, n_u) and alpha.shape == (N_CT + n_u, N_S)
+              and bool(torch.isfinite(alpha).all())
+              and np.isfinite(lst).any(), f"{ic} sweep output")
+        check(float((alpha.sum(0) - 1).abs().max()) < 1e-4,
+              f"{ic} sweep: alpha off the simplex")
+        n_solves = {"AIC": n_max, "minka": 1, "CCC": 5 * n_max,
+                    "BCV": 5 * n_max}[ic]
+        if ic == "CCC":
+            want = dict(u_phase_grams_multi=5 * SWEEP_OUTER,
+                        alpha_phase_full_multi=5 * SWEEP_OUTER,
+                        u_phase_grams=5 * SWEEP_OUTER,
+                        alpha_phase_full=5 * SWEEP_OUTER)
+        else:
+            want = dict(u_phase_grams=n_solves * SWEEP_OUTER,
+                        alpha_phase_full=n_solves * SWEEP_OUTER)
+        check(all(launches.get(k, 0) == v for k, v in want.items()),
+              f"{ic} sweep launches {launches}, want {want}")
+        per_rank = ", ".join(f"{r}: {t:.1f}" for r, t in sorted(
+            times.items()))
+        log(f"[sweep] {ic} --init {init} at 1M x {N_S}, {N_CT} known, "
+            f"float32, n_u_max {n_max}, {SWEEP_OUTER}x{N_INNER}, tol = 0: "
+            f"{ms / 1e3:.3f} s (CUDA events, card {card}); chose n_u = "
+            f"{n_u}; solve ms per rank {{{per_rank}}}; launches {launches}")
+        out[ic] = {"ms": ms, "per_rank": times, "launches": launches}
+    return out
+
+
+def _cli_svd_bootstrap(cli_main, root, samples, ref, percent):
+    """``--confidence 95 4 --init SVD`` in the purity mode on the card,
+    both layouts: the weights layout shares one SVD init among the
+    replicates and runs K4 with weights and K6; the resample layout inits
+    each replicate and runs K1 and K3. The replicates' resample draws are
+    torch's on the card, so the intervals are held to their supports."""
+    for cimethod, want in (("weights", ("u_phase_grams_multi",
+                                        "fw_phase_full_multi")),
+                           ("resample", ("u_phase_grams", "fw_phase_full"))):
+        outdir = os.path.join(root, f"svd-ci-{cimethod}")
+        before = read_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["--methfreq", *samples, "--bedmethyl", "--noprint",
+                       "--outdir", outdir, "--device", DEV, "--ref", ref,
+                       "--nbunknown", "1", "--purity", *percent, "--init",
+                       "SVD", "--confidence", "95", "4", "--cimethod",
+                       cimethod, "--iterations", "20", "100"])
+        wall = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in read_counts().items()
+                 if v - before[k]}
+        lo, hi = _read_ci(os.path.join(
+            outdir, "confidence_interval_celltypes_proportions.csv"))
+        log(f"[cli] purity --init SVD --confidence 95 4 --cimethod "
+            f"{cimethod}: exit {rc} in {wall:.2f} s, intervals {lo.shape}, "
+            f"launches {moved}")
+        check(rc == 0 and lo.shape == (N_CT + 1, N_S) and (lo <= hi).all()
+              and all(moved.get(k, 0) > 0 for k in want),
+              f"CLI --init SVD --cimethod {cimethod}")
+
+
+def phase_cli_inits_ic():
+    """The CLI with ``--init SVD`` and ``--init ICA`` in the three
+    iterative modes, and ``--ic AIC|BIC|CCC|BCV|minka`` with ``--init SVD
+    --icmax 3``, on the 50,000-site fixture with ``--device cuda``, each
+    held to the same command with ``--device cpu`` (``--dtype float64``,
+    100 x 20; purity 20 x 100): proportions and profiles within 1e-6, and
+    the log's line of the chosen rank. BCV's train masks are drawn on the
+    CPU, so both devices share them; the SVD and ICA inits draw nothing.
+    The card's runs must launch K1 (and K3 with ``--purity``, K2
+    otherwise). First the purity mode's bootstrap with an SVD init on
+    the card, in both layouts (``_cli_svd_bootstrap``); last the SVD
+    runs on bf16 storage (``_cli_bf16_svd``)."""
+    from demethify_tpu_torch.cli import main as cli_main
+
+    percent = [f"{p:g}" for p in np.linspace(10, 70, N_S)]
+    modes = (("partial-ref", True, ["--nbunknown", "1"], "alpha_phase_full"),
+             ("purity", True, ["--nbunknown", "1", "--purity", *percent,
+                               "--iterations", "20", "100"],
+              "fw_phase_full"),
+             ("unsupervised", False, ["--nbunknown", str(U_N_U)],
+              "alpha_phase_full"))
+    runs = [(f"{mode} --init {init}", with_ref,
+             ["--iterations", "100", "20", "--init", init, *extra], glue)
+            for init in ("SVD", "ICA")
+            for mode, with_ref, extra, glue in modes]
+    runs += [(f"--ic {ic}", True, ["--iterations", "100", "20", "--init",
+                                   "SVD", "--icmax", "3", "--ic", ic, "3"],
+              "alpha_phase_full")
+             for ic in ("AIC", "BIC", "CCC", "BCV", "minka")]
+    with tempfile.TemporaryDirectory() as root:
+        samples, ref = _write_fixture(root)
+        _cli_svd_bootstrap(cli_main, root, samples, ref, percent)
+        for tag, with_ref, extra, glue in runs:
+            files = {}
+            for dev in (DEV, "cpu"):
+                outdir = os.path.join(root, f"{tag}-{dev}".replace(" ", "_"))
+                before = read_counts()
+                t0 = time.perf_counter()
+                rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                               "--noprint", "--outdir", outdir, "--device",
+                               dev, "--dtype", "float64",
+                               *(["--ref", ref] if with_ref else []),
+                               *extra])
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"CLI {tag} on {dev}: exit {rc}")
+                moved = {k: v - before[k] for k, v in read_counts().items()
+                         if v - before[k]}
+                if dev == DEV:
+                    check(moved.get("u_phase_grams", 0) > 0
+                          and moved.get(glue, 0) > 0,
+                          f"CLI {tag}: launches {moved}")
+                else:
+                    check(not moved, f"CLI {tag} on the CPU launched")
+                _, rows = _read_csv(os.path.join(
+                    outdir, "celltypes_proportions.csv"))
+                _, prof = _read_csv(os.path.join(
+                    outdir, "methylation_profile_estimate.csv"))
+                with open(os.path.join(outdir, "log.log")) as f:
+                    log_lines = f.read().splitlines()
+                files[dev] = ([r[0] for r in rows],
+                              np.array([[float(x) for x in r[1:]]
+                                        for r in rows]),
+                              np.array(prof, dtype=np.float64),
+                              log_lines[1] if "--ic" in extra else "",
+                              wall, moved)
+            (lab_c, p_c, u_c, ic_c, wall_c, moved), (lab_p, p_p, u_p, ic_p,
+                                                     wall_p, _) = (
+                files[DEV], files["cpu"])
+            err_p = float(np.abs(p_c - p_p).max())
+            err_u = float(np.abs(u_c - u_p).max())
+            log(f"[cli] {tag}: card {wall_c:.2f} s, CPU {wall_p:.2f} s; "
+                f"rows {lab_c}; card vs CPU proportions {err_p:.2e}, "
+                f"profiles {err_u:.2e} (tol 1e-6) {ic_c!r}; card launches "
+                f"{moved}")
+            check(lab_c == lab_p and ic_c == ic_p and p_c.shape == p_p.shape
+                  and err_p <= 1e-6 and err_u <= 1e-6,
+                  f"CLI {tag}: card and CPU differ")
+            check(np.abs(p_c.sum(0) - 1).max() <= 1e-6
+                  or tag.startswith("purity"), f"CLI {tag}: column sums")
+        _cli_bf16_svd(cli_main, root, samples, ref)
+
+
+def _cli_bf16_svd(cli_main, root, samples, ref):
+    """``--init SVD`` and ``--ic AIC --init SVD --icmax 3`` on bf16
+    storage on the card (the SVD init factors the upcast data in float32;
+    K1 reads the bf16 data), beside the same commands in float32 on the
+    card: the difference is printed, not held (bf16 rounds the data)."""
+    for tag, extra in (("--init SVD", ["--nbunknown", "1"]),
+                       ("--ic AIC --init SVD",
+                        ["--ic", "AIC", "--icmax", "3"])):
+        props = {}
+        for storage in ("bfloat16", "float32"):
+            outdir = os.path.join(root, f"bf16-{tag}-{storage}".replace(
+                " ", "_"))
+            before = read_counts()
+            rc = cli_main(["--methfreq", *samples, "--bedmethyl",
+                           "--noprint", "--outdir", outdir, "--device", DEV,
+                           "--dtype", storage, "--ref", ref, "--init", "SVD",
+                           "--iterations", "100", "20", *extra])
+            moved = {k: v - before[k] for k, v in read_counts().items()
+                     if v - before[k]}
+            _, rows = _read_csv(os.path.join(outdir,
+                                             "celltypes_proportions.csv"))
+            props[storage] = np.array([[float(x) for x in r[1:]]
+                                       for r in rows])
+            k1 = "u_phase_grams" + ("[bf16]" if storage == "bfloat16"
+                                    else "")
+            check(rc == 0 and moved.get(k1, 0) > 0
+                  and np.abs(props[storage].sum(0) - 1).max() <= 1e-5,
+                  f"CLI {tag} --dtype {storage}: launches {moved}")
+        same = props["bfloat16"].shape == props["float32"].shape
+        diff = (float(np.abs(props["bfloat16"] - props["float32"]).max())
+                if same else float("nan"))
+        log(f"[cli] {tag} --dtype bfloat16 on the card: rows "
+            f"{props['bfloat16'].shape[0]}, beside float32 max|diff| "
+            f"{diff:.3e} (rows {props['float32'].shape[0]}; not held)")
+
+
 # ------------------------------------------------------ parent/change timing
 # ------------------------------------------------------------ phase 9
 # The envelope: the shapes the kernels once refused (wide n_s, n_u > 8,
@@ -5203,6 +5677,10 @@ def main():
     cohort = phase_cohort(card)
     single = phase_single_phase_kernels(card, main_ms)
     phase_cli()
+    phase_routed_solves(card)
+    phase_inits(card)
+    phase_sweep(problem32, card)
+    phase_cli_inits_ic()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
                   for m in sys.modules), "a JAX-package module was imported")

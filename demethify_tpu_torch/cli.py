@@ -12,8 +12,12 @@ with a float32 solver state (the termination warning then speaks of
 float32, as the JAX CLI's does). ``--confidence LEVEL B`` (bootstrap
 confidence intervals, before the point estimate, as the reference runs
 them) and ``--cimethod {auto,resample,weights}`` run through
-``uncertainty/bootstrap.py``. Flags of modes and features that later
-slices port exit with an error naming the ROADMAP port-queue item.
+``uncertainty/bootstrap.py``. ``--init`` takes uniform, uniform_, beta,
+SVD or ICA. ``--ic NAME [n_restarts]`` (AIC, BIC, CCC, BCV or minka;
+5 restarts or folds by default) chooses the number of unknowns from 1 to
+``--icmax`` (default 25) through ``selection/sweep.py``; it refuses
+``--nbunknown``, as the JAX CLI does. Flags of modes and features that
+later slices port exit with an error naming the ROADMAP port-queue item.
 
 Reproduced conventions: ``nargs=1`` flags arrive as 1-lists and are
 unwrapped; the default iterations are (10000, 20), or (100, 500) with
@@ -40,8 +44,6 @@ LOGO = r"""
 
 # flag -> the ROADMAP port-queue item that ports it
 NOT_PORTED = {
-    "ic": "item 6 (model selection)",
-    "icmax": "item 6 (model selection)",
     "shard": "item 8 (torch.distributed)",
     "multihost": "item 8 (torch.distributed)",
     "savestate": "item 5 (checkpoints)",
@@ -73,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                              '(default = 1e-2)')
     parser.add_argument('--init', nargs='?', default='uniform_',
                         help='Initialisation option: uniform, uniform_ '
-                             '(default) or beta')
+                             '(default), beta, SVD or ICA')
     parser.add_argument('--outdir', nargs='?', required=True,
                         help='Output directory')
     parser.add_argument('--fillna', action='store_true',
@@ -119,9 +121,15 @@ def build_parser() -> argparse.ArgumentParser:
                              'replicates of a chunk share one pass over the '
                              'data); "auto" takes weights from 2M data '
                              'elements on')
+    parser.add_argument('--ic', nargs='+',
+                        help='Select the number of unknown cell types by '
+                             'minimising a criterion (AIC, BIC, CCC, BCV, '
+                             'minka), optionally followed by the number of '
+                             'restarts or folds (default 5)')
+    parser.add_argument('--icmax', nargs=1, type=int, default=[25],
+                        help='Upper end of the --ic sweep range '
+                             '(default 25)')
     # accepted so that a JAX-CLI command line fails with a clear message
-    parser.add_argument('--ic', nargs='+', help='Not ported yet')
-    parser.add_argument('--icmax', nargs=1, type=int, help='Not ported yet')
     parser.add_argument('--plot', action='store_true', help='Not ported yet')
     parser.add_argument('--shard', action='store_true',
                         help='Not ported yet')
@@ -186,6 +194,7 @@ def main(argv=None):
         supervised_deconv,
         unsupervised_deconv,
     )
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
     from demethify_tpu_torch.state import purity_from_numpy
     from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
     from demethify_tpu_torch.utils import (
@@ -204,6 +213,13 @@ def main(argv=None):
     termination = (args.termination[0] if isinstance(args.termination, list)
                    else args.termination)
     seed = args.seed[0] if isinstance(args.seed, list) else args.seed
+    ic_name, nb_r = None, 5
+    if args.ic:
+        if args.nbunknown:
+            sys.exit("Error: --ic cannot be used with --nbunknown.")
+        ic_name = args.ic[0]
+        if len(args.ic) > 1:
+            nb_r = int(args.ic[1])
 
     if not args.noprint:
         print(LOGO)
@@ -216,7 +232,7 @@ def main(argv=None):
         sys.stderr.write("Error: --confidence without --ref needs "
                          "--nbunknown (unsupervised bootstrap).\n")
         sys.exit(1)
-    if n_u < 0 or (n_u == 0 and not args.ref):
+    if n_u < 0 or (n_u == 0 and not args.ref and not ic_name):
         sys.exit(f'Invalid number of unknown value! : "{n_u}" ')
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -256,11 +272,22 @@ def main(argv=None):
             write_ci_profile(outdir, lo_u, hi_u, unknown_header)
 
     stats = SolveStats(y.shape[0], y.shape[1])
+    res, ic_n_u = None, None
     kw = dict(init=args.init, seed=seed, n_restarts=restart,
               n_iter1=args.iterations[0], n_iter2=args.iterations[1],
               tol=termination, tol_relative=args.reltol,
               record_trace=args.trace)
-    if n_u > 0:
+    if ic_name:
+        u_best, proportions, ic_n_u, _ = evaluate_best_ic(
+            y, d, ref_mat, args.init, ic_name, seed=seed,
+            iter1=args.iterations[0], iter2=args.iterations[1],
+            tol=termination, tol_relative=args.reltol, n_restarts=nb_r,
+            n_u_max=args.icmax[0])
+        unknown_header = [f"unknown_cell_{i+1}" for i in range(ic_n_u)]
+        header = (unknown_header if ref_mat is None
+                  else header + unknown_header)
+        write_profile_estimate(outdir, u_best.cpu().numpy(), unknown_header)
+    elif n_u > 0:
         if ref_mat is None:
             res = unsupervised_deconv(y, d, n_u, **kw)
         elif purity is not None:
@@ -274,15 +301,17 @@ def main(argv=None):
     else:
         res = supervised_deconv(y, d, ref_mat)
     time_tot = time() - time_start
-    stats.finish(res.n_iter)
-    if args.trace and res.trace is not None and res.trace.numel():
-        write_cost_trace(outdir, res.trace)
+    if res is not None:
+        stats.finish(res.n_iter)
+        proportions = res.proportions
+        if args.trace and res.trace is not None and res.trace.numel():
+            write_cost_trace(outdir, res.trace)
 
-    props_np = res.proportions.cpu().numpy().astype(np.float64)
+    props_np = proportions.cpu().numpy().astype(np.float64)
     write_proportions(outdir, props_np, header, ds.sample_names)
     print("All demethified! Results in " + outdir)
-    write_log(outdir, time_tot)
-    if stats.elapsed:
+    write_log(outdir, time_tot, ic_name, ic_n_u)
+    if res is not None and stats.elapsed:
         with open(os.path.join(outdir, 'log.log'), 'a') as f:
             f.write('\n' + stats.summary() + '\n')
     return 0

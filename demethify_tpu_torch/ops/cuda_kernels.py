@@ -130,6 +130,16 @@ def blocks_per_sm(smem: int) -> int:
     return min(2048 // SITES_PER_BLOCK, SMEM_PER_SM // (smem + 1024))
 
 
+def u_phase_fits(itemsize: int, n_s: int, n_ct: int, n_u: int,
+                 direct: bool = False, bf16c: bool = False,
+                 weighted: bool = False) -> bool:
+    """True when K1 (or K4, ``weighted`` or not) has a layout for the
+    shape: the wide layout, never larger than the resident one, fits
+    SMEM_LIMIT. Where it does not, ``u_phase_layout`` raises."""
+    return u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
+                        weighted) <= SMEM_LIMIT
+
+
 def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
                    direct: bool = False, bf16c: bool = False,
                    weighted: bool = False):
@@ -158,7 +168,7 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     if res <= SMEM_LIMIT and (
             direct or blocks_per_sm(wide) < 2 * blocks_per_sm(res)):
         return "resident", res
-    if wide <= SMEM_LIMIT:
+    if u_phase_fits(itemsize, n_s, n_ct, n_u, direct, bf16c, weighted):
         return "wide", wide
     raise NotImplementedError(
         f"{name} at n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u} ({itemsize}-byte "

@@ -163,9 +163,15 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     return n_warps, max(n_warps, 1) * slab
 
 
+def glue_fits(itemsize: int, p: int, n_s: int) -> bool:
+    """True when K2, K3, K5 and K6 take p rows: one warp's slab fits
+    (``glue_smem``). Where it does not, the wrappers raise."""
+    return glue_smem(itemsize, p, n_s)[0] >= 1
+
+
 def _check_glue_shape(name, itemsize, p, n_s):
-    n_warps, smem = glue_smem(itemsize, p, n_s)
-    if n_warps < 1:
+    if not glue_fits(itemsize, p, n_s):
+        smem = itemsize * (p * p + 6 * p)
         raise NotImplementedError(
             f"{name} at p = {p} rows ({itemsize}-byte values) needs {smem} "
             f"bytes of shared memory for one column, above the "

@@ -1,29 +1,42 @@
 """High-level deconvolution: init + solve + restarts, for the four modes.
 
 Counterpart of ``demethify_tpu/solvers/api.py``: reference-based,
-partial-reference, purity-constrained and unsupervised. Routing: tensors
-on ``cuda`` use the kernel solvers (``solvers/fused.py``), tensors on
-``cpu`` the plain ones (``solvers/partial_ref.py``, ``purity.py``,
-``unsupervised.py``); there is no other route. Each restart draws its
-init from its own generator (``restart_generators``). On the card, with
-more than one restart, no ``init_provided`` and the gram form
-(n_u^2 <= 3 n_s, the JAX API's rule), the restarts run together through
-the multi-member solvers (``fused.*_solve_fused_multi``: K4 and K5 or
-K6), in chunks of at most ``fused.max_multi_members``; otherwise (the
-direct form, the CPU) they run as a sequential loop of single solves
-(``restart_route``). The restart with the lowest cost wins (first
-minimum in restart order, across chunks; a NaN cost never wins).
+partial-reference, purity-constrained and unsupervised. Routing
+(``solver_route``, decided from the shape before anything runs): tensors
+on ``cuda`` use the kernel solvers (``solvers/fused.py``) wherever the
+kernels' shared-memory plans take the shape; tensors on ``cpu``, and
+shapes past one block's shared memory on the card (p of about 160 and
+up in float64, 240 in float32), the plain solvers
+(``solvers/partial_ref.py``, ``purity.py``, ``unsupervised.py``) on the
+tensors' device, as the JAX API runs its XLA solvers off the TPU.
+
+Each restart draws its init from its own generator
+(``restart_generators``). An SVD or ICA init draws nothing, so it runs
+one solve whatever ``n_restarts`` says, unless n_u > n_samples sends it
+to the random fallback (``init.is_deterministic``, the JAX API's
+``_is_deterministic``). On the card, with more than one restart, no
+``init_provided``, the gram form (n_u^2 <= 3 n_s, the JAX API's rule)
+and the kernel route, the restarts run together through the
+multi-member solvers (``fused.*_solve_fused_multi``: K4 and K5 or K6),
+in chunks of at most ``fused.max_multi_members``; otherwise they run as
+a sequential loop of single solves (``restart_route``). The restart with
+the lowest cost wins (first minimum in restart order, across chunks; a
+NaN cost never wins). ``solve_members`` runs given inits the same way
+and returns every member (the model-selection sweep's CCC restarts).
 """
 
+import itertools
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from demethify_tpu_torch.device import state_dtype
 from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost
-from demethify_tpu_torch.ops.cuda_kernels import gram_form
+from demethify_tpu_torch.ops.cuda_kernels import gram_form, u_phase_fits
+from demethify_tpu_torch.ops.cuda_small import glue_fits
 from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.solvers import fused
@@ -31,6 +44,7 @@ from demethify_tpu_torch.solvers.init import (
     init_partial,
     init_purity,
     init_unsupervised,
+    is_deterministic,
 )
 from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
 from demethify_tpu_torch.solvers.purity import purity_solve
@@ -77,19 +91,61 @@ def supervised_deconv(y, d, R) -> DeconvolutionResult:
                                cost=float(cost), n_iter=0)
 
 
+def solver_route(device, dtype, n_s: int, n_ct: int, n_u: int,
+                 weighted: bool = False) -> str:
+    """'kernels' where solves of this shape run the CUDA kernels: a CUDA
+    device, and a shape that K1 (K4 with ``weighted``, the weights
+    bootstrap) and K2/K3 (K5/K6) take, by their shared-memory plans
+    (``cuda_kernels.u_phase_fits``, ``cuda_small.glue_fits``; plain
+    Python, nothing launches). 'plain' otherwise: the CPU, or a shape the
+    plans refuse, whose solves run the plain solvers on the tensors'
+    device. ``dtype`` is the data's (storage) dtype. The kernels keep
+    their own refusals for direct callers."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    itemsize = torch.finfo(state_dtype(dtype)).bits // 8
+    direct = not gram_form(n_u, n_s)
+    if (u_phase_fits(itemsize, n_s, n_ct, n_u, direct, weighted=weighted)
+            and glue_fits(itemsize, n_ct + n_u, n_s)):
+        return "kernels"
+    return "plain"
+
+
 def restart_route(device, n_u: int, n_s: int, n_restarts: int,
-                  init_provided=None) -> str:
+                  init_provided=None, *, n_ct: int = 0,
+                  dtype=torch.float32, init: str = "uniform_") -> str:
     """'batch' when the restarts run together through the multi-member
-    kernels: on a CUDA device, more than one restart, no
-    ``init_provided``, and the gram form (n_u^2 <= 3 n_s, the rule by
-    which the JAX API routes restarts to its multi kernel). 'sequential'
-    otherwise: the direct form (the JAX API vmaps its single solver
-    there; the per-member results are the same), the CPU's plain solvers,
-    one restart, or a provided init (one solve)."""
-    if (torch.device(device).type == "cuda" and n_restarts > 1
-            and init_provided is None and gram_form(n_u, n_s)):
+    kernels: on a CUDA device, more than one restart, none of them
+    deterministic (no ``init_provided``, and no SVD/ICA init unless
+    n_u > n_s), the gram form (n_u^2 <= 3 n_s, the rule by which the JAX
+    API routes restarts to its multi kernel) and the kernel
+    ``solver_route``. 'sequential' otherwise: the direct form (the JAX API
+    vmaps its single solver there; the per-member results are the same),
+    the CPU's plain solvers, shapes past the kernels' plans, one restart,
+    or a deterministic init (one solve)."""
+    if (n_restarts > 1 and init_provided is None
+            and not is_deterministic(init, n_u, n_s) and gram_form(n_u, n_s)
+            and solver_route(device, dtype, n_s, n_ct, n_u) == "kernels"):
         return "batch"
     return "sequential"
+
+
+def _member_solves(solve, solve_multi, inits, batch: bool, cap: int):
+    """(u, alpha, info) of each init (u0, alpha0) of the iterable
+    ``inits``, in order: through ``solve_multi`` in chunks of at most
+    ``cap`` members when ``batch`` (the members are views of their
+    chunk's results), else one ``solve`` each. A generator: a chunk's
+    inits are drawn just before it runs."""
+    if not batch:
+        for u0, a0 in inits:
+            yield solve(u0, a0)
+        return
+    inits = iter(inits)
+    while chunk := list(itertools.islice(inits, cap)):
+        u0_b, a0_b = (torch.stack(x) for x in zip(*chunk))
+        u_b, alpha_b, info = solve_multi(u0_b, a0_b)
+        for b in range(u_b.shape[0]):
+            yield u_b[b], alpha_b[b], {k: v[b] for k, v in info.items()}
 
 
 def _batched_restarts(solve_multi, init_fn, device, seed, n_restarts, cap):
@@ -98,43 +154,111 @@ def _batched_restarts(solve_multi, init_fn, device, seed, n_restarts, cap):
     order. Returns the winner (u, alpha, info): the first minimum cost
     across all chunks, so the result does not depend on the chunking."""
     gens = restart_generators(seed, n_restarts, device)
-    best = []
-    for lo in range(0, n_restarts, cap):
-        u0_b, a0_b = (torch.stack(x) for x in zip(
-            *(init_fn(g) for g in gens[lo:lo + cap])))
-        u_b, alpha_b, info = solve_multi(u0_b, a0_b)
-        u, alpha, info = _select_best(best + [
-            (u_b[b], alpha_b[b], {k: v[b] for k, v in info.items()})
-            for b in range(u_b.shape[0])])
-        # a copy, so that the next chunk runs without this one's batch
-        best = [(u.clone(), alpha.clone(), info)]
-    return best[0]
+    best = None
+    for res in _member_solves(None, solve_multi,
+                              (init_fn(g) for g in gens), True, cap):
+        if best is None or _select_best([best, res]) is res:
+            # a copy, so that the next chunk runs without this one's batch
+            best = (res[0].clone(), res[1].clone(), res[2])
+    return best
 
 
-def _restarts(solve, solve_multi, init_fn, y, n_u, n_ct, seed, n_restarts,
-              init_provided):
-    """Init + solve per restart (one generator each) by ``restart_route``,
-    or once from ``init_provided`` = (u0, alpha0); the first minimum cost
-    wins."""
-    if restart_route(y.device, n_u, y.shape[1], n_restarts,
-                     init_provided) == "batch":
-        cap = fused.max_multi_members(
-            y.shape[0], y.shape[1], n_ct, n_u,
-            torch.finfo(accum_dtype(y)).bits // 8, y.element_size(),
-            fused.free_device_bytes(y.device))
-        u, alpha, info = _batched_restarts(solve_multi, init_fn, y.device,
-                                           seed, n_restarts, cap)
+def _multi_cap(y, n_ct, n_u):
+    return fused.max_multi_members(
+        y.shape[0], y.shape[1], n_ct, n_u,
+        torch.finfo(accum_dtype(y)).bits // 8, y.element_size(),
+        fused.free_device_bytes(y.device))
+
+
+def _solvers(y, d, R_trunc, n_u, purity, kw):
+    """(solve, solve_multi) of the mode: unsupervised (R_trunc None),
+    purity (purity given) or partial-reference. ``solve`` runs the kernel
+    solver or the plain one by ``solver_route``; ``solve_multi`` the
+    multi-member kernel solver."""
+    n_ct = 0 if R_trunc is None else R_trunc.shape[1]
+    kernels = solver_route(y.device, y.dtype, y.shape[1], n_ct,
+                           n_u) == "kernels"
+    gram_u = fista.use_gram_u(n_u, y.shape[1], kw["n_iter2"])
+    if R_trunc is None:
+        def solve(u0, a0):
+            if kernels:
+                return fused.unsupervised_solve_fused(u0, a0, y, d, n_u, **kw)
+            return unsupervised_solve(u0, a0, y, d, n_u, use_gram_u=gram_u,
+                                      **kw)
+
+        def solve_multi(u0_b, a0_b):
+            return fused.unsupervised_solve_fused_multi(u0_b, a0_b, y, d,
+                                                        n_u, **kw)
+    elif purity is not None:
+        def solve(u0, a0):
+            if kernels:
+                return fused.purity_solve_fused(u0, a0, y, d, R_trunc, purity,
+                                                n_u, **kw)
+            return purity_solve(u0, a0, y, d, R_trunc, purity, n_u, **kw)
+
+        def solve_multi(u0_b, a0_b):
+            return fused.purity_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
+                                                  purity, n_u, **kw)
     else:
-        if init_provided is not None:
-            results = [solve(*init_provided)]
-        else:
-            results = [solve(*init_fn(g)) for g in
-                       restart_generators(seed, n_restarts, y.device)]
-        u, alpha, info = _select_best(results)
+        def solve(u0, a0):
+            if kernels:
+                return fused.partial_ref_solve_fused(u0, a0, y, d, R_trunc,
+                                                     n_u, **kw)
+            return partial_ref_solve(u0, a0, y, d, R_trunc, n_u,
+                                     use_gram_u=gram_u, **kw)
+
+        def solve_multi(u0_b, a0_b):
+            return fused.partial_ref_solve_fused_multi(u0_b, a0_b, y, d,
+                                                       R_trunc, n_u, **kw)
+    return solve, solve_multi
+
+
+def _result(u, alpha, info):
     return DeconvolutionResult(u=u, proportions=alpha,
                                cost=float(info["cost"]),
                                n_iter=int(info["n_iter"]),
                                trace=info["trace"])
+
+
+def _restarts(y, d, R_trunc, n_u, purity, init_fn, init, seed, n_restarts,
+              init_provided, kw):
+    """Init + solve per restart (one generator each) by ``restart_route``,
+    once from ``init_provided`` = (u0, alpha0), or once for a
+    deterministic init; the first minimum cost wins."""
+    n_ct = 0 if R_trunc is None else R_trunc.shape[1]
+    n_s = y.shape[1]
+    solve, solve_multi = _solvers(y, d, R_trunc, n_u, purity, kw)
+    if restart_route(y.device, n_u, n_s, n_restarts, init_provided,
+                     n_ct=n_ct, dtype=y.dtype, init=init) == "batch":
+        best = _batched_restarts(solve_multi, init_fn, y.device, seed,
+                                 n_restarts, _multi_cap(y, n_ct, n_u))
+    elif init_provided is not None:
+        best = solve(*init_provided)
+    else:
+        if is_deterministic(init, n_u, n_s):
+            n_restarts = 1
+        best = _select_best([solve(*init_fn(g)) for g in
+                             restart_generators(seed, n_restarts, y.device)])
+    return _result(*best)
+
+
+def solve_members(y, d, R_trunc, n_u: int, inits, *,
+                  n_iter1: int = 10000, n_iter2: int = 20,
+                  tol: float = 1e-2, tol_relative: bool = False):
+    """The partial-reference (R_trunc given) or unsupervised (None)
+    solves of the given inits [(u0, alpha0), ...] on the same data, as a
+    list of DeconvolutionResult in their order: on the card together
+    through the multi-member kernels (K4 and K5) where ``restart_route``
+    would batch random restarts of this shape, else one solve each."""
+    kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
+              tol_relative=tol_relative, record_trace=False)
+    n_ct = 0 if R_trunc is None else R_trunc.shape[1]
+    solve, solve_multi = _solvers(y, d, R_trunc, n_u, None, kw)
+    batch = restart_route(y.device, n_u, y.shape[1], len(inits),
+                          n_ct=n_ct, dtype=y.dtype) == "batch"
+    cap = _multi_cap(y, n_ct, n_u) if batch else 1
+    return [_result(*res) for res in _member_solves(solve, solve_multi,
+                                                     inits, batch, cap)]
 
 
 def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
@@ -147,28 +271,13 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
                              record_trace: bool = False,
                              init_provided=None) -> DeconvolutionResult:
     """Partial-reference mode (``--ref --nbunknown k``). ``init_provided``
-    = (u0, alpha0) skips the random init (and makes restarts moot)."""
+    = (u0, alpha0) skips the init (and makes restarts moot)."""
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
-    if y.device.type == "cuda":
-        def solve(u0, a0):
-            return fused.partial_ref_solve_fused(u0, a0, y, d, R_trunc, n_u,
-                                                 **kw)
-    else:
-        gram_u = fista.use_gram_u(n_u, y.shape[1], n_iter2)
-
-        def solve(u0, a0):
-            return partial_ref_solve(u0, a0, y, d, R_trunc, n_u,
-                                     use_gram_u=gram_u, **kw)
-
-    def solve_multi(u0_b, a0_b):
-        return fused.partial_ref_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
-                                                   n_u, **kw)
-
     return _restarts(
-        solve, solve_multi,
-        lambda g: init_partial(g, init, y, d, R_trunc, n_u), y, n_u,
-        R_trunc.shape[1], seed, n_restarts, init_provided)
+        y, d, R_trunc, n_u, None,
+        lambda g: init_partial(g, init, y, d, R_trunc, n_u), init, seed,
+        n_restarts, init_provided, kw)
 
 
 def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
@@ -187,22 +296,10 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
     purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
-    if y.device.type == "cuda":
-        def solve(u0, a0):
-            return fused.purity_solve_fused(u0, a0, y, d, R_trunc, purity,
-                                            n_u, **kw)
-    else:
-        def solve(u0, a0):
-            return purity_solve(u0, a0, y, d, R_trunc, purity, n_u, **kw)
-
-    def solve_multi(u0_b, a0_b):
-        return fused.purity_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
-                                              purity, n_u, **kw)
-
     return _restarts(
-        solve, solve_multi,
-        lambda g: init_purity(g, init, y, d, R_trunc, n_u), y, n_u,
-        R_trunc.shape[1], seed, n_restarts, init_provided)
+        y, d, R_trunc, n_u, purity,
+        lambda g: init_purity(g, init, y, d, R_trunc, n_u, purity=purity),
+        init, seed, n_restarts, init_provided, kw)
 
 
 def unsupervised_deconv(y, d, n_u: int, *,
@@ -218,23 +315,10 @@ def unsupervised_deconv(y, d, n_u: int, *,
     profiles of all n_u cell types."""
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
-    if y.device.type == "cuda":
-        def solve(u0, a0):
-            return fused.unsupervised_solve_fused(u0, a0, y, d, n_u, **kw)
-    else:
-        gram_u = fista.use_gram_u(n_u, y.shape[1], n_iter2)
-
-        def solve(u0, a0):
-            return unsupervised_solve(u0, a0, y, d, n_u, use_gram_u=gram_u,
-                                      **kw)
-
-    def solve_multi(u0_b, a0_b):
-        return fused.unsupervised_solve_fused_multi(u0_b, a0_b, y, d, n_u,
-                                                    **kw)
-
     return _restarts(
-        solve, solve_multi, lambda g: init_unsupervised(g, init, y, d, n_u),
-        y, n_u, 0, seed, n_restarts, init_provided)
+        y, d, None, n_u, None,
+        lambda g: init_unsupervised(g, init, y, d, n_u), init, seed,
+        n_restarts, init_provided, kw)
 
 
 def deconvolve(y, d, R=None, n_u: int = 0, purity=None,

@@ -3,13 +3,13 @@
 Counterpart of ``demethify_tpu/solvers/init.py``: ``init_partial``
 (reference ``init_BSSMF_md``), ``init_purity`` (``init_BSSMF_md_p``) and
 ``init_unsupervised`` (the inlined options of ``unsupervised_deconv``).
-The options uniform, uniform_ and beta; the fallback rule (n_u >
+The options uniform, uniform_, beta, SVD and ICA; the fallback rule (n_u >
 n_samples forces uniform_, before anything else); the zero-guard on the
-first unknown alpha row in the partial-reference init only. The SVD and
-ICA options are ROADMAP port queue item 4. Every draw takes an explicit
-``torch.Generator``. ``row_weights`` (the bootstrap's row multiplicities)
-weights the 'uniform' option's WLS coverage, which is the WLS on the
-resampled rows; the other options draw without looking at the data.
+first unknown alpha row in the partial-reference init only. Every draw
+takes an explicit ``torch.Generator``. ``row_weights`` (the bootstrap's
+row multiplicities) weights the 'uniform' option's WLS coverage, which is
+the WLS on the resampled rows; the other options draw without looking at
+the data, or (SVD, ICA) factor it unweighted.
 
 torch cannot reproduce ``jax.random`` draws, so the distributions are
 matched instead: Dirichlet(1, ..., 1) columns are column-normalised
@@ -22,6 +22,16 @@ bfloat16 storage u0 and alpha0 are bf16 values (the solvers then carry
 them in float32). Uniform u is drawn in bf16 directly; the Beta and
 Dirichlet draws are formed in float32 and rounded once, as the JAX
 package's ``.astype(dtype)`` rounds them.
+
+SVD and ICA are deterministic: the constrained NNDSVD and NN-ICA of the
+known-block residual (``ops/nndsvd.py``, ``ops/nnica.py``; NNDSVD and NN-ICA
+of the data without a reference), the alpha columns projected onto the
+simplex. Above ICA_DUAL_THRESHOLD rows ICA takes its column-space form.
+They factor in the state dtype and return their factors in it: under
+bf16 storage the JAX package's partial-reference and purity inits upcast
+the bf16 data the same way and return float32 factors (its unsupervised
+SVD/ICA inits raise there, as ``jnp.linalg.eigh`` takes no bf16; the
+port factors those in float32 too).
 """
 
 import math
@@ -29,9 +39,23 @@ import math
 import torch
 
 from demethify_tpu_torch.device import state_dtype
+from demethify_tpu_torch.ops.nndsvd import (
+    constrained_nndsvd,
+    nndsvd_initialize,
+)
+from demethify_tpu_torch.ops.nnica import (
+    constrained_nn_ica,
+    run_nn_ica,
+    run_nn_ica_dual,
+)
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
+from demethify_tpu_torch.ops.simplex import project_columns_to_simplex
 
 INIT_OPTIONS = ("uniform", "uniform_", "beta", "SVD", "ICA")
+DETERMINISTIC = ("SVD", "ICA")
+# above this many CpG rows ICA runs in its column-space (dual) form: the
+# primal form whitens an (n_cpg x n_cpg) covariance
+ICA_DUAL_THRESHOLD = 4096
 
 
 def _rand_u(gen, n_cpg, n_u, like):
@@ -73,15 +97,27 @@ def _resolve_option(init_option: str, n_u: int, n_s: int) -> str:
         return "uniform_"
     if init_option not in INIT_OPTIONS:
         raise ValueError(f"Unknown init option: {init_option!r}")
-    if init_option in ("SVD", "ICA"):
-        raise NotImplementedError(
-            f"--init {init_option} is ROADMAP port queue item 4 "
-            f"(the SVD/ICA inits)")
     return init_option
 
 
+def is_deterministic(init_option: str, n_u: int, n_s: int) -> bool:
+    """True when the init draws nothing: SVD and ICA, unless n_u >
+    n_samples sends them to the random uniform_ fallback."""
+    return init_option in DETERMINISTIC and n_u <= n_s
+
+
+def _factored(init_option, y, d, R_trunc, n_u):
+    """(W, H) of the constrained NNDSVD or NN-ICA in the state dtype."""
+    dt = state_dtype(y.dtype)
+    y, d, R_trunc = (x.to(dt) for x in (y, d, R_trunc))
+    if init_option == "ICA":
+        return constrained_nn_ica(y, R_trunc, d, rank=n_u, t_tol=1e-1,
+                                  dual=y.shape[0] > ICA_DUAL_THRESHOLD)
+    return constrained_nndsvd(y, R_trunc, d, rank=n_u, flag=0)
+
+
 def _draw(gen, init_option, y, d, R_trunc, n_u, row_weights=None):
-    """u and alpha of the uniform, uniform_ and beta options; R_trunc
+    """u and alpha of the random options (uniform, uniform_, beta); R_trunc
     (n_cpg, n_ct) or None for no known block."""
     n_cpg, n_s = y.shape
     p = n_u if R_trunc is None else R_trunc.shape[1] + n_u
@@ -103,21 +139,41 @@ def _draw(gen, init_option, y, d, R_trunc, n_u, row_weights=None):
 
 def init_partial(gen: torch.Generator, init_option: str, y, d, R_trunc,
                  n_u: int, row_weights=None):
-    """-> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)) on y's device and dtype."""
+    """-> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)) on y's device, in
+    y's dtype (SVD, ICA: the state dtype)."""
     option = _resolve_option(init_option, n_u, y.shape[1])
-    u, alpha = _draw(gen, option, y, d, R_trunc, n_u, row_weights)
+    if option in DETERMINISTIC:
+        W, alpha = _factored(option, y, d, R_trunc, n_u)
+        u, alpha = W[:, R_trunc.shape[1]:], project_columns_to_simplex(alpha)
+    else:
+        u, alpha = _draw(gen, option, y, d, R_trunc, n_u, row_weights)
     return u, zero_guard(alpha, n_u)
 
 
 def init_purity(gen: torch.Generator, init_option: str, y, d, R_trunc,
-                n_u: int, row_weights=None):
+                n_u: int, row_weights=None, purity=None):
     """Purity-constrained init (reference ``deconvolution.py:228-267``)
     -> (u (n_cpg, n_u), alpha (n_ct + n_u, n_s)). The uniform, uniform_
     and beta options draw as ``init_partial`` does, without its
-    zero-guard; only the SVD/ICA options (item 4) scale alpha's blocks by
-    the purity."""
+    zero-guard. SVD and ICA (which need ``purity``, the (n_s,) flipped
+    known-block mass) scale the projected known block by the purity, and
+    ICA the projected unknown block by 1 - purity; SVD leaves the unknown
+    block unscaled, as the reference does (``deconvolution.py:262``)."""
     option = _resolve_option(init_option, n_u, y.shape[1])
-    return _draw(gen, option, y, d, R_trunc, n_u, row_weights)
+    if option not in DETERMINISTIC:
+        return _draw(gen, option, y, d, R_trunc, n_u, row_weights)
+    if purity is None:
+        raise ValueError(f"--init {option} in the purity mode needs the "
+                         f"purity")
+    W, alpha = _factored(option, y, d, R_trunc, n_u)
+    purity = torch.as_tensor(purity, device=y.device).to(alpha.dtype)
+    unknown = project_columns_to_simplex(alpha[-n_u:])
+    if option == "ICA":
+        unknown = (1.0 - purity)[None, :] * unknown
+    alpha = torch.cat([
+        purity[None, :] * project_columns_to_simplex(alpha[:-n_u]),
+        unknown], dim=0)
+    return W[:, R_trunc.shape[1]:], alpha
 
 
 def init_unsupervised(gen: torch.Generator, init_option: str, y, d,
@@ -129,4 +185,13 @@ def init_unsupervised(gen: torch.Generator, init_option: str, y, d,
     option = _resolve_option(init_option, n_u, y.shape[1])
     if option == "uniform":
         option = "uniform_"
-    return _draw(gen, option, y, d, None, n_u)
+    if option not in DETERMINISTIC:
+        return _draw(gen, option, y, d, None, n_u)
+    y = y.to(state_dtype(y.dtype))
+    if option == "ICA":
+        ica = (run_nn_ica_dual if y.shape[0] > ICA_DUAL_THRESHOLD
+               else run_nn_ica)
+        u, alpha = ica(y, rank=n_u, t_tol=1e-1)
+    else:
+        u, alpha = nndsvd_initialize(y, rank=n_u)
+    return torch.clamp(u, 0.0, 1.0), project_columns_to_simplex(alpha)

@@ -10,8 +10,11 @@ The same Gram-form dataflow as ``partial_ref.py``, with the whole factor
 as the unknown block. This is the CPU path and the oracle the kernel
 solver (``solvers/fused.unsupervised_solve_fused``) is held against on
 the GPU. ``row_weights`` is the bootstrap's row-multiplicity form, as in
-``partial_ref.py``; ``row_mask`` waits for the sweep slice (ROADMAP port
-queue item 6).
+``partial_ref.py``. ``row_mask`` ((n_u,) bool) restricts alpha to the rows
+it keeps, as the JAX solver's does: with the other u columns and alpha
+rows starting at zero, the masked solve is the lower-rank solve on the
+kept rows (the JAX package's padded sweep; the port's sweep solves each
+rank at its own width instead).
 """
 
 import torch
@@ -30,10 +33,11 @@ from demethify_tpu_torch.ops.gram import (
 def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
                        n_iter2: int = 20, tol: float = 1e-2,
                        use_gram_u: bool = True, record_trace: bool = False,
-                       tol_relative: bool = False, row_weights=None):
-    """u (n_cpg, n_u), alpha (n_u, n_s), y, d (n_cpg, n_s), row_weights
-    (n_cpg,) or None. Returns (u, alpha, info) as ``partial_ref_solve``
-    does."""
+                       tol_relative: bool = False, row_mask=None,
+                       row_weights=None):
+    """u (n_cpg, n_u), alpha (n_u, n_s), y, d (n_cpg, n_s), row_mask
+    (n_u,) bool or None, row_weights (n_cpg,) or None. Returns (u, alpha,
+    info) as ``partial_ref_solve`` does."""
     dtype = accum_dtype(y)
     u = u.to(dtype)
     alpha = alpha.to(dtype)
@@ -51,6 +55,8 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
     a1, a2 = one, one
     l_w_prev, l_h_prev = l_w, l_h
     cf_prev = torch.full((), float("inf"), dtype=dtype, device=y.device)
+    if row_mask is not None:
+        row_mask = torch.as_tensor(row_mask, device=y.device).to(torch.bool)
     k = 0
     while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
         if use_gram_u:
@@ -66,7 +72,7 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
         G, b, ydy = sample_grams(u, d, y, row_weights)
         l_h = u_sq(u) * dmax2
         alpha, alpha_prev, a2, l_h_prev = fista.fista_alpha_gram(
-            alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2)
+            alpha, alpha_prev, a2, l_h_prev, l_h, G, b, n_iter2, row_mask)
         l_w = torch.sum(alpha * alpha) * dmax2
         cf_prev, cf = cf, weighted_cost_gram(G, b, ydy, alpha)
         if record_trace:

@@ -24,9 +24,12 @@ modes, the unknown profiles. Two layouts, as in the JAX package:
 - the supervised mode (no unknowns) solves the WLS on (d y, w d, ref).
 
 ``method="auto"`` takes weights from 2,000,000 data elements on, as the
-JAX package does. SVD and ICA inits are ROADMAP port queue item 4 (in the
-weights layout the JAX package shares one full-data init among the
-replicates). The sharded and multi-process routes are item 8.
+JAX package does. With an SVD or ICA init the weights layout computes
+the init once on the full data and gives it to every replicate, as the
+JAX package does; the resample layout inits each replicate on its
+gathered rows. On the card, shapes past the kernels' shared-memory plans
+(``api.solver_route``) take the plain solvers on the card's tensors in
+both layouts. The sharded and multi-process routes are item 8.
 
 Random numbers: replicate r draws its resample indices, then its init,
 from its own ``torch.Generator``, seeded from the GLOBAL replicate index
@@ -57,6 +60,7 @@ from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.solvers import api, fused
 from demethify_tpu_torch.solvers.init import (
+    DETERMINISTIC,
     init_partial,
     init_purity,
     init_unsupervised,
@@ -72,6 +76,9 @@ _STREAM = 987654321
 # replicates per multi-solver call on the CPU (the plain twins hold a few
 # (B, n_s, n_cpg) temporaries)
 CPU_MEMBERS = 8
+# the replicate index whose generator draws the weights layout's shared
+# init (it draws only in the SVD/ICA fallback to uniform_, n_u > n_s)
+SHARED_INIT = 2 ** 31 - 1
 
 
 def resolve_method(method: str, init_option: str, n_elems: int) -> str:
@@ -126,11 +133,6 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     method = resolve_method(method, init_option, n_cpg * n_s)
     if method not in ("resample", "weights"):
         raise ValueError(f"unknown bootstrap method {method!r}")
-    if method == "weights" and not supervised and init_option in ("SVD",
-                                                                  "ICA"):
-        raise NotImplementedError(
-            f"--init {init_option} with the weights layout (one full-data "
-            f"init shared by the replicates) is ROADMAP port queue item 4")
     if purity is not None:
         purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
     dtype = accum_dtype(y)
@@ -147,15 +149,27 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
             idx = torch.as_tensor(np.asarray(indices[r]), device=y.device)
         return g, idx
 
+    def own_init(g, yb, db, refb, w=None):
+        if unsupervised:
+            return init_unsupervised(g, init_option, yb, db, n_u)
+        if purity is not None:
+            return init_purity(g, init_option, yb, db, refb, n_u, w,
+                               purity=purity)
+        return init_partial(g, init_option, yb, db, refb, n_u, w)
+
+    shared = None
+    if (method == "weights" and not supervised and inits is None
+            and init_option in DETERMINISTIC):
+        shared = own_init(replicate_generator(seed, SHARED_INIT, y.device),
+                          y, d, ref)
+
     def init(r, g, yb, db, refb, w=None):
         if inits is not None:
             return tuple(torch.as_tensor(np.asarray(x)).to(y.device, dtype)
                          for x in inits[r])
-        if unsupervised:
-            return init_unsupervised(g, init_option, yb, db, n_u)
-        if purity is not None:
-            return init_purity(g, init_option, yb, db, refb, n_u, w)
-        return init_partial(g, init_option, yb, db, refb, n_u, w)
+        if shared is not None:
+            return shared
+        return own_init(g, yb, db, refb, w)
 
     def weights(idx):
         w = torch.bincount(idx, minlength=n_cpg)
@@ -233,10 +247,14 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         props.append(alpha.cpu().numpy())
         us.append(None if u is None else u.cpu().numpy())
 
-    if method == "weights" and not supervised and gram_form(n_u, n_s):
+    n_ct = 0 if unsupervised else ref.shape[1]
+    if (method == "weights" and not supervised and gram_form(n_u, n_s)
+            and (y.device.type == "cpu" or api.solver_route(
+                y.device, y.dtype, n_s, n_ct, n_u, weighted=True)
+                == "kernels")):
         cap = CPU_MEMBERS if y.device.type == "cpu" else (
             fused.max_multi_members(
-                n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
+                n_cpg, n_s, n_ct, n_u,
                 torch.finfo(dtype).bits // 8, y.element_size(),
                 fused.free_device_bytes(y.device), weighted=True))
         for lo in range(0, n_bootstrap, cap):

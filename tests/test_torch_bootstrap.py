@@ -38,6 +38,7 @@ from demethify_tpu_torch.io import writers
 from demethify_tpu_torch.ops import cuda_multi
 from demethify_tpu_torch.solvers import api
 from demethify_tpu_torch.uncertainty import bootstrap
+from demethify_tpu_torch.solvers.init import init_partial
 from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
 
 N_BOOT, LEVEL = 5, 90.0
@@ -171,11 +172,20 @@ def test_replicate_generators_keyed_by_global_index():
 
 
 def test_svd_ica_in_the_weights_layout_name_item_4(small_problem):
+    """Item 4 is ported: the weights layout gives every replicate the one
+    SVD (ICA) init of the full data."""
     p = small_problem
-    with pytest.raises(NotImplementedError, match="item 4"):
-        bootstrap_ci(torch.tensor(p["y"]), torch.tensor(p["d"]),
-                     torch.tensor(p["R_trunc"]), p["n_u"], level=LEVEL,
-                     n_bootstrap=2, method="weights", init_option="SVD")
+    y, d, Rt = (torch.tensor(p[k]) for k in ("y", "d", "R_trunc"))
+    indices, _, _ = _draws(p, "partial", seed=5)
+    for option in ("SVD", "ICA"):
+        shared = init_partial(None, option, y, d, Rt, p["n_u"])
+        kw = dict(level=LEVEL, n_bootstrap=N_BOOT, method="weights",
+                  indices=indices, **KW)
+        got = bootstrap_ci(y, d, Rt, p["n_u"], init_option=option, **kw)
+        want = bootstrap_ci(y, d, Rt, p["n_u"], inits=[shared] * N_BOOT,
+                            **kw)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="n_u > 0"):
         bootstrap_ci(torch.tensor(p["y"]), torch.tensor(p["d"]), None, 0,
                      level=LEVEL, n_bootstrap=2)

@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax():
     names = _all_modules()
     for mod in ("solvers.fused", "solvers.purity", "solvers.unsupervised",
                 "ops.frank_wolfe", "ops.cuda_small", "ops.cuda_kernels",
-                "ops.cuda_multi", "isolation"):
+                "ops.cuda_multi", "isolation", "ops.tall_svd", "ops.nndsvd",
+                "ops.nnica", "selection.criteria", "selection.ccc",
+                "selection.minka", "selection.bcv", "selection.sweep"):
         assert f"demethify_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

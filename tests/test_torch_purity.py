@@ -257,9 +257,16 @@ def test_init_purity_draws(small_problem, init):
 def test_init_purity_fallback_and_svd_ica():
     y = torch.rand((50, 2), dtype=torch.float64)
     Rt = torch.rand((50, 3), dtype=torch.float64)
+    purity = torch.tensor([0.4, 0.7], dtype=torch.float64)
     for option in ("SVD", "ICA"):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        # SVD and ICA scale by the purity, so they need it
+        with pytest.raises(ValueError, match="purity"):
             init_purity(torch.Generator(), option, y, y, Rt, 1)
+        u, alpha = init_purity(torch.Generator(), option, y, y, Rt, 1,
+                               purity=purity)
+        assert u.shape == (50, 1) and alpha.shape == (4, 2)
+        np.testing.assert_allclose(alpha[:3].sum(0).numpy(), purity.numpy(),
+                                   atol=1e-12)
         # n_u > n_s forces uniform_ before any option is looked at
         u, alpha = init_purity(torch.Generator(), option, y, y, Rt, 3)
         assert u.shape == (50, 3) and alpha.shape == (6, 2)

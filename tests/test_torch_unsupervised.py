@@ -210,8 +210,10 @@ def test_init_unsupervised_draws(init):
 def test_init_unsupervised_fallback_and_svd_ica():
     y = torch.rand((40, 2), dtype=torch.float64)
     for option in ("SVD", "ICA"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            init_unsupervised(torch.Generator(), option, y, y, 2)
+        u, alpha = init_unsupervised(torch.Generator(), option, y, y, 2)
+        assert ((u >= 0) & (u <= 1)).all()
+        np.testing.assert_allclose(alpha.sum(0).numpy(), 1.0, atol=1e-12)
+        # n_u > n_s forces uniform_ before any option is looked at
         u, alpha = init_unsupervised(torch.Generator(), option, y, y, 3)
         assert u.shape == (40, 3) and alpha.shape == (3, 2)
     with pytest.raises(ValueError):
