@@ -85,7 +85,10 @@ non-zero and prints no result line):
    n_s = 256 with 5 + 1, 200k sites, float32, float64 and bf16, each
    timed beside its bound; one K1 launch at 1M x 500, 25 + 4, float64
    with its partial buffer; n_u in {9, 12, 16} in K1 (gram and direct)
-   and K4; p in {33, 40, 64} in K2, K3, K5 and K6; K2 and K5 with row
+   and K4; p in {33, 40, 64} in K2, K3, K5 and K6; past one block's
+   shared memory, K1's and K4's global layout (weighted too) and K2's,
+   K3's, K5's and K6's device slabs at p = 164-404 and 200-240, each
+   timed; K2 and K5 with row
    masks (all-ones bit-identical to none); K1 with Rt folded into the
    data block, bit-identical to the unfolded launch; K1's bf16_compute in
    the direct form against its twin and through
@@ -125,19 +128,22 @@ non-zero and prints no result line):
    ``demethify_tpu_torch.cli.main`` in all four modes on ``--device cuda``,
    with ``--restart 4`` in the three iterative modes, and with
    ``--confidence 95 8`` under both ``--cimethod`` layouts in all four;
-11. the route by shape, the SVD/ICA inits and model selection, after the
-   CLI: shapes past the kernels' shared-memory plans (partial-reference
-   at p = 200 and purity at p = 180, float64, 20k x 10) through
-   ``solvers.api`` with no kernel launch, held to the CPU
-   (``phase_routed_solves``); ``tall_svd``, NNDSVD, the dual ICA at
-   1M x 10, the primal ICA at 4096 x 10 and the three modes' SVD and ICA
-   inits at 1M x 10, card against CPU in float64, timed in float64 and
-   float32, and the rotation search against a fixed trip with the test
-   on the device (``phase_inits``); ``evaluate_best_ic`` at 1M x 10, 5
+11. the kernels past one block's shared memory on paths, the SVD/ICA
+   inits and model selection, after the CLI: partial-reference at
+   p = 210 and purity at p = 180, 4 restarts of each at p = 209 and the
+   purity weights bootstrap at p = 209 (float64, 20k x 10) through
+   ``solvers.api`` and ``bootstrap_ci``, with launch counts that show K1's
+   and K4's global layout and the glue kernels' device slabs, each held
+   to the plain solver (``phase_past_envelope``); ``tall_svd``, NNDSVD,
+   the dual ICA at 1M x 10, the primal ICA at 4096 x 10 and the three
+   modes' SVD and ICA inits at 1M x 10, card against CPU in float64,
+   timed in float64 and float32 (``phase_inits``); ``evaluate_best_ic``
+   at 1M x 10, 5
    known, float32 (AIC with SVD inits to 25 unknowns, minka, CCC with 5
    restarts and BCV with 5 folds to 6; 100 x 20 a solve, the depth cut)
    with its launches and the solve time per rank, each criterion first
-   held card against CPU at 20k sites in float64 on injected draws
+   held card against CPU at 20k sites in float64 on injected draws (AIC
+   to 25 unknowns, every form the full-width sweep takes)
    (``phase_sweep``); and the CLI with ``--init SVD|ICA`` in the three
    iterative modes and ``--ic AIC|BIC|CCC|BCV|minka`` (``--init SVD
    --icmax 3``), card against ``--device cpu`` (``phase_cli_inits_ic``).
@@ -304,17 +310,24 @@ def counters():
             (k9, "launches", "alpha_phase"),
             (k10, "launches", "fw_phase"),
             (k1, "forms:wide", "u_phase_grams{wide}"),
+            (k1, "forms:global_layout", "u_phase_grams{global}"),
             (k1, "forms:state_cols", "u_phase_grams{n_u>8}"),
             (k1, "forms:bf16c_direct", "u_phase_grams{bf16_compute direct}"),
             (k1, "forms:rt_folded", "u_phase_grams{rt folded}"),
             (k4, "forms:wide", "u_phase_grams_multi{wide}"),
+            (k4, "forms:global_layout", "u_phase_grams_multi{global}"),
             (k4, "forms:state_cols", "u_phase_grams_multi{n_u>8}"),
             (k2, "forms:wide", "alpha_phase_full{p>32}"),
+            (k2, "forms:device_slabs", "alpha_phase_full{device slabs}"),
             (k2, "forms:masked", "alpha_phase_full{masked}"),
             (k3, "forms:wide", "fw_phase_full{p>32}"),
+            (k3, "forms:device_slabs", "fw_phase_full{device slabs}"),
             (k5, "forms:wide", "alpha_phase_full_multi{p>32}"),
+            (k5, "forms:device_slabs",
+             "alpha_phase_full_multi{device slabs}"),
             (k5, "forms:masked", "alpha_phase_full_multi{masked}"),
             (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
+            (k6, "forms:device_slabs", "fw_phase_full_multi{device slabs}"),
             (k1, "launches", "u_phase_grams"),
             (k1, "launches_bf16", "u_phase_grams[bf16]"),
             (k1, "launches_bf16_compute", "u_phase_grams[bf16_compute]"),
@@ -873,7 +886,8 @@ K4_PLAN_SHAPES = ((4, 10, 5, 1, False), (8, 10, 5, 1, False),
                   (4, 10, 0, 3, False), (4, 10, 5, 8, False),
                   (4, 10, 5, 12, True), (4, 100, 25, 4, False),
                   (8, 100, 25, 4, True), (8, 100, 5, 12, False),
-                  (4, 500, 25, 4, False), (8, 37, 7, 3, True))
+                  (4, 500, 25, 4, False), (8, 37, 7, 3, True),
+                  (8, 64, 160, 4, False), (8, 10, 205, 4, True))
 K4_PLAN_MEMBERS = (1, 2, 3, 8, 16, 17, 32)
 # K3's row buckets: p = 3, 6, 12, 29 (buckets 8, 8, 16, 32)
 K3_BUCKET_P = (3, 6, 12, 29)
@@ -882,7 +896,7 @@ K3_BUCKET_P = (3, 6, 12, 29)
 def phase_redesign_k4k3():
     """The redesigned pieces of K4 and K3 (their source notes): K4's
     member plan (``dm_k4_member_plan`` against ``k4_member_plan`` at
-    B = 1-32, n_u 1, 3, 8, 12, both layouts, weighted or not) and its
+    B = 1-32, n_u 1, 3, 8, 12, the three layouts, weighted or not) and its
     Gram stage's items (``dm_k4_gram_plan`` against ``k4_gram_plan``);
     K3's row bucket (``dm_row_bucket`` against ``alpha_plan``) at
     p = 3, 6, 12, 29, each against its twin; K3 at n_s = 100 (blocks of
@@ -905,15 +919,15 @@ def phase_redesign_k4k3():
     g_keys = ("tiled", "ts", "tl", "tq", "tp", "tb", "n_x", "n_self", "n_bu",
               "n_usq", "o_self", "o_bu", "o_usq", "n_items")
     for it, n_s, n_ct, n_u, w in K4_PLAN_SHAPES:
-        for layout in ("resident", "wide"):
+        for code, layout in enumerate(("resident", "wide", "global")):
             for n_b in K4_PLAN_MEMBERS:
                 want = k4_member_plan(it, n_s, n_ct, n_u, n_b, w, layout)
                 out = (ctypes.c_longlong * 3)()
-                lib.dm_k4_member_plan(it, n_s, n_ct, n_u, n_b, int(w),
-                                      int(layout == "wide"), out)
+                lib.dm_k4_member_plan(it, n_s, n_ct, n_u, n_b, int(w), code,
+                                      out)
                 got = dict(zip(("group", "smem", "blocks"),
                                list(out)))
-                n_c = min(32, n_s) if layout == "wide" else n_s
+                n_c = min(32, n_s) if layout != "resident" else n_s
                 gw = k4_gram_plan(n_c, n_ct, n_u, want["group"], True)
                 gout = (ctypes.c_int * 14)()
                 lib.dm_k4_gram_plan(n_c, n_ct, n_u, want["group"], 1, gout)
@@ -1532,7 +1546,8 @@ def phase_k6():
 
 # --------------------------------- phases 5e-5g: the weighted bootstrap's K4-K6
 def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
-              inactive=(), seed=50, timed=False, label="", data=None):
+              inactive=(), seed=50, timed=False, label="", data=None,
+              n=N_CPG, n_s=N_S):
     """K4 with its weights operand (resample multiplicities per member)
     against its twin; inactive members bit-unchanged; all-ones weights
     against the unweighted K4, bit for bit. ``data`` as for ``_k4_case``
@@ -1545,11 +1560,11 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
 
     dtype = getattr(torch, dtype_name)
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
-        N_CPG, N_S, n_ct, n_u, n_b, dtype, seed, inactive)
+        n, n_s, n_ct, n_u, n_b, dtype, seed, inactive)
     if data is not None:
         ydt = ydt.to(getattr(torch, data))
         rtt = None if rtt is None else rtt.to(ydt.dtype)
-    w = resample_weights(n_b, N_CPG, dtype, seed)
+    w = resample_weights(n_b, n, dtype, seed)
     a1 = alpha_b[:, :-n_u] if n_ct else None
     a2 = alpha_b[:, -n_u:]
     uk, sk = uut_b.clone(), scal_b.clone()
@@ -1586,7 +1601,7 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
                    / scale).min())
     same_u = torch.equal(uk, u0)
     tol = TOL[dtype_name]
-    res = {"n": N_CPG, "n_ct": n_ct, "n_u": n_u, "members": n_b,
+    res = {"n": n, "n_ct": n_ct, "n_u": n_u, "members": n_b,
            "inactive": ina, "steps": steps, "lagged": lagged,
            "dtype": dtype_name, "u_max_abs": err_u, "gu_rel": err_g,
            "b_u_rel": err_b, "usq_rel": err_q, "scal_rel": err_s,
@@ -1603,11 +1618,11 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
         res["plain_ms"] = median_ms(lambda: u_phase_grams_multi_plain(
             ydt, rtt, a1, a2, up, sp, steps, lagged, weights=w), reps=3,
             inner=1, warmup=1)
-        n_bytes, flops = u_phase_work(N_CPG, N_S, n_ct, n_u, steps,
+        n_bytes, flops = u_phase_work(n, n_s, n_ct, n_u, steps,
                                       uut_b.element_size(),
                                       ydt.element_size(), n_b, weighted=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K4w]{label} N={N_CPG} n_s={N_S} n_ct={n_ct} n_u={n_u} B={n_b} "
+    log(f"[K4w]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
         f"{dtype_name} state, {str(ydt.dtype)[6:]} data, resample weights: "
         f"active u/u_prev max|diff| "
@@ -2985,11 +3000,12 @@ def _cli_runs(cli_main, root, samples, ref, modes, percent, storage):
 
 
 # ------------------------------------------------------------ phase 11
-# Item 13's route, the SVD/ICA inits and model selection. The routed
-# solves and the card-vs-CPU holds run at ROUTED / SWEEP_HOLD sites; the
-# sweeps at full width run SWEEP_OUTER outer iterations a solve (cut from
-# the CLI's 10000, with tol = 0 so that every solve runs them all).
-ROUTED = 20_000
+# The kernels past one block's shared memory on paths through the API,
+# the SVD/ICA inits and model selection. The past-envelope paths and the
+# card-vs-CPU holds run at ENVELOPE_SITES / SWEEP_HOLD sites; the sweeps
+# at full width run SWEEP_OUTER outer iterations a solve (cut from the
+# CLI's 10000, with tol = 0 so that every solve runs them all).
+ENVELOPE_SITES = 20_000
 SWEEP_HOLD = 20_000
 SWEEP_OUTER = 100
 # card against the port's CPU path, float64: the inits (Gram eigh on
@@ -2999,64 +3015,96 @@ INIT_TOL64 = 1e-6
 # the sweeps held card vs CPU (float64, the same injected draws): the
 # criterion list relative, the chosen alpha absolute
 SWEEP_TOL64 = 1e-8
-# steps of the fixed-trip rotation search that phase_inits times (more
-# than the few rotations these data take, so it ends on the same W)
-FIXED_TRIP = 200
 
 
-def phase_routed_solves(card):
-    """Item 13: shapes past the kernels' shared-memory plans run the plain
-    solvers on the card's tensors through ``solvers.api``, each with the
-    counters at 0 just before and read just after, which must show no
-    kernel launch: partial-reference at p = 200 (190 + 10, the direct
-    form), float64, 20k x 10, 10 x 10, past the glue kernels' slab (K1's
-    wide layout still fits); purity at p = 180 (179 + 1), float64,
-    5 x 100, past the glue's slab. Each held to the same entry point on
-    the CPU (the plain solver) from the same inits: cost trace and alpha
-    at TRAJ_TOL["float64"]."""
+def phase_past_envelope(card):
+    """Shapes past one block's shared memory through ``solvers.api`` and
+    ``bootstrap_ci``, float64, 20k x 10, each run with the counters at 0
+    just before and read just after, which must show the kernels in their
+    device-memory forms and nothing else:
+      - partial-reference, 200 + 10 (p = 210, the direct form, n_u > 8),
+        10 x 10: K1's global layout, K2's device slabs;
+      - purity, 179 + 1 (p = 180), 5 x 100: K1, K3's device slabs;
+      - 4 restarts of partial-reference and of purity, 205 + 4 (p = 209,
+        the gram form), 10 x 10 and 5 x 100: K4's global layout, K5's and
+        K6's device slabs;
+      - the weights bootstrap in the purity mode, B = 4, 205 + 4, 5 x 100:
+        K4 weighted in its global layout, K6's device slabs.
+    Before each solve, the kernel solver it runs against the plain solver
+    on the same data from the same seeded inits (``_envelope_vs_plain``:
+    cost trace and alpha at TRAJ_TOL["float64"], each member for the
+    restarts); the bootstrap held to ``bootstrap_ci`` on the CPU with the
+    same resample draws and inits (CI bounds 1e-8). Returns each run's
+    launches by name."""
     import torch
 
+    from demethify_tpu_torch.ops.cuda_kernels import gram_form, u_phase_layout
     from demethify_tpu_torch.solvers.api import (
-        partial_reference_deconv, purity_deconv, solver_route)
+        partial_reference_deconv, purity_deconv)
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
 
     f64 = torch.float64
+    n = ENVELOPE_SITES
+    pur = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=f64)
     out = {}
-    for tag, n_ct, n_u, with_purity, n1, n2, seed in (
-            ("routed partial-ref p=200", 190, 10, False, 10, 10, 190),
-            ("routed purity p=180", 179, 1, True, 5, 100, 191)):
-        y, d, Rt = _wide_problem(ROUTED, N_S, n_ct, n_u, f64, seed)
-        check(solver_route(y.device, f64, N_S, n_ct, n_u) == "plain",
-              f"{tag}: the plans take this shape")
-        pur = (torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=f64)
-               if with_purity else None)
-        u_b, a_b = _member_inits(
-            ROUTED, 1, n_ct, n_u, seed, n_s=N_S,
-            purity=None if pur is None else pur.cpu().numpy())
-        u0, a0 = (torch.as_tensor(x[0], device=DEV, dtype=f64)
-                  for x in (u_b, a_b))
+    runs = (
+        ("global", 200, 10, None, 1, 10, 10, "alpha_phase_full"),
+        ("device slabs purity", 179, 1, pur, 1, 5, 100, "fw_phase_full"),
+        ("global restarts", 205, 4, None, 4, 10, 10,
+         "alpha_phase_full_multi"),
+        ("global purity restarts", 205, 4, pur, 4, 5, 100,
+         "fw_phase_full_multi"))
+    for k, (tag, n_ct, n_u, pu, r, n1, n2, glue) in enumerate(runs):
+        y, d, Rt = _wide_problem(n, N_S, n_ct, n_u, f64, seed=190 + k)
+        _envelope_vs_plain(tag, r, y, d, Rt, n_u, pu, n1, n2, 190 + k)
+        kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True,
+                  seed=20 + k, n_restarts=r)
 
-        def call(dev):
-            t = [x.to(dev) for x in (y, d, Rt, u0, a0)]
-            kw = dict(n_iter1=n1, n_iter2=n2, tol=0.0, record_trace=True,
-                      init_provided=(t[3], t[4]))
-            if pur is None:
-                return partial_reference_deconv(*t[:3], n_u, **kw)
-            return purity_deconv(*t[:3], n_u, pur.to(dev), **kw)
+        def call():
+            if pu is None:
+                return partial_reference_deconv(y, d, Rt, n_u, **kw)
+            return purity_deconv(y, d, Rt, n_u, pu, **kw)
 
-        res, _, out[tag] = _drive(
-            tag, f"{ROUTED} x {N_S}, {n_ct}+{n_u}, float64, {n1}x{n2}, "
-            f"card {card}", lambda: call(DEV), n1, n_sites=ROUTED)
-        check(expect_counts(out[tag]), f"{tag}: kernels launched")
-        ref = call("cpu")
-        tk, tp = (r.trace.double().cpu().numpy() for r in (res, ref))
-        err_c = float(np.max(np.abs(tk - tp) / np.abs(tp)))
-        err_a = float((res.proportions.cpu() - ref.proportions).abs().max())
-        log(f"[routed] {tag}: card vs the plain solver on the CPU, cost "
-            f"trace max rel diff {err_c:.3e}, alpha max|diff| {err_a:.3e} "
-            f"(tol {TRAJ_TOL['float64']['cost']:.0e})")
-        check(ref.n_iter == n1 and err_c <= TRAJ_TOL["float64"]["cost"]
-              and err_a <= TRAJ_TOL["float64"]["alpha"],
-              f"{tag}: card and CPU differ")
+        _, _, out[tag] = _drive(
+            tag, f"{n} x {N_S}, {n_ct}+{n_u} (p = {n_ct + n_u}), float64, "
+            f"{r} restart(s), {n1}x{n2}, card {card}", call, n1, n_sites=n)
+        k1 = "u_phase_grams_multi" if r > 1 else "u_phase_grams"
+        want = {k1: n1, glue: n1, f"{glue}{{p>32}}": n1,
+                f"{glue}{{device slabs}}": n1}
+        layout = u_phase_layout("K1", 8, N_S, n_ct, n_u,
+                                not gram_form(n_u, N_S))[0]
+        if layout != "resident":
+            want[f"{k1}{{{layout}}}"] = n1
+        if n_u > 8:
+            want[f"{k1}{{n_u>8}}"] = n1
+        check(expect_counts(out[tag], **want),
+              f"{tag} launches {out[tag]}, want {want}")
+
+    n_ct, n_u, n_b, n1, n2 = 205, 4, 4, 5, 100
+    y, d, Rt = _wide_problem(n, N_S, n_ct, n_u, f64, seed=195)
+    rng = np.random.default_rng(195)
+    indices = rng.integers(0, n, size=(n_b, n))
+    u_b, a_b = _member_inits(n, n_b, n_ct, n_u, seed=195,
+                             purity=pur.cpu().numpy())
+    kw = dict(level=90, n_bootstrap=n_b, n_iter1=n1, n_iter2=n2, tol=0.0,
+              method="weights", indices=indices,
+              inits=list(zip(u_b, a_b)))
+    reset_counts()
+    got = bootstrap_ci(y, d, Rt, n_u, purity=pur, **kw)
+    out["global bootstrap"] = read_counts()
+    want = bootstrap_ci(y.cpu(), d.cpu(), Rt.cpu(), n_u, purity=pur.cpu(),
+                        **kw)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    log(f"[past envelope] weights bootstrap, purity, B={n_b} {n1}x{n2} "
+        f"float64 {n} x {N_S}, {n_ct}+{n_u}: card vs CPU with the same "
+        f"draws and inits, CI bounds max|diff| {err:.3e} (tol 1e-8); "
+        f"launches {out['global bootstrap']}")
+    check(err <= 1e-8, "past-envelope bootstrap: card vs CPU")
+    check(expect_counts(out["global bootstrap"], **{
+        "u_phase_grams_multi": n1, "u_phase_grams_multi{global}": n1,
+        "fw_phase_full_multi": n1, "fw_phase_full_multi{p>32}": n1,
+        "fw_phase_full_multi{device slabs}": n1}),
+        f"past-envelope bootstrap launches {out['global bootstrap']}")
     return out
 
 
@@ -3065,30 +3113,6 @@ def _rel(a, b):
     a = a.double().cpu()
     b = b.double().cpu()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
-
-
-def _rotation_search_fixed(Z, t_tol, i_max):
-    """The rotation search as a fixed trip of ``i_max`` steps with the
-    stopping test kept on the device (no host read): a step whose torque
-    is below ``t_tol`` rotates by a zero angle. Timed against
-    ``nnica._rotation_search`` (a host read a step, and a stop)."""
-    import torch
-
-    from demethify_tpu_torch.ops import nnica
-
-    n = Z.shape[0]
-    W = torch.eye(n, dtype=Z.dtype, device=Z.device)
-    Y = Z.clone()
-    zero = torch.zeros((), dtype=Z.dtype, device=Z.device)
-    for _ in range(i_max):
-        t_max, flat = nnica.torque(Y)
-        idx = torch.stack([flat // n, flat % n])
-        yi, yj = Y.index_select(0, idx)
-        wi, wj = W.index_select(0, idx)
-        phi = torch.where(t_max >= t_tol, nnica._best_angle(yi, yj), zero)
-        Y.index_copy_(0, idx, torch.stack(nnica._rotate_rows(phi, yi, yj)))
-        W.index_copy_(0, idx, torch.stack(nnica._rotate_rows(phi, wi, wj)))
-    return W
 
 
 def phase_inits(card):
@@ -3101,11 +3125,9 @@ def phase_inits(card):
     ``tall_svd``, NNDSVD (rank 6) and the dual ICA (rank 3) at 1M x 10,
     the primal ICA (rank 3) at 4096 x 10, and the three modes' SVD and
     ICA inits at 1M x 10 with 5 known types (1 unknown; unsupervised 3).
-    The rotation search is timed as shipped (a host read a step, and a
-    stop) against a fixed trip with the test on the device
-    (``_rotation_search_fixed``, FIXED_TRIP steps), on the dual's and
-    the primal's whitened rows, both giving the same rotation; and the
-    inits' known-block NNLS alone. Returns the timings (ms)."""
+    The rotation search alone (a host read a step, and a stop) on the
+    dual's and the primal's whitened rows, and the inits' known-block
+    NNLS alone. Returns the timings (ms)."""
     import torch
 
     from demethify_tpu_torch.ops import nnica, nndsvd, tall_svd
@@ -3159,15 +3181,9 @@ def phase_inits(card):
     B = tall_svd.tall_svd(y)[0]
     for tag, Z in (("dual 10 x 10", nnica.whiten(B.T @ y)),
                    ("primal 4096 x 10", nnica.whiten(small))):
-        W, ms = timed_ms(lambda: nnica._rotation_search(Z, 0.1, 1000))
-        W_fix, ms_fix = timed_ms(lambda: _rotation_search_fixed(
-            Z, 0.1, FIXED_TRIP))
-        log(f"[inits] rotation search, {tag}: as shipped {ms:.3f} ms, "
-            f"fixed trip of {FIXED_TRIP} steps with the test on the device "
-            f"{ms_fix:.3f} ms (i_max is 1000: {1000 // FIXED_TRIP}x that); "
-            f"rotations equal: {bool(torch.equal(W, W_fix))}")
-        check(bool(torch.equal(W, W_fix)), f"{tag}: the two searches differ")
-        times[f"rotation search {tag}"] = (ms, ms_fix)
+        _, ms = timed_ms(lambda: nnica._rotation_search(Z, 0.1, 1000))
+        log(f"[inits] rotation search, {tag}: {ms:.3f} ms (CUDA events)")
+        times[f"rotation search {tag}"] = ms
     return times
 
 
@@ -3237,7 +3253,7 @@ def phase_sweep(problem32, card):
     f64 = torch.float64
     y, d, Rt = _wide_problem(SWEEP_HOLD, N_S, N_CT, N_U, f64, seed=210)
     inits, masks = _sweep_draws(SWEEP_HOLD, N_CT, N_S, 211)
-    for ic, init, n_max in (("AIC", "SVD", 12), ("minka", "SVD", 0),
+    for ic, init, n_max in (("AIC", "SVD", 25), ("minka", "SVD", 0),
                             ("CCC", "uniform_", 6), ("BCV", "uniform_", 6)):
         kw = dict(iter1=30, iter2=10, tol=0.0, n_restarts=3, n_u_max=n_max,
                   inits=inits, masks=masks)
@@ -3265,7 +3281,8 @@ def phase_sweep(problem32, card):
             res, ms = timed_ms(lambda: evaluate_best_ic(
                 y, d, Rt, init, ic, iter1=SWEEP_OUTER, iter2=N_INNER,
                 tol=0.0, n_restarts=5, n_u_max=n_max, seed=3))
-        launches = {k: v for k, v in read_counts().items() if v}
+        counts = read_counts()
+        launches = {k: v for k, v in counts.items() if v}
         u, alpha, n_u, lst = res
         check(u.shape == (N_CPG, n_u) and alpha.shape == (N_CT + n_u, N_S)
               and bool(torch.isfinite(alpha).all())
@@ -3282,8 +3299,14 @@ def phase_sweep(problem32, card):
         else:
             want = dict(u_phase_grams=n_solves * SWEEP_OUTER,
                         alpha_phase_full=n_solves * SWEEP_OUTER)
-        check(all(launches.get(k, 0) == v for k, v in want.items()),
-              f"{ic} sweep launches {launches}, want {want}")
+        # ranks above 8 keep their state in scratch columns: AIC's 9-25,
+        # and minka's one solve if it chose such a rank
+        if ic == "AIC":
+            want["u_phase_grams{n_u>8}"] = (n_max - 8) * SWEEP_OUTER
+        elif ic == "minka" and n_u > 8:
+            want["u_phase_grams{n_u>8}"] = SWEEP_OUTER
+        check(expect_counts(counts, **want),
+              f"{ic} sweep launches {launches}, want {want} and no other")
         per_rank = ", ".join(f"{r}: {t:.1f}" for r, t in sorted(
             times.items()))
         log(f"[sweep] {ic} --init {init} at 1M x {N_S}, {N_CT} known, "
@@ -3459,10 +3482,17 @@ COHORT = (1_000_000, 100, 25, 4)
 def phase_layouts():
     """Each kernel's shared-memory plan in Python against the ``*_smem``
     exports of its sources (``cuda_kernels.u_phase_smem``,
-    ``cuda_small.glue_smem``), over a grid of shapes in both layouts."""
+    ``cuda_small.glue_smem``), over a grid of shapes in the three layouts;
+    the device-memory sizes past the shared memory (K1's and K4's global
+    rows, ``cuda_kernels.global_rows`` and ``cuda_multi.k4_global_rows``;
+    the glue kernels' device slabs, ``cuda_small.glue_work``) against
+    their exports."""
     from demethify_tpu_torch.ops import _build
-    from demethify_tpu_torch.ops.cuda_kernels import SMEM_LIMIT, u_phase_smem
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        SMEM_LIMIT, global_rows, u_phase_smem)
+    from demethify_tpu_torch.ops.cuda_multi import k4_global_rows
     from demethify_tpu_torch.ops.cuda_small import glue_smem
+    from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
 
     lib = _build.load().lib
     bad, n_checked = [], 0
@@ -3471,8 +3501,9 @@ def phase_layouts():
                     256, 500, 512):
             for n_ct, n_u in ((0, 1), (0, 3), (5, 1), (5, 2), (25, 4),
                               (25, 9), (25, 16), (60, 4)):
-                for layout in ("resident", "wide"):
-                    sfx = "" if layout == "resident" else "_wide"
+                for layout in ("resident", "wide", "global"):
+                    sfx = {"resident": "", "wide": "_wide",
+                           "global": "_global"}[layout]
                     k1 = getattr(lib, f"dm_u_phase_grams{sfx}_smem")
                     k4 = getattr(lib, f"dm_u_phase_grams_multi{sfx}_smem")
                     for direct in (False, True):
@@ -3493,13 +3524,33 @@ def phase_layouts():
                         if want != got:
                             bad.append(("K4", layout, itemsize, n_s, n_ct,
                                         n_u, weighted))
-        for p in (1, 6, 32, 33, 40, 64, 100, 170, 200):
+                for direct in (False, True):
+                    for bf16c in (False, True):
+                        n_checked += 1
+                        if (lib.dm_u_phase_grams_global_rows(
+                                n_ct, n_u, int(direct), int(bf16c))
+                                != global_rows(n_ct, n_u, direct, bf16c)):
+                            bad.append(("K1 rows", n_ct, n_u, direct, bf16c))
+                for weighted in (False, True):
+                    for group in (1, 3, 8):
+                        n_checked += 1
+                        if (lib.dm_k4_global_rows(n_ct, n_u, int(weighted),
+                                                  group)
+                                != k4_global_rows(n_ct, n_u, weighted,
+                                                  group)):
+                            bad.append(("K4 rows", n_ct, n_u, weighted,
+                                        group))
+        for p in (1, 6, 32, 33, 40, 64, 100, 167, 168, 170, 200, 237, 238,
+                  300):
             for n_s in (1, 10, 100):
                 n_warps, smem = glue_smem(itemsize, p, n_s)
                 want = lib.dm_glue_smem(itemsize, p, n_s)
-                n_checked += 1
+                n_checked += 2
                 if want != smem:
                     bad.append(("glue", itemsize, p, n_s, want, smem))
+                work = lib.dm_glue_work(itemsize, p, n_s)
+                if work != work_elems(itemsize, p, n_s):
+                    bad.append(("glue work", itemsize, p, n_s, work))
     log(f"[layouts] {n_checked} shared-memory plans: Python against the "
         f"kernels' *_smem exports, {len(bad)} differ {bad[:5]}; the card's "
         f"limit {SMEM_LIMIT} bytes")
@@ -3508,9 +3559,9 @@ def phase_layouts():
 
 @contextlib.contextmanager
 def forced_layout(layout):
-    """K1 and K4 launch in ``layout`` ("resident" or "wide") inside the
-    block, whatever ``cuda_kernels.u_phase_layout`` would plan (the shape
-    must fit that layout's shared memory)."""
+    """K1 and K4 launch in ``layout`` ("resident", "wide" or "global")
+    inside the block, whatever ``cuda_kernels.u_phase_layout`` would plan
+    (the shape must fit that layout's shared memory)."""
     from demethify_tpu_torch.ops import cuda_kernels
 
     plan = cuda_kernels.u_phase_layout
@@ -3528,9 +3579,11 @@ def forced_layout(layout):
 
 
 def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
-                 steps=N_INNER):
-    """K1 (n_b = 0) or K4 (n_b members) in the resident layout and in the
-    wide layout forced, at a shape both take: the same bits?"""
+                 steps=N_INNER, layouts=("resident", "wide"), bf16c=False,
+                 weighted=False):
+    """K1 (n_b = 0) or K4 (n_b members) in each of two ``layouts`` forced,
+    at a shape both take: the same bits? ``bf16c`` runs K1's bf16_compute
+    form (bf16 data), ``weighted`` K4 with resample weights."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
@@ -3549,17 +3602,23 @@ def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
         fn = u_phase_grams
     if data is not None:
         ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
+    kw = {"bf16_compute": True} if bf16c else {}
+    if weighted:
+        kw["weights"] = resample_weights(n_b, n, dtype, seed)
     outs = []
-    for layout in ("resident", "wide"):
+    for layout in layouts:
         u, sc = uut.clone(), scal.clone()
         with forced_layout(layout):
-            outs.append((u, sc, *fn(ydt, rtt, a1, a2, u, sc, steps)))
+            outs.append((u, sc, *fn(ydt, rtt, a1, a2, u, sc, steps, **kw)))
     same = all(torch.equal(x, y) for x, y in zip(*outs))
+    form = (", bf16_compute" if bf16c else "") + (
+        ", weighted" if weighted else "")
     log(f"[layouts] {'K4 B=' + str(n_b) if n_b else 'K1'} N={n} n_s={n_s} "
         f"n_ct={n_ct} n_u={n_u} {dtype_name} state, "
-        f"{str(ydt.dtype)[6:]} data: wide layout forced bit-identical to "
-        f"the resident layout: {same}")
-    check(same, "the wide layout differs from the resident layout")
+        f"{str(ydt.dtype)[6:]} data{form}: {layouts[1]} layout forced "
+        f"bit-identical to the {layouts[0]} layout: {same}")
+    check(same, f"the {layouts[1]} layout differs from the {layouts[0]} "
+                f"layout")
     return same
 
 
@@ -3721,6 +3780,55 @@ def phase_wide_glue():
         _k2_case(33, dt, n_u=4, seed=115, n_s=100)
         _k3_case(28, dt, seed=116, n_s=100)
     return timed
+
+
+def phase_global_kernels():
+    """The kernels' device-memory forms past one block's shared memory
+    against their twins, float64 unless stated: K1's global layout (gram
+    form 160 + 4 at n_s = 64; direct form with the state in scratch
+    columns, 200 + 12 at n_s = 10; float32 400 + 4 at n_s = 64, also on
+    bf16 data); K4's
+    (B = 10, two member groups, 160 + 4 at n_s = 64; weighted B = 4,
+    205 + 4 at n_s = 10); K2, K3, K5 and K6 with their slabs in device
+    memory at p = 200 (K2 also at n_s = 100 and in float32 at p = 240).
+    Each at 200k sites. Then the global layout forced at shapes the
+    shared layouts take, bit-identical to them: K1 at the main path's
+    shape (1M x 10, 5 + 1, float32), in the direct form with n_u = 12,
+    on bf16 data with bf16_compute (n_s = 64, 25 + 4, whose raw u rows
+    the global buffer holds too); K4 with B = 10 (two member groups) and
+    weighted with B = 4. Returns the timed cases (the JSON rows of these
+    forms)."""
+    _layout_bits(N_CPG, N_S, N_CT, N_U, "float32", seed=412,
+                 layouts=("resident", "global"))
+    _layout_bits(N_WIDE, N_S, 5, 12, "float64", seed=413,
+                 layouts=("resident", "global"))
+    _layout_bits(N_WIDE, 64, 25, 4, "float32", data="bfloat16", seed=414,
+                 layouts=("wide", "global"), bf16c=True)
+    _layout_bits(N_WIDE, N_S, N_CT, N_U, "float64", n_b=10, seed=415,
+                 layouts=("resident", "global"))
+    _layout_bits(N_WIDE, N_S, N_CT, N_U, "float32", n_b=4, seed=416,
+                 layouts=("resident", "global"), weighted=True)
+    out = {}
+    out["k1"] = _k1_case(N_WIDE, 4, "float64", n_s=64, n_ct=160, seed=400,
+                         timed=True, inner=1, reps=3, label="[global]")
+    _k1_case(N_WIDE, 12, "float64", n_s=N_S, n_ct=200, seed=401,
+             label="[global direct]")
+    _k1_case(N_WIDE, 4, "float32", n_s=64, n_ct=400, seed=402,
+             label="[global]")
+    _k1_case(N_WIDE, 4, "float32", n_s=64, n_ct=400, seed=403,
+             data="bfloat16", label="[global]")
+    out["k4"] = _k4_case(4, "float64", 10, N_INNER, n_ct=160, inactive=(1,),
+                         seed=404, timed=True, label="[global]", n=N_WIDE,
+                         n_s=64, quick=True)
+    out["k4w"] = _k4w_case(4, "float64", 4, N_INNER, n_ct=205, inactive=(2,),
+                           seed=405, timed=True, label="[global]", n=N_WIDE)
+    out["k2"] = _k2_case(196, "float64", n_u=4, seed=406, timed=True)
+    _k2_case(196, "float64", n_u=4, seed=407, n_s=100)
+    _k2_case(236, "float32", n_u=4, seed=408)
+    out["k3"] = _k3_case(199, "float64", seed=409, timed=True)
+    out["k5"] = _k5_case(196, 4, "float64", 8, (3,), seed=410, timed=True)
+    out["k6"] = _k6_case("float64", n_ct=199, seed=411, timed=True)
+    return out
 
 
 def phase_masks():
@@ -5566,6 +5674,64 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             "folded)", err=folded["max_abs_err"])]
 
 
+def _global_rows(glob, past):
+    """The kernels JSON line's rows of the device-memory forms past one
+    block's shared memory: launches from ``phase_past_envelope``'s runs,
+    times and bounds from ``phase_global_kernels``' cases."""
+    src = "demethify_tpu_torch/csrc/"
+    k1_at = "demethify_tpu/ops/pallas_kernels.py:218"
+    k4_at = "demethify_tpu/ops/pallas_kernels.py:828"
+
+    def row(name, source, replaces, case, launches, path):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": case.get("alpha_max_abs",
+                                        case.get("u_max_abs")),
+                "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "library_ms": None, "path": path}
+
+    k3_b = bound(*glue_work(200, N_S, 199, P_INNER, 8, fw=True), "float64")
+    k3 = dict(glob["k3"], bound_ms=k3_b[0], bound_by=k3_b[1])
+    return [
+        row("u_phase_grams{global}", "u_phase_grams_global.cu",
+            k1_at + " (any p, via :499)", glob["k1"],
+            past["global"]["u_phase_grams{global}"],
+            "partial-ref 20k x 10, 200+10, float64, 10x10 (times: 200k x "
+            "64, 160+4)"),
+        row("u_phase_grams_multi{global}", "u_phase_grams_multi_global.cu",
+            k4_at + " (any p, via :1123)", glob["k4"],
+            past["global restarts"]["u_phase_grams_multi{global}"],
+            "4 restarts 20k x 10, 205+4, float64, 10x10 (times: 200k x 64, "
+            "160+4, B=10)"),
+        row("u_phase_grams_multi[weights]{global}",
+            "u_phase_grams_multi_global.cu",
+            k4_at + " (weights operand, any p, via :1123)", glob["k4w"],
+            past["global bootstrap"]["u_phase_grams_multi{global}"],
+            "purity weights bootstrap 20k x 10, 205+4, B=4, float64, 5x100 "
+            "(times: 200k x 10, B=4)"),
+        row("alpha_phase_full{device slabs}", "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
+            glob["k2"], past["global"]["alpha_phase_full{device slabs}"],
+            "partial-ref 20k x 10, 200+10, float64 (times: p=200)"),
+        row("fw_phase_full{device slabs}", "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)", k3,
+            past["device slabs purity"]["fw_phase_full{device slabs}"],
+            "purity 20k x 10, 179+1, float64, 5x100 (times: p=200)"),
+        row("alpha_phase_full_multi{device slabs}", "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:388 (any p, via :485)",
+            glob["k5"],
+            past["global restarts"]["alpha_phase_full_multi{device slabs}"],
+            "4 restarts 20k x 10, 205+4, float64 (times: p=200, B=8)"),
+        row("fw_phase_full_multi{device slabs}", "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:571 (any p, via :592)",
+            glob["k6"],
+            past["global purity restarts"][
+                "fw_phase_full_multi{device slabs}"],
+            "4 purity restarts 20k x 10, 205+4, float64 (times: p=200, "
+            "B=8)")]
+
+
 # what the kernels line says of the kernels this round redesigned
 K3_REDESIGN = ("row bucket P >= p; step sizes from a table; a warp per "
                "column over several blocks past 16 columns")
@@ -5654,6 +5820,7 @@ def main():
     partial = phase_partial_buffer()
     k1_state, k4_state = phase_state_cols()
     glue = phase_wide_glue()
+    glob = phase_global_kernels()
     masks = phase_masks()
     folded = phase_rt_folded()
     k1_bf16c_direct = phase_bf16c_direct(card)
@@ -5677,7 +5844,7 @@ def main():
     cohort = phase_cohort(card)
     single = phase_single_phase_kernels(card, main_ms)
     phase_cli()
-    phase_routed_solves(card)
+    past = phase_past_envelope(card)
     phase_inits(card)
     phase_sweep(problem32, card)
     phase_cli_inits_ic()
@@ -5831,6 +5998,7 @@ def main():
     kernels["kernels"].extend(_envelope_rows(
         wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
         mask_paths, env))
+    kernels["kernels"].extend(_global_rows(glob, past))
     kernels["kernels"].extend(_single_phase_rows(single))
     log(f"[done] K1's partial buffer at 1M x 500, 25+4, float64: "
         f"{partial['partial_bytes'] / 1e9:.3f} GB, "

@@ -61,8 +61,13 @@
 // q takes rows q, q + 32, ..., the ranks are counted the same way and
 // lane 0 takes the cumulative sum and rho in rank order, so a step is the
 // register form's arithmetic in the same order; the block has as many
-// warps as slabs fit (small_common.cuh), and past one slab (p ~ 170 in
-// float64) the wrapper raises. A member's columns stay inside its own
+// warps as slabs fit (small_common.cuh). Past one slab (p ~ 170 in
+// float64, ~240 in float32) the slabs live in device memory instead, one
+// per warp of a work buffer the wrapper allocates (min(n_s, 32) warps a
+// member; GSLAB): the same code on other addresses, so the same bits as
+// the shared slabs would give; each step then reads the column's G_s
+// through L1 and L2 (at p = 200 in float64 a slab is 320 KB, and n_s of
+// them sit in the 50 MB L2). A member's columns stay inside its own
 // blocks, so a K5 launch takes about K2's time whatever B is (the TPU
 // kernel folds the members into its column axis for the same reason);
 // each member's arithmetic is K2's, bit for bit.
@@ -209,16 +214,19 @@ alpha_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
 }
 
 // The wide form (p > 32): one block per member, each warp's column in its
-// slab of shared memory, warps looping over the columns; the cost summed
-// per warp, then over the warps in order (block_cost).
-template <typename T, bool MULTI>
+// slab of shared memory (GSLAB: of the device buffer gslab, warp w of
+// member block b at slab b * n_warps + w), warps looping over the
+// columns; the cost summed per warp, then over the warps in order
+// (block_cost).
+template <typename T, bool MULTI, bool GSLAB>
 __global__ void alpha_phase_wide_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ usq, const T* __restrict__ ydy,
         T* __restrict__ alpha, T* __restrict__ alpha_prev,
-        T* __restrict__ scal, const T* __restrict__ mask, int n_s, int n_ct,
-        int n_u, int n_steps, dm::MemberStrides st) {
+        T* __restrict__ scal, const T* __restrict__ mask,
+        T* __restrict__ gslab, int n_s, int n_ct, int n_u, int n_steps,
+        dm::MemberStrides st) {
     const Member<T> m = member<T, MULTI>(blockIdx.x, gtt, bt, gu, bu, usq,
                                           ydy, alpha, alpha_prev, scal, mask,
                                           st);
@@ -235,8 +243,7 @@ __global__ void alpha_phase_wide_kernel(
     const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
+    T* sg = dm::warp_slab<T, GSLAB>(gslab, warp, n_warps, p);
     T* sb = sg + p * p;
     T* sal = sb + p;
     T* sap = sal + p;
@@ -294,21 +301,19 @@ int launch_reg(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool MULTI>
-int launch_wide(const void* gtt, const void* bt, const void* gu,
-                const void* bu, const void* usq, const void* ydy,
-                void* alpha, void* alpha_prev, void* scal, const void* mask,
-                int n_s, int n_ct, int n_u, int n_steps, int n_members,
-                dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = alpha_phase_wide_kernel<T, MULTI>;
-    const int p = n_ct + n_u;
+template <typename T, bool MULTI, bool GSLAB>
+int launch_wide_as(const void* gtt, const void* bt, const void* gu,
+                   const void* bu, const void* usq, const void* ydy,
+                   void* alpha, void* alpha_prev, void* scal,
+                   const void* mask, void* gslab, int n_s, int n_ct, int n_u,
+                   int n_steps, int n_members, dm::MemberStrides st,
+                   cudaStream_t stream) {
+    auto kern = alpha_phase_wide_kernel<T, MULTI, GSLAB>;
     static const int max_warps = dm::max_block_warps(kern);
-    int n_warps = n_s < 32 ? n_s : 32;
-    n_warps = n_warps < max_warps ? n_warps : max_warps;
-    const int fit = dm::glue_warps(sizeof(T), p, n_s);
-    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-    n_warps = fit < n_warps ? fit : n_warps;
-    const size_t smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
+    size_t smem = 0;
+    const int n_warps = dm::wide_warps<GSLAB>(sizeof(T), n_ct + n_u, n_s,
+                                              max_warps, smem);
+    if (n_warps < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -320,9 +325,27 @@ int launch_wide(const void* gtt, const void* bt, const void* gu,
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(usq), static_cast<const T*>(ydy),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
-        static_cast<T*>(scal), static_cast<const T*>(mask), n_s, n_ct, n_u,
-        n_steps, st);
+        static_cast<T*>(scal), static_cast<const T*>(mask),
+        static_cast<T*>(gslab), n_s, n_ct, n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
+}
+
+// the wide form's slabs in shared memory where one fits, else in the
+// device buffer `work` (min(n_s, 32) slabs a member)
+template <typename T, bool MULTI>
+int launch_wide(const void* gtt, const void* bt, const void* gu,
+                const void* bu, const void* usq, const void* ydy,
+                void* alpha, void* alpha_prev, void* scal, const void* mask,
+                void* work, int n_s, int n_ct, int n_u, int n_steps,
+                int n_members, dm::MemberStrides st, cudaStream_t stream) {
+    if (dm::glue_warps(sizeof(T), n_ct + n_u, n_s) >= 1)
+        return launch_wide_as<T, MULTI, false>(
+            gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal, mask,
+            nullptr, n_s, n_ct, n_u, n_steps, n_members, st, stream);
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide_as<T, MULTI, true>(
+        gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal, mask, work, n_s,
+        n_ct, n_u, n_steps, n_members, st, stream);
 }
 
 // p > 32: the wide form; else the register form at row bucket `bucket`
@@ -337,8 +360,8 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
     const int p = n_ct + n_u;
     if (p > kMaxP)
         return launch_wide<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                     alpha_prev, scal, mask, n_s, n_ct, n_u,
-                                     n_steps, n_members, st, s);
+                                     alpha_prev, scal, mask, colsum, n_s,
+                                     n_ct, n_u, n_steps, n_members, st, s);
     if (p > bucket || colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
 #define DM_K2_BUCKET(P)                                                      \
@@ -360,9 +383,11 @@ extern "C" {
 
 // mask: the (p,) row mask (rows <= 0 pushed to -1e30 before each
 // projection) or NULL; colsum (3, n_s) and tickets (1, zero) the register
-// form's per-column cost terms and finished-block count (unread above
-// p = 32); bucket and cols the register form's plan
-// (ops/cuda_small.alpha_plan)
+// form's per-column cost terms and finished-block count; above p = 32
+// tickets is unread and colsum is the wide form's work buffer: unread
+// where one slab fits shared memory (NULL), else min(n_s, 32) slabs of
+// p x p + 6 p values per member (dm_glue_work); bucket and cols the
+// register form's plan (ops/cuda_small.alpha_plan)
 #define DM_K2_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* usq, const void* ydy, void* alpha,  \
@@ -380,7 +405,8 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 // K5: B members, member b's operands at b times the given element strides
 // (gtt, bt, ydy: 0 when the members share them); scal_stride is the
 // scalar row length; mask: the members' (B, p) row masks (row stride
-// mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's.
+// mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's
+// (above p = 32, colsum the work buffer of B members).
 #define DM_K5_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
@@ -402,16 +428,26 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f32, float)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f64, double)
 
-// The wide form's dynamic shared memory at p rows and n_s columns, in
-// bytes (0 in the register form, p <= 32); above the card's limit when
-// one warp's slab does not fit (the wrapper raises). Shared with K3/K6.
 // The register form's row bucket at p rows (K2, K3, K5, K6, K10)
 int dm_row_bucket(int p) { return dm::row_bucket(p); }
 
+// The wide form's dynamic shared memory at p rows and n_s columns, in
+// bytes (0 in the register form, p <= 32); above the card's limit when
+// one warp's slab does not fit, where K2, K3, K5 and K6 keep their slabs
+// in device memory instead (and K9, K10 refuse the shape).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     const int w = dm::glue_warps(itemsize, p, n_s);
     return (w < 1 ? 1 : w) * dm::glue_warp_elems(p) * itemsize;
+}
+
+// Elements of the work buffer K2, K3, K5 and K6 need per member at p rows
+// and n_s columns: 0 where the wide form's slabs fit shared memory (or
+// p <= 32, where the register form's colsum is 3 n_s), else min(n_s, 32)
+// slabs in device memory.
+long long dm_glue_work(int itemsize, int p, int n_s) {
+    if (p <= kMaxP || dm::glue_warps(itemsize, p, n_s) >= 1) return 0;
+    return (n_s < 32 ? n_s : 32) * dm::glue_warp_elems(p);
 }
 
 }  // extern "C"

@@ -59,7 +59,8 @@
 // index holding it. The block has as many warps as slabs fit
 // (small_common.cuh), warps loop over the columns, and the cost sums per
 // warp then over the warps (block_cost); past one slab (p ~ 170 in
-// float64) the wrapper raises. A member's columns stay inside its own
+// float64) the slabs live in device memory, as K2's (GSLAB, the same
+// code on other addresses). A member's columns stay inside its own
 // blocks, so a K6 launch takes about K3's time whatever B is, and each
 // member's arithmetic is K3's, bit for bit.
 //
@@ -164,15 +165,17 @@ fw_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
 }
 
 // The wide form (p > 32): one block per member, each warp's column in its
-// slab of shared memory, warps looping over the columns; the cost summed
-// per warp, then over the warps in order (block_cost).
-template <typename T, bool MULTI>
+// slab of shared memory (GSLAB: of the device buffer gslab, as K2's),
+// warps looping over the columns; the cost summed per warp, then over
+// the warps in order (block_cost).
+template <typename T, bool MULTI, bool GSLAB>
 __global__ void fw_phase_wide_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ ydy, T* __restrict__ alpha,
-        const T* __restrict__ purity, T* __restrict__ scal, int n_s,
-        int n_ct, int n_u, int n_steps, dm::MemberStrides st) {
+        const T* __restrict__ purity, T* __restrict__ scal,
+        T* __restrict__ gslab, int n_s, int n_ct, int n_u, int n_steps,
+        dm::MemberStrides st) {
     const Member<T> m = member<T, MULTI>(blockIdx.x, gtt, bt, gu, bu, ydy,
                                           alpha, scal, st);
     if constexpr (MULTI) {
@@ -185,8 +188,7 @@ __global__ void fw_phase_wide_kernel(
     const T dmax2 = m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
+    T* sg = dm::warp_slab<T, GSLAB>(gslab, warp, n_warps, p);
     T* sb = sg + p * p;
     T* sal = sb + p;
     T* sgr = sal + p;
@@ -233,21 +235,18 @@ int launch_reg(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool MULTI>
-int launch_wide(const void* gtt, const void* bt, const void* gu,
-                const void* bu, const void* ydy, void* alpha,
-                const void* purity, void* scal, int n_s, int n_ct, int n_u,
-                int n_steps, int n_members, dm::MemberStrides st,
-                cudaStream_t stream) {
-    auto kern = fw_phase_wide_kernel<T, MULTI>;
-    const int p = n_ct + n_u;
+template <typename T, bool MULTI, bool GSLAB>
+int launch_wide_as(const void* gtt, const void* bt, const void* gu,
+                   const void* bu, const void* ydy, void* alpha,
+                   const void* purity, void* scal, void* gslab, int n_s,
+                   int n_ct, int n_u, int n_steps, int n_members,
+                   dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = fw_phase_wide_kernel<T, MULTI, GSLAB>;
     static const int max_warps = dm::max_block_warps(kern);
-    int n_warps = n_s < 32 ? n_s : 32;
-    n_warps = n_warps < max_warps ? n_warps : max_warps;
-    const int fit = dm::glue_warps(sizeof(T), p, n_s);
-    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-    n_warps = fit < n_warps ? fit : n_warps;
-    const size_t smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
+    size_t smem = 0;
+    const int n_warps = dm::wide_warps<GSLAB>(sizeof(T), n_ct + n_u, n_s,
+                                              max_warps, smem);
+    if (n_warps < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -258,9 +257,27 @@ int launch_wide(const void* gtt, const void* bt, const void* gu,
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(ydy), static_cast<T*>(alpha),
-        static_cast<const T*>(purity), static_cast<T*>(scal), n_s, n_ct, n_u,
-        n_steps, st);
+        static_cast<const T*>(purity), static_cast<T*>(scal),
+        static_cast<T*>(gslab), n_s, n_ct, n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
+}
+
+// the wide form's slabs in shared memory where one fits, else in the
+// device buffer `work` (min(n_s, 32) slabs a member)
+template <typename T, bool MULTI>
+int launch_wide(const void* gtt, const void* bt, const void* gu,
+                const void* bu, const void* ydy, void* alpha,
+                const void* purity, void* scal, void* work, int n_s,
+                int n_ct, int n_u, int n_steps, int n_members,
+                dm::MemberStrides st, cudaStream_t stream) {
+    if (dm::glue_warps(sizeof(T), n_ct + n_u, n_s) >= 1)
+        return launch_wide_as<T, MULTI, false>(
+            gtt, bt, gu, bu, ydy, alpha, purity, scal, nullptr, n_s, n_ct,
+            n_u, n_steps, n_members, st, stream);
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide_as<T, MULTI, true>(gtt, bt, gu, bu, ydy, alpha,
+                                          purity, scal, work, n_s, n_ct, n_u,
+                                          n_steps, n_members, st, stream);
 }
 
 // p > 32: the wide form; else the register form at row bucket `bucket`
@@ -275,7 +292,7 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
     const int p = n_ct + n_u;
     if (p > kMaxP)
         return launch_wide<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
-                                     scal, n_s, n_ct, n_u, n_steps,
+                                     scal, colsum, n_s, n_ct, n_u, n_steps,
                                      n_members, st, s);
     if (p > bucket || colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -297,7 +314,8 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 extern "C" {
 
 // colsum (3, n_s) and tickets (1, zero) the register form's per-column
-// cost terms and finished-block count (unread above p = 32); bucket and
+// cost terms and finished-block count; above p = 32 tickets is unread and
+// colsum the wide form's work buffer, as K2's (dm_glue_work); bucket and
 // cols the register form's plan (ops/cuda_small.alpha_plan)
 #define DM_K3_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \

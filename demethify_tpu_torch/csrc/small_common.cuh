@@ -37,7 +37,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
 // as many warps as fit under the card's opt-in limit (232,448 bytes on an
 // H100) less 1 KB for the kernels' static shared memory, at most 32 and
-// at most n_s. glue_warps returns 0 when one warp does not fit.
+// at most n_s. glue_warps returns 0 when one warp does not fit; K2, K3,
+// K5 and K6 then keep the slabs in device memory (warp_slab).
 constexpr long long kGlueSmemLimit = 232448 - 1024;
 
 __host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
@@ -62,6 +63,37 @@ __host__ __device__ __forceinline__ int glue_warps(int itemsize, int p,
     const long long fit = kGlueSmemLimit / (itemsize * glue_warp_elems(p));
     const long long w = n_s < 32 ? n_s : 32;
     return static_cast<int>(fit < w ? fit : w);
+}
+
+// Warps per block of a wide-form launch and its dynamic shared memory:
+// min(n_s, 32) capped by the kernel's registers (max_warps) and, with the
+// slabs in shared memory (!GSLAB), by glue_warps; with the slabs in
+// device memory (GSLAB) no dynamic shared memory. 0 when no warp fits.
+template <bool GSLAB>
+int wide_warps(int itemsize, int p, int n_s, int max_warps, size_t& smem) {
+    int n_warps = n_s < 32 ? n_s : 32;
+    n_warps = n_warps < max_warps ? n_warps : max_warps;
+    smem = 0;
+    if constexpr (!GSLAB) {
+        const int fit = glue_warps(itemsize, p, n_s);
+        n_warps = fit < n_warps ? fit : n_warps;
+        smem = static_cast<size_t>(n_warps > 0 ? n_warps : 0)
+               * glue_warp_elems(p) * itemsize;
+    }
+    return n_warps;
+}
+
+// This warp's slab of a wide-form block: in dynamic shared memory, or
+// (GSLAB) slab blockIdx.x * n_warps + warp of the device buffer gslab,
+// at most 32 slabs a block, so the buffer holds min(n_s, 32) a member
+template <typename T, bool GSLAB>
+__device__ __forceinline__ T* warp_slab(T* gslab, int warp, int n_warps,
+                                        int p) {
+    if constexpr (GSLAB)
+        return gslab + (static_cast<long long>(blockIdx.x) * n_warps + warp)
+                           * glue_warp_elems(p);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<T*>(smem_raw) + warp * glue_warp_elems(p);
 }
 
 // Per-member element strides of the glue kernels' operands: K2 and K3

@@ -18,7 +18,16 @@
 //     samples at a time. Shared memory grows with n_s only up to one
 //     chunk; Y and D are read twice. The C/M sums keep their per-sample
 //     order and every Gram entry its per-site order, so at a shape that
-//     both layouts take they give the same bits.
+//     both layouts take they give the same bits;
+//   - global (where even the wide layout would pass the card's shared
+//     memory: p of about 160 in float64 at n_s >= 32, 386 in float32):
+//     the wide layout with the [Rt | u] rows (and K4's member rows) in a
+//     per-block region of a device-memory buffer the wrapper allocates,
+//     in the same row-major kLd layout, copied there without cp.async
+//     (which writes shared memory only). The same code on other
+//     addresses, so the same bits; the Gram stage's reads of those rows
+//     then go through L1 and L2. Shared memory holds one chunk of Y and
+//     D.
 //
 // What the pieces here do about what bounds the kernels (each keeps
 // every rounding, so the kernels' outputs do not depend on them):
@@ -96,6 +105,9 @@ constexpr int kSites = 128;        // sites (threads) per main-pass block
 constexpr int kLd = kSites + 1;    // shared row stride: avoids bank conflicts
 constexpr int kRedThreads = 256;   // threads per block of the reduction pass
 constexpr int kChunk = 32;         // samples per staged chunk (wide layout)
+
+// the shared-memory layouts (the kernels' LAYOUT template parameter)
+constexpr int kResident = 0, kWide = 1, kGlobal = 2;
 
 // rows of Y (and of D) the wide layout stages: one chunk, or all n_s
 // samples when there are fewer
@@ -185,6 +197,18 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
             dst[(r - r0) * kLd + tid] = live ? to_state(src[r * n + i])
                                              : T(0);
     }
+}
+
+// stage_rows into a device-memory region (the global layout): the same
+// values, plain loads and stores, visible to the block after the next
+// __syncthreads
+template <typename T, typename TD>
+__device__ __forceinline__ void copy_rows(T* __restrict__ dst,
+                                          const TD* __restrict__ src, int r0,
+                                          int r1, int64_t i, bool live,
+                                          int64_t n, int tid) {
+    for (int r = r0; r < r1; ++r)
+        dst[(r - r0) * kLd + tid] = live ? to_state(src[r * n + i]) : T(0);
 }
 
 // Waits for this thread's cp.async copies (a no-op when there are none)

@@ -5,12 +5,18 @@
 
 #include "u_phase_grams.cuh"
 
-DM_K1_EXPORTS(dm_u_phase_grams, false)
+DM_K1_EXPORTS(dm_u_phase_grams, dm::kResident)
 
 extern "C" {
 
 int dm_u_phase_grams_blocks(long long n) {
     return static_cast<int>((n + kSites - 1) / kSites);
+}
+
+// Rows per block of the global layout's device buffer (129 values each)
+int dm_u_phase_grams_global_rows(int n_ct, int n_u, int direct, int bf16c) {
+    return global_rows(n_ct, n_u,
+                       bf16c && !direct ? dm::kRoundAll : dm::kRoundNone);
 }
 
 // The momentum-table prologue alone (K1/K4's slots, or with ph K7's):

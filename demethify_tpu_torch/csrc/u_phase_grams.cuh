@@ -1,9 +1,9 @@
 // K1: the U-phase megakernel of the partial-reference, purity and
 // unsupervised solves, for Hopper. This header holds the kernel and its
 // launch, templated on the shared-memory layout; u_phase_grams.cu builds
-// the resident layout and u_phase_grams_wide.cu the wide one
-// (u_phase_common.cuh), each with its own C entry points, so the two
-// compile in parallel.
+// the resident layout, u_phase_grams_wide.cu the wide one and
+// u_phase_grams_global.cu the global one (u_phase_common.cuh), each with
+// its own C entry points, so the three compile in parallel.
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
 // :: _u_phase_grams_kernel (called through u_phase_grams_packed and
@@ -218,15 +218,24 @@ __device__ __forceinline__ void site_phase(
     }
 }
 
-template <typename T, typename TD, int NU, bool DIRECT, int RND, bool WIDE>
+// The global layout's rows per block in its device buffer: [Rt | u] and,
+// under kRoundAll, the n_u rows of the raw u (kLd values each)
+__host__ __device__ __forceinline__ int global_rows(int n_ct, int n_u,
+                                                    int rnd) {
+    return n_ct + n_u + (rnd == dm::kRoundAll ? n_u : 0);
+}
+
+template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
 __global__ void __launch_bounds__(kSites)
 u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                      const T* __restrict__ a1b, const T* __restrict__ a2b,
                      T* __restrict__ uut, const T* __restrict__ scal,
                      const T* __restrict__ tab, T* __restrict__ partials,
-                     T* __restrict__ scratch,
+                     T* __restrict__ scratch, T* __restrict__ rowbuf,
                      int64_t n, int n_s, int n_ct, int n_u, int n_steps,
                      int n_blocks, int lagged) {
+    constexpr bool WIDE = LAYOUT != dm::kResident;
+    constexpr bool GLOBAL = LAYOUT == dm::kGlobal;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
@@ -234,7 +243,10 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
     const int rows = WIDE ? dm::chunk_rows(n_s) : n_s;
     T* s_y = reinterpret_cast<T*>(smem_raw);
     T* s_d = s_y + rows * kLd;
-    T* s_r = s_d + rows * kLd;                  // p rows: [Rt | u]
+    // p rows: [Rt | u] (global: this block's region of rowbuf)
+    T* s_r = GLOBAL ? rowbuf + static_cast<int64_t>(blockIdx.x)
+                                   * global_rows(n_ct, nu, RND) * kLd
+                    : s_d + rows * kLd;
     T* s_a1 = s_r + p * kLd;                    // resident: (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // resident: (nu, n_s)
     // resident direct form: n_s rows of dres; kRoundAll: nu rows, raw u
@@ -254,7 +266,10 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
         dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, 0, n_s, i,
                        live, n, tid);
     }
-    dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    if constexpr (GLOBAL)
+        dm::copy_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    else
+        dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
     dm::stage_wait();
     __syncthreads();
 
@@ -334,11 +349,13 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
 
 // shared memory of the main pass; itemsize is the state's (the staged
 // data rows are of the state type whatever the data's)
-size_t smem_bytes(bool wide, size_t itemsize, int n_s, int n_ct, int n_u,
+size_t smem_bytes(int layout, size_t itemsize, int n_s, int n_ct, int n_u,
                   bool direct, int rnd) {
     const size_t p = static_cast<size_t>(n_ct + n_u);
     const size_t x_rows = rnd == dm::kRoundAll ? n_u : 0;
-    if (wide)
+    if (layout == dm::kGlobal)
+        return itemsize * 2 * dm::chunk_rows(n_s) * kLd;
+    if (layout == dm::kWide)
         return itemsize
                * ((2 * dm::chunk_rows(n_s) + p + x_rows) * kLd);
     const size_t rows = 2 * static_cast<size_t>(n_s) + p
@@ -346,19 +363,21 @@ size_t smem_bytes(bool wide, size_t itemsize, int n_s, int n_ct, int n_u,
     return itemsize * (rows * kLd + p * n_s);
 }
 
-template <typename T, typename TD, int NU, bool DIRECT, int RND, bool WIDE>
+template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* tab, void* partials, void* out,
-           void* scratch, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-           int lagged, cudaStream_t stream) {
+           void* scratch, void* rowbuf, int64_t n, int n_s, int n_ct,
+           int n_u, int n_steps, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
     int err0 = dm::launch_momentum_table<T, false>(
         static_cast<T*>(scal), 0, 1, static_cast<T*>(tab), n_steps, stream);
     if (err0 != 0) return err0;
-    const size_t smem = smem_bytes(WIDE, sizeof(T), n_s, n_ct, n_u, DIRECT,
+    if (LAYOUT == dm::kGlobal && rowbuf == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = smem_bytes(LAYOUT, sizeof(T), n_s, n_ct, n_u, DIRECT,
                                    RND);
-    auto kern = u_phase_grams_kernel<T, TD, NU, DIRECT, RND, WIDE>;
+    auto kern = u_phase_grams_kernel<T, TD, NU, DIRECT, RND, LAYOUT>;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -370,8 +389,8 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
         static_cast<const T*>(tab), static_cast<T*>(partials),
-        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, n_blocks,
-        lagged);
+        static_cast<T*>(scratch), static_cast<T*>(rowbuf), n, n_s, n_ct,
+        n_u, n_steps, n_blocks, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dm::reduce_partials_kernel<T><<<n_entries, kRedThreads, 0, stream>>>(
@@ -381,111 +400,117 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename TD, bool DIRECT, int RND, bool WIDE>
+template <typename T, typename TD, bool DIRECT, int RND, int LAYOUT>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 const void* a2b, void* uut, void* scal, void* tab,
-                void* partials, void* out, void* scratch, int64_t n, int n_s,
-                int n_ct, int n_u, int n_steps, int lagged, cudaStream_t st) {
+                void* partials, void* out, void* scratch, void* rowbuf,
+                int64_t n, int n_s, int n_ct, int n_u, int n_steps,
+                int lagged, cudaStream_t st) {
 #define DM_K1_CASE(NU)                                                      \
     case NU:                                                                \
-        return launch<T, TD, NU, DIRECT, RND, WIDE>(                        \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,  \
-            n_s, n_ct, n_u, n_steps, lagged, st);
+        return launch<T, TD, NU, DIRECT, RND, LAYOUT>(                      \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,     \
+            rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
         DM_K1_CASE(6) DM_K1_CASE(7) DM_K1_CASE(8)
         case 1:
             // n_u = 1 always takes the gram form (1 <= 3 n_s)
             if constexpr (!DIRECT)
-                return launch<T, TD, 1, false, RND, WIDE>(
+                return launch<T, TD, 1, false, RND, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    scratch, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                    scratch, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return static_cast<int>(cudaErrorInvalidValue);
         default:
             if (n_u < 1 || scratch == nullptr)
                 return static_cast<int>(cudaErrorInvalidValue);
-            return launch<T, TD, 0, DIRECT, RND, WIDE>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
-                n_s, n_ct, n_u, n_steps, lagged, st);
+            return launch<T, TD, 0, DIRECT, RND, LAYOUT>(
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+                rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K1_CASE
 }
 
 // TD = T (float32, float64) or __nv_bfloat16 with T = float; bf16c (bf16
 // data only): kRoundAll in the gram form, kRoundDy in the direct form
-template <typename T, typename TD, bool WIDE>
+template <typename T, typename TD, int LAYOUT>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              const void* a2b, void* uut, void* scal, void* tab,
-             void* partials, void* out, void* scratch, int64_t n, int n_s,
-             int n_ct, int n_u, int n_steps, int lagged, int direct,
-             int bf16c, void* stream) {
+             void* partials, void* out, void* scratch, void* rowbuf,
+             int64_t n, int n_s, int n_ct, int n_u, int n_steps, int lagged,
+             int direct, int bf16c, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (std::is_same<TD, __nv_bfloat16>::value) {
         if (bf16c) {
             if (direct)
-                return dispatch_nu<T, TD, true, dm::kRoundDy, WIDE>(
+                return dispatch_nu<T, TD, true, dm::kRoundDy, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    scratch, n, n_s, n_ct, n_u, n_steps, lagged, st);
-            return dispatch_nu<T, TD, false, dm::kRoundAll, WIDE>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
-                n_s, n_ct, n_u, n_steps, lagged, st);
+                    scratch, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+            return dispatch_nu<T, TD, false, dm::kRoundAll, LAYOUT>(
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+                rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
         }
     }
     if (direct)
-        return dispatch_nu<T, TD, true, dm::kRoundNone, WIDE>(
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,
-            n_s, n_ct, n_u, n_steps, lagged, st);
-    return dispatch_nu<T, TD, false, dm::kRoundNone, WIDE>(
-        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n, n_s,
-        n_ct, n_u, n_steps, lagged, st);
+        return dispatch_nu<T, TD, true, dm::kRoundNone, LAYOUT>(
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+            rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+    return dispatch_nu<T, TD, false, dm::kRoundNone, LAYOUT>(
+        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, rowbuf,
+        n, n_s, n_ct, n_u, n_steps, lagged, st);
 }
 
 }  // namespace
 
-// The C entry points of one layout (PREFIX dm_u_phase_grams or
-// dm_u_phase_grams_wide):
+// The C entry points of one layout (PREFIX dm_u_phase_grams,
+// dm_u_phase_grams_wide or dm_u_phase_grams_global):
 //   PREFIX_smem(itemsize, n_s, n_ct, n_u, direct, bf16c): the main pass's
 //     shared memory in bytes (itemsize is the state's), which the wrapper
 //     checks against the card's limit before launching;
 //   PREFIX_{f32,f64}(ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-//     scratch, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream): tab is
-//     room for the momentum table, n_steps + 1 values of the state type;
+//     scratch, rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream):
+//     tab is room for the momentum table, n_steps + 1 values of the state
+//     type; rows the global layout's buffer, n_blocks x
+//     dm_u_phase_grams_global_rows(...) x 129 values of the state type
+//     (read by that layout only);
 //   PREFIX_bf16(..., direct, bf16c, stream): bf16 data with a float32
 //     state; bf16c the bf16_compute form.
-#define DM_K1_EXPORTS(PREFIX, WIDE)                                          \
+#define DM_K1_EXPORTS(PREFIX, LAYOUT)                                        \
     extern "C" {                                                             \
     long long PREFIX##_smem(int itemsize, int n_s, int n_ct, int n_u,        \
                             int direct, int bf16c) {                         \
         const int rnd = !bf16c ? dm::kRoundNone                              \
                                : (direct ? dm::kRoundDy : dm::kRoundAll);    \
-        return static_cast<long long>(smem_bytes(WIDE, itemsize, n_s, n_ct,  \
-                                                 n_u, direct != 0, rnd));    \
+        return static_cast<long long>(smem_bytes(LAYOUT, itemsize, n_s,      \
+                                                 n_ct, n_u, direct != 0,     \
+                                                 rnd));                      \
     }                                                                        \
     int PREFIX##_f32(const void* ydt, const void* rtt, const void* a1b,      \
                      const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* scratch, long long n,  \
-                     int n_s, int n_ct, int n_u, int n_steps, int lagged,    \
-                     int direct, void* stream) {                             \
-        return dispatch<float, float, WIDE>(                                 \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
-            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
+                     void* partials, void* out, void* scratch, void* rows,   \
+                     long long n, int n_s, int n_ct, int n_u, int n_steps,   \
+                     int lagged, int direct, void* stream) {                 \
+        return dispatch<float, float, LAYOUT>(                               \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
     }                                                                        \
     int PREFIX##_f64(const void* ydt, const void* rtt, const void* a1b,      \
                      const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* scratch, long long n,  \
-                     int n_s, int n_ct, int n_u, int n_steps, int lagged,    \
-                     int direct, void* stream) {                             \
-        return dispatch<double, double, WIDE>(                               \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
-            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
+                     void* partials, void* out, void* scratch, void* rows,   \
+                     long long n, int n_s, int n_ct, int n_u, int n_steps,   \
+                     int lagged, int direct, void* stream) {                 \
+        return dispatch<double, double, LAYOUT>(                             \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
     }                                                                        \
     int PREFIX##_bf16(const void* ydt, const void* rtt, const void* a1b,     \
                       const void* a2b, void* uut, void* scal, void* tab,     \
-                      void* partials, void* out, void* scratch, long long n, \
-                      int n_s, int n_ct, int n_u, int n_steps, int lagged,   \
-                      int direct, int bf16c, void* stream) {                 \
-        return dispatch<float, __nv_bfloat16, WIDE>(                         \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, n,   \
-            n_s, n_ct, n_u, n_steps, lagged, direct, bf16c, stream);         \
+                      void* partials, void* out, void* scratch, void* rows,  \
+                      long long n, int n_s, int n_ct, int n_u, int n_steps,  \
+                      int lagged, int direct, int bf16c, void* stream) {     \
+        return dispatch<float, __nv_bfloat16, LAYOUT>(                       \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, bf16c,         \
+            stream);                                                         \
     }                                                                        \
     }

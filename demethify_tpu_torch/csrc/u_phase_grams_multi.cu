@@ -6,19 +6,26 @@
 
 #include "u_phase_grams_multi.cuh"
 
-DM_K4_EXPORTS(dm_u_phase_grams_multi, false)
+DM_K4_EXPORTS(dm_u_phase_grams_multi, dm::kResident)
 
 extern "C" {
 
-// out: group, smem (bytes), blocks per SM kept
+// out: group, smem (bytes), blocks per SM kept; layout 0 resident, 1
+// wide, 2 global
 int dm_k4_member_plan(int itemsize, int n_s, int n_ct, int n_u, int n_b,
-                      int weighted, int wide, long long* out) {
+                      int weighted, int layout, long long* out) {
     const dm::K4MemberPlan g = dm::k4_member_plan(
-        itemsize, n_s, n_ct, n_u, n_b, weighted != 0, wide != 0);
+        itemsize, n_s, n_ct, n_u, n_b, weighted != 0, layout);
     out[0] = g.group;
     out[1] = g.smem;
     out[2] = g.blocks;
     return 0;
+}
+
+// Rows per block of the global layout's device buffer (129 values each)
+// for a group of `group` members
+long long dm_k4_global_rows(int n_ct, int n_u, int weighted, int group) {
+    return dm::k4_global_rows(n_ct, n_u, weighted != 0, group);
 }
 
 // out: tiled, ts, tl, tq, tp, tb, n_x, n_self, n_bu, n_usq, o_self, o_bu,

@@ -1,7 +1,10 @@
 // K4: the multi-member U-phase megakernel of the batched random restarts,
 // for Hopper. This header holds the kernel and its launch, templated on
 // the shared-memory layout (u_phase_common.cuh): u_phase_grams_multi.cu
-// builds the resident layout, u_phase_grams_multi_wide.cu the wide one.
+// builds the resident layout, u_phase_grams_multi_wide.cu the wide one
+// and u_phase_grams_multi_global.cu the global one (Rt and the group's u
+// rows in a per-block region of a device buffer; groups of at most
+// kGlobalGroup members).
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
 // :: _u_phase_grams_multi_kernel (called through u_phase_grams_multi).
@@ -121,11 +124,25 @@ constexpr long long kSmemReserve = 1024;   // bytes the card keeps per block
 // self tile, left rows per b_u tile
 constexpr int kGS = 2, kGL = 2, kGP = 4, kGB = 4;
 
+// members per group in the global layout, whose rows live in device
+// memory (the group's size changes no bit: each member's sums are its own)
+constexpr int kGlobalGroup = 8;
+
+// rows (kLd values each) of a block's region of the global layout's
+// device buffer: Rt, then the group's u rows and, weighted, their w u rows
+__host__ __device__ __forceinline__ long long k4_global_rows(
+        int n_ct, int n_u, bool weighted, int group) {
+    return n_ct + static_cast<long long>(group) * n_u * (weighted ? 2 : 1);
+}
+
 // shared memory of a group of `group` members (group = 1: the one-member
-// bytes the layout rule reads, the *_smem export)
+// bytes the layout rule reads, the *_smem export); layout kResident,
+// kWide or kGlobal (one chunk of Y and D alone)
 __host__ __device__ __forceinline__ long long k4_smem(
-        bool wide, long long itemsize, int n_s, int n_ct, int n_u,
+        int layout, long long itemsize, int n_s, int n_ct, int n_u,
         bool weighted, int group) {
+    if (layout == kGlobal) return itemsize * 2 * chunk_rows(n_s) * kLd;
+    const bool wide = layout == kWide;
     const long long rows = wide ? chunk_rows(n_s) : n_s;
     const long long u_rows = static_cast<long long>(group) * n_u
                              * (weighted ? 2 : 1);
@@ -142,25 +159,31 @@ struct K4MemberPlan {
 
 // G, the group's shared memory and the blocks per SM it keeps: the
 // largest G <= n_b whose bytes leave min(kGroupBlocks, the one-member
-// layout's blocks per SM) blocks on an SM, at least 1
+// layout's blocks per SM) blocks on an SM, at least 1; in the global
+// layout min(n_b, kGlobalGroup), whatever shared memory keeps
 __host__ __device__ __forceinline__ K4MemberPlan k4_member_plan(
         long long itemsize, int n_s, int n_ct, int n_u, int n_b,
-        bool weighted, bool wide) {
+        bool weighted, int layout) {
     K4MemberPlan g{};
-    const long long one = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted,
-                                  1);
-    const long long base = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted,
-                                   0);
+    const long long one = k4_smem(layout, itemsize, n_s, n_ct, n_u,
+                                  weighted, 1);
+    const long long base = k4_smem(layout, itemsize, n_s, n_ct, n_u,
+                                   weighted, 0);
     long long fit = kSmemPerSm / (one + kSmemReserve);
     fit = fit < 16 ? fit : 16;                     // 2048 threads an SM
     g.blocks = static_cast<int>(fit < kGroupBlocks ? fit : kGroupBlocks);
     if (g.blocks < 1) g.blocks = 1;
+    if (layout == kGlobal) {
+        g.group = n_b < kGlobalGroup ? n_b : kGlobalGroup;
+        g.smem = one;
+        return g;
+    }
     long long budget = kSmemPerSm / g.blocks - kSmemReserve;
     budget = budget < kSmemBlock ? budget : kSmemBlock;
     long long group = (budget - base) / (one - base);
     group = group < n_b ? group : n_b;
     g.group = static_cast<int>(group < 1 ? 1 : group);
-    g.smem = k4_smem(wide, itemsize, n_s, n_ct, n_u, weighted, g.group);
+    g.smem = k4_smem(layout, itemsize, n_s, n_ct, n_u, weighted, g.group);
     return g;
 }
 
@@ -553,7 +576,7 @@ __device__ __forceinline__ void gram_steps_pair(
     }
 }
 
-template <typename T, typename TD, int NU, bool W, bool WIDE>
+template <typename T, typename TD, int NU, bool W, int LAYOUT>
 __global__ void __launch_bounds__(kSites)
 u_phase_grams_multi_kernel(
         const TD* __restrict__ ydt, const TD* __restrict__ rtt,
@@ -562,17 +585,23 @@ u_phase_grams_multi_kernel(
         const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
         const T* __restrict__ tab, const int* __restrict__ list,
-        T* __restrict__ partials, T* __restrict__ scratch, int64_t n,
-        int n_s, int n_ct, int n_u, int n_steps, int n_members, int group,
-        int lagged) {
+        T* __restrict__ partials, T* __restrict__ scratch,
+        T* __restrict__ rowbuf, int64_t n, int n_s, int n_ct, int n_u,
+        int n_steps, int n_members, int group, int lagged) {
+    constexpr bool WIDE = LAYOUT != dm::kResident;
+    constexpr bool GLOBAL = LAYOUT == dm::kGlobal;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
-    // staged Y (and D) rows, Rt, then the group's rows
+    // staged Y (and D) rows, Rt, then the group's rows (global: Rt and the
+    // group's rows in this block's region of rowbuf)
     const int rows = WIDE ? dm::chunk_rows(n_s) : n_s;
     T* s_y = reinterpret_cast<T*>(smem_raw);
     T* s_d = s_y + rows * kLd;
-    T* s_rt = s_d + rows * kLd;                     // n_ct rows
+    T* s_rt = GLOBAL ? rowbuf + static_cast<int64_t>(blockIdx.x)
+                                    * dm::k4_global_rows(n_ct, nu, W, group)
+                                    * kLd
+                     : s_d + rows * kLd;            // n_ct rows
     T* s_u = s_rt + n_ct * kLd;                     // group n_u rows of u
     T* s_wu = s_u + group * nu * kLd;               // W: their w u rows
     T* s_a = s_wu + (W ? group * nu * kLd : 0);     // resident: alpha blocks
@@ -586,7 +615,10 @@ u_phase_grams_multi_kernel(
         dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, 0, n_s, i,
                        live, n, tid);
     }
-    dm::stage_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
+    if constexpr (GLOBAL)
+        dm::copy_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
+    else
+        dm::stage_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
     dm::stage_wait();
     const int n_entries = dm::gram_entries(n_s, n_ct, nu);
     const int n_act = list[n_members];
@@ -868,13 +900,15 @@ reduce_tree_kernel(const T* __restrict__ partials, T* __restrict__ out,
     }
 }
 
-template <typename T, typename TD, int NU, bool W, bool WIDE>
+template <typename T, typename TD, int NU, bool W, int LAYOUT>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
            void* tab, void* list, void* partials, void* out, void* scratch,
-           int64_t n, int n_s, int n_ct, int n_u, int n_steps,
+           void* rowbuf, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
            int n_members, int lagged, cudaStream_t stream) {
+    if (LAYOUT == dm::kGlobal && rowbuf == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     k4_prologue_kernel<T><<<n_members + 1, 32, 0, stream>>>(
         static_cast<const T*>(scal), scal_stride, static_cast<T*>(tab),
@@ -883,8 +917,8 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
     const dm::K4MemberPlan plan = dm::k4_member_plan(
-        sizeof(T), n_s, n_ct, n_u, n_members, W, WIDE);
-    auto kern = u_phase_grams_multi_kernel<T, TD, NU, W, WIDE>;
+        sizeof(T), n_s, n_ct, n_u, n_members, W, LAYOUT);
+    auto kern = u_phase_grams_multi_kernel<T, TD, NU, W, LAYOUT>;
     if (plan.smem > 48 * 1024) {
         err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -897,8 +931,8 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
         static_cast<const T*>(scal), scal_stride, static_cast<const T*>(tab),
         static_cast<const int*>(list), static_cast<T*>(partials),
-        static_cast<T*>(scratch), n, n_s, n_ct, n_u, n_steps, n_members,
-        plan.group, lagged);
+        static_cast<T*>(scratch), static_cast<T*>(rowbuf), n, n_s, n_ct,
+        n_u, n_steps, n_members, plan.group, lagged);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_cols = n_members * n_entries;
@@ -920,89 +954,94 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename TD, bool W, bool WIDE>
+template <typename T, typename TD, bool W, int LAYOUT>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
                 int scal_stride, void* tab, void* list, void* partials,
-                void* out, void* scratch, long long n, int n_s, int n_ct,
-                int n_u, int n_steps, int n_members, int lagged,
+                void* out, void* scratch, void* rowbuf, long long n, int n_s,
+                int n_ct, int n_u, int n_steps, int n_members, int lagged,
                 cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
-        return launch<T, TD, NU, W, WIDE>(                                  \
+        return launch<T, TD, NU, W, LAYOUT>(                                \
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,     \
-            scal, scal_stride, tab, list, partials, out, scratch, n, n_s,   \
-            n_ct, n_u, n_steps, n_members, lagged, st);
+            scal, scal_stride, tab, list, partials, out, scratch, rowbuf,   \
+            n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
         default:
             if (n_u < 1 || scratch == nullptr)
                 return static_cast<int>(cudaErrorInvalidValue);
-            return launch<T, TD, 0, W, WIDE>(
+            return launch<T, TD, 0, W, LAYOUT>(
                 ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,
-                scal, scal_stride, tab, list, partials, out, scratch, n, n_s,
-                n_ct, n_u, n_steps, n_members, lagged, st);
+                scal, scal_stride, tab, list, partials, out, scratch, rowbuf,
+                n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
     }
 #undef DM_K4_CASE
 }
 
-template <typename T, typename TD, bool WIDE>
+template <typename T, typename TD, int LAYOUT>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
              int scal_stride, void* tab, void* list, void* partials,
-             void* out, void* scratch, long long n, int n_s, int n_ct,
-             int n_u, int n_steps, int n_members, int lagged, void* stream) {
+             void* out, void* scratch, void* rowbuf, long long n, int n_s,
+             int n_ct, int n_u, int n_steps, int n_members, int lagged,
+             void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n_members < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (w != nullptr)
-        return dispatch_nu<T, TD, true, WIDE>(
+        return dispatch_nu<T, TD, true, LAYOUT>(
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-            scal_stride, tab, list, partials, out, scratch, n, n_s, n_ct,
-            n_u, n_steps, n_members, lagged, st);
-    return dispatch_nu<T, TD, false, WIDE>(
+            scal_stride, tab, list, partials, out, scratch, rowbuf, n, n_s,
+            n_ct, n_u, n_steps, n_members, lagged, st);
+    return dispatch_nu<T, TD, false, LAYOUT>(
         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-        scal_stride, tab, list, partials, out, scratch, n, n_s, n_ct, n_u,
-        n_steps, n_members, lagged, st);
+        scal_stride, tab, list, partials, out, scratch, rowbuf, n, n_s, n_ct,
+        n_u, n_steps, n_members, lagged, st);
 }
 
 }  // namespace
 
-// The C entry points of one layout (PREFIX dm_u_phase_grams_multi or
-// dm_u_phase_grams_multi_wide):
+// The C entry points of one layout (PREFIX dm_u_phase_grams_multi,
+// dm_u_phase_grams_multi_wide or dm_u_phase_grams_multi_global):
 //   PREFIX_smem(itemsize, n_s, n_ct, n_u, weighted): one member's shared
 //     memory in bytes (what the layout rule compares; a launch takes
 //     k4_member_plan's group bytes);
 //   PREFIX_{f32,f64,bf16}(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-//     w, w_stride, scal, scal_stride, tab, list, partials, out, scratch, n,
-//     n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the members'
-//     weight rows (B, w_stride) or NULL (unweighted); list room for B + 1
-//     ints; bf16: bf16 data with a float32 state and float32 weight rows.
-#define DM_K4_ENTRY(PREFIX, SUFFIX, T, TD, WIDE)                             \
+//     w, w_stride, scal, scal_stride, tab, list, partials, out, scratch,
+//     rows, n, n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the
+//     members' weight rows (B, w_stride) or NULL (unweighted); list room
+//     for B + 1 ints; rows the global layout's buffer, n_blocks x
+//     dm_k4_global_rows(...) x 129 values of the state type (read by that
+//     layout only); bf16: bf16 data with a float32 state and float32
+//     weight rows.
+#define DM_K4_ENTRY(PREFIX, SUFFIX, T, TD, LAYOUT)                           \
     int PREFIX##SUFFIX(const void* ydt, const void* rtt, const void* a1b,    \
                        long long a1_stride, const void* a2b,                 \
                        long long a2_stride, void* uut, const void* w,        \
                        long long w_stride, void* scal, int scal_stride,      \
                        void* tab, void* list, void* partials, void* out,     \
-                       void* scratch, long long n, int n_s, int n_ct,        \
-                       int n_u, int n_steps, int n_members, int lagged,      \
-                       void* stream) {                                       \
-        return dispatch<T, TD, WIDE>(ydt, rtt, a1b, a1_stride, a2b,          \
-                                     a2_stride, uut, w, w_stride, scal,      \
-                                     scal_stride, tab, list, partials, out,  \
-                                     scratch, n, n_s, n_ct, n_u, n_steps,    \
-                                     n_members, lagged, stream);             \
+                       void* scratch, void* rows, long long n, int n_s,      \
+                       int n_ct, int n_u, int n_steps, int n_members,        \
+                       int lagged, void* stream) {                           \
+        return dispatch<T, TD, LAYOUT>(ydt, rtt, a1b, a1_stride, a2b,        \
+                                       a2_stride, uut, w, w_stride, scal,    \
+                                       scal_stride, tab, list, partials,     \
+                                       out, scratch, rows, n, n_s, n_ct,     \
+                                       n_u, n_steps, n_members, lagged,      \
+                                       stream);                              \
     }
-#define DM_K4_EXPORTS(PREFIX, WIDE)                                          \
+#define DM_K4_EXPORTS(PREFIX, LAYOUT)                                        \
     extern "C" {                                                             \
     long long PREFIX##_smem(int itemsize, int n_s, int n_ct, int n_u,        \
                             int weighted) {                                  \
-        return dm::k4_smem(WIDE, itemsize, n_s, n_ct, n_u, weighted != 0,    \
+        return dm::k4_smem(LAYOUT, itemsize, n_s, n_ct, n_u, weighted != 0,  \
                            1);                                               \
     }                                                                        \
-    DM_K4_ENTRY(PREFIX, _f32, float, float, WIDE)                            \
-    DM_K4_ENTRY(PREFIX, _f64, double, double, WIDE)                          \
-    DM_K4_ENTRY(PREFIX, _bf16, float, __nv_bfloat16, WIDE)                   \
+    DM_K4_ENTRY(PREFIX, _f32, float, float, LAYOUT)                          \
+    DM_K4_ENTRY(PREFIX, _f64, double, double, LAYOUT)                        \
+    DM_K4_ENTRY(PREFIX, _bf16, float, __nv_bfloat16, LAYOUT)                 \
     }

@@ -5,4 +5,4 @@
 
 #include "u_phase_grams_multi.cuh"
 
-DM_K4_EXPORTS(dm_u_phase_grams_multi_wide, true)
+DM_K4_EXPORTS(dm_u_phase_grams_multi_wide, dm::kWide)

@@ -5,4 +5,4 @@
 
 #include "u_phase_grams.cuh"
 
-DM_K1_EXPORTS(dm_u_phase_grams_wide, true)
+DM_K1_EXPORTS(dm_u_phase_grams_wide, dm::kWide)

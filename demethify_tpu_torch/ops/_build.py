@@ -73,20 +73,20 @@ _LL = ctypes.c_longlong
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    # K1 and K4 in each shared-memory layout ("" resident, "_wide")
-    for layout in ("", "_wide"):
+    # K1 and K4 in each layout ("" resident, "_wide", "_global")
+    for layout in ("", "_wide", "_global"):
         k1 = f"dm_u_phase_grams{layout}"
         k4 = f"dm_u_phase_grams_multi{layout}"
         for dt in ("f32", "f64", "bf16"):
             fn = getattr(lib, f"{k1}_{dt}")
             # bf16 data with a float32 state adds the bf16_compute flag
-            fn.argtypes = ([_VOID] * 10 + [_LL] + [_INT] * (7 if dt == "bf16"
+            fn.argtypes = ([_VOID] * 11 + [_LL] + [_INT] * (7 if dt == "bf16"
                                                             else 6) + [_VOID])
             fn.restype = _INT
             # the multi-member kernel: pointers with their member strides
             fn = getattr(lib, f"{k4}_{dt}")
             fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
-                           + [_LL] + [_VOID, _INT] + [_VOID] * 5 + [_LL]
+                           + [_LL] + [_VOID, _INT] + [_VOID] * 6 + [_LL]
                            + [_INT] * 6 + [_VOID])
             fn.restype = _INT
         getattr(lib, f"{k1}_smem").argtypes = [_INT] * 6
@@ -95,6 +95,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, f"{k4}_smem").restype = _LL
     lib.dm_u_phase_grams_blocks.argtypes = [_LL]
     lib.dm_u_phase_grams_blocks.restype = _INT
+    lib.dm_u_phase_grams_global_rows.argtypes = [_INT] * 4
+    lib.dm_u_phase_grams_global_rows.restype = _INT
+    lib.dm_k4_global_rows.argtypes = [_INT] * 4
+    lib.dm_k4_global_rows.restype = _LL
     lib.dm_gram_tile_plan.argtypes = [_INT] * 4 + [_VOID]
     lib.dm_gram_tile_plan.restype = _INT
     lib.dm_k4_member_plan.argtypes = [_INT] * 7 + [_VOID]
@@ -123,6 +127,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_row_bucket.restype = _INT
     lib.dm_glue_smem.argtypes = [_INT] * 3
     lib.dm_glue_smem.restype = _LL
+    lib.dm_glue_work.argtypes = [_INT] * 3
+    lib.dm_glue_work.restype = _LL
     # the single-phase kernels: K7, K8, K9, K10
     lib.dm_u_phase_smem.argtypes = [_INT] * 2
     lib.dm_u_phase_smem.restype = _LL

@@ -31,13 +31,16 @@ in the direct form d y alone, as the JAX kernel's direct-form fallback
 (``pallas_kernels.py:299-311``). Every sum stays float32. With float32
 data the flag does nothing, as in the JAX kernel.
 
-Shapes: any n_s, n_ct and n_u >= 1. The kernel has two shared-memory
-layouts (``csrc/u_phase_common.cuh``) that give the same bits: the
-resident one (Y, D and alpha staged once) and the wide one (Y and D
-staged in chunks of samples; the same sums in the same orders), whose
-shared memory stops growing at 32 samples. ``u_phase_layout`` picks by the
-measured crossover: resident, unless it does not fit or the wide one
-fits at least twice as many blocks on an SM.
+Shapes: any n_s, n_ct and n_u >= 1. The kernel has three layouts
+(``csrc/u_phase_common.cuh``) that give the same bits: the resident one
+(Y, D and alpha staged once), the wide one (Y and D staged in chunks of
+samples; the same sums in the same orders), whose shared memory stops
+growing at 32 samples, and the global one (the wide one with the [Rt | u]
+rows in a device-memory buffer the wrapper allocates, ``global_rows``
+x 129 values a block), whose shared memory holds one chunk of Y and D
+whatever p. ``u_phase_layout`` picks by the measured crossover: resident,
+unless it does not fit or the wide one fits at least twice as many blocks
+on an SM; global where neither fits.
 n_u <= 8 keeps the per-site state in registers; above, one form keeps it
 in a scratch buffer the wrapper allocates (``scratch_rows`` x N).
 
@@ -112,9 +115,12 @@ def u_phase_smem(layout: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     resident: (2 n_s + p [+ n_s direct] [+ n_u]) rows of 129 plus the
     (p, n_s) alpha block; wide: (2 min(32, n_s) + p [+ n_u]) rows;
     the n_u more rows hold the raw u of bf16_compute's gram form, or K4's
-    weighted u."""
+    weighted u; global: 2 min(32, n_s) rows (its other rows live in
+    device memory, ``global_rows``)."""
     p = n_ct + n_u
     x_rows = n_u if (bf16c and not direct) or weighted else 0
+    if layout == "global":
+        return itemsize * 2 * min(_CHUNK, n_s) * _LD
     if layout == "wide":
         return itemsize * (2 * min(_CHUNK, n_s) + p + x_rows) * _LD
     if layout != "resident":
@@ -130,14 +136,13 @@ def blocks_per_sm(smem: int) -> int:
     return min(2048 // SITES_PER_BLOCK, SMEM_PER_SM // (smem + 1024))
 
 
-def u_phase_fits(itemsize: int, n_s: int, n_ct: int, n_u: int,
-                 direct: bool = False, bf16c: bool = False,
-                 weighted: bool = False) -> bool:
-    """True when K1 (or K4, ``weighted`` or not) has a layout for the
-    shape: the wide layout, never larger than the resident one, fits
-    SMEM_LIMIT. Where it does not, ``u_phase_layout`` raises."""
-    return u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
-                        weighted) <= SMEM_LIMIT
+def global_rows(n_ct: int, n_u: int, direct: bool = False,
+                bf16c: bool = False) -> int:
+    """Rows per block of K1's global layout in its device buffer (129
+    values each): [Rt | u] and, in bf16_compute's gram form, the raw u
+    (the kernel's ``dm_u_phase_grams_global_rows``). K4's are
+    ``cuda_multi.k4_global_rows``."""
+    return n_ct + n_u + (n_u if bf16c and not direct else 0)
 
 
 def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
@@ -157,10 +162,9 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     the other side (the gram form 17% slower wide, the direct form 27%
     faster): too few shapes to fit a rule for that form yet. So: the
     resident layout, unless it passes SMEM_LIMIT or, in the gram form,
-    the wide one fits at least twice its blocks per SM. Raises
-    NotImplementedError, stating the shape and the bytes, where neither
-    fits (the wide layout needs SMEM_LIMIT from about p = 160 state rows
-    in float64, 350 in float32)."""
+    the wide one fits at least twice its blocks per SM; the global layout
+    where neither fits (the wide layout passes SMEM_LIMIT from p = 162
+    state rows in float64 at n_s >= 32, 387 in float32)."""
     res = u_phase_smem("resident", itemsize, n_s, n_ct, n_u, direct, bf16c,
                        weighted)
     wide = u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
@@ -168,12 +172,14 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     if res <= SMEM_LIMIT and (
             direct or blocks_per_sm(wide) < 2 * blocks_per_sm(res)):
         return "resident", res
-    if u_phase_fits(itemsize, n_s, n_ct, n_u, direct, bf16c, weighted):
+    if wide <= SMEM_LIMIT:
         return "wide", wide
-    raise NotImplementedError(
-        f"{name} at n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u} ({itemsize}-byte "
-        f"state) needs {wide} bytes of shared memory even in its wide "
-        f"layout, above the {SMEM_LIMIT} a block may use")
+    return "global", u_phase_smem("global", itemsize, n_s, n_ct, n_u)
+
+
+# each layout's C entry points: dm_u_phase_grams{suffix}_*, and K4's
+# dm_u_phase_grams_multi{suffix}_*
+_LAYOUT_SUFFIX = {"resident": "", "wide": "_wide", "global": "_global"}
 
 
 def scratch_rows(n_u: int, direct: bool) -> int:
@@ -233,7 +239,9 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
 def count_forms(forms: dict, **flags) -> None:
     """Adds one launch to ``forms[name]`` for each name whose flag is set.
     The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
-    K6), "state_cols" (n_u > REG_N_U, state in scratch columns),
+    K6), "global_layout" (K1/K4's global layout), "device_slabs"
+    (K2/K3/K5/K6's wide form with its slabs in device memory),
+    "state_cols" (n_u > REG_N_U, state in scratch columns),
     "bf16c_direct" (bf16_compute in the direct form), "rt_folded" (Rt
     folded into the data block), "masked" (K2/K5 with row masks). A
     launch also counts in its wrapper's ``launches``."""
@@ -393,7 +401,7 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     layout, _ = u_phase_layout("u_phase_grams", uut.element_size(), n_s,
                                n_ct, n_u, direct, bf16c)
     lib = _build.load().lib
-    prefix = "dm_u_phase_grams" + ("_wide" if layout == "wide" else "")
+    prefix = "dm_u_phase_grams" + _LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
@@ -403,10 +411,13 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     out = uut.new_empty((n_entries,))
     rows = scratch_rows(n_u, direct)
     scratch = uut.new_empty((rows, n)) if rows else None
+    rowbuf = (uut.new_empty((n_blocks * global_rows(n_ct, n_u, direct, bf16c)
+                             * _LD,)) if layout == "global" else None)
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
             tab.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), n, n_s, n_ct,
+            None if scratch is None else scratch.data_ptr(),
+            None if rowbuf is None else rowbuf.data_ptr(), n, n_s, n_ct,
             n_u, n_steps, int(lagged), int(direct))
     with torch.cuda.device(ydt.device):
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
@@ -424,8 +435,8 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     else:
         u_phase_grams.launches += 1
     count_forms(u_phase_grams.forms, wide=layout == "wide",
-                state_cols=n_u > REG_N_U, bf16c_direct=bf16c and direct,
-                rt_folded=folded)
+                global_layout=layout == "global", state_cols=n_u > REG_N_U,
+                bf16c_direct=bf16c and direct, rt_folded=folded)
     gu = out[:n_s * n_u * p].view(n_s, n_u, p)
     b_u = out[n_s * n_u * p:-1].view(n_u, n_s)
     return gu, b_u, out[-1]

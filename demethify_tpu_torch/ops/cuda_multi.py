@@ -39,7 +39,9 @@ whose rows run across the members (``k4_gram_plan``); every entry keeps
 K1's products and site order, so each member's outputs are K1's bits.
 ``csrc/u_phase_grams_multi.cuh`` exports the same plans
 (``dm_k4_member_plan``, ``dm_k4_gram_plan``), which ``chip_smoke.py``
-holds these to.
+holds these to. K1's global layout (``cuda_kernels.u_phase_layout``)
+keeps Rt and the group's u rows in a device buffer (``k4_global_rows``
+x 129 values a block) and takes groups of K4_GLOBAL_GROUP members.
 
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
@@ -77,6 +79,8 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 # blocks per SM a member group keeps, where one member's layout fits as
 # many (kGroupBlocks)
 K4_GROUP_BLOCKS = 4
+# members per group in the global layout (kGlobalGroup)
+K4_GLOBAL_GROUP = 8
 # the group Gram stage's tiles (kGS, kGL, kGP, kGB): samples per tile,
 # left rows (member, unknown) per cross tile (x GRAM_TILE_Q rows of Rt),
 # (member, v, w) pairs per self tile, left rows per b_u tile
@@ -89,12 +93,22 @@ def k4_smem(itemsize: int, n_s: int, n_ct: int, n_u: int, weighted: bool,
     the staged Y and D rows (n_s, or one chunk of 32 in the wide layout)
     and Rt's n_ct rows, each member's n_u u rows (and, ``weighted``, n_u
     rows of w u), and in the resident layout each member's (p, n_s) alpha
-    block. At group 1 it is ``cuda_kernels.u_phase_smem(...,
-    weighted=)``, the bytes the layout rule compares."""
+    block; in the global layout one chunk of Y and D alone. At group 1 it
+    is ``cuda_kernels.u_phase_smem(..., weighted=)``, the bytes the layout
+    rule compares."""
+    if layout == "global":
+        return itemsize * 2 * min(_CHUNK, n_s) * _LD
     rows = min(_CHUNK, n_s) if layout == "wide" else n_s
     u_rows = group * n_u * (2 if weighted else 1)
     alpha = 0 if layout == "wide" else group * (n_ct + n_u) * n_s
     return itemsize * ((2 * rows + n_ct + u_rows) * _LD + alpha)
+
+
+def k4_global_rows(n_ct: int, n_u: int, weighted: bool, group: int) -> int:
+    """Rows per block of K4's global layout in its device buffer (129
+    values each): Rt, the group's u rows and, ``weighted``, their w u rows
+    (the kernel's ``dm_k4_global_rows``)."""
+    return n_ct + group * n_u * (2 if weighted else 1)
 
 
 def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
@@ -106,10 +120,14 @@ def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
     one-member layout's blocks per SM) blocks on an SM, so a group keeps
     the occupancy the layout rule counted wherever that was at most
     K4_GROUP_BLOCKS. Returns {"group", "smem", "blocks"}.
-    The cap comes from shared memory, never from B."""
+    The cap comes from shared memory, never from B; in the global layout,
+    whose group rows live in device memory, it is K4_GLOBAL_GROUP."""
     one = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 1)
     base = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 0)
     blocks = max(1, min(blocks_per_sm(one), K4_GROUP_BLOCKS))
+    if layout == "global":
+        return {"group": min(n_b, K4_GLOBAL_GROUP), "smem": one,
+                "blocks": blocks}
     budget = min(SMEM_PER_SM // blocks - 1024, SMEM_LIMIT)
     group = max(1, min(n_b, (budget - base) // (one - base)))
     return {"group": group,
@@ -246,7 +264,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
         "u_phase_grams_multi", uut_b.element_size(), n_s, n_ct, n_u,
         weighted=weights is not None)
     lib = _build.load().lib
-    prefix = "dm_u_phase_grams_multi" + ("_wide" if layout == "wide" else "")
+    prefix = "dm_u_phase_grams_multi" + cuda_kernels._LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
     n_blocks = lib.dm_u_phase_grams_blocks(n)
@@ -260,6 +278,12 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     out = uut_b.new_empty((n_b, n_entries))
     rows = scratch_rows(n_u, False)
     scratch = uut_b.new_empty((rows, n)) if rows else None
+    rowbuf = None
+    if layout == "global":
+        group = k4_member_plan(uut_b.element_size(), n_s, n_ct, n_u, n_b,
+                               weights is not None, layout)["group"]
+        rowbuf = uut_b.new_empty((n_blocks * _LD * k4_global_rows(
+            n_ct, n_u, weights is not None, group),))
     fn = getattr(lib, prefix + {torch.float32: "_f32", torch.float64: "_f64",
                                 torch.bfloat16: "_bf16"}[ydt.dtype])
     with torch.cuda.device(ydt.device):
@@ -271,7 +295,8 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  0 if weights is None else weights.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI, tab.data_ptr(),
                  member_list.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), n, n_s,
+                 None if scratch is None else scratch.data_ptr(),
+                 None if rowbuf is None else rowbuf.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")
     if ydt.dtype == torch.bfloat16:
@@ -279,7 +304,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     else:
         u_phase_grams_multi.launches += 1
     count_forms(u_phase_grams_multi.forms, wide=layout == "wide",
-                state_cols=n_u > REG_N_U)
+                global_layout=layout == "global", state_cols=n_u > REG_N_U)
     return _split(out, n_s, n_u, p)
 
 

@@ -32,8 +32,11 @@ member).
 
 Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers;
 above, the kernels' wide form keeps each warp's column in its own slab of
-shared memory (``glue_smem``); past one slab they raise, stating the
-shape. The register form of K2, K3, K5 and K6 runs its warp collectives
+shared memory (``glue_smem``); past one slab (p = 168 in float64, 238 in
+float32) the slabs live in a device-memory work buffer the wrapper
+allocates (``glue_work``), the same code on other addresses. K9 and K10
+keep shared slabs only and raise past one, stating the shape. The
+register form of K2, K3, K5 and K6 runs its warp collectives
 to a row bucket of 8, 16 or 32 lanes and gives every column its own
 warp, over several blocks past 16 columns (``alpha_plan``), with the cost
 summed in a fixed order that does not depend on the grid; K3 and K6 read
@@ -135,13 +138,20 @@ def _glue_scratch(like, n_b: int, n_s: int):
 
 
 def _reg_args(like, n_b, p, n_s):
-    """The register form's (colsum, tickets, bucket, cols) launch
-    arguments; null buffers in the wide form (p > 32)."""
+    """The (colsum, tickets, bucket, cols) launch arguments of K2, K3, K5
+    and K6: the register form's buffers and plan; in the wide form
+    (p > 32) null, or past one shared slab the device slabs (``glue_work``
+    elements per member) in colsum's place, and the work buffer itself
+    (kept alive by the caller until the launch is queued)."""
     if p > REG_P:
-        return None, None, 0, 0
+        n_work = glue_work(like.element_size(), p, n_s)
+        if not n_work:
+            return None, None, 0, 0, None
+        work = like.new_empty((n_b * n_work,))
+        return work.data_ptr(), None, 0, 0, work
     bucket, cols, _ = alpha_plan(p, n_s)
     colsum, tickets = _glue_scratch(like, n_b, n_s)
-    return colsum.data_ptr(), tickets.data_ptr(), bucket, cols
+    return colsum.data_ptr(), tickets.data_ptr(), bucket, cols, None
 
 
 def glue_smem(itemsize: int, p: int, n_s: int):
@@ -152,9 +162,10 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     values per
     warp and as many warps as fit, at most min(n_s, 32) -- the kernels'
     ``dm::glue_warps`` and ``dm_glue_smem``, which ``chip_smoke.py`` holds
-    this to. 0 warps when one slab does not fit. A launch may take fewer
-    warps where the kernel's registers allow fewer per block
-    (``dm::max_block_warps``); its warps then loop over the columns."""
+    this to. 0 warps when one slab does not fit (``glue_work``). A launch
+    may take fewer warps where the kernel's registers allow fewer per
+    block (``dm::max_block_warps``); its warps then loop over the
+    columns."""
     n_warps = min(n_s, 32)
     if p <= REG_P:
         return n_warps, 0
@@ -163,14 +174,20 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     return n_warps, max(n_warps, 1) * slab
 
 
-def glue_fits(itemsize: int, p: int, n_s: int) -> bool:
-    """True when K2, K3, K5 and K6 take p rows: one warp's slab fits
-    (``glue_smem``). Where it does not, the wrappers raise."""
-    return glue_smem(itemsize, p, n_s)[0] >= 1
+def glue_work(itemsize: int, p: int, n_s: int) -> int:
+    """Elements per member of the device-memory slabs K2, K3, K5 and K6
+    take where one warp's slab does not fit shared memory (``glue_smem``
+    gives 0 warps): min(n_s, 32) slabs of p x p + 6 p values; 0 otherwise.
+    The kernels' ``dm_glue_work``, which ``chip_smoke.py`` holds this
+    to."""
+    if p <= REG_P or glue_smem(itemsize, p, n_s)[0] >= 1:
+        return 0
+    return min(n_s, 32) * (p * p + 6 * p)
 
 
 def _check_glue_shape(name, itemsize, p, n_s):
-    if not glue_fits(itemsize, p, n_s):
+    """K9's and K10's refusal: their wide form keeps shared slabs only."""
+    if glue_smem(itemsize, p, n_s)[0] < 1:
         smem = itemsize * (p * p + 6 * p)
         raise NotImplementedError(
             f"{name} at p = {p} rows ({itemsize}-byte values) needs {smem} "
@@ -209,8 +226,6 @@ def _check_args(name, tensors, alpha, n_u, gtt, bt, gu, bu, ydy, scal,
             and bu.shape == (n_u, n_s) and ydy.shape == (n_s,)
             and scal.shape == (N_SCAL,) and extra_ok(p, n_s)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if dev.type == "cuda":
-        _check_glue_shape(name, alpha.element_size(), p, n_s)
     return p, n_s, n_ct
 
 
@@ -248,7 +263,7 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     fn = (lib.dm_alpha_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_alpha_phase_full_f64)
     with torch.cuda.device(alpha.device):
-        colsum, tickets, bucket, cols = _reg_args(alpha, 1, p, n_s)
+        colsum, tickets, bucket, cols, work = _reg_args(alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), usq.data_ptr(), ydy.data_ptr(),
                  alpha.data_ptr(), alpha_prev.data_ptr(), scal.data_ptr(),
@@ -257,7 +272,7 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     _build.check(err, "alpha_phase_full")
     alpha_phase_full.launches += 1
     count_forms(alpha_phase_full.forms, wide=p > REG_P,
-                masked=mask is not None)
+                device_slabs=work is not None, masked=mask is not None)
 
 
 alpha_phase_full.launches = 0
@@ -316,14 +331,15 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
     fn = (lib.dm_fw_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_fw_phase_full_f64)
     with torch.cuda.device(alpha.device):
-        colsum, tickets, bucket, cols = _reg_args(alpha, 1, p, n_s)
+        colsum, tickets, bucket, cols, work = _reg_args(alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), ydy.data_ptr(), alpha.data_ptr(),
                  purity.data_ptr(), scal.data_ptr(), colsum, tickets, n_s,
                  n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
     _build.check(err, "fw_phase_full")
     fw_phase_full.launches += 1
-    count_forms(fw_phase_full.forms, wide=p > REG_P)
+    count_forms(fw_phase_full.forms, wide=p > REG_P,
+                device_slabs=work is not None)
 
 
 fw_phase_full.launches = 0
@@ -371,8 +387,6 @@ def _check_multi(name, alpha_b, n_u, shared, members, scal_b):
                 raise ValueError(f"{name}: operands must be contiguous")
         for t in members:
             member_stride(t, name)
-    if dev.type == "cuda":
-        _check_glue_shape(name, alpha_b.element_size(), p, n_s)
     return n_b, p, n_s, n_ct
 
 
@@ -431,7 +445,8 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
           if alpha_b.dtype == torch.float32
           else lib.dm_alpha_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
-        colsum, tickets, bucket, cols = _reg_args(alpha_b, n_b, p, n_s)
+        colsum, tickets, bucket, cols, work = _reg_args(alpha_b, n_b, p,
+                                                        n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
@@ -445,7 +460,7 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     _build.check(err, name)
     alpha_phase_full_multi.launches += 1
     count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
-                masked=mask is not None)
+                device_slabs=work is not None, masked=mask is not None)
 
 
 alpha_phase_full_multi.launches = 0
@@ -548,7 +563,8 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
-        colsum, tickets, bucket, cols = _reg_args(alpha_b, n_b, p, n_s)
+        colsum, tickets, bucket, cols, work = _reg_args(alpha_b, n_b, p,
+                                                        n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
@@ -557,7 +573,8 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
                  bucket, cols, n_b, _stream(alpha_b))
     _build.check(err, name)
     fw_phase_full_multi.launches += 1
-    count_forms(fw_phase_full_multi.forms, wide=p > REG_P)
+    count_forms(fw_phase_full_multi.forms, wide=p > REG_P,
+                device_slabs=work is not None)
 
 
 fw_phase_full_multi.launches = 0

@@ -18,7 +18,9 @@ temporary outlives its chunk; under float32 and float64 the upcast is a
 view, and an array of up to CHUNK_ROWS rows is one chunk. Each chunk
 costs the host about 60 operator calls in a solve's set-up, so chunks
 are large (256k rows: four at 1M sites), while a chunk's temporaries
-stay a few (rows, n_s) and (rows, p^2) arrays. Under bfloat16
+stay a few (rows, n_s) and (rows, p^2) arrays; the (rows, p^2) pair
+products take fewer rows a chunk where they would pass GRAM_PAIR_BYTES
+(``pair_chunk_rows``: above p = 45 in float64, 64 in float32). Under bfloat16
 storage every sum runs in float32, and products of bf16 values round
 where the JAX package's solvers, as XLA compiles them, round: a product
 that feeds a float32 sum is exact (d y in b, the Grams' d), ydy takes d y
@@ -32,6 +34,8 @@ import torch
 from demethify_tpu_torch.device import state_dtype
 
 CHUNK_ROWS = 1 << 18
+# bytes of the (rows, p^2) pair products of one chunk of the Gram sums
+GRAM_PAIR_BYTES = 1 << 32
 
 
 def accum_dtype(x: torch.Tensor) -> torch.dtype:
@@ -43,6 +47,13 @@ def accum_dtype(x: torch.Tensor) -> torch.dtype:
 def row_chunks(n: int, chunk: int = CHUNK_ROWS):
     """[lo, hi) bounds of the row chunks the CpG-axis sums take."""
     return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+
+def pair_chunk_rows(p: int, dtype: torch.dtype) -> int:
+    """Rows per chunk of the Gram sums' (rows, p^2) pair products in
+    ``dtype``: CHUNK_ROWS, or as many as GRAM_PAIR_BYTES hold."""
+    per_row = p * p * torch.finfo(dtype).bits // 8
+    return max(1, min(CHUNK_ROWS, GRAM_PAIR_BYTES // max(per_row, 1)))
 
 
 def coverage_max(d, row_weights=None) -> torch.Tensor:
@@ -96,7 +107,7 @@ def sample_grams(R, d, y, row_weights=None):
     G = torch.zeros((n_s, p, p), dtype=acc, device=y.device)
     b = torch.zeros((p, n_s), dtype=acc, device=y.device)
     ydy = torch.zeros((n_s,), dtype=acc, device=y.device)
-    for lo, hi in row_chunks(y.shape[0]):
+    for lo, hi in row_chunks(y.shape[0], pair_chunk_rows(p, acc)):
         Rc, dc = R[lo:hi].to(acc), d[lo:hi].to(acc)
         dy, dyy = storage_dy(d[lo:hi], y[lo:hi], acc)
         if row_weights is not None:
@@ -129,7 +140,7 @@ def weighted_known_grams(R_trunc, d, y, w_b):
     G = w_b.new_zeros((n_b, n_s, n_ct, n_ct))
     b = w_b.new_zeros((n_b, n_ct, n_s))
     ydy = w_b.new_zeros((n_b, n_s))
-    for lo, hi in row_chunks(y.shape[0]):
+    for lo, hi in row_chunks(y.shape[0], pair_chunk_rows(n_ct, acc)):
         R, dc, w = R_trunc[lo:hi].to(acc), d[lo:hi].to(acc), w_b[:, lo:hi]
         dy, dyy = storage_dy(d[lo:hi], y[lo:hi], acc)
         rr = (R[:, :, None] * R[:, None, :]).reshape(hi - lo, n_ct * n_ct)

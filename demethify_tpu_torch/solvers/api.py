@@ -1,22 +1,20 @@
 """High-level deconvolution: init + solve + restarts, for the four modes.
 
 Counterpart of ``demethify_tpu/solvers/api.py``: reference-based,
-partial-reference, purity-constrained and unsupervised. Routing
-(``solver_route``, decided from the shape before anything runs): tensors
-on ``cuda`` use the kernel solvers (``solvers/fused.py``) wherever the
-kernels' shared-memory plans take the shape; tensors on ``cpu``, and
-shapes past one block's shared memory on the card (p of about 160 and
-up in float64, 240 in float32), the plain solvers
-(``solvers/partial_ref.py``, ``purity.py``, ``unsupervised.py``) on the
-tensors' device, as the JAX API runs its XLA solvers off the TPU.
+partial-reference, purity-constrained and unsupervised. Routing: tensors
+on ``cuda`` use the kernel solvers (``solvers/fused.py``), which take any
+shape (past one block's shared memory the kernels keep their rows in
+device memory: K1/K4's global layout, K2/K3/K5/K6's device slabs);
+tensors on ``cpu`` the plain ones (``solvers/partial_ref.py``,
+``purity.py``, ``unsupervised.py``); there is no other route.
 
 Each restart draws its init from its own generator
 (``restart_generators``). An SVD or ICA init draws nothing, so it runs
 one solve whatever ``n_restarts`` says, unless n_u > n_samples sends it
 to the random fallback (``init.is_deterministic``, the JAX API's
 ``_is_deterministic``). On the card, with more than one restart, no
-``init_provided``, the gram form (n_u^2 <= 3 n_s, the JAX API's rule)
-and the kernel route, the restarts run together through the
+``init_provided`` and the gram form (n_u^2 <= 3 n_s, the JAX API's
+rule), the restarts run together through the
 multi-member solvers (``fused.*_solve_fused_multi``: K4 and K5 or K6),
 in chunks of at most ``fused.max_multi_members``; otherwise they run as
 a sequential loop of single solves (``restart_route``). The restart with
@@ -32,11 +30,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from demethify_tpu_torch.device import state_dtype
 from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cost import weighted_cost
-from demethify_tpu_torch.ops.cuda_kernels import gram_form, u_phase_fits
-from demethify_tpu_torch.ops.cuda_small import glue_fits
+from demethify_tpu_torch.ops.cuda_kernels import gram_form
 from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.solvers import fused
@@ -91,41 +87,19 @@ def supervised_deconv(y, d, R) -> DeconvolutionResult:
                                cost=float(cost), n_iter=0)
 
 
-def solver_route(device, dtype, n_s: int, n_ct: int, n_u: int,
-                 weighted: bool = False) -> str:
-    """'kernels' where solves of this shape run the CUDA kernels: a CUDA
-    device, and a shape that K1 (K4 with ``weighted``, the weights
-    bootstrap) and K2/K3 (K5/K6) take, by their shared-memory plans
-    (``cuda_kernels.u_phase_fits``, ``cuda_small.glue_fits``; plain
-    Python, nothing launches). 'plain' otherwise: the CPU, or a shape the
-    plans refuse, whose solves run the plain solvers on the tensors'
-    device. ``dtype`` is the data's (storage) dtype. The kernels keep
-    their own refusals for direct callers."""
-    if torch.device(device).type != "cuda":
-        return "plain"
-    itemsize = torch.finfo(state_dtype(dtype)).bits // 8
-    direct = not gram_form(n_u, n_s)
-    if (u_phase_fits(itemsize, n_s, n_ct, n_u, direct, weighted=weighted)
-            and glue_fits(itemsize, n_ct + n_u, n_s)):
-        return "kernels"
-    return "plain"
-
-
 def restart_route(device, n_u: int, n_s: int, n_restarts: int,
-                  init_provided=None, *, n_ct: int = 0,
-                  dtype=torch.float32, init: str = "uniform_") -> str:
+                  init_provided=None, *, init: str = "uniform_") -> str:
     """'batch' when the restarts run together through the multi-member
     kernels: on a CUDA device, more than one restart, none of them
     deterministic (no ``init_provided``, and no SVD/ICA init unless
-    n_u > n_s), the gram form (n_u^2 <= 3 n_s, the rule by which the JAX
-    API routes restarts to its multi kernel) and the kernel
-    ``solver_route``. 'sequential' otherwise: the direct form (the JAX API
-    vmaps its single solver there; the per-member results are the same),
-    the CPU's plain solvers, shapes past the kernels' plans, one restart,
-    or a deterministic init (one solve)."""
-    if (n_restarts > 1 and init_provided is None
-            and not is_deterministic(init, n_u, n_s) and gram_form(n_u, n_s)
-            and solver_route(device, dtype, n_s, n_ct, n_u) == "kernels"):
+    n_u > n_s), and the gram form (n_u^2 <= 3 n_s, the rule by which the
+    JAX API routes restarts to its multi kernel). 'sequential' otherwise:
+    the direct form (the JAX API vmaps its single solver there; the
+    per-member results are the same), the CPU's plain solvers, one
+    restart, or a deterministic init (one solve)."""
+    if (torch.device(device).type == "cuda" and n_restarts > 1
+            and init_provided is None
+            and not is_deterministic(init, n_u, n_s) and gram_form(n_u, n_s)):
         return "batch"
     return "sequential"
 
@@ -173,11 +147,9 @@ def _multi_cap(y, n_ct, n_u):
 def _solvers(y, d, R_trunc, n_u, purity, kw):
     """(solve, solve_multi) of the mode: unsupervised (R_trunc None),
     purity (purity given) or partial-reference. ``solve`` runs the kernel
-    solver or the plain one by ``solver_route``; ``solve_multi`` the
+    solver on the card, the plain one on the CPU; ``solve_multi`` the
     multi-member kernel solver."""
-    n_ct = 0 if R_trunc is None else R_trunc.shape[1]
-    kernels = solver_route(y.device, y.dtype, y.shape[1], n_ct,
-                           n_u) == "kernels"
+    kernels = y.device.type == "cuda"
     gram_u = fista.use_gram_u(n_u, y.shape[1], kw["n_iter2"])
     if R_trunc is None:
         def solve(u0, a0):
@@ -229,7 +201,7 @@ def _restarts(y, d, R_trunc, n_u, purity, init_fn, init, seed, n_restarts,
     n_s = y.shape[1]
     solve, solve_multi = _solvers(y, d, R_trunc, n_u, purity, kw)
     if restart_route(y.device, n_u, n_s, n_restarts, init_provided,
-                     n_ct=n_ct, dtype=y.dtype, init=init) == "batch":
+                     init=init) == "batch":
         best = _batched_restarts(solve_multi, init_fn, y.device, seed,
                                  n_restarts, _multi_cap(y, n_ct, n_u))
     elif init_provided is not None:
@@ -254,8 +226,7 @@ def solve_members(y, d, R_trunc, n_u: int, inits, *,
               tol_relative=tol_relative, record_trace=False)
     n_ct = 0 if R_trunc is None else R_trunc.shape[1]
     solve, solve_multi = _solvers(y, d, R_trunc, n_u, None, kw)
-    batch = restart_route(y.device, n_u, y.shape[1], len(inits),
-                          n_ct=n_ct, dtype=y.dtype) == "batch"
+    batch = restart_route(y.device, n_u, y.shape[1], len(inits)) == "batch"
     cap = _multi_cap(y, n_ct, n_u) if batch else 1
     return [_result(*res) for res in _member_solves(solve, solve_multi,
                                                      inits, batch, cap)]

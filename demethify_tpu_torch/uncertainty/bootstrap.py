@@ -27,9 +27,7 @@ modes, the unknown profiles. Two layouts, as in the JAX package:
 JAX package does. With an SVD or ICA init the weights layout computes
 the init once on the full data and gives it to every replicate, as the
 JAX package does; the resample layout inits each replicate on its
-gathered rows. On the card, shapes past the kernels' shared-memory plans
-(``api.solver_route``) take the plain solvers on the card's tensors in
-both layouts. The sharded and multi-process routes are item 8.
+gathered rows. The sharded and multi-process routes are item 8.
 
 Random numbers: replicate r draws its resample indices, then its init,
 from its own ``torch.Generator``, seeded from the GLOBAL replicate index
@@ -247,14 +245,10 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         props.append(alpha.cpu().numpy())
         us.append(None if u is None else u.cpu().numpy())
 
-    n_ct = 0 if unsupervised else ref.shape[1]
-    if (method == "weights" and not supervised and gram_form(n_u, n_s)
-            and (y.device.type == "cpu" or api.solver_route(
-                y.device, y.dtype, n_s, n_ct, n_u, weighted=True)
-                == "kernels")):
+    if method == "weights" and not supervised and gram_form(n_u, n_s):
         cap = CPU_MEMBERS if y.device.type == "cpu" else (
             fused.max_multi_members(
-                n_cpg, n_s, n_ct, n_u,
+                n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
                 torch.finfo(dtype).bits // 8, y.element_size(),
                 fused.free_device_bytes(y.device), weighted=True))
         for lo in range(0, n_bootstrap, cap):

@@ -366,8 +366,15 @@ def test_layout_covers_the_cohort_shapes(itemsize):
 
 
 def test_layout_raises_stating_the_shape():
-    with pytest.raises(NotImplementedError, match=r"n_ct = 400.*bytes"):
-        u_phase_layout("u_phase_grams", 8, 10, 400, 4)
+    """Past the wide layout (2 x 10 rows of Y and D and 400 + 4 rows of
+    [Rt | u], 129 float64 values each: 437,568 bytes) the plan no longer
+    raises: the global layout keeps the [Rt | u] rows in device memory and
+    one chunk of Y and D in shared memory."""
+    assert u_phase_smem("wide", 8, 10, 400, 4) > SMEM_LIMIT
+    assert u_phase_layout("u_phase_grams", 8, 10, 400, 4) == (
+        "global", 8 * 2 * 10 * 129)
+    assert cuda_kernels.global_rows(400, 4) == 404
+    assert cuda_kernels.global_rows(400, 4, bf16c=True) == 408
     # grows with n_s only up to one chunk of 32 samples
     assert u_phase_smem("wide", 8, 10_000, 25, 4) == u_phase_smem(
         "wide", 8, 32, 25, 4) > u_phase_smem("wide", 8, 10, 25, 4)

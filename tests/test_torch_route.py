@@ -1,11 +1,11 @@
-"""The route by shape on the card (``solvers.api.solver_route``): a shape
-past one block's shared memory runs the plain solvers on the card's
-tensors instead of raising. Decided from the kernels' plans, which are
-plain Python, so it is tested here at the boundary shapes of both plans,
-float32, float64 and bf16 storage (a float32 state), and held to the
-plans' own refusals: where the route says 'kernels' neither
-``u_phase_layout`` nor the glue kernels' shape check raises, where it
-says 'plain' one of them does.
+"""The kernels' plans past one block's shared memory: K1/K4 take the
+global layout (the [Rt | u] rows in device memory) where even the wide
+layout would not fit, and K2/K3/K5/K6 keep their slabs in device memory
+where one warp's slab would not fit, so a CUDA tensor of any shape runs
+the kernels (``solvers.api`` has no other route on the card). The plans
+are plain Python, so they are tested here at the boundary shapes,
+float32, float64 and bf16 storage (a float32 state): where the rows stay
+in shared memory, and where they go to device memory, nothing raises.
 
 The boundaries, from the bytes of shared memory a block may use (232,448
 on an H100; the glue kernels keep 1 KB of it):
@@ -19,62 +19,68 @@ on an H100; the glue kernels keep 1 KB of it):
 import pytest
 import torch
 
-from demethify_tpu_torch.ops.cuda_kernels import u_phase_layout
-from demethify_tpu_torch.ops.cuda_small import _check_glue_shape
+from demethify_tpu_torch.ops.cuda_kernels import (
+    SMEM_LIMIT,
+    u_phase_layout,
+    u_phase_smem,
+)
+from demethify_tpu_torch.ops.cuda_multi import k4_member_plan
+from demethify_tpu_torch.ops.cuda_small import glue_smem, glue_work
 from demethify_tpu_torch.solvers import api
 
 F64, F32, BF16 = torch.float64, torch.float32, torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype,n_s,n_ct,n_u,weighted,want", [
-    (F64, 10, 166, 1, False, "kernels"),     # p = 167: the glue's last
-    (F64, 10, 167, 1, False, "plain"),       # p = 168: past one slab
-    (F32, 10, 236, 1, False, "kernels"),     # p = 237
-    (F32, 10, 237, 1, False, "plain"),       # p = 238
-    (BF16, 10, 236, 1, False, "kernels"),    # a float32 state
-    (BF16, 10, 237, 1, False, "plain"),
-    (F64, 64, 160, 1, False, "kernels"),     # p = 161: K1 wide, last
-    (F64, 64, 161, 1, False, "plain"),       # p = 162: K1 past its plan
-    (F32, 64, 236, 1, False, "kernels"),     # the glue decides in float32
-    (F32, 64, 237, 1, False, "plain"),
-    (F64, 10, 157, 10, False, "kernels"),    # direct form (100 > 30)
-    (F64, 10, 158, 10, False, "plain"),
-    (F64, 64, 157, 2, True, "kernels"),      # K4 weighted: p = 159
-    (F64, 64, 158, 2, True, "plain"),        # p = 160 weighted ...
-    (F64, 64, 158, 2, False, "kernels"),     # ... but not unweighted
-    (F32, 10, 5, 1, False, "kernels"),       # the main path
-    (F32, 100, 25, 4, False, "kernels"),     # the cohort
+    (F64, 10, 166, 1, False, "shared"),      # p = 167: the glue's last
+    (F64, 10, 167, 1, False, "device"),      # p = 168: past one slab
+    (F32, 10, 236, 1, False, "shared"),      # p = 237
+    (F32, 10, 237, 1, False, "device"),      # p = 238
+    (BF16, 10, 236, 1, False, "shared"),     # a float32 state
+    (BF16, 10, 237, 1, False, "device"),
+    (F64, 64, 160, 1, False, "shared"),      # p = 161: K1 wide, last
+    (F64, 64, 161, 1, False, "device"),      # p = 162: K1 global
+    (F32, 64, 236, 1, False, "shared"),      # the glue decides in float32
+    (F32, 64, 237, 1, False, "device"),
+    (F64, 10, 157, 10, False, "shared"),     # direct form (100 > 30)
+    (F64, 10, 158, 10, False, "device"),
+    (F64, 64, 157, 2, True, "shared"),       # K4 weighted: p = 159
+    (F64, 64, 158, 2, True, "device"),       # p = 160 weighted ...
+    (F64, 64, 158, 2, False, "shared"),      # ... but not unweighted
+    (F32, 10, 5, 1, False, "shared"),        # the main path
+    (F32, 100, 25, 4, False, "shared"),      # the cohort
 ])
 def test_solver_route_at_the_plans_boundaries(dtype, n_s, n_ct, n_u,
                                               weighted, want):
-    assert api.solver_route("cuda", dtype, n_s, n_ct, n_u,
-                            weighted=weighted) == want
-    assert api.solver_route("cpu", dtype, n_s, n_ct, n_u,
-                            weighted=weighted) == "plain"
     state = 8 if dtype == F64 else 4
+    p = n_ct + n_u
     direct = n_u * n_u > 3 * n_s
-    refusals = 0
-    try:
-        u_phase_layout("k", state, n_s, n_ct, n_u, direct,
-                       weighted=weighted)
-    except NotImplementedError:
-        refusals += 1
-    try:
-        _check_glue_shape("k", state, n_ct + n_u, n_s)
-    except NotImplementedError:
-        refusals += 1
-    assert (refusals == 0) == (want == "kernels")
+    layout, smem = u_phase_layout("k", state, n_s, n_ct, n_u, direct,
+                                  weighted=weighted)
+    assert smem <= SMEM_LIMIT
+    wide = u_phase_smem("wide", state, n_s, n_ct, n_u, direct,
+                        weighted=weighted)
+    assert (layout == "global") == (wide > SMEM_LIMIT)
+    n_warps, _ = glue_smem(state, p, n_s)
+    work = glue_work(state, p, n_s)
+    assert (work > 0) == (n_warps == 0)
+    if work:
+        assert work == min(n_s, 32) * (p * p + 6 * p)
+    if weighted and layout == "global":
+        plan = k4_member_plan(state, n_s, n_ct, n_u, 16, True, layout)
+        assert plan["group"] == 8 and plan["smem"] == smem
+    got = "device" if layout == "global" or work else "shared"
+    assert got == want
 
 
-@pytest.mark.parametrize("kw,want", [
-    (dict(), "batch"),
-    (dict(n_ct=167, dtype=F64), "sequential"),      # past the glue's slab
-    (dict(n_ct=166, dtype=F64), "batch"),
-    (dict(n_ct=237, dtype=BF16), "sequential"),
-    (dict(init="SVD"), "sequential"),               # one deterministic solve
-    (dict(init="ICA"), "sequential"),
-    (dict(init="beta"), "batch"),
+@pytest.mark.parametrize("args,kw,want", [
+    (("cuda", 1, 10, 4), {}, "batch"),
+    (("cuda", 5, 10, 4), {}, "batch"),             # gram form: 25 <= 30
+    (("cuda", 6, 10, 4), {}, "sequential"),        # direct form: 36 > 30
+    (("cpu", 1, 10, 4), {}, "sequential"),         # the plain solvers
+    (("cuda", 1, 10, 4), {"init": "SVD"}, "sequential"),   # one solve
+    (("cuda", 1, 10, 4), {"init": "ICA"}, "sequential"),
+    (("cuda", 1, 10, 4), {"init": "beta"}, "batch"),
 ])
-def test_restart_route_takes_the_shape_route(kw, want):
-    assert api.restart_route("cuda", 1, 10, 4, **kw) == want
-
+def test_restart_route_takes_the_shape_route(args, kw, want):
+    assert api.restart_route(*args, **kw) == want
