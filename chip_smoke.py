@@ -146,7 +146,20 @@ non-zero and prints no result line):
    to 25 unknowns, every form the full-width sweep takes)
    (``phase_sweep``); and the CLI with ``--init SVD|ICA`` in the three
    iterative modes and ``--ic AIC|BIC|CCC|BCV|minka`` (``--init SVD
-   --icmax 3``), card against ``--device cpu`` (``phase_cli_inits_ic``).
+   --icmax 3``), card against ``--device cpu`` (``phase_cli_inits_ic``);
+12. the row-sharded runs (``phase_ranks``): two ranks on the one card
+   (processes of this script, ``--ranks-worker``, over gloo) run the
+   row-sharded solvers at 1M x 10 (partial-reference float32 and float64
+   50 x 20, purity 10 x 500, unsupervised, the partial-reference and
+   purity multi solvers at B = 4, the row-sharded weights bootstrap at
+   B = 8, 30 x 20), each held to the one-rank kernel solve on the card,
+   every rank with the same bits, and the launches of each rank one per
+   kernel and outer iteration; where the machine has several cards, one
+   rank a card over NCCL too; then the CLI with ``--multihost`` as two
+   processes against the one-process CLI (float64, the phase-10 fixture:
+   ``--confidence 90 7 --restart 4`` with ``--savestate``, ``--ic AIC
+   --icmax 3``, a warm start from ``--initstate``), and ``--shard`` over
+   the cards where there are several (``phase_ranks_cli``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -5783,6 +5796,377 @@ def _single_phase_rows(single):
                         "table")]
 
 
+# ------------------------------------------------------------ phase 12
+# Row-sharded runs: RANKS ranks on the one card over gloo (a correctness
+# run: gloo sums through the host, so its times are not scaling), held to
+# the one-rank kernel solve on the same card; the CLI with --multihost;
+# NCCL over the cards where the machine has more than one.
+RANKS = 2
+RANK_OUTER, RANK_P_OUTER, RANK_BOOT_OUTER = 50, 10, 30
+RANK_MEMBERS, RANK_BOOT = 4, 8
+RANK_SEED = 11
+# the kernels each row-sharded solve launches once an outer iteration
+RANK_KERNELS = {
+    "partial-ref float32": ("u_phase_grams", "alpha_phase_full"),
+    "partial-ref float64": ("u_phase_grams", "alpha_phase_full"),
+    "purity float64": ("u_phase_grams", "fw_phase_full"),
+    "unsupervised float64": ("u_phase_grams", "alpha_phase_full"),
+    "partial-ref multi float64": ("u_phase_grams_multi",
+                                  "alpha_phase_full_multi"),
+    "purity multi float64": ("u_phase_grams_multi", "fw_phase_full_multi"),
+    "weights bootstrap float64": ("u_phase_grams_multi",
+                                  "alpha_phase_full_multi")}
+
+
+def rank_solves(axis, block):
+    """The phase's solves on this rank's block of the 1M x 10 problem
+    (5 + 1; unsupervised n_u = 3) through the row-sharded solvers, tol = 0:
+    partial-reference float32 and float64 (RANK_OUTER x 20), purity
+    float64 (RANK_P_OUTER x 500), unsupervised float64, the
+    partial-reference and purity multi solvers at B = RANK_MEMBERS, and
+    the row-sharded weights bootstrap (B = RANK_BOOT, RANK_BOOT_OUTER x
+    20, ``bootstrap_ci(shard=)``). Each runs once with one outer
+    iteration to warm up, once more so timed (its fixed cost), then with
+    the counters set to 0 just before and read just after, timed with
+    CUDA events. ``axis`` LOCAL with the whole block: the one-rank
+    solves. -> {name: dict(u (this rank's data rows; the bootstrap: its u
+    bounds, all rows), alpha, trace, n_iter, launches, ms_iter (all in),
+    fixed_ms, further_ms (an outer iteration past the first))}."""
+    import torch
+
+    from demethify_tpu_torch.parallel.distributed import Shard
+    from demethify_tpu_torch.solvers import fused
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    out = {}
+
+    def run(name, make, n_outer):
+        """make(n_iter1) -> the solve's call."""
+        make(1)()
+        torch.cuda.synchronize()
+        _, fixed_ms = timed_ms(make(1))
+        reset_counts()
+        res, ms = timed_ms(make(n_outer))
+        launches = {k: v for k, v in read_counts().items() if v}
+        want = {k: n_outer for k in RANK_KERNELS[name]}
+        check(launches == want, f"[ranks] {name}: launches {launches} != "
+                                f"{want} on rank {axis.rank}")
+        if name.startswith("weights"):
+            lo_p, hi_p, lo_u, hi_u = res
+            u, alpha = (np.stack([lo_u, hi_u])[:, :block.n_rows],
+                        np.stack([lo_p, hi_p]))
+            trace, n_iter = np.zeros(0), np.asarray(n_outer)
+        else:
+            u, alpha, info = res
+            u = u[..., :block.n_data, :].cpu().numpy()
+            alpha, trace = alpha.cpu().numpy(), info["trace"].cpu().numpy()
+            n_iter = np.asarray(info["n_iter"])
+        out[name] = dict(u=u, alpha=alpha, trace=trace, n_iter=n_iter,
+                         launches=launches, ms_iter=ms / n_outer,
+                         fixed_ms=fixed_ms,
+                         further_ms=(ms - fixed_ms) / (n_outer - 1))
+
+    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        np_dt = np.float32 if dname == "float32" else np.float64
+        u0, a0, y, d, Rt = make_problem(np_dt, seed=RANK_SEED)
+
+        def rows(x, axis_=0):
+            return torch.as_tensor(block.take(x, axis_)).to(DEV)
+
+        yb, db, Rb = rows(y), rows(d), rows(Rt)
+        a0t = torch.as_tensor(a0).to(DEV)
+
+        def kw(n_iter1, n_iter2=N_INNER):
+            return dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=0.0,
+                        record_trace=True)
+
+        run(f"partial-ref {dname}",
+            lambda n: lambda: fused.partial_ref_solve_fused_sharded(
+                rows(u0), a0t, yb, db, Rb, N_U, axis, **kw(n)), RANK_OUTER)
+        if dname == "float32":
+            continue
+        pur = torch.as_tensor(purity_draw(RANK_SEED)).to(DEV)
+        run("purity float64",
+            lambda n: lambda: fused.purity_solve_fused_sharded(
+                rows(u0), a0t, yb, db, Rb, pur, N_U, axis, **kw(n, P_INNER)),
+            RANK_P_OUTER)
+        uu0, ua0 = unsupervised_init(N_CPG, np_dt, RANK_SEED)
+        run("unsupervised float64",
+            lambda n: lambda: fused.unsupervised_solve_fused_sharded(
+                rows(uu0), torch.as_tensor(ua0).to(DEV), yb, db, U_N_U, axis,
+                **kw(n)), RANK_OUTER)
+        u_b, a_b = _member_inits(N_CPG, RANK_MEMBERS, N_CT, N_U, RANK_SEED)
+        run("partial-ref multi float64",
+            lambda n: lambda: fused.partial_ref_solve_fused_multi_sharded(
+                rows(u_b, 1), torch.as_tensor(a_b).to(DEV), yb, db, Rb, N_U,
+                axis, **kw(n)), RANK_OUTER)
+        pu_b, pa_b = _member_inits(N_CPG, RANK_MEMBERS, N_CT, N_U,
+                                   RANK_SEED, purity=purity_draw(RANK_SEED))
+        run("purity multi float64",
+            lambda n: lambda: fused.purity_solve_fused_multi_sharded(
+                rows(pu_b, 1), torch.as_tensor(pa_b).to(DEV), yb, db, Rb, pur,
+                N_U, axis, **kw(n, P_INNER)), RANK_P_OUTER)
+        full = {}
+
+        def full_data():
+            if not full:
+                full["yd"] = tuple(torch.as_tensor(x).to(DEV)
+                                   for x in (y, d, Rt))
+            return full["yd"]
+
+        data, bkw = full_data(), {}
+        if axis.size > 1:
+            data = (yb, db, Rb)
+            bkw = dict(shard=Shard(axis, block, full_data))
+        run("weights bootstrap float64", lambda n: lambda: bootstrap_ci(
+            *data, N_U, level=90, n_bootstrap=RANK_BOOT, n_iter1=n,
+            n_iter2=N_INNER, tol=0.0, seed=RANK_SEED, method="weights",
+            **bkw), RANK_BOOT_OUTER)
+        full.clear()
+    return out
+
+
+def rank_worker(out_dir, store, n_ranks, rank):
+    """One rank of ``phase_ranks``: ``rank_solves`` on its block, saved to
+    out_dir/rankRANK.npz (arrays) and .json (launches, times)."""
+    from demethify_tpu_torch.parallel.distributed import initialize, shutdown
+    from demethify_tpu_torch.parallel.mesh import row_block
+
+    axis, device = initialize(store, n_ranks, rank, "cuda")
+    try:
+        t0 = time.perf_counter()
+        res = rank_solves(axis, row_block(N_CPG, n_ranks, rank))
+        arrays = {f"{name}/{k}": v for name, r in res.items()
+                  for k, v in r.items() if isinstance(v, np.ndarray)}
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"backend": axis.backend, "device": str(device),
+                       "wall_s": time.perf_counter() - t0,
+                       "solves": {name: {k: r[k] for k in (
+                           "launches", "ms_iter", "fixed_ms", "further_ms")}
+                                  for name, r in res.items()}}, f)
+    finally:
+        shutdown(axis)
+    return 0
+
+
+def _run_rank_processes(argvs, timeout, cards=False):
+    """Run the rank processes (``cards``: LOCAL_RANK r, each on a card of
+    its own); fail unless every one exits 0."""
+    from demethify_tpu_torch.parallel.distributed import run_ranks
+
+    envs = ([dict(os.environ, LOCAL_RANK=str(r)) for r in range(len(argvs))]
+            if cards else None)
+    codes = run_ranks([[sys.executable, *a] for a in argvs], timeout, envs,
+                      cwd=HERE)
+    check(codes == [0] * len(argvs), f"rank processes exited {codes}")
+
+
+def phase_ranks(card):
+    """RANKS ranks on the one card (gloo), and where the machine has
+    several cards one rank a card (NCCL), each against the one-rank
+    kernel solve: float64 cost trace rtol 1e-9, u and alpha atol 1e-9
+    (float32: TRAJ_TOL), every rank with the same bits of cost, alpha and
+    n_iter, and the launches of each solve on each rank one per kernel and
+    outer iteration. Returns {name: {one, two, launches}} of the one-card
+    run (one and two: the times of one rank and of the slowest rank)."""
+    import torch
+
+    from demethify_tpu_torch.parallel.distributed import LOCAL
+    from demethify_tpu_torch.parallel.mesh import row_block
+
+    t0 = time.perf_counter()
+    one = rank_solves(LOCAL, row_block(N_CPG, 1, 0))
+    log(f"[ranks] the one-rank solves took {time.perf_counter() - t0:.1f} s")
+    out = _ranks_vs_one(one, RANKS, card, False)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"[ranks] NCCL over several cards: this machine has {n_cards} "
+            f"card; the multi-card run waits for a machine with more than "
+            f"one")
+    else:
+        _ranks_vs_one(one, n_cards, card, True)
+    return out
+
+
+def _ranks_vs_one(one, n_ranks, card, cards):
+    """``rank_worker`` on n_ranks processes (``cards``: one a card) against
+    the one-rank results ``one``."""
+    with tempfile.TemporaryDirectory() as root:
+        store = "file://" + os.path.join(root, "store")
+        t0 = time.perf_counter()
+        _run_rank_processes([[os.path.join(HERE, "chip_smoke.py"),
+                              "--ranks-worker", root, store, str(n_ranks),
+                              str(r)] for r in range(n_ranks)], 900, cards)
+        t_two = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(root, f"rank{r}.npz")))
+                 for r in range(n_ranks)]
+        meta = []
+        for r in range(n_ranks):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                meta.append(json.load(f))
+    backend = "nccl" if cards else "gloo"
+    log(f"[ranks] {n_ranks} ranks on {[m['device'] for m in meta]} (card "
+        f"{card}), sums by {meta[0]['backend']}: the processes took "
+        f"{t_two:.1f} s (solves {max(m['wall_s'] for m in meta):.1f} s)")
+    check(all(m["backend"] == backend for m in meta),
+          f"{n_ranks} ranks: sums by {[m['backend'] for m in meta]}, not "
+          f"{backend}")
+    what = ("one a card, NCCL" if cards else
+            "on the one card (correctness run: gloo through the host, not "
+            "scaling)")
+    out = {}
+    for name, want in one.items():
+        tol = (TRAJ_TOL["float32"] if "float32" in name else
+               {"cost": 1e-9, "alpha": 1e-9})
+        # u moves with alpha: float32 takes alpha's trajectory bound
+        utol = tol["alpha"]
+        key = f"{name}/"
+        for r in ranks[1:]:
+            for k in ("alpha", "trace", "n_iter"):
+                check(np.array_equal(r[key + k], ranks[0][key + k],
+                                     equal_nan=True),
+                      f"[ranks] {name}: ranks disagree on {k}")
+        u = (ranks[0][key + "u"] if name.startswith("weights") else
+             np.concatenate([r[key + "u"] for r in ranks], axis=-2))
+        err_u = float(np.max(np.abs(u - want["u"])))
+        err_a = float(np.max(np.abs(ranks[0][key + "alpha"] - want["alpha"])))
+        tr, tw = ranks[0][key + "trace"], want["trace"]
+        err_c = (float(np.max(np.abs(tr - tw) / np.abs(tw))) if tw.size
+                 else 0.0)
+        same_iter = np.array_equal(ranks[0][key + "n_iter"], want["n_iter"])
+        launches = [m["solves"][name]["launches"] for m in meta]
+        two = {k: max(m["solves"][name][k] for m in meta)
+               for k in ("ms_iter", "fixed_ms", "further_ms")}
+        log(f"[ranks] {name}: {n_ranks} ranks vs one: cost trace max rel "
+            f"diff {err_c:.3e} (tol {tol['cost']:.0e}), alpha max|diff| "
+            f"{err_a:.3e} (tol {tol['alpha']:.0e}), u max|diff| {err_u:.3e} "
+            f"(tol {utol:.0e}), n_iter equal {same_iter}; launches per rank "
+            f"{launches}; ms per outer iteration past the first (all in; "
+            f"fixed cost) one rank {want['further_ms']:.4f} "
+            f"({want['ms_iter']:.4f}; {want['fixed_ms']:.2f}), {n_ranks} "
+            f"ranks {what} {two['further_ms']:.4f} ({two['ms_iter']:.4f}; "
+            f"{two['fixed_ms']:.2f})")
+        check(same_iter and err_c <= tol["cost"] and err_a <= tol["alpha"]
+              and err_u <= utol, f"[ranks] {name}: {n_ranks} ranks differ "
+                                 f"from one")
+        check(all(lc == want["launches"] for lc in launches),
+              f"[ranks] {name}: launches {launches} != {want['launches']}")
+        out[name] = dict(one={k: want[k] for k in two}, two=two,
+                         launches=want["launches"])
+    return out
+
+
+def _parts(outdir, n_ranks=RANKS):
+    """The multi-process profile part files, reassembled in row order."""
+    header, rows = None, []
+    for r in range(n_ranks):
+        h, part = _read_csv(os.path.join(
+            outdir, f"methylation_profile_estimate.part{r:04d}.csv"))
+        header = h[1:]
+        rows.extend(part)
+    check([int(r[0]) for r in rows] == list(range(len(rows))),
+          "part files' global rows")
+    return header, np.array([[float(x) for x in r[1:]] for r in rows])
+
+
+def phase_ranks_cli():
+    """The CLI with --multihost as RANKS processes on the one card against
+    the one-process CLI, float64, on the phase-10 fixture: proportions
+    within 1e-8, the part files reassembling into the profile,
+    ``--confidence 90 7`` (with ``--restart 4``), ``--ic AIC --icmax 3``,
+    ``--savestate`` and a warm start from ``--initstate``; then ``--shard``
+    over the cards where there are several."""
+    import torch
+
+    from demethify_tpu_torch.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as root:
+        samples, ref = _write_fixture(root)
+        base = ["--methfreq", *samples, "--bedmethyl", "--noprint",
+                "--device", DEV, "--dtype", "float64", "--ref", ref]
+        ckpt = os.path.join(root, "ckpt")
+        iters = ["--iterations", "200", "20"]
+        runs = (("confidence", ["--nbunknown", "1", *iters, "--restart", "4",
+                                "--confidence", "90", "7"],
+                 ["--savestate", ckpt + "-one"], ["--savestate", ckpt]),
+                ("ic", ["--ic", "AIC", "--icmax", "3", *iters], [], []),
+                ("warm start", ["--nbunknown", "1", *iters], ["--initstate",
+                                                              ckpt],
+                 ["--initstate", ckpt]))
+        for tag, extra, one_extra, two_extra in runs:
+            one = os.path.join(root, f"{tag}-one")
+            two = os.path.join(root, f"{tag}-two")
+            t0 = time.perf_counter()
+            check(cli_main(base + extra + one_extra + ["--outdir", one]) == 0,
+                  f"CLI {tag}: one process")
+            t_one = time.perf_counter() - t0
+            store = "file://" + os.path.join(root, f"{tag}-store")
+            t0 = time.perf_counter()
+            _run_rank_processes(
+                [["-m", "demethify_tpu_torch", *base, *extra, *two_extra,
+                  "--outdir", two, "--multihost", store, str(RANKS), str(r)]
+                 for r in range(RANKS)], 600)
+            t_two = time.perf_counter() - t0
+            props = [np.array([[float(x) for x in r[1:]] for r in _read_csv(
+                os.path.join(o, "celltypes_proportions.csv"))[1]])
+                for o in (one, two)]
+            err = float(np.max(np.abs(props[0] - props[1])))
+            msg = (f"[ranks cli] {tag}: {RANKS} processes vs one, "
+                   f"proportions max|diff| {err:.3e} (tol 1e-8)")
+            check(err <= 1e-8, msg)
+            if tag == "ic":
+                logs = [open(os.path.join(o, "log.log")).read().splitlines()
+                        for o in (one, two)]
+                check(logs[0][1] == logs[1][1], f"--ic chose {logs}")
+                msg += f"; {logs[1][1]}"
+            else:
+                h1, p1 = _read_csv(os.path.join(
+                    one, "methylation_profile_estimate.csv"))
+                h2, p2 = _parts(two)
+                p1 = np.array([[float(x) for x in r] for r in p1])
+                err_u = float(np.max(np.abs(p1 - p2)))
+                check(h1 == h2 and err_u <= 1e-8,
+                      f"{tag}: part files vs the profile {err_u}")
+                msg += f", part files vs the profile {err_u:.3e}"
+            if tag == "confidence":
+                for name, index in (
+                        ("confidence_interval_celltypes_proportions.csv",
+                         True),
+                        ("confidence_interval_methylation_estimate.csv",
+                         False)):
+                    lo1, hi1 = _read_ci(os.path.join(one, name), index)
+                    lo2, hi2 = _read_ci(os.path.join(two, name), index)
+                    rel = float(max(np.max(np.abs(lo1 - lo2) / np.maximum(
+                        np.abs(lo1), 1e-300)), np.max(np.abs(hi1 - hi2)
+                                                     / np.maximum(
+                                                         np.abs(hi1), 1e-300))))
+                    check(rel <= 1e-10, f"{name}: rel diff {rel}")
+                    msg += f", {name} rel diff {rel:.1e}"
+            log(f"{msg}; wall one {t_one:.1f} s, {RANKS} processes "
+                f"{t_two:.1f} s")
+        n_cards = torch.cuda.device_count()
+        if n_cards < 2:
+            log(f"[ranks cli] --shard over NCCL: this machine has {n_cards} "
+                f"card; the multi-card run waits for a machine with more "
+                f"than one")
+            return
+        outs = [os.path.join(root, f"shard-{k}") for k in ("one", "cards")]
+        flags = base + ["--nbunknown", "1", *iters]
+        check(cli_main(flags + ["--outdir", outs[0]]) == 0, "CLI one card")
+        check(cli_main(flags + ["--shard", "--outdir", outs[1]]) == 0,
+              "CLI --shard")
+        props = [np.array([[float(x) for x in r[1:]] for r in _read_csv(
+            os.path.join(o, "celltypes_proportions.csv"))[1]]) for o in outs]
+        err = float(np.max(np.abs(props[0] - props[1])))
+        check(err <= 1e-8, f"--shard proportions differ by {err}")
+        _, p_shard = _parts(outs[1], n_cards)
+        check(p_shard.shape == (N_CLI, 1), "--shard part files")
+        log(f"[ranks cli] --shard over {n_cards} cards (NCCL): proportions "
+            f"max|diff| {err:.3e} from the one-card run (tol 1e-8), part "
+            f"files of {p_shard.shape[0]} rows")
+
+
 def main():
     try:
         import torch
@@ -5848,6 +6232,8 @@ def main():
     phase_inits(card)
     phase_sweep(problem32, card)
     phase_cli_inits_ic()
+    ranks = phase_ranks(card)
+    phase_ranks_cli()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
                   for m in sys.modules), "a JAX-package module was imported")
@@ -6000,6 +6386,13 @@ def main():
         mask_paths, env))
     kernels["kernels"].extend(_global_rows(glob, past))
     kernels["kernels"].extend(_single_phase_rows(single))
+    for row in kernels["kernels"]:
+        # K1-K6: launches on each rank of the row-sharded solves
+        per_rank = {name: r["launches"][row["name"]]
+                    for name, r in ranks.items()
+                    if row["name"] in r["launches"]}
+        if per_rank:
+            row["sharded_launches_per_rank"] = per_rank
     log(f"[done] K1's partial buffer at 1M x 500, 25+4, float64: "
         f"{partial['partial_bytes'] / 1e9:.3f} GB, "
         f"{partial['partial_bytes'] / partial['yd_bytes']:.3f} of Y + D; the "
@@ -6013,4 +6406,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        sys.path.insert(0, HERE)
+        sys.exit(rank_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                             int(sys.argv[5])))
     sys.exit(main())

@@ -44,14 +44,12 @@ LOGO = r"""
 
 # flag -> the ROADMAP port-queue item that ports it
 NOT_PORTED = {
-    "shard": "item 8 (torch.distributed)",
-    "multihost": "item 8 (torch.distributed)",
-    "savestate": "item 5 (checkpoints)",
-    "initstate": "item 5 (checkpoints)",
     "profile": "item 11 (observability: --profile, --debugnans, --plot)",
     "debugnans": "item 11 (observability: --profile, --debugnans, --plot)",
     "plot": "item 11 (observability: --profile, --debugnans, --plot)",
 }
+# how long a --shard run waits for its workers
+SHARD_TIMEOUT_S = 7 * 24 * 3600
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,13 +127,33 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--icmax', nargs=1, type=int, default=[25],
                         help='Upper end of the --ic sweep range '
                              '(default 25)')
+    parser.add_argument('--shard', action='store_true',
+                        help='Row-shard the CpG axis over all local GPUs: '
+                             'one worker process per card, the Gram sums '
+                             'over the cards by NCCL (one card, or --device '
+                             'cpu: the single-device run)')
+    parser.add_argument('--multihost', nargs=3, default=None,
+                        metavar=('COORD', 'NPROC', 'PID'),
+                        help='Join a multi-process run: the rendezvous '
+                             'address (host:port, or a file:// path on a '
+                             'shared filesystem), the process count and '
+                             'this process id. Every process runs the same '
+                             'command; the CpG rows are sharded over all of '
+                             'them, process 0 writes the small outputs and '
+                             'each process its methylation_profile_estimate'
+                             '.partNNNN.csv')
+    parser.add_argument('--savestate', type=str, default=None,
+                        help='Save the converged factor state (U, alpha, '
+                             'cost) to this directory (checkpoint.py)')
+    parser.add_argument('--initstate', type=str, default=None,
+                        help='Warm-start the solver from a --savestate '
+                             'checkpoint instead of --init')
+    # a --shard run's worker: --multihost's three values, with --shard's
+    # bootstrap layout
+    parser.add_argument('--shard-worker', nargs=3, default=None,
+                        help=argparse.SUPPRESS)
     # accepted so that a JAX-CLI command line fails with a clear message
     parser.add_argument('--plot', action='store_true', help='Not ported yet')
-    parser.add_argument('--shard', action='store_true',
-                        help='Not ported yet')
-    parser.add_argument('--multihost', nargs=3, help='Not ported yet')
-    parser.add_argument('--savestate', type=str, help='Not ported yet')
-    parser.add_argument('--initstate', type=str, help='Not ported yet')
     parser.add_argument('--profile', type=str, help='Not ported yet')
     parser.add_argument('--debugnans', action='store_true',
                         help='Not ported yet')
@@ -169,17 +187,67 @@ def flip_purity(percent, n_samples: int):
     return purity
 
 
+def _run_shard_workers(argv, n_cards: int) -> int:
+    """``--shard`` over ``n_cards`` GPUs: one worker process per card, each
+    this command as a ``--multihost`` rank of the workers (LOCAL_RANK its
+    card) at a file store in a fresh temporary directory. Returns 0 when
+    every worker does, else the first failing worker's code (the others
+    are then stopped)."""
+    import tempfile
+
+    from demethify_tpu_torch.parallel.distributed import run_ranks
+
+    worker_argv = [a for a in argv if a != "--shard"]
+    with tempfile.TemporaryDirectory(prefix="demethify-shard-") as tmp:
+        store = "file://" + os.path.join(tmp, "store")
+        commands = [[sys.executable, "-m", "demethify_tpu_torch",
+                     *worker_argv, "--shard-worker", store, str(n_cards),
+                     str(i)] for i in range(n_cards)]
+        envs = [dict(os.environ, LOCAL_RANK=str(i)) for i in range(n_cards)]
+        codes = run_ranks(commands, SHARD_TIMEOUT_S, envs)
+    bad = [c for c in codes if c != 0]
+    return bad[0] if bad else 0
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.initstate and (args.ic or (args.ref and not args.nbunknown)):
+        sys.stderr.write(
+            "Error: --initstate warm-starts the iterative solvers; it "
+            "cannot be used with --ic or the reference-based "
+            "(no --nbunknown) mode.\n")
+        sys.exit(1)
+    if args.multihost and args.shard:
+        sys.exit("Error: --multihost with --shard (replicates or model ranks "
+                 "over the processes, rows over each process's GPUs) is not "
+                 "ported to PyTorch yet (ROADMAP port queue item 8).")
 
     import torch
 
-    from demethify_tpu_torch.device import (
-        resolve_device,
-        resolve_dtype,
-        state_dtype,
-    )
+    if (args.shard and args.device == "cuda" and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        return _run_shard_workers(argv, torch.cuda.device_count())
+
+    from demethify_tpu_torch.parallel.distributed import initialize, shutdown
+
+    ranks = args.multihost or args.shard_worker
+    address, n_procs, proc_id = ((None, 1, 0) if ranks is None else
+                                 (ranks[0], int(ranks[1]), int(ranks[2])))
+    axis, device = initialize(address, n_procs, proc_id, args.device)
+    try:
+        return _run(args, axis, device)
+    finally:
+        shutdown(axis)
+
+
+def _run(args, axis, device):
+    """The run of one process (rank ``axis.rank`` of ``axis.size``) on
+    ``device``."""
+    import torch
+
+    from demethify_tpu_torch.device import resolve_dtype, state_dtype
     from demethify_tpu_torch.io.readers import load_dataset
     from demethify_tpu_torch.io.writers import (
         write_ci_profile,
@@ -188,6 +256,12 @@ def main(argv=None):
         write_profile_estimate,
         write_proportions,
     )
+    from demethify_tpu_torch.parallel.distributed import (
+        Shard,
+        addressable_row_block,
+        shard_dataset_global,
+    )
+    from demethify_tpu_torch.parallel.mesh import row_block
     from demethify_tpu_torch.solvers.api import (
         partial_reference_deconv,
         purity_deconv,
@@ -195,15 +269,18 @@ def main(argv=None):
         unsupervised_deconv,
     )
     from demethify_tpu_torch.selection.sweep import evaluate_best_ic
-    from demethify_tpu_torch.state import purity_from_numpy
-    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+    from demethify_tpu_torch.state import purity_from_numpy, restore_factors
+    from demethify_tpu_torch.uncertainty.bootstrap import (
+        bootstrap_ci,
+        resolve_method,
+        row_sharded,
+    )
     from demethify_tpu_torch.utils import (
         SolveStats,
         termination_resolution_warning,
         write_cost_trace,
     )
 
-    device = resolve_device(args.device)
     dtype = resolve_dtype(args.dtype)
     restart = 1 if args.restart is None else args.restart[0]
     if not args.iterations:
@@ -221,7 +298,8 @@ def main(argv=None):
         if len(args.ic) > 1:
             nb_r = int(args.ic[1])
 
-    if not args.noprint:
+    writer = axis.rank == 0
+    if not args.noprint and writer:
         print(LOGO)
     outdir = os.path.join(os.getcwd(), args.outdir)
     if not os.path.exists(outdir):
@@ -238,7 +316,7 @@ def main(argv=None):
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     ds = load_dataset(args.methfreq, ref=args.ref, bedmethyl=args.bedmethyl,
                       fillna=args.fillna, dtype=np_dtype)
-    if not args.reltol:
+    if not args.reltol and writer:
         cost_scale = float(np.einsum("is,is,is->", ds.counts, ds.meth_f,
                                      ds.meth_f, dtype=np.float64))
         msg = termination_resolution_warning(termination, cost_scale,
@@ -248,11 +326,30 @@ def main(argv=None):
 
     def on_device(x):
         """numpy -> the device, then cast there to the storage dtype"""
-        return torch.as_tensor(x).to(device).to(dtype)
+        return None if x is None else torch.as_tensor(x).to(device).to(dtype)
 
-    y, d = on_device(ds.meth_f), on_device(ds.counts)
-    ref_mat = None if ds.ref is None else on_device(ds.ref)
+    full_data = {}
+
+    def full():
+        """The full (y, d, ref) on this rank's device, moved at first use:
+        one process's data, a row-sharded run's inits and bootstrap draws
+        (rank 0), and the replicate- and rank-partitioned runs."""
+        if not full_data:
+            full_data["yd"] = tuple(on_device(x) for x in
+                                    (ds.meth_f, ds.counts, ds.ref))
+        return full_data["yd"]
+
+    sharded = axis.size > 1
+    shard = None
+    if sharded:
+        block, y, d, ref_mat = shard_dataset_global(
+            ds.meth_f, ds.counts, ds.ref, axis, on_device)
+        shard = Shard(axis, block, full)
+    else:
+        block = row_block(ds.meth_f.shape[0], 1, 0)
+        y, d, ref_mat = full()
     header = list(ds.header)
+    n_s = ds.meth_f.shape[1]
 
     time_start = time()
     purity_t = (None if purity is None else
@@ -260,33 +357,68 @@ def main(argv=None):
     # bootstrap CIs first, like the reference (demethify.py:151-152)
     if args.confidence:
         level, n_boot = args.confidence
-        lo_p, hi_p, lo_u, hi_u = bootstrap_ci(
-            y, d, ref_mat, n_u, level=level, n_bootstrap=n_boot,
-            init_option=args.init, n_iter1=args.iterations[0],
-            n_iter2=args.iterations[1], tol=termination, purity=purity_t,
-            seed=seed, method=args.cimethod, tol_relative=args.reltol)
+        method = resolve_method(args.cimethod, args.init, ds.meth_f.size)
+        ci_kw = dict(level=level, n_bootstrap=n_boot, init_option=args.init,
+                     n_iter1=args.iterations[0], n_iter2=args.iterations[1],
+                     tol=termination, purity=purity_t, seed=seed,
+                     method=method, tol_relative=args.reltol)
+        if (args.shard_worker
+                and row_sharded(method, n_u, n_s, ref_mat is not None)):
+            # --shard: the weights layout on the row-sharded data (K4 on
+            # each card's rows)
+            lo_p, hi_p, lo_u, hi_u = bootstrap_ci(y, d, ref_mat, n_u,
+                                                  shard=shard, **ci_kw)
+        else:
+            # the replicates over the processes, each on the full data
+            lo_p, hi_p, lo_u, hi_u = bootstrap_ci(*full(), n_u, axis=axis,
+                                                  **ci_kw)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
-        write_ci_proportions(outdir, lo_p, hi_p, header + unknown_header,
-                             ds.sample_names)
-        if n_u > 0:
-            write_ci_profile(outdir, lo_u, hi_u, unknown_header)
+        if writer:
+            write_ci_proportions(outdir, lo_p, hi_p,
+                                 header + unknown_header, ds.sample_names)
+            if n_u > 0:
+                write_ci_profile(outdir, lo_u[:block.n_rows],
+                                 hi_u[:block.n_rows], unknown_header)
 
-    stats = SolveStats(y.shape[0], y.shape[1])
+    def write_profile(u, unknown_header, rows_sharded):
+        """The unknown profiles: one file from process 0, or in a
+        row-sharded solve one part file per rank with its global rows."""
+        if rows_sharded:
+            rows, start = addressable_row_block(u, block)
+            if rows.shape[0]:
+                write_profile_estimate(outdir, rows, unknown_header,
+                                       suffix=f".part{axis.rank:04d}",
+                                       row_offset=start)
+        elif writer:
+            write_profile_estimate(outdir, u.cpu().numpy(), unknown_header)
+
+    init_provided = None
+    if args.initstate:
+        try:
+            init_provided = restore_factors(args.initstate, block,
+                                            device=device, dtype=y.dtype)
+        except ValueError as e:
+            sys.stderr.write(f"Error: {e}\n")
+            sys.exit(1)
+
+    stats = SolveStats(block.n_rows, n_s)
     res, ic_n_u = None, None
     kw = dict(init=args.init, seed=seed, n_restarts=restart,
               n_iter1=args.iterations[0], n_iter2=args.iterations[1],
               tol=termination, tol_relative=args.reltol,
-              record_trace=args.trace)
+              record_trace=args.trace, init_provided=init_provided,
+              shard=shard)
     if ic_name:
+        # multi-process: the ranks over the processes, each on the full data
         u_best, proportions, ic_n_u, _ = evaluate_best_ic(
-            y, d, ref_mat, args.init, ic_name, seed=seed,
+            *full(), args.init, ic_name, seed=seed,
             iter1=args.iterations[0], iter2=args.iterations[1],
             tol=termination, tol_relative=args.reltol, n_restarts=nb_r,
-            n_u_max=args.icmax[0])
+            n_u_max=args.icmax[0], axis=axis)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(ic_n_u)]
         header = (unknown_header if ref_mat is None
                   else header + unknown_header)
-        write_profile_estimate(outdir, u_best.cpu().numpy(), unknown_header)
+        write_profile(u_best, unknown_header, False)
     elif n_u > 0:
         if ref_mat is None:
             res = unsupervised_deconv(y, d, n_u, **kw)
@@ -297,15 +429,31 @@ def main(argv=None):
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
         header = (unknown_header if ref_mat is None
                   else header + unknown_header)
-        write_profile_estimate(outdir, res.u.cpu().numpy(), unknown_header)
+        write_profile(res.u, unknown_header, sharded)
+    elif sharded:
+        # the reference-based WLS on rank 0's full data
+        res = shard.from_rank0(lambda yy, dd, rr: _cpu_result(
+            supervised_deconv(yy, dd, rr)))
     else:
         res = supervised_deconv(y, d, ref_mat)
     time_tot = time() - time_start
     if res is not None:
         stats.finish(res.n_iter)
         proportions = res.proportions
-        if args.trace and res.trace is not None and res.trace.numel():
+        if args.savestate:
+            from demethify_tpu_torch.checkpoint import save_factors
+            u_rows = None
+            if res.u is not None:
+                u_rows = res.u[:block.n_data] if sharded else res.u
+            save_factors(args.savestate, alpha=res.proportions,
+                         cost=torch.as_tensor(res.cost), u=u_rows,
+                         row_start=block.start, n_rows=block.n_rows,
+                         axis=axis)
+        if (args.trace and writer and res.trace is not None
+                and res.trace.numel()):
             write_cost_trace(outdir, res.trace)
+    if not writer:
+        return 0
 
     props_np = proportions.cpu().numpy().astype(np.float64)
     write_proportions(outdir, props_np, header, ds.sample_names)
@@ -315,6 +463,13 @@ def main(argv=None):
         with open(os.path.join(outdir, 'log.log'), 'a') as f:
             f.write('\n' + stats.summary() + '\n')
     return 0
+
+
+def _cpu_result(res):
+    """A DeconvolutionResult with its tensors on the CPU (to send to the
+    other ranks)."""
+    res.proportions = res.proportions.cpu()
+    return res
 
 
 if __name__ == "__main__":

@@ -36,12 +36,21 @@ def write_proportions(outdir: str, proportions: np.ndarray,
 
 
 def write_profile_estimate(outdir: str, u: np.ndarray,
-                           unknown_header: List[str]) -> str:
-    """``methylation_profile_estimate.csv``: one column per unknown cell
-    type, no index. (The multi-host part files wait for the
-    torch.distributed slice.)"""
-    path = os.path.join(outdir, "methylation_profile_estimate.csv")
-    _write_rows(path, unknown_header, _cells(np.asarray(u)).tolist())
+                           unknown_header: List[str], suffix: str = "",
+                           row_offset: int = 0) -> str:
+    """``methylation_profile_estimate<suffix>.csv``: one column per unknown
+    cell type, no index. With a ``suffix`` (a multi-process run's
+    ``.partNNNN``, one file per rank's block of rows) the first column is
+    ``row``, the global row numbers from ``row_offset`` on, as the JAX
+    package's part files have it. Returns the path."""
+    path = os.path.join(outdir, f"methylation_profile_estimate{suffix}.csv")
+    cells = _cells(np.asarray(u))
+    if suffix:
+        rows = np.arange(row_offset, row_offset + cells.shape[0])
+        _write_rows(path, ["row", *unknown_header],
+                    ([str(r), *c] for r, c in zip(rows, cells.tolist())))
+    else:
+        _write_rows(path, unknown_header, cells.tolist())
     return path
 
 

@@ -1,0 +1,230 @@
+"""Multi-process runs: joining the ranks, each rank's block of the rows, and
+the sums across the ranks.
+
+Counterpart of ``demethify_tpu/parallel/distributed.py`` and of the JAX
+solvers' ``_axis_sum`` / ``_axis_max`` (``solvers/fused.py:48-56``):
+
+- ``initialize`` joins N processes with ``torch.distributed`` (a gloo
+  process group at ``tcp://ADDR``, or at a ``file://`` store) and gives
+  each rank its card (``LOCAL_RANK``, else the process id, modulo the
+  cards it sees). A no-op for one process.
+- ``Axis`` sums, maxes and gathers across the ranks: the solvers' sums
+  over the CpG axis and the replicate and model-selection partitions. It
+  is the identity without a group (``LOCAL``).
+- ``shard_dataset_global`` and ``addressable_row_block``: a rank's block
+  of the loaded rows and its global offset (``parallel/mesh.RowBlock``).
+- ``run_ranks`` starts local ranks as processes, with a deadline.
+
+Transport: the sums go over NCCL when every rank holds a card of its own
+(checked by gathering the cards' UUIDs), else over gloo, which reduces on
+the host: two ranks on one card, and every CPU run. The choice is made
+from the layout and printed; a failing NCCL is an error, never a switch
+to gloo. Both give every rank the same bits of a sum, which the solvers
+rely on: each rank runs the replicated alpha phase and its own
+termination test on them.
+"""
+
+import os
+import subprocess
+import time
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from demethify_tpu_torch.device import resolve_device
+from demethify_tpu_torch.parallel.mesh import RowBlock, row_block
+
+# how long a rank waits in a collective for the others
+TIMEOUT = timedelta(minutes=30)
+
+
+class Axis:
+    """The ranks that share a solve's CpG rows (or a partition of
+    replicates or model ranks). ``group`` is the gloo process group (None:
+    one process, every method the identity); ``device_group`` an NCCL
+    group over the same ranks when each has a card of its own."""
+
+    def __init__(self, group=None, device_group=None):
+        self.group = group
+        self.device_group = device_group
+
+    @property
+    def size(self) -> int:
+        return 1 if self.group is None else dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def backend(self) -> str:
+        if self.group is None:
+            return "none"
+        return "nccl" if self.device_group is not None else "gloo"
+
+    def _reduce(self, xs: Sequence[torch.Tensor], op):
+        if self.group is None:
+            return tuple(xs)
+        dtypes = {x.dtype for x in xs}
+        if len(dtypes) != 1:
+            raise ValueError(f"Axis: one reduction takes one dtype, got "
+                             f"{sorted(map(str, dtypes))}")
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        if self.device_group is not None:
+            dist.all_reduce(flat, op, group=self.device_group)
+        else:
+            host = flat.cpu()
+            dist.all_reduce(host, op, group=self.group)
+            flat = host.to(flat.device)
+        out, lo = [], 0
+        for x in xs:
+            out.append(flat[lo:lo + x.numel()].view(x.shape))
+            lo += x.numel()
+        return tuple(out)
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the ranks (a new tensor; x itself without a
+        group)."""
+        return self._reduce([x], dist.ReduceOp.SUM)[0]
+
+    def sums(self, *xs: torch.Tensor):
+        """Each of xs summed over the ranks, in ONE collective (one
+        dtype): the solvers' per-iteration Gram partials."""
+        return self._reduce(xs, dist.ReduceOp.SUM)
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce([x], dist.ReduceOp.MAX)[0]
+
+    def min_(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce([x], dist.ReduceOp.MIN)[0]
+
+    def all_gather_object(self, obj) -> list:
+        """[obj of rank 0, obj of rank 1, ...] on every rank (pickled over
+        gloo: host objects, numpy arrays)."""
+        if self.group is None:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s obj on every rank."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.group)
+        return box[0]
+
+    def barrier(self):
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+
+LOCAL = Axis()
+
+
+def local_card(proc_id: int) -> int:
+    """The card index of this rank among the cards it sees: LOCAL_RANK
+    when the launcher sets it, else the process id, modulo the count."""
+    local = int(os.environ.get("LOCAL_RANK", proc_id))
+    return local % torch.cuda.device_count()
+
+
+def initialize(address: Optional[str], n_procs: int, proc_id: int,
+               device_name: str = "cuda"):
+    """Join the run's ``n_procs`` processes as rank ``proc_id`` -> (Axis,
+    device). ``address`` is ``host:port`` (a TCP store served by rank 0)
+    or a ``file://`` path. One process: (LOCAL, the device), nothing
+    joined. ``device_name`` "cuda" without a GPU raises."""
+    if n_procs <= 1:
+        return LOCAL, resolve_device(device_name)
+    if not 0 <= proc_id < n_procs:
+        raise ValueError(f"--multihost process id {proc_id} is not in "
+                         f"[0, {n_procs})")
+    if device_name == "cuda":
+        resolve_device("cuda")          # raises without a GPU
+        torch.cuda.set_device(local_card(proc_id))
+    device = resolve_device(device_name)
+    init = address if "://" in address else f"tcp://{address}"
+    dist.init_process_group("gloo", init_method=init, world_size=n_procs,
+                            rank=proc_id, timeout=TIMEOUT)
+    axis = Axis(dist.group.WORLD)
+    if device.type == "cuda":
+        cards = axis.all_gather_object(
+            str(torch.cuda.get_device_properties(device).uuid))
+        if len(set(cards)) == n_procs:
+            axis.device_group = dist.new_group(backend="nccl",
+                                               timeout=TIMEOUT)
+    print(f"[multihost] rank {proc_id} of {n_procs} on {device}: sums over "
+          f"the CpG rows by {axis.backend}", flush=True)
+    return axis, device
+
+
+def shutdown(axis: Axis):
+    if axis.group is not None:
+        dist.destroy_process_group()
+
+
+@dataclass
+class Shard:
+    """A row-sharded dataset's layout on one rank: the axis its sums go
+    over, its block of the rows, and ``full``, a callable that returns the
+    full unpadded (y, d, ref) on the device. Rank 0 calls ``full`` for
+    what needs every row at once (the inits, the bootstrap's draws), and
+    the others receive the result (``from_rank0``)."""
+
+    axis: Axis
+    block: RowBlock
+    full: Callable
+
+    def from_rank0(self, make: Callable):
+        """make(y, d, ref) on rank 0's full data -> its (picklable) result
+        on every rank."""
+        obj = make(*self.full()) if self.axis.rank == 0 else None
+        return self.axis.broadcast_object(obj)
+
+
+def shard_dataset_global(meth: np.ndarray, counts: np.ndarray,
+                         ref: Optional[np.ndarray], axis: Axis,
+                         to_device: Callable):
+    """This rank's block of the loaded (meth, counts, ref) rows ->
+    (block, y, d, ref) with the three arrays moved by ``to_device``
+    (``ref`` None stays None). Rows are padded with zeros to a multiple
+    of the rank count: zero coverage makes them inert."""
+    block = row_block(meth.shape[0], axis.size, axis.rank)
+    return (block, *(None if x is None else to_device(block.take(x))
+                     for x in (meth, counts, ref)))
+
+
+def addressable_row_block(u: torch.Tensor, block: RowBlock):
+    """(this rank's data rows of its u block as numpy, their first global
+    row): what a rank writes to its profile part file."""
+    return u[:block.n_data].detach().cpu().numpy(), block.start
+
+
+def run_ranks(commands: List[List[str]], timeout: float,
+              envs: Optional[List[dict]] = None, cwd=None) -> List[int]:
+    """Run one process per command and wait for all of them, at most
+    ``timeout`` seconds. When one exits non-zero, or the deadline passes,
+    the others are killed (a rank left alone would wait in its next
+    collective). Returns the exit codes (-9 for a process killed)."""
+    procs = [subprocess.Popen(cmd, env=None if envs is None else envs[i],
+                              cwd=cwd) for i, cmd in enumerate(commands)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.returncode not in (None, 0) for p in procs)
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    return [p.returncode for p in procs]

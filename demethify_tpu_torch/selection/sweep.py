@@ -41,6 +41,7 @@ draws); a deterministic init is computed whatever ``inits`` says.
 import numpy as np
 import torch
 
+from demethify_tpu_torch.parallel.distributed import LOCAL, Axis
 from demethify_tpu_torch.selection.bcv import (
     bicross_validation,
     train_masks,
@@ -97,14 +98,20 @@ def _pick(values, ic):
 def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
                      seed: int = 1, iter1: int, iter2: int, tol: float,
                      tol_relative: bool = False, n_restarts: int = 5,
-                     n_u_max: int = 25, inits=None, masks=None):
+                     n_u_max: int = 25, inits=None, masks=None,
+                     axis: Axis = LOCAL):
     """y, d (n_cpg, n_s) and ref (n_cpg, n_ct), or None for the
     unsupervised sweep, on one device. Returns (best_u (n_cpg, n_u),
     best_alpha (n_ct + n_u, n_s), best_n_u, list_ic): for minka the
     negated log-evidence of ranks 1..n_s - 1, else the criterion of ranks
     1..n_u_max. ``inits(rank, j)`` -> (u0, alpha0) replaces member
     (rank, j)'s random init; ``masks`` (n_restarts train masks) replace
-    BCV's fold draws."""
+    BCV's fold draws. With ``axis`` of N processes (each with the full
+    data) the ranks are partitioned over them, as the JAX package's
+    ``_evaluate_best_ic_multihost`` does: process p solves ranks p + 1,
+    p + 1 + N, ...; the criteria are gathered; every process solves the
+    winner again. Each member draws from its own generator, so the result
+    is the one-process sweep's. minka solves one rank on every process."""
     if ic not in IC_CHOICES:
         raise ValueError(f"--ic must be one of {IC_CHOICES}, got {ic!r}")
     n_cpg, n_s = y.shape
@@ -147,8 +154,9 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
     # its serial path, whose solves take an absolute tolerance
     ccc_kw = (dict(kw, tol_relative=False)
               if init_option in DETERMINISTIC else kw)
-    list_ic, best = [], None
-    for rank in range(1, n_u_max + 1):
+
+    def member(rank):
+        """(criterion, u, alpha) of one rank of the sweep."""
         if ic in ("AIC", "BIC"):
             res = deconv(y, d, rank, init(rank, 0))
             fn = compute_bic if ic == "BIC" else compute_aic
@@ -171,7 +179,24 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
                 lambda f, yt, dt, r=rank, s=shared: (
                     s if s is not None else init(r, f, yt, dt)),
                 deconv)
-        list_ic.append(float(val))
+        return float(val), u, alpha
+
+    if axis.size > 1:
+        # ranks in strides over the processes (higher ranks cost more),
+        # the criteria gathered, the winner solved again on every process
+        mine = {rank: member(rank)[0] for rank in
+                range(1 + axis.rank, n_u_max + 1, axis.size)}
+        merged = {}
+        for part in axis.all_gather_object(mine):
+            merged.update(part)
+        list_ic = [merged[rank] for rank in range(1, n_u_max + 1)]
+        best_n_u = _pick(list_ic, ic) + 1
+        _, u, alpha = member(best_n_u)
+        return u, alpha, best_n_u, list_ic
+    list_ic, best = [], None
+    for rank in range(1, n_u_max + 1):
+        val, u, alpha = member(rank)
+        list_ic.append(val)
         if _pick(list_ic, ic) == rank - 1:
             best = (u, alpha, rank)
     return best[0], best[1], best[2], list_ic

@@ -6,7 +6,10 @@ on ``cuda`` use the kernel solvers (``solvers/fused.py``), which take any
 shape (past one block's shared memory the kernels keep their rows in
 device memory: K1/K4's global layout, K2/K3/K5/K6's device slabs);
 tensors on ``cpu`` the plain ones (``solvers/partial_ref.py``,
-``purity.py``, ``unsupervised.py``); there is no other route.
+``purity.py``, ``unsupervised.py``); a row-sharded dataset (``shard``,
+the JAX API's ``_use_fused_sharded``) the row-sharded kernel solvers
+(``fused.*_sharded``) on either device, whose kernels run their twins on
+CPU tensors; there is no other route.
 
 Each restart draws its init from its own generator
 (``restart_generators``). An SVD or ICA init draws nothing, so it runs
@@ -21,6 +24,9 @@ a sequential loop of single solves (``restart_route``). The restart with
 the lowest cost wins (first minimum in restart order, across chunks; a
 NaN cost never wins). ``solve_members`` runs given inits the same way
 and returns every member (the model-selection sweep's CCC restarts).
+A row-sharded solve takes its inits from rank 0, which draws or computes
+them on the full data, so it starts where the one-rank solve starts
+(``_global_inits``; the init needs the full data on rank 0's device).
 """
 
 import itertools
@@ -122,19 +128,25 @@ def _member_solves(solve, solve_multi, inits, batch: bool, cap: int):
             yield u_b[b], alpha_b[b], {k: v[b] for k, v in info.items()}
 
 
+def _first_min(results):
+    """The first minimum-cost (u, alpha, info) of the iterable
+    ``results``, as ``_select_best`` picks it; u and alpha copied, so that
+    the next chunk runs without this one's batch."""
+    best = None
+    for res in results:
+        if best is None or _select_best([best, res]) is res:
+            best = (res[0].clone(), res[1].clone(), res[2])
+    return best
+
+
 def _batched_restarts(solve_multi, init_fn, device, seed, n_restarts, cap):
     """The restarts through ``solve_multi`` in chunks of at most ``cap``
     members, each init drawn from its restart's generator in restart
     order. Returns the winner (u, alpha, info): the first minimum cost
     across all chunks, so the result does not depend on the chunking."""
     gens = restart_generators(seed, n_restarts, device)
-    best = None
-    for res in _member_solves(None, solve_multi,
-                              (init_fn(g) for g in gens), True, cap):
-        if best is None or _select_best([best, res]) is res:
-            # a copy, so that the next chunk runs without this one's batch
-            best = (res[0].clone(), res[1].clone(), res[2])
-    return best
+    return _first_min(_member_solves(None, solve_multi,
+                                     (init_fn(g) for g in gens), True, cap))
 
 
 def _multi_cap(y, n_ct, n_u):
@@ -144,44 +156,47 @@ def _multi_cap(y, n_ct, n_u):
         fused.free_device_bytes(y.device))
 
 
-def _solvers(y, d, R_trunc, n_u, purity, kw):
+def _solvers(y, d, R_trunc, n_u, purity, kw, axis=None):
     """(solve, solve_multi) of the mode: unsupervised (R_trunc None),
     purity (purity given) or partial-reference. ``solve`` runs the kernel
     solver on the card, the plain one on the CPU; ``solve_multi`` the
-    multi-member kernel solver."""
-    kernels = y.device.type == "cuda"
-    gram_u = fista.use_gram_u(n_u, y.shape[1], kw["n_iter2"])
+    multi-member kernel solver. With ``axis`` (a row-sharded dataset: y,
+    d, R_trunc are this rank's rows) both run the row-sharded kernel
+    solvers, whose kernels run their twins on CPU tensors."""
     if R_trunc is None:
-        def solve(u0, a0):
-            if kernels:
-                return fused.unsupervised_solve_fused(u0, a0, y, d, n_u, **kw)
-            return unsupervised_solve(u0, a0, y, d, n_u, use_gram_u=gram_u,
-                                      **kw)
-
-        def solve_multi(u0_b, a0_b):
-            return fused.unsupervised_solve_fused_multi(u0_b, a0_b, y, d,
-                                                        n_u, **kw)
+        data = (y, d)
+        one, multi, plain = (fused.unsupervised_solve_fused,
+                             fused.unsupervised_solve_fused_multi,
+                             unsupervised_solve)
+        one_sh, multi_sh = (fused.unsupervised_solve_fused_sharded,
+                            fused.unsupervised_solve_fused_multi_sharded)
     elif purity is not None:
-        def solve(u0, a0):
-            if kernels:
-                return fused.purity_solve_fused(u0, a0, y, d, R_trunc, purity,
-                                                n_u, **kw)
-            return purity_solve(u0, a0, y, d, R_trunc, purity, n_u, **kw)
-
-        def solve_multi(u0_b, a0_b):
-            return fused.purity_solve_fused_multi(u0_b, a0_b, y, d, R_trunc,
-                                                  purity, n_u, **kw)
+        data = (y, d, R_trunc, purity)
+        one, multi, plain = (fused.purity_solve_fused,
+                             fused.purity_solve_fused_multi, purity_solve)
+        one_sh, multi_sh = (fused.purity_solve_fused_sharded,
+                            fused.purity_solve_fused_multi_sharded)
     else:
-        def solve(u0, a0):
-            if kernels:
-                return fused.partial_ref_solve_fused(u0, a0, y, d, R_trunc,
-                                                     n_u, **kw)
-            return partial_ref_solve(u0, a0, y, d, R_trunc, n_u,
-                                     use_gram_u=gram_u, **kw)
+        data = (y, d, R_trunc)
+        one, multi, plain = (fused.partial_ref_solve_fused,
+                             fused.partial_ref_solve_fused_multi,
+                             partial_ref_solve)
+        one_sh, multi_sh = (fused.partial_ref_solve_fused_sharded,
+                            fused.partial_ref_solve_fused_multi_sharded)
+    plain_kw = dict(kw) if purity is not None else dict(
+        kw, use_gram_u=fista.use_gram_u(n_u, y.shape[1], kw["n_iter2"]))
 
-        def solve_multi(u0_b, a0_b):
-            return fused.partial_ref_solve_fused_multi(u0_b, a0_b, y, d,
-                                                       R_trunc, n_u, **kw)
+    def solve(u0, a0):
+        if axis is not None:
+            return one_sh(u0, a0, *data, n_u, axis, **kw)
+        if y.device.type == "cuda":
+            return one(u0, a0, *data, n_u, **kw)
+        return plain(u0, a0, *data, n_u, **plain_kw)
+
+    def solve_multi(u0_b, a0_b):
+        if axis is not None:
+            return multi_sh(u0_b, a0_b, *data, n_u, axis, **kw)
+        return multi(u0_b, a0_b, *data, n_u, **kw)
     return solve, solve_multi
 
 
@@ -192,25 +207,56 @@ def _result(u, alpha, info):
                                trace=info["trace"])
 
 
-def _restarts(y, d, R_trunc, n_u, purity, init_fn, init, seed, n_restarts,
-              init_provided, kw):
+def _global_inits(shard, make_init, seed, n_restarts, device):
+    """The inits of ``n_restarts`` restarts of a row-sharded solve: rank 0
+    draws (or computes) each on the full data from its restart's
+    generator, as the one-rank solve does, and every rank takes its rows
+    of u (padded rows zero) and the whole alpha. So an N-rank solve starts
+    from the one-rank solve's init."""
+    def make(y, d, ref):
+        return [tuple(x.cpu() for x in make_init(g, y, d, ref))
+                for g in restart_generators(seed, n_restarts, y.device)]
+    return [(shard.block.take(u0).to(device), a0.to(device))
+            for u0, a0 in shard.from_rank0(make)]
+
+
+def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
+              init_provided, kw, shard=None):
     """Init + solve per restart (one generator each) by ``restart_route``,
     once from ``init_provided`` = (u0, alpha0), or once for a
-    deterministic init; the first minimum cost wins."""
+    deterministic init; the first minimum cost wins. ``make_init(g, y, d,
+    R_trunc)`` draws one init. With ``shard`` (``parallel/distributed.
+    Shard``) the data are this rank's rows: the solves are the
+    row-sharded ones, the inits ``_global_inits``', and ``init_provided``
+    holds this rank's rows of u."""
     n_ct = 0 if R_trunc is None else R_trunc.shape[1]
     n_s = y.shape[1]
-    solve, solve_multi = _solvers(y, d, R_trunc, n_u, purity, kw)
-    if restart_route(y.device, n_u, n_s, n_restarts, init_provided,
-                     init=init) == "batch":
-        best = _batched_restarts(solve_multi, init_fn, y.device, seed,
-                                 n_restarts, _multi_cap(y, n_ct, n_u))
-    elif init_provided is not None:
+    axis = None if shard is None else shard.axis
+    solve, solve_multi = _solvers(y, d, R_trunc, n_u, purity, kw, axis)
+    batch = restart_route(y.device, n_u, n_s, n_restarts, init_provided,
+                          init=init) == "batch"
+    if init_provided is not None:
         best = solve(*init_provided)
+    elif shard is None and batch:
+        best = _batched_restarts(solve_multi,
+                                 lambda g: make_init(g, y, d, R_trunc),
+                                 y.device, seed, n_restarts,
+                                 _multi_cap(y, n_ct, n_u))
+    elif shard is None:
+        if is_deterministic(init, n_u, n_s):
+            n_restarts = 1
+        best = _select_best([solve(*make_init(g, y, d, R_trunc)) for g in
+                             restart_generators(seed, n_restarts, y.device)])
     else:
         if is_deterministic(init, n_u, n_s):
             n_restarts = 1
-        best = _select_best([solve(*init_fn(g)) for g in
-                             restart_generators(seed, n_restarts, y.device)])
+        inits = _global_inits(shard, make_init, seed, n_restarts, y.device)
+        cap = 1
+        if batch:
+            cap = int(axis.min_(torch.tensor(
+                [_multi_cap(y, n_ct, n_u)], device=y.device)).item())
+        best = _first_min(_member_solves(solve, solve_multi, inits, batch,
+                                         cap))
     return _result(*best)
 
 
@@ -240,15 +286,18 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
                              tol: float = 1e-2,
                              tol_relative: bool = False,
                              record_trace: bool = False,
-                             init_provided=None) -> DeconvolutionResult:
+                             init_provided=None,
+                             shard=None) -> DeconvolutionResult:
     """Partial-reference mode (``--ref --nbunknown k``). ``init_provided``
-    = (u0, alpha0) skips the init (and makes restarts moot)."""
+    = (u0, alpha0) skips the init (and makes restarts moot). ``shard``
+    (``parallel/distributed.Shard``): y, d, R_trunc are this rank's rows
+    of a row-sharded dataset, and the result's u is its rows."""
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
     return _restarts(
         y, d, R_trunc, n_u, None,
-        lambda g: init_partial(g, init, y, d, R_trunc, n_u), init, seed,
-        n_restarts, init_provided, kw)
+        lambda g, yy, dd, rr: init_partial(g, init, yy, dd, rr, n_u), init,
+        seed, n_restarts, init_provided, kw, shard)
 
 
 def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
@@ -259,18 +308,19 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
                   tol: float = 1e-2,
                   tol_relative: bool = False,
                   record_trace: bool = False,
-                  init_provided=None) -> DeconvolutionResult:
+                  init_provided=None, shard=None) -> DeconvolutionResult:
     """Purity-constrained mode (``--ref --nbunknown k --purity ...``);
     purity (n_s,) is the already-flipped 1 - p/100 per-sample vector,
     taken in y's dtype as the JAX API takes it (a bf16 value under bf16
-    storage)."""
+    storage). ``shard`` as for ``partial_reference_deconv``."""
     purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
     return _restarts(
         y, d, R_trunc, n_u, purity,
-        lambda g: init_purity(g, init, y, d, R_trunc, n_u, purity=purity),
-        init, seed, n_restarts, init_provided, kw)
+        lambda g, yy, dd, rr: init_purity(g, init, yy, dd, rr, n_u,
+                                          purity=purity),
+        init, seed, n_restarts, init_provided, kw, shard)
 
 
 def unsupervised_deconv(y, d, n_u: int, *,
@@ -281,15 +331,17 @@ def unsupervised_deconv(y, d, n_u: int, *,
                         tol: float = 1e-2,
                         tol_relative: bool = False,
                         record_trace: bool = False,
-                        init_provided=None) -> DeconvolutionResult:
+                        init_provided=None, shard=None
+                        ) -> DeconvolutionResult:
     """Unsupervised mode (no ``--ref``): proportions (n_u, n_s) and the
-    profiles of all n_u cell types."""
+    profiles of all n_u cell types. ``shard`` as for
+    ``partial_reference_deconv``."""
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=record_trace)
     return _restarts(
         y, d, None, n_u, None,
-        lambda g: init_unsupervised(g, init, y, d, n_u), init, seed,
-        n_restarts, init_provided, kw)
+        lambda g, yy, dd, rr: init_unsupervised(g, init, yy, dd, n_u), init,
+        seed, n_restarts, init_provided, kw, shard)
 
 
 def deconvolve(y, d, R=None, n_u: int = 0, purity=None,

@@ -2,10 +2,12 @@
 
 Counterparts of ``partial_ref_solve_fused``, ``unsupervised_solve_fused``
 and ``purity_solve_fused`` of ``demethify_tpu/solvers/fused.py`` (same
-arguments and results, minus the TPU knobs ``axis_name``, ``packed_io``
-and ``tile``: K1 takes Rt folded into the data block too, but the solvers
-keep it apart, the JAX solvers' default). The big arrays live
-transposed, (rows, n_cpg), which is internal to this module. Each outer
+arguments and results, minus the TPU knobs ``packed_io`` and ``tile``:
+K1 takes Rt folded into the data block too, but the solvers keep it
+apart, the JAX solvers' default; ``axis``, a
+``parallel/distributed.Axis``, takes the place of ``axis_name``). The
+big arrays live transposed, (rows, n_cpg), which is internal to this
+module. Each outer
 iteration launches K1 (``ops/cuda_kernels.u_phase_grams``: the whole U
 FISTA loop plus the new-u Gram blocks) and then one single-block kernel
 on the Grams: K2 (``ops/cuda_small.alpha_phase_full``: the alpha FISTA
@@ -55,6 +57,15 @@ own w-weighted known blocks (K5/K6 read them at a member stride), its own
 ||Rt||^2 and max coverage over its surviving rows (per-member RT_SQ and
 DMAX2 slots), and its own weighted starting cost, tolerance and ACTIVE
 flag.
+
+Row-sharded solves (``*_sharded``, the JAX package's shard_map forms):
+every rank of ``axis`` calls the solver on its own block of the CpG
+rows. Each sum over the CpG axis is summed over the ranks where the JAX
+solvers psum: max(D) (a max), the starting cost and norms (summed before
+dmax^2 multiplies them), the known blocks, and each outer iteration K1's
+or K4's Gram blocks, packed into one all-reduce between K1/K4 and
+K2/K3/K5/K6. The alpha phase then runs on every rank on the same bits,
+and every rank makes the same host termination test.
 """
 
 import numpy as np
@@ -93,14 +104,23 @@ from demethify_tpu_torch.ops.gram import (
     storage_dy,
     weighted_known_grams,
 )
+from demethify_tpu_torch.parallel.distributed import LOCAL
 
 
-def _data_t(y, d, R_trunc, dtype):
+def _data_t(y, d, R_trunc, dtype, axis=LOCAL):
     """ydt (2 n_s, N) = [Y.T; D.T] and rtt (n_ct, N) = Rt.T (None without a
-    known block), both in the storage dtype, and max(D) in ``dtype``."""
+    known block), both in the storage dtype, and max(D) over the ranks of
+    ``axis`` in ``dtype``."""
     ydt = torch.cat([y.T, d.T], dim=0).contiguous()
     rtt = None if R_trunc is None else R_trunc.T.contiguous()
-    return ydt, rtt, torch.max(ydt[y.shape[1]:]).to(dtype)
+    return ydt, rtt, axis.max_(torch.max(ydt[y.shape[1]:]).to(dtype))
+
+
+def _axis_sums(axis, *xs):
+    """xs summed over the ranks of ``axis`` in one collective; a None
+    stays None."""
+    summed = iter(axis.sums(*(x for x in xs if x is not None)))
+    return tuple(None if x is None else next(summed) for x in xs)
 
 
 def _uut(u, dtype):
@@ -138,7 +158,8 @@ def _scalars(dtype, device, n=N_SCAL, **slots):
     return scal
 
 
-def _start(ydt, rtt, uut, alpha, n_u, dmax, alpha_fista, w=None):
+def _start(ydt, rtt, uut, alpha, n_u, dmax, alpha_fista, w=None,
+           axis=LOCAL):
     """One member's starting scalars (the same arithmetic in the single-
     and the multi-member solves, so their members start bit-equal):
     Nesterov scalars 1, l_w = l_w_prev = ||alpha_unknown||^2 dmax^2 and
@@ -150,14 +171,16 @@ def _start(ydt, rtt, uut, alpha, n_u, dmax, alpha_fista, w=None):
     in ``dtype``, and the DMAX2 slot the kernels read every iteration
     takes it rounded to the storage dtype, as the JAX fused solvers'
     compiled programs form the two (max(D) ** 2 is a bf16 value carried
-    into their loops, fused in float32 into the starting products)."""
+    into their loops, fused in float32 into the starting products). The
+    three sums are over the ranks of ``axis`` too, and dmax^2 multiplies
+    the summed norm, in the JAX sharded solvers' order."""
     dtype = alpha.dtype
     dmax2 = dmax ** 2
     sums = [_start_sums(y_c, r_c, u_c, alpha, alpha_fista, w_c)
             for y_c, r_c, u_c, w_c in _site_chunks(dtype, ydt, rtt,
                                                      uut[:n_u], w)]
-    cost, l_h, rt_sq = (None if x[0] is None else sum(x[1:], x[0])
-                        for x in zip(*sums))
+    cost, l_h, rt_sq = _axis_sums(axis, *(
+        None if x[0] is None else sum(x[1:], x[0]) for x in zip(*sums)))
     l_w0 = torch.sum(alpha[-n_u:] ** 2) * dmax2
     slots = dict(a_u=1.0, l_w=l_w0, l_w_prev=l_w0, cost=cost,
                  dmax2=dmax2.to(ydt.dtype).to(dtype))
@@ -188,13 +211,14 @@ def _start_sums(ydt, rtt, ut, alpha, alpha_fista, w):
     return cost, l_h, rt_sq
 
 
-def _known_grams(R_trunc, y, d):
-    """The loop-invariant known-block Grams (G_tt, b_t, ydy), contiguous,
-    in the state dtype."""
-    return tuple(x.contiguous() for x in known_block_grams(R_trunc, d, y))
+def _known_grams(R_trunc, y, d, axis):
+    """The loop-invariant known-block Grams (G_tt, b_t, ydy) summed over
+    the ranks of ``axis``, contiguous, in the state dtype."""
+    return tuple(x.contiguous() for x in
+                 axis.sums(*known_block_grams(R_trunc, d, y)))
 
 
-def _no_known_grams(ydt, dtype, dy_once=False):
+def _no_known_grams(ydt, dtype, axis, dy_once=False):
     """Empty known blocks and ydy = sum_i d y y (n_s,) in ``dtype`` for the
     solves without a reference. Under 16-bit storage the JAX single
     solver's ``(dt * yt * yt).astype`` (``fused.py:272``) compiles to d y
@@ -210,7 +234,7 @@ def _no_known_grams(ydt, dtype, dy_once=False):
                          else dyy, dim=1)
     empty = dict(dtype=dtype, device=ydt.device)
     return (torch.empty((n_s, 0, 0), **empty), torch.empty((0, n_s), **empty),
-            ydy.contiguous())
+            axis.sum_(ydy).contiguous())
 
 
 def _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
@@ -239,7 +263,8 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
                             n_iter1: int = 10000, n_iter2: int = 20,
                             tol: float = 1e-2, record_trace: bool = False,
                             tol_relative: bool = False,
-                            row_mask=None, bf16_compute: bool = False):
+                            row_mask=None, bf16_compute: bool = False,
+                            axis=LOCAL):
     """Same trajectory as ``solvers/partial_ref.partial_ref_solve``.
 
     u (n_cpg, n_u), alpha (p, n_s), y, d (n_cpg, n_s), R_trunc
@@ -249,25 +274,31 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
     padded solve is the lower-rank solve (the JAX solver's ``row_mask``,
     ``solvers/fused.py:124, 224``). ``bf16_compute`` (bf16 storage only;
     a no-op otherwise, as in the JAX solver) runs K1's bf16_compute
-    form. Returns (u, alpha, info) with info = {'cost': 0-d tensor,
-    'n_iter': int, 'trace': (n_iter1,) NaN-padded cost history when
-    record_trace, else empty}.
+    form. ``axis`` (``parallel/distributed.Axis``, the JAX solver's
+    ``axis_name``): y, d, R_trunc and u are this rank's block of the CpG
+    rows, and every sum over the CpG axis (max(D), the starting cost and
+    norms, the known blocks, each iteration's K1 Gram blocks in one
+    collective) is summed over the ranks; K2 then runs on every rank on
+    the same bits. Returns (u, alpha, info) with info = {'cost': 0-d
+    tensor, 'n_iter': int, 'trace': (n_iter1,) NaN-padded cost history
+    when record_trace, else empty}.
     """
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype, axis)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, axis)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, rtt, uut, alpha, n_u, dmax, True))
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax, True,
+                             axis=axis))
     alpha_prev = alpha.clone()
     if row_mask is not None:
         row_mask = torch.as_tensor(row_mask).to(device=y.device, dtype=dtype)
 
     def one_iteration():
-        gu, b_u, usq = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
-                                     uut, scal, n_iter2,
-                                     bf16_compute=bf16_compute)
+        gu, b_u, usq = axis.sums(*u_phase_grams(
+            ydt, rtt, alpha[:-n_u], alpha[-n_u:], uut, scal, n_iter2,
+            bf16_compute=bf16_compute))
         alpha_phase_full(G_tt, b_t, gu, b_u, usq, ydy, alpha, alpha_prev,
                          scal, n_iter2, n_u, row_mask)
 
@@ -280,24 +311,25 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
 def unsupervised_solve_fused(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
                              n_iter2: int = 20, tol: float = 1e-2,
                              record_trace: bool = False,
-                             tol_relative: bool = False):
+                             tol_relative: bool = False, axis=LOCAL):
     """Same trajectory as ``solvers/unsupervised.unsupervised_solve``
     (R = U, the lagged u-gradient): K1 without a known block, lagged,
     then K2 without a known block (||Rt||^2 = 0). u (n_cpg, n_u), alpha
-    (n_u, n_s). Returns (u, alpha, info) as
-    ``partial_ref_solve_fused``."""
+    (n_u, n_s). ``axis`` as for ``partial_ref_solve_fused``. Returns
+    (u, alpha, info) as ``partial_ref_solve_fused``."""
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
-    ydt, _, dmax = _data_t(y, d, None, dtype)
+    ydt, _, dmax = _data_t(y, d, None, dtype, axis)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _no_known_grams(ydt, dtype)
+    G_tt, b_t, ydy = _no_known_grams(ydt, dtype, axis)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, None, uut, alpha, n_u, dmax, True))
+                    **_start(ydt, None, uut, alpha, n_u, dmax, True,
+                             axis=axis))
     alpha_prev = alpha.clone()
 
     def one_iteration():
-        gu, b_u, usq = u_phase_grams(ydt, None, None, alpha, uut, scal,
-                                     n_iter2, lagged=True)
+        gu, b_u, usq = axis.sums(*u_phase_grams(
+            ydt, None, None, alpha, uut, scal, n_iter2, lagged=True))
         alpha_phase_full(G_tt, b_t, gu, b_u, usq, ydy, alpha, alpha_prev,
                          scal, n_iter2, n_u)
 
@@ -310,23 +342,26 @@ def unsupervised_solve_fused(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
 def purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u: int,
                        n_iter1: int = 100, n_iter2: int = 500,
                        tol: float = 1e-2, record_trace: bool = False,
-                       tol_relative: bool = False):
+                       tol_relative: bool = False, axis=LOCAL):
     """Same trajectory as ``solvers/purity.purity_solve``: K1 (n_iter2
     steps, default 500) then K3, the whole Frank-Wolfe loop. purity (n_s,)
-    is the flipped known-block mass 1 - p/100. Returns (u, alpha, info) as
+    is the flipped known-block mass 1 - p/100. ``axis`` as for
+    ``partial_ref_solve_fused``. Returns (u, alpha, info) as
     ``partial_ref_solve_fused``."""
     dtype = accum_dtype(y)
     alpha = alpha.to(dtype).contiguous().clone()
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
-    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype, axis)
     uut = _uut(u, dtype)
-    G_tt, b_t, ydy = _known_grams(R_trunc, y, d)
+    G_tt, b_t, ydy = _known_grams(R_trunc, y, d, axis)
     scal = _scalars(dtype, y.device,
-                    **_start(ydt, rtt, uut, alpha, n_u, dmax, False))
+                    **_start(ydt, rtt, uut, alpha, n_u, dmax, False,
+                             axis=axis))
 
     def one_iteration():
         gu, b_u, _ = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:],
                                    uut, scal, n_iter2)
+        gu, b_u = axis.sums(gu, b_u)
         fw_phase_full(G_tt, b_t, gu, b_u, ydy, alpha, purity, scal, n_iter2,
                       n_u)
 
@@ -392,7 +427,7 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
 
 
 def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax, dtype, tol,
-                 tol_relative, alpha_fista, w_t=None):
+                 tol_relative, alpha_fista, w_t, axis):
     """The members' [u.T; u_prev.T] rows, alpha stack and scalar rows.
 
     Each member's starting scalars are the single-member solve's
@@ -401,14 +436,15 @@ def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax, dtype, tol,
     its starting cost when ``tol_relative``, and it starts active when
     |cost - inf| >= tol, both in the working dtype on the host, as
     ``_outer_loop`` tests them (a NaN starting cost makes the member
-    inactive from the start)."""
+    inactive from the start). The starting sums are over the ranks of
+    ``axis``."""
     alpha_b = alpha_b.to(dtype).contiguous().clone()
     uut_b = _uut(u_b, dtype)
     scal_b = torch.stack([
         _scalars(dtype, ydt.device, n=N_SCAL_MULTI,
                  **_start(ydt, rtt, uut_b[b], alpha_b[b], n_u,
                           dmax if w_t is None else dmax[b], alpha_fista,
-                          None if w_t is None else w_t[b]))
+                          None if w_t is None else w_t[b], axis))
         for b in range(alpha_b.shape[0])])
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     cf0 = scal_b[:, COST].cpu().numpy().astype(np_dtype)
@@ -447,24 +483,27 @@ def _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace):
         "cost": scal_b[:, COST].clone(), "n_iter": n_iter, "trace": trace}
 
 
-def _multi_data(y, d, R_trunc, dtype, row_weights_b):
+def _multi_data(y, d, R_trunc, dtype, row_weights_b, axis):
     """The multi solvers' shared data and known blocks: ydt, rtt, dmax
     and (G_tt, b_t, ydy), shared by the members; with ``row_weights_b``
     also the members' weight rows w_t (B, N), and then dmax (B,) (the
     max coverage over each member's surviving rows) and the known blocks
-    one per member, w-weighted (else w_t is None)."""
-    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype)
+    one per member, w-weighted (else w_t is None). dmax and the known
+    blocks are over the ranks of ``axis``."""
+    ydt, rtt, dmax = _data_t(y, d, R_trunc, dtype, axis)
     if row_weights_b is None:
-        known = (_no_known_grams(ydt, dtype, dy_once=True) if R_trunc is None
-                 else _known_grams(R_trunc, y, d))
+        known = (_no_known_grams(ydt, dtype, axis, dy_once=True)
+                 if R_trunc is None else _known_grams(R_trunc, y, d, axis))
         return ydt, rtt, dmax, known, None
     w_t = row_weights_b.to(device=ydt.device, dtype=dtype).contiguous()
     if w_t.shape != (row_weights_b.shape[0], ydt.shape[1]):
         raise ValueError(f"row_weights_b must be (B, n_cpg), got "
                          f"{tuple(row_weights_b.shape)}")
-    dmax = torch.stack([coverage_max(d, w).to(dtype) for w in w_t])
+    dmax = axis.max_(torch.stack([coverage_max(d, w).to(dtype)
+                                  for w in w_t]))
     R = y.new_empty((y.shape[0], 0)) if R_trunc is None else R_trunc
-    known = tuple(x.contiguous() for x in weighted_known_grams(R, d, y, w_t))
+    known = tuple(x.contiguous() for x in
+                  axis.sums(*weighted_known_grams(R, d, y, w_t)))
     return ydt, rtt, dmax, known, w_t
 
 
@@ -473,7 +512,7 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
                                   tol: float = 1e-2,
                                   record_trace: bool = False,
                                   tol_relative: bool = False,
-                                  row_weights_b=None):
+                                  row_weights_b=None, axis=LOCAL):
     """Batched-restart partial-reference solve: the same per-member
     trajectories as ``partial_ref_solve_fused`` on each member, or, with
     ``row_weights_b`` (B, n_cpg), as the plain
@@ -485,19 +524,21 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
     {'cost': (B,), 'n_iter': (B,) int64 on the host, 'trace':
     (B, n_iter1) NaN-padded when record_trace, else (B, 0)}. Gram form
     only (n_u^2 <= 3 n_s), at most ``max_multi_members`` members (the
-    caller chunks; ``solvers/api.py`` does)."""
+    caller chunks; ``solvers/api.py`` does). ``axis`` as for
+    ``partial_ref_solve_fused`` (u_b and row_weights_b then hold this
+    rank's rows; K4's (B, ...) Gram blocks are summed before K5)."""
     dtype = accum_dtype(y)
     ydt, rtt, dmax, (G_tt, b_t, ydy), w_t = _multi_data(
-        y, d, R_trunc, dtype, row_weights_b)
+        y, d, R_trunc, dtype, row_weights_b, axis)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
                                           dmax, dtype, tol, tol_relative,
-                                          True, w_t)
+                                          True, w_t, axis)
     alpha_prev_b = alpha_b.clone()
 
     def one_iteration():
-        gu, b_u, usq = u_phase_grams_multi(
+        gu, b_u, usq = axis.sums(*u_phase_grams_multi(
             ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
-            n_iter2, weights=w_t)
+            n_iter2, weights=w_t))
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
@@ -511,25 +552,26 @@ def unsupervised_solve_fused_multi(u_b, alpha_b, y, d, n_u: int,
                                    tol: float = 1e-2,
                                    record_trace: bool = False,
                                    tol_relative: bool = False,
-                                   row_weights_b=None):
+                                   row_weights_b=None, axis=LOCAL):
     """Batched-restart unsupervised solve (R = U, the lagged u-gradient):
     K4 lagged without a known block, then K5 without one. u_b
     (B, n_cpg, n_u), alpha_b (B, n_u, n_s). ``row_weights_b`` as for
     ``partial_ref_solve_fused_multi`` (each member then follows the plain
     ``unsupervised_solve(row_weights=)``; K4's weighted form without a
-    known block). Returns as ``partial_ref_solve_fused_multi``."""
+    known block). ``axis`` as for ``partial_ref_solve_fused_multi``.
+    Returns as ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
     ydt, _, dmax, (G_tt, b_t, ydy), w_t = _multi_data(y, d, None, dtype,
-                                                      row_weights_b)
+                                                      row_weights_b, axis)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, None, n_u,
                                           dmax, dtype, tol, tol_relative,
-                                          True, w_t)
+                                          True, w_t, axis)
     alpha_prev_b = alpha_b.clone()
 
     def one_iteration():
-        gu, b_u, usq = u_phase_grams_multi(ydt, None, None, alpha_b, uut_b,
-                                           scal_b, n_iter2, lagged=True,
-                                           weights=w_t)
+        gu, b_u, usq = axis.sums(*u_phase_grams_multi(
+            ydt, None, None, alpha_b, uut_b, scal_b, n_iter2, lagged=True,
+            weights=w_t))
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
@@ -542,26 +584,110 @@ def purity_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, purity, n_u: int,
                              n_iter1: int = 100, n_iter2: int = 500,
                              tol: float = 1e-2, record_trace: bool = False,
                              tol_relative: bool = False,
-                             row_weights_b=None):
+                             row_weights_b=None, axis=LOCAL):
     """Batched-restart purity-constrained solve: K4 (n_iter2 steps,
     default 500) then K6, the whole Frank-Wolfe loop of every active
-    member. ``row_weights_b`` as for ``partial_ref_solve_fused_multi``.
-    Returns as ``partial_ref_solve_fused_multi``."""
+    member. ``row_weights_b`` and ``axis`` as for
+    ``partial_ref_solve_fused_multi``. Returns as
+    ``partial_ref_solve_fused_multi``."""
     dtype = accum_dtype(y)
     purity = purity.to(device=y.device, dtype=dtype).contiguous()
     ydt, rtt, dmax, (G_tt, b_t, ydy), w_t = _multi_data(
-        y, d, R_trunc, dtype, row_weights_b)
+        y, d, R_trunc, dtype, row_weights_b, axis)
     uut_b, alpha_b, scal_b = _multi_start(u_b, alpha_b, ydt, rtt, n_u,
                                           dmax, dtype, tol, tol_relative,
-                                          False, w_t)
+                                          False, w_t, axis)
 
     def one_iteration():
         gu, b_u, _ = u_phase_grams_multi(
             ydt, rtt, alpha_b[:, :-n_u], alpha_b[:, -n_u:], uut_b, scal_b,
             n_iter2, weights=w_t)
+        gu, b_u = axis.sums(gu, b_u)
         fw_phase_full_multi(G_tt, b_t, gu, b_u, ydy, alpha_b, purity, scal_b,
                             n_iter2, n_u)
 
     n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
                                       record_trace)
     return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
+
+
+# ---------------------------------------------------------------------------
+# row-sharded solves: each rank runs K1 (or K4) on its own block of the CpG
+# rows, the Gram partials are summed over the ranks, and K2/K3 (or K5/K6)
+# run on every rank on the same bits (the JAX package's shard_map forms,
+# ``demethify_tpu/solvers/fused.py:415-727``)
+# ---------------------------------------------------------------------------
+
+def _agree(axis, info):
+    """``info`` when every rank of ``axis`` ended with the same cost bits
+    and iteration counts, else RuntimeError on every rank at once. Each
+    rank makes its own termination test, so ranks that disagree would
+    part in the next collective; the all-reduce hands every rank the same
+    sums and the replicated kernels are deterministic, so they never
+    should."""
+    if axis.size == 1:
+        return info
+    mine = (info["cost"].detach().cpu().numpy().tobytes(),
+            np.asarray(info["n_iter"]).tolist())
+    ranks = axis.all_gather_object(mine)
+    if any(r != mine for r in ranks):
+        raise RuntimeError(f"the ranks of a row-sharded solve disagree on "
+                           f"the final cost or iteration count: {ranks}")
+    return info
+
+
+def partial_ref_solve_fused_sharded(u, alpha, y, d, R_trunc, n_u: int, axis,
+                                    **kw):
+    """``partial_ref_solve_fused`` on this rank's block of the CpG rows
+    (u, y, d, R_trunc; padded rows zero, with zero u) with its sums over
+    the ranks of ``axis``. Every rank of the axis calls it at once with
+    the same alpha and arguments. Returns this rank's u block, the
+    replicated alpha and info, after checking that the ranks agree."""
+    u, alpha, info = partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u,
+                                             axis=axis, **kw)
+    return u, alpha, _agree(axis, info)
+
+
+def unsupervised_solve_fused_sharded(u, alpha, y, d, n_u: int, axis, **kw):
+    """Row-sharded ``unsupervised_solve_fused``, as
+    ``partial_ref_solve_fused_sharded``."""
+    u, alpha, info = unsupervised_solve_fused(u, alpha, y, d, n_u,
+                                              axis=axis, **kw)
+    return u, alpha, _agree(axis, info)
+
+
+def purity_solve_fused_sharded(u, alpha, y, d, R_trunc, purity, n_u: int,
+                               axis, **kw):
+    """Row-sharded ``purity_solve_fused``, as
+    ``partial_ref_solve_fused_sharded``."""
+    u, alpha, info = purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u,
+                                        axis=axis, **kw)
+    return u, alpha, _agree(axis, info)
+
+
+def partial_ref_solve_fused_multi_sharded(u_b, alpha_b, y, d, R_trunc,
+                                          n_u: int, axis, **kw):
+    """Row-sharded ``partial_ref_solve_fused_multi``: u_b (B, rows, n_u)
+    and ``row_weights_b`` (B, rows) hold this rank's rows. As
+    ``partial_ref_solve_fused_sharded``."""
+    u_b, alpha_b, info = partial_ref_solve_fused_multi(
+        u_b, alpha_b, y, d, R_trunc, n_u, axis=axis, **kw)
+    return u_b, alpha_b, _agree(axis, info)
+
+
+def unsupervised_solve_fused_multi_sharded(u_b, alpha_b, y, d, n_u: int,
+                                           axis, **kw):
+    """Row-sharded ``unsupervised_solve_fused_multi``, as
+    ``partial_ref_solve_fused_multi_sharded``."""
+    u_b, alpha_b, info = unsupervised_solve_fused_multi(
+        u_b, alpha_b, y, d, n_u, axis=axis, **kw)
+    return u_b, alpha_b, _agree(axis, info)
+
+
+def purity_solve_fused_multi_sharded(u_b, alpha_b, y, d, R_trunc, purity,
+                                     n_u: int, axis, **kw):
+    """Row-sharded ``purity_solve_fused_multi``, as
+    ``partial_ref_solve_fused_multi_sharded``."""
+    u_b, alpha_b, info = purity_solve_fused_multi(
+        u_b, alpha_b, y, d, R_trunc, purity, n_u, axis=axis, **kw)
+    return u_b, alpha_b, _agree(axis, info)

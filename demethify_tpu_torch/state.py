@@ -7,13 +7,15 @@ of ``partial_ref_solve_fused``) and returns the port's tensors;
 ``from_numpy_batch`` does the same for B restart members' stacked initial
 factors (the argument order of ``partial_ref_solve_fused_multi``);
 ``purity_from_numpy`` does the same for the purity vector of the purity
-mode; ``to_numpy`` goes back. Reading the JAX package's orbax checkpoints is
-ROADMAP port queue item 5.
+mode; ``to_numpy`` goes back. ``restore_factors`` reads a ``--savestate``
+checkpoint (``checkpoint.py``; a JAX-package checkpoint converts to it)
+onto a run's row layout.
 """
 
 import numpy as np
 import torch
 
+from demethify_tpu_torch.checkpoint import load_factors
 from demethify_tpu_torch.device import state_dtype
 
 
@@ -69,3 +71,25 @@ def to_numpy(*tensors):
     """Tensors (any device) -> numpy arrays, in order; None stays None."""
     return tuple(None if t is None else t.detach().cpu().numpy()
                  for t in tensors)
+
+
+def restore_factors(path, block, *, device, dtype):
+    """``--initstate``: the checkpoint at ``path`` -> (u0, alpha0) on this
+    run's rows, ``block`` (``parallel/mesh.RowBlock``; one process: the
+    whole of them), on ``device`` in the storage dtype ``dtype``, as the
+    JAX CLI casts them (``demethify_tpu/cli.py:422-441``). Its row rule
+    too: a checkpoint with fewer rows than the run's padded rows is padded
+    with zero rows, one with more is refused (ValueError with the JAX
+    CLI's message)."""
+    state = load_factors(path, rows=(block.start, block.stop))
+    if "u" not in state:
+        raise ValueError(f"--initstate {path} holds no unknown profiles "
+                         f"(a reference-based run's checkpoint)")
+    if state["n_rows"] > block.n_pad:
+        raise ValueError(f"--initstate factor rows ({state['n_rows']}) do "
+                         f"not match the input CpG rows ({block.n_pad}).")
+    u = np.zeros((block.stop - block.start, state["u"].shape[1]),
+                 state["u"].dtype)
+    u[:state["u"].shape[0]] = state["u"]
+    return (torch.as_tensor(u).to(device).to(dtype),
+            torch.as_tensor(state["alpha"]).to(device).to(dtype))

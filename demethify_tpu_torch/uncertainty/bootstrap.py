@@ -27,7 +27,9 @@ modes, the unknown profiles. Two layouts, as in the JAX package:
 JAX package does. With an SVD or ICA init the weights layout computes
 the init once on the full data and gives it to every replicate, as the
 JAX package does; the resample layout inits each replicate on its
-gathered rows. The sharded and multi-process routes are item 8.
+gathered rows. Multi-process runs partition the replicates over the
+ranks, or run the weights layout row-sharded (``bootstrap_ci``'s ``axis``
+and ``shard``).
 
 Random numbers: replicate r draws its resample indices, then its init,
 from its own ``torch.Generator``, seeded from the GLOBAL replicate index
@@ -56,6 +58,7 @@ from demethify_tpu_torch.ops import fista
 from demethify_tpu_torch.ops.cuda_kernels import gram_form
 from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
+from demethify_tpu_torch.parallel.distributed import LOCAL, Axis, Shard
 from demethify_tpu_torch.solvers import api, fused
 from demethify_tpu_torch.solvers.init import (
     DETERMINISTIC,
@@ -110,9 +113,22 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
                  seed: int = 1, method: str = "auto",
                  tol_relative: bool = False,
                  indices: Optional[Sequence] = None,
-                 inits: Optional[Sequence] = None):
+                 inits: Optional[Sequence] = None,
+                 axis: Axis = LOCAL, shard: Optional[Shard] = None):
     """Returns (lower_props, upper_props, lower_u, upper_u) as numpy
     arrays; the u bounds are None in the supervised mode (n_u == 0).
+
+    Multi-process runs (the JAX package's ``process_count`` and
+    ``process_index``): with ``axis`` of N ranks, each solves its
+    contiguous block of the replicates (global indices, so the same
+    generators) on its full copy of the data, and the replicates' results
+    are gathered over the ranks before the percentiles, so every rank
+    returns the one-process intervals. With ``shard`` (the row-sharded
+    weights route, ``row_sharded``), y, d and ref are this rank's rows of
+    a row-sharded dataset: every replicate runs on every rank through the
+    row-sharded multi solvers (K4 on the rank's rows, the Gram partials
+    summed, then K5/K6), rank 0 draws each chunk's weights and inits on
+    the full data, and the u bounds are gathered over the ranks.
 
     y, d (n_cpg, n_s) and ref (n_cpg, n_ct), or None for the unsupervised
     bootstrap, on one device; purity (n_s,) the flipped known-block mass.
@@ -128,23 +144,29 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         raise ValueError("bootstrap_ci needs ref profiles (supervised) or "
                          "n_u > 0 (unsupervised)")
     n_cpg, n_s = y.shape
+    if shard is not None:
+        n_cpg = shard.block.n_rows
     method = resolve_method(method, init_option, n_cpg * n_s)
     if method not in ("resample", "weights"):
         raise ValueError(f"unknown bootstrap method {method!r}")
+    if shard is not None and not row_sharded(method, n_u, n_s,
+                                             ref is not None):
+        raise ValueError("the row-sharded bootstrap takes the weights "
+                         "layout of the partial-reference or purity mode in "
+                         "the gram form (row_sharded)")
     if purity is not None:
         purity = torch.as_tensor(purity, dtype=y.dtype, device=y.device)
     dtype = accum_dtype(y)
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative)
 
-    def draw(r):
+    def draw(r, device=y.device):
         """Replicate r's generator and resample indices."""
-        g = replicate_generator(seed, r, y.device)
+        g = replicate_generator(seed, r, device)
         if indices is None:
-            idx = torch.randint(n_cpg, (n_cpg,), generator=g,
-                                device=y.device)
+            idx = torch.randint(n_cpg, (n_cpg,), generator=g, device=device)
         else:
-            idx = torch.as_tensor(np.asarray(indices[r]), device=y.device)
+            idx = torch.as_tensor(np.asarray(indices[r]), device=device)
         return g, idx
 
     def own_init(g, yb, db, refb, w=None):
@@ -155,18 +177,21 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
                                purity=purity)
         return init_partial(g, init_option, yb, db, refb, n_u, w)
 
-    shared = None
-    if (method == "weights" and not supervised and inits is None
-            and init_option in DETERMINISTIC):
-        shared = own_init(replicate_generator(seed, SHARED_INIT, y.device),
-                          y, d, ref)
+    # the weights layout's shared SVD/ICA init, made on the full data at
+    # its first use
+    shared = {}
+    share = (method == "weights" and not supervised and inits is None
+             and init_option in DETERMINISTIC)
 
     def init(r, g, yb, db, refb, w=None):
         if inits is not None:
-            return tuple(torch.as_tensor(np.asarray(x)).to(y.device, dtype)
+            return tuple(torch.as_tensor(np.asarray(x)).to(yb.device, dtype)
                          for x in inits[r])
-        if shared is not None:
-            return shared
+        if share:
+            if not shared:
+                shared["init"] = own_init(replicate_generator(
+                    seed, SHARED_INIT, yb.device), yb, db, refb)
+            return shared["init"]
         return own_init(g, yb, db, refb, w)
 
     def weights(idx):
@@ -217,26 +242,42 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
                                             row_weights=w, **kw)
         return alpha, u
 
-    def weighted_chunk(lo, hi):
-        """Replicates lo..hi-1 through one multi-solver call."""
+    def chunk_draws(lo, hi, yy, dd, rr):
+        """(w_b, u0_b, a0_b) of replicates lo..hi-1 on the full data."""
         w_b, u0_b, a0_b = [], [], []
         for r in range(lo, hi):
-            g, idx = draw(r)
+            g, idx = draw(r, yy.device)
             w = weights(idx)
-            u0, a0 = init(r, g, y, d, ref, w)
+            u0, a0 = init(r, g, yy, dd, rr, w)
             w_b.append(w)
             u0_b.append(u0)
             a0_b.append(a0)
-        w_b, u0_b, a0_b = (torch.stack(x) for x in (w_b, u0_b, a0_b))
+        return tuple(torch.stack(x) for x in (w_b, u0_b, a0_b))
+
+    def weighted_chunk(lo, hi):
+        """Replicates lo..hi-1 through one multi-solver call (row-sharded
+        with ``shard``: this rank's rows of their u)."""
+        if shard is None:
+            w_b, u0_b, a0_b = chunk_draws(lo, hi, y, d, ref)
+            solver_kw = dict(kw, row_weights_b=w_b)
+        else:
+            w_b, u0_b, a0_b = (x.to(y.device) for x in shard.from_rank0(
+                lambda *full: tuple(x.cpu() for x in chunk_draws(
+                    lo, hi, *full))))
+            solver_kw = dict(kw, axis=shard.axis,
+                             row_weights_b=shard.block.take(w_b, axis=1))
+            u0_b = shard.block.take(u0_b, axis=1)
         if unsupervised:
             u_b, alpha_b, _ = fused.unsupervised_solve_fused_multi(
-                u0_b, a0_b, y, d, n_u, row_weights_b=w_b, **kw)
+                u0_b, a0_b, y, d, n_u, **solver_kw)
         elif purity is not None:
             u_b, alpha_b, _ = fused.purity_solve_fused_multi(
-                u0_b, a0_b, y, d, ref, purity, n_u, row_weights_b=w_b, **kw)
+                u0_b, a0_b, y, d, ref, purity, n_u, **solver_kw)
         else:
             u_b, alpha_b, _ = fused.partial_ref_solve_fused_multi(
-                u0_b, a0_b, y, d, ref, n_u, row_weights_b=w_b, **kw)
+                u0_b, a0_b, y, d, ref, n_u, **solver_kw)
+        if shard is not None:
+            u_b = u_b[:, :shard.block.n_data]
         return alpha_b, u_b
 
     props, us = [], []
@@ -245,25 +286,50 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
         props.append(alpha.cpu().numpy())
         us.append(None if u is None else u.cpu().numpy())
 
+    # this process's contiguous block of the global replicate indices (all
+    # of them in one process, and on every rank of a row-sharded run)
+    ranks = LOCAL if shard is not None else axis
+    per_rank = -(-n_bootstrap // ranks.size)
+    first = min(ranks.rank * per_rank, n_bootstrap)
+    last = min(first + per_rank, n_bootstrap)
     if method == "weights" and not supervised and gram_form(n_u, n_s):
         cap = CPU_MEMBERS if y.device.type == "cpu" else (
             fused.max_multi_members(
-                n_cpg, n_s, 0 if unsupervised else ref.shape[1], n_u,
+                y.shape[0], n_s, 0 if unsupervised else ref.shape[1], n_u,
                 torch.finfo(dtype).bits // 8, y.element_size(),
                 fused.free_device_bytes(y.device), weighted=True))
-        for lo in range(0, n_bootstrap, cap):
-            alpha_b, u_b = weighted_chunk(lo, min(lo + cap, n_bootstrap))
+        if shard is not None:
+            cap = int(shard.axis.min_(torch.tensor([cap],
+                                                   device=y.device)).item())
+        for lo in range(first, last, cap):
+            alpha_b, u_b = weighted_chunk(lo, min(lo + cap, last))
             props.extend(alpha_b.cpu().numpy())
             us.extend(u_b.cpu().numpy())
     elif method == "weights":
-        for r in range(n_bootstrap):
+        for r in range(first, last):
             keep(*weighted_one(r))
     else:
-        for r in range(n_bootstrap):
+        for r in range(first, last):
             keep(*resample_one(r))
 
+    props = [p for block in ranks.all_gather_object(props) for p in block]
     lo_p, hi_p = _percentiles(np.stack(props), level)
     if supervised:
         return lo_p, hi_p, None, None
+    if shard is None:
+        us = [u for block in ranks.all_gather_object(us) for u in block]
     lo_u, hi_u = _percentiles(np.stack(us), level)
+    if shard is not None:
+        lo_u, hi_u = (np.concatenate(shard.axis.all_gather_object(x))
+                      for x in (lo_u, hi_u))
     return lo_p, hi_p, lo_u, hi_u
+
+
+def row_sharded(method: str, n_u: int, n_s: int, has_ref: bool) -> bool:
+    """True when ``bootstrap_ci`` runs on a row-sharded dataset (``shard``):
+    the weights layout (``method`` resolved) of the partial-reference or
+    purity mode in the gram form, the replicates through K4 with its
+    weights operand, as the JAX package's ``_fused_gate`` has it (its
+    other modes and forms run on the full data)."""
+    return (method == "weights" and has_ref and n_u > 0
+            and gram_form(n_u, n_s))

@@ -111,20 +111,29 @@ def test_partial_ref_close_to_jax(tmp_path, fixture_files):
 
 @pytest.mark.parametrize("flag", [["--initstate", "x"],
                                   ["--ic", "AIC", "--initstate", "x"],
-                                  ["--savestate", "x"],
-                                  ["--profile", "x"], ["--shard"],
+                                  ["--debugnans"],
+                                  ["--profile", "x"],
+                                  ["--multihost", "localhost:1", "2", "0",
+                                   "--shard"],
                                   ["--ic", "AIC", "--nbunknown", "1"]])
 def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,
                                                flag, capsys):
-    """Unported flags name their ROADMAP item (``--initstate`` is item 5,
-    with or without ``--ic``); ``--ic`` with ``--nbunknown`` is refused
-    as the JAX CLI refuses it."""
+    """Unported flags name their ROADMAP item (``--multihost`` with
+    ``--shard`` item 8); ``--ic`` with ``--nbunknown`` is refused as the
+    JAX CLI refuses it, and so is ``--initstate`` in the reference-based
+    mode or with ``--ic`` (exit 1, the JAX CLI's message)."""
     samples, ref = fixture_files
     argv = ["--methfreq", *samples, "--bedmethyl", "--noprint",
             "--outdir", str(tmp_path / "o"), "--device", "cpu",
             "--ref", ref, *flag]
     with pytest.raises(SystemExit) as exc:
         torch_cli_main(argv)
+    if "--initstate" in flag:
+        assert exc.value.code == 1
+        assert ("--initstate warm-starts the iterative solvers; it cannot "
+                "be used with --ic or the reference-based (no --nbunknown) "
+                "mode.") in capsys.readouterr().err
+        return
     want = ("--ic cannot be used with --nbunknown" if "--nbunknown" in flag
             else "ROADMAP port queue item")
     assert want in str(exc.value.code)

@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
                 "ops.frank_wolfe", "ops.cuda_small", "ops.cuda_kernels",
                 "ops.cuda_multi", "isolation", "ops.tall_svd", "ops.nndsvd",
                 "ops.nnica", "selection.criteria", "selection.ccc",
-                "selection.minka", "selection.bcv", "selection.sweep"):
+                "selection.minka", "selection.bcv", "selection.sweep",
+                "checkpoint", "parallel.mesh", "parallel.distributed"):
         assert f"demethify_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
