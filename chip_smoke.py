@@ -159,7 +159,22 @@ non-zero and prints no result line):
    processes against the one-process CLI (float64, the phase-10 fixture:
    ``--confidence 90 7 --restart 4`` with ``--savestate``, ``--ic AIC
    --icmax 3``, a warm start from ``--initstate``), and ``--shard`` over
-   the cards where there are several (``phase_ranks_cli``).
+   the cards where there are several (``phase_ranks_cli``);
+13. the CLI's last flags, the host tools and the 2-D layout:
+   ``--profile`` (the CLI at 1M x 10, float32, 50 x 20: K1's main pass
+   and K2 in the program's own trace as often as their counters count
+   them, each kernel's device time, the CSVs the same bytes as without
+   the flag), ``--debugnans`` (the same bytes; the main path's ms per
+   outer iteration with and without it; a NaN input exits non-zero with
+   FloatingPointError) (``phase_observability``); the feature
+   selection's device path at 2M x 25, float32, against numpy float64
+   (``phase_feature_selection``); simulate -> select -> intersect ->
+   deconvolve on the card against ``--device cpu``, and ``--plot``
+   (``phase_pipeline``); ``--multihost --shard`` as 2 processes x 2
+   workers on the one card over gloo at 200k x 10, float64 against the
+   one-process CLI, and the same routes through the API for each
+   worker's launches and ms per outer iteration (``phase_layout``,
+   ``--layout-worker`` processes).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -2830,8 +2845,18 @@ def phase_bf16_paths(problem32, card):
 
 
 # ---------------------------------------------------------------- phase 8
-def _write_fixture(root, seed=7):
-    n = N_CLI
+def _write_rows(path, header, columns, fmt):
+    """One fixture file: the header line, then np.savetxt's rows."""
+    with open(path, "w") as f:
+        f.write(header)
+        np.savetxt(f, np.column_stack(columns), fmt=fmt, delimiter="\t")
+    return path
+
+
+def _write_fixture(root, seed=7, n=N_CLI):
+    """A simulated bedmethyl fixture of n sites: ref.bed (N_CT types) and
+    N_S samples of the N_CT + 1 types. Above N_CLI sites the files are
+    written by a pool of spawned processes, one file each."""
     rng = np.random.default_rng(seed)
     R = rng.uniform(size=(n, N_CT + 1))
     alpha = rng.dirichlet(np.ones(N_CT + 1), size=N_S).T
@@ -2839,23 +2864,25 @@ def _write_fixture(root, seed=7):
     meth = np.clip(R @ alpha + 0.01 * rng.normal(size=(n, N_S)), 0, 1)
     pos = np.arange(n)
     ref = os.path.join(root, "ref.bed")
-    with open(ref, "w") as f:
-        f.write("chrom\tstart\tend\t"
-                + "\t".join(f"celltype{c + 1}" for c in range(N_CT)) + "\n")
-        np.savetxt(f, np.column_stack([pos, pos + 1, R[:, :N_CT]]),
-                   fmt=["chr1\t%d", "%d"] + ["%.6f"] * N_CT,
-                   delimiter="\t")
-    samples = []
-    for s in range(N_S):
-        path = os.path.join(root, f"sample{s + 1}.bed")
-        with open(path, "w") as f:
-            f.write("chrom\tstart\tend\tvalid_coverage\tcount_modified\t"
-                    "percent_modified\n")
-            np.savetxt(f, np.column_stack(
-                [pos, pos + 1, cov[:, s], np.rint(meth[:, s] * cov[:, s]),
-                 100 * meth[:, s]]),
-                fmt=["chr1\t%d", "%d", "%d", "%d", "%.4f"], delimiter="\t")
-        samples.append(path)
+    jobs = [(ref, "chrom\tstart\tend\t" + "\t".join(
+        f"celltype{c + 1}" for c in range(N_CT)) + "\n",
+        [pos, pos + 1, R[:, :N_CT]], ["chr1\t%d", "%d"] + ["%.6f"] * N_CT)]
+    samples = [os.path.join(root, f"sample{s + 1}.bed") for s in range(N_S)]
+    for s, path in enumerate(samples):
+        jobs.append((path, "chrom\tstart\tend\tvalid_coverage\t"
+                     "count_modified\tpercent_modified\n",
+                     [pos, pos + 1, cov[:, s], np.rint(meth[:, s] * cov[:, s]),
+                      100 * meth[:, s]],
+                     ["chr1\t%d", "%d", "%d", "%d", "%.4f"]))
+    if n <= N_CLI:
+        for job in jobs:
+            _write_rows(*job)
+    else:
+        import multiprocessing
+
+        with multiprocessing.get_context("spawn").Pool(
+                min(len(jobs), os.cpu_count() or 1)) as pool:
+            pool.starmap(_write_rows, jobs)
     return samples, ref
 
 
@@ -3327,6 +3354,21 @@ def phase_sweep(problem32, card):
             f"{ms / 1e3:.3f} s (CUDA events, card {card}); chose n_u = "
             f"{n_u}; solve ms per rank {{{per_rank}}}; launches {launches}")
         out[ic] = {"ms": ms, "per_rank": times, "launches": launches}
+    # K1 at the sweep's widest ranks past 8 (the scratch-column form): its
+    # time and bound at 1M x 10, 5 + n_u, float32, and its launches in the
+    # AIC sweep (SWEEP_OUTER a rank: tol = 0)
+    for n_u in (9, 25):
+        k1 = _k1_case(N_CPG, n_u, "float32", timed=True, reps=3, inner=3,
+                      label=f"[sweep rank {n_u}]")
+        out[f"k1_rank{n_u}"] = dict(
+            {k: k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "form", "layout")},
+            launches_in_aic_sweep=SWEEP_OUTER)
+        log(f"[sweep] K1 at rank {n_u} (1M x {N_S}, {N_CT}+{n_u}, float32, "
+            f"{k1['form']} form): {k1['ms']:.4f} ms a launch, bound "
+            f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), "
+            f"{k1['ms'] / k1['bound_ms']:.1f}x; {SWEEP_OUTER} launches in "
+            f"the AIC sweep's solve of that rank")
     return out
 
 
@@ -4910,14 +4952,16 @@ def phase_single_phase_kernels(card, main_ms):
     out["k8_sass"] = _k8_sass()
     k8 = out["k8"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32", timed=True,
                               library=True)
-    out["k8_f64"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float64", timed=True)
+    out["k8_f64"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float64", timed=True,
+                             library=True)
     out["k8_bf16"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32",
                               data="bfloat16", timed=True)
     p_c = COHORT[2] + COHORT[3]
     out["k8_cohort"] = _k8_case(COHORT[0], COHORT[1], p_c, "float32",
                                 timed=True, library=True, label="[cohort]")
     out["k8_cohort_f64"] = _k8_case(COHORT[0], COHORT[1], p_c, "float64",
-                                    timed=True, label="[cohort]")
+                                    timed=True, library=True,
+                                    label="[cohort]")
     out["k8_cohort_bf16"] = _k8_case(COHORT[0], COHORT[1], p_c, "float32",
                                      data="bfloat16", timed=True,
                                      label="[cohort]")
@@ -5274,8 +5318,9 @@ def time_k8(root="."):
     """K8 of the tree at ``root`` timed on one GPU, queued behind a device
     sleep as ``_k8_case`` times it: at the main path's shape (1M x 10,
     p = 6) and the cohort shape (1M x 100, p = 29), on float32, float64
-    and bf16 data, with the library calls (float32) beside it; and the
-    set-up sums the kernel solvers take before their loop,
+    and bf16 data, with the library calls beside it (float32 and float64;
+    none on bf16 data, where no single call keeps K8's float32 sums); and
+    the set-up sums the kernel solvers take before their loop,
     ``ops/gram.known_block_grams`` (row chunks of plain tensor ops), at
     the main path's known block (p = 5, n_s = 10) and the cohort's
     (p = 25, n_s = 100), float32, beside K8 on the same data; and the
@@ -5308,11 +5353,15 @@ def time_k8(root="."):
             row = {"n": n, "n_s": n_s, "p": p,
                    "data": str(yt.dtype).replace("torch.", ""),
                    "ms": queued_ms(lambda: grams(yt, dt, rt), inner=10)}
-            if data is None and dt_name == "float32":
+            if data is None:
                 row["library_ms"] = median_ms(lambda: (
                     torch.einsum("sn,qn,rn->sqr", dt, rt, rt),
                     rt @ (dt * yt).T, torch.sum(dt * yt * yt, 1)), reps=3,
                     inner=1, warmup=1)
+            else:
+                # on bf16 data the same calls form and sum their products
+                # in bf16; no single PyTorch call keeps K8's float32 sums
+                row["library_ms"] = None
             rows.append(row)
             log(f"[time_k8] {row}")
             del yt, dt, rt
@@ -5785,7 +5834,10 @@ def _single_phase_rows(single):
                  "demethify_tpu/ops/pallas_kernels.py:743 (via :776)", k8,
                  launches["grams"], k8["max_abs_err"], k8["library_ms"]),
              redesigned=K8_REDESIGN, bound_rate=k8["bound_rate"],
-             cuda_core_bound_ms=k8["cuda_core_bound_ms"]),
+             cuda_core_bound_ms=k8["cuda_core_bound_ms"],
+             float64={k: single["k8_f64"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             library_ms_bf16_data=None),
         row("alpha_phase", "alpha_phase.cu",
             "demethify_tpu/ops/pallas_small.py:70 (via :97)", k9,
             launches["alpha_phase"], k9["alpha_max_abs"]),
@@ -5929,10 +5981,14 @@ def rank_solves(axis, block):
 def rank_worker(out_dir, store, n_ranks, rank):
     """One rank of ``phase_ranks``: ``rank_solves`` on its block, saved to
     out_dir/rankRANK.npz (arrays) and .json (launches, times)."""
-    from demethify_tpu_torch.parallel.distributed import initialize, shutdown
+    from demethify_tpu_torch.parallel.distributed import (
+        initialize_layout,
+        shutdown,
+    )
     from demethify_tpu_torch.parallel.mesh import row_block
 
-    axis, device = initialize(store, n_ranks, rank, "cuda")
+    layout, device = initialize_layout(store, n_ranks, rank)
+    axis = layout.world
     try:
         t0 = time.perf_counter()
         res = rank_solves(axis, row_block(N_CPG, n_ranks, rank))
@@ -6167,6 +6223,591 @@ def phase_ranks_cli():
             f"files of {p_shard.shape[0]} rows")
 
 
+# ------------------------------------------------------------ phase 13
+# The CLI's last flags and the host tools: --profile, --debugnans, the
+# feature selection's device path, the preprocessing pipeline a user runs,
+# and the 2-D layout (--multihost --shard: LAYOUT_PROCS processes of
+# LAYOUT_LOCAL workers, all on the one card over gloo: a correctness run,
+# not scaling).
+OBS_OUTER = 50
+NAN_COST_OUTER = 200
+SELECT_ROWS, SELECT_COLS, SELECT_KEEP = 2_000_000, 25, 20_000
+PIPE_REF, PIPE_TYPES, PIPE_KEEP = 50_000, 8, 20_000
+LAYOUT_PROCS, LAYOUT_LOCAL = 2, 2
+N_2D = 200_000
+LAYOUT_OUTER, LAYOUT_BOOT, LAYOUT_BOOT_OUTER = 30, 8, 20
+# the 2-D CCC sweep of the API run: ranks 1-2 over ``across``, each rank's
+# restarts (and the winner's, solved again) batched through the
+# row-sharded multi-member solvers over ``rows``
+LAYOUT_CCC_OUTER = 20
+LAYOUT_CCC = dict(seed=22, iter2=N_INNER, tol=0.0, n_restarts=3, n_u_max=2)
+LAUNCH_2D = ("import sys; from demethify_tpu_torch.cli import "
+             "_run_shard_workers; sys.exit(_run_shard_workers(sys.argv[2:], "
+             "int(sys.argv[1])))")
+# K1's main pass and K2's kernels by name in a trace (K2's register and
+# wide forms; K5 takes the same kernels with a member grid, and runs on no
+# path of this phase's profiled run)
+K1_KERNEL = "u_phase_grams_kernel"
+K2_KERNELS = ("alpha_phase_reg_kernel", "alpha_phase_wide_kernel")
+
+
+def _same_csvs(a, b, what):
+    names = sorted(n for n in os.listdir(a) if n.endswith(".csv"))
+    check(names and names == sorted(n for n in os.listdir(b)
+                                    if n.endswith(".csv")),
+          f"{what}: CSV files {names}")
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            check(fa.read() == fb.read(), f"{what}: {name} differs")
+    return names
+
+
+def _trace_kernels(path):
+    """{kernel name: (count, summed device us)} of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, us = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    return out
+
+
+def phase_observability(problem32, card):
+    """(a) ``--profile``: the CLI in partial-reference mode at 1M x 10,
+    float32, OBS_OUTER x 20: K1's main pass and K2 appear in the trace as
+    often as their counters count, each kernel's summed device time is
+    printed, and the CSVs are byte-identical to the run without the flag.
+    (b) ``--debugnans``: the same run byte-identical with and without the
+    flag; the ms per outer iteration of the main path (1M x 10, 200 x 20,
+    tol = 0) with and without it (off, on, on, off), the same bits; and an
+    input that gives NaN (a warm start whose unknown alpha block is zero)
+    makes the CLI exit non-zero with FloatingPointError. Returns the
+    numbers."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.checkpoint import save_factors
+    from demethify_tpu_torch.cli import main as cli_main
+    from demethify_tpu_torch.solvers.api import partial_reference_deconv
+    from demethify_tpu_torch.utils import enable_nan_debugging
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        samples, ref = _write_fixture(root, seed=13, n=N_CPG)
+        log(f"[observability] 1M-row fixture written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        base = ["--methfreq", *samples, "--bedmethyl", "--noprint",
+                "--device", DEV, "--ref", ref, "--nbunknown", "1",
+                "--iterations", str(OBS_OUTER), str(N_INNER)]
+        runs = {}
+        for tag, extra in (("plain", []), ("profile", [
+                "--profile", os.path.join(root, "trace")]),
+                ("debugnans", ["--debugnans"])):
+            outdir = os.path.join(root, tag)
+            reset_counts()
+            t0 = time.perf_counter()
+            check(cli_main(base + extra + ["--outdir", outdir]) == 0,
+                  f"CLI --{tag}")
+            runs[tag] = (read_counts(), time.perf_counter() - t0)
+        for tag in ("profile", "debugnans"):
+            names = _same_csvs(os.path.join(root, "plain"),
+                               os.path.join(root, tag), f"--{tag}")
+        launches = runs["profile"][0]
+        kernels = _trace_kernels(os.path.join(root, "trace", "trace.json"))
+        n_k1 = sum(n for k, (n, _) in kernels.items() if K1_KERNEL in k)
+        n_k2 = sum(n for k, (n, _) in kernels.items()
+                   if any(s in k for s in K2_KERNELS))
+        for name, (n, us) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][1]):
+            log(f"[profile] {name[:100]}: x{n}, {us / 1e3:.4f} ms in all, "
+                f"{us / n:.2f} us each")
+        log(f"[profile] CLI --profile at 1M x {N_S}, 5+1, float32, "
+            f"{OBS_OUTER}x{N_INNER}, card {card}: K1 main pass x{n_k1}, K2 "
+            f"x{n_k2} in the trace; counters u_phase_grams "
+            f"{launches['u_phase_grams']}, alpha_phase_full "
+            f"{launches['alpha_phase_full']}; CSVs byte-identical to the "
+            f"run without the flag ({', '.join(names)}); wall "
+            f"{runs['profile'][1]:.1f} s ({runs['plain'][1]:.1f} s without)")
+        check(launches["u_phase_grams"] > 0
+              and n_k1 == launches["u_phase_grams"]
+              and n_k2 == launches["alpha_phase_full"],
+              f"trace counts K1 {n_k1}, K2 {n_k2} vs counters {launches}")
+        out["trace"] = {k[:120]: {"count": n, "device_us": us}
+                        for k, (n, us) in kernels.items()}
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        log(f"[debugnans] CLI --debugnans at 1M x {N_S}: CSVs "
+            f"byte-identical to the run without the flag; launches "
+            f"{ {k: v for k, v in runs['debugnans'][0].items() if v} }")
+        check(runs["debugnans"][0] == runs["plain"][0],
+              "--debugnans changed the launches")
+
+        # what the check costs per outer iteration, on the main path
+        u0, a0, y, d, Rt = state.from_numpy(*problem32, device=DEV,
+                                            dtype=torch.float32)
+        kw = dict(n_iter1=NAN_COST_OUTER, n_iter2=N_INNER, tol=0.0)
+
+        def solve(flag):
+            enable_nan_debugging(flag)
+            try:
+                res, ms = timed_ms(lambda: partial_reference_deconv(
+                    y, d, Rt, N_U, init_provided=(u0, a0), **kw))
+            finally:
+                enable_nan_debugging(False)
+            return res, ms / NAN_COST_OUTER
+
+        solve(False)                                                # warm
+        turns = [solve(flag) for flag in (False, True, True, False)]
+        same = all(torch.equal(r.proportions, turns[0][0].proportions)
+                   and torch.equal(r.u, turns[0][0].u) for r, _ in turns)
+        off = [ms for (_, ms), f in zip(turns, (0, 1, 1, 0)) if not f]
+        on = [ms for (_, ms), f in zip(turns, (0, 1, 1, 0)) if f]
+        log(f"[debugnans] main path 1M x {N_S}, 5+1, float32, "
+            f"{NAN_COST_OUTER}x{N_INNER}, tol=0, card {card}: ms per outer "
+            f"iteration off {off[0]:.4f}, on {on[0]:.4f}, on {on[1]:.4f}, off "
+            f"{off[1]:.4f}; the same bits: {same}")
+        check(same, "--debugnans changed the main path's bits")
+        out["ms_iter_off"], out["ms_iter_on"] = off, on
+
+        # an input that gives NaN: the unknown alpha block starts at zero
+        rng = np.random.default_rng(14)
+        os.makedirs(os.path.join(root, "small"))
+        small, small_ref = _write_fixture(os.path.join(root, "small"),
+                                          seed=15)
+        ckpt = os.path.join(root, "zero-unknown")
+        save_factors(ckpt, alpha=np.vstack([
+            rng.dirichlet(np.ones(N_CT), size=N_S).T, np.zeros((1, N_S))]),
+            cost=np.asarray(1.0), u=rng.uniform(size=(N_CLI, 1)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "demethify_tpu_torch", "--methfreq",
+             *small, "--bedmethyl", "--noprint", "--device", DEV, "--ref",
+             small_ref, "--nbunknown", "1", "--iterations", "5", "5",
+             "--initstate", ckpt, "--debugnans", "--outdir",
+             os.path.join(root, "nan")], capture_output=True, text=True,
+            timeout=600, cwd=HERE)
+        last = (proc.stderr.strip().splitlines() or [""])[-1]
+        log(f"[debugnans] NaN input (zero unknown alpha block) on the card: "
+            f"exit {proc.returncode}, {last}")
+        check(proc.returncode != 0 and "FloatingPointError" in proc.stderr,
+              "the NaN input did not fail with FloatingPointError")
+    return out
+
+
+def phase_feature_selection(card):
+    """``preprocessing.feature_selection.scores`` at SELECT_ROWS x
+    SELECT_COLS on the card (float32, its device path) by variance and by
+    SVD leverage, timed (the device work with CUDA events, the whole call
+    with its copies on the host clock), held to numpy float64 on the host:
+    variance scores within 1e-5 relative each, SVD scores within 1e-4 of
+    the largest; the rows kept (SELECT_KEEP) equal the host's wherever the
+    score gap at the cut exceeds that tolerance. The columns are cell
+    types with distinct spreads (uniform values scaled by 1 down to 0.3),
+    so the singular values are distinct. On i.i.d. columns, whose
+    spectrum is near-degenerate, the float32 Gram path's leverage scores
+    are ill-conditioned: their distance to float64 there is printed, not
+    held."""
+    import torch
+
+    from demethify_tpu_torch.ops.tall_svd import tall_svd
+    from demethify_tpu_torch.preprocessing.feature_selection import (
+        rank_rows, scores)
+
+    rng = np.random.default_rng(16)
+    iid = rng.uniform(size=(SELECT_ROWS, SELECT_COLS))
+    values = iid * np.linspace(1.0, 0.3, SELECT_COLS)
+    x = torch.as_tensor(values, dtype=torch.float32, device=DEV)
+    out = {}
+    for method in ("var", "svd"):
+        t0 = time.perf_counter()
+        got = scores(values, SELECT_KEEP, method, device=DEV)
+        call_s = time.perf_counter() - t0
+        if method == "var":
+            dev_ms = median_ms(lambda: torch.var(x, dim=1, correction=1),
+                               reps=5)
+            want = values.var(axis=1, ddof=1)
+            err = float(np.max(np.abs(got - want) / np.abs(want)))
+            tol, extra = 1e-5, ""
+        else:
+            dev_ms = median_ms(lambda: torch.sum(torch.abs(
+                tall_svd(x)[0][:, :SELECT_KEEP]), dim=1), reps=5)
+
+            def leverage(v):
+                U, _, _ = np.linalg.svd(v, full_matrices=False)
+                return np.abs(U[:, :SELECT_KEEP]).sum(axis=1)
+            want = leverage(values)
+            err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+            tol = 1e-4
+            want_iid = leverage(iid)
+            err_iid = float(np.max(np.abs(
+                scores(iid, SELECT_KEEP, method, device=DEV) - want_iid))
+                / np.max(want_iid))
+            extra = (f"; on i.i.d. uniform columns (near-degenerate "
+                     f"spectrum, not held) {err_iid:.3e}")
+            out["svd_iid_err"] = err_iid
+        cut = np.sort(want)[::-1]
+        gap = float(cut[SELECT_KEEP - 1] - cut[SELECT_KEEP])
+        same_rows = set(rank_rows(got, SELECT_KEEP, method).tolist()) == set(
+            rank_rows(want, SELECT_KEEP, method).tolist())
+        log(f"[select] {method} scores at {SELECT_ROWS} x {SELECT_COLS}, "
+            f"float32 on the card {card}: device {dev_ms:.4f} ms (CUDA "
+            f"events), the whole call with its copies {call_s * 1e3:.1f} ms "
+            f"(host clock); vs numpy float64 "
+            f"{'rel' if method == 'var' else 'of the largest'} {err:.3e} "
+            f"(tol {tol:.0e}){extra}; score gap at the cut {gap:.3e}, the "
+            f"same {SELECT_KEEP} rows: {same_rows}")
+        check(got.dtype == np.float32, "the device path is not float32")
+        check(err <= tol, f"{method} scores differ from numpy by {err}")
+        check(same_rows or gap <= tol * float(np.max(np.abs(want))),
+              f"{method}: other rows kept at a gap of {gap}")
+        out[method] = {"device_ms": dev_ms, "call_ms": call_s * 1e3,
+                       "err": err}
+    return out
+
+
+def _read_props(path):
+    h, rows = _read_csv(os.path.join(path, "celltypes_proportions.csv"))
+    return [r[0] for r in rows], np.array([[float(v) for v in r[1:]]
+                                           for r in rows])
+
+
+def phase_pipeline(card):
+    """The tools in the order a user runs them: ``simulate`` 10 samples
+    from a seeded PIPE_REF-row reference of PIPE_TYPES cell types (5
+    known, one unknown component), ``feature_selection`` of PIPE_KEEP
+    rows of its reference, ``intersect`` of the selected reference with
+    the samples, then the CLI's deconvolution of the intersected files on
+    the card and with ``--device cpu`` (float64, ``--init SVD``: no
+    random draw, so the two solve the same problem), held within 1e-6.
+    ``--plot``: where matplotlib is not installed the CLI exits non-zero
+    naming it before it reads any data; where it is installed the three
+    figure families are written."""
+    from demethify_tpu_torch.cli import main as cli_main
+    from demethify_tpu_torch.io.table import write_table
+    from demethify_tpu_torch.preprocessing.feature_selection import (
+        feature_select)
+    from demethify_tpu_torch.preprocessing.intersect import (
+        intersect_bed_files)
+    from demethify_tpu_torch.simulate import generate_dataset
+
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        pos = np.arange(PIPE_REF) * 100
+        ref_bed = write_table(
+            os.path.join(root, "atlas.bed"),
+            ["chrom", "start", "end"] + [f"type{k}" for k in
+                                         range(PIPE_TYPES)],
+            [np.array(["chr1"] * PIPE_REF, dtype=object), pos, pos + 2]
+            + list(rng.beta(0.5, 0.5, size=(PIPE_TYPES, PIPE_REF))))
+        portion = np.linspace(0.05, 0.3, N_S)
+        sim = generate_dataset(ref_bed, os.path.join(root, "sim"),
+                               nb_samples=N_S, nb_known=N_CT,
+                               unknown_portion=portion, seed=18)
+        t_sim = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sel = feature_select(sim["ref"], PIPE_KEEP, os.path.join(root, "sel"),
+                             "svd")
+        t_sel = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files = intersect_bed_files([sel, *sim["samples"]],
+                                    os.path.join(root, "int"))
+        t_int = time.perf_counter() - t0
+        common = ["--methfreq", *files[1:], "--ref", files[0],
+                  "--bedmethyl", "--noprint", "--init", "SVD",
+                  "--iterations", "200", "20", "--dtype", "float64"]
+        base = common + ["--nbunknown", "1"]
+        outs = {}
+        for device in (DEV, "cpu"):
+            outs[device] = os.path.join(root, f"deconv-{device}")
+            t0 = time.perf_counter()
+            check(cli_main(base + ["--device", device, "--outdir",
+                                   outs[device]]) == 0, f"CLI {device}")
+            log(f"[pipeline] deconvolution --device {device}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        (names, card_p), (_, cpu_p) = (_read_props(outs[k])
+                                      for k in (DEV, "cpu"))
+        err = float(np.max(np.abs(card_p - cpu_p)))
+        with open(sim["proportions"]) as f:
+            truth = np.array([[float(v) for v in ln.split("\t")[1:]]
+                              for ln in f.read().splitlines()[1:]])
+        rmse = float(np.sqrt(np.mean((card_p - truth) ** 2)))
+        n_rows = sum(1 for _ in open(files[0])) - 1
+        log(f"[pipeline] simulate {N_S} samples from a {PIPE_REF}-row "
+            f"reference {t_sim:.1f} s, select {PIPE_KEEP} rows (svd) "
+            f"{t_sel:.1f} s, intersect 11 files ({n_rows} rows) "
+            f"{t_int:.1f} s; deconvolution card vs CPU (float64, --init SVD, "
+            f"200x20): proportions max|diff| {err:.3e} (tol 1e-6); RMSE to "
+            f"the simulated truth {rmse:.4f} (reported, not held); cell "
+            f"types {names}")
+        check(n_rows == PIPE_KEEP, f"intersect kept {n_rows} rows")
+        check(err <= 1e-6, f"pipeline card vs CPU {err}")
+
+        plot_dir = os.path.join(root, "plot")
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        argv = base + ["--device", DEV, "--outdir", plot_dir, "--plot"]
+        if not has_mpl:
+            t0 = time.perf_counter()
+            try:
+                cli_main(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            log(f"[pipeline] --plot without matplotlib: exit {code!r} after "
+                f"{time.perf_counter() - t0:.2f} s, no output directory: "
+                f"{not os.path.exists(plot_dir)}")
+            check(code not in (0, None) and "matplotlib" in str(code)
+                  and not os.path.exists(plot_dir),
+                  "--plot without matplotlib did not stop before the data")
+        else:
+            check(cli_main(common + ["--device", DEV, "--outdir", plot_dir,
+                                     "--plot", "--ic", "AIC", "--icmax",
+                                     "2"]) == 0, "CLI --plot")
+            made = sorted(os.listdir(os.path.join(plot_dir, "plots")))
+            log(f"[pipeline] --plot wrote {made}")
+            check("ic_plot.png" in made
+                  and "proportions_stackedbar.png" in made
+                  and len(made) == N_S + 2, f"--plot files {made}")
+    return {"err": err, "rmse": rmse}
+
+
+def layout_worker(out_dir, store, n_procs, proc_id, n_local, local_id):
+    """One worker of ``phase_layout``'s API run: on its share of the
+    N_2D x 10 problem (float64) the plain partial-reference solve
+    row-sharded over the world (LAYOUT_OUTER x 20, tol = 0) and the
+    weights bootstrap (B = LAYOUT_BOOT, LAYOUT_BOOT_OUTER x 20) with the
+    replicates over ``across`` and each row-sharded over ``rows``, and the
+    ``--ic CCC`` sweep (LAYOUT_CCC, LAYOUT_CCC_OUTER x 20) the same way,
+    each with the counters at 0 just before and read just after, timed
+    with CUDA events past a 1-iteration call's fixed cost. Saves
+    out_dir/worker<rank>.json."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.parallel.distributed import (
+        Shard, initialize_layout, shard_dataset_global, shutdown)
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+    from demethify_tpu_torch.solvers.api import partial_reference_deconv
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    layout, device = initialize_layout(store, n_procs, proc_id, n_local,
+                                       local_id, DEV)
+    try:
+        u0, a0, y, d, Rt = make_problem(np.float64, seed=19, n_cpg=N_2D)
+        full = state.from_numpy(u0, a0, y, d, Rt, device=device,
+                                dtype=torch.float64)
+
+        def shard_on(axis):
+            block, *yd = shard_dataset_global(
+                y, d, Rt, axis, lambda x: torch.as_tensor(x, device=device))
+            return yd, Shard(axis, block, lambda: full[2:])
+
+        def run(call, n_outer):
+            """(result, launches, fixed ms, ms an outer iteration past the
+            first): one warm-up and one timed 1-iteration call, then the
+            counted n_outer-iteration call."""
+            call(1)
+            _, fixed = timed_ms(lambda: call(1))
+            reset_counts()
+            out, ms = timed_ms(lambda: call(n_outer))
+            return (out, {k: v for k, v in read_counts().items() if v},
+                    fixed, (ms - fixed) / (n_outer - 1))
+
+        res = {}
+        (yw, dw, rw), sw = shard_on(layout.world)
+        init = (sw.block.take(full[0]), full[1])
+        out, launches, fixed, further = run(
+            lambda n: partial_reference_deconv(
+                yw, dw, rw, N_U, init_provided=init, shard=sw, n_iter1=n,
+                n_iter2=N_INNER, tol=0.0), LAYOUT_OUTER)
+        res["solve"] = {"ms_iter": further, "fixed_ms": fixed,
+                        "launches": launches,
+                        "alpha": out.proportions.cpu().numpy().tolist()}
+        (yr, dr, rr), sr = shard_on(layout.rows)
+        (lo_p, hi_p, _, _), launches, fixed, further = run(
+            lambda n: bootstrap_ci(
+                yr, dr, rr, N_U, level=90, n_bootstrap=LAYOUT_BOOT,
+                n_iter1=n, n_iter2=N_INNER, tol=0.0, seed=20,
+                method="weights", axis=layout.across, shard=sr),
+            LAYOUT_BOOT_OUTER)
+        res["boot"] = {"ms_iter": further, "fixed_ms": fixed,
+                       "launches": launches,
+                       "lo": lo_p.tolist(), "hi": hi_p.tolist()}
+        (_, alpha, n_u, _), launches, fixed, further = run(
+            lambda n: evaluate_best_ic(
+                yr, dr, rr, "uniform_", "CCC", iter1=n, axis=layout.across,
+                shard=sr, **LAYOUT_CCC), LAYOUT_CCC_OUTER)
+        res["ccc"] = {"ms_iter": further, "fixed_ms": fixed,
+                      "launches": launches, "n_u": n_u,
+                      "alpha": alpha.cpu().numpy().tolist()}
+        res["layout"] = [[a.rank, a.size, a.backend] for a in (
+            layout.world, layout.rows, layout.across)]
+        with open(os.path.join(out_dir,
+                               f"worker{layout.world.rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        shutdown(layout.world)
+    return 0
+
+
+def phase_layout(card):
+    """The 2-D layout on the one card: LAYOUT_PROCS processes x
+    LAYOUT_LOCAL workers over gloo, at N_2D x 10, 5 + 1, float64.
+
+    The CLI (each process ``--multihost ADDR 2 ID --shard``, its workers
+    started by the worker launcher) against the one-process CLI within
+    1e-8: the plain solve with the weights bootstrap (LAYOUT_OUTER x 20,
+    B = LAYOUT_BOOT: proportions, intervals, the part files of the four
+    workers) and ``--ic AIC --init SVD --icmax 3`` (20 x 10: the same
+    number of unknowns, proportions and profile). Then the same routes
+    and the ``--ic CCC`` sweep through the API in ``layout_worker``
+    processes, for each worker's ms per outer iteration and launches (one
+    per kernel and outer iteration: K1 + K2 for the solve, K4 + K5 for the
+    bootstrap's replicates, K4 + K5 twice for CCC: its rank's restarts and
+    the winner's), every worker with the same bits, CCC's against the
+    one-process sweep within 1e-8 with the same rank."""
+    import torch
+
+    from demethify_tpu_torch import state
+    from demethify_tpu_torch.cli import main as cli_main
+    from demethify_tpu_torch.parallel.distributed import run_ranks
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+
+    n_workers = LAYOUT_PROCS * LAYOUT_LOCAL
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        samples, ref = _write_fixture(root, seed=21, n=N_2D)
+        base = ["--methfreq", *samples, "--bedmethyl", "--noprint",
+                "--device", DEV, "--dtype", "float64", "--ref", ref]
+        for tag, extra in (
+                ("solve + weights bootstrap", [
+                    "--nbunknown", "1", "--iterations", str(LAYOUT_OUTER),
+                    str(N_INNER), "--confidence", "90", str(LAYOUT_BOOT),
+                    "--cimethod", "weights"]),
+                ("ic", ["--ic", "AIC", "--init", "SVD", "--icmax", "3",
+                        "--iterations", "20", "10"])):
+            key = tag.split()[0]
+            one, two = (os.path.join(root, f"{key}-{k}")
+                        for k in ("one", "2d"))
+            t0 = time.perf_counter()
+            check(cli_main(base + extra + ["--outdir", one]) == 0,
+                  f"CLI {tag}: one process")
+            t_one = time.perf_counter() - t0
+            store = "file://" + os.path.join(root, f"{key}-store")
+            t0 = time.perf_counter()
+            codes = run_ranks(
+                [[sys.executable, "-c", LAUNCH_2D, str(LAYOUT_LOCAL), *base,
+                  *extra, "--outdir", two, "--multihost", store,
+                  str(LAYOUT_PROCS), str(p), "--shard"]
+                 for p in range(LAYOUT_PROCS)], 900, cwd=HERE)
+            t_two = time.perf_counter() - t0
+            check(codes == [0] * LAYOUT_PROCS, f"2-D CLI {tag}: {codes}")
+            (_, p1), (_, p2) = _read_props(one), _read_props(two)
+            err = float(np.max(np.abs(p1 - p2)))
+            msg = (f"[layout] CLI {tag}, {LAYOUT_PROCS} x {LAYOUT_LOCAL} "
+                   f"workers vs one process, {N_2D} x {N_S}, float64: "
+                   f"proportions max|diff| {err:.3e}")
+            if key == "ic":
+                logs = [open(os.path.join(o, "log.log")).read().splitlines()
+                        for o in (one, two)]
+                check(logs[0][1] == logs[1][1], f"--ic chose {logs}")
+                _, u1 = _read_csv(os.path.join(
+                    one, "methylation_profile_estimate.csv"))
+                _, u2 = _read_csv(os.path.join(
+                    two, "methylation_profile_estimate.csv"))
+                err_u = float(np.max(np.abs(np.array(u1, float)
+                                            - np.array(u2, float))))
+                msg += f", profile {err_u:.3e}; {logs[1][1]}"
+            else:
+                _, u1 = _read_csv(os.path.join(
+                    one, "methylation_profile_estimate.csv"))
+                _, u2 = _parts(two, n_workers)
+                err_u = float(np.max(np.abs(np.array(u1, float) - u2)))
+                msg += f", part files vs the profile {err_u:.3e}"
+                for name, index in (
+                        ("confidence_interval_celltypes_proportions.csv",
+                         True),
+                        ("confidence_interval_methylation_estimate.csv",
+                         False)):
+                    lo1, hi1 = _read_ci(os.path.join(one, name), index)
+                    lo2, hi2 = _read_ci(os.path.join(two, name), index)
+                    e = float(max(np.max(np.abs(lo1 - lo2)),
+                                  np.max(np.abs(hi1 - hi2))))
+                    err_u = max(err_u, e)
+                    msg += f", {name} {e:.3e}"
+            log(f"{msg} (tol 1e-8); wall one {t_one:.1f} s, 2-D "
+                f"{t_two:.1f} s")
+            check(max(err, err_u) <= 1e-8, f"2-D CLI {tag} differs")
+
+        t0 = time.perf_counter()
+        store = "file://" + os.path.join(root, "api-store")
+        codes = run_ranks(
+            [[sys.executable, os.path.join(HERE, "chip_smoke.py"),
+              "--layout-worker", root, store, str(LAYOUT_PROCS), str(p),
+              str(LAYOUT_LOCAL), str(i)]
+             for p in range(LAYOUT_PROCS) for i in range(LAYOUT_LOCAL)],
+            900, [dict(os.environ, LOCAL_RANK=str(i))
+                  for _ in range(LAYOUT_PROCS) for i in range(LAYOUT_LOCAL)],
+            cwd=HERE)
+        check(codes == [0] * n_workers, f"layout workers exited {codes}")
+        workers = []
+        for r in range(n_workers):
+            with open(os.path.join(root, f"worker{r}.json")) as f:
+                workers.append(json.load(f))
+        for route in ("solve", "boot", "ccc"):
+            keys = ("lo", "hi") if route == "boot" else ("alpha", )
+            check(all(w[route][k] == workers[0][route][k] for w in workers
+                      for k in keys), f"2-D {route}: workers differ")
+        # the one-process CCC sweep on the same problem
+        full = state.from_numpy(*make_problem(np.float64, seed=19,
+                                              n_cpg=N_2D),
+                                device=DEV, dtype=torch.float64)
+        _, alpha1, n_u1, _ = evaluate_best_ic(
+            *full[2:], "uniform_", "CCC", iter1=LAYOUT_CCC_OUTER,
+            **LAYOUT_CCC)
+        err = float(np.max(np.abs(alpha1.cpu().numpy()
+                                  - np.array(workers[0]["ccc"]["alpha"]))))
+        log(f"[layout] API --ic CCC ({LAYOUT_CCC['n_restarts']} restarts, "
+            f"ranks 1-{LAYOUT_CCC['n_u_max']}), 2 x 2 workers vs one "
+            f"process: n_u {workers[0]['ccc']['n_u']} vs {n_u1}, "
+            f"proportions max|diff| {err:.3e} (tol 1e-8)")
+        check(workers[0]["ccc"]["n_u"] == n_u1 and err <= 1e-8,
+              "2-D CCC differs from one process")
+        want = {"solve": dict(u_phase_grams=LAYOUT_OUTER,
+                              alpha_phase_full=LAYOUT_OUTER),
+                "boot": dict(u_phase_grams_multi=LAYOUT_BOOT_OUTER,
+                             alpha_phase_full_multi=LAYOUT_BOOT_OUTER),
+                "ccc": dict(u_phase_grams_multi=2 * LAYOUT_CCC_OUTER,
+                            alpha_phase_full_multi=2 * LAYOUT_CCC_OUTER)}
+        for route in ("solve", "boot", "ccc"):
+            per = [w[route]["launches"] for w in workers]
+            ms = [w[route]["ms_iter"] for w in workers]
+            fixed = [w[route]["fixed_ms"] for w in workers]
+            log(f"[layout] API {route} on {n_workers} workers "
+                f"({LAYOUT_PROCS} x {LAYOUT_LOCAL}, gloo, card {card}), "
+                f"{N_2D} x {N_S}, float64, tol=0: ms an outer iteration "
+                f"past the first {[round(m, 4) for m in ms]} (CUDA events), "
+                f"a 1-iteration call {[round(m, 1) for m in fixed]} ms; "
+                f"launches per worker {per}; layouts "
+                f"{[w['layout'] for w in workers]}")
+            for p in per:
+                check(all(p.get(k, 0) == v for k, v in want[route].items())
+                      and set(p) == set(want[route]),
+                      f"2-D {route} launches {p}, want {want[route]}")
+            out[route] = {"ms_iter": ms, "fixed_ms": fixed,
+                          "launches": per}
+        log(f"[layout] every worker ended with the same bits; API run "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+
 def main():
     try:
         import torch
@@ -6234,6 +6875,12 @@ def main():
     phase_cli_inits_ic()
     ranks = phase_ranks(card)
     phase_ranks_cli()
+    t13 = time.perf_counter()
+    obs = phase_observability(problem32, card)
+    phase_feature_selection(card)
+    phase_pipeline(card)
+    layout = phase_layout(card)
+    log(f"[done] phase 13 took {time.perf_counter() - t13:.1f} s")
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
                   for m in sys.modules), "a JAX-package module was imported")
@@ -6387,12 +7034,29 @@ def main():
     kernels["kernels"].extend(_global_rows(glob, past))
     kernels["kernels"].extend(_single_phase_rows(single))
     for row in kernels["kernels"]:
-        # K1-K6: launches on each rank of the row-sharded solves
+        # K1-K6: launches on each rank of the row-sharded solves, and on
+        # each worker of the 2-D layout's routes
         per_rank = {name: r["launches"][row["name"]]
                     for name, r in ranks.items()
                     if row["name"] in r["launches"]}
         if per_rank:
             row["sharded_launches_per_rank"] = per_rank
+        per_worker = {route: [w[row["name"]] for w in r["launches"]]
+                      for route, r in layout.items()
+                      if row["name"] in r["launches"][0]}
+        if per_worker:
+            row["layout_2d_launches_per_worker"] = per_worker
+        # K1 and K2: their device time in the program's own trace
+        # (--profile, the main path's CLI run)
+        traced = [v for k, v in obs["trace"].items()
+                  if (row["name"] == "u_phase_grams" and K1_KERNEL in k)
+                  or (row["name"] == "alpha_phase_full"
+                      and any(n in k for n in K2_KERNELS))]
+        if traced:
+            row["profile_trace_us_each"] = (sum(v["device_us"]
+                                                for v in traced)
+                                            / sum(v["count"]
+                                                  for v in traced))
     log(f"[done] K1's partial buffer at 1M x 500, 25+4, float64: "
         f"{partial['partial_bytes'] / 1e9:.3f} GB, "
         f"{partial['partial_bytes'] / partial['yd_bytes']:.3f} of Y + D; the "
@@ -6410,4 +7074,8 @@ if __name__ == "__main__":
         sys.path.insert(0, HERE)
         sys.exit(rank_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
                              int(sys.argv[5])))
+    if sys.argv[1:2] == ["--layout-worker"]:
+        sys.path.insert(0, HERE)
+        sys.exit(layout_worker(sys.argv[2], sys.argv[3],
+                               *map(int, sys.argv[4:8])))
     sys.exit(main())

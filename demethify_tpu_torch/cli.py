@@ -16,8 +16,23 @@ them) and ``--cimethod {auto,resample,weights}`` run through
 SVD or ICA. ``--ic NAME [n_restarts]`` (AIC, BIC, CCC, BCV or minka;
 5 restarts or folds by default) chooses the number of unknowns from 1 to
 ``--icmax`` (default 25) through ``selection/sweep.py``; it refuses
-``--nbunknown``, as the JAX CLI does. Flags of modes and features that
-later slices port exit with an error naming the ROADMAP port-queue item.
+``--nbunknown``, as the JAX CLI does. ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the solve (``utils.device_profile``,
+around the block the JAX CLI profiles); ``--debugnans`` turns on the
+port's NaN checks (``utils.enable_nan_debugging``); ``--plot`` writes the
+figures (``plotting.py``) and checks for matplotlib before it reads any
+data.
+
+Multi-process layouts (``parallel/distributed.py``): ``--multihost ADDR N
+ID`` shards the plain solve's rows over the N processes and partitions
+the bootstrap's replicates and the sweep's model ranks over them, each
+on the full data; ``--shard`` starts a worker per GPU (one process and
+one card: the single-device run) and row-shards every solve over them;
+both together are the 2-D layout: N processes of M workers (a card
+each), the plain solve's rows over all N M workers, the sweep's ranks
+and the weights bootstrap's replicates over the processes, each solve
+row-sharded over its process's workers, the resample bootstrap's
+replicates over all workers on full copies of the data.
 
 Reproduced conventions: ``nargs=1`` flags arrive as 1-lists and are
 unwrapped; the default iterations are (10000, 20), or (100, 500) with
@@ -42,12 +57,6 @@ LOGO = r"""
                                           /____/     /_/
 """
 
-# flag -> the ROADMAP port-queue item that ports it
-NOT_PORTED = {
-    "profile": "item 11 (observability: --profile, --debugnans, --plot)",
-    "debugnans": "item 11 (observability: --profile, --debugnans, --plot)",
-    "plot": "item 11 (observability: --profile, --debugnans, --plot)",
-}
 # how long a --shard run waits for its workers
 SHARD_TIMEOUT_S = 7 * 24 * 3600
 
@@ -148,23 +157,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--initstate', type=str, default=None,
                         help='Warm-start the solver from a --savestate '
                              'checkpoint instead of --init')
-    # a --shard run's worker: --multihost's three values, with --shard's
-    # bootstrap layout
-    parser.add_argument('--shard-worker', nargs=3, default=None,
-                        help=argparse.SUPPRESS)
-    # accepted so that a JAX-CLI command line fails with a clear message
-    parser.add_argument('--plot', action='store_true', help='Not ported yet')
-    parser.add_argument('--profile', type=str, help='Not ported yet')
+    parser.add_argument('--plot', action='store_true',
+                        help='Plot cell type proportions estimates for each '
+                             'sample, eventually with confidence intervals '
+                             '(needs matplotlib)')
+    parser.add_argument('--profile', type=str, default=None,
+                        help='Write a torch.profiler trace of the solve '
+                             '(CPU and GPU kernels, Chrome-trace JSON) to '
+                             'this directory')
     parser.add_argument('--debugnans', action='store_true',
-                        help='Not ported yet')
+                        help='Raise FloatingPointError at the first outer '
+                             'iteration whose u, alpha or cost is not '
+                             'finite, and at a non-finite init, supervised '
+                             'solve, bootstrap replicate or criterion')
+    # a --shard run's worker: the rendezvous address, the process count,
+    # this process's id, its worker count and this worker's index
+    parser.add_argument('--shard-worker', nargs=5, default=None,
+                        help=argparse.SUPPRESS)
     return parser
-
-
-def _refuse_unported(args) -> None:
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            sys.exit(f"Error: --{flag} is not ported to PyTorch yet "
-                     f"(ROADMAP port queue {item}).")
 
 
 def flip_purity(percent, n_samples: int):
@@ -187,23 +197,45 @@ def flip_purity(percent, n_samples: int):
     return purity
 
 
-def _run_shard_workers(argv, n_cards: int) -> int:
-    """``--shard`` over ``n_cards`` GPUs: one worker process per card, each
-    this command as a ``--multihost`` rank of the workers (LOCAL_RANK its
-    card) at a file store in a fresh temporary directory. Returns 0 when
-    every worker does, else the first failing worker's code (the others
-    are then stopped)."""
+def _worker_argv(argv):
+    """argv less ``--shard`` and every ``--multihost ADDR N ID``, that
+    option under any prefix argparse takes for it (``--mu`` on: ``--m``
+    is ambiguous with ``--methfreq``, and any prefix of ``--shard`` with
+    ``--shard-worker``): the workers' own options."""
+    out, i = [], 0
+    while i < len(argv):
+        if argv[i] == "--shard":
+            i += 1
+        elif len(argv[i]) >= 4 and "--multihost".startswith(argv[i]):
+            i += 4
+        else:
+            out.append(argv[i])
+            i += 1
+    return out
+
+
+def _run_shard_workers(argv, n_workers: int) -> int:
+    """``--shard`` over ``n_workers`` workers, one a card (LOCAL_RANK),
+    each this command as a ``--shard-worker``. Alone they join at a file
+    store in a fresh temporary directory; with ``--multihost ADDR N ID``
+    the N processes' workers join one world at ADDR (the 2-D layout).
+    Returns 0 when every worker does, else the first failing worker's
+    code (the others are then stopped)."""
     import tempfile
 
     from demethify_tpu_torch.parallel.distributed import run_ranks
 
-    worker_argv = [a for a in argv if a != "--shard"]
+    args = build_parser().parse_args(argv)
+    worker_argv = _worker_argv(argv)
     with tempfile.TemporaryDirectory(prefix="demethify-shard-") as tmp:
-        store = "file://" + os.path.join(tmp, "store")
+        address, n_procs, proc_id = (
+            args.multihost or ("file://" + os.path.join(tmp, "store"), 1, 0))
         commands = [[sys.executable, "-m", "demethify_tpu_torch",
-                     *worker_argv, "--shard-worker", store, str(n_cards),
-                     str(i)] for i in range(n_cards)]
-        envs = [dict(os.environ, LOCAL_RANK=str(i)) for i in range(n_cards)]
+                     *worker_argv, "--shard-worker", address, str(n_procs),
+                     str(proc_id), str(n_workers), str(i)]
+                    for i in range(n_workers)]
+        envs = [dict(os.environ, LOCAL_RANK=str(i))
+                for i in range(n_workers)]
         codes = run_ranks(commands, SHARD_TIMEOUT_S, envs)
     bad = [c for c in codes if c != 0]
     return bad[0] if bad else 0
@@ -212,39 +244,50 @@ def _run_shard_workers(argv, n_cards: int) -> int:
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.plot:
+        from demethify_tpu_torch.plotting import require
+        require()
     if args.initstate and (args.ic or (args.ref and not args.nbunknown)):
         sys.stderr.write(
             "Error: --initstate warm-starts the iterative solvers; it "
             "cannot be used with --ic or the reference-based "
             "(no --nbunknown) mode.\n")
         sys.exit(1)
-    if args.multihost and args.shard:
-        sys.exit("Error: --multihost with --shard (replicates or model ranks "
-                 "over the processes, rows over each process's GPUs) is not "
-                 "ported to PyTorch yet (ROADMAP port queue item 8).")
 
     import torch
 
+    from demethify_tpu_torch.utils import enable_nan_debugging
+
+    enable_nan_debugging(args.debugnans)
     if (args.shard and args.device == "cuda" and torch.cuda.is_available()
             and torch.cuda.device_count() > 1):
         return _run_shard_workers(argv, torch.cuda.device_count())
 
-    from demethify_tpu_torch.parallel.distributed import initialize, shutdown
+    from demethify_tpu_torch.parallel.distributed import (
+        initialize_layout,
+        shutdown,
+    )
 
-    ranks = args.multihost or args.shard_worker
-    address, n_procs, proc_id = ((None, 1, 0) if ranks is None else
-                                 (ranks[0], int(ranks[1]), int(ranks[2])))
-    axis, device = initialize(address, n_procs, proc_id, args.device)
+    if args.shard_worker:
+        address, *ids = args.shard_worker
+        n_procs, proc_id, n_local, local_id = map(int, ids)
+    elif args.multihost:
+        address = args.multihost[0]
+        n_procs, proc_id = int(args.multihost[1]), int(args.multihost[2])
+        n_local, local_id = 1, 0
+    else:
+        address, n_procs, proc_id, n_local, local_id = None, 1, 0, 1, 0
+    layout, device = initialize_layout(address, n_procs, proc_id, n_local,
+                                       local_id, args.device)
     try:
-        return _run(args, axis, device)
+        return _run(args, layout, device)
     finally:
-        shutdown(axis)
+        shutdown(layout.world)
 
 
-def _run(args, axis, device):
-    """The run of one process (rank ``axis.rank`` of ``axis.size``) on
-    ``device``."""
+def _run(args, layout, device):
+    """The run of one worker (rank ``layout.world.rank`` of
+    ``layout.world.size``) on ``device``."""
     import torch
 
     from demethify_tpu_torch.device import resolve_dtype, state_dtype
@@ -277,6 +320,7 @@ def _run(args, axis, device):
     )
     from demethify_tpu_torch.utils import (
         SolveStats,
+        device_profile,
         termination_resolution_warning,
         write_cost_trace,
     )
@@ -298,6 +342,7 @@ def _run(args, axis, device):
         if len(args.ic) > 1:
             nb_r = int(args.ic[1])
 
+    axis, rows, across = layout.world, layout.rows, layout.across
     writer = axis.rank == 0
     if not args.noprint and writer:
         print(LOGO)
@@ -348,6 +393,20 @@ def _run(args, axis, device):
     else:
         block = row_block(ds.meth_f.shape[0], 1, 0)
         y, d, ref_mat = full()
+    row_data = {}
+
+    def row_shard():
+        """(y, d, ref, Shard) of this worker's rows over ``rows`` (its
+        process's workers): the 2-D layout's sweep and weights bootstrap.
+        The plain solve's shard when ``rows`` is the world."""
+        if rows is axis:
+            return y, d, ref_mat, shard
+        if not row_data:
+            blk, *yd = shard_dataset_global(ds.meth_f, ds.counts, ds.ref,
+                                            rows, on_device)
+            row_data["yd"] = (*yd, Shard(rows, blk, full))
+        return row_data["yd"]
+
     header = list(ds.header)
     n_s = ds.meth_f.shape[1]
 
@@ -355,6 +414,7 @@ def _run(args, axis, device):
     purity_t = (None if purity is None else
                 purity_from_numpy(purity, device=device, dtype=y.dtype))
     # bootstrap CIs first, like the reference (demethify.py:151-152)
+    ci = None
     if args.confidence:
         level, n_boot = args.confidence
         method = resolve_method(args.cimethod, args.init, ds.meth_f.size)
@@ -362,17 +422,20 @@ def _run(args, axis, device):
                      n_iter1=args.iterations[0], n_iter2=args.iterations[1],
                      tol=termination, purity=purity_t, seed=seed,
                      method=method, tol_relative=args.reltol)
-        if (args.shard_worker
+        if (rows.size > 1
                 and row_sharded(method, n_u, n_s, ref_mat is not None)):
-            # --shard: the weights layout on the row-sharded data (K4 on
-            # each card's rows)
-            lo_p, hi_p, lo_u, hi_u = bootstrap_ci(y, d, ref_mat, n_u,
-                                                  shard=shard, **ci_kw)
+            # --shard: the weights layout row-sharded over the process's
+            # workers (K4 on each card's rows), the replicates over the
+            # processes
+            y_r, d_r, ref_r, shard_r = row_shard()
+            lo_p, hi_p, lo_u, hi_u = bootstrap_ci(
+                y_r, d_r, ref_r, n_u, axis=across, shard=shard_r, **ci_kw)
         else:
-            # the replicates over the processes, each on the full data
+            # the replicates over every worker, each on the full data
             lo_p, hi_p, lo_u, hi_u = bootstrap_ci(*full(), n_u, axis=axis,
                                                   **ci_kw)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(n_u)]
+        ci = (lo_p, hi_p, header + unknown_header)
         if writer:
             write_ci_proportions(outdir, lo_p, hi_p,
                                  header + unknown_header, ds.sample_names)
@@ -381,12 +444,12 @@ def _run(args, axis, device):
                                  hi_u[:block.n_rows], unknown_header)
 
     def write_profile(u, unknown_header, rows_sharded):
-        """The unknown profiles: one file from process 0, or in a
+        """The unknown profiles: one file from rank 0, or in a
         row-sharded solve one part file per rank with its global rows."""
         if rows_sharded:
-            rows, start = addressable_row_block(u, block)
-            if rows.shape[0]:
-                write_profile_estimate(outdir, rows, unknown_header,
+            part, start = addressable_row_block(u, block)
+            if part.shape[0]:
+                write_profile_estimate(outdir, part, unknown_header,
                                        suffix=f".part{axis.rank:04d}",
                                        row_offset=start)
         elif writer:
@@ -402,19 +465,31 @@ def _run(args, axis, device):
             sys.exit(1)
 
     stats = SolveStats(block.n_rows, n_s)
-    res, ic_n_u = None, None
+    res, ic_n_u, list_ic = None, None, None
+    profile = device_profile(args.profile, "trace.json" if axis.size == 1
+                             else f"trace.rank{axis.rank:04d}.json")
+    profile.__enter__()
     kw = dict(init=args.init, seed=seed, n_restarts=restart,
               n_iter1=args.iterations[0], n_iter2=args.iterations[1],
               tol=termination, tol_relative=args.reltol,
               record_trace=args.trace, init_provided=init_provided,
               shard=shard)
     if ic_name:
-        # multi-process: the ranks over the processes, each on the full data
-        u_best, proportions, ic_n_u, _ = evaluate_best_ic(
-            *full(), args.init, ic_name, seed=seed,
-            iter1=args.iterations[0], iter2=args.iterations[1],
-            tol=termination, tol_relative=args.reltol, n_restarts=nb_r,
-            n_u_max=args.icmax[0], axis=axis)
+        # the model ranks over the processes; each solve row-sharded over
+        # the process's workers (on the full data with one worker)
+        ic_kw = dict(seed=seed, iter1=args.iterations[0],
+                     iter2=args.iterations[1], tol=termination,
+                     tol_relative=args.reltol, n_restarts=nb_r,
+                     n_u_max=args.icmax[0], axis=across)
+        if rows.size > 1:
+            y_r, d_r, ref_r, shard_r = row_shard()
+            u_best, proportions, ic_n_u, list_ic = evaluate_best_ic(
+                y_r, d_r, ref_r, args.init, ic_name, shard=shard_r, **ic_kw)
+            u_best = torch.as_tensor(np.concatenate(rows.all_gather_object(
+                u_best[:shard_r.block.n_data].cpu().numpy())))
+        else:
+            u_best, proportions, ic_n_u, list_ic = evaluate_best_ic(
+                *full(), args.init, ic_name, **ic_kw)
         unknown_header = [f"unknown_cell_{i+1}" for i in range(ic_n_u)]
         header = (unknown_header if ref_mat is None
                   else header + unknown_header)
@@ -436,6 +511,7 @@ def _run(args, axis, device):
             supervised_deconv(yy, dd, rr)))
     else:
         res = supervised_deconv(y, d, ref_mat)
+    profile.__exit__(None, None, None)
     time_tot = time() - time_start
     if res is not None:
         stats.finish(res.n_iter)
@@ -462,6 +538,15 @@ def _run(args, axis, device):
     if res is not None and stats.elapsed:
         with open(os.path.join(outdir, 'log.log'), 'a') as f:
             f.write('\n' + stats.summary() + '\n')
+    if args.plot:
+        from demethify_tpu_torch.plotting import (
+            intervals_by_name,
+            plot_proportions,
+        )
+        plot_proportions(props_np, header, ds.sample_names, outdir,
+                         None if ci is None else intervals_by_name(*ci,
+                                                                   header),
+                         list_ic)
     return 0
 
 

@@ -4,10 +4,17 @@ the sums across the ranks.
 Counterpart of ``demethify_tpu/parallel/distributed.py`` and of the JAX
 solvers' ``_axis_sum`` / ``_axis_max`` (``solvers/fused.py:48-56``):
 
-- ``initialize`` joins N processes with ``torch.distributed`` (a gloo
-  process group at ``tcp://ADDR``, or at a ``file://`` store) and gives
-  each rank its card (``LOCAL_RANK``, else the process id, modulo the
-  cards it sees). A no-op for one process.
+- ``initialize_layout`` joins N processes with ``torch.distributed`` (a
+  gloo process group at ``tcp://ADDR``, or at a ``file://`` store) and
+  gives each rank its card (``LOCAL_RANK``, else the process id, modulo
+  the cards it sees); a no-op for one process. With ``--multihost N ID
+  --shard`` it joins the 2-D layout: N processes of M workers each (a
+  worker a card), worker i of process ID as rank ID M + i of one world,
+  with two families of groups (``Layout``): ``rows``, the M workers of
+  one process, over which a solve's rows are sharded, and ``across``, the
+  N workers that share a local index, over which replicates or model
+  ranks are partitioned (the JAX package's local row mesh and its
+  processes).
 - ``Axis`` sums, maxes and gathers across the ranks: the solvers' sums
   over the CpG axis and the replicate and model-selection partitions. It
   is the identity without a group (``LOCAL``).
@@ -112,11 +119,12 @@ class Axis:
         return out
 
     def broadcast_object(self, obj, src: int = 0):
-        """Rank ``src``'s obj on every rank."""
+        """The obj of the axis's rank ``src`` on every rank."""
         if self.group is None:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.group)
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self.group, src), group=self.group)
         return box[0]
 
     def barrier(self):
@@ -134,34 +142,94 @@ def local_card(proc_id: int) -> int:
     return local % torch.cuda.device_count()
 
 
-def initialize(address: Optional[str], n_procs: int, proc_id: int,
-               device_name: str = "cuda"):
-    """Join the run's ``n_procs`` processes as rank ``proc_id`` -> (Axis,
-    device). ``address`` is ``host:port`` (a TCP store served by rank 0)
-    or a ``file://`` path. One process: (LOCAL, the device), nothing
-    joined. ``device_name`` "cuda" without a GPU raises."""
-    if n_procs <= 1:
-        return LOCAL, resolve_device(device_name)
+def _nccl_group(ranks: Sequence[int], cards):
+    """An NCCL group over ``ranks`` when each holds a card of its own,
+    else None (the group's sums then go over gloo, through the host).
+    Every rank of the world must call this for every group, in the same
+    order."""
+    if cards is None or len({cards[r] for r in ranks}) != len(ranks):
+        return None
+    return dist.new_group(ranks=list(ranks), backend="nccl",
+                          timeout=TIMEOUT)
+
+
+@dataclass
+class Layout:
+    """The axes of a run: ``world``, every rank (a plain solve's rows are
+    sharded over it); ``rows``, the workers of this process (a sweep's or
+    a weights bootstrap's solves are row-sharded over it); ``across``,
+    the workers of every process that share this one's local index (the
+    model ranks and replicates are partitioned over it). A group of one
+    rank is ``LOCAL``."""
+
+    world: Axis
+    rows: Axis
+    across: Axis
+
+
+def initialize_layout(address: Optional[str], n_procs: int, proc_id: int,
+                      n_local: int = 1, local_id: int = 0,
+                      device_name: str = "cuda"):
+    """Join ``n_procs`` processes of ``n_local`` workers each as worker
+    ``local_id`` of process ``proc_id`` (world rank proc_id n_local +
+    local_id) -> (Layout, device). ``address`` is ``host:port`` (a TCP
+    store served by rank 0) or a ``file://`` path. Every rank creates
+    every group, in the same order: the ``rows`` groups, process by
+    process, then the ``across`` groups, local index by local index; a
+    group (the world too) also gets an NCCL group when its workers hold
+    distinct cards (gloo otherwise, chosen from the cards' UUIDs, never
+    as a fallback). One rank in all: (Layout(LOCAL, LOCAL, LOCAL), the
+    device), nothing joined. ``device_name`` "cuda" without a GPU
+    raises."""
     if not 0 <= proc_id < n_procs:
         raise ValueError(f"--multihost process id {proc_id} is not in "
                          f"[0, {n_procs})")
+    if not 0 <= local_id < n_local:
+        raise ValueError(f"worker {local_id} is not in [0, {n_local})")
+    size = n_procs * n_local
+    if size <= 1:
+        return Layout(LOCAL, LOCAL, LOCAL), resolve_device(device_name)
+    rank = proc_id * n_local + local_id
     if device_name == "cuda":
         resolve_device("cuda")          # raises without a GPU
-        torch.cuda.set_device(local_card(proc_id))
+        torch.cuda.set_device(local_card(rank))
     device = resolve_device(device_name)
     init = address if "://" in address else f"tcp://{address}"
-    dist.init_process_group("gloo", init_method=init, world_size=n_procs,
-                            rank=proc_id, timeout=TIMEOUT)
-    axis = Axis(dist.group.WORLD)
+    dist.init_process_group("gloo", init_method=init, world_size=size,
+                            rank=rank, timeout=TIMEOUT)
+    world = Axis(dist.group.WORLD)
+    cards = None
     if device.type == "cuda":
-        cards = axis.all_gather_object(
+        cards = world.all_gather_object(
             str(torch.cuda.get_device_properties(device).uuid))
-        if len(set(cards)) == n_procs:
-            axis.device_group = dist.new_group(backend="nccl",
-                                               timeout=TIMEOUT)
-    print(f"[multihost] rank {proc_id} of {n_procs} on {device}: sums over "
-          f"the CpG rows by {axis.backend}", flush=True)
-    return axis, device
+    world.device_group = _nccl_group(range(size), cards)
+
+    def family(groups, mine):
+        """The Axis of group ``mine`` of ``groups`` (each a list of world
+        ranks), after every rank made every group."""
+        out = LOCAL
+        for i, ranks in enumerate(groups):
+            if len(ranks) == 1:
+                continue
+            if len(ranks) == size:
+                axis = world
+            else:
+                axis = Axis(dist.new_group(ranks=ranks, backend="gloo",
+                                           timeout=TIMEOUT))
+                axis.device_group = _nccl_group(ranks, cards)
+            if i == mine:
+                out = axis
+        return out
+
+    rows = family([[p * n_local + i for i in range(n_local)]
+                   for p in range(n_procs)], proc_id)
+    across = family([[p * n_local + i for p in range(n_procs)]
+                     for i in range(n_local)], local_id)
+    print(f"[multihost] rank {rank} of {size} (worker {local_id} of process "
+          f"{proc_id}) on {device}: sums over the CpG rows by "
+          f"{world.backend}; rows over {rows.size}, across {across.size}",
+          flush=True)
+    return Layout(world, rows, across), device
 
 
 def shutdown(axis: Axis):

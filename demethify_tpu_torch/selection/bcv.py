@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from demethify_tpu_torch.ops.gram import accum_dtype
+from demethify_tpu_torch.parallel.distributed import LOCAL, Axis
 
 FRACTION = 0.3
 
@@ -30,24 +31,27 @@ def train_masks(shape, generators, fraction: float = FRACTION):
             for g in generators]
 
 
-def bicross_validation(y, d, ref, n_u: int, masks, init_fn, deconv):
+def bicross_validation(y, d, ref, n_u: int, masks, init_fn, deconv,
+                       axis: Axis = LOCAL):
     """(total PRESS, best u, best alpha) of rank ``n_u`` over the folds of
     ``masks`` (train masks, on y's device). ``init_fn(fold, y_tr, d_tr)``
     gives the fold's (u0, alpha0); ``deconv(y_tr, d_tr, n_u, init)`` solves
-    and returns a ``DeconvolutionResult``."""
+    and returns a ``DeconvolutionResult``. With ``axis`` (a row-sharded
+    sweep: y, d, ref and the masks are this rank's rows) the held-out
+    counts and errors are summed over its ranks."""
     acc = accum_dtype(y)
     total = 0.0
     best = None
     for fold, train in enumerate(masks):
         test = ~train
-        n_test = float(torch.sum(test))
+        n_test = float(axis.sum_(torch.sum(test)))
         if n_test == 0:
             continue
         y_tr, d_tr = y * train, d * train
         res = deconv(y_tr, d_tr, n_u, init_fn(fold, y_tr, d_tr))
         R = res.u if ref is None else torch.cat([ref.to(acc), res.u], dim=1)
-        err = float(torch.sum(((y.to(acc) - R @ res.proportions) * test)
-                              ** 2)) / n_test
+        err = float(axis.sum_(torch.sum(
+            ((y.to(acc) - R @ res.proportions) * test) ** 2))) / n_test
         total += err
         if best is None or err < best[0]:
             best = (err, res.u, res.proportions)

@@ -38,10 +38,12 @@ and ``masks`` inject them instead (the tests feed the JAX package's
 draws); a deterministic init is computed whatever ``inits`` says.
 """
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from demethify_tpu_torch.parallel.distributed import LOCAL, Axis
+from demethify_tpu_torch.parallel.distributed import LOCAL, Axis, Shard
 from demethify_tpu_torch.selection.bcv import (
     bicross_validation,
     train_masks,
@@ -50,6 +52,7 @@ from demethify_tpu_torch.selection.ccc import compute_ccc
 from demethify_tpu_torch.selection.criteria import compute_aic, compute_bic
 from demethify_tpu_torch.selection.minka import select_rank_minka
 from demethify_tpu_torch.solvers.api import (
+    checked_init,
     partial_reference_deconv,
     solve_members,
     unsupervised_deconv,
@@ -60,6 +63,8 @@ from demethify_tpu_torch.solvers.init import (
     init_unsupervised,
     is_deterministic,
 )
+from demethify_tpu_torch.utils import check_finite
+
 
 IC_CHOICES = ("AIC", "BIC", "CCC", "BCV", "minka")
 # the first spawn keys of the members' and the folds' seed sequences
@@ -99,54 +104,87 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
                      seed: int = 1, iter1: int, iter2: int, tol: float,
                      tol_relative: bool = False, n_restarts: int = 5,
                      n_u_max: int = 25, inits=None, masks=None,
-                     axis: Axis = LOCAL):
+                     axis: Axis = LOCAL, shard: Optional[Shard] = None):
     """y, d (n_cpg, n_s) and ref (n_cpg, n_ct), or None for the
     unsupervised sweep, on one device. Returns (best_u (n_cpg, n_u),
     best_alpha (n_ct + n_u, n_s), best_n_u, list_ic): for minka the
     negated log-evidence of ranks 1..n_s - 1, else the criterion of ranks
     1..n_u_max. ``inits(rank, j)`` -> (u0, alpha0) replaces member
     (rank, j)'s random init; ``masks`` (n_restarts train masks) replace
-    BCV's fold draws. With ``axis`` of N processes (each with the full
-    data) the ranks are partitioned over them, as the JAX package's
+    BCV's fold draws. With ``axis`` of N processes the ranks are
+    partitioned over them, as the JAX package's
     ``_evaluate_best_ic_multihost`` does: process p solves ranks p + 1,
     p + 1 + N, ...; the criteria are gathered; every process solves the
     winner again. Each member draws from its own generator, so the result
-    is the one-process sweep's. minka solves one rank on every process."""
+    is the one-process sweep's. minka solves one rank on every process.
+
+    ``shard`` (``parallel/distributed.Shard``, the 2-D layout's rows of
+    one process): y, d, ref are this worker's block of the rows, every
+    solve is row-sharded over ``shard.axis`` (CCC's restarts through
+    ``solve_members``, together on the card), the inits (and minka's
+    spectrum) are made on the full data by the axis's rank 0, BCV's
+    PRESS is summed over the axis, the criteria count the unpadded rows,
+    and best_u is this worker's block of the rows (padding included)."""
     if ic not in IC_CHOICES:
         raise ValueError(f"--ic must be one of {IC_CHOICES}, got {ic!r}")
     n_cpg, n_s = y.shape
+    if shard is not None:
+        n_cpg = shard.block.n_rows
     n_ct = 0 if ref is None else ref.shape[1]
     kw = dict(n_iter1=iter1, n_iter2=iter2, tol=tol,
               tol_relative=tol_relative)
 
-    def init(rank, j, yy=y, dd=d):
+    def init_on(rank, j, yy, dd, rr):
         if inits is not None and not is_deterministic(init_option, rank,
                                                       n_s):
-            return tuple(torch.as_tensor(x, device=y.device)
+            return tuple(torch.as_tensor(x, device=yy.device)
                          for x in inits(rank, j))
-        g = member_generator(seed, rank, j, y.device)
-        if ref is None:
+        g = member_generator(seed, rank, j, yy.device)
+        if rr is None:
             return init_unsupervised(g, init_option, yy, dd, rank)
-        return init_partial(g, init_option, yy, dd, ref, rank)
+        return init_partial(g, init_option, yy, dd, rr, rank)
+
+    @checked_init
+    def init(rank, j, yy=None, dd=None, train=None):
+        """Member (rank, j)'s init on (yy, dd), default (y, d); with
+        ``shard``, made on the full data (masked by the fold's full
+        ``train`` mask) by the axis's rank 0, and this worker's rows."""
+        if shard is None:
+            return init_on(rank, j, y if yy is None else yy,
+                           d if dd is None else dd, ref)
+
+        def make(Y, D, R):
+            if train is not None:
+                t = train.to(Y.device)
+                Y, D = Y * t, D * t
+            return tuple(x.cpu() for x in init_on(rank, j, Y, D, R))
+        u0, a0 = shard.from_rank0(make)
+        return shard.block.take(u0).to(y.device), a0.to(y.device)
 
     def deconv(yy, dd, rank, u0a0, **over):
-        args = dict(kw, init_provided=u0a0, **over)
+        args = dict(kw, init_provided=u0a0, shard=shard, **over)
         if ref is None:
             return unsupervised_deconv(yy, dd, rank, **args)
         return partial_reference_deconv(yy, dd, ref, rank, **args)
 
     if ic == "minka":
-        best_n_u, info = select_rank_minka(y, d, ref)
+        if shard is None:
+            best_n_u, info = select_rank_minka(y, d, ref)
+        else:
+            best_n_u, info = shard.from_rank0(select_rank_minka)
         res = deconv(y, d, best_n_u, init(best_n_u, 0), tol_relative=False)
         return (res.u, res.proportions, best_n_u,
                 [-v for v in info["log_liks"].values()])
 
     if ic == "BCV":
-        fold_masks = masks if masks is not None else train_masks(
-            y.shape, [_generator(seed, (_FOLDS, f), "cpu")
-                      for f in range(n_restarts)])
-        fold_masks = [torch.as_tensor(m, device=y.device)
-                      for m in fold_masks]
+        full_masks = masks if masks is not None else train_masks(
+            (n_cpg, n_s), [_generator(seed, (_FOLDS, f), "cpu")
+                           for f in range(n_restarts)])
+        full_masks = [torch.as_tensor(m) for m in full_masks]
+        # a worker's rows of a train mask: its padded rows count as train
+        # rows, so that no held-out element is padding
+        fold_masks = [(m if shard is None else ~shard.block.take(~m)).to(
+            y.device) for m in full_masks]
         per_fold = (init_option in DETERMINISTIC
                     or (init_option == "uniform" and ref is not None))
 
@@ -167,9 +205,10 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
                 runs = [deconv(y, d, rank, init(rank, 0),
                                tol_relative=False)] * n_restarts
             else:
-                runs = solve_members(y, d, ref, rank,
-                                     [init(rank, j) for j in
-                                      range(n_restarts)], **ccc_kw)
+                runs = solve_members(
+                    y, d, ref, rank,
+                    [init(rank, j) for j in range(n_restarts)],
+                    axis=None if shard is None else shard.axis, **ccc_kw)
             val = -compute_ccc([r.proportions.cpu().numpy() for r in runs])
             u, alpha = runs[-1].u, runs[-1].proportions
         else:                                               # BCV
@@ -177,8 +216,11 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
             val, u, alpha = bicross_validation(
                 y, d, ref, rank, fold_masks,
                 lambda f, yt, dt, r=rank, s=shared: (
-                    s if s is not None else init(r, f, yt, dt)),
-                deconv)
+                    s if s is not None else init(r, f, yt, dt,
+                                                 full_masks[f])),
+                deconv, LOCAL if shard is None else shard.axis)
+        check_finite(f"--ic {ic} at {rank} unknowns", nan_only=True,
+                     criterion=float(val))
         return float(val), u, alpha
 
     if axis.size > 1:

@@ -51,6 +51,7 @@ from demethify_tpu_torch.solvers.init import (
 from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
 from demethify_tpu_torch.solvers.purity import purity_solve
 from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
+from demethify_tpu_torch.utils import check_finite
 
 
 @dataclass
@@ -77,6 +78,15 @@ def restart_generators(seed: int, n_restarts: int, device):
     return gens
 
 
+def checked_init(make_init):
+    """``make_init`` whose (u0, alpha0) ``--debugnans`` checks."""
+    def made(*args):
+        u0, a0 = make_init(*args)
+        check_finite("init", u0=u0, alpha0=a0)
+        return u0, a0
+    return made
+
+
 def _select_best(results):
     """First minimum of the restarts' costs; NaN counts as +inf."""
     costs = [float(r[2]["cost"]) for r in results]
@@ -89,6 +99,7 @@ def supervised_deconv(y, d, R) -> DeconvolutionResult:
     methylated counts (target d*y, weights d), batched over samples."""
     proportions = wls_intercept_batch(d * y, d, R)
     cost = weighted_cost(y, R, proportions, d)
+    check_finite("supervised_deconv", proportions=proportions, cost=cost)
     return DeconvolutionResult(u=None, proportions=proportions,
                                cost=float(cost), n_iter=0)
 
@@ -149,11 +160,17 @@ def _batched_restarts(solve_multi, init_fn, device, seed, n_restarts, cap):
                                      (init_fn(g) for g in gens), True, cap))
 
 
-def _multi_cap(y, n_ct, n_u):
-    return fused.max_multi_members(
+def _multi_cap(y, n_ct, n_u, axis=None):
+    """The most members of one multi-member solve on y's device; with
+    ``axis`` (a row-sharded dataset) the least over its ranks, so that
+    every rank chunks alike."""
+    cap = fused.max_multi_members(
         y.shape[0], y.shape[1], n_ct, n_u,
         torch.finfo(accum_dtype(y)).bits // 8, y.element_size(),
         fused.free_device_bytes(y.device))
+    if axis is None:
+        return cap
+    return int(axis.min_(torch.tensor([cap], device=y.device)).item())
 
 
 def _solvers(y, d, R_trunc, n_u, purity, kw, axis=None):
@@ -232,6 +249,7 @@ def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
     n_ct = 0 if R_trunc is None else R_trunc.shape[1]
     n_s = y.shape[1]
     axis = None if shard is None else shard.axis
+    make_init = checked_init(make_init)
     solve, solve_multi = _solvers(y, d, R_trunc, n_u, purity, kw, axis)
     batch = restart_route(y.device, n_u, n_s, n_restarts, init_provided,
                           init=init) == "batch"
@@ -251,10 +269,7 @@ def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
         if is_deterministic(init, n_u, n_s):
             n_restarts = 1
         inits = _global_inits(shard, make_init, seed, n_restarts, y.device)
-        cap = 1
-        if batch:
-            cap = int(axis.min_(torch.tensor(
-                [_multi_cap(y, n_ct, n_u)], device=y.device)).item())
+        cap = _multi_cap(y, n_ct, n_u, axis) if batch else 1
         best = _first_min(_member_solves(solve, solve_multi, inits, batch,
                                          cap))
     return _result(*best)
@@ -262,18 +277,21 @@ def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
 
 def solve_members(y, d, R_trunc, n_u: int, inits, *,
                   n_iter1: int = 10000, n_iter2: int = 20,
-                  tol: float = 1e-2, tol_relative: bool = False):
+                  tol: float = 1e-2, tol_relative: bool = False,
+                  axis=None):
     """The partial-reference (R_trunc given) or unsupervised (None)
     solves of the given inits [(u0, alpha0), ...] on the same data, as a
     list of DeconvolutionResult in their order: on the card together
     through the multi-member kernels (K4 and K5) where ``restart_route``
-    would batch random restarts of this shape, else one solve each."""
+    would batch random restarts of this shape, else one solve each. With
+    ``axis`` (a row-sharded dataset: y, d, R_trunc and the inits' u are
+    this rank's rows) the solves are the row-sharded ones."""
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative, record_trace=False)
     n_ct = 0 if R_trunc is None else R_trunc.shape[1]
-    solve, solve_multi = _solvers(y, d, R_trunc, n_u, None, kw)
+    solve, solve_multi = _solvers(y, d, R_trunc, n_u, None, kw, axis)
     batch = restart_route(y.device, n_u, y.shape[1], len(inits)) == "batch"
-    cap = _multi_cap(y, n_ct, n_u) if batch else 1
+    cap = _multi_cap(y, n_ct, n_u, axis) if batch else 1
     return [_result(*res) for res in _member_solves(solve, solve_multi,
                                                      inits, batch, cap)]
 

@@ -105,6 +105,7 @@ from demethify_tpu_torch.ops.gram import (
     weighted_known_grams,
 )
 from demethify_tpu_torch.parallel.distributed import LOCAL
+from demethify_tpu_torch.utils import host_read, nan_debugging
 
 
 def _data_t(y, d, R_trunc, dtype, axis=LOCAL):
@@ -238,18 +239,28 @@ def _no_known_grams(ydt, dtype, axis, dy_once=False):
 
 
 def _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
-                record_trace):
+                record_trace, solver, state):
     """Calls ``one_iteration()`` until ``|cf - cf_prev| < tol`` or n_iter1
-    calls; reads scal[COST] once per call. Returns (n_iter, trace)."""
+    calls; reads scal[COST] once per call. With ``--debugnans`` that read
+    also carries the finite flag of ``state()`` (u, alpha) and the cost,
+    and a non-finite one raises FloatingPointError naming ``solver``.
+    Returns (n_iter, trace)."""
     dtype = scal.dtype
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    cf = np_dtype(scal[COST].item())
+
+    def read(k):
+        if nan_debugging():
+            return np_dtype(host_read(scal[COST], solver, k,
+                                      cost=scal[COST], **state())[0])
+        return np_dtype(scal[COST].item())
+
+    cf = read(0)
     tol = np_dtype(tol) * cf if tol_relative else np_dtype(tol)
     cf_prev = np_dtype(np.inf)
     costs = []
     while len(costs) < n_iter1 and abs(cf - cf_prev) >= tol:
         one_iteration()
-        cf_prev, cf = cf, np_dtype(scal[COST].item())   # the host read
+        cf_prev, cf = cf, read(len(costs) + 1)          # the host read
         costs.append(cf)
     trace = torch.full((n_iter1 if record_trace else 0,), float("nan"),
                        dtype=dtype, device=scal.device)
@@ -303,7 +314,8 @@ def partial_ref_solve_fused(u, alpha, y, d, R_trunc, n_u: int,
                          scal, n_iter2, n_u, row_mask)
 
     k, trace = _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
-                           record_trace)
+                           record_trace, "partial_ref_solve_fused",
+                           lambda: dict(u=uut[:n_u], alpha=alpha))
     return uut[:n_u].T.contiguous(), alpha, {
         "cost": scal[COST].clone(), "n_iter": k, "trace": trace}
 
@@ -334,7 +346,8 @@ def unsupervised_solve_fused(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
                          scal, n_iter2, n_u)
 
     k, trace = _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
-                           record_trace)
+                           record_trace, "unsupervised_solve_fused",
+                           lambda: dict(u=uut[:n_u], alpha=alpha))
     return uut[:n_u].T.contiguous(), alpha, {
         "cost": scal[COST].clone(), "n_iter": k, "trace": trace}
 
@@ -366,7 +379,8 @@ def purity_solve_fused(u, alpha, y, d, R_trunc, purity, n_u: int,
                       n_u)
 
     k, trace = _outer_loop(one_iteration, scal, n_iter1, tol, tol_relative,
-                           record_trace)
+                           record_trace, "purity_solve_fused",
+                           lambda: dict(u=uut[:n_u], alpha=alpha))
     return uut[:n_u].T.contiguous(), alpha, {
         "cost": scal[COST].clone(), "n_iter": k, "trace": trace}
 
@@ -457,11 +471,22 @@ def _multi_start(u_b, alpha_b, ydt, rtt, n_u, dmax, dtype, tol,
     return uut_b, alpha_b, scal_b
 
 
-def _outer_loop_multi(one_iteration, scal_b, n_iter1, record_trace):
+def _outer_loop_multi(one_iteration, scal_b, n_iter1, record_trace, solver,
+                      state):
     """Calls ``one_iteration()`` while any member is active and fewer than
-    n_iter1 calls were made; one host read of scal_b per call. Returns
-    (n_iter (B,) int64, trace (B, n_iter1) NaN-padded or (B, 0))."""
-    host = scal_b.cpu()
+    n_iter1 calls were made; one host read of scal_b per call. With
+    ``--debugnans`` that read also carries the finite flag of ``state()``
+    (every member's u and alpha) and the members' costs, and a non-finite
+    one raises FloatingPointError naming ``solver``. Returns (n_iter (B,)
+    int64, trace (B, n_iter1) NaN-padded or (B, 0))."""
+    def read(k):
+        if nan_debugging():
+            return torch.tensor(host_read(
+                scal_b, solver, k, cost=scal_b[:, COST], **state()),
+                dtype=scal_b.dtype).reshape(scal_b.shape)
+        return scal_b.cpu()
+
+    host = read(0)
     active = host[:, ACTIVE] != 0
     n_iter = torch.zeros(scal_b.shape[0], dtype=torch.int64)
     trace = torch.full((scal_b.shape[0], n_iter1 if record_trace else 0),
@@ -469,7 +494,7 @@ def _outer_loop_multi(one_iteration, scal_b, n_iter1, record_trace):
     k = 0
     while k < n_iter1 and bool(active.any()):
         one_iteration()
-        host = scal_b.cpu()                  # the host read: B scalar rows
+        host = read(k + 1)                   # the host read: B scalar rows
         n_iter += active
         if record_trace:
             trace[active, k] = host[active, COST]
@@ -542,8 +567,10 @@ def partial_ref_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, n_u: int,
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
-    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
-                                      record_trace)
+    n_iter, trace = _outer_loop_multi(
+        one_iteration, scal_b, n_iter1, record_trace,
+        "partial_ref_solve_fused_multi",
+        lambda: dict(u=uut_b[:, :n_u], alpha=alpha_b))
     return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
 
 
@@ -575,8 +602,10 @@ def unsupervised_solve_fused_multi(u_b, alpha_b, y, d, n_u: int,
         alpha_phase_full_multi(G_tt, b_t, gu, b_u, usq, ydy, alpha_b,
                                alpha_prev_b, scal_b, n_iter2, n_u)
 
-    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
-                                      record_trace)
+    n_iter, trace = _outer_loop_multi(
+        one_iteration, scal_b, n_iter1, record_trace,
+        "unsupervised_solve_fused_multi",
+        lambda: dict(u=uut_b[:, :n_u], alpha=alpha_b))
     return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
 
 
@@ -606,8 +635,10 @@ def purity_solve_fused_multi(u_b, alpha_b, y, d, R_trunc, purity, n_u: int,
         fw_phase_full_multi(G_tt, b_t, gu, b_u, ydy, alpha_b, purity, scal_b,
                             n_iter2, n_u)
 
-    n_iter, trace = _outer_loop_multi(one_iteration, scal_b, n_iter1,
-                                      record_trace)
+    n_iter, trace = _outer_loop_multi(
+        one_iteration, scal_b, n_iter1, record_trace,
+        "purity_solve_fused_multi",
+        lambda: dict(u=uut_b[:, :n_u], alpha=alpha_b))
     return _multi_result(uut_b, alpha_b, scal_b, n_u, n_iter, trace)
 
 

@@ -40,6 +40,7 @@ from demethify_tpu_torch.ops.gram import (
     site_curvature,
     u_constant_term,
 )
+from demethify_tpu_torch.utils import loop_end, loop_test
 
 
 def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
@@ -78,7 +79,9 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
         row_mask = torch.as_tensor(row_mask, device=y.device).to(torch.bool)
     k = 0
     # the test runs in the working dtype, as the JAX while_loop's does
-    while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
+    while k < n_iter1 and loop_test(torch.abs(cf - cf_prev) >= tol,
+                                     "partial_ref_solve", k, u=u,
+                                     alpha=alpha, cost=cf):
         a1_block, a2_block = alpha[:-n_u], alpha[-n_u:]
         if use_gram_u:
             C = u_constant_term(y, d, R_trunc, a1_block, a2_block)
@@ -100,4 +103,5 @@ def partial_ref_solve(u, alpha, y, d, R_trunc, n_u: int,
         if record_trace:
             trace[k] = cf
         k += 1
+    loop_end("partial_ref_solve", k, u=u, alpha=alpha, cost=cf)
     return u, alpha, {"cost": cf, "n_iter": k, "trace": trace}

@@ -24,6 +24,7 @@ from demethify_tpu_torch.ops.gram import (
     site_curvature,
     u_constant_term,
 )
+from demethify_tpu_torch.utils import loop_end, loop_test
 
 
 def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
@@ -55,7 +56,9 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
     l_w_prev = l_w
     cf_prev = torch.full((), float("inf"), dtype=dtype, device=y.device)
     k = 0
-    while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
+    while k < n_iter1 and loop_test(torch.abs(cf - cf_prev) >= tol,
+                                     "purity_solve", k, u=u,
+                                     alpha=alpha, cost=cf):
         a1_block, a2_block = alpha[:-n_u], alpha[-n_u:]
         if use_gram_u:
             C = u_constant_term(y, d, R_trunc, a1_block, a2_block)
@@ -77,4 +80,5 @@ def purity_solve(u, alpha, y, d, R_trunc, purity, n_u: int,
         if record_trace:
             trace[k] = cf
         k += 1
+    loop_end("purity_solve", k, u=u, alpha=alpha, cost=cf)
     return u, alpha, {"cost": cf, "n_iter": k, "trace": trace}

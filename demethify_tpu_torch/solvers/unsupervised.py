@@ -28,6 +28,7 @@ from demethify_tpu_torch.ops.gram import (
     sample_grams,
     site_curvature,
 )
+from demethify_tpu_torch.utils import loop_end, loop_test
 
 
 def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
@@ -58,7 +59,9 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
     if row_mask is not None:
         row_mask = torch.as_tensor(row_mask, device=y.device).to(torch.bool)
     k = 0
-    while k < n_iter1 and bool(torch.abs(cf - cf_prev) >= tol):
+    while k < n_iter1 and loop_test(torch.abs(cf - cf_prev) >= tol,
+                                     "unsupervised_solve", k, u=u,
+                                     alpha=alpha, cost=cf):
         if use_gram_u:
             C = (d.to(dtype) * y.to(dtype)) @ alpha.T
             M = site_curvature(d, alpha)
@@ -78,4 +81,5 @@ def unsupervised_solve(u, alpha, y, d, n_u: int, n_iter1: int = 10000,
         if record_trace:
             trace[k] = cf
         k += 1
+    loop_end("unsupervised_solve", k, u=u, alpha=alpha, cost=cf)
     return u, alpha, {"cost": cf, "n_iter": k, "trace": trace}

@@ -69,6 +69,7 @@ from demethify_tpu_torch.solvers.init import (
 from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
 from demethify_tpu_torch.solvers.purity import purity_solve
 from demethify_tpu_torch.solvers.unsupervised import unsupervised_solve
+from demethify_tpu_torch.utils import check_finite
 
 WEIGHTS_MIN_ELEMS = 2_000_000
 # the first spawn key of every replicate's seed sequence: keeps the
@@ -128,7 +129,10 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     a row-sharded dataset: every replicate runs on every rank through the
     row-sharded multi solvers (K4 on the rank's rows, the Gram partials
     summed, then K5/K6), rank 0 draws each chunk's weights and inits on
-    the full data, and the u bounds are gathered over the ranks.
+    the full data, and the u bounds are gathered over the ranks. Both
+    together (the 2-D layout of ``--multihost --shard``): the replicates
+    are partitioned over ``axis`` (the processes) and each is row-sharded
+    over ``shard.axis`` (the process's workers).
 
     y, d (n_cpg, n_s) and ref (n_cpg, n_ct), or None for the unsupervised
     bootstrap, on one device; purity (n_s,) the flipped known-block mass.
@@ -169,6 +173,7 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
             idx = torch.as_tensor(np.asarray(indices[r]), device=device)
         return g, idx
 
+    @api.checked_init
     def own_init(g, yb, db, refb, w=None):
         if unsupervised:
             return init_unsupervised(g, init_option, yb, db, n_u)
@@ -282,15 +287,16 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
 
     props, us = [], []
 
-    def keep(alpha, u):
+    def keep(r, alpha, u):
+        check_finite(f"bootstrap replicate {r}", alpha=alpha, u=u)
         props.append(alpha.cpu().numpy())
         us.append(None if u is None else u.cpu().numpy())
 
     # this process's contiguous block of the global replicate indices (all
-    # of them in one process, and on every rank of a row-sharded run)
-    ranks = LOCAL if shard is not None else axis
-    per_rank = -(-n_bootstrap // ranks.size)
-    first = min(ranks.rank * per_rank, n_bootstrap)
+    # of them in one process; every rank of a row-sharded solve takes the
+    # same block)
+    per_rank = -(-n_bootstrap // axis.size)
+    first = min(axis.rank * per_rank, n_bootstrap)
     last = min(first + per_rank, n_bootstrap)
     if method == "weights" and not supervised and gram_form(n_u, n_s):
         cap = CPU_MEMBERS if y.device.type == "cpu" else (
@@ -302,22 +308,24 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
             cap = int(shard.axis.min_(torch.tensor([cap],
                                                    device=y.device)).item())
         for lo in range(first, last, cap):
-            alpha_b, u_b = weighted_chunk(lo, min(lo + cap, last))
+            hi = min(lo + cap, last)
+            alpha_b, u_b = weighted_chunk(lo, hi)
+            check_finite(f"bootstrap replicates {lo}-{hi - 1}",
+                         alpha=alpha_b, u=u_b)
             props.extend(alpha_b.cpu().numpy())
             us.extend(u_b.cpu().numpy())
     elif method == "weights":
         for r in range(first, last):
-            keep(*weighted_one(r))
+            keep(r, *weighted_one(r))
     else:
         for r in range(first, last):
-            keep(*resample_one(r))
+            keep(r, *resample_one(r))
 
-    props = [p for block in ranks.all_gather_object(props) for p in block]
+    props = [p for block in axis.all_gather_object(props) for p in block]
     lo_p, hi_p = _percentiles(np.stack(props), level)
     if supervised:
         return lo_p, hi_p, None, None
-    if shard is None:
-        us = [u for block in ranks.all_gather_object(us) for u in block]
+    us = [u for block in axis.all_gather_object(us) for u in block]
     lo_u, hi_u = _percentiles(np.stack(us), level)
     if shard is not None:
         lo_u, hi_u = (np.concatenate(shard.axis.all_gather_object(x))

@@ -111,17 +111,16 @@ def test_partial_ref_close_to_jax(tmp_path, fixture_files):
 
 @pytest.mark.parametrize("flag", [["--initstate", "x"],
                                   ["--ic", "AIC", "--initstate", "x"],
-                                  ["--debugnans"],
-                                  ["--profile", "x"],
-                                  ["--multihost", "localhost:1", "2", "0",
-                                   "--shard"],
                                   ["--ic", "AIC", "--nbunknown", "1"]])
 def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,
                                                flag, capsys):
-    """Unported flags name their ROADMAP item (``--multihost`` with
-    ``--shard`` item 8); ``--ic`` with ``--nbunknown`` is refused as the
-    JAX CLI refuses it, and so is ``--initstate`` in the reference-based
-    mode or with ``--ic`` (exit 1, the JAX CLI's message)."""
+    """The CLI's refusals are the JAX CLI's: ``--ic`` with
+    ``--nbunknown``, and ``--initstate`` in the reference-based mode or
+    with ``--ic`` (exit 1, the JAX CLI's message). No flag is refused as
+    unported any more: ``--debugnans`` and ``--profile`` are held in
+    ``tests/test_torch_observability.py``, ``--plot`` in
+    ``test_torch_plotting.py`` and ``--multihost`` with ``--shard`` in
+    ``test_torch_2d.py``."""
     samples, ref = fixture_files
     argv = ["--methfreq", *samples, "--bedmethyl", "--noprint",
             "--outdir", str(tmp_path / "o"), "--device", "cpu",
@@ -134,9 +133,7 @@ def test_unported_flags_exit_with_roadmap_item(tmp_path, fixture_files,
                 "be used with --ic or the reference-based (no --nbunknown) "
                 "mode.") in capsys.readouterr().err
         return
-    want = ("--ic cannot be used with --nbunknown" if "--nbunknown" in flag
-            else "ROADMAP port queue item")
-    assert want in str(exc.value.code)
+    assert "--ic cannot be used with --nbunknown" in str(exc.value.code)
 
 
 def _profiles(path):

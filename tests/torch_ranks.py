@@ -15,7 +15,10 @@ import sys
 import numpy as np
 import torch
 
-from demethify_tpu_torch.parallel.distributed import initialize, shutdown
+from demethify_tpu_torch.parallel.distributed import (
+    initialize_layout,
+    shutdown,
+)
 from demethify_tpu_torch.parallel.mesh import row_block
 from demethify_tpu_torch.solvers import fused
 
@@ -73,7 +76,8 @@ def flatten(results) -> dict:
 
 def main(case_path, out_dir, store, n_ranks, rank):
     case = dict(np.load(case_path))
-    axis, _ = initialize(f"file://{store}", n_ranks, rank, "cpu")
+    axis = initialize_layout(f"file://{store}", n_ranks, rank,
+                             device_name="cpu")[0].world
     block = row_block(case["y"].shape[0], n_ranks, rank)
     flat = flatten(solve_all(case, axis, block))
     flat["start"] = np.asarray(block.start)
