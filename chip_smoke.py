@@ -174,7 +174,15 @@ non-zero and prints no result line):
    workers on the one card over gloo at 200k x 10, float64 against the
    one-process CLI, and the same routes through the API for each
    worker's launches and ms per outer iteration (``phase_layout``,
-   ``--layout-worker`` processes).
+   ``--layout-worker`` processes);
+14. the row-distributed set-up (``phase_row_init``): two ranks on the
+   one card (``--row-init-worker`` processes, gloo), each making only its
+   rows of a 4M x 100 problem (25 + 4, float32, in seeded row chunks),
+   run the inits uniform_, uniform, SVD and ICA (dual) and the
+   row-sharded solve after each, the supervised WLS, one weights-
+   bootstrap chunk (B = 8) and one CCC sweep rank, each against the
+   one-rank run of the same routes, with each rank's init time, peak
+   device memory beside its rows' bytes and launches (K1 + K2, K4 + K5).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -5958,23 +5966,11 @@ def rank_solves(axis, block):
             lambda n: lambda: fused.purity_solve_fused_multi_sharded(
                 rows(pu_b, 1), torch.as_tensor(pa_b).to(DEV), yb, db, Rb, pur,
                 N_U, axis, **kw(n, P_INNER)), RANK_P_OUTER)
-        full = {}
-
-        def full_data():
-            if not full:
-                full["yd"] = tuple(torch.as_tensor(x).to(DEV)
-                                   for x in (y, d, Rt))
-            return full["yd"]
-
-        data, bkw = full_data(), {}
-        if axis.size > 1:
-            data = (yb, db, Rb)
-            bkw = dict(shard=Shard(axis, block, full_data))
+        bkw = dict(shard=Shard(axis, block)) if axis.size > 1 else {}
         run("weights bootstrap float64", lambda n: lambda: bootstrap_ci(
-            *data, N_U, level=90, n_bootstrap=RANK_BOOT, n_iter1=n,
+            yb, db, Rb, N_U, level=90, n_bootstrap=RANK_BOOT, n_iter1=n,
             n_iter2=N_INNER, tol=0.0, seed=RANK_SEED, method="weights",
             **bkw), RANK_BOOT_OUTER)
-        full.clear()
     return out
 
 
@@ -6589,7 +6585,6 @@ def layout_worker(out_dir, store, n_procs, proc_id, n_local, local_id):
     out_dir/worker<rank>.json."""
     import torch
 
-    from demethify_tpu_torch import state
     from demethify_tpu_torch.parallel.distributed import (
         Shard, initialize_layout, shard_dataset_global, shutdown)
     from demethify_tpu_torch.selection.sweep import evaluate_best_ic
@@ -6600,13 +6595,11 @@ def layout_worker(out_dir, store, n_procs, proc_id, n_local, local_id):
                                        local_id, DEV)
     try:
         u0, a0, y, d, Rt = make_problem(np.float64, seed=19, n_cpg=N_2D)
-        full = state.from_numpy(u0, a0, y, d, Rt, device=device,
-                                dtype=torch.float64)
 
         def shard_on(axis):
             block, *yd = shard_dataset_global(
                 y, d, Rt, axis, lambda x: torch.as_tensor(x, device=device))
-            return yd, Shard(axis, block, lambda: full[2:])
+            return yd, Shard(axis, block)
 
         def run(call, n_outer):
             """(result, launches, fixed ms, ms an outer iteration past the
@@ -6621,7 +6614,8 @@ def layout_worker(out_dir, store, n_procs, proc_id, n_local, local_id):
 
         res = {}
         (yw, dw, rw), sw = shard_on(layout.world)
-        init = (sw.block.take(full[0]), full[1])
+        init = tuple(torch.as_tensor(x, device=device)
+                     for x in (sw.block.take(u0), a0))
         out, launches, fixed, further = run(
             lambda n: partial_reference_deconv(
                 yw, dw, rw, N_U, init_provided=init, shard=sw, n_iter1=n,
@@ -6807,6 +6801,377 @@ def phase_layout(card):
     return out
 
 
+# ------------------------------------------- phase 14: row-distributed set-up
+# the cohort's widths at 4M rows, float32, 2 ranks on the one card (gloo)
+ROW_N, ROW_S, ROW_CT, ROW_U = 4_000_000, 100, 25, 4
+ROW_CHUNK, ROW_SEED, ROW_RANKS = 250_000, 23, 2
+# outer iterations of the solve after each init (x N_INNER), the weights
+# bootstrap's chunk and the CCC rank's restarts
+ROW_OUTER, ROW_BOOT, ROW_CCC_RESTARTS = 3, 8, 3
+ROW_INITS = ("uniform_", "uniform", "SVD", "ICA")
+# 2 ranks against one, float32 (every sum over the rows adds the ranks'
+# partials in another order): the draws bit for bit; a WLS fit (the
+# 'uniform' init, the supervised proportions, the SVD and ICA inits'
+# known block) to 1e-3 of the largest entry (float32 Grams over 2M-row
+# halves, through the NNLS polish's solve); the SVD init's factors to
+# 1e-3 (its top singular vectors are well apart); the solves, the
+# bootstrap's intervals and the CCC rank's alpha to TRAJ_TOL's float32
+# alpha bound; ICA in float32 is decided by rounding (its whitened null
+# direction scales float32 rounding; tests/test_torch_svd_ica.py), so it
+# is held through its parts: the basis B and S = B'X reconstruct the
+# residual to 1e-4 of its norm on every rank, and the init lies on its
+# supports (profiles in [0, 1], alpha on the simplex).
+ROW_TOL = {"wls": 1e-3, "svd": 1e-3, "solve": TRAJ_TOL["float32"]["alpha"],
+           "cost": 1e-5, "ica_parts": 1e-4}
+# rank 0's peak device memory against rank 1's, each route
+ROW_PEAK_RATIO = 1.15
+
+
+def row_problem(block, n_rows, device):
+    """This rank's rows of the phase's problem, float32 on ``device``:
+    (y, d, R) made chunk by chunk of ROW_CHUNK rows, each from its own
+    generator seeded by (ROW_SEED, chunk), so that a rank makes only the
+    chunks its rows lie in and any layout holds the same rows; padded
+    rows zero. 25 known and 4 unknown profiles U(0, 1), one alpha a
+    sample from Dirichlet(1) (ROW_SEED), y = clip([R U] alpha + 0.01 N,
+    0, 1), coverage Poisson(30) + 1."""
+    import torch
+
+    f32 = torch.float32
+    alpha = torch.as_tensor(np.random.default_rng(ROW_SEED).dirichlet(
+        np.ones(ROW_CT + ROW_U), size=ROW_S).T, dtype=f32, device=device)
+    m = block.stop - block.start
+    lo, hi = block.start, min(block.stop, n_rows)
+    y = torch.zeros((m, ROW_S), dtype=f32, device=device)
+    d = torch.zeros((m, ROW_S), dtype=f32, device=device)
+    R = torch.zeros((m, ROW_CT), dtype=f32, device=device)
+    for c in range(lo // ROW_CHUNK, -(-hi // ROW_CHUNK)):
+        c0, c1 = c * ROW_CHUNK, min((c + 1) * ROW_CHUNK, n_rows)
+        g = torch.Generator(device=device)
+        g.manual_seed(int(np.random.SeedSequence(
+            ROW_SEED, spawn_key=(c,)).generate_state(1, np.uint64)[0] >> 1))
+        rc = torch.rand((c1 - c0, ROW_CT + ROW_U), generator=g, dtype=f32,
+                        device=device)
+        noise = torch.randn((c1 - c0, ROW_S), generator=g, dtype=f32,
+                            device=device)
+        dc = torch.poisson(torch.full((c1 - c0, ROW_S), 30.0, dtype=f32,
+                                      device=device), generator=g) + 1.0
+        a, b = max(c0, lo), min(c1, hi)
+        y[a - lo:b - lo] = torch.clamp(rc[a - c0:b - c0] @ alpha
+                                       + 0.01 * noise[a - c0:b - c0], 0, 1)
+        d[a - lo:b - lo] = dc[a - c0:b - c0]
+        R[a - lo:b - lo] = rc[a - c0:b - c0, :ROW_CT]
+    return y, d, R
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _ica_parts(y, d, R, shard):
+    """(max |B S - X| / max |X|, S) of the ICA init's dual basis on this
+    rank's rows: X the clipped residual of the known block's row-sharded
+    WLS (padded rows zero), B its tall-SVD basis, S = B'X summed over the
+    ranks."""
+    import torch
+
+    from demethify_tpu_torch.ops.nnls import wls_intercept_batch
+    from demethify_tpu_torch.ops.tall_svd import tall_svd
+    from demethify_tpu_torch.parallel.distributed import axis_of
+
+    axis = axis_of(shard)
+    H1 = wls_intercept_batch(y, d, R, axis=axis)
+    X = torch.clamp_min(y - R @ H1, 1e-8)
+    if shard is not None:
+        X = shard.data_rows(X)
+    B = tall_svd(X, axis)[0]
+    S = axis.sum_(B.T @ X)
+    err = axis.max_(torch.max(torch.abs(B @ S - X)))
+    scale = axis.max_(torch.max(torch.abs(X)))
+    return float(err / scale), S
+
+
+def row_routes(axis, block, n_rows, device):
+    """The phase's routes on this rank's rows (``axis`` LOCAL with every
+    row: the one-rank run), each with the counters at 0 and the peak
+    device memory reset just before: the partial-reference inits of
+    ROW_INITS, each followed by ROW_OUTER x N_INNER of the row-sharded
+    solve from it (K1 + K2); the supervised WLS; one weights-bootstrap
+    chunk of ROW_BOOT replicates with uniform_ inits (K4 + K5); one CCC
+    sweep rank (1 unknown, ROW_CCC_RESTARTS restarts, K4 + K5). ->
+    ({route: {arrays: {...}, init_ms, ms, peak_bytes, launches}}, the
+    bytes of this rank's Y, D and R)."""
+    import torch
+
+    from demethify_tpu_torch.parallel.distributed import Shard
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+    from demethify_tpu_torch.solvers import api, init
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    y, d, R = row_problem(block, n_rows, device)
+    shard = Shard(axis, block) if axis.size > 1 else None
+    data_bytes = sum(x.numel() * x.element_size() for x in (y, d, R))
+    n_data = block.n_data
+    solve_kw = dict(n_iter1=ROW_OUTER, n_iter2=N_INNER, tol=0.0)
+    on_card = device.type == "cuda"
+    out = {}
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    def route(name, make, follow=None):
+        """make() timed (the init), then follow(made) (the solve), with
+        the counters and the peak memory over both."""
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        made = make()
+        _sync(device)
+        init_ms = (time.perf_counter() - t0) * 1e3
+        arrays = follow(made) if follow else made
+        _sync(device)
+        out[name] = dict(
+            arrays=arrays, init_ms=init_ms,
+            ms=(time.perf_counter() - t0) * 1e3,
+            peak_bytes=(torch.cuda.max_memory_allocated(device) if on_card
+                        else 0),
+            launches={k: v for k, v in read_counts().items() if v})
+
+    # one draw first, so that no route's time holds the first launch of
+    # the draws' kernels
+    init.init_partial(torch.Generator(device=device), "uniform_", y, d, R,
+                      ROW_U, shard=shard)
+    for option in ROW_INITS:
+        def make(option=option):
+            g = torch.Generator(device=device)
+            g.manual_seed(ROW_SEED)
+            return init.init_partial(g, option, y, d, R, ROW_U, shard=shard)
+
+        def follow(u0a0):
+            res = api.partial_reference_deconv(
+                y, d, R, ROW_U, init_provided=u0a0, shard=shard, **solve_kw)
+            return {"u0": host(u0a0[0][:n_data]), "a0": host(u0a0[1]),
+                    "alpha": host(res.proportions),
+                    "cost": np.asarray(res.cost)}
+        route(f"init {option}", make, follow)
+    err, S = _ica_parts(y, d, R, shard)
+    out["init ICA"]["arrays"].update(parts_err=np.asarray(err), S=host(S))
+    route("supervised", lambda: api.supervised_deconv(y, d, R, axis=axis),
+          lambda res: {"alpha": host(res.proportions),
+                       "cost": np.asarray(res.cost)})
+    route("weights bootstrap", lambda: bootstrap_ci(
+        y, d, R, ROW_U, level=90, n_bootstrap=ROW_BOOT, seed=ROW_SEED,
+        method="weights", shard=shard, **solve_kw),
+        lambda ci: {"props": np.stack(ci[:2]),
+                    "u_bounds": np.stack(ci[2:])[:, :n_rows]})
+    route("CCC rank", lambda: evaluate_best_ic(
+        y, d, R, "uniform_", "CCC", seed=ROW_SEED, iter1=ROW_OUTER,
+        iter2=N_INNER, tol=0.0, n_restarts=ROW_CCC_RESTARTS, n_u_max=1,
+        shard=shard),
+        lambda res: {"u": host(res[0][:n_data]), "alpha": host(res[1]),
+                     "list": np.asarray(res[3])})
+    return out, data_bytes
+
+
+def row_init_worker(out_dir, store, n_ranks, rank, device_name, n_rows):
+    """One rank of ``phase_row_init``: ``row_routes`` on its block, saved
+    to out_dir/rowRANK.npz (arrays) and .json (times, memory, launches)."""
+    from demethify_tpu_torch.parallel.distributed import (
+        initialize_layout,
+        shutdown,
+    )
+    from demethify_tpu_torch.parallel.mesh import row_block
+
+    layout, device = initialize_layout(store, n_ranks, rank,
+                                       device_name=device_name)
+    axis = layout.world
+    try:
+        res, data_bytes = row_routes(axis, row_block(n_rows, n_ranks, rank),
+                                     n_rows, device)
+        np.savez(os.path.join(out_dir, f"row{rank}.npz"),
+                 **{f"{name}/{k}": v for name, r in res.items()
+                    for k, v in r["arrays"].items()})
+        with open(os.path.join(out_dir, f"row{rank}.json"), "w") as f:
+            json.dump({"backend": axis.backend, "device": str(device),
+                       "data_bytes": data_bytes,
+                       "routes": {name: {k: r[k] for k in (
+                           "init_ms", "ms", "peak_bytes", "launches")}
+                           for name, r in res.items()}}, f)
+    finally:
+        shutdown(axis)
+    return 0
+
+
+def _row_err(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return np.inf
+    return float(np.max(np.abs(got - want)) / max(1.0, np.max(np.abs(want))))
+
+
+def phase_row_init(card, n_rows=ROW_N, device_name=DEV):
+    """The row-distributed set-up of a row-sharded run: ROW_RANKS ranks on
+    the one card (processes of this script, ``--row-init-worker``, over
+    gloo), each making only its rows of the ROW_N x ROW_S problem (25 + 4,
+    float32), against the one-rank run of the same routes in this process
+    (``row_routes``): the inits uniform_ (its draws bit for bit), uniform,
+    SVD and ICA (dual: above 4096 rows) and the row-sharded solve after
+    each, the supervised WLS, one weights-bootstrap chunk and one CCC
+    sweep rank, at ROW_TOL; every rank with the same bits of what is
+    replicated; each rank's peak device memory beside its rows' bytes of
+    Y, D and R, rank 0's within ROW_PEAK_RATIO of rank 1's; the launches
+    of each rank one per kernel and outer iteration (K1 + K2 after the
+    inits, K4 + K5 for the bootstrap chunk and the CCC rank). Returns
+    {route: launches per rank}."""
+    import gc
+
+    import torch
+
+    from demethify_tpu_torch.parallel.distributed import LOCAL
+    from demethify_tpu_torch.parallel.mesh import row_block
+
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    one, one_bytes = row_routes(LOCAL, row_block(n_rows, 1, 0), n_rows,
+                                device)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        store = "file://" + os.path.join(root, "store")
+        t0 = time.perf_counter()
+        _run_rank_processes([[os.path.join(HERE, "chip_smoke.py"),
+                              "--row-init-worker", root, store,
+                              str(ROW_RANKS), str(r), device_name,
+                              str(n_rows)] for r in range(ROW_RANKS)], 900)
+        t_ranks = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(root, f"row{r}.npz")))
+                 for r in range(ROW_RANKS)]
+        meta = []
+        for r in range(ROW_RANKS):
+            with open(os.path.join(root, f"row{r}.json")) as f:
+                meta.append(json.load(f))
+    log(f"[row init] {ROW_RANKS} ranks on {[m['device'] for m in meta]} "
+        f"(card {card}), sums by {meta[0]['backend']}, {n_rows} x {ROW_S}, "
+        f"{ROW_CT} + {ROW_U}, float32: the one-rank routes took {t_one:.1f} "
+        f"s, the rank processes {t_ranks:.1f} s; Y, D, R bytes one rank "
+        f"{one_bytes / 1e9:.3f} GB, per rank "
+        f"{[round(m['data_bytes'] / 1e9, 3) for m in meta]} GB")
+
+    def joined(key):
+        """A result over the ranks: row arrays concatenated in rank
+        order, a replicated one from rank 0 (after checking every rank
+        holds its bits)."""
+        if key.split("/")[1] in ("u0", "u"):
+            return np.concatenate([r[key] for r in ranks])
+        for r in ranks[1:]:
+            check(np.array_equal(r[key], ranks[0][key], equal_nan=True),
+                  f"[row init] ranks disagree on {key}")
+        return ranks[0][key]
+
+    want_launches = {"supervised": {}}
+    for name in one:
+        if name.startswith("init"):
+            want_launches[name] = {"u_phase_grams": ROW_OUTER,
+                                   "alpha_phase_full": ROW_OUTER}
+        elif name in ("weights bootstrap", "CCC rank"):
+            want_launches[name] = {"u_phase_grams_multi": ROW_OUTER,
+                                   "alpha_phase_full_multi": ROW_OUTER}
+    out = {}
+    for name, ref in one.items():
+        want = ref["arrays"]
+        errs = {k: _row_err(joined(f"{name}/{k}"), v)
+                for k, v in want.items() if k not in ("parts_err", "S")}
+        if name == "init uniform_":
+            check(all(np.array_equal(joined(f"{name}/{k}"), want[k])
+                      for k in ("u0", "a0")),
+                  "[row init] uniform_: the draws differ from one rank's")
+            tol = {"u0": 0.0, "a0": 0.0}
+        elif name == "init uniform":
+            check(np.array_equal(joined(f"{name}/u0"), want["u0"]),
+                  "[row init] uniform: u's draw differs from one rank's")
+            tol = {"u0": 0.0, "a0": ROW_TOL["wls"]}
+        elif name == "init SVD":
+            tol = {"u0": ROW_TOL["svd"], "a0": ROW_TOL["svd"]}
+        elif name == "init ICA":
+            parts = [float(r[f"{name}/parts_err"]) for r in ranks]
+            u0, a0 = joined(f"{name}/u0"), joined(f"{name}/a0")
+            on_support = (u0.min() >= 0 and u0.max() <= 1 and a0.min() >= 0
+                          and np.allclose(a0.sum(0), 1.0, atol=1e-5))
+            s_err = _row_err(joined(f"{name}/S"), want["S"])
+            log(f"[row init] init ICA parts: |B S - X| / |X| per rank "
+                f"{parts} (one rank {float(want['parts_err']):.3e}; tol "
+                f"{ROW_TOL['ica_parts']:.0e}), S vs one rank {s_err:.3e} "
+                f"(not held: its small singular directions are rounding), "
+                f"on its supports {on_support}")
+            check(max(parts) <= ROW_TOL["ica_parts"] and on_support,
+                  "[row init] ICA: the basis or the supports fail")
+            tol = {}
+        elif name == "supervised":
+            tol = {"alpha": ROW_TOL["wls"]}
+            c1, c2 = float(want["cost"]), float(joined(f"{name}/cost"))
+            errs["cost"] = abs(c2 - c1) / abs(c1)
+            tol["cost"] = ROW_TOL["cost"]
+        else:
+            tol = {k: ROW_TOL["solve"] for k in want if k != "list"}
+        if name.startswith("init") and name != "init ICA":
+            tol.update(alpha=ROW_TOL["solve"])
+        if name == "CCC rank":
+            errs["list"] = float(np.max(np.abs(joined(f"{name}/list")
+                                               - want["list"])))
+            tol["list"] = 1e-6
+        per = [m["routes"][name] for m in meta]
+        peaks = [p["peak_bytes"] for p in per]
+        launches = [p["launches"] for p in per]
+        # each kernel's launches (its layout's form counters, such as
+        # ``u_phase_grams{wide}``, count the same launches again)
+        kernels = [{k: v for k, v in lc.items() if "{" not in k}
+                   for lc in launches]
+        log(f"[row init] {name}: 2 ranks vs one "
+            f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol "
+            f"{tol}); init ms per rank {[round(p['init_ms'], 1) for p in per]}"
+            f" (one rank {ref['init_ms']:.1f}), route ms "
+            f"{[round(p['ms'], 1) for p in per]} (one rank {ref['ms']:.1f});"
+            f" peak device memory per rank "
+            f"{[round(b / 1e9, 3) for b in peaks]} GB (one rank "
+            f"{ref['peak_bytes'] / 1e9:.3f}) beside its rows' Y, D, R "
+            f"{[round(m['data_bytes'] / 1e9, 3) for m in meta]} GB; "
+            f"launches per rank {launches}")
+        check(all(errs[k] <= v for k, v in tol.items()),
+              f"[row init] {name}: 2 ranks differ from one")
+        if on_card:
+            check(peaks[0] <= ROW_PEAK_RATIO * peaks[1],
+                  f"[row init] {name}: rank 0's peak {peaks[0]} is over "
+                  f"{ROW_PEAK_RATIO} x rank 1's {peaks[1]}")
+            check(all(lc == want_launches[name] for lc in kernels),
+                  f"[row init] {name}: launches {kernels} != "
+                  f"{want_launches[name]}")
+        out[name] = kernels
+    log("[row init] every rank ended with the same bits; no rank held "
+        "another's rows")
+    return out
+
+
+# wall seconds of each phase of ``main``
+PHASE_TIMES = {}
+
+
+def run_phase(fn, *args):
+    """fn(*args), with its wall seconds logged and kept in PHASE_TIMES."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_TIMES[fn.__name__] = time.perf_counter() - t0
+    log(f"[time] {fn.__name__} {PHASE_TIMES[fn.__name__]:.1f} s")
+    return out
+
 
 def main():
     try:
@@ -6824,63 +7189,65 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
-    card = phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k1_bf16, k1_bf16c = phase_k1_bf16()
-    k2 = phase_k2()
-    k2_cohort = phase_redesign()
-    phase_redesign_k4k3()
-    k3 = phase_k3()
-    k4, k4_uns, k4_pur = phase_k4()
-    k5 = phase_k5()
-    k6 = phase_k6()
-    k4w, _, _ = phase_k4_weighted()
-    k4_bf16, k4w_bf16 = phase_k4_bf16(k4, k4w)
-    k5w = phase_k5_weighted()
-    k6w = phase_k6_weighted()
-    phase_layouts()
-    phase_narrow_bits()
-    wide = phase_wide_kernels()
-    partial = phase_partial_buffer()
-    k1_state, k4_state = phase_state_cols()
-    glue = phase_wide_glue()
-    glob = phase_global_kernels()
-    masks = phase_masks()
-    folded = phase_rt_folded()
-    k1_bf16c_direct = phase_bf16c_direct(card)
-    phase_solver_trajectory()
-    phase_bf16_solvers()
-    identical = phase_multi_solvers()
-    phase_weighted_solvers()
-    phase_bootstrap_parity()
-    phase_bootstrap_direct()
+    card = run_phase(phase_device)
+    run_phase(phase_build)
+    k1 = run_phase(phase_k1)
+    k1_bf16, k1_bf16c = run_phase(phase_k1_bf16)
+    k2 = run_phase(phase_k2)
+    k2_cohort = run_phase(phase_redesign)
+    run_phase(phase_redesign_k4k3)
+    k3 = run_phase(phase_k3)
+    k4, k4_uns, k4_pur = run_phase(phase_k4)
+    k5 = run_phase(phase_k5)
+    k6 = run_phase(phase_k6)
+    k4w, _, _ = run_phase(phase_k4_weighted)
+    k4_bf16, k4w_bf16 = run_phase(phase_k4_bf16, k4, k4w)
+    k5w = run_phase(phase_k5_weighted)
+    k6w = run_phase(phase_k6_weighted)
+    run_phase(phase_layouts)
+    run_phase(phase_narrow_bits)
+    wide = run_phase(phase_wide_kernels)
+    partial = run_phase(phase_partial_buffer)
+    k1_state, k4_state = run_phase(phase_state_cols)
+    glue = run_phase(phase_wide_glue)
+    glob = run_phase(phase_global_kernels)
+    masks = run_phase(phase_masks)
+    folded = run_phase(phase_rt_folded)
+    k1_bf16c_direct = run_phase(phase_bf16c_direct, card)
+    run_phase(phase_solver_trajectory)
+    run_phase(phase_bf16_solvers)
+    identical = run_phase(phase_multi_solvers)
+    run_phase(phase_weighted_solvers)
+    run_phase(phase_bootstrap_parity)
+    run_phase(phase_bootstrap_direct)
     problem32 = make_problem(np.float32, seed=0)
-    launches, main_ms = phase_main_path(problem32, card)
-    p_launches, _, _ = phase_purity_path(problem32, card)
-    phase_unsupervised_path(problem32, card)
-    restarts = phase_restarts(problem32, card, {
+    launches, main_ms = run_phase(phase_main_path, problem32, card)
+    p_launches, _, _ = run_phase(phase_purity_path, problem32, card)
+    run_phase(phase_unsupervised_path, problem32, card)
+    restarts = run_phase(phase_restarts, problem32, card, {
         "partial-ref": k4["ms"], "purity": k4_pur["ms"],
         "unsupervised": k4_uns["ms"]})
-    boot = phase_bootstrap(problem32, card)
-    bf16 = phase_bf16_paths(problem32, card)
-    mask_paths = phase_mask_paths(card)
-    env = phase_envelope_paths(card)
-    cohort = phase_cohort(card)
-    single = phase_single_phase_kernels(card, main_ms)
-    phase_cli()
-    past = phase_past_envelope(card)
-    phase_inits(card)
-    phase_sweep(problem32, card)
-    phase_cli_inits_ic()
-    ranks = phase_ranks(card)
-    phase_ranks_cli()
-    t13 = time.perf_counter()
-    obs = phase_observability(problem32, card)
-    phase_feature_selection(card)
-    phase_pipeline(card)
-    layout = phase_layout(card)
-    log(f"[done] phase 13 took {time.perf_counter() - t13:.1f} s")
+    boot = run_phase(phase_bootstrap, problem32, card)
+    bf16 = run_phase(phase_bf16_paths, problem32, card)
+    mask_paths = run_phase(phase_mask_paths, card)
+    env = run_phase(phase_envelope_paths, card)
+    cohort = run_phase(phase_cohort, card)
+    single = run_phase(phase_single_phase_kernels, card, main_ms)
+    run_phase(phase_cli)
+    past = run_phase(phase_past_envelope, card)
+    run_phase(phase_inits, card)
+    run_phase(phase_sweep, problem32, card)
+    run_phase(phase_cli_inits_ic)
+    ranks = run_phase(phase_ranks, card)
+    run_phase(phase_ranks_cli)
+    obs = run_phase(phase_observability, problem32, card)
+    run_phase(phase_feature_selection, card)
+    run_phase(phase_pipeline, card)
+    layout = run_phase(phase_layout, card)
+    row_init = run_phase(phase_row_init, card)
+    log("[time] the longest phases: " + ", ".join(
+        f"{name} {t:.1f} s" for name, t in sorted(
+            PHASE_TIMES.items(), key=lambda kv: -kv[1])[:12]))
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "demethify_tpu" or m.startswith("demethify_tpu.")
                   for m in sys.modules), "a JAX-package module was imported")
@@ -7046,6 +7413,13 @@ def main():
                       if row["name"] in r["launches"][0]}
         if per_worker:
             row["layout_2d_launches_per_worker"] = per_worker
+        # K1, K2, K4, K5: launches on each rank after the row-distributed
+        # set-up (phase 14)
+        per_route = {route: [r.get(row["name"], 0) for r in per]
+                     for route, per in row_init.items()
+                     if any(row["name"] in r for r in per)}
+        if per_route:
+            row["row_init_launches_per_rank"] = per_route
         # K1 and K2: their device time in the program's own trace
         # (--profile, the main path's CLI run)
         traced = [v for k, v in obs["trace"].items()
@@ -7078,4 +7452,9 @@ if __name__ == "__main__":
         sys.path.insert(0, HERE)
         sys.exit(layout_worker(sys.argv[2], sys.argv[3],
                                *map(int, sys.argv[4:8])))
+    if sys.argv[1:2] == ["--row-init-worker"]:
+        sys.path.insert(0, HERE)
+        sys.exit(row_init_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                                 int(sys.argv[5]), sys.argv[6],
+                                 int(sys.argv[7])))
     sys.exit(main())

@@ -32,7 +32,13 @@ both together are the 2-D layout: N processes of M workers (a card
 each), the plain solve's rows over all N M workers, the sweep's ranks
 and the weights bootstrap's replicates over the processes, each solve
 row-sharded over its process's workers, the resample bootstrap's
-replicates over all workers on full copies of the data.
+replicates over all workers on full copies of the data. A row-sharded
+solve's set-up (its inits, the reference-based WLS, the weights
+bootstrap's draws, the sweep's inits and minka's spectrum) runs on each
+worker's rows, with the sums over the workers: no card holds rows other
+than its own. Only the replicate-partitioned bootstrap and the
+rank-partitioned sweep hold the full data on each process's card
+(``full()``), as the JAX CLI's do.
 
 Reproduced conventions: ``nargs=1`` flags arrive as 1-lists and are
 unwrapped; the default iterations are (10000, 20), or (100, 500) with
@@ -373,26 +379,30 @@ def _run(args, layout, device):
         """numpy -> the device, then cast there to the storage dtype"""
         return None if x is None else torch.as_tensor(x).to(device).to(dtype)
 
-    full_data = {}
-
-    def full():
-        """The full (y, d, ref) on this rank's device, moved at first use:
-        one process's data, a row-sharded run's inits and bootstrap draws
-        (rank 0), and the replicate- and rank-partitioned runs."""
-        if not full_data:
-            full_data["yd"] = tuple(on_device(x) for x in
-                                    (ds.meth_f, ds.counts, ds.ref))
-        return full_data["yd"]
-
     sharded = axis.size > 1
     shard = None
     if sharded:
         block, y, d, ref_mat = shard_dataset_global(
             ds.meth_f, ds.counts, ds.ref, axis, on_device)
-        shard = Shard(axis, block, full)
+        shard = Shard(axis, block)
     else:
         block = row_block(ds.meth_f.shape[0], 1, 0)
-        y, d, ref_mat = full()
+        y, d, ref_mat = (on_device(x) for x in (ds.meth_f, ds.counts,
+                                                ds.ref))
+    full_data = {}
+
+    def full():
+        """The full (y, d, ref) on this worker's device: the process-local
+        arrays of the replicate-partitioned bootstrap and the
+        rank-partitioned sweep, as the JAX CLI has them (this process's
+        own arrays when nothing is sharded)."""
+        if not sharded:
+            return y, d, ref_mat
+        if not full_data:
+            full_data["yd"] = tuple(on_device(x) for x in
+                                    (ds.meth_f, ds.counts, ds.ref))
+        return full_data["yd"]
+
     row_data = {}
 
     def row_shard():
@@ -404,7 +414,7 @@ def _run(args, layout, device):
         if not row_data:
             blk, *yd = shard_dataset_global(ds.meth_f, ds.counts, ds.ref,
                                             rows, on_device)
-            row_data["yd"] = (*yd, Shard(rows, blk, full))
+            row_data["yd"] = (*yd, Shard(rows, blk))
         return row_data["yd"]
 
     header = list(ds.header)
@@ -505,12 +515,9 @@ def _run(args, layout, device):
         header = (unknown_header if ref_mat is None
                   else header + unknown_header)
         write_profile(res.u, unknown_header, sharded)
-    elif sharded:
-        # the reference-based WLS on rank 0's full data
-        res = shard.from_rank0(lambda yy, dd, rr: _cpu_result(
-            supervised_deconv(yy, dd, rr)))
     else:
-        res = supervised_deconv(y, d, ref_mat)
+        # the reference-based WLS, its sums over the ranks when sharded
+        res = supervised_deconv(y, d, ref_mat, axis=axis)
     profile.__exit__(None, None, None)
     time_tot = time() - time_start
     if res is not None:
@@ -548,13 +555,6 @@ def _run(args, layout, device):
                                                                    header),
                          list_ic)
     return 0
-
-
-def _cpu_result(res):
-    """A DeconvolutionResult with its tensors on the CPU (to send to the
-    other ranks)."""
-    res.proportions = res.proportions.cpu()
-    return res
 
 
 if __name__ == "__main__":

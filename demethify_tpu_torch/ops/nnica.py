@@ -23,6 +23,14 @@ and maps the components back through B. The dual form depends on the
 signs of B's columns (a flipped column flips a row of S, and the
 negativity loss is not symmetric under that), so its result follows the
 port's sign rule (``tall_svd``), not the JAX package's.
+
+Row-sharded (``shard``, ``parallel/distributed.Shard``: X and the
+profiles are this rank's rows): the dual form sums B'X over the ranks,
+runs the whitening and the rotation search on the axis's rank 0 and
+broadcasts the rotation's columns and H, and maps back through the
+rank's rows of B; the primal form (at most ICA_DUAL_THRESHOLD rows by
+the init's rule) gathers the rows and runs whole on rank 0. The
+constrained form zeroes the padded rows of its clipped residual.
 """
 
 import math
@@ -31,6 +39,7 @@ import torch
 
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.ops.tall_svd import tall_svd
+from demethify_tpu_torch.parallel.distributed import axis_of
 
 
 def _rotate_rows(phi, yi, yj):
@@ -115,35 +124,59 @@ def _rotation_search(Z, t_tol: float, i_max: int):
     return W
 
 
-def run_nn_ica(X, rank: int, t_tol: float = 1e-1, i_max: int = 1000):
+def run_nn_ica(X, rank: int, t_tol: float = 1e-1, i_max: int = 1000,
+               shard=None):
     """(clip(W[:, :rank], 0, 1), H[:rank]) of the search on the whitened
-    rows of X, with H = max(W Z, 0), as the reference returns them."""
+    rows of X, with H = max(W Z, 0), as the reference returns them.
+    ``shard``: X and the profiles are this rank's rows; the rows are
+    gathered and the whole search runs on the axis's rank 0."""
+    if shard is not None and shard.axis.size > 1:
+        full = shard.gather(X)
+        prof, H = shard.axis.on_root(
+            lambda: run_nn_ica(full, rank, t_tol, i_max),
+            full.new_empty(full.shape[0], rank),
+            full.new_empty(rank, full.shape[1]))
+        return shard.rows_of(prof), H
     Z = whiten(X)
     W = _rotation_search(Z, t_tol, i_max)
     H = torch.clamp_min(W @ Z, 0.0)
     return torch.clamp(W[:, :rank], 0.0, 1.0), H[:rank]
 
 
-def run_nn_ica_dual(X, rank: int, t_tol: float = 1e-1, i_max: int = 1000):
+def run_nn_ica_dual(X, rank: int, t_tol: float = 1e-1, i_max: int = 1000,
+                    shard=None):
     """Genome-scale NN-ICA: the search on S = B'X (k x n_s), B the
     column-space basis of X (n_cpg x k, k = n_s, from ``tall_svd``), the
     components mapped back through B and clipped to [0, 1]. Returns
     (profiles (n_cpg, rank), H (rank, n_s)). Two passes over X plus
-    O(n_s^3) work."""
-    B = tall_svd(X)[0]
-    Z = whiten(B.T @ X)
-    W = _rotation_search(Z, t_tol, i_max)
-    H = torch.clamp_min(W @ Z, 0.0)
-    return torch.clamp(B @ W[:, :rank], 0.0, 1.0), H[:rank]
+    O(n_s^3) work. ``shard``: X, B and the profiles are this rank's rows
+    (a padded row of X zero)."""
+    axis = axis_of(shard)
+    B = tall_svd(X, axis)[0]
+    S = axis.sum_(B.T @ X)
+
+    def search():
+        Z = whiten(S)
+        W = _rotation_search(Z, t_tol, i_max)
+        H = torch.clamp_min(W @ Z, 0.0)
+        return W[:, :rank], H[:rank]
+
+    W_r, H = axis.on_root(search, S.new_empty(S.shape[0], rank),
+                          S.new_empty(rank, S.shape[1]))
+    return torch.clamp(B @ W_r, 0.0, 1.0), H
 
 
 def constrained_nn_ica(Y, W1, counts, rank: int, t_tol: float = 1e-1,
-                       i_max: int = 1000, dual: bool = False):
+                       i_max: int = 1000, dual: bool = False, shard=None):
     """The known block fitted by the weighted NNLS, then NN-ICA (``dual``:
     its column-space form) of the clipped residual max(Y - W1 H1, 1e-8).
-    Returns (W = [W1 | W2], H = [H1; H2])."""
-    H1 = wls_intercept_batch(Y, counts, W1)
+    Returns (W = [W1 | W2], H = [H1; H2]). ``shard``: Y, W1, counts and W
+    are this rank's rows (the residual's padded rows zeroed)."""
+    H1 = wls_intercept_batch(Y, counts, W1, axis=axis_of(shard))
     Y_residual = torch.clamp_min(Y - W1 @ H1, 1e-8)
+    if shard is not None:
+        Y_residual = shard.data_rows(Y_residual)
     ica = run_nn_ica_dual if dual else run_nn_ica
-    W2, H2 = ica(Y_residual, rank=rank, t_tol=t_tol, i_max=i_max)
+    W2, H2 = ica(Y_residual, rank=rank, t_tol=t_tol, i_max=i_max,
+                 shard=shard)
     return torch.cat([W1, W2], dim=1), torch.cat([H1, H2], dim=0)

@@ -6,11 +6,18 @@ weights, coefficients normalised to the simplex with a 1e-10 sum floor).
 The NNLS runs on the (p, p) normal equations with monotone FISTA plus an
 exact least-squares polish on the detected support. Samples are an
 explicit leading batch dimension where the JAX package vmaps.
+
+Row-sharded (``axis``, the JAX package's GSPMD sums over the rows): the
+weighted sums run in two passes, the weight, ``w@X`` and ``w@y`` sums
+first, then the centred Grams, each pass summed over the ranks in one
+collective; the NNLS runs on the axis's rank 0 and its coefficients are
+broadcast. A padded row carries a zero weight and adds nothing.
 """
 
 import torch
 
 from demethify_tpu_torch.ops.gram import accum_dtype
+from demethify_tpu_torch.parallel.distributed import LOCAL
 
 
 def _power_iteration_sqnorm(G, n_iter: int = 50):
@@ -54,24 +61,38 @@ def nnls_gram(G, c, n_iter: int = 600):
     return torch.where(ok[:, None], polished, x)
 
 
-def wls_intercept_batch(Y, W, X, n_iter: int = 600):
+def wls_intercept_batch(Y, W, X, n_iter: int = 600, axis=LOCAL):
     """All samples at once: Y, W (n_cpg, n_s); X (n_cpg, p) -> (p, n_s)
     simplex-normalised nonnegative coefficients (intercept discarded).
     Runs in X's accumulation dtype (float32 for bf16 storage, as the JAX
-    package's ``wls_intercept``), one sample column upcast at a time."""
+    package's ``wls_intercept``), one sample column upcast at a time.
+    With ``axis`` the rows are this rank's and the sums are over the
+    ranks."""
     acc = accum_dtype(X)
     X = X.to(acc)
     n_s = Y.shape[1]
+    cols = range(n_s)                  # n_s is small; keeps memory O(n p)
+
+    def column(s):
+        return Y[:, s].to(acc), W[:, s].to(acc)
+
+    firsts = []
+    for s in cols:
+        y, w = column(s)
+        firsts.append(torch.cat([torch.sum(w)[None], w @ X, (w @ y)[None]]))
+    firsts = axis.sum_(torch.stack(firsts))
     Gs, cs = [], []
-    for s in range(n_s):               # n_s is small; keeps memory O(n p)
-        y, w = Y[:, s].to(acc), W[:, s].to(acc)
-        wsum = torch.clamp_min(torch.sum(w), 1e-30)
-        x_off = (w @ X) / wsum
-        y_off = (w @ y) / wsum
+    for s in cols:
+        y, w = column(s)
+        wsum = torch.clamp_min(firsts[s, 0], 1e-30)
+        x_off = firsts[s, 1:-1] / wsum
+        y_off = firsts[s, -1] / wsum
         Xc = X - x_off[None, :]
         yc = y - y_off
         Gs.append(Xc.T @ (w[:, None] * Xc))
         cs.append(Xc.T @ (w * yc))
-    coef = nnls_gram(torch.stack(Gs), torch.stack(cs), n_iter=n_iter)
+    G, c = axis.sums(torch.stack(Gs), torch.stack(cs))
+    coef, = axis.on_root(lambda: (nnls_gram(G, c, n_iter=n_iter),),
+                         torch.empty_like(c))
     coef = coef / torch.clamp_min(coef.sum(dim=1, keepdim=True), 1e-10)
     return coef.T

@@ -12,9 +12,17 @@ eigendecomposition:
 
 Used by NNDSVD (``ops/nndsvd.py``), the dual NN-ICA (``ops/nnica.py``)
 and minka's device spectrum (``selection/minka.py``).
+
+Row-sharded (``axis``, the JAX package's psum over the 'cpg' mesh axis):
+V is this rank's rows, G is summed over the ranks, the eigendecomposition
+and the sign rule run on the axis's rank 0 and W and s are broadcast, so
+every rank holds the same bits; U = V W / s stays row-local. A padded
+row of V must be zero (its row of U then is).
 """
 
 import torch
+
+from demethify_tpu_torch.parallel.distributed import LOCAL
 
 
 def _sign_rule(W):
@@ -25,9 +33,10 @@ def _sign_rule(W):
     return torch.where(lead < 0, -1.0, 1.0).to(W.dtype)
 
 
-def tall_svd(V):
+def tall_svd(V, axis=LOCAL):
     """Thin SVD of V (n x m, n >> m): (U (n, m), s (m,), Wt (m, m)) with
-    U diag(s) Wt == V and the singular values descending.
+    U diag(s) Wt == V and the singular values descending; with ``axis``,
+    V and U are this rank's rows.
 
     Eigenvector signs: LAPACK, cuSOLVER and the JAX package's eigh each
     follow their own convention, so the port fixes its own. Each column of
@@ -42,11 +51,16 @@ def tall_svd(V):
     rank-selection uses tolerate. Zero singular values get zero columns
     of U.
     """
-    G = V.T @ V
-    evals, W = torch.linalg.eigh(G)                  # ascending
-    evals = torch.flip(evals, (0,))
-    W = torch.flip(W, (1,))
-    W = W * _sign_rule(W)[None, :]
+    G = axis.sum_(V.T @ V)
+
+    def factor():
+        evals, W = torch.linalg.eigh(G)              # ascending
+        evals = torch.flip(evals, (0,))
+        W = torch.flip(W, (1,))
+        return W * _sign_rule(W)[None, :], evals
+
+    W, evals = axis.on_root(factor, torch.empty_like(G),
+                            G.new_empty(G.shape[0]))
     s = torch.sqrt(torch.clamp_min(evals, 0.0))
     inv_s = torch.where(s > 0, 1.0 / torch.clamp_min(s, 1e-300),
                         torch.zeros_like(s))
@@ -54,7 +68,10 @@ def tall_svd(V):
     return U, s, W.T
 
 
-def tall_svd_singular_values(V):
-    """The singular values of V (n x m), descending: one Gram pass, no U."""
-    evals = torch.linalg.eigvalsh(V.T @ V)
+def tall_svd_singular_values(V, axis=LOCAL):
+    """The singular values of V (n x m), descending: one Gram pass, no U
+    (``axis`` as for ``tall_svd``)."""
+    G = axis.sum_(V.T @ V)
+    evals, = axis.on_root(lambda: (torch.linalg.eigvalsh(G),),
+                          G.new_empty(G.shape[0]))
     return torch.sqrt(torch.clamp_min(torch.flip(evals, (0,)), 0.0))

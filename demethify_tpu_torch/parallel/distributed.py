@@ -18,6 +18,11 @@ solvers' ``_axis_sum`` / ``_axis_max`` (``solvers/fused.py:48-56``):
 - ``Axis`` sums, maxes and gathers across the ranks: the solvers' sums
   over the CpG axis and the replicate and model-selection partitions. It
   is the identity without a group (``LOCAL``).
+- ``Shard``: a rank's block of a row-sharded dataset and what the
+  set-up needs of it without the other ranks' rows: its padded rows
+  zeroed, this rank's rows of a draw made whole on every rank (so that N
+  ranks draw the one-rank numbers), and the rows gathered where a branch
+  is small by definition.
 - ``shard_dataset_global`` and ``addressable_row_block``: a rank's block
   of the loaded rows and its global offset (``parallel/mesh.RowBlock``).
 - ``run_ranks`` starts local ranks as processes, with a deadline.
@@ -28,7 +33,9 @@ the host: two ranks on one card, and every CPU run. The choice is made
 from the layout and printed; a failing NCCL is an error, never a switch
 to gloo. Both give every rank the same bits of a sum, which the solvers
 rely on: each rank runs the replicated alpha phase and its own
-termination test on them.
+termination test on them. What is not a sum (an eigendecomposition on
+the card, the ICA's rotation search) runs on the axis's rank 0 alone and
+is broadcast (``Axis.on_root``), so every rank holds the same bits.
 """
 
 import os
@@ -53,11 +60,15 @@ class Axis:
     """The ranks that share a solve's CpG rows (or a partition of
     replicates or model ranks). ``group`` is the gloo process group (None:
     one process, every method the identity); ``device_group`` an NCCL
-    group over the same ranks when each has a card of its own."""
+    group over the same ranks when each has a card of its own.
+    ``one_process``: every rank is a worker of one launching process (the
+    JAX package's fully addressable arrays: ``--shard`` alone); False when
+    the ranks span processes (``--multihost``)."""
 
-    def __init__(self, group=None, device_group=None):
+    def __init__(self, group=None, device_group=None, one_process=True):
         self.group = group
         self.device_group = device_group
+        self.one_process = one_process
 
     @property
     def size(self) -> int:
@@ -73,25 +84,31 @@ class Axis:
             return "none"
         return "nccl" if self.device_group is not None else "gloo"
 
-    def _reduce(self, xs: Sequence[torch.Tensor], op):
-        if self.group is None:
-            return tuple(xs)
+    def _flat(self, xs: Sequence[torch.Tensor], collective):
+        """``collective(flat, group)`` on xs flattened into one tensor (one
+        dtype), on the card's NCCL group or through the host's gloo; the
+        result split back into xs' shapes."""
         dtypes = {x.dtype for x in xs}
         if len(dtypes) != 1:
-            raise ValueError(f"Axis: one reduction takes one dtype, got "
+            raise ValueError(f"Axis: one collective takes one dtype, got "
                              f"{sorted(map(str, dtypes))}")
         flat = torch.cat([x.reshape(-1) for x in xs])
         if self.device_group is not None:
-            dist.all_reduce(flat, op, group=self.device_group)
+            collective(flat, self.device_group)
         else:
             host = flat.cpu()
-            dist.all_reduce(host, op, group=self.group)
+            collective(host, self.group)
             flat = host.to(flat.device)
         out, lo = [], 0
         for x in xs:
             out.append(flat[lo:lo + x.numel()].view(x.shape))
             lo += x.numel()
         return tuple(out)
+
+    def _reduce(self, xs: Sequence[torch.Tensor], op):
+        if self.group is None:
+            return tuple(xs)
+        return self._flat(xs, lambda t, g: dist.all_reduce(t, op, group=g))
 
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the ranks (a new tensor; x itself without a
@@ -108,6 +125,29 @@ class Axis:
 
     def min_(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce([x], dist.ReduceOp.MIN)[0]
+
+    def on_root(self, make: Callable, *likes: torch.Tensor):
+        """make()'s tuple of tensors (one dtype), computed on the axis's
+        rank 0 alone and broadcast in one collective; the other ranks pass
+        ``likes``, tensors of the same shapes and dtype. Without a group,
+        make() itself."""
+        if self.group is None:
+            return tuple(make())
+        xs = tuple(make()) if self.rank == 0 else likes
+        src = dist.get_global_rank(self.group, 0)
+        return self._flat(xs, lambda t, g: dist.broadcast(t, src, group=g))
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x (each the same shape) concatenated along the
+        rows in rank order, on every rank (x itself without a group)."""
+        if self.group is None:
+            return x
+        on_card = self.device_group is not None
+        src = x.contiguous() if on_card else x.cpu().contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src,
+                        group=self.device_group if on_card else self.group)
+        return torch.cat(parts).to(x.device)
 
     def all_gather_object(self, obj) -> list:
         """[obj of rank 0, obj of rank 1, ...] on every rank (pickled over
@@ -197,14 +237,14 @@ def initialize_layout(address: Optional[str], n_procs: int, proc_id: int,
     init = address if "://" in address else f"tcp://{address}"
     dist.init_process_group("gloo", init_method=init, world_size=size,
                             rank=rank, timeout=TIMEOUT)
-    world = Axis(dist.group.WORLD)
+    world = Axis(dist.group.WORLD, one_process=n_procs == 1)
     cards = None
     if device.type == "cuda":
         cards = world.all_gather_object(
             str(torch.cuda.get_device_properties(device).uuid))
     world.device_group = _nccl_group(range(size), cards)
 
-    def family(groups, mine):
+    def family(groups, mine, one_process):
         """The Axis of group ``mine`` of ``groups`` (each a list of world
         ranks), after every rank made every group."""
         out = LOCAL
@@ -215,16 +255,17 @@ def initialize_layout(address: Optional[str], n_procs: int, proc_id: int,
                 axis = world
             else:
                 axis = Axis(dist.new_group(ranks=ranks, backend="gloo",
-                                           timeout=TIMEOUT))
+                                           timeout=TIMEOUT),
+                            one_process=one_process)
                 axis.device_group = _nccl_group(ranks, cards)
             if i == mine:
                 out = axis
         return out
 
     rows = family([[p * n_local + i for i in range(n_local)]
-                   for p in range(n_procs)], proc_id)
+                   for p in range(n_procs)], proc_id, True)
     across = family([[p * n_local + i for p in range(n_procs)]
-                     for i in range(n_local)], local_id)
+                     for i in range(n_local)], local_id, False)
     print(f"[multihost] rank {rank} of {size} (worker {local_id} of process "
           f"{proc_id}) on {device}: sums over the CpG rows by "
           f"{world.backend}; rows over {rows.size}, across {across.size}",
@@ -240,20 +281,57 @@ def shutdown(axis: Axis):
 @dataclass
 class Shard:
     """A row-sharded dataset's layout on one rank: the axis its sums go
-    over, its block of the rows, and ``full``, a callable that returns the
-    full unpadded (y, d, ref) on the device. Rank 0 calls ``full`` for
-    what needs every row at once (the inits, the bootstrap's draws), and
-    the others receive the result (``from_rank0``)."""
+    over and its block of the rows (``block.n_data`` data rows, then
+    zero padding). The set-up (inits, the supervised WLS, minka's
+    spectrum, the bootstrap's draws) runs on the rank's rows through it;
+    no rank holds another's rows, but for a branch that is small by
+    definition (``gather``)."""
 
     axis: Axis
     block: RowBlock
-    full: Callable
 
-    def from_rank0(self, make: Callable):
-        """make(y, d, ref) on rank 0's full data -> its (picklable) result
-        on every rank."""
-        obj = make(*self.full()) if self.axis.rank == 0 else None
-        return self.axis.broadcast_object(obj)
+    @classmethod
+    def whole(cls, n_rows: int) -> "Shard":
+        """One rank holding all ``n_rows`` rows (every method the
+        identity)."""
+        return cls(LOCAL, row_block(n_rows, 1, 0))
+
+    @property
+    def n_rows(self) -> int:
+        """The global count of data rows."""
+        return self.block.n_rows
+
+    def data_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x (this rank's rows along dim 0) with its padded rows zeroed:
+        what a set-up sum must see where an op makes a padded row
+        non-zero (a residual clipped at 1e-8)."""
+        if self.block.n_data == x.shape[0]:
+            return x
+        keep = torch.arange(x.shape[0], device=x.device) < self.block.n_data
+        return torch.where(keep.view(-1, *([1] * (x.dim() - 1))), x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def rows_of(self, x):
+        """This rank's rows of the global ``x`` (its n_rows rows along dim
+        0, padded with zeros to the block): a draw made whole on every
+        rank, so that the N-rank numbers are the one-rank ones."""
+        if self.axis.size == 1:
+            return x
+        return self.block.take(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global data rows of x (this rank's rows along dim 0), on
+        every rank: for the branches that are small by definition (the
+        dense SVD below 16 rows a column, the primal ICA, minka's exact
+        spectrum)."""
+        if self.axis.size == 1:
+            return x[:self.n_rows]
+        return self.axis.gather_rows(x)[:self.n_rows]
+
+
+def axis_of(shard: Optional[Shard]) -> Axis:
+    """The axis of ``shard``; LOCAL for None (one rank)."""
+    return LOCAL if shard is None else shard.axis
 
 
 def shard_dataset_global(meth: np.ndarray, counts: np.ndarray,

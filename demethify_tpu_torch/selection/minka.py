@@ -11,6 +11,14 @@ exact ``np.linalg.svd`` on the host, as the reference takes it; above, the
 Gram-eigh singular values on the data's device (``ops/tall_svd.py``),
 clamped to zero below 2 sqrt(eps) s_max, the Gram's noise floor, so that
 the evidence's cutoff for an exactly rank-deficient spectrum still fires.
+
+Row-sharded (``shard``): the residual is this rank's rows (the known
+block's WLS summed over the ranks), and the branch follows the JAX
+package's rule by layout. Rows over processes (``--multihost``: its
+global array is not fully addressable) take the Gram spectrum, summed
+over the ranks, at any row count; the workers of one process (``--shard``
+alone) take the exact spectrum of the gathered residual up to
+_HOST_SVD_MAX_ROWS rows, as one process does.
 """
 
 from typing import Optional, Tuple
@@ -22,6 +30,7 @@ from scipy.special import gammaln
 from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
 from demethify_tpu_torch.ops.tall_svd import tall_svd_singular_values
+from demethify_tpu_torch.parallel.distributed import axis_of
 
 _HOST_SVD_MAX_ROWS = 65536
 
@@ -65,21 +74,28 @@ def get_log_lik_partial(cov_evals: np.ndarray, rank: int,
 
 
 def select_rank_minka(Y: torch.Tensor, counts: torch.Tensor,
-                      W1: Optional[torch.Tensor] = None):
+                      W1: Optional[torch.Tensor] = None, shard=None):
     """Y, counts (n_cpg, n_s) and the known profiles W1 (n_cpg, n_ct) or
-    None, on one device. Returns (rank_est, {'log_liks': {rank: ll},
-    'cov_evals': ...}): the residual Y - W1 H1 of the known block's
-    weighted NNLS fit, its spectrum, and the rank of largest evidence."""
-    n_features, n_samples = Y.shape
+    None, on one device (with ``shard``, this rank's rows). Returns
+    (rank_est, {'log_liks': {rank: ll}, 'cov_evals': ...}): the residual
+    Y - W1 H1 of the known block's weighted NNLS fit, its spectrum, and
+    the rank of largest evidence."""
+    n_samples = Y.shape[1]
+    n_features = Y.shape[0] if shard is None else shard.n_rows
+    axis = axis_of(shard)
     acc = accum_dtype(Y)
     residual = Y.to(acc)
     if W1 is not None:
-        H1 = wls_intercept_batch(Y, counts, W1)
+        H1 = wls_intercept_batch(Y, counts, W1, axis=axis)
         residual = residual - W1.to(acc) @ H1
-    if n_features <= _HOST_SVD_MAX_ROWS:
-        svals = np.linalg.svd(residual.cpu().numpy(), compute_uv=False)
+    if n_features <= _HOST_SVD_MAX_ROWS and axis.one_process:
+        if shard is not None:
+            residual = shard.gather(residual)
+        svals = axis.broadcast_object(
+            np.linalg.svd(residual.cpu().numpy(), compute_uv=False)
+            if axis.rank == 0 else None)
     else:
-        svals = tall_svd_singular_values(residual).cpu().numpy()
+        svals = tall_svd_singular_values(residual, axis).cpu().numpy()
         floor = np.sqrt(np.finfo(svals.dtype).eps)
         svals = np.where(svals < 2.0 * floor * svals.max(initial=0.0),
                          0.0, svals)

@@ -121,10 +121,12 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
     ``shard`` (``parallel/distributed.Shard``, the 2-D layout's rows of
     one process): y, d, ref are this worker's block of the rows, every
     solve is row-sharded over ``shard.axis`` (CCC's restarts through
-    ``solve_members``, together on the card), the inits (and minka's
-    spectrum) are made on the full data by the axis's rank 0, BCV's
-    PRESS is summed over the axis, the criteria count the unpadded rows,
-    and best_u is this worker's block of the rows (padding included)."""
+    ``solve_members``, together on the card), the inits are made on the
+    worker's rows (BCV's on its rows of the fold's train mask), minka's
+    residual and spectrum are summed over the axis (``select_rank_minka``'s
+    rule), BCV's PRESS is summed over the axis, the criteria count the
+    unpadded rows, and best_u is this worker's block of the rows (padding
+    included)."""
     if ic not in IC_CHOICES:
         raise ValueError(f"--ic must be one of {IC_CHOICES}, got {ic!r}")
     n_cpg, n_s = y.shape
@@ -134,32 +136,22 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
     kw = dict(n_iter1=iter1, n_iter2=iter2, tol=tol,
               tol_relative=tol_relative)
 
-    def init_on(rank, j, yy, dd, rr):
+    @checked_init
+    def init(rank, j, yy=None, dd=None):
+        """Member (rank, j)'s init on (yy, dd), default (y, d): this
+        worker's rows with ``shard``."""
+        yy = y if yy is None else yy
+        dd = d if dd is None else dd
         if inits is not None and not is_deterministic(init_option, rank,
                                                       n_s):
-            return tuple(torch.as_tensor(x, device=yy.device)
-                         for x in inits(rank, j))
+            u0, a0 = (torch.as_tensor(x, device=yy.device)
+                      for x in inits(rank, j))
+            return (u0 if shard is None else shard.rows_of(u0)), a0
         g = member_generator(seed, rank, j, yy.device)
-        if rr is None:
-            return init_unsupervised(g, init_option, yy, dd, rank)
-        return init_partial(g, init_option, yy, dd, rr, rank)
-
-    @checked_init
-    def init(rank, j, yy=None, dd=None, train=None):
-        """Member (rank, j)'s init on (yy, dd), default (y, d); with
-        ``shard``, made on the full data (masked by the fold's full
-        ``train`` mask) by the axis's rank 0, and this worker's rows."""
-        if shard is None:
-            return init_on(rank, j, y if yy is None else yy,
-                           d if dd is None else dd, ref)
-
-        def make(Y, D, R):
-            if train is not None:
-                t = train.to(Y.device)
-                Y, D = Y * t, D * t
-            return tuple(x.cpu() for x in init_on(rank, j, Y, D, R))
-        u0, a0 = shard.from_rank0(make)
-        return shard.block.take(u0).to(y.device), a0.to(y.device)
+        if ref is None:
+            return init_unsupervised(g, init_option, yy, dd, rank,
+                                     shard=shard)
+        return init_partial(g, init_option, yy, dd, ref, rank, shard=shard)
 
     def deconv(yy, dd, rank, u0a0, **over):
         args = dict(kw, init_provided=u0a0, shard=shard, **over)
@@ -168,10 +160,7 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
         return partial_reference_deconv(yy, dd, ref, rank, **args)
 
     if ic == "minka":
-        if shard is None:
-            best_n_u, info = select_rank_minka(y, d, ref)
-        else:
-            best_n_u, info = shard.from_rank0(select_rank_minka)
+        best_n_u, info = select_rank_minka(y, d, ref, shard=shard)
         res = deconv(y, d, best_n_u, init(best_n_u, 0), tol_relative=False)
         return (res.u, res.proportions, best_n_u,
                 [-v for v in info["log_liks"].values()])
@@ -216,8 +205,7 @@ def evaluate_best_ic(y, d, ref, init_option: str, ic: str, *,
             val, u, alpha = bicross_validation(
                 y, d, ref, rank, fold_masks,
                 lambda f, yt, dt, r=rank, s=shared: (
-                    s if s is not None else init(r, f, yt, dt,
-                                                 full_masks[f])),
+                    s if s is not None else init(r, f, yt, dt)),
                 deconv, LOCAL if shard is None else shard.axis)
         check_finite(f"--ic {ic} at {rank} unknowns", nan_only=True,
                      criterion=float(val))

@@ -24,9 +24,12 @@ a sequential loop of single solves (``restart_route``). The restart with
 the lowest cost wins (first minimum in restart order, across chunks; a
 NaN cost never wins). ``solve_members`` runs given inits the same way
 and returns every member (the model-selection sweep's CCC restarts).
-A row-sharded solve takes its inits from rank 0, which draws or computes
-them on the full data, so it starts where the one-rank solve starts
-(``_global_inits``; the init needs the full data on rank 0's device).
+A row-sharded solve makes each restart's init on the rank's rows
+(``solvers/init.py``'s ``shard``): the random options draw the one-rank
+numbers, SVD and ICA sum over the ranks, so it starts where the one-rank
+solve starts (bit for bit, or to the sums' rounding); no rank holds
+another's rows. The reference-based WLS runs row-sharded the same way
+(``supervised_deconv``'s ``axis``).
 """
 
 import itertools
@@ -41,6 +44,7 @@ from demethify_tpu_torch.ops.cost import weighted_cost
 from demethify_tpu_torch.ops.cuda_kernels import gram_form
 from demethify_tpu_torch.ops.gram import accum_dtype
 from demethify_tpu_torch.ops.nnls import wls_intercept_batch
+from demethify_tpu_torch.parallel.distributed import LOCAL
 from demethify_tpu_torch.solvers import fused
 from demethify_tpu_torch.solvers.init import (
     init_partial,
@@ -94,11 +98,13 @@ def _select_best(results):
     return results[int(np.argmin(costs))]
 
 
-def supervised_deconv(y, d, R) -> DeconvolutionResult:
+def supervised_deconv(y, d, R, axis=LOCAL) -> DeconvolutionResult:
     """Reference-based mode: per-sample weighted NNLS with intercept on
-    methylated counts (target d*y, weights d), batched over samples."""
-    proportions = wls_intercept_batch(d * y, d, R)
-    cost = weighted_cost(y, R, proportions, d)
+    methylated counts (target d*y, weights d), batched over samples. With
+    ``axis`` (a row-sharded dataset: y, d, R are this rank's rows) the
+    WLS sums and the cost are summed over the ranks."""
+    proportions = wls_intercept_batch(d * y, d, R, axis=axis)
+    cost = axis.sum_(weighted_cost(y, R, proportions, d))
     check_finite("supervised_deconv", proportions=proportions, cost=cost)
     return DeconvolutionResult(u=None, proportions=proportions,
                                cost=float(cost), n_iter=0)
@@ -224,19 +230,6 @@ def _result(u, alpha, info):
                                trace=info["trace"])
 
 
-def _global_inits(shard, make_init, seed, n_restarts, device):
-    """The inits of ``n_restarts`` restarts of a row-sharded solve: rank 0
-    draws (or computes) each on the full data from its restart's
-    generator, as the one-rank solve does, and every rank takes its rows
-    of u (padded rows zero) and the whole alpha. So an N-rank solve starts
-    from the one-rank solve's init."""
-    def make(y, d, ref):
-        return [tuple(x.cpu() for x in make_init(g, y, d, ref))
-                for g in restart_generators(seed, n_restarts, y.device)]
-    return [(shard.block.take(u0).to(device), a0.to(device))
-            for u0, a0 in shard.from_rank0(make)]
-
-
 def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
               init_provided, kw, shard=None):
     """Init + solve per restart (one generator each) by ``restart_route``,
@@ -244,8 +237,8 @@ def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
     deterministic init; the first minimum cost wins. ``make_init(g, y, d,
     R_trunc)`` draws one init. With ``shard`` (``parallel/distributed.
     Shard``) the data are this rank's rows: the solves are the
-    row-sharded ones, the inits ``_global_inits``', and ``init_provided``
-    holds this rank's rows of u."""
+    row-sharded ones, each init is made on the rank's rows, and
+    ``init_provided`` holds this rank's rows of u."""
     n_ct = 0 if R_trunc is None else R_trunc.shape[1]
     n_s = y.shape[1]
     axis = None if shard is None else shard.axis
@@ -255,23 +248,16 @@ def _restarts(y, d, R_trunc, n_u, purity, make_init, init, seed, n_restarts,
                           init=init) == "batch"
     if init_provided is not None:
         best = solve(*init_provided)
-    elif shard is None and batch:
+    elif batch:
         best = _batched_restarts(solve_multi,
                                  lambda g: make_init(g, y, d, R_trunc),
                                  y.device, seed, n_restarts,
-                                 _multi_cap(y, n_ct, n_u))
-    elif shard is None:
+                                 _multi_cap(y, n_ct, n_u, axis))
+    else:
         if is_deterministic(init, n_u, n_s):
             n_restarts = 1
         best = _select_best([solve(*make_init(g, y, d, R_trunc)) for g in
                              restart_generators(seed, n_restarts, y.device)])
-    else:
-        if is_deterministic(init, n_u, n_s):
-            n_restarts = 1
-        inits = _global_inits(shard, make_init, seed, n_restarts, y.device)
-        cap = _multi_cap(y, n_ct, n_u, axis) if batch else 1
-        best = _first_min(_member_solves(solve, solve_multi, inits, batch,
-                                         cap))
     return _result(*best)
 
 
@@ -314,8 +300,9 @@ def partial_reference_deconv(y, d, R_trunc, n_u: int, *,
               tol_relative=tol_relative, record_trace=record_trace)
     return _restarts(
         y, d, R_trunc, n_u, None,
-        lambda g, yy, dd, rr: init_partial(g, init, yy, dd, rr, n_u), init,
-        seed, n_restarts, init_provided, kw, shard)
+        lambda g, yy, dd, rr: init_partial(g, init, yy, dd, rr, n_u,
+                                           shard=shard),
+        init, seed, n_restarts, init_provided, kw, shard)
 
 
 def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
@@ -337,7 +324,7 @@ def purity_deconv(y, d, R_trunc, n_u: int, purity, *,
     return _restarts(
         y, d, R_trunc, n_u, purity,
         lambda g, yy, dd, rr: init_purity(g, init, yy, dd, rr, n_u,
-                                          purity=purity),
+                                          purity=purity, shard=shard),
         init, seed, n_restarts, init_provided, kw, shard)
 
 
@@ -358,8 +345,9 @@ def unsupervised_deconv(y, d, n_u: int, *,
               tol_relative=tol_relative, record_trace=record_trace)
     return _restarts(
         y, d, None, n_u, None,
-        lambda g, yy, dd, rr: init_unsupervised(g, init, yy, dd, n_u), init,
-        seed, n_restarts, init_provided, kw, shard)
+        lambda g, yy, dd, rr: init_unsupervised(g, init, yy, dd, n_u,
+                                                shard=shard),
+        init, seed, n_restarts, init_provided, kw, shard)
 
 
 def deconvolve(y, d, R=None, n_u: int = 0, purity=None,

@@ -29,7 +29,9 @@ the init once on the full data and gives it to every replicate, as the
 JAX package does; the resample layout inits each replicate on its
 gathered rows. Multi-process runs partition the replicates over the
 ranks, or run the weights layout row-sharded (``bootstrap_ci``'s ``axis``
-and ``shard``).
+and ``shard``): then every rank draws each replicate's indices whole and
+keeps its rows of the weights, and makes the inits on its rows, so no
+rank holds another's rows.
 
 Random numbers: replicate r draws its resample indices, then its init,
 from its own ``torch.Generator``, seeded from the GLOBAL replicate index
@@ -128,8 +130,10 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     weights route, ``row_sharded``), y, d and ref are this rank's rows of
     a row-sharded dataset: every replicate runs on every rank through the
     row-sharded multi solvers (K4 on the rank's rows, the Gram partials
-    summed, then K5/K6), rank 0 draws each chunk's weights and inits on
-    the full data, and the u bounds are gathered over the ranks. Both
+    summed, then K5/K6); every rank draws replicate r's (n_cpg,) indices
+    from its generator, one replicate at a time, keeps its rows of their
+    counts and makes the init on its rows (``solvers/init.py``'s
+    ``shard``), and the u bounds are gathered over the ranks. Both
     together (the 2-D layout of ``--multihost --shard``): the replicates
     are partitioned over ``axis`` (the processes) and each is row-sharded
     over ``shard.axis`` (the process's workers).
@@ -139,7 +143,8 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     ``indices`` (n_bootstrap, n_cpg) and ``inits`` (n_bootstrap pairs
     (u0 (n_cpg, n_u), alpha0 (p, n_s)), on the original rows in the
     weights layout and on the gathered rows in the resample layout)
-    replace the replicates' own draws. The replicates per multi-solver
+    replace the replicates' own draws (with ``shard`` too: each rank
+    keeps its rows of them). The replicates per multi-solver
     call are ``fused.max_multi_members`` on the card, CPU_MEMBERS on the
     CPU."""
     unsupervised = ref is None
@@ -164,40 +169,43 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     kw = dict(n_iter1=n_iter1, n_iter2=n_iter2, tol=tol,
               tol_relative=tol_relative)
 
-    def draw(r, device=y.device):
-        """Replicate r's generator and resample indices."""
-        g = replicate_generator(seed, r, device)
+    def draw(r):
+        """Replicate r's generator and resample indices (all n_cpg of
+        them, with ``shard`` too)."""
+        g = replicate_generator(seed, r, y.device)
         if indices is None:
-            idx = torch.randint(n_cpg, (n_cpg,), generator=g, device=device)
+            idx = torch.randint(n_cpg, (n_cpg,), generator=g,
+                                device=y.device)
         else:
-            idx = torch.as_tensor(np.asarray(indices[r]), device=device)
+            idx = torch.as_tensor(np.asarray(indices[r]), device=y.device)
         return g, idx
 
     @api.checked_init
-    def own_init(g, yb, db, refb, w=None):
+    def own_init(g, yb, db, refb, w=None, sh=None):
         if unsupervised:
-            return init_unsupervised(g, init_option, yb, db, n_u)
+            return init_unsupervised(g, init_option, yb, db, n_u, shard=sh)
         if purity is not None:
             return init_purity(g, init_option, yb, db, refb, n_u, w,
-                               purity=purity)
-        return init_partial(g, init_option, yb, db, refb, n_u, w)
+                               purity=purity, shard=sh)
+        return init_partial(g, init_option, yb, db, refb, n_u, w, shard=sh)
 
-    # the weights layout's shared SVD/ICA init, made on the full data at
-    # its first use
+    # the weights layout's shared SVD/ICA init, made on the data (this
+    # rank's rows with ``shard``) at its first use
     shared = {}
     share = (method == "weights" and not supervised and inits is None
              and init_option in DETERMINISTIC)
 
-    def init(r, g, yb, db, refb, w=None):
+    def init(r, g, yb, db, refb, w=None, sh=None):
         if inits is not None:
-            return tuple(torch.as_tensor(np.asarray(x)).to(yb.device, dtype)
-                         for x in inits[r])
+            u0, a0 = (torch.as_tensor(np.asarray(x)).to(yb.device, dtype)
+                      for x in inits[r])
+            return (u0 if sh is None else sh.rows_of(u0)), a0
         if share:
             if not shared:
                 shared["init"] = own_init(replicate_generator(
-                    seed, SHARED_INIT, yb.device), yb, db, refb)
+                    seed, SHARED_INIT, yb.device), yb, db, refb, None, sh)
             return shared["init"]
-        return own_init(g, yb, db, refb, w)
+        return own_init(g, yb, db, refb, w, sh)
 
     def weights(idx):
         w = torch.bincount(idx, minlength=n_cpg)
@@ -247,13 +255,18 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
                                             row_weights=w, **kw)
         return alpha, u
 
-    def chunk_draws(lo, hi, yy, dd, rr):
-        """(w_b, u0_b, a0_b) of replicates lo..hi-1 on the full data."""
+    def chunk_draws(lo, hi):
+        """(w_b, u0_b, a0_b) of replicates lo..hi-1 (with ``shard``, this
+        rank's rows of w and u0): replicate r's indices drawn whole, their
+        counts kept for this rank's rows, then its init on them."""
         w_b, u0_b, a0_b = [], [], []
         for r in range(lo, hi):
-            g, idx = draw(r, yy.device)
+            g, idx = draw(r)
             w = weights(idx)
-            u0, a0 = init(r, g, yy, dd, rr, w)
+            del idx
+            if shard is not None:
+                w = shard.rows_of(w)
+            u0, a0 = init(r, g, y, d, ref, w, shard)
             w_b.append(w)
             u0_b.append(u0)
             a0_b.append(a0)
@@ -262,16 +275,10 @@ def bootstrap_ci(y, d, ref, n_u: int, *, level: float, n_bootstrap: int,
     def weighted_chunk(lo, hi):
         """Replicates lo..hi-1 through one multi-solver call (row-sharded
         with ``shard``: this rank's rows of their u)."""
-        if shard is None:
-            w_b, u0_b, a0_b = chunk_draws(lo, hi, y, d, ref)
-            solver_kw = dict(kw, row_weights_b=w_b)
-        else:
-            w_b, u0_b, a0_b = (x.to(y.device) for x in shard.from_rank0(
-                lambda *full: tuple(x.cpu() for x in chunk_draws(
-                    lo, hi, *full))))
-            solver_kw = dict(kw, axis=shard.axis,
-                             row_weights_b=shard.block.take(w_b, axis=1))
-            u0_b = shard.block.take(u0_b, axis=1)
+        w_b, u0_b, a0_b = chunk_draws(lo, hi)
+        solver_kw = dict(kw, row_weights_b=w_b)
+        if shard is not None:
+            solver_kw["axis"] = shard.axis
         if unsupervised:
             u_b, alpha_b, _ = fused.unsupervised_solve_fused_multi(
                 u0_b, a0_b, y, d, n_u, **solver_kw)

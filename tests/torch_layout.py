@@ -39,13 +39,11 @@ def routes(case, layout):
     LOCAL axes: the one-process run): the plain solve, the sweep by each
     of ``IC_ROUTES``, the weights bootstrap."""
     y, d, ref = (case[k] for k in ("y", "d", "ref"))
-    full_t = tuple(torch.as_tensor(x) for x in (y, d, ref))
     out = {}
 
     def shard_on(axis):
         block, *yd = shard_dataset_global(y, d, ref, axis, torch.as_tensor)
-        return yd, (Shard(axis, block, lambda: full_t)
-                    if axis.size > 1 else None)
+        return yd, Shard(axis, block) if axis.size > 1 else None
 
     (yw, dw, rw), sw = shard_on(layout.world)
     res = partial_reference_deconv(yw, dw, rw, 1, seed=3, shard=sw, **SOLVE)
