@@ -84,11 +84,15 @@ non-zero and prints no result line):
    against their twins at n_s in {64, 128, 256, 500} with 25 + 4 and
    n_s = 256 with 5 + 1, 200k sites, float32, float64 and bf16, each
    timed beside its bound; one K1 launch at 1M x 500, 25 + 4, float64
-   with its partial buffer; n_u in {9, 12, 16} in K1 (gram and direct)
-   and K4; p in {33, 40, 64} in K2, K3, K5 and K6; past one block's
-   shared memory, K1's and K4's global layout (weighted too) and K2's,
-   K3's, K5's and K6's device slabs at p = 164-404 and 200-240, each
-   timed; K2 and K5 with row
+   with its partial buffer; the n_u > 8 form (its state on the chip):
+   n_u in {9, 12, 16, 17} in K1's gram form and {9, 12, 16, 25} in its
+   direct form, the sweep's rank 25 at 1M x 10, bf16 data and
+   bf16_compute, n_u in {9, 12, 16} in K4 (bf16, weighted), and the state
+   region in device memory (5 + 18 at n_s = 108), each timed beside its
+   bound with its launches counted; p in {33, 40, 64} in K2, K3, K5 and
+   K6; past one block's shared memory, K1's and K4's global layout
+   (weighted too) and K2's, K3's, K5's and K6's device slabs at
+   p = 164-404 and 200-240, each timed; K2 and K5 with row
    masks (all-ones bit-identical to none); K1 with Rt folded into the
    data block, bit-identical to the unfolded launch; K1's bf16_compute in
    the direct form against its twin and through
@@ -335,7 +339,8 @@ def counters():
     k5, k6 = cuda_small.alpha_phase_full_multi, cuda_small.fw_phase_full_multi
     k7, k8 = cuda_kernels.u_phase, cuda_kernels.grams
     k9, k10 = cuda_small.alpha_phase, cuda_small.fw_phase
-    return ((k7, "forms:state_cols", "u_phase{n_u>8}"),
+    return ((k7, "forms:state_in_device",
+             "u_phase{n_u>8, state in device memory}"),
             (k9, "forms:wide", "alpha_phase{p>32}"),
             (k9, "forms:masked", "alpha_phase{masked}"),
             (k10, "forms:wide", "fw_phase{p>32}"),
@@ -347,12 +352,17 @@ def counters():
             (k10, "launches", "fw_phase"),
             (k1, "forms:wide", "u_phase_grams{wide}"),
             (k1, "forms:global_layout", "u_phase_grams{global}"),
-            (k1, "forms:state_cols", "u_phase_grams{n_u>8}"),
+            (k1, "forms:state_on_chip", "u_phase_grams{n_u>8, state on chip}"),
+            (k1, "forms:state_in_device",
+             "u_phase_grams{n_u>8, state in device memory}"),
             (k1, "forms:bf16c_direct", "u_phase_grams{bf16_compute direct}"),
             (k1, "forms:rt_folded", "u_phase_grams{rt folded}"),
             (k4, "forms:wide", "u_phase_grams_multi{wide}"),
             (k4, "forms:global_layout", "u_phase_grams_multi{global}"),
-            (k4, "forms:state_cols", "u_phase_grams_multi{n_u>8}"),
+            (k4, "forms:state_on_chip",
+             "u_phase_grams_multi{n_u>8, state on chip}"),
+            (k4, "forms:state_in_device",
+             "u_phase_grams_multi{n_u>8, state in device memory}"),
             (k2, "forms:wide", "alpha_phase_full{p>32}"),
             (k2, "forms:device_slabs", "alpha_phase_full{device slabs}"),
             (k2, "forms:masked", "alpha_phase_full{masked}"),
@@ -430,23 +440,29 @@ def u_phase_work(n, n_s, n_ct, n_u, steps, itemsize, data_itemsize,
     bf16 storage; ``itemsize`` is the state's); each member's
     u, u_prev read and written (and, ``weighted``, its weight row read).
     Operations, the fewest the function needs: per site and member the
-    known-block residual (with d y), C and M (each pair product
-    a2[u,s] a2[v,s] formed once per launch and member, then one multiply
-    by d and one add per site), the FISTA steps, and the Gram sums of the
-    new u (d_s u_v formed once per (s, v), then a multiply-add per [Rt|u]
-    row; b_u a multiply-add per (v, s) on the d y already formed; sum u^2)
-    plus, weighted, the n_u products w u_v. The scalar momentum chain,
-    the same for every site, is not counted, nor are the conversions of
-    bf16 data (one per value read) or bf16_compute's roundings."""
+    known-block residual (with d y), the FISTA steps in whichever of the
+    two forms needs fewer, and the Gram sums of the new u (d_s u_v formed
+    once per (s, v), then a multiply-add per [Rt|u] row; b_u a
+    multiply-add per (v, s) on the d y already formed; sum u^2) plus,
+    weighted, the n_u products w u_v. The gram form builds C and M (each
+    pair product a2[u,s] a2[v,s] formed once per launch and member, then
+    one multiply by d and one add per site) and steps at 6 n_u + 2 n_u^2;
+    the direct form builds nothing and steps at 3 n_u for the momentum
+    point, 2 n_u n_s for the model, 2 n_s for the weighted residual,
+    2 n_u n_s for the gradient and 4 n_u for the update. The scalar
+    momentum chain, the same for every site, is not counted, nor are the
+    conversions of bf16 data (one per value read) or bf16_compute's
+    roundings."""
     p = n_ct + n_u
     pairs = n_u * (n_u + 1) // 2
     n_bytes = n * (data_itemsize * (2 * n_s + n_ct)
                    + itemsize * n_members * (4 * n_u + int(weighted)))
-    per_site = (n_s * (2 * n_ct + 3 + 2 * n_u + 2 * pairs)
-                + steps * (6 * n_u + 2 * n_u * n_u)
-                + 2 * n_s * n_u * p + n_s * n_u + 2 * n_u * n_s + 2 * n_u
-                + n_u * int(weighted))
-    return n_bytes, (per_site * n + n_s * pairs) * n_members
+    gram = n * (n_s * (2 * n_u + 2 * pairs)
+                + steps * (6 * n_u + 2 * n_u * n_u)) + n_s * pairs
+    direct = n * steps * (7 * n_u + 4 * n_u * n_s + 2 * n_s)
+    per_site = (n_s * (2 * n_ct + 3) + 2 * n_s * n_u * p + n_s * n_u
+                + 2 * n_u * n_s + 2 * n_u + n_u * int(weighted))
+    return n_bytes, (per_site * n + min(gram, direct)) * n_members
 
 
 def glue_work(p, n_s, n_ct, steps, itemsize, n_members=1, fw=False,
@@ -1180,7 +1196,7 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_U, ACTIVE, L_W_PREV, N_SCAL, SITES_PER_BLOCK, gram_entries,
-        u_phase_grams)
+        u_phase_grams, u_phase_layout)
     from demethify_tpu_torch.ops.cuda_multi import (
         u_phase_grams_multi, u_phase_grams_multi_plain)
 
@@ -1225,7 +1241,9 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
            "inactive": ina, "steps": steps, "lagged": lagged,
            "dtype": dtype_name, "u_max_abs": err_u, "gu_rel": err_g,
            "b_u_rel": err_b, "usq_rel": err_q, "scal_rel": err_s,
-           "frozen_unchanged": frozen, "member_equals_k1": same_k1}
+           "frozen_unchanged": frozen, "member_equals_k1": same_k1,
+           "layout": u_phase_layout("K4", uut_b.element_size(), n_s, n_ct,
+                                    n_u)[0]}
     if timed:
         s_all = scal_b.clone()
         s_all[:, ACTIVE] = 1.0
@@ -3124,7 +3142,7 @@ def phase_past_envelope(card):
         if layout != "resident":
             want[f"{k1}{{{layout}}}"] = n1
         if n_u > 8:
-            want[f"{k1}{{n_u>8}}"] = n1
+            want[f"{k1}{{n_u>8, state on chip}}"] = n1
         check(expect_counts(out[tag], **want),
               f"{tag} launches {out[tag]}, want {want}")
 
@@ -3347,12 +3365,13 @@ def phase_sweep(problem32, card):
         else:
             want = dict(u_phase_grams=n_solves * SWEEP_OUTER,
                         alpha_phase_full=n_solves * SWEEP_OUTER)
-        # ranks above 8 keep their state in scratch columns: AIC's 9-25,
-        # and minka's one solve if it chose such a rank
+        # ranks above 8 run the n_u > 8 form, its state on the chip:
+        # AIC's 9-25, and minka's one solve if it chose such a rank
         if ic == "AIC":
-            want["u_phase_grams{n_u>8}"] = (n_max - 8) * SWEEP_OUTER
+            want["u_phase_grams{n_u>8, state on chip}"] = (
+                (n_max - 8) * SWEEP_OUTER)
         elif ic == "minka" and n_u > 8:
-            want["u_phase_grams{n_u>8}"] = SWEEP_OUTER
+            want["u_phase_grams{n_u>8, state on chip}"] = SWEEP_OUTER
         check(expect_counts(counts, **want),
               f"{ic} sweep launches {launches}, want {want} and no other")
         per_rank = ", ".join(f"{r}: {t:.1f}" for r, t in sorted(
@@ -3362,7 +3381,7 @@ def phase_sweep(problem32, card):
             f"{ms / 1e3:.3f} s (CUDA events, card {card}); chose n_u = "
             f"{n_u}; solve ms per rank {{{per_rank}}}; launches {launches}")
         out[ic] = {"ms": ms, "per_rank": times, "launches": launches}
-    # K1 at the sweep's widest ranks past 8 (the scratch-column form): its
+    # K1 at the sweep's widest ranks past 8 (the n_u > 8 form): its
     # time and bound at 1M x 10, 5 + n_u, float32, and its launches in the
     # AIC sweep (SWEEP_OUTER a rank: tol = 0)
     for n_u in (9, 25):
@@ -3545,14 +3564,16 @@ COHORT = (1_000_000, 100, 25, 4)
 def phase_layouts():
     """Each kernel's shared-memory plan in Python against the ``*_smem``
     exports of its sources (``cuda_kernels.u_phase_smem``,
-    ``cuda_small.glue_smem``), over a grid of shapes in the three layouts;
+    ``cuda_small.glue_smem``), over a grid of shapes in the three layouts
+    (n_u up to 26: the n_u > 8 form's state region, ``state_rows`` and
+    ``state_in_device`` against ``dm_state_rows``, ``dm_state_in_device``);
     the device-memory sizes past the shared memory (K1's and K4's global
     rows, ``cuda_kernels.global_rows`` and ``cuda_multi.k4_global_rows``;
     the glue kernels' device slabs, ``cuda_small.glue_work``) against
     their exports."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
-        SMEM_LIMIT, global_rows, u_phase_smem)
+        SMEM_LIMIT, global_rows, state_in_device, state_rows, u_phase_smem)
     from demethify_tpu_torch.ops.cuda_multi import k4_global_rows
     from demethify_tpu_torch.ops.cuda_small import glue_smem
     from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
@@ -3563,7 +3584,8 @@ def phase_layouts():
         for n_s in (1, 2, 6, 10, 64, 88, 100, 107, 108, 189, 190, 217, 218,
                     256, 500, 512):
             for n_ct, n_u in ((0, 1), (0, 3), (5, 1), (5, 2), (25, 4),
-                              (25, 9), (25, 16), (60, 4)):
+                              (25, 9), (25, 16), (60, 4), (5, 12), (5, 17),
+                              (5, 18), (5, 25), (0, 26)):
                 for layout in ("resident", "wide", "global"):
                     sfx = {"resident": "", "wide": "_wide",
                            "global": "_global"}[layout]
@@ -3588,6 +3610,15 @@ def phase_layouts():
                             bad.append(("K4", layout, itemsize, n_s, n_ct,
                                         n_u, weighted))
                 for direct in (False, True):
+                    n_checked += 2
+                    if (lib.dm_state_rows(n_s, n_u, int(direct))
+                            != state_rows(n_s, n_u, direct)):
+                        bad.append(("state rows", n_s, n_u, direct))
+                    if (bool(lib.dm_state_in_device(itemsize, n_s, n_u,
+                                                    int(direct)))
+                            != state_in_device(itemsize, n_s, n_u, direct)):
+                        bad.append(("state in device", itemsize, n_s, n_u,
+                                    direct))
                     for bf16c in (False, True):
                         n_checked += 1
                         if (lib.dm_u_phase_grams_global_rows(
@@ -3725,7 +3756,11 @@ def phase_narrow_bits():
     _layout_bits(N_WIDE, 100, 25, 4, "float32", data="bfloat16", seed=52)
     _layout_bits(N_WIDE, 100, 5, 1, "float32", seed=55)
     _layout_bits(N_WIDE, N_S, N_CT, N_U, "float32", n_b=4, seed=53)
-    _layout_bits(N_WIDE, 64, 25, 12, "float64", seed=54)
+    # n_u = 12 in float32: since the n_u > 8 form keeps its state region
+    # on the chip, no float64 gram shape at n_u = 12 fits the resident
+    # layout (the region's 126 rows leave room for n_s <= 38 samples; the
+    # gram form needs n_s >= 48)
+    _layout_bits(N_WIDE, 64, 25, 12, "float32", seed=54)
     return main
 
 
@@ -3795,32 +3830,103 @@ def phase_partial_buffer():
     return {"partial_bytes": partial, "yd_bytes": yd, "ms": ms}
 
 
+def _state_form_counts(name, launches):
+    """The launches a case of the n_u > 8 form made, by counter: all of
+    its kernel's launches in one of the two placements of the state."""
+    chip = launches[f"{name}{{n_u>8, state on chip}}"]
+    dev = launches[f"{name}{{n_u>8, state in device memory}}"]
+    total = sum(v for k, v in launches.items()
+                if k in (name, f"{name}[bf16]", f"{name}[bf16_compute]"))
+    return chip, dev, total
+
+
 def phase_state_cols():
-    """n_u in {9, 12, 16} (the state in scratch columns) in K1 (gram form
-    at n_s = 100, direct at n_s = 10 and, in the wide layout, at
-    n_s = 80 with 25 + 16) and K4 (B = 4), float64; n_u = 12 in float32.
-    Returns K1's and K4's timed n_u = 12 cases."""
+    """The n_u > 8 form (the state on the chip, in a per-thread column of
+    a shared-memory state region; ``cuda_kernels.state_rows``) against the
+    twins, each case timed beside its bound and its launches counted (all
+    of them in the n_u > 8 form, its state on the chip unless the region
+    passes the card's shared memory): K1 in the gram form at n_s = 100
+    (5 + n_u, n_u in {9, 12, 16, 17}), the direct form at n_s = 10
+    (n_u in {9, 12, 16, 25}) and, with gradient rows past one chunk of
+    samples, at n_s = 80 with 25 + 16, float64, 200k sites; n_u = 12 in
+    float32 (both forms), on bf16 data and with bf16_compute (gram form);
+    the sweep's widest rank, n_u = 25 at 1M x 10, 5 + 25, float32; K4
+    (B = 4, one member inactive) at n_u in {9, 12, 16}, float64, n_u = 12
+    in float32, on bf16 data and weighted; the state region in device
+    memory (5 + 18 at n_s = 108, float64: past one block's shared memory
+    in every layout) in K1 and K4. Returns K1's and K4's timed n_u = 12
+    cases and the list of every case."""
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        state_in_device, state_rows)
+
+    cases = []
+
+    def run(kind, fn, **kw):
+        reset_counts()
+        r = fn(**kw)
+        name = "u_phase_grams" if kind == "K1" else "u_phase_grams_multi"
+        chip, dev, total = _state_form_counts(name, read_counts())
+        r.update(kind=kind, launches_on_chip=chip, launches_in_device=dev,
+                 launches=total,
+                 state_rows=state_rows(r["n_s"], r["n_u"],
+                                       r.get("form") == "direct"),
+                 state_in_device=state_in_device(
+                     8 if r["dtype"] == "float64" else 4, r["n_s"], r["n_u"],
+                     r.get("form") == "direct"))
+        want_dev = total if r["state_in_device"] else 0
+        log(f"[n_u>8] {kind} n_s={r['n_s']} {r['n_ct']}+{r['n_u']} "
+            f"{r['dtype']} {r.get('form', 'gram')} form: {total} launches, "
+            f"{chip} with the state on the chip, {dev} in device memory "
+            f"({r['state_rows']} state rows); {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['ms'] / r['bound_ms']:.1f}x), twin {r['plain_ms']:.4f} ms")
+        check(total > 0 and dev == want_dev and chip == total - want_dev,
+              f"{kind} n_u={r['n_u']}: launches {chip} on chip, {dev} in "
+              f"device memory of {total}")
+        cases.append(r)
+        return r
+
+    k1 = functools.partial(_k1_case, timed=True, inner=1, reps=3)
+    k4 = functools.partial(_k4_case, timed=True, quick=True)
     timed = timed4 = None
-    for n_u in (9, 12, 16):
-        r = _k1_case(N_WIDE, n_u, "float64", n_s=100, n_ct=5, seed=80 + n_u,
-                     timed=n_u == 12, inner=1, reps=3,
-                     label="[n_u>8 gram]")
+    for n_u in (9, 12, 16, 17):
+        r = run("K1", k1, n=N_WIDE, n_u=n_u, dtype_name="float64", n_s=100,
+                n_ct=5, seed=80 + n_u, label="[n_u>8 gram]")
         timed = r if n_u == 12 else timed
-        _k1_case(N_WIDE, n_u, "float64", n_s=10, n_ct=5, seed=81 + n_u,
-                 label="[n_u>8 direct]")
-        r4 = _k4_case(n_u, "float64", 4, N_INNER, n_ct=5, inactive=(2,),
-                      seed=82 + n_u, label="[n_u>8]", n=N_WIDE, n_s=100,
-                      timed=n_u == 12, quick=True)
+    for n_u in (9, 12, 16, 25):
+        run("K1", k1, n=N_WIDE, n_u=n_u, dtype_name="float64", n_s=10,
+            n_ct=5, seed=81 + n_u, label="[n_u>8 direct]")
+    run("K1", k1, n=N_WIDE, n_u=16, dtype_name="float64", n_s=80, n_ct=25,
+        seed=97, label="[n_u>8 direct, gradient rows]")
+    run("K1", k1, n=N_WIDE, n_u=12, dtype_name="float32", n_s=100, n_ct=5,
+        seed=98, label="[n_u>8 gram]")
+    run("K1", k1, n=N_WIDE, n_u=12, dtype_name="float32", n_s=10, n_ct=5,
+        seed=99, label="[n_u>8 direct]")
+    run("K1", k1, n=N_WIDE, n_u=12, dtype_name="float32", n_s=100, n_ct=5,
+        seed=101, data="bfloat16", label="[n_u>8 gram, bf16]")
+    run("K1", k1, n=N_WIDE, n_u=12, dtype_name="float32", n_s=100, n_ct=5,
+        seed=102, data="bfloat16", bf16_compute=True,
+        label="[n_u>8 gram, bf16_compute]")
+    run("K1", k1, n=N_CPG, n_u=25, dtype_name="float32", n_s=N_S, n_ct=N_CT,
+        seed=103, label="[n_u>8 direct, sweep rank 25]")
+    run("K1", k1, n=50_000, n_u=18, dtype_name="float64", n_s=108, n_ct=5,
+        seed=104, label="[n_u>8 gram, state in device memory]")
+    for n_u in (9, 12, 16):
+        r4 = run("K4", k4, n_u=n_u, dtype_name="float64", n_b=4,
+                 steps=N_INNER, n_ct=5, inactive=(2,), seed=82 + n_u,
+                 label="[n_u>8]", n=N_WIDE, n_s=100)
         timed4 = r4 if n_u == 12 else timed4
-    _k1_case(N_WIDE, 16, "float64", n_s=80, n_ct=25, seed=97,
-             label="[n_u>8 direct, wide]")
-    _k1_case(N_WIDE, 12, "float32", n_s=100, n_ct=5, seed=98,
-             label="[n_u>8 gram]")
-    _k1_case(N_WIDE, 12, "float32", n_s=10, n_ct=5, seed=99,
-             label="[n_u>8 direct]")
-    _k4_case(12, "float32", 4, N_INNER, n_ct=5, inactive=(2,), seed=100,
-             label="[n_u>8]", n=N_WIDE, n_s=100)
-    return timed, timed4
+    run("K4", k4, n_u=12, dtype_name="float32", n_b=4, steps=N_INNER,
+        n_ct=5, inactive=(2,), seed=100, label="[n_u>8]", n=N_WIDE, n_s=100)
+    run("K4", k4, n_u=12, dtype_name="float32", n_b=4, steps=N_INNER,
+        n_ct=5, inactive=(2,), seed=105, label="[n_u>8, bf16]", n=N_WIDE,
+        n_s=100, data="bfloat16")
+    run("K4", k4, n_u=18, dtype_name="float64", n_b=3, steps=N_INNER,
+        n_ct=5, inactive=(1,), seed=106,
+        label="[n_u>8, state in device memory]", n=50_000, n_s=108)
+    _k4w_case(12, "float64", 4, N_INNER, n_ct=5, inactive=(2,), seed=107,
+              label="[n_u>8 weighted]", n=N_WIDE, n_s=100)
+    return timed, timed4, cases
 
 
 def phase_wide_glue():
@@ -3848,8 +3954,8 @@ def phase_wide_glue():
 def phase_global_kernels():
     """The kernels' device-memory forms past one block's shared memory
     against their twins, float64 unless stated: K1's global layout (gram
-    form 160 + 4 at n_s = 64; direct form with the state in scratch
-    columns, 200 + 12 at n_s = 10; float32 400 + 4 at n_s = 64, also on
+    form 160 + 4 at n_s = 64; the direct form with n_u = 12, 200 + 12 at
+    n_s = 10, its state on the chip; float32 400 + 4 at n_s = 64, also on
     bf16 data); K4's
     (B = 10, two member groups, 160 + 4 at n_s = 64; weighted B = 4,
     205 + 4 at n_s = 10); K2, K3, K5 and K6 with their slabs in device
@@ -4204,7 +4310,7 @@ def phase_envelope_paths(card):
     at 1M x 100, 25 + 4 in float64 (K1 in the wide layout, 100 x 20), its
     restarts (B = 4, 200k sites, 50 x 20: K4 wide); and 25 + 12 at
     200k x 100, float64 (p = 37 and n_u > 8: K1 and K4 wide with the
-    state in scratch columns, K2, K3, K5 and K6 in the wide form): partial-
+    state on the chip, K2, K3, K5 and K6 in the wide form): partial-
     reference 50 x 20, purity 10 x 100, and both with 4 restarts. Before
     each, the kernel solver that path runs against the plain solver on
     the same data and inits over a short schedule (``_envelope_vs_plain``:
@@ -4271,7 +4377,7 @@ def phase_envelope_paths(card):
             f"{r} restart(s), {n1}x{n2}",
             lambda: call(n1, n2, r), n1, n_sites=N_WIDE)
         check(expect_counts(out[tag], **{k: n1, glue: n1,
-                                         f"{k}{{n_u>8}}": n1,
+                                         f"{k}{{n_u>8, state on chip}}": n1,
                                          f"{k}{{wide}}": n1,
                                          f"{glue}{{p>32}}": n1}),
               f"{tag} launches {out[tag]}")
@@ -4933,6 +5039,7 @@ def phase_single_phase_kernels(card, main_ms):
 
     from demethify_tpu_torch import state
     from demethify_tpu_torch.ops import cuda_small
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase
     from demethify_tpu_torch.solvers.partial_ref import partial_ref_solve
 
     _single_phase_plans()
@@ -4953,8 +5060,14 @@ def phase_single_phase_kernels(card, main_ms):
     out["k7_cohort"] = _k7_case(COHORT[0], COHORT[3], "float32",
                                 n_s=COHORT[1], n_ct=COHORT[2], seed=303,
                                 timed=True, with_k1=True, label="[cohort]")
+    # K7's n_u > 8 form (K1's state-region code on a device buffer),
+    # counted apart
+    before = u_phase.forms.get("state_in_device", 0)
     _k7_case(N_WIDE, 12, "float64", n_s=100, n_ct=5, seed=304,
              label="[n_u=12]")
+    _k7_case(N_WIDE, 25, "float32", seed=306, label="[n_u=25]")
+    check(u_phase.forms.get("state_in_device", 0) == before + 2,
+          "K7's n_u > 8 launches were not counted as its state-region form")
     _k7_case(N_CPG + 3, N_U, "float32", seed=305, label="[ragged N]")
 
     out["k8_sass"] = _k8_sass()
@@ -5052,13 +5165,44 @@ def phase_single_phase_kernels(card, main_ms):
 
 
 # K1 and K2 shapes of the parent/change bit comparisons: (n, n_s, n_ct,
-# n_u, steps, state dtype, data dtype) for K1, (n_ct, n_u, n_s) for K2
+# n_u, steps, state dtype, data dtype, bf16_compute, lagged, seed) for K1,
+# (n_ct, n_u, n_s) for K2; the K1 shapes from "n_u9" on are the n_u > 8
+# form's (STATE_SHAPES)
 K1_OUTPUT_SHAPES = {
-    "main": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", None),
-    "main64": (N_CPG, N_S, N_CT, N_U, N_INNER, "float64", None),
-    "purity": (N_CPG, N_S, N_CT, N_U, P_INNER, "float32", None),
-    "cohort": (1_000_000, 100, 25, 4, N_INNER, "float32", None),
-    "bf16": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", "bfloat16"),
+    "main": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", None, False, False,
+             0),
+    "main64": (N_CPG, N_S, N_CT, N_U, N_INNER, "float64", None, False,
+               False, 0),
+    "purity": (N_CPG, N_S, N_CT, N_U, P_INNER, "float32", None, False,
+               False, 0),
+    "cohort": (1_000_000, 100, 25, 4, N_INNER, "float32", None, False,
+               False, 0),
+    "bf16": (N_CPG, N_S, N_CT, N_U, N_INNER, "float32", "bfloat16", False,
+             False, 0),
+    "n_u9": (N_CPG, N_S, N_CT, 9, N_INNER, "float32", None, False, False,
+             110),
+    "n_u25": (N_CPG, N_S, N_CT, 25, N_INNER, "float32", None, False, False,
+              111),
+    "direct_lagged": (N_WIDE, N_S, 0, 12, N_INNER, "float32", None, False,
+                      True, 112),
+    "direct64": (N_WIDE, N_S, N_CT, 12, N_INNER, "float64", None, False,
+                 False, 113),
+    "direct_chunks": (N_WIDE, 80, 25, 16, N_INNER, "float64", None, False,
+                      False, 114),
+    "direct_bf16c": (N_WIDE, 20, 25, 16, N_INNER, "float32", "bfloat16",
+                     True, False, 115),
+    "gram12": (N_WIDE, 100, 5, 12, N_INNER, "float64", None, False, False,
+               116),
+    "gram17": (N_WIDE, 100, 5, 17, N_INNER, "float64", None, False, False,
+               117),
+    "gram_lagged": (N_WIDE, 100, 0, 12, N_INNER, "float32", None, False,
+                    True, 118),
+    "gram_bf16": (N_WIDE, 100, 5, 12, N_INNER, "float32", "bfloat16", False,
+                  False, 119),
+    "gram_bf16c": (N_WIDE, 100, 25, 12, N_INNER, "float32", "bfloat16",
+                   True, False, 120),
+    "gram18_device": (50_000, 108, 5, 18, N_INNER, "float64", None, False,
+                      False, 121),
 }
 GLUE_OUTPUT_SHAPES = {"main": (N_CT, N_U, N_S), "cohort": (25, 4, 100)}
 
@@ -5103,35 +5247,50 @@ def glue_main_outputs(root, path, shape="main"):
     torch.save({k: v.cpu() for k, v in saved.items()}, path)
 
 
+def _k1_outputs(shape):
+    """K1's outputs (u, u_prev, scalars, gu, b_u, usq) at ``shape`` of
+    ``K1_OUTPUT_SHAPES``, one launch on ``_k1_inputs``' data, on the CPU."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
+
+    (n, n_s, n_ct, n_u, steps, dt, data, bf16c, lagged,
+     seed) = K1_OUTPUT_SHAPES[shape]
+    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                            getattr(torch, dt), seed)
+    a1, a2 = alpha[:n_ct], alpha[n_ct:]
+    if data is not None:
+        ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
+    if n_ct == 0:
+        rtt = a1 = None
+    kw = {"bf16_compute": True} if bf16c else {}
+    gu, bu, usq = u_phase_grams(ydt, rtt, a1, a2, uut, scal, steps, lagged,
+                                **kw)
+    return {k: v.cpu() for k, v in dict(
+        uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}
+
+
 def k1_main_outputs(root, path, shape="main"):
     """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at ``shape``
     of ``K1_OUTPUT_SHAPES`` (the main path's, 1M x 10, 5 + 1, 20 steps, in
     float32 or float64; the purity schedule's 500 steps; the cohort shape,
     1M x 100, 25 + 4, float32, the wide layout; bf16 data with a float32
-    state; ``_k1_inputs`` seed 0, one launch) from the tree at ``root`` to
-    ``path``, for a bit-for-bit comparison of two trees on one card:
+    state; the n_u > 8 form's shapes; one launch) from the tree at
+    ``root`` to ``path``, for a bit-for-bit comparison of two trees on one
+    card:
 
         python3 -c 'import chip_smoke; chip_smoke.k1_main_outputs("DIR", "OUT.pt", "main")'
     """
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
-
-    n, n_s, n_ct, n_u, steps, dt, data = K1_OUTPUT_SHAPES[shape]
-    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
-                                            getattr(torch, dt), 0)
-    if data is not None:
-        ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
-    gu, bu, usq = u_phase_grams(ydt, rtt, alpha[:-n_u], alpha[-n_u:], uut,
-                                scal, steps)
-    torch.save({k: v.cpu() for k, v in dict(
-        uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}, path)
+    torch.save(_k1_outputs(shape), path)
 
 
-# K4's outputs at the shapes its redesign keeps the bits of:
+# K4's outputs at the shapes its redesigns keep the bits of:
 # (n, n_s, n_ct, n_u, B, steps, state, data, lagged, weighted, inactive,
-# seed); "wide" and "n_u12" take the wide layout
+# seed); "wide" and "n_u12" take the wide layout; the shapes from
+# "state12" on are the n_u > 8 form's (STATE_SHAPES)
 K4_OUTPUT_SHAPES = {
     "main": (N_CPG, N_S, N_CT, N_U, 16, N_INNER, "float32", None, False,
              False, (3, 7, 11), 20),
@@ -5149,21 +5308,25 @@ K4_OUTPUT_SHAPES = {
              (1,), 24),
     "n_u12": (200_000, 100, 5, 12, 4, N_INNER, "float64", None, False,
               False, (2,), 94),
+    "state12": (N_WIDE, 100, 5, 12, 4, N_INNER, "float64", None, False,
+                False, (2,), 122),
+    "state16": (N_WIDE, 100, 5, 16, 4, N_INNER, "float64", None, False,
+                False, (2,), 123),
+    "state12_f32": (N_WIDE, 100, 5, 12, 4, N_INNER, "float32", None, False,
+                    False, (2,), 124),
+    "state12_weighted": (N_WIDE, 100, 5, 12, 4, N_INNER, "float64", None,
+                         False, True, (2,), 125),
+    "state18_device": (50_000, 108, 5, 18, 4, N_INNER, "float64", None,
+                       False, False, (2,), 126),
 }
 
 
-def k4_main_outputs(root, path, shape="main"):
-    """Saves K4's outputs at ``shape`` of ``K4_OUTPUT_SHAPES`` from the
-    tree at ``root`` to ``path``: every member's [u; u_prev] rows and
-    scalar row (the inactive members' must come back unchanged) and the
-    active members' gu, b_u and usq (an inactive member's are
-    unspecified), one launch on ``_multi_inputs``' data; for a
-    bit-for-bit comparison of two trees on one card with
-    ``same_outputs``:
-
-        python3 -c 'import chip_smoke; chip_smoke.k4_main_outputs("DIR", "OUT.pt", "main")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
+def _k4_outputs(shape):
+    """K4's outputs at ``shape`` of ``K4_OUTPUT_SHAPES``, on the CPU: every
+    member's [u; u_prev] rows and scalar row (the inactive members' must
+    come back unchanged) and the active members' gu, b_u and usq (an
+    inactive member's are unspecified), one launch on ``_multi_inputs``'
+    data."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
@@ -5181,9 +5344,139 @@ def k4_main_outputs(root, path, shape="main"):
     gu, bu, usq = u_phase_grams_multi(ydt, rtt, a1, alpha_b[:, -n_u:], uut_b,
                                       scal_b, steps, lagged, weights=w)
     act = [b for b in range(n_b) if b not in inactive]
-    torch.save({k: v.cpu() for k, v in dict(
+    return {k: v.cpu() for k, v in dict(
         uut=uut_b, scal=scal_b, gu=gu[act], bu=bu[act],
-        usq=usq[act]).items()}, path)
+        usq=usq[act]).items()}
+
+
+def k4_main_outputs(root, path, shape="main"):
+    """Saves K4's outputs at ``shape`` of ``K4_OUTPUT_SHAPES``
+    (``_k4_outputs``) from the tree at ``root`` to ``path``, for a
+    bit-for-bit comparison of two trees on one card with ``same_outputs``:
+
+        python3 -c 'import chip_smoke; chip_smoke.k4_main_outputs("DIR", "OUT.pt", "main")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    torch.save(_k4_outputs(shape), path)
+
+
+# K7's outputs at its n_u > 8 form's shapes: (n, n_s, n_ct, n_u, state,
+# data, lagged, seed), 20 steps
+K7_OUTPUT_SHAPES = {
+    "n_u12": (N_WIDE, 100, 5, 12, "float64", None, False, 400),
+    "n_u17": (N_WIDE, 100, 5, 17, "float64", None, False, 401),
+    "n_u25": (N_WIDE, N_S, N_CT, 25, "float32", None, False, 402),
+    "n_u12_lagged": (N_WIDE, N_S, 0, 12, "float32", None, True, 403),
+    "n_u12_bf16": (N_WIDE, 100, 5, 12, "float32", "bfloat16", False, 404),
+}
+
+
+def _k7_outputs(shape):
+    """K7's outputs (u, u_prev, the advanced scalars) at ``shape`` of
+    ``K7_OUTPUT_SHAPES``, one launch on ``_k1_inputs``' data, on the
+    CPU."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_U, L_W, L_W_PREV, u_phase)
+
+    n, n_s, n_ct, n_u, dt, data, lagged, seed = K7_OUTPUT_SHAPES[shape]
+    ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                            getattr(torch, dt), seed)
+    if data is not None:
+        ydt, rtt = ydt.to(getattr(torch, data)), rtt.to(getattr(torch, data))
+    a1, a2 = alpha[:n_ct], alpha[n_ct:]
+    if n_ct == 0:
+        rtt = a1 = None
+    out = u_phase(ydt[:n_s], ydt[n_s:], rtt, a1, a2, uut[:n_u], uut[n_u:],
+                  scal[A_U], scal[L_W], scal[L_W_PREV], N_INNER,
+                  lagged=lagged)
+    return {k: v.cpu() for k, v in zip(("u", "up", "a", "l_prev"), out)}
+
+
+# the n_u > 8 forms' shapes, whose bits the state's move onto the chip
+# keeps: K1's, K4's (with B = 4, member 2 inactive) and K7's
+STATE_SHAPES = (
+    ("K1", "n_u9"), ("K1", "n_u25"), ("K1", "direct_lagged"),
+    ("K1", "direct64"), ("K1", "direct_chunks"), ("K1", "direct_bf16c"),
+    ("K1", "gram12"), ("K1", "gram17"), ("K1", "gram_lagged"),
+    ("K1", "gram_bf16"), ("K1", "gram_bf16c"), ("K1", "gram18_device"),
+    ("K4", "state12"), ("K4", "state16"), ("K4", "state12_f32"),
+    ("K4", "state12_weighted"), ("K4", "state18_device"), ("K7", "n_u12"),
+    ("K7", "n_u17"), ("K7", "n_u25"), ("K7", "n_u12_lagged"),
+    ("K7", "n_u12_bf16"))
+
+
+def state_form_outputs(root, path):
+    """Saves K1's, K4's and K7's outputs at every shape of ``STATE_SHAPES``
+    (the n_u > 8 forms, ``_k1_outputs`` / ``_k4_outputs`` /
+    ``_k7_outputs``) from the tree at ``root`` to ``path``, in one file,
+    for a bit-for-bit comparison of two trees on one card with
+    ``same_outputs``:
+
+        python3 -c 'import chip_smoke; chip_smoke.state_form_outputs("DIR", "OUT.pt")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    saved = {}
+    for kind, shape in STATE_SHAPES:
+        out = {"K1": _k1_outputs, "K4": _k4_outputs,
+               "K7": _k7_outputs}[kind](shape)
+        saved.update({f"{kind}_{shape}_{k}": v for k, v in out.items()})
+        torch.cuda.empty_cache()
+    torch.save(saved, path)
+
+
+def time_state_forms(root):
+    """Times the n_u > 8 forms of the tree at ``root`` and prints one JSON
+    line with the card's ``nvidia-smi`` name and power limit: K1 at the
+    AIC sweep's ranks 9 and 25 (1M x 10, 5 + n_u, float32, 20 steps, the
+    direct form), K1 in the gram form at n_u = 12 and 17 (200k x 100,
+    5 + n_u, float64), K4 at n_u = 12 and 16 (B = 4, the same shape), each
+    the median device ms of back-to-back launches (CUDA events) beside its
+    bound and its twin; then the AIC sweep to 25 ranks with SVD inits at
+    1M x 10 (``phase_sweep``'s run, SWEEP_OUTER x 20), its seconds and
+    solve ms per rank. For a parent/change comparison on one card run
+    P C C P, one process each:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_state_forms("DIR")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+
+    card = phase_device()
+    out = {"card": card, "root": root}
+    for n_u in (9, 25):
+        r = _k1_case(N_CPG, n_u, "float32", seed=130 + n_u, timed=True,
+                     reps=5, inner=3, label=f"[rank {n_u}]")
+        out[f"k1_rank{n_u}"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "form", "layout")}
+    for n_u in (12, 17):
+        r = _k1_case(N_WIDE, n_u, "float64", n_s=100, n_ct=5, seed=140 + n_u,
+                     timed=True, reps=5, inner=1, label="[gram]")
+        out[f"k1_gram{n_u}"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "form", "layout")}
+    for n_u in (12, 16):
+        r = _k4_case(n_u, "float64", 4, N_INNER, n_ct=5, seed=150 + n_u,
+                     timed=True, quick=True, n=N_WIDE, n_s=100, label="")
+        out[f"k4_n_u{n_u}"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "k1_ms")}
+    y, d, Rt = (torch.as_tensor(x, device=DEV)
+                for x in make_problem(np.float32)[2:])
+    times = {}
+    with _rank_times(times):
+        res, ms = timed_ms(lambda: evaluate_best_ic(
+            y, d, Rt, "SVD", "AIC", iter1=SWEEP_OUTER, iter2=N_INNER,
+            tol=0.0, n_restarts=5, n_u_max=25, seed=3))
+    out["aic_sweep"] = {"s": ms / 1e3, "chose": res[2],
+                        "ms_per_rank": {str(k): v for k, v in
+                                        sorted(times.items())}}
+    print(json.dumps(out), flush=True)
 
 
 def k3_main_outputs(root, path):
@@ -5403,9 +5696,12 @@ def time_steps(root="."):
     one GPU (median device ms of back-to-back launches, CUDA events; K2
     queued behind a device sleep, since back to back it times its Python
     wrapper): K1 at the main path's shape and at the cohort shape
-    (1M x 100, 25 + 4), K2 at p = 6, n_s = 10 and at p = 29, n_s = 100,
-    so that each launch splits into a fixed cost and a cost per step.
-    Prints one JSON line:
+    (1M x 100, 25 + 4), in the n_u > 8 form at the AIC sweep's ranks 9
+    and 25 (1M x 10, 5 + n_u, float32, the direct form) and in the gram
+    form at n_u = 12 (200k x 100, 5 + 12, float64), K2 at p = 6,
+    n_s = 10 and at p = 29, n_s = 100, so that each launch splits into a
+    fixed cost (at 0 steps: the staging, any C/M build and the Gram
+    stage) and a cost per step. Prints one JSON line:
 
         python3 -c 'import chip_smoke; chip_smoke.time_steps()'
     """
@@ -5420,11 +5716,14 @@ def time_steps(root="."):
     check(torch.cuda.is_available(), "time_steps needs a GPU")
     card = phase_device()
     rows = []
-    for name, (n, n_s, n_ct, n_u), steps in (
-            ("K1 main", (N_CPG, N_S, N_CT, N_U), (0, 20, 100, 500)),
-            ("K1 cohort", COHORT, (0, 20, 100))):
+    for name, (n, n_s, n_ct, n_u), dt, steps in (
+            ("K1 main", (N_CPG, N_S, N_CT, N_U), "float32", (0, 20, 100, 500)),
+            ("K1 cohort", COHORT, "float32", (0, 20, 100)),
+            ("K1 rank 9", (N_CPG, N_S, N_CT, 9), "float32", (0, 20, 40)),
+            ("K1 rank 25", (N_CPG, N_S, N_CT, 25), "float32", (0, 20, 40)),
+            ("K1 gram n_u=12", (N_WIDE, 100, 5, 12), "float64", (0, 20, 40))):
         ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
-                                                torch.float32, 0)
+                                                getattr(torch, dt), 0)
         a1, a2 = alpha[:-n_u], alpha[-n_u:]
         for k in steps:
             u, sc = uut.clone(), scal.clone()
@@ -5580,27 +5879,41 @@ LAYOUT_TIMES = (
 )
 
 
-def time_layouts(n=N_CPG):
-    """Times K1 and K4 in the resident and in the wide layout, each forced,
-    at every shape of ``LAYOUT_TIMES`` on ``n`` sites: the median device
-    ms of back-to-back launches (CUDA events), in the order resident,
-    wide, wide, resident, and the resident layout's shared memory and
-    blocks per SM beside the wide layout's. Prints one line per shape and
-    one JSON line:
+# the n_u > 8 form's shapes whose layouts the rule is fitted to, in
+# LAYOUT_TIMES' terms: the sweep's direct form at n_s = 10 and the
+# cohort's gram form at n_s = 100 (K1, and K4 with B = 4), 5 known types
+STATE_LAYOUT_TIMES = tuple(
+    (n_b, n_s, 5, n_u, N_INNER, dt, None, False, False)
+    for dt in ("float32", "float64")
+    for n_s, n_u in ((10, 9), (10, 12), (10, 16), (10, 25), (100, 9),
+                     (100, 12), (100, 17))
+    for n_b in ((0,) if n_u * n_u > 3 * n_s else (0, 4)))
+
+
+def time_layouts(n=N_CPG, table=LAYOUT_TIMES):
+    """Times K1 and K4 in each layout, forced, at every shape of ``table``
+    (``LAYOUT_TIMES``, or ``STATE_LAYOUT_TIMES``) on ``n`` sites: the
+    resident and the wide layout, above n_u = 8 the global one too (it
+    also holds the state region on the chip), each where its shared
+    memory fits one block; the median device ms of back-to-back launches
+    (CUDA events) in the order of the layouts and back, each layout's
+    shared memory and blocks per SM, and the layout ``u_phase_layout``
+    plans. Prints one line per shape and one JSON line:
 
         python3 -c 'import chip_smoke; chip_smoke.time_layouts()'
+        python3 -c 'import chip_smoke as c; c.time_layouts(table=c.STATE_LAYOUT_TIMES)'
     """
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
-        SMEM_LIMIT, blocks_per_sm, gram_form, u_phase_grams, u_phase_smem)
+        REG_N_U, SMEM_LIMIT, blocks_per_sm, gram_form, state_in_device,
+        u_phase_grams, u_phase_layout, u_phase_smem)
     from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
 
     check(torch.cuda.is_available(), "time_layouts needs a GPU")
     card = phase_device()
     rows = []
-    for n_b, n_s, n_ct, n_u, steps, dt, data, lagged, weighted in (
-            LAYOUT_TIMES):
+    for n_b, n_s, n_ct, n_u, steps, dt, data, lagged, weighted in table:
         dtype = getattr(torch, dt)
         weights = None
         if n_b:
@@ -5621,40 +5934,87 @@ def time_layouts(n=N_CPG):
             ydt = ydt.to(getattr(torch, data))
             rtt = None if rtt is None else rtt.to(getattr(torch, data))
         direct = not gram_form(n_u, n_s)
-        smem = {lay: u_phase_smem(lay, uut.element_size(), n_s, n_ct, n_u,
-                                  direct, weighted=weighted)
-                for lay in ("resident", "wide")}
-        check(smem["resident"] <= SMEM_LIMIT,
-              f"n_s={n_s} {n_ct}+{n_u} does not fit the resident layout")
+        itemsize = uut.element_size()
+        check(not state_in_device(itemsize, n_s, n_u, direct),
+              f"n_s={n_s} n_u={n_u} {dt}: the state region does not fit")
+        names = ("resident", "wide") + (("global",) if n_u > REG_N_U else ())
+        smem = {lay: u_phase_smem(lay, itemsize, n_s, n_ct, n_u, direct,
+                                  weighted=weighted) for lay in names}
+        lays = [lay for lay in names if smem[lay] <= SMEM_LIMIT]
         inner = 10 if n_s * (n_ct + n_u) * max(n_b, 1) <= 2000 else 2
-        ms = {"resident": [], "wide": []}
-        for lay in ("resident", "wide", "wide", "resident"):
+        ms = {lay: [] for lay in lays}
+        for lay in lays + lays[::-1]:
             u, sc = uut.clone(), scal.clone()
             with forced_layout(lay):
                 ms[lay].append(median_ms(lambda: fn(
                     ydt, rtt, a1, a2, u, sc, steps, lagged), inner=inner))
-        per_sm = {lay: blocks_per_sm(b) for lay, b in smem.items()}
-        row = {"B": n_b, "n_s": n_s, "n_ct": n_ct, "n_u": n_u,
+        plan = u_phase_layout("K4" if n_b else "K1", itemsize, n_s, n_ct,
+                              n_u, direct, weighted=weighted)[0]
+        best = min(lays, key=lambda lay: statistics.mean(ms[lay]))
+        per_sm = {lay: blocks_per_sm(smem[lay]) for lay in lays}
+        row = {"B": n_b, "n": n, "n_s": n_s, "n_ct": n_ct, "n_u": n_u,
                "steps": steps, "state": dt, "data": data or dt,
                "lagged": lagged, "weighted": weighted,
-               "form": "direct" if direct else "gram",
-               "resident_ms": ms["resident"], "wide_ms": ms["wide"],
-               "wide_over_resident": statistics.mean(ms["wide"])
-               / statistics.mean(ms["resident"]),
-               "smem": smem, "blocks_per_sm": per_sm}
+               "form": "direct" if direct else "gram", "ms": ms,
+               "smem": smem, "blocks_per_sm": per_sm, "planned": plan,
+               "fastest": best}
         rows.append(row)
         log(f"[layout times] {'K4 B=' + str(n_b) if n_b else 'K1'} "
             f"N={n} n_s={n_s} {n_ct}+{n_u} {row['form']} {steps} steps "
             f"{dt} state {data or dt} data{' lagged' if lagged else ''}"
-            f"{' weighted' if weighted else ''}: resident "
-            f"{ms['resident']} ms ({smem['resident']} B, "
-            f"{per_sm['resident']} blocks/SM), wide {ms['wide']} ms "
-            f"({smem['wide']} B, {per_sm['wide']} blocks/SM); wide / "
-            f"resident {row['wide_over_resident']:.4f}")
+            f"{' weighted' if weighted else ''}: "
+            + ", ".join(f"{lay} {ms[lay]} ms ({smem[lay]} B, "
+                        f"{per_sm[lay]} blocks/SM)" for lay in lays)
+            + f"; planned {plan}, fastest {best}")
         del ydt, rtt, alpha, uut, scal, weights
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "n": n, "layout_times": rows}),
           flush=True)
+
+
+def _state_rows(cases, sweep):
+    """The kernels JSON line's rows of the n_u > 8 form beyond the
+    envelope's n_u = 12 rows: K1 at the AIC sweep's rank 25 (its launches
+    the sweep's in that form, ranks 9-25) and the state region in device
+    memory in K1 and K4 (no path runs it: its check's launches), with
+    ``phase_state_cols``' times."""
+    src = "demethify_tpu_torch/csrc/"
+    files = {"resident": ".cu", "wide": "_wide.cu", "global": "_global.cu"}
+    k1_at = "demethify_tpu/ops/pallas_kernels.py:218"
+    k4_at = "demethify_tpu/ops/pallas_kernels.py:828"
+    rank25 = next(c for c in cases if c["kind"] == "K1" and c["n"] == N_CPG
+                  and c["n_u"] == 25)
+    dev1 = next(c for c in cases if c["kind"] == "K1"
+                and c["state_in_device"])
+    dev4 = next(c for c in cases if c["kind"] == "K4"
+                and c["state_in_device"])
+
+    def row(name, source, replaces, case, launches, path):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": case["u_max_abs"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "library_ms": None,
+                "path": path,
+                "redesigned": "the per-site state on the chip (a "
+                              "shared-memory state region, register "
+                              "tiles)"}
+
+    return [
+        row("u_phase_grams{n_u>8, state on chip, direct}",
+            "u_phase_grams" + files[rank25["layout"]],
+            k1_at + " (no n_u cap, via :499)", rank25,
+            sweep["AIC"]["launches"]["u_phase_grams{n_u>8, state on chip}"],
+            "AIC sweep --init SVD to 25 at 1M x 10 (times: rank 25, 1M x "
+            "10, 5+25, float32)"),
+        row("u_phase_grams{n_u>8, state in device memory}",
+            "u_phase_grams_global.cu", k1_at + " (no n_u cap, via :499)",
+            dev1, dev1["launches"],
+            "its check: 50k x 108, 5+18, float64 (no path runs it)"),
+        row("u_phase_grams_multi{n_u>8, state in device memory}",
+            "u_phase_grams_multi_global.cu",
+            k4_at + " (no n_u cap, via :1123)", dev4, dev4["launches"],
+            "its check: 50k x 108, 5+18, B=3, float64 (no path runs it)")]
 
 
 def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
@@ -5693,14 +6053,18 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             k4_at + " (via :1123)", w4,
             env["wide restarts"]["u_phase_grams_multi{wide}"],
             "4 restarts 200k x 100, 25+4, float64 (times: n_s=500, B=4)"),
-        row("u_phase_grams{n_u>8}", k1_src + ".cu",
+        row("u_phase_grams{n_u>8, state on chip}",
+            k1_src + {"resident": ".cu", "wide": "_wide.cu",
+                      "global": "_global.cu"}[k1_state["layout"]],
             k1_at + " (no n_u cap, via :499)", k1_state,
-            env["p>32"]["u_phase_grams{n_u>8}"],
+            env["p>32"]["u_phase_grams{n_u>8, state on chip}"],
             "partial-ref 200k x 100, 25+12, float64 (times: 5+12, n_s=100, "
             "float64)"),
-        row("u_phase_grams_multi{n_u>8}", k4_src + ".cu",
+        row("u_phase_grams_multi{n_u>8, state on chip}",
+            k4_src + {"resident": ".cu", "wide": "_wide.cu",
+                      "global": "_global.cu"}[k4_state["layout"]],
             k4_at + " (no n_u cap, via :1123)", k4_state,
-            env["p>32 restarts"]["u_phase_grams_multi{n_u>8}"],
+            env["p>32 restarts"]["u_phase_grams_multi{n_u>8, state on chip}"],
             "4 restarts 200k x 100, 25+12, float64 (times: 5+12, B=4, "
             "float64)"),
         row("alpha_phase_full{p>32}", src + "alpha_phase_full.cu",
@@ -7208,7 +7572,7 @@ def main():
     run_phase(phase_narrow_bits)
     wide = run_phase(phase_wide_kernels)
     partial = run_phase(phase_partial_buffer)
-    k1_state, k4_state = run_phase(phase_state_cols)
+    k1_state, k4_state, state_cases = run_phase(phase_state_cols)
     glue = run_phase(phase_wide_glue)
     glob = run_phase(phase_global_kernels)
     masks = run_phase(phase_masks)
@@ -7236,7 +7600,7 @@ def main():
     run_phase(phase_cli)
     past = run_phase(phase_past_envelope, card)
     run_phase(phase_inits, card)
-    run_phase(phase_sweep, problem32, card)
+    sweep = run_phase(phase_sweep, problem32, card)
     run_phase(phase_cli_inits_ic)
     ranks = run_phase(phase_ranks, card)
     run_phase(phase_ranks_cli)
@@ -7399,6 +7763,7 @@ def main():
         wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
         mask_paths, env))
     kernels["kernels"].extend(_global_rows(glob, past))
+    kernels["kernels"].extend(_state_rows(state_cases, sweep))
     kernels["kernels"].extend(_single_phase_rows(single))
     for row in kernels["kernels"]:
         # K1-K6: launches on each rank of the row-sharded solves, and on

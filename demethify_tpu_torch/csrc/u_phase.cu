@@ -29,8 +29,11 @@
 // What the design does about it: one thread per site and 128 sites a
 // block, the big arrays in the transposed (rows, N) layout so a warp's
 // reads of each row are contiguous; C, M and the state in registers for
-// n_u <= 8 (a template parameter), in a scratch column per site above,
-// as K1. Only Rt is staged in shared memory (read n_s times per site by
+// n_u <= 8 (a template parameter); above, K1's n_u > 8 form
+// (u_phase_common.cuh: build_cm_rows, gram_steps_rows) on this site's
+// column of its block's state region, which lives in a device buffer the
+// wrapper allocates (state_rows rows of kLd values a block), as K1's
+// kGlobalState does: K7 keeps one layout, and no solver runs it. Only Rt is staged in shared memory (read n_s times per site by
 // the residual); each site's Y and D are read straight from device
 // memory, once, and the alpha entries as broadcasts. This is K1's wide
 // layout. With no Gram stage nothing reuses staged Y and D, so K1's
@@ -53,7 +56,7 @@
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
-// of an empty known block (n_ct = 0) are never dereferenced; `scratch` is
+// of an empty known block (n_ct = 0) are never dereferenced; `state` is
 // read only by the n_u > 8 form.
 
 #include <cuda_bf16.h>
@@ -64,7 +67,6 @@
 
 namespace {
 
-using dm::ColVec;
 using dm::kLd;
 using dm::kSites;
 using dm::RegVec;
@@ -76,7 +78,7 @@ u_phase_kernel(const TD* __restrict__ yt, const TD* __restrict__ dt,
                const T* __restrict__ a2, const T* __restrict__ u_in,
                const T* __restrict__ up_in, T* __restrict__ u_out,
                T* __restrict__ up_out, const T* __restrict__ scal,
-               const T* __restrict__ tab, T* __restrict__ scratch,
+               const T* __restrict__ tab, T* __restrict__ state,
                int64_t n, int n_s, int n_ct,
                int n_u, int n_steps, int lagged) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -118,20 +120,26 @@ u_phase_kernel(const TD* __restrict__ yt, const TD* __restrict__ dt,
             up_out[v * n + i] = up[v];
         }
     } else {
-        // u, u_prev updated in place in the outputs (copied from the
-        // inputs first); C, M and the temporaries in this site's scratch
-        // column
+        // this site's column of its block's state region: C and M built
+        // first (the build stages its samples in the u vectors' rows),
+        // then u and u_prev loaded into u vectors 0 and 1, the steps, and
+        // the vectors that hold u and u_prev at the end written out
+        T* st = state + static_cast<int64_t>(blockIdx.x)
+                            * dm::state_rows(n_s, n_u, false) * kLd + tid;
+        dm::build_cm_rows<T, dm::kResidFirst>(st, n_u, yt + i, dt + i, n,
+                                              s_r + tid, a1, a2, n_s, n_ct);
         for (int v = 0; v < n_u; ++v) {
-            u_out[v * n + i] = u_in[v * n + i];
-            up_out[v * n + i] = up_in[v * n + i];
+            st[v * kLd] = u_in[v * n + i];
+            st[(n_u + v) * kLd] = up_in[v * n + i];
         }
-        const int nm = n_u * (n_u + 1) / 2;
-        ColVec<T> u{u_out + i, n}, up{up_out + i, n};
-        ColVec<T> cc{scratch + i, n};
-        ColVec<T> m{scratch + static_cast<int64_t>(n_u) * n + i, n};
-        ColVec<T> t1{scratch + static_cast<int64_t>(n_u + nm) * n + i, n};
-        ColVec<T> t2{t1.p + static_cast<int64_t>(n_u) * n, n};
-        run(u, up, cc, m, t1, t2);
+        const int2 slot =
+            lagged ? dm::gram_steps_rows<T, true>(st, n_u, tab, l_w, n_steps)
+                   : dm::gram_steps_rows<T, false>(st, n_u, tab, l_w,
+                                                   n_steps);
+        for (int v = 0; v < n_u; ++v) {
+            u_out[v * n + i] = st[(slot.x * n_u + v) * kLd];
+            up_out[v * n + i] = st[(slot.y * n_u + v) * kLd];
+        }
     }
 }
 
@@ -144,7 +152,7 @@ size_t smem_bytes(size_t itemsize, int n_ct) {
 template <typename T, typename TD, int NU>
 int launch(const void* yt, const void* dt, const void* rtt, const void* a1b,
            const void* a2b, const void* u_in, const void* up_in, void* u_out,
-           void* up_out, void* scal, void* tab, void* scratch, int64_t n,
+           void* up_out, void* scal, void* tab, void* state, int64_t n,
            int n_s, int n_ct, int n_u, int n_steps, int lagged,
            cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
@@ -165,7 +173,7 @@ int launch(const void* yt, const void* dt, const void* rtt, const void* a1b,
         static_cast<const T*>(a2b), static_cast<const T*>(u_in),
         static_cast<const T*>(up_in), static_cast<T*>(u_out),
         static_cast<T*>(up_out), static_cast<const T*>(scal),
-        static_cast<const T*>(tab), static_cast<T*>(scratch), n, n_s, n_ct,
+        static_cast<const T*>(tab), static_cast<T*>(state), n, n_s, n_ct,
         n_u, n_steps, lagged);
     return static_cast<int>(cudaGetLastError());
 }
@@ -174,23 +182,23 @@ template <typename T, typename TD>
 int dispatch(const void* yt, const void* dt, const void* rtt,
              const void* a1b, const void* a2b, const void* u_in,
              const void* up_in, void* u_out, void* up_out, void* scal,
-             void* tab, void* scratch, int64_t n, int n_s, int n_ct, int n_u,
+             void* tab, void* state, int64_t n, int n_s, int n_ct, int n_u,
              int n_steps, int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DM_K7_CASE(NU)                                                       \
     case NU:                                                                 \
         return launch<T, TD, NU>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,  \
-                                 up_out, scal, tab, scratch, n, n_s, n_ct,   \
+                                 up_out, scal, tab, state, n, n_s, n_ct,     \
                                  n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K7_CASE(1) DM_K7_CASE(2) DM_K7_CASE(3) DM_K7_CASE(4)
         DM_K7_CASE(5) DM_K7_CASE(6) DM_K7_CASE(7) DM_K7_CASE(8)
         default:
-            if (n_u < 1 || scratch == nullptr)
+            if (n_u < 1 || state == nullptr)
                 return static_cast<int>(cudaErrorInvalidValue);
             return launch<T, TD, 0>(yt, dt, rtt, a1b, a2b, u_in, up_in,
-                                    u_out, up_out, scal, tab, scratch, n,
+                                    u_out, up_out, scal, tab, state, n,
                                     n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K7_CASE
@@ -202,17 +210,19 @@ int dispatch(const void* yt, const void* dt, const void* rtt,
 //   dm_u_phase_smem(itemsize, n_ct): the kernel's shared memory in bytes
 //     (itemsize is the state's), which the wrapper's plan matches;
 //   dm_u_phase_{f32,f64,bf16}(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,
-//     up_out, scal, tab, scratch, n, n_s, n_ct, n_u, n_steps, lagged,
+//     up_out, scal, tab, state, n, n_s, n_ct, n_u, n_steps, lagged,
 //     stream): tab is room for the momentum table (n_steps + 1 values of
-//     the state type); bf16 is bf16 data with a float32 state.
+//     the state type); state (n_u > 8 only, NULL otherwise) n_blocks x
+//     dm_state_rows(n_s, n_u, 0) x 129 values of the state type; bf16 is
+//     bf16 data with a float32 state.
 #define DM_K7_ENTRY(NAME, T, TD)                                             \
     int NAME(const void* yt, const void* dt, const void* rtt,                \
              const void* a1b, const void* a2b, const void* u_in,             \
              const void* up_in, void* u_out, void* up_out, void* scal,       \
-             void* tab, void* scratch, long long n, int n_s, int n_ct,       \
+             void* tab, void* state, long long n, int n_s, int n_ct,         \
              int n_u, int n_steps, int lagged, void* stream) {               \
         return dispatch<T, TD>(yt, dt, rtt, a1b, a2b, u_in, up_in, u_out,    \
-                               up_out, scal, tab, scratch, n, n_s, n_ct,     \
+                               up_out, scal, tab, state, n, n_s, n_ct,       \
                                n_u, n_steps, lagged, stream);                \
     }
 extern "C" {

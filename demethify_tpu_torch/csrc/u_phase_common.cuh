@@ -69,9 +69,9 @@
 // State: n_u = 1..8 is a template parameter and the per-site state (u,
 // u_prev, C, the n_u(n_u+1)/2 curvature terms, the step temporaries)
 // lives in registers (RegVec). Above 8 one form with NU = 0 takes n_u at
-// run time and keeps that state in a scratch buffer in device memory, one
-// column per site (ColVec: the same addressing as the data rows, so a
-// warp's accesses coalesce), and u, u_prev in place in the state rows.
+// run time and keeps that state on the chip, in a per-thread column of a
+// state region in shared memory (state_rows; "the n_u > 8 form" below).
+// K7 (u_phase.cu) runs the same form on a region in device memory.
 //
 // Data and state types: the data rows (Y, D, Rt) are of type TD, the
 // state and every sum of type T. TD = T is the float32 and float64 forms;
@@ -106,8 +106,14 @@ constexpr int kLd = kSites + 1;    // shared row stride: avoids bank conflicts
 constexpr int kRedThreads = 256;   // threads per block of the reduction pass
 constexpr int kChunk = 32;         // samples per staged chunk (wide layout)
 
-// the shared-memory layouts (the kernels' LAYOUT template parameter)
-constexpr int kResident = 0, kWide = 1, kGlobal = 2;
+// the shared-memory layouts (the kernels' LAYOUT template parameter);
+// kGlobalState is the global layout with the n_u > 8 form's state region
+// in device memory too (state_in_device)
+constexpr int kResident = 0, kWide = 1, kGlobal = 2, kGlobalState = 3;
+
+constexpr long long kSmemPerSm = 233472;   // bytes of shared memory an SM has
+constexpr long long kSmemBlock = 232448;   // bytes a block may opt into
+constexpr long long kSmemReserve = 1024;   // bytes the card keeps per block
 
 // rows of Y (and of D) the wide layout stages: one chunk, or all n_s
 // samples when there are fewer
@@ -146,16 +152,6 @@ struct RegVec {
     __device__ __forceinline__ T& operator[](int k) { return x[k]; }
     __device__ __forceinline__ const T& operator[](int k) const {
         return x[k];
-    }
-};
-
-// A per-site state vector in device memory: element k at p[k * ld]
-template <typename T>
-struct ColVec {
-    T* p;
-    int64_t ld;
-    __device__ __forceinline__ T& operator[](int k) const {
-        return p[k * ld];
     }
 };
 
@@ -321,6 +317,275 @@ __device__ __forceinline__ void gram_steps(
             u[v] = un[v];
         }
     }
+}
+
+// ---- the n_u > 8 form: the per-site state on the chip --------------------
+//
+// Above kRegNU unknowns the state of a site's FISTA loop (u, u_prev, the
+// step vectors, C and the n_u (n_u + 1) / 2 curvature terms of the gram
+// form) no longer fits a thread's registers as a template-sized vector:
+// at n_u = 17 the gram form holds 221 values a site, at n_u = 25 the
+// direct form's registers alone would pass 255 in float64. What bounds the
+// form is where that state lives. Kept in a scratch column per site in
+// device memory, every product of a step was a load, and the direct form's
+// gradient a read-modify-write a (v, s) pair (about 4 KB a step and site
+// at n_u = 25, n_s = 10; in flight more than the 50 MB L2), and the gram
+// form's C/M build 2 n_s n_u (n_u + 1) / 2 such accesses before any step.
+//
+// What this form does about it, keeping every sum's order (so its bits are
+// those of the scratch-column form and of the twin's arithmetic):
+//   - the state lives in a STATE REGION of shared memory, one column per
+//     thread (row stride kLd: a warp reads one row of neighbouring words,
+//     free of bank conflicts), state_rows rows: in the gram form M (packed
+//     upper triangle), C and three u vectors (u, u_prev / u_t, u_new,
+//     rotated by index, so no step copies a vector); in the direct form
+//     two u vectors (u, u_prev / u_t / u_new), the residual rows of a chunk
+//     of samples and, past one chunk, the gradient rows. In the wide and
+//     global layouts the region overlays the Gram stage's chunk rows of Y
+//     and D, which are dead until the steps end;
+//   - the products run in REGISTER TILES of kTile entries: C and M are
+//     built entry tile by entry tile, each entry summed over the samples
+//     in order from 0 in a register and written once a chunk of samples
+//     (kChunk-free: a chunk is n_u samples, staged in two of the u
+//     vectors' rows, which the build does not use yet); a step's M g and
+//     the direct form's model and gradient keep kTile sums in registers,
+//     each over its index in order. The direct form forms each sample's
+//     residual first (a tile of samples at a time) and then sums each
+//     gradient entry over the samples in a register, so a step writes no
+//     partial gradient;
+//   - where the region does not fit beside the layout's rows in any
+//     layout (the gram form past n_u = 17 in float64, 25 in float32; the
+//     direct form far past any sweep), it moves to a per-block region of
+//     a device buffer the wrapper allocates (kGlobalState, the global
+//     layout's one instantiation with it), the same code on other
+//     addresses.
+// What bounds it now (an H100, PERF.md): at the sweep's rank 25 (1M x 10,
+// 5 + 25, float32) the steps are latency-bound, not bound by their shared
+// loads (four-value alpha loads cut those by about 45% and a step's time
+// by about 9%), and the staging and the Gram stage run at 3 blocks an SM
+// under the region (7 before); in the gram form at n_s = 100 the C/M
+// build and the Gram stage at one block an SM are most of a launch.
+constexpr int kRegNU = 8;     // n_u above this runs the NU = 0 form
+constexpr int kTile = 4;      // entries per register tile
+
+// samples per chunk of the direct form's residual rows
+__host__ __device__ __forceinline__ constexpr int direct_chunk(int n_s) {
+    return n_s < kChunk ? n_s : kChunk;
+}
+
+// n rounded up to a multiple of 4: the row stride of the resident direct
+// form's alpha table (its rows start on 16 bytes)
+__host__ __device__ __forceinline__ constexpr int pad4(int n) {
+    return (n + 3) / 4 * 4;
+}
+
+// x = p[0..4) in 16-byte shared-memory loads (p 16-byte aligned): one for
+// float, two for double; a warp reading one address gets it broadcast
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double (&x)[4]) {
+    const double2 q0 = *reinterpret_cast<const double2*>(p);
+    const double2 q1 = *reinterpret_cast<const double2*>(p + 2);
+    x[0] = q0.x;
+    x[1] = q0.y;
+    x[2] = q1.x;
+    x[3] = q1.y;
+}
+
+// rows (kLd values each) of the n_u > 8 form's state region, 0 below:
+// gram [u vectors (3 n_u) | C (n_u) | M (n_u (n_u + 1) / 2)], direct
+// [u vectors (2 n_u) | residuals (direct_chunk) | gradient (n_u, past one
+// chunk)]
+__host__ __device__ __forceinline__ int state_rows(int n_s, int n_u,
+                                                   bool direct) {
+    if (n_u <= kRegNU) return 0;
+    if (direct) {
+        const int ch = direct_chunk(n_s);
+        return 2 * n_u + ch + (n_s > ch ? n_u : 0);
+    }
+    return 4 * n_u + n_u * (n_u + 1) / 2;
+}
+
+// rows that lead a block's shared memory in the wide and global layouts:
+// the Gram stage's chunk of Y and D, overlaid by the state region
+__host__ __device__ __forceinline__ int lead_rows(int n_s, int n_u,
+                                                  bool direct) {
+    const int ch2 = 2 * chunk_rows(n_s);
+    const int st = state_rows(n_s, n_u, direct);
+    return st > ch2 ? st : ch2;
+}
+
+// true where the state region does not fit one block's shared memory even
+// in the global layout (which holds nothing else): it then lives in device
+// memory (kGlobalState)
+__host__ __device__ __forceinline__ bool state_in_device(long long itemsize,
+                                                         int n_s, int n_u,
+                                                         bool direct) {
+    return itemsize * lead_rows(n_s, n_u, direct) * kLd > kSmemBlock;
+}
+
+// C and M of the gram form into the state rows (st: this thread's column
+// of the region, rows as state_rows), build_cm's sums in build_cm's
+// orders: chunk by chunk of n_u samples, each chunk's d_s and known
+// residual (kRoundAll: d_s y_s rounded) staged in the rows of u vectors 1
+// and 2, then C in tiles of kTile unknowns and M in tiles of kTile
+// entries of one row, each entry carried in a register over the chunk's
+// samples from its value after the last chunk. kRoundAll's c2 sums (the
+// rt part of C) use u vector 0's rows; C -= c2 at the end. kResidFirst
+// (K7) forms the known residual as K7's build_cm does.
+template <typename T, int RND, typename TY>
+__device__ __forceinline__ void build_cm_rows(
+        T* __restrict__ st, int nu, const TY* __restrict__ y,
+        const TY* __restrict__ d, int64_t ld, const T* __restrict__ rt,
+        const T* __restrict__ a1, const T* __restrict__ a2, int n_s,
+        int n_ct) {
+    T* c2 = st;
+    T* dq = st + nu * kLd;          // d_s of the chunk's samples
+    T* qq = dq + nu * kLd;          // their residual (or bf16(d_s y_s))
+    T* cc = qq + nu * kLd;
+    T* m = cc + nu * kLd;
+    for (int c0 = 0; c0 < n_s; c0 += nu) {
+        const int n_c = n_s - c0 < nu ? n_s - c0 : nu;
+        const bool first = c0 == 0;
+        for (int s = 0; s < n_c; ++s) {
+            const T dv = to_state(d[(c0 + s) * ld]);
+            const T yv = to_state(y[(c0 + s) * ld]);
+            dq[s * kLd] = dv;
+            if constexpr (RND == kRoundAll)
+                qq[s * kLd] = bf16r(dv * yv);
+            else
+                qq[s * kLd] = known_resid<RND == kResidFirst ? kResidFirst
+                                                             : kRoundNone>(
+                    yv, dv, rt, a1, c0 + s, n_s, n_ct);
+        }
+        const T* a2c = a2 + c0;
+        const T* a1c = a1 + c0;
+        for (int v0 = 0; v0 < nu; v0 += kTile) {
+            int vj[kTile];
+            T acc[kTile], acc2[kTile];
+#pragma unroll
+            for (int j = 0; j < kTile; ++j) {
+                vj[j] = v0 + j < nu ? v0 + j : nu - 1;
+                acc[j] = first ? T(0) : cc[vj[j] * kLd];
+                acc2[j] = (RND == kRoundAll && !first) ? c2[vj[j] * kLd]
+                                                       : T(0);
+            }
+            for (int s = 0; s < n_c; ++s) {
+                const T q = qq[s * kLd];
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    const T av = a2c[vj[j] * n_s + s];
+                    if constexpr (RND == kRoundAll) {
+                        acc[j] += bf16r(av) * q;
+                        const T dv = dq[s * kLd];
+                        for (int c = 0; c < n_ct; ++c)
+                            acc2[j] += bf16r(av * a1c[c * n_s + s])
+                                       * bf16r(dv * rt[c * kLd]);
+                    } else {
+                        acc[j] += av * q;
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < kTile; ++j) {
+                if (v0 + j < nu) {
+                    cc[vj[j] * kLd] = acc[j];
+                    if constexpr (RND == kRoundAll) c2[vj[j] * kLd] = acc2[j];
+                }
+            }
+        }
+        for (int v = 0; v < nu; ++v) {
+            T* mv = m + (v * nu - v * (v - 1) / 2 - v) * kLd;  // + w kLd
+            const T* av_row = a2c + v * n_s;
+            for (int w0 = v; w0 < nu; w0 += kTile) {
+                int wj[kTile];
+                T acc[kTile];
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    wj[j] = w0 + j < nu ? w0 + j : nu - 1;
+                    acc[j] = first ? T(0) : mv[wj[j] * kLd];
+                }
+                for (int s = 0; s < n_c; ++s) {
+                    const T av = av_row[s];
+                    const T dv = dq[s * kLd];
+#pragma unroll
+                    for (int j = 0; j < kTile; ++j) {
+                        T x = av * a2c[wj[j] * n_s + s];
+                        if constexpr (RND == kRoundAll) x = bf16r(x);
+                        acc[j] += x * dv;
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < kTile; ++j)
+                    if (w0 + j < nu) mv[wj[j] * kLd] = acc[j];
+            }
+        }
+    }
+    if constexpr (RND == kRoundAll) {
+        for (int v = 0; v < nu; ++v) cc[v * kLd] -= c2[v * kLd];
+    }
+}
+
+// The n_steps FISTA loop of the gram form on the state rows (u in u
+// vector 0, u_prev in 1; C and M as build_cm_rows left them): gram_steps'
+// arithmetic in its orders. u_t overwrites u_prev in place, M g is summed
+// in tiles of kTile unknowns over w in order (the packed index of
+// (v, w) advanced as w moves), and the new u goes to the free vector;
+// the three vectors then rotate. Returns the vectors holding u and
+// u_prev (u vector k at st + k n_u kLd).
+template <typename T, bool LAG>
+__device__ __forceinline__ int2 gram_steps_rows(
+        T* __restrict__ st, int nu, const T* __restrict__ beta_tab,
+        const T l_w, int n_steps) {
+    const T* cc = st + 3 * nu * kLd;
+    const T* m = cc + nu * kLd;
+    // u in vector a, u_prev in a + 1, the free one in a + 2 (mod 3)
+    int a = 0;
+    T beta_next = beta_tab[0];
+    for (int step = 0; step < n_steps; ++step) {
+        const T beta = beta_next;
+        beta_next = beta_tab[step + 1];
+        const int b = a == 2 ? 0 : a + 1, x = b == 2 ? 0 : b + 1;
+        const T* ua = st + a * nu * kLd;
+        T* ub = st + b * nu * kLd;
+        T* ux = st + x * nu * kLd;
+        for (int v = 0; v < nu; ++v) {
+            const T u = ua[v * kLd];
+            ub[v * kLd] = u + beta * (u - ub[v * kLd]);
+        }
+        const T* g = LAG ? ua : ub;
+        for (int v0 = 0; v0 < nu; v0 += kTile) {
+            int vj[kTile], k[kTile];
+            T mu[kTile];
+#pragma unroll
+            for (int j = 0; j < kTile; ++j) {
+                vj[j] = v0 + j < nu ? v0 + j : nu - 1;
+                k[j] = vj[j];                       // sym(0, v)
+                mu[j] = T(0);
+            }
+            for (int w = 0; w < nu; ++w) {
+                const T gw = g[w * kLd];
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    mu[j] += m[k[j] * kLd] * gw;
+                    k[j] += w < vj[j] ? nu - w - 1 : 1;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < kTile; ++j)
+                if (v0 + j < nu)
+                    ux[vj[j] * kLd] = clip01(
+                        ub[vj[j] * kLd] + (cc[vj[j] * kLd] - mu[j]) / l_w);
+        }
+        a = x;          // the new u; u_prev is the old u, in a + 1
+    }
+    return make_int2(a, a == 2 ? 0 : a + 1);
 }
 
 // The Gram stage's plan for one block (or one chunk of samples) of n_c

@@ -19,6 +19,18 @@ int dm_u_phase_grams_global_rows(int n_ct, int n_u, int direct, int bf16c) {
                        bf16c && !direct ? dm::kRoundAll : dm::kRoundNone);
 }
 
+// Rows of the n_u > 8 form's state region (129 values each; 0 at
+// n_u <= 8), and whether it lives in device memory (the global layout's
+// kGlobalState; the wrapper then allocates n_blocks of those rows)
+int dm_state_rows(int n_s, int n_u, int direct) {
+    return dm::state_rows(n_s, n_u, direct != 0);
+}
+
+int dm_state_in_device(int itemsize, int n_s, int n_u, int direct) {
+    return dm::state_rows(n_s, n_u, direct != 0) > 0
+           && dm::state_in_device(itemsize, n_s, n_u, direct != 0);
+}
+
 // The momentum-table prologue alone (K1/K4's slots, or with ph K7's):
 // member b's table at tab + b (n_steps + 1) from scal + b scal_stride.
 int dm_momentum_table_f32(void* scal, int scal_stride, int n_members,

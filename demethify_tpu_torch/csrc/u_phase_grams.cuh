@@ -60,7 +60,9 @@
 //   - C, M (its upper triangle: M is symmetric) and the FISTA state live
 //     in registers (n_u is a template parameter, 1..8), so the n_steps loop
 //     of the gram form touches no memory; above n_u = 8 one form keeps
-//     them in a scratch column per site (u_phase_common.cuh);
+//     them in a per-thread column of a state region in shared memory and
+//     sums their products in register tiles (u_phase_common.cuh, "the
+//     n_u > 8 form"; direct_steps_rows here);
 //   - resident layout: the site columns a block reads are staged in
 //     shared memory (row stride T + 1 against bank conflicts, cp.async
 //     for float32 and float64) and reused for the Gram sums, so Y, D and
@@ -109,8 +111,9 @@
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError(). Pointers
-// of an empty known block (n_ct = 0) are never dereferenced; `scratch` is
-// read only by the n_u > 8 form.
+// of an empty known block (n_ct = 0) are never dereferenced; `state` is
+// read only by the n_u > 8 form in the global layout, where its state
+// region passes the card's shared memory.
 
 #pragma once
 
@@ -124,7 +127,6 @@
 
 namespace {
 
-using dm::ColVec;
 using dm::kChunk;
 using dm::kLd;
 using dm::kRedThreads;
@@ -180,9 +182,181 @@ __device__ __forceinline__ void direct_steps(
     }
 }
 
-// One site's whole U phase on its state vectors u, up (registers, or
-// columns of the state rows) with the temporaries cc, m, t1, t2: the
-// C/M build and the gram steps, or the direct steps (t1, t2: ut, gr).
+// The n_steps FISTA loop of the direct form on the state rows of the
+// n_u > 8 form (u in u vector 0, u_prev in 1; u_phase_common.cuh), in
+// direct_steps' orders: u_t overwrites u_prev in place; then, chunk by
+// chunk of direct_chunk samples, each sample's model (summed over the
+// unknowns in order, kTile samples at a time in registers) and residual
+// into the residual rows, and each gradient entry summed over the chunk's
+// samples in order (kTile unknowns at a time) from its value after the
+// last chunk (the gradient rows), the last chunk writing the new u over
+// u_t. The two u vectors then swap. Returns the vectors holding u and
+// u_prev. In the resident layout a2 is the block's alpha table, rows of
+// pad4(n_s) values on 16 bytes, so the model reads four samples' alphas
+// in one load and the gradient four samples' alphas of an unknown (a
+// step reads each alpha twice, and these broadcast loads were most of
+// its shared-memory traffic); in the wide and global layouts a2 is the
+// (n_u, n_s) block in device memory, read one value at a time.
+template <typename T, bool LAG, bool WIDE, int RND, typename TY>
+__device__ __forceinline__ int2 direct_steps_rows(
+        T* __restrict__ st, int nu, const T* __restrict__ a1,
+        const T* __restrict__ a2, const T* __restrict__ res,
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        const T* __restrict__ rt, int n_s, int n_ct,
+        const T* __restrict__ beta_tab, const T l_w, int n_steps) {
+    using dm::kTile;
+    static_assert(kTile == 4, "the alpha table is read four values a load");
+    const int ch = dm::direct_chunk(n_s);
+    const int lda = WIDE ? n_s : dm::pad4(n_s);
+    T* rr = st + 2 * nu * kLd;              // residuals of the chunk
+    T* gg = rr + ch * kLd;                  // gradient, past one chunk
+    int a = 0;                              // u in vector a, u_prev in 1 - a
+    T beta_next = beta_tab[0];
+    for (int step = 0; step < n_steps; ++step) {
+        const T beta = beta_next;
+        beta_next = beta_tab[step + 1];
+        const T* ua = st + a * nu * kLd;
+        T* ub = st + (1 - a) * nu * kLd;
+        for (int v = 0; v < nu; ++v) {
+            const T u = ua[v * kLd];
+            ub[v * kLd] = u + beta * (u - ub[v * kLd]);
+        }
+        const T* g = LAG ? ua : ub;
+        for (int c0 = 0; c0 < n_s; c0 += ch) {
+            const int n_c = n_s - c0 < ch ? n_s - c0 : ch;
+            const bool first = c0 == 0, last = c0 + n_c == n_s;
+            for (int s0 = 0; s0 < n_c; s0 += kTile) {
+                T model[kTile];
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) model[j] = T(0);
+                if constexpr (WIDE) {
+                    int sj[kTile];
+#pragma unroll
+                    for (int j = 0; j < kTile; ++j)
+                        sj[j] = c0 + (s0 + j < n_c ? s0 + j : n_c - 1);
+                    for (int w = 0; w < nu; ++w) {
+                        const T gw = g[w * kLd];
+                        const T* aw = a2 + w * lda;
+#pragma unroll
+                        for (int j = 0; j < kTile; ++j)
+                            model[j] += aw[sj[j]] * gw;
+                    }
+                } else {
+                    // the table's padding past n_s feeds lanes never kept
+                    for (int w = 0; w < nu; ++w) {
+                        const T gw = g[w * kLd];
+                        T aw[kTile];
+                        dm::load4(a2 + w * lda + c0 + s0, aw);
+#pragma unroll
+                        for (int j = 0; j < kTile; ++j) model[j] += aw[j] * gw;
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    if (s0 + j < n_c) {
+                        const int s = c0 + s0 + j;
+                        T r;
+                        if constexpr (WIDE) {
+                            const T dv = dm::to_state(d[s * ld]);
+                            r = dm::known_resid<RND>(dm::to_state(y[s * ld]),
+                                                     dv, rt, a1, s, n_s, n_ct)
+                                - dv * model[j];
+                        } else {
+                            r = res[s * kLd] - d[s * ld] * model[j];
+                        }
+                        rr[(s0 + j) * kLd] = r;
+                    }
+                }
+            }
+            for (int v0 = 0; v0 < nu; v0 += kTile) {
+                int vj[kTile];
+                T gr[kTile];
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    vj[j] = v0 + j < nu ? v0 + j : nu - 1;
+                    gr[j] = first ? T(0) : gg[vj[j] * kLd];
+                }
+                const T* a2c = a2 + c0;
+                if constexpr (WIDE) {
+                    for (int s = 0; s < n_c; ++s) {
+                        const T r = rr[s * kLd];
+#pragma unroll
+                        for (int j = 0; j < kTile; ++j)
+                            gr[j] += a2c[vj[j] * lda + s] * r;
+                    }
+                } else {
+                    // four samples a load; the chunk's last quad guarded,
+                    // so each sum still adds its samples alone, in order
+                    for (int s = 0; s < n_c; s += kTile) {
+                        const bool full = s + kTile <= n_c;
+                        T r[kTile];
+#pragma unroll
+                        for (int k = 0; k < kTile; ++k)
+                            r[k] = (full || s + k < n_c) ? rr[(s + k) * kLd]
+                                                         : T(0);
+#pragma unroll
+                        for (int j = 0; j < kTile; ++j) {
+                            T aw[kTile];
+                            dm::load4(a2c + vj[j] * lda + s, aw);
+#pragma unroll
+                            for (int k = 0; k < kTile; ++k)
+                                if (full || s + k < n_c) gr[j] += aw[k] * r[k];
+                        }
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < kTile; ++j) {
+                    if (v0 + j < nu) {
+                        if (last)
+                            ub[vj[j] * kLd] = dm::clip01(ub[vj[j] * kLd]
+                                                         + gr[j] / l_w);
+                        else
+                            gg[vj[j] * kLd] = gr[j];
+                    }
+                }
+            }
+        }
+        a = 1 - a;
+    }
+    return make_int2(a, 1 - a);
+}
+
+// One site's U phase in the n_u > 8 form on its column st of the state
+// region: the known-block residual rows (resident direct form), u and
+// u_prev loaded from the state rows uu (stride n), the C/M build and the
+// gram steps, or the direct steps. Returns the u vectors holding u and
+// u_prev.
+template <typename T, bool DIRECT, int RND, bool WIDE, typename TY>
+__device__ __forceinline__ int2 site_phase_rows(
+        T* __restrict__ st, int nu, const T* __restrict__ uu, int64_t n,
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        const T* __restrict__ rt, const T* __restrict__ a1,
+        const T* __restrict__ a2, T* __restrict__ res, int n_s, int n_ct,
+        const T* __restrict__ tab, T l_w, int n_steps, bool lagged) {
+    if constexpr (!DIRECT)
+        dm::build_cm_rows<T, RND>(st, nu, y, d, ld, rt, a1, a2, n_s, n_ct);
+    else if constexpr (!WIDE)
+        for (int s = 0; s < n_s; ++s)
+            res[s * kLd] = dm::known_resid<RND>(y[s * ld], d[s * ld], rt, a1,
+                                                s, n_s, n_ct);
+    for (int v = 0; v < 2 * nu; ++v) st[v * kLd] = uu[v * n];
+    if constexpr (!DIRECT)
+        return lagged ? dm::gram_steps_rows<T, true>(st, nu, tab, l_w,
+                                                     n_steps)
+                      : dm::gram_steps_rows<T, false>(st, nu, tab, l_w,
+                                                      n_steps);
+    else
+        return lagged ? direct_steps_rows<T, true, WIDE, RND>(
+                            st, nu, a1, a2, res, y, d, ld, rt, n_s, n_ct,
+                            tab, l_w, n_steps)
+                      : direct_steps_rows<T, false, WIDE, RND>(
+                            st, nu, a1, a2, res, y, d, ld, rt, n_s, n_ct,
+                            tab, l_w, n_steps);
+}
+
+// One site's whole U phase on its state vectors u, up (registers) with
+// the temporaries cc, m, t1, t2: the C/M build and the gram steps, or the
+// direct steps (t1, t2: ut, gr).
 template <typename T, int NU, bool DIRECT, int RND, bool WIDE, typename TY,
           class VU, class VC, class VM>
 __device__ __forceinline__ void site_phase(
@@ -225,32 +399,45 @@ __host__ __device__ __forceinline__ int global_rows(int n_ct, int n_u,
     return n_ct + n_u + (rnd == dm::kRoundAll ? n_u : 0);
 }
 
+// The main pass's body; u_phase_grams_kernel and, for the n_u > 8 gram
+// form, u_phase_grams_state_kernel below are its two entry points.
 template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
-__global__ void __launch_bounds__(kSites)
-u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
-                     const T* __restrict__ a1b, const T* __restrict__ a2b,
-                     T* __restrict__ uut, const T* __restrict__ scal,
-                     const T* __restrict__ tab, T* __restrict__ partials,
-                     T* __restrict__ scratch, T* __restrict__ rowbuf,
-                     int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-                     int n_blocks, int lagged) {
+__device__ __forceinline__ void main_pass(
+        const TD* __restrict__ ydt, const TD* __restrict__ rtt,
+        const T* __restrict__ a1b, const T* __restrict__ a2b,
+        T* __restrict__ uut, const T* __restrict__ scal,
+        const T* __restrict__ tab, T* __restrict__ partials,
+        T* __restrict__ state, T* __restrict__ rowbuf, int64_t n, int n_s,
+        int n_ct, int n_u, int n_steps, int n_blocks, int lagged) {
     constexpr bool WIDE = LAYOUT != dm::kResident;
-    constexpr bool GLOBAL = LAYOUT == dm::kGlobal;
+    constexpr bool GLOBAL = LAYOUT >= dm::kGlobal;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
     // staged Y (and D) rows
     const int rows = WIDE ? dm::chunk_rows(n_s) : n_s;
     T* s_y = reinterpret_cast<T*>(smem_raw);
+    // the resident direct form above n_u = 8 leads with its alpha table:
+    // a2's rows padded to pad4(n_s) values, on 16 bytes (direct_steps_rows)
+    constexpr bool TABLE = NU == 0 && DIRECT && !WIDE;
+    if constexpr (TABLE) s_y += nu * dm::pad4(n_s);
     T* s_d = s_y + rows * kLd;
     // p rows: [Rt | u] (global: this block's region of rowbuf)
     T* s_r = GLOBAL ? rowbuf + static_cast<int64_t>(blockIdx.x)
                                    * global_rows(n_ct, nu, RND) * kLd
                     : s_d + rows * kLd;
+    // above n_u = 8 the wide layout's staged rows are its lead rows, which
+    // the state region overlays
+    if constexpr (NU == 0 && WIDE && !GLOBAL)
+        s_r = s_y + dm::lead_rows(n_s, nu, DIRECT) * kLd;
     T* s_a1 = s_r + p * kLd;                    // resident: (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // resident: (nu, n_s)
     // resident direct form: n_s rows of dres; kRoundAll: nu rows, raw u
     T* s_x = WIDE ? s_a1 : s_a2 + nu * n_s;
+    if constexpr (TABLE) {
+        s_a2 = reinterpret_cast<T*>(smem_raw);
+        s_x = s_a1 + n_ct * n_s;
+    }
 
     const int tid = threadIdx.x;
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
@@ -259,7 +446,15 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
     const T* a2 = a2b;
     if constexpr (!WIDE) {
         for (int k = tid; k < n_ct * n_s; k += kSites) s_a1[k] = a1b[k];
-        for (int k = tid; k < nu * n_s; k += kSites) s_a2[k] = a2b[k];
+        if constexpr (TABLE) {
+            const int lda = dm::pad4(n_s);
+            for (int k = tid; k < nu * lda; k += kSites) {
+                const int s = k % lda;
+                s_a2[k] = s < n_s ? a2b[(k / lda) * n_s + s] : T(0);
+            }
+        } else {
+            for (int k = tid; k < nu * n_s; k += kSites) s_a2[k] = a2b[k];
+        }
         a1 = s_a1;
         a2 = s_a2;
         dm::stage_rows(s_y, ydt, 0, n_s, i, live, n, tid);
@@ -313,19 +508,44 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
                 uut[(NU + v) * n + i] = up[v];
             }
         } else {
-            // u, u_prev updated in place in the state rows; C, M and the
-            // temporaries in this site's scratch column
-            const int nm = nu * (nu + 1) / 2;
-            ColVec<T> u{uut + i, n}, up{uut + static_cast<int64_t>(nu) * n + i,
-                                        n};
-            ColVec<T> cc{scratch + i, n};
-            ColVec<T> m{scratch + static_cast<int64_t>(DIRECT ? 0 : nu) * n
-                            + i, n};
-            ColVec<T> t1{scratch
-                             + static_cast<int64_t>(DIRECT ? 0 : nu + nm) * n
-                             + i, n};
-            ColVec<T> t2{t1.p + static_cast<int64_t>(nu) * n, n};
-            run(u, up, cc, m, t1, t2);
+            // the state in this thread's column of the state region: after
+            // the resident layout's rows, over the lead rows, or in this
+            // block's part of the state buffer
+            T* region;
+            if constexpr (LAYOUT == dm::kGlobalState)
+                region = state + static_cast<int64_t>(blockIdx.x)
+                                     * dm::state_rows(n_s, nu, DIRECT) * kLd;
+            else if constexpr (WIDE)
+                region = s_y;
+            else
+                region = s_x + (DIRECT ? n_s
+                                       : (RND == dm::kRoundAll ? nu : 0))
+                                   * kLd;
+            T* st = region + tid;
+            int2 slot;
+            if constexpr (WIDE)
+                slot = site_phase_rows<T, DIRECT, RND, WIDE>(
+                    st, nu, uut + i, n, ydt + i,
+                    ydt + static_cast<int64_t>(n_s) * n + i, n, s_r + tid,
+                    a1, a2, s_x + tid, n_s, n_ct, tab, l_w, n_steps, lagged);
+            else
+                slot = site_phase_rows<T, DIRECT, RND, WIDE>(
+                    st, nu, uut + i, n, s_y + tid, s_d + tid, int64_t(kLd),
+                    s_r + tid, a1, a2, s_x + tid, n_s, n_ct, tab, l_w,
+                    n_steps, lagged);
+            const T* u = st + slot.x * nu * kLd;
+            const T* up = st + slot.y * nu * kLd;
+            for (int v = 0; v < nu; ++v) {
+                const T uv = u[v * kLd];
+                uut[v * n + i] = uv;
+                uut[(nu + v) * n + i] = up[v * kLd];
+                if constexpr (RND == dm::kRoundAll) {
+                    u_rows[v * kLd] = dm::bf16r(uv);
+                    s_x[v * kLd + tid] = uv;
+                } else {
+                    u_rows[v * kLd] = uv;
+                }
+            }
         }
     } else {
 #pragma unroll
@@ -347,37 +567,93 @@ u_phase_grams_kernel(const TD* __restrict__ ydt, const TD* __restrict__ rtt,
             partials + blockIdx.x, n_blocks, s_x);
 }
 
+#define DM_K1_PARAMS                                                        \
+    const TD *__restrict__ ydt, const TD *__restrict__ rtt,                 \
+        const T *__restrict__ a1b, const T *__restrict__ a2b,               \
+        T *__restrict__ uut, const T *__restrict__ scal,                    \
+        const T *__restrict__ tab, T *__restrict__ partials,                \
+        T *__restrict__ state, T *__restrict__ rowbuf, int64_t n, int n_s,  \
+        int n_ct, int n_u, int n_steps, int n_blocks, int lagged
+#define DM_K1_ARGS                                                          \
+    ydt, rtt, a1b, a2b, uut, scal, tab, partials, state, rowbuf, n, n_s,    \
+        n_ct, n_u, n_steps, n_blocks, lagged
+
+template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
+__global__ void __launch_bounds__(kSites) u_phase_grams_kernel(DM_K1_PARAMS) {
+    main_pass<T, TD, NU, DIRECT, RND, LAYOUT>(DM_K1_ARGS);
+}
+
+// The n_u > 8 gram form's entry point: its state region and staged rows
+// leave one to four blocks an SM (n_s = 100), so registers do not bound
+// its occupancy, and telling ptxas so (a minimum of one block) lets it
+// keep more of the C/M build's and the Gram stage's values in registers:
+// on an H100 about 20% off K1 at n_u = 12 in float64, where the default
+// allocation gave it 96 registers (chip_smoke.time_state_forms, PERF.md).
+// The direct form keeps the default: its resident layout fits up to six
+// blocks, and the same attribute cost it 6% at n_u = 9. (K4's n_u > 8
+// form gained 1-2% from it, and splitting K4's kernel moved three of its
+// register forms' allocations, so K4 keeps one kernel.)
+template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
+__global__ void __launch_bounds__(kSites, 1)
+u_phase_grams_state_kernel(DM_K1_PARAMS) {
+    main_pass<T, TD, NU, DIRECT, RND, LAYOUT>(DM_K1_ARGS);
+}
+
+#undef DM_K1_PARAMS
+#undef DM_K1_ARGS
+
 // shared memory of the main pass; itemsize is the state's (the staged
-// data rows are of the state type whatever the data's)
+// data rows are of the state type whatever the data's). Above n_u = 8 the
+// state region adds its rows: after the resident layout's, over the lead
+// rows of the wide and global layouts; where the global layout's lead rows
+// pass the card's limit, the region moves to device memory and shared
+// memory holds one chunk of Y and D (kGlobalState).
 size_t smem_bytes(int layout, size_t itemsize, int n_s, int n_ct, int n_u,
                   bool direct, int rnd) {
     const size_t p = static_cast<size_t>(n_ct + n_u);
     const size_t x_rows = rnd == dm::kRoundAll ? n_u : 0;
-    if (layout == dm::kGlobal)
-        return itemsize * 2 * dm::chunk_rows(n_s) * kLd;
-    if (layout == dm::kWide)
+    const size_t lead = dm::lead_rows(n_s, n_u, direct);
+    if (layout >= dm::kGlobal)
         return itemsize
-               * ((2 * dm::chunk_rows(n_s) + p + x_rows) * kLd);
+               * (dm::state_in_device(itemsize, n_s, n_u, direct)
+                      ? 2 * dm::chunk_rows(n_s) : lead)
+               * kLd;
+    if (layout == dm::kWide)
+        return itemsize * ((lead + p + x_rows) * kLd);
     const size_t rows = 2 * static_cast<size_t>(n_s) + p
-                        + (direct ? static_cast<size_t>(n_s) : 0) + x_rows;
-    return itemsize * (rows * kLd + p * n_s);
+                        + (direct ? static_cast<size_t>(n_s) : 0) + x_rows
+                        + dm::state_rows(n_s, n_u, direct);
+    // the alpha blocks; above n_u = 8 the direct form's a2 as its table
+    const size_t alpha = direct && n_u > dm::kRegNU
+                             ? static_cast<size_t>(n_ct) * n_s
+                                   + static_cast<size_t>(n_u)
+                                         * dm::pad4(n_s)
+                             : p * n_s;
+    return itemsize * (rows * kLd + alpha);
 }
 
 template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* tab, void* partials, void* out,
-           void* scratch, void* rowbuf, int64_t n, int n_s, int n_ct,
+           void* state, void* rowbuf, int64_t n, int n_s, int n_ct,
            int n_u, int n_steps, int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
     int err0 = dm::launch_momentum_table<T, false>(
         static_cast<T*>(scal), 0, 1, static_cast<T*>(tab), n_steps, stream);
     if (err0 != 0) return err0;
-    if (LAYOUT == dm::kGlobal && rowbuf == nullptr)
+    if ((LAYOUT >= dm::kGlobal && rowbuf == nullptr)
+        || (LAYOUT == dm::kGlobalState && state == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = smem_bytes(LAYOUT, sizeof(T), n_s, n_ct, n_u, DIRECT,
                                    RND);
-    auto kern = u_phase_grams_kernel<T, TD, NU, DIRECT, RND, LAYOUT>;
+    auto kern = [] {
+        if constexpr (NU == 0 && !DIRECT)
+            return u_phase_grams_state_kernel<T, TD, NU, DIRECT, RND,
+                                              LAYOUT>;
+        else
+            return u_phase_grams_kernel<T, TD, NU, DIRECT, RND, LAYOUT>;
+    }();
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,7 +665,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
         static_cast<const T*>(tab), static_cast<T*>(partials),
-        static_cast<T*>(scratch), static_cast<T*>(rowbuf), n, n_s, n_ct,
+        static_cast<T*>(state), static_cast<T*>(rowbuf), n, n_s, n_ct,
         n_u, n_steps, n_blocks, lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -403,13 +679,13 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
 template <typename T, typename TD, bool DIRECT, int RND, int LAYOUT>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 const void* a2b, void* uut, void* scal, void* tab,
-                void* partials, void* out, void* scratch, void* rowbuf,
+                void* partials, void* out, void* state, void* rowbuf,
                 int64_t n, int n_s, int n_ct, int n_u, int n_steps,
                 int lagged, cudaStream_t st) {
 #define DM_K1_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, DIRECT, RND, LAYOUT>(                      \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,     \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,     \
             rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
@@ -419,13 +695,21 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
             if constexpr (!DIRECT)
                 return launch<T, TD, 1, false, RND, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    scratch, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                    state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return static_cast<int>(cudaErrorInvalidValue);
         default:
-            if (n_u < 1 || scratch == nullptr)
-                return static_cast<int>(cudaErrorInvalidValue);
+            // n_u > 8: the state region in shared memory, or (global
+            // layout, past the card's shared memory) in device memory
+            if (n_u < 1) return static_cast<int>(cudaErrorInvalidValue);
+            if constexpr (LAYOUT == dm::kGlobal) {
+                if (dm::state_in_device(sizeof(T), n_s, n_u, DIRECT))
+                    return launch<T, TD, 0, DIRECT, RND, dm::kGlobalState>(
+                        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
+                        state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged,
+                        st);
+            }
             return launch<T, TD, 0, DIRECT, RND, LAYOUT>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
                 rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K1_CASE
@@ -436,7 +720,7 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
 template <typename T, typename TD, int LAYOUT>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              const void* a2b, void* uut, void* scal, void* tab,
-             void* partials, void* out, void* scratch, void* rowbuf,
+             void* partials, void* out, void* state, void* rowbuf,
              int64_t n, int n_s, int n_ct, int n_u, int n_steps, int lagged,
              int direct, int bf16c, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -445,18 +729,18 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
             if (direct)
                 return dispatch_nu<T, TD, true, dm::kRoundDy, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    scratch, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                    state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return dispatch_nu<T, TD, false, dm::kRoundAll, LAYOUT>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
                 rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
         }
     }
     if (direct)
         return dispatch_nu<T, TD, true, dm::kRoundNone, LAYOUT>(
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
             rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
     return dispatch_nu<T, TD, false, dm::kRoundNone, LAYOUT>(
-        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch, rowbuf,
+        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, rowbuf,
         n, n_s, n_ct, n_u, n_steps, lagged, st);
 }
 
@@ -468,11 +752,14 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //     shared memory in bytes (itemsize is the state's), which the wrapper
 //     checks against the card's limit before launching;
 //   PREFIX_{f32,f64}(ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-//     scratch, rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream):
+//     state, rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream):
 //     tab is room for the momentum table, n_steps + 1 values of the state
 //     type; rows the global layout's buffer, n_blocks x
 //     dm_u_phase_grams_global_rows(...) x 129 values of the state type
-//     (read by that layout only);
+//     (read by that layout only); state the n_u > 8 form's state regions
+//     where they live in device memory (the global layout where
+//     dm_state_in_device says so; NULL otherwise), n_blocks x
+//     dm_state_rows(...) x 129 values of the state type;
 //   PREFIX_bf16(..., direct, bf16c, stream): bf16 data with a float32
 //     state; bf16c the bf16_compute form.
 #define DM_K1_EXPORTS(PREFIX, LAYOUT)                                        \
@@ -487,29 +774,29 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
     }                                                                        \
     int PREFIX##_f32(const void* ydt, const void* rtt, const void* a1b,      \
                      const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* scratch, void* rows,   \
+                     void* partials, void* out, void* state, void* rows,   \
                      long long n, int n_s, int n_ct, int n_u, int n_steps,   \
                      int lagged, int direct, void* stream) {                 \
         return dispatch<float, float, LAYOUT>(                               \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
             rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
     }                                                                        \
     int PREFIX##_f64(const void* ydt, const void* rtt, const void* a1b,      \
                      const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* scratch, void* rows,   \
+                     void* partials, void* out, void* state, void* rows,   \
                      long long n, int n_s, int n_ct, int n_u, int n_steps,   \
                      int lagged, int direct, void* stream) {                 \
         return dispatch<double, double, LAYOUT>(                             \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
             rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
     }                                                                        \
     int PREFIX##_bf16(const void* ydt, const void* rtt, const void* a1b,     \
                       const void* a2b, void* uut, void* scal, void* tab,     \
-                      void* partials, void* out, void* scratch, void* rows,  \
+                      void* partials, void* out, void* state, void* rows,  \
                       long long n, int n_s, int n_ct, int n_u, int n_steps,  \
                       int lagged, int direct, int bf16c, void* stream) {     \
         return dispatch<float, __nv_bfloat16, LAYOUT>(                       \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, scratch,      \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
             rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, bf16c,         \
             stream);                                                         \
     }                                                                        \

@@ -57,7 +57,12 @@
 //     their chains interleave and the site's Y, D and Rt values are read
 //     once for both (measured: 1.00-1.02 against 1.15-1.16 ms one at a
 //     time, B = 16). Per member the arithmetic is K1's (u_phase_common.cuh
-//     build_cm, gram_steps), so every member follows K1 bit for bit;
+//     build_cm, gram_steps), so every member follows K1 bit for bit.
+//     Above n_u = 8 a member's state lives on the chip as K1's does: in
+//     the thread's column of one state region a block (build_cm_rows,
+//     gram_steps_rows), which each member's loop reuses; it adds
+//     state_rows to the block's shared memory once, not per member
+//     (k4_smem), and overlays the wide and global layouts' chunk rows;
 //   - one barrier, then ONE Gram stage over the group's G E entries
 //     (group_grams, plan k4_gram_plan): where the tiles give each of the
 //     128 threads one at least, register tiles whose rows run across the
@@ -116,9 +121,6 @@ namespace dm {
 // ---- the member plan (ops/cuda_multi.k4_member_plan is the same) -------
 
 constexpr int kGroupBlocks = 4;     // blocks per SM a member group keeps
-constexpr long long kSmemPerSm = 233472;   // bytes of shared memory an SM has
-constexpr long long kSmemBlock = 232448;   // bytes a block may opt into
-constexpr long long kSmemReserve = 1024;   // bytes the card keeps per block
 // Gram tiles of a member group: samples per tile, left rows (member,
 // unknown) per cross tile (x kTileQ rows of Rt), (member, v, w) pairs per
 // self tile, left rows per b_u tile
@@ -137,19 +139,30 @@ __host__ __device__ __forceinline__ long long k4_global_rows(
 
 // shared memory of a group of `group` members (group = 1: the one-member
 // bytes the layout rule reads, the *_smem export); layout kResident,
-// kWide or kGlobal (one chunk of Y and D alone)
+// kWide or kGlobal (the lead rows alone). Above n_u = 8 the members' state
+// region (state_rows of the gram form: one region a block, each member's
+// loop reusing it) adds its rows: after the resident layout's, over the
+// lead rows of the wide and global layouts; where the global layout's
+// lead rows pass the card's limit, the region lives in device memory
+// (kGlobalState) and shared memory holds one chunk of Y and D.
 __host__ __device__ __forceinline__ long long k4_smem(
         int layout, long long itemsize, int n_s, int n_ct, int n_u,
         bool weighted, int group) {
-    if (layout == kGlobal) return itemsize * 2 * chunk_rows(n_s) * kLd;
+    const long long lead = lead_rows(n_s, n_u, false);
+    if (layout >= kGlobal)
+        return itemsize
+               * (state_in_device(itemsize, n_s, n_u, false)
+                      ? 2 * chunk_rows(n_s) : lead)
+               * kLd;
     const bool wide = layout == kWide;
-    const long long rows = wide ? chunk_rows(n_s) : n_s;
     const long long u_rows = static_cast<long long>(group) * n_u
                              * (weighted ? 2 : 1);
     const long long alpha = wide ? 0
                                  : static_cast<long long>(group)
                                        * (n_ct + n_u) * n_s;
-    return itemsize * ((2 * rows + n_ct + u_rows) * kLd + alpha);
+    const long long rows = wide ? lead
+                                : 2LL * n_s + state_rows(n_s, n_u, false);
+    return itemsize * ((rows + n_ct + u_rows) * kLd + alpha);
 }
 
 struct K4MemberPlan {
@@ -173,7 +186,7 @@ __host__ __device__ __forceinline__ K4MemberPlan k4_member_plan(
     fit = fit < 16 ? fit : 16;                     // 2048 threads an SM
     g.blocks = static_cast<int>(fit < kGroupBlocks ? fit : kGroupBlocks);
     if (g.blocks < 1) g.blocks = 1;
-    if (layout == kGlobal) {
+    if (layout >= kGlobal) {
         g.group = n_b < kGlobalGroup ? n_b : kGlobalGroup;
         g.smem = one;
         return g;
@@ -239,7 +252,6 @@ __host__ __device__ __forceinline__ K4GramPlan k4_gram_plan(int n_c,
 
 namespace {
 
-using dm::ColVec;
 using dm::kChunk;
 using dm::kGB;
 using dm::kGL;
@@ -585,11 +597,11 @@ u_phase_grams_multi_kernel(
         const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
         const T* __restrict__ tab, const int* __restrict__ list,
-        T* __restrict__ partials, T* __restrict__ scratch,
+        T* __restrict__ partials, T* __restrict__ state,
         T* __restrict__ rowbuf, int64_t n, int n_s, int n_ct, int n_u,
         int n_steps, int n_members, int group, int lagged) {
     constexpr bool WIDE = LAYOUT != dm::kResident;
-    constexpr bool GLOBAL = LAYOUT == dm::kGlobal;
+    constexpr bool GLOBAL = LAYOUT >= dm::kGlobal;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
@@ -602,6 +614,10 @@ u_phase_grams_multi_kernel(
                                     * dm::k4_global_rows(n_ct, nu, W, group)
                                     * kLd
                      : s_d + rows * kLd;            // n_ct rows
+    // above n_u = 8 the wide layout's staged rows are its lead rows, which
+    // the state region overlays
+    if constexpr (NU == 0 && WIDE && !GLOBAL)
+        s_rt = s_y + dm::lead_rows(n_s, nu, false) * kLd;
     T* s_u = s_rt + n_ct * kLd;                     // group n_u rows of u
     T* s_wu = s_u + group * nu * kLd;               // W: their w u rows
     T* s_a = s_wu + (W ? group * nu * kLd : 0);     // resident: alpha blocks
@@ -759,15 +775,48 @@ u_phase_grams_multi_kernel(
                         ub[(NU + v) * n + i] = up[v];
                     }
                 } else {
-                    // u, u_prev updated in place in the member's state
-                    // rows; C, M and the temporaries in this site's
-                    // scratch column (reused by the next member)
-                    const int64_t nm = nu * (nu + 1) / 2;
-                    ColVec<T> u{ub + i, n}, up{ub + nu * n + i, n};
-                    ColVec<T> cc{scratch + i, n}, m{scratch + nu * n + i, n};
-                    ColVec<T> t1{scratch + (nu + nm) * n + i, n};
-                    ColVec<T> t2{scratch + (2 * nu + nm) * n + i, n};
-                    run(u, up, cc, m, t1, t2);
+                    // the member's state in this thread's column of the
+                    // block's state region (K1's n_u > 8 form; the next
+                    // member reuses it): after the alpha blocks, over the
+                    // lead rows, or in this block's part of the state
+                    // buffer. C/M, then the steps on u, u_prev
+                    T* region;
+                    if constexpr (LAYOUT == dm::kGlobalState)
+                        region = state
+                                 + static_cast<int64_t>(blockIdx.x)
+                                       * dm::state_rows(n_s, nu, false)
+                                       * kLd;
+                    else if constexpr (WIDE)
+                        region = s_y;
+                    else
+                        region = s_a + group * p * n_s;
+                    T* st = region + tid;
+                    if constexpr (WIDE)
+                        dm::build_cm_rows<T, dm::kRoundNone>(
+                            st, nu, ydt + i,
+                            ydt + static_cast<int64_t>(n_s) * n + i, n,
+                            s_rt + tid, a1, a2, n_s, n_ct);
+                    else
+                        dm::build_cm_rows<T, dm::kRoundNone>(
+                            st, nu, s_y + tid, s_d + tid, int64_t(kLd),
+                            s_rt + tid, a1, a2, n_s, n_ct);
+                    for (int v = 0; v < 2 * nu; ++v)
+                        st[v * kLd] = ub[v * n + i];
+                    const T l_w = sc[dm::kLW];
+                    const int2 slot =
+                        lagged ? dm::gram_steps_rows<T, true>(st, nu, tb, l_w,
+                                                              n_steps)
+                               : dm::gram_steps_rows<T, false>(st, nu, tb,
+                                                               l_w, n_steps);
+                    const T* u = st + slot.x * nu * kLd;
+                    const T* up = st + slot.y * nu * kLd;
+                    for (int v = 0; v < nu; ++v) {
+                        const T uv = u[v * kLd];
+                        ub[v * n + i] = uv;
+                        ub[(nu + v) * n + i] = up[v * kLd];
+                        u_rows[v * kLd] = uv;
+                        if constexpr (W) wu_rows[v * kLd] = wi * uv;
+                    }
                 }
             } else {
 #pragma unroll
@@ -798,6 +847,7 @@ u_phase_grams_multi_kernel(
         }
     }
 }
+
 
 // The launch's prologue: warp b < B writes member b's momentum table
 // (momentum_table_kernel's arithmetic, the betas then the advanced
@@ -904,10 +954,11 @@ template <typename T, typename TD, int NU, bool W, int LAYOUT>
 int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
-           void* tab, void* list, void* partials, void* out, void* scratch,
+           void* tab, void* list, void* partials, void* out, void* state,
            void* rowbuf, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
            int n_members, int lagged, cudaStream_t stream) {
-    if (LAYOUT == dm::kGlobal && rowbuf == nullptr)
+    if ((LAYOUT >= dm::kGlobal && rowbuf == nullptr)
+        || (LAYOUT == dm::kGlobalState && state == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     k4_prologue_kernel<T><<<n_members + 1, 32, 0, stream>>>(
@@ -931,7 +982,7 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
         static_cast<const T*>(scal), scal_stride, static_cast<const T*>(tab),
         static_cast<const int*>(list), static_cast<T*>(partials),
-        static_cast<T*>(scratch), static_cast<T*>(rowbuf), n, n_s, n_ct,
+        static_cast<T*>(state), static_cast<T*>(rowbuf), n, n_s, n_ct,
         n_u, n_steps, n_members, plan.group, lagged);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -959,24 +1010,33 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
                 int scal_stride, void* tab, void* list, void* partials,
-                void* out, void* scratch, void* rowbuf, long long n, int n_s,
+                void* out, void* state, void* rowbuf, long long n, int n_s,
                 int n_ct, int n_u, int n_steps, int n_members, int lagged,
                 cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, W, LAYOUT>(                                \
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,     \
-            scal, scal_stride, tab, list, partials, out, scratch, rowbuf,   \
+            scal, scal_stride, tab, list, partials, out, state, rowbuf,   \
             n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
         default:
-            if (n_u < 1 || scratch == nullptr)
-                return static_cast<int>(cudaErrorInvalidValue);
+            // n_u > 8: the state region in shared memory, or (global
+            // layout, past the card's shared memory) in device memory
+            if (n_u < 1) return static_cast<int>(cudaErrorInvalidValue);
+            if constexpr (LAYOUT == dm::kGlobal) {
+                if (dm::state_in_device(sizeof(T), n_s, n_u, false))
+                    return launch<T, TD, 0, W, dm::kGlobalState>(
+                        ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w,
+                        w_stride, scal, scal_stride, tab, list, partials,
+                        out, state, rowbuf, n, n_s, n_ct, n_u, n_steps,
+                        n_members, lagged, st);
+            }
             return launch<T, TD, 0, W, LAYOUT>(
                 ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,
-                scal, scal_stride, tab, list, partials, out, scratch, rowbuf,
+                scal, scal_stride, tab, list, partials, out, state, rowbuf,
                 n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
     }
 #undef DM_K4_CASE
@@ -987,7 +1047,7 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
              int scal_stride, void* tab, void* list, void* partials,
-             void* out, void* scratch, void* rowbuf, long long n, int n_s,
+             void* out, void* state, void* rowbuf, long long n, int n_s,
              int n_ct, int n_u, int n_steps, int n_members, int lagged,
              void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -995,11 +1055,11 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
     if (w != nullptr)
         return dispatch_nu<T, TD, true, LAYOUT>(
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-            scal_stride, tab, list, partials, out, scratch, rowbuf, n, n_s,
+            scal_stride, tab, list, partials, out, state, rowbuf, n, n_s,
             n_ct, n_u, n_steps, n_members, lagged, st);
     return dispatch_nu<T, TD, false, LAYOUT>(
         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-        scal_stride, tab, list, partials, out, scratch, rowbuf, n, n_s, n_ct,
+        scal_stride, tab, list, partials, out, state, rowbuf, n, n_s, n_ct,
         n_u, n_steps, n_members, lagged, st);
 }
 
@@ -1011,12 +1071,15 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //     memory in bytes (what the layout rule compares; a launch takes
 //     k4_member_plan's group bytes);
 //   PREFIX_{f32,f64,bf16}(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-//     w, w_stride, scal, scal_stride, tab, list, partials, out, scratch,
+//     w, w_stride, scal, scal_stride, tab, list, partials, out, state,
 //     rows, n, n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the
 //     members' weight rows (B, w_stride) or NULL (unweighted); list room
 //     for B + 1 ints; rows the global layout's buffer, n_blocks x
 //     dm_k4_global_rows(...) x 129 values of the state type (read by that
-//     layout only); bf16: bf16 data with a float32 state and float32
+//     layout only); state the n_u > 8 form's state regions where they
+//     live in device memory (the global layout where dm_state_in_device
+//     says so; NULL otherwise), n_blocks x dm_state_rows(n_s, n_u, 0) x
+//     129 values; bf16: bf16 data with a float32 state and float32
 //     weight rows.
 #define DM_K4_ENTRY(PREFIX, SUFFIX, T, TD, LAYOUT)                           \
     int PREFIX##SUFFIX(const void* ydt, const void* rtt, const void* a1b,    \
@@ -1024,13 +1087,13 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
                        long long a2_stride, void* uut, const void* w,        \
                        long long w_stride, void* scal, int scal_stride,      \
                        void* tab, void* list, void* partials, void* out,     \
-                       void* scratch, void* rows, long long n, int n_s,      \
+                       void* state, void* rows, long long n, int n_s,      \
                        int n_ct, int n_u, int n_steps, int n_members,        \
                        int lagged, void* stream) {                           \
         return dispatch<T, TD, LAYOUT>(ydt, rtt, a1b, a1_stride, a2b,        \
                                        a2_stride, uut, w, w_stride, scal,    \
                                        scal_stride, tab, list, partials,     \
-                                       out, scratch, rows, n, n_s, n_ct,     \
+                                       out, state, rows, n, n_s, n_ct,     \
                                        n_u, n_steps, n_members, lagged,      \
                                        stream);                              \
     }

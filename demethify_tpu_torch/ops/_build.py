@@ -97,6 +97,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_u_phase_grams_blocks.restype = _INT
     lib.dm_u_phase_grams_global_rows.argtypes = [_INT] * 4
     lib.dm_u_phase_grams_global_rows.restype = _INT
+    lib.dm_state_rows.argtypes = [_INT] * 3
+    lib.dm_state_rows.restype = _INT
+    lib.dm_state_in_device.argtypes = [_INT] * 4
+    lib.dm_state_in_device.restype = _INT
     lib.dm_k4_global_rows.argtypes = [_INT] * 4
     lib.dm_k4_global_rows.restype = _LL
     lib.dm_gram_tile_plan.argtypes = [_INT] * 4 + [_VOID]

@@ -42,7 +42,12 @@ whatever p. ``u_phase_layout`` picks by the measured crossover: resident,
 unless it does not fit or the wide one fits at least twice as many blocks
 on an SM; global where neither fits.
 n_u <= 8 keeps the per-site state in registers; above, one form keeps it
-in a scratch buffer the wrapper allocates (``scratch_rows`` x N).
+on the chip, in a per-thread column of a state region of shared memory
+(``state_rows`` rows a block; in the wide and global layouts over the
+rows of Y and D that the Gram stage stages after the steps). Where even
+the global layout cannot hold the region (``state_in_device``: the gram
+form past n_u = 17 in float64, 25 in float32), it lives in a per-block
+part of a device buffer the wrapper allocates.
 
 Rt may also arrive folded into the data block, ydt = [Y.T; D.T; Rt.T]
 (2 n_s + n_ct, N) with ``rtt`` None and ``a1_block`` given, as the JAX
@@ -94,7 +99,7 @@ SMEM_LIMIT = 232448      # bytes of shared memory a block may opt into (H100)
 SMEM_PER_SM = 233472     # bytes of shared memory of one SM (H100)
 _LD = SITES_PER_BLOCK + 1    # shared row stride (kLd)
 _CHUNK = 32                  # samples per staged chunk, wide layout (kChunk)
-REG_N_U = 8              # n_u above this keeps its state in scratch columns
+REG_N_U = 8              # n_u above this keeps its state in a state region
 
 
 def gram_form(n_u: int, n_s: int) -> bool:
@@ -104,29 +109,70 @@ def gram_form(n_u: int, n_s: int) -> bool:
     return n_u * n_u <= 3 * n_s
 
 
+def state_rows(n_s: int, n_u: int, direct: bool = False) -> int:
+    """Rows (129 values each) of the n_u > REG_N_U form's state region, 0
+    below (``csrc/u_phase_common.cuh``, ``state_rows``; the kernels'
+    ``dm_state_rows``): in the gram form three u vectors, C and the
+    n_u (n_u + 1) / 2 curvature terms M; in the direct form two u vectors,
+    the residuals of a chunk of min(32, n_s) samples and, past one chunk,
+    the gradient. One region a block (K4's members reuse it)."""
+    if n_u <= REG_N_U:
+        return 0
+    if direct:
+        ch = min(n_s, _CHUNK)
+        return 2 * n_u + ch + (n_u if n_s > ch else 0)
+    return 4 * n_u + n_u * (n_u + 1) // 2
+
+
+def _lead_rows(n_s: int, n_u: int, direct: bool) -> int:
+    """Rows leading the wide and global layouts' shared memory: one chunk
+    of Y and D for the Gram stage, overlaid by the state region."""
+    return max(2 * min(_CHUNK, n_s), state_rows(n_s, n_u, direct))
+
+
+def state_in_device(itemsize: int, n_s: int, n_u: int,
+                    direct: bool = False) -> bool:
+    """True where the state region passes one block's shared memory even
+    in the global layout (``dm_state_in_device``): it then lives in
+    device memory, ``state_rows`` x 129 values a block."""
+    return (state_rows(n_s, n_u, direct) > 0
+            and itemsize * _lead_rows(n_s, n_u, direct) * _LD > SMEM_LIMIT)
+
+
 def u_phase_smem(layout: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
                  direct: bool = False, bf16c: bool = False,
                  weighted: bool = False) -> int:
-    """Shared memory of K1's (and, ``weighted`` or not, K4's) main pass in
-    bytes, for the "resident" or the "wide" layout; ``itemsize`` is the
-    state's (staged rows are of the state type). The same formula as the
-    kernels' ``*_smem`` exports (``csrc/u_phase_grams.cuh``,
-    ``u_phase_grams_multi.cuh``), which ``chip_smoke.py`` holds it to:
-    resident: (2 n_s + p [+ n_s direct] [+ n_u]) rows of 129 plus the
-    (p, n_s) alpha block; wide: (2 min(32, n_s) + p [+ n_u]) rows;
-    the n_u more rows hold the raw u of bf16_compute's gram form, or K4's
-    weighted u; global: 2 min(32, n_s) rows (its other rows live in
-    device memory, ``global_rows``)."""
+    """Shared memory of K1's (and, ``weighted`` or not, K4's one-member)
+    main pass in bytes, for the "resident", "wide" or "global" layout;
+    ``itemsize`` is the state's (staged rows are of the state type). The
+    same formula as the kernels' ``*_smem`` exports
+    (``csrc/u_phase_grams.cuh``, ``u_phase_grams_multi.cuh``), which
+    ``chip_smoke.py`` holds it to: resident: (2 n_s + p [+ n_s direct]
+    [+ n_u] + state_rows) rows of 129 plus the (p, n_s) alpha block (above
+    n_u = 8 in the direct form with a2's rows padded to a multiple of 4);
+    wide: (max(2 min(32, n_s), state_rows) + p [+ n_u]) rows; the n_u
+    more rows hold the raw u of bf16_compute's gram form, or K4's weighted
+    u; global: max(2 min(32, n_s), state_rows) rows (its other rows live
+    in device memory, ``global_rows``), or 2 min(32, n_s) where the state
+    region lives in device memory (``state_in_device``)."""
     p = n_ct + n_u
     x_rows = n_u if (bf16c and not direct) or weighted else 0
+    lead = _lead_rows(n_s, n_u, direct)
     if layout == "global":
-        return itemsize * 2 * min(_CHUNK, n_s) * _LD
+        if state_in_device(itemsize, n_s, n_u, direct):
+            lead = 2 * min(_CHUNK, n_s)
+        return itemsize * lead * _LD
     if layout == "wide":
-        return itemsize * (2 * min(_CHUNK, n_s) + p + x_rows) * _LD
+        return itemsize * (lead + p + x_rows) * _LD
     if layout != "resident":
         raise ValueError(f"unknown layout {layout!r}")
-    rows = 2 * n_s + p + (n_s if direct else 0) + x_rows
-    return itemsize * (rows * _LD + p * n_s)
+    rows = (2 * n_s + p + (n_s if direct else 0) + x_rows
+            + state_rows(n_s, n_u, direct))
+    # the alpha blocks; above n_u = 8 the direct form keeps a2 as a table
+    # of rows padded to a multiple of 4 values (16-byte loads)
+    alpha = (n_ct * n_s + n_u * -(-n_s // 4) * 4
+             if direct and n_u > REG_N_U else p * n_s)
+    return itemsize * (rows * _LD + alpha)
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -157,39 +203,47 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     than twice the resident layout's blocks per SM (at one such shape,
     50 samples in float64, 13% faster), and 3-39% faster wherever it
     fitted at least twice as many at n_u <= 8 (the resident layout then
-    fits one or two); in the direct form up to 2.1x slower. At n_u = 12,
-    where the state lives in scratch columns, both measured shapes sit on
-    the other side (the gram form 17% slower wide, the direct form 27%
-    faster): too few shapes to fit a rule for that form yet. So: the
-    resident layout, unless it passes SMEM_LIMIT or, in the gram form,
-    the wide one fits at least twice its blocks per SM; the global layout
-    where neither fits (the wide layout passes SMEM_LIMIT from p = 162
-    state rows in float64 at n_s >= 32, 387 in float32)."""
+    fits one or two); in the direct form up to 2.1x slower. So, at
+    n_u <= 8: the resident layout, unless it passes SMEM_LIMIT or, in the
+    gram form, the wide one fits at least twice its blocks per SM; the
+    global layout where neither fits (the wide layout passes SMEM_LIMIT
+    from p = 162 state rows in float64 at n_s >= 32, 387 in float32).
+
+    Above n_u = 8 the state region on the chip sets much of a layout's
+    bytes, and occupancy decides (``chip_smoke.time_layouts`` at
+    ``STATE_LAYOUT_TIMES``, each layout forced at the sweep's direct form,
+    n_s = 10 with n_u 9-25, and the cohort's gram form, n_s = 100 with n_u
+    9-17, float32 and float64, 1M sites): the resident layout took 28-82%
+    longer than the wide one where it fitted one block per SM and the wide
+    one two or more (direct float64 at n_u = 25, the gram form at n_s =
+    100), and 6-85% less wherever it fitted two or more, in the direct form
+    even against twice its blocks (float64, n_u = 12). The global layout,
+    whose Gram stage reads [Rt | u] from device memory (far slower at large
+    p: PERF.md, the device-memory forms), came within 12% of the wide one
+    at the one shape where the wide one fitted a block and it two (K1 12%
+    less time, K4 3% more; float32, n_u = 17).
+    So: the resident layout, unless it does not fit, or fits one block
+    per SM and the wide one two or more; the global layout where the wide
+    one does not fit."""
     res = u_phase_smem("resident", itemsize, n_s, n_ct, n_u, direct, bf16c,
                        weighted)
     wide = u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
                         weighted)
-    if res <= SMEM_LIMIT and (
-            direct or blocks_per_sm(wide) < 2 * blocks_per_sm(res)):
+    if n_u > REG_N_U:
+        leave = blocks_per_sm(res) < 2 <= blocks_per_sm(wide)
+    else:
+        leave = not direct and blocks_per_sm(wide) >= 2 * blocks_per_sm(res)
+    if res <= SMEM_LIMIT and not leave:
         return "resident", res
     if wide <= SMEM_LIMIT:
         return "wide", wide
-    return "global", u_phase_smem("global", itemsize, n_s, n_ct, n_u)
+    return "global", u_phase_smem("global", itemsize, n_s, n_ct, n_u, direct,
+                                  bf16c, weighted)
 
 
 # each layout's C entry points: dm_u_phase_grams{suffix}_*, and K4's
 # dm_u_phase_grams_multi{suffix}_*
 _LAYOUT_SUFFIX = {"resident": "", "wide": "_wide", "global": "_global"}
-
-
-def scratch_rows(n_u: int, direct: bool) -> int:
-    """Rows of the n_u > REG_N_U form's per-site scratch (0 below), in the
-    order the kernels address them: C (n_u rows), M (n_u (n_u + 1) / 2)
-    and two step temporaries (n_u each) in the gram form, the two
-    temporaries alone in the direct form."""
-    if n_u <= REG_N_U:
-        return 0
-    return 2 * n_u if direct else n_u * (n_u + 1) // 2 + 3 * n_u
 
 
 def check_dtypes(name, data, state):
@@ -241,7 +295,9 @@ def count_forms(forms: dict, **flags) -> None:
     The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
     K6), "global_layout" (K1/K4's global layout), "device_slabs"
     (K2/K3/K5/K6's wide form with its slabs in device memory),
-    "state_cols" (n_u > REG_N_U, state in scratch columns),
+    "state_on_chip" (K1/K4 at n_u > REG_N_U, the state region in shared
+    memory), "state_in_device" (the same, its region in device memory;
+    K7's n_u > REG_N_U form, whose region always lives there),
     "bf16c_direct" (bf16_compute in the direct form), "rt_folded" (Rt
     folded into the data block), "masked" (K2/K5 with row masks). A
     launch also counts in its wrapper's ``launches``."""
@@ -409,14 +465,15 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     partials = uut.new_empty((n_entries * n_blocks + n_steps + 1,))
     tab = partials[n_entries * n_blocks:]
     out = uut.new_empty((n_entries,))
-    rows = scratch_rows(n_u, direct)
-    scratch = uut.new_empty((rows, n)) if rows else None
+    state = (uut.new_empty((n_blocks * state_rows(n_s, n_u, direct) * _LD,))
+             if layout == "global" and state_in_device(
+                 uut.element_size(), n_s, n_u, direct) else None)
     rowbuf = (uut.new_empty((n_blocks * global_rows(n_ct, n_u, direct, bf16c)
                              * _LD,)) if layout == "global" else None)
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
             tab.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            None if state is None else state.data_ptr(),
             None if rowbuf is None else rowbuf.data_ptr(), n, n_s, n_ct,
             n_u, n_steps, int(lagged), int(direct))
     with torch.cuda.device(ydt.device):
@@ -435,7 +492,9 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     else:
         u_phase_grams.launches += 1
     count_forms(u_phase_grams.forms, wide=layout == "wide",
-                global_layout=layout == "global", state_cols=n_u > REG_N_U,
+                global_layout=layout == "global",
+                state_on_chip=n_u > REG_N_U and state is None,
+                state_in_device=state is not None,
                 bf16c_direct=bf16c and direct, rt_folded=folded)
     gu = out[:n_s * n_u * p].view(n_s, n_u, p)
     b_u = out[n_s * n_u * p:-1].view(n_u, n_s)
@@ -604,8 +663,11 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
     lib = _build.load().lib
     u_out, up_out = torch.empty_like(ut), torch.empty_like(u_prev_t)
     tab = ut.new_empty((n_steps + 1,))
-    rows = scratch_rows(n_u, False)
-    scratch = ut.new_empty((rows, n)) if rows else None
+    # above REG_N_U the gram form's state region, in device memory: K7,
+    # which no solver runs, keeps one layout
+    rows = state_rows(n_s, n_u)
+    state = (ut.new_empty((-(-n // SITES_PER_BLOCK) * rows, _LD)) if rows
+             else None)
     dt_name = {torch.float32: "f32", torch.float64: "f64",
                torch.bfloat16: "bf16"}[yt.dtype]
     fn = getattr(lib, "dm_u_phase_" + dt_name)
@@ -614,7 +676,7 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
                  a1_block.data_ptr(), a2_block.data_ptr(), ut.data_ptr(),
                  u_prev_t.data_ptr(), u_out.data_ptr(), up_out.data_ptr(),
                  scal.data_ptr(), tab.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), n, n_s,
+                 None if state is None else state.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, int(lagged),
                  torch.cuda.current_stream(yt.device).cuda_stream)
     _build.check(err, "u_phase")
@@ -622,7 +684,7 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
         u_phase.launches_bf16 += 1
     else:
         u_phase.launches += 1
-    count_forms(u_phase.forms, state_cols=n_u > REG_N_U)
+    count_forms(u_phase.forms, state_in_device=n_u > REG_N_U)
     return u_out, up_out, scal[PH_A_OUT], scal[PH_L_PREV_OUT]
 
 

@@ -71,7 +71,8 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     gram_form,
     known_block,
     member_stride,
-    scratch_rows,
+    state_in_device,
+    state_rows,
 )
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 
@@ -93,15 +94,22 @@ def k4_smem(itemsize: int, n_s: int, n_ct: int, n_u: int, weighted: bool,
     the staged Y and D rows (n_s, or one chunk of 32 in the wide layout)
     and Rt's n_ct rows, each member's n_u u rows (and, ``weighted``, n_u
     rows of w u), and in the resident layout each member's (p, n_s) alpha
-    block; in the global layout one chunk of Y and D alone. At group 1 it
-    is ``cuda_kernels.u_phase_smem(..., weighted=)``, the bytes the layout
-    rule compares."""
+    block; in the global layout one chunk of Y and D alone. Above n_u = 8
+    the block's one state region (``cuda_kernels.state_rows`` of the gram
+    form, which each member's loop reuses) adds its rows: after the
+    resident layout's, over the chunk rows of the wide and global layouts
+    (in device memory where ``cuda_kernels.state_in_device``). At group 1
+    it is ``cuda_kernels.u_phase_smem(..., weighted=)``, the bytes the
+    layout rule compares."""
+    lead = max(2 * min(_CHUNK, n_s), state_rows(n_s, n_u))
     if layout == "global":
-        return itemsize * 2 * min(_CHUNK, n_s) * _LD
-    rows = min(_CHUNK, n_s) if layout == "wide" else n_s
+        if state_in_device(itemsize, n_s, n_u):
+            lead = 2 * min(_CHUNK, n_s)
+        return itemsize * lead * _LD
+    rows = lead if layout == "wide" else 2 * n_s + state_rows(n_s, n_u)
     u_rows = group * n_u * (2 if weighted else 1)
     alpha = 0 if layout == "wide" else group * (n_ct + n_u) * n_s
-    return itemsize * ((2 * rows + n_ct + u_rows) * _LD + alpha)
+    return itemsize * ((rows + n_ct + u_rows) * _LD + alpha)
 
 
 def k4_global_rows(n_ct: int, n_u: int, weighted: bool, group: int) -> int:
@@ -121,7 +129,13 @@ def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
     the occupancy the layout rule counted wherever that was at most
     K4_GROUP_BLOCKS. Returns {"group", "smem", "blocks"}.
     The cap comes from shared memory, never from B; in the global layout,
-    whose group rows live in device memory, it is K4_GLOBAL_GROUP."""
+    whose group rows live in device memory, it is K4_GLOBAL_GROUP. Above
+    n_u = 8 the members' per-site state (K1's n_u > 8 form: C, M and the
+    u vectors) lives on the chip, in one state region a block that each
+    member's loop reuses: ``k4_smem`` counts it once, in the base bytes,
+    so it moves the group size but does not grow with it. The layout is
+    ``cuda_kernels.u_phase_layout``'s, one rule for K1 and K4 (fitted above
+    n_u = 8 with both, ``chip_smoke.time_layouts``)."""
     one = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 1)
     base = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 0)
     blocks = max(1, min(blocks_per_sm(one), K4_GROUP_BLOCKS))
@@ -276,8 +290,9 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     tab = partials[n_part:]
     member_list = partials[n_part + n_tab:]
     out = uut_b.new_empty((n_b, n_entries))
-    rows = scratch_rows(n_u, False)
-    scratch = uut_b.new_empty((rows, n)) if rows else None
+    state = (uut_b.new_empty((n_blocks * state_rows(n_s, n_u) * _LD,))
+             if layout == "global" and state_in_device(
+                 uut_b.element_size(), n_s, n_u) else None)
     rowbuf = None
     if layout == "global":
         group = k4_member_plan(uut_b.element_size(), n_s, n_ct, n_u, n_b,
@@ -295,7 +310,7 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  0 if weights is None else weights.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI, tab.data_ptr(),
                  member_list.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
+                 None if state is None else state.data_ptr(),
                  None if rowbuf is None else rowbuf.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi")
@@ -304,7 +319,9 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     else:
         u_phase_grams_multi.launches += 1
     count_forms(u_phase_grams_multi.forms, wide=layout == "wide",
-                global_layout=layout == "global", state_cols=n_u > REG_N_U)
+                global_layout=layout == "global",
+                state_on_chip=n_u > REG_N_U and state is None,
+                state_in_device=state is not None)
     return _split(out, n_s, n_u, p)
 
 

@@ -86,7 +86,8 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     SITES_PER_BLOCK,
     TOL,
     gram_entries,
-    scratch_rows,
+    state_in_device,
+    state_rows,
     u_phase_grams,
 )
 from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
@@ -419,8 +420,9 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
         the group by shared memory, never by B; K5/K6 give each member
         its own thread blocks. So neither grows with B.
     What does not: the solver's copies [Y.T; D.T] and Rt.T,
-    data_itemsize n_cpg (2 n_s + n_ct) bytes, and above n_u = 8 K4's
-    scratch columns, itemsize n_cpg ``scratch_rows(n_u)``: ``shared``. The
+    data_itemsize n_cpg (2 n_s + n_ct) bytes, and where K4's n_u > 8
+    state region lives in device memory (``state_in_device``), its
+    itemsize 129 ``state_rows(n_s, n_u)`` values a block: ``shared``. The
     members may take half of the free memory less those; the other half
     is room for the
     set-up's transients (the starting costs' residuals and the known
@@ -435,8 +437,10 @@ def max_multi_members(n_cpg: int, n_s: int, n_ct: int, n_u: int,
     n_blocks = -(-n_cpg // SITES_PER_BLOCK)
     per_member = itemsize * (gram_entries(n_s, n_ct, n_u) * n_blocks
                              + (4 * n_u + int(weighted)) * n_cpg)
-    shared = (data_itemsize * n_cpg * (2 * n_s + n_ct)
-              + itemsize * n_cpg * scratch_rows(n_u, False))
+    shared = data_itemsize * n_cpg * (2 * n_s + n_ct)
+    if state_in_device(itemsize, n_s, n_u):
+        shared += itemsize * n_blocks * (SITES_PER_BLOCK + 1) * state_rows(
+            n_s, n_u)
     return max(1, (free_bytes // 2 - shared) // per_member)
 
 

@@ -3,8 +3,11 @@ card's kernels once refused, against the JAX package's kernels (Pallas in
 interpret mode), and the shape planning that picks the kernels' layouts.
 
 - K1 ``u_phase_grams`` and K4 ``u_phase_grams_multi`` at n_s = 256 with
-  25 known + 4 unknown cell types (the wide layout on the card), and at
-  n_u = 12 (the state-in-scratch form; gram and direct dataflow);
+  25 known + 4 unknown cell types (the wide layout on the card), and in
+  the n_u > 8 form (its state on the chip): n_u = 12 in both dataflows,
+  the sweep's widest rank (n_u = 25, direct), the direct form past one
+  chunk of samples (n_s = 40), n_u = 17 (gram) in K1 and n_u = 16 in K4,
+  the last four at 256 sites;
 - K1 with Rt folded into the data block ([Y.T; D.T; Rt.T], ``rtt`` None)
   against the JAX ``u_phase_grams_packed`` in its ``rt_folded`` layout;
 - K1's ``bf16_compute`` in the direct form (d y rounded alone) against
@@ -54,7 +57,7 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     SMEM_LIMIT,
     blocks_per_sm,
     gram_entries,
-    scratch_rows,
+    state_rows,
     u_phase_layout,
     u_phase_smem,
 )
@@ -67,17 +70,18 @@ def _t(x):
     return torch.tensor(np.ascontiguousarray(x))
 
 
-def _data(n_s, n_ct, n_u, seed, n_b=1):
-    """y, d, Rt (numpy float64) and n_b members' alpha, u, u_prev."""
+def _data(n_s, n_ct, n_u, seed, n_b=1, n=N):
+    """y, d, Rt (numpy float64) and n_b members' alpha, u, u_prev at n
+    sites."""
     rng = np.random.default_rng(seed)
     p = n_ct + n_u
-    R = rng.uniform(size=(N, p))
+    R = rng.uniform(size=(n, p))
     alpha = rng.dirichlet(np.ones(p), size=n_s).T
-    d = rng.poisson(50, size=(N, n_s)) + 1.0
-    y = np.clip(R @ alpha + 0.01 * rng.normal(size=(N, n_s)), 0, 1)
+    d = rng.poisson(50, size=(n, n_s)) + 1.0
+    y = np.clip(R @ alpha + 0.01 * rng.normal(size=(n, n_s)), 0, 1)
     alpha_b = np.stack([rng.dirichlet(np.ones(p), size=n_s).T
                         for _ in range(n_b)])
-    u_b = rng.uniform(size=(n_b, n_u, N))
+    u_b = rng.uniform(size=(n_b, n_u, n))
     up_b = np.clip(u_b + 0.05 * rng.normal(size=u_b.shape), 0, 1)
     return y, d, R[:, :n_ct], alpha_b, u_b, up_b
 
@@ -91,12 +95,20 @@ def _assert_grams(got, want, tol=TOL64):
 
 
 # ------------------------------------------------------------- K1 and K4
-@pytest.mark.parametrize("n_s,n_ct,n_u,folded", [
-    (256, 25, 4, False), (48, 25, 12, False), (6, 4, 12, False),
-    (10, 5, 2, True)],
-    ids=["wide-n_s256-25+4", "n_u12-gram", "n_u12-direct", "rt-folded"])
-def test_u_phase_grams_matches_pallas(n_s, n_ct, n_u, folded):
-    y, d, Rt, alpha_b, u_b, up_b = _data(n_s, n_ct, n_u, seed=n_s + n_u)
+# the n_u > 8 form's widest user shapes run at N_WIDE_U sites (a tile of
+# TILE_WIDE_U lanes on the JAX side), so interpret mode stays quick
+N_WIDE_U, TILE_WIDE_U = 256, 128
+
+
+@pytest.mark.parametrize("n_s,n_ct,n_u,folded,n", [
+    (256, 25, 4, False, N), (48, 25, 12, False, N), (6, 4, 12, False, N),
+    (10, 5, 2, True, N), (10, 5, 25, False, N_WIDE_U),
+    (100, 5, 17, False, N_WIDE_U), (40, 5, 12, False, N_WIDE_U)],
+    ids=["wide-n_s256-25+4", "n_u12-gram", "n_u12-direct", "rt-folded",
+         "n_u25-direct-sweep", "n_u17-gram", "n_u12-direct-chunks"])
+def test_u_phase_grams_matches_pallas(n_s, n_ct, n_u, folded, n):
+    y, d, Rt, alpha_b, u_b, up_b = _data(n_s, n_ct, n_u, seed=n_s + n_u,
+                                         n=n)
     alpha, u, up = alpha_b[0], u_b[0], up_b[0]
     l_w = np.sum(alpha[-n_u:] ** 2) * d.max() ** 2
     a, l_w_prev, steps = 1.7, 0.9 * l_w, 5
@@ -105,7 +117,7 @@ def test_u_phase_grams_matches_pallas(n_s, n_ct, n_u, folded):
     j = jnp.asarray
     want = j_k1p(j(ydt), None if folded else j(Rt.T), j(alpha[:-n_u]),
                  j(alpha[-n_u:]), j(uut), j(a), j(l_w), j(l_w_prev), steps,
-                 tile=TILE)
+                 tile=min(TILE, n) if n == N else TILE_WIDE_U)
     uut_w, a_w, lwp_w, gu_w, bu_w, usq_w = (np.asarray(x) for x in want)
 
     scal = torch.zeros(N_SCAL, dtype=torch.float64)
@@ -133,19 +145,22 @@ def test_u_phase_grams_matches_pallas(n_s, n_ct, n_u, folded):
     assert cuda_kernels.u_phase_grams.launches == 0
 
 
-@pytest.mark.parametrize("n_s,n_ct,n_u", [(256, 25, 4), (48, 25, 12)],
-                         ids=["wide-n_s256-25+4", "n_u12"])
-def test_u_phase_grams_multi_matches_pallas(n_s, n_ct, n_u):
+@pytest.mark.parametrize("n_s,n_ct,n_u,n", [
+    (256, 25, 4, N), (48, 25, 12, N), (100, 5, 16, N_WIDE_U)],
+    ids=["wide-n_s256-25+4", "n_u12", "n_u16"])
+def test_u_phase_grams_multi_matches_pallas(n_s, n_ct, n_u, n):
     active = np.array([1.0, 0.0, 1.0])
     n_b = len(active)
-    y, d, Rt, alpha_b, u_b, up_b = _data(n_s, n_ct, n_u, seed=7, n_b=n_b)
+    y, d, Rt, alpha_b, u_b, up_b = _data(n_s, n_ct, n_u, seed=7, n_b=n_b,
+                                         n=n)
     l_w = np.sum(alpha_b[:, -n_u:] ** 2, axis=(1, 2)) * d.max() ** 2
     a = np.linspace(1.2, 2.4, n_b)
     l_w_prev, steps = 0.9 * l_w, 5
     j = jnp.asarray
     want = j_k4(j(y.T), j(d.T), j(Rt.T), j(alpha_b[:, :n_ct]),
                 j(alpha_b[:, n_ct:]), j(u_b), j(up_b), j(a), j(l_w),
-                j(l_w_prev), steps, active=j(active), tile=TILE)
+                j(l_w_prev), steps, active=j(active),
+                tile=TILE if n == N else TILE_WIDE_U)
     u_w, up_w, a_w, lwp_w, gu_w, bu_w, usq_w = (np.asarray(x) for x in want)
 
     scal = np.zeros((n_b, N_SCAL_MULTI))
@@ -387,8 +402,13 @@ def test_partial_buffer_at_the_cohort_width():
     blocks = -(-n // cuda_kernels.SITES_PER_BLOCK)
     partial = gram_entries(n_s, 25, 4) * blocks * 8
     assert partial <= 0.5 * (2 * n_s * n * 8)
-    assert scratch_rows(8, False) == 0 and scratch_rows(12, False) == 114
-    assert scratch_rows(12, True) == 24
+    # the n_u > 8 form's state region, rows of 129 values a block (no
+    # longer a column per site in device memory): gram 3 u vectors + C +
+    # M, direct 2 u vectors + a chunk of residuals (+ the gradient past one
+    # chunk of 32 samples)
+    assert state_rows(100, 8) == 0 and state_rows(100, 12) == 126
+    assert state_rows(10, 12, True) == 34
+    assert state_rows(80, 16, True) == 80
 
 
 @pytest.mark.parametrize("p", [33, 40, 64])
