@@ -343,7 +343,9 @@ def counters():
              "u_phase{n_u>8, state in device memory}"),
             (k9, "forms:wide", "alpha_phase{p>32}"),
             (k9, "forms:masked", "alpha_phase{masked}"),
+            (k9, "forms:two_row", "alpha_phase{two-row}"),
             (k10, "forms:wide", "fw_phase{p>32}"),
+            (k10, "forms:two_row", "fw_phase{two-row}"),
             (k7, "launches", "u_phase"),
             (k7, "launches_bf16", "u_phase[bf16]"),
             (k8, "launches", "grams"),
@@ -364,15 +366,19 @@ def counters():
             (k4, "forms:state_in_device",
              "u_phase_grams_multi{n_u>8, state in device memory}"),
             (k2, "forms:wide", "alpha_phase_full{p>32}"),
+            (k2, "forms:two_row", "alpha_phase_full{two-row}"),
             (k2, "forms:device_slabs", "alpha_phase_full{device slabs}"),
             (k2, "forms:masked", "alpha_phase_full{masked}"),
             (k3, "forms:wide", "fw_phase_full{p>32}"),
+            (k3, "forms:two_row", "fw_phase_full{two-row}"),
             (k3, "forms:device_slabs", "fw_phase_full{device slabs}"),
             (k5, "forms:wide", "alpha_phase_full_multi{p>32}"),
+            (k5, "forms:two_row", "alpha_phase_full_multi{two-row}"),
             (k5, "forms:device_slabs",
              "alpha_phase_full_multi{device slabs}"),
             (k5, "forms:masked", "alpha_phase_full_multi{masked}"),
             (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
+            (k6, "forms:two_row", "fw_phase_full_multi{two-row}"),
             (k6, "forms:device_slabs", "fw_phase_full_multi{device slabs}"),
             (k1, "launches", "u_phase_grams"),
             (k1, "launches_bf16", "u_phase_grams[bf16]"),
@@ -1093,7 +1099,8 @@ def _fw_flips(gtt, bt, gu, bu, ydy, alpha0, purity, scal, n_u, n_steps):
     return flips
 
 
-def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S):
+def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S,
+             reps=7, inner=20):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import COST, DMAX2, L_W
@@ -1126,7 +1133,7 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S):
            "flips": flips, "tol_alpha": tol_a}
     if timed:
         res["ms"] = median_ms(lambda: fw_phase_full(
-            *args, ak, purity, sk, P_INNER, N_U), inner=20)
+            *args, ak, purity, sk, P_INNER, N_U), reps=reps, inner=inner)
         res["plain_ms"] = median_ms(lambda: fw_phase_full_plain(
             *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
             warmup=1)
@@ -1512,7 +1519,7 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
 
 
 def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
-             n_ct=N_CT):
+             n_ct=N_CT, n_s=N_S, reps=7, inner=10):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W, N_SCAL
@@ -1520,9 +1527,10 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
         fw_phase_full, fw_phase_full_multi, fw_phase_full_multi_plain)
 
     (gtt, bt, gu, bu, _, ydy, alpha_b, _,
-     scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive, seed)
+     scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive, seed,
+                                  n_s=n_s)
     rng = np.random.default_rng(seed)
-    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S), device=DEV,
+    purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s), device=DEV,
                              dtype=alpha_b.dtype)
     alpha_b = torch.cat([
         alpha_b[:, :n_ct] / alpha_b[:, :n_ct].sum(1, keepdim=True) * purity,
@@ -1562,17 +1570,18 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
         s_all[:, ACTIVE] = 1.0
         a_all = alpha_b.clone()
         res["ms"] = median_ms(lambda: fw_phase_full_multi(
-            *args, a_all, purity, s_all, P_INNER, N_U), inner=10)
+            *args, a_all, purity, s_all, P_INNER, N_U), reps=reps,
+            inner=inner)
         res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
             *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
             warmup=1)
-        n_bytes, flops = glue_work(n_ct + N_U, N_S, n_ct, P_INNER,
+        n_bytes, flops = glue_work(n_ct + N_U, n_s, n_ct, P_INNER,
                                    alpha_b.element_size(), n_b, fw=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K6] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={N_S} {P_INNER} "
+    log(f"[K6] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={n_s} {P_INNER} "
         f"steps {dtype_name}: active alpha max|diff| {err_a:.3e} (tol "
         f"{tol_a:.1e}); vertex choices that differ from the twin's at the "
-        f"same iterate: {flips} of {2 * P_INNER * N_S * len(act)}; cost "
+        f"same iterate: {flips} of {2 * P_INNER * n_s * len(act)}; cost "
         f"diff / sum(ydy) {err_c:.3e}, l_w rel {err_w:.3e} (tol "
         f"{tol_c:.0e}); known mass - purity {err_m:.2e}; inactive members "
         f"bit-unchanged: {frozen}; member {b0} bit-identical to K3: "
@@ -3564,7 +3573,9 @@ COHORT = (1_000_000, 100, 25, 4)
 def phase_layouts():
     """Each kernel's shared-memory plan in Python against the ``*_smem``
     exports of its sources (``cuda_kernels.u_phase_smem``,
-    ``cuda_small.glue_smem``), over a grid of shapes in the three layouts
+    ``cuda_small.glue_smem`` in its register, two-row and wide forms, the
+    row buckets and the two-row slab stride against ``dm_row_bucket`` and
+    ``dm_two_row_stride``), over a grid of shapes in the three layouts
     (n_u up to 26: the n_u > 8 form's state region, ``state_rows`` and
     ``state_in_device`` against ``dm_state_rows``, ``dm_state_in_device``);
     the device-memory sizes past the shared memory (K1's and K4's global
@@ -3575,7 +3586,10 @@ def phase_layouts():
     from demethify_tpu_torch.ops.cuda_kernels import (
         SMEM_LIMIT, global_rows, state_in_device, state_rows, u_phase_smem)
     from demethify_tpu_torch.ops.cuda_multi import k4_global_rows
-    from demethify_tpu_torch.ops.cuda_small import glue_smem
+    from demethify_tpu_torch.ops.cuda_small import REG_P
+    from demethify_tpu_torch.ops.cuda_small import TWO_ROW_P as TWO_ROW_P_MAX
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_plan, glue_smem, two_row_stride)
     from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
 
     lib = _build.load().lib
@@ -3634,9 +3648,9 @@ def phase_layouts():
                                                   group)):
                             bad.append(("K4 rows", n_ct, n_u, weighted,
                                         group))
-        for p in (1, 6, 32, 33, 40, 64, 100, 167, 168, 170, 200, 237, 238,
-                  300):
-            for n_s in (1, 10, 100):
+        for p in (1, 6, 32, 33, 40, 48, 64, 65, 100, 167, 168, 170, 200,
+                  237, 238, 300):
+            for n_s in (1, 10, 16, 17, 100):
                 n_warps, smem = glue_smem(itemsize, p, n_s)
                 want = lib.dm_glue_smem(itemsize, p, n_s)
                 n_checked += 2
@@ -3645,6 +3659,15 @@ def phase_layouts():
                 work = lib.dm_glue_work(itemsize, p, n_s)
                 if work != work_elems(itemsize, p, n_s):
                     bad.append(("glue work", itemsize, p, n_s, work))
+    # the glue kernels' row buckets and the two-row form's slab stride
+    for p in range(1, 130):
+        n_checked += 2
+        want = alpha_plan(p, 10)[0] if p <= TWO_ROW_P_MAX else 0
+        if lib.dm_row_bucket(p) != want:
+            bad.append(("row bucket", p, lib.dm_row_bucket(p), want))
+        if REG_P < p <= TWO_ROW_P_MAX and (lib.dm_two_row_stride(p)
+                                            != two_row_stride(p)):
+            bad.append(("two-row stride", p, lib.dm_two_row_stride(p)))
     log(f"[layouts] {n_checked} shared-memory plans: Python against the "
         f"kernels' *_smem exports, {len(bad)} differ {bad[:5]}; the card's "
         f"limit {SMEM_LIMIT} bytes")
@@ -3661,9 +3684,11 @@ def forced_layout(layout):
     plan = cuda_kernels.u_phase_layout
 
     def forced(name, itemsize, n_s, n_ct, n_u, direct=False, bf16c=False,
-               weighted=False):
-        return layout, cuda_kernels.u_phase_smem(
-            layout, itemsize, n_s, n_ct, n_u, direct, bf16c, weighted)
+               weighted=False, smem=None):
+        if smem is None:
+            return layout, cuda_kernels.u_phase_smem(
+                layout, itemsize, n_s, n_ct, n_u, direct, bf16c, weighted)
+        return layout, smem(layout)
 
     cuda_kernels.u_phase_layout = forced
     try:
@@ -3929,24 +3954,108 @@ def phase_state_cols():
     return timed, timed4, cases
 
 
+# the glue kernels' two-row form (32 < p <= 64): the rows and columns it
+# is held at, and the wide loop just past it
+TWO_ROW_P = (33, 40, 48, 64)
+TWO_ROW_NS = (10, 100)
+GLUE_KERNELS = ("alpha_phase_full", "fw_phase_full", "alpha_phase_full_multi",
+                "fw_phase_full_multi", "alpha_phase", "fw_phase")
+
+
+def _glue_forms(case, want_two_row):
+    """Runs ``case()`` with the counters at 0 and checks each glue kernel
+    it launched against its form counters: every launch in the two-row
+    form (``want_two_row``), or none (the wide loop, p > 64). Returns the
+    case's result."""
+    reset_counts()
+    res = case()
+    got = read_counts()
+    for k in GLUE_KERNELS:
+        if got[k]:
+            want = got[k] if want_two_row else 0
+            check(got[f"{k}{{two-row}}"] == want
+                  and got[f"{k}{{p>32}}"] == got[k],
+                  f"{k}: {got[k]} launches, {got[f'{k}{{two-row}}']} in the "
+                  f"two-row form, want {want}")
+    if isinstance(res, dict):
+        res["check_launches"] = got
+    return res
+
+
 def phase_wide_glue():
-    """K2, K3, K5 and K6 at p in {33, 40, 64} against their twins, float32
-    and float64. Returns the timed p = 40 float64 cases."""
+    """The two-row form (32 < p <= 64) of K2, K3, K5, K6, K9 and K10
+    against their twins at p = 33, 40, 48, 64, n_s = 10 and 100, float32
+    and float64 (K5 and K6 with an inactive member; K9 and K10 also held
+    bit for bit to K2 and K3 on the same Grams), each launch counted in
+    the two-row form; K2 and K5 with row masks at p = 40 and 64 (an
+    all-ones mask bit-identical to none, masked rows exactly 0); the wide
+    loop of all six at p = 65 and 100, both dtypes, with no two-row
+    launch. Returns the timed p = 40, n_s = 10, float64 cases (the
+    kernels line's rows) and the timed p = 100 wide-loop cases."""
     timed = {}
-    for p in (33, 40, 64):
+    for p in TWO_ROW_P:
+        for n_s in TWO_ROW_NS:
+            for dt in ("float64", "float32"):
+                t = p == 40 and n_s == 10 and dt == "float64"
+                seed = 110 + p + n_s
+                cases = {
+                    "k2": lambda: _k2_case(p - 4, dt, n_u=4, seed=seed,
+                                           timed=t, n_s=n_s),
+                    "k3": lambda: _k3_case(p - 1, dt, seed=seed + 1,
+                                           timed=t, n_s=n_s),
+                    "k5": lambda: _k5_case(p - 4, 4, dt, 4, (2,),
+                                           seed=seed + 2, timed=t, n_s=n_s),
+                    "k6": lambda: _k6_case(dt, n_b=4, inactive=(1,),
+                                           n_ct=p - 1, seed=seed + 3,
+                                           timed=t, n_s=n_s),
+                    "k9": lambda: _k9_case(p, dt, n_s=n_s, seed=seed + 4,
+                                           timed=t),
+                    "k10": lambda: _k10_case(p, dt, n_s=n_s, seed=seed + 5,
+                                             timed=t)}
+                for name, case in cases.items():
+                    res = _glue_forms(case, True)
+                    if t:
+                        timed[name] = res
         for dt in ("float64", "float32"):
-            t = p == 40 and dt == "float64"
-            k2 = _k2_case(p - 4, dt, n_u=4, seed=110 + p, timed=t)
-            k3 = _k3_case(p - 1, dt, seed=111 + p, timed=t)
-            k5 = _k5_case(p - 4, 4, dt, 8, (3,), seed=112 + p, timed=t)
-            k6 = _k6_case(dt, n_ct=p - 1, seed=113 + p, timed=t)
-            if t:
-                timed = {"k2": k2, "k3": k3, "k5": k5, "k6": k6}
+            if p in (40, 64):
+                _glue_forms(lambda: _k2_case(
+                    p - 4, dt, n_u=4, seed=118 + p, n_s=100,
+                    mask=[1] * (p - 2) + [0, 1]), True)
+                _glue_forms(lambda: _k2_case(
+                    p - 4, dt, n_u=4, seed=119 + p, mask=[1] * p), True)
+                mask = np.ones((4, p))
+                mask[0, 3] = mask[3, p - 1] = 0.0
+                _glue_forms(lambda: _k5_case(
+                    p - 4, 4, dt, 4, (2,), seed=120 + p, mask=mask.tolist()),
+                    True)
+                _glue_forms(lambda: _k9_case(
+                    p, dt, n_s=100, seed=121 + p,
+                    mask=[0] + [1] * (p - 1)), True)
+    # the wide loop (p > 64) of all six, K5 and K6 with an inactive member
+    for p in (65, 100):
+        for dt in ("float64", "float32"):
+            seed = 122 + p
+            if p == 65 or dt == "float32":
+                _glue_forms(lambda: _k2_case(p - 4, dt, n_u=4, seed=seed),
+                            False)
+                _glue_forms(lambda: _k3_case(p - 1, dt, seed=seed + 1),
+                            False)
+            _glue_forms(lambda: _k5_case(p - 4, 4, dt, 4, (2,),
+                                         seed=seed + 2), False)
+            _glue_forms(lambda: _k6_case(dt, n_b=4, inactive=(1,),
+                                         n_ct=p - 1, seed=seed + 3), False)
+            _glue_forms(lambda: _k9_case(p, dt, seed=seed + 4), False)
+            _glue_forms(lambda: _k10_case(p, dt, seed=seed + 5), False)
+    timed["k2 wide"] = _glue_forms(lambda: _k2_case(
+        96, "float64", n_u=4, seed=124, timed=True), False)
+    timed["k3 wide"] = _glue_forms(lambda: _k3_case(
+        99, "float64", seed=125, timed=True, reps=3, inner=5), False)
     # a block of 32 float64 warps of the register form passes the card's
     # registers: the launchers cap the warps, which then loop over columns
     for dt in ("float64", "float32"):
         _k2_case(25, dt, n_u=4, seed=114, n_s=100)
-        _k2_case(33, dt, n_u=4, seed=115, n_s=100)
+        _glue_forms(lambda: _k2_case(33, dt, n_u=4, seed=115, n_s=100),
+                    True)
         _k3_case(28, dt, seed=116, n_s=100)
     return timed
 
@@ -3994,9 +4103,12 @@ def phase_global_kernels():
     out["k2"] = _k2_case(196, "float64", n_u=4, seed=406, timed=True)
     _k2_case(196, "float64", n_u=4, seed=407, n_s=100)
     _k2_case(236, "float32", n_u=4, seed=408)
-    out["k3"] = _k3_case(199, "float64", seed=409, timed=True)
+    # K3 and K6 take about 80 ms a launch here: 3 x 2 timed launches
+    out["k3"] = _k3_case(199, "float64", seed=409, timed=True, reps=3,
+                         inner=2)
     out["k5"] = _k5_case(196, 4, "float64", 8, (3,), seed=410, timed=True)
-    out["k6"] = _k6_case("float64", n_ct=199, seed=411, timed=True)
+    out["k6"] = _k6_case("float64", n_ct=199, seed=411, timed=True, reps=3,
+                         inner=2)
     return out
 
 
@@ -4304,18 +4416,82 @@ def _envelope_vs_plain(tag, n_b, y, d, Rt, n_u, pur, n1, n2, seed):
                       "the plain solver per member", tol["cost"])
 
 
+# the p = 40 path: a 39-type atlas and one unknown, 1M sites x 10
+# samples, float32 (numpy data from P40_SEED)
+P40 = (1_000_000, 10, 39, 1)
+P40_SEED = 183
+
+
+def p40_problem(seed=P40_SEED):
+    """y, d, Rt of the p = 40 path on the card, made with numpy from a
+    seed (float32): Rt and the true u uniform, proportions Dirichlet(1),
+    coverage Poisson(50) + 1, y the mixture plus N(0, 0.01^2), clipped."""
+    import torch
+
+    n, n_s, n_ct, n_u = P40
+    rng = np.random.default_rng(seed)
+    R = rng.random((n, n_ct + n_u), dtype=np.float32)
+    alpha = rng.dirichlet(np.ones(n_ct + n_u), size=n_s).T.astype(
+        np.float32)
+    d = (rng.poisson(50, size=(n, n_s)) + 1).astype(np.float32)
+    y = np.clip(R @ alpha + 0.01 * rng.standard_normal(
+        (n, n_s), dtype=np.float32), 0, 1)
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), device=DEV)
+                 for x in (y, d, R[:, :n_ct]))
+
+
+def p40_runs(y, d, Rt, pur):
+    """The p = 40 path's two runs through ``solvers.api``: (tag, outer
+    iterations, inner steps, glue kernel, call): partial-reference 100 x 20
+    and purity 10 x 500, tol = 0, one restart."""
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv)
+
+    n_u = P40[3]
+    kw = dict(tol=0.0, record_trace=True)
+    return (
+        ("p=40", 100, N_INNER, "alpha_phase_full",
+         lambda n1: partial_reference_deconv(
+             y, d, Rt, n_u, n_iter1=n1, n_iter2=N_INNER, seed=13, **kw)),
+        ("p=40 purity", 10, P_INNER, "fw_phase_full",
+         lambda n1: purity_deconv(y, d, Rt, n_u, pur, n_iter1=n1,
+                                  n_iter2=P_INNER, seed=14, **kw)))
+
+
+def _profiled_us(call, kernels):
+    """{kernel: device us per launch} of one ``call()`` traced by
+    ``utils.device_profile``, for each name in ``kernels`` (summed over
+    the trace's kernels whose name holds it)."""
+    from demethify_tpu_torch.utils import device_profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_profile(tmp, "trace.json"):
+            call()
+        traced = _trace_kernels(os.path.join(tmp, "trace.json"))
+    out = {}
+    for name in kernels:
+        hits = [v for k, v in traced.items() if name in k]
+        n = sum(c for c, _ in hits)
+        out[name] = sum(us for _, us in hits) / n if n else None
+    return out
+
+
 def phase_envelope_paths(card):
     """The wide forms on paths through ``solvers.api``, each run with the
     counters set to 0 just before and read just after: partial-reference
     at 1M x 100, 25 + 4 in float64 (K1 in the wide layout, 100 x 20), its
-    restarts (B = 4, 200k sites, 50 x 20: K4 wide); and 25 + 12 at
+    restarts (B = 4, 200k sites, 50 x 20: K4 wide); 25 + 12 at
     200k x 100, float64 (p = 37 and n_u > 8: K1 and K4 wide with the
-    state on the chip, K2, K3, K5 and K6 in the wide form): partial-
-    reference 50 x 20, purity 10 x 100, and both with 4 restarts. Before
-    each, the kernel solver that path runs against the plain solver on
-    the same data and inits over a short schedule (``_envelope_vs_plain``:
-    20 x 20, purity 5 x 100, restarts per member). Returns each run's
-    launches by name."""
+    state on the chip, K2, K3, K5 and K6 in the two-row form): partial-
+    reference 50 x 20, purity 10 x 100, and both with 4 restarts; and the
+    p = 40 path (39 + 1 at 1M x 10, float32: K2 and K3 in the two-row
+    form): partial-reference 100 x 20 and purity 10 x 500, with K1's and
+    the glue kernel's device us per launch from ``utils.device_profile``
+    over 10 more outer iterations. Before each, the kernel solver that
+    path runs against the plain solver on the same data and inits over a
+    short schedule (``_envelope_vs_plain``: 20 x 20, purity 5 x 100,
+    restarts per member). Returns each run's launches by name, and the
+    p = 40 runs' ms per outer iteration and device us."""
     import torch
 
     from demethify_tpu_torch.solvers.api import (
@@ -4379,8 +4555,40 @@ def phase_envelope_paths(card):
         check(expect_counts(out[tag], **{k: n1, glue: n1,
                                          f"{k}{{n_u>8, state on chip}}": n1,
                                          f"{k}{{wide}}": n1,
-                                         f"{glue}{{p>32}}": n1}),
+                                         f"{glue}{{p>32}}": n1,
+                                         f"{glue}{{two-row}}": n1}),
               f"{tag} launches {out[tag]}")
+    del y, d, Rt
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_layout
+
+    n, n_s, n_ct, n_u = P40
+    y, d, Rt = p40_problem()
+    pur = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=y.dtype)
+    layout = u_phase_layout("K1", 4, n_s, n_ct, n_u)[0]
+    out["p40"] = {}
+    for tag, n1, n2, glue, call in p40_runs(y, d, Rt, pur):
+        pu = None if glue == "alpha_phase_full" else pur
+        _envelope_vs_plain(tag, 1, y, d, Rt, n_u, pu,
+                           20 if pu is None else 5, N_INNER if pu is None
+                           else 100, 15 if pu is None else 16)
+        _, ms_it, out[tag] = _drive(
+            tag, f"{n} x {n_s}, {n_ct}+{n_u} (p = {n_ct + n_u}), float32, "
+            f"{n1}x{n2}, card {card}", lambda: call(n1), n1, n_sites=n)
+        want = {"u_phase_grams": n1, glue: n1, f"{glue}{{p>32}}": n1,
+                f"{glue}{{two-row}}": n1}
+        if layout != "resident":
+            want[f"u_phase_grams{{{layout}}}"] = n1
+        check(expect_counts(out[tag], **want),
+              f"{tag} launches {out[tag]}, want {want}")
+        glue_kernel = glue.replace("_full", "") + "_two_row_kernel"
+        us = _profiled_us(lambda: call(10), (K1_KERNEL, glue_kernel))
+        out["p40"][tag] = {"ms_per_outer": ms_it, "k1_us": us[K1_KERNEL],
+                           "glue_us": us[glue_kernel], "layout": layout}
+        log(f"[{tag}] K1 {us[K1_KERNEL]:.2f} us and {glue} "
+            f"{us[glue_kernel]:.2f} us of device time a launch "
+            f"(utils.device_profile, 10 outer iterations), "
+            f"{ms_it:.4f} ms per outer iteration, card {card}")
     return out
 
 
@@ -5103,13 +5311,10 @@ def phase_single_phase_kernels(card, main_ms):
     out["k9_f64"] = _k9_case(N_CT + N_U, "float64", timed=True)
     _k9_case(N_CT + 3, "float64", n_ct=N_CT, mask=[1] * (N_CT + 2) + [0],
              seed=341)
-    out["k9_wide"] = _k9_case(40, "float64", n_ct=36, n_s=100, seed=342,
-                              timed=True)
 
     cuda_small.fw_phase.launches = 0
     k10 = out["k10"] = _k10_case(N_CT + N_U, "float32", timed=True)
     out["k10_f64"] = _k10_case(N_CT + N_U, "float64", timed=True)
-    out["k10_wide"] = _k10_case(40, "float64", seed=361, timed=True)
     out["k10_launches"] = cuda_small.fw_phase.launches
 
     # the composed iteration held to the plain solver, float64
@@ -5204,7 +5409,99 @@ K1_OUTPUT_SHAPES = {
     "gram18_device": (50_000, 108, 5, 18, N_INNER, "float64", None, False,
                       False, 121),
 }
-GLUE_OUTPUT_SHAPES = {"main": (N_CT, N_U, N_S), "cohort": (25, 4, 100)}
+GLUE_OUTPUT_SHAPES = {"main": (N_CT, N_U, N_S), "cohort": (25, 4, 100),
+                      "wide": None}
+
+
+def _glue_wide_outputs():
+    """K2, K3, K5, K6, K9 and K10 at every two-row shape (p = 33, 40, 48,
+    64; n_s = 10, 100; float32 and float64), one launch each from seeded
+    inputs: K2, K5 and K9 also with row masks, K5 (B = 4) and K6 (B = 4)
+    with an inactive member. Each kernel's cost, l_w and active flags
+    apart from its alpha, alpha_prev and other scalars (``*_cost`` keys):
+    they sum the columns' terms in the grid's fixed order, so they keep
+    their bits only where the parent's block held min(n_s, 32) warps."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, ACTIVE, COST, DMAX2, L_H_PREV, L_W, N_SCAL, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase, alpha_phase_full, alpha_phase_full_multi, fw_phase,
+        fw_phase_full, fw_phase_full_multi)
+
+    cost_slots = [COST, L_W]
+    rest = [k for k in range(N_SCAL) if k not in cost_slots]
+    saved = {}
+
+    def put(key, alpha, scal=None, alpha_prev=None, multi=False):
+        saved[key + "_alpha"] = alpha
+        if alpha_prev is not None:
+            saved[key + "_alpha_prev"] = alpha_prev
+        if scal is not None:
+            cs = cost_slots + ([ACTIVE] if multi else [])
+            saved[key + "_scal"] = scal[..., rest]
+            saved[key + "_cost"] = scal[..., cs]
+
+    for p in TWO_ROW_P:
+        for n_s in TWO_ROW_NS:
+            for dt in ("float32", "float64"):
+                tag = f"p{p}_ns{n_s}_{dt}"
+                seed = 500 + p + n_s
+                blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
+                    p, p - 4, dt, seed, n_s)
+                mask = torch.ones(p, device=DEV, dtype=alpha.dtype)
+                mask[2] = mask[p - 1] = 0.0
+                for mk, m in (("", None), ("_masked", mask)):
+                    a, ap, sc = alpha.clone(), alpha_prev.clone(), scal.clone()
+                    alpha_phase_full(*blocks, a, ap, sc, N_INNER, 4,
+                                     **({} if m is None
+                                        else {"row_mask": m}))
+                    put(f"k2{mk}_{tag}", a, sc, ap)
+                    l_h = (scal[RT_SQ] + blocks[4][0]) * scal[DMAX2]
+                    out = alpha_phase(G, b, alpha, alpha_prev,
+                                      scal[A_ALPHA], scal[L_H_PREV], l_h,
+                                      N_INNER, **({} if m is None
+                                                  else {"row_mask": m}))
+                    put(f"k9{mk}_{tag}", out[0], alpha_prev=out[1])
+                    saved[f"k9{mk}_{tag}_scal"] = torch.stack(out[2:])
+                blocks, G, b, alpha, _, scal = _phase_glue_inputs(
+                    p, p - 1, dt, seed + 1, n_s)
+                purity = torch.linspace(0.3, 0.9, n_s, device=DEV,
+                                        dtype=alpha.dtype)
+                a1 = (alpha[:p - 1] / alpha[:p - 1].sum(0)
+                      * purity).contiguous()
+                a2 = (alpha[p - 1:] / alpha[p - 1:].sum(0)
+                      * (1 - purity)).contiguous()
+                a, sc = torch.cat([a1, a2]), scal.clone()
+                gtt, bt, gu, bu, _, ydy = blocks
+                fw_phase_full(gtt, bt, gu, bu, ydy, a, purity, sc, P_INNER, 1)
+                put(f"k3_{tag}", a, sc)
+                put(f"k10_{tag}", torch.cat(fw_phase(G, b, a1, a2, purity,
+                                                     P_INNER)))
+                (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+                 scal_b) = _glue_multi_inputs(p - 4, 4, dt, 4, (2,),
+                                              seed + 2, n_s=n_s)
+                mask_b = torch.ones((4, p), device=DEV, dtype=alpha_b.dtype)
+                mask_b[0, 1] = mask_b[3, p - 2] = 0.0
+                for mk, m in (("", ()), ("_masked", (mask_b,))):
+                    a, ap, sc = (alpha_b.clone(), alpha_prev_b.clone(),
+                                 scal_b.clone())
+                    alpha_phase_full_multi(gtt, bt, gu, bu, usq, ydy, a, ap,
+                                           sc, N_INNER, 4, *m)
+                    put(f"k5{mk}_{tag}", a, sc, ap, multi=True)
+                (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+                 scal_b) = _glue_multi_inputs(p - 1, 1, dt, 4, (1,),
+                                              seed + 3, n_s=n_s)
+                alpha_b = torch.cat([
+                    alpha_b[:, :p - 1] / alpha_b[:, :p - 1].sum(
+                        1, keepdim=True) * purity,
+                    alpha_b[:, p - 1:] / alpha_b[:, p - 1:].sum(
+                        1, keepdim=True) * (1 - purity)], dim=1).contiguous()
+                sc = scal_b.clone()
+                fw_phase_full_multi(gtt, bt, gu, bu, ydy, alpha_b, purity,
+                                    sc, P_INNER, 1)
+                put(f"k6_{tag}", alpha_b, sc, multi=True)
+    return saved
 
 
 def glue_main_outputs(root, path, shape="main"):
@@ -5212,13 +5509,19 @@ def glue_main_outputs(root, path, shape="main"):
     tree at ``root`` to ``path``: at ``shape`` "main" the main path's
     (``_k2_case`` / ``_k3_case`` inputs, p = 6, float32 and float64, one
     launch each), at "cohort" K2 alone at p = 29, n_s = 100 (float32 and
-    float64); for a bit-for-bit comparison of two trees on one card with
-    ``same_outputs``:
+    float64), at "wide" all six glue kernels at the two-row form's shapes
+    (``_glue_wide_outputs``); for a bit-for-bit comparison of two trees on
+    one card with ``same_outputs``:
 
         python3 -c 'import chip_smoke; chip_smoke.glue_main_outputs("DIR", "OUT.pt", "main")'
     """
     sys.path.insert(0, os.path.abspath(root))
     import torch
+
+    if shape == "wide":
+        saved = _glue_wide_outputs()
+        torch.save({k: v.cpu() for k, v in saved.items()}, path)
+        return
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
@@ -5517,13 +5820,122 @@ def k3_main_outputs(root, path):
 
 
 def same_outputs(path_a, path_b):
-    """Prints whether two ``*_main_outputs`` files hold the same bits."""
+    """Prints whether two ``*_main_outputs`` files hold the same bits, and
+    for each key that does not, the largest difference relative to the
+    largest magnitude."""
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
     same = {k: torch.equal(a[k], b[k]) for k in a}
-    print(json.dumps({"a": path_a, "b": path_b, "bit_identical": same}),
-          flush=True)
+    rel = {k: float((a[k] - b[k]).abs().max()
+                    / a[k].abs().max().clamp_min(1e-300))
+           for k in a if not same[k]}
+    print(json.dumps({"a": path_a, "b": path_b, "bit_identical": same,
+                      "n_same": sum(same.values()), "n": len(same),
+                      "max_rel_diff": rel}), flush=True)
+
+
+def time_wide_glue(root="."):
+    """Times the glue kernels of the tree at ``root`` at the two-row
+    form's shapes, for a P C C P comparison on one card: K2, K3, K5, K6
+    (B = 8, all active), K9 and K10 at p = 40, and K2 and K3 at p = 33
+    and 64, each at n_s = 10 and 100 in float32 and float64 (device ms a
+    launch queued behind a device sleep, with us per step and per step and
+    column); and the p = 40 path (``p40_runs``: partial-reference 100 x 20
+    and purity 10 x 500 at 1M x 10, float32) in ms per outer iteration
+    (median of 3 solves, CUDA events) with K1's and the glue kernel's
+    device us a launch from ``utils.device_profile``. Prints one JSON
+    line:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_wide_glue("DIR")'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, ACTIVE, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase, alpha_phase_full, alpha_phase_full_multi, fw_phase,
+        fw_phase_full, fw_phase_full_multi)
+
+    check(torch.cuda.is_available(), "time_wide_glue needs a GPU")
+    card = phase_device()
+    rows = []
+
+    def add(kernel, p, n_s, dt, steps, fn, n_b=1):
+        ms = queued_ms(fn, inner=20)
+        rows.append({"kernel": kernel, "p": p, "n_s": n_s, "dtype": dt,
+                     "steps": steps, "members": n_b, "ms": ms,
+                     "us_per_step": ms * 1e3 / steps,
+                     "us_per_step_column": ms * 1e3 / (steps * n_s * n_b)})
+        log(f"[wide glue] {kernel} p={p} n_s={n_s} B={n_b} {dt} {steps} "
+            f"steps: {ms:.4f} ms ({ms * 1e3 / steps:.3f} us a step)")
+
+    shapes = [(40, k) for k in ("k2", "k3", "k5", "k6", "k9", "k10")]
+    shapes += [(p, k) for p in (33, 64) for k in ("k2", "k3")]
+    for p, kern in shapes:
+        for n_s in TWO_ROW_NS:
+            for dt in ("float32", "float64"):
+                n_ct = p - 1 if kern in ("k3", "k6", "k10") else p - 4
+                if kern in ("k5", "k6"):
+                    (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+                     scal_b) = _glue_multi_inputs(n_ct, p - n_ct, dt, 8, (),
+                                                  600 + p, n_s=n_s)
+                    scal_b[:, ACTIVE] = 1.0
+                    if kern == "k5":
+                        add("alpha_phase_full_multi", p, n_s, dt, N_INNER,
+                            lambda: alpha_phase_full_multi(
+                                gtt, bt, gu, bu, usq, ydy, alpha_b,
+                                alpha_prev_b, scal_b, N_INNER, p - n_ct), 8)
+                    else:
+                        pur = torch.linspace(0.3, 0.9, n_s, device=DEV,
+                                             dtype=alpha_b.dtype)
+                        add("fw_phase_full_multi", p, n_s, dt, P_INNER,
+                            lambda: fw_phase_full_multi(
+                                gtt, bt, gu, bu, ydy, alpha_b, pur, scal_b,
+                                P_INNER, p - n_ct), 8)
+                    continue
+                blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
+                    p, n_ct, dt, 600 + p, n_s)
+                pur = torch.linspace(0.3, 0.9, n_s, device=DEV,
+                                     dtype=alpha.dtype)
+                gtt, bt, gu, bu, usq, ydy = blocks
+                if kern == "k2":
+                    add("alpha_phase_full", p, n_s, dt, N_INNER,
+                        lambda: alpha_phase_full(
+                            *blocks, alpha, alpha_prev, scal, N_INNER,
+                            p - n_ct))
+                elif kern == "k3":
+                    add("fw_phase_full", p, n_s, dt, P_INNER,
+                        lambda: fw_phase_full(gtt, bt, gu, bu, ydy, alpha,
+                                              pur, scal, P_INNER, p - n_ct))
+                elif kern == "k9":
+                    l_h = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
+                    add("alpha_phase", p, n_s, dt, N_INNER,
+                        lambda: alpha_phase(G, b, alpha, alpha_prev,
+                                            scal[A_ALPHA], scal[L_H_PREV],
+                                            l_h, N_INNER))
+                else:
+                    add("fw_phase", p, n_s, dt, P_INNER,
+                        lambda: fw_phase(G, b, alpha[:n_ct].contiguous(),
+                                         alpha[n_ct:].contiguous(), pur,
+                                         P_INNER))
+    paths = {}
+    y, d, Rt = p40_problem()
+    pur = torch.linspace(0.3, 0.9, P40[1], device=DEV, dtype=y.dtype)
+    for tag, n1, _, glue, call in p40_runs(y, d, Rt, pur):
+        call(2)
+        ms = statistics.median(timed_ms(lambda: call(n1))[1] / n1
+                               for _ in range(3))
+        prefix = "alpha_phase" if glue == "alpha_phase_full" else "fw_phase"
+        us = _profiled_us(lambda: call(10), (K1_KERNEL, prefix))
+        paths[tag] = {"ms_per_outer": ms, "k1_us": us[K1_KERNEL],
+                      "glue_us": us[prefix]}
+        log(f"[wide glue] {tag} path: {ms:.4f} ms per outer iteration; K1 "
+            f"{us[K1_KERNEL]:.2f} us, {glue} {us[prefix]:.2f} us a launch")
+    print(json.dumps({"root": root, "card": card, "kernels": rows,
+                      "p40_paths": paths}), flush=True)
 
 
 def time_main_path(root):
@@ -6044,6 +6456,7 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
                 else bound_by, "library_ms": None, "path": path}
 
     k3_b = bound(*glue_work(40, N_S, 39, P_INNER, 8, fw=True), "float64")
+    k3w_b = bound(*glue_work(100, N_S, 99, P_INNER, 8, fw=True), "float64")
     return [
         row("u_phase_grams{wide}", k1_src + "_wide.cu",
             k1_at + " (lane tile shrunk by fused.py:76-108, via :612)", w1,
@@ -6067,25 +6480,53 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             env["p>32 restarts"]["u_phase_grams_multi{n_u>8, state on chip}"],
             "4 restarts 200k x 100, 25+12, float64 (times: 5+12, B=4, "
             "float64)"),
-        row("alpha_phase_full{p>32}", src + "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:261 (p > 32)", glue["k2"],
-            env["p>32"]["alpha_phase_full{p>32}"],
-            "partial-ref 200k x 100, 25+12 (times: p=40, float64)"),
-        row("fw_phase_full{p>32}", src + "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:636 (p > 32)", glue["k3"],
-            env["p>32 purity"]["fw_phase_full{p>32}"],
-            "purity 200k x 100, 25+12 (times: p=40, float64)",
-            bound_ms=k3_b[0], bound_by=k3_b[1]),
-        row("alpha_phase_full_multi{p>32}", src + "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:388 (p > 32, via :485)",
-            glue["k5"], env["p>32 restarts"]["alpha_phase_full_multi{p>32}"],
-            "4 restarts 200k x 100, 25+12 (times: p=40, B=8, float64)"),
-        row("fw_phase_full_multi{p>32}", src + "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:571 (p > 32, via :592)",
-            glue["k6"],
-            env["p>32 purity restarts"]["fw_phase_full_multi{p>32}"],
-            "4 purity restarts 200k x 100, 25+12 (times: p=40, B=8, "
+        row("alpha_phase_full{two-row}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (32 < p <= 64, via "
+            ":299)", glue["k2"], env["p=40"]["alpha_phase_full{two-row}"],
+            "partial-ref 1M x 10, 39+1, float32, 100x20 (times: p=40, "
+            "n_s=10, float64)"),
+        row("fw_phase_full{two-row}", src + "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:636 (32 < p <= 64, via "
+            ":653)", glue["k3"],
+            env["p=40 purity"]["fw_phase_full{two-row}"],
+            "purity 1M x 10, 39+1, float32, 10x500 (times: p=40, n_s=10, "
+            "float64)", bound_ms=k3_b[0], bound_by=k3_b[1]),
+        row("alpha_phase_full_multi{two-row}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:388 (32 < p <= 64, via "
+            ":485)", glue["k5"],
+            env["p>32 restarts"]["alpha_phase_full_multi{two-row}"],
+            "4 restarts 200k x 100, 25+12 (times: p=40, n_s=10, B=4, "
             "float64)"),
+        row("fw_phase_full_multi{two-row}", src + "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:571 (32 < p <= 64, via "
+            ":592)", glue["k6"],
+            env["p>32 purity restarts"]["fw_phase_full_multi{two-row}"],
+            "4 purity restarts 200k x 100, 25+12 (times: p=40, n_s=10, "
+            "B=4, float64)"),
+        row("alpha_phase{two-row}", src + "alpha_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:70 (32 < p <= 64, via :97)",
+            glue["k9"], glue["k9"]["check_launches"]["alpha_phase{two-row}"],
+            "its check against the twin and K2 (no solver runs K9; times: "
+            "p=40, n_s=10, float64)"),
+        row("fw_phase{two-row}", src + "fw_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:204 (32 < p <= 64, via "
+            ":213)", glue["k10"],
+            glue["k10"]["check_launches"]["fw_phase{two-row}"],
+            "its check against the twin and K3 (no solver runs K10; times: "
+            "p=40, n_s=10, float64)"),
+        row("alpha_phase_full{p>64}", src + "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (p > 64, via :299)",
+            glue["k2 wide"],
+            glue["k2 wide"]["check_launches"]["alpha_phase_full{p>32}"],
+            "its check against the twin at p=100, n_s=10, float64 (no path "
+            "of this script runs p 65-167)"),
+        row("fw_phase_full{p>64}", src + "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:636 (p > 64, via :653)",
+            glue["k3 wide"],
+            glue["k3 wide"]["check_launches"]["fw_phase_full{p>32}"],
+            "its check against the twin at p=100, n_s=10, float64 (no path "
+            "of this script runs p 65-167)", bound_ms=k3w_b[0],
+            bound_by=k3w_b[1]),
         row("u_phase_grams{bf16_compute direct}", k1_src + ".cu",
             k1_at + " (bf16_compute direct fallback :299-311, via :499)",
             k1_bf16c_direct, k1_bf16c_direct["launches"],
@@ -6608,7 +7049,8 @@ LAUNCH_2D = ("import sys; from demethify_tpu_torch.cli import "
 # wide forms; K5 takes the same kernels with a member grid, and runs on no
 # path of this phase's profiled run)
 K1_KERNEL = "u_phase_grams_kernel"
-K2_KERNELS = ("alpha_phase_reg_kernel", "alpha_phase_wide_kernel")
+K2_KERNELS = ("alpha_phase_reg_kernel", "alpha_phase_two_row_kernel",
+              "alpha_phase_wide_kernel")
 
 
 def _same_csvs(a, b, what):

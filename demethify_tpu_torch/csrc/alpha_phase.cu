@@ -13,13 +13,16 @@
 // What bounds it on an H100: latency. The data is tiny (p ~ 6, n_s ~ 10)
 // and the n_steps steps are serial.
 //
-// What the design does about it: K2's loop (glue_steps.cuh) in one thread
-// block, one warp per sample column (a warp loops over columns when
-// n_s > 32 or the kernel's registers allow fewer warps): lane q holds row
-// q of G_s, b_s and the column in registers (p <= 32; the loops run to
-// the row bucket P, 8, 16 or 32, the smallest >= p, as K2's), or above
-// 32 rows the warp's column lives in its own slab of shared memory (the
-// wide form, dm_glue_smem's size). The scalar chain the JAX wrapper replays on
+// What the design does about it: K2's loop (glue_steps.cuh), one warp per
+// sample column: lane q holds row q of G_s, b_s and the column in
+// registers (p <= 32; the loops run to the row bucket P, 8, 16 or 32, the
+// smallest >= p, as K2's; one thread block, a warp looping over columns
+// when n_s > 32 or the kernel's registers allow fewer warps); from 33 to
+// 64 rows K2's two-row form, a block a column (lane q holds rows q
+// and q + 32, the warp's G_s in its slab of shared memory at an odd row
+// stride, the betas from a momentum table the block builds once); above
+// 64 rows the warp's column lives in its own slab of shared memory (the
+// wide form, dm_glue_smem's size, one block). The scalar chain the JAX wrapper replays on
 // the host after the call (pallas_small.py:137-142) is replayed by thread
 // 0 on the device, so the call reads nothing back: the scalars arrive in
 // a small device vector (slots kPhA, kPhL = l_h, kPhLPrev = l_h_prev) and
@@ -102,6 +105,80 @@ __global__ void alpha_phase_kernel(
     if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
 }
 
+// The two-row form (32 < p <= 64), K2's loop on a grid: block s is one
+// warp running column s, the column's G_s in the slab of dynamic shared
+// memory (two_row_elems(p) values) and the momentum table, where
+// use_table, after the slab. Block 0's thread 0 writes the scalar outputs
+// (other slots than the ones every block reads).
+template <typename T>
+__global__ void __launch_bounds__(32) alpha_steps_two_row_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
+        T* __restrict__ alpha, T* __restrict__ alpha_prev,
+        T* __restrict__ scal, const T* __restrict__ mask, int p, int n_s,
+        int n_steps, int use_table) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x;
+    const int s = blockIdx.x;
+    const int q1 = lane + 32;
+    const bool row1 = q1 < p;
+    const int ld = dm::two_row_stride(p);
+    const long long pp = static_cast<long long>(p) * p;
+    const T a0 = scal[dm::kPhA];
+    const T l_h = scal[dm::kPhL];
+    const T l_prev0 = scal[dm::kPhLPrev];
+
+    T* sg = reinterpret_cast<T*>(smem_raw);
+    for (int k = lane; k < pp; k += 32)
+        sg[(k / p) * ld + k % p] = G[s * pp + k];
+    const T b0 = b[lane * n_s + s];
+    T al0 = alpha_in[lane * n_s + s];
+    T ap0 = alpha_prev_in[lane * n_s + s];
+    T b1 = T(0), al1 = T(0), ap1 = T(0);
+    if (row1) {
+        b1 = b[q1 * n_s + s];
+        al1 = alpha_in[q1 * n_s + s];
+        ap1 = alpha_prev_in[q1 * n_s + s];
+    }
+    __syncwarp();                          // the slab is written
+    T* tab = use_table ? sg + dm::two_row_elems(p) : nullptr;
+    if (use_table)
+        dm::momentum_table(tab, a0, l_prev0, l_h, n_steps, lane, 32,
+                           [] { __syncwarp(); });
+    const bool masked0 = mask != nullptr && !(mask[lane] > T(0));
+    const bool masked1 = mask != nullptr && row1 && !(mask[q1] > T(0));
+    dm::alpha_steps_two_row(sg, b0, b1, al0, al1, ap0, ap1, masked0, masked1,
+                            lane, p, tab, a0, l_prev0, l_h, n_steps);
+    alpha[lane * n_s + s] = al0;
+    alpha_prev[lane * n_s + s] = ap0;
+    if (row1) {
+        alpha[q1 * n_s + s] = al1;
+        alpha_prev[q1 * n_s + s] = ap1;
+    }
+    if (s == 0 && lane == 0) dm::phase_scalars_out(scal, n_steps);
+}
+
+template <typename T>
+int launch_two_row(const void* G, const void* b, const void* alpha_in,
+                   const void* alpha_prev_in, void* alpha, void* alpha_prev,
+                   void* scal, const void* mask, int p, int n_s, int n_steps,
+                   cudaStream_t stream) {
+    auto kern = alpha_steps_two_row_kernel<T>;
+    size_t smem;
+    int use_table;
+    const int err = dm::two_row_smem(
+        kern, sizeof(T), p, (static_cast<size_t>(n_steps) + 1) * sizeof(T),
+        smem, use_table);
+    if (err != 0) return err;
+    kern<<<n_s, 32, smem, stream>>>(
+        static_cast<const T*>(G), static_cast<const T*>(b),
+        static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask), p, n_s, n_steps,
+        use_table);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool WIDE, int P>
 int launch_form(const void* G, const void* b, const void* alpha_in,
                 const void* alpha_prev_in, void* alpha, void* alpha_prev,
@@ -139,10 +216,13 @@ int launch(const void* G, const void* b, const void* alpha_in,
            void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p < 1 || n_s < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (p > kMaxP)
+    if (p > dm::kTwoRowP)
         return launch_form<T, true, kMaxP>(G, b, alpha_in, alpha_prev_in,
                                            alpha, alpha_prev, scal, mask, p,
                                            n_s, n_steps, s);
+    if (p > kMaxP)
+        return launch_two_row<T>(G, b, alpha_in, alpha_prev_in, alpha,
+                                 alpha_prev, scal, mask, p, n_s, n_steps, s);
 #define DM_K9_BUCKET(P)                                                      \
     if (p <= P)                                                              \
         return launch_form<T, false, P>(G, b, alpha_in, alpha_prev_in,       \

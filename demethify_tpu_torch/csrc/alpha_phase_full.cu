@@ -56,7 +56,17 @@
 //     every n_s and K5 at n_s <= 28; where the register count gave the
 //     one-block kernel fewer warps (float64 past 16 columns, K5 in
 //     float32 past 28) the cost and l_w now sum in the new order.
-// Above 32 rows the wide form keeps each warp's column (G_s, b_s,
+// From 33 to 64 rows the two-row form (glue_steps.cuh): lane q holds rows
+// q and q + 32 of alpha, alpha_prev and b in registers and the warp's
+// column G_s sits in its slab of shared memory at an odd row stride (no
+// bank conflicts in the product); the product, the projection and the
+// member's grid are the register form's, extended to 64 rows, with the
+// cost summed by column_cost in the same fixed order. Its alpha and
+// alpha_prev are the wide form's bit for bit; the cost too wherever the
+// wide form's block held min(n_s, 32) warps. A block is one warp
+// holding one column: a step is bound by its SM's shuffle, FP64 and
+// issue throughput, so a column an SM is about the fastest.
+// Above 64 rows the wide form keeps each warp's column (G_s, b_s,
 // alpha, alpha_prev and work rows) in its own slab of shared memory, lane
 // q takes rows q, q + 32, ..., the ranks are counted the same way and
 // lane 0 takes the cumulative sum and rho in rank order, so a step is the
@@ -213,7 +223,88 @@ alpha_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
 }
 
-// The wide form (p > 32): one block per member, each warp's column in its
+// The two-row form (32 < p <= 64): block (s, mb) is one warp running
+// column s of member mb, the column's G_s in the slab of dynamic shared
+// memory (two_row_elems(p) values) and the momentum table, where
+// use_table, after the slab; lane q holds rows q and q + 32 of b, alpha
+// and alpha_prev. colsum and tickets as the register form's.
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(32)
+alpha_phase_two_row_kernel(const T* __restrict__ gtt,
+                           const T* __restrict__ bt,
+                           const T* __restrict__ gu, const T* __restrict__ bu,
+                           const T* __restrict__ usq,
+                           const T* __restrict__ ydy, T* __restrict__ alpha,
+                           T* __restrict__ alpha_prev, T* __restrict__ scal,
+                           const T* __restrict__ mask,
+                           T* __restrict__ colsum,
+                           unsigned* __restrict__ tickets, int n_s, int n_ct,
+                           int n_u, int n_steps, int use_table,
+                           dm::MemberStrides st) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const long long mb = MULTI ? blockIdx.y : 0;
+    const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, usq, ydy,
+                                          alpha, alpha_prev, scal, mask, st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;     // uniform per member
+    }
+    T* cs = colsum + mb * 3 * n_s;
+    const int lane = threadIdx.x;
+    const int s = blockIdx.x;
+    const int p = n_ct + n_u;
+    const int q1 = lane + 32;
+    const bool row1 = q1 < p;
+
+    const T a0 = m.scal[dm::kAAlpha];
+    const T l_h_prev0 = m.scal[dm::kLHPrev];
+    const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
+
+    T* sg = reinterpret_cast<T*>(smem_raw);
+    T b0, b1, al1 = T(0), ap1 = T(0);
+    dm::load_gram_two_row(sg, b0, b1, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s,
+                          n_ct, n_u);
+    T al0 = m.alpha[lane * n_s + s];
+    T ap0 = m.alpha_prev[lane * n_s + s];
+    if (row1) {
+        al1 = m.alpha[q1 * n_s + s];
+        ap1 = m.alpha_prev[q1 * n_s + s];
+    }
+    __syncwarp();                          // the slab is written
+    T* tab = use_table ? sg + dm::two_row_elems(p) : nullptr;
+    if (use_table)
+        dm::momentum_table(tab, a0, l_h_prev0, l_h, n_steps, lane, 32,
+                           [] { __syncwarp(); });
+
+    const bool masked0 = m.mask != nullptr && !(m.mask[lane] > T(0));
+    const bool masked1 = m.mask != nullptr && row1 && !(m.mask[q1] > T(0));
+    dm::alpha_steps_two_row(sg, b0, b1, al0, al1, ap0, ap1, masked0, masked1,
+                            lane, p, tab, a0, l_h_prev0, l_h, n_steps);
+    T ba, ag, lw;
+    dm::column_sums_two_row(sg, b0, b1, al0, al1, lane, p, n_u, ba, ag, lw);
+    m.alpha[lane * n_s + s] = al0;
+    m.alpha_prev[lane * n_s + s] = ap0;
+    if (row1) {
+        m.alpha[q1 * n_s + s] = al1;
+        m.alpha_prev[q1 * n_s + s] = ap1;
+    }
+    if (lane == 0) {
+        cs[s] = ba;
+        cs[n_s + s] = ag;
+        cs[2 * n_s + s] = lw;
+    }
+    // the member's last block sums the columns in the fixed order
+    T cost;
+    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    T a_fin = a0;
+    if (use_table) {
+        a_fin = tab[n_steps];
+    } else {
+        for (int step = 0; step < n_steps; ++step) a_fin = dm::nesterov(a_fin);
+    }
+    finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
+}
+
+// The wide form (p > 64): one block per member, each warp's column in its
 // slab of shared memory (GSLAB: of the device buffer gslab, warp w of
 // member block b at slab b * n_warps + w), warps looping over the
 // columns; the cost summed per warp, then over the warps in order
@@ -301,6 +392,34 @@ int launch_reg(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
+// the two-row form: a warp a column, the momentum table after the slab
+// where it fits
+template <typename T, bool MULTI>
+int launch_two_row(const void* gtt, const void* bt, const void* gu,
+                   const void* bu, const void* usq, const void* ydy,
+                   void* alpha, void* alpha_prev, void* scal,
+                   const void* mask, void* colsum, void* tickets, int n_s,
+                   int n_ct, int n_u, int n_steps, int n_members,
+                   dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = alpha_phase_two_row_kernel<T, MULTI>;
+    size_t smem;
+    int use_table;
+    const int err = dm::two_row_smem(
+        kern, sizeof(T), n_ct + n_u,
+        (static_cast<size_t>(n_steps) + 1) * sizeof(T), smem, use_table);
+    if (err != 0) return err;
+    const dim3 grid(n_s, MULTI ? n_members : 1);
+    kern<<<grid, 32, smem, stream>>>(
+        static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(usq), static_cast<const T*>(ydy),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask),
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
+        n_u, n_steps, use_table, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool MULTI, bool GSLAB>
 int launch_wide_as(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* usq, const void* ydy,
@@ -348,8 +467,9 @@ int launch_wide(const void* gtt, const void* bt, const void* gu,
         n_ct, n_u, n_steps, n_members, st, stream);
 }
 
-// p > 32: the wide form; else the register form at row bucket `bucket`
-// (8, 16 or 32, >= p) with `cols` columns a block
+// p > 64: the wide form; else the register form at row bucket `bucket`
+// (8, 16 or 32, >= p) with `cols` columns a block, or the two-row form
+// at bucket 64 (a column a block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* usq, const void* ydy, void* alpha, void* alpha_prev,
@@ -358,12 +478,19 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            int n_members, dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > kMaxP)
+    if (p > dm::kTwoRowP)
         return launch_wide<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
                                      alpha_prev, scal, mask, colsum, n_s,
                                      n_ct, n_u, n_steps, n_members, st, s);
     if (p > bucket || colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (p > kMaxP)
+        return bucket != dm::kTwoRowP
+                   ? static_cast<int>(cudaErrorInvalidValue)
+                   : launch_two_row<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                        alpha_prev, scal, mask, colsum,
+                                        tickets, n_s, n_ct, n_u, n_steps,
+                                        n_members, st, s);
 #define DM_K2_BUCKET(P)                                                      \
     if (bucket == P)                                                         \
         return launch_reg<T, MULTI, P>(gtt, bt, gu, bu, usq, ydy, alpha,     \
@@ -383,11 +510,13 @@ extern "C" {
 
 // mask: the (p,) row mask (rows <= 0 pushed to -1e30 before each
 // projection) or NULL; colsum (3, n_s) and tickets (1, zero) the register
-// form's per-column cost terms and finished-block count; above p = 32
-// tickets is unread and colsum is the wide form's work buffer: unread
-// where one slab fits shared memory (NULL), else min(n_s, 32) slabs of
-// p x p + 6 p values per member (dm_glue_work); bucket and cols the
-// register form's plan (ops/cuda_small.alpha_plan)
+// and two-row forms' per-column cost terms and finished-block count;
+// above p = 64 tickets is unread and colsum is the wide form's work
+// buffer: unread where one slab fits shared memory (NULL), else
+// min(n_s, 32) slabs of p x p + 6 p values per member (dm_glue_work);
+// bucket the register and two-row forms' row bucket and cols the register
+// form's columns a block (ops/cuda_small.alpha_plan; unread in the
+// two-row form, a column a block)
 #define DM_K2_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* usq, const void* ydy, void* alpha,  \
@@ -406,7 +535,7 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 // (gtt, bt, ydy: 0 when the members share them); scal_stride is the
 // scalar row length; mask: the members' (B, p) row masks (row stride
 // mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's
-// (above p = 32, colsum the work buffer of B members).
+// (above p = 64, colsum the work buffer of B members).
 #define DM_K5_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
@@ -428,25 +557,34 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f32, float)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f64, double)
 
-// The register form's row bucket at p rows (K2, K3, K5, K6, K10)
+// The row bucket at p rows (K2, K3, K5, K6, K9, K10): 8, 16 or 32 in the
+// register form, 64 in the two-row form, 0 in the wide form (p > 64)
 int dm_row_bucket(int p) { return dm::row_bucket(p); }
 
-// The wide form's dynamic shared memory at p rows and n_s columns, in
-// bytes (0 in the register form, p <= 32); above the card's limit when
-// one warp's slab does not fit, where K2, K3, K5 and K6 keep their slabs
-// in device memory instead (and K9, K10 refuse the shape).
+// The two-row form's slab row stride at p rows (33-64)
+int dm_two_row_stride(int p) { return dm::two_row_stride(p); }
+
+// The glue kernels' dynamic shared memory at p rows and n_s columns, in
+// bytes: 0 in the register form (p <= 32); in the two-row form the slab
+// of a block's one column (the momentum or step-size table follows it
+// where it fits); in the wide form above the card's limit
+// when one warp's slab does not fit, where K2, K3, K5 and K6 keep their
+// slabs in device memory instead (and K9, K10 refuse the shape).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
+    if (p <= dm::kTwoRowP)
+        return dm::two_row_elems(p) * itemsize;
     const int w = dm::glue_warps(itemsize, p, n_s);
     return (w < 1 ? 1 : w) * dm::glue_warp_elems(p) * itemsize;
 }
 
 // Elements of the work buffer K2, K3, K5 and K6 need per member at p rows
 // and n_s columns: 0 where the wide form's slabs fit shared memory (or
-// p <= 32, where the register form's colsum is 3 n_s), else min(n_s, 32)
-// slabs in device memory.
+// p <= 64, where the register and two-row forms' colsum is 3 n_s), else
+// min(n_s, 32) slabs in device memory.
 long long dm_glue_work(int itemsize, int p, int n_s) {
-    if (p <= kMaxP || dm::glue_warps(itemsize, p, n_s) >= 1) return 0;
+    if (p <= dm::kTwoRowP || dm::glue_warps(itemsize, p, n_s) >= 1)
+        return 0;
     return (n_s < 32 ? n_s : 32) * dm::glue_warp_elems(p);
 }
 

@@ -21,8 +21,11 @@
 // the other lanes by shuffle and each block's minimum is a butterfly
 // inside the warp, both over K3's row bucket (8, 16 or 32 lanes,
 // dm::row_bucket), with the step sizes from a table divided once per
-// launch, as K3; above 32 rows the warp's column lives in its own slab
-// of shared memory (the wide form, dm_glue_smem's size). alpha1 and
+// launch, as K3; from 33 to 64 rows K3's two-row form, a block a column
+// (lane q holds rows q and q + 32, the warp's G_s in its slab of
+// shared memory at an odd row stride); above 64 rows the warp's column
+// lives in its own slab of shared memory (the wide form, dm_glue_smem's
+// size, one block). alpha1 and
 // alpha2 are read from their inputs and written to separate outputs, so
 // the inputs stay as they were and no stacked copy is made.
 //
@@ -105,6 +108,63 @@ __global__ void fw_phase_kernel(
     }
 }
 
+// The two-row form (32 < p <= 64), K3's loop on a grid: block s is one
+// warp running column s, the column's G_s in the slab of dynamic shared
+// memory and the step-size table, where use_table, after the slab.
+template <typename T>
+__global__ void __launch_bounds__(32) fw_steps_two_row_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ a1_in, const T* __restrict__ a2_in,
+        T* __restrict__ a1, T* __restrict__ a2,
+        const T* __restrict__ purity, int p, int p1, int n_s, int n_steps,
+        int use_table) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x;
+    const int s = blockIdx.x;
+    const int q1 = lane + 32;
+    const bool row1 = q1 < p;
+    const int ld = dm::two_row_stride(p);
+    const long long pp = static_cast<long long>(p) * p;
+
+    T* sg = reinterpret_cast<T*>(smem_raw);
+    for (int k = lane; k < pp; k += 32)
+        sg[(k / p) * ld + k % p] = G[s * pp + k];
+    const T b0 = b[lane * n_s + s];
+    T al0 = alpha_at(a1_in, a2_in, lane, s, p1, n_s);
+    T b1 = T(0), al1 = T(0);
+    if (row1) {
+        b1 = b[q1 * n_s + s];
+        al1 = alpha_at(a1_in, a2_in, q1, s, p1, n_s);
+    }
+    T* tab = use_table ? sg + dm::two_row_elems(p) : nullptr;
+    if (use_table) dm::fw_gamma_table(tab, n_steps, lane, 32);
+    __syncwarp();                          // the slab and table are written
+    const T pur = purity[s];
+    dm::fw_steps_two_row(sg, b0, b1, al0, al1, lane, p, p1, pur, T(1) - pur,
+                         tab, n_steps);
+    alpha_at(a1, a2, lane, s, p1, n_s) = al0;
+    if (row1) alpha_at(a1, a2, q1, s, p1, n_s) = al1;
+}
+
+template <typename T>
+int launch_two_row(const void* G, const void* b, const void* a1_in,
+                   const void* a2_in, void* a1, void* a2, const void* purity,
+                   int p, int p1, int n_s, int n_steps, cudaStream_t stream) {
+    auto kern = fw_steps_two_row_kernel<T>;
+    size_t smem;
+    int use_table;
+    const int err = dm::two_row_smem(
+        kern, sizeof(T), p, static_cast<size_t>(n_steps) * sizeof(T), smem,
+        use_table);
+    if (err != 0) return err;
+    kern<<<n_s, 32, smem, stream>>>(
+        static_cast<const T*>(G), static_cast<const T*>(b),
+        static_cast<const T*>(a1_in), static_cast<const T*>(a2_in),
+        static_cast<T*>(a1), static_cast<T*>(a2),
+        static_cast<const T*>(purity), p, p1, n_s, n_steps, use_table);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool WIDE, int P>
 int launch_form(const void* G, const void* b, const void* a1_in,
                 const void* a2_in, void* a1, void* a2, const void* purity,
@@ -146,9 +206,12 @@ int launch(const void* G, const void* b, const void* a1_in,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p1 < 1 || p1 >= p || n_s < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (p > kMaxP)
+    if (p > dm::kTwoRowP)
         return launch_form<T, true, 0>(G, b, a1_in, a2_in, a1, a2, purity, p,
                                        p1, n_s, n_steps, s);
+    if (p > kMaxP)
+        return launch_two_row<T>(G, b, a1_in, a2_in, a1, a2, purity, p, p1,
+                                 n_s, n_steps, s);
     switch (dm::row_bucket(p)) {
         case 8:
             return launch_form<T, false, 8>(G, b, a1_in, a2_in, a1, a2,

@@ -21,7 +21,7 @@
 //   - l_w = ||alpha_unknown||^2 dmax^2 and the Gram-identity cost
 //     sum(ydy) - sum(b * alpha) - sum(alpha * (b - G alpha)).
 //
-// What bounds it on an H100: latency. The data is tiny (p <= 32, n_s ~ 10)
+// What bounds it on an H100: latency. The data is tiny (p ~ 6, n_s ~ 10)
 // and the schedule is a serial chain of 500 steps by default (the purity
 // solve's n_iter2), each a matrix-vector product, two minima and two
 // ballots inside a warp.
@@ -51,10 +51,19 @@
 // None of this changes an alpha value: the bits are those of the 32-lane
 // loop (glue_steps.cuh fw_steps_reg). Nothing leaves registers until the
 // epilogue.
-// Above 32 rows (p > 32, e.g. the 25-type panel with 8 or more unknowns)
-// the wide form keeps each warp's column (G_s, b_s, alpha and the
-// gradient) in its own slab of shared memory and gives lane q the rows
-// q, q + 32, ...: the same products in the same order, each block's
+// From 33 to 64 rows (e.g. the 25-type panel with 8 or more unknowns, or
+// a 39-type atlas with one unknown) the two-row form (glue_steps.cuh):
+// lane q holds rows q and q + 32 of alpha and b in registers, the warp's
+// G_s sits in its slab of shared memory at an odd row stride, each
+// block's minimum is the lanes' minimum over their two rows then a
+// butterfly, its first row comes from two ballots, the step sizes from
+// the table, and each column has its own block (K6's members on the
+// grid's y axis), the cost summed by column_cost: alpha is the wide
+// form's bit for bit, the cost too wherever the wide form's block held
+// min(n_s, 32) warps.
+// Above 64 rows the wide form keeps each warp's column (G_s, b_s, alpha
+// and the gradient) in its own slab of shared memory and gives lane q the
+// rows q, q + 32, ...: the same products in the same order, each block's
 // minimum over the lanes' minima and its first row as the smallest row
 // index holding it. The block has as many warps as slabs fit
 // (small_common.cuh), warps loop over the columns, and the cost sums per
@@ -164,7 +173,66 @@ fw_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     dm::set_cost<MULTI>(m.scal, cost);
 }
 
-// The wide form (p > 32): one block per member, each warp's column in its
+// The two-row form (32 < p <= 64): block (s, mb) is one warp running
+// column s of member mb, the column's G_s in the slab of dynamic shared
+// memory and the step-size table, where use_table, after the slab; lane q
+// holds rows q and q + 32 of b and alpha. colsum and tickets as the
+// register form's.
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(32)
+fw_phase_two_row_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
+                        const T* __restrict__ gu, const T* __restrict__ bu,
+                        const T* __restrict__ ydy, T* __restrict__ alpha,
+                        const T* __restrict__ purity, T* __restrict__ scal,
+                        T* __restrict__ colsum,
+                        unsigned* __restrict__ tickets, int n_s, int n_ct,
+                        int n_u, int n_steps, int use_table,
+                        dm::MemberStrides st) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const long long mb = MULTI ? blockIdx.y : 0;
+    const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, ydy, alpha,
+                                          scal, st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;     // uniform per member
+    }
+    T* cs = colsum + mb * 3 * n_s;
+    const int lane = threadIdx.x;
+    const int s = blockIdx.x;
+    const int p = n_ct + n_u;
+    const int q1 = lane + 32;
+    const bool row1 = q1 < p;
+    const T dmax2 = m.scal[dm::kDmax2];
+
+    T* sg = reinterpret_cast<T*>(smem_raw);
+    T b0, b1, al1 = T(0);
+    dm::load_gram_two_row(sg, b0, b1, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s,
+                          n_ct, n_u);
+    T al0 = m.alpha[lane * n_s + s];
+    if (row1) al1 = m.alpha[q1 * n_s + s];
+    T* tab = use_table ? sg + dm::two_row_elems(p) : nullptr;
+    if (use_table) dm::fw_gamma_table(tab, n_steps, lane, 32);
+    __syncwarp();                          // the slab and table are written
+
+    const T pur = purity[s];
+    dm::fw_steps_two_row(sg, b0, b1, al0, al1, lane, p, n_ct, pur,
+                         T(1) - pur, tab, n_steps);
+    T ba, ag, lw;
+    dm::column_sums_two_row(sg, b0, b1, al0, al1, lane, p, n_u, ba, ag, lw);
+    m.alpha[lane * n_s + s] = al0;
+    if (row1) m.alpha[q1 * n_s + s] = al1;
+    if (lane == 0) {
+        cs[s] = ba;
+        cs[n_s + s] = ag;
+        cs[2 * n_s + s] = lw;
+    }
+    // the member's last block sums the columns in the fixed order
+    T cost;
+    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    m.scal[dm::kLW] = lw * dmax2;
+    dm::set_cost<MULTI>(m.scal, cost);
+}
+
+// The wide form (p > 64): one block per member, each warp's column in its
 // slab of shared memory (GSLAB: of the device buffer gslab, as K2's),
 // warps looping over the columns; the cost summed per warp, then over
 // the warps in order (block_cost).
@@ -235,6 +303,32 @@ int launch_reg(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
+// the two-row form: a warp a column, the step-size table after the slab
+// where it fits
+template <typename T, bool MULTI>
+int launch_two_row(const void* gtt, const void* bt, const void* gu,
+                   const void* bu, const void* ydy, void* alpha,
+                   const void* purity, void* scal, void* colsum,
+                   void* tickets, int n_s, int n_ct, int n_u, int n_steps,
+                   int n_members, dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = fw_phase_two_row_kernel<T, MULTI>;
+    size_t smem;
+    int use_table;
+    const int err = dm::two_row_smem(
+        kern, sizeof(T), n_ct + n_u,
+        static_cast<size_t>(n_steps) * sizeof(T), smem, use_table);
+    if (err != 0) return err;
+    const dim3 grid(n_s, MULTI ? n_members : 1);
+    kern<<<grid, 32, smem, stream>>>(
+        static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(ydy), static_cast<T*>(alpha),
+        static_cast<const T*>(purity), static_cast<T*>(scal),
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
+        n_u, n_steps, use_table, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool MULTI, bool GSLAB>
 int launch_wide_as(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* ydy, void* alpha,
@@ -280,8 +374,9 @@ int launch_wide(const void* gtt, const void* bt, const void* gu,
                                           n_steps, n_members, st, stream);
 }
 
-// p > 32: the wide form; else the register form at row bucket `bucket`
-// (8, 16 or 32, >= p) with `cols` columns a block
+// p > 64: the wide form; else the register form at row bucket `bucket`
+// (8, 16 or 32, >= p) with `cols` columns a block, or the two-row form
+// at bucket 64 (a column a block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* ydy, void* alpha, const void* purity, void* scal,
@@ -290,12 +385,19 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > kMaxP)
+    if (p > dm::kTwoRowP)
         return launch_wide<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
                                      scal, colsum, n_s, n_ct, n_u, n_steps,
                                      n_members, st, s);
     if (p > bucket || colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (p > kMaxP)
+        return bucket != dm::kTwoRowP
+                   ? static_cast<int>(cudaErrorInvalidValue)
+                   : launch_two_row<T, MULTI>(gtt, bt, gu, bu, ydy, alpha,
+                                              purity, scal, colsum, tickets,
+                                              n_s, n_ct, n_u, n_steps,
+                                              n_members, st, s);
 #define DM_K3_BUCKET(P)                                                      \
     if (bucket == P)                                                         \
         return launch_reg<T, MULTI, P>(gtt, bt, gu, bu, ydy, alpha, purity,  \
@@ -314,9 +416,10 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 extern "C" {
 
 // colsum (3, n_s) and tickets (1, zero) the register form's per-column
-// cost terms and finished-block count; above p = 32 tickets is unread and
-// colsum the wide form's work buffer, as K2's (dm_glue_work); bucket and
-// cols the register form's plan (ops/cuda_small.alpha_plan)
+// cost terms and finished-block count (the register and two-row forms);
+// above p = 64 tickets is unread and colsum the wide form's work buffer,
+// as K2's (dm_glue_work); bucket and cols the plan as K2's
+// (ops/cuda_small.alpha_plan; cols unread in the two-row form)
 #define DM_K3_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* ydy, void* alpha,                   \

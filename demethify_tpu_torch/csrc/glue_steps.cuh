@@ -11,11 +11,23 @@
 //   - the Frank-Wolfe steps with the first-occurrence block argmin (the
 //     plain form of ops/frank_wolfe.frank_wolfe_gram).
 //
-// Two forms each, as small_common.cuh lays them out: lane q holds row q
-// of the column and of its Gram matrix in registers (p <= 32), or, above,
-// the column lives in the warp's slab of shared memory and lane q takes
-// rows q, q + 32, ... (the wide form), with the register form's
+// Three forms each, as small_common.cuh lays them out: lane q holds row q
+// of the column and of its Gram matrix in registers (p <= 32); lane q
+// holds rows q and q + 32 of the column in registers and the warp's slab
+// of shared memory holds the Gram matrix (the two-row form, p <= 64); or,
+// above, the column lives in the warp's slab of shared memory and lane q
+// takes rows q, q + 32, ... (the wide form), with the register form's
 // arithmetic in the same order.
+//
+// The two-row form is the register form's dataflow over 64 rows: the
+// product broadcasts alpha_r by shuffle and reads G_s at a padded row
+// stride (no bank conflicts), the projection ranks, gathers and tests in
+// the lanes (no lane works alone), Frank-Wolfe reads its step sizes from
+// the table, and nothing goes through shared memory between the stages.
+// Its values are the wide form's, bit for bit: each lane sums its rows
+// over r in index order, the rank is stable by comparison, the cumulative
+// sum runs in rank order and rho is the last index, and a block minimum
+// compares equal to the wide form's.
 //
 // What bounds the register form on an H100: latency. A step is a chain of
 // warp collectives (the product's shuffles, the rank's shuffles, a ballot
@@ -136,6 +148,113 @@ __device__ __forceinline__ void alpha_steps_reg(
     }
 }
 
+// The projection of project_simplex_warp over up to 64 rows (the two-row
+// form, 32 < p <= 64): lane q holds v0 = row q and v1 = row q + 32 (the
+// latter only where q + 32 < p). Each row's stable descending rank by
+// comparison with the p values, read by shuffle; the value of each rank
+// gathered by two ballots (which half holds it) and one shuffle; the
+// cumulative sum in rank order, run in every lane, each lane keeping
+// ranks q and q + 32; each rank's test in its own lane, its division
+// included; rho the last rank whose test holds, from the two halves'
+// ballots (rank 0 when none does). The values, and their order, are
+// simplex_theta_wide's. Returns the projected rows (0 for a missing one).
+template <typename T>
+__device__ __forceinline__ void project_simplex_two_row(T v0, T v1, int lane,
+                                                        int p, T& out0,
+                                                        T& out1) {
+    const bool row1 = lane + 32 < p;
+    int rank0 = 0, rank1 = 0;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {          // rows 0-31: r < lane + 32
+        const T vr = __shfl_sync(kFull, v0, r);
+        rank0 += (vr > v0) || (vr == v0 && r < lane);
+        rank1 += (vr > v1) || (vr == v1);
+    }
+#pragma unroll 4
+    for (int r = 32; r < p; ++r) {          // rows 32 and up: r > lane
+        const T vr = __shfl_sync(kFull, v1, r - 32);
+        rank0 += vr > v0;
+        rank1 += (vr > v1) || (vr == v1 && r < lane + 32);
+    }
+    T csum = T(0), u0 = T(0), pi0 = T(0), u1 = T(0), pi1 = T(0);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+        const unsigned h0 = __ballot_sync(kFull, rank0 == j);
+        const unsigned h1 = __ballot_sync(kFull, row1 && rank1 == j);
+        const int src = (h0 ? __ffs(h0) : __ffs(h1)) - 1;
+        const T uj = __shfl_sync(kFull, rank0 == j ? v0 : v1, src);
+        csum += uj;
+        if (lane == j) {
+            u0 = uj;
+            pi0 = csum - T(1);
+        }
+    }
+#pragma unroll 4
+    for (int j = 32; j < p; ++j) {
+        const unsigned h0 = __ballot_sync(kFull, rank0 == j);
+        const unsigned h1 = __ballot_sync(kFull, row1 && rank1 == j);
+        const int src = (h0 ? __ffs(h0) : __ffs(h1)) - 1;
+        const T uj = __shfl_sync(kFull, rank0 == j ? v0 : v1, src);
+        csum += uj;
+        if (lane + 32 == j) {
+            u1 = uj;
+            pi1 = csum - T(1);
+        }
+    }
+    const unsigned c0 = __ballot_sync(kFull,
+                                      (u0 - pi0 / T(lane + 1)) > T(0));
+    const unsigned c1 = __ballot_sync(
+        kFull, row1 && (u1 - pi1 / T(lane + 33)) > T(0));
+    const int rho = c1 ? 63 - __clz(c1) : (c0 ? 31 - __clz(c0) : 0);
+    const T theta = __shfl_sync(kFull, rho < 32 ? pi0 : pi1, rho & 31)
+                    / T(rho + 1);
+    const T o0 = v0 - theta;
+    const T o1 = v1 - theta;
+    out0 = o0 < T(0) ? T(0) : o0;
+    out1 = row1 ? (o1 < T(0) ? T(0) : o1) : T(0);
+}
+
+// n_steps alpha FISTA steps on one column in the two-row form: the
+// column's G_s in the warp's slab sg (two_row_stride(p)), lane q holding
+// rows q and q + 32 of b_s (b0, b1), alpha (al0, al1) and alpha_prev (ap0,
+// ap1), updated in place; masked0/masked1 set the lane's rows to -1e30
+// before each projection. beta_tab as alpha_steps_reg's. Each step is the
+// wide form's arithmetic on the same values in the same order.
+template <typename T>
+__device__ __forceinline__ void alpha_steps_two_row(
+        const T* __restrict__ sg, T b0, T b1, T& al0, T& al1, T& ap0, T& ap1,
+        bool masked0, bool masked1, int lane, int p,
+        const T* __restrict__ beta_tab, T a0, T l_prev0, const T l_h,
+        int n_steps) {
+    const int ld = two_row_stride(p);
+    T a = a0, l_prev = l_prev0;
+    for (int step = 0; step < n_steps; ++step) {
+        T beta;
+        if (beta_tab != nullptr) {
+            beta = beta_tab[step];
+        } else {
+            const T a2n = nesterov(a);
+            beta = min_nan((a - T(1)) / a2n, T(0.9999) * sqrt_t(l_prev / l_h));
+            a = a2n;
+            l_prev = l_h;
+        }
+        const T at0 = al0 + beta * (al0 - ap0);
+        const T at1 = al1 + beta * (al1 - ap1);
+        T ga0, ga1;
+        gram_two_row(sg, ld, at0, at1, lane, p, ga0, ga1);
+        T v0 = at0 + (b0 - ga0) / l_h;
+        T v1 = at1 + (b1 - ga1) / l_h;
+        if (masked0) v0 = T(-1e30);
+        if (masked1) v1 = T(-1e30);
+        T o0, o1;
+        project_simplex_two_row(v0, v1, lane, p, o0, o1);
+        ap0 = al0;
+        ap1 = al1;
+        al0 = o0;
+        al1 = o1;
+    }
+}
+
 // The same projection for the wide form: column v (p values) in this
 // warp's slab row sv; srt is a work row. Ranks as above (lane q takes rows
 // q, q + 32, ...), the cumulative sum and rho in lane 0 in rank order, so
@@ -175,7 +294,7 @@ __device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
     return __shfl_sync(kFull, theta, 0);
 }
 
-// One column's alpha FISTA loop in the wide form (p > 32): the slab holds
+// One column's alpha FISTA loop in the wide form (p > 64): the slab holds
 // G (sg), b (sb), alpha (sal), alpha_prev (sap) and the work rows at
 // (sat), v (sv) and the sorted values (srt). ``mask`` is the (p,) row
 // mask or null.
@@ -290,7 +409,61 @@ __device__ __forceinline__ void fw_steps_reg(const T (&g)[P], T b, T& al,
     }
 }
 
-// One column's Frank-Wolfe loop in the wide form (p > 32): the slab holds
+// first row (< p) holding a block's minimum in the two-row form, from the
+// ballots of the lanes' first rows (hit0) and second rows (hit1), else p
+__device__ __forceinline__ int first_row_two(bool hit0, bool hit1, int p) {
+    const unsigned h0 = __ballot_sync(kFull, hit0);
+    const unsigned h1 = __ballot_sync(kFull, hit1);
+    return h0 ? __ffs(h0) - 1 : (h1 ? 31 + __ffs(h1) : p);
+}
+
+// n_steps Frank-Wolfe steps on one column in the two-row form: the
+// column's G_s in the warp's slab sg, lane q holding rows q and q + 32 of
+// b_s (b0, b1) and alpha (al0, al1, updated in place); rows below n_ct
+// form the known block. Each block's minimum is the NaN-propagating
+// minimum of the lane's two rows (a missing row +inf, the other block's
+// rows the 3.4e38 mask), then warp_min over the 32 lanes; its first row
+// comes from the two halves' ballots (first_row_two). gamma_tab holds the
+// step sizes (fw_gamma_table), or is null: then each step divides. The
+// values and ties are fw_steps_wide's: the same products in the same
+// order, a minimum that compares equal to its, the first occurrence.
+template <typename T>
+__device__ __forceinline__ void fw_steps_two_row(
+        const T* __restrict__ sg, T b0, T b1, T& al0, T& al1, int lane,
+        int p, int n_ct, T pur, T pur2, const T* __restrict__ gamma_tab,
+        int n_steps) {
+    const int ld = two_row_stride(p);
+    const bool row1 = lane + 32 < p;
+    const bool known0 = lane < n_ct;
+    const bool known1 = lane + 32 < n_ct;
+    const T big = T(3.4e38);                // the TPU kernel's block mask
+    const T pad = pos_inf<T>();
+    for (int k = 0; k < n_steps; ++k) {
+        T ga0, ga1;
+        gram_two_row(sg, ld, al0, al1, lane, p, ga0, ga1);
+        const T gr0 = -(b0 - ga0);
+        const T gr1 = -(b1 - ga1);
+        const T x0 = known0 ? gr0 : big;
+        const T y0 = known0 ? big : gr0;
+        const T x1 = row1 ? (known1 ? gr1 : big) : pad;
+        const T y1 = row1 ? (known1 ? big : gr1) : pad;
+        const T m1 = warp_min(min_nan(x0, x1));
+        const T m2 = warp_min(min_nan(y0, y1));
+        const int i1 = first_row_two(x0 == m1, row1 && x1 == m1, p);
+        const int i2 = first_row_two(y0 == m2, row1 && y1 == m2, p);
+        const T vert0 = (lane == i1 ? T(1) : T(0)) * pur
+                        + (lane == i2 ? T(1) : T(0)) * pur2;
+        const T vert1 = (lane + 32 == i1 ? T(1) : T(0)) * pur
+                        + (lane + 32 == i2 ? T(1) : T(0)) * pur2;
+        const T gamma = gamma_tab != nullptr
+                            ? gamma_tab[k]
+                            : T(2) / (static_cast<T>(k) + T(2));
+        al0 = (T(1) - gamma) * al0 + gamma * vert0;
+        al1 = row1 ? (T(1) - gamma) * al1 + gamma * vert1 : T(0);
+    }
+}
+
+// One column's Frank-Wolfe loop in the wide form (p > 64): the slab holds
 // G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
 // rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
 // of the lanes' minima over their rows, and its first row the smallest

@@ -1,12 +1,15 @@
 // Pieces shared by the port's kernels: the solver's scalar slots and the
 // FISTA scalar arithmetic (K1, K2, K4, K5), and for the glue kernels K2
-// and K5 (alpha_phase_full.cu), K3 and K6 (fw_phase_full.cu) -- one thread
-// block per member, one warp per sample column -- the Gram row assembly,
-// the product, the cost epilogue and the member bookkeeping, in two
+// and K5 (alpha_phase_full.cu), K3 and K6 (fw_phase_full.cu) -- one warp
+// per sample column, over blocks of columns and members (one block per
+// member in the wide form) -- the Gram row assembly,
+// the product, the cost epilogue and the member bookkeeping, in three
 // forms: lane q holds row q of alpha and of the column's Gram matrix in
-// registers (p <= 32), or, above 32 rows, each warp keeps its column's
-// Gram matrix, b and alpha in its own slab of shared memory and lane q
-// takes rows q, q + 32, ... (the wide form).
+// registers (p <= 32); lane q holds rows q and q + 32 of alpha and b in
+// registers and the warp keeps the column's Gram matrix in its slab of
+// shared memory (the two-row form, 32 < p <= 64); or, above 64 rows, each
+// warp keeps its column's Gram matrix, b and alpha in its own slab and
+// lane q takes rows q, q + 32, ... (the wide form).
 
 #pragma once
 
@@ -33,7 +36,7 @@ constexpr int kPhA = 0, kPhL = 1, kPhLPrev = 2, kPhAOut = 3,
 constexpr int kMaxP = 32;          // rows of the register form
 constexpr unsigned kFull = 0xffffffffu;
 
-// The wide form's shared memory: per warp the column's Gram matrix
+// The wide form's shared memory (p > 64): per warp the column's Gram matrix
 // (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
 // as many warps as fit under the card's opt-in limit (232,448 bytes on an
 // H100) less 1 KB for the kernels' static shared memory, at most 32 and
@@ -332,13 +335,142 @@ __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
     return true;
 }
 
-// The register forms' row bucket: the smallest of 8, 16 and 32 lanes
-// holding p rows (ops/cuda_small.alpha_plan's rule; dm_row_bucket)
-__host__ __device__ __forceinline__ int row_bucket(int p) {
-    return p <= 8 ? 8 : (p <= 16 ? 16 : kMaxP);
+// ---- the two-row form (32 < p <= 64) ----------------------------------
+// Lane q holds rows q and q + 32 of the column in registers; the column's
+// Gram matrix sits in the warp's slab of shared memory, p rows at an odd
+// row stride, so the 32 lanes' row starts fall in distinct banks (one
+// wavefront for a float32 load, the two a 64-bit load needs in float64).
+constexpr int kTwoRowP = 64;
+// A block of the two-row form is one warp holding one column: a step is
+// bound by its SM's shuffle, FP64 and issue throughput, so a column an SM
+// is about the fastest (PERF.md, Findings).
+
+__host__ __device__ __forceinline__ int two_row_stride(int p) {
+    return p | 1;
 }
 
-// ---- the wide form (p > 32): this warp's slab of shared memory -------
+__host__ __device__ __forceinline__ long long two_row_elems(int p) {
+    return static_cast<long long>(p) * two_row_stride(p);
+}
+
+// A two-row launch's dynamic shared memory: the block's slab, then the
+// step table of tab bytes where it fits (use_table: at most 48 KB of
+// table, and the total under kGlueSmemLimit); opts kernel `kern` into
+// the bytes past 48 KB. Returns the cudaError_t of that, or
+// cudaErrorInvalidValue where the slab alone passes the limit.
+template <typename K>
+int two_row_smem(K kern, int itemsize, int p, size_t tab, size_t& smem,
+                 int& use_table) {
+    const size_t slab = two_row_elems(p) * itemsize;
+    if (slab > static_cast<size_t>(kGlueSmemLimit))
+        return static_cast<int>(cudaErrorInvalidValue);
+    use_table = tab <= 48 * 1024 && slab + tab <= kGlueSmemLimit;
+    smem = slab + (use_table ? tab : 0);
+    if (smem <= 48 * 1024) return 0;
+    return static_cast<int>(cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+}
+
+// The row bucket: the smallest of 8, 16 and 32 lanes holding p rows (the
+// register form), 64 for the two-row form, 0 above (the wide form)
+// (ops/cuda_small.alpha_plan's rule; dm_row_bucket)
+__host__ __device__ __forceinline__ int row_bucket(int p) {
+    return p <= 8 ? 8
+                  : (p <= 16 ? 16
+                             : (p <= kMaxP ? kMaxP
+                                           : (p <= kTwoRowP ? kTwoRowP : 0)));
+}
+
+// G_s into the two-row form's slab sg (p rows at two_row_stride(p)), by
+// the assembly rule of load_gram_row, and this lane's rows of b_s into b0
+// (row lane) and b1 (row lane + 32, 0 past p)
+template <typename T>
+__device__ __forceinline__ void load_gram_two_row(
+        T* __restrict__ sg, T& b0, T& b1, const T* __restrict__ gtt,
+        const T* __restrict__ bt, const T* __restrict__ gu,
+        const T* __restrict__ bu, int s, int lane, int n_s, int n_ct,
+        int n_u) {
+    const int p = n_ct + n_u;
+    const int ld = two_row_stride(p);
+    for (int k = lane; k < p * p; k += 32) {
+        const int q = k / p;
+        const int r = k % p;
+        T x;
+        if (q >= n_ct)
+            x = gu[(s * n_u + (q - n_ct)) * p + r];
+        else if (r >= n_ct)
+            x = gu[(s * n_u + (r - n_ct)) * p + q];
+        else
+            x = gtt[(s * n_ct + q) * n_ct + r];
+        sg[q * ld + r] = x;
+    }
+    const int q1 = lane + 32;
+    b0 = lane < n_ct ? bt[lane * n_s + s] : bu[(lane - n_ct) * n_s + s];
+    b1 = q1 >= p ? T(0)
+                 : (q1 < n_ct ? bt[q1 * n_s + s] : bu[(q1 - n_ct) * n_s + s]);
+}
+
+// (G_s a) at this lane's rows, lane and lane + 32, from the slab (row
+// stride ld): a_r is broadcast by shuffle from lane r mod 32 (a0 holds
+// rows 0-31, a1 rows 32 and up), and each row sums its terms over r in
+// index order, as gram_matvec and gram_row_dot do. A lane without a
+// second row reads its first row again for ga1, which no one uses.
+template <typename T>
+__device__ __forceinline__ void gram_two_row(const T* __restrict__ sg,
+                                             int ld, T a0, T a1, int lane,
+                                             int p, T& ga0, T& ga1) {
+    const T* g0 = sg + lane * ld;
+    const T* g1 = sg + (lane + 32 < p ? lane + 32 : lane) * ld;
+    T s0 = T(0), s1 = T(0);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+        const T ar = __shfl_sync(kFull, a0, r);
+        s0 += g0[r] * ar;
+        s1 += g1[r] * ar;
+    }
+#pragma unroll 4
+    for (int r = 32; r < p; ++r) {
+        const T ar = __shfl_sync(kFull, a1, r - 32);
+        s0 += g0[r] * ar;
+        s1 += g1[r] * ar;
+    }
+    ga0 = s0;
+    ga1 = s1;
+}
+
+// One column's terms of the Gram-identity cost in the two-row form: lane
+// q sums its rows q, q + 32 in order (b.a, a.(b - G a) and, for the
+// unknown rows, ||alpha_unknown||^2), then the 32-lane shuffle tree of
+// add_column_sums_wide: the same operations in the same order, so the
+// same bits. Valid in lane 0.
+template <typename T>
+__device__ __forceinline__ void column_sums_two_row(
+        const T* __restrict__ sg, T b0, T b1, T al0, T al1, int lane, int p,
+        int n_u, T& ba, T& ag, T& lw) {
+    const bool row1 = lane + 32 < p;
+    T ga0, ga1;
+    gram_two_row(sg, two_row_stride(p), al0, al1, lane, p, ga0, ga1);
+    ba = T(0);
+    ag = T(0);
+    lw = T(0);
+    ba += b0 * al0;
+    ag += al0 * (b0 - ga0);
+    if (lane >= p - n_u) lw += al0 * al0;
+    if (row1) {
+        ba += b1 * al1;
+        ag += al1 * (b1 - ga1);
+        if (lane + 32 >= p - n_u) lw += al1 * al1;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        ba += __shfl_down_sync(kFull, ba, off);
+        ag += __shfl_down_sync(kFull, ag, off);
+        lw += __shfl_down_sync(kFull, lw, off);
+    }
+}
+
+// ---- the wide form (p > 64): this warp's slab of shared memory -------
 
 // G_s and b_s of column s into the slab (sg: p x p, sb: p), by the
 // assembly rule of load_gram_row; lane q fills entries q, q + 32, ...

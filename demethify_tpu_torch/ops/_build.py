@@ -129,6 +129,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
     lib.dm_row_bucket.argtypes = [_INT]
     lib.dm_row_bucket.restype = _INT
+    lib.dm_two_row_stride.argtypes = [_INT]
+    lib.dm_two_row_stride.restype = _INT
     lib.dm_glue_smem.argtypes = [_INT] * 3
     lib.dm_glue_smem.restype = _LL
     lib.dm_glue_work.argtypes = [_INT] * 3
@@ -217,7 +219,10 @@ def load() -> KernelLibrary:
     return _LIBRARY
 
 
-def check(err: int, name: str) -> None:
+def check(err: int, name: str, case: str = "") -> None:
+    """Raises RuntimeError naming the kernel, the CUDA error and, where
+    given, the launch's ``case`` (its shape, dtypes and plan) unless
+    ``err`` is 0."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           f"(cudaError_t)")
+                           f"(cudaError_t)" + (f" at {case}" if case else ""))

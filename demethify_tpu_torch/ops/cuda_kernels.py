@@ -193,8 +193,11 @@ def global_rows(n_ct: int, n_u: int, direct: bool = False,
 
 def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
                    direct: bool = False, bf16c: bool = False,
-                   weighted: bool = False):
-    """(layout, bytes). The resident layout reads Y and D from device
+                   weighted: bool = False, smem=None):
+    """(layout, bytes). ``smem(layout)`` gives a layout's bytes: by default
+    ``u_phase_smem``; the launchers pass the library's ``*_smem`` exports
+    (``lib_smem``), so that on the card the kernels' own bytes decide. The
+    resident layout reads Y and D from device
     memory once; the wide one reads them twice (and, in the direct form,
     once per FISTA step), but its shared memory stops growing with n_s at
     32 samples, so more blocks share an SM. On an H100
@@ -225,10 +228,11 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     So: the resident layout, unless it does not fit, or fits one block
     per SM and the wide one two or more; the global layout where the wide
     one does not fit."""
-    res = u_phase_smem("resident", itemsize, n_s, n_ct, n_u, direct, bf16c,
-                       weighted)
-    wide = u_phase_smem("wide", itemsize, n_s, n_ct, n_u, direct, bf16c,
-                        weighted)
+    if smem is None:
+        def smem(layout):
+            return u_phase_smem(layout, itemsize, n_s, n_ct, n_u, direct,
+                                bf16c, weighted)
+    res, wide = smem("resident"), smem("wide")
     if n_u > REG_N_U:
         leave = blocks_per_sm(res) < 2 <= blocks_per_sm(wide)
     else:
@@ -237,13 +241,35 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
         return "resident", res
     if wide <= SMEM_LIMIT:
         return "wide", wide
-    return "global", u_phase_smem("global", itemsize, n_s, n_ct, n_u, direct,
-                                  bf16c, weighted)
+    return "global", smem("global")
 
 
 # each layout's C entry points: dm_u_phase_grams{suffix}_*, and K4's
 # dm_u_phase_grams_multi{suffix}_*
 _LAYOUT_SUFFIX = {"resident": "", "wide": "_wide", "global": "_global"}
+
+
+def lib_smem(lib, kernel: str, *args):
+    """``smem(layout)`` for ``u_phase_layout`` from the library's exports:
+    ``{kernel}{suffix}_smem(*args)`` (``kernel`` "dm_u_phase_grams" with
+    args (itemsize, n_s, n_ct, n_u, direct, bf16c), or
+    "dm_u_phase_grams_multi" with (itemsize, n_s, n_ct, n_u, weighted))."""
+    def smem(layout):
+        return getattr(lib, f"{kernel}{_LAYOUT_SUFFIX[layout]}_smem")(
+            *(int(a) for a in args))
+    return smem
+
+
+def launch_case(n, n_s, n_ct, n_u, n_b, data, state, layout, in_device,
+                smem, **flags) -> str:
+    """What a failed K1/K4 launch names: its shape, dtypes, layout, state
+    region and shared memory (and any ``flags`` set)."""
+    extra = "".join(f", {k}" for k, on in flags.items() if on)
+    return (f"N = {n}, n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u}, B = {n_b}, "
+            f"{str(data).replace('torch.', '')} data, "
+            f"{str(state).replace('torch.', '')} state, {layout} layout, "
+            f"state region in device memory: {bool(in_device)}, {smem} "
+            f"bytes of shared memory{extra}")
 
 
 def check_dtypes(name, data, state):
@@ -293,7 +319,8 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
 def count_forms(forms: dict, **flags) -> None:
     """Adds one launch to ``forms[name]`` for each name whose flag is set.
     The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
-    K6), "global_layout" (K1/K4's global layout), "device_slabs"
+    K6/K9/K10), "two_row" (their two-row form, 32 < p <= 64),
+    "global_layout" (K1/K4's global layout), "device_slabs"
     (K2/K3/K5/K6's wide form with its slabs in device memory),
     "state_on_chip" (K1/K4 at n_u > REG_N_U, the state region in shared
     memory), "state_in_device" (the same, its region in device memory;
@@ -454,9 +481,15 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams: unsupported device {ydt.device}")
     direct = not gram_form(n_u, n_s)
-    layout, _ = u_phase_layout("u_phase_grams", uut.element_size(), n_s,
-                               n_ct, n_u, direct, bf16c)
     lib = _build.load().lib
+    # the plan from the library's exports, the kernels' own copy
+    itemsize = uut.element_size()
+    layout, smem = u_phase_layout(
+        "u_phase_grams", itemsize, n_s, n_ct, n_u, direct, bf16c,
+        smem=lib_smem(lib, "dm_u_phase_grams", itemsize, n_s, n_ct, n_u,
+                      direct, bf16c))
+    in_device = layout == "global" and bool(
+        lib.dm_state_in_device(itemsize, n_s, n_u, int(direct)))
     prefix = "dm_u_phase_grams" + _LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
@@ -465,11 +498,11 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
     partials = uut.new_empty((n_entries * n_blocks + n_steps + 1,))
     tab = partials[n_entries * n_blocks:]
     out = uut.new_empty((n_entries,))
-    state = (uut.new_empty((n_blocks * state_rows(n_s, n_u, direct) * _LD,))
-             if layout == "global" and state_in_device(
-                 uut.element_size(), n_s, n_u, direct) else None)
-    rowbuf = (uut.new_empty((n_blocks * global_rows(n_ct, n_u, direct, bf16c)
-                             * _LD,)) if layout == "global" else None)
+    state = (uut.new_empty((n_blocks * lib.dm_state_rows(
+        n_s, n_u, int(direct)) * _LD,)) if in_device else None)
+    rowbuf = (uut.new_empty((n_blocks * lib.dm_u_phase_grams_global_rows(
+        n_ct, n_u, int(direct), int(bf16c)) * _LD,))
+        if layout == "global" else None)
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
             tab.data_ptr(), partials.data_ptr(), out.data_ptr(),
@@ -484,7 +517,9 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
             err = getattr(lib, prefix + "_f32")(*args, stream)
         else:
             err = getattr(lib, prefix + "_f64")(*args, stream)
-    _build.check(err, "u_phase_grams")
+    _build.check(err, "u_phase_grams", launch_case(
+        n, n_s, n_ct, n_u, 1, ydt.dtype, uut.dtype, layout, in_device, smem,
+        direct=direct, bf16_compute=bf16c))
     if bf16c:
         u_phase_grams.launches_bf16_compute += 1
     elif ydt.dtype == torch.bfloat16:
@@ -606,7 +641,11 @@ def k7_smem(itemsize: int, n_ct: int) -> int:
     as fast or slower at every shape timed (PERF.md, K7). Raises
     NotImplementedError, stating the bytes, where the rows pass the card's
     limit (n_ct > 225 in float64, 450 in float32)."""
-    smem = itemsize * n_ct * _LD
+    return _k7_fits(itemsize * n_ct * _LD, itemsize, n_ct)
+
+
+def _k7_fits(smem: int, itemsize: int, n_ct: int) -> int:
+    """``smem``, or NotImplementedError where it passes the card's limit."""
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"u_phase at n_ct = {n_ct} ({itemsize}-byte state) needs {smem} "
@@ -659,13 +698,15 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
     for t in (yt, dt, rtt, a1_block, a2_block, ut, u_prev_t):
         if not t.is_contiguous():
             raise ValueError("u_phase: operands must be contiguous")
-    k7_smem(ut.element_size(), n_ct)
     lib = _build.load().lib
+    # the plan from the library's exports, the kernel's own copy
+    smem = _k7_fits(lib.dm_u_phase_smem(ut.element_size(), n_ct),
+                    ut.element_size(), n_ct)
     u_out, up_out = torch.empty_like(ut), torch.empty_like(u_prev_t)
     tab = ut.new_empty((n_steps + 1,))
     # above REG_N_U the gram form's state region, in device memory: K7,
     # which no solver runs, keeps one layout
-    rows = state_rows(n_s, n_u)
+    rows = lib.dm_state_rows(n_s, n_u, 0)
     state = (ut.new_empty((-(-n // SITES_PER_BLOCK) * rows, _LD)) if rows
              else None)
     dt_name = {torch.float32: "f32", torch.float64: "f64",
@@ -679,7 +720,8 @@ def u_phase(yt, dt, rtt, a1_block, a2_block, ut, u_prev_t, a, l_w,
                  None if state is None else state.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, int(lagged),
                  torch.cuda.current_stream(yt.device).cuda_stream)
-    _build.check(err, "u_phase")
+    _build.check(err, "u_phase", launch_case(
+        n, n_s, n_ct, n_u, 1, yt.dtype, ut.dtype, "K7", bool(rows), smem))
     if yt.dtype == torch.bfloat16:
         u_phase.launches_bf16 += 1
     else:

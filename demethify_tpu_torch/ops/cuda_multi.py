@@ -48,6 +48,8 @@ tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
 same function with the member axis written out as a batch dimension.
 """
 
+import ctypes
+
 import torch
 
 from demethify_tpu_torch.ops import _build, cuda_kernels
@@ -70,6 +72,8 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     gram_entries,
     gram_form,
     known_block,
+    launch_case,
+    lib_smem,
     member_stride,
     state_in_device,
     state_rows,
@@ -82,6 +86,8 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 K4_GROUP_BLOCKS = 4
 # members per group in the global layout (kGlobalGroup)
 K4_GLOBAL_GROUP = 8
+# the layout codes of dm_k4_member_plan
+_LAYOUT_CODE = {"resident": 0, "wide": 1, "global": 2}
 # the group Gram stage's tiles (kGS, kGL, kGP, kGB): samples per tile,
 # left rows (member, unknown) per cross tile (x GRAM_TILE_Q rows of Rt),
 # (member, v, w) pairs per self tile, left rows per b_u tile
@@ -274,10 +280,15 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     if ydt.device.type != "cuda":
         raise ValueError(f"u_phase_grams_multi: unsupported device "
                          f"{ydt.device}")
-    layout, _ = cuda_kernels.u_phase_layout(
-        "u_phase_grams_multi", uut_b.element_size(), n_s, n_ct, n_u,
-        weighted=weights is not None)
     lib = _build.load().lib
+    # the plan from the library's exports, the kernels' own copy
+    itemsize, weighted = uut_b.element_size(), weights is not None
+    layout, smem = cuda_kernels.u_phase_layout(
+        "u_phase_grams_multi", itemsize, n_s, n_ct, n_u, weighted=weighted,
+        smem=lib_smem(lib, "dm_u_phase_grams_multi", itemsize, n_s, n_ct,
+                      n_u, weighted))
+    in_device = layout == "global" and bool(
+        lib.dm_state_in_device(itemsize, n_s, n_u, 0))
     prefix = "dm_u_phase_grams_multi" + cuda_kernels._LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
     n_entries = gram_entries(n_s, n_ct, n_u)
@@ -290,15 +301,15 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
     tab = partials[n_part:]
     member_list = partials[n_part + n_tab:]
     out = uut_b.new_empty((n_b, n_entries))
-    state = (uut_b.new_empty((n_blocks * state_rows(n_s, n_u) * _LD,))
-             if layout == "global" and state_in_device(
-                 uut_b.element_size(), n_s, n_u) else None)
+    state = (uut_b.new_empty((n_blocks * lib.dm_state_rows(n_s, n_u, 0)
+                              * _LD,)) if in_device else None)
     rowbuf = None
     if layout == "global":
-        group = k4_member_plan(uut_b.element_size(), n_s, n_ct, n_u, n_b,
-                               weights is not None, layout)["group"]
-        rowbuf = uut_b.new_empty((n_blocks * _LD * k4_global_rows(
-            n_ct, n_u, weights is not None, group),))
+        plan = (ctypes.c_longlong * 3)()
+        lib.dm_k4_member_plan(itemsize, n_s, n_ct, n_u, n_b, int(weighted),
+                              _LAYOUT_CODE[layout], plan)
+        rowbuf = uut_b.new_empty((n_blocks * _LD * lib.dm_k4_global_rows(
+            n_ct, n_u, int(weighted), plan[0]),))
     fn = getattr(lib, prefix + {torch.float32: "_f32", torch.float64: "_f64",
                                 torch.bfloat16: "_bf16"}[ydt.dtype])
     with torch.cuda.device(ydt.device):
@@ -313,7 +324,9 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  None if state is None else state.data_ptr(),
                  None if rowbuf is None else rowbuf.data_ptr(), n, n_s,
                  n_ct, n_u, n_steps, n_b, int(lagged), stream)
-    _build.check(err, "u_phase_grams_multi")
+    _build.check(err, "u_phase_grams_multi", launch_case(
+        n, n_s, n_ct, n_u, n_b, ydt.dtype, uut_b.dtype, layout, in_device,
+        smem, weighted=weighted, lagged=lagged))
     if ydt.dtype == torch.bfloat16:
         u_phase_grams_multi.launches_bf16 += 1
     else:

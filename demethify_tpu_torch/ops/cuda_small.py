@@ -11,9 +11,9 @@ forms for the batched restarts, ``alpha_phase_full_multi`` (K5) and
 kernels are ``csrc/alpha_phase_full.cu`` (K2, K5) and
 ``csrc/fw_phase_full.cu`` (K3, K6); their source notes say what bounds
 them on an H100 (latency: tiny data, n_steps serial steps) and what the
-design does about it (one thread block per member, one warp per sample
-column; the simplex projection, or the Frank-Wolfe block argmin, inside
-the warp).
+design does about it (one warp per sample column, the columns over
+blocks and the members on the grid; the simplex projection, or the
+Frank-Wolfe block argmin, inside the warp).
 
 The multi forms take the known blocks (gtt, bt, ydy) either shared by the
 members, as the batched restarts have them, or one per member with a
@@ -30,18 +30,24 @@ and set an active member's ACTIVE slot for the next outer iteration from
 |new cost - old cost| >= TOL (the reference's termination test, per
 member).
 
-Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers;
-above, the kernels' wide form keeps each warp's column in its own slab of
-shared memory (``glue_smem``); past one slab (p = 168 in float64, 238 in
-float32) the slabs live in a device-memory work buffer the wrapper
-allocates (``glue_work``), the same code on other addresses. K9 and K10
-keep shared slabs only and raise past one, stating the shape. The
-register form of K2, K3, K5 and K6 runs its warp collectives
-to a row bucket of 8, 16 or 32 lanes and gives every column its own
-warp, over several blocks past 16 columns (``alpha_plan``), with the cost
-summed in a fixed order that does not depend on the grid; K3 and K6 read
-their step sizes from a table built once per launch. K10 runs K3's loop
-at the same bucket, in one block.
+Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers
+(the register form); from 33 to 64 rows lane q holds rows q and q + 32
+of the column in registers and the warp's slab of shared memory holds
+the column's Gram matrix at an odd row stride (the two-row form,
+``two_row_stride``); above, the kernels' wide form keeps each warp's
+column in its own slab of shared memory (``glue_smem``); past one slab
+(p = 168 in float64, 238 in float32) the slabs live in a device-memory
+work buffer the wrapper allocates (``glue_work``), the same code on
+other addresses. K9 and K10 keep shared slabs only and raise past one,
+stating the shape. The register form of K2, K3, K5 and K6 runs its warp
+collectives to a row bucket of 8, 16 or 32 lanes and gives every column
+its own warp, over several blocks past 16 columns (``alpha_plan``), with
+the cost summed in a fixed order that does not depend on the grid; K3
+and K6 read their step sizes from a table built once per launch. The
+two-row form gives each column a block of its own, and its alpha is the
+wide form's bit for bit. K9 and K10 run K2's and K3's loops at the same
+bucket: in one block in the register and wide forms, a column a block
+in the two-row form.
 
 ``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
 are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
@@ -89,6 +95,7 @@ from demethify_tpu_torch.ops.fista import fista_alpha_gram
 from demethify_tpu_torch.ops.frank_wolfe import frank_wolfe_gram
 
 REG_P = 32     # rows the register form holds, one lane per row (kMaxP)
+TWO_ROW_P = 64  # rows the two-row form holds, two a lane (kTwoRowP)
 # the wide form's slabs may take the card's limit less 1 KB for the
 # kernels' static shared memory (small_common.cuh, kGlueSmemLimit)
 _GLUE_LIMIT = SMEM_LIMIT - 1024
@@ -102,18 +109,36 @@ BLOCK_COLUMNS = 8
 
 def alpha_plan(p: int, n_s: int):
     """(row bucket, columns per block, blocks per member) of the register
-    form of K2, K5 (``csrc/alpha_phase_full.cu``), K3 and K6
-    (``csrc/fw_phase_full.cu``), p <= 32: the smallest bucket P >= p
-    (``dm_row_bucket``; K10 takes the same), to which every warp
-    collective of a step runs; one warp per column, all n_s columns in one
-    block up to ONE_BLOCK_COLUMNS, else blocks of BLOCK_COLUMNS (columns
-    [x cols, (x + 1) cols) in block x).
+    and two-row forms of K2, K5 (``csrc/alpha_phase_full.cu``), K3 and K6
+    (``csrc/fw_phase_full.cu``), p <= 64: in the register form (p <= 32)
+    the smallest bucket P >= p (``dm_row_bucket``; K10 takes the same), to
+    which every warp collective of a step runs, with one warp per column,
+    all n_s columns in one block up to ONE_BLOCK_COLUMNS, else blocks of
+    BLOCK_COLUMNS (columns [x cols, (x + 1) cols) in block x); in the
+    two-row form TWO_ROW_P with one column a block, the one-warp block
+    its kernels are written for (their step is bound by the SM's shuffle,
+    FP64 and issue throughput, so a column an SM is about the fastest;
+    K9 and K10 take the same grid).
     The kernel sums the columns' cost terms in a fixed order whatever the
     grid: column s into group s mod min(n_s, 32), each group in column
     order, then the groups in order."""
-    bucket = next(b for b in ROW_BUCKETS if b >= p)
-    cols = n_s if n_s <= ONE_BLOCK_COLUMNS else BLOCK_COLUMNS
+    if not 1 <= p <= TWO_ROW_P:
+        raise ValueError(f"alpha_plan: p = {p} rows has no register or "
+                         f"two-row plan (1-{TWO_ROW_P})")
+    if p <= REG_P:
+        bucket = next(b for b in ROW_BUCKETS if b >= p)
+        cols = n_s if n_s <= ONE_BLOCK_COLUMNS else BLOCK_COLUMNS
+    else:
+        bucket, cols = TWO_ROW_P, 1
     return bucket, cols, -(-n_s // cols)
+
+
+def two_row_stride(p: int) -> int:
+    """Row stride of the two-row form's Gram slab (``dm_two_row_stride``):
+    p rounded up to odd, so that the 32 lanes' row starts fall in distinct
+    banks (a float32 load in one wavefront, a float64 load in the two a
+    64-bit load needs)."""
+    return p | 1
 
 
 # per (device, dtype): the register form's per-column cost terms (K2, K3,
@@ -139,11 +164,11 @@ def _glue_scratch(like, n_b: int, n_s: int):
 
 def _reg_args(like, n_b, p, n_s):
     """The (colsum, tickets, bucket, cols) launch arguments of K2, K3, K5
-    and K6: the register form's buffers and plan; in the wide form
-    (p > 32) null, or past one shared slab the device slabs (``glue_work``
-    elements per member) in colsum's place, and the work buffer itself
-    (kept alive by the caller until the launch is queued)."""
-    if p > REG_P:
+    and K6: the register and two-row forms' buffers and plan; in the wide
+    form (p > 64) null, or past one shared slab the device slabs
+    (``glue_work`` elements per member) in colsum's place, and the work
+    buffer itself (kept alive by the caller until the launch is queued)."""
+    if p > TWO_ROW_P:
         n_work = glue_work(like.element_size(), p, n_s)
         if not n_work:
             return None, None, 0, 0, None
@@ -158,17 +183,21 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     """(warps per block, dynamic shared memory in bytes) of the glue
     kernels at p rows and n_s columns: (min(n_s, 32), 0) in the register
     form (p <= 32; K2's and K5's register form spreads its columns by
-    ``alpha_plan`` instead); in the wide form one slab of p x p + 6 p
-    values per
-    warp and as many warps as fit, at most min(n_s, 32) -- the kernels'
-    ``dm::glue_warps`` and ``dm_glue_smem``, which ``chip_smoke.py`` holds
-    this to. 0 warps when one slab does not fit (``glue_work``). A launch
+    ``alpha_plan`` instead); in the two-row form (p <= 64) ``alpha_plan``'s
+    one column a block, its slab p x ``two_row_stride(p)`` values (the
+    momentum or step-size table follows the slab where it fits); in the
+    wide form one slab of p x p + 6 p values per warp and as many warps as
+    fit, at most min(n_s, 32) -- the kernels' ``dm::glue_warps``. Both
+    are the kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this
+    to. 0 warps when one slab does not fit (``glue_work``). A wide launch
     may take fewer warps where the kernel's registers allow fewer per
     block (``dm::max_block_warps``); its warps then loop over the
     columns."""
     n_warps = min(n_s, 32)
     if p <= REG_P:
         return n_warps, 0
+    if p <= TWO_ROW_P:
+        return 1, itemsize * p * two_row_stride(p)
     slab = itemsize * (p * p + 6 * p)
     n_warps = min(n_warps, _GLUE_LIMIT // slab)
     return n_warps, max(n_warps, 1) * slab
@@ -272,6 +301,7 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     _build.check(err, "alpha_phase_full")
     alpha_phase_full.launches += 1
     count_forms(alpha_phase_full.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P,
                 device_slabs=work is not None, masked=mask is not None)
 
 
@@ -339,6 +369,7 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
     _build.check(err, "fw_phase_full")
     fw_phase_full.launches += 1
     count_forms(fw_phase_full.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P,
                 device_slabs=work is not None)
 
 
@@ -460,6 +491,7 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
     _build.check(err, name)
     alpha_phase_full_multi.launches += 1
     count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P,
                 device_slabs=work is not None, masked=mask is not None)
 
 
@@ -574,6 +606,7 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     _build.check(err, name)
     fw_phase_full_multi.launches += 1
     count_forms(fw_phase_full_multi.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P,
                 device_slabs=work is not None)
 
 
@@ -664,7 +697,8 @@ def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
                  p, n_s, n_steps, _stream(alpha))
     _build.check(err, "alpha_phase")
     alpha_phase.launches += 1
-    count_forms(alpha_phase.forms, wide=p > REG_P, masked=mask is not None)
+    count_forms(alpha_phase.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P, masked=mask is not None)
     return al, ap, scal[PH_A_OUT], scal[PH_L_PREV_OUT]
 
 
@@ -715,7 +749,8 @@ def fw_phase(G, b, alpha1, alpha2, purity, n_steps: int):
                  purity.data_ptr(), p, p1, n_s, n_steps, _stream(alpha1))
     _build.check(err, "fw_phase")
     fw_phase.launches += 1
-    count_forms(fw_phase.forms, wide=p > REG_P)
+    count_forms(fw_phase.forms, wide=p > REG_P,
+                two_row=REG_P < p <= TWO_ROW_P)
     return a1, a2
 
 

@@ -413,9 +413,16 @@ def test_partial_buffer_at_the_cohort_width():
 
 @pytest.mark.parametrize("p", [33, 40, 64])
 def test_glue_smem_fits(p):
+    """p = 33-64 takes the two-row form: a slab of p rows at an odd stride
+    per column, at most 8 columns a block at n_s = 100; the wide form's
+    slabs of p x p + 6 p values from p = 65."""
     for itemsize in (4, 8):
         n_warps, smem = cuda_small.glue_smem(itemsize, p, 100)
+        assert 1 <= n_warps <= 8 and smem <= SMEM_LIMIT - 1024
+        assert smem == n_warps * itemsize * p * (p | 1)
+        n_warps, smem = cuda_small.glue_smem(itemsize, p + 32, 100)
         assert 1 <= n_warps <= 32 and smem <= SMEM_LIMIT - 1024
-        assert smem == n_warps * itemsize * (p * p + 6 * p)
+        q = p + 32
+        assert smem == n_warps * itemsize * (q * q + 6 * q)
     assert cuda_small.glue_smem(8, 32, 10) == (10, 0)     # register form
     assert cuda_small.glue_smem(8, 200, 10)[0] == 0        # one slab: too big
