@@ -325,6 +325,21 @@ def timed_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def launch_peak_bytes(fn):
+    """Device memory one call of ``fn`` takes at its peak beyond what was
+    allocated before the call (its outputs and scratch buffers), bytes."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
 def counters():
     """(wrapper, its counter, the name the counts go by): one counter per
     kernel form, bf16 data apart from float32/float64. A counter is an
@@ -509,7 +524,8 @@ def phase_build():
     from demethify_tpu_torch.ops import _build
 
     lib = _build.load()
-    log(f"[build] {lib.path} in {lib.build_seconds:.2f} s")
+    log(f"[build] {lib.path} in {lib.build_seconds:.2f} s; seconds to each "
+        f"source's object: {lib.source_seconds}")
     name, spills = None, []
     for ln in lib.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -620,6 +636,8 @@ def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
                                       uut.element_size(), ydt.element_size())
         res["bytes"] = n_bytes
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+        res["launch_peak_bytes"] = launch_peak_bytes(lambda: u_phase_grams(
+            ydt, rtt, a1, a2, uk, sk, steps, lagged, **form_kw))
     log(f"[K1]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} {form} form, "
         f"{layout} layout{' lagged' if lagged else ''} {steps} steps "
         f"{dtype_name} state, "
@@ -630,7 +648,8 @@ def _k1_case(n, n_u, dtype_name, steps=N_INNER, seed=0, timed=False,
         + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
            f"(median of back-to-back launches, CUDA events); "
            f"{res['bytes'] / 1e6:.1f} MB to move, bound "
-           f"{res['bound_ms']:.4f} ms ({res['bound_by']})" if timed
+           f"{res['bound_ms']:.4f} ms ({res['bound_by']}); a launch's peak "
+           f"device memory {res['launch_peak_bytes'] / 1e6:.1f} MB" if timed
            else ""))
     check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K1 non-finite")
     check(err_u <= tol["u"], f"K1 u differs from its twin by {err_u}")
@@ -1273,6 +1292,9 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
         res["partial_bytes"] = (uut_b.element_size() * n_b
                                 * gram_entries(n_s, n_ct, n_u)
                                 * -(-n // SITES_PER_BLOCK))
+        res["launch_peak_bytes"] = launch_peak_bytes(
+            lambda: u_phase_grams_multi(ydt, rtt, a1, a2, u_all, s_all, steps,
+                                        lagged))
     log(f"[K4]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
         f"{dtype_name} state, {str(ydt.dtype)[6:]} data: active members' "
@@ -1285,7 +1307,8 @@ def _k4_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
            f"{res['plain_ms']:.4f} ms, K1 alone {res['k1_ms']:.4f} ms x "
            f"{n_b} = {n_b * res['k1_ms']:.4f} ms; {res['bytes'] / 1e6:.1f} "
            f"MB to move, bound {res['bound_ms']:.4f} ms ({res['bound_by']}),"
-           f" partial buffer {res['partial_bytes'] / 1e6:.1f} MB"
+           f" partial buffer {res['partial_bytes'] / 1e6:.1f} MB, a launch's "
+           f"peak device memory {res['launch_peak_bytes'] / 1e6:.1f} MB"
            if timed else ""))
     check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K4 non-finite")
     check(err_u <= tol["u"], f"K4 u differs from its twin by {err_u}")
@@ -1685,6 +1708,9 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
                                       uut_b.element_size(),
                                       ydt.element_size(), n_b, weighted=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
+        res["launch_peak_bytes"] = launch_peak_bytes(
+            lambda: u_phase_grams_multi(ydt, rtt, a1, a2, u_all, s_all, steps,
+                                        lagged, weights=w))
     log(f"[K4w]{label} N={n} n_s={n_s} n_ct={n_ct} n_u={n_u} B={n_b} "
         f"(inactive {ina}){' lagged' if lagged else ''} {steps} steps "
         f"{dtype_name} state, {str(ydt.dtype)[6:]} data, resample weights: "
@@ -1698,7 +1724,8 @@ def _k4w_case(n_u, dtype_name, n_b, steps, n_ct=N_CT, lagged=False,
         + (f"; kernel {res['ms']:.4f} ms (all {n_b} active), unweighted "
            f"{res['unweighted_ms']:.4f} ms ({res['ms'] / res['unweighted_ms']:.3f}x), "
            f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-           f"({res['bound_by']})" if timed else ""))
+           f"({res['bound_by']}), a launch's peak device memory "
+           f"{res['launch_peak_bytes'] / 1e6:.1f} MB" if timed else ""))
     check(np.isfinite([err_u, err_g, err_b, err_q]).all(), "K4w non-finite")
     check(err_u <= tol["u"], f"K4w u differs from its twin by {err_u}")
     check(max(err_g, err_b, err_q) <= tol["gram"],
@@ -3578,14 +3605,14 @@ def phase_layouts():
     ``dm_two_row_stride``), over a grid of shapes in the three layouts
     (n_u up to 26: the n_u > 8 form's state region, ``state_rows`` and
     ``state_in_device`` against ``dm_state_rows``, ``dm_state_in_device``);
-    the device-memory sizes past the shared memory (K1's and K4's global
-    rows, ``cuda_kernels.global_rows`` and ``cuda_multi.k4_global_rows``;
-    the glue kernels' device slabs, ``cuda_small.glue_work``) against
-    their exports."""
+    the global layout's plan (``cuda_kernels.global_plan``: its chunk,
+    ring and rows for one K1 member and for K4's groups, against
+    ``dm_global_plan``); the glue kernels' device slabs
+    (``cuda_small.glue_work``) against their export."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
-        SMEM_LIMIT, global_rows, state_in_device, state_rows, u_phase_smem)
-    from demethify_tpu_torch.ops.cuda_multi import k4_global_rows
+        SMEM_LIMIT, global_plan, lib_global_plan, state_in_device,
+        state_rows, u_phase_smem)
     from demethify_tpu_torch.ops.cuda_small import REG_P
     from demethify_tpu_torch.ops.cuda_small import TWO_ROW_P as TWO_ROW_P_MAX
     from demethify_tpu_torch.ops.cuda_small import (
@@ -3633,21 +3660,13 @@ def phase_layouts():
                             != state_in_device(itemsize, n_s, n_u, direct)):
                         bad.append(("state in device", itemsize, n_s, n_u,
                                     direct))
-                    for bf16c in (False, True):
+                    for um, members in ((n_u, 1), (2 * n_u, 1),
+                                        (n_u, 3), (2 * n_u, 8)):
                         n_checked += 1
-                        if (lib.dm_u_phase_grams_global_rows(
-                                n_ct, n_u, int(direct), int(bf16c))
-                                != global_rows(n_ct, n_u, direct, bf16c)):
-                            bad.append(("K1 rows", n_ct, n_u, direct, bf16c))
-                for weighted in (False, True):
-                    for group in (1, 3, 8):
-                        n_checked += 1
-                        if (lib.dm_k4_global_rows(n_ct, n_u, int(weighted),
-                                                  group)
-                                != k4_global_rows(n_ct, n_u, weighted,
-                                                  group)):
-                            bad.append(("K4 rows", n_ct, n_u, weighted,
-                                        group))
+                        plan = (itemsize, n_s, n_ct, n_u, direct, um,
+                                members)
+                        if lib_global_plan(lib, *plan) != global_plan(*plan):
+                            bad.append(("global plan", *plan))
         for p in (1, 6, 32, 33, 40, 48, 64, 65, 100, 167, 168, 170, 200,
                   237, 238, 300):
             for n_s in (1, 10, 16, 17, 100):
@@ -3699,10 +3718,13 @@ def forced_layout(layout):
 
 def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
                  steps=N_INNER, layouts=("resident", "wide"), bf16c=False,
-                 weighted=False):
-    """K1 (n_b = 0) or K4 (n_b members) in each of two ``layouts`` forced,
-    at a shape both take: the same bits? ``bf16c`` runs K1's bf16_compute
-    form (bf16 data), ``weighted`` K4 with resample weights."""
+                 weighted=False, inactive=()):
+    """K1 (n_b = 0) or K4 (n_b members, those in ``inactive`` frozen) in
+    each of two ``layouts`` forced, at a shape both take: the same bits?
+    (u, u_prev and the scalars of every member; the Grams of the active
+    ones, an inactive member's being unspecified.) ``bf16c`` runs K1's
+    bf16_compute form (bf16 data), ``weighted`` K4 with resample
+    weights."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
@@ -3711,7 +3733,7 @@ def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
     dtype = getattr(torch, dtype_name)
     if n_b:
         ydt, rtt, alpha, uut, scal = _multi_inputs(n, n_s, n_ct, n_u, n_b,
-                                                   dtype, seed)
+                                                   dtype, seed, inactive)
         a1, a2 = alpha[:, :n_ct], alpha[:, n_ct:]
         fn = u_phase_grams_multi
     else:
@@ -3729,9 +3751,13 @@ def _layout_bits(n, n_s, n_ct, n_u, dtype_name, n_b=0, data=None, seed=50,
         u, sc = uut.clone(), scal.clone()
         with forced_layout(layout):
             outs.append((u, sc, *fn(ydt, rtt, a1, a2, u, sc, steps, **kw)))
-    same = all(torch.equal(x, y) for x, y in zip(*outs))
+    act = [b for b in range(n_b) if b not in inactive]
+    same = all(torch.equal(x, y) if k < 2 or not inactive
+               else torch.equal(x[act], y[act])
+               for k, (x, y) in enumerate(zip(*outs)))
     form = (", bf16_compute" if bf16c else "") + (
-        ", weighted" if weighted else "")
+        ", weighted" if weighted else "") + (
+        f", members {list(inactive)} inactive" if inactive else "")
     log(f"[layouts] {'K4 B=' + str(n_b) if n_b else 'K1'} N={n} n_s={n_s} "
         f"n_ct={n_ct} n_u={n_u} {dtype_name} state, "
         f"{str(ydt.dtype)[6:]} data{form}: {layouts[1]} layout forced "
@@ -4066,26 +4092,43 @@ def phase_global_kernels():
     form 160 + 4 at n_s = 64; the direct form with n_u = 12, 200 + 12 at
     n_s = 10, its state on the chip; float32 400 + 4 at n_s = 64, also on
     bf16 data); K4's
-    (B = 10, two member groups, 160 + 4 at n_s = 64; weighted B = 4,
-    205 + 4 at n_s = 10); K2, K3, K5 and K6 with their slabs in device
-    memory at p = 200 (K2 also at n_s = 100 and in float32 at p = 240).
-    Each at 200k sites. Then the global layout forced at shapes the
-    shared layouts take, bit-identical to them: K1 at the main path's
-    shape (1M x 10, 5 + 1, float32), in the direct form with n_u = 12,
-    on bf16 data with bf16_compute (n_s = 64, 25 + 4, whose raw u rows
-    the global buffer holds too); K4 with B = 10 (two member groups) and
-    weighted with B = 4. Returns the timed cases (the JSON rows of these
-    forms)."""
+    (B = 10, 160 + 4 at n_s = 64; weighted B = 4, 205 + 4 at n_s = 10);
+    K2, K3, K5 and K6 with their slabs in device memory at p = 200 (K2
+    also at n_s = 100 and in float32 at p = 240). Each at 200k sites; the
+    timed cases with a launch's peak device memory. Then the global layout
+    forced at shapes the shared layouts take, bit-identical to them: K1 at
+    the main path's shape (1M x 10, 5 + 1, float32), in the direct form
+    with n_u = 12 (the state and the residual rows on the chip), with
+    n_u = 6 (registers) and with n_u = 25 at n_s = 200 (50k sites; the
+    residual rebuilt each step), in the gram form with n_u = 17 (n_s = 100,
+    float32), on bf16 data with bf16_compute in the gram form (n_s = 64,
+    25 + 4, the raw u rows beside bf16(u)) and the direct form (5 + 6); K4
+    with B = 10 (member 3 inactive), weighted with B = 4 (member 1
+    inactive), and with n_u = 12 (n_s = 64, B = 4, the members' u rows
+    above the state region). Returns the timed cases (the JSON rows of
+    these forms)."""
     _layout_bits(N_CPG, N_S, N_CT, N_U, "float32", seed=412,
                  layouts=("resident", "global"))
     _layout_bits(N_WIDE, N_S, 5, 12, "float64", seed=413,
                  layouts=("resident", "global"))
+    _layout_bits(N_WIDE, N_S, 5, 6, "float64", seed=417,
+                 layouts=("resident", "global"))
+    # the state on the chip, its residual rows not (rebuilt each step)
+    _layout_bits(50_000, 200, 5, 25, "float64", seed=421,
+                 layouts=("wide", "global"))
+    _layout_bits(N_WIDE, 100, 5, 17, "float32", seed=418,
+                 layouts=("wide", "global"))
     _layout_bits(N_WIDE, 64, 25, 4, "float32", data="bfloat16", seed=414,
                  layouts=("wide", "global"), bf16c=True)
+    _layout_bits(N_WIDE, N_S, 5, 6, "float32", data="bfloat16", seed=419,
+                 layouts=("resident", "global"), bf16c=True)
     _layout_bits(N_WIDE, N_S, N_CT, N_U, "float64", n_b=10, seed=415,
-                 layouts=("resident", "global"))
+                 layouts=("resident", "global"), inactive=(3,))
     _layout_bits(N_WIDE, N_S, N_CT, N_U, "float32", n_b=4, seed=416,
-                 layouts=("resident", "global"), weighted=True)
+                 layouts=("resident", "global"), weighted=True,
+                 inactive=(1,))
+    _layout_bits(N_WIDE, 64, 5, 12, "float64", n_b=4, seed=420,
+                 layouts=("wide", "global"), inactive=(2,))
     out = {}
     out["k1"] = _k1_case(N_WIDE, 4, "float64", n_s=64, n_ct=160, seed=400,
                          timed=True, inner=1, reps=3, label="[global]")
@@ -5254,17 +5297,17 @@ def phase_single_phase_kernels(card, main_ms):
     out = {}
     k7 = out["k7"] = _k7_case(N_CPG, N_U, "float32", timed=True,
                               with_k1=True)
-    out["k7_f64"] = _k7_case(N_CPG, N_U, "float64", timed=True,
-                             with_k1=True)
-    out["k7_bf16"] = _k7_case(N_CPG, N_U, "float32", data="bfloat16",
-                              timed=True, label="[bf16]")
+    # float64, bf16 data and the purity schedule held to the twin, untimed
+    # (their times are on record, PERF.md; the timings went to pay for the
+    # global layout's checks)
+    _k7_case(N_CPG, N_U, "float64")
+    _k7_case(N_CPG, N_U, "float32", data="bfloat16", label="[bf16]")
     _k7_case(N_CPG, U_N_U, "float32", n_ct=0, lagged=True, seed=301,
              label="[lagged, no known block]")
     _k7_case(N_CPG, U_N_U, "float64", n_ct=0, lagged=True, seed=301,
              label="[lagged, no known block]")
-    out["k7_purity"] = _k7_case(N_CPG, N_U, "float32", steps=P_INNER,
-                                seed=302, timed=True, with_k1=True,
-                                label="[500 steps]")
+    _k7_case(N_CPG, N_U, "float32", steps=P_INNER, seed=302,
+             label="[500 steps]")
     out["k7_cohort"] = _k7_case(COHORT[0], COHORT[3], "float32",
                                 n_s=COHORT[1], n_ct=COHORT[2], seed=303,
                                 timed=True, with_k1=True, label="[cohort]")
@@ -5408,6 +5451,21 @@ K1_OUTPUT_SHAPES = {
                    True, False, 120),
     "gram18_device": (50_000, 108, 5, 18, N_INNER, "float64", None, False,
                       False, 121),
+    # the global layout's shapes (GLOBAL_SHAPES)
+    "global160": (N_WIDE, 64, 160, 4, N_INNER, "float64", None, False,
+                  False, 400),
+    "global_direct12": (N_WIDE, N_S, 200, 12, N_INNER, "float64", None,
+                        False, False, 401),
+    "global_direct6": (N_WIDE, N_S, 210, 6, N_INNER, "float64", None, False,
+                       False, 406),
+    "global400_f32": (N_WIDE, 64, 400, 4, N_INNER, "float32", None, False,
+                      False, 402),
+    "global400_bf16": (N_WIDE, 64, 400, 4, N_INNER, "float32", "bfloat16",
+                       False, False, 403),
+    "global400_bf16c": (N_WIDE, 64, 400, 4, N_INNER, "float32", "bfloat16",
+                        True, False, 407),
+    "global_direct_bf16c": (N_WIDE, N_S, 440, 6, N_INNER, "float32",
+                            "bfloat16", True, False, 408),
 }
 GLUE_OUTPUT_SHAPES = {"main": (N_CT, N_U, N_S), "cohort": (25, 4, 100),
                       "wide": None}
@@ -5504,24 +5562,16 @@ def _glue_wide_outputs():
     return saved
 
 
-def glue_main_outputs(root, path, shape="main"):
-    """Saves K2's and K3's outputs (alpha, alpha_prev, scalars) from the
-    tree at ``root`` to ``path``: at ``shape`` "main" the main path's
-    (``_k2_case`` / ``_k3_case`` inputs, p = 6, float32 and float64, one
-    launch each), at "cohort" K2 alone at p = 29, n_s = 100 (float32 and
-    float64), at "wide" all six glue kernels at the two-row form's shapes
-    (``_glue_wide_outputs``); for a bit-for-bit comparison of two trees on
-    one card with ``same_outputs``:
-
-        python3 -c 'import chip_smoke; chip_smoke.glue_main_outputs("DIR", "OUT.pt", "main")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
+def _glue_outputs(shape):
+    """K2's and K3's outputs (alpha, alpha_prev, scalars) at ``shape`` of
+    ``GLUE_OUTPUT_SHAPES``, one launch each, on the CPU: "main" the main
+    path's (``_small_inputs``, p = 6, float32 and float64), "cohort" K2
+    alone at p = 29, n_s = 100 (float32 and float64), "wide" all six glue
+    kernels at the two-row form's shapes (``_glue_wide_outputs``)."""
     import torch
 
     if shape == "wide":
-        saved = _glue_wide_outputs()
-        torch.save({k: v.cpu() for k, v in saved.items()}, path)
-        return
+        return {k: v.cpu() for k, v in _glue_wide_outputs().items()}
 
     from demethify_tpu_torch.ops.cuda_kernels import (
         A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
@@ -5547,7 +5597,7 @@ def glue_main_outputs(root, path, shape="main"):
             af, sf = alpha.clone(), scal.clone()
             fw_phase_full(gtt, bt, gu, bu, ydy, af, purity, sf, P_INNER, n_u)
             saved.update({f"k3_alpha_{dt}": af, f"k3_scal_{dt}": sf})
-    torch.save({k: v.cpu() for k, v in saved.items()}, path)
+    return {k: v.cpu() for k, v in saved.items()}
 
 
 def _k1_outputs(shape):
@@ -5571,23 +5621,6 @@ def _k1_outputs(shape):
                                 **kw)
     return {k: v.cpu() for k, v in dict(
         uut=uut, scal=scal, gu=gu, bu=bu, usq=usq).items()}
-
-
-def k1_main_outputs(root, path, shape="main"):
-    """Saves K1's outputs (u, u_prev, scalars, gu, b_u, usq) at ``shape``
-    of ``K1_OUTPUT_SHAPES`` (the main path's, 1M x 10, 5 + 1, 20 steps, in
-    float32 or float64; the purity schedule's 500 steps; the cohort shape,
-    1M x 100, 25 + 4, float32, the wide layout; bf16 data with a float32
-    state; the n_u > 8 form's shapes; one launch) from the tree at
-    ``root`` to ``path``, for a bit-for-bit comparison of two trees on one
-    card:
-
-        python3 -c 'import chip_smoke; chip_smoke.k1_main_outputs("DIR", "OUT.pt", "main")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    torch.save(_k1_outputs(shape), path)
 
 
 # K4's outputs at the shapes its redesigns keep the bits of:
@@ -5621,6 +5654,15 @@ K4_OUTPUT_SHAPES = {
                          False, True, (2,), 125),
     "state18_device": (50_000, 108, 5, 18, 4, N_INNER, "float64", None,
                        False, False, (2,), 126),
+    # the global layout's shapes (GLOBAL_SHAPES)
+    "global160": (N_WIDE, 64, 160, 4, 10, N_INNER, "float64", None, False,
+                  False, (1,), 404),
+    "global_weighted": (N_WIDE, N_S, 205, 4, 4, N_INNER, "float64", None,
+                        False, True, (2,), 405),
+    "global_state12": (N_WIDE, 64, 160, 12, 4, N_INNER, "float64", None,
+                       False, False, (1,), 409),
+    "global_bf16": (N_WIDE, 64, 400, 4, 4, N_INNER, "float32", "bfloat16",
+                    False, False, (3,), 410),
 }
 
 
@@ -5650,19 +5692,6 @@ def _k4_outputs(shape):
     return {k: v.cpu() for k, v in dict(
         uut=uut_b, scal=scal_b, gu=gu[act], bu=bu[act],
         usq=usq[act]).items()}
-
-
-def k4_main_outputs(root, path, shape="main"):
-    """Saves K4's outputs at ``shape`` of ``K4_OUTPUT_SHAPES``
-    (``_k4_outputs``) from the tree at ``root`` to ``path``, for a
-    bit-for-bit comparison of two trees on one card with ``same_outputs``:
-
-        python3 -c 'import chip_smoke; chip_smoke.k4_main_outputs("DIR", "OUT.pt", "main")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    torch.save(_k4_outputs(shape), path)
 
 
 # K7's outputs at its n_u > 8 form's shapes: (n, n_s, n_ct, n_u, state,
@@ -5712,115 +5741,96 @@ STATE_SHAPES = (
     ("K7", "n_u12_bf16"))
 
 
-def state_form_outputs(root, path):
-    """Saves K1's, K4's and K7's outputs at every shape of ``STATE_SHAPES``
-    (the n_u > 8 forms, ``_k1_outputs`` / ``_k4_outputs`` /
-    ``_k7_outputs``) from the tree at ``root`` to ``path``, in one file,
-    for a bit-for-bit comparison of two trees on one card with
-    ``same_outputs``:
-
-        python3 -c 'import chip_smoke; chip_smoke.state_form_outputs("DIR", "OUT.pt")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    saved = {}
-    for kind, shape in STATE_SHAPES:
-        out = {"K1": _k1_outputs, "K4": _k4_outputs,
-               "K7": _k7_outputs}[kind](shape)
-        saved.update({f"{kind}_{shape}_{k}": v for k, v in out.items()})
-        torch.cuda.empty_cache()
-    torch.save(saved, path)
+# the shapes each kernel takes in the global layout of its own accord
+# (K1_OUTPUT_SHAPES, K4_OUTPUT_SHAPES): the gram and the direct form, the
+# three storages and bf16_compute, K4 weighted, at n_u > 8 (the state
+# region on the chip and in device memory) and with an inactive member
+GLOBAL_SHAPES = (
+    ("K1", "global160"), ("K1", "global_direct12"), ("K1", "global_direct6"),
+    ("K1", "global400_f32"), ("K1", "global400_bf16"),
+    ("K1", "global400_bf16c"), ("K1", "global_direct_bf16c"),
+    ("K1", "gram18_device"), ("K4", "global160"), ("K4", "global_weighted"),
+    ("K4", "global_state12"), ("K4", "global_bf16"),
+    ("K4", "state18_device"))
 
 
-def time_state_forms(root):
-    """Times the n_u > 8 forms of the tree at ``root`` and prints one JSON
-    line with the card's ``nvidia-smi`` name and power limit: K1 at the
-    AIC sweep's ranks 9 and 25 (1M x 10, 5 + n_u, float32, 20 steps, the
-    direct form), K1 in the gram form at n_u = 12 and 17 (200k x 100,
-    5 + n_u, float64), K4 at n_u = 12 and 16 (B = 4, the same shape), each
-    the median device ms of back-to-back launches (CUDA events) beside its
-    bound and its twin; then the AIC sweep to 25 ranks with SVD inits at
-    1M x 10 (``phase_sweep``'s run, SWEEP_OUTER x 20), its seconds and
-    solve ms per rank. For a parent/change comparison on one card run
-    P C C P, one process each:
-
-        python3 -c 'import chip_smoke; chip_smoke.time_state_forms("DIR")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
-
-    card = phase_device()
-    out = {"card": card, "root": root}
-    for n_u in (9, 25):
-        r = _k1_case(N_CPG, n_u, "float32", seed=130 + n_u, timed=True,
-                     reps=5, inner=3, label=f"[rank {n_u}]")
-        out[f"k1_rank{n_u}"] = {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "form", "layout")}
-    for n_u in (12, 17):
-        r = _k1_case(N_WIDE, n_u, "float64", n_s=100, n_ct=5, seed=140 + n_u,
-                     timed=True, reps=5, inner=1, label="[gram]")
-        out[f"k1_gram{n_u}"] = {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "form", "layout")}
-    for n_u in (12, 16):
-        r = _k4_case(n_u, "float64", 4, N_INNER, n_ct=5, seed=150 + n_u,
-                     timed=True, quick=True, n=N_WIDE, n_s=100, label="")
-        out[f"k4_n_u{n_u}"] = {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "k1_ms")}
-    y, d, Rt = (torch.as_tensor(x, device=DEV)
-                for x in make_problem(np.float32)[2:])
-    times = {}
-    with _rank_times(times):
-        res, ms = timed_ms(lambda: evaluate_best_ic(
-            y, d, Rt, "SVD", "AIC", iter1=SWEEP_OUTER, iter2=N_INNER,
-            tol=0.0, n_restarts=5, n_u_max=25, seed=3))
-    out["aic_sweep"] = {"s": ms / 1e3, "chose": res[2],
-                        "ms_per_rank": {str(k): v for k, v in
-                                        sorted(times.items())}}
-    print(json.dumps(out), flush=True)
+# the shared layouts' shapes of the main paths (K1_OUTPUT_SHAPES,
+# K4_OUTPUT_SHAPES)
+MAIN_SHAPES = (
+    ("K1", "main"), ("K1", "main64"), ("K1", "purity"), ("K1", "cohort"),
+    ("K1", "bf16"), ("K4", "main"), ("K4", "main64"), ("K4", "weighted"),
+    ("K4", "bf16"), ("K4", "wide"), ("K4", "unsupervised"))
 
 
-def k3_main_outputs(root, path):
-    """Saves K3's outputs (alpha, scalars) at p = 6, n_s = 10 and at
-    p = 29, n_s = 100 (the cohort's, several blocks), 500 steps, float32
-    and float64, and K6's at B = 8 (p = 6, one member inactive), float32,
-    from the tree at ``root`` to ``path``, for a bit-for-bit comparison of
-    two trees on one card with ``same_outputs``:
-
-        python3 -c 'import chip_smoke; chip_smoke.k3_main_outputs("DIR", "OUT.pt")'
-    """
-    sys.path.insert(0, os.path.abspath(root))
+def _k3_outputs(shape):
+    """K3's outputs (alpha, scalars; 500 steps, float32 and float64) at
+    ``shape`` "main" (p = 6, n_s = 10) or "cohort" (p = 29, n_s = 100,
+    several blocks) of ``GLUE_OUTPUT_SHAPES``, or at "k6" K6's at B = 8
+    (p = 6, one member inactive, float32), on the CPU."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import DMAX2
     from demethify_tpu_torch.ops.cuda_small import (
         fw_phase_full, fw_phase_full_multi)
 
+    if shape == "k6":
+        (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+         scal_b) = _glue_multi_inputs(N_CT, N_U, "float32", 8, (5,), 40)
+        purity = torch.linspace(0.3, 0.9, N_S, device=DEV,
+                                dtype=alpha_b.dtype)
+        fw_phase_full_multi(gtt, bt, gu, bu, ydy, alpha_b, purity, scal_b,
+                            P_INNER, N_U)
+        return {"alpha": alpha_b.cpu(), "scal": scal_b.cpu()}
+    n_ct, n_u, n_s = GLUE_OUTPUT_SHAPES[shape]
     saved = {}
-    for n_ct, n_u, n_s in GLUE_OUTPUT_SHAPES.values():
-        for dt in ("float32", "float64"):
-            gtt, bt, gu, bu, _, ydy, alpha, ydt, _, scal = _small_inputs(
-                n_ct, n_u, dt, 200_000, 3, n_s)
-            scal[DMAX2] = ydt[n_s:].max() ** 2
-            purity = torch.linspace(0.3, 0.9, n_s, device=DEV,
-                                    dtype=alpha.dtype)
-            fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal,
-                          P_INNER, n_u)
-            saved.update({f"k3_alpha_{n_s}_{dt}": alpha,
-                          f"k3_scal_{n_s}_{dt}": scal})
-    (gtt, bt, gu, bu, _, ydy, alpha_b, _,
-     scal_b) = _glue_multi_inputs(N_CT, N_U, "float32", 8, (5,), 40)
-    purity = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=alpha_b.dtype)
-    fw_phase_full_multi(gtt, bt, gu, bu, ydy, alpha_b, purity, scal_b,
-                        P_INNER, N_U)
-    saved.update({"k6_alpha": alpha_b, "k6_scal": scal_b})
-    torch.save({k: v.cpu() for k, v in saved.items()}, path)
+    for dt in ("float32", "float64"):
+        gtt, bt, gu, bu, _, ydy, alpha, ydt, _, scal = _small_inputs(
+            n_ct, n_u, dt, 200_000, 3, n_s)
+        scal[DMAX2] = ydt[n_s:].max() ** 2
+        purity = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
+        fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, P_INNER,
+                      n_u)
+        saved.update({f"alpha_{dt}": alpha.cpu(), f"scal_{dt}": scal.cpu()})
+    return saved
+
+
+# what save_outputs runs for each kind, and its named tables of
+# (kind, shape) pairs
+OUTPUT_KINDS = {"K1": _k1_outputs, "K4": _k4_outputs, "K7": _k7_outputs,
+                "glue": _glue_outputs, "K3": _k3_outputs}
+OUTPUT_TABLES = {"global": GLOBAL_SHAPES, "main": MAIN_SHAPES,
+                 "state": STATE_SHAPES,
+                 "glue": (("glue", "main"), ("glue", "cohort"),
+                          ("K3", "main"), ("K3", "cohort"), ("K3", "k6")),
+                 "glue_wide": (("glue", "wide"),)}
+
+
+def save_outputs(root, path, shapes):
+    """Saves the outputs of the kernels in the tree at ``root`` to
+    ``path``, in one file, for a bit-for-bit comparison of two trees on one
+    card with ``same_outputs``: ``shapes`` is a name of ``OUTPUT_TABLES``
+    or a sequence of (kind, shape) pairs, kind a key of ``OUTPUT_KINDS``
+    (K1, K4 and K7 at a shape of ``K1_OUTPUT_SHAPES`` /
+    ``K4_OUTPUT_SHAPES`` / ``K7_OUTPUT_SHAPES``; "glue" and "K3" at a
+    shape of ``GLUE_OUTPUT_SHAPES``). Run it once a tree, one process each:
+
+        python3 -c 'import chip_smoke; chip_smoke.save_outputs("DIR", "OUT.pt", "global")'
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    if isinstance(shapes, str):
+        shapes = OUTPUT_TABLES[shapes]
+    saved = {}
+    for kind, shape in shapes:
+        out = OUTPUT_KINDS[kind](shape)
+        saved.update({f"{kind}_{shape}_{k}": v for k, v in out.items()})
+        torch.cuda.empty_cache()
+    torch.save(saved, path)
 
 
 def same_outputs(path_a, path_b):
-    """Prints whether two ``*_main_outputs`` files hold the same bits, and
+    """Prints whether two ``save_outputs`` files hold the same bits, and
     for each key that does not, the largest difference relative to the
     largest magnitude."""
     import torch
@@ -5835,22 +5845,11 @@ def same_outputs(path_a, path_b):
                       "max_rel_diff": rel}), flush=True)
 
 
-def time_wide_glue(root="."):
-    """Times the glue kernels of the tree at ``root`` at the two-row
-    form's shapes, for a P C C P comparison on one card: K2, K3, K5, K6
-    (B = 8, all active), K9 and K10 at p = 40, and K2 and K3 at p = 33
-    and 64, each at n_s = 10 and 100 in float32 and float64 (device ms a
-    launch queued behind a device sleep, with us per step and per step and
-    column); and the p = 40 path (``p40_runs``: partial-reference 100 x 20
-    and purity 10 x 500 at 1M x 10, float32) in ms per outer iteration
-    (median of 3 solves, CUDA events) with K1's and the glue kernel's
-    device us a launch from ``utils.device_profile``. Prints one JSON
-    line:
-
-        python3 -c 'import chip_smoke; chip_smoke.time_wide_glue("DIR")'
-    """
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+def _glue_time(kern, p, n_s, dt):
+    """One glue kernel (``kern`` k2, k3, k5 or k6 with B = 8 members, all
+    active, k9 or k10) at p, n_s and ``dt`` on seeded inputs: device ms a
+    launch queued behind a device sleep, with us a step and a step and
+    column."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -5859,68 +5858,52 @@ def time_wide_glue(root="."):
         alpha_phase, alpha_phase_full, alpha_phase_full_multi, fw_phase,
         fw_phase_full, fw_phase_full_multi)
 
-    check(torch.cuda.is_available(), "time_wide_glue needs a GPU")
-    card = phase_device()
-    rows = []
+    n_ct = p - 1 if kern in ("k3", "k6", "k10") else p - 4
+    steps = P_INNER if kern in ("k3", "k6", "k10") else N_INNER
+    n_b = 8 if kern in ("k5", "k6") else 1
+    if n_b > 1:
+        (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+         scal_b) = _glue_multi_inputs(n_ct, p - n_ct, dt, n_b, (), 600 + p,
+                                      n_s=n_s)
+        scal_b[:, ACTIVE] = 1.0
+        pur = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha_b.dtype)
+        fn = {"k5": lambda: alpha_phase_full_multi(
+                  gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b, scal_b,
+                  steps, p - n_ct),
+              "k6": lambda: fw_phase_full_multi(
+                  gtt, bt, gu, bu, ydy, alpha_b, pur, scal_b, steps,
+                  p - n_ct)}[kern]
+    else:
+        blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
+            p, n_ct, dt, 600 + p, n_s)
+        pur = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
+        gtt, bt, gu, bu, usq, ydy = blocks
+        l_h = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
+        fn = {"k2": lambda: alpha_phase_full(
+                  *blocks, alpha, alpha_prev, scal, steps, p - n_ct),
+              "k3": lambda: fw_phase_full(gtt, bt, gu, bu, ydy, alpha, pur,
+                                          scal, steps, p - n_ct),
+              "k9": lambda: alpha_phase(G, b, alpha, alpha_prev,
+                                        scal[A_ALPHA], scal[L_H_PREV], l_h,
+                                        steps),
+              "k10": lambda: fw_phase(G, b, alpha[:n_ct].contiguous(),
+                                      alpha[n_ct:].contiguous(), pur,
+                                      steps)}[kern]
+    ms = queued_ms(fn, inner=20)
+    log(f"[time] {kern} p={p} n_s={n_s} B={n_b} {dt} {steps} steps: "
+        f"{ms:.4f} ms ({ms * 1e3 / steps:.3f} us a step)")
+    return {"kernel": kern, "p": p, "n_s": n_s, "dtype": dt, "steps": steps,
+            "members": n_b, "ms": ms, "us_per_step": ms * 1e3 / steps,
+            "us_per_step_column": ms * 1e3 / (steps * n_s * n_b)}
 
-    def add(kernel, p, n_s, dt, steps, fn, n_b=1):
-        ms = queued_ms(fn, inner=20)
-        rows.append({"kernel": kernel, "p": p, "n_s": n_s, "dtype": dt,
-                     "steps": steps, "members": n_b, "ms": ms,
-                     "us_per_step": ms * 1e3 / steps,
-                     "us_per_step_column": ms * 1e3 / (steps * n_s * n_b)})
-        log(f"[wide glue] {kernel} p={p} n_s={n_s} B={n_b} {dt} {steps} "
-            f"steps: {ms:.4f} ms ({ms * 1e3 / steps:.3f} us a step)")
 
-    shapes = [(40, k) for k in ("k2", "k3", "k5", "k6", "k9", "k10")]
-    shapes += [(p, k) for p in (33, 64) for k in ("k2", "k3")]
-    for p, kern in shapes:
-        for n_s in TWO_ROW_NS:
-            for dt in ("float32", "float64"):
-                n_ct = p - 1 if kern in ("k3", "k6", "k10") else p - 4
-                if kern in ("k5", "k6"):
-                    (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
-                     scal_b) = _glue_multi_inputs(n_ct, p - n_ct, dt, 8, (),
-                                                  600 + p, n_s=n_s)
-                    scal_b[:, ACTIVE] = 1.0
-                    if kern == "k5":
-                        add("alpha_phase_full_multi", p, n_s, dt, N_INNER,
-                            lambda: alpha_phase_full_multi(
-                                gtt, bt, gu, bu, usq, ydy, alpha_b,
-                                alpha_prev_b, scal_b, N_INNER, p - n_ct), 8)
-                    else:
-                        pur = torch.linspace(0.3, 0.9, n_s, device=DEV,
-                                             dtype=alpha_b.dtype)
-                        add("fw_phase_full_multi", p, n_s, dt, P_INNER,
-                            lambda: fw_phase_full_multi(
-                                gtt, bt, gu, bu, ydy, alpha_b, pur, scal_b,
-                                P_INNER, p - n_ct), 8)
-                    continue
-                blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
-                    p, n_ct, dt, 600 + p, n_s)
-                pur = torch.linspace(0.3, 0.9, n_s, device=DEV,
-                                     dtype=alpha.dtype)
-                gtt, bt, gu, bu, usq, ydy = blocks
-                if kern == "k2":
-                    add("alpha_phase_full", p, n_s, dt, N_INNER,
-                        lambda: alpha_phase_full(
-                            *blocks, alpha, alpha_prev, scal, N_INNER,
-                            p - n_ct))
-                elif kern == "k3":
-                    add("fw_phase_full", p, n_s, dt, P_INNER,
-                        lambda: fw_phase_full(gtt, bt, gu, bu, ydy, alpha,
-                                              pur, scal, P_INNER, p - n_ct))
-                elif kern == "k9":
-                    l_h = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
-                    add("alpha_phase", p, n_s, dt, N_INNER,
-                        lambda: alpha_phase(G, b, alpha, alpha_prev,
-                                            scal[A_ALPHA], scal[L_H_PREV],
-                                            l_h, N_INNER))
-                else:
-                    add("fw_phase", p, n_s, dt, P_INNER,
-                        lambda: fw_phase(G, b, alpha[:n_ct].contiguous(),
-                                         alpha[n_ct:].contiguous(), pur,
-                                         P_INNER))
+def _p40_path_times():
+    """The p = 40 path (``p40_runs``: partial-reference 100 x 20 and
+    purity 10 x 500 at 1M x 10, float32) in ms per outer iteration (median
+    of 3 solves, CUDA events) with K1's and the glue kernel's device us a
+    launch from ``utils.device_profile``."""
+    import torch
+
     paths = {}
     y, d, Rt = p40_problem()
     pur = torch.linspace(0.3, 0.9, P40[1], device=DEV, dtype=y.dtype)
@@ -5932,10 +5915,106 @@ def time_wide_glue(root="."):
         us = _profiled_us(lambda: call(10), (K1_KERNEL, prefix))
         paths[tag] = {"ms_per_outer": ms, "k1_us": us[K1_KERNEL],
                       "glue_us": us[prefix]}
-        log(f"[wide glue] {tag} path: {ms:.4f} ms per outer iteration; K1 "
+        log(f"[time] {tag} path: {ms:.4f} ms per outer iteration; K1 "
             f"{us[K1_KERNEL]:.2f} us, {glue} {us[prefix]:.2f} us a launch")
-    print(json.dumps({"root": root, "card": card, "kernels": rows,
-                      "p40_paths": paths}), flush=True)
+    return paths
+
+
+def _aic_sweep_time():
+    """The AIC sweep to 25 ranks with SVD inits at 1M x 10
+    (``phase_sweep``'s run, SWEEP_OUTER x 20): its seconds, the rank it
+    chose and the solve ms per rank."""
+    import torch
+
+    from demethify_tpu_torch.selection.sweep import evaluate_best_ic
+
+    y, d, Rt = (torch.as_tensor(x, device=DEV)
+                for x in make_problem(np.float32)[2:])
+    times = {}
+    with _rank_times(times):
+        res, ms = timed_ms(lambda: evaluate_best_ic(
+            y, d, Rt, "SVD", "AIC", iter1=SWEEP_OUTER, iter2=N_INNER,
+            tol=0.0, n_restarts=5, n_u_max=25, seed=3))
+    return {"s": ms / 1e3, "chose": res[2],
+            "ms_per_rank": {str(k): v for k, v in sorted(times.items())}}
+
+
+# time_cases' tables: (name, function, keywords), each function returning
+# a dict of numbers; the _k*_case timings are medians of back-to-back
+# launches (CUDA events) beside their bound and twin
+TIME_TABLES = {
+    # K1's and K4's global layout, 200k sites: K1 160 + 4 at n_s = 64 and
+    # the direct form 200 + 12 at n_s = 10 in float64, 400 + 4 at n_s = 64
+    # in float32; K4 at B = 10, 160 + 4, and weighted at B = 4, 205 + 4
+    "global": (
+        ("k1_160", _k1_case, dict(
+            n=N_WIDE, n_u=4, dtype_name="float64", n_s=64, n_ct=160,
+            seed=400, timed=True, inner=1, reps=5, label="[global]")),
+        ("k1_direct12", _k1_case, dict(
+            n=N_WIDE, n_u=12, dtype_name="float64", n_s=N_S, n_ct=200,
+            seed=401, timed=True, inner=1, reps=5, label="[global]")),
+        ("k1_400_f32", _k1_case, dict(
+            n=N_WIDE, n_u=4, dtype_name="float32", n_s=64, n_ct=400,
+            seed=402, timed=True, inner=1, reps=5, label="[global]")),
+        ("k4_160_b10", _k4_case, dict(
+            n_u=4, dtype_name="float64", n_b=10, steps=N_INNER, n_ct=160,
+            inactive=(1,), seed=404, timed=True, label="[global]",
+            n=N_WIDE, n_s=64, quick=True)),
+        ("k4w_205_b4", _k4w_case, dict(
+            n_u=4, dtype_name="float64", n_b=4, steps=N_INNER, n_ct=205,
+            inactive=(2,), seed=405, timed=True, label="[global]",
+            n=N_WIDE))),
+    # the n_u > 8 forms: K1 at the AIC sweep's ranks 9 and 25 (1M x 10,
+    # 5 + n_u, float32, the direct form), K1 in the gram form at n_u = 12
+    # and 17 and K4 at n_u = 12 and 16 (B = 4; 200k x 100, 5 + n_u,
+    # float64); then the AIC sweep itself
+    "state": tuple(
+        (f"k1_rank{n_u}", _k1_case, dict(
+            n=N_CPG, n_u=n_u, dtype_name="float32", seed=130 + n_u,
+            timed=True, reps=5, inner=3, label=f"[rank {n_u}]"))
+        for n_u in (9, 25)) + tuple(
+        (f"k1_gram{n_u}", _k1_case, dict(
+            n=N_WIDE, n_u=n_u, dtype_name="float64", n_s=100, n_ct=5,
+            seed=140 + n_u, timed=True, reps=5, inner=1, label="[gram]"))
+        for n_u in (12, 17)) + tuple(
+        (f"k4_n_u{n_u}", _k4_case, dict(
+            n_u=n_u, dtype_name="float64", n_b=4, steps=N_INNER, n_ct=5,
+            seed=150 + n_u, timed=True, quick=True, n=N_WIDE, n_s=100,
+            label=""))
+        for n_u in (12, 16)) + (("aic_sweep", _aic_sweep_time, {}),),
+    # the glue kernels at the two-row form's shapes: all six at p = 40,
+    # K2 and K3 at p = 33 and 64, each at n_s = 10 and 100 in both dtypes;
+    # then the p = 40 path
+    "glue": tuple(
+        (f"{kern}_p{p}_ns{n_s}_{dt}", _glue_time,
+         dict(kern=kern, p=p, n_s=n_s, dt=dt))
+        for p, kern in ([(40, k) for k in ("k2", "k3", "k5", "k6", "k9",
+                                           "k10")]
+                        + [(p, k) for p in (33, 64) for k in ("k2", "k3")])
+        for n_s in TWO_ROW_NS for dt in ("float32", "float64"))
+    + (("p40_paths", _p40_path_times, {}),),
+}
+
+
+def time_cases(root, table):
+    """Times the cases of ``TIME_TABLES[table]`` ("global", "state",
+    "glue") with the tree at ``root`` and prints one JSON line: the card's
+    ``nvidia-smi`` name and power limit and each case's result by name.
+    For a parent/change comparison on one card run parent, change, change,
+    parent, one process each:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_cases("DIR", "global")'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    check(torch.cuda.is_available(), "time_cases needs a GPU")
+    out = {"card": phase_device(), "root": root, "table": table}
+    for name, fn, kw in TIME_TABLES[table]:
+        out[name] = fn(**kw)
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
 
 
 def time_main_path(root):
@@ -6163,31 +6242,19 @@ def time_steps(root="."):
           flush=True)
 
 
-def profile_kernels(root="."):
-    """Device time per CUDA kernel (``torch.profiler``, its key averages)
-    of K1 at the main path's and the cohort shape, of K2 and K3 (500
-    steps) at p = 6 and at p = 29, n_s = 100, of K8 (its main pass and its
-    second pass) at 1M x 10, p = 6 and at the cohort shape in its three
-    data types, and of K4 at B = 16 and
-    weighted at B = 32 (1M x 10), launched back to back from the tree at
-    ``root``: each launch's kernels (K1, K4: the prologue, the main pass,
-    the fixed-order reduction) with their mean device time.
-    Prints one JSON line:
-
-        python3 -c 'import chip_smoke; chip_smoke.profile_kernels()'
-    """
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+def _profile_main_calls():
+    """``profile_kernels``' "main" calls: K1 at the main path's and the
+    cohort shape, K2 and K3 (500 steps) at p = 6 and at p = 29,
+    n_s = 100, K8 at 1M x 10, p = 6 and at the cohort shape in its three
+    data types, and K4 at B = 16 and weighted at B = 32 (1M x 10)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
-        A_ALPHA, DMAX2, L_H_PREV, RT_SQ, u_phase_grams)
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ, grams, u_phase_grams)
     from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
     from demethify_tpu_torch.ops.cuda_small import (
         alpha_phase_full, fw_phase_full)
 
-    check(torch.cuda.is_available(), "profile_kernels needs a GPU")
-    card = phase_device()
     calls = {}
     for name, (n, n_s, n_ct, n_u) in (("K1 main", (N_CPG, N_S, N_CT, N_U)),
                                       ("K1 cohort", COHORT)):
@@ -6210,7 +6277,6 @@ def profile_kernels(root="."):
         calls["K3" + name[2:]] = functools.partial(
             fw_phase_full, gtt, bt, gu, bu, ydy, alpha.clone(), purity,
             scal.clone(), P_INNER, n_u)
-    from demethify_tpu_torch.ops.cuda_kernels import grams
     for name, (n, n_s, p), dt_name, data in (
             ("K8 main", (N_CPG, N_S, N_CT + N_U), "float32", None),
             ("K8 cohort", (COHORT[0], COHORT[1], COHORT[2] + COHORT[3]),
@@ -6232,6 +6298,15 @@ def profile_kernels(root="."):
         calls[name] = functools.partial(
             u_phase_grams_multi, ydt, rtt, alpha_b[:, :-N_U],
             alpha_b[:, -N_U:], uut_b, scal_b, N_INNER, weights=w)
+    return calls
+
+
+def _profile_calls(calls, reps=10):
+    """Each call of ``calls`` (name -> function) run ``reps`` times under
+    ``torch.profiler`` after 3 warm-up runs: a row per CUDA kernel with its
+    launches and mean device us."""
+    import torch
+
     rows = []
     for name, fn in calls.items():
         for _ in range(3):
@@ -6240,7 +6315,7 @@ def profile_kernels(root="."):
         act = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=act) as prof:
-            for _ in range(10):
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         for evt in prof.key_averages():
@@ -6252,8 +6327,105 @@ def profile_kernels(root="."):
                              "device_us_mean": dev_us / evt.count})
                 log(f"[profile] {name}: {evt.key[:80]} x{evt.count}: "
                     f"{dev_us / evt.count:.2f} us each")
-    print(json.dumps({"root": root, "card": card, "kernels": rows}),
-          flush=True)
+    return rows
+
+
+def _profile_global_calls():
+    """``profile_kernels``' "global" calls: K1's and K4's global layout,
+    200k sites, float64 unless stated: K1 at n_s = 64, 160 + 4, with 20
+    steps and with none (the main pass without its steps: the C/M build,
+    staging and the Gram stage), the direct form 200 + 12 at n_s = 10, and
+    400 + 4 at n_s = 64 in float32 (with 20 steps and none); K4 at B = 10,
+    160 + 4, and weighted at B = 4, 205 + 4, n_s = 10."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+
+    calls = {}
+    for name, (n_s, n_ct, n_u, dt, steps) in (
+            ("K1 160+4", (64, 160, 4, "float64", N_INNER)),
+            ("K1 160+4, 0 steps", (64, 160, 4, "float64", 0)),
+            ("K1 direct 200+12", (N_S, 200, 12, "float64", N_INNER)),
+            ("K1 400+4 float32", (64, 400, 4, "float32", N_INNER)),
+            ("K1 400+4 float32, 0 steps", (64, 400, 4, "float32", 0))):
+        ydt, rtt, alpha, uut, scal = _k1_inputs(N_WIDE, n_s, n_ct, n_u,
+                                                getattr(torch, dt), 400)
+        calls[name] = functools.partial(
+            u_phase_grams, ydt, rtt, alpha[:n_ct], alpha[n_ct:], uut, scal,
+            steps)
+    for name, (n_s, n_ct, n_b, weighted) in (
+            ("K4 B=10 160+4", (64, 160, 10, False)),
+            ("K4 weighted B=4 205+4", (N_S, 205, 4, True))):
+        ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+            N_WIDE, n_s, n_ct, 4, n_b, torch.float64, 404)
+        w = (resample_weights(n_b, N_WIDE, torch.float64, 405) if weighted
+             else None)
+        calls[name] = functools.partial(
+            u_phase_grams_multi, ydt, rtt, alpha_b[:, :n_ct],
+            alpha_b[:, n_ct:], uut_b, scal_b, N_INNER, weights=w)
+    return calls
+
+
+def _profile_staged_calls():
+    """``profile_kernels``' "staged" calls: the staged layouts' K1 and K4
+    launches whose code the U-phase megakernels' shared device functions
+    reach, for a parent/change comparison of their main passes: K1 at the
+    cohort shape (1M x 100, 25 + 4; the wide layout, tiled Gram stage)
+    and at the main path's, K4 at B = 16 (1M x 10) and in the wide layout
+    (200k x 100, 25 + 4, B = 4), float32."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import u_phase_grams
+    from demethify_tpu_torch.ops.cuda_multi import u_phase_grams_multi
+
+    calls = {}
+    for name, (n, n_s, n_ct, n_u) in (("K1 cohort", COHORT),
+                                      ("K1 main", (N_CPG, N_S, N_CT, N_U))):
+        ydt, rtt, alpha, uut, scal = _k1_inputs(n, n_s, n_ct, n_u,
+                                                torch.float32, 0)
+        calls[name] = functools.partial(
+            u_phase_grams, ydt, rtt, alpha[:-n_u], alpha[-n_u:], uut, scal,
+            N_INNER)
+    for name, (n, n_s, n_ct, n_u, n_b, seed) in (
+            ("K4 B=16", (N_CPG, N_S, N_CT, N_U, 16, 20)),
+            ("K4 wide", (200_000, 100, 25, 4, 4, 24))):
+        ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
+            n, n_s, n_ct, n_u, n_b, torch.float32, seed)
+        calls[name] = functools.partial(
+            u_phase_grams_multi, ydt, rtt, alpha_b[:, :-n_u],
+            alpha_b[:, -n_u:], uut_b, scal_b, N_INNER)
+    return calls
+
+
+# profile_kernels' tables: the calls to profile and the launches of each
+PROFILE_TABLES = {"main": (_profile_main_calls, 10),
+                  "global": (_profile_global_calls, 5),
+                  "staged": (_profile_staged_calls, 20)}
+
+
+def profile_kernels(root=".", table="main"):
+    """Device time per CUDA kernel (``torch.profiler``, its key averages)
+    of the calls of ``PROFILE_TABLES[table]`` ("main": the main paths'
+    kernels, ``_profile_main_calls``; "global": K1's and K4's global
+    layout, ``_profile_global_calls``; "staged": the staged layouts' K1
+    and K4 at four shapes, ``_profile_staged_calls``) with the tree at
+    ``root``, launched
+    back to back: each call's kernels (K1, K4: the prologue, the main
+    pass, the fixed-order reduction) with their mean device time. Prints
+    one JSON line:
+
+        python3 -c 'import chip_smoke; chip_smoke.profile_kernels("DIR", "main")'
+    """
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    check(torch.cuda.is_available(), "profile_kernels needs a GPU")
+    card = phase_device()
+    make, reps = PROFILE_TABLES[table]
+    print(json.dumps({"root": root, "card": card, "table": table,
+                      "kernels": _profile_calls(make(), reps)}), flush=True)
 
 
 # K1 (B = 0) and K4 (B members) shapes that both layouts take:
@@ -6384,6 +6556,18 @@ def time_layouts(n=N_CPG, table=LAYOUT_TIMES):
           flush=True)
 
 
+def _layout_file(layout, case):
+    """The suffix of the source that holds K1's (and, after K4's prefix,
+    K4's) entry points in ``layout`` for the case's state and data dtypes:
+    the global layout has one source a data type."""
+    if layout != "global":
+        return {"resident": ".cu", "wide": "_wide.cu"}[layout]
+    if case.get("data") == "bfloat16":
+        return "_global_bf16.cu"
+    return "_global_f64.cu" if case.get("dtype") == "float64" else (
+        "_global.cu")
+
+
 def _state_rows(cases, sweep):
     """The kernels JSON line's rows of the n_u > 8 form beyond the
     envelope's n_u = 12 rows: K1 at the AIC sweep's rank 25 (its launches
@@ -6391,7 +6575,6 @@ def _state_rows(cases, sweep):
     memory in K1 and K4 (no path runs it: its check's launches), with
     ``phase_state_cols``' times."""
     src = "demethify_tpu_torch/csrc/"
-    files = {"resident": ".cu", "wide": "_wide.cu", "global": "_global.cu"}
     k1_at = "demethify_tpu/ops/pallas_kernels.py:218"
     k4_at = "demethify_tpu/ops/pallas_kernels.py:828"
     rank25 = next(c for c in cases if c["kind"] == "K1" and c["n"] == N_CPG
@@ -6414,17 +6597,17 @@ def _state_rows(cases, sweep):
 
     return [
         row("u_phase_grams{n_u>8, state on chip, direct}",
-            "u_phase_grams" + files[rank25["layout"]],
+            "u_phase_grams" + _layout_file(rank25["layout"], rank25),
             k1_at + " (no n_u cap, via :499)", rank25,
             sweep["AIC"]["launches"]["u_phase_grams{n_u>8, state on chip}"],
             "AIC sweep --init SVD to 25 at 1M x 10 (times: rank 25, 1M x "
             "10, 5+25, float32)"),
         row("u_phase_grams{n_u>8, state in device memory}",
-            "u_phase_grams_global.cu", k1_at + " (no n_u cap, via :499)",
+            "u_phase_grams_global_f64.cu", k1_at + " (no n_u cap, via :499)",
             dev1, dev1["launches"],
             "its check: 50k x 108, 5+18, float64 (no path runs it)"),
         row("u_phase_grams_multi{n_u>8, state in device memory}",
-            "u_phase_grams_multi_global.cu",
+            "u_phase_grams_multi_global_f64.cu",
             k4_at + " (no n_u cap, via :1123)", dev4, dev4["launches"],
             "its check: 50k x 108, 5+18, B=3, float64 (no path runs it)")]
 
@@ -6467,15 +6650,13 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             env["wide restarts"]["u_phase_grams_multi{wide}"],
             "4 restarts 200k x 100, 25+4, float64 (times: n_s=500, B=4)"),
         row("u_phase_grams{n_u>8, state on chip}",
-            k1_src + {"resident": ".cu", "wide": "_wide.cu",
-                      "global": "_global.cu"}[k1_state["layout"]],
+            k1_src + _layout_file(k1_state["layout"], k1_state),
             k1_at + " (no n_u cap, via :499)", k1_state,
             env["p>32"]["u_phase_grams{n_u>8, state on chip}"],
             "partial-ref 200k x 100, 25+12, float64 (times: 5+12, n_s=100, "
             "float64)"),
         row("u_phase_grams_multi{n_u>8, state on chip}",
-            k4_src + {"resident": ".cu", "wide": "_wide.cu",
-                      "global": "_global.cu"}[k4_state["layout"]],
+            k4_src + _layout_file(k4_state["layout"], k4_state),
             k4_at + " (no n_u cap, via :1123)", k4_state,
             env["p>32 restarts"]["u_phase_grams_multi{n_u>8, state on chip}"],
             "4 restarts 200k x 100, 25+12, float64 (times: 5+12, B=4, "
@@ -6569,18 +6750,19 @@ def _global_rows(glob, past):
     k3_b = bound(*glue_work(200, N_S, 199, P_INNER, 8, fw=True), "float64")
     k3 = dict(glob["k3"], bound_ms=k3_b[0], bound_by=k3_b[1])
     return [
-        row("u_phase_grams{global}", "u_phase_grams_global.cu",
+        row("u_phase_grams{global}", "u_phase_grams_global_f64.cu",
             k1_at + " (any p, via :499)", glob["k1"],
             past["global"]["u_phase_grams{global}"],
             "partial-ref 20k x 10, 200+10, float64, 10x10 (times: 200k x "
             "64, 160+4)"),
-        row("u_phase_grams_multi{global}", "u_phase_grams_multi_global.cu",
+        row("u_phase_grams_multi{global}",
+            "u_phase_grams_multi_global_f64.cu",
             k4_at + " (any p, via :1123)", glob["k4"],
             past["global restarts"]["u_phase_grams_multi{global}"],
             "4 restarts 20k x 10, 205+4, float64, 10x10 (times: 200k x 64, "
             "160+4, B=10)"),
         row("u_phase_grams_multi[weights]{global}",
-            "u_phase_grams_multi_global.cu",
+            "u_phase_grams_multi_global_f64.cu",
             k4_at + " (weights operand, any p, via :1123)", glob["k4w"],
             past["global bootstrap"]["u_phase_grams_multi{global}"],
             "purity weights bootstrap 20k x 10, 205+4, B=4, float64, 5x100 "

@@ -21,13 +21,23 @@
 //     both layouts take they give the same bits;
 //   - global (where even the wide layout would pass the card's shared
 //     memory: p of about 160 in float64 at n_s >= 32, 386 in float32):
-//     the wide layout with the [Rt | u] rows (and K4's member rows) in a
-//     per-block region of a device-memory buffer the wrapper allocates,
-//     in the same row-major kLd layout, copied there without cp.async
-//     (which writes shared memory only). The same code on other
-//     addresses, so the same bits; the Gram stage's reads of those rows
-//     then go through L1 and L2. Shared memory holds one chunk of Y and
-//     D.
+//     nothing of Rt is staged before the steps. The C/M build and the
+//     direct form's known residual read this site's Rt column where it
+//     lies in device memory (DevRows: a warp reads one row of
+//     neighbouring addresses), kKnownGroup samples' known sums a pass so
+//     each value is read once a group, each sum still over c in order
+//     from 0. The Gram stage streams Rt through shared memory instead
+//     (gram_partials_ring): Y and D a chunk of samples at a time, and
+//     for each chunk the rows of Rt q at a time into a ring of two
+//     slots by cp.async, the next slot loading while the current one is
+//     summed; the entries whose right row is a u row are summed from the
+//     u rows, which live in the top rows of shared memory. Every entry
+//     is one thread's sum over the block's sites in site order from 0,
+//     as in the other layouts, so the same bits (global_plan sizes the
+//     chunk, the ring and the rows). The register forms (n_u <= 8), whose
+//     steps leave shared memory free, form their known sums first in
+//     shared rows with a1 staged beside them (known_rows), so that a1 is
+//     not read from device memory once a term.
 //
 // What the pieces here do about what bounds the kernels (each keeps
 // every rounding, so the kernels' outputs do not depend on them):
@@ -195,16 +205,127 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
     }
 }
 
-// stage_rows into a device-memory region (the global layout): the same
-// values, plain loads and stores, visible to the block after the next
-// __syncthreads
+// This thread's site column of Rt where it lies in device memory (the
+// global layout): row c at p[c * n], converted to the state type as it is
+// read. rt_at reads row c of either form of an Rt column: a staged column
+// in shared memory (stride kLd) or a DevRows.
+template <typename TD>
+struct DevRows {
+    const TD* __restrict__ p;
+    int64_t n;
+};
+
+template <typename T>
+__device__ __forceinline__ T rt_at(const T* __restrict__ rt, int c) {
+    return rt[c * kLd];
+}
+
+template <typename TD>
+__device__ __forceinline__ auto rt_at(DevRows<TD> rt, int c) {
+    return to_state(rt.p[c * rt.n]);
+}
+
+template <typename RT>
+struct IsDevRows : std::false_type {};
+template <typename TD>
+struct IsDevRows<DevRows<TD>> : std::true_type {};
+
+// This thread's known sums a1' rt, one a sample, already formed in its
+// column of shared rows (known_rows): known_s at p[s * kLd]
+template <typename T>
+struct KnownCol {
+    const T* __restrict__ p;
+};
+
+template <typename RT>
+struct IsKnownCol : std::false_type {};
+template <typename T>
+struct IsKnownCol<KnownCol<T>> : std::true_type {};
+
+// samples whose known sums a DevRows pass forms together (known_group)
+constexpr int kKnownGroup = 8;
+
+// kn[g] = sum_c a1[c, s0 + g] rt_c for g < kKnownGroup, each over c in
+// order from 0 (the sum known_resid forms), Rt's value of row c read once
+// for the group; samples past n_s repeat the last one (their sums are not
+// used)
+template <typename T, typename RT>
+__device__ __forceinline__ void known_group(T (&kn)[kKnownGroup], RT rt,
+                                            const T* __restrict__ a1,
+                                            int s0, int n_s, int n_ct) {
+    int sg[kKnownGroup];
+#pragma unroll
+    for (int g = 0; g < kKnownGroup; ++g) {
+        kn[g] = T(0);
+        sg[g] = s0 + g < n_s ? s0 + g : n_s - 1;
+    }
+#pragma unroll 4
+    for (int c = 0; c < n_ct; ++c) {
+        const T r = rt_at(rt, c);
+        const T* a1c = a1 + c * n_s;
+#pragma unroll
+        for (int g = 0; g < kKnownGroup; ++g) kn[g] += a1c[sg[g]] * r;
+    }
+}
+
+// known_s = sum_c a1[c, s] rt_c for every sample s of this thread's site,
+// into kn[s * kLd] (its column of n_s shared rows), each sum over c in
+// order from 0 (known_resid's): Rt's rows read where they lie (rt), a1
+// staged by the whole block kc rows at a time into a1s, so that its values
+// are read from shared memory, each sum carried in its row from one chunk
+// to the next (a running sum, never a chunk's partial sum added later),
+// kKnownGroup samples a pass. Every thread of the block calls it (the
+// chunks are staged between barriers); a dead thread (live false) sums
+// nothing.
 template <typename T, typename TD>
-__device__ __forceinline__ void copy_rows(T* __restrict__ dst,
-                                          const TD* __restrict__ src, int r0,
-                                          int r1, int64_t i, bool live,
-                                          int64_t n, int tid) {
-    for (int r = r0; r < r1; ++r)
-        dst[(r - r0) * kLd + tid] = live ? to_state(src[r * n + i]) : T(0);
+__device__ __forceinline__ void known_rows(T* __restrict__ kn,
+                                           T* __restrict__ a1s,
+                                           const T* __restrict__ a1,
+                                           DevRows<TD> rt, bool live,
+                                           int n_s, int n_ct, int kc,
+                                           int tid) {
+    for (int c0 = 0; c0 < n_ct; c0 += kc) {
+        const int c1 = c0 + kc < n_ct ? c0 + kc : n_ct;
+        __syncthreads();               // the last chunk's sums done
+        for (int k = tid; k < (c1 - c0) * n_s; k += kSites)
+            a1s[k] = a1[c0 * n_s + k];
+        __syncthreads();
+        if (!live) continue;
+        for (int s0 = 0; s0 < n_s; s0 += kKnownGroup) {
+            T acc[kKnownGroup];
+            int sg[kKnownGroup];
+#pragma unroll
+            for (int g = 0; g < kKnownGroup; ++g) {
+                sg[g] = s0 + g < n_s ? s0 + g : n_s - 1;
+                acc[g] = c0 == 0 ? T(0) : kn[sg[g] * kLd];
+            }
+#pragma unroll 4
+            for (int c = c0; c < c1; ++c) {
+                const T r = rt_at(rt, c);
+                const T* ac = a1s + (c - c0) * n_s;
+#pragma unroll
+                for (int g = 0; g < kKnownGroup; ++g) acc[g] += ac[sg[g]] * r;
+            }
+#pragma unroll
+            for (int g = 0; g < kKnownGroup; ++g)
+                if (s0 + g < n_s) kn[(s0 + g) * kLd] = acc[g];
+        }
+    }
+}
+
+// Commits this thread's cp.async copies issued since the last commit as
+// one group
+__device__ __forceinline__ void stage_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` (0 or 1) of this thread's committed groups
+// are still in flight
+__device__ __forceinline__ void stage_wait_pending(int pending) {
+    if (pending > 0)
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Waits for this thread's cp.async copies (a no-op when there are none)
@@ -214,35 +335,116 @@ __device__ __forceinline__ void stage_wait() {
 }
 
 // The known-block residual of sample s at this thread's site, given its
-// y and d: d y - d (a1' rt)  (just d y when n_ct = 0); rt is this site's
-// column of the staged Rt rows (stride kLd), a1 the (n_ct, n_s) block.
-// kRoundDy rounds d y to bf16; kResidFirst forms d (y - a1' rt), as the
-// JAX package's single-phase U kernel does (d y when n_ct = 0, exactly).
+// y and d and its known sum a1' rt: d y - d known  (just d y when n_ct =
+// 0). kRoundDy rounds d y to bf16; kResidFirst forms d (y - known), as
+// the JAX package's single-phase U kernel does (d y when n_ct = 0,
+// exactly).
 template <int RND, typename T>
-__device__ __forceinline__ T known_resid(T y, T d, const T* __restrict__ rt,
-                                         const T* __restrict__ a1, int s,
-                                         int n_s, int n_ct) {
-    T known = T(0);
-    for (int c = 0; c < n_ct; ++c) known += a1[c * n_s + s] * rt[c * kLd];
+__device__ __forceinline__ T resid_of(T y, T d, T known) {
     if constexpr (RND == kRoundDy) return bf16r(d * y) - d * known;
     if constexpr (RND == kResidFirst) return d * (y - known);
     return d * y - d * known;
 }
 
+// The known-block residual of sample s at this thread's site (resid_of),
+// with the known sum over c in order; rt is this site's Rt column (rt_at),
+// a1 the (n_ct, n_s) block.
+template <int RND, typename T, typename RT>
+__device__ __forceinline__ T known_resid_at(T y, T d, RT rt,
+                                            const T* __restrict__ a1, int s,
+                                            int n_s, int n_ct) {
+    T known = T(0);
+    for (int c = 0; c < n_ct; ++c) known += a1[c * n_s + s] * rt_at(rt, c);
+    return resid_of<RND>(y, d, known);
+}
+
+// known_resid_at on a staged Rt column. The staged layouts and K7 call
+// this form, the global layout *_at's forms with a DevRows or KnownCol: a
+// template parameter would drop the __restrict__ the staged column has
+// always had, so these forms keep the staged layouts' signatures as they
+// were. build_cm, build_cm_rows, site_phase, site_phase_rows and K4's
+// build_cm_pair are split the same way.
+template <int RND, typename T>
+__device__ __forceinline__ T known_resid(T y, T d, const T* __restrict__ rt,
+                                         const T* __restrict__ a1, int s,
+                                         int n_s, int n_ct) {
+    return known_resid_at<RND>(y, d, rt, a1, s, n_s, n_ct);
+}
+
+// res[s * kLd] = known_resid<RND>(y_s, d_s, rt, a1, s) for every sample
+// (the direct form's residual rows): a sample at a time from a staged Rt
+// column, kKnownGroup samples a pass from a DevRows
+template <int RND, typename T, typename TY, typename RT>
+__device__ __forceinline__ void resid_rows(T* __restrict__ res,
+                                           const TY* __restrict__ y,
+                                           const TY* __restrict__ d,
+                                           int64_t ld, RT rt,
+                                           const T* __restrict__ a1, int n_s,
+                                           int n_ct) {
+    if constexpr (IsKnownCol<RT>::value) {
+        // the known sums' rows may be res itself: each read before its
+        // sample's residual is written over it
+        for (int s = 0; s < n_s; ++s)
+            res[s * kLd] = resid_of<RND>(to_state(y[s * ld]),
+                                         to_state(d[s * ld]),
+                                         rt.p[s * kLd]);
+    } else if constexpr (IsDevRows<RT>::value) {
+        for (int s0 = 0; s0 < n_s; s0 += kKnownGroup) {
+            T kn[kKnownGroup];
+            known_group(kn, rt, a1, s0, n_s, n_ct);
+#pragma unroll
+            for (int g = 0; g < kKnownGroup; ++g) {
+                const int s = s0 + g;
+                if (s < n_s)
+                    res[s * kLd] = resid_of<RND>(to_state(y[s * ld]),
+                                                 to_state(d[s * ld]), kn[g]);
+            }
+        }
+    } else {
+        for (int s = 0; s < n_s; ++s)
+            res[s * kLd] = known_resid<RND>(to_state(y[s * ld]),
+                                            to_state(d[s * ld]), rt, a1, s,
+                                            n_s, n_ct);
+    }
+}
+
+// Sample s's terms of C and M at this thread's site, given its d and its
+// known-block residual: C[v] += a2[v,s] dres, M[v][w] += (a2[v,s] a2[w,s]) d
+// (a function, not a lambda, so that no staged build captures its sums)
+template <typename T, class VC, class VM>
+__device__ __forceinline__ void add_cm(VC& cc, VM& m,
+                                       const T* __restrict__ a2, int s,
+                                       int n_s, int nu, T dv, T dres) {
+#pragma unroll
+    for (int v = 0; v < nu; ++v) {
+        const T av = a2[v * n_s + s];
+        cc[v] += av * dres;
+#pragma unroll
+        for (int w = v; w < nu; ++w)
+            m[sym(v, w, nu)] += (av * a2[w * n_s + s]) * dv;
+    }
+}
+
 // C[u] = sum_s a2[u,s] dres_s and the upper triangle of
 // M[u][v] = sum_s (a2[u,s] a2[v,s]) d_s at this thread's site. y, d are
 // this site's sample rows (row stride ld: the staged rows or the data
-// itself), rt its staged Rt column, a1, a2 the alpha blocks (row stride
-// n_s). kRoundAll builds C as the JAX kernel's bf16 branch does, c1 - c2
-// with c1[u] = sum_s bf16(a2[u,s]) bf16(d_s y_s) and
-// c2[u] = sum_{s,c} bf16(a2[u,s] a1[c,s]) bf16(d_s rt_c) (c2: a
-// temporary), and M from bf16(a2[u,s] a2[v,s]).
-template <typename T, int NU, int RND, typename TY, class VC, class VM>
-__device__ __forceinline__ void build_cm(
+// itself), rt its Rt column (rt_at: staged, or a DevRows), a1, a2 the
+// alpha blocks (row stride n_s). kRoundAll builds C as the JAX kernel's
+// bf16 branch does, c1 - c2 with c1[u] = sum_s bf16(a2[u,s]) bf16(d_s y_s)
+// and c2[u] = sum_{s,c} bf16(a2[u,s] a1[c,s]) bf16(d_s rt_c) (c2: a
+// temporary), and M from bf16(a2[u,s] a2[v,s]). From a DevRows the known
+// sums come kKnownGroup samples a pass (known_group), and kRoundAll takes
+// the rows of Rt in its outer loop within a sample (each c2[u] still sums
+// its (s, c) terms in the same order), so Rt's values are read from device
+// memory once a group or once a sample, not once a term.
+template <typename T, int NU, int RND, typename TY, class VC, class VM,
+          typename RT>
+__device__ __forceinline__ void build_cm_at(
         VC& cc, VM& m, VC& c2, int n_u, const TY* __restrict__ y,
-        const TY* __restrict__ d, int64_t ld, const T* __restrict__ rt,
+        const TY* __restrict__ d, int64_t ld, RT rt,
         const T* __restrict__ a1, const T* __restrict__ a2, int n_s,
         int n_ct) {
+    constexpr bool DEV = IsDevRows<RT>::value;
     const int nu = NU > 0 ? NU : n_u;
 #pragma unroll
     for (int v = 0; v < nu; ++v) cc[v] = T(0);
@@ -258,33 +460,78 @@ __device__ __forceinline__ void build_cm(
             for (int v = 0; v < nu; ++v) {
                 const T av = a2[v * n_s + s];
                 cc[v] += bf16r(av) * dy;
-                for (int c = 0; c < n_ct; ++c)
-                    c2[v] += bf16r(av * a1[c * n_s + s])
-                             * bf16r(dv * rt[c * kLd]);
+                if constexpr (!DEV) {
+                    for (int c = 0; c < n_ct; ++c)
+                        c2[v] += bf16r(av * a1[c * n_s + s])
+                                 * bf16r(dv * rt_at(rt, c));
+                }
 #pragma unroll
                 for (int w = v; w < nu; ++w)
                     m[sym(v, w, nu)] += bf16r(av * a2[w * n_s + s]) * dv;
+            }
+            if constexpr (DEV) {
+                for (int c = 0; c < n_ct; ++c) {
+                    const T dr = bf16r(dv * rt_at(rt, c));
+                    const T a1c = a1[c * n_s + s];
+#pragma unroll
+                    for (int v = 0; v < nu; ++v)
+                        c2[v] += bf16r(a2[v * n_s + s] * a1c) * dr;
+                }
             }
         }
 #pragma unroll
         for (int v = 0; v < nu; ++v) cc[v] -= c2[v];
         return;
     }
-    for (int s = 0; s < n_s; ++s) {
-        const T yv = to_state(y[s * ld]);
-        const T dv = to_state(d[s * ld]);
-        const T dres = known_resid<RND == kResidFirst ? kResidFirst
-                                                      : kRoundNone>(
-            yv, dv, rt, a1, s, n_s, n_ct);
+    constexpr int RK = RND == kResidFirst ? kResidFirst : kRoundNone;
+    if constexpr (IsKnownCol<RT>::value) {
+        for (int s = 0; s < n_s; ++s) {
+            const T dv = to_state(d[s * ld]);
+            add_cm(cc, m, a2, s, n_s, nu, dv,
+                   resid_of<RK>(to_state(y[s * ld]), dv, rt.p[s * kLd]));
+        }
+    } else if constexpr (DEV) {
+        for (int s0 = 0; s0 < n_s; s0 += kKnownGroup) {
+            T kn[kKnownGroup];
+            known_group(kn, rt, a1, s0, n_s, n_ct);
 #pragma unroll
-        for (int v = 0; v < nu; ++v) {
-            const T av = a2[v * n_s + s];
-            cc[v] += av * dres;
+            for (int g = 0; g < kKnownGroup; ++g) {
+                const int s = s0 + g;
+                if (s >= n_s) break;
+                const T dv = to_state(d[s * ld]);
+                add_cm(cc, m, a2, s, n_s, nu, dv,
+                       resid_of<RK>(to_state(y[s * ld]), dv, kn[g]));
+            }
+        }
+    } else {
+        // (add_cm's sums written out, as are bu_sum's and usq_sum's in
+        // gram_entry: with the shared bodies the cohort's K1, wide layout,
+        // 1M x 100, 25 + 4, float32, took 4% longer on an H100; PERF.md
+        // section 6)
+        for (int s = 0; s < n_s; ++s) {
+            const T yv = to_state(y[s * ld]);
+            const T dv = to_state(d[s * ld]);
+            const T dres = known_resid<RK>(yv, dv, rt, a1, s, n_s, n_ct);
 #pragma unroll
-            for (int w = v; w < nu; ++w)
-                m[sym(v, w, nu)] += (av * a2[w * n_s + s]) * dv;
+            for (int v = 0; v < nu; ++v) {
+                const T av = a2[v * n_s + s];
+                cc[v] += av * dres;
+#pragma unroll
+                for (int w = v; w < nu; ++w)
+                    m[sym(v, w, nu)] += (av * a2[w * n_s + s]) * dv;
+            }
         }
     }
+}
+
+// build_cm_at on a staged Rt column (known_resid's note)
+template <typename T, int NU, int RND, typename TY, class VC, class VM>
+__device__ __forceinline__ void build_cm(
+        VC& cc, VM& m, VC& c2, int n_u, const TY* __restrict__ y,
+        const TY* __restrict__ d, int64_t ld, const T* __restrict__ rt,
+        const T* __restrict__ a1, const T* __restrict__ a2, int n_s,
+        int n_ct) {
+    build_cm_at<T, NU, RND>(cc, m, c2, n_u, y, d, ld, rt, a1, a2, n_s, n_ct);
 }
 
 // The n_steps FISTA loop of the gram form; LAG takes each step's gradient
@@ -438,13 +685,18 @@ __host__ __device__ __forceinline__ bool state_in_device(long long itemsize,
 // entries of one row, each entry carried in a register over the chunk's
 // samples from its value after the last chunk. kRoundAll's c2 sums (the
 // rt part of C) use u vector 0's rows; C -= c2 at the end. kResidFirst
-// (K7) forms the known residual as K7's build_cm does.
-template <typename T, int RND, typename TY>
-__device__ __forceinline__ void build_cm_rows(
+// (K7) forms the known residual as K7's build_cm does. From a DevRows
+// (the global layout) the known sums come kKnownGroup samples a pass and
+// kRoundAll's c2 terms take the rows of Rt in the outer loop within a
+// sample, as build_cm's.
+template <typename T, int RND, typename TY, typename RT>
+__device__ __forceinline__ void build_cm_rows_at(
         T* __restrict__ st, int nu, const TY* __restrict__ y,
-        const TY* __restrict__ d, int64_t ld, const T* __restrict__ rt,
+        const TY* __restrict__ d, int64_t ld, RT rt,
         const T* __restrict__ a1, const T* __restrict__ a2, int n_s,
         int n_ct) {
+    constexpr bool DEV = IsDevRows<RT>::value;
+    constexpr int RK = RND == kResidFirst ? kResidFirst : kRoundNone;
     T* c2 = st;
     T* dq = st + nu * kLd;          // d_s of the chunk's samples
     T* qq = dq + nu * kLd;          // their residual (or bf16(d_s y_s))
@@ -453,16 +705,31 @@ __device__ __forceinline__ void build_cm_rows(
     for (int c0 = 0; c0 < n_s; c0 += nu) {
         const int n_c = n_s - c0 < nu ? n_s - c0 : nu;
         const bool first = c0 == 0;
-        for (int s = 0; s < n_c; ++s) {
-            const T dv = to_state(d[(c0 + s) * ld]);
-            const T yv = to_state(y[(c0 + s) * ld]);
-            dq[s * kLd] = dv;
-            if constexpr (RND == kRoundAll)
-                qq[s * kLd] = bf16r(dv * yv);
-            else
-                qq[s * kLd] = known_resid<RND == kResidFirst ? kResidFirst
-                                                             : kRoundNone>(
-                    yv, dv, rt, a1, c0 + s, n_s, n_ct);
+        if constexpr (DEV && RND != kRoundAll) {
+            for (int s0 = 0; s0 < n_c; s0 += kKnownGroup) {
+                T kn[kKnownGroup];
+                known_group(kn, rt, a1, c0 + s0, n_s, n_ct);
+#pragma unroll
+                for (int g = 0; g < kKnownGroup; ++g) {
+                    const int s = s0 + g;
+                    if (s >= n_c) break;
+                    const T dv = to_state(d[(c0 + s) * ld]);
+                    dq[s * kLd] = dv;
+                    qq[s * kLd] = resid_of<RK>(to_state(y[(c0 + s) * ld]),
+                                               dv, kn[g]);
+                }
+            }
+        } else {
+            for (int s = 0; s < n_c; ++s) {
+                const T dv = to_state(d[(c0 + s) * ld]);
+                const T yv = to_state(y[(c0 + s) * ld]);
+                dq[s * kLd] = dv;
+                if constexpr (RND == kRoundAll)
+                    qq[s * kLd] = bf16r(dv * yv);
+                else
+                    qq[s * kLd] = known_resid<RK>(yv, dv, rt, a1, c0 + s,
+                                                  n_s, n_ct);
+            }
         }
         const T* a2c = a2 + c0;
         const T* a1c = a1 + c0;
@@ -483,12 +750,24 @@ __device__ __forceinline__ void build_cm_rows(
                     const T av = a2c[vj[j] * n_s + s];
                     if constexpr (RND == kRoundAll) {
                         acc[j] += bf16r(av) * q;
-                        const T dv = dq[s * kLd];
-                        for (int c = 0; c < n_ct; ++c)
-                            acc2[j] += bf16r(av * a1c[c * n_s + s])
-                                       * bf16r(dv * rt[c * kLd]);
+                        if constexpr (!DEV) {
+                            const T dv = dq[s * kLd];
+                            for (int c = 0; c < n_ct; ++c)
+                                acc2[j] += bf16r(av * a1c[c * n_s + s])
+                                           * bf16r(dv * rt_at(rt, c));
+                        }
                     } else {
                         acc[j] += av * q;
+                    }
+                }
+                if constexpr (RND == kRoundAll && DEV) {
+                    const T dv = dq[s * kLd];
+                    for (int c = 0; c < n_ct; ++c) {
+                        const T dr = bf16r(dv * rt_at(rt, c));
+                        const T a1s = a1c[c * n_s + s];
+#pragma unroll
+                        for (int j = 0; j < kTile; ++j)
+                            acc2[j] += bf16r(a2c[vj[j] * n_s + s] * a1s) * dr;
                     }
                 }
             }
@@ -530,6 +809,16 @@ __device__ __forceinline__ void build_cm_rows(
     if constexpr (RND == kRoundAll) {
         for (int v = 0; v < nu; ++v) cc[v * kLd] -= c2[v * kLd];
     }
+}
+
+// build_cm_rows_at on a staged Rt column (known_resid's note)
+template <typename T, int RND, typename TY>
+__device__ __forceinline__ void build_cm_rows(
+        T* __restrict__ st, int nu, const TY* __restrict__ y,
+        const TY* __restrict__ d, int64_t ld, const T* __restrict__ rt,
+        const T* __restrict__ a1, const T* __restrict__ a2, int n_s,
+        int n_ct) {
+    build_cm_rows_at<T, RND>(st, nu, y, d, ld, rt, a1, a2, n_s, n_ct);
 }
 
 // The n_steps FISTA loop of the gram form on the state rows (u in u
@@ -625,6 +914,143 @@ __host__ __device__ __forceinline__ GramPlan gram_plan(int n_c, int n_u,
     return g;
 }
 
+// ---- the global layout's plan ------------------------------------------
+//
+// The global layout's shared memory (rows of kLd values, from the bottom):
+//   - during the steps: the n_u > 8 form's state region (state_rows, unless
+//     it lives in device memory) and, in the direct form, the n_s rows of
+//     its known-block residual (res) past the region where they fit the
+//     block (else the residual is rebuilt each step, as the wide layout
+//     does); nothing at n_u <= 8 in the gram form, whose Y, D and Rt are
+//     read where they lie;
+//   - for the Gram stage (global_plan: cs, q, depth): Y and D, cs samples
+//     each, then the ring, depth slots of q rows of Rt;
+//   - at the top, the u rows: `members` blocks of um rows (K1: u, and under
+//     kRoundAll bf16(u) then the raw u; K4: a member's u, weighted then its
+//     w u), written after each member's steps. The last member's rows may
+//     overlay the region's dead tail (its M rows, or the direct form's
+//     residual and gradient rows), never the vectors u is read from; the
+//     other members' rows lie past the region, which the next member's
+//     steps reuse (K4's members are stacked downwards: member k at
+//     rows - (k + 1) um).
+// q is the multiple of kTileQ that gives the block's threads a tile each
+// per slot (kSites / (samples x unknowns x members) tiles per kTileQ rows,
+// gram_plan's tile shape), at most all of Rt, shrunk by kTileQ while the
+// Gram stage would take the block from two blocks an SM (or from the rows
+// the steps hold, if more) -- unless one block an SM with the larger q
+// keeps more of the SM's threads busy with tiles; where the state region
+// lives in device memory (kGlobalState) the layout keeps the 2 chunk_rows
+// rows it had, and cs shrinks too. kc: the register forms (n_u <= 8), whose
+// steps leave shared memory free but for the u rows, form their known
+// sums in n_s rows at the bottom with a1 staged kc rows of n_s values at a
+// time above them (known_rows), where the rows below the u rows hold n_s
+// rows and one row of a1 (0: the sums come from device memory, a
+// kKnownGroup of samples a pass). ops/cuda_kernels.global_plan is the
+// same plan; dm_global_plan exports it.
+constexpr int kRingSlots = 2;
+
+struct GlobalPlan {
+    int cs, q, depth, rows, res, kc;
+};
+
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+    return a > b ? a : b;
+}
+
+__host__ __device__ __forceinline__ int ring_need(int cs, int q, int n_ct,
+                                                  int u_rows) {
+    const int depth = q == 0 ? 0 : (q < n_ct ? kRingSlots : 1);
+    return 2 * cs + depth * q + u_rows;
+}
+
+__host__ __device__ __forceinline__ GlobalPlan global_plan(
+        long long itemsize, int n_s, int n_ct, int n_u, bool direct, int um,
+        int members) {
+    GlobalPlan g{};
+    const long long row = itemsize * kLd;
+    const int max_rows = static_cast<int>(kSmemBlock / row);
+    const int two = static_cast<int>((kSmemPerSm / 2 - kSmemReserve) / row);
+    const int sr = state_rows(n_s, n_u, direct);
+    const bool in_dev = sr > 0 && state_in_device(itemsize, n_s, n_u, direct);
+    const int region = in_dev ? 0 : sr;
+    const int vec = region > 0 ? (direct ? 2 : 3) * n_u : 0;
+    g.res = direct && !in_dev && region + n_s <= max_rows;
+    const int hold = region + (g.res ? n_s : 0);
+    const int fixed = imax(hold + (members - 1) * um, vec + members * um);
+    g.cs = chunk_rows(n_s);
+    const int rv = tile_rv(n_u), rs = 4 / rv;
+    const int per4 = (g.cs + rs - 1) / rs * ((n_u + rv - 1) / rv) * members;
+    const int ct4 = (n_ct + kTileQ - 1) / kTileQ * kTileQ;
+    int q = kTileQ * ((kSites + per4 - 1) / per4);
+    q = q < ct4 ? q : ct4;
+    const int floor_rows = in_dev ? 2 * chunk_rows(n_s) : 0;
+    // q within two blocks' rows, or one block's where that keeps more of
+    // an SM's threads busy with tiles
+    int q2 = q;
+    while (q2 > kTileQ
+           && ring_need(g.cs, q2, n_ct, members * um) > imax(two, fixed))
+        q2 -= kTileQ;
+    int q1 = q;
+    while (q1 > kTileQ
+           && ring_need(g.cs, q1, n_ct, members * um) > imax(max_rows, fixed))
+        q1 -= kTileQ;
+    const int busy2 = per4 * q2 / kTileQ < kSites ? per4 * q2 / kTileQ
+                                                   : kSites;
+    const int busy1 = per4 * q1 / kTileQ < kSites ? per4 * q1 / kTileQ
+                                                   : kSites;
+    q = 2 * busy2 < busy1 ? q1 : q2;
+    while (in_dev && ring_need(g.cs, q, n_ct, members * um) > floor_rows) {
+        if (q > kTileQ)
+            q -= kTileQ;
+        else if (g.cs > 1)
+            --g.cs;
+        else
+            break;
+    }
+    g.q = q;
+    g.depth = q == 0 ? 0 : (q < n_ct ? kRingSlots : 1);
+    g.rows = imax(imax(fixed, ring_need(g.cs, q, n_ct, members * um)),
+                  floor_rows);
+    // the register forms' known sums (known_rows): n_s rows at the bottom
+    // and a1 staged kc rows at a time in the rows free below the u rows
+    const int free_vals = (g.rows - members * um - n_s) * kLd;
+    if (n_u <= kRegNU && n_ct > 0 && free_vals >= n_s)
+        g.kc = free_vals / n_s < n_ct ? free_vals / n_s : n_ct;
+    return g;
+}
+
+// b_u's sum for one (v, s): sum_j u_v (d_s y_s) over the block's sites in
+// site order, ds, ys, uv rows of kLd values (kRoundDy and kRoundAll round
+// d y to bf16); gram_entry writes the same sum out (build_cm_at's note)
+template <typename T, int RND>
+__device__ __forceinline__ T bu_sum(const T* __restrict__ ds,
+                                    const T* __restrict__ ys,
+                                    const T* __restrict__ uv) {
+    T acc = T(0);
+    if constexpr (RND != kRoundNone) {
+        for (int j = 0; j < kSites; ++j) acc += uv[j] * bf16r(ds[j] * ys[j]);
+    } else {
+        for (int j = 0; j < kSites; ++j) acc += uv[j] * (ds[j] * ys[j]);
+    }
+    return acc;
+}
+
+// usq's sum: sum_j sum_v x_v^2 over the block's sites, then the
+// unknowns, x the nu rows at xs (kLd values each; gram_entry's sum)
+template <typename T, int NU>
+__device__ __forceinline__ T usq_sum(const T* __restrict__ xs, int nu) {
+    const int nuc = NU > 0 ? NU : nu;
+    T acc = T(0);
+    for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+        for (int v = 0; v < nuc; ++v) {
+            const T x = xs[v * kLd + j];
+            acc += x * x;
+        }
+    }
+    return acc;
+}
+
 // One Gram entry of this block, l in [0, n_local) of the local order
 // [gu (n_c, n_u, p) | b_u (n_u, n_c) | usq] (see gram_partials), summed
 // over the block's sites in site order and written to out[e * n_blocks].
@@ -690,17 +1116,18 @@ __device__ __forceinline__ void gram_entry(
 }
 
 // One micro-tile of gu: samples [s0, s0 + RS) x unknowns [v0, v0 + RV) x
-// rows [q0, q0 + kTileQ) of [Rt | u], clamped to the block's entries.
-// Per site the RS x RV left factors d_s u_v (bf16(d_s u_v) under
-// kRoundAll) are formed once and each is
+// right rows [q0, q0 + kTileQ) of the nq rows at s_rr, clamped to the
+// block's entries; the left u rows are at s_ul, and right row q is the
+// entry's row qo + q of [Rt | u]. Per site the RS x RV left factors
+// d_s u_v (bf16(d_s u_v) under kRoundAll) are formed once and each is
 // multiplied into kTileQ accumulators, each entry summed in site order
 // from 0: the entry form's sum, bit for bit.
 template <typename T, int RS, int RV, int RND>
-__device__ __forceinline__ void gram_tile(
+__device__ __forceinline__ void gram_tile_rows(
         int s0, int v0, int q0, const T* __restrict__ s_d,
-        const T* __restrict__ s_r, int c0, int n_c, int n_ct, int nu,
-        T* __restrict__ out, int n_blocks, const T* __restrict__ s_x) {
-    const int p = n_ct + nu;
+        const T* __restrict__ s_ul, const T* __restrict__ s_rr, int nq,
+        int qo, int c0, int n_c, int nu, int p, T* __restrict__ out,
+        int n_blocks) {
     const T* ds[RS];
     const T* uv[RV];
     const T* rq[kTileQ];
@@ -708,13 +1135,11 @@ __device__ __forceinline__ void gram_tile(
     for (int a = 0; a < RS; ++a)
         ds[a] = s_d + (s0 + a < n_c ? s0 + a : n_c - 1) * kLd;
 #pragma unroll
-    for (int b = 0; b < RV; ++b) {
-        const int v = v0 + b < nu ? v0 + b : nu - 1;
-        uv[b] = s_r + (n_ct + v) * kLd;
-    }
+    for (int b = 0; b < RV; ++b)
+        uv[b] = s_ul + (v0 + b < nu ? v0 + b : nu - 1) * kLd;
 #pragma unroll
     for (int c = 0; c < kTileQ; ++c)
-        rq[c] = s_r + (q0 + c < p ? q0 + c : p - 1) * kLd;
+        rq[c] = s_rr + (q0 + c < nq ? q0 + c : nq - 1) * kLd;
     T acc[RS][RV][kTileQ];
 #pragma unroll
     for (int a = 0; a < RS; ++a)
@@ -748,10 +1173,24 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
             for (int c = 0; c < kTileQ; ++c) {
                 const int s = s0 + a, v = v0 + b, q = q0 + c;
-                if (s < n_c && v < nu && q < p)
-                    out[static_cast<int64_t>((c0 + s) * nu * p + v * p + q)
-                        * n_blocks] = acc[a][b][c];
+                if (s < n_c && v < nu && q < nq)
+                    out[static_cast<int64_t>((c0 + s) * nu * p + v * p + qo
+                                             + q) * n_blocks] = acc[a][b][c];
             }
+}
+
+// gram_tile_rows over the rows of [Rt | u] staged in s_r: samples
+// [s0, s0 + RS) x unknowns [v0, v0 + RV) x rows [q0, q0 + kTileQ) of
+// [Rt | u], clamped to the block's entries (the left u rows are [Rt | u]'s
+// last nu rows)
+template <typename T, int RS, int RV, int RND>
+__device__ __forceinline__ void gram_tile(
+        int s0, int v0, int q0, const T* __restrict__ s_d,
+        const T* __restrict__ s_r, int c0, int n_c, int n_ct, int nu,
+        T* __restrict__ out, int n_blocks) {
+    const int p = n_ct + nu;
+    gram_tile_rows<T, RS, RV, RND>(s0, v0, q0, s_d, s_r + n_ct * kLd, s_r, p,
+                                   0, c0, n_c, nu, p, out, n_blocks);
 }
 
 // Gram entries of this block with the new u, for the samples [c0, c1)
@@ -800,7 +1239,7 @@ __device__ __forceinline__ void gram_partials(
         const int vt = (k / g.tq) % g.tv;
         const int st = k / (g.tq * g.tv);
         gram_tile<T, RS, RV, RND>(st * RS, vt * RV, qt * kTileQ, s_d, s_r,
-                                     c0, n_c, n_ct, nu, out, n_blocks, s_x);
+                                     c0, n_c, n_ct, nu, out, n_blocks);
     }
 }
 
@@ -824,6 +1263,100 @@ __device__ __forceinline__ void gram_partials_chunked(
         __syncthreads();
         gram_partials<T, NU, RND>(s_y, s_d, s_r, n_s, c0, c1, c1 == n_s,
                                      n_ct, n_u, tid, out, n_blocks, s_x);
+    }
+}
+
+// The Gram stage of the global layout (gram_partials' entries, products
+// and orders): Y and D g.cs samples at a time into the bottom rows; per
+// chunk, first the entries whose right row is a u row (u tiles, b_u's
+// entries and, with the last chunk, usq) while the first slot of Rt lands,
+// then Rt g.q rows a slot through the ring, the next slot loading
+// (cp.async; bf16 data through registers) while this one's tiles are
+// summed, dealt over samples x unknowns x rows as gram_plan deals them,
+// item k to thread k mod kSites. s_u holds the u rows (bf16(u) under
+// kRoundAll, the raw u in s_x). Called by every thread of the block after
+// the u rows are written; starts with a barrier.
+template <typename T, typename TD, int NU, int RND>
+__device__ __forceinline__ void gram_partials_ring(
+        T* __restrict__ smem, const GlobalPlan& g, const T* __restrict__ s_u,
+        const T* __restrict__ s_x, const TD* __restrict__ ydt,
+        const TD* __restrict__ rtt, int64_t i, bool live, int64_t n, int n_s,
+        int n_ct, int n_u, int tid, T* __restrict__ out, int n_blocks) {
+    const int nu = NU > 0 ? NU : n_u;
+    const int p = n_ct + nu;
+    constexpr int RV = tile_rv(NU > 0 ? NU : 9);
+    constexpr int RS = 4 / RV;
+    T* s_y = smem;
+    T* s_d = s_y + g.cs * kLd;
+    T* ring = s_d + g.cs * kLd;
+    const int n_rc = g.q > 0 ? (n_ct + g.q - 1) / g.q : 0;
+    const int tv = (nu + RV - 1) / RV;
+    const int tqu = (nu + kTileQ - 1) / kTileQ;
+    for (int c0 = 0; c0 < n_s; c0 += g.cs) {
+        const int c1 = c0 + g.cs < n_s ? c0 + g.cs : n_s;
+        const int n_c = c1 - c0;
+        const int ts = (n_c + RS - 1) / RS;
+        __syncthreads();     // the u rows written; the last chunk's sums done
+        stage_rows(s_y, ydt, c0, c1, i, live, n, tid);
+        stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, c0, c1, i, live,
+                   n, tid);
+        stage_commit();
+        if (n_rc > 0) {
+            stage_rows(ring, rtt, 0, g.q < n_ct ? g.q : n_ct, i, live, n,
+                       tid);
+            stage_commit();
+        }
+        stage_wait_pending(n_rc > 0 ? 1 : 0);
+        __syncthreads();
+        const int n_ut = ts * tv * tqu;
+        const int n_items = n_ut + nu * n_c + (c1 == n_s ? 1 : 0);
+        for (int k = tid; k < n_items; k += kSites) {
+            if (k < n_ut) {
+                const int qt = k % tqu;
+                const int vt = (k / tqu) % tv;
+                const int st = k / (tqu * tv);
+                gram_tile_rows<T, RS, RV, RND>(st * RS, vt * RV,
+                                               qt * kTileQ, s_d, s_u, s_u,
+                                               nu, n_ct, c0, n_c, nu, p, out,
+                                               n_blocks);
+            } else if (k < n_ut + nu * n_c) {
+                const int v = (k - n_ut) / n_c;
+                const int s = (k - n_ut) % n_c;
+                out[static_cast<int64_t>(n_s * nu * p + v * n_s + c0 + s)
+                    * n_blocks] = bu_sum<T, RND>(s_d + s * kLd,
+                                                 s_y + s * kLd,
+                                                 s_u + v * kLd);
+            } else {
+                out[static_cast<int64_t>(n_s * nu * p + nu * n_s)
+                    * n_blocks] =
+                    usq_sum<T, NU>(RND == kRoundAll ? s_x : s_u, nu);
+            }
+        }
+        for (int rc = 0; rc < n_rc; ++rc) {
+            stage_wait_pending(0);
+            __syncthreads();    // slot rc % 2 landed, the other one free
+            const int r0 = rc * g.q;
+            const int nq = n_ct - r0 < g.q ? n_ct - r0 : g.q;
+            if (rc + 1 < n_rc) {
+                const int r1 = r0 + g.q;
+                stage_rows(ring + ((rc + 1) & 1) * g.q * kLd, rtt, r1,
+                           r1 + g.q < n_ct ? r1 + g.q : n_ct, i, live, n,
+                           tid);
+                stage_commit();
+            }
+            const T* slot = ring + (rc & 1) * g.q * kLd;
+            const int tq = (nq + kTileQ - 1) / kTileQ;
+            const int n_t = ts * tv * tq;
+            for (int k = tid; k < n_t; k += kSites) {
+                const int qt = k % tq;
+                const int vt = (k / tq) % tv;
+                const int st = k / (tq * tv);
+                gram_tile_rows<T, RS, RV, RND>(st * RS, vt * RV,
+                                               qt * kTileQ, s_d, s_u, slot,
+                                               nq, r0, c0, n_c, nu, p, out,
+                                               n_blocks);
+            }
+        }
     }
 }
 

@@ -13,10 +13,17 @@ int dm_u_phase_grams_blocks(long long n) {
     return static_cast<int>((n + kSites - 1) / kSites);
 }
 
-// Rows per block of the global layout's device buffer (129 values each)
-int dm_u_phase_grams_global_rows(int n_ct, int n_u, int direct, int bf16c) {
-    return global_rows(n_ct, n_u,
-                       bf16c && !direct ? dm::kRoundAll : dm::kRoundNone);
+// The global layout's plan (dm::global_plan) into out[6]: cs, q, depth,
+// rows, res, kc, for `members` blocks of um u rows (K1: n_u, or 2 n_u in
+// bf16_compute's gram form, one member; K4: n_u, or 2 n_u weighted, a
+// group)
+int dm_global_plan(int itemsize, int n_s, int n_ct, int n_u, int direct,
+                   int um, int members, int* out) {
+    const dm::GlobalPlan g = dm::global_plan(itemsize, n_s, n_ct, n_u,
+                                             direct != 0, um, members);
+    const int v[6] = {g.cs, g.q, g.depth, g.rows, g.res, g.kc};
+    for (int k = 0; k < 6; ++k) out[k] = v[k];
+    return 0;
 }
 
 // Rows of the n_u > 8 form's state region (129 values each; 0 at

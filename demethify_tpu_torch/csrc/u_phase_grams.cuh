@@ -2,8 +2,9 @@
 // unsupervised solves, for Hopper. This header holds the kernel and its
 // launch, templated on the shared-memory layout; u_phase_grams.cu builds
 // the resident layout, u_phase_grams_wide.cu the wide one and
-// u_phase_grams_global.cu the global one (u_phase_common.cuh), each with
-// its own C entry points, so the three compile in parallel.
+// u_phase_grams_global{,_f64,_bf16}.cu the global one, a source a data
+// type (u_phase_common.cuh), each with its own C entry points, so they
+// compile in parallel.
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
 // :: _u_phase_grams_kernel (called through u_phase_grams_packed and
@@ -133,20 +134,21 @@ using dm::kRedThreads;
 using dm::kSites;
 using dm::RegVec;
 
-// The n_steps FISTA loop of the direct form. Resident layout: dres (the
-// known-block residual) and d of this thread's site in shared rows
-// (res, d; stride kLd). Wide: y and d read from the data rows (stride
-// ld) and dres rebuilt each step (the same arithmetic as the resident
-// layout's one build). beta_tab is the launch's momentum table, read one
-// step ahead; ut, gr are step temporaries.
-template <typename T, int NU, bool LAG, bool WIDE, int RND, typename TY,
-          class VU, class VT>
+// The n_steps FISTA loop of the direct form. Resident and global layouts:
+// dres (the known-block residual) of this thread's site in shared rows
+// (res, stride kLd), d from its rows (stride ld: staged, or the data
+// itself). REBUILD (the wide layout): y and d read from the data rows and
+// dres rebuilt each step (the same arithmetic as the one build of the
+// rows). beta_tab is the launch's momentum table, read one step ahead;
+// ut, gr are step temporaries.
+template <typename T, int NU, bool LAG, bool REBUILD, int RND, typename TY,
+          class VU, class VT, typename RT>
 __device__ __forceinline__ void direct_steps(
         VU& u, VU& up, VT& ut, VT& gr, int n_u, const T* __restrict__ a1,
         const T* __restrict__ a2, const T* __restrict__ res,
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
-        const T* __restrict__ rt, int n_s, int n_ct,
-        const T* __restrict__ beta_tab, const T l_w, int n_steps) {
+        RT rt, int n_s, int n_ct, const T* __restrict__ beta_tab,
+        const T l_w, int n_steps) {
     const int nu = NU > 0 ? NU : n_u;
     T beta_next = beta_tab[0];
     for (int step = 0; step < n_steps; ++step) {
@@ -163,13 +165,13 @@ __device__ __forceinline__ void direct_steps(
             for (int w = 0; w < nu; ++w)
                 model += a2[w * n_s + s] * (LAG ? u[w] : ut[w]);
             T r;
-            if constexpr (WIDE) {
+            if constexpr (REBUILD) {
                 const T dv = dm::to_state(d[s * ld]);
                 r = dm::known_resid<RND>(dm::to_state(y[s * ld]), dv, rt, a1,
                                          s, n_s, n_ct)
                     - dv * model;
             } else {
-                r = res[s * kLd] - d[s * ld] * model;
+                r = res[s * kLd] - dm::to_state(d[s * ld]) * model;
             }
 #pragma unroll
             for (int v = 0; v < nu; ++v) gr[v] += a2[v * n_s + s] * r;
@@ -196,18 +198,25 @@ __device__ __forceinline__ void direct_steps(
 // in one load and the gradient four samples' alphas of an unknown (a
 // step reads each alpha twice, and these broadcast loads were most of
 // its shared-memory traffic); in the wide and global layouts a2 is the
-// (n_u, n_s) block in device memory, read one value at a time.
-template <typename T, bool LAG, bool WIDE, int RND, typename TY>
+// (n_u, n_s) block in device memory, read one value at a time. SRC says
+// where the residual comes from: kSrcTable (resident: the residual rows
+// res and the alpha table), kSrcRebuild (wide: rebuilt each step from the
+// data rows, as direct_steps), kSrcGlobal (global: the residual rows where
+// the plan keeps them, res not null, else rebuilt).
+constexpr int kSrcTable = 0, kSrcRebuild = 1, kSrcGlobal = 2;
+
+template <typename T, bool LAG, int SRC, int RND, typename TY, typename RT>
 __device__ __forceinline__ int2 direct_steps_rows(
         T* __restrict__ st, int nu, const T* __restrict__ a1,
         const T* __restrict__ a2, const T* __restrict__ res,
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
-        const T* __restrict__ rt, int n_s, int n_ct,
-        const T* __restrict__ beta_tab, const T l_w, int n_steps) {
+        RT rt, int n_s, int n_ct, const T* __restrict__ beta_tab,
+        const T l_w, int n_steps) {
     using dm::kTile;
     static_assert(kTile == 4, "the alpha table is read four values a load");
+    constexpr bool TABLE = SRC == kSrcTable;
     const int ch = dm::direct_chunk(n_s);
-    const int lda = WIDE ? n_s : dm::pad4(n_s);
+    const int lda = TABLE ? dm::pad4(n_s) : n_s;
     T* rr = st + 2 * nu * kLd;              // residuals of the chunk
     T* gg = rr + ch * kLd;                  // gradient, past one chunk
     int a = 0;                              // u in vector a, u_prev in 1 - a
@@ -229,7 +238,7 @@ __device__ __forceinline__ int2 direct_steps_rows(
                 T model[kTile];
 #pragma unroll
                 for (int j = 0; j < kTile; ++j) model[j] = T(0);
-                if constexpr (WIDE) {
+                if constexpr (!TABLE) {
                     int sj[kTile];
 #pragma unroll
                     for (int j = 0; j < kTile; ++j)
@@ -255,15 +264,21 @@ __device__ __forceinline__ int2 direct_steps_rows(
                 for (int j = 0; j < kTile; ++j) {
                     if (s0 + j < n_c) {
                         const int s = c0 + s0 + j;
+                        const T dv = dm::to_state(d[s * ld]);
                         T r;
-                        if constexpr (WIDE) {
-                            const T dv = dm::to_state(d[s * ld]);
+                        if constexpr (SRC == kSrcTable)
+                            r = res[s * kLd] - dv * model[j];
+                        else if constexpr (SRC == kSrcRebuild)
                             r = dm::known_resid<RND>(dm::to_state(y[s * ld]),
                                                      dv, rt, a1, s, n_s, n_ct)
                                 - dv * model[j];
-                        } else {
-                            r = res[s * kLd] - d[s * ld] * model[j];
-                        }
+                        else if (res != nullptr)
+                            r = res[s * kLd] - dv * model[j];
+                        else
+                            r = dm::known_resid_at<RND>(
+                                    dm::to_state(y[s * ld]), dv, rt, a1, s,
+                                    n_s, n_ct)
+                                - dv * model[j];
                         rr[(s0 + j) * kLd] = r;
                     }
                 }
@@ -277,7 +292,7 @@ __device__ __forceinline__ int2 direct_steps_rows(
                     gr[j] = first ? T(0) : gg[vj[j] * kLd];
                 }
                 const T* a2c = a2 + c0;
-                if constexpr (WIDE) {
+                if constexpr (!TABLE) {
                     for (int s = 0; s < n_c; ++s) {
                         const T r = rr[s * kLd];
 #pragma unroll
@@ -322,23 +337,28 @@ __device__ __forceinline__ int2 direct_steps_rows(
 }
 
 // One site's U phase in the n_u > 8 form on its column st of the state
-// region: the known-block residual rows (resident direct form), u and
-// u_prev loaded from the state rows uu (stride n), the C/M build and the
-// gram steps, or the direct steps. Returns the u vectors holding u and
-// u_prev.
-template <typename T, bool DIRECT, int RND, bool WIDE, typename TY>
-__device__ __forceinline__ int2 site_phase_rows(
+// region: the known-block residual rows (the resident direct form, and
+// the global one where res is not null), u and u_prev loaded from the
+// state rows uu (stride n), the C/M build and the gram steps, or the
+// direct steps (SRC as direct_steps_rows). Returns the u vectors holding
+// u and u_prev.
+template <typename T, bool DIRECT, int RND, int SRC, typename TY,
+          typename RT>
+__device__ __forceinline__ int2 site_phase_rows_at(
         T* __restrict__ st, int nu, const T* __restrict__ uu, int64_t n,
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
-        const T* __restrict__ rt, const T* __restrict__ a1,
-        const T* __restrict__ a2, T* __restrict__ res, int n_s, int n_ct,
-        const T* __restrict__ tab, T l_w, int n_steps, bool lagged) {
+        RT rt, const T* __restrict__ a1, const T* __restrict__ a2,
+        T* __restrict__ res, int n_s, int n_ct, const T* __restrict__ tab,
+        T l_w, int n_steps, bool lagged) {
     if constexpr (!DIRECT)
-        dm::build_cm_rows<T, RND>(st, nu, y, d, ld, rt, a1, a2, n_s, n_ct);
-    else if constexpr (!WIDE)
-        for (int s = 0; s < n_s; ++s)
-            res[s * kLd] = dm::known_resid<RND>(y[s * ld], d[s * ld], rt, a1,
-                                                s, n_s, n_ct);
+        dm::build_cm_rows_at<T, RND>(st, nu, y, d, ld, rt, a1, a2, n_s,
+                                     n_ct);
+    else if constexpr (SRC == kSrcTable)
+        dm::resid_rows<RND>(res, y, d, ld, rt, a1, n_s, n_ct);
+    else if constexpr (SRC == kSrcGlobal) {
+        if (res != nullptr)
+            dm::resid_rows<RND>(res, y, d, ld, rt, a1, n_s, n_ct);
+    }
     for (int v = 0; v < 2 * nu; ++v) st[v * kLd] = uu[v * n];
     if constexpr (!DIRECT)
         return lagged ? dm::gram_steps_rows<T, true>(st, nu, tab, l_w,
@@ -346,28 +366,43 @@ __device__ __forceinline__ int2 site_phase_rows(
                       : dm::gram_steps_rows<T, false>(st, nu, tab, l_w,
                                                       n_steps);
     else
-        return lagged ? direct_steps_rows<T, true, WIDE, RND>(
+        return lagged ? direct_steps_rows<T, true, SRC, RND>(
                             st, nu, a1, a2, res, y, d, ld, rt, n_s, n_ct,
                             tab, l_w, n_steps)
-                      : direct_steps_rows<T, false, WIDE, RND>(
+                      : direct_steps_rows<T, false, SRC, RND>(
                             st, nu, a1, a2, res, y, d, ld, rt, n_s, n_ct,
                             tab, l_w, n_steps);
 }
 
-// One site's whole U phase on its state vectors u, up (registers) with
-// the temporaries cc, m, t1, t2: the C/M build and the gram steps, or the
-// direct steps (t1, t2: ut, gr).
-template <typename T, int NU, bool DIRECT, int RND, bool WIDE, typename TY,
-          class VU, class VC, class VM>
-__device__ __forceinline__ void site_phase(
-        VU& u, VU& up, VC& cc, VM& m, VC& t1, VC& t2, int n_u,
+// site_phase_rows_at on a staged Rt column (the staged layouts' form:
+// u_phase_common.cuh, known_resid's note)
+template <typename T, bool DIRECT, int RND, int SRC, typename TY>
+__device__ __forceinline__ int2 site_phase_rows(
+        T* __restrict__ st, int nu, const T* __restrict__ uu, int64_t n,
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
         const T* __restrict__ rt, const T* __restrict__ a1,
         const T* __restrict__ a2, T* __restrict__ res, int n_s, int n_ct,
         const T* __restrict__ tab, T l_w, int n_steps, bool lagged) {
+    return site_phase_rows_at<T, DIRECT, RND, SRC>(
+        st, nu, uu, n, y, d, ld, rt, a1, a2, res, n_s, n_ct, tab, l_w,
+        n_steps, lagged);
+}
+
+// One site's whole U phase on its state vectors u, up (registers) with
+// the temporaries cc, m, t1, t2: the C/M build and the gram steps, or the
+// direct steps (t1, t2: ut, gr) on the residual rows res, or with REBUILD
+// rebuilding the residual each step.
+template <typename T, int NU, bool DIRECT, int RND, bool REBUILD,
+          typename TY, class VU, class VC, class VM, typename RT>
+__device__ __forceinline__ void site_phase_at(
+        VU& u, VU& up, VC& cc, VM& m, VC& t1, VC& t2, int n_u,
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        RT rt, const T* __restrict__ a1, const T* __restrict__ a2,
+        T* __restrict__ res, int n_s, int n_ct, const T* __restrict__ tab,
+        T l_w, int n_steps, bool lagged) {
     if constexpr (!DIRECT) {
-        dm::build_cm<T, NU, RND>(cc, m, t1, n_u, y, d, ld, rt, a1, a2, n_s,
-                                 n_ct);
+        dm::build_cm_at<T, NU, RND>(cc, m, t1, n_u, y, d, ld, rt, a1, a2,
+                                    n_s, n_ct);
         if (lagged)
             dm::gram_steps<T, NU, true>(u, up, cc, m, t1, t2, n_u, tab,
                                         l_w, n_steps);
@@ -375,28 +410,140 @@ __device__ __forceinline__ void site_phase(
             dm::gram_steps<T, NU, false>(u, up, cc, m, t1, t2, n_u, tab,
                                          l_w, n_steps);
     } else {
-        if constexpr (!WIDE) {
-            // the known-block residual, kept in shared memory
-            for (int s = 0; s < n_s; ++s)
-                res[s * kLd] = dm::known_resid<RND>(y[s * ld], d[s * ld], rt,
-                                                    a1, s, n_s, n_ct);
-        }
+        // the known-block residual, kept in shared memory
+        if constexpr (!REBUILD)
+            dm::resid_rows<RND>(res, y, d, ld, rt, a1, n_s, n_ct);
         if (lagged)
-            direct_steps<T, NU, true, WIDE, RND>(u, up, t1, t2, n_u, a1, a2,
-                                                 res, y, d, ld, rt, n_s,
-                                                 n_ct, tab, l_w, n_steps);
+            direct_steps<T, NU, true, REBUILD, RND>(u, up, t1, t2, n_u, a1,
+                                                    a2, res, y, d, ld, rt,
+                                                    n_s, n_ct, tab, l_w,
+                                                    n_steps);
         else
-            direct_steps<T, NU, false, WIDE, RND>(u, up, t1, t2, n_u, a1, a2,
-                                                  res, y, d, ld, rt, n_s,
-                                                  n_ct, tab, l_w, n_steps);
+            direct_steps<T, NU, false, REBUILD, RND>(u, up, t1, t2, n_u, a1,
+                                                     a2, res, y, d, ld, rt,
+                                                     n_s, n_ct, tab, l_w,
+                                                     n_steps);
     }
 }
 
-// The global layout's rows per block in its device buffer: [Rt | u] and,
-// under kRoundAll, the n_u rows of the raw u (kLd values each)
-__host__ __device__ __forceinline__ int global_rows(int n_ct, int n_u,
-                                                    int rnd) {
-    return n_ct + n_u + (rnd == dm::kRoundAll ? n_u : 0);
+// site_phase_at on a staged Rt column (the staged layouts' form:
+// u_phase_common.cuh, known_resid's note)
+template <typename T, int NU, bool DIRECT, int RND, bool REBUILD,
+          typename TY, class VU, class VC, class VM>
+__device__ __forceinline__ void site_phase(
+        VU& u, VU& up, VC& cc, VM& m, VC& t1, VC& t2, int n_u,
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        const T* __restrict__ rt, const T* __restrict__ a1,
+        const T* __restrict__ a2, T* __restrict__ res, int n_s, int n_ct,
+        const T* __restrict__ tab, T l_w, int n_steps, bool lagged) {
+    site_phase_at<T, NU, DIRECT, RND, REBUILD>(u, up, cc, m, t1, t2, n_u, y,
+                                               d, ld, rt, a1, a2, res, n_s,
+                                               n_ct, tab, l_w, n_steps,
+                                               lagged);
+}
+
+// The global layout's main pass (u_phase_common.cuh, global_plan): the
+// steps read Y, D and this site's Rt column where they lie in device
+// memory (Rt through a DevRows), with the n_u > 8 form's state region at
+// the bottom of shared memory (or in this block's part of the state
+// buffer, kGlobalState) and the direct form's residual rows past it; the
+// new u goes to the u rows at the top, then the Gram stage streams Y, D
+// and Rt through the bottom rows (gram_partials_ring).
+template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
+__device__ __forceinline__ void global_pass(
+        const TD* __restrict__ ydt, const TD* __restrict__ rtt,
+        const T* __restrict__ a1, const T* __restrict__ a2,
+        T* __restrict__ uut, const T* __restrict__ scal,
+        const T* __restrict__ tab, T* __restrict__ partials,
+        T* __restrict__ state, int64_t n, int n_s, int n_ct, int n_u,
+        int n_steps, int n_blocks, int lagged) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* smem = reinterpret_cast<T*>(smem_raw);
+    const int nu = NU > 0 ? NU : n_u;
+    constexpr bool RAW = RND == dm::kRoundAll;     // raw u rows for usq
+    const int um = RAW ? 2 * nu : nu;
+    const dm::GlobalPlan g = dm::global_plan(sizeof(T), n_s, n_ct, nu, DIRECT,
+                                             um, 1);
+    T* s_u = smem + (g.rows - um) * kLd;   // u (bf16(u) under kRoundAll)
+    T* s_x = s_u + nu * kLd;               // kRoundAll: the raw u
+    const int tid = threadIdx.x;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kSites + tid;
+    const bool live = i < n;
+    const TD* y = ydt + i;
+    const TD* d = ydt + static_cast<int64_t>(n_s) * n + i;
+    const dm::DevRows<TD> rt{rtt + i, n};
+    const T l_w = scal[dm::kLW];
+    T* u_rows = s_u + tid;
+    // the register forms (but bf16_compute's gram form, whose C sums no
+    // known products): the known sums into the bottom n_s rows first, a1
+    // through the rows above them (every thread, between barriers)
+    constexpr bool KROWS = NU > 0 && RND != dm::kRoundAll;
+    if (KROWS && g.kc > 0)
+        dm::known_rows(smem + tid, smem + n_s * kLd, a1, rt, live, n_s, n_ct,
+                       g.kc, tid);
+    auto put = [&](int v, T uv) {
+        if constexpr (RAW) {
+            u_rows[v * kLd] = dm::bf16r(uv);
+            s_x[v * kLd + tid] = uv;
+        } else {
+            u_rows[v * kLd] = uv;
+        }
+    };
+    if (live) {
+        if constexpr (NU > 0) {
+            RegVec<T, NU> u, up, cc, t1, t2;
+            RegVec<T, NU * (NU + 1) / 2> m;
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                u[v] = uut[v * n + i];
+                up[v] = uut[(NU + v) * n + i];
+            }
+            // the direct form's residual rows: the bottom n_s rows (where
+            // known_rows left the known sums)
+            auto phase = [&](auto known) {
+                site_phase_at<T, NU, DIRECT, RND, false>(
+                    u, up, cc, m, t1, t2, n_u, y, d, n, known, a1, a2,
+                    smem + tid, n_s, n_ct, tab, l_w, n_steps, lagged);
+            };
+            if constexpr (KROWS) {
+                if (g.kc > 0)
+                    phase(dm::KnownCol<T>{smem + tid});
+                else
+                    phase(rt);
+            } else {
+                phase(rt);
+            }
+#pragma unroll
+            for (int v = 0; v < NU; ++v) {
+                uut[v * n + i] = u[v];
+                uut[(NU + v) * n + i] = up[v];
+                put(v, u[v]);
+            }
+        } else {
+            const int sr = dm::state_rows(n_s, nu, DIRECT);
+            T* st = (LAYOUT == dm::kGlobalState
+                         ? state + static_cast<int64_t>(blockIdx.x) * sr * kLd
+                         : smem) + tid;
+            T* res = DIRECT && g.res ? smem + sr * kLd + tid : nullptr;
+            const int2 slot = site_phase_rows_at<T, DIRECT, RND, kSrcGlobal>(
+                st, nu, uut + i, n, y, d, n, rt, a1, a2, res, n_s, n_ct, tab,
+                l_w, n_steps, lagged);
+            const T* u = st + slot.x * nu * kLd;
+            const T* up = st + slot.y * nu * kLd;
+            for (int v = 0; v < nu; ++v) {
+                const T uv = u[v * kLd];
+                uut[v * n + i] = uv;
+                uut[(nu + v) * n + i] = up[v * kLd];
+                put(v, uv);
+            }
+        }
+    } else {
+#pragma unroll
+        for (int v = 0; v < nu; ++v) put(v, T(0));
+    }
+    dm::gram_partials_ring<T, TD, NU, RND>(smem, g, s_u, s_x, ydt, rtt, i,
+                                           live, n, n_s, n_ct, nu, tid,
+                                           partials + blockIdx.x, n_blocks);
 }
 
 // The main pass's body; u_phase_grams_kernel and, for the n_u > 8 gram
@@ -407,10 +554,15 @@ __device__ __forceinline__ void main_pass(
         const T* __restrict__ a1b, const T* __restrict__ a2b,
         T* __restrict__ uut, const T* __restrict__ scal,
         const T* __restrict__ tab, T* __restrict__ partials,
-        T* __restrict__ state, T* __restrict__ rowbuf, int64_t n, int n_s,
-        int n_ct, int n_u, int n_steps, int n_blocks, int lagged) {
-    constexpr bool WIDE = LAYOUT != dm::kResident;
-    constexpr bool GLOBAL = LAYOUT >= dm::kGlobal;
+        T* __restrict__ state, int64_t n, int n_s, int n_ct, int n_u,
+        int n_steps, int n_blocks, int lagged) {
+    if constexpr (LAYOUT >= dm::kGlobal) {
+        global_pass<T, TD, NU, DIRECT, RND, LAYOUT>(
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, state, n, n_s,
+            n_ct, n_u, n_steps, n_blocks, lagged);
+        return;
+    }
+    constexpr bool WIDE = LAYOUT == dm::kWide;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
@@ -422,13 +574,10 @@ __device__ __forceinline__ void main_pass(
     constexpr bool TABLE = NU == 0 && DIRECT && !WIDE;
     if constexpr (TABLE) s_y += nu * dm::pad4(n_s);
     T* s_d = s_y + rows * kLd;
-    // p rows: [Rt | u] (global: this block's region of rowbuf)
-    T* s_r = GLOBAL ? rowbuf + static_cast<int64_t>(blockIdx.x)
-                                   * global_rows(n_ct, nu, RND) * kLd
-                    : s_d + rows * kLd;
+    T* s_r = s_d + rows * kLd;                  // p rows: [Rt | u]
     // above n_u = 8 the wide layout's staged rows are its lead rows, which
     // the state region overlays
-    if constexpr (NU == 0 && WIDE && !GLOBAL)
+    if constexpr (NU == 0 && WIDE)
         s_r = s_y + dm::lead_rows(n_s, nu, DIRECT) * kLd;
     T* s_a1 = s_r + p * kLd;                    // resident: (n_ct, n_s)
     T* s_a2 = s_a1 + n_ct * n_s;                // resident: (nu, n_s)
@@ -461,15 +610,14 @@ __device__ __forceinline__ void main_pass(
         dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, 0, n_s, i,
                        live, n, tid);
     }
-    if constexpr (GLOBAL)
-        dm::copy_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
-    else
-        dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
+    dm::stage_rows(s_r, rtt, 0, n_ct, i, live, n, tid);
     dm::stage_wait();
     __syncthreads();
 
     const T l_w = scal[dm::kLW];
     T* u_rows = s_r + n_ct * kLd + tid;
+    // (this site's Rt column is passed as s_r + tid at each call: a local
+    // pointer that run captures cost the cohort's K1 7%, PERF.md)
     if (live) {
         auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
                        auto& t2) {
@@ -509,13 +657,9 @@ __device__ __forceinline__ void main_pass(
             }
         } else {
             // the state in this thread's column of the state region: after
-            // the resident layout's rows, over the lead rows, or in this
-            // block's part of the state buffer
+            // the resident layout's rows, or over the lead rows
             T* region;
-            if constexpr (LAYOUT == dm::kGlobalState)
-                region = state + static_cast<int64_t>(blockIdx.x)
-                                     * dm::state_rows(n_s, nu, DIRECT) * kLd;
-            else if constexpr (WIDE)
+            if constexpr (WIDE)
                 region = s_y;
             else
                 region = s_x + (DIRECT ? n_s
@@ -524,12 +668,12 @@ __device__ __forceinline__ void main_pass(
             T* st = region + tid;
             int2 slot;
             if constexpr (WIDE)
-                slot = site_phase_rows<T, DIRECT, RND, WIDE>(
+                slot = site_phase_rows<T, DIRECT, RND, kSrcRebuild>(
                     st, nu, uut + i, n, ydt + i,
                     ydt + static_cast<int64_t>(n_s) * n + i, n, s_r + tid,
                     a1, a2, s_x + tid, n_s, n_ct, tab, l_w, n_steps, lagged);
             else
-                slot = site_phase_rows<T, DIRECT, RND, WIDE>(
+                slot = site_phase_rows<T, DIRECT, RND, kSrcTable>(
                     st, nu, uut + i, n, s_y + tid, s_d + tid, int64_t(kLd),
                     s_r + tid, a1, a2, s_x + tid, n_s, n_ct, tab, l_w,
                     n_steps, lagged);
@@ -572,11 +716,11 @@ __device__ __forceinline__ void main_pass(
         const T *__restrict__ a1b, const T *__restrict__ a2b,               \
         T *__restrict__ uut, const T *__restrict__ scal,                    \
         const T *__restrict__ tab, T *__restrict__ partials,                \
-        T *__restrict__ state, T *__restrict__ rowbuf, int64_t n, int n_s,  \
-        int n_ct, int n_u, int n_steps, int n_blocks, int lagged
+        T *__restrict__ state, int64_t n, int n_s, int n_ct, int n_u,       \
+        int n_steps, int n_blocks, int lagged
 #define DM_K1_ARGS                                                          \
-    ydt, rtt, a1b, a2b, uut, scal, tab, partials, state, rowbuf, n, n_s,    \
-        n_ct, n_u, n_steps, n_blocks, lagged
+    ydt, rtt, a1b, a2b, uut, scal, tab, partials, state, n, n_s, n_ct, n_u, \
+        n_steps, n_blocks, lagged
 
 template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
 __global__ void __launch_bounds__(kSites) u_phase_grams_kernel(DM_K1_PARAMS) {
@@ -588,7 +732,7 @@ __global__ void __launch_bounds__(kSites) u_phase_grams_kernel(DM_K1_PARAMS) {
 // its occupancy, and telling ptxas so (a minimum of one block) lets it
 // keep more of the C/M build's and the Gram stage's values in registers:
 // on an H100 about 20% off K1 at n_u = 12 in float64, where the default
-// allocation gave it 96 registers (chip_smoke.time_state_forms, PERF.md).
+// allocation gave it 96 registers (chip_smoke.time_cases, table "state"; PERF.md).
 // The direct form keeps the default: its resident layout fits up to six
 // blocks, and the same attribute cost it 6% at n_u = 9. (K4's n_u > 8
 // form gained 1-2% from it, and splitting K4's kernel moved three of its
@@ -605,19 +749,16 @@ u_phase_grams_state_kernel(DM_K1_PARAMS) {
 // shared memory of the main pass; itemsize is the state's (the staged
 // data rows are of the state type whatever the data's). Above n_u = 8 the
 // state region adds its rows: after the resident layout's, over the lead
-// rows of the wide and global layouts; where the global layout's lead rows
-// pass the card's limit, the region moves to device memory and shared
-// memory holds one chunk of Y and D (kGlobalState).
+// rows of the wide layout; the global layout's rows are global_plan's.
 size_t smem_bytes(int layout, size_t itemsize, int n_s, int n_ct, int n_u,
                   bool direct, int rnd) {
     const size_t p = static_cast<size_t>(n_ct + n_u);
     const size_t x_rows = rnd == dm::kRoundAll ? n_u : 0;
-    const size_t lead = dm::lead_rows(n_s, n_u, direct);
     if (layout >= dm::kGlobal)
-        return itemsize
-               * (dm::state_in_device(itemsize, n_s, n_u, direct)
-                      ? 2 * dm::chunk_rows(n_s) : lead)
-               * kLd;
+        return itemsize * kLd
+               * dm::global_plan(itemsize, n_s, n_ct, n_u, direct,
+                                 n_u + static_cast<int>(x_rows), 1).rows;
+    const size_t lead = dm::lead_rows(n_s, n_u, direct);
     if (layout == dm::kWide)
         return itemsize * ((lead + p + x_rows) * kLd);
     const size_t rows = 2 * static_cast<size_t>(n_s) + p
@@ -635,15 +776,14 @@ size_t smem_bytes(int layout, size_t itemsize, int n_s, int n_ct, int n_u,
 template <typename T, typename TD, int NU, bool DIRECT, int RND, int LAYOUT>
 int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
            void* uut, void* scal, void* tab, void* partials, void* out,
-           void* state, void* rowbuf, int64_t n, int n_s, int n_ct,
-           int n_u, int n_steps, int lagged, cudaStream_t stream) {
+           void* state, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
+           int lagged, cudaStream_t stream) {
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     const int n_entries = dm::gram_entries(n_s, n_ct, n_u);
     int err0 = dm::launch_momentum_table<T, false>(
         static_cast<T*>(scal), 0, 1, static_cast<T*>(tab), n_steps, stream);
     if (err0 != 0) return err0;
-    if ((LAYOUT >= dm::kGlobal && rowbuf == nullptr)
-        || (LAYOUT == dm::kGlobalState && state == nullptr))
+    if (LAYOUT == dm::kGlobalState && state == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = smem_bytes(LAYOUT, sizeof(T), n_s, n_ct, n_u, DIRECT,
                                    RND);
@@ -665,8 +805,8 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
         static_cast<const T*>(a1b), static_cast<const T*>(a2b),
         static_cast<T*>(uut), static_cast<const T*>(scal),
         static_cast<const T*>(tab), static_cast<T*>(partials),
-        static_cast<T*>(state), static_cast<T*>(rowbuf), n, n_s, n_ct,
-        n_u, n_steps, n_blocks, lagged);
+        static_cast<T*>(state), n, n_s, n_ct, n_u, n_steps, n_blocks,
+        lagged);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     dm::reduce_partials_kernel<T><<<n_entries, kRedThreads, 0, stream>>>(
@@ -679,14 +819,14 @@ int launch(const void* ydt, const void* rtt, const void* a1b, const void* a2b,
 template <typename T, typename TD, bool DIRECT, int RND, int LAYOUT>
 int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 const void* a2b, void* uut, void* scal, void* tab,
-                void* partials, void* out, void* state, void* rowbuf,
-                int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-                int lagged, cudaStream_t st) {
+                void* partials, void* out, void* state, int64_t n, int n_s,
+                int n_ct, int n_u, int n_steps, int lagged,
+                cudaStream_t st) {
 #define DM_K1_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, DIRECT, RND, LAYOUT>(                      \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,     \
-            rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,    \
+            n_s, n_ct, n_u, n_steps, lagged, st);
     switch (n_u) {
         DM_K1_CASE(2) DM_K1_CASE(3) DM_K1_CASE(4) DM_K1_CASE(5)
         DM_K1_CASE(6) DM_K1_CASE(7) DM_K1_CASE(8)
@@ -695,7 +835,7 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
             if constexpr (!DIRECT)
                 return launch<T, TD, 1, false, RND, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                    state, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return static_cast<int>(cudaErrorInvalidValue);
         default:
             // n_u > 8: the state region in shared memory, or (global
@@ -705,12 +845,11 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 if (dm::state_in_device(sizeof(T), n_s, n_u, DIRECT))
                     return launch<T, TD, 0, DIRECT, RND, dm::kGlobalState>(
                         ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                        state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged,
-                        st);
+                        state, n, n_s, n_ct, n_u, n_steps, lagged, st);
             }
             return launch<T, TD, 0, DIRECT, RND, LAYOUT>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
-                rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,
+                n_s, n_ct, n_u, n_steps, lagged, st);
     }
 #undef DM_K1_CASE
 }
@@ -720,28 +859,28 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
 template <typename T, typename TD, int LAYOUT>
 int dispatch(const void* ydt, const void* rtt, const void* a1b,
              const void* a2b, void* uut, void* scal, void* tab,
-             void* partials, void* out, void* state, void* rowbuf,
-             int64_t n, int n_s, int n_ct, int n_u, int n_steps, int lagged,
-             int direct, int bf16c, void* stream) {
+             void* partials, void* out, void* state, int64_t n, int n_s,
+             int n_ct, int n_u, int n_steps, int lagged, int direct,
+             int bf16c, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (std::is_same<TD, __nv_bfloat16>::value) {
         if (bf16c) {
             if (direct)
                 return dispatch_nu<T, TD, true, dm::kRoundDy, LAYOUT>(
                     ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-                    state, rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                    state, n, n_s, n_ct, n_u, n_steps, lagged, st);
             return dispatch_nu<T, TD, false, dm::kRoundAll, LAYOUT>(
-                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
-                rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+                ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,
+                n_s, n_ct, n_u, n_steps, lagged, st);
         }
     }
     if (direct)
         return dispatch_nu<T, TD, true, dm::kRoundNone, LAYOUT>(
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,
-            rowbuf, n, n_s, n_ct, n_u, n_steps, lagged, st);
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,
+            n_s, n_ct, n_u, n_steps, lagged, st);
     return dispatch_nu<T, TD, false, dm::kRoundNone, LAYOUT>(
-        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, rowbuf,
-        n, n_s, n_ct, n_u, n_steps, lagged, st);
+        ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n, n_s,
+        n_ct, n_u, n_steps, lagged, st);
 }
 
 }  // namespace
@@ -752,52 +891,56 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //     shared memory in bytes (itemsize is the state's), which the wrapper
 //     checks against the card's limit before launching;
 //   PREFIX_{f32,f64}(ydt, rtt, a1b, a2b, uut, scal, tab, partials, out,
-//     state, rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream):
-//     tab is room for the momentum table, n_steps + 1 values of the state
-//     type; rows the global layout's buffer, n_blocks x
-//     dm_u_phase_grams_global_rows(...) x 129 values of the state type
-//     (read by that layout only); state the n_u > 8 form's state regions
-//     where they live in device memory (the global layout where
-//     dm_state_in_device says so; NULL otherwise), n_blocks x
-//     dm_state_rows(...) x 129 values of the state type;
+//     state, n, n_s, n_ct, n_u, n_steps, lagged, direct, stream): tab is
+//     room for the momentum table, n_steps + 1 values of the state type;
+//     state the n_u > 8 form's state regions where they live in device
+//     memory (the global layout where dm_state_in_device says so; NULL
+//     otherwise), n_blocks x dm_state_rows(...) x 129 values of the state
+//     type;
 //   PREFIX_bf16(..., direct, bf16c, stream): bf16 data with a float32
 //     state; bf16c the bf16_compute form.
-#define DM_K1_EXPORTS(PREFIX, LAYOUT)                                        \
-    extern "C" {                                                             \
-    long long PREFIX##_smem(int itemsize, int n_s, int n_ct, int n_u,        \
-                            int direct, int bf16c) {                         \
+#define DM_K1_SMEM_EXPORT(PREFIX, LAYOUT)                                    \
+    extern "C" long long PREFIX##_smem(int itemsize, int n_s, int n_ct,      \
+                                       int n_u, int direct, int bf16c) {     \
         const int rnd = !bf16c ? dm::kRoundNone                              \
                                : (direct ? dm::kRoundDy : dm::kRoundAll);    \
         return static_cast<long long>(smem_bytes(LAYOUT, itemsize, n_s,      \
                                                  n_ct, n_u, direct != 0,     \
                                                  rnd));                      \
-    }                                                                        \
-    int PREFIX##_f32(const void* ydt, const void* rtt, const void* a1b,      \
-                     const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* state, void* rows,   \
-                     long long n, int n_s, int n_ct, int n_u, int n_steps,   \
-                     int lagged, int direct, void* stream) {                 \
-        return dispatch<float, float, LAYOUT>(                               \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
-            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
-    }                                                                        \
-    int PREFIX##_f64(const void* ydt, const void* rtt, const void* a1b,      \
-                     const void* a2b, void* uut, void* scal, void* tab,      \
-                     void* partials, void* out, void* state, void* rows,   \
-                     long long n, int n_s, int n_ct, int n_u, int n_steps,   \
-                     int lagged, int direct, void* stream) {                 \
-        return dispatch<double, double, LAYOUT>(                             \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
-            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);    \
-    }                                                                        \
-    int PREFIX##_bf16(const void* ydt, const void* rtt, const void* a1b,     \
-                      const void* a2b, void* uut, void* scal, void* tab,     \
-                      void* partials, void* out, void* state, void* rows,  \
-                      long long n, int n_s, int n_ct, int n_u, int n_steps,  \
-                      int lagged, int direct, int bf16c, void* stream) {     \
-        return dispatch<float, __nv_bfloat16, LAYOUT>(                       \
-            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state,      \
-            rows, n, n_s, n_ct, n_u, n_steps, lagged, direct, bf16c,         \
-            stream);                                                         \
-    }                                                                        \
     }
+#define DM_K1_F32_EXPORT(PREFIX, LAYOUT)                                     \
+    extern "C" int PREFIX##_f32(                                             \
+        const void* ydt, const void* rtt, const void* a1b, const void* a2b,  \
+        void* uut, void* scal, void* tab, void* partials, void* out,         \
+        void* state, long long n, int n_s, int n_ct, int n_u, int n_steps,   \
+        int lagged, int direct, void* stream) {                              \
+        return dispatch<float, float, LAYOUT>(                               \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,     \
+            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
+    }
+#define DM_K1_F64_EXPORT(PREFIX, LAYOUT)                                     \
+    extern "C" int PREFIX##_f64(                                             \
+        const void* ydt, const void* rtt, const void* a1b, const void* a2b,  \
+        void* uut, void* scal, void* tab, void* partials, void* out,         \
+        void* state, long long n, int n_s, int n_ct, int n_u, int n_steps,   \
+        int lagged, int direct, void* stream) {                              \
+        return dispatch<double, double, LAYOUT>(                             \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,     \
+            n_s, n_ct, n_u, n_steps, lagged, direct, 0, stream);             \
+    }
+#define DM_K1_BF16_EXPORT(PREFIX, LAYOUT)                                    \
+    extern "C" int PREFIX##_bf16(                                            \
+        const void* ydt, const void* rtt, const void* a1b, const void* a2b,  \
+        void* uut, void* scal, void* tab, void* partials, void* out,         \
+        void* state, long long n, int n_s, int n_ct, int n_u, int n_steps,   \
+        int lagged, int direct, int bf16c, void* stream) {                   \
+        return dispatch<float, __nv_bfloat16, LAYOUT>(                       \
+            ydt, rtt, a1b, a2b, uut, scal, tab, partials, out, state, n,     \
+            n_s, n_ct, n_u, n_steps, lagged, direct, bf16c, stream);         \
+    }
+// all of one layout's entry points in one source
+#define DM_K1_EXPORTS(PREFIX, LAYOUT)                                        \
+    DM_K1_SMEM_EXPORT(PREFIX, LAYOUT)                                        \
+    DM_K1_F32_EXPORT(PREFIX, LAYOUT)                                         \
+    DM_K1_F64_EXPORT(PREFIX, LAYOUT)                                         \
+    DM_K1_BF16_EXPORT(PREFIX, LAYOUT)

@@ -22,12 +22,6 @@ int dm_k4_member_plan(int itemsize, int n_s, int n_ct, int n_u, int n_b,
     return 0;
 }
 
-// Rows per block of the global layout's device buffer (129 values each)
-// for a group of `group` members
-long long dm_k4_global_rows(int n_ct, int n_u, int weighted, int group) {
-    return dm::k4_global_rows(n_ct, n_u, weighted != 0, group);
-}
-
 // out: tiled, ts, tl, tq, tp, tb, n_x, n_self, n_bu, n_usq, o_self, o_bu,
 // o_usq, n_items
 int dm_k4_gram_plan(int n_c, int n_ct, int n_u, int gm, int usq, int* out) {

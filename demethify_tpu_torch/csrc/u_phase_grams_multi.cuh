@@ -2,9 +2,11 @@
 // for Hopper. This header holds the kernel and its launch, templated on
 // the shared-memory layout (u_phase_common.cuh): u_phase_grams_multi.cu
 // builds the resident layout, u_phase_grams_multi_wide.cu the wide one
-// and u_phase_grams_multi_global.cu the global one (Rt and the group's u
-// rows in a per-block region of a device buffer; groups of at most
-// kGlobalGroup members).
+// and u_phase_grams_multi_global{,_f64,_bf16}.cu the global one, a source
+// a data type (K1's: Y, D and Rt
+// read where they lie during the steps, the group's u rows at the top of
+// shared memory, Rt streamed through a ring for the Gram stage,
+// group_grams_ring; global_plan sizes it).
 //
 // Replaces the Pallas kernel demethify_tpu/ops/pallas_kernels.py
 // :: _u_phase_grams_multi_kernel (called through u_phase_grams_multi).
@@ -126,34 +128,21 @@ constexpr int kGroupBlocks = 4;     // blocks per SM a member group keeps
 // self tile, left rows per b_u tile
 constexpr int kGS = 2, kGL = 2, kGP = 4, kGB = 4;
 
-// members per group in the global layout, whose rows live in device
-// memory (the group's size changes no bit: each member's sums are its own)
-constexpr int kGlobalGroup = 8;
-
-// rows (kLd values each) of a block's region of the global layout's
-// device buffer: Rt, then the group's u rows and, weighted, their w u rows
-__host__ __device__ __forceinline__ long long k4_global_rows(
-        int n_ct, int n_u, bool weighted, int group) {
-    return n_ct + static_cast<long long>(group) * n_u * (weighted ? 2 : 1);
-}
-
 // shared memory of a group of `group` members (group = 1: the one-member
 // bytes the layout rule reads, the *_smem export); layout kResident,
-// kWide or kGlobal (the lead rows alone). Above n_u = 8 the members' state
-// region (state_rows of the gram form: one region a block, each member's
-// loop reusing it) adds its rows: after the resident layout's, over the
-// lead rows of the wide and global layouts; where the global layout's
-// lead rows pass the card's limit, the region lives in device memory
-// (kGlobalState) and shared memory holds one chunk of Y and D.
+// kWide or kGlobal (global_plan's rows for the group). Above n_u = 8 the
+// members' state region (state_rows of the gram form: one region a
+// block, each member's loop reusing it) adds its rows: after the resident
+// layout's, over the lead rows of the wide layout, at the bottom of the
+// global layout's (in device memory where state_in_device).
 __host__ __device__ __forceinline__ long long k4_smem(
         int layout, long long itemsize, int n_s, int n_ct, int n_u,
         bool weighted, int group) {
-    const long long lead = lead_rows(n_s, n_u, false);
     if (layout >= kGlobal)
-        return itemsize
-               * (state_in_device(itemsize, n_s, n_u, false)
-                      ? 2 * chunk_rows(n_s) : lead)
-               * kLd;
+        return itemsize * kLd
+               * global_plan(itemsize, n_s, n_ct, n_u, false,
+                             n_u * (weighted ? 2 : 1), group).rows;
+    const long long lead = lead_rows(n_s, n_u, false);
     const bool wide = layout == kWide;
     const long long u_rows = static_cast<long long>(group) * n_u
                              * (weighted ? 2 : 1);
@@ -172,27 +161,36 @@ struct K4MemberPlan {
 
 // G, the group's shared memory and the blocks per SM it keeps: the
 // largest G <= n_b whose bytes leave min(kGroupBlocks, the one-member
-// layout's blocks per SM) blocks on an SM, at least 1; in the global
-// layout min(n_b, kGlobalGroup), whatever shared memory keeps
+// layout's blocks per SM) blocks on an SM, at least 1 (in the global
+// layout the ring's rows shrink as G grows, so every G is tried)
 __host__ __device__ __forceinline__ K4MemberPlan k4_member_plan(
         long long itemsize, int n_s, int n_ct, int n_u, int n_b,
         bool weighted, int layout) {
     K4MemberPlan g{};
     const long long one = k4_smem(layout, itemsize, n_s, n_ct, n_u,
                                   weighted, 1);
-    const long long base = k4_smem(layout, itemsize, n_s, n_ct, n_u,
-                                   weighted, 0);
     long long fit = kSmemPerSm / (one + kSmemReserve);
     fit = fit < 16 ? fit : 16;                     // 2048 threads an SM
     g.blocks = static_cast<int>(fit < kGroupBlocks ? fit : kGroupBlocks);
     if (g.blocks < 1) g.blocks = 1;
-    if (layout >= kGlobal) {
-        g.group = n_b < kGlobalGroup ? n_b : kGlobalGroup;
-        g.smem = one;
-        return g;
-    }
     long long budget = kSmemPerSm / g.blocks - kSmemReserve;
     budget = budget < kSmemBlock ? budget : kSmemBlock;
+    if (layout >= kGlobal) {
+        g.group = 1;
+        g.smem = one;
+        const long long um = itemsize * kLd * n_u * (weighted ? 2 : 1);
+        for (int gm = 2; gm <= n_b && gm * um <= budget; ++gm) {
+            const long long b = k4_smem(layout, itemsize, n_s, n_ct, n_u,
+                                        weighted, gm);
+            if (b <= budget) {
+                g.group = gm;
+                g.smem = b;
+            }
+        }
+        return g;
+    }
+    const long long base = k4_smem(layout, itemsize, n_s, n_ct, n_u,
+                                   weighted, 0);
     long long group = (budget - base) / (one - base);
     group = group < n_b ? group : n_b;
     g.group = static_cast<int>(group < 1 ? 1 : group);
@@ -267,6 +265,21 @@ __device__ __forceinline__ int clamp_hi(int x, int hi) {
     return x < hi ? x : hi;
 }
 
+// Member slot k's usq: sum over the block's sites, then the unknowns, of
+// x_v u_v (its left rows xk, its u rows uk)
+template <typename T, int NU>
+__device__ __forceinline__ T usq_tile(const T* __restrict__ xk,
+                                      const T* __restrict__ uk, int nu) {
+    if constexpr (NU > 0) nu = NU;
+    T acc = T(0);
+    for (int j = 0; j < kSites; ++j) {
+#pragma unroll
+        for (int v = 0; v < nu; ++v)
+            acc += xk[v * kLd + j] * uk[v * kLd + j];
+    }
+    return acc;
+}
+
 // One entry of member slot k in the entry form: l in [0, n_loc) of K1's
 // local order [gu (n_c, n_u, p) | b_u (n_u, n_c) | usq], summed over the
 // block's sites in site order with K1's products (gram_entry)
@@ -298,16 +311,225 @@ __device__ __forceinline__ void group_entry(
         e = n_s * nu * p + v * n_s + c0 + s;
         const T* ds = s_d + s * kLd;
         const T* ys = s_y + s * kLd;
-        const T* xv = xk + v * kLd;
-        for (int j = 0; j < kSites; ++j) acc += xv[j] * (ds[j] * ys[j]);
+        acc = dm::bu_sum<T, dm::kRoundNone>(ds, ys, xk + v * kLd);
     } else {
-        for (int j = 0; j < kSites; ++j) {
-#pragma unroll
-            for (int v = 0; v < nu; ++v)
-                acc += xk[v * kLd + j] * uk[v * kLd + j];
-        }
+        acc = usq_tile<T, NU>(xk, uk, nu);
     }
     out[static_cast<int64_t>(k) * n_entries + e] = acc;
+}
+
+// The group Gram stages' tiles, over the block's sites in site order with
+// K1's products, each entry summed from 0 in a register:
+// cross: acc[a][b][c] = sum_j (d_a x_b) r_c (rows ds, xl, rq);
+// self: acc[a][e] = sum_j (d_a x_e) r_e (pairs e of a left and a right u
+// row); b_u: acc[a][b] = sum_j x_b (d_a y_a).
+template <typename T>
+__device__ __forceinline__ void cross_tile(
+        const T* const (&ds)[kGS], const T* const (&xl)[kGL],
+        const T* const (&rq)[kTileQ], T (&acc)[kGS][kGL][kTileQ]) {
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int b = 0; b < kGL; ++b)
+#pragma unroll
+            for (int c = 0; c < kTileQ; ++c) acc[a][b][c] = T(0);
+#pragma unroll 4
+    for (int j = 0; j < kSites; ++j) {
+        T r[kTileQ], x[kGL];
+#pragma unroll
+        for (int c = 0; c < kTileQ; ++c) r[c] = rq[c][j];
+#pragma unroll
+        for (int b = 0; b < kGL; ++b) x[b] = xl[b][j];
+#pragma unroll
+        for (int a = 0; a < kGS; ++a) {
+            const T d = ds[a][j];
+#pragma unroll
+            for (int b = 0; b < kGL; ++b) {
+                const T lf = d * x[b];
+#pragma unroll
+                for (int c = 0; c < kTileQ; ++c) acc[a][b][c] += lf * r[c];
+            }
+        }
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void self_tile(const T* const (&ds)[kGS],
+                                          const T* const (&xl)[kGP],
+                                          const T* const (&ur)[kGP],
+                                          T (&acc)[kGS][kGP]) {
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int e = 0; e < kGP; ++e) acc[a][e] = T(0);
+#pragma unroll 4
+    for (int j = 0; j < kSites; ++j) {
+        T x[kGP], r[kGP];
+#pragma unroll
+        for (int e = 0; e < kGP; ++e) {
+            x[e] = xl[e][j];
+            r[e] = ur[e][j];
+        }
+#pragma unroll
+        for (int a = 0; a < kGS; ++a) {
+            const T d = ds[a][j];
+#pragma unroll
+            for (int e = 0; e < kGP; ++e) {
+                const T lf = d * x[e];
+                acc[a][e] += lf * r[e];
+            }
+        }
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void bu_tile(const T* const (&ds)[kGS],
+                                        const T* const (&ys)[kGS],
+                                        const T* const (&xl)[kGB],
+                                        T (&acc)[kGS][kGB]) {
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int b = 0; b < kGB; ++b) acc[a][b] = T(0);
+#pragma unroll 4
+    for (int j = 0; j < kSites; ++j) {
+        T x[kGB];
+#pragma unroll
+        for (int b = 0; b < kGB; ++b) x[b] = xl[b][j];
+#pragma unroll
+        for (int a = 0; a < kGS; ++a) {
+            const T dy = ds[a][j] * ys[a][j];
+#pragma unroll
+            for (int b = 0; b < kGB; ++b) acc[a][b] += x[b] * dy;
+        }
+    }
+}
+
+// Where a group stage finds its rows: sample s of the staged chunk (d, y),
+// left row l = k n_u + v (member slot k, unknown v) and its right u rows
+// (member k's rows at k ms rows from the first member's: ms = n_u in the
+// shared layouts, -um in the global one, whose members are stacked
+// downwards), and where member slot k's entry e goes (out[k E + e]).
+template <typename T>
+struct GroupRows {
+    const T* s_y;
+    const T* s_d;
+    const T* s_u;
+    const T* s_x;
+    int ms, nu, n_c, n_l;
+    __device__ __forceinline__ const T* d(int s) const {
+        return s_d + clamp_hi(s, n_c - 1) * kLd;
+    }
+    __device__ __forceinline__ const T* y(int s) const {
+        return s_y + clamp_hi(s, n_c - 1) * kLd;
+    }
+    __device__ __forceinline__ const T* x(int l) const {
+        l = clamp_hi(l, n_l - 1);
+        return s_x + ((l / nu) * ms + l % nu) * kLd;
+    }
+    __device__ __forceinline__ const T* u(int k, int w) const {
+        return s_u + (k * ms + w) * kLd;
+    }
+};
+
+// One cross tile: samples [s0, s0 + kGS) x left rows [l0, l0 + kGL) x the
+// kTileQ rows from q0 of the nq rows at s_r, which are rows qo + q of Rt;
+// entries past the edges write nothing
+template <typename T>
+__device__ __forceinline__ void put_cross(const GroupRows<T>& gr, int s0,
+                                          int l0, int q0,
+                                          const T* __restrict__ s_r, int nq,
+                                          int qo, int c0, int p,
+                                          T* __restrict__ out,
+                                          int n_entries) {
+    const T* ds[kGS];
+    const T* xl[kGL];
+    const T* rq[kTileQ];
+#pragma unroll
+    for (int a = 0; a < kGS; ++a) ds[a] = gr.d(s0 + a);
+#pragma unroll
+    for (int b = 0; b < kGL; ++b) xl[b] = gr.x(l0 + b);
+#pragma unroll
+    for (int c = 0; c < kTileQ; ++c)
+        rq[c] = s_r + clamp_hi(q0 + c, nq - 1) * kLd;
+    T acc[kGS][kGL][kTileQ];
+    cross_tile(ds, xl, rq, acc);
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int b = 0; b < kGL; ++b)
+#pragma unroll
+            for (int c = 0; c < kTileQ; ++c) {
+                const int s = s0 + a, l = l0 + b;
+                if (s < gr.n_c && l < gr.n_l && q0 + c < nq)
+                    out[static_cast<int64_t>(l / gr.nu) * n_entries
+                        + ((c0 + s) * gr.nu + l % gr.nu) * p + qo + q0 + c] =
+                        acc[a][b][c];
+            }
+}
+
+// One self tile (samples [s0, s0 + kGS) x pairs [e0, e0 + kGP) of
+// (member, v, w)), one b_u tile (samples x left rows [l0, l0 + kGB)) or
+// member slot k's usq
+template <typename T>
+__device__ __forceinline__ void put_self(const GroupRows<T>& gr, int s0,
+                                         int e0, int c0, int n_ct, int p,
+                                         T* __restrict__ out, int n_entries) {
+    const int nu = gr.nu;
+    const int n_pair = gr.n_l * nu;
+    const T* ds[kGS];
+    const T* xl[kGP];
+    const T* ur[kGP];
+#pragma unroll
+    for (int a = 0; a < kGS; ++a) ds[a] = gr.d(s0 + a);
+#pragma unroll
+    for (int e = 0; e < kGP; ++e) {
+        const int pr = clamp_hi(e0 + e, n_pair - 1);
+        const int l = pr / nu;
+        xl[e] = gr.x(l);
+        ur[e] = gr.u(l / nu, pr % nu);
+    }
+    T acc[kGS][kGP];
+    self_tile(ds, xl, ur, acc);
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int e = 0; e < kGP; ++e) {
+            const int s = s0 + a, pr = e0 + e;
+            if (s < gr.n_c && pr < n_pair) {
+                const int l = pr / nu;
+                out[static_cast<int64_t>(l / nu) * n_entries
+                    + ((c0 + s) * nu + l % nu) * p + n_ct + pr % nu] =
+                    acc[a][e];
+            }
+        }
+}
+
+template <typename T>
+__device__ __forceinline__ void put_bu(const GroupRows<T>& gr, int s0,
+                                       int l0, int c0, int n_s, int e_bu,
+                                       T* __restrict__ out, int n_entries) {
+    const T* ds[kGS];
+    const T* ys[kGS];
+    const T* xl[kGB];
+#pragma unroll
+    for (int a = 0; a < kGS; ++a) {
+        ds[a] = gr.d(s0 + a);
+        ys[a] = gr.y(s0 + a);
+    }
+#pragma unroll
+    for (int b = 0; b < kGB; ++b) xl[b] = gr.x(l0 + b);
+    T acc[kGS][kGB];
+    bu_tile(ds, ys, xl, acc);
+#pragma unroll
+    for (int a = 0; a < kGS; ++a)
+#pragma unroll
+        for (int b = 0; b < kGB; ++b) {
+            const int l = l0 + b;
+            if (s0 + a < gr.n_c && l < gr.n_l)
+                out[static_cast<int64_t>(l / gr.nu) * n_entries + e_bu
+                    + (l % gr.nu) * n_s + c0 + s0 + a] = acc[a][b];
+        }
 }
 
 // The Gram stage of one member group for the samples [c0, c0 + n_c)
@@ -335,173 +557,121 @@ __device__ __forceinline__ void group_grams(
                                s_x, n_s, c0, n_c, n_ct, nu, out, n_entries);
         return;
     }
-    auto gu_at = [&](int s, int l, int q) -> T& {
-        return out[static_cast<int64_t>(l / nu) * n_entries
-                   + ((c0 + s) * nu + l % nu) * p + q];
-    };
+    const GroupRows<T> gr{s_y, s_d, s_u, s_x, nu, nu, n_c, n_l};
     for (int k = tid; k < g.n_items; k += kSites) {
         if (k < g.n_x) {
             // cross tile: (d_s x_l) Rt_q, d_s and Rt_q shared by the rows
-            const int q0 = (k % g.tq) * kTileQ;
-            const int l0 = ((k / g.tq) % g.tl) * kGL;
-            const int s0 = (k / (g.tq * g.tl)) * kGS;
-            const T* ds[kGS];
-            const T* xl[kGL];
-            const T* rq[kTileQ];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-                ds[a] = s_d + clamp_hi(s0 + a, n_c - 1) * kLd;
-#pragma unroll
-            for (int b = 0; b < kGL; ++b)
-                xl[b] = s_x + clamp_hi(l0 + b, n_l - 1) * kLd;
-#pragma unroll
-            for (int c = 0; c < kTileQ; ++c)
-                rq[c] = s_rt + clamp_hi(q0 + c, n_ct - 1) * kLd;
-            T acc[kGS][kGL][kTileQ];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int b = 0; b < kGL; ++b)
-#pragma unroll
-                    for (int c = 0; c < kTileQ; ++c) acc[a][b][c] = T(0);
-#pragma unroll 4
-            for (int j = 0; j < kSites; ++j) {
-                T r[kTileQ], x[kGL];
-#pragma unroll
-                for (int c = 0; c < kTileQ; ++c) r[c] = rq[c][j];
-#pragma unroll
-                for (int b = 0; b < kGL; ++b) x[b] = xl[b][j];
-#pragma unroll
-                for (int a = 0; a < kGS; ++a) {
-                    const T d = ds[a][j];
-#pragma unroll
-                    for (int b = 0; b < kGL; ++b) {
-                        const T lf = d * x[b];
-#pragma unroll
-                        for (int c = 0; c < kTileQ; ++c)
-                            acc[a][b][c] += lf * r[c];
-                    }
-                }
-            }
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int b = 0; b < kGL; ++b)
-#pragma unroll
-                    for (int c = 0; c < kTileQ; ++c)
-                        if (s0 + a < n_c && l0 + b < n_l && q0 + c < n_ct)
-                            gu_at(s0 + a, l0 + b, q0 + c) = acc[a][b][c];
+            put_cross(gr, (k / (g.tq * g.tl)) * kGS, ((k / g.tq) % g.tl) * kGL,
+                      (k % g.tq) * kTileQ, s_rt, n_ct, 0, c0, p, out,
+                      n_entries);
             continue;
         }
         if (k < g.o_self) continue;                 // between the kinds
         int kk = k - g.o_self;
         if (kk < g.n_self) {
             // self tile: (d_s x_{k,v}) u_{k,w} over pairs (k n_u + v) n_u + w
-            const int n_pair = n_l * nu;
-            const int e0 = (kk % g.tp) * kGP;
-            const int s0 = (kk / g.tp) * kGS;
-            const T* ds[kGS];
-            const T* xl[kGP];
-            const T* ur[kGP];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-                ds[a] = s_d + clamp_hi(s0 + a, n_c - 1) * kLd;
-#pragma unroll
-            for (int e = 0; e < kGP; ++e) {
-                const int pr = clamp_hi(e0 + e, n_pair - 1);
-                const int l = pr / nu;
-                xl[e] = s_x + l * kLd;
-                ur[e] = s_u + (l - l % nu + pr % nu) * kLd;
-            }
-            T acc[kGS][kGP];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int e = 0; e < kGP; ++e) acc[a][e] = T(0);
-#pragma unroll 4
-            for (int j = 0; j < kSites; ++j) {
-                T x[kGP], r[kGP];
-#pragma unroll
-                for (int e = 0; e < kGP; ++e) {
-                    x[e] = xl[e][j];
-                    r[e] = ur[e][j];
-                }
-#pragma unroll
-                for (int a = 0; a < kGS; ++a) {
-                    const T d = ds[a][j];
-#pragma unroll
-                    for (int e = 0; e < kGP; ++e) {
-                        const T lf = d * x[e];
-                        acc[a][e] += lf * r[e];
-                    }
-                }
-            }
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int e = 0; e < kGP; ++e)
-                    if (s0 + a < n_c && e0 + e < n_pair)
-                        gu_at(s0 + a, (e0 + e) / nu,
-                              n_ct + (e0 + e) % nu) = acc[a][e];
+            put_self(gr, (kk / g.tp) * kGS, (kk % g.tp) * kGP, c0, n_ct, p,
+                     out, n_entries);
             continue;
         }
         if (k < g.o_bu) continue;
         kk = k - g.o_bu;
         if (kk < g.n_bu) {
             // b_u tile: x_l (d_s y_s), d_s y_s formed once a site
-            const int l0 = (kk % g.tb) * kGB;
-            const int s0 = (kk / g.tb) * kGS;
-            const T* ds[kGS];
-            const T* ys[kGS];
-            const T* xl[kGB];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a) {
-                const int s = clamp_hi(s0 + a, n_c - 1);
-                ds[a] = s_d + s * kLd;
-                ys[a] = s_y + s * kLd;
-            }
-#pragma unroll
-            for (int b = 0; b < kGB; ++b)
-                xl[b] = s_x + clamp_hi(l0 + b, n_l - 1) * kLd;
-            T acc[kGS][kGB];
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int b = 0; b < kGB; ++b) acc[a][b] = T(0);
-#pragma unroll 4
-            for (int j = 0; j < kSites; ++j) {
-                T x[kGB];
-#pragma unroll
-                for (int b = 0; b < kGB; ++b) x[b] = xl[b][j];
-#pragma unroll
-                for (int a = 0; a < kGS; ++a) {
-                    const T dy = ds[a][j] * ys[a][j];
-#pragma unroll
-                    for (int b = 0; b < kGB; ++b) acc[a][b] += x[b] * dy;
-                }
-            }
-#pragma unroll
-            for (int a = 0; a < kGS; ++a)
-#pragma unroll
-                for (int b = 0; b < kGB; ++b) {
-                    const int l = l0 + b;
-                    if (s0 + a < n_c && l < n_l)
-                        out[static_cast<int64_t>(l / nu) * n_entries + e_bu
-                            + (l % nu) * n_s + c0 + s0 + a] = acc[a][b];
-                }
+            put_bu(gr, (kk / g.tb) * kGS, (kk % g.tb) * kGB, c0, n_s, e_bu,
+                   out, n_entries);
             continue;
         }
         // usq of member slot kk: sum over sites, then unknowns, of x_v u_v
         if (k < g.o_usq) continue;
         kk = k - g.o_usq;
-        const T* xk = s_x + kk * nu * kLd;
-        const T* uk = s_u + kk * nu * kLd;
-        T acc = T(0);
-        for (int j = 0; j < kSites; ++j) {
-#pragma unroll
-            for (int v = 0; v < nu; ++v) acc += xk[v * kLd + j] * uk[v * kLd + j];
+        out[static_cast<int64_t>(kk) * n_entries + n_entries - 1] =
+            usq_tile<T, NU>(s_x + kk * nu * kLd, s_u + kk * nu * kLd, nu);
+    }
+}
+
+// The global layout's group Gram stage (group_grams' tiles, products and
+// orders; gram_partials_ring's pipeline): Y and D g.cs samples at a time
+// into the bottom rows; per chunk, first the self tiles, b_u tiles and
+// (with the last chunk) each member's usq, each kind from a warp boundary,
+// while the first slot of Rt lands, then Rt g.q rows a slot through the
+// ring, the next slot loading while this one's cross tiles (samples x left
+// rows x rows of the slot) are summed. Member slot k's u rows are at
+// s_u + k ms rows (its left rows at s_x + k ms). Called by every thread of
+// the block after the group's u rows are written; starts with a barrier.
+template <typename T, typename TD, int NU>
+__device__ __forceinline__ void group_grams_ring(
+        T* __restrict__ smem, const dm::GlobalPlan& g,
+        const T* __restrict__ s_u, const T* __restrict__ s_x, int ms,
+        const TD* __restrict__ ydt, const TD* __restrict__ rtt, int64_t i,
+        bool live, int64_t n, int n_s, int n_ct, int n_u, int gm, int tid,
+        T* __restrict__ out, int n_entries) {
+    const int nu = NU > 0 ? NU : n_u;
+    const int p = n_ct + nu;
+    const int n_l = gm * nu;
+    const int e_bu = n_s * nu * p;
+    T* s_y = smem;
+    T* s_d = s_y + g.cs * kLd;
+    T* ring = s_d + g.cs * kLd;
+    const int n_rc = g.q > 0 ? (n_ct + g.q - 1) / g.q : 0;
+    const int tl = (n_l + kGL - 1) / kGL;
+    const int tp = (n_l * nu + kGP - 1) / kGP;
+    const int tb = (n_l + kGB - 1) / kGB;
+    for (int c0 = 0; c0 < n_s; c0 += g.cs) {
+        const int c1 = c0 + g.cs < n_s ? c0 + g.cs : n_s;
+        const int n_c = c1 - c0;
+        const int ts = (n_c + kGS - 1) / kGS;
+        const GroupRows<T> gr{s_y, s_d, s_u, s_x, ms, nu, n_c, n_l};
+        __syncthreads();     // the u rows written; the last chunk's sums done
+        dm::stage_rows(s_y, ydt, c0, c1, i, live, n, tid);
+        dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, c0, c1, i,
+                       live, n, tid);
+        dm::stage_commit();
+        if (n_rc > 0) {
+            dm::stage_rows(ring, rtt, 0, g.q < n_ct ? g.q : n_ct, i, live, n,
+                           tid);
+            dm::stage_commit();
         }
-        out[static_cast<int64_t>(kk) * n_entries + n_entries - 1] = acc;
+        dm::stage_wait_pending(n_rc > 0 ? 1 : 0);
+        __syncthreads();
+        const int n_self = ts * tp, n_bu = ts * tb;
+        const int o_bu = dm::warp_up(n_self), o_usq = o_bu + dm::warp_up(n_bu);
+        const int n_items = o_usq + (c1 == n_s ? gm : 0);
+        for (int k = tid; k < n_items; k += kSites) {
+            if (k < n_self) {
+                put_self(gr, (k / tp) * kGS, (k % tp) * kGP, c0, n_ct, p, out,
+                         n_entries);
+            } else if (k >= o_bu && k - o_bu < n_bu) {
+                const int kk = k - o_bu;
+                put_bu(gr, (kk / tb) * kGS, (kk % tb) * kGB, c0, n_s, e_bu,
+                       out, n_entries);
+            } else if (k >= o_usq) {
+                const int kk = k - o_usq;
+                out[static_cast<int64_t>(kk) * n_entries + n_entries - 1] =
+                    usq_tile<T, NU>(s_x + kk * ms * kLd, s_u + kk * ms * kLd,
+                                    nu);
+            }
+        }
+        for (int rc = 0; rc < n_rc; ++rc) {
+            dm::stage_wait_pending(0);
+            __syncthreads();    // slot rc % 2 landed, the other one free
+            const int r0 = rc * g.q;
+            const int nq = n_ct - r0 < g.q ? n_ct - r0 : g.q;
+            if (rc + 1 < n_rc) {
+                const int r1 = r0 + g.q;
+                dm::stage_rows(ring + ((rc + 1) & 1) * g.q * kLd, rtt, r1,
+                               r1 + g.q < n_ct ? r1 + g.q : n_ct, i, live, n,
+                               tid);
+                dm::stage_commit();
+            }
+            const T* slot = ring + (rc & 1) * g.q * kLd;
+            const int tq = (nq + kTileQ - 1) / kTileQ;
+            const int n_x = ts * tl * tq;
+            for (int k = tid; k < n_x; k += kSites)
+                put_cross(gr, (k / (tq * tl)) * kGS, ((k / tq) % tl) * kGL,
+                          (k % tq) * kTileQ, slot, nq, r0, c0, p, out,
+                          n_entries);
+        }
     }
 }
 
@@ -514,13 +684,14 @@ constexpr int kPairNU = 4;
 // build_cm (u_phase_common.cuh, its plain form) for two members at once:
 // per member the same sums in the same order (the known residual
 // d y - d (a1' rt), C += a2 dres, M += (a2 a2') d), the site's y, d and Rt
-// values read once for both
-template <typename T, int NU, typename TY>
-__device__ __forceinline__ void build_cm_pair(
+// values read once for both (from a DevRows, kKnownGroup samples' known
+// sums a pass, as build_cm's)
+template <typename T, int NU, typename TY, typename RT>
+__device__ __forceinline__ void build_cm_pair_at(
         RegVec<T, NU> (&cc)[2], RegVec<T, NU * (NU + 1) / 2> (&m)[2],
         const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
-        const T* __restrict__ rt, const T* const (&a1)[2],
-        const T* const (&a2)[2], int n_s, int n_ct) {
+        RT rt, const T* const (&a1)[2], const T* const (&a2)[2], int n_s,
+        int n_ct) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
 #pragma unroll
@@ -528,28 +699,65 @@ __device__ __forceinline__ void build_cm_pair(
 #pragma unroll
         for (int k = 0; k < NU * (NU + 1) / 2; ++k) m[x][k] = T(0);
     }
-    for (int s = 0; s < n_s; ++s) {
-        const T yv = dm::to_state(y[s * ld]);
-        const T dv = dm::to_state(d[s * ld]);
-        T known[2] = {T(0), T(0)};
-        for (int c = 0; c < n_ct; ++c) {
-            const T r = rt[c * kLd];
+    if constexpr (dm::IsDevRows<RT>::value) {
+        constexpr int G = dm::kKnownGroup;
+        for (int s0 = 0; s0 < n_s; s0 += G) {
+            int sg[G];
+            T kn[2][G];
 #pragma unroll
-            for (int x = 0; x < 2; ++x) known[x] += a1[x][c * n_s + s] * r;
-        }
+            for (int g = 0; g < G; ++g) {
+                sg[g] = s0 + g < n_s ? s0 + g : n_s - 1;
+                kn[0][g] = kn[1][g] = T(0);
+            }
+#pragma unroll 4
+            for (int c = 0; c < n_ct; ++c) {
+                const T r = dm::rt_at(rt, c);
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-            const T dres = dv * yv - dv * known[x];
+                for (int x = 0; x < 2; ++x)
 #pragma unroll
-            for (int v = 0; v < NU; ++v) {
-                const T av = a2[x][v * n_s + s];
-                cc[x][v] += av * dres;
+                    for (int g = 0; g < G; ++g)
+                        kn[x][g] += a1[x][c * n_s + sg[g]] * r;
+            }
 #pragma unroll
-                for (int w = v; w < NU; ++w)
-                    m[x][dm::sym(v, w, NU)] += (av * a2[x][w * n_s + s]) * dv;
+            for (int g = 0; g < G; ++g) {
+                const int s = s0 + g;
+                if (s >= n_s) break;
+                const T yv = dm::to_state(y[s * ld]);
+                const T dv = dm::to_state(d[s * ld]);
+#pragma unroll
+                for (int x = 0; x < 2; ++x)
+                    dm::add_cm(cc[x], m[x], a2[x], s, n_s, NU, dv,
+                               dv * yv - dv * kn[x][g]);
             }
         }
+    } else {
+        for (int s = 0; s < n_s; ++s) {
+            const T yv = dm::to_state(y[s * ld]);
+            const T dv = dm::to_state(d[s * ld]);
+            T known[2] = {T(0), T(0)};
+            for (int c = 0; c < n_ct; ++c) {
+                const T r = rt[c * kLd];
+#pragma unroll
+                for (int x = 0; x < 2; ++x)
+                    known[x] += a1[x][c * n_s + s] * r;
+            }
+#pragma unroll
+            for (int x = 0; x < 2; ++x)
+                dm::add_cm(cc[x], m[x], a2[x], s, n_s, NU, dv,
+                           dv * yv - dv * known[x]);
+        }
     }
+}
+
+// build_cm_pair_at on a staged Rt column (the staged layouts' form:
+// u_phase_common.cuh, known_resid's note)
+template <typename T, int NU, typename TY>
+__device__ __forceinline__ void build_cm_pair(
+        RegVec<T, NU> (&cc)[2], RegVec<T, NU * (NU + 1) / 2> (&m)[2],
+        const TY* __restrict__ y, const TY* __restrict__ d, int64_t ld,
+        const T* __restrict__ rt, const T* const (&a1)[2],
+        const T* const (&a2)[2], int n_s, int n_ct) {
+    build_cm_pair_at<T, NU>(cc, m, y, d, ld, rt, a1, a2, n_s, n_ct);
 }
 
 // gram_steps (u_phase_common.cuh) for two members at once, each with its
@@ -597,29 +805,35 @@ u_phase_grams_multi_kernel(
         const T* __restrict__ w, int64_t w_stride,
         const T* __restrict__ scal, int scal_stride,
         const T* __restrict__ tab, const int* __restrict__ list,
-        T* __restrict__ partials, T* __restrict__ state,
-        T* __restrict__ rowbuf, int64_t n, int n_s, int n_ct, int n_u,
-        int n_steps, int n_members, int group, int lagged) {
+        T* __restrict__ partials, T* __restrict__ state, int64_t n, int n_s,
+        int n_ct, int n_u, int n_steps, int n_members, int group,
+        int lagged) {
     constexpr bool WIDE = LAYOUT != dm::kResident;
     constexpr bool GLOBAL = LAYOUT >= dm::kGlobal;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int nu = NU > 0 ? NU : n_u;
     const int p = n_ct + nu;
-    // staged Y (and D) rows, Rt, then the group's rows (global: Rt and the
-    // group's rows in this block's region of rowbuf)
+    // staged Y (and D) rows, Rt, then the group's rows; the global layout
+    // (global_plan) stages nothing before the steps and keeps the group's
+    // rows at the top, member k's um rows at rows - (k + 1) um
     const int rows = WIDE ? dm::chunk_rows(n_s) : n_s;
     T* s_y = reinterpret_cast<T*>(smem_raw);
     T* s_d = s_y + rows * kLd;
-    T* s_rt = GLOBAL ? rowbuf + static_cast<int64_t>(blockIdx.x)
-                                    * dm::k4_global_rows(n_ct, nu, W, group)
-                                    * kLd
-                     : s_d + rows * kLd;            // n_ct rows
+    T* s_rt = s_d + rows * kLd;                     // n_ct rows
     // above n_u = 8 the wide layout's staged rows are its lead rows, which
     // the state region overlays
     if constexpr (NU == 0 && WIDE && !GLOBAL)
         s_rt = s_y + dm::lead_rows(n_s, nu, false) * kLd;
-    T* s_u = s_rt + n_ct * kLd;                     // group n_u rows of u
-    T* s_wu = s_u + group * nu * kLd;               // W: their w u rows
+    const int um = W ? 2 * nu : nu;
+    dm::GlobalPlan gp{};
+    if constexpr (GLOBAL)
+        gp = dm::global_plan(sizeof(T), n_s, n_ct, nu, false, um, group);
+    // rows from one member's u rows to the next one's
+    const int ms = GLOBAL ? -um : nu;
+    T* s_u = GLOBAL ? s_y + (gp.rows - um) * kLd    // the group's u rows
+                    : s_rt + n_ct * kLd;
+    T* s_wu = GLOBAL ? s_u + nu * kLd               // W: their w u rows
+                     : s_u + group * nu * kLd;
     T* s_a = s_wu + (W ? group * nu * kLd : 0);     // resident: alpha blocks
     const T* s_x = W ? s_wu : s_u;                  // the Gram sums' left u
 
@@ -631,11 +845,10 @@ u_phase_grams_multi_kernel(
         dm::stage_rows(s_d, ydt + static_cast<int64_t>(n_s) * n, 0, n_s, i,
                        live, n, tid);
     }
-    if constexpr (GLOBAL)
-        dm::copy_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
-    else
-        dm::stage_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
+    if constexpr (!GLOBAL) dm::stage_rows(s_rt, rtt, 0, n_ct, i, live, n, tid);
     dm::stage_wait();
+    // this site's Rt column where it lies (the global layout)
+    const dm::DevRows<TD> rt_dev{rtt + i, n};
     const int n_entries = dm::gram_entries(n_s, n_ct, nu);
     const int n_act = list[n_members];
     T* out_row = partials + static_cast<int64_t>(blockIdx.x) * n_members
@@ -678,8 +891,8 @@ u_phase_grams_multi_kernel(
                                 ? w[static_cast<int64_t>(b) * w_stride + i]
                                 : T(0);
                 }
-                T* u_rows = s_u + k * NU * kLd + tid;   // both members' rows
-                T* wu_rows = s_wu + k * NU * kLd + tid;
+                T* u_rows = s_u + k * ms * kLd + tid;   // both members' rows
+                T* wu_rows = s_wu + k * ms * kLd + tid;
                 if (live) {
                     RegVec<T, NU> u[2], up[2], cc[2], t1[2], t2[2];
                     RegVec<T, NU * (NU + 1) / 2> m[2];
@@ -690,7 +903,12 @@ u_phase_grams_multi_kernel(
                             u[x][v] = ub[x][v * n + i];
                             up[x][v] = ub[x][(NU + v) * n + i];
                         }
-                    if constexpr (WIDE)
+                    if constexpr (GLOBAL)
+                        build_cm_pair_at<T, NU>(
+                            cc, m, ydt + i,
+                            ydt + static_cast<int64_t>(n_s) * n + i, n,
+                            rt_dev, a1, a2, n_s, n_ct);
+                    else if constexpr (WIDE)
                         build_cm_pair<T, NU>(
                             cc, m, ydt + i,
                             ydt + static_cast<int64_t>(n_s) * n + i, n,
@@ -711,16 +929,19 @@ u_phase_grams_multi_kernel(
                         for (int v = 0; v < NU; ++v) {
                             ub[x][v * n + i] = u[x][v];
                             ub[x][(NU + v) * n + i] = up[x][v];
-                            u_rows[(x * NU + v) * kLd] = u[x][v];
+                            u_rows[(x * ms + v) * kLd] = u[x][v];
                             if constexpr (W)
-                                wu_rows[(x * NU + v) * kLd] = wi[x] * u[x][v];
+                                wu_rows[(x * ms + v) * kLd] = wi[x] * u[x][v];
                         }
                 } else {
 #pragma unroll
-                    for (int v = 0; v < 2 * NU; ++v) {
-                        u_rows[v * kLd] = T(0);
-                        if constexpr (W) wu_rows[v * kLd] = T(0);
-                    }
+                    for (int x = 0; x < 2; ++x)
+#pragma unroll
+                        for (int v = 0; v < NU; ++v) {
+                            u_rows[(x * ms + v) * kLd] = T(0);
+                            if constexpr (W)
+                                wu_rows[(x * ms + v) * kLd] = T(0);
+                        }
                 }
             }
         }
@@ -731,14 +952,19 @@ u_phase_grams_multi_kernel(
             const T* a1 = WIDE ? a1b + b * a1_stride : s_a + k * p * n_s;
             const T* a2 = WIDE ? a2b + b * a2_stride : a1 + n_ct * n_s;
             T* ub = uut + static_cast<int64_t>(b) * (2 * nu) * n;
-            T* u_rows = s_u + k * nu * kLd + tid;
-            T* wu_rows = s_wu + k * nu * kLd + tid;
+            T* u_rows = s_u + k * ms * kLd + tid;
+            T* wu_rows = s_wu + k * ms * kLd + tid;
             const T wi = (W && live)
                              ? w[static_cast<int64_t>(b) * w_stride + i]
                              : T(0);
             auto run = [&](auto& u, auto& up, auto& cc, auto& m, auto& t1,
                            auto& t2) {
-                if constexpr (WIDE)
+                if constexpr (GLOBAL)
+                    dm::build_cm_at<T, NU, dm::kRoundNone>(
+                        cc, m, t1, nu, ydt + i,
+                        ydt + static_cast<int64_t>(n_s) * n + i, n, rt_dev,
+                        a1, a2, n_s, n_ct);
+                else if constexpr (WIDE)
                     dm::build_cm<T, NU, dm::kRoundNone>(
                         cc, m, t1, nu, ydt + i,
                         ydt + static_cast<int64_t>(n_s) * n + i, n,
@@ -791,7 +1017,12 @@ u_phase_grams_multi_kernel(
                     else
                         region = s_a + group * p * n_s;
                     T* st = region + tid;
-                    if constexpr (WIDE)
+                    if constexpr (GLOBAL)
+                        dm::build_cm_rows_at<T, dm::kRoundNone>(
+                            st, nu, ydt + i,
+                            ydt + static_cast<int64_t>(n_s) * n + i, n,
+                            rt_dev, a1, a2, n_s, n_ct);
+                    else if constexpr (WIDE)
                         dm::build_cm_rows<T, dm::kRoundNone>(
                             st, nu, ydt + i,
                             ydt + static_cast<int64_t>(n_s) * n + i, n,
@@ -828,7 +1059,11 @@ u_phase_grams_multi_kernel(
         }
         __syncthreads();
         T* out = out_row + static_cast<int64_t>(k0) * n_entries;
-        if constexpr (WIDE) {
+        if constexpr (GLOBAL) {
+            group_grams_ring<T, TD, NU>(s_y, gp, s_u, s_x, ms, ydt, rtt, i,
+                                        live, n, n_s, n_ct, nu, gm, tid, out,
+                                        n_entries);
+        } else if constexpr (WIDE) {
             for (int c0 = 0; c0 < n_s; c0 += kChunk) {
                 const int c1 = c0 + kChunk < n_s ? c0 + kChunk : n_s;
                 if (c0 > 0) __syncthreads();   // the previous chunk's sums
@@ -955,10 +1190,9 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
            int64_t a1_stride, const void* a2b, int64_t a2_stride, void* uut,
            const void* w, int64_t w_stride, void* scal, int scal_stride,
            void* tab, void* list, void* partials, void* out, void* state,
-           void* rowbuf, int64_t n, int n_s, int n_ct, int n_u, int n_steps,
-           int n_members, int lagged, cudaStream_t stream) {
-    if ((LAYOUT >= dm::kGlobal && rowbuf == nullptr)
-        || (LAYOUT == dm::kGlobalState && state == nullptr))
+           int64_t n, int n_s, int n_ct, int n_u, int n_steps, int n_members,
+           int lagged, cudaStream_t stream) {
+    if (LAYOUT == dm::kGlobalState && state == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_blocks = static_cast<int>((n + kSites - 1) / kSites);
     k4_prologue_kernel<T><<<n_members + 1, 32, 0, stream>>>(
@@ -982,8 +1216,8 @@ int launch(const void* ydt, const void* rtt, const void* a1b,
         a2_stride, static_cast<T*>(uut), static_cast<const T*>(w), w_stride,
         static_cast<const T*>(scal), scal_stride, static_cast<const T*>(tab),
         static_cast<const int*>(list), static_cast<T*>(partials),
-        static_cast<T*>(state), static_cast<T*>(rowbuf), n, n_s, n_ct,
-        n_u, n_steps, n_members, plan.group, lagged);
+        static_cast<T*>(state), n, n_s, n_ct, n_u, n_steps, n_members,
+        plan.group, lagged);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_cols = n_members * n_entries;
@@ -1010,15 +1244,15 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                 long long a1_stride, const void* a2b, long long a2_stride,
                 void* uut, const void* w, long long w_stride, void* scal,
                 int scal_stride, void* tab, void* list, void* partials,
-                void* out, void* state, void* rowbuf, long long n, int n_s,
-                int n_ct, int n_u, int n_steps, int n_members, int lagged,
+                void* out, void* state, long long n, int n_s, int n_ct,
+                int n_u, int n_steps, int n_members, int lagged,
                 cudaStream_t st) {
 #define DM_K4_CASE(NU)                                                      \
     case NU:                                                                \
         return launch<T, TD, NU, W, LAYOUT>(                                \
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,     \
-            scal, scal_stride, tab, list, partials, out, state, rowbuf,   \
-            n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
+            scal, scal_stride, tab, list, partials, out, state, n, n_s,     \
+            n_ct, n_u, n_steps, n_members, lagged, st);
     switch (n_u) {
         DM_K4_CASE(1) DM_K4_CASE(2) DM_K4_CASE(3) DM_K4_CASE(4)
         DM_K4_CASE(5) DM_K4_CASE(6) DM_K4_CASE(7) DM_K4_CASE(8)
@@ -1031,13 +1265,13 @@ int dispatch_nu(const void* ydt, const void* rtt, const void* a1b,
                     return launch<T, TD, 0, W, dm::kGlobalState>(
                         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w,
                         w_stride, scal, scal_stride, tab, list, partials,
-                        out, state, rowbuf, n, n_s, n_ct, n_u, n_steps,
-                        n_members, lagged, st);
+                        out, state, n, n_s, n_ct, n_u, n_steps, n_members,
+                        lagged, st);
             }
             return launch<T, TD, 0, W, LAYOUT>(
                 ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride,
-                scal, scal_stride, tab, list, partials, out, state, rowbuf,
-                n, n_s, n_ct, n_u, n_steps, n_members, lagged, st);
+                scal, scal_stride, tab, list, partials, out, state, n, n_s,
+                n_ct, n_u, n_steps, n_members, lagged, st);
     }
 #undef DM_K4_CASE
 }
@@ -1047,20 +1281,19 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
              long long a1_stride, const void* a2b, long long a2_stride,
              void* uut, const void* w, long long w_stride, void* scal,
              int scal_stride, void* tab, void* list, void* partials,
-             void* out, void* state, void* rowbuf, long long n, int n_s,
-             int n_ct, int n_u, int n_steps, int n_members, int lagged,
-             void* stream) {
+             void* out, void* state, long long n, int n_s, int n_ct, int n_u,
+             int n_steps, int n_members, int lagged, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n_members < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (w != nullptr)
         return dispatch_nu<T, TD, true, LAYOUT>(
             ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-            scal_stride, tab, list, partials, out, state, rowbuf, n, n_s,
-            n_ct, n_u, n_steps, n_members, lagged, st);
+            scal_stride, tab, list, partials, out, state, n, n_s, n_ct, n_u,
+            n_steps, n_members, lagged, st);
     return dispatch_nu<T, TD, false, LAYOUT>(
         ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut, w, w_stride, scal,
-        scal_stride, tab, list, partials, out, state, rowbuf, n, n_s, n_ct,
-        n_u, n_steps, n_members, lagged, st);
+        scal_stride, tab, list, partials, out, state, n, n_s, n_ct, n_u,
+        n_steps, n_members, lagged, st);
 }
 
 }  // namespace
@@ -1071,39 +1304,38 @@ int dispatch(const void* ydt, const void* rtt, const void* a1b,
 //     memory in bytes (what the layout rule compares; a launch takes
 //     k4_member_plan's group bytes);
 //   PREFIX_{f32,f64,bf16}(ydt, rtt, a1b, a1_stride, a2b, a2_stride, uut,
-//     w, w_stride, scal, scal_stride, tab, list, partials, out, state,
-//     rows, n, n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the
-//     members' weight rows (B, w_stride) or NULL (unweighted); list room
-//     for B + 1 ints; rows the global layout's buffer, n_blocks x
-//     dm_k4_global_rows(...) x 129 values of the state type (read by that
-//     layout only); state the n_u > 8 form's state regions where they
-//     live in device memory (the global layout where dm_state_in_device
-//     says so; NULL otherwise), n_blocks x dm_state_rows(n_s, n_u, 0) x
-//     129 values; bf16: bf16 data with a float32 state and float32
-//     weight rows.
+//     w, w_stride, scal, scal_stride, tab, list, partials, out, state, n,
+//     n_s, n_ct, n_u, n_steps, n_members, lagged, stream): w the members'
+//     weight rows (B, w_stride) or NULL (unweighted); list room for B + 1
+//     ints; state the n_u > 8 form's state regions where they live in
+//     device memory (the global layout where dm_state_in_device says so;
+//     NULL otherwise), n_blocks x dm_state_rows(n_s, n_u, 0) x 129 values;
+//     bf16: bf16 data with a float32 state and float32 weight rows.
 #define DM_K4_ENTRY(PREFIX, SUFFIX, T, TD, LAYOUT)                           \
     int PREFIX##SUFFIX(const void* ydt, const void* rtt, const void* a1b,    \
                        long long a1_stride, const void* a2b,                 \
                        long long a2_stride, void* uut, const void* w,        \
                        long long w_stride, void* scal, int scal_stride,      \
                        void* tab, void* list, void* partials, void* out,     \
-                       void* state, void* rows, long long n, int n_s,      \
-                       int n_ct, int n_u, int n_steps, int n_members,        \
-                       int lagged, void* stream) {                           \
+                       void* state, long long n, int n_s, int n_ct, int n_u, \
+                       int n_steps, int n_members, int lagged,               \
+                       void* stream) {                                       \
         return dispatch<T, TD, LAYOUT>(ydt, rtt, a1b, a1_stride, a2b,        \
                                        a2_stride, uut, w, w_stride, scal,    \
                                        scal_stride, tab, list, partials,     \
-                                       out, state, rows, n, n_s, n_ct,     \
-                                       n_u, n_steps, n_members, lagged,      \
-                                       stream);                              \
+                                       out, state, n, n_s, n_ct, n_u,        \
+                                       n_steps, n_members, lagged, stream);  \
     }
-#define DM_K4_EXPORTS(PREFIX, LAYOUT)                                        \
-    extern "C" {                                                             \
-    long long PREFIX##_smem(int itemsize, int n_s, int n_ct, int n_u,        \
-                            int weighted) {                                  \
+#define DM_K4_SMEM_EXPORT(PREFIX, LAYOUT)                                    \
+    extern "C" long long PREFIX##_smem(int itemsize, int n_s, int n_ct,      \
+                                       int n_u, int weighted) {              \
         return dm::k4_smem(LAYOUT, itemsize, n_s, n_ct, n_u, weighted != 0,  \
                            1);                                               \
-    }                                                                        \
+    }
+// all of one layout's entry points in one source
+#define DM_K4_EXPORTS(PREFIX, LAYOUT)                                        \
+    DM_K4_SMEM_EXPORT(PREFIX, LAYOUT)                                        \
+    extern "C" {                                                             \
     DM_K4_ENTRY(PREFIX, _f32, float, float, LAYOUT)                          \
     DM_K4_ENTRY(PREFIX, _f64, double, double, LAYOUT)                        \
     DM_K4_ENTRY(PREFIX, _bf16, float, __nv_bfloat16, LAYOUT)                 \

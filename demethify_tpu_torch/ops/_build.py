@@ -54,14 +54,16 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """The loaded library plus what its build printed."""
+    """The loaded library plus what its build printed and each source's
+    compile seconds (empty when the library was already built)."""
 
     def __init__(self, lib: ctypes.CDLL, path: str, seconds: float,
-                 log: str):
+                 log: str, source_seconds=None):
         self.lib = lib
         self.path = path
         self.build_seconds = seconds
         self.build_log = log
+        self.source_seconds = source_seconds or {}
 
 
 _LIBRARY: Optional[KernelLibrary] = None
@@ -80,13 +82,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         for dt in ("f32", "f64", "bf16"):
             fn = getattr(lib, f"{k1}_{dt}")
             # bf16 data with a float32 state adds the bf16_compute flag
-            fn.argtypes = ([_VOID] * 11 + [_LL] + [_INT] * (7 if dt == "bf16"
+            fn.argtypes = ([_VOID] * 10 + [_LL] + [_INT] * (7 if dt == "bf16"
                                                             else 6) + [_VOID])
             fn.restype = _INT
             # the multi-member kernel: pointers with their member strides
             fn = getattr(lib, f"{k4}_{dt}")
             fn.argtypes = ([_VOID] * 3 + [_LL, _VOID, _LL] + [_VOID] * 2
-                           + [_LL] + [_VOID, _INT] + [_VOID] * 6 + [_LL]
+                           + [_LL] + [_VOID, _INT] + [_VOID] * 5 + [_LL]
                            + [_INT] * 6 + [_VOID])
             fn.restype = _INT
         getattr(lib, f"{k1}_smem").argtypes = [_INT] * 6
@@ -95,14 +97,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, f"{k4}_smem").restype = _LL
     lib.dm_u_phase_grams_blocks.argtypes = [_LL]
     lib.dm_u_phase_grams_blocks.restype = _INT
-    lib.dm_u_phase_grams_global_rows.argtypes = [_INT] * 4
-    lib.dm_u_phase_grams_global_rows.restype = _INT
+    lib.dm_global_plan.argtypes = [_INT] * 7 + [_VOID]
+    lib.dm_global_plan.restype = _INT
     lib.dm_state_rows.argtypes = [_INT] * 3
     lib.dm_state_rows.restype = _INT
     lib.dm_state_in_device.argtypes = [_INT] * 4
     lib.dm_state_in_device.restype = _INT
-    lib.dm_k4_global_rows.argtypes = [_INT] * 4
-    lib.dm_k4_global_rows.restype = _LL
     lib.dm_gram_tile_plan.argtypes = [_INT] * 4 + [_VOID]
     lib.dm_gram_tile_plan.restype = _INT
     lib.dm_k4_member_plan.argtypes = [_INT] * 7 + [_VOID]
@@ -156,13 +156,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _INT
 
 
-def _compile(out: str) -> str:
+def _compile(out: str):
     """One nvcc process per source, all started together, then one link.
-    Returns what the compilers printed (ptxas register and spill lines)."""
+    Returns what the compilers printed (ptxas register and spill lines)
+    and each source's compile seconds (its object's mtime less the
+    start)."""
     nvcc = _nvcc()
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     objs = [f"{out}.{os.path.basename(src)}.{os.getpid()}.o"
             for src in sources]
+    t0 = time.time()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -178,6 +181,8 @@ def _compile(out: str) -> str:
         if failed:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "".join(logs))
+        seconds = {os.path.basename(src): round(os.path.getmtime(obj) - t0, 1)
+                   for src, obj in zip(sources, objs)}
         tmp = f"{out}.{os.getpid()}.tmp"
         link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True, timeout=600)
@@ -194,7 +199,7 @@ def _compile(out: str) -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    return "".join(logs)
+    return "".join(logs), seconds
 
 
 def load() -> KernelLibrary:
@@ -210,12 +215,13 @@ def load() -> KernelLibrary:
     out = os.path.join(build_dir(),
                        f"libdm_kernels_{digest.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
-    log = ""
+    log, seconds = "", {}
     if not os.path.exists(out):
-        log = _compile(out)
+        log, seconds = _compile(out)
     lib = ctypes.CDLL(out)
     _declare(lib)
-    _LIBRARY = KernelLibrary(lib, out, time.perf_counter() - t0, log)
+    _LIBRARY = KernelLibrary(lib, out, time.perf_counter() - t0, log,
+                             seconds)
     return _LIBRARY
 
 

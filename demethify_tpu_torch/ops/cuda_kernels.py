@@ -35,17 +35,18 @@ Shapes: any n_s, n_ct and n_u >= 1. The kernel has three layouts
 (``csrc/u_phase_common.cuh``) that give the same bits: the resident one
 (Y, D and alpha staged once), the wide one (Y and D staged in chunks of
 samples; the same sums in the same orders), whose shared memory stops
-growing at 32 samples, and the global one (the wide one with the [Rt | u]
-rows in a device-memory buffer the wrapper allocates, ``global_rows``
-x 129 values a block), whose shared memory holds one chunk of Y and D
-whatever p. ``u_phase_layout`` picks by the measured crossover: resident,
-unless it does not fit or the wide one fits at least twice as many blocks
-on an SM; global where neither fits.
+growing at 32 samples, and the global one, whose shared memory does not
+grow with p: the steps read Y, D and Rt where they lie in device memory,
+and the Gram stage streams Y and D a chunk of samples at a time and Rt a
+few rows at a time through a ring of two slots, the u rows at the top of
+shared memory (``global_plan``). ``u_phase_layout`` picks by the measured
+crossover: resident, unless it does not fit or the wide one fits at least
+twice as many blocks on an SM; global where neither fits.
 n_u <= 8 keeps the per-site state in registers; above, one form keeps it
 on the chip, in a per-thread column of a state region of shared memory
 (``state_rows`` rows a block; in the wide and global layouts over the
-rows of Y and D that the Gram stage stages after the steps). Where even
-the global layout cannot hold the region (``state_in_device``: the gram
+rows that the Gram stage stages after the steps). Where even the global
+layout cannot hold the region (``state_in_device``: the gram
 form past n_u = 17 in float64, 25 in float32), it lives in a per-block
 part of a device buffer the wrapper allocates.
 
@@ -79,6 +80,7 @@ and K9 (``cuda_small.alpha_phase``) into the plain solver's outer
 iteration.
 """
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -152,16 +154,14 @@ def u_phase_smem(layout: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     n_u = 8 in the direct form with a2's rows padded to a multiple of 4);
     wide: (max(2 min(32, n_s), state_rows) + p [+ n_u]) rows; the n_u
     more rows hold the raw u of bf16_compute's gram form, or K4's weighted
-    u; global: max(2 min(32, n_s), state_rows) rows (its other rows live
-    in device memory, ``global_rows``), or 2 min(32, n_s) where the state
-    region lives in device memory (``state_in_device``)."""
+    u; global: ``global_plan``'s rows (one member of n_u [+ n_u] u
+    rows)."""
     p = n_ct + n_u
     x_rows = n_u if (bf16c and not direct) or weighted else 0
-    lead = _lead_rows(n_s, n_u, direct)
     if layout == "global":
-        if state_in_device(itemsize, n_s, n_u, direct):
-            lead = 2 * min(_CHUNK, n_s)
-        return itemsize * lead * _LD
+        return itemsize * _LD * global_plan(itemsize, n_s, n_ct, n_u, direct,
+                                            n_u + x_rows)["rows"]
+    lead = _lead_rows(n_s, n_u, direct)
     if layout == "wide":
         return itemsize * (lead + p + x_rows) * _LD
     if layout != "resident":
@@ -182,13 +182,83 @@ def blocks_per_sm(smem: int) -> int:
     return min(2048 // SITES_PER_BLOCK, SMEM_PER_SM // (smem + 1024))
 
 
-def global_rows(n_ct: int, n_u: int, direct: bool = False,
-                bf16c: bool = False) -> int:
-    """Rows per block of K1's global layout in its device buffer (129
-    values each): [Rt | u] and, in bf16_compute's gram form, the raw u
-    (the kernel's ``dm_u_phase_grams_global_rows``). K4's are
-    ``cuda_multi.k4_global_rows``."""
-    return n_ct + n_u + (n_u if bf16c and not direct else 0)
+RING_SLOTS = 2    # slots of the global layout's ring of Rt rows (kRingSlots)
+
+
+def global_plan(itemsize: int, n_s: int, n_ct: int, n_u: int,
+                direct: bool = False, um: int = None,
+                members: int = 1) -> dict:
+    """The global layout's plan (``csrc/u_phase_common.cuh``,
+    ``global_plan``; the kernels' ``dm_global_plan`` export, which
+    ``chip_smoke.py`` holds this to), for ``members`` blocks of ``um`` u
+    rows (K1: n_u, or 2 n_u in bf16_compute's gram form, one member; K4:
+    n_u, or 2 n_u weighted, a member group). Rows of 129 values, from the
+    bottom of the block's shared memory: the n_u > 8 state region (unless
+    it lives in device memory) and, in the direct form, the residual rows
+    past it where they fit (``res``); for the Gram stage Y and D, ``cs``
+    samples each, and the ring, ``depth`` slots of ``q`` rows of Rt; at the
+    top the u rows (the last member's may overlay the region's dead tail,
+    never the u vectors it is read from). q is the multiple of 4 that
+    gives the 128 threads a tile each per slot, at most all of Rt, shrunk
+    by 4 while the Gram stage would take the block from two blocks an SM
+    (or from the rows the steps hold, if more), unless one block an SM
+    with a larger q keeps more of its threads busy with tiles; where the
+    region lives in device memory the layout keeps its 2 min(32, n_s) rows
+    and cs shrinks too. ``kc``: the register forms (n_u <= 8), whose steps
+    leave shared memory free but for the u rows, form their known sums
+    a1' Rt in n_s rows at the bottom with a1 staged kc rows at a time
+    above them, where the rows below the u rows hold that (else 0: the
+    sums read a1 from device memory). Returns {"cs", "q", "depth",
+    "rows", "res", "kc"}."""
+    um = n_u if um is None else um
+    row = itemsize * _LD
+    max_rows = SMEM_LIMIT // row
+    two = (SMEM_PER_SM // 2 - 1024) // row
+    in_dev = state_in_device(itemsize, n_s, n_u, direct)
+    region = 0 if in_dev else state_rows(n_s, n_u, direct)
+    vec = (2 if direct else 3) * n_u if region else 0
+    res = direct and not in_dev and region + n_s <= max_rows
+    hold = region + (n_s if res else 0)
+    fixed = max(hold + (members - 1) * um, vec + members * um)
+    cs = min(_CHUNK, n_s)
+    rv = 1 if n_u == 1 else 2
+    per4 = -(-cs // (4 // rv)) * -(-n_u // rv) * members
+    q = min(GRAM_TILE_Q * -(-SITES_PER_BLOCK // per4),
+            -(-n_ct // GRAM_TILE_Q) * GRAM_TILE_Q)
+    floor = 2 * min(_CHUNK, n_s) if in_dev else 0
+
+    def depth(q):
+        return 0 if q == 0 else (RING_SLOTS if q < n_ct else 1)
+
+    def need(cs, q):
+        return 2 * cs + depth(q) * q + members * um
+
+    def shrink(q, cap):
+        while q > GRAM_TILE_Q and need(cs, q) > cap:
+            q -= GRAM_TILE_Q
+        return q
+
+    def busy(q):
+        return min(SITES_PER_BLOCK, per4 * q // GRAM_TILE_Q)
+
+    # q within two blocks' rows, or one block's where that keeps more of
+    # an SM's threads busy with tiles
+    q2, q1 = shrink(q, max(two, fixed)), shrink(q, max(max_rows, fixed))
+    q = q1 if 2 * busy(q2) < busy(q1) else q2
+    while in_dev and need(cs, q) > floor:
+        if q > GRAM_TILE_Q:
+            q -= GRAM_TILE_Q
+        elif cs > 1:
+            cs -= 1
+        else:
+            break
+    rows = max(fixed, need(cs, q), floor)
+    # the register forms' known sums: n_s rows, then a1 kc rows at a time
+    free = (rows - members * um - n_s) * _LD
+    kc = (min(free // n_s, n_ct)
+          if n_u <= REG_N_U and n_ct > 0 and free >= n_s else 0)
+    return {"cs": cs, "q": q, "depth": depth(q), "rows": rows,
+            "res": int(res), "kc": kc}
 
 
 def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
@@ -220,11 +290,10 @@ def u_phase_layout(name: str, itemsize: int, n_s: int, n_ct: int, n_u: int,
     longer than the wide one where it fitted one block per SM and the wide
     one two or more (direct float64 at n_u = 25, the gram form at n_s =
     100), and 6-85% less wherever it fitted two or more, in the direct form
-    even against twice its blocks (float64, n_u = 12). The global layout,
-    whose Gram stage reads [Rt | u] from device memory (far slower at large
-    p: PERF.md, the device-memory forms), came within 12% of the wide one
-    at the one shape where the wide one fitted a block and it two (K1 12%
-    less time, K4 3% more; float32, n_u = 17).
+    even against twice its blocks (float64, n_u = 12). The global layout
+    (then with a Gram stage that read [Rt | u] from device memory) came
+    within 12% of the wide one at the one shape where the wide one fitted
+    a block and it two (K1 12% less time, K4 3% more; float32, n_u = 17).
     So: the resident layout, unless it does not fit, or fits one block
     per SM and the wide one two or more; the global layout where the wide
     one does not fit."""
@@ -260,11 +329,28 @@ def lib_smem(lib, kernel: str, *args):
     return smem
 
 
+GLOBAL_PLAN_KEYS = ("cs", "q", "depth", "rows", "res", "kc")
+
+
+def lib_global_plan(lib, itemsize, n_s, n_ct, n_u, direct, um, members):
+    """``global_plan`` from the library's ``dm_global_plan`` export (the
+    kernels' own copy): {"cs", "q", "depth", "rows", "res", "kc"}."""
+    out = (ctypes.c_int * len(GLOBAL_PLAN_KEYS))()
+    lib.dm_global_plan(int(itemsize), int(n_s), int(n_ct), int(n_u),
+                       int(direct), int(um), int(members), out)
+    return dict(zip(GLOBAL_PLAN_KEYS, out))
+
+
 def launch_case(n, n_s, n_ct, n_u, n_b, data, state, layout, in_device,
-                smem, **flags) -> str:
+                smem, ring=None, **flags) -> str:
     """What a failed K1/K4 launch names: its shape, dtypes, layout, state
-    region and shared memory (and any ``flags`` set)."""
+    region, shared memory, the global layout's ring (``global_plan``, when
+    given) and any ``flags`` set."""
     extra = "".join(f", {k}" for k, on in flags.items() if on)
+    if ring is not None:
+        extra = (f", ring {ring['depth']} x {ring['q']} rows of Rt, "
+                 f"{ring['cs']} samples a chunk, {ring['rows']} rows"
+                 + extra)
     return (f"N = {n}, n_s = {n_s}, n_ct = {n_ct}, n_u = {n_u}, B = {n_b}, "
             f"{str(data).replace('torch.', '')} data, "
             f"{str(state).replace('torch.', '')} state, {layout} layout, "
@@ -450,6 +536,36 @@ def bf16_round(x):
     return x.to(torch.bfloat16).to(x.dtype)
 
 
+def launch_plan(lib, itemsize: int, n: int, n_s: int, n_ct: int, n_u: int,
+                n_steps: int, direct: bool = False,
+                bf16c: bool = False) -> dict:
+    """K1's launch plan from the library's exports (the kernels' own copy
+    of the plan, ``lib``): {"layout", "smem" (its bytes), "in_device" (the
+    n_u > 8 state region in device memory), "ring" (the global layout's
+    ``global_plan``, else None), "sizes": the values of the state type of
+    each buffer the wrapper allocates: "partials" (the per-block partial
+    sums, then the momentum table), "out" and "state" (the region, 0 when
+    on the chip)}. The global layout allocates nothing of its own: its Y,
+    D and Rt stream through shared memory."""
+    layout, smem = u_phase_layout(
+        "u_phase_grams", itemsize, n_s, n_ct, n_u, direct, bf16c,
+        smem=lib_smem(lib, "dm_u_phase_grams", itemsize, n_s, n_ct, n_u,
+                      direct, bf16c))
+    in_device = layout == "global" and bool(
+        lib.dm_state_in_device(itemsize, n_s, n_u, int(direct)))
+    ring = (lib_global_plan(lib, itemsize, n_s, n_ct, n_u, direct,
+                            n_u * (2 if bf16c and not direct else 1), 1)
+            if layout == "global" else None)
+    n_entries = gram_entries(n_s, n_ct, n_u)
+    n_blocks = lib.dm_u_phase_grams_blocks(n)
+    state = (n_blocks * lib.dm_state_rows(n_s, n_u, int(direct)) * _LD
+             if in_device else 0)
+    return {"layout": layout, "smem": smem, "in_device": in_device,
+            "ring": ring,
+            "sizes": {"partials": n_entries * n_blocks + n_steps + 1,
+                      "out": n_entries, "state": state}}
+
+
 def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
                   lagged: bool = False, bf16_compute: bool = False):
     """One outer iteration's U phase: the whole n_steps FISTA loop on U,
@@ -482,33 +598,21 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
         raise ValueError(f"u_phase_grams: unsupported device {ydt.device}")
     direct = not gram_form(n_u, n_s)
     lib = _build.load().lib
-    # the plan from the library's exports, the kernels' own copy
-    itemsize = uut.element_size()
-    layout, smem = u_phase_layout(
-        "u_phase_grams", itemsize, n_s, n_ct, n_u, direct, bf16c,
-        smem=lib_smem(lib, "dm_u_phase_grams", itemsize, n_s, n_ct, n_u,
-                      direct, bf16c))
-    in_device = layout == "global" and bool(
-        lib.dm_state_in_device(itemsize, n_s, n_u, int(direct)))
+    plan = launch_plan(lib, uut.element_size(), n, n_s, n_ct, n_u, n_steps,
+                       direct, bf16c)
+    layout, smem, in_device = plan["layout"], plan["smem"], plan["in_device"]
     prefix = "dm_u_phase_grams" + _LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
-    n_entries = gram_entries(n_s, n_ct, n_u)
-    n_blocks = lib.dm_u_phase_grams_blocks(n)
-    # the partial sums and, behind them, the momentum table (n_steps + 1)
-    partials = uut.new_empty((n_entries * n_blocks + n_steps + 1,))
-    tab = partials[n_entries * n_blocks:]
-    out = uut.new_empty((n_entries,))
-    state = (uut.new_empty((n_blocks * lib.dm_state_rows(
-        n_s, n_u, int(direct)) * _LD,)) if in_device else None)
-    rowbuf = (uut.new_empty((n_blocks * lib.dm_u_phase_grams_global_rows(
-        n_ct, n_u, int(direct), int(bf16c)) * _LD,))
-        if layout == "global" else None)
+    size = plan["sizes"]
+    partials = uut.new_empty((size["partials"],))
+    tab = partials[size["partials"] - n_steps - 1:]
+    out = uut.new_empty((size["out"],))
+    state = uut.new_empty((size["state"],)) if in_device else None
     args = (ydt.data_ptr(), rtt.data_ptr(), a1_block.data_ptr(),
             a2_block.data_ptr(), uut.data_ptr(), scal.data_ptr(),
             tab.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            None if state is None else state.data_ptr(),
-            None if rowbuf is None else rowbuf.data_ptr(), n, n_s, n_ct,
-            n_u, n_steps, int(lagged), int(direct))
+            None if state is None else state.data_ptr(), n, n_s, n_ct, n_u,
+            n_steps, int(lagged), int(direct))
     with torch.cuda.device(ydt.device):
         stream = torch.cuda.current_stream(ydt.device).cuda_stream
         if ydt.dtype == torch.bfloat16:
@@ -519,7 +623,7 @@ def u_phase_grams(ydt, rtt, a1_block, a2_block, uut, scal, n_steps: int,
             err = getattr(lib, prefix + "_f64")(*args, stream)
     _build.check(err, "u_phase_grams", launch_case(
         n, n_s, n_ct, n_u, 1, ydt.dtype, uut.dtype, layout, in_device, smem,
-        direct=direct, bf16_compute=bf16c))
+        plan["ring"], direct=direct, bf16_compute=bf16c))
     if bf16c:
         u_phase_grams.launches_bf16_compute += 1
     elif ydt.dtype == torch.bfloat16:

@@ -39,9 +39,10 @@ whose rows run across the members (``k4_gram_plan``); every entry keeps
 K1's products and site order, so each member's outputs are K1's bits.
 ``csrc/u_phase_grams_multi.cuh`` exports the same plans
 (``dm_k4_member_plan``, ``dm_k4_gram_plan``), which ``chip_smoke.py``
-holds these to. K1's global layout (``cuda_kernels.u_phase_layout``)
-keeps Rt and the group's u rows in a device buffer (``k4_global_rows``
-x 129 values a block) and takes groups of K4_GLOBAL_GROUP members.
+holds these to. In K1's global layout (``cuda_kernels.u_phase_layout``)
+the group's u rows sit at the top of shared memory and Rt streams through
+the ring (``cuda_kernels.global_plan`` with the group's rows), and the
+group is the largest that keeps the one-member layout's blocks per SM.
 
 On a CUDA tensor the wrapper launches the kernel or raises; only CPU
 tensors take the plain PyTorch twin ``u_phase_grams_multi_plain``, the
@@ -69,13 +70,13 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     blocks_per_sm,
     check_dtypes,
     count_forms,
+    global_plan,
     gram_entries,
     gram_form,
     known_block,
     launch_case,
     lib_smem,
     member_stride,
-    state_in_device,
     state_rows,
 )
 from demethify_tpu_torch.ops.fista import momentum, nesterov_step
@@ -84,8 +85,6 @@ from demethify_tpu_torch.ops.fista import momentum, nesterov_step
 # blocks per SM a member group keeps, where one member's layout fits as
 # many (kGroupBlocks)
 K4_GROUP_BLOCKS = 4
-# members per group in the global layout (kGlobalGroup)
-K4_GLOBAL_GROUP = 8
 # the layout codes of dm_k4_member_plan
 _LAYOUT_CODE = {"resident": 0, "wide": 1, "global": 2}
 # the group Gram stage's tiles (kGS, kGL, kGP, kGB): samples per tile,
@@ -100,29 +99,23 @@ def k4_smem(itemsize: int, n_s: int, n_ct: int, n_u: int, weighted: bool,
     the staged Y and D rows (n_s, or one chunk of 32 in the wide layout)
     and Rt's n_ct rows, each member's n_u u rows (and, ``weighted``, n_u
     rows of w u), and in the resident layout each member's (p, n_s) alpha
-    block; in the global layout one chunk of Y and D alone. Above n_u = 8
-    the block's one state region (``cuda_kernels.state_rows`` of the gram
-    form, which each member's loop reuses) adds its rows: after the
-    resident layout's, over the chunk rows of the wide and global layouts
-    (in device memory where ``cuda_kernels.state_in_device``). At group 1
-    it is ``cuda_kernels.u_phase_smem(..., weighted=)``, the bytes the
-    layout rule compares."""
-    lead = max(2 * min(_CHUNK, n_s), state_rows(n_s, n_u))
+    block; in the global layout ``cuda_kernels.global_plan``'s rows for
+    the group. Above n_u = 8 the block's one state region
+    (``cuda_kernels.state_rows`` of the gram form, which each member's loop
+    reuses) adds its rows: after the resident layout's, over the chunk
+    rows of the wide layout, at the bottom of the global one (in device
+    memory where ``cuda_kernels.state_in_device``). At group 1 it is
+    ``cuda_kernels.u_phase_smem(..., weighted=)``, the bytes the layout
+    rule compares."""
     if layout == "global":
-        if state_in_device(itemsize, n_s, n_u):
-            lead = 2 * min(_CHUNK, n_s)
-        return itemsize * lead * _LD
+        return itemsize * _LD * global_plan(
+            itemsize, n_s, n_ct, n_u, False, n_u * (2 if weighted else 1),
+            group)["rows"]
+    lead = max(2 * min(_CHUNK, n_s), state_rows(n_s, n_u))
     rows = lead if layout == "wide" else 2 * n_s + state_rows(n_s, n_u)
     u_rows = group * n_u * (2 if weighted else 1)
     alpha = 0 if layout == "wide" else group * (n_ct + n_u) * n_s
     return itemsize * ((rows + n_ct + u_rows) * _LD + alpha)
-
-
-def k4_global_rows(n_ct: int, n_u: int, weighted: bool, group: int) -> int:
-    """Rows per block of K4's global layout in its device buffer (129
-    values each): Rt, the group's u rows and, ``weighted``, their w u rows
-    (the kernel's ``dm_k4_global_rows``)."""
-    return n_ct + group * n_u * (2 if weighted else 1)
 
 
 def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
@@ -135,7 +128,7 @@ def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
     the occupancy the layout rule counted wherever that was at most
     K4_GROUP_BLOCKS. Returns {"group", "smem", "blocks"}.
     The cap comes from shared memory, never from B; in the global layout,
-    whose group rows live in device memory, it is K4_GLOBAL_GROUP. Above
+    whose ring rows shrink as the group grows, every G is tried. Above
     n_u = 8 the members' per-site state (K1's n_u > 8 form: C, M and the
     u vectors) lives on the chip, in one state region a block that each
     member's loop reuses: ``k4_smem`` counts it once, in the base bytes,
@@ -143,12 +136,19 @@ def k4_member_plan(itemsize: int, n_s: int, n_ct: int, n_u: int, n_b: int,
     ``cuda_kernels.u_phase_layout``'s, one rule for K1 and K4 (fitted above
     n_u = 8 with both, ``chip_smoke.time_layouts``)."""
     one = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 1)
-    base = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 0)
     blocks = max(1, min(blocks_per_sm(one), K4_GROUP_BLOCKS))
-    if layout == "global":
-        return {"group": min(n_b, K4_GLOBAL_GROUP), "smem": one,
-                "blocks": blocks}
     budget = min(SMEM_PER_SM // blocks - 1024, SMEM_LIMIT)
+    if layout == "global":
+        plan = {"group": 1, "smem": one, "blocks": blocks}
+        um = itemsize * _LD * n_u * (2 if weighted else 1)
+        for gm in range(2, n_b + 1):
+            if gm * um > budget:
+                break
+            nbytes = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, gm)
+            if nbytes <= budget:
+                plan.update(group=gm, smem=nbytes)
+        return plan
+    base = k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout, 0)
     group = max(1, min(n_b, (budget - base) // (one - base)))
     return {"group": group,
             "smem": k4_smem(itemsize, n_s, n_ct, n_u, weighted, layout,
@@ -251,6 +251,46 @@ def _split(out, n_s, n_u, p):
             out[:, g:g + n_u * n_s].view(n_b, n_u, n_s), out[:, -1])
 
 
+def launch_plan(lib, itemsize: int, n: int, n_s: int, n_ct: int, n_u: int,
+                n_b: int, n_steps: int, weighted: bool = False) -> dict:
+    """K4's launch plan from the library's exports (the kernels' own copy
+    of the plan, ``lib``): {"layout", "smem" (one member's bytes, what the
+    layout rule compares), "in_device", "ring" (the global layout's
+    ``global_plan`` for the group the kernel takes, with "group"; else
+    None), "sizes": the values of the state type of each buffer the
+    wrapper allocates ("partials": the partial sums, then from offset
+    "tab" the members' momentum tables and from "list" the list of active
+    members, B + 1 int32; "out" a member's entries; "state" the n_u > 8
+    region, 0 when on the chip)}. The global layout allocates nothing of
+    its own."""
+    layout, smem = cuda_kernels.u_phase_layout(
+        "u_phase_grams_multi", itemsize, n_s, n_ct, n_u, weighted=weighted,
+        smem=lib_smem(lib, "dm_u_phase_grams_multi", itemsize, n_s, n_ct,
+                      n_u, weighted))
+    in_device = layout == "global" and bool(
+        lib.dm_state_in_device(itemsize, n_s, n_u, 0))
+    ring = None
+    if layout == "global":
+        group = (ctypes.c_longlong * 3)()
+        lib.dm_k4_member_plan(itemsize, n_s, n_ct, n_u, n_b, int(weighted),
+                              _LAYOUT_CODE[layout], group)
+        ring = cuda_kernels.lib_global_plan(
+            lib, itemsize, n_s, n_ct, n_u, False,
+            n_u * (2 if weighted else 1), group[0])
+        ring["group"] = group[0]
+    n_entries = gram_entries(n_s, n_ct, n_u)
+    n_blocks = lib.dm_u_phase_grams_blocks(n)
+    n_part, n_tab = n_b * n_entries * n_blocks, n_b * (n_steps + 1)
+    n_list = -(-4 * (n_b + 1) // itemsize)
+    state = (n_blocks * lib.dm_state_rows(n_s, n_u, 0) * _LD if in_device
+             else 0)
+    return {"layout": layout, "smem": smem, "in_device": in_device,
+            "ring": ring,
+            "sizes": {"partials": n_part + n_tab + n_list, "tab": n_part,
+                      "list": n_part + n_tab, "out": n_entries,
+                      "state": state}}
+
+
 def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                         lagged: bool = False, weights=None):
     """One outer iteration's U phase for B members: each active member's
@@ -281,35 +321,18 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
         raise ValueError(f"u_phase_grams_multi: unsupported device "
                          f"{ydt.device}")
     lib = _build.load().lib
-    # the plan from the library's exports, the kernels' own copy
-    itemsize, weighted = uut_b.element_size(), weights is not None
-    layout, smem = cuda_kernels.u_phase_layout(
-        "u_phase_grams_multi", itemsize, n_s, n_ct, n_u, weighted=weighted,
-        smem=lib_smem(lib, "dm_u_phase_grams_multi", itemsize, n_s, n_ct,
-                      n_u, weighted))
-    in_device = layout == "global" and bool(
-        lib.dm_state_in_device(itemsize, n_s, n_u, 0))
+    weighted = weights is not None
+    plan = launch_plan(lib, uut_b.element_size(), n, n_s, n_ct, n_u, n_b,
+                       n_steps, weighted)
+    layout, smem, in_device = plan["layout"], plan["smem"], plan["in_device"]
     prefix = "dm_u_phase_grams_multi" + cuda_kernels._LAYOUT_SUFFIX[layout]
     p = n_ct + n_u
-    n_entries = gram_entries(n_s, n_ct, n_u)
-    n_blocks = lib.dm_u_phase_grams_blocks(n)
-    # the partial sums and, behind them, the members' momentum tables and
-    # the list of active members (B + 1 int32)
-    n_part, n_tab = n_b * n_entries * n_blocks, n_b * (n_steps + 1)
-    n_list = -(-4 * (n_b + 1) // uut_b.element_size())
-    partials = uut_b.new_empty((n_part + n_tab + n_list,))
-    tab = partials[n_part:]
-    member_list = partials[n_part + n_tab:]
-    out = uut_b.new_empty((n_b, n_entries))
-    state = (uut_b.new_empty((n_blocks * lib.dm_state_rows(n_s, n_u, 0)
-                              * _LD,)) if in_device else None)
-    rowbuf = None
-    if layout == "global":
-        plan = (ctypes.c_longlong * 3)()
-        lib.dm_k4_member_plan(itemsize, n_s, n_ct, n_u, n_b, int(weighted),
-                              _LAYOUT_CODE[layout], plan)
-        rowbuf = uut_b.new_empty((n_blocks * _LD * lib.dm_k4_global_rows(
-            n_ct, n_u, int(weighted), plan[0]),))
+    size = plan["sizes"]
+    partials = uut_b.new_empty((size["partials"],))
+    tab = partials[size["tab"]:]
+    member_list = partials[size["list"]:]
+    out = uut_b.new_empty((n_b, size["out"]))
+    state = uut_b.new_empty((size["state"],)) if in_device else None
     fn = getattr(lib, prefix + {torch.float32: "_f32", torch.float64: "_f64",
                                 torch.bfloat16: "_bf16"}[ydt.dtype])
     with torch.cuda.device(ydt.device):
@@ -321,12 +344,11 @@ def u_phase_grams_multi(ydt, rtt, a1_b, a2_b, uut_b, scal_b, n_steps: int,
                  0 if weights is None else weights.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI, tab.data_ptr(),
                  member_list.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                 None if state is None else state.data_ptr(),
-                 None if rowbuf is None else rowbuf.data_ptr(), n, n_s,
-                 n_ct, n_u, n_steps, n_b, int(lagged), stream)
+                 None if state is None else state.data_ptr(), n, n_s, n_ct,
+                 n_u, n_steps, n_b, int(lagged), stream)
     _build.check(err, "u_phase_grams_multi", launch_case(
         n, n_s, n_ct, n_u, n_b, ydt.dtype, uut_b.dtype, layout, in_device,
-        smem, weighted=weighted, lagged=lagged))
+        smem, plan["ring"], weighted=weighted, lagged=lagged))
     if ydt.dtype == torch.bfloat16:
         u_phase_grams_multi.launches_bf16 += 1
     else:

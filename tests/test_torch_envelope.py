@@ -383,13 +383,16 @@ def test_layout_covers_the_cohort_shapes(itemsize):
 def test_layout_raises_stating_the_shape():
     """Past the wide layout (2 x 10 rows of Y and D and 400 + 4 rows of
     [Rt | u], 129 float64 values each: 437,568 bytes) the plan no longer
-    raises: the global layout keeps the [Rt | u] rows in device memory and
-    one chunk of Y and D in shared memory."""
+    raises: the global layout keeps Y and D (2 x 10 rows), a ring of 2 x 44
+    rows of Rt and the 4 u rows in shared memory, 112 rows, whatever p;
+    before the steps the 108 rows below the u rows hold the known sums
+    (10 rows) and all 400 rows of a1 (4000 values)."""
     assert u_phase_smem("wide", 8, 10, 400, 4) > SMEM_LIMIT
     assert u_phase_layout("u_phase_grams", 8, 10, 400, 4) == (
-        "global", 8 * 2 * 10 * 129)
-    assert cuda_kernels.global_rows(400, 4) == 404
-    assert cuda_kernels.global_rows(400, 4, bf16c=True) == 408
+        "global", 8 * 112 * 129)
+    assert cuda_kernels.global_plan(8, 10, 400, 4) == {
+        "cs": 10, "q": 44, "depth": 2, "rows": 112, "res": 0, "kc": 400}
+    assert u_phase_smem("global", 8, 10, 4000, 4) == 8 * 112 * 129
     # grows with n_s only up to one chunk of 32 samples
     assert u_phase_smem("wide", 8, 10_000, 25, 4) == u_phase_smem(
         "wide", 8, 32, 25, 4) > u_phase_smem("wide", 8, 10, 25, 4)

@@ -67,8 +67,12 @@ def test_solver_route_at_the_plans_boundaries(dtype, n_s, n_ct, n_u,
     if work:
         assert work == min(n_s, 32) * (p * p + 6 * p)
     if weighted and layout == "global":
+        # 16 members in groups of 10: 2 x 32 rows of Y and D, the ring's
+        # 2 slots of 4 rows of Rt and 10 x 2 x 2 u and w u rows, 112 rows
+        # of 129 float64 values, two blocks an SM (one member: 108 rows)
         plan = k4_member_plan(state, n_s, n_ct, n_u, 16, True, layout)
-        assert plan["group"] == 8 and plan["smem"] == smem
+        assert plan["group"] == 10 and plan["smem"] == 8 * 112 * 129
+        assert smem == 8 * 108 * 129
     got = "device" if layout == "global" or work else "shared"
     assert got == want
 
