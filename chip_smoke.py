@@ -90,9 +90,12 @@ non-zero and prints no result line):
    bf16_compute, n_u in {9, 12, 16} in K4 (bf16, weighted), and the state
    region in device memory (5 + 18 at n_s = 108), each timed beside its
    bound with its launches counted; p in {33, 40, 64} in K2, K3, K5 and
-   K6; past one block's shared memory, K1's and K4's global layout
-   (weighted too) and K2's, K3's, K5's and K6's device slabs at
-   p = 164-404 and 200-240, each timed; K2 and K5 with row
+   K6; above 64 rows K3's and K6's column blocks (a block, or a cluster
+   of blocks, a column; p = 65-240, K6 with an inactive member and
+   per-member known blocks) and, past eight blocks, their device slabs
+   (p = 490); past one block's shared memory, K1's and K4's global layout
+   (weighted too) and K2's and K5's device slabs at p = 164-404 and
+   200-240, each timed; K2 and K5 with row
    masks (all-ones bit-identical to none); K1 with Rt folded into the
    data block, bit-identical to the unfolded launch; K1's bf16_compute in
    the direct form against its twin and through
@@ -116,7 +119,8 @@ non-zero and prints no result line):
    tensor cores (its SASS holds HMMA and DMMA), at 1M x 10, p = 6 and at
    1M x 100, p = 29, in float32, float64 and bf16 data, with the PyTorch
    calls that compute the same sums timed beside it (float32), untimed at
-   a ragged N, n_s = 1 / p = 1, n_s = 13 / p = 11 and p = 64 / n_s = 500
+   a ragged N (200,003 sites; K7's untimed forms at 200k sites too),
+   n_s = 1 / p = 1, n_s = 13 / p = 11 and p = 64 / n_s = 500
    (float64), each launched twice to the same bits, and on bf16 data at
    200 sites, where its rounding shows, against its twin's rounding
    summed in float64 and apart from ``ops/gram.sample_grams``; K9
@@ -137,8 +141,9 @@ non-zero and prints no result line):
    p = 210 and purity at p = 180, 4 restarts of each at p = 209 and the
    purity weights bootstrap at p = 209 (float64, 20k x 10) through
    ``solvers.api`` and ``bootstrap_ci``, with launch counts that show K1's
-   and K4's global layout and the glue kernels' device slabs, each held
-   to the plain solver (``phase_past_envelope``); ``tall_svd``, NNDSVD,
+   and K4's global layout, K2's and K5's device slabs and K3's and K6's
+   column blocks (clusters of two blocks a column), each held to the
+   plain solver (``phase_past_envelope``); ``tall_svd``, NNDSVD,
    the dual ICA at 1M x 10, the primal ICA at 4096 x 10 and the three
    modes' SVD and ICA inits at 1M x 10, card against CPU in float64,
    timed in float64 and float32 (``phase_inits``); ``evaluate_best_ic``
@@ -258,6 +263,9 @@ LOOSE_TOL = 1e-5
 # the full-width runs in float64 (rounding grows along the flat direction
 # over 1000 iterations; ~1e6 x eps on this problem)
 LONG_TOL64 = {"cost": 1e-9, "alpha": 1e-6}
+# the outer iterations over which phase_main_path holds the float32 main
+# path to the plain solver (its float64 pair runs all N_OUTER)
+MAIN_PLAIN_OUTER = 200
 
 
 def log(msg):
@@ -387,6 +395,7 @@ def counters():
             (k3, "forms:wide", "fw_phase_full{p>32}"),
             (k3, "forms:two_row", "fw_phase_full{two-row}"),
             (k3, "forms:device_slabs", "fw_phase_full{device slabs}"),
+            (k3, "forms:column_blocks", "fw_phase_full{column blocks}"),
             (k5, "forms:wide", "alpha_phase_full_multi{p>32}"),
             (k5, "forms:two_row", "alpha_phase_full_multi{two-row}"),
             (k5, "forms:device_slabs",
@@ -395,6 +404,8 @@ def counters():
             (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
             (k6, "forms:two_row", "fw_phase_full_multi{two-row}"),
             (k6, "forms:device_slabs", "fw_phase_full_multi{device slabs}"),
+            (k6, "forms:column_blocks",
+             "fw_phase_full_multi{column blocks}"),
             (k1, "launches", "u_phase_grams"),
             (k1, "launches_bf16", "u_phase_grams[bf16]"),
             (k1, "launches_bf16_compute", "u_phase_grams[bf16_compute]"),
@@ -1119,7 +1130,7 @@ def _fw_flips(gtt, bt, gu, bu, ydy, alpha0, purity, scal, n_u, n_steps):
 
 
 def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S,
-             reps=7, inner=20):
+             reps=7, inner=20, steps=P_INNER):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import COST, DMAX2, L_W
@@ -1134,17 +1145,17 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S,
                              device=DEV, dtype=alpha.dtype)
     args = (gtt, bt, gu, bu, ydy)
     ak, sk = alpha.clone(), scal.clone()
-    fw_phase_full(*args, ak, purity, sk, P_INNER, N_U)
+    fw_phase_full(*args, ak, purity, sk, steps, N_U)
     ap_, sp = alpha.clone(), scal.clone()
-    fw_phase_full_plain(*args, ap_, purity, sp, P_INNER, N_U)
+    fw_phase_full_plain(*args, ap_, purity, sp, steps, N_U)
     torch.cuda.synchronize()
     err_a = float((ak - ap_).abs().max())
     scale = float(ydy.sum())
     err_c = abs(float(sk[COST]) - float(sp[COST])) / scale
     err_w = abs(float(sk[L_W]) - float(sp[L_W])) / abs(float(sp[L_W]))
     err_m = float((ak[:n_ct].sum(0) - purity).abs().max())
-    flips = _fw_flips(*args, alpha, purity, scal, N_U, P_INNER)
-    tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
+    flips = _fw_flips(*args, alpha, purity, scal, N_U, steps)
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / steps
     tol_c = TOL[dtype_name]["cost"]
     p = n_ct + N_U
     res = {"p": p, "dtype": dtype_name, "alpha_max_abs": err_a,
@@ -1152,14 +1163,14 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S,
            "flips": flips, "tol_alpha": tol_a}
     if timed:
         res["ms"] = median_ms(lambda: fw_phase_full(
-            *args, ak, purity, sk, P_INNER, N_U), reps=reps, inner=inner)
+            *args, ak, purity, sk, steps, N_U), reps=reps, inner=inner)
         res["plain_ms"] = median_ms(lambda: fw_phase_full_plain(
-            *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
+            *args, ap_, purity, sp, steps, N_U), reps=3, inner=1,
             warmup=1)
-    log(f"[K3] p={p} n_s={n_s} {P_INNER} steps {dtype_name}: alpha "
+    log(f"[K3] p={p} n_s={n_s} {steps} steps {dtype_name}: alpha "
         f"max|diff| {err_a:.3e} (tol {tol_a:.1e}); vertex choices that "
         f"differ from the twin's at the same iterate: {flips} of "
-        f"{2 * P_INNER * n_s}; cost diff / sum(ydy) {err_c:.3e}, l_w rel "
+        f"{2 * steps * n_s}; cost diff / sum(ydy) {err_c:.3e}, l_w rel "
         f"{err_w:.3e} (tol {tol_c:.0e}); known mass - purity {err_m:.2e}"
         + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
            f"(median of back-to-back launches, CUDA events)" if timed
@@ -1168,7 +1179,7 @@ def _k3_case(n_ct, dtype_name, timed=False, n=200_000, seed=9, n_s=N_S,
     check(err_a <= tol_a, f"K3 alpha differs from its twin by {err_a}")
     check(dtype_name == "float32" or flips == 0,
           f"K3 float64 vertex choices differ ({flips})")
-    check(max(err_c, err_w) <= tol_c + 4.0 * flips / P_INNER,
+    check(max(err_c, err_w) <= tol_c + 4.0 * flips / steps,
           "K3 cost / l_w differ")
     check(err_m <= 10 * K3_TOL[dtype_name] + 1e-6,
           f"K3 known-block mass off the purity by {err_m}")
@@ -1542,7 +1553,7 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
 
 
 def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
-             n_ct=N_CT, n_s=N_S, reps=7, inner=10):
+             n_ct=N_CT, n_s=N_S, reps=7, inner=10, steps=P_INNER):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W, N_SCAL
@@ -1561,9 +1572,9 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
         * (1 - purity)], dim=1).contiguous()
     args = (gtt, bt, gu, bu, ydy)
     ak, sk = alpha_b.clone(), scal_b.clone()
-    fw_phase_full_multi(*args, ak, purity, sk, P_INNER, N_U)
+    fw_phase_full_multi(*args, ak, purity, sk, steps, N_U)
     ap_, sp = alpha_b.clone(), scal_b.clone()
-    fw_phase_full_multi_plain(*args, ap_, purity, sp, P_INNER, N_U)
+    fw_phase_full_multi_plain(*args, ap_, purity, sp, steps, N_U)
     torch.cuda.synchronize()
     act = [b for b in range(n_b) if b not in inactive]
     ina = list(inactive)
@@ -1575,14 +1586,14 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
     err_m = float((ak[act, :n_ct].sum(1) - purity).abs().max())
     frozen = (torch.equal(ak[ina], alpha_b[ina])
               and torch.equal(sk[ina], scal_b[ina])) if ina else True
-    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, P_INNER, act)
+    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, steps, act)
     b0 = act[0]
     a1, s1 = alpha_b[b0].clone(), scal_b[b0, :N_SCAL].clone()
-    fw_phase_full(gtt, bt, gu[b0], bu[b0], ydy, a1, purity, s1, P_INNER, N_U)
+    fw_phase_full(gtt, bt, gu[b0], bu[b0], ydy, a1, purity, s1, steps, N_U)
     torch.cuda.synchronize()
     same_k3 = torch.equal(a1, ak[b0]) and torch.equal(s1, sk[b0, :N_SCAL])
-    tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
-    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / P_INNER
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / steps
+    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / steps
     res = {"p": n_ct + N_U, "members": n_b, "inactive": ina,
            "dtype": dtype_name, "alpha_max_abs": err_a,
            "cost_rel_to_sum_ydy": err_c, "l_w_rel": err_w, "flips": flips,
@@ -1593,18 +1604,18 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
         s_all[:, ACTIVE] = 1.0
         a_all = alpha_b.clone()
         res["ms"] = median_ms(lambda: fw_phase_full_multi(
-            *args, a_all, purity, s_all, P_INNER, N_U), reps=reps,
+            *args, a_all, purity, s_all, steps, N_U), reps=reps,
             inner=inner)
         res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
-            *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
+            *args, ap_, purity, sp, steps, N_U), reps=3, inner=1,
             warmup=1)
-        n_bytes, flops = glue_work(n_ct + N_U, n_s, n_ct, P_INNER,
+        n_bytes, flops = glue_work(n_ct + N_U, n_s, n_ct, steps,
                                    alpha_b.element_size(), n_b, fw=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K6] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={n_s} {P_INNER} "
+    log(f"[K6] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={n_s} {steps} "
         f"steps {dtype_name}: active alpha max|diff| {err_a:.3e} (tol "
         f"{tol_a:.1e}); vertex choices that differ from the twin's at the "
-        f"same iterate: {flips} of {2 * P_INNER * n_s * len(act)}; cost "
+        f"same iterate: {flips} of {2 * steps * n_s * len(act)}; cost "
         f"diff / sum(ydy) {err_c:.3e}, l_w rel {err_w:.3e} (tol "
         f"{tol_c:.0e}); known mass - purity {err_m:.2e}; inactive members "
         f"bit-unchanged: {frozen}; member {b0} bit-identical to K3: "
@@ -1869,7 +1880,8 @@ def phase_k5_weighted():
     return main
 
 
-def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False):
+def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False,
+              n_ct=N_CT, n_s=N_S, steps=P_INNER):
     """K6 with per-member known blocks against its twin; and per-member
     copies of shared blocks against the shared-block launch, bit for
     bit."""
@@ -1885,29 +1897,29 @@ def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False):
     def inputs(weighted, sd):
         nonlocal purity
         (gtt, bt, gu, bu, _, ydy, alpha_b, _,
-         scal_b) = _glue_multi_inputs(N_CT, N_U, dtype_name, n_b, inactive,
-                                      sd, weighted=weighted)
+         scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive,
+                                      sd, weighted=weighted, n_s=n_s)
         if purity is None:
-            purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=N_S),
+            purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s),
                                      device=DEV, dtype=alpha_b.dtype)
         alpha_b = torch.cat([
-            alpha_b[:, :N_CT] / alpha_b[:, :N_CT].sum(1, keepdim=True)
+            alpha_b[:, :n_ct] / alpha_b[:, :n_ct].sum(1, keepdim=True)
             * purity,
-            alpha_b[:, N_CT:] / alpha_b[:, N_CT:].sum(1, keepdim=True)
+            alpha_b[:, n_ct:] / alpha_b[:, n_ct:].sum(1, keepdim=True)
             * (1 - purity)], dim=1).contiguous()
         return (gtt, bt, gu, bu, ydy), alpha_b, scal_b
 
     args, alpha_b, scal_b = inputs(True, seed)
     ak, sk = alpha_b.clone(), scal_b.clone()
-    fw_phase_full_multi(*args, ak, purity, sk, P_INNER, N_U)
+    fw_phase_full_multi(*args, ak, purity, sk, steps, N_U)
     ap_, sp = alpha_b.clone(), scal_b.clone()
-    fw_phase_full_multi_plain(*args, ap_, purity, sp, P_INNER, N_U)
+    fw_phase_full_multi_plain(*args, ap_, purity, sp, steps, N_U)
     (sgtt, sbt, sgu, sbu, sydy), s_alpha, s_scal = inputs(False, seed + 1)
     outs = []
     for known in ((sgtt, sbt, sydy), _expanded(n_b, sgtt, sbt, sydy)):
         a, sc = s_alpha.clone(), s_scal.clone()
         fw_phase_full_multi(known[0], known[1], sgu, sbu, known[2], a,
-                            purity, sc, P_INNER, N_U)
+                            purity, sc, steps, N_U)
         outs.append((a, sc))
     torch.cuda.synchronize()
     shared_same = all(torch.equal(x, y) for x, y in zip(*outs))
@@ -1920,10 +1932,10 @@ def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False):
                    / sp[act, L_W].abs()).max())
     frozen = (torch.equal(ak[ina], alpha_b[ina])
               and torch.equal(sk[ina], scal_b[ina])) if ina else True
-    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, P_INNER, act)
-    tol_a = K3_TOL[dtype_name] + 4.0 * flips / P_INNER
-    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / P_INNER
-    res = {"p": N_CT + N_U, "members": n_b, "inactive": ina,
+    flips = _fw_flips_multi(args, alpha_b, purity, scal_b, N_U, steps, act)
+    tol_a = K3_TOL[dtype_name] + 4.0 * flips / steps
+    tol_c = TOL[dtype_name]["cost"] + 4.0 * flips / steps
+    res = {"p": n_ct + N_U, "members": n_b, "inactive": ina,
            "dtype": dtype_name, "alpha_max_abs": err_a,
            "cost_rel_to_sum_ydy": err_c, "l_w_rel": err_w, "flips": flips,
            "frozen_unchanged": frozen, "shared_equals_copies": shared_same}
@@ -1932,15 +1944,15 @@ def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False):
         s_all[:, ACTIVE] = 1.0
         a_all = alpha_b.clone()
         res["ms"] = median_ms(lambda: fw_phase_full_multi(
-            *args, a_all, purity, s_all, P_INNER, N_U), inner=10)
+            *args, a_all, purity, s_all, steps, N_U), inner=10)
         res["plain_ms"] = median_ms(lambda: fw_phase_full_multi_plain(
-            *args, ap_, purity, sp, P_INNER, N_U), reps=3, inner=1,
+            *args, ap_, purity, sp, steps, N_U), reps=3, inner=1,
             warmup=1)
-        n_bytes, flops = glue_work(N_CT + N_U, N_S, N_CT, P_INNER,
+        n_bytes, flops = glue_work(n_ct + N_U, n_s, n_ct, steps,
                                    alpha_b.element_size(), n_b, fw=True,
                                    own_known=True)
         res["bound_ms"], res["bound_by"] = bound(n_bytes, flops, dtype_name)
-    log(f"[K6w] B={n_b} (inactive {ina}) p={N_CT + N_U} n_s={N_S} {P_INNER} "
+    log(f"[K6w] B={n_b} (inactive {ina}) p={n_ct + N_U} n_s={n_s} {steps} "
         f"steps {dtype_name}, per-member weighted known blocks: active alpha "
         f"max|diff| {err_a:.3e} (tol {tol_a:.1e}); vertex flips {flips}; "
         f"cost diff / sum(ydy) {err_c:.3e}, l_w rel {err_w:.3e} (tol "
@@ -2366,19 +2378,26 @@ def phase_main_path(problem32, card):
           "main path output shapes")
     check(float((props.sum(0) - 1).abs().max()) < 1e-4, "alpha off simplex")
 
-    # the plain solver on the card, same workload, as the reference. In
+    # the plain solver on the card, same workload, as the reference over
+    # its first MAIN_PLAIN_OUTER iterations (the kernel solve run again to
+    # that depth; the plain solver takes about 30 ms an iteration). In
     # float32 the two agree on the final cost; alpha drifts apart along
-    # the objective's flat direction (rounding amplified over 1000
+    # the objective's flat direction (rounding amplified over many
     # iterations), so it is reported here and held tightly in float64.
+    kw_p = dict(kw, n_iter1=MAIN_PLAIN_OUTER)
     (_, a_p, info_p), plain_ms = _per_iter_ms(
-        lambda: partial_ref_solve(u0, a0, y, d, Rt, N_U, **kw), N_OUTER)
-    c_k, c_p = float(res.cost), float(info_p["cost"])
+        lambda: partial_ref_solve(u0, a0, y, d, Rt, N_U, **kw_p),
+        MAIN_PLAIN_OUTER)
+    short = partial_reference_deconv(y, d, Rt, N_U, init_provided=(u0, a0),
+                                      **kw_p)
+    c_k, c_p = float(short.cost), float(info_p["cost"])
     err_c = abs(c_k - c_p) / abs(c_p)
-    err_a = float((props - a_p).abs().max())
-    log(f"[main] plain solver, same workload: {plain_ms:.4f} ms per outer "
-        f"iteration; final cost kernel {c_k:.6e} plain {c_p:.6e} (rel diff "
-        f"{err_c:.3e}, tol {TRAJ_TOL['float32']['cost']:.0e}); alpha "
-        f"max|diff| {err_a:.3e} (float32 drift, not held)")
+    err_a = float((short.proportions - a_p).abs().max())
+    log(f"[main] plain solver, same workload to {MAIN_PLAIN_OUTER} outer "
+        f"iterations: {plain_ms:.4f} ms per outer iteration; final cost "
+        f"kernel {c_k:.6e} plain {c_p:.6e} (rel diff {err_c:.3e}, tol "
+        f"{TRAJ_TOL['float32']['cost']:.0e}); alpha max|diff| {err_a:.3e} "
+        f"(float32 drift, not held)")
     check(err_c <= TRAJ_TOL["float32"]["cost"], "final cost vs plain")
 
     t64 = state.from_numpy(*problem32, device=DEV, dtype=torch.float64)
@@ -3110,6 +3129,12 @@ def _cli_runs(cli_main, root, samples, ref, modes, percent, storage):
 ENVELOPE_SITES = 20_000
 SWEEP_HOLD = 20_000
 SWEEP_OUTER = 100
+# the outer iterations of phase_cli_inits_ic's CLI runs and of
+# phase_sweep's sweeps, each held card vs CPU: the CPU's share of those
+# checks grows with them (at 100 the CPU side of the five --ic runs took
+# 140 of the CLI phase's 191 s)
+CLI_IC_OUTER = 30
+SWEEP_HOLD_OUTER = 15
 # card against the port's CPU path, float64: the inits (Gram eigh on
 # cuSOLVER against LAPACK, then the same arithmetic), relative to each
 # array's largest magnitude
@@ -3126,12 +3151,13 @@ def phase_past_envelope(card):
     device-memory forms and nothing else:
       - partial-reference, 200 + 10 (p = 210, the direct form, n_u > 8),
         10 x 10: K1's global layout, K2's device slabs;
-      - purity, 179 + 1 (p = 180), 5 x 100: K1, K3's device slabs;
+      - purity, 179 + 1 (p = 180), 5 x 100: K1, K3's column blocks
+        (clusters of two);
       - 4 restarts of partial-reference and of purity, 205 + 4 (p = 209,
-        the gram form), 10 x 10 and 5 x 100: K4's global layout, K5's and
-        K6's device slabs;
+        the gram form), 10 x 10 and 5 x 100: K4's global layout, K5's
+        device slabs and K6's column blocks;
       - the weights bootstrap in the purity mode, B = 4, 205 + 4, 5 x 100:
-        K4 weighted in its global layout, K6's device slabs.
+        K4 weighted in its global layout, K6's column blocks.
     Before each solve, the kernel solver it runs against the plain solver
     on the same data from the same seeded inits (``_envelope_vs_plain``:
     cost trace and alpha at TRAJ_TOL["float64"], each member for the
@@ -3151,7 +3177,7 @@ def phase_past_envelope(card):
     out = {}
     runs = (
         ("global", 200, 10, None, 1, 10, 10, "alpha_phase_full"),
-        ("device slabs purity", 179, 1, pur, 1, 5, 100, "fw_phase_full"),
+        ("column blocks purity", 179, 1, pur, 1, 5, 100, "fw_phase_full"),
         ("global restarts", 205, 4, None, 4, 10, 10,
          "alpha_phase_full_multi"),
         ("global purity restarts", 205, 4, pur, 4, 5, 100,
@@ -3171,8 +3197,9 @@ def phase_past_envelope(card):
             tag, f"{n} x {N_S}, {n_ct}+{n_u} (p = {n_ct + n_u}), float64, "
             f"{r} restart(s), {n1}x{n2}, card {card}", call, n1, n_sites=n)
         k1 = "u_phase_grams_multi" if r > 1 else "u_phase_grams"
+        form = "column blocks" if glue in COLUMN_KERNELS else "device slabs"
         want = {k1: n1, glue: n1, f"{glue}{{p>32}}": n1,
-                f"{glue}{{device slabs}}": n1}
+                f"{glue}{{{form}}}": n1}
         layout = u_phase_layout("K1", 8, N_S, n_ct, n_u,
                                 not gram_form(n_u, N_S))[0]
         if layout != "resident":
@@ -3205,7 +3232,7 @@ def phase_past_envelope(card):
     check(expect_counts(out["global bootstrap"], **{
         "u_phase_grams_multi": n1, "u_phase_grams_multi{global}": n1,
         "fw_phase_full_multi": n1, "fw_phase_full_multi{p>32}": n1,
-        "fw_phase_full_multi{device slabs}": n1}),
+        "fw_phase_full_multi{column blocks}": n1}),
         f"past-envelope bootstrap launches {out['global bootstrap']}")
     return out
 
@@ -3343,7 +3370,8 @@ def phase_sweep(problem32, card):
     (the CLI's default is 25). Prints the solve time per rank.
 
     Each criterion held to the same sweep on the CPU at SWEEP_HOLD sites
-    in float64 (30 x 10, tol = 0) with the same injected inits and train
+    in float64 (SWEEP_HOLD_OUTER x 10, tol = 0) with the same injected
+    inits and train
     masks (``_sweep_draws``; SVD inits computed on each side): the same
     chosen rank, the criterion list within ``SWEEP_TOL64`` relative, the
     chosen alpha within ``SWEEP_TOL64``."""
@@ -3357,8 +3385,8 @@ def phase_sweep(problem32, card):
     inits, masks = _sweep_draws(SWEEP_HOLD, N_CT, N_S, 211)
     for ic, init, n_max in (("AIC", "SVD", 25), ("minka", "SVD", 0),
                             ("CCC", "uniform_", 6), ("BCV", "uniform_", 6)):
-        kw = dict(iter1=30, iter2=10, tol=0.0, n_restarts=3, n_u_max=n_max,
-                  inits=inits, masks=masks)
+        kw = dict(iter1=SWEEP_HOLD_OUTER, iter2=10, tol=0.0, n_restarts=3,
+                  n_u_max=n_max, inits=inits, masks=masks)
         reset_counts()
         got = evaluate_best_ic(y, d, Rt, init, ic, **kw)
         launches = {k: v for k, v in read_counts().items() if v}
@@ -3470,7 +3498,8 @@ def phase_cli_inits_ic():
     iterative modes, and ``--ic AIC|BIC|CCC|BCV|minka`` with ``--init SVD
     --icmax 3``, on the 50,000-site fixture with ``--device cuda``, each
     held to the same command with ``--device cpu`` (``--dtype float64``,
-    100 x 20; purity 20 x 100): proportions and profiles within 1e-6, and
+    CLI_IC_OUTER x 20; purity 20 x 100): proportions and profiles within
+    1e-6, and
     the log's line of the chosen rank. BCV's train masks are drawn on the
     CPU, so both devices share them; the SVD and ICA inits draw nothing.
     The card's runs must launch K1 (and K3 with ``--purity``, K2
@@ -3480,6 +3509,7 @@ def phase_cli_inits_ic():
     from demethify_tpu_torch.cli import main as cli_main
 
     percent = [f"{p:g}" for p in np.linspace(10, 70, N_S)]
+    outer = ["--iterations", str(CLI_IC_OUTER), "20"]
     modes = (("partial-ref", True, ["--nbunknown", "1"], "alpha_phase_full"),
              ("purity", True, ["--nbunknown", "1", "--purity", *percent,
                                "--iterations", "20", "100"],
@@ -3487,12 +3517,11 @@ def phase_cli_inits_ic():
              ("unsupervised", False, ["--nbunknown", str(U_N_U)],
               "alpha_phase_full"))
     runs = [(f"{mode} --init {init}", with_ref,
-             ["--iterations", "100", "20", "--init", init, *extra], glue)
+             [*outer, "--init", init, *extra], glue)
             for init in ("SVD", "ICA")
             for mode, with_ref, extra, glue in modes]
-    runs += [(f"--ic {ic}", True, ["--iterations", "100", "20", "--init",
-                                   "SVD", "--icmax", "3", "--ic", ic, "3"],
-              "alpha_phase_full")
+    runs += [(f"--ic {ic}", True, [*outer, "--init", "SVD", "--icmax", "3",
+                                   "--ic", ic, "3"], "alpha_phase_full")
              for ic in ("AIC", "BIC", "CCC", "BCV", "minka")]
     with tempfile.TemporaryDirectory() as root:
         samples, ref = _write_fixture(root)
@@ -3608,7 +3637,9 @@ def phase_layouts():
     the global layout's plan (``cuda_kernels.global_plan``: its chunk,
     ring and rows for one K1 member and for K4's groups, against
     ``dm_global_plan``); the glue kernels' device slabs
-    (``cuda_small.glue_work``) against their export."""
+    (``cuda_small.glue_work``) and K3's and K6's column blocks
+    (``fw_column_plan``, ``fw_column_groups`` at p = 65-700) against
+    their exports."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
         SMEM_LIMIT, global_plan, lib_global_plan, state_in_device,
@@ -3616,7 +3647,8 @@ def phase_layouts():
     from demethify_tpu_torch.ops.cuda_small import REG_P
     from demethify_tpu_torch.ops.cuda_small import TWO_ROW_P as TWO_ROW_P_MAX
     from demethify_tpu_torch.ops.cuda_small import (
-        alpha_plan, glue_smem, two_row_stride)
+        alpha_plan, fw_column_groups, fw_column_plan, glue_smem,
+        lib_fw_column_plan, two_row_stride)
     from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
 
     lib = _build.load().lib
@@ -3678,6 +3710,17 @@ def phase_layouts():
                 work = lib.dm_glue_work(itemsize, p, n_s)
                 if work != work_elems(itemsize, p, n_s):
                     bad.append(("glue work", itemsize, p, n_s, work))
+        # K3's and K6's column blocks: the plan and the cost's groups
+        for p in range(65, 701):
+            n_checked += 1
+            if (lib_fw_column_plan(lib, itemsize, p)
+                    != fw_column_plan(itemsize, p)):
+                bad.append(("column plan", itemsize, p))
+            for n_s in (1, 10, 31, 32, 33, 100, 500):
+                n_checked += 1
+                if (lib.dm_fw_column_groups(itemsize, p, n_s)
+                        != fw_column_groups(itemsize, p, n_s)):
+                    bad.append(("column groups", itemsize, p, n_s))
     # the glue kernels' row buckets and the two-row form's slab stride
     for p in range(1, 130):
         n_checked += 2
@@ -3988,11 +4031,16 @@ GLUE_KERNELS = ("alpha_phase_full", "fw_phase_full", "alpha_phase_full_multi",
                 "fw_phase_full_multi", "alpha_phase", "fw_phase")
 
 
-def _glue_forms(case, want_two_row):
+# K3 and K6, whose form above 64 rows is the column blocks
+COLUMN_KERNELS = ("fw_phase_full", "fw_phase_full_multi")
+
+
+def _glue_forms(case, want_two_row, columns=True):
     """Runs ``case()`` with the counters at 0 and checks each glue kernel
     it launched against its form counters: every launch in the two-row
-    form (``want_two_row``), or none (the wide loop, p > 64). Returns the
-    case's result."""
+    form (``want_two_row``), or none (p > 64: K2's, K5's, K9's and K10's
+    wide loop; K3's and K6's column blocks where ``columns``, else their
+    device slabs). Returns the case's result."""
     reset_counts()
     res = case()
     got = read_counts()
@@ -4003,6 +4051,13 @@ def _glue_forms(case, want_two_row):
                   and got[f"{k}{{p>32}}"] == got[k],
                   f"{k}: {got[k]} launches, {got[f'{k}{{two-row}}']} in the "
                   f"two-row form, want {want}")
+        if got[k] and k in COLUMN_KERNELS and not want_two_row:
+            cols = got[k] if columns else 0
+            check(got[f"{k}{{column blocks}}"] == cols
+                  and got[f"{k}{{device slabs}}"] == got[k] - cols,
+                  f"{k}: {got[k]} launches, "
+                  f"{got[f'{k}{{column blocks}}']} in the column blocks, "
+                  f"want {cols}")
     if isinstance(res, dict):
         res["check_launches"] = got
     return res
@@ -4015,9 +4070,13 @@ def phase_wide_glue():
     bit for bit to K2 and K3 on the same Grams), each launch counted in
     the two-row form; K2 and K5 with row masks at p = 40 and 64 (an
     all-ones mask bit-identical to none, masked rows exactly 0); the wide
-    loop of all six at p = 65 and 100, both dtypes, with no two-row
-    launch. Returns the timed p = 40, n_s = 10, float64 cases (the
-    kernels line's rows) and the timed p = 100 wide-loop cases."""
+    loop of K2, K5, K9 and K10 at p = 65 and 100, both dtypes, with no
+    two-row launch; K3's and K6's column blocks at p = 65 and 100 (both
+    dtypes), 167 and 168 (float64), one block a column, K6 with an
+    inactive member and at p = 100 with per-member known blocks. Returns
+    the timed p = 40, n_s = 10, float64 cases (the kernels line's rows)
+    and the timed p = 100 cases of K2's wide loop and K3's column
+    blocks."""
     timed = {}
     for p in TWO_ROW_P:
         for n_s in TWO_ROW_NS:
@@ -4057,25 +4116,34 @@ def phase_wide_glue():
                 _glue_forms(lambda: _k9_case(
                     p, dt, n_s=100, seed=121 + p,
                     mask=[0] + [1] * (p - 1)), True)
-    # the wide loop (p > 64) of all six, K5 and K6 with an inactive member
+    # the wide loop (p > 64) of K2, K5, K9 and K10, K5 with an inactive
+    # member
     for p in (65, 100):
         for dt in ("float64", "float32"):
             seed = 122 + p
             if p == 65 or dt == "float32":
                 _glue_forms(lambda: _k2_case(p - 4, dt, n_u=4, seed=seed),
                             False)
-                _glue_forms(lambda: _k3_case(p - 1, dt, seed=seed + 1),
-                            False)
             _glue_forms(lambda: _k5_case(p - 4, 4, dt, 4, (2,),
                                          seed=seed + 2), False)
-            _glue_forms(lambda: _k6_case(dt, n_b=4, inactive=(1,),
-                                         n_ct=p - 1, seed=seed + 3), False)
             _glue_forms(lambda: _k9_case(p, dt, seed=seed + 4), False)
             _glue_forms(lambda: _k10_case(p, dt, seed=seed + 5), False)
     timed["k2 wide"] = _glue_forms(lambda: _k2_case(
         96, "float64", n_u=4, seed=124, timed=True), False)
+    # K3's and K6's column blocks, one block a column up to p = 168 in
+    # float64: K6 with an inactive member, and with per-member known blocks
+    for p, dt in ((65, "float64"), (65, "float32"), (100, "float32"),
+                  (167, "float64"), (168, "float64")):
+        seed = 122 + p
+        _glue_forms(lambda: _k3_case(p - 1, dt, seed=seed + 1), False)
+        _glue_forms(lambda: _k6_case(dt, n_b=4, inactive=(1,), n_ct=p - 1,
+                                     seed=seed + 3), False)
     timed["k3 wide"] = _glue_forms(lambda: _k3_case(
-        99, "float64", seed=125, timed=True, reps=3, inner=5), False)
+        99, "float64", seed=125, timed=True), False)
+    _glue_forms(lambda: _k6_case("float64", n_b=4, inactive=(1,), n_ct=99,
+                                 seed=225), False)
+    _glue_forms(lambda: _k6w_case("float64", n_b=3, inactive=(1,), n_ct=99,
+                                  seed=226), False)
     # a block of 32 float64 warps of the register form passes the card's
     # registers: the launchers cap the warps, which then loop over columns
     for dt in ("float64", "float32"):
@@ -4093,9 +4161,12 @@ def phase_global_kernels():
     n_s = 10, its state on the chip; float32 400 + 4 at n_s = 64, also on
     bf16 data); K4's
     (B = 10, 160 + 4 at n_s = 64; weighted B = 4, 205 + 4 at n_s = 10);
-    K2, K3, K5 and K6 with their slabs in device memory at p = 200 (K2
-    also at n_s = 100 and in float32 at p = 240). Each at 200k sites; the
-    timed cases with a launch's peak device memory. Then the global layout
+    K2 and K5 with their slabs in device memory at p = 200 (K2 also at
+    n_s = 100 and in float32 at p = 240); K3 and K6 in their column blocks
+    at p = 200 (clusters of two; K6 also with per-member known blocks) and
+    at 240 in float32, and in their device slabs past eight blocks
+    (p = 490, 20 steps). Each at 200k sites; the timed cases with a
+    launch's peak device memory. Then the global layout
     forced at shapes the shared layouts take, bit-identical to them: K1 at
     the main path's shape (1M x 10, 5 + 1, float32), in the direct form
     with n_u = 12 (the state and the residual rows on the chip), with
@@ -4146,12 +4217,24 @@ def phase_global_kernels():
     out["k2"] = _k2_case(196, "float64", n_u=4, seed=406, timed=True)
     _k2_case(196, "float64", n_u=4, seed=407, n_s=100)
     _k2_case(236, "float32", n_u=4, seed=408)
-    # K3 and K6 take about 80 ms a launch here: 3 x 2 timed launches
-    out["k3"] = _k3_case(199, "float64", seed=409, timed=True, reps=3,
-                         inner=2)
     out["k5"] = _k5_case(196, 4, "float64", 8, (3,), seed=410, timed=True)
-    out["k6"] = _k6_case("float64", n_ct=199, seed=411, timed=True, reps=3,
-                         inner=2)
+    # K3's and K6's column blocks past one block's shared memory: clusters
+    # of two blocks at p = 200 (float64) and 240 (float32), K6 also with
+    # per-member known blocks; past eight blocks (p = 490, float64) the
+    # device slabs, 20 steps
+    out["k3"] = _glue_forms(lambda: _k3_case(199, "float64", seed=409,
+                                             timed=True), False)
+    out["k6"] = _glue_forms(lambda: _k6_case("float64", n_ct=199, seed=411,
+                                             timed=True), False)
+    _glue_forms(lambda: _k6w_case("float64", n_b=3, inactive=(1,),
+                                  n_ct=199, seed=422), False)
+    _glue_forms(lambda: _k3_case(239, "float32", seed=423), False)
+    _glue_forms(lambda: _k6_case("float32", n_b=4, inactive=(1,), n_ct=239,
+                                 seed=424), False)
+    _glue_forms(lambda: _k3_case(489, "float64", seed=425, n=50_000,
+                                 steps=20), False, columns=False)
+    _glue_forms(lambda: _k6_case("float64", n_b=2, inactive=(1,), n_ct=489,
+                                 seed=426, steps=20), False, columns=False)
     return out
 
 
@@ -5298,15 +5381,15 @@ def phase_single_phase_kernels(card, main_ms):
     k7 = out["k7"] = _k7_case(N_CPG, N_U, "float32", timed=True,
                               with_k1=True)
     # float64, bf16 data and the purity schedule held to the twin, untimed
-    # (their times are on record, PERF.md; the timings went to pay for the
-    # global layout's checks)
-    _k7_case(N_CPG, N_U, "float64")
-    _k7_case(N_CPG, N_U, "float32", data="bfloat16", label="[bf16]")
-    _k7_case(N_CPG, U_N_U, "float32", n_ct=0, lagged=True, seed=301,
+    # (their times are on record, PERF.md) at N_WIDE sites: no user path
+    # runs K7, and the twin at 1M sites took the phase's time
+    _k7_case(N_WIDE, N_U, "float64")
+    _k7_case(N_WIDE, N_U, "float32", data="bfloat16", label="[bf16]")
+    _k7_case(N_WIDE, U_N_U, "float32", n_ct=0, lagged=True, seed=301,
              label="[lagged, no known block]")
-    _k7_case(N_CPG, U_N_U, "float64", n_ct=0, lagged=True, seed=301,
+    _k7_case(N_WIDE, U_N_U, "float64", n_ct=0, lagged=True, seed=301,
              label="[lagged, no known block]")
-    _k7_case(N_CPG, N_U, "float32", steps=P_INNER, seed=302,
+    _k7_case(N_WIDE, N_U, "float32", steps=P_INNER, seed=302,
              label="[500 steps]")
     out["k7_cohort"] = _k7_case(COHORT[0], COHORT[3], "float32",
                                 n_s=COHORT[1], n_ct=COHORT[2], seed=303,
@@ -5319,7 +5402,7 @@ def phase_single_phase_kernels(card, main_ms):
     _k7_case(N_WIDE, 25, "float32", seed=306, label="[n_u=25]")
     check(u_phase.forms.get("state_in_device", 0) == before + 2,
           "K7's n_u > 8 launches were not counted as its state-region form")
-    _k7_case(N_CPG + 3, N_U, "float32", seed=305, label="[ragged N]")
+    _k7_case(N_WIDE + 3, N_U, "float32", seed=305, label="[ragged N]")
 
     out["k8_sass"] = _k8_sass()
     k8 = out["k8"] = _k8_case(N_CPG, N_S, N_CT + N_U, "float32", timed=True,
@@ -5341,7 +5424,7 @@ def phase_single_phase_kernels(card, main_ms):
     # off the MMA tiles; the widest plan (p = 64, n_s = 500, float64)
     for dt_name, data in (("float32", None), ("float64", None),
                           ("float32", "bfloat16")):
-        _k8_case(N_CPG + 3, N_S, N_CT + N_U, dt_name, data=data, seed=322,
+        _k8_case(N_WIDE + 3, N_S, N_CT + N_U, dt_name, data=data, seed=322,
                  label="[ragged N]")
         _k8_case(N_TRAJ, 1, 1, dt_name, data=data, seed=323,
                  label="[n_s = 1, p = 1]")
@@ -5794,15 +5877,78 @@ def _k3_outputs(shape):
     return saved
 
 
+# K3's and K6's shapes above 64 rows ("p{p}_{dtype}": p, dtype, steps):
+# one block a column (65-168 in float64), clusters of two (200 in
+# float64, 240 in float32) and, past eight blocks, the device slabs (490)
+COLUMN_SHAPES = {f"p{p}_{dt}": (p, dt, steps) for p, dt, steps in (
+    (65, "float64", P_INNER), (65, "float32", P_INNER),
+    (100, "float64", P_INNER), (100, "float32", P_INNER),
+    (167, "float64", P_INNER), (168, "float64", P_INNER),
+    (200, "float64", P_INNER), (240, "float32", P_INNER),
+    (490, "float64", 20))}
+
+
+def _column_outputs(shape):
+    """K3's and K6's outputs at ``shape`` of ``COLUMN_SHAPES``, one launch
+    each from seeded inputs, on the CPU: K3 at n_s = 10 and 100, K6 at
+    B = 4 with member 1 inactive, and K6 at B = 3 with per-member
+    weighted known blocks (member 1 inactive). Alpha, then the cost, l_w
+    and the active flag (``*_cost``) apart from the other scalars."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W
+    from demethify_tpu_torch.ops.cuda_small import (
+        fw_phase_full, fw_phase_full_multi)
+
+    p, dt, steps = COLUMN_SHAPES[shape]
+    saved = {}
+
+    def at_purity(alpha, purity):
+        return torch.cat([
+            alpha[..., :p - 1, :] / alpha[..., :p - 1, :].sum(
+                -2, keepdim=True) * purity,
+            alpha[..., p - 1:, :] / alpha[..., p - 1:, :].sum(
+                -2, keepdim=True) * (1 - purity)], dim=-2).contiguous()
+
+    def put(key, alpha, scal):
+        cs = [COST, L_W] + ([ACTIVE] if scal.dim() == 2 else [])
+        rest = [k for k in range(scal.shape[-1]) if k not in cs]
+        saved.update({f"{key}_alpha": alpha.cpu(),
+                      f"{key}_cost": scal[..., cs].cpu(),
+                      f"{key}_scal": scal[..., rest].cpu()})
+
+    for n_s in (N_S, 100):
+        blocks, _, _, alpha, _, scal = _phase_glue_inputs(
+            p, p - 1, dt, 700 + p + n_s, n_s)
+        gtt, bt, gu, bu, _, ydy = blocks
+        purity = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
+        a = at_purity(alpha, purity)
+        fw_phase_full(gtt, bt, gu, bu, ydy, a, purity, scal, steps, 1)
+        put(f"k3_ns{n_s}", a, scal)
+    for tag, n_b, weighted in (("k6", 4, False), ("k6w", 3, True)):
+        (gtt, bt, gu, bu, _, ydy, alpha_b, _,
+         scal_b) = _glue_multi_inputs(p - 1, 1, dt, n_b, (1,),
+                                      720 + p + n_b, weighted=weighted)
+        purity = torch.linspace(0.3, 0.9, N_S, device=DEV,
+                                dtype=alpha_b.dtype)
+        a = at_purity(alpha_b, purity)
+        fw_phase_full_multi(gtt, bt, gu, bu, ydy, a, purity, scal_b, steps,
+                            1)
+        put(tag, a, scal_b)
+    return saved
+
+
 # what save_outputs runs for each kind, and its named tables of
 # (kind, shape) pairs
 OUTPUT_KINDS = {"K1": _k1_outputs, "K4": _k4_outputs, "K7": _k7_outputs,
-                "glue": _glue_outputs, "K3": _k3_outputs}
+                "glue": _glue_outputs, "K3": _k3_outputs,
+                "columns": _column_outputs}
 OUTPUT_TABLES = {"global": GLOBAL_SHAPES, "main": MAIN_SHAPES,
                  "state": STATE_SHAPES,
                  "glue": (("glue", "main"), ("glue", "cohort"),
                           ("K3", "main"), ("K3", "cohort"), ("K3", "k6")),
-                 "glue_wide": (("glue", "wide"),)}
+                 "glue_wide": (("glue", "wide"),),
+                 "columns": tuple(("columns", s) for s in COLUMN_SHAPES)}
 
 
 def save_outputs(root, path, shapes):
@@ -5939,6 +6085,44 @@ def _aic_sweep_time():
             "ms_per_rank": {str(k): v for k, v in sorted(times.items())}}
 
 
+def _past_path_times():
+    """The purity paths past one block's shared memory, as
+    ``phase_past_envelope`` runs them (20k x 10, float64, 5 x 100, tol 0):
+    purity at 179 + 1 (p = 180), 4 purity restarts and the purity weights
+    bootstrap (B = 4) at 205 + 4 (p = 209); ms per outer iteration, the
+    median of 3 runs after one (CUDA events)."""
+    import torch
+
+    from demethify_tpu_torch.solvers.api import purity_deconv
+    from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
+
+    n, n1, n2 = ENVELOPE_SITES, 5, 100
+    pur = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=torch.float64)
+    calls = {}
+    for tag, n_ct, n_u, r, seed in (("purity_p180", 179, 1, 1, 191),
+                                    ("purity_restarts_p209", 205, 4, 4,
+                                     193)):
+        y, d, Rt = _wide_problem(n, N_S, n_ct, n_u, torch.float64, seed)
+        calls[tag] = (lambda y=y, d=d, Rt=Rt, n_u=n_u, r=r: purity_deconv(
+            y, d, Rt, n_u, pur, n_iter1=n1, n_iter2=n2, tol=0.0, seed=21,
+            n_restarts=r))
+    y, d, Rt = _wide_problem(n, N_S, 205, 4, torch.float64, seed=195)
+    indices = np.random.default_rng(195).integers(0, n, size=(4, n))
+    u_b, a_b = _member_inits(n, 4, 205, 4, seed=195,
+                             purity=pur.cpu().numpy())
+    calls["purity_bootstrap_p209"] = lambda: bootstrap_ci(
+        y, d, Rt, 4, purity=pur, level=90, n_bootstrap=4, n_iter1=n1,
+        n_iter2=n2, tol=0.0, method="weights", indices=indices,
+        inits=list(zip(u_b, a_b)))
+    out = {}
+    for tag, call in calls.items():
+        call()
+        out[tag] = statistics.median(timed_ms(call)[1] / n1
+                                     for _ in range(3))
+        log(f"[time] {tag}: {out[tag]:.4f} ms per outer iteration")
+    return out
+
+
 # time_cases' tables: (name, function, keywords), each function returning
 # a dict of numbers; the _k*_case timings are medians of back-to-back
 # launches (CUDA events) beside their bound and twin
@@ -5993,12 +6177,21 @@ TIME_TABLES = {
                         + [(p, k) for p in (33, 64) for k in ("k2", "k3")])
         for n_s in TWO_ROW_NS for dt in ("float32", "float64"))
     + (("p40_paths", _p40_path_times, {}),),
+    # K3 and K6 (B = 8) above 64 rows at n_s = 10: one block a column
+    # (p = 100), clusters of two (p = 200, float64; 240, float32); then the
+    # purity paths that run them
+    "columns": tuple(
+        (f"{kern}_p{p}_ns10_{dt}", _glue_time,
+         dict(kern=kern, p=p, n_s=N_S, dt=dt))
+        for p, dt in ((100, "float64"), (200, "float64"), (240, "float32"))
+        for kern in ("k3", "k6"))
+    + (("past_paths", _past_path_times, {}),),
 }
 
 
 def time_cases(root, table):
     """Times the cases of ``TIME_TABLES[table]`` ("global", "state",
-    "glue") with the tree at ``root`` and prints one JSON line: the card's
+    "glue", "columns") with the tree at ``root`` and prints one JSON line: the card's
     ``nvidia-smi`` name and power limit and each case's result by name.
     For a parent/change comparison on one card run parent, change, change,
     parent, one process each:
@@ -6701,13 +6894,14 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             glue["k2 wide"]["check_launches"]["alpha_phase_full{p>32}"],
             "its check against the twin at p=100, n_s=10, float64 (no path "
             "of this script runs p 65-167)"),
-        row("fw_phase_full{p>64}", src + "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:636 (p > 64, via :653)",
-            glue["k3 wide"],
-            glue["k3 wide"]["check_launches"]["fw_phase_full{p>32}"],
-            "its check against the twin at p=100, n_s=10, float64 (no path "
-            "of this script runs p 65-167)", bound_ms=k3w_b[0],
-            bound_by=k3w_b[1]),
+        dict(row("fw_phase_full{column blocks, one block}",
+                 src + "fw_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:636 (p > 64, via :653)",
+                 glue["k3 wide"], glue["k3 wide"]["check_launches"][
+                     "fw_phase_full{column blocks}"],
+                 "its check against the twin at p=100, n_s=10, float64 (no "
+                 "path of this script runs p 65-168)", bound_ms=k3w_b[0],
+                 bound_by=k3w_b[1]), redesigned=K3_COLUMNS),
         row("u_phase_grams{bf16_compute direct}", k1_src + ".cu",
             k1_at + " (bf16_compute direct fallback :299-311, via :499)",
             k1_bf16c_direct, k1_bf16c_direct["launches"],
@@ -6771,27 +6965,31 @@ def _global_rows(glob, past):
             "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
             glob["k2"], past["global"]["alpha_phase_full{device slabs}"],
             "partial-ref 20k x 10, 200+10, float64 (times: p=200)"),
-        row("fw_phase_full{device slabs}", "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)", k3,
-            past["device slabs purity"]["fw_phase_full{device slabs}"],
-            "purity 20k x 10, 179+1, float64, 5x100 (times: p=200)"),
+        dict(row("fw_phase_full{column blocks}", "fw_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)",
+                 k3, past["column blocks purity"][
+                     "fw_phase_full{column blocks}"],
+                 "purity 20k x 10, 179+1, float64, 5x100 (times: p=200)"),
+             redesigned=K3_COLUMNS),
         row("alpha_phase_full_multi{device slabs}", "alpha_phase_full.cu",
             "demethify_tpu/ops/pallas_small.py:388 (any p, via :485)",
             glob["k5"],
             past["global restarts"]["alpha_phase_full_multi{device slabs}"],
             "4 restarts 20k x 10, 205+4, float64 (times: p=200, B=8)"),
-        row("fw_phase_full_multi{device slabs}", "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:571 (any p, via :592)",
-            glob["k6"],
-            past["global purity restarts"][
-                "fw_phase_full_multi{device slabs}"],
-            "4 purity restarts 20k x 10, 205+4, float64 (times: p=200, "
-            "B=8)")]
+        dict(row("fw_phase_full_multi{column blocks}", "fw_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:571 (any p, via :592)",
+                 glob["k6"], past["global purity restarts"][
+                     "fw_phase_full_multi{column blocks}"],
+                 "4 purity restarts 20k x 10, 205+4, float64 (times: p=200, "
+                 "B=8)"), redesigned=K3_COLUMNS)]
 
 
 # what the kernels line says of the kernels this round redesigned
 K3_REDESIGN = ("row bucket P >= p; step sizes from a table; a warp per "
                "column over several blocks past 16 columns")
+K3_COLUMNS = ("p > 64: a block, or a cluster of up to 8 blocks, a column, "
+              "one row a thread, G_s rows in the blocks' shared memory, the "
+              "minima folded through distributed shared memory")
 K4_REDESIGN = ("members in groups (k4_member_plan): steps back to back, "
                "one Gram stage a group in tiles across the members; "
                "partials (n_blocks, B E)")

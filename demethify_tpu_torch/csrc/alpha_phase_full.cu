@@ -213,7 +213,8 @@ alpha_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     }
     // the member's last block sums the columns in the fixed order
     T cost, lw;
-    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    if (!dm::column_cost(cs, m.ydy, n_s, dm::cost_groups(n_s),
+                         tickets, mb, cost, lw)) return;
     T a_fin = a0;
     if (use_table) {
         a_fin = tab[n_steps];
@@ -294,7 +295,8 @@ alpha_phase_two_row_kernel(const T* __restrict__ gtt,
     }
     // the member's last block sums the columns in the fixed order
     T cost;
-    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    if (!dm::column_cost(cs, m.ydy, n_s, dm::cost_groups(n_s),
+                         tickets, mb, cost, lw)) return;
     T a_fin = a0;
     if (use_table) {
         a_fin = tab[n_steps];
@@ -568,8 +570,9 @@ int dm_two_row_stride(int p) { return dm::two_row_stride(p); }
 // bytes: 0 in the register form (p <= 32); in the two-row form the slab
 // of a block's one column (the momentum or step-size table follows it
 // where it fits); in the wide form above the card's limit
-// when one warp's slab does not fit, where K2, K3, K5 and K6 keep their
-// slabs in device memory instead (and K9, K10 refuse the shape).
+// when one warp's slab does not fit, where K2 and K5 keep their slabs in
+// device memory instead (and K9, K10 refuse the shape); K3 and K6 take
+// their column blocks above 64 rows (dm_fw_column_plan).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     if (p <= dm::kTwoRowP)
@@ -578,10 +581,11 @@ long long dm_glue_smem(int itemsize, int p, int n_s) {
     return (w < 1 ? 1 : w) * dm::glue_warp_elems(p) * itemsize;
 }
 
-// Elements of the work buffer K2, K3, K5 and K6 need per member at p rows
-// and n_s columns: 0 where the wide form's slabs fit shared memory (or
-// p <= 64, where the register and two-row forms' colsum is 3 n_s), else
-// min(n_s, 32) slabs in device memory.
+// Elements of the work buffer K2 and K5 need per member at p rows and n_s
+// columns (K3 and K6 too, past eight column blocks): 0 where the wide
+// form's slabs fit shared memory (or p <= 64, where the register and
+// two-row forms' colsum is 3 n_s), else min(n_s, 32) slabs in device
+// memory.
 long long dm_glue_work(int itemsize, int p, int n_s) {
     if (p <= dm::kTwoRowP || dm::glue_warps(itemsize, p, n_s) >= 1)
         return 0;

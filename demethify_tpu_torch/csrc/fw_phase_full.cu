@@ -61,18 +61,39 @@
 // grid's y axis), the cost summed by column_cost: alpha is the wide
 // form's bit for bit, the cost too wherever the wide form's block held
 // min(n_s, 32) warps.
-// Above 64 rows the wide form keeps each warp's column (G_s, b_s, alpha
-// and the gradient) in its own slab of shared memory and gives lane q the
-// rows q, q + 32, ...: the same products in the same order, each block's
-// minimum over the lanes' minima and its first row as the smallest row
-// index holding it. The block has as many warps as slabs fit
-// (small_common.cuh), warps loop over the columns, and the cost sums per
-// warp then over the warps (block_cost); past one slab (p ~ 170 in
-// float64) the slabs live in device memory, as K2's (GSLAB, the same
-// code on other addresses). A member's columns stay inside its own
-// blocks, so a K6 launch takes about K3's time whatever B is, and each
-// member's arithmetic is K3's, bit for bit.
-//
+// Above 64 rows the column-block form: each column of each member has a
+// thread block of its own (K6's members on the grid's y axis), or a
+// thread-block cluster of C blocks where one block's shared memory cannot
+// hold G_s. Thread t of cluster block c owns row q = c R + t (R =
+// ceil(p / C) rows a block; threads past the rows take part in the
+// reductions only). The block keeps its R rows of G_s in shared memory,
+// transposed (entry r of row q at r R + t, so a warp reads consecutive
+// words at each r), its own copy of alpha (read by broadcast) and its
+// rows of b. A step: each thread forms its row's gradient, summed over r
+// in index order; each warp's (known, unknown) minima by butterfly and
+// their first rows by ballot; after one barrier (a cluster barrier when
+// C > 1, the warps' pairs double-buffered by step parity) every thread
+// folds all the warps' pairs, read through distributed shared memory,
+// into the same minima and first rows in every block, and each block
+// updates its copy of alpha identically. A NaN-propagating minimum and
+// the smallest row holding it do not depend on the order in which rows
+// are visited, and each row's sum is the same sum whichever thread forms
+// it, so alpha keeps the bits of the one-warp wide loop this form
+// replaced (lane q taking rows q, q + 32, ...; the register and two-row
+// forms keep them too). After the last step block 0 sums the column's
+// cost terms as that loop did (lane l over rows l, l + 32, ..., then the
+// shuffle-down tree), reading the other blocks' rows of b and G_s alpha
+// through distributed shared memory, and the member's last block sums the
+// columns in groups of that loop's warps (column_groups), so the cost and
+// l_w keep their bits as well. C is the fewest blocks whose shared memory
+// holds R rows of G_s, alpha and two rows of R (column_plan), at most 8,
+// the portable cluster size: one block to p = 168 in float64 (239 in
+// float32), up to eight to p = 472 (672). Past eight blocks the
+// device-slab loop stays: one block per member, each warp's column (G_s,
+// b_s, alpha and the gradient) in its own slab of the device buffer
+// `work` (K2's layout, dm_glue_work), lane q taking rows q, q + 32, ...,
+// with the same bits.
+
 // Device scalars `scal` (shared with K1 and K4; one row per member):
 // kLW and kCost (written), kDmax2 (read). K6 (MULTI) skips a member
 // whose kActive slot is 0 and sets kActive for the next outer iteration
@@ -84,7 +105,10 @@
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <unordered_set>
 
 #include "glue_steps.cuh"
 #include "small_common.cuh"
@@ -168,7 +192,8 @@ fw_phase_reg_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     }
     // the member's last block sums the columns in the fixed order
     T cost, lw;
-    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    if (!dm::column_cost(cs, m.ydy, n_s, dm::cost_groups(n_s),
+                         tickets, mb, cost, lw)) return;
     m.scal[dm::kLW] = lw * dmax2;
     dm::set_cost<MULTI>(m.scal, cost);
 }
@@ -227,17 +252,258 @@ fw_phase_two_row_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     }
     // the member's last block sums the columns in the fixed order
     T cost;
-    if (!dm::column_cost(cs, m.ydy, n_s, tickets, mb, cost, lw)) return;
+    if (!dm::column_cost(cs, m.ydy, n_s, dm::cost_groups(n_s),
+                         tickets, mb, cost, lw)) return;
     m.scal[dm::kLW] = lw * dmax2;
     dm::set_cost<MULTI>(m.scal, cost);
 }
 
-// The wide form (p > 64): one block per member, each warp's column in its
-// slab of shared memory (GSLAB: of the device buffer gslab, as K2's),
-// warps looping over the columns; the cost summed per warp, then over
-// the warps in order (block_cost).
-template <typename T, bool MULTI, bool GSLAB>
-__global__ void fw_phase_wide_kernel(
+// ---- the column-block form (p > 64) ----------------------------------
+
+namespace cg = cooperative_groups;
+
+// the most blocks a column's cluster takes (the portable cluster size)
+// and threads a block (column_plan never asks for more: a block's R rows
+// of G_s fit shared memory only up to R = 242 in float32)
+constexpr int kMaxColumnBlocks = 8;
+constexpr int kColumnThreads = 256;
+
+// A column's launch plan: C blocks (0: past kMaxColumnBlocks, the device
+// slabs), R rows a block, its threads (R rounded up to warps) and its
+// dynamic shared memory: R rows of G_s, alpha, and R values each of b
+// and G_s alpha (the cost epilogue's rows).
+struct ColumnPlan {
+    int blocks, rows, threads;
+    long long bytes;
+};
+
+ColumnPlan column_plan(int itemsize, int p) {
+    for (int c = 1; c <= kMaxColumnBlocks; ++c) {
+        const int rows = (p + c - 1) / c;
+        const long long bytes =
+            static_cast<long long>(itemsize)
+            * (static_cast<long long>(rows) * p + p + 2LL * rows);
+        if (bytes <= dm::kGlueSmemLimit)
+            return ColumnPlan{c, rows, 32 * ((rows + 31) / 32), bytes};
+    }
+    return ColumnPlan{0, 0, 0, 0};
+}
+
+// The cost's group count: the warps of the one-block-per-member wide loop
+// the column blocks replaced, min(n_s, 32) capped by the slabs that fit
+// its shared memory where one did (dm::glue_warps) and, where its slabs
+// were in device memory, by its registers: that loop's kernels allowed
+// 1024 threads a block in every instantiation but the float64 device-slab
+// ones, which took 72 registers a thread and allowed 896, 28 warps
+// (cudaFuncGetAttributes on an H100).
+constexpr int kSlabLoopWarps64 = 28;
+
+int column_groups(int itemsize, int p, int n_s) {
+    const int groups = dm::cost_groups(n_s);
+    const int fit = dm::glue_warps(itemsize, p, n_s);
+    const int cap = fit >= 1 ? fit : (itemsize == 8 ? kSlabLoopWarps64 : 32);
+    return cap < groups ? cap : groups;
+}
+
+// One warp's (known, unknown) block minima and the first rows holding
+// them (p where none does)
+template <typename T>
+struct WarpMin {
+    T m1, m2;
+    int i1, i2;
+};
+
+// Folds a warp's minimum and first row (m2, i2) into (m, i): a NaN
+// minimum stays (it matches no row, so i is p), a smaller one replaces
+// it, an equal one keeps the smaller first row -- the minimum over the
+// rows compares equal to the one-warp loop's and the first row is the
+// same, whatever order the warps are folded in.
+template <typename T>
+__device__ __forceinline__ void fold_min(T& m, int& i, T m2, int i2) {
+    if (m != m) return;
+    if (m2 != m2 || m2 < m) {
+        m = m2;
+        i = i2;
+    } else if (m2 == m && i2 < i) {
+        i = i2;
+    }
+}
+
+// (G_s a)_q for this thread's row t, from the block's transposed rows sg
+// (entry r at r * rows + t): summed over r in index order. A plain loop:
+// with loads a chunk of 8 ahead of the sum, or unrolled by 8, the same
+// kernels took 4-37% longer on an H100 (chip_smoke.time_cases' "columns"
+// cases).
+template <typename T>
+__device__ __forceinline__ T column_row_dot(const T* __restrict__ sg,
+                                            const T* __restrict__ a,
+                                            int rows, int t, int p) {
+    T ga = T(0);
+    for (int r = 0; r < p; ++r) ga += sg[r * rows + t] * a[r];
+    return ga;
+}
+
+// The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
+// runs column s of member mb, block c of it rows [c R, c R + R); colsum
+// (3, n_s) per member receives each column's cost terms and tickets[mb]
+// counts the member's finished blocks, as the register form's; `groups`
+// is column_groups.
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(kColumnThreads)
+fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
+                        const T* __restrict__ gu, const T* __restrict__ bu,
+                        const T* __restrict__ ydy, T* __restrict__ alpha,
+                        const T* __restrict__ purity, T* __restrict__ scal,
+                        T* __restrict__ colsum,
+                        unsigned* __restrict__ tickets, int n_s, int n_ct,
+                        int n_u, int n_steps, int rows, int groups,
+                        dm::MemberStrides st) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ WarpMin<T> red[2][kColumnThreads / 32];
+    cg::cluster_group cluster = cg::this_cluster();
+    const long long mb = MULTI ? blockIdx.y : 0;
+    const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, ydy, alpha,
+                                          scal, st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;    // uniform per cluster
+    }
+    const int n_blocks = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int s = blockIdx.x / n_blocks;
+    const int p = n_ct + n_u;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const int q0 = rank * rows;                     // this block's rows
+    const int own = p - q0 < rows ? p - q0 : rows;
+    const int q = q0 + tid;
+    const bool row = tid < own;
+    const bool known = q < n_ct;
+    T* cs = colsum + mb * 3 * n_s;
+    const T dmax2 = m.scal[dm::kDmax2];
+
+    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
+    T* sal = sg + rows * p;                         // alpha (p)
+    T* sb = sal + p;                                // b of the block's rows
+    T* sga = sb + rows;                             // (G_s alpha) of them
+    // G_s's rows by the assembly rule of load_gram_row, read along r
+    for (int k = tid; k < own * p; k += blockDim.x) {
+        const int t = k / p;
+        const int r = k - t * p;
+        const int qq = q0 + t;
+        T x;
+        if (qq >= n_ct)
+            x = m.gu[(s * n_u + (qq - n_ct)) * p + r];
+        else if (r >= n_ct)
+            x = m.gu[(s * n_u + (r - n_ct)) * p + qq];
+        else
+            x = m.gtt[(s * n_ct + qq) * n_ct + r];
+        sg[r * rows + t] = x;
+    }
+    for (int r = tid; r < p; r += blockDim.x) sal[r] = m.alpha[r * n_s + s];
+    const T b = row ? (known ? m.bt[q * n_s + s] : m.bu[(q - n_ct) * n_s + s])
+                    : T(0);
+    const T pur = purity[s];
+    const T pur2 = T(1) - pur;
+    const T big = T(3.4e38);                // the TPU kernel's block mask
+    const T pad = dm::pos_inf<T>();
+    __syncthreads();
+
+    for (int k = 0; k < n_steps; ++k) {
+        T g1 = pad, g2 = pad;
+        if (row) {
+            const T grad = -(b - column_row_dot(sg, sal, rows, tid, p));
+            g1 = known ? grad : big;
+            g2 = known ? big : grad;
+        }
+        const T m1 = dm::warp_min(g1);
+        const T m2 = dm::warp_min(g2);
+        const unsigned h1 = __ballot_sync(dm::kFull, row && g1 == m1);
+        const unsigned h2 = __ballot_sync(dm::kFull, row && g2 == m2);
+        WarpMin<T>* mine = red[k & 1];
+        if (lane == 0)
+            mine[warp] = WarpMin<T>{m1, m2,
+                                    h1 ? q0 + 32 * warp + __ffs(h1) - 1 : p,
+                                    h2 ? q0 + 32 * warp + __ffs(h2) - 1 : p};
+        if (n_blocks > 1)
+            cluster.sync();
+        else
+            __syncthreads();
+        T b1 = pad, b2 = pad;
+        int i1 = p, i2 = p;
+        for (int c = 0; c < n_blocks; ++c) {
+            const WarpMin<T>* theirs =
+                n_blocks > 1 ? cluster.map_shared_rank(mine, c) : mine;
+            for (int w = 0; w < n_warps; ++w) {
+                const WarpMin<T> e = theirs[w];
+                fold_min(b1, i1, e.m1, e.i1);
+                fold_min(b2, i2, e.m2, e.i2);
+            }
+        }
+        const T gamma = T(2) / (static_cast<T>(k) + T(2));
+        for (int r = tid; r < p; r += blockDim.x) {
+            const T e1 = r == i1 ? T(1) : T(0);
+            const T e2 = r == i2 ? T(1) : T(0);
+            const T vert = e1 * pur + e2 * pur2;
+            sal[r] = (T(1) - gamma) * sal[r] + gamma * vert;
+        }
+        __syncthreads();                    // alpha is whole again
+    }
+
+    // the column's cost terms in the wide loop's order: lane l over rows
+    // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide)
+    if (row) {
+        sga[tid] = column_row_dot(sg, sal, rows, tid, p);
+        sb[tid] = b;
+        m.alpha[q * n_s + s] = sal[q];
+    }
+    if (n_blocks > 1)
+        cluster.sync();
+    else
+        __syncthreads();
+    if (rank == 0 && warp == 0) {
+        T ba = T(0), ag = T(0), lw = T(0);
+        for (int qq = lane; qq < p; qq += 32) {
+            const int c = qq / rows;
+            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, c) : sb;
+            const T* rga =
+                n_blocks > 1 ? cluster.map_shared_rank(sga, c) : sga;
+            const T a = sal[qq];
+            const T bq = rb[qq - c * rows];
+            const T ga = rga[qq - c * rows];
+            ba += bq * a;
+            ag += a * (bq - ga);
+            if (qq >= p - n_u) lw += a * a;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            ba += __shfl_down_sync(dm::kFull, ba, off);
+            ag += __shfl_down_sync(dm::kFull, ag, off);
+            lw += __shfl_down_sync(dm::kFull, lw, off);
+        }
+        if (lane == 0) {
+            cs[s] = ba;
+            cs[n_s + s] = ag;
+            cs[2 * n_s + s] = lw;
+        }
+    }
+    // no block leaves while block 0 may still read its shared memory
+    if (n_blocks > 1) cluster.sync();
+    T cost, lw;
+    if (!dm::column_cost(cs, m.ydy, n_s, groups, tickets, mb, cost, lw))
+        return;
+    m.scal[dm::kLW] = lw * dmax2;
+    dm::set_cost<MULTI>(m.scal, cost);
+}
+
+// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
+// block per member, each warp's column in its slab of the device buffer
+// gslab (min(n_s, 32) slabs a member, K2's layout), warps looping over
+// the columns; the cost summed per warp, then over the warps in order
+// (block_cost).
+template <typename T, bool MULTI>
+__global__ void fw_phase_slabs_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ ydy, T* __restrict__ alpha,
@@ -256,7 +522,7 @@ __global__ void fw_phase_wide_kernel(
     const T dmax2 = m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    T* sg = dm::warp_slab<T, GSLAB>(gslab, warp, n_warps, p);
+    T* sg = dm::warp_slab<T, true>(gslab, warp, n_warps, p);
     T* sb = sg + p * p;
     T* sal = sb + p;
     T* sgr = sal + p;
@@ -329,54 +595,84 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool MULTI, bool GSLAB>
-int launch_wide_as(const void* gtt, const void* bt, const void* gu,
+// The column-block form: a cluster of plan.blocks blocks a column (the
+// cluster dimension attribute), checked once per plan with
+// cudaOccupancyMaxActiveClusters: cudaErrorInvalidConfiguration where the
+// card cannot place one cluster.
+template <typename T, bool MULTI>
+int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* ydy, void* alpha,
-                   const void* purity, void* scal, void* gslab, int n_s,
-                   int n_ct, int n_u, int n_steps, int n_members,
-                   dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = fw_phase_wide_kernel<T, MULTI, GSLAB>;
+                   const void* purity, void* scal, void* colsum,
+                   void* tickets, int n_s, int n_ct, int n_u, int n_steps,
+                   int n_members, dm::MemberStrides st,
+                   cudaStream_t stream) {
+    auto kern = fw_phase_columns_kernel<T, MULTI>;
+    const int p = n_ct + n_u;
+    const ColumnPlan plan = column_plan(sizeof(T), p);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_s * plan.blocks, MULTI ? n_members : 1);
+    cfg.blockDim = dim3(plan.threads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(plan.bytes);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = plan.blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // every plan's bytes are at most kGlueSmemLimit
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dm::kGlueSmemLimit));
+    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+    static std::unordered_set<int> placed;        // p of the plans checked
+    if (placed.count(p) == 0) {
+        int clusters = 0;
+        const cudaError_t err =
+            cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (clusters < 1)
+            return static_cast<int>(cudaErrorInvalidConfiguration);
+        placed.insert(p);
+    }
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, kern, static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(ydy), static_cast<T*>(alpha),
+        static_cast<const T*>(purity), static_cast<T*>(scal),
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
+        n_u, n_steps, plan.rows, column_groups(sizeof(T), p, n_s), st));
+}
+
+// The device-slab loop: min(n_s, 32) warps a member, capped by the
+// kernel's registers, each with its slab in the device buffer `work`
+template <typename T, bool MULTI>
+int launch_slabs(const void* gtt, const void* bt, const void* gu,
+                 const void* bu, const void* ydy, void* alpha,
+                 const void* purity, void* scal, void* work, int n_s,
+                 int n_ct, int n_u, int n_steps, int n_members,
+                 dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = fw_phase_slabs_kernel<T, MULTI>;
     static const int max_warps = dm::max_block_warps(kern);
     size_t smem = 0;
-    const int n_warps = dm::wide_warps<GSLAB>(sizeof(T), n_ct + n_u, n_s,
-                                              max_warps, smem);
-    if (n_warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kern<<<n_members, 32 * n_warps, smem, stream>>>(
+    const int n_warps = dm::wide_warps<true>(sizeof(T), n_ct + n_u, n_s,
+                                             max_warps, smem);
+    if (n_warps < 1 || work == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    kern<<<n_members, 32 * n_warps, 0, stream>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(ydy), static_cast<T*>(alpha),
         static_cast<const T*>(purity), static_cast<T*>(scal),
-        static_cast<T*>(gslab), n_s, n_ct, n_u, n_steps, st);
+        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
 }
 
-// the wide form's slabs in shared memory where one fits, else in the
-// device buffer `work` (min(n_s, 32) slabs a member)
-template <typename T, bool MULTI>
-int launch_wide(const void* gtt, const void* bt, const void* gu,
-                const void* bu, const void* ydy, void* alpha,
-                const void* purity, void* scal, void* work, int n_s,
-                int n_ct, int n_u, int n_steps, int n_members,
-                dm::MemberStrides st, cudaStream_t stream) {
-    if (dm::glue_warps(sizeof(T), n_ct + n_u, n_s) >= 1)
-        return launch_wide_as<T, MULTI, false>(
-            gtt, bt, gu, bu, ydy, alpha, purity, scal, nullptr, n_s, n_ct,
-            n_u, n_steps, n_members, st, stream);
-    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wide_as<T, MULTI, true>(gtt, bt, gu, bu, ydy, alpha,
-                                          purity, scal, work, n_s, n_ct, n_u,
-                                          n_steps, n_members, st, stream);
-}
-
-// p > 64: the wide form; else the register form at row bucket `bucket`
-// (8, 16 or 32, >= p) with `cols` columns a block, or the two-row form
-// at bucket 64 (a column a block)
+// p > 64: the column blocks, or past eight blocks the device slabs;
+// else the register form at row bucket `bucket` (8, 16 or 32, >= p) with
+// `cols` columns a block, or the two-row form at bucket 64 (a column a
+// block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* ydy, void* alpha, const void* purity, void* scal,
@@ -385,12 +681,17 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP)
-        return launch_wide<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
-                                     scal, colsum, n_s, n_ct, n_u, n_steps,
-                                     n_members, st, s);
-    if (p > bucket || colsum == nullptr || tickets == nullptr)
+    if (p > dm::kTwoRowP && column_plan(sizeof(T), p).blocks == 0)
+        return launch_slabs<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
+                                      scal, colsum, n_s, n_ct, n_u, n_steps,
+                                      n_members, st, s);
+    if (colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (p > dm::kTwoRowP)
+        return launch_columns<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
+                                        scal, colsum, tickets, n_s, n_ct,
+                                        n_u, n_steps, n_members, st, s);
+    if (p > bucket) return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
         return bucket != dm::kTwoRowP
                    ? static_cast<int>(cudaErrorInvalidValue)
@@ -415,11 +716,12 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 
 extern "C" {
 
-// colsum (3, n_s) and tickets (1, zero) the register form's per-column
-// cost terms and finished-block count (the register and two-row forms);
-// above p = 64 tickets is unread and colsum the wide form's work buffer,
-// as K2's (dm_glue_work); bucket and cols the plan as K2's
-// (ops/cuda_small.alpha_plan; cols unread in the two-row form)
+// colsum (3, n_s) and tickets (1, zero) the per-column cost terms and
+// finished-block count (the register, two-row and column-block forms);
+// past eight column blocks (dm_fw_column_plan) tickets is unread and
+// colsum the device slabs' work buffer, as K2's (dm_glue_work); bucket
+// and cols the plan as K2's (ops/cuda_small.alpha_plan; unread above
+// 32 rows but the two-row form's bucket)
 #define DM_K3_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* ydy, void* alpha,                   \
@@ -456,5 +758,23 @@ DM_K3_ENTRY(dm_fw_phase_full_f64, double)
     }
 DM_K6_ENTRY(dm_fw_phase_full_multi_f32, float)
 DM_K6_ENTRY(dm_fw_phase_full_multi_f64, double)
+
+// K3's and K6's column-block plan at p > 64 rows of itemsize-byte values:
+// out[0] blocks a column (0: the device slabs), out[1] rows a block,
+// out[2] threads a block; returns the block's dynamic shared memory in
+// bytes (ops/cuda_small.fw_column_plan is its Python copy)
+long long dm_fw_column_plan(int itemsize, int p, int* out) {
+    const ColumnPlan plan = column_plan(itemsize, p);
+    out[0] = plan.blocks;
+    out[1] = plan.rows;
+    out[2] = plan.threads;
+    return plan.bytes;
+}
+
+// The groups in which the column blocks' cost sums the columns
+// (ops/cuda_small.fw_column_groups)
+int dm_fw_column_groups(int itemsize, int p, int n_s) {
+    return column_groups(itemsize, p, n_s);
+}
 
 }  // extern "C"

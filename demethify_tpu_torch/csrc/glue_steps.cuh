@@ -463,7 +463,8 @@ __device__ __forceinline__ void fw_steps_two_row(
     }
 }
 
-// One column's Frank-Wolfe loop in the wide form (p > 64): the slab holds
+// One column's Frank-Wolfe loop in the wide form (p > 64; K3 and K6 run
+// it past eight column blocks, K10 in one block): the slab holds
 // G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
 // rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
 // of the lanes' minima over their rows, and its first row the smallest

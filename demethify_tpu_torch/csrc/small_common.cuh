@@ -9,7 +9,9 @@
 // registers and the warp keeps the column's Gram matrix in its slab of
 // shared memory (the two-row form, 32 < p <= 64); or, above 64 rows, each
 // warp keeps its column's Gram matrix, b and alpha in its own slab and
-// lane q takes rows q, q + 32, ... (the wide form).
+// lane q takes rows q, q + 32, ... (the wide form: K2 and K5, and K3 and
+// K6 past eight column blocks; below that K3 and K6 give a column a block
+// or a cluster of blocks, one row a thread: fw_phase_full.cu).
 
 #pragma once
 
@@ -40,8 +42,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
 // as many warps as fit under the card's opt-in limit (232,448 bytes on an
 // H100) less 1 KB for the kernels' static shared memory, at most 32 and
-// at most n_s. glue_warps returns 0 when one warp does not fit; K2, K3,
-// K5 and K6 then keep the slabs in device memory (warp_slab).
+// at most n_s. glue_warps returns 0 when one warp does not fit; K2 and K5
+// then keep the slabs in device memory (warp_slab), as K3 and K6 do past
+// eight column blocks (fw_phase_full.cu, whose cost groups its columns
+// as this form's blocks did).
 constexpr long long kGlueSmemLimit = 232448 - 1024;
 
 __host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
@@ -292,20 +296,25 @@ __device__ __forceinline__ bool block_cost(T sum_ba, T sum_ag, T sum_lw,
     return true;
 }
 
-// The register forms' cost epilogue over a grid (K2, K5, K3, K6): each
-// column's warp has written its terms b.a, a.(b - G a) and
-// ||alpha_unknown||^2 to cs[s], cs[n_s + s], cs[2 n_s + s]. The member's
-// last block to finish (a ticket taken with an integer atomic on
-// tickets[mb], reset to zero for the next launch; no ticket with one
-// block) sums them in a fixed order that does not depend on the grid:
-// column s into group s mod min(n_s, 32), each group in column order,
-// then the groups in order -- the order of block_cost in one block of
-// min(n_s, 32) warps. Returns true in that block's thread 0, with
-// cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and lw.
+// The cost epilogue over a grid (K2, K5, K3, K6): each column's terms
+// b.a, a.(b - G a) and ||alpha_unknown||^2 have been written to cs[s],
+// cs[n_s + s], cs[2 n_s + s]. The member's last block to finish (a ticket
+// taken with an integer atomic on tickets[mb], reset to zero for the next
+// launch; no ticket with one block) sums them in a fixed order that does
+// not depend on the grid: column s into group s mod `groups`, each group
+// in column order, then the groups in order -- the order of block_cost in
+// one block of `groups` warps. The register and two-row forms pass
+// min(n_s, 32) (cost_groups); K3's and K6's column blocks the warps of the
+// one-block wide loop they replace. Returns true in that block's thread
+// 0, with cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and lw.
+__host__ __device__ __forceinline__ int cost_groups(int n_s) {
+    return n_s < 32 ? n_s : 32;
+}
+
 template <typename T>
 __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
                                             const T* __restrict__ ydy,
-                                            int n_s,
+                                            int n_s, int groups,
                                             unsigned* __restrict__ tickets,
                                             long long mb, T& cost, T& lw) {
     if (gridDim.x > 1) __threadfence();
@@ -316,7 +325,6 @@ __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
         __threadfence();
         tickets[mb] = 0;                   // zero for the next launch
     }
-    const int groups = n_s < 32 ? n_s : 32;
     T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
     for (int k = 0; k < n_s; ++k) s_ydy += ydy[k];
     for (int w = 0; w < groups; ++w) {

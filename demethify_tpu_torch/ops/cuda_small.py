@@ -34,18 +34,24 @@ Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers
 (the register form); from 33 to 64 rows lane q holds rows q and q + 32
 of the column in registers and the warp's slab of shared memory holds
 the column's Gram matrix at an odd row stride (the two-row form,
-``two_row_stride``); above, the kernels' wide form keeps each warp's
-column in its own slab of shared memory (``glue_smem``); past one slab
-(p = 168 in float64, 238 in float32) the slabs live in a device-memory
-work buffer the wrapper allocates (``glue_work``), the same code on
-other addresses. K9 and K10 keep shared slabs only and raise past one,
-stating the shape. The register form of K2, K3, K5 and K6 runs its warp
-collectives to a row bucket of 8, 16 or 32 lanes and gives every column
-its own warp, over several blocks past 16 columns (``alpha_plan``), with
-the cost summed in a fixed order that does not depend on the grid; K3
-and K6 read their step sizes from a table built once per launch. The
-two-row form gives each column a block of its own, and its alpha is the
-wide form's bit for bit. K9 and K10 run K2's and K3's loops at the same
+``two_row_stride``). Above 64 rows K3 and K6 give each column a block,
+or a thread-block cluster of up to 8 blocks, with one row a thread and
+the column's Gram rows spread over the blocks' shared memory (the
+column-block form, ``fw_column_plan``); past 8 blocks (p = 473 in
+float64, 673 in float32) they keep the device-slab loop below. K2, K5,
+K9 and K10 above 64 rows keep the wide form: each warp's column in its
+own slab of shared memory (``glue_smem``); past one slab (p = 168 in
+float64, 238 in float32) K2 and K5 keep the slabs in a device-memory work
+buffer the wrapper allocates (``glue_work``), the same code on other
+addresses, and K9 and K10 raise, stating the shape. The register form
+of K2, K3, K5 and K6 runs its warp collectives to a row bucket of 8, 16
+or 32 lanes and gives every column its own warp, over several blocks
+past 16 columns (``alpha_plan``), with the cost summed in a fixed order
+that does not depend on the grid; K3 and K6 read their step sizes from
+a table built once per launch. The two-row form gives each column a
+block of its own, and its alpha is the wide form's bit for bit, as the
+column blocks' alpha, cost and l_w are the wide loop's they replaced.
+K9 and K10 run K2's and K3's loops at the same
 bucket: in one block in the register and wide forms, a column a block
 in the two-row form.
 
@@ -66,6 +72,8 @@ functions' operands, return new arrays and leave their inputs as they
 were; K9's scalars come back as 0-d tensors advanced on the device. No
 solver runs them.
 """
+
+import ctypes
 
 import torch
 
@@ -185,9 +193,11 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     form (p <= 32; K2's and K5's register form spreads its columns by
     ``alpha_plan`` instead); in the two-row form (p <= 64) ``alpha_plan``'s
     one column a block, its slab p x ``two_row_stride(p)`` values (the
-    momentum or step-size table follows the slab where it fits); in the
-    wide form one slab of p x p + 6 p values per warp and as many warps as
-    fit, at most min(n_s, 32) -- the kernels' ``dm::glue_warps``. Both
+    momentum or step-size table follows the slab where it fits); above 64
+    rows, K2's, K5's, K9's and K10's wide form (K3 and K6 take
+    ``fw_column_plan`` there): one slab of p x p + 6 p values per warp and
+    as many warps as fit, at most min(n_s, 32) -- the kernels'
+    ``dm::glue_warps``. Both
     are the kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this
     to. 0 warps when one slab does not fit (``glue_work``). A wide launch
     may take fewer warps where the kernel's registers allow fewer per
@@ -204,14 +214,90 @@ def glue_smem(itemsize: int, p: int, n_s: int):
 
 
 def glue_work(itemsize: int, p: int, n_s: int) -> int:
-    """Elements per member of the device-memory slabs K2, K3, K5 and K6
-    take where one warp's slab does not fit shared memory (``glue_smem``
-    gives 0 warps): min(n_s, 32) slabs of p x p + 6 p values; 0 otherwise.
+    """Elements per member of the device-memory slabs K2 and K5 take
+    where one warp's slab does not fit shared memory (``glue_smem`` gives
+    0 warps), and K3 and K6 past 8 column blocks (``fw_column_plan``
+    blocks 0): min(n_s, 32) slabs of p x p + 6 p values; 0 otherwise.
     The kernels' ``dm_glue_work``, which ``chip_smoke.py`` holds this
     to."""
     if p <= REG_P or glue_smem(itemsize, p, n_s)[0] >= 1:
         return 0
     return min(n_s, 32) * (p * p + 6 * p)
+
+
+# K3's and K6's column-block form (p > 64): at most this many blocks a
+# column, the portable cluster size (kMaxColumnBlocks)
+MAX_COLUMN_BLOCKS = 8
+COLUMN_PLAN_KEYS = ("blocks", "rows", "threads")
+
+
+def fw_column_plan(itemsize: int, p: int) -> dict:
+    """K3's and K6's plan above 64 rows (``csrc/fw_phase_full.cu``
+    ``column_plan``; the kernels' ``dm_fw_column_plan``, which
+    ``chip_smoke.py`` holds this to): "blocks" C, the fewest blocks of a
+    thread-block cluster whose shared memory holds the column, at most
+    MAX_COLUMN_BLOCKS; "rows" R = ceil(p / C), block c owning rows
+    [c R, min(c R + R, p)), one a thread; "threads", R rounded up to
+    warps; "bytes", a block's dynamic shared memory: R rows of G_s, alpha
+    (p) and R values each of b and G_s alpha, at most the card's limit less
+    1 KB. Blocks 0 (and the rest 0) past MAX_COLUMN_BLOCKS: the device
+    slabs (``glue_work``). A launch is a grid of (n_s C, members) blocks
+    in clusters of C."""
+    for c in range(1, MAX_COLUMN_BLOCKS + 1):
+        rows = -(-p // c)
+        n_bytes = itemsize * (rows * p + p + 2 * rows)
+        if n_bytes <= _GLUE_LIMIT:
+            return {"blocks": c, "rows": rows, "threads": 32 * -(-rows // 32),
+                    "bytes": n_bytes}
+    return {"blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
+
+
+def lib_fw_column_plan(lib, itemsize: int, p: int) -> dict:
+    """``fw_column_plan`` from the library's ``dm_fw_column_plan`` export
+    (the kernels' own copy)."""
+    out = (ctypes.c_int * len(COLUMN_PLAN_KEYS))()
+    n_bytes = lib.dm_fw_column_plan(int(itemsize), int(p), out)
+    return dict(zip(COLUMN_PLAN_KEYS, out), bytes=n_bytes)
+
+
+# the warps a block of the one-block wide loop took where its slabs were
+# in device memory, by itemsize: its kernels' registers allowed 896
+# threads in float64 (cudaFuncGetAttributes on an H100), 1024 in float32
+SLAB_LOOP_WARPS = {4: 32, 8: 28}
+
+
+def fw_column_groups(itemsize: int, p: int, n_s: int) -> int:
+    """The groups in which K3's and K6's column blocks sum a member's
+    columns into its cost and l_w (``dm_fw_column_groups``): the warps of
+    the one-block wide loop they replaced (``glue_smem``'s; where its
+    slabs were in device memory, min(n_s, 32) capped by SLAB_LOOP_WARPS),
+    so the sums keep that loop's order and bits."""
+    n_warps = glue_smem(itemsize, p, n_s)[0]
+    return n_warps if n_warps >= 1 else min(n_s, SLAB_LOOP_WARPS[itemsize])
+
+
+def _fw_args(like, n_b, p, n_s):
+    """K3's and K6's launch arguments (colsum, tickets, bucket, cols, the
+    work buffer) and, above 64 rows, the library's column plan: the
+    register and two-row forms' as ``_reg_args``; the column blocks' cost
+    terms and tickets; past MAX_COLUMN_BLOCKS the device slabs in colsum's
+    place (the buffer kept alive by the caller until the launch is
+    queued)."""
+    if p <= TWO_ROW_P:
+        return (*_reg_args(like, n_b, p, n_s), None)
+    plan = lib_fw_column_plan(_build.load().lib, like.element_size(), p)
+    if not plan["blocks"]:
+        return (*_reg_args(like, n_b, p, n_s), plan)
+    colsum, tickets = _glue_scratch(like, n_b, n_s)
+    return colsum.data_ptr(), tickets.data_ptr(), 0, 0, None, plan
+
+
+def _fw_case(p, n_s, n_b, like, plan):
+    """A K3 or K6 launch's shape, dtype and plan, for its error."""
+    where = ("device slabs" if not plan["blocks"] else
+             f"column blocks C = {plan['blocks']}, {plan['bytes']} bytes a "
+             f"block") if plan else "p <= 64"
+    return f"p = {p}, n_s = {n_s}, B = {n_b}, {like.dtype}, {where}"
 
 
 def _check_glue_shape(name, itemsize, p, n_s):
@@ -361,15 +447,17 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
     fn = (lib.dm_fw_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_fw_phase_full_f64)
     with torch.cuda.device(alpha.device):
-        colsum, tickets, bucket, cols, work = _reg_args(alpha, 1, p, n_s)
+        colsum, tickets, bucket, cols, work, plan = _fw_args(alpha, 1, p,
+                                                             n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), ydy.data_ptr(), alpha.data_ptr(),
                  purity.data_ptr(), scal.data_ptr(), colsum, tickets, n_s,
                  n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
-    _build.check(err, "fw_phase_full")
+    _build.check(err, "fw_phase_full", _fw_case(p, n_s, 1, alpha, plan))
     fw_phase_full.launches += 1
     count_forms(fw_phase_full.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
+                column_blocks=work is None and p > TWO_ROW_P,
                 device_slabs=work is not None)
 
 
@@ -595,18 +683,19 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
-        colsum, tickets, bucket, cols, work = _reg_args(alpha_b, n_b, p,
-                                                        n_s)
+        colsum, tickets, bucket, cols, work, plan = _fw_args(alpha_b, n_b, p,
+                                                             n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_b.stride(0), purity.data_ptr(), scal_b.data_ptr(),
                  N_SCAL_MULTI, colsum, tickets, n_s, n_ct, n_u, n_steps,
                  bucket, cols, n_b, _stream(alpha_b))
-    _build.check(err, name)
+    _build.check(err, name, _fw_case(p, n_s, n_b, alpha_b, plan))
     fw_phase_full_multi.launches += 1
     count_forms(fw_phase_full_multi.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
+                column_blocks=work is None and p > TWO_ROW_P,
                 device_slabs=work is not None)
 
 
