@@ -391,6 +391,7 @@ def counters():
             (k2, "forms:wide", "alpha_phase_full{p>32}"),
             (k2, "forms:two_row", "alpha_phase_full{two-row}"),
             (k2, "forms:device_slabs", "alpha_phase_full{device slabs}"),
+            (k2, "forms:column_blocks", "alpha_phase_full{column blocks}"),
             (k2, "forms:masked", "alpha_phase_full{masked}"),
             (k3, "forms:wide", "fw_phase_full{p>32}"),
             (k3, "forms:two_row", "fw_phase_full{two-row}"),
@@ -400,6 +401,8 @@ def counters():
             (k5, "forms:two_row", "alpha_phase_full_multi{two-row}"),
             (k5, "forms:device_slabs",
              "alpha_phase_full_multi{device slabs}"),
+            (k5, "forms:column_blocks",
+             "alpha_phase_full_multi{column blocks}"),
             (k5, "forms:masked", "alpha_phase_full_multi{masked}"),
             (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
             (k6, "forms:two_row", "fw_phase_full_multi{two-row}"),
@@ -3148,14 +3151,14 @@ def phase_past_envelope(card):
     """Shapes past one block's shared memory through ``solvers.api`` and
     ``bootstrap_ci``, float64, 20k x 10, each run with the counters at 0
     just before and read just after, which must show the kernels in their
-    device-memory forms and nothing else:
+    device-memory and column-block forms and nothing else:
       - partial-reference, 200 + 10 (p = 210, the direct form, n_u > 8),
-        10 x 10: K1's global layout, K2's device slabs;
+        10 x 10: K1's global layout, K2's column blocks (clusters of two);
       - purity, 179 + 1 (p = 180), 5 x 100: K1, K3's column blocks
         (clusters of two);
       - 4 restarts of partial-reference and of purity, 205 + 4 (p = 209,
-        the gram form), 10 x 10 and 5 x 100: K4's global layout, K5's
-        device slabs and K6's column blocks;
+        the gram form), 10 x 10 and 5 x 100: K4's global layout, K5's and
+        K6's column blocks;
       - the weights bootstrap in the purity mode, B = 4, 205 + 4, 5 x 100:
         K4 weighted in its global layout, K6's column blocks.
     Before each solve, the kernel solver it runs against the plain solver
@@ -3197,9 +3200,8 @@ def phase_past_envelope(card):
             tag, f"{n} x {N_S}, {n_ct}+{n_u} (p = {n_ct + n_u}), float64, "
             f"{r} restart(s), {n1}x{n2}, card {card}", call, n1, n_sites=n)
         k1 = "u_phase_grams_multi" if r > 1 else "u_phase_grams"
-        form = "column blocks" if glue in COLUMN_KERNELS else "device slabs"
         want = {k1: n1, glue: n1, f"{glue}{{p>32}}": n1,
-                f"{glue}{{{form}}}": n1}
+                f"{glue}{{column blocks}}": n1}
         layout = u_phase_layout("K1", 8, N_S, n_ct, n_u,
                                 not gram_form(n_u, N_S))[0]
         if layout != "resident":
@@ -3637,8 +3639,9 @@ def phase_layouts():
     the global layout's plan (``cuda_kernels.global_plan``: its chunk,
     ring and rows for one K1 member and for K4's groups, against
     ``dm_global_plan``); the glue kernels' device slabs
-    (``cuda_small.glue_work``) and K3's and K6's column blocks
-    (``fw_column_plan``, ``fw_column_groups`` at p = 65-700) against
+    (``cuda_small.glue_work``) and K2's, K3's, K5's and K6's column
+    blocks (``alpha_column_plan``, ``fw_column_plan``,
+    ``alpha_column_groups``, ``fw_column_groups`` at p = 65-700) against
     their exports."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -3647,8 +3650,9 @@ def phase_layouts():
     from demethify_tpu_torch.ops.cuda_small import REG_P
     from demethify_tpu_torch.ops.cuda_small import TWO_ROW_P as TWO_ROW_P_MAX
     from demethify_tpu_torch.ops.cuda_small import (
-        alpha_plan, fw_column_groups, fw_column_plan, glue_smem,
-        lib_fw_column_plan, two_row_stride)
+        alpha_column_groups, alpha_column_plan, alpha_plan, fw_column_groups,
+        fw_column_plan, glue_smem, lib_alpha_column_plan, lib_fw_column_plan,
+        two_row_stride)
     from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
 
     lib = _build.load().lib
@@ -3710,17 +3714,24 @@ def phase_layouts():
                 work = lib.dm_glue_work(itemsize, p, n_s)
                 if work != work_elems(itemsize, p, n_s):
                     bad.append(("glue work", itemsize, p, n_s, work))
-        # K3's and K6's column blocks: the plan and the cost's groups
+        # K2's, K3's, K5's and K6's column blocks: the plans and the
+        # cost's groups
         for p in range(65, 701):
-            n_checked += 1
+            n_checked += 2
             if (lib_fw_column_plan(lib, itemsize, p)
                     != fw_column_plan(itemsize, p)):
                 bad.append(("column plan", itemsize, p))
-            for n_s in (1, 10, 31, 32, 33, 100, 500):
-                n_checked += 1
+            if (lib_alpha_column_plan(lib, itemsize, p)
+                    != alpha_column_plan(itemsize, p)):
+                bad.append(("alpha column plan", itemsize, p))
+            for n_s in (1, 10, 27, 28, 29, 31, 32, 33, 100, 500):
+                n_checked += 2
                 if (lib.dm_fw_column_groups(itemsize, p, n_s)
                         != fw_column_groups(itemsize, p, n_s)):
                     bad.append(("column groups", itemsize, p, n_s))
+                if (lib.dm_alpha_column_groups(itemsize, p, n_s)
+                        != alpha_column_groups(itemsize, p, n_s)):
+                    bad.append(("alpha column groups", itemsize, p, n_s))
     # the glue kernels' row buckets and the two-row form's slab stride
     for p in range(1, 130):
         n_checked += 2
@@ -4031,15 +4042,16 @@ GLUE_KERNELS = ("alpha_phase_full", "fw_phase_full", "alpha_phase_full_multi",
                 "fw_phase_full_multi", "alpha_phase", "fw_phase")
 
 
-# K3 and K6, whose form above 64 rows is the column blocks
-COLUMN_KERNELS = ("fw_phase_full", "fw_phase_full_multi")
+# K2, K3, K5 and K6, whose form above 64 rows is the column blocks
+COLUMN_KERNELS = ("alpha_phase_full", "fw_phase_full",
+                  "alpha_phase_full_multi", "fw_phase_full_multi")
 
 
 def _glue_forms(case, want_two_row, columns=True):
     """Runs ``case()`` with the counters at 0 and checks each glue kernel
     it launched against its form counters: every launch in the two-row
-    form (``want_two_row``), or none (p > 64: K2's, K5's, K9's and K10's
-    wide loop; K3's and K6's column blocks where ``columns``, else their
+    form (``want_two_row``), or none (p > 64: K9's and K10's wide loop;
+    K2's, K3's, K5's and K6's column blocks where ``columns``, else their
     device slabs). Returns the case's result."""
     reset_counts()
     res = case()
@@ -4063,6 +4075,64 @@ def _glue_forms(case, want_two_row, columns=True):
     return res
 
 
+def _nan_column_case(p, n_s=N_S, col=3):
+    """K2 and K5 (B = 2) at p rows, float64, 200k sites, with G_s's entry
+    (p - 1, 0) of column ``col`` a NaN, against their twins: that column
+    comes out NaN in every row of alpha, as the twins and the JAX kernels
+    give it, and the other columns agree at the alpha tolerance. The
+    forms: register (p <= 32), two-row (33-64), column blocks (to 452) and
+    device slabs past them."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, alpha_phase_full_multi,
+        alpha_phase_full_multi_plain, alpha_phase_full_plain)
+
+    n_u = 1 if p <= 32 else 4
+    n_ct = p - n_u
+    blocks, _, _, alpha, alpha_prev, scal = _phase_glue_inputs(
+        p, n_ct, "float64", 800 + p, n_s)
+    gtt, bt, gu, bu, usq, ydy = blocks
+    gu = gu.clone()
+    gu[col, n_u - 1, 0] = float("nan")       # G_s[p - 1, 0]
+    (mgtt, mbt, mgu, mbu, musq, mydy, alpha_b, alpha_prev_b,
+     scal_b) = _glue_multi_inputs(n_ct, n_u, "float64", 2, (), 810 + p,
+                                  n_s=n_s)
+    mgu = mgu.clone()
+    mgu[1, col, n_u - 1, 0] = float("nan")
+    reset_counts()
+    outs = []
+    for fn, args, a, ap, sc in (
+            ("k2", (gtt, bt, gu, bu, usq, ydy), alpha, alpha_prev, scal),
+            ("k5", (mgtt, mbt, mgu, mbu, musq, mydy), alpha_b,
+             alpha_prev_b, scal_b)):
+        kern, plain = ((alpha_phase_full, alpha_phase_full_plain)
+                       if fn == "k2" else
+                       (alpha_phase_full_multi, alpha_phase_full_multi_plain))
+        ak, apk, sk = a.clone(), ap.clone(), sc.clone()
+        kern(*args, ak, apk, sk, N_INNER, n_u)
+        aq, apq, sq = a.clone(), ap.clone(), sc.clone()
+        plain(*args, aq, apq, sq, N_INNER, n_u)
+        outs.append((fn, ak, aq))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ok = True
+    for fn, ak, aq in outs:
+        nan_k, nan_q = torch.isnan(ak), torch.isnan(aq)
+        bad_col = (nan_k[..., col].all() if fn == "k2"
+                   else nan_k[1, :, col].all())
+        same_nan = torch.equal(nan_k, nan_q)
+        err = float((ak[~nan_q] - aq[~nan_q]).abs().max())
+        log(f"[NaN column] {fn} p={p} n_s={n_s} float64: column {col} NaN "
+            f"in every row: {bool(bad_col)}; NaN rows equal the twin's: "
+            f"{same_nan}; the other columns max|diff| {err:.3e} (tol "
+            f"{TOL['float64']['alpha']:.0e})")
+        ok = ok and bool(bad_col) and same_nan and (
+            err <= TOL["float64"]["alpha"])
+    log(f"[NaN column] p={p} launches {dict((k, v) for k, v in launches.items() if v)}")
+    check(ok, f"K2/K5 NaN column at p = {p}")
+
+
 def phase_wide_glue():
     """The two-row form (32 < p <= 64) of K2, K3, K5, K6, K9 and K10
     against their twins at p = 33, 40, 48, 64, n_s = 10 and 100, float32
@@ -4070,13 +4140,17 @@ def phase_wide_glue():
     bit for bit to K2 and K3 on the same Grams), each launch counted in
     the two-row form; K2 and K5 with row masks at p = 40 and 64 (an
     all-ones mask bit-identical to none, masked rows exactly 0); the wide
-    loop of K2, K5, K9 and K10 at p = 65 and 100, both dtypes, with no
-    two-row launch; K3's and K6's column blocks at p = 65 and 100 (both
-    dtypes), 167 and 168 (float64), one block a column, K6 with an
-    inactive member and at p = 100 with per-member known blocks. Returns
-    the timed p = 40, n_s = 10, float64 cases (the kernels line's rows)
-    and the timed p = 100 cases of K2's wide loop and K3's column
-    blocks."""
+    loop of K9 and K10 at p = 65 and 100, both dtypes, with no two-row
+    launch; K2's and K5's column blocks at p = 65 (both dtypes), 100
+    (float32; float64 timed), 166 and 167 (float64) and 237 and 238
+    (float32), the plan's last single block and first cluster of two, K5
+    with an inactive member, with row masks at p = 100 and 200 and with
+    per-member known blocks; K3's and K6's column blocks at p = 65 and 100
+    (both dtypes), 167 and 168 (float64), one block a column, K6 with an
+    inactive member and at p = 100 with per-member known blocks; a column
+    whose v holds a NaN in each form of K2 and K5 (``_nan_column_case``).
+    Returns the timed p = 40, n_s = 10, float64 cases (the kernels line's
+    rows) and the timed p = 100 cases of K2's and K3's column blocks."""
     timed = {}
     for p in TWO_ROW_P:
         for n_s in TWO_ROW_NS:
@@ -4116,20 +4190,44 @@ def phase_wide_glue():
                 _glue_forms(lambda: _k9_case(
                     p, dt, n_s=100, seed=121 + p,
                     mask=[0] + [1] * (p - 1)), True)
-    # the wide loop (p > 64) of K2, K5, K9 and K10, K5 with an inactive
-    # member
+    # the wide loop (p > 64) of K9 and K10
     for p in (65, 100):
         for dt in ("float64", "float32"):
             seed = 122 + p
-            if p == 65 or dt == "float32":
-                _glue_forms(lambda: _k2_case(p - 4, dt, n_u=4, seed=seed),
-                            False)
-            _glue_forms(lambda: _k5_case(p - 4, 4, dt, 4, (2,),
-                                         seed=seed + 2), False)
             _glue_forms(lambda: _k9_case(p, dt, seed=seed + 4), False)
             _glue_forms(lambda: _k10_case(p, dt, seed=seed + 5), False)
+    # K2's and K5's column blocks: one block a column at p = 65 and 100
+    # and to the plan's last (166 in float64, 237 in float32), clusters of
+    # two just past it; K5 with an inactive member, K2 also at n_s = 100
+    for p, dt in ((65, "float64"), (65, "float32"), (100, "float32"),
+                  (166, "float64"), (167, "float64"), (237, "float32"),
+                  (238, "float32")):
+        seed = 122 + p
+        _glue_forms(lambda: _k2_case(p - 4, dt, n_u=4, seed=seed), False)
+        _glue_forms(lambda: _k5_case(p - 4, 4, dt, 4, (2,), seed=seed + 2),
+                    False)
+    _glue_forms(lambda: _k2_case(163, "float64", n_u=4, seed=131, n_s=100),
+                False)
     timed["k2 wide"] = _glue_forms(lambda: _k2_case(
         96, "float64", n_u=4, seed=124, timed=True), False)
+    # with row masks (an all-ones mask bit-identical to none) and with
+    # per-member known blocks
+    for p, dt in ((100, "float64"), (100, "float32"), (200, "float64")):
+        _glue_forms(lambda: _k2_case(
+            p - 4, dt, n_u=4, seed=132 + p, n_s=100,
+            mask=[1] * (p - 2) + [0, 1]), False)
+        _glue_forms(lambda: _k2_case(p - 4, dt, n_u=4, seed=133 + p,
+                                     mask=[1] * p), False)
+        mask = np.ones((4, p))
+        mask[0, 3] = mask[3, p - 1] = 0.0
+        _glue_forms(lambda: _k5_case(p - 4, 4, dt, 4, (2,), seed=134 + p,
+                                     mask=mask.tolist()), False)
+    for p in (100, 200):
+        _glue_forms(lambda: _k5w_case(p - 4, 4, "float64", 3, (1,),
+                                      seed=135 + p), False)
+    # a column whose v holds a NaN, in every form of K2 and K5
+    for p in (6, 40, 100, 200, 460):
+        _nan_column_case(p)
     # K3's and K6's column blocks, one block a column up to p = 168 in
     # float64: K6 with an inactive member, and with per-member known blocks
     for p, dt in ((65, "float64"), (65, "float32"), (100, "float32"),
@@ -4161,8 +4259,9 @@ def phase_global_kernels():
     n_s = 10, its state on the chip; float32 400 + 4 at n_s = 64, also on
     bf16 data); K4's
     (B = 10, 160 + 4 at n_s = 64; weighted B = 4, 205 + 4 at n_s = 10);
-    K2 and K5 with their slabs in device memory at p = 200 (K2 also at
-    n_s = 100 and in float32 at p = 240); K3 and K6 in their column blocks
+    K2 and K5 in their column blocks at p = 200 (K2 also at n_s = 100)
+    and at 240 in float32, and in their device slabs past eight blocks
+    (p = 460, K2 at n_s = 10 and 100); K3 and K6 in their column blocks
     at p = 200 (clusters of two; K6 also with per-member known blocks) and
     at 240 in float32, and in their device slabs past eight blocks
     (p = 490, 20 steps). Each at 200k sites; the timed cases with a
@@ -4214,10 +4313,25 @@ def phase_global_kernels():
                          n_s=64, quick=True)
     out["k4w"] = _k4w_case(4, "float64", 4, N_INNER, n_ct=205, inactive=(2,),
                            seed=405, timed=True, label="[global]", n=N_WIDE)
-    out["k2"] = _k2_case(196, "float64", n_u=4, seed=406, timed=True)
-    _k2_case(196, "float64", n_u=4, seed=407, n_s=100)
-    _k2_case(236, "float32", n_u=4, seed=408)
-    out["k5"] = _k5_case(196, 4, "float64", 8, (3,), seed=410, timed=True)
+    # K2's and K5's column blocks in clusters of two at p = 200 (float64;
+    # K2 also at n_s = 100) and 240 (float32); past eight blocks (p = 460,
+    # float64) their device slabs, K2 also at n_s = 100 (the slab loop's
+    # warps capped as before)
+    out["k2"] = _glue_forms(lambda: _k2_case(196, "float64", n_u=4,
+                                             seed=406, timed=True), False)
+    _glue_forms(lambda: _k2_case(196, "float64", n_u=4, seed=407, n_s=100),
+                False)
+    _glue_forms(lambda: _k2_case(236, "float32", n_u=4, seed=408), False)
+    out["k5"] = _glue_forms(lambda: _k5_case(196, 4, "float64", 8, (3,),
+                                             seed=410, timed=True), False)
+    _glue_forms(lambda: _k5_case(236, 4, "float32", 4, (1,), seed=427),
+                False)
+    _glue_forms(lambda: _k2_case(456, "float64", n_u=4, seed=428, n=50_000),
+                False, columns=False)
+    _glue_forms(lambda: _k2_case(456, "float64", n_u=4, seed=429, n=50_000,
+                                 n_s=100), False, columns=False)
+    _glue_forms(lambda: _k5_case(456, 4, "float64", 2, (1,), seed=430),
+                False, columns=False)
     # K3's and K6's column blocks past one block's shared memory: clusters
     # of two blocks at p = 200 (float64) and 240 (float32), K6 also with
     # per-member known blocks; past eight blocks (p = 490, float64) the
@@ -5938,17 +6052,83 @@ def _column_outputs(shape):
     return saved
 
 
+# K2's and K5's shapes above 64 rows ("p{p}_{dtype}": p, dtype): one
+# block a column (65-166 in float64, to 237 in float32), clusters of two
+# (167-233 in float64, 238-332 in float32), eight (452 in float64) and,
+# past eight blocks, the device slabs (460)
+ALPHA_COLUMN_SHAPES = {f"p{p}_{dt}": (p, dt) for p, dt in (
+    (65, "float64"), (65, "float32"), (100, "float64"), (100, "float32"),
+    (166, "float64"), (167, "float64"), (200, "float64"), (237, "float32"),
+    (238, "float32"), (240, "float32"), (452, "float64"), (460, "float64"))}
+
+
+def _alpha_column_outputs(shape):
+    """K2's and K5's outputs at ``shape`` of ``ALPHA_COLUMN_SHAPES``, one
+    launch each (20 steps) from seeded inputs, on the CPU: K2 at n_s = 10
+    and 100 and at n_s = 10 with two rows masked, K5 at B = 4 with member
+    1 inactive and a row mask on member 2, and K5 at B = 3 with
+    per-member weighted known blocks (member 1 inactive). Alpha and
+    alpha_prev, then the cost, l_w and the active flag (``*_cost``) apart
+    from the other scalars."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, alpha_phase_full_multi)
+
+    p, dt = ALPHA_COLUMN_SHAPES[shape]
+    n_u = 4
+    saved = {}
+
+    def put(key, alpha, alpha_prev, scal):
+        cs = [COST, L_W] + ([ACTIVE] if scal.dim() == 2 else [])
+        rest = [k for k in range(scal.shape[-1]) if k not in cs]
+        saved.update({f"{key}_alpha": alpha.cpu(),
+                      f"{key}_alpha_prev": alpha_prev.cpu(),
+                      f"{key}_cost": scal[..., cs].cpu(),
+                      f"{key}_scal": scal[..., rest].cpu()})
+
+    for n_s, masked in ((N_S, False), (100, False), (N_S, True)):
+        blocks, _, _, alpha, alpha_prev, scal = _phase_glue_inputs(
+            p, p - n_u, dt, 740 + p + n_s + masked, n_s)
+        mask = {}
+        if masked:
+            keep = torch.ones(p, device=DEV, dtype=alpha.dtype)
+            keep[3] = keep[p - 2] = 0.0
+            mask = {"row_mask": keep}
+        alpha_phase_full(*blocks, alpha, alpha_prev, scal, N_INNER, n_u,
+                         **mask)
+        put(f"k2_ns{n_s}" + ("_masked" if masked else ""), alpha,
+            alpha_prev, scal)
+    for tag, n_b, weighted in (("k5", 4, False), ("k5w", 3, True)):
+        (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+         scal_b) = _glue_multi_inputs(p - n_u, n_u, dt, n_b, (1,),
+                                      760 + p + n_b, weighted=weighted)
+        mask = ()
+        if not weighted:
+            keep = torch.ones((n_b, p), device=DEV, dtype=alpha_b.dtype)
+            keep[2, 5] = 0.0
+            mask = (keep,)
+        alpha_phase_full_multi(gtt, bt, gu, bu, usq, ydy, alpha_b,
+                               alpha_prev_b, scal_b, N_INNER, n_u, *mask)
+        put(tag, alpha_b, alpha_prev_b, scal_b)
+    return saved
+
+
 # what save_outputs runs for each kind, and its named tables of
 # (kind, shape) pairs
 OUTPUT_KINDS = {"K1": _k1_outputs, "K4": _k4_outputs, "K7": _k7_outputs,
                 "glue": _glue_outputs, "K3": _k3_outputs,
-                "columns": _column_outputs}
+                "columns": _column_outputs,
+                "alpha_columns": _alpha_column_outputs}
 OUTPUT_TABLES = {"global": GLOBAL_SHAPES, "main": MAIN_SHAPES,
                  "state": STATE_SHAPES,
                  "glue": (("glue", "main"), ("glue", "cohort"),
                           ("K3", "main"), ("K3", "cohort"), ("K3", "k6")),
                  "glue_wide": (("glue", "wide"),),
-                 "columns": tuple(("columns", s) for s in COLUMN_SHAPES)}
+                 "columns": (tuple(("columns", s) for s in COLUMN_SHAPES)
+                             + tuple(("alpha_columns", s)
+                                     for s in ALPHA_COLUMN_SHAPES))}
 
 
 def save_outputs(root, path, shapes):
@@ -6086,19 +6266,30 @@ def _aic_sweep_time():
 
 
 def _past_path_times():
-    """The purity paths past one block's shared memory, as
-    ``phase_past_envelope`` runs them (20k x 10, float64, 5 x 100, tol 0):
-    purity at 179 + 1 (p = 180), 4 purity restarts and the purity weights
-    bootstrap (B = 4) at 205 + 4 (p = 209); ms per outer iteration, the
-    median of 3 runs after one (CUDA events)."""
+    """The paths past one block's shared memory, as
+    ``phase_past_envelope`` runs them (20k x 10, float64, tol 0):
+    partial-reference at 200 + 10 (p = 210) and 4 partial-reference
+    restarts at 205 + 4 (p = 209), 10 x 10; purity at 179 + 1 (p = 180),
+    4 purity restarts and the purity weights bootstrap (B = 4) at 205 + 4,
+    5 x 100; ms per outer iteration, the median of 3 runs after one (CUDA
+    events)."""
     import torch
 
-    from demethify_tpu_torch.solvers.api import purity_deconv
+    from demethify_tpu_torch.solvers.api import (
+        partial_reference_deconv, purity_deconv)
     from demethify_tpu_torch.uncertainty.bootstrap import bootstrap_ci
 
     n, n1, n2 = ENVELOPE_SITES, 5, 100
     pur = torch.linspace(0.3, 0.9, N_S, device=DEV, dtype=torch.float64)
     calls = {}
+    for tag, n_ct, n_u, r, seed in (("partial_ref_p210", 200, 10, 1, 190),
+                                    ("partial_ref_restarts_p209", 205, 4, 4,
+                                     192)):
+        y, d, Rt = _wide_problem(n, N_S, n_ct, n_u, torch.float64, seed)
+        calls[tag] = (lambda y=y, d=d, Rt=Rt, n_u=n_u, r=r:
+                      partial_reference_deconv(
+                          y, d, Rt, n_u, n_iter1=n1, n_iter2=10, tol=0.0,
+                          seed=20, n_restarts=r))
     for tag, n_ct, n_u, r, seed in (("purity_p180", 179, 1, 1, 191),
                                     ("purity_restarts_p209", 205, 4, 4,
                                      193)):
@@ -6177,14 +6368,14 @@ TIME_TABLES = {
                         + [(p, k) for p in (33, 64) for k in ("k2", "k3")])
         for n_s in TWO_ROW_NS for dt in ("float32", "float64"))
     + (("p40_paths", _p40_path_times, {}),),
-    # K3 and K6 (B = 8) above 64 rows at n_s = 10: one block a column
-    # (p = 100), clusters of two (p = 200, float64; 240, float32); then the
-    # purity paths that run them
+    # K2, K3, K5 and K6 (B = 8) above 64 rows at n_s = 10: one block a
+    # column (p = 100), clusters of two (p = 200, float64; 240, float32);
+    # then the paths that run them
     "columns": tuple(
         (f"{kern}_p{p}_ns10_{dt}", _glue_time,
          dict(kern=kern, p=p, n_s=N_S, dt=dt))
         for p, dt in ((100, "float64"), (200, "float64"), (240, "float32"))
-        for kern in ("k3", "k6"))
+        for kern in ("k2", "k3", "k5", "k6"))
     + (("past_paths", _past_path_times, {}),),
 }
 
@@ -6373,6 +6564,128 @@ def time_k8(root="."):
     print(json.dumps({"root": root, "card": card, "k8": rows,
                       "setup": setup, "composed_ms_per_iter": composed}),
           flush=True)
+
+
+# K2's column-block step, piece by piece (time_column_variants): each
+# variant is K2's sources with one edit, (the file, the text, its
+# replacement). "u8*" unroll the row sum or the rank by 8 (the same
+# bits); "no*" cut the row sum, the rank or the cumulative sum out of
+# the step, so their times (not their outputs) say what the piece costs
+_COL_SUM = "    for (int r = 0; r < p; ++r) ga += sg[r * rows + t] * a[r];"
+_COL_RANK = ("            for (int r = 0; r < p; ++r) {\n"
+             "                const T vr = vk[r];")
+_COL_CHAIN = ("        if (tid == 0) {\n"
+              "            const T* __restrict__ u = srt;")
+_COL_V = ("            v = sat[q] + (b - column_row_dot(sg, sat, rows, tid, "
+          "p)) / l_h;")
+_K2_SRC = "alpha_phase_full.cu"
+COLUMN_VARIANTS = {
+    "base": None,
+    "u8sum": ("small_common.cuh", _COL_SUM,
+              "#pragma unroll 8\n" + _COL_SUM),
+    "u8rank": (_K2_SRC, _COL_RANK, "#pragma unroll 8\n" + _COL_RANK),
+    "nosum": (_K2_SRC, _COL_V, "            v = sat[q] + b / l_h;"),
+    "norank": (_K2_SRC, _COL_RANK, _COL_RANK.replace(
+        "for (int r = 0; r < p;", "rk = q; for (int r = 0; r < 0;")),
+    "nochain": (_K2_SRC, _COL_CHAIN, _COL_CHAIN.replace("tid == 0",
+                                                        "tid < 0")),
+}
+
+
+def time_column_variants(cases=(("k2", 100, "float64"),
+                                ("k2", 200, "float64"),
+                                ("k5", 200, "float64"),
+                                ("k2", 240, "float32"))):
+    """K2's and K5's column blocks of this tree in each of
+    ``COLUMN_VARIANTS`` (``alpha_phase_full.cu`` and its headers rebuilt
+    alone, one library a variant, loaded in place of the whole library
+    for these calls) at ``cases`` (kernel, p, dtype; n_s = 10, B = 8 for K5, 20
+    steps): ms a launch queued behind a device sleep, the smallest of
+    three rounds over the variants, and whether its outputs equal the
+    unedited kernel's. Prints one JSON line:
+
+        python3 -c 'import chip_smoke; chip_smoke.time_column_variants()'
+    """
+    import ctypes
+
+    import torch
+
+    from demethify_tpu_torch.ops import _build, cuda_small
+
+    src_dir = os.path.join(HERE, "demethify_tpu_torch", "csrc")
+    out_dir = os.path.join(_build.build_dir(), "column_variants")
+    sources = {f: open(os.path.join(src_dir, f)).read()
+               for f in (_K2_SRC, "glue_steps.cuh", "small_common.cuh")}
+    procs = {}
+    for name, edit in COLUMN_VARIANTS.items():
+        texts = dict(sources)
+        if edit is not None:
+            check(edit[1] in texts[edit[0]], f"variant {name}: no match")
+            texts[edit[0]] = texts[edit[0]].replace(edit[1], edit[2])
+        var_dir = os.path.join(out_dir, name)
+        os.makedirs(var_dir, exist_ok=True)
+        for f, t in texts.items():
+            with open(os.path.join(var_dir, f), "w") as out:
+                out.write(t)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             os.path.join(var_dir, "lib.so"),
+             os.path.join(var_dir, _K2_SRC)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, proc in procs.items():
+        log_text, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"variant {name}: {log_text[-2000:]}")
+        lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
+            fn.argtypes, fn.restype = [vp] * 12 + [ci] * 6 + [vp], ci
+            fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
+            fn.argtypes = ([vp, ll] * 6 + [vp] * 2 + [ll, vp, ll] + [vp, ll]
+                           + [vp] * 2 + [ci] * 7 + [vp])
+            fn.restype = ci
+        lib.dm_alpha_column_plan.argtypes = [ci, ci, vp]
+        lib.dm_alpha_column_plan.restype = ll
+        libs[name] = _build.KernelLibrary(lib, name, 0.0, "")
+    whole = _build.load()
+    res = {"card": phase_device()}
+    try:
+        for kern, p, dt in cases:
+            if kern == "k5":
+                (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+                 scal_b) = _glue_multi_inputs(p - 4, 4, dt, 8, (), 600 + p)
+                args, state = ((gtt, bt, gu, bu, usq, ydy),
+                               (alpha_b, alpha_prev_b, scal_b))
+                fn = cuda_small.alpha_phase_full_multi
+            else:
+                args, _, _, alpha, alpha_prev, scal = _phase_glue_inputs(
+                    p, p - 4, dt, 600 + p, N_S)
+                state = (alpha, alpha_prev, scal)
+                fn = cuda_small.alpha_phase_full
+            outs, times = {}, {name: [] for name in libs}
+            for name, lib in libs.items():
+                _build._LIBRARY = lib
+                outs[name] = tuple(x.clone() for x in state)
+                fn(*args, *outs[name], N_INNER, 4)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                for name, lib in libs.items():
+                    _build._LIBRARY = lib
+                    st = tuple(x.clone() for x in state)
+                    times[name].append(queued_ms(
+                        lambda: fn(*args, *st, N_INNER, 4), inner=20))
+            res[f"{kern}_p{p}_{dt}"] = {
+                name: {"ms": min(times[name]),
+                       "same_bits": all(torch.equal(a, b) for a, b in zip(
+                           outs[name], outs["base"]))}
+                for name in libs}
+            log(f"[variants] {kern} p={p} {dt}: " + ", ".join(
+                f"{n} {v['ms']:.4f} ms" for n, v in
+                res[f"{kern}_p{p}_{dt}"].items()))
+    finally:
+        _build._LIBRARY = whole
+    print(json.dumps(res), flush=True)
 
 
 def time_steps(root="."):
@@ -6888,12 +7201,14 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
             glue["k10"]["check_launches"]["fw_phase{two-row}"],
             "its check against the twin and K3 (no solver runs K10; times: "
             "p=40, n_s=10, float64)"),
-        row("alpha_phase_full{p>64}", src + "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:261 (p > 64, via :299)",
-            glue["k2 wide"],
-            glue["k2 wide"]["check_launches"]["alpha_phase_full{p>32}"],
-            "its check against the twin at p=100, n_s=10, float64 (no path "
-            "of this script runs p 65-167)"),
+        dict(row("alpha_phase_full{column blocks, one block}",
+                 src + "alpha_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:261 (p > 64, via :299)",
+                 glue["k2 wide"], glue["k2 wide"]["check_launches"][
+                     "alpha_phase_full{column blocks}"],
+                 "its check against the twin at p=100, n_s=10, float64 (no "
+                 "path of this script runs p 65-166)"),
+             redesigned=K2_COLUMNS),
         dict(row("fw_phase_full{column blocks, one block}",
                  src + "fw_phase_full.cu",
                  "demethify_tpu/ops/pallas_small.py:636 (p > 64, via :653)",
@@ -6961,21 +7276,25 @@ def _global_rows(glob, past):
             past["global bootstrap"]["u_phase_grams_multi{global}"],
             "purity weights bootstrap 20k x 10, 205+4, B=4, float64, 5x100 "
             "(times: 200k x 10, B=4)"),
-        row("alpha_phase_full{device slabs}", "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
-            glob["k2"], past["global"]["alpha_phase_full{device slabs}"],
-            "partial-ref 20k x 10, 200+10, float64 (times: p=200)"),
+        dict(row("alpha_phase_full{column blocks}", "alpha_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
+                 glob["k2"],
+                 past["global"]["alpha_phase_full{column blocks}"],
+                 "partial-ref 20k x 10, 200+10, float64 (times: p=200)"),
+             redesigned=K2_COLUMNS),
         dict(row("fw_phase_full{column blocks}", "fw_phase_full.cu",
                  "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)",
                  k3, past["column blocks purity"][
                      "fw_phase_full{column blocks}"],
                  "purity 20k x 10, 179+1, float64, 5x100 (times: p=200)"),
              redesigned=K3_COLUMNS),
-        row("alpha_phase_full_multi{device slabs}", "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:388 (any p, via :485)",
-            glob["k5"],
-            past["global restarts"]["alpha_phase_full_multi{device slabs}"],
-            "4 restarts 20k x 10, 205+4, float64 (times: p=200, B=8)"),
+        dict(row("alpha_phase_full_multi{column blocks}",
+                 "alpha_phase_full.cu",
+                 "demethify_tpu/ops/pallas_small.py:388 (any p, via :485)",
+                 glob["k5"], past["global restarts"][
+                     "alpha_phase_full_multi{column blocks}"],
+                 "4 restarts 20k x 10, 205+4, float64 (times: p=200, B=8)"),
+             redesigned=K2_COLUMNS),
         dict(row("fw_phase_full_multi{column blocks}", "fw_phase_full.cu",
                  "demethify_tpu/ops/pallas_small.py:571 (any p, via :592)",
                  glob["k6"], past["global purity restarts"][
@@ -6990,6 +7309,10 @@ K3_REDESIGN = ("row bucket P >= p; step sizes from a table; a warp per "
 K3_COLUMNS = ("p > 64: a block, or a cluster of up to 8 blocks, a column, "
               "one row a thread, G_s rows in the blocks' shared memory, the "
               "minima folded through distributed shared memory")
+K2_COLUMNS = ("p > 64: a block, or a cluster of up to 8 blocks, a column, "
+              "one row a thread, G_s rows in the blocks' shared memory, v "
+              "ranked across the cluster through distributed shared memory, "
+              "one chain for the cumulative sum, the tests side by side")
 K4_REDESIGN = ("members in groups (k4_member_plan): steps back to back, "
                "one Gram stage a group in tiles across the members; "
                "partials (n_blocks, B E)")
@@ -7425,12 +7748,12 @@ LAYOUT_CCC = dict(seed=22, iter2=N_INNER, tol=0.0, n_restarts=3, n_u_max=2)
 LAUNCH_2D = ("import sys; from demethify_tpu_torch.cli import "
              "_run_shard_workers; sys.exit(_run_shard_workers(sys.argv[2:], "
              "int(sys.argv[1])))")
-# K1's main pass and K2's kernels by name in a trace (K2's register and
-# wide forms; K5 takes the same kernels with a member grid, and runs on no
-# path of this phase's profiled run)
+# K1's main pass and K2's kernels by name in a trace (K2's register,
+# two-row, column-block and device-slab forms; K5 takes the same kernels
+# with a member grid, and runs on no path of this phase's profiled run)
 K1_KERNEL = "u_phase_grams_kernel"
 K2_KERNELS = ("alpha_phase_reg_kernel", "alpha_phase_two_row_kernel",
-              "alpha_phase_wide_kernel")
+              "alpha_phase_columns_kernel", "alpha_phase_slabs_kernel")
 
 
 def _same_csvs(a, b, what):

@@ -66,21 +66,50 @@
 // wide form's block held min(n_s, 32) warps. A block is one warp
 // holding one column: a step is bound by its SM's shuffle, FP64 and
 // issue throughput, so a column an SM is about the fastest.
-// Above 64 rows the wide form keeps each warp's column (G_s, b_s,
-// alpha, alpha_prev and work rows) in its own slab of shared memory, lane
-// q takes rows q, q + 32, ..., the ranks are counted the same way and
-// lane 0 takes the cumulative sum and rho in rank order, so a step is the
-// register form's arithmetic in the same order; the block has as many
-// warps as slabs fit (small_common.cuh). Past one slab (p ~ 170 in
-// float64, ~240 in float32) the slabs live in device memory instead, one
-// per warp of a work buffer the wrapper allocates (min(n_s, 32) warps a
-// member; GSLAB): the same code on other addresses, so the same bits as
-// the shared slabs would give; each step then reads the column's G_s
-// through L1 and L2 (at p = 200 in float64 a slab is 320 KB, and n_s of
-// them sit in the 50 MB L2). A member's columns stay inside its own
-// blocks, so a K5 launch takes about K2's time whatever B is (the TPU
-// kernel folds the members into its column axis for the same reason);
-// each member's arithmetic is K2's, bit for bit.
+// Above 64 rows the column-block form: each column of each member has a
+// thread block of its own (K5's members on the grid's y axis), or a
+// thread-block cluster of C blocks where one block's shared memory cannot
+// hold the column. Thread t of cluster block c owns row q = c R + t (R =
+// ceil(p / C) rows a block). The block keeps its R rows of G_s in shared
+// memory, transposed (entry r of row q at r R + t, so a warp reads
+// consecutive words at each r), its rows of b in registers and its own
+// copies of alpha, alpha_prev and the momentum point a_t. A step:
+//   - each thread forms its row's v = a_t,q + (b_q - (G a_t)_q) / l_h,
+//     the sum over r in index order, -1e30 where the row is masked, and
+//     writes it into every block's copy of v (through distributed shared
+//     memory; two copies by step parity); one barrier (a cluster barrier
+//     where C > 1);
+//   - each thread ranks its row among the p values (the stable descending
+//     rank by comparison) and writes its value into that slot of every
+//     block's rank row; a second barrier;
+//   - one thread per block runs the cumulative sum in rank order, one
+//     chain of p adds (the bits fix its order), its loads a chunk ahead;
+//   - the threads test the ranks side by side, (u_j - pi_j / (j + 1)) > 0,
+//     a division each, and rho, the last rank that passes, is a block
+//     maximum (rank 0 where none does): the serial loop's last-index rho;
+//   - theta = pi_rho / (rho + 1), and every block updates its copies of
+//     alpha, alpha_prev and the next step's a_t the same way (the betas
+//     from the block's momentum table, small_common.cuh momentum_table,
+//     where it fits after the plan's bytes, else the chain replayed: the
+//     same values).
+// Every value and every order is the one-warp wide loop's this form
+// replaced (glue_steps.cuh alpha_steps_wide: lane q taking rows q, q + 32,
+// ..., lane 0 taking the cumulative sum and rho alone), so alpha and
+// alpha_prev keep its bits. After the last step block 0 sums the
+// column's cost terms as that loop did (lane l over rows l, l + 32, ...,
+// then the shuffle-down tree), reading the other blocks' rows of b and
+// G_s alpha through distributed shared memory, and the member's last block
+// sums the columns in groups of that loop's warps (column_groups), so the
+// cost and l_w keep their bits as well. C is the fewest blocks whose
+// shared memory holds R rows of G_s and the seven rows of p the step
+// needs (column_plan), at most 8, the portable cluster size: one block to
+// p = 166 in float64 (237 in float32), up to eight to p = 452 (650).
+// Past eight blocks the device-slab loop stays: one block per member,
+// each warp's column (G_s, b_s, alpha, alpha_prev and work rows) in its
+// own slab of a device buffer the wrapper allocates (min(n_s, 32) slabs a
+// member, dm_glue_work), lane q taking rows q, q + 32, ..., the loop's
+// bits. A member's columns stay inside its own blocks, so each member's
+// arithmetic is K2's, bit for bit.
 //
 // Row masks (the JAX kernels' row_mask / row_mask_b, pallas_small.py
 // :281-282, :409-410): a (p,) mask per member, or none; before each
@@ -103,7 +132,10 @@
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <unordered_set>
 
 #include "glue_steps.cuh"
 #include "small_common.cuh"
@@ -306,13 +338,282 @@ alpha_phase_two_row_kernel(const T* __restrict__ gtt,
     finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
 }
 
-// The wide form (p > 64): one block per member, each warp's column in its
-// slab of shared memory (GSLAB: of the device buffer gslab, warp w of
-// member block b at slab b * n_warps + w), warps looping over the
-// columns; the cost summed per warp, then over the warps in order
-// (block_cost).
-template <typename T, bool MULTI, bool GSLAB>
-__global__ void alpha_phase_wide_kernel(
+// ---- the column-block form (p > 64) ----------------------------------
+
+namespace cg = cooperative_groups;
+
+using dm::ColumnPlan;
+using dm::column_row_dot;
+using dm::kColumnThreads;
+
+// A column's plan: its blocks' shared memory holds R rows of G_s and seven
+// rows of p -- alpha, alpha_prev, the momentum point a_t, v (two, by step
+// parity), the values in rank order and their prefix sums -- before the
+// momentum table.
+ColumnPlan column_plan(int itemsize, int p) {
+    return dm::column_plan(itemsize, p, 7, 0);
+}
+
+// The cost's group count (dm::column_groups): the wide loop's
+// device-slab kernels (K2's and K5's alike) took 128 registers a thread
+// in float64 and 95 in float32 and allowed 512 and 640 threads a block,
+// 16 and 20 warps (cudaFuncGetAttributes on an H100); its shared-slab
+// kernels' registers allowed more warps (16 and 24) than their slabs.
+constexpr int kSlabLoopWarps64 = 16;
+constexpr int kSlabLoopWarps32 = 20;
+
+int column_groups(int itemsize, int p, int n_s) {
+    return dm::column_groups(itemsize, p, n_s,
+                             itemsize == 8 ? kSlabLoopWarps64
+                                           : kSlabLoopWarps32);
+}
+
+// The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
+// runs column s of member mb, block c of it rows [c R, c R + R), one a
+// thread. Each block keeps its rows of G_s (transposed), its own copies
+// of alpha, alpha_prev and a_t, and the step's v, ranks and prefix sums
+// (column_plan), then the momentum table where use_table. colsum (3, n_s)
+// per member and tickets[mb] as the register form's; `groups` is
+// column_groups.
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(kColumnThreads)
+alpha_phase_columns_kernel(const T* __restrict__ gtt,
+                           const T* __restrict__ bt,
+                           const T* __restrict__ gu, const T* __restrict__ bu,
+                           const T* __restrict__ usq,
+                           const T* __restrict__ ydy, T* __restrict__ alpha,
+                           T* __restrict__ alpha_prev, T* __restrict__ scal,
+                           const T* __restrict__ mask,
+                           T* __restrict__ colsum,
+                           unsigned* __restrict__ tickets, int n_s, int n_ct,
+                           int n_u, int n_steps, int rows, int groups,
+                           int use_table, dm::MemberStrides st) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ int red[kColumnThreads / 32];
+    __shared__ int nan_step;       // 1 + the last step whose v held a NaN
+    cg::cluster_group cluster = cg::this_cluster();
+    const long long mb = MULTI ? blockIdx.y : 0;
+    const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, usq, ydy,
+                                          alpha, alpha_prev, scal, mask, st);
+    if constexpr (MULTI) {
+        if (m.scal[dm::kActive] == T(0)) return;    // uniform per cluster
+    }
+    const int n_blocks = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int s = blockIdx.x / n_blocks;
+    const int p = n_ct + n_u;
+    const int tid = threadIdx.x;
+    const int n_threads = blockDim.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int n_warps = n_threads >> 5;
+    const int q0 = rank * rows;                     // this block's rows
+    const int own = p - q0 < rows ? p - q0 : rows;
+    const int q = q0 + tid;
+    const bool row = tid < own;
+    T* cs = colsum + mb * 3 * n_s;
+
+    const T a0 = m.scal[dm::kAAlpha];
+    const T l_h_prev0 = m.scal[dm::kLHPrev];
+    const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
+
+    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
+    T* sal = sg + rows * p;                         // alpha (p)
+    T* sap = sal + p;                               // alpha_prev (p)
+    T* sat = sap + p;                               // a_t (p)
+    T* sv = sat + p;                                // v (2 p, step parity)
+    T* srt = sv + 2 * p;                            // v in rank order (p)
+    T* spi = srt + p;                               // its prefix sums - 1
+    T* tab = use_table ? spi + p : nullptr;
+    // G_s's rows by the assembly rule of load_gram_row, read along r
+    for (int k = tid; k < own * p; k += n_threads) {
+        const int t = k / p;
+        const int r = k - t * p;
+        const int qq = q0 + t;
+        T x;
+        if (qq >= n_ct)
+            x = m.gu[(s * n_u + (qq - n_ct)) * p + r];
+        else if (r >= n_ct)
+            x = m.gu[(s * n_u + (r - n_ct)) * p + qq];
+        else
+            x = m.gtt[(s * n_ct + qq) * n_ct + r];
+        sg[r * rows + t] = x;
+    }
+    for (int r = tid; r < p; r += n_threads) {
+        sal[r] = m.alpha[r * n_s + s];
+        sap[r] = m.alpha_prev[r * n_s + s];
+    }
+    const T b = row ? (q < n_ct ? m.bt[q * n_s + s]
+                                : m.bu[(q - n_ct) * n_s + s])
+                    : T(0);
+    const bool masked = row && m.mask != nullptr && !(m.mask[q] > T(0));
+    if (tid == 0) nan_step = 0;
+    if (use_table)                         // uniform over the block
+        dm::momentum_table(tab, a0, l_h_prev0, l_h, n_steps, tid, n_threads,
+                           [] { __syncthreads(); });
+    // step k's beta: from the table, or the chain replayed (the same
+    // values; a then holds the advanced Nesterov scalar)
+    T a = a0, l_prev = l_h_prev0;
+    auto beta_of = [&](int k) {
+        if (use_table) return tab[k];
+        const T a2n = dm::nesterov(a);
+        const T beta = dm::min_nan((a - T(1)) / a2n,
+                                   T(0.9999) * dm::sqrt_t(l_prev / l_h));
+        a = a2n;
+        l_prev = l_h;
+        return beta;
+    };
+    if (n_steps > 0) {
+        const T beta = beta_of(0);
+        for (int r = tid; r < p; r += n_threads)
+            sat[r] = sal[r] + beta * (sal[r] - sap[r]);
+    }
+    // every block of the cluster has started before any reads or writes
+    // another's shared memory
+    if (n_blocks > 1)
+        cluster.sync();
+    else
+        __syncthreads();
+
+    for (int k = 0; k < n_steps; ++k) {
+        T* vk = sv + (k & 1) * p;
+        // this thread's row of v, written to every block's copy
+        T v = T(0);
+        if (row) {
+            v = sat[q] + (b - column_row_dot(sg, sat, rows, tid, p)) / l_h;
+            if (masked) v = T(-1e30);
+            for (int c = 0; c < n_blocks; ++c)
+                (n_blocks > 1 ? cluster.map_shared_rank(vk, c) : vk)[q] = v;
+        }
+        if (n_blocks > 1)
+            cluster.sync();
+        else
+            __syncthreads();
+        // the row's stable descending rank by comparison with the p
+        // values, its value into that slot of every block's srt (a NaN
+        // marks the step instead: its rank is another row's)
+        if (row) {
+            int rk = 0;
+            for (int r = 0; r < p; ++r) {
+                const T vr = vk[r];
+                rk += (vr > v) || (vr == v && r < q);
+            }
+            for (int c = 0; c < n_blocks; ++c) {
+                if (v != v)
+                    *(n_blocks > 1 ? cluster.map_shared_rank(&nan_step, c)
+                                   : &nan_step) = k + 1;
+                else
+                    (n_blocks > 1 ? cluster.map_shared_rank(srt, c)
+                                  : srt)[rk] = v;
+            }
+        }
+        if (n_blocks > 1)
+            cluster.sync();
+        else
+            __syncthreads();
+        // the cumulative sum in rank order: one chain of p adds, its
+        // loads a chunk ahead
+        if (tid == 0) {
+            const T* __restrict__ u = srt;
+            T* __restrict__ pi = spi;
+            T csum = T(0);
+            for (int j0 = 0; j0 < p; j0 += 8) {
+                T uj[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                    uj[i] = j0 + i < p ? u[j0 + i] : T(0);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    if (j0 + i < p) {
+                        csum += uj[i];
+                        pi[j0 + i] = csum - T(1);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // each rank's test side by side; rho the last rank that passes
+        // (a block maximum), rank 0 where none does
+        int best = -1;
+        for (int j = tid; j < p; j += n_threads)
+            if ((srt[j] - spi[j] / T(j + 1)) > T(0)) best = j;
+        best = __reduce_max_sync(dm::kFull, best);
+        if (lane == 0) red[warp] = best;
+        __syncthreads();
+        int rho = 0;
+        for (int w = 0; w < n_warps; ++w) rho = red[w] > rho ? red[w] : rho;
+        const T theta = spi[rho] / T(rho + 1)
+                        + (nan_step == k + 1 ? dm::quiet_nan<T>() : T(0));
+        // alpha, alpha_prev and the next step's a_t in every block alike
+        const T beta = k + 1 < n_steps ? beta_of(k + 1) : T(0);
+        for (int r = tid; r < p; r += n_threads) {
+            const T out = vk[r] - theta;
+            const T prev = sal[r];
+            const T next = out < T(0) ? T(0) : out;
+            sap[r] = prev;
+            sal[r] = next;
+            sat[r] = next + beta * (next - prev);
+        }
+        __syncthreads();                    // alpha is whole again
+    }
+
+    // the column's cost terms in the wide loop's order: lane l over rows
+    // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide);
+    // the rank rows are free now and hold b and G_s alpha of the rows
+    T* sb = srt;
+    T* sga = spi;
+    if (row) {
+        sga[tid] = column_row_dot(sg, sal, rows, tid, p);
+        sb[tid] = b;
+        m.alpha[q * n_s + s] = sal[q];
+        m.alpha_prev[q * n_s + s] = sap[q];
+    }
+    if (n_blocks > 1)
+        cluster.sync();
+    else
+        __syncthreads();
+    if (rank == 0 && warp == 0) {
+        T ba = T(0), ag = T(0), lw = T(0);
+        for (int qq = lane; qq < p; qq += 32) {
+            const int c = qq / rows;
+            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, c) : sb;
+            const T* rga =
+                n_blocks > 1 ? cluster.map_shared_rank(sga, c) : sga;
+            const T al = sal[qq];
+            const T bq = rb[qq - c * rows];
+            const T ga = rga[qq - c * rows];
+            ba += bq * al;
+            ag += al * (bq - ga);
+            if (qq >= p - n_u) lw += al * al;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            ba += __shfl_down_sync(dm::kFull, ba, off);
+            ag += __shfl_down_sync(dm::kFull, ag, off);
+            lw += __shfl_down_sync(dm::kFull, lw, off);
+        }
+        if (lane == 0) {
+            cs[s] = ba;
+            cs[n_s + s] = ag;
+            cs[2 * n_s + s] = lw;
+        }
+    }
+    // no block leaves while block 0 may still read its shared memory
+    if (n_blocks > 1) cluster.sync();
+    T cost, lw;
+    if (!dm::column_cost(cs, m.ydy, n_s, groups, tickets, mb, cost, lw))
+        return;
+    finish_member<T, MULTI>(m.scal, cost, lw, use_table ? tab[n_steps] : a,
+                            l_h, n_steps);
+}
+
+// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
+// block per member, each warp's column in its slab of the device buffer
+// gslab (warp w of member block b at slab b * n_warps + w, min(n_s, 32)
+// slabs a member), warps looping over the columns; the cost summed per
+// warp, then over the warps in order (block_cost).
+template <typename T, bool MULTI>
+__global__ void alpha_phase_slabs_kernel(
         const T* __restrict__ gtt, const T* __restrict__ bt,
         const T* __restrict__ gu, const T* __restrict__ bu,
         const T* __restrict__ usq, const T* __restrict__ ydy,
@@ -336,7 +637,7 @@ __global__ void alpha_phase_wide_kernel(
     const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    T* sg = dm::warp_slab<T, GSLAB>(gslab, warp, n_warps, p);
+    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
     T* sb = sg + p * p;
     T* sal = sb + p;
     T* sap = sal + p;
@@ -422,56 +723,98 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool MULTI, bool GSLAB>
-int launch_wide_as(const void* gtt, const void* bt, const void* gu,
+// The column-block form: a cluster of plan.blocks blocks a column (the
+// cluster dimension attribute), the momentum table after the plan's bytes
+// where it fits (48 KB of table and the card's limit), checked once per
+// plan and table with cudaOccupancyMaxActiveClusters:
+// cudaErrorInvalidConfiguration where the card cannot place one cluster.
+template <typename T, bool MULTI>
+int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* usq, const void* ydy,
                    void* alpha, void* alpha_prev, void* scal,
-                   const void* mask, void* gslab, int n_s, int n_ct, int n_u,
-                   int n_steps, int n_members, dm::MemberStrides st,
-                   cudaStream_t stream) {
-    auto kern = alpha_phase_wide_kernel<T, MULTI, GSLAB>;
-    static const int max_warps = dm::max_block_warps(kern);
-    size_t smem = 0;
-    const int n_warps = dm::wide_warps<GSLAB>(sizeof(T), n_ct + n_u, n_s,
-                                              max_warps, smem);
-    if (n_warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+                   const void* mask, void* colsum, void* tickets, int n_s,
+                   int n_ct, int n_u, int n_steps, int n_members,
+                   dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = alpha_phase_columns_kernel<T, MULTI>;
+    const int p = n_ct + n_u;
+    const ColumnPlan plan = column_plan(sizeof(T), p);
+    const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
+    const int use_table =
+        tab <= kTabSmem
+        && plan.bytes + static_cast<long long>(tab) <= dm::kGlueSmemLimit;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_s * plan.blocks, MULTI ? n_members : 1);
+    cfg.blockDim = dim3(plan.threads);
+    cfg.dynamicSmemBytes =
+        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = plan.blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // every launch's bytes are at most kGlueSmemLimit
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dm::kGlueSmemLimit));
+    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+    // (blocks, bytes) of the launches checked
+    static std::unordered_set<long long> placed;
+    const long long key =
+        static_cast<long long>(cfg.dynamicSmemBytes) * 16 + plan.blocks;
+    if (placed.count(key) == 0) {
+        int clusters = 0;
+        const cudaError_t err =
+            cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
         if (err != cudaSuccess) return static_cast<int>(err);
+        if (clusters < 1)
+            return static_cast<int>(cudaErrorInvalidConfiguration);
+        placed.insert(key);
     }
-    kern<<<n_members, 32 * n_warps, smem, stream>>>(
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, kern, static_cast<const T*>(gtt), static_cast<const T*>(bt),
+        static_cast<const T*>(gu), static_cast<const T*>(bu),
+        static_cast<const T*>(usq), static_cast<const T*>(ydy),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask),
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
+        n_u, n_steps, plan.rows, column_groups(sizeof(T), p, n_s),
+        use_table, st));
+}
+
+// The device-slab loop: min(n_s, 32) warps a member, capped by the
+// kernel's registers and by the warps the loop took before the column
+// blocks (kSlabLoopWarps*, so that its cost keeps their order), each with
+// its slab in the device buffer `work`
+template <typename T, bool MULTI>
+int launch_slabs(const void* gtt, const void* bt, const void* gu,
+                 const void* bu, const void* usq, const void* ydy,
+                 void* alpha, void* alpha_prev, void* scal, const void* mask,
+                 void* work, int n_s, int n_ct, int n_u, int n_steps,
+                 int n_members, dm::MemberStrides st, cudaStream_t stream) {
+    auto kern = alpha_phase_slabs_kernel<T, MULTI>;
+    static const int max_warps = dm::max_block_warps(kern);
+    const int cap = sizeof(T) == 8 ? kSlabLoopWarps64 : kSlabLoopWarps32;
+    const int n_warps =
+        dm::slab_warps(n_s, max_warps < cap ? max_warps : cap);
+    if (n_warps < 1 || work == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    kern<<<n_members, 32 * n_warps, 0, stream>>>(
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(usq), static_cast<const T*>(ydy),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
         static_cast<T*>(scal), static_cast<const T*>(mask),
-        static_cast<T*>(gslab), n_s, n_ct, n_u, n_steps, st);
+        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, st);
     return static_cast<int>(cudaGetLastError());
 }
 
-// the wide form's slabs in shared memory where one fits, else in the
-// device buffer `work` (min(n_s, 32) slabs a member)
-template <typename T, bool MULTI>
-int launch_wide(const void* gtt, const void* bt, const void* gu,
-                const void* bu, const void* usq, const void* ydy,
-                void* alpha, void* alpha_prev, void* scal, const void* mask,
-                void* work, int n_s, int n_ct, int n_u, int n_steps,
-                int n_members, dm::MemberStrides st, cudaStream_t stream) {
-    if (dm::glue_warps(sizeof(T), n_ct + n_u, n_s) >= 1)
-        return launch_wide_as<T, MULTI, false>(
-            gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal, mask,
-            nullptr, n_s, n_ct, n_u, n_steps, n_members, st, stream);
-    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wide_as<T, MULTI, true>(
-        gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal, mask, work, n_s,
-        n_ct, n_u, n_steps, n_members, st, stream);
-}
-
-// p > 64: the wide form; else the register form at row bucket `bucket`
-// (8, 16 or 32, >= p) with `cols` columns a block, or the two-row form
-// at bucket 64 (a column a block)
+// p > 64: the column blocks, or past eight blocks the device slabs; else
+// the register form at row bucket `bucket` (8, 16 or 32, >= p) with
+// `cols` columns a block, or the two-row form at bucket 64 (a column a
+// block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* usq, const void* ydy, void* alpha, void* alpha_prev,
@@ -480,12 +823,18 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            int n_members, dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP)
-        return launch_wide<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                     alpha_prev, scal, mask, colsum, n_s,
-                                     n_ct, n_u, n_steps, n_members, st, s);
-    if (p > bucket || colsum == nullptr || tickets == nullptr)
+    if (p > dm::kTwoRowP && column_plan(sizeof(T), p).blocks == 0)
+        return launch_slabs<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                      alpha_prev, scal, mask, colsum, n_s,
+                                      n_ct, n_u, n_steps, n_members, st, s);
+    if (colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (p > dm::kTwoRowP)
+        return launch_columns<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
+                                        alpha_prev, scal, mask, colsum,
+                                        tickets, n_s, n_ct, n_u, n_steps,
+                                        n_members, st, s);
+    if (p > bucket) return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
         return bucket != dm::kTwoRowP
                    ? static_cast<int>(cudaErrorInvalidValue)
@@ -511,14 +860,14 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 extern "C" {
 
 // mask: the (p,) row mask (rows <= 0 pushed to -1e30 before each
-// projection) or NULL; colsum (3, n_s) and tickets (1, zero) the register
-// and two-row forms' per-column cost terms and finished-block count;
-// above p = 64 tickets is unread and colsum is the wide form's work
-// buffer: unread where one slab fits shared memory (NULL), else
+// projection) or NULL; colsum (3, n_s) and tickets (1, zero) the
+// per-column cost terms and finished-block count (the register, two-row
+// and column-block forms); past eight column blocks (dm_alpha_column_plan)
+// tickets is unread and colsum is the device slabs' work buffer,
 // min(n_s, 32) slabs of p x p + 6 p values per member (dm_glue_work);
 // bucket the register and two-row forms' row bucket and cols the register
 // form's columns a block (ops/cuda_small.alpha_plan; unread in the
-// two-row form, a column a block)
+// two-row form, a column a block, and above 64 rows)
 #define DM_K2_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* usq, const void* ydy, void* alpha,  \
@@ -537,7 +886,7 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 // (gtt, bt, ydy: 0 when the members share them); scal_stride is the
 // scalar row length; mask: the members' (B, p) row masks (row stride
 // mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's
-// (above p = 64, colsum the work buffer of B members).
+// (past eight column blocks, colsum the work buffer of B members).
 #define DM_K5_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
@@ -569,10 +918,10 @@ int dm_two_row_stride(int p) { return dm::two_row_stride(p); }
 // The glue kernels' dynamic shared memory at p rows and n_s columns, in
 // bytes: 0 in the register form (p <= 32); in the two-row form the slab
 // of a block's one column (the momentum or step-size table follows it
-// where it fits); in the wide form above the card's limit
-// when one warp's slab does not fit, where K2 and K5 keep their slabs in
-// device memory instead (and K9, K10 refuse the shape); K3 and K6 take
-// their column blocks above 64 rows (dm_fw_column_plan).
+// where it fits); in K9's and K10's wide form above the card's limit
+// when one warp's slab does not fit, where they refuse the shape; K2,
+// K3, K5 and K6 take their column blocks above 64 rows
+// (dm_alpha_column_plan, dm_fw_column_plan).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     if (p <= dm::kTwoRowP)
@@ -581,15 +930,33 @@ long long dm_glue_smem(int itemsize, int p, int n_s) {
     return (w < 1 ? 1 : w) * dm::glue_warp_elems(p) * itemsize;
 }
 
-// Elements of the work buffer K2 and K5 need per member at p rows and n_s
-// columns (K3 and K6 too, past eight column blocks): 0 where the wide
-// form's slabs fit shared memory (or p <= 64, where the register and
-// two-row forms' colsum is 3 n_s), else min(n_s, 32) slabs in device
-// memory.
+// Elements of the device slabs' work buffer per member at p rows and
+// n_s columns, which K2, K3, K5 and K6 take past eight column blocks: 0
+// where the wide form's slabs fit shared memory (or p <= 64), else
+// min(n_s, 32) slabs in device memory.
 long long dm_glue_work(int itemsize, int p, int n_s) {
     if (p <= dm::kTwoRowP || dm::glue_warps(itemsize, p, n_s) >= 1)
         return 0;
     return (n_s < 32 ? n_s : 32) * dm::glue_warp_elems(p);
+}
+
+// K2's and K5's column-block plan at p > 64 rows of itemsize-byte values:
+// out[0] blocks a column (0: the device slabs), out[1] rows a block,
+// out[2] threads a block; returns the block's dynamic shared memory
+// before the momentum table, in bytes (ops/cuda_small.alpha_column_plan
+// is its Python copy)
+long long dm_alpha_column_plan(int itemsize, int p, int* out) {
+    const ColumnPlan plan = column_plan(itemsize, p);
+    out[0] = plan.blocks;
+    out[1] = plan.rows;
+    out[2] = plan.threads;
+    return plan.bytes;
+}
+
+// The groups in which K2's and K5's column blocks sum the columns
+// (ops/cuda_small.alpha_column_groups)
+int dm_alpha_column_groups(int itemsize, int p, int n_s) {
+    return column_groups(itemsize, p, n_s);
 }
 
 }  // extern "C"

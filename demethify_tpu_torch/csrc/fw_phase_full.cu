@@ -262,47 +262,22 @@ fw_phase_two_row_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
 
 namespace cg = cooperative_groups;
 
-// the most blocks a column's cluster takes (the portable cluster size)
-// and threads a block (column_plan never asks for more: a block's R rows
-// of G_s fit shared memory only up to R = 242 in float32)
-constexpr int kMaxColumnBlocks = 8;
-constexpr int kColumnThreads = 256;
+using dm::ColumnPlan;
+using dm::column_row_dot;
+using dm::kColumnThreads;
 
-// A column's launch plan: C blocks (0: past kMaxColumnBlocks, the device
-// slabs), R rows a block, its threads (R rounded up to warps) and its
-// dynamic shared memory: R rows of G_s, alpha, and R values each of b
-// and G_s alpha (the cost epilogue's rows).
-struct ColumnPlan {
-    int blocks, rows, threads;
-    long long bytes;
-};
-
+// A column's plan: its blocks' shared memory holds R rows of G_s, alpha,
+// and R values each of b and G_s alpha (the cost epilogue's rows).
 ColumnPlan column_plan(int itemsize, int p) {
-    for (int c = 1; c <= kMaxColumnBlocks; ++c) {
-        const int rows = (p + c - 1) / c;
-        const long long bytes =
-            static_cast<long long>(itemsize)
-            * (static_cast<long long>(rows) * p + p + 2LL * rows);
-        if (bytes <= dm::kGlueSmemLimit)
-            return ColumnPlan{c, rows, 32 * ((rows + 31) / 32), bytes};
-    }
-    return ColumnPlan{0, 0, 0, 0};
+    return dm::column_plan(itemsize, p, 1, 2);
 }
 
-// The cost's group count: the warps of the one-block-per-member wide loop
-// the column blocks replaced, min(n_s, 32) capped by the slabs that fit
-// its shared memory where one did (dm::glue_warps) and, where its slabs
-// were in device memory, by its registers: that loop's kernels allowed
-// 1024 threads a block in every instantiation but the float64 device-slab
-// ones, which took 72 registers a thread and allowed 896, 28 warps
-// (cudaFuncGetAttributes on an H100).
-constexpr int kSlabLoopWarps64 = 28;
-
+// The cost's group count (dm::column_groups): the wide loop's kernels
+// allowed 1024 threads a block in every instantiation but the float64
+// device-slab ones, which took 72 registers a thread and allowed 896, 28
+// warps (cudaFuncGetAttributes on an H100).
 int column_groups(int itemsize, int p, int n_s) {
-    const int groups = dm::cost_groups(n_s);
-    const int fit = dm::glue_warps(itemsize, p, n_s);
-    const int cap = fit >= 1 ? fit : (itemsize == 8 ? kSlabLoopWarps64 : 32);
-    return cap < groups ? cap : groups;
+    return dm::column_groups(itemsize, p, n_s, itemsize == 8 ? 28 : 32);
 }
 
 // One warp's (known, unknown) block minima and the first rows holding
@@ -327,20 +302,6 @@ __device__ __forceinline__ void fold_min(T& m, int& i, T m2, int i2) {
     } else if (m2 == m && i2 < i) {
         i = i2;
     }
-}
-
-// (G_s a)_q for this thread's row t, from the block's transposed rows sg
-// (entry r at r * rows + t): summed over r in index order. A plain loop:
-// with loads a chunk of 8 ahead of the sum, or unrolled by 8, the same
-// kernels took 4-37% longer on an H100 (chip_smoke.time_cases' "columns"
-// cases).
-template <typename T>
-__device__ __forceinline__ T column_row_dot(const T* __restrict__ sg,
-                                            const T* __restrict__ a,
-                                            int rows, int t, int p) {
-    T ga = T(0);
-    for (int r = 0; r < p; ++r) ga += sg[r * rows + t] * a[r];
-    return ga;
 }
 
 // The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
@@ -522,7 +483,7 @@ __global__ void fw_phase_slabs_kernel(
     const T dmax2 = m.scal[dm::kDmax2];
 
     T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    T* sg = dm::warp_slab<T, true>(gslab, warp, n_warps, p);
+    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
     T* sb = sg + p * p;
     T* sal = sb + p;
     T* sgr = sal + p;
@@ -655,9 +616,7 @@ int launch_slabs(const void* gtt, const void* bt, const void* gu,
                  dm::MemberStrides st, cudaStream_t stream) {
     auto kern = fw_phase_slabs_kernel<T, MULTI>;
     static const int max_warps = dm::max_block_warps(kern);
-    size_t smem = 0;
-    const int n_warps = dm::wide_warps<true>(sizeof(T), n_ct + n_u, n_s,
-                                             max_warps, smem);
+    const int n_warps = dm::slab_warps(n_s, max_warps);
     if (n_warps < 1 || work == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     kern<<<n_members, 32 * n_warps, 0, stream>>>(

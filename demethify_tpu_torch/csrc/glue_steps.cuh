@@ -16,8 +16,11 @@
 // holds rows q and q + 32 of the column in registers and the warp's slab
 // of shared memory holds the Gram matrix (the two-row form, p <= 64); or,
 // above, the column lives in the warp's slab of shared memory and lane q
-// takes rows q, q + 32, ... (the wide form), with the register form's
-// arithmetic in the same order.
+// takes rows q, q + 32, ... (the wide form: K9 and K10, and K2, K3, K5
+// and K6 past eight column blocks; below that those four run a column on
+// a block or a cluster of blocks, alpha_phase_full.cu and
+// fw_phase_full.cu, with the wide form's values), with the register
+// form's arithmetic in the same order.
 //
 // The two-row form is the register form's dataflow over 64 rows: the
 // product broadcasts alpha_r by shuffle and reads G_s at a padded row
@@ -55,7 +58,35 @@
 
 namespace dm {
 
+template <typename T> __device__ __forceinline__ T pos_inf();
+template <> __device__ __forceinline__ float pos_inf<float>() {
+    return CUDART_INF_F;
+}
+template <> __device__ __forceinline__ double pos_inf<double>() {
+    return CUDART_INF;
+}
+
+template <typename T> __device__ __forceinline__ T quiet_nan();
+template <> __device__ __forceinline__ float quiet_nan<float>() {
+    return CUDART_NAN_F;
+}
+template <> __device__ __forceinline__ double quiet_nan<double>() {
+    return CUDART_NAN;
+}
+
 // ---- the alpha FISTA loop ---------------------------------------------
+
+// A column whose v holds a NaN projects to NaN in every row, as the JAX
+// kernels' rank-matrix projection (pallas_small.py _project_cols) and the
+// plain twin's sort give it: a NaN compares neither greater nor equal, so
+// the stable rank by comparison gives it and the largest finite value the
+// same rank and leaves a rank below p empty. Each projection therefore
+// votes on a NaN in its column beside the rank and adds NaN to theta
+// where there is one (0 elsewhere: theta is never -0, so theta + 0 is
+// theta's bits), so v - theta is NaN in every row; a column without one
+// keeps its bits. The addition, not a select, keeps the threshold's
+// shuffle and division out of a branch: a select cost the two-row form
+// some 8% of its time (chip_smoke.time_cases' "glue" cases).
 
 // Projection of one column (lane q holds v_q, lanes >= p are padding)
 // onto the probability simplex, inside one warp: a stable descending rank
@@ -72,6 +103,7 @@ __device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
         const T vr = __shfl_sync(kFull, v, r);
         if (r < p && row) rank += (vr > v) || (vr == v && r < lane);
     }
+    const bool nan_col = __any_sync(kFull, row && v != v);
     T csum = T(0), my_u = T(0), my_pi = T(0);
     if constexpr (P <= 16 || sizeof(T) == 4) {
         // the value of each rank: P ballots and shuffles, independent of
@@ -110,7 +142,8 @@ __device__ __forceinline__ T project_simplex_warp(T v, int lane, int p) {
     const unsigned cond = __ballot_sync(
         kFull, row && (my_u - my_pi / T(lane + 1)) > T(0));
     const int rho = cond ? 31 - __clz(cond) : 0;
-    const T theta = __shfl_sync(kFull, my_pi, rho) / T(rho + 1);
+    const T theta = __shfl_sync(kFull, my_pi, rho) / T(rho + 1)
+                    + (nan_col ? quiet_nan<T>() : T(0));
     const T out = v - theta;
     return out < T(0) ? T(0) : out;
 }
@@ -176,6 +209,7 @@ __device__ __forceinline__ void project_simplex_two_row(T v0, T v1, int lane,
         rank0 += vr > v0;
         rank1 += (vr > v1) || (vr == v1 && r < lane + 32);
     }
+    const bool nan_col = __any_sync(kFull, v0 != v0 || (row1 && v1 != v1));
     T csum = T(0), u0 = T(0), pi0 = T(0), u1 = T(0), pi1 = T(0);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -207,7 +241,8 @@ __device__ __forceinline__ void project_simplex_two_row(T v0, T v1, int lane,
         kFull, row1 && (u1 - pi1 / T(lane + 33)) > T(0));
     const int rho = c1 ? 63 - __clz(c1) : (c0 ? 31 - __clz(c0) : 0);
     const T theta = __shfl_sync(kFull, rho < 32 ? pi0 : pi1, rho & 31)
-                    / T(rho + 1);
+                        / T(rho + 1)
+                    + (nan_col ? quiet_nan<T>() : T(0));
     const T o0 = v0 - theta;
     const T o1 = v1 - theta;
     out0 = o0 < T(0) ? T(0) : o0;
@@ -259,11 +294,12 @@ __device__ __forceinline__ void alpha_steps_two_row(
 // warp's slab row sv; srt is a work row. Ranks as above (lane q takes rows
 // q, q + 32, ...), the cumulative sum and rho in lane 0 in rank order, so
 // each step is the register form's arithmetic in the same order. Returns
-// theta in every lane.
+// theta in every lane (NaN where the column holds a NaN).
 template <typename T>
 __device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
                                                 T* __restrict__ srt,
                                                 int lane, int p) {
+    bool nan_row = false;
     for (int q = lane; q < p; q += 32) {
         const T v = sv[q];
         int rank = 0;
@@ -271,8 +307,10 @@ __device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
             const T vr = sv[r];
             rank += (vr > v) || (vr == v && r < q);
         }
+        nan_row |= v != v;
         srt[rank] = v;
     }
+    const bool nan_col = __any_sync(kFull, nan_row);
     __syncwarp();
     T theta = T(0);
     if (lane == 0) {
@@ -291,7 +329,7 @@ __device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
         theta = pi_rho / T(rho + 1);
     }
     __syncwarp();            // srt is free again
-    return __shfl_sync(kFull, theta, 0);
+    return __shfl_sync(kFull, theta, 0) + (nan_col ? quiet_nan<T>() : T(0));
 }
 
 // One column's alpha FISTA loop in the wide form (p > 64): the slab holds
@@ -332,14 +370,6 @@ __device__ __forceinline__ void alpha_steps_wide(
 }
 
 // ---- the Frank-Wolfe loop ---------------------------------------------
-
-template <typename T> __device__ __forceinline__ T pos_inf();
-template <> __device__ __forceinline__ float pos_inf<float>() {
-    return CUDART_INF_F;
-}
-template <> __device__ __forceinline__ double pos_inf<double>() {
-    return CUDART_INF;
-}
 
 // NaN-propagating minimum over lanes [0, P) (a butterfly of log2 P
 // levels), in each of those lanes; P = 32 is the whole warp

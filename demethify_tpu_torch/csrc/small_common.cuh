@@ -9,9 +9,10 @@
 // registers and the warp keeps the column's Gram matrix in its slab of
 // shared memory (the two-row form, 32 < p <= 64); or, above 64 rows, each
 // warp keeps its column's Gram matrix, b and alpha in its own slab and
-// lane q takes rows q, q + 32, ... (the wide form: K2 and K5, and K3 and
-// K6 past eight column blocks; below that K3 and K6 give a column a block
-// or a cluster of blocks, one row a thread: fw_phase_full.cu).
+// lane q takes rows q, q + 32, ... (the wide form: K9 and K10, and K2,
+// K3, K5 and K6 past eight column blocks; below that those four give a
+// column a block or a cluster of blocks, one row a thread:
+// alpha_phase_full.cu, fw_phase_full.cu).
 
 #pragma once
 
@@ -42,10 +43,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
 // as many warps as fit under the card's opt-in limit (232,448 bytes on an
 // H100) less 1 KB for the kernels' static shared memory, at most 32 and
-// at most n_s. glue_warps returns 0 when one warp does not fit; K2 and K5
-// then keep the slabs in device memory (warp_slab), as K3 and K6 do past
-// eight column blocks (fw_phase_full.cu, whose cost groups its columns
-// as this form's blocks did).
+// at most n_s. glue_warps returns 0 when one warp does not fit; K9 and
+// K10 then refuse the shape. K2, K3, K5 and K6 keep the slabs in device
+// memory (warp_slab) past eight column blocks, and their column blocks
+// group the cost's columns as this form's blocks did.
 constexpr long long kGlueSmemLimit = 232448 - 1024;
 
 __host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
@@ -72,35 +73,21 @@ __host__ __device__ __forceinline__ int glue_warps(int itemsize, int p,
     return static_cast<int>(fit < w ? fit : w);
 }
 
-// Warps per block of a wide-form launch and its dynamic shared memory:
-// min(n_s, 32) capped by the kernel's registers (max_warps) and, with the
-// slabs in shared memory (!GSLAB), by glue_warps; with the slabs in
-// device memory (GSLAB) no dynamic shared memory. 0 when no warp fits.
-template <bool GSLAB>
-int wide_warps(int itemsize, int p, int n_s, int max_warps, size_t& smem) {
-    int n_warps = n_s < 32 ? n_s : 32;
-    n_warps = n_warps < max_warps ? n_warps : max_warps;
-    smem = 0;
-    if constexpr (!GSLAB) {
-        const int fit = glue_warps(itemsize, p, n_s);
-        n_warps = fit < n_warps ? fit : n_warps;
-        smem = static_cast<size_t>(n_warps > 0 ? n_warps : 0)
-               * glue_warp_elems(p) * itemsize;
-    }
-    return n_warps;
+// Warps per block of a device-slab launch: min(n_s, 32) capped by the
+// kernel's registers (max_warps).
+inline int slab_warps(int n_s, int max_warps) {
+    const int n_warps = n_s < 32 ? n_s : 32;
+    return n_warps < max_warps ? n_warps : max_warps;
 }
 
-// This warp's slab of a wide-form block: in dynamic shared memory, or
-// (GSLAB) slab blockIdx.x * n_warps + warp of the device buffer gslab,
-// at most 32 slabs a block, so the buffer holds min(n_s, 32) a member
-template <typename T, bool GSLAB>
+// This warp's slab of a device-slab block: slab blockIdx.x * n_warps +
+// warp of the device buffer gslab, at most 32 slabs a block, so the
+// buffer holds min(n_s, 32) a member
+template <typename T>
 __device__ __forceinline__ T* warp_slab(T* gslab, int warp, int n_warps,
                                         int p) {
-    if constexpr (GSLAB)
-        return gslab + (static_cast<long long>(blockIdx.x) * n_warps + warp)
-                           * glue_warp_elems(p);
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    return reinterpret_cast<T*>(smem_raw) + warp * glue_warp_elems(p);
+    return gslab + (static_cast<long long>(blockIdx.x) * n_warps + warp)
+                       * glue_warp_elems(p);
 }
 
 // Per-member element strides of the glue kernels' operands: K2 and K3
@@ -341,6 +328,65 @@ __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
     cost = s_ydy - s_ba - s_ag;
     lw = s_lw;
     return true;
+}
+
+// ---- the column-block form (p > 64: K2, K3, K5, K6) ------------------
+
+// the most blocks a column's cluster takes (the portable cluster size)
+// and threads a block (no plan asks for more: a block's R rows of G_s fit
+// shared memory only up to R = 242 in float32)
+constexpr int kMaxColumnBlocks = 8;
+constexpr int kColumnThreads = 256;
+
+// A column's launch plan: C blocks (0: past kMaxColumnBlocks, the device
+// slabs), R rows a block, its threads (R rounded up to warps) and its
+// dynamic shared memory.
+struct ColumnPlan {
+    int blocks, rows, threads;
+    long long bytes;
+};
+
+// The fewest blocks C <= kMaxColumnBlocks whose R = ceil(p / C) rows of
+// G_s, with p_rows rows of p values and r_rows rows of R values, fit one
+// block's shared memory (kGlueSmemLimit); all 0 past that
+inline ColumnPlan column_plan(int itemsize, int p, int p_rows, int r_rows) {
+    for (int c = 1; c <= kMaxColumnBlocks; ++c) {
+        const int rows = (p + c - 1) / c;
+        const long long bytes =
+            static_cast<long long>(itemsize)
+            * (static_cast<long long>(rows) * p
+               + static_cast<long long>(p_rows) * p
+               + static_cast<long long>(r_rows) * rows);
+        if (bytes <= kGlueSmemLimit)
+            return ColumnPlan{c, rows, 32 * ((rows + 31) / 32), bytes};
+    }
+    return ColumnPlan{0, 0, 0, 0};
+}
+
+// The cost's group count of a column-block launch: the warps of the
+// one-block-per-member wide loop the column blocks replaced, min(n_s, 32)
+// capped by the slabs that fit its shared memory where one did
+// (glue_warps) and, where its slabs were in device memory, by slab_cap,
+// the warps its registers allowed a block
+inline int column_groups(int itemsize, int p, int n_s, int slab_cap) {
+    const int groups = cost_groups(n_s);
+    const int fit = glue_warps(itemsize, p, n_s);
+    const int cap = fit >= 1 ? fit : slab_cap;
+    return cap < groups ? cap : groups;
+}
+
+// (G_s a)_q for this thread's row t, from the block's transposed rows sg
+// (entry r at r * rows + t): summed over r in index order, as
+// gram_row_dot does. A plain loop: with loads a chunk of 8 ahead of the
+// sum, or unrolled by 8, K3's column blocks took 4-37% longer on an H100
+// (chip_smoke.time_cases' "columns" cases).
+template <typename T>
+__device__ __forceinline__ T column_row_dot(const T* __restrict__ sg,
+                                            const T* __restrict__ a,
+                                            int rows, int t, int p) {
+    T ga = T(0);
+    for (int r = 0; r < p; ++r) ga += sg[r * rows + t] * a[r];
+    return ga;
 }
 
 // ---- the two-row form (32 < p <= 64) ----------------------------------

@@ -139,6 +139,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_fw_column_plan.restype = _LL
     lib.dm_fw_column_groups.argtypes = [_INT] * 3
     lib.dm_fw_column_groups.restype = _INT
+    lib.dm_alpha_column_plan.argtypes = [_INT, _INT, _VOID]
+    lib.dm_alpha_column_plan.restype = _LL
+    lib.dm_alpha_column_groups.argtypes = [_INT] * 3
+    lib.dm_alpha_column_groups.restype = _INT
     # the single-phase kernels: K7, K8, K9, K10
     lib.dm_u_phase_smem.argtypes = [_INT] * 2
     lib.dm_u_phase_smem.restype = _LL

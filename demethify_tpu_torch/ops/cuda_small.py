@@ -34,23 +34,27 @@ Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers
 (the register form); from 33 to 64 rows lane q holds rows q and q + 32
 of the column in registers and the warp's slab of shared memory holds
 the column's Gram matrix at an odd row stride (the two-row form,
-``two_row_stride``). Above 64 rows K3 and K6 give each column a block,
-or a thread-block cluster of up to 8 blocks, with one row a thread and
-the column's Gram rows spread over the blocks' shared memory (the
-column-block form, ``fw_column_plan``); past 8 blocks (p = 473 in
-float64, 673 in float32) they keep the device-slab loop below. K2, K5,
-K9 and K10 above 64 rows keep the wide form: each warp's column in its
-own slab of shared memory (``glue_smem``); past one slab (p = 168 in
-float64, 238 in float32) K2 and K5 keep the slabs in a device-memory work
-buffer the wrapper allocates (``glue_work``), the same code on other
-addresses, and K9 and K10 raise, stating the shape. The register form
+``two_row_stride``). Above 64 rows K2, K3, K5 and K6 give each column
+a block, or a thread-block cluster of up to 8 blocks, with one row a
+thread and the column's Gram rows spread over the blocks' shared memory
+(the column-block form, ``alpha_column_plan``, ``fw_column_plan``; K2's
+and K5's simplex projection ranks the column across the cluster); past
+8 blocks (K2 and K5 from p = 453 in float64, 651 in float32; K3 and K6
+from 473 and 673) they keep the one-block device-slab loop: each warp's
+column in its own slab of a device-memory work buffer the wrapper
+allocates (``glue_work``). K9 and K10 above 64 rows keep the wide form:
+each warp's column in its own slab of shared memory (``glue_smem``);
+past one slab (p = 168 in float64, 238 in float32) they raise, stating
+the shape. The register form
 of K2, K3, K5 and K6 runs its warp collectives to a row bucket of 8, 16
 or 32 lanes and gives every column its own warp, over several blocks
 past 16 columns (``alpha_plan``), with the cost summed in a fixed order
 that does not depend on the grid; K3 and K6 read their step sizes from
 a table built once per launch. The two-row form gives each column a
 block of its own, and its alpha is the wide form's bit for bit, as the
-column blocks' alpha, cost and l_w are the wide loop's they replaced.
+column blocks' alpha, cost and l_w are the wide loop's they replaced. A
+column whose v holds a NaN projects to NaN in every row in every form,
+as the JAX kernels and the twins give it.
 K9 and K10 run K2's and K3's loops at the same
 bucket: in one block in the register and wide forms, a column a block
 in the two-row form.
@@ -172,10 +176,11 @@ def _glue_scratch(like, n_b: int, n_s: int):
 
 def _reg_args(like, n_b, p, n_s):
     """The (colsum, tickets, bucket, cols) launch arguments of K2, K3, K5
-    and K6: the register and two-row forms' buffers and plan; in the wide
-    form (p > 64) null, or past one shared slab the device slabs
-    (``glue_work`` elements per member) in colsum's place, and the work
-    buffer itself (kept alive by the caller until the launch is queued)."""
+    and K6: the register and two-row forms' buffers and plan; above 64
+    rows, where ``_column_args`` finds no column-block plan, the device
+    slabs (``glue_work`` elements per member) in colsum's place, and the
+    work buffer itself (kept alive by the caller until the launch is
+    queued)."""
     if p > TWO_ROW_P:
         n_work = glue_work(like.element_size(), p, n_s)
         if not n_work:
@@ -194,8 +199,9 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     ``alpha_plan`` instead); in the two-row form (p <= 64) ``alpha_plan``'s
     one column a block, its slab p x ``two_row_stride(p)`` values (the
     momentum or step-size table follows the slab where it fits); above 64
-    rows, K2's, K5's, K9's and K10's wide form (K3 and K6 take
-    ``fw_column_plan`` there): one slab of p x p + 6 p values per warp and
+    rows, K9's and K10's wide form (K2, K3, K5 and K6 take their column
+    plans there, and count their cost's groups in its warps): one slab of
+    p x p + 6 p values per warp and
     as many warps as fit, at most min(n_s, 32) -- the kernels'
     ``dm::glue_warps``. Both
     are the kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this
@@ -214,10 +220,11 @@ def glue_smem(itemsize: int, p: int, n_s: int):
 
 
 def glue_work(itemsize: int, p: int, n_s: int) -> int:
-    """Elements per member of the device-memory slabs K2 and K5 take
-    where one warp's slab does not fit shared memory (``glue_smem`` gives
-    0 warps), and K3 and K6 past 8 column blocks (``fw_column_plan``
-    blocks 0): min(n_s, 32) slabs of p x p + 6 p values; 0 otherwise.
+    """Elements per member of the device-memory slabs K2, K3, K5 and K6
+    take past 8 column blocks (``alpha_column_plan``, ``fw_column_plan``
+    blocks 0): min(n_s, 32) slabs of p x p + 6 p values where one warp's
+    slab does not fit shared memory (``glue_smem`` gives 0 warps); 0
+    otherwise.
     The kernels' ``dm_glue_work``, which ``chip_smoke.py`` holds this
     to."""
     if p <= REG_P or glue_smem(itemsize, p, n_s)[0] >= 1:
@@ -229,6 +236,19 @@ def glue_work(itemsize: int, p: int, n_s: int) -> int:
 # column, the portable cluster size (kMaxColumnBlocks)
 MAX_COLUMN_BLOCKS = 8
 COLUMN_PLAN_KEYS = ("blocks", "rows", "threads")
+
+
+def _column_plan(itemsize: int, p: int, elems) -> dict:
+    """The fewest blocks C <= MAX_COLUMN_BLOCKS whose R = ceil(p / C) rows
+    take ``elems(R)`` values of shared memory within the card's limit
+    less 1 KB, as a plan dict; all 0 past MAX_COLUMN_BLOCKS."""
+    for c in range(1, MAX_COLUMN_BLOCKS + 1):
+        rows = -(-p // c)
+        n_bytes = itemsize * elems(rows)
+        if n_bytes <= _GLUE_LIMIT:
+            return {"blocks": c, "rows": rows, "threads": 32 * -(-rows // 32),
+                    "bytes": n_bytes}
+    return {"blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
 
 
 def fw_column_plan(itemsize: int, p: int) -> dict:
@@ -243,13 +263,21 @@ def fw_column_plan(itemsize: int, p: int) -> dict:
     1 KB. Blocks 0 (and the rest 0) past MAX_COLUMN_BLOCKS: the device
     slabs (``glue_work``). A launch is a grid of (n_s C, members) blocks
     in clusters of C."""
-    for c in range(1, MAX_COLUMN_BLOCKS + 1):
-        rows = -(-p // c)
-        n_bytes = itemsize * (rows * p + p + 2 * rows)
-        if n_bytes <= _GLUE_LIMIT:
-            return {"blocks": c, "rows": rows, "threads": 32 * -(-rows // 32),
-                    "bytes": n_bytes}
-    return {"blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
+    return _column_plan(itemsize, p, lambda rows: rows * p + p + 2 * rows)
+
+
+def alpha_column_plan(itemsize: int, p: int) -> dict:
+    """K2's and K5's plan above 64 rows (``csrc/alpha_phase_full.cu``
+    ``column_plan``; the kernels' ``dm_alpha_column_plan``, which
+    ``chip_smoke.py`` holds this to), as ``fw_column_plan``'s but for the
+    projection's rows: "bytes" holds R rows of G_s and seven rows of p
+    (alpha, alpha_prev, the momentum point, v twice by step parity, the
+    values in rank order and their prefix sums); the momentum table
+    follows them in a launch where it fits. One block to p = 166 in
+    float64 (237 in float32), clusters of up to MAX_COLUMN_BLOCKS to
+    p = 452 (650); past that blocks 0, the device slabs
+    (``glue_work``)."""
+    return _column_plan(itemsize, p, lambda rows: rows * p + 7 * p)
 
 
 def lib_fw_column_plan(lib, itemsize: int, p: int) -> dict:
@@ -260,10 +288,25 @@ def lib_fw_column_plan(lib, itemsize: int, p: int) -> dict:
     return dict(zip(COLUMN_PLAN_KEYS, out), bytes=n_bytes)
 
 
+def lib_alpha_column_plan(lib, itemsize: int, p: int) -> dict:
+    """``alpha_column_plan`` from the library's ``dm_alpha_column_plan``
+    export (the kernels' own copy)."""
+    out = (ctypes.c_int * len(COLUMN_PLAN_KEYS))()
+    n_bytes = lib.dm_alpha_column_plan(int(itemsize), int(p), out)
+    return dict(zip(COLUMN_PLAN_KEYS, out), bytes=n_bytes)
+
+
 # the warps a block of the one-block wide loop took where its slabs were
-# in device memory, by itemsize: its kernels' registers allowed 896
-# threads in float64 (cudaFuncGetAttributes on an H100), 1024 in float32
+# in device memory, by itemsize: K3's and K6's kernels' registers allowed
+# 896 threads in float64 (cudaFuncGetAttributes on an H100), 1024 in
+# float32; K2's and K5's (128 and 95 registers a thread) 512 and 640
 SLAB_LOOP_WARPS = {4: 32, 8: 28}
+ALPHA_SLAB_LOOP_WARPS = {4: 20, 8: 16}
+
+
+def _column_groups(itemsize, p, n_s, slab_warps):
+    n_warps = glue_smem(itemsize, p, n_s)[0]
+    return n_warps if n_warps >= 1 else min(n_s, slab_warps)
 
 
 def fw_column_groups(itemsize: int, p: int, n_s: int) -> int:
@@ -272,32 +315,44 @@ def fw_column_groups(itemsize: int, p: int, n_s: int) -> int:
     the one-block wide loop they replaced (``glue_smem``'s; where its
     slabs were in device memory, min(n_s, 32) capped by SLAB_LOOP_WARPS),
     so the sums keep that loop's order and bits."""
-    n_warps = glue_smem(itemsize, p, n_s)[0]
-    return n_warps if n_warps >= 1 else min(n_s, SLAB_LOOP_WARPS[itemsize])
+    return _column_groups(itemsize, p, n_s, SLAB_LOOP_WARPS[itemsize])
 
 
-def _fw_args(like, n_b, p, n_s):
-    """K3's and K6's launch arguments (colsum, tickets, bucket, cols, the
-    work buffer) and, above 64 rows, the library's column plan: the
-    register and two-row forms' as ``_reg_args``; the column blocks' cost
-    terms and tickets; past MAX_COLUMN_BLOCKS the device slabs in colsum's
-    place (the buffer kept alive by the caller until the launch is
-    queued)."""
+def alpha_column_groups(itemsize: int, p: int, n_s: int) -> int:
+    """The groups in which K2's and K5's column blocks sum a member's
+    columns (``dm_alpha_column_groups``): the warps of the one-block wide
+    loop they replaced, as ``fw_column_groups``, its device-slab kernels'
+    cap from ALPHA_SLAB_LOOP_WARPS. K2's and K5's device slabs past 8
+    blocks take at most those warps too."""
+    return _column_groups(itemsize, p, n_s, ALPHA_SLAB_LOOP_WARPS[itemsize])
+
+
+def _column_args(lib_plan, like, n_b, p, n_s):
+    """K2's, K3's, K5's and K6's launch arguments (colsum, tickets, bucket,
+    cols, the work buffer) and, above 64 rows, the library's column plan
+    (``lib_plan``: ``lib_alpha_column_plan`` or ``lib_fw_column_plan``):
+    the register and two-row forms' as ``_reg_args``; the column blocks'
+    cost terms and tickets; past MAX_COLUMN_BLOCKS the device slabs in
+    colsum's place (the buffer kept alive by the caller until the launch
+    is queued)."""
     if p <= TWO_ROW_P:
         return (*_reg_args(like, n_b, p, n_s), None)
-    plan = lib_fw_column_plan(_build.load().lib, like.element_size(), p)
+    plan = lib_plan(_build.load().lib, like.element_size(), p)
     if not plan["blocks"]:
         return (*_reg_args(like, n_b, p, n_s), plan)
     colsum, tickets = _glue_scratch(like, n_b, n_s)
     return colsum.data_ptr(), tickets.data_ptr(), 0, 0, None, plan
 
 
-def _fw_case(p, n_s, n_b, like, plan):
-    """A K3 or K6 launch's shape, dtype and plan, for its error."""
+def _column_case(p, n_s, n_b, like, plan, n_steps=None):
+    """A K2, K3, K5 or K6 launch's shape, dtype and plan, for its error
+    (K2's and K5's with the steps, whose momentum table follows the
+    plan's bytes where it fits)."""
     where = ("device slabs" if not plan["blocks"] else
              f"column blocks C = {plan['blocks']}, {plan['bytes']} bytes a "
              f"block") if plan else "p <= 64"
-    return f"p = {p}, n_s = {n_s}, B = {n_b}, {like.dtype}, {where}"
+    steps = "" if n_steps is None else f", {n_steps} steps"
+    return f"p = {p}, n_s = {n_s}, B = {n_b}, {like.dtype}{steps}, {where}"
 
 
 def _check_glue_shape(name, itemsize, p, n_s):
@@ -378,16 +433,19 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
     fn = (lib.dm_alpha_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_alpha_phase_full_f64)
     with torch.cuda.device(alpha.device):
-        colsum, tickets, bucket, cols, work = _reg_args(alpha, 1, p, n_s)
+        colsum, tickets, bucket, cols, work, plan = _column_args(
+            lib_alpha_column_plan, alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), usq.data_ptr(), ydy.data_ptr(),
                  alpha.data_ptr(), alpha_prev.data_ptr(), scal.data_ptr(),
                  None if mask is None else mask.data_ptr(), colsum, tickets,
                  n_s, n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
-    _build.check(err, "alpha_phase_full")
+    _build.check(err, "alpha_phase_full",
+                 _column_case(p, n_s, 1, alpha, plan, n_steps))
     alpha_phase_full.launches += 1
     count_forms(alpha_phase_full.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
+                column_blocks=work is None and p > TWO_ROW_P,
                 device_slabs=work is not None, masked=mask is not None)
 
 
@@ -447,13 +505,13 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
     fn = (lib.dm_fw_phase_full_f32 if alpha.dtype == torch.float32
           else lib.dm_fw_phase_full_f64)
     with torch.cuda.device(alpha.device):
-        colsum, tickets, bucket, cols, work, plan = _fw_args(alpha, 1, p,
-                                                             n_s)
+        colsum, tickets, bucket, cols, work, plan = _column_args(
+            lib_fw_column_plan, alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), ydy.data_ptr(), alpha.data_ptr(),
                  purity.data_ptr(), scal.data_ptr(), colsum, tickets, n_s,
                  n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
-    _build.check(err, "fw_phase_full", _fw_case(p, n_s, 1, alpha, plan))
+    _build.check(err, "fw_phase_full", _column_case(p, n_s, 1, alpha, plan))
     fw_phase_full.launches += 1
     count_forms(fw_phase_full.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
@@ -564,8 +622,8 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
           if alpha_b.dtype == torch.float32
           else lib.dm_alpha_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
-        colsum, tickets, bucket, cols, work = _reg_args(alpha_b, n_b, p,
-                                                        n_s)
+        colsum, tickets, bucket, cols, work, plan = _column_args(
+            lib_alpha_column_plan, alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
@@ -576,10 +634,12 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
                  p,                               # the mask's row stride
                  colsum, tickets, n_s, n_ct, n_u, n_steps, bucket, cols, n_b,
                  _stream(alpha_b))
-    _build.check(err, name)
+    _build.check(err, name, _column_case(p, n_s, n_b, alpha_b, plan,
+                                         n_steps))
     alpha_phase_full_multi.launches += 1
     count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
+                column_blocks=work is None and p > TWO_ROW_P,
                 device_slabs=work is not None, masked=mask is not None)
 
 
@@ -683,15 +743,15 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
     fn = (lib.dm_fw_phase_full_multi_f32 if alpha_b.dtype == torch.float32
           else lib.dm_fw_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
-        colsum, tickets, bucket, cols, work, plan = _fw_args(alpha_b, n_b, p,
-                                                             n_s)
+        colsum, tickets, bucket, cols, work, plan = _column_args(
+            lib_fw_column_plan, alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_b.stride(0), purity.data_ptr(), scal_b.data_ptr(),
                  N_SCAL_MULTI, colsum, tickets, n_s, n_ct, n_u, n_steps,
                  bucket, cols, n_b, _stream(alpha_b))
-    _build.check(err, name, _fw_case(p, n_s, n_b, alpha_b, plan))
+    _build.check(err, name, _column_case(p, n_s, n_b, alpha_b, plan))
     fw_phase_full_multi.launches += 1
     count_forms(fw_phase_full_multi.forms, wide=p > REG_P,
                 two_row=REG_P < p <= TWO_ROW_P,
