@@ -364,11 +364,13 @@ def counters():
     k9, k10 = cuda_small.alpha_phase, cuda_small.fw_phase
     return ((k7, "forms:state_in_device",
              "u_phase{n_u>8, state in device memory}"),
-            (k9, "forms:wide", "alpha_phase{p>32}"),
             (k9, "forms:masked", "alpha_phase{masked}"),
             (k9, "forms:two_row", "alpha_phase{two-row}"),
-            (k10, "forms:wide", "fw_phase{p>32}"),
+            (k9, "forms:column_blocks", "alpha_phase{column blocks}"),
+            (k9, "forms:device_slabs", "alpha_phase{device slabs}"),
             (k10, "forms:two_row", "fw_phase{two-row}"),
+            (k10, "forms:column_blocks", "fw_phase{column blocks}"),
+            (k10, "forms:device_slabs", "fw_phase{device slabs}"),
             (k7, "launches", "u_phase"),
             (k7, "launches_bf16", "u_phase[bf16]"),
             (k8, "launches", "grams"),
@@ -727,9 +729,10 @@ def _small_inputs(n_ct, n_u, dtype_name, n, seed, n_s=N_S):
 
 
 def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U,
-             mask=None, n_s=N_S):
+             mask=None, n_s=N_S, reps=7, inner=20):
     """K2 against its twin; ``mask`` (p,) its row mask, then also held
-    bit-identical to the unmasked launch when all ones."""
+    bit-identical to the unmasked launch when all ones. ``timed``: medians
+    of ``reps`` runs of ``inner`` launches."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -777,12 +780,14 @@ def _k2_case(n_ct, dtype_name, timed=False, n=200_000, seed=3, n_u=N_U,
            "tol_alpha": tol["alpha"], "tol_cost": tol["cost"]}
     if timed:
         res["ms"] = median_ms(lambda: alpha_phase_full(
-            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), inner=20)
+            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), reps=reps,
+            inner=inner)
         res["queued_ms"] = queued_ms(lambda: alpha_phase_full(
-            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), inner=20)
+            *args, ak, apk, sk, N_INNER, n_u, **mask_kw), reps=reps,
+            inner=inner)
         res["plain_ms"] = median_ms(lambda: alpha_phase_full_plain(
             *args, ap_, app, sp, N_INNER, n_u, *mask_kw.values()),
-            inner=20)
+            reps=reps, inner=inner)
         res["bound_ms"], res["bound_by"] = bound(
             *glue_work(p, n_s, n_ct, N_INNER, alpha.element_size()),
             dtype_name)
@@ -3639,10 +3644,11 @@ def phase_layouts():
     the global layout's plan (``cuda_kernels.global_plan``: its chunk,
     ring and rows for one K1 member and for K4's groups, against
     ``dm_global_plan``); the glue kernels' device slabs
-    (``cuda_small.glue_work``) and K2's, K3's, K5's and K6's column
+    (``cuda_small.glue_work``), K2's, K3's, K5's and K6's column
     blocks (``alpha_column_plan``, ``fw_column_plan``,
-    ``alpha_column_groups``, ``fw_column_groups`` at p = 65-700) against
-    their exports."""
+    ``alpha_column_groups``, ``fw_column_groups`` at p = 65-700) and
+    K9's and K10's forms (``phase_plan`` at p = 1-1000) against their
+    exports."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
         SMEM_LIMIT, global_plan, lib_global_plan, state_in_device,
@@ -3652,7 +3658,7 @@ def phase_layouts():
     from demethify_tpu_torch.ops.cuda_small import (
         alpha_column_groups, alpha_column_plan, alpha_plan, fw_column_groups,
         fw_column_plan, glue_smem, lib_alpha_column_plan, lib_fw_column_plan,
-        two_row_stride)
+        lib_phase_plan, phase_plan, two_row_stride)
     from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
 
     lib = _build.load().lib
@@ -3732,6 +3738,14 @@ def phase_layouts():
                 if (lib.dm_alpha_column_groups(itemsize, p, n_s)
                         != alpha_column_groups(itemsize, p, n_s)):
                     bad.append(("alpha column groups", itemsize, p, n_s))
+    # K9's and K10's forms at every p to 1000 (their plans)
+    for kernel in ("alpha", "fw"):
+        for itemsize in (4, 8):
+            for p in range(1, 1001):
+                n_checked += 1
+                if (lib_phase_plan(lib, kernel, itemsize, p)
+                        != phase_plan(kernel, itemsize, p)):
+                    bad.append(("phase plan", kernel, itemsize, p))
     # the glue kernels' row buckets and the two-row form's slab stride
     for p in range(1, 130):
         n_checked += 2
@@ -4035,24 +4049,20 @@ def phase_state_cols():
 
 
 # the glue kernels' two-row form (32 < p <= 64): the rows and columns it
-# is held at, and the wide loop just past it
+# is held at
 TWO_ROW_P = (33, 40, 48, 64)
 TWO_ROW_NS = (10, 100)
 GLUE_KERNELS = ("alpha_phase_full", "fw_phase_full", "alpha_phase_full_multi",
                 "fw_phase_full_multi", "alpha_phase", "fw_phase")
-
-
-# K2, K3, K5 and K6, whose form above 64 rows is the column blocks
-COLUMN_KERNELS = ("alpha_phase_full", "fw_phase_full",
-                  "alpha_phase_full_multi", "fw_phase_full_multi")
+# the glue kernels that also count their launches above 32 rows ("{p>32}")
+WIDE_COUNTED = GLUE_KERNELS[:4]
 
 
 def _glue_forms(case, want_two_row, columns=True):
     """Runs ``case()`` with the counters at 0 and checks each glue kernel
     it launched against its form counters: every launch in the two-row
-    form (``want_two_row``), or none (p > 64: K9's and K10's wide loop;
-    K2's, K3's, K5's and K6's column blocks where ``columns``, else their
-    device slabs). Returns the case's result."""
+    form (``want_two_row``), or none (p > 64: the column blocks where
+    ``columns``, else the device slabs). Returns the case's result."""
     reset_counts()
     res = case()
     got = read_counts()
@@ -4060,10 +4070,11 @@ def _glue_forms(case, want_two_row, columns=True):
         if got[k]:
             want = got[k] if want_two_row else 0
             check(got[f"{k}{{two-row}}"] == want
-                  and got[f"{k}{{p>32}}"] == got[k],
+                  and (k not in WIDE_COUNTED
+                       or got[f"{k}{{p>32}}"] == got[k]),
                   f"{k}: {got[k]} launches, {got[f'{k}{{two-row}}']} in the "
                   f"two-row form, want {want}")
-        if got[k] and k in COLUMN_KERNELS and not want_two_row:
+        if got[k] and not want_two_row:
             cols = got[k] if columns else 0
             check(got[f"{k}{{column blocks}}"] == cols
                   and got[f"{k}{{device slabs}}"] == got[k] - cols,
@@ -4076,17 +4087,20 @@ def _glue_forms(case, want_two_row, columns=True):
 
 
 def _nan_column_case(p, n_s=N_S, col=3):
-    """K2 and K5 (B = 2) at p rows, float64, 200k sites, with G_s's entry
-    (p - 1, 0) of column ``col`` a NaN, against their twins: that column
-    comes out NaN in every row of alpha, as the twins and the JAX kernels
-    give it, and the other columns agree at the alpha tolerance. The
-    forms: register (p <= 32), two-row (33-64), column blocks (to 452) and
-    device slabs past them."""
+    """K2, K5 (B = 2) and K9 (on K2's assembled Grams) at p rows,
+    float64, 200k sites, with G_s's entry (p - 1, 0) of column ``col`` a
+    NaN, against their twins: that column comes out NaN in every row of
+    alpha, as the twins and the JAX kernels give it, and the other
+    columns agree at the alpha tolerance. The forms: register (p <= 32),
+    two-row (33-64), column blocks (to 452) and device slabs past them."""
     import torch
 
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
     from demethify_tpu_torch.ops.cuda_small import (
-        alpha_phase_full, alpha_phase_full_multi,
-        alpha_phase_full_multi_plain, alpha_phase_full_plain)
+        alpha_phase, alpha_phase_full, alpha_phase_full_multi,
+        alpha_phase_full_multi_plain, alpha_phase_full_plain,
+        alpha_phase_plain, assemble_G_b)
 
     n_u = 1 if p <= 32 else 4
     n_ct = p - n_u
@@ -4114,13 +4128,18 @@ def _nan_column_case(p, n_s=N_S, col=3):
         aq, apq, sq = a.clone(), ap.clone(), sc.clone()
         plain(*args, aq, apq, sq, N_INNER, n_u)
         outs.append((fn, ak, aq))
+    G, b = (x.contiguous() for x in assemble_G_b(gtt, bt, gu, bu))
+    sc = (scal[A_ALPHA], scal[L_H_PREV], (scal[RT_SQ] + usq[0]) * scal[DMAX2])
+    outs.append(("k9", alpha_phase(G, b, alpha, alpha_prev, *sc, N_INNER)[0],
+                 alpha_phase_plain(G, b, alpha, alpha_prev, *sc,
+                                   N_INNER)[0]))
     torch.cuda.synchronize()
     launches = read_counts()
     ok = True
     for fn, ak, aq in outs:
         nan_k, nan_q = torch.isnan(ak), torch.isnan(aq)
-        bad_col = (nan_k[..., col].all() if fn == "k2"
-                   else nan_k[1, :, col].all())
+        bad_col = (nan_k[1, :, col].all() if fn == "k5"
+                   else nan_k[..., col].all())
         same_nan = torch.equal(nan_k, nan_q)
         err = float((ak[~nan_q] - aq[~nan_q]).abs().max())
         log(f"[NaN column] {fn} p={p} n_s={n_s} float64: column {col} NaN "
@@ -4130,7 +4149,7 @@ def _nan_column_case(p, n_s=N_S, col=3):
         ok = ok and bool(bad_col) and same_nan and (
             err <= TOL["float64"]["alpha"])
     log(f"[NaN column] p={p} launches {dict((k, v) for k, v in launches.items() if v)}")
-    check(ok, f"K2/K5 NaN column at p = {p}")
+    check(ok, f"K2/K5/K9 NaN column at p = {p}")
 
 
 def phase_wide_glue():
@@ -4139,9 +4158,10 @@ def phase_wide_glue():
     and float64 (K5 and K6 with an inactive member; K9 and K10 also held
     bit for bit to K2 and K3 on the same Grams), each launch counted in
     the two-row form; K2 and K5 with row masks at p = 40 and 64 (an
-    all-ones mask bit-identical to none, masked rows exactly 0); the wide
-    loop of K9 and K10 at p = 65 and 100, both dtypes, with no two-row
-    launch; K2's and K5's column blocks at p = 65 (both dtypes), 100
+    all-ones mask bit-identical to none, masked rows exactly 0); K9 and
+    K10 above 64 rows in K2's and K3's column blocks and device slabs
+    (``_phase_wide_cases``), with no two-row launch; K2's and K5's column
+    blocks at p = 65 (both dtypes), 100
     (float32; float64 timed), 166 and 167 (float64) and 237 and 238
     (float32), the plan's last single block and first cluster of two, K5
     with an inactive member, with row masks at p = 100 and 200 and with
@@ -4150,7 +4170,8 @@ def phase_wide_glue():
     inactive member and at p = 100 with per-member known blocks; a column
     whose v holds a NaN in each form of K2 and K5 (``_nan_column_case``).
     Returns the timed p = 40, n_s = 10, float64 cases (the kernels line's
-    rows) and the timed p = 100 cases of K2's and K3's column blocks."""
+    rows), the timed p = 100 cases of K2's, K3's, K9's and K10's column
+    blocks and K9's and K10's device slabs."""
     timed = {}
     for p in TWO_ROW_P:
         for n_s in TWO_ROW_NS:
@@ -4190,12 +4211,11 @@ def phase_wide_glue():
                 _glue_forms(lambda: _k9_case(
                     p, dt, n_s=100, seed=121 + p,
                     mask=[0] + [1] * (p - 1)), True)
-    # the wide loop (p > 64) of K9 and K10
-    for p in (65, 100):
-        for dt in ("float64", "float32"):
-            seed = 122 + p
-            _glue_forms(lambda: _k9_case(p, dt, seed=seed + 4), False)
-            _glue_forms(lambda: _k10_case(p, dt, seed=seed + 5), False)
+    # K9 and K10 above 64 rows: K2's and K3's column blocks (one block a
+    # column to the plan's last, clusters of two just past it and at
+    # p = 200 and 240), K9 with row masks, and past eight blocks the
+    # device slabs (50k sites; K10 20 steps)
+    timed.update(_phase_wide_cases())
     # K2's and K5's column blocks: one block a column at p = 65 and 100
     # and to the plan's last (166 in float64, 237 in float32), clusters of
     # two just past it; K5 with an inactive member, K2 also at n_s = 100
@@ -4225,7 +4245,7 @@ def phase_wide_glue():
     for p in (100, 200):
         _glue_forms(lambda: _k5w_case(p - 4, 4, "float64", 3, (1,),
                                       seed=135 + p), False)
-    # a column whose v holds a NaN, in every form of K2 and K5
+    # a column whose v holds a NaN, in every form of K2, K5 and K9
     for p in (6, 40, 100, 200, 460):
         _nan_column_case(p)
     # K3's and K6's column blocks, one block a column up to p = 168 in
@@ -4252,6 +4272,50 @@ def phase_wide_glue():
     return timed
 
 
+def _last_single_block(plan, itemsize):
+    """The largest p whose column plan takes one block."""
+    return max(p for p in range(65, 700) if plan(itemsize, p)["blocks"] == 1)
+
+
+def _phase_wide_cases():
+    """K9 and K10 above 64 rows against their twins and K2's and K3's
+    bits, each launch counted in the column blocks (or past eight blocks
+    the device slabs): both at p = 65 and 100 (both dtypes), at their
+    plans' last single block and first cluster of two (K9 166 and 167 in
+    float64, 237 and 238 in float32; K10 168 and 169, 239 and 240), at
+    p = 200 (float64) and 240 (float32); K9 with row masks at p = 100
+    (n_s = 100) and 200; K9 at p = 460 and K10 at p = 490 (20 steps) in
+    the device slabs, 50k sites. Returns the timed float64 cases: the
+    column blocks at p = 100, the device slabs."""
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_column_plan, fw_column_plan)
+
+    shapes = {(p, dt) for p in (65, 100) for dt in ("float64", "float32")}
+    shapes |= {(200, "float64"), (240, "float32")}
+    out = {}
+    for kern, plan in (("k9", alpha_column_plan), ("k10", fw_column_plan)):
+        edges = {(p, dt) for dt, size in (("float64", 8), ("float32", 4))
+                 for p in (_last_single_block(plan, size),
+                           _last_single_block(plan, size) + 1)}
+        for p, dt in sorted(shapes | edges):
+            timed = (p, dt) == (100, "float64")
+            fn = _k9_case if kern == "k9" else _k10_case
+            res = _glue_forms(lambda: fn(p, dt, seed=700 + p, timed=timed),
+                              False)
+            if timed:
+                out[f"{kern} wide"] = res
+    for p, n_s in ((100, 100), (200, N_S)):
+        _glue_forms(lambda: _k9_case(p, "float64", n_s=n_s, seed=710 + p,
+                                     mask=[1] * (p - 2) + [0, 1]), False)
+    out["k9 slabs"] = _glue_forms(lambda: _k9_case(
+        460, "float64", seed=720, timed=True, n=50_000), False,
+        columns=False)
+    out["k10 slabs"] = _glue_forms(lambda: _k10_case(
+        490, "float64", seed=721, timed=True, steps=20, n=50_000), False,
+        columns=False)
+    return out
+
+
 def phase_global_kernels():
     """The kernels' device-memory forms past one block's shared memory
     against their twins, float64 unless stated: K1's global layout (gram
@@ -4261,10 +4325,11 @@ def phase_global_kernels():
     (B = 10, 160 + 4 at n_s = 64; weighted B = 4, 205 + 4 at n_s = 10);
     K2 and K5 in their column blocks at p = 200 (K2 also at n_s = 100)
     and at 240 in float32, and in their device slabs past eight blocks
-    (p = 460, K2 at n_s = 10 and 100); K3 and K6 in their column blocks
-    at p = 200 (clusters of two; K6 also with per-member known blocks) and
-    at 240 in float32, and in their device slabs past eight blocks
-    (p = 490, 20 steps). Each at 200k sites; the timed cases with a
+    (p = 460, K2 at n_s = 10, timed, and 100); K3 and K6 in their column
+    blocks at p = 200 (clusters of two; K6 also with per-member known
+    blocks) and at 240 in float32, and in their device slabs past eight
+    blocks (p = 490, 20 steps; K3 timed). Each at 200k sites (the device
+    slabs at 50k); the timed cases with a
     launch's peak device memory. Then the global layout
     forced at shapes the shared layouts take, bit-identical to them: K1 at
     the main path's shape (1M x 10, 5 + 1, float32), in the direct form
@@ -4326,8 +4391,9 @@ def phase_global_kernels():
                                              seed=410, timed=True), False)
     _glue_forms(lambda: _k5_case(236, 4, "float32", 4, (1,), seed=427),
                 False)
-    _glue_forms(lambda: _k2_case(456, "float64", n_u=4, seed=428, n=50_000),
-                False, columns=False)
+    out["k2 slabs"] = _glue_forms(lambda: _k2_case(
+        456, "float64", n_u=4, seed=428, n=50_000, timed=True, reps=3,
+        inner=2), False, columns=False)
     _glue_forms(lambda: _k2_case(456, "float64", n_u=4, seed=429, n=50_000,
                                  n_s=100), False, columns=False)
     _glue_forms(lambda: _k5_case(456, 4, "float64", 2, (1,), seed=430),
@@ -4345,8 +4411,9 @@ def phase_global_kernels():
     _glue_forms(lambda: _k3_case(239, "float32", seed=423), False)
     _glue_forms(lambda: _k6_case("float32", n_b=4, inactive=(1,), n_ct=239,
                                  seed=424), False)
-    _glue_forms(lambda: _k3_case(489, "float64", seed=425, n=50_000,
-                                 steps=20), False, columns=False)
+    out["k3 slabs"] = _glue_forms(lambda: _k3_case(
+        489, "float64", seed=425, n=50_000, steps=20, timed=True, reps=3,
+        inner=2), False, columns=False)
     _glue_forms(lambda: _k6_case("float64", n_b=2, inactive=(1,), n_ct=489,
                                  seed=426, steps=20), False, columns=False)
     return out
@@ -5279,10 +5346,10 @@ def _k8_rounding_case(n=200, n_s=N_S, p=N_CT + N_U, seed=321):
     return rel
 
 
-def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S):
-    """K2's inputs (``_small_inputs``) with their assembled G, b, an
-    alpha_prev and the scalar vector K2 reads (A_ALPHA, L_H_PREV, RT_SQ,
-    DMAX2 set)."""
+def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S, n=200_000):
+    """K2's inputs (``_small_inputs`` on n sites) with their assembled G,
+    b, an alpha_prev and the scalar vector K2 reads (A_ALPHA, L_H_PREV,
+    RT_SQ, DMAX2 set)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -5290,7 +5357,7 @@ def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S):
     from demethify_tpu_torch.ops.cuda_small import assemble_G_b
 
     gtt, bt, gu, bu, usq, ydy, alpha, ydt, rtt, scal = _small_inputs(
-        n_ct, p - n_ct, dtype_name, 200_000, seed, n_s)
+        n_ct, p - n_ct, dtype_name, n, seed, n_s)
     dmax2 = ydt[n_s:].max() ** 2
     rt_sq = torch.sum(rtt * rtt)
     scal[A_ALPHA], scal[RT_SQ], scal[DMAX2] = 1.8, rt_sq, dmax2
@@ -5303,10 +5370,12 @@ def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S):
 
 
 def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
-             timed=False):
-    """K9 against its twin; with K2's inputs, K9 on K2's assembled G and b
-    and K2's scalars gives K2's alpha, alpha_prev and scalars bit for bit
-    (one loop body, ``glue_steps.cuh``)."""
+             timed=False, n=200_000):
+    """K9 against its twin; with K2's inputs (n sites), K9 on K2's
+    assembled G and b and K2's scalars gives K2's alpha, alpha_prev and
+    scalars bit for bit (one loop body, ``glue_steps.cuh`` and
+    ``column_steps.cuh``). A masked case also checks its masked rows are
+    exactly 0."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -5316,7 +5385,7 @@ def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
 
     n_ct = p - N_U if n_ct is None else n_ct
     blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
-        p, n_ct, dtype_name, seed, n_s)
+        p, n_ct, dtype_name, seed, n_s, n)
     l_h = (scal[RT_SQ] + blocks[4][0]) * scal[DMAX2]
     sc = (scal[A_ALPHA], scal[L_H_PREV], l_h)
     mask_t = None if mask is None else torch.as_tensor(
@@ -5335,6 +5404,7 @@ def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
                                 (apk - ap_pl).abs().max()))
     err_s = max(abs(float(a_k) / float(a_p) - 1),
                 abs(float(l_k) / float(l_p) - 1))
+    masked_zero = mask_t is None or bool((ak[~(mask_t > 0)] == 0).all())
     tol = TOL[dtype_name]
     res = {"p": p, "n_s": n_s, "dtype": dtype_name, "masked": mask is not None,
            "alpha_max_abs": err_a, "same_as_k2": same_k2}
@@ -5360,6 +5430,7 @@ def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
     check(err_s <= (1e-12 if dtype_name == "float64" else 1e-6),
           "K9 scalars differ")
     check(same_k2, "K9 on K2's assembled Grams differs from K2")
+    check(masked_zero, "K9's masked rows are not 0")
     return res
 
 
@@ -5389,10 +5460,11 @@ def _fw_phase_flips(G, b, a1, a2, purity, n_steps):
     return flips
 
 
-def _k10_case(p, dtype_name, n_s=N_S, seed=360, timed=False, steps=P_INNER):
+def _k10_case(p, dtype_name, n_s=N_S, seed=360, timed=False, steps=P_INNER,
+              n=200_000):
     """K10 against its twin, with its vertex flips counted as K3's; with
-    K3's inputs, K10 on K3's assembled G and b gives K3's alpha bit for
-    bit."""
+    K3's inputs (n sites), K10 on K3's assembled G and b gives K3's alpha
+    bit for bit."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_small import (
@@ -5400,7 +5472,7 @@ def _k10_case(p, dtype_name, n_s=N_S, seed=360, timed=False, steps=P_INNER):
 
     n_ct = p - N_U
     blocks, G, b, alpha, _, scal = _phase_glue_inputs(p, n_ct, dtype_name,
-                                                      seed, n_s)
+                                                      seed, n_s, n)
     rng = np.random.default_rng(seed)
     purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s), device=DEV,
                              dtype=alpha.dtype)
@@ -6115,12 +6187,52 @@ def _alpha_column_outputs(shape):
     return saved
 
 
+# K9's and K10's shapes above 64 rows that the one-block wide loop before
+# the column blocks ran (p <= 167 in float64, 237 in float32): (p, n_s,
+# dtype) by name
+PHASE_SHAPES = {f"p{p}_ns{n_s}_{dt}": (p, n_s, dt) for p, n_s, dt in (
+    (65, 10, "float64"), (100, 10, "float64"), (160, 10, "float64"),
+    (166, 10, "float64"), (167, 10, "float64"), (100, 100, "float64"),
+    (65, 10, "float32"), (100, 10, "float32"), (200, 10, "float32"),
+    (237, 10, "float32"), (100, 100, "float32"))}
+
+
+def _phase_outputs(shape):
+    """K9's outputs (alpha, alpha_prev and the advanced scalars; with and
+    without a row mask, 20 steps) and K10's (500 steps) at ``shape`` of
+    ``PHASE_SHAPES``, one launch each from seeded inputs, on the CPU."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import (
+        A_ALPHA, DMAX2, L_H_PREV, RT_SQ)
+    from demethify_tpu_torch.ops.cuda_small import alpha_phase, fw_phase
+
+    p, n_s, dt = PHASE_SHAPES[shape]
+    saved = {}
+    blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
+        p, p - 4, dt, 900 + p + n_s, n_s)
+    l_h = (scal[RT_SQ] + blocks[4][0]) * scal[DMAX2]
+    mask = torch.ones(p, device=DEV, dtype=alpha.dtype)
+    mask[2] = mask[p - 1] = 0.0
+    for mk, m in (("", None), ("_masked", mask)):
+        out = alpha_phase(G, b, alpha, alpha_prev, scal[A_ALPHA],
+                          scal[L_H_PREV], l_h, N_INNER, row_mask=m)
+        saved.update({f"k9{mk}_alpha": out[0], f"k9{mk}_alpha_prev": out[1],
+                      f"k9{mk}_scal": torch.stack(out[2:])})
+    purity = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
+    a1 = (alpha[:p - 4] / alpha[:p - 4].sum(0) * purity).contiguous()
+    a2 = (alpha[p - 4:] / alpha[p - 4:].sum(0) * (1 - purity)).contiguous()
+    saved["k10_alpha"] = torch.cat(fw_phase(G, b, a1, a2, purity, P_INNER))
+    return {k: v.cpu() for k, v in saved.items()}
+
+
 # what save_outputs runs for each kind, and its named tables of
 # (kind, shape) pairs
 OUTPUT_KINDS = {"K1": _k1_outputs, "K4": _k4_outputs, "K7": _k7_outputs,
                 "glue": _glue_outputs, "K3": _k3_outputs,
                 "columns": _column_outputs,
-                "alpha_columns": _alpha_column_outputs}
+                "alpha_columns": _alpha_column_outputs,
+                "phase": _phase_outputs}
 OUTPUT_TABLES = {"global": GLOBAL_SHAPES, "main": MAIN_SHAPES,
                  "state": STATE_SHAPES,
                  "glue": (("glue", "main"), ("glue", "cohort"),
@@ -6128,7 +6240,8 @@ OUTPUT_TABLES = {"global": GLOBAL_SHAPES, "main": MAIN_SHAPES,
                  "glue_wide": (("glue", "wide"),),
                  "columns": (tuple(("columns", s) for s in COLUMN_SHAPES)
                              + tuple(("alpha_columns", s)
-                                     for s in ALPHA_COLUMN_SHAPES))}
+                                     for s in ALPHA_COLUMN_SHAPES)),
+                 "phase": tuple(("phase", s) for s in PHASE_SHAPES)}
 
 
 def save_outputs(root, path, shapes):
@@ -6138,7 +6251,8 @@ def save_outputs(root, path, shapes):
     or a sequence of (kind, shape) pairs, kind a key of ``OUTPUT_KINDS``
     (K1, K4 and K7 at a shape of ``K1_OUTPUT_SHAPES`` /
     ``K4_OUTPUT_SHAPES`` / ``K7_OUTPUT_SHAPES``; "glue" and "K3" at a
-    shape of ``GLUE_OUTPUT_SHAPES``). Run it once a tree, one process each:
+    shape of ``GLUE_OUTPUT_SHAPES``; "phase", K9 and K10, at one of
+    ``PHASE_SHAPES``). Run it once a tree, one process each:
 
         python3 -c 'import chip_smoke; chip_smoke.save_outputs("DIR", "OUT.pt", "global")'
     """
@@ -6171,11 +6285,13 @@ def same_outputs(path_a, path_b):
                       "max_rel_diff": rel}), flush=True)
 
 
-def _glue_time(kern, p, n_s, dt):
+def _glue_time(kern, p, n_s, dt, steps=None, inner=20, n=200_000):
     """One glue kernel (``kern`` k2, k3, k5 or k6 with B = 8 members, all
-    active, k9 or k10) at p, n_s and ``dt`` on seeded inputs: device ms a
-    launch queued behind a device sleep, with us a step and a step and
-    column."""
+    active, k9 or k10) at p, n_s and ``dt`` on seeded inputs (n sites):
+    device ms a launch queued behind a device sleep (the median of 7 runs
+    of ``inner`` launches), with us a step and a step and column, and the
+    bound; ``steps`` the steps a launch (default 500 for the Frank-Wolfe
+    kernels, 20 for the others)."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -6184,8 +6300,9 @@ def _glue_time(kern, p, n_s, dt):
         alpha_phase, alpha_phase_full, alpha_phase_full_multi, fw_phase,
         fw_phase_full, fw_phase_full_multi)
 
-    n_ct = p - 1 if kern in ("k3", "k6", "k10") else p - 4
-    steps = P_INNER if kern in ("k3", "k6", "k10") else N_INNER
+    fw = kern in ("k3", "k6", "k10")
+    n_ct = p - 1 if fw else p - 4
+    steps = steps or (P_INNER if fw else N_INNER)
     n_b = 8 if kern in ("k5", "k6") else 1
     if n_b > 1:
         (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
@@ -6201,7 +6318,7 @@ def _glue_time(kern, p, n_s, dt):
                   p - n_ct)}[kern]
     else:
         blocks, G, b, alpha, alpha_prev, scal = _phase_glue_inputs(
-            p, n_ct, dt, 600 + p, n_s)
+            p, n_ct, dt, 600 + p, n_s, n)
         pur = torch.linspace(0.3, 0.9, n_s, device=DEV, dtype=alpha.dtype)
         gtt, bt, gu, bu, usq, ydy = blocks
         l_h = (scal[RT_SQ] + usq[0]) * scal[DMAX2]
@@ -6215,12 +6332,19 @@ def _glue_time(kern, p, n_s, dt):
               "k10": lambda: fw_phase(G, b, alpha[:n_ct].contiguous(),
                                       alpha[n_ct:].contiguous(), pur,
                                       steps)}[kern]
-    ms = queued_ms(fn, inner=20)
+    ms = queued_ms(fn, inner=inner)
+    itemsize = 8 if dt == "float64" else 4
+    work = (phase_glue_work(p, n_s, steps, itemsize, fw=fw)
+            if kern in ("k9", "k10") else
+            glue_work(p, n_s, n_ct, steps, itemsize, n_members=n_b, fw=fw))
+    bound_ms, bound_by = bound(*work, dt)
     log(f"[time] {kern} p={p} n_s={n_s} B={n_b} {dt} {steps} steps: "
-        f"{ms:.4f} ms ({ms * 1e3 / steps:.3f} us a step)")
+        f"{ms:.4f} ms ({ms * 1e3 / steps:.3f} us a step), bound "
+        f"{bound_ms:.2e} ms ({bound_by})")
     return {"kernel": kern, "p": p, "n_s": n_s, "dtype": dt, "steps": steps,
             "members": n_b, "ms": ms, "us_per_step": ms * 1e3 / steps,
-            "us_per_step_column": ms * 1e3 / (steps * n_s * n_b)}
+            "us_per_step_column": ms * 1e3 / (steps * n_s * n_b),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _p40_path_times():
@@ -6377,12 +6501,47 @@ TIME_TABLES = {
         for p, dt in ((100, "float64"), (200, "float64"), (240, "float32"))
         for kern in ("k2", "k3", "k5", "k6"))
     + (("past_paths", _past_path_times, {}),),
+    # K9 and K10 (float64, n_s = 10) at p = 100 and 160, which the one-block
+    # wide loop before the column blocks also ran, beside the kernels that
+    # share their column-block and device-slab bodies: K2, K3, K5 and K6 at
+    # p = 100 and 200, K2 at p = 460 and K3 at 490 (20 steps) in the device
+    # slabs, and the main path's K1 and K2 (float32)
+    "phase": (
+        ("k1_main", _k1_case, dict(n=N_CPG, n_u=N_U, dtype_name="float32",
+                                   timed=True)),
+        ("k2_main", _k2_case, dict(n_ct=N_CT, dtype_name="float32",
+                                   timed=True)))
+    + tuple((f"{kern}_p{p}", _glue_time,
+             dict(kern=kern, p=p, n_s=N_S, dt="float64",
+                  inner=5 if (kern, p) == ("k10", 160) else 20))
+            for p in (100, 160) for kern in ("k9", "k10"))
+    + tuple((f"{kern}_p{p}", _glue_time,
+             dict(kern=kern, p=p, n_s=N_S, dt="float64"))
+            for p in (100, 200) for kern in ("k2", "k3", "k5", "k6"))
+    + (("k2_p460", _glue_time, dict(kern="k2", p=460, n_s=N_S, dt="float64",
+                                    inner=2, n=50_000)),
+       ("k3_p490", _glue_time, dict(kern="k3", p=490, n_s=N_S, dt="float64",
+                                    steps=20, inner=2, n=50_000))),
+    # K9 and K10 where only the column blocks' tree runs them: p = 200
+    # (clusters of two), K9 at p = 460 and K10 at 490 (20 steps) in the
+    # device slabs; float64, n_s = 10
+    "phase_new": (
+        ("k9_p200", _glue_time, dict(kern="k9", p=200, n_s=N_S,
+                                     dt="float64")),
+        ("k10_p200", _glue_time, dict(kern="k10", p=200, n_s=N_S,
+                                      dt="float64")),
+        ("k9_p460", _glue_time, dict(kern="k9", p=460, n_s=N_S, dt="float64",
+                                     inner=2, n=50_000)),
+        ("k10_p490", _glue_time, dict(kern="k10", p=490, n_s=N_S,
+                                      dt="float64", steps=20, inner=2,
+                                      n=50_000))),
 }
 
 
 def time_cases(root, table):
     """Times the cases of ``TIME_TABLES[table]`` ("global", "state",
-    "glue", "columns") with the tree at ``root`` and prints one JSON line: the card's
+    "glue", "columns", "phase", "phase_new") with the tree at ``root``
+    and prints one JSON line: the card's
     ``nvidia-smi`` name and power limit and each case's result by name.
     For a parent/change comparison on one card run parent, change, change,
     parent, one process each:
@@ -7217,6 +7376,30 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
                  "its check against the twin at p=100, n_s=10, float64 (no "
                  "path of this script runs p 65-168)", bound_ms=k3w_b[0],
                  bound_by=k3w_b[1]), redesigned=K3_COLUMNS),
+        dict(row("alpha_phase{column blocks}", src + "alpha_phase.cu",
+                 "demethify_tpu/ops/pallas_small.py:70 (p > 64, via :97)",
+                 glue["k9 wide"], glue["k9 wide"]["check_launches"][
+                     "alpha_phase{column blocks}"],
+                 "its checks against the twin and K2 (no solver runs K9; "
+                 "times: p=100, n_s=10, float64)"), redesigned=K2_COLUMNS),
+        dict(row("fw_phase{column blocks}", src + "fw_phase.cu",
+                 "demethify_tpu/ops/pallas_small.py:204 (p > 64, via :213)",
+                 glue["k10 wide"], glue["k10 wide"]["check_launches"][
+                     "fw_phase{column blocks}"],
+                 "its checks against the twin and K3 (no solver runs K10; "
+                 "times: p=100, n_s=10, float64)"), redesigned=K3_COLUMNS),
+        row("alpha_phase{device slabs}", src + "alpha_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:70 (p > 64, via :97)",
+            glue["k9 slabs"], glue["k9 slabs"]["check_launches"][
+                "alpha_phase{device slabs}"],
+            "its check against the twin and K2 (times: p=460, n_s=10, "
+            "float64)"),
+        row("fw_phase{device slabs}", src + "fw_phase.cu",
+            "demethify_tpu/ops/pallas_small.py:204 (p > 64, via :213)",
+            glue["k10 slabs"], glue["k10 slabs"]["check_launches"][
+                "fw_phase{device slabs}"],
+            "its check against the twin and K3 (times: p=490, n_s=10, "
+            "20 steps, float64)"),
         row("u_phase_grams{bf16_compute direct}", k1_src + ".cu",
             k1_at + " (bf16_compute direct fallback :299-311, via :499)",
             k1_bf16c_direct, k1_bf16c_direct["launches"],
@@ -7258,6 +7441,8 @@ def _global_rows(glob, past):
 
     k3_b = bound(*glue_work(200, N_S, 199, P_INNER, 8, fw=True), "float64")
     k3 = dict(glob["k3"], bound_ms=k3_b[0], bound_by=k3_b[1])
+    k3s_b = bound(*glue_work(490, N_S, 489, 20, 8, fw=True), "float64")
+    k3s = dict(glob["k3 slabs"], bound_ms=k3s_b[0], bound_by=k3s_b[1])
     return [
         row("u_phase_grams{global}", "u_phase_grams_global_f64.cu",
             k1_at + " (any p, via :499)", glob["k1"],
@@ -7300,7 +7485,18 @@ def _global_rows(glob, past):
                  glob["k6"], past["global purity restarts"][
                      "fw_phase_full_multi{column blocks}"],
                  "4 purity restarts 20k x 10, 205+4, float64 (times: p=200, "
-                 "B=8)"), redesigned=K3_COLUMNS)]
+                 "B=8)"), redesigned=K3_COLUMNS),
+        row("alpha_phase_full{device slabs}", "alpha_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
+            glob["k2 slabs"], glob["k2 slabs"]["check_launches"][
+                "alpha_phase_full{device slabs}"],
+            "its check against the twin (no path runs p >= 453; times: "
+            "p=460, n_s=10, float64)"),
+        row("fw_phase_full{device slabs}", "fw_phase_full.cu",
+            "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)", k3s,
+            glob["k3 slabs"]["check_launches"]["fw_phase_full{device slabs}"],
+            "its check against the twin (no path runs p >= 473; times: "
+            "p=490, n_s=10, 20 steps, float64)")]
 
 
 # what the kernels line says of the kernels this round redesigned

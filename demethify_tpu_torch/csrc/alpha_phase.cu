@@ -13,28 +13,41 @@
 // What bounds it on an H100: latency. The data is tiny (p ~ 6, n_s ~ 10)
 // and the n_steps steps are serial.
 //
-// What the design does about it: K2's loop (glue_steps.cuh), one warp per
-// sample column: lane q holds row q of G_s, b_s and the column in
-// registers (p <= 32; the loops run to the row bucket P, 8, 16 or 32, the
-// smallest >= p, as K2's; one thread block, a warp looping over columns
-// when n_s > 32 or the kernel's registers allow fewer warps); from 33 to
-// 64 rows K2's two-row form, a block a column (lane q holds rows q
-// and q + 32, the warp's G_s in its slab of shared memory at an odd row
-// stride, the betas from a momentum table the block builds once); above
-// 64 rows the warp's column lives in its own slab of shared memory (the
-// wide form, dm_glue_smem's size, one block). The scalar chain the JAX wrapper replays on
-// the host after the call (pallas_small.py:137-142) is replayed by thread
-// 0 on the device, so the call reads nothing back: the scalars arrive in
-// a small device vector (slots kPhA, kPhL = l_h, kPhLPrev = l_h_prev) and
-// the advanced a and l_h_prev are written to its slots kPhAOut and
-// kPhLPrevOut. alpha and alpha_prev are read from their inputs and written
-// to separate outputs, so the inputs stay as they were.
+// What the design does about it: K2's forms and loops, so a column's
+// arithmetic is K2's in every form. To 32 rows K2's register loop
+// (glue_steps.cuh), one warp per sample column: lane q holds row q of
+// G_s, b_s and the column in registers (the loops run to the row bucket
+// P, 8, 16 or 32, the smallest >= p, as K2's; one thread block, a warp
+// looping over columns when n_s > 32 or the kernel's registers allow
+// fewer warps). From 33 to 64 rows K2's two-row form, a block a column
+// (lane q holds rows q and q + 32, the warp's G_s in its slab of shared
+// memory at an odd row stride, the betas from a momentum table the block
+// builds once). Above 64 rows K2's column blocks (column_steps.cuh
+// alpha_column_steps): a block, or a thread-block cluster of C <= 8
+// blocks, a column, thread t of cluster block c owning row q = c R + t,
+// G_s's rows transposed in the blocks' shared memory, v ranked across
+// the cluster through distributed shared memory (K2's plan,
+// dm::alpha_column_plan: one block to p = 166 in float64, 237 in
+// float32). Past eight blocks (p >= 453 in float64, 651 in float32) K2's
+// device-slab loop: one block, each warp's column in its own slab of a
+// device buffer the wrapper allocates (dm_glue_work's elements), lane q
+// taking rows q, q + 32, ... (glue_steps.cuh alpha_steps_wide). Every
+// form gives the wide loop's bits above 64 rows, and no shape is refused.
+// The scalar chain the JAX wrapper replays on the host after the call
+// (pallas_small.py:137-142) is replayed by one thread on the device, so
+// the call reads nothing back: the scalars arrive in a small device vector
+// (slots kPhA, kPhL = l_h, kPhLPrev = l_h_prev) and the advanced a and
+// l_h_prev are written to its slots kPhAOut and kPhLPrevOut. alpha and
+// alpha_prev are read from their inputs and written to separate outputs,
+// so the inputs stay as they were.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "column_steps.cuh"
 #include "glue_steps.cuh"
 #include "small_common.cuh"
 
@@ -42,7 +55,9 @@ namespace {
 
 using dm::kMaxP;
 
-template <typename T, bool WIDE, int P>
+// The register form (p <= P <= 32): one block, a warp a column, the
+// warps looping over the columns
+template <typename T, int P>
 __global__ void alpha_phase_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
@@ -57,49 +72,21 @@ __global__ void alpha_phase_kernel(
     const T l_h = scal[dm::kPhL];
     const T l_prev0 = scal[dm::kPhLPrev];
     const long long pp = static_cast<long long>(p) * p;
-
-    if constexpr (WIDE) {
-        extern __shared__ __align__(16) unsigned char smem_raw[];
-        T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
-        T* sb = sg + pp;
-        T* sal = sb + p;
-        T* sap = sal + p;
-        T* sat = sap + p;
-        T* sv = sat + p;
-        T* srt = sv + p;
-        for (int s = warp; s < n_s; s += n_warps) {
-            for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
-            for (int q = lane; q < p; q += 32) {
-                sb[q] = b[q * n_s + s];
-                sal[q] = alpha_in[q * n_s + s];
-                sap[q] = alpha_prev_in[q * n_s + s];
-            }
-            __syncwarp();
-            dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane,
-                                 p, a0, l_prev0, l_h, n_steps);
-            for (int q = lane; q < p; q += 32) {
-                alpha[q * n_s + s] = sal[q];
-                alpha_prev[q * n_s + s] = sap[q];
-            }
-            __syncwarp();    // the slab is free for the next column
-        }
-    } else {
-        const bool masked = mask != nullptr && row && !(mask[lane] > T(0));
-        for (int s = warp; s < n_s; s += n_warps) {
-            T g[P];
+    const bool masked = mask != nullptr && row && !(mask[lane] > T(0));
+    for (int s = warp; s < n_s; s += n_warps) {
+        T g[P];
 #pragma unroll
-            for (int r = 0; r < P; ++r)
-                g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
-            const T bq = row ? b[lane * n_s + s] : T(0);
-            T al = row ? alpha_in[lane * n_s + s] : T(0);
-            T ap = row ? alpha_prev_in[lane * n_s + s] : T(0);
-            dm::alpha_steps_reg(g, bq, al, ap, masked, lane, p,
-                                static_cast<const T*>(nullptr), a0, l_prev0,
-                                l_h, n_steps);
-            if (row) {
-                alpha[lane * n_s + s] = al;
-                alpha_prev[lane * n_s + s] = ap;
-            }
+        for (int r = 0; r < P; ++r)
+            g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
+        const T bq = row ? b[lane * n_s + s] : T(0);
+        T al = row ? alpha_in[lane * n_s + s] : T(0);
+        T ap = row ? alpha_prev_in[lane * n_s + s] : T(0);
+        dm::alpha_steps_reg(g, bq, al, ap, masked, lane, p,
+                            static_cast<const T*>(nullptr), a0, l_prev0, l_h,
+                            n_steps);
+        if (row) {
+            alpha[lane * n_s + s] = al;
+            alpha_prev[lane * n_s + s] = ap;
         }
     }
     if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
@@ -179,29 +166,109 @@ int launch_two_row(const void* G, const void* b, const void* alpha_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool WIDE, int P>
-int launch_form(const void* G, const void* b, const void* alpha_in,
-                const void* alpha_prev_in, void* alpha, void* alpha_prev,
-                void* scal, const void* mask, int p, int n_s, int n_steps,
-                cudaStream_t stream) {
-    auto kern = alpha_phase_kernel<T, WIDE, P>;
-    static const int max_warps = dm::max_block_warps(kern);
-    int n_warps = n_s < 32 ? n_s : 32;
-    n_warps = n_warps < max_warps ? n_warps : max_warps;
-    size_t smem = 0;
-    if constexpr (WIDE) {
-        const int fit = dm::glue_warps(sizeof(T), p, n_s);
-        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-        n_warps = fit < n_warps ? fit : n_warps;
-        smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
-        if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
+namespace cg = cooperative_groups;
+
+// The column-block form (p > 64): cluster s of C = gridDim.x / n_s blocks
+// runs column s, block c of it rows [c R, c R + R), one a thread, in K2's
+// layout (dm::alpha_column_plan; the momentum table after the plan's
+// bytes where use_table). Block 0's thread 0 writes the scalar outputs.
+template <typename T>
+__global__ void __launch_bounds__(dm::kColumnThreads)
+alpha_phase_columns_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
+        T* __restrict__ alpha, T* __restrict__ alpha_prev,
+        T* __restrict__ scal, const T* __restrict__ mask, int p, int n_s,
+        int n_steps, int rows, int use_table) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int n_blocks = static_cast<int>(cluster.num_blocks());
+    const int s = blockIdx.x / n_blocks;
+    const int tid = threadIdx.x;
+    const int n_threads = blockDim.x;
+    const int q0 = static_cast<int>(cluster.block_rank()) * rows;
+    const int own = p - q0 < rows ? p - q0 : rows;
+    const int q = q0 + tid;
+    const bool row = tid < own;
+    const long long pp = static_cast<long long>(p) * p;
+    const T a0 = scal[dm::kPhA];
+    const T l_h = scal[dm::kPhL];
+    const T l_prev0 = scal[dm::kPhLPrev];
+
+    const dm::AlphaColumn<T> c(smem_raw, rows, p, use_table);
+    for (int k = tid; k < own * p; k += n_threads) {
+        const int t = k / p;
+        const int r = k - t * p;
+        c.sg[r * rows + t] = G[s * pp + static_cast<long long>(q0 + t) * p
+                               + r];
     }
-    kern<<<1, 32 * n_warps, smem, stream>>>(
+    for (int r = tid; r < p; r += n_threads) {
+        c.sal[r] = alpha_in[r * n_s + s];
+        c.sap[r] = alpha_prev_in[r * n_s + s];
+    }
+    const T bq = row ? b[q * n_s + s] : T(0);
+    const bool masked = row && mask != nullptr && !(mask[q] > T(0));
+    dm::alpha_column_steps(cluster, c, bq, masked, row, q, p, rows, a0,
+                           l_prev0, l_h, n_steps);
+    if (row) {
+        alpha[q * n_s + s] = c.sal[q];
+        alpha_prev[q * n_s + s] = c.sap[q];
+    }
+    if (blockIdx.x == 0 && tid == 0) dm::phase_scalars_out(scal, n_steps);
+}
+
+// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
+// block, each warp's column in its slab of the device buffer gslab,
+// warps looping over the columns
+template <typename T>
+__global__ void alpha_phase_slabs_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
+        T* __restrict__ alpha, T* __restrict__ alpha_prev,
+        T* __restrict__ scal, const T* __restrict__ mask,
+        T* __restrict__ gslab, int p, int n_s, int n_steps) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const T a0 = scal[dm::kPhA];
+    const T l_h = scal[dm::kPhL];
+    const T l_prev0 = scal[dm::kPhLPrev];
+    const long long pp = static_cast<long long>(p) * p;
+    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
+    T* sb = sg + pp;
+    T* sal = sb + p;
+    T* sap = sal + p;
+    T* sat = sap + p;
+    T* sv = sat + p;
+    T* srt = sv + p;
+    for (int s = warp; s < n_s; s += n_warps) {
+        for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
+        for (int q = lane; q < p; q += 32) {
+            sb[q] = b[q * n_s + s];
+            sal[q] = alpha_in[q * n_s + s];
+            sap[q] = alpha_prev_in[q * n_s + s];
+        }
+        __syncwarp();
+        dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane, p,
+                             a0, l_prev0, l_h, n_steps);
+        for (int q = lane; q < p; q += 32) {
+            alpha[q * n_s + s] = sal[q];
+            alpha_prev[q * n_s + s] = sap[q];
+        }
+        __syncwarp();    // the slab is free for the next column
+    }
+    if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
+}
+
+template <typename T, int P>
+int launch_reg(const void* G, const void* b, const void* alpha_in,
+               const void* alpha_prev_in, void* alpha, void* alpha_prev,
+               void* scal, const void* mask, int p, int n_s, int n_steps,
+               cudaStream_t stream) {
+    auto kern = alpha_phase_kernel<T, P>;
+    static const int max_warps = dm::max_block_warps(kern);
+    const int n_warps = dm::slab_warps(n_s, max_warps);
+    kern<<<1, 32 * n_warps, 0, stream>>>(
         static_cast<const T*>(G), static_cast<const T*>(b),
         static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
@@ -209,25 +276,59 @@ int launch_form(const void* G, const void* b, const void* alpha_in,
     return static_cast<int>(cudaGetLastError());
 }
 
+// p > 64: K2's column blocks, or past eight blocks its device slabs in
+// `work` (min(n_s, 32) slabs, dm_glue_work)
+template <typename T>
+int launch_wide(const void* G, const void* b, const void* alpha_in,
+                const void* alpha_prev_in, void* alpha, void* alpha_prev,
+                void* scal, const void* mask, void* work, int p, int n_s,
+                int n_steps, cudaStream_t stream) {
+    const dm::ColumnPlan plan = dm::alpha_column_plan(sizeof(T), p);
+    if (plan.blocks == 0) {
+        auto kern = alpha_phase_slabs_kernel<T>;
+        static const int max_warps = dm::max_block_warps(kern);
+        const int n_warps = dm::slab_warps(n_s, max_warps);
+        if (n_warps < 1 || work == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+        kern<<<1, 32 * n_warps, 0, stream>>>(
+            static_cast<const T*>(G), static_cast<const T*>(b),
+            static_cast<const T*>(alpha_in),
+            static_cast<const T*>(alpha_prev_in), static_cast<T*>(alpha),
+            static_cast<T*>(alpha_prev), static_cast<T*>(scal),
+            static_cast<const T*>(mask), static_cast<T*>(work), p, n_s,
+            n_steps);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
+    const int use_table = dm::column_table_fits(plan, tab);
+    return dm::launch_column_blocks(
+        alpha_phase_columns_kernel<T>, plan, n_s, 1,
+        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0), stream,
+        static_cast<const T*>(G), static_cast<const T*>(b),
+        static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask), p, n_s, n_steps,
+        plan.rows, use_table);
+}
+
 template <typename T>
 int launch(const void* G, const void* b, const void* alpha_in,
            const void* alpha_prev_in, void* alpha, void* alpha_prev,
-           void* scal, const void* mask, int p, int n_s, int n_steps,
-           void* stream) {
+           void* scal, const void* mask, void* work, int p, int n_s,
+           int n_steps, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p < 1 || n_s < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (p > dm::kTwoRowP)
-        return launch_form<T, true, kMaxP>(G, b, alpha_in, alpha_prev_in,
-                                           alpha, alpha_prev, scal, mask, p,
-                                           n_s, n_steps, s);
+        return launch_wide<T>(G, b, alpha_in, alpha_prev_in, alpha,
+                              alpha_prev, scal, mask, work, p, n_s, n_steps,
+                              s);
     if (p > kMaxP)
         return launch_two_row<T>(G, b, alpha_in, alpha_prev_in, alpha,
                                  alpha_prev, scal, mask, p, n_s, n_steps, s);
 #define DM_K9_BUCKET(P)                                                      \
     if (p <= P)                                                              \
-        return launch_form<T, false, P>(G, b, alpha_in, alpha_prev_in,       \
-                                        alpha, alpha_prev, scal, mask, p,    \
-                                        n_s, n_steps, s);
+        return launch_reg<T, P>(G, b, alpha_in, alpha_prev_in, alpha,        \
+                                alpha_prev, scal, mask, p, n_s, n_steps, s);
     DM_K9_BUCKET(8)
     DM_K9_BUCKET(16)
     DM_K9_BUCKET(32)
@@ -240,21 +341,35 @@ int launch(const void* G, const void* b, const void* alpha_in,
 extern "C" {
 
 // G (n_s, p, p), b (p, n_s), alpha/alpha_prev in and out (p, n_s), scal
-// the 5-slot scalar vector; mask: the (p,) row mask or NULL
+// the 5-slot scalar vector; mask: the (p,) row mask or NULL; work: the
+// device slabs' buffer past eight column blocks (dm_alpha_phase_plan form
+// 3; dm_glue_work elements), else unread
 int dm_alpha_phase_f32(const void* G, const void* b, const void* alpha_in,
                        const void* alpha_prev_in, void* alpha,
-                       void* alpha_prev, void* scal, const void* mask, int p,
-                       int n_s, int n_steps, void* stream) {
+                       void* alpha_prev, void* scal, const void* mask,
+                       void* work, int p, int n_s, int n_steps,
+                       void* stream) {
     return launch<float>(G, b, alpha_in, alpha_prev_in, alpha, alpha_prev,
-                         scal, mask, p, n_s, n_steps, stream);
+                         scal, mask, work, p, n_s, n_steps, stream);
 }
 
 int dm_alpha_phase_f64(const void* G, const void* b, const void* alpha_in,
                        const void* alpha_prev_in, void* alpha,
-                       void* alpha_prev, void* scal, const void* mask, int p,
-                       int n_s, int n_steps, void* stream) {
+                       void* alpha_prev, void* scal, const void* mask,
+                       void* work, int p, int n_s, int n_steps,
+                       void* stream) {
     return launch<double>(G, b, alpha_in, alpha_prev_in, alpha, alpha_prev,
-                          scal, mask, p, n_s, n_steps, stream);
+                          scal, mask, work, p, n_s, n_steps, stream);
+}
+
+// K9's form at p rows of itemsize-byte values (dm::phase_plan on K2's
+// column plan): out[0] the form (0 register, 1 two-row, 2 column blocks,
+// 3 device slabs), out[1] the row bucket, out[2-4] the column blocks,
+// rows and threads; returns a block's dynamic shared memory before the
+// momentum table (ops/cuda_small.phase_plan is its Python copy)
+long long dm_alpha_phase_plan(int itemsize, int p, int* out) {
+    return dm::phase_plan(itemsize, p, dm::alpha_column_plan(itemsize, p),
+                          out);
 }
 
 }  // extern "C"

@@ -73,25 +73,14 @@
 // ceil(p / C) rows a block). The block keeps its R rows of G_s in shared
 // memory, transposed (entry r of row q at r R + t, so a warp reads
 // consecutive words at each r), its rows of b in registers and its own
-// copies of alpha, alpha_prev and the momentum point a_t. A step:
-//   - each thread forms its row's v = a_t,q + (b_q - (G a_t)_q) / l_h,
-//     the sum over r in index order, -1e30 where the row is masked, and
-//     writes it into every block's copy of v (through distributed shared
-//     memory; two copies by step parity); one barrier (a cluster barrier
-//     where C > 1);
-//   - each thread ranks its row among the p values (the stable descending
-//     rank by comparison) and writes its value into that slot of every
-//     block's rank row; a second barrier;
-//   - one thread per block runs the cumulative sum in rank order, one
-//     chain of p adds (the bits fix its order), its loads a chunk ahead;
-//   - the threads test the ranks side by side, (u_j - pi_j / (j + 1)) > 0,
-//     a division each, and rho, the last rank that passes, is a block
-//     maximum (rank 0 where none does): the serial loop's last-index rho;
-//   - theta = pi_rho / (rho + 1), and every block updates its copies of
-//     alpha, alpha_prev and the next step's a_t the same way (the betas
-//     from the block's momentum table, small_common.cuh momentum_table,
-//     where it fits after the plan's bytes, else the chain replayed: the
-//     same values).
+// copies of alpha, alpha_prev and the momentum point a_t. A step
+// (column_steps.cuh alpha_column_steps, one body with K9's) writes each
+// row's v into every block's copy (through distributed shared memory),
+// ranks every row there and puts each value in its rank's slot in every
+// block, runs one thread's chain of p adds for the cumulative sum in rank
+// order, tests the ranks side by side (rho a block maximum) and updates
+// alpha, alpha_prev and a_t in every block alike, with the betas from the
+// block's momentum table where it fits after the plan's bytes.
 // Every value and every order is the one-warp wide loop's this form
 // replaced (glue_steps.cuh alpha_steps_wide: lane q taking rows q, q + 32,
 // ..., lane 0 taking the cumulative sum and rho alone), so alpha and
@@ -102,8 +91,9 @@
 // sums the columns in groups of that loop's warps (column_groups), so the
 // cost and l_w keep their bits as well. C is the fewest blocks whose
 // shared memory holds R rows of G_s and the seven rows of p the step
-// needs (column_plan), at most 8, the portable cluster size: one block to
-// p = 166 in float64 (237 in float32), up to eight to p = 452 (650).
+// needs (dm::alpha_column_plan), at most 8, the portable cluster size:
+// one block to p = 166 in float64 (237 in float32), up to eight to
+// p = 452 (650).
 // Past eight blocks the device-slab loop stays: one block per member,
 // each warp's column (G_s, b_s, alpha, alpha_prev and work rows) in its
 // own slab of a device buffer the wrapper allocates (min(n_s, 32) slabs a
@@ -126,8 +116,9 @@
 // whose kActive slot is 0 -- it is left exactly as it was -- and sets
 // kActive for the next outer iteration from |new cost - old cost| >= kTol.
 //
-// The step loops and the projection live in glue_steps.cuh, shared with
-// K9 (alpha_phase.cu), which runs them on an assembled G and b.
+// The step loops and the projection live in glue_steps.cuh and, for the
+// column blocks, column_steps.cuh, shared with K9 (alpha_phase.cu), which
+// runs them on an assembled G and b.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
@@ -135,8 +126,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <unordered_set>
-
+#include "column_steps.cuh"
 #include "glue_steps.cuh"
 #include "small_common.cuh"
 
@@ -346,14 +336,6 @@ using dm::ColumnPlan;
 using dm::column_row_dot;
 using dm::kColumnThreads;
 
-// A column's plan: its blocks' shared memory holds R rows of G_s and seven
-// rows of p -- alpha, alpha_prev, the momentum point a_t, v (two, by step
-// parity), the values in rank order and their prefix sums -- before the
-// momentum table.
-ColumnPlan column_plan(int itemsize, int p) {
-    return dm::column_plan(itemsize, p, 7, 0);
-}
-
 // The cost's group count (dm::column_groups): the wide loop's
 // device-slab kernels (K2's and K5's alike) took 128 registers a thread
 // in float64 and 95 in float32 and allowed 512 and 640 threads a block,
@@ -372,8 +354,9 @@ int column_groups(int itemsize, int p, int n_s) {
 // runs column s of member mb, block c of it rows [c R, c R + R), one a
 // thread. Each block keeps its rows of G_s (transposed), its own copies
 // of alpha, alpha_prev and a_t, and the step's v, ranks and prefix sums
-// (column_plan), then the momentum table where use_table. colsum (3, n_s)
-// per member and tickets[mb] as the register form's; `groups` is
+// (dm::alpha_column_plan), then the momentum table where use_table; the
+// steps are column_steps.cuh alpha_column_steps. colsum (3, n_s) per
+// member and tickets[mb] as the register form's; `groups` is
 // column_groups.
 template <typename T, bool MULTI>
 __global__ void __launch_bounds__(kColumnThreads)
@@ -389,8 +372,6 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
                            int n_u, int n_steps, int rows, int groups,
                            int use_table, dm::MemberStrides st) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __shared__ int red[kColumnThreads / 32];
-    __shared__ int nan_step;       // 1 + the last step whose v held a NaN
     cg::cluster_group cluster = cg::this_cluster();
     const long long mb = MULTI ? blockIdx.y : 0;
     const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, usq, ydy,
@@ -406,7 +387,6 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
     const int n_threads = blockDim.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int n_warps = n_threads >> 5;
     const int q0 = rank * rows;                     // this block's rows
     const int own = p - q0 < rows ? p - q0 : rows;
     const int q = q0 + tid;
@@ -417,14 +397,7 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
     const T l_h_prev0 = m.scal[dm::kLHPrev];
     const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
 
-    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
-    T* sal = sg + rows * p;                         // alpha (p)
-    T* sap = sal + p;                               // alpha_prev (p)
-    T* sat = sap + p;                               // a_t (p)
-    T* sv = sat + p;                                // v (2 p, step parity)
-    T* srt = sv + 2 * p;                            // v in rank order (p)
-    T* spi = srt + p;                               // its prefix sums - 1
-    T* tab = use_table ? spi + p : nullptr;
+    const dm::AlphaColumn<T> c(smem_raw, rows, p, use_table);
     // G_s's rows by the assembly rule of load_gram_row, read along r
     for (int k = tid; k < own * p; k += n_threads) {
         const int t = k / p;
@@ -437,151 +410,42 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
             x = m.gu[(s * n_u + (r - n_ct)) * p + qq];
         else
             x = m.gtt[(s * n_ct + qq) * n_ct + r];
-        sg[r * rows + t] = x;
+        c.sg[r * rows + t] = x;
     }
     for (int r = tid; r < p; r += n_threads) {
-        sal[r] = m.alpha[r * n_s + s];
-        sap[r] = m.alpha_prev[r * n_s + s];
+        c.sal[r] = m.alpha[r * n_s + s];
+        c.sap[r] = m.alpha_prev[r * n_s + s];
     }
     const T b = row ? (q < n_ct ? m.bt[q * n_s + s]
                                 : m.bu[(q - n_ct) * n_s + s])
                     : T(0);
     const bool masked = row && m.mask != nullptr && !(m.mask[q] > T(0));
-    if (tid == 0) nan_step = 0;
-    if (use_table)                         // uniform over the block
-        dm::momentum_table(tab, a0, l_h_prev0, l_h, n_steps, tid, n_threads,
-                           [] { __syncthreads(); });
-    // step k's beta: from the table, or the chain replayed (the same
-    // values; a then holds the advanced Nesterov scalar)
-    T a = a0, l_prev = l_h_prev0;
-    auto beta_of = [&](int k) {
-        if (use_table) return tab[k];
-        const T a2n = dm::nesterov(a);
-        const T beta = dm::min_nan((a - T(1)) / a2n,
-                                   T(0.9999) * dm::sqrt_t(l_prev / l_h));
-        a = a2n;
-        l_prev = l_h;
-        return beta;
-    };
-    if (n_steps > 0) {
-        const T beta = beta_of(0);
-        for (int r = tid; r < p; r += n_threads)
-            sat[r] = sal[r] + beta * (sal[r] - sap[r]);
-    }
-    // every block of the cluster has started before any reads or writes
-    // another's shared memory
-    if (n_blocks > 1)
-        cluster.sync();
-    else
-        __syncthreads();
-
-    for (int k = 0; k < n_steps; ++k) {
-        T* vk = sv + (k & 1) * p;
-        // this thread's row of v, written to every block's copy
-        T v = T(0);
-        if (row) {
-            v = sat[q] + (b - column_row_dot(sg, sat, rows, tid, p)) / l_h;
-            if (masked) v = T(-1e30);
-            for (int c = 0; c < n_blocks; ++c)
-                (n_blocks > 1 ? cluster.map_shared_rank(vk, c) : vk)[q] = v;
-        }
-        if (n_blocks > 1)
-            cluster.sync();
-        else
-            __syncthreads();
-        // the row's stable descending rank by comparison with the p
-        // values, its value into that slot of every block's srt (a NaN
-        // marks the step instead: its rank is another row's)
-        if (row) {
-            int rk = 0;
-            for (int r = 0; r < p; ++r) {
-                const T vr = vk[r];
-                rk += (vr > v) || (vr == v && r < q);
-            }
-            for (int c = 0; c < n_blocks; ++c) {
-                if (v != v)
-                    *(n_blocks > 1 ? cluster.map_shared_rank(&nan_step, c)
-                                   : &nan_step) = k + 1;
-                else
-                    (n_blocks > 1 ? cluster.map_shared_rank(srt, c)
-                                  : srt)[rk] = v;
-            }
-        }
-        if (n_blocks > 1)
-            cluster.sync();
-        else
-            __syncthreads();
-        // the cumulative sum in rank order: one chain of p adds, its
-        // loads a chunk ahead
-        if (tid == 0) {
-            const T* __restrict__ u = srt;
-            T* __restrict__ pi = spi;
-            T csum = T(0);
-            for (int j0 = 0; j0 < p; j0 += 8) {
-                T uj[8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                    uj[i] = j0 + i < p ? u[j0 + i] : T(0);
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    if (j0 + i < p) {
-                        csum += uj[i];
-                        pi[j0 + i] = csum - T(1);
-                    }
-                }
-            }
-        }
-        __syncthreads();
-        // each rank's test side by side; rho the last rank that passes
-        // (a block maximum), rank 0 where none does
-        int best = -1;
-        for (int j = tid; j < p; j += n_threads)
-            if ((srt[j] - spi[j] / T(j + 1)) > T(0)) best = j;
-        best = __reduce_max_sync(dm::kFull, best);
-        if (lane == 0) red[warp] = best;
-        __syncthreads();
-        int rho = 0;
-        for (int w = 0; w < n_warps; ++w) rho = red[w] > rho ? red[w] : rho;
-        const T theta = spi[rho] / T(rho + 1)
-                        + (nan_step == k + 1 ? dm::quiet_nan<T>() : T(0));
-        // alpha, alpha_prev and the next step's a_t in every block alike
-        const T beta = k + 1 < n_steps ? beta_of(k + 1) : T(0);
-        for (int r = tid; r < p; r += n_threads) {
-            const T out = vk[r] - theta;
-            const T prev = sal[r];
-            const T next = out < T(0) ? T(0) : out;
-            sap[r] = prev;
-            sal[r] = next;
-            sat[r] = next + beta * (next - prev);
-        }
-        __syncthreads();                    // alpha is whole again
-    }
+    const T a_fin = dm::alpha_column_steps(cluster, c, b, masked, row, q, p,
+                                           rows, a0, l_h_prev0, l_h,
+                                           n_steps);
 
     // the column's cost terms in the wide loop's order: lane l over rows
     // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide);
     // the rank rows are free now and hold b and G_s alpha of the rows
-    T* sb = srt;
-    T* sga = spi;
+    T* sb = c.srt;
+    T* sga = c.spi;
     if (row) {
-        sga[tid] = column_row_dot(sg, sal, rows, tid, p);
+        sga[tid] = column_row_dot(c.sg, c.sal, rows, tid, p);
         sb[tid] = b;
-        m.alpha[q * n_s + s] = sal[q];
-        m.alpha_prev[q * n_s + s] = sap[q];
+        m.alpha[q * n_s + s] = c.sal[q];
+        m.alpha_prev[q * n_s + s] = c.sap[q];
     }
-    if (n_blocks > 1)
-        cluster.sync();
-    else
-        __syncthreads();
+    dm::column_sync(cluster, n_blocks);
     if (rank == 0 && warp == 0) {
         T ba = T(0), ag = T(0), lw = T(0);
         for (int qq = lane; qq < p; qq += 32) {
-            const int c = qq / rows;
-            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, c) : sb;
+            const int cb = qq / rows;
+            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, cb) : sb;
             const T* rga =
-                n_blocks > 1 ? cluster.map_shared_rank(sga, c) : sga;
-            const T al = sal[qq];
-            const T bq = rb[qq - c * rows];
-            const T ga = rga[qq - c * rows];
+                n_blocks > 1 ? cluster.map_shared_rank(sga, cb) : sga;
+            const T al = c.sal[qq];
+            const T bq = rb[qq - cb * rows];
+            const T ga = rga[qq - cb * rows];
             ba += bq * al;
             ag += al * (bq - ga);
             if (qq >= p - n_u) lw += al * al;
@@ -603,8 +467,7 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
     T cost, lw;
     if (!dm::column_cost(cs, m.ydy, n_s, groups, tickets, mb, cost, lw))
         return;
-    finish_member<T, MULTI>(m.scal, cost, lw, use_table ? tab[n_steps] : a,
-                            l_h, n_steps);
+    finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
 }
 
 // The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
@@ -723,11 +586,9 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The column-block form: a cluster of plan.blocks blocks a column (the
-// cluster dimension attribute), the momentum table after the plan's bytes
-// where it fits (48 KB of table and the card's limit), checked once per
-// plan and table with cudaOccupancyMaxActiveClusters:
-// cudaErrorInvalidConfiguration where the card cannot place one cluster.
+// The column-block form: a cluster of plan.blocks blocks a column, the
+// momentum table after the plan's bytes where it fits
+// (dm::launch_column_blocks)
 template <typename T, bool MULTI>
 int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* usq, const void* ydy,
@@ -735,53 +596,22 @@ int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* mask, void* colsum, void* tickets, int n_s,
                    int n_ct, int n_u, int n_steps, int n_members,
                    dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = alpha_phase_columns_kernel<T, MULTI>;
     const int p = n_ct + n_u;
-    const ColumnPlan plan = column_plan(sizeof(T), p);
+    const ColumnPlan plan = dm::alpha_column_plan(sizeof(T), p);
     const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
-    const int use_table =
-        tab <= kTabSmem
-        && plan.bytes + static_cast<long long>(tab) <= dm::kGlueSmemLimit;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_s * plan.blocks, MULTI ? n_members : 1);
-    cfg.blockDim = dim3(plan.threads);
-    cfg.dynamicSmemBytes =
-        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = plan.blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    // every launch's bytes are at most kGlueSmemLimit
-    static const cudaError_t opt_in = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dm::kGlueSmemLimit));
-    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-    // (blocks, bytes) of the launches checked
-    static std::unordered_set<long long> placed;
-    const long long key =
-        static_cast<long long>(cfg.dynamicSmemBytes) * 16 + plan.blocks;
-    if (placed.count(key) == 0) {
-        int clusters = 0;
-        const cudaError_t err =
-            cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        if (clusters < 1)
-            return static_cast<int>(cudaErrorInvalidConfiguration);
-        placed.insert(key);
-    }
-    return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, kern, static_cast<const T*>(gtt), static_cast<const T*>(bt),
+    const int use_table = dm::column_table_fits(plan, tab);
+    return dm::launch_column_blocks(
+        alpha_phase_columns_kernel<T, MULTI>, plan, n_s,
+        MULTI ? n_members : 1,
+        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0), stream,
+        static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(usq), static_cast<const T*>(ydy),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
         static_cast<T*>(scal), static_cast<const T*>(mask),
         static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
         n_u, n_steps, plan.rows, column_groups(sizeof(T), p, n_s),
-        use_table, st));
+        use_table, st);
 }
 
 // The device-slab loop: min(n_s, 32) warps a member, capped by the
@@ -823,7 +653,7 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            int n_members, dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP && column_plan(sizeof(T), p).blocks == 0)
+    if (p > dm::kTwoRowP && dm::alpha_column_plan(sizeof(T), p).blocks == 0)
         return launch_slabs<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
                                       alpha_prev, scal, mask, colsum, n_s,
                                       n_ct, n_u, n_steps, n_members, st, s);
@@ -909,7 +739,7 @@ DM_K5_ENTRY(dm_alpha_phase_full_multi_f32, float)
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f64, double)
 
 // The row bucket at p rows (K2, K3, K5, K6, K9, K10): 8, 16 or 32 in the
-// register form, 64 in the two-row form, 0 in the wide form (p > 64)
+// register form, 64 in the two-row form, 0 above (p > 64)
 int dm_row_bucket(int p) { return dm::row_bucket(p); }
 
 // The two-row form's slab row stride at p rows (33-64)
@@ -918,10 +748,10 @@ int dm_two_row_stride(int p) { return dm::two_row_stride(p); }
 // The glue kernels' dynamic shared memory at p rows and n_s columns, in
 // bytes: 0 in the register form (p <= 32); in the two-row form the slab
 // of a block's one column (the momentum or step-size table follows it
-// where it fits); in K9's and K10's wide form above the card's limit
-// when one warp's slab does not fit, where they refuse the shape; K2,
-// K3, K5 and K6 take their column blocks above 64 rows
-// (dm_alpha_column_plan, dm_fw_column_plan).
+// where it fits); above 64 rows the one-block wide loop's slabs, which
+// the column blocks replaced (dm_alpha_column_plan, dm_fw_column_plan)
+// and whose warps their cost's groups keep (above the card's limit when
+// one warp's slab does not fit).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     if (p <= dm::kTwoRowP)
@@ -931,7 +761,7 @@ long long dm_glue_smem(int itemsize, int p, int n_s) {
 }
 
 // Elements of the device slabs' work buffer per member at p rows and
-// n_s columns, which K2, K3, K5 and K6 take past eight column blocks: 0
+// n_s columns, which the glue kernels take past eight column blocks: 0
 // where the wide form's slabs fit shared memory (or p <= 64), else
 // min(n_s, 32) slabs in device memory.
 long long dm_glue_work(int itemsize, int p, int n_s) {
@@ -946,7 +776,7 @@ long long dm_glue_work(int itemsize, int p, int n_s) {
 // before the momentum table, in bytes (ops/cuda_small.alpha_column_plan
 // is its Python copy)
 long long dm_alpha_column_plan(int itemsize, int p, int* out) {
-    const ColumnPlan plan = column_plan(itemsize, p);
+    const ColumnPlan plan = dm::alpha_column_plan(itemsize, p);
     out[0] = plan.blocks;
     out[1] = plan.rows;
     out[2] = plan.threads;

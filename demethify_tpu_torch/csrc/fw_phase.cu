@@ -15,25 +15,36 @@
 // is a serial chain of steps (500 in the purity solve), each a
 // matrix-vector product and two minima.
 //
-// What the design does about it: K3's loop (glue_steps.cuh) in one thread
-// block, one warp per sample column: lane q holds row q of G_s, b_s and
-// the column in registers (p <= 32), the product reads the column from
-// the other lanes by shuffle and each block's minimum is a butterfly
-// inside the warp, both over K3's row bucket (8, 16 or 32 lanes,
-// dm::row_bucket), with the step sizes from a table divided once per
-// launch, as K3; from 33 to 64 rows K3's two-row form, a block a column
-// (lane q holds rows q and q + 32, the warp's G_s in its slab of
-// shared memory at an odd row stride); above 64 rows the warp's column
-// lives in its own slab of shared memory (the wide form, dm_glue_smem's
-// size, one block). alpha1 and
-// alpha2 are read from their inputs and written to separate outputs, so
-// the inputs stay as they were and no stacked copy is made.
+// What the design does about it: K3's forms and loops, so a column's
+// alpha is K3's in every form. To 32 rows K3's register loop
+// (glue_steps.cuh) in one thread block, one warp per sample column: lane
+// q holds row q of G_s, b_s and the column in registers, the product
+// reads the column from the other lanes by shuffle and each block's
+// minimum is a butterfly inside the warp, both over K3's row bucket (8,
+// 16 or 32 lanes, dm::row_bucket), with the step sizes from a table
+// divided once per launch. From 33 to 64 rows K3's two-row form, a block
+// a column (lane q holds rows q and q + 32, the warp's G_s in its slab of
+// shared memory at an odd row stride). Above 64 rows K3's column blocks
+// (column_steps.cuh fw_column_steps): a block, or a thread-block cluster
+// of C <= 8 blocks, a column, thread t of cluster block c owning row
+// q = c R + t, G_s's rows transposed in the blocks' shared memory, the
+// warps' minima folded through distributed shared memory (K3's plan,
+// dm::fw_column_plan: one block to p = 168 in float64, 239 in float32).
+// Past eight blocks (p >= 473 in float64, 673 in float32) K3's
+// device-slab loop: one block, each warp's column in its own slab of a
+// device buffer the wrapper allocates (dm_glue_work's elements), lane q
+// taking rows q, q + 32, ... (glue_steps.cuh fw_steps_wide). Every form
+// gives the wide loop's bits above 64 rows, and no shape is refused.
+// alpha1 and alpha2 are read from their inputs and written to separate
+// outputs, so the inputs stay as they were and no stacked copy is made.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "column_steps.cuh"
 #include "glue_steps.cuh"
 #include "small_common.cuh"
 
@@ -51,60 +62,39 @@ __device__ __forceinline__ auto& alpha_at(P a1, P a2, int q, int s, int p1,
 // the step-size table stays in shared memory up to this many bytes
 constexpr size_t kTabSmem = 48 * 1024;
 
-// P: the register form's row bucket (0 in the wide form)
-template <typename T, bool WIDE, int P>
+// The register form (p <= P <= 32): one block, a warp a column, the
+// warps looping over the columns; the step sizes from a table in shared
+// memory where use_table
+template <typename T, int P>
 __global__ void fw_phase_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ a1_in, const T* __restrict__ a2_in,
         T* __restrict__ a1, T* __restrict__ a2,
         const T* __restrict__ purity, int p, int p1, int n_s, int n_steps,
         int use_table) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
     const bool row = lane < p;
     const long long pp = static_cast<long long>(p) * p;
-
-    if constexpr (WIDE) {
-        extern __shared__ __align__(16) unsigned char smem_raw[];
-        T* sg = reinterpret_cast<T*>(smem_raw) + warp * dm::glue_warp_elems(p);
-        T* sb = sg + pp;
-        T* sal = sb + p;
-        T* sgr = sal + p;
-        for (int s = warp; s < n_s; s += n_warps) {
-            for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
-            for (int q = lane; q < p; q += 32) {
-                sb[q] = b[q * n_s + s];
-                sal[q] = alpha_at(a1_in, a2_in, q, s, p1, n_s);
-            }
-            __syncwarp();
-            const T pur = purity[s];
-            dm::fw_steps_wide(sg, sb, sal, sgr, lane, p, p1, pur, T(1) - pur,
-                              n_steps);
-            for (int q = lane; q < p; q += 32)
-                alpha_at(a1, a2, q, s, p1, n_s) = sal[q];
-            __syncwarp();    // the slab is free for the next column
-        }
-    } else {
-        extern __shared__ __align__(16) unsigned char smem_raw[];
-        T* tab = use_table ? reinterpret_cast<T*>(smem_raw) : nullptr;
-        if (use_table) {
-            dm::fw_gamma_table(tab, n_steps, static_cast<int>(threadIdx.x),
-                               static_cast<int>(blockDim.x));
-            __syncthreads();
-        }
-        for (int s = warp; s < n_s; s += n_warps) {
-            T g[P];
+    T* tab = use_table ? reinterpret_cast<T*>(smem_raw) : nullptr;
+    if (use_table) {
+        dm::fw_gamma_table(tab, n_steps, static_cast<int>(threadIdx.x),
+                           static_cast<int>(blockDim.x));
+        __syncthreads();
+    }
+    for (int s = warp; s < n_s; s += n_warps) {
+        T g[P];
 #pragma unroll
-            for (int r = 0; r < P; ++r)
-                g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
-            const T bq = row ? b[lane * n_s + s] : T(0);
-            T al = row ? alpha_at(a1_in, a2_in, lane, s, p1, n_s) : T(0);
-            const T pur = purity[s];
-            dm::fw_steps_reg(g, bq, al, lane, p, p1, pur, T(1) - pur, tab,
-                             n_steps);
-            if (row) alpha_at(a1, a2, lane, s, p1, n_s) = al;
-        }
+        for (int r = 0; r < P; ++r)
+            g[r] = (row && r < p) ? G[s * pp + lane * p + r] : T(0);
+        const T bq = row ? b[lane * n_s + s] : T(0);
+        T al = row ? alpha_at(a1_in, a2_in, lane, s, p1, n_s) : T(0);
+        const T pur = purity[s];
+        dm::fw_steps_reg(g, bq, al, lane, p, p1, pur, T(1) - pur, tab,
+                         n_steps);
+        if (row) alpha_at(a1, a2, lane, s, p1, n_s) = al;
     }
 }
 
@@ -165,33 +155,96 @@ int launch_two_row(const void* G, const void* b, const void* a1_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool WIDE, int P>
-int launch_form(const void* G, const void* b, const void* a1_in,
-                const void* a2_in, void* a1, void* a2, const void* purity,
-                int p, int p1, int n_s, int n_steps, cudaStream_t stream) {
-    auto kern = fw_phase_kernel<T, WIDE, P>;
-    static const int max_warps = dm::max_block_warps(kern);
-    int n_warps = n_s < 32 ? n_s : 32;
-    n_warps = n_warps < max_warps ? n_warps : max_warps;
-    size_t smem = 0;
-    int use_table = 0;
-    if constexpr (!WIDE) {
-        const size_t tab = static_cast<size_t>(n_steps) * sizeof(T);
-        use_table = tab <= kTabSmem;
-        smem = use_table ? tab : 0;
-    } else {
-        const int fit = dm::glue_warps(sizeof(T), p, n_s);
-        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-        n_warps = fit < n_warps ? fit : n_warps;
-        smem = n_warps * dm::glue_warp_elems(p) * sizeof(T);
-        if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
+namespace cg = cooperative_groups;
+
+// The column-block form (p > 64): cluster s of C = gridDim.x / n_s blocks
+// runs column s, block c of it rows [c R, c R + R), one a thread, in K3's
+// layout (dm::fw_column_plan).
+template <typename T>
+__global__ void __launch_bounds__(dm::kColumnThreads)
+fw_phase_columns_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ a1_in, const T* __restrict__ a2_in,
+        T* __restrict__ a1, T* __restrict__ a2,
+        const T* __restrict__ purity, int p, int p1, int n_s, int n_steps,
+        int rows) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int n_blocks = static_cast<int>(cluster.num_blocks());
+    const int s = blockIdx.x / n_blocks;
+    const int tid = threadIdx.x;
+    const int q0 = static_cast<int>(cluster.block_rank()) * rows;
+    const int own = p - q0 < rows ? p - q0 : rows;
+    const int q = q0 + tid;
+    const bool row = tid < own;
+    const long long pp = static_cast<long long>(p) * p;
+
+    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
+    T* sal = sg + rows * p;                         // alpha (p)
+    for (int k = tid; k < own * p; k += blockDim.x) {
+        const int t = k / p;
+        const int r = k - t * p;
+        sg[r * rows + t] = G[s * pp + static_cast<long long>(q0 + t) * p + r];
     }
-    kern<<<1, 32 * n_warps, smem, stream>>>(
+    for (int r = tid; r < p; r += blockDim.x)
+        sal[r] = alpha_at(a1_in, a2_in, r, s, p1, n_s);
+    const T bq = row ? b[q * n_s + s] : T(0);
+    const T pur = purity[s];
+    __shared__ dm::WarpMin<T> red[2][dm::kColumnThreads / 32];
+    __syncthreads();
+    dm::fw_column_steps(cluster, n_blocks, red, sg, sal, bq, row, q < p1, q0,
+                        tid, tid & 31, tid >> 5,
+                        static_cast<int>(blockDim.x >> 5), p, rows, pur,
+                        T(1) - pur, n_steps);
+    if (row) alpha_at(a1, a2, q, s, p1, n_s) = sal[q];
+    // no block leaves while another may still read its last minima
+    if (n_blocks > 1) cluster.sync();
+}
+
+// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
+// block, each warp's column in its slab of the device buffer gslab,
+// warps looping over the columns
+template <typename T>
+__global__ void fw_phase_slabs_kernel(
+        const T* __restrict__ G, const T* __restrict__ b,
+        const T* __restrict__ a1_in, const T* __restrict__ a2_in,
+        T* __restrict__ a1, T* __restrict__ a2,
+        const T* __restrict__ purity, T* __restrict__ gslab, int p, int p1,
+        int n_s, int n_steps) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const long long pp = static_cast<long long>(p) * p;
+    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
+    T* sb = sg + pp;
+    T* sal = sb + p;
+    T* sgr = sal + p;
+    for (int s = warp; s < n_s; s += n_warps) {
+        for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
+        for (int q = lane; q < p; q += 32) {
+            sb[q] = b[q * n_s + s];
+            sal[q] = alpha_at(a1_in, a2_in, q, s, p1, n_s);
+        }
+        __syncwarp();
+        const T pur = purity[s];
+        dm::fw_steps_wide(sg, sb, sal, sgr, lane, p, p1, pur, T(1) - pur,
+                          n_steps);
+        for (int q = lane; q < p; q += 32)
+            alpha_at(a1, a2, q, s, p1, n_s) = sal[q];
+        __syncwarp();    // the slab is free for the next column
+    }
+}
+
+template <typename T, int P>
+int launch_reg(const void* G, const void* b, const void* a1_in,
+               const void* a2_in, void* a1, void* a2, const void* purity,
+               int p, int p1, int n_s, int n_steps, cudaStream_t stream) {
+    auto kern = fw_phase_kernel<T, P>;
+    static const int max_warps = dm::max_block_warps(kern);
+    const int n_warps = dm::slab_warps(n_s, max_warps);
+    const size_t tab = static_cast<size_t>(n_steps) * sizeof(T);
+    const int use_table = tab <= kTabSmem;
+    kern<<<1, 32 * n_warps, use_table ? tab : 0, stream>>>(
         static_cast<const T*>(G), static_cast<const T*>(b),
         static_cast<const T*>(a1_in), static_cast<const T*>(a2_in),
         static_cast<T*>(a1), static_cast<T*>(a2),
@@ -199,30 +252,60 @@ int launch_form(const void* G, const void* b, const void* a1_in,
     return static_cast<int>(cudaGetLastError());
 }
 
+// p > 64: K3's column blocks, or past eight blocks its device slabs in
+// `work` (min(n_s, 32) slabs, dm_glue_work)
+template <typename T>
+int launch_wide(const void* G, const void* b, const void* a1_in,
+                const void* a2_in, void* a1, void* a2, const void* purity,
+                void* work, int p, int p1, int n_s, int n_steps,
+                cudaStream_t stream) {
+    const dm::ColumnPlan plan = dm::fw_column_plan(sizeof(T), p);
+    if (plan.blocks == 0) {
+        auto kern = fw_phase_slabs_kernel<T>;
+        static const int max_warps = dm::max_block_warps(kern);
+        const int n_warps = dm::slab_warps(n_s, max_warps);
+        if (n_warps < 1 || work == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+        kern<<<1, 32 * n_warps, 0, stream>>>(
+            static_cast<const T*>(G), static_cast<const T*>(b),
+            static_cast<const T*>(a1_in), static_cast<const T*>(a2_in),
+            static_cast<T*>(a1), static_cast<T*>(a2),
+            static_cast<const T*>(purity), static_cast<T*>(work), p, p1,
+            n_s, n_steps);
+        return static_cast<int>(cudaGetLastError());
+    }
+    return dm::launch_column_blocks(
+        fw_phase_columns_kernel<T>, plan, n_s, 1,
+        static_cast<size_t>(plan.bytes), stream, static_cast<const T*>(G),
+        static_cast<const T*>(b), static_cast<const T*>(a1_in),
+        static_cast<const T*>(a2_in), static_cast<T*>(a1),
+        static_cast<T*>(a2), static_cast<const T*>(purity), p, p1, n_s,
+        n_steps, plan.rows);
+}
+
 template <typename T>
 int launch(const void* G, const void* b, const void* a1_in,
-           const void* a2_in, void* a1, void* a2, const void* purity, int p,
-           int p1, int n_s, int n_steps, void* stream) {
+           const void* a2_in, void* a1, void* a2, const void* purity,
+           void* work, int p, int p1, int n_s, int n_steps, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (p1 < 1 || p1 >= p || n_s < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     if (p > dm::kTwoRowP)
-        return launch_form<T, true, 0>(G, b, a1_in, a2_in, a1, a2, purity, p,
-                                       p1, n_s, n_steps, s);
+        return launch_wide<T>(G, b, a1_in, a2_in, a1, a2, purity, work, p,
+                              p1, n_s, n_steps, s);
     if (p > kMaxP)
         return launch_two_row<T>(G, b, a1_in, a2_in, a1, a2, purity, p, p1,
                                  n_s, n_steps, s);
     switch (dm::row_bucket(p)) {
         case 8:
-            return launch_form<T, false, 8>(G, b, a1_in, a2_in, a1, a2,
-                                            purity, p, p1, n_s, n_steps, s);
+            return launch_reg<T, 8>(G, b, a1_in, a2_in, a1, a2, purity, p,
+                                    p1, n_s, n_steps, s);
         case 16:
-            return launch_form<T, false, 16>(G, b, a1_in, a2_in, a1, a2,
-                                             purity, p, p1, n_s, n_steps, s);
+            return launch_reg<T, 16>(G, b, a1_in, a2_in, a1, a2, purity, p,
+                                     p1, n_s, n_steps, s);
         default:
-            return launch_form<T, false, kMaxP>(G, b, a1_in, a2_in, a1, a2,
-                                                purity, p, p1, n_s, n_steps,
-                                                s);
+            return launch_reg<T, kMaxP>(G, b, a1_in, a2_in, a1, a2, purity,
+                                        p, p1, n_s, n_steps, s);
     }
 }
 
@@ -231,21 +314,30 @@ int launch(const void* G, const void* b, const void* a1_in,
 extern "C" {
 
 // G (n_s, p, p), b (p, n_s), alpha1 (p1, n_s) and alpha2 (p - p1, n_s)
-// in and out, purity (n_s,)
+// in and out, purity (n_s,); work: the device slabs' buffer past eight
+// column blocks (dm_fw_phase_plan form 3; dm_glue_work elements), else
+// unread
 int dm_fw_phase_f32(const void* G, const void* b, const void* a1_in,
                     const void* a2_in, void* a1, void* a2,
-                    const void* purity, int p, int p1, int n_s, int n_steps,
-                    void* stream) {
-    return launch<float>(G, b, a1_in, a2_in, a1, a2, purity, p, p1, n_s,
-                         n_steps, stream);
+                    const void* purity, void* work, int p, int p1, int n_s,
+                    int n_steps, void* stream) {
+    return launch<float>(G, b, a1_in, a2_in, a1, a2, purity, work, p, p1,
+                         n_s, n_steps, stream);
 }
 
 int dm_fw_phase_f64(const void* G, const void* b, const void* a1_in,
                     const void* a2_in, void* a1, void* a2,
-                    const void* purity, int p, int p1, int n_s, int n_steps,
-                    void* stream) {
-    return launch<double>(G, b, a1_in, a2_in, a1, a2, purity, p, p1, n_s,
-                          n_steps, stream);
+                    const void* purity, void* work, int p, int p1, int n_s,
+                    int n_steps, void* stream) {
+    return launch<double>(G, b, a1_in, a2_in, a1, a2, purity, work, p, p1,
+                          n_s, n_steps, stream);
+}
+
+// K10's form at p rows of itemsize-byte values (dm::phase_plan on K3's
+// column plan), as dm_alpha_phase_plan's (ops/cuda_small.phase_plan is its
+// Python copy)
+long long dm_fw_phase_plan(int itemsize, int p, int* out) {
+    return dm::phase_plan(itemsize, p, dm::fw_column_plan(itemsize, p), out);
 }
 
 }  // extern "C"

@@ -69,7 +69,8 @@
 // reductions only). The block keeps its R rows of G_s in shared memory,
 // transposed (entry r of row q at r R + t, so a warp reads consecutive
 // words at each r), its own copy of alpha (read by broadcast) and its
-// rows of b. A step: each thread forms its row's gradient, summed over r
+// rows of b. A step (column_steps.cuh fw_column_steps, one body with
+// K10's): each thread forms its row's gradient, summed over r
 // in index order; each warp's (known, unknown) minima by butterfly and
 // their first rows by ballot; after one barrier (a cluster barrier when
 // C > 1, the warps' pairs double-buffered by step parity) every thread
@@ -86,7 +87,8 @@
 // through distributed shared memory, and the member's last block sums the
 // columns in groups of that loop's warps (column_groups), so the cost and
 // l_w keep their bits as well. C is the fewest blocks whose shared memory
-// holds R rows of G_s, alpha and two rows of R (column_plan), at most 8,
+// holds R rows of G_s, alpha and two rows of R (dm::fw_column_plan), at
+// most 8,
 // the portable cluster size: one block to p = 168 in float64 (239 in
 // float32), up to eight to p = 472 (672). Past eight blocks the
 // device-slab loop stays: one block per member, each warp's column (G_s,
@@ -99,8 +101,9 @@
 // whose kActive slot is 0 and sets kActive for the next outer iteration
 // from |new cost - old cost| >= kTol.
 //
-// The step loops live in glue_steps.cuh, shared with
-// K10 (fw_phase.cu), which runs them on an assembled G and b.
+// The step loops live in glue_steps.cuh and, for the column blocks,
+// column_steps.cuh, shared with K10 (fw_phase.cu), which runs them on an
+// assembled G and b.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, launches
 // on that stream, allocates nothing, returns cudaGetLastError().
@@ -108,8 +111,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <unordered_set>
-
+#include "column_steps.cuh"
 #include "glue_steps.cuh"
 #include "small_common.cuh"
 
@@ -266,12 +268,6 @@ using dm::ColumnPlan;
 using dm::column_row_dot;
 using dm::kColumnThreads;
 
-// A column's plan: its blocks' shared memory holds R rows of G_s, alpha,
-// and R values each of b and G_s alpha (the cost epilogue's rows).
-ColumnPlan column_plan(int itemsize, int p) {
-    return dm::column_plan(itemsize, p, 1, 2);
-}
-
 // The cost's group count (dm::column_groups): the wide loop's kernels
 // allowed 1024 threads a block in every instantiation but the float64
 // device-slab ones, which took 72 registers a thread and allowed 896, 28
@@ -280,32 +276,9 @@ int column_groups(int itemsize, int p, int n_s) {
     return dm::column_groups(itemsize, p, n_s, itemsize == 8 ? 28 : 32);
 }
 
-// One warp's (known, unknown) block minima and the first rows holding
-// them (p where none does)
-template <typename T>
-struct WarpMin {
-    T m1, m2;
-    int i1, i2;
-};
-
-// Folds a warp's minimum and first row (m2, i2) into (m, i): a NaN
-// minimum stays (it matches no row, so i is p), a smaller one replaces
-// it, an equal one keeps the smaller first row -- the minimum over the
-// rows compares equal to the one-warp loop's and the first row is the
-// same, whatever order the warps are folded in.
-template <typename T>
-__device__ __forceinline__ void fold_min(T& m, int& i, T m2, int i2) {
-    if (m != m) return;
-    if (m2 != m2 || m2 < m) {
-        m = m2;
-        i = i2;
-    } else if (m2 == m && i2 < i) {
-        i = i2;
-    }
-}
-
 // The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
-// runs column s of member mb, block c of it rows [c R, c R + R); colsum
+// runs column s of member mb, block c of it rows [c R, c R + R)
+// (dm::fw_column_plan), the steps column_steps.cuh fw_column_steps; colsum
 // (3, n_s) per member receives each column's cost terms and tickets[mb]
 // counts the member's finished blocks, as the register form's; `groups`
 // is column_groups.
@@ -320,7 +293,6 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
                         int n_u, int n_steps, int rows, int groups,
                         dm::MemberStrides st) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __shared__ WarpMin<T> red[2][kColumnThreads / 32];
     cg::cluster_group cluster = cg::this_cluster();
     const long long mb = MULTI ? blockIdx.y : 0;
     const Member<T> m = member<T, MULTI>(mb, gtt, bt, gu, bu, ydy, alpha,
@@ -335,7 +307,6 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int n_warps = blockDim.x >> 5;
     const int q0 = rank * rows;                     // this block's rows
     const int own = p - q0 < rows ? p - q0 : rows;
     const int q = q0 + tid;
@@ -366,51 +337,11 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     const T b = row ? (known ? m.bt[q * n_s + s] : m.bu[(q - n_ct) * n_s + s])
                     : T(0);
     const T pur = purity[s];
-    const T pur2 = T(1) - pur;
-    const T big = T(3.4e38);                // the TPU kernel's block mask
-    const T pad = dm::pos_inf<T>();
+    __shared__ dm::WarpMin<T> red[2][kColumnThreads / 32];
     __syncthreads();
-
-    for (int k = 0; k < n_steps; ++k) {
-        T g1 = pad, g2 = pad;
-        if (row) {
-            const T grad = -(b - column_row_dot(sg, sal, rows, tid, p));
-            g1 = known ? grad : big;
-            g2 = known ? big : grad;
-        }
-        const T m1 = dm::warp_min(g1);
-        const T m2 = dm::warp_min(g2);
-        const unsigned h1 = __ballot_sync(dm::kFull, row && g1 == m1);
-        const unsigned h2 = __ballot_sync(dm::kFull, row && g2 == m2);
-        WarpMin<T>* mine = red[k & 1];
-        if (lane == 0)
-            mine[warp] = WarpMin<T>{m1, m2,
-                                    h1 ? q0 + 32 * warp + __ffs(h1) - 1 : p,
-                                    h2 ? q0 + 32 * warp + __ffs(h2) - 1 : p};
-        if (n_blocks > 1)
-            cluster.sync();
-        else
-            __syncthreads();
-        T b1 = pad, b2 = pad;
-        int i1 = p, i2 = p;
-        for (int c = 0; c < n_blocks; ++c) {
-            const WarpMin<T>* theirs =
-                n_blocks > 1 ? cluster.map_shared_rank(mine, c) : mine;
-            for (int w = 0; w < n_warps; ++w) {
-                const WarpMin<T> e = theirs[w];
-                fold_min(b1, i1, e.m1, e.i1);
-                fold_min(b2, i2, e.m2, e.i2);
-            }
-        }
-        const T gamma = T(2) / (static_cast<T>(k) + T(2));
-        for (int r = tid; r < p; r += blockDim.x) {
-            const T e1 = r == i1 ? T(1) : T(0);
-            const T e2 = r == i2 ? T(1) : T(0);
-            const T vert = e1 * pur + e2 * pur2;
-            sal[r] = (T(1) - gamma) * sal[r] + gamma * vert;
-        }
-        __syncthreads();                    // alpha is whole again
-    }
+    dm::fw_column_steps(cluster, n_blocks, red, sg, sal, b, row, known, q0,
+                        tid, lane, warp, static_cast<int>(blockDim.x >> 5), p,
+                        rows, pur, T(1) - pur, n_steps);
 
     // the column's cost terms in the wide loop's order: lane l over rows
     // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide)
@@ -419,10 +350,7 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
         sb[tid] = b;
         m.alpha[q * n_s + s] = sal[q];
     }
-    if (n_blocks > 1)
-        cluster.sync();
-    else
-        __syncthreads();
+    dm::column_sync(cluster, n_blocks);
     if (rank == 0 && warp == 0) {
         T ba = T(0), ag = T(0), lw = T(0);
         for (int qq = lane; qq < p; qq += 32) {
@@ -556,10 +484,8 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The column-block form: a cluster of plan.blocks blocks a column (the
-// cluster dimension attribute), checked once per plan with
-// cudaOccupancyMaxActiveClusters: cudaErrorInvalidConfiguration where the
-// card cannot place one cluster.
+// The column-block form: a cluster of plan.blocks blocks a column
+// (dm::launch_column_blocks)
 template <typename T, bool MULTI>
 int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* ydy, void* alpha,
@@ -567,43 +493,17 @@ int launch_columns(const void* gtt, const void* bt, const void* gu,
                    void* tickets, int n_s, int n_ct, int n_u, int n_steps,
                    int n_members, dm::MemberStrides st,
                    cudaStream_t stream) {
-    auto kern = fw_phase_columns_kernel<T, MULTI>;
     const int p = n_ct + n_u;
-    const ColumnPlan plan = column_plan(sizeof(T), p);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_s * plan.blocks, MULTI ? n_members : 1);
-    cfg.blockDim = dim3(plan.threads);
-    cfg.dynamicSmemBytes = static_cast<size_t>(plan.bytes);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = plan.blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    // every plan's bytes are at most kGlueSmemLimit
-    static const cudaError_t opt_in = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dm::kGlueSmemLimit));
-    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-    static std::unordered_set<int> placed;        // p of the plans checked
-    if (placed.count(p) == 0) {
-        int clusters = 0;
-        const cudaError_t err =
-            cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        if (clusters < 1)
-            return static_cast<int>(cudaErrorInvalidConfiguration);
-        placed.insert(p);
-    }
-    return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, kern, static_cast<const T*>(gtt), static_cast<const T*>(bt),
-        static_cast<const T*>(gu), static_cast<const T*>(bu),
-        static_cast<const T*>(ydy), static_cast<T*>(alpha),
-        static_cast<const T*>(purity), static_cast<T*>(scal),
-        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
-        n_u, n_steps, plan.rows, column_groups(sizeof(T), p, n_s), st));
+    const ColumnPlan plan = dm::fw_column_plan(sizeof(T), p);
+    return dm::launch_column_blocks(
+        fw_phase_columns_kernel<T, MULTI>, plan, n_s, MULTI ? n_members : 1,
+        static_cast<size_t>(plan.bytes), stream, static_cast<const T*>(gtt),
+        static_cast<const T*>(bt), static_cast<const T*>(gu),
+        static_cast<const T*>(bu), static_cast<const T*>(ydy),
+        static_cast<T*>(alpha), static_cast<const T*>(purity),
+        static_cast<T*>(scal), static_cast<T*>(colsum),
+        static_cast<unsigned*>(tickets), n_s, n_ct, n_u, n_steps, plan.rows,
+        column_groups(sizeof(T), p, n_s), st);
 }
 
 // The device-slab loop: min(n_s, 32) warps a member, capped by the
@@ -640,7 +540,7 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP && column_plan(sizeof(T), p).blocks == 0)
+    if (p > dm::kTwoRowP && dm::fw_column_plan(sizeof(T), p).blocks == 0)
         return launch_slabs<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
                                       scal, colsum, n_s, n_ct, n_u, n_steps,
                                       n_members, st, s);
@@ -723,7 +623,7 @@ DM_K6_ENTRY(dm_fw_phase_full_multi_f64, double)
 // out[2] threads a block; returns the block's dynamic shared memory in
 // bytes (ops/cuda_small.fw_column_plan is its Python copy)
 long long dm_fw_column_plan(int itemsize, int p, int* out) {
-    const ColumnPlan plan = column_plan(itemsize, p);
+    const ColumnPlan plan = dm::fw_column_plan(itemsize, p);
     out[0] = plan.blocks;
     out[1] = plan.rows;
     out[2] = plan.threads;

@@ -15,12 +15,11 @@
 // of the column and of its Gram matrix in registers (p <= 32); lane q
 // holds rows q and q + 32 of the column in registers and the warp's slab
 // of shared memory holds the Gram matrix (the two-row form, p <= 64); or,
-// above, the column lives in the warp's slab of shared memory and lane q
-// takes rows q, q + 32, ... (the wide form: K9 and K10, and K2, K3, K5
-// and K6 past eight column blocks; below that those four run a column on
-// a block or a cluster of blocks, alpha_phase_full.cu and
-// fw_phase_full.cu, with the wide form's values), with the register
-// form's arithmetic in the same order.
+// above, the column lives in the warp's slab of a device buffer and lane
+// q takes rows q, q + 32, ... (the wide form, every glue kernel's past
+// eight column blocks; below that they run a column on a block or a
+// cluster of blocks, column_steps.cuh, with the wide form's values),
+// with the register form's arithmetic in the same order.
 //
 // The two-row form is the register form's dataflow over 64 rows: the
 // product broadcasts alpha_r by shuffle and reads G_s at a padded row
@@ -493,8 +492,8 @@ __device__ __forceinline__ void fw_steps_two_row(
     }
 }
 
-// One column's Frank-Wolfe loop in the wide form (p > 64; K3 and K6 run
-// it past eight column blocks, K10 in one block): the slab holds
+// One column's Frank-Wolfe loop in the wide form (p > 64; K3, K6 and K10
+// run it past eight column blocks): the slab holds
 // G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
 // rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
 // of the lanes' minima over their rows, and its first row the smallest

@@ -9,10 +9,10 @@
 // registers and the warp keeps the column's Gram matrix in its slab of
 // shared memory (the two-row form, 32 < p <= 64); or, above 64 rows, each
 // warp keeps its column's Gram matrix, b and alpha in its own slab and
-// lane q takes rows q, q + 32, ... (the wide form: K9 and K10, and K2,
-// K3, K5 and K6 past eight column blocks; below that those four give a
+// lane q takes rows q, q + 32, ... (the wide form, every glue kernel's
+// past eight column blocks, K9's and K10's too; below that they give a
 // column a block or a cluster of blocks, one row a thread:
-// alpha_phase_full.cu, fw_phase_full.cu).
+// column_steps.cuh).
 
 #pragma once
 
@@ -43,10 +43,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
 // as many warps as fit under the card's opt-in limit (232,448 bytes on an
 // H100) less 1 KB for the kernels' static shared memory, at most 32 and
-// at most n_s. glue_warps returns 0 when one warp does not fit; K9 and
-// K10 then refuse the shape. K2, K3, K5 and K6 keep the slabs in device
-// memory (warp_slab) past eight column blocks, and their column blocks
-// group the cost's columns as this form's blocks did.
+// at most n_s. glue_warps returns 0 when one warp does not fit. No
+// kernel keeps these slabs in shared memory any more: the glue kernels
+// keep them in device memory (warp_slab) past eight column blocks, and
+// K2's, K3's, K5's and K6's column blocks group the cost's columns as
+// this form's blocks did.
 constexpr long long kGlueSmemLimit = 232448 - 1024;
 
 __host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
@@ -330,7 +331,7 @@ __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
     return true;
 }
 
-// ---- the column-block form (p > 64: K2, K3, K5, K6) ------------------
+// ---- the column-block form (p > 64: K2, K3, K5, K6, K9, K10) ---------
 
 // the most blocks a column's cluster takes (the portable cluster size)
 // and threads a block (no plan asks for more: a block's R rows of G_s fit

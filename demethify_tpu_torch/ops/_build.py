@@ -157,11 +157,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_grams_smem.restype = _LL
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"dm_alpha_phase_{dt}")
-        fn.argtypes = [_VOID] * 8 + [_INT] * 3 + [_VOID]
+        fn.argtypes = [_VOID] * 9 + [_INT] * 3 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_{dt}")
-        fn.argtypes = [_VOID] * 7 + [_INT] * 4 + [_VOID]
+        fn.argtypes = [_VOID] * 8 + [_INT] * 4 + [_VOID]
         fn.restype = _INT
+    for name in ("dm_alpha_phase_plan", "dm_fw_phase_plan"):
+        getattr(lib, name).argtypes = [_INT, _INT, _VOID]
+        getattr(lib, name).restype = _LL
 
 
 def _compile(out: str):

@@ -405,15 +405,15 @@ def _check_args(ydt, rtt, a1_block, a2_block, uut, scal):
 def count_forms(forms: dict, **flags) -> None:
     """Adds one launch to ``forms[name]`` for each name whose flag is set.
     The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
-    K6/K9/K10), "two_row" (their two-row form, 32 < p <= 64),
-    "global_layout" (K1/K4's global layout), "column_blocks" (K2/K3/K5/
-    K6 above 64 rows: a block or cluster a column), "device_slabs"
-    (K2/K3/K5/K6 past 8 column blocks, their slabs in device memory),
+    K6), "two_row" (the glue kernels' two-row form, 32 < p <= 64),
+    "global_layout" (K1/K4's global layout), "column_blocks" (the glue
+    kernels above 64 rows: a block or cluster a column), "device_slabs"
+    (the glue kernels past 8 column blocks, their slabs in device memory),
     "state_on_chip" (K1/K4 at n_u > REG_N_U, the state region in shared
     memory), "state_in_device" (the same, its region in device memory;
     K7's n_u > REG_N_U form, whose region always lives there),
     "bf16c_direct" (bf16_compute in the direct form), "rt_folded" (Rt
-    folded into the data block), "masked" (K2/K5 with row masks). A
+    folded into the data block), "masked" (K2/K5/K9 with row masks). A
     launch also counts in its wrapper's ``launches``."""
     for name, on in flags.items():
         if on:

@@ -34,30 +34,29 @@ Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers
 (the register form); from 33 to 64 rows lane q holds rows q and q + 32
 of the column in registers and the warp's slab of shared memory holds
 the column's Gram matrix at an odd row stride (the two-row form,
-``two_row_stride``). Above 64 rows K2, K3, K5 and K6 give each column
-a block, or a thread-block cluster of up to 8 blocks, with one row a
-thread and the column's Gram rows spread over the blocks' shared memory
-(the column-block form, ``alpha_column_plan``, ``fw_column_plan``; K2's
-and K5's simplex projection ranks the column across the cluster); past
-8 blocks (K2 and K5 from p = 453 in float64, 651 in float32; K3 and K6
-from 473 and 673) they keep the one-block device-slab loop: each warp's
-column in its own slab of a device-memory work buffer the wrapper
-allocates (``glue_work``). K9 and K10 above 64 rows keep the wide form:
-each warp's column in its own slab of shared memory (``glue_smem``);
-past one slab (p = 168 in float64, 238 in float32) they raise, stating
-the shape. The register form
+``two_row_stride``). Above 64 rows each column gets a block, or a
+thread-block cluster of up to 8 blocks, with one row a thread and the
+column's Gram rows spread over the blocks' shared memory (the
+column-block form, ``alpha_column_plan``, ``fw_column_plan``; the
+simplex projection ranks the column across the cluster); past 8 blocks
+(K2, K5 and K9 from p = 453 in float64, 651 in float32; K3, K6 and K10
+from 473 and 673) the one-block device-slab loop: each warp's column in
+its own slab of a device-memory work buffer the wrapper allocates
+(``glue_work``). Every kernel takes every p. The register form
 of K2, K3, K5 and K6 runs its warp collectives to a row bucket of 8, 16
 or 32 lanes and gives every column its own warp, over several blocks
 past 16 columns (``alpha_plan``), with the cost summed in a fixed order
 that does not depend on the grid; K3 and K6 read their step sizes from
 a table built once per launch. The two-row form gives each column a
-block of its own, and its alpha is the wide form's bit for bit, as the
+block of its own, and its alpha is the wide loop's bit for bit, as the
 column blocks' alpha, cost and l_w are the wide loop's they replaced. A
 column whose v holds a NaN projects to NaN in every row in every form,
 as the JAX kernels and the twins give it.
-K9 and K10 run K2's and K3's loops at the same
-bucket: in one block in the register and wide forms, a column a block
-in the two-row form.
+K9 and K10 run K2's and K3's loops at the same bucket and plans
+(``phase_plan``): in one block in the register form, a column a block
+in the two-row form, K2's and K3's column blocks and device slabs above
+64 rows (``csrc/column_steps.cuh`` holds the column blocks' loops, one
+body each).
 
 ``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
 are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
@@ -69,11 +68,11 @@ solver runs K5's yet.
 ``alpha_phase`` (K9) replaces ``_alpha_kernel`` (through
 ``alpha_phase``, ``pallas_small.py:70, 97``) and ``fw_phase`` (K10)
 ``_fw_kernel`` (through ``fw_phase``, ``pallas_small.py:204, 213``):
-K2's and K3's loops (``csrc/glue_steps.cuh``, one body each) on a G and
-b the caller assembled, with no cost or Lipschitz epilogue
-(``csrc/alpha_phase.cu``, ``csrc/fw_phase.cu``). They take the JAX
-functions' operands, return new arrays and leave their inputs as they
-were; K9's scalars come back as 0-d tensors advanced on the device. No
+K2's and K3's loops (``csrc/glue_steps.cuh``, ``csrc/column_steps.cuh``,
+one body each) on a G and b the caller assembled, with no cost or
+Lipschitz epilogue (``csrc/alpha_phase.cu``, ``csrc/fw_phase.cu``). They
+take the JAX functions' operands, return new arrays and leave their
+inputs as they were; K9's scalars come back as 0-d tensors advanced on the device. No
 solver runs them.
 """
 
@@ -199,16 +198,13 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     ``alpha_plan`` instead); in the two-row form (p <= 64) ``alpha_plan``'s
     one column a block, its slab p x ``two_row_stride(p)`` values (the
     momentum or step-size table follows the slab where it fits); above 64
-    rows, K9's and K10's wide form (K2, K3, K5 and K6 take their column
-    plans there, and count their cost's groups in its warps): one slab of
-    p x p + 6 p values per warp and
-    as many warps as fit, at most min(n_s, 32) -- the kernels'
-    ``dm::glue_warps``. Both
-    are the kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this
-    to. 0 warps when one slab does not fit (``glue_work``). A wide launch
-    may take fewer warps where the kernel's registers allow fewer per
-    block (``dm::max_block_warps``); its warps then loop over the
-    columns."""
+    rows the one-block wide loop that the column blocks replaced, whose
+    warps the column blocks' cost still counts its groups in
+    (``fw_column_groups``, ``alpha_column_groups``): one slab of
+    p x p + 6 p values per warp and as many warps as fit, at most
+    min(n_s, 32) -- the kernels' ``dm::glue_warps``. Both are the
+    kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this to. 0
+    warps when one slab does not fit (``glue_work``)."""
     n_warps = min(n_s, 32)
     if p <= REG_P:
         return n_warps, 0
@@ -220,20 +216,20 @@ def glue_smem(itemsize: int, p: int, n_s: int):
 
 
 def glue_work(itemsize: int, p: int, n_s: int) -> int:
-    """Elements per member of the device-memory slabs K2, K3, K5 and K6
+    """Elements per member of the device-memory slabs the glue kernels
     take past 8 column blocks (``alpha_column_plan``, ``fw_column_plan``
-    blocks 0): min(n_s, 32) slabs of p x p + 6 p values where one warp's
-    slab does not fit shared memory (``glue_smem`` gives 0 warps); 0
-    otherwise.
-    The kernels' ``dm_glue_work``, which ``chip_smoke.py`` holds this
-    to."""
+    blocks 0; ``phase_plan``'s "device_slabs"): min(n_s, 32) slabs of
+    p x p + 6 p values where one warp's slab does not fit shared memory
+    (``glue_smem`` gives 0 warps, as everywhere past 8 blocks); 0
+    otherwise. The kernels' ``dm_glue_work``, which ``chip_smoke.py``
+    holds this to."""
     if p <= REG_P or glue_smem(itemsize, p, n_s)[0] >= 1:
         return 0
     return min(n_s, 32) * (p * p + 6 * p)
 
 
-# K3's and K6's column-block form (p > 64): at most this many blocks a
-# column, the portable cluster size (kMaxColumnBlocks)
+# the column-block form (p > 64): at most this many blocks a column, the
+# portable cluster size (kMaxColumnBlocks)
 MAX_COLUMN_BLOCKS = 8
 COLUMN_PLAN_KEYS = ("blocks", "rows", "threads")
 
@@ -296,6 +292,49 @@ def lib_alpha_column_plan(lib, itemsize: int, p: int) -> dict:
     return dict(zip(COLUMN_PLAN_KEYS, out), bytes=n_bytes)
 
 
+# K9's and K10's forms, by the code of the kernels' plan exports
+# (csrc/column_steps.cuh PhaseForm)
+PHASE_FORMS = ("register", "two_row", "column_blocks", "device_slabs")
+PHASE_PLAN_KEYS = ("form", "bucket", "blocks", "rows", "threads")
+
+
+def phase_plan(kernel: str, itemsize: int, p: int) -> dict:
+    """K9's (``kernel`` "alpha") or K10's ("fw") form at p rows of
+    itemsize-byte values, the kernels' ``dm_alpha_phase_plan`` and
+    ``dm_fw_phase_plan`` (which ``chip_smoke.py`` holds this to): "form"
+    one of PHASE_FORMS, "bucket" the row bucket (8, 16 or 32; 64 in the
+    two-row form; 0 above), "blocks", "rows" and "threads" K2's
+    (``alpha_column_plan``, K9) or K3's (``fw_column_plan``, K10) column
+    plan above 64 rows, "bytes" a block's dynamic shared memory before
+    any step table (the two-row slab, or the column plan's; 0 in the
+    register form and in the device slabs, whose device buffer holds
+    ``glue_work`` elements). The device slabs take the shapes past 8
+    column blocks; every p >= 1 has a form."""
+    if p < 1:
+        raise ValueError(f"phase_plan: p = {p} rows")
+    plan = {"bucket": 0, "blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
+    if p <= REG_P:
+        return dict(plan, form="register", bucket=alpha_plan(p, 1)[0])
+    if p <= TWO_ROW_P:
+        return dict(plan, form="two_row", bucket=TWO_ROW_P,
+                    bytes=itemsize * p * two_row_stride(p))
+    cols = {"alpha": alpha_column_plan, "fw": fw_column_plan}[kernel](
+        itemsize, p)
+    return dict(cols, form="column_blocks" if cols["blocks"]
+                else "device_slabs", bucket=0)
+
+
+def lib_phase_plan(lib, kernel: str, itemsize: int, p: int) -> dict:
+    """``phase_plan`` from the library's ``dm_alpha_phase_plan`` or
+    ``dm_fw_phase_plan`` export (the kernels' own copy)."""
+    out = (ctypes.c_int * len(PHASE_PLAN_KEYS))()
+    n_bytes = getattr(lib, f"dm_{kernel}_phase_plan")(int(itemsize), int(p),
+                                                       out)
+    plan = dict(zip(PHASE_PLAN_KEYS, out), bytes=n_bytes)
+    plan["form"] = PHASE_FORMS[plan["form"]]
+    return plan
+
+
 # the warps a block of the one-block wide loop took where its slabs were
 # in device memory, by itemsize: K3's and K6's kernels' registers allowed
 # 896 threads in float64 (cudaFuncGetAttributes on an H100), 1024 in
@@ -353,16 +392,6 @@ def _column_case(p, n_s, n_b, like, plan, n_steps=None):
              f"block") if plan else "p <= 64"
     steps = "" if n_steps is None else f", {n_steps} steps"
     return f"p = {p}, n_s = {n_s}, B = {n_b}, {like.dtype}{steps}, {where}"
-
-
-def _check_glue_shape(name, itemsize, p, n_s):
-    """K9's and K10's refusal: their wide form keeps shared slabs only."""
-    if glue_smem(itemsize, p, n_s)[0] < 1:
-        smem = itemsize * (p * p + 6 * p)
-        raise NotImplementedError(
-            f"{name} at p = {p} rows ({itemsize}-byte values) needs {smem} "
-            f"bytes of shared memory for one column, above the "
-            f"{_GLUE_LIMIT} a block may use")
 
 
 def _mask_arg(mask, like, shape, name):
@@ -807,10 +836,34 @@ def _check_phase(name, G, b, p, like, others):
         for t in others:
             if not t.is_contiguous():
                 raise ValueError(f"{name}: operands must be contiguous")
-        _check_glue_shape(name, like.element_size(), p, n_s)
     elif dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
     return G, b, n_s
+
+
+def _phase_work(lib, kernel, like, p, n_s):
+    """K9's or K10's plan from the library (``lib_phase_plan``) and, in
+    the device slabs, a work buffer of ``glue_work`` elements (else None;
+    the caller keeps it alive until the launch is queued)."""
+    plan = lib_phase_plan(lib, kernel, like.element_size(), p)
+    if plan["form"] != "device_slabs":
+        return plan, None
+    return plan, like.new_empty((glue_work(like.element_size(), p, n_s),))
+
+
+def _phase_case(p, n_s, like, plan, n_steps):
+    """A K9 or K10 launch's shape, dtype and plan, for its error."""
+    where = {"column_blocks": f"column blocks C = {plan['blocks']}, "
+                              f"{plan['bytes']} bytes a block",
+             "device_slabs": "device slabs"}.get(plan["form"], plan["form"])
+    return f"p = {p}, n_s = {n_s}, {like.dtype}, {n_steps} steps, {where}"
+
+
+def _count_phase(forms, plan, masked=False):
+    """K9's and K10's launch by form (``count_forms``)."""
+    count_forms(forms, two_row=plan["form"] == "two_row",
+                column_blocks=plan["form"] == "column_blocks",
+                device_slabs=plan["form"] == "device_slabs", masked=masked)
 
 
 def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
@@ -840,14 +893,16 @@ def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
           else lib.dm_alpha_phase_f64)
     al, ap = torch.empty_like(alpha), torch.empty_like(alpha_prev)
     with torch.cuda.device(alpha.device):
+        plan, work = _phase_work(lib, "alpha", alpha, p, n_s)
         err = fn(G.data_ptr(), b.data_ptr(), alpha.data_ptr(),
                  alpha_prev.data_ptr(), al.data_ptr(), ap.data_ptr(),
                  scal.data_ptr(), None if mask is None else mask.data_ptr(),
-                 p, n_s, n_steps, _stream(alpha))
-    _build.check(err, "alpha_phase")
+                 None if work is None else work.data_ptr(), p, n_s, n_steps,
+                 _stream(alpha))
+    _build.check(err, "alpha_phase", _phase_case(p, n_s, alpha, plan,
+                                                 n_steps))
     alpha_phase.launches += 1
-    count_forms(alpha_phase.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P, masked=mask is not None)
+    _count_phase(alpha_phase.forms, plan, masked=mask is not None)
     return al, ap, scal[PH_A_OUT], scal[PH_L_PREV_OUT]
 
 
@@ -893,13 +948,14 @@ def fw_phase(G, b, alpha1, alpha2, purity, n_steps: int):
           else lib.dm_fw_phase_f64)
     a1, a2 = torch.empty_like(alpha1), torch.empty_like(alpha2)
     with torch.cuda.device(alpha1.device):
+        plan, work = _phase_work(lib, "fw", alpha1, p, n_s)
         err = fn(G.data_ptr(), b.data_ptr(), alpha1.data_ptr(),
                  alpha2.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-                 purity.data_ptr(), p, p1, n_s, n_steps, _stream(alpha1))
-    _build.check(err, "fw_phase")
+                 purity.data_ptr(), None if work is None else work.data_ptr(),
+                 p, p1, n_s, n_steps, _stream(alpha1))
+    _build.check(err, "fw_phase", _phase_case(p, n_s, alpha1, plan, n_steps))
     fw_phase.launches += 1
-    count_forms(fw_phase.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P)
+    _count_phase(fw_phase.forms, plan)
     return a1, a2
 
 

@@ -295,15 +295,21 @@ def test_column_groups_are_pinned(args, groups):
     assert alpha_column_groups(*args) == groups
 
 
+# p -> the plan's blocks (float32, float64): one block at p = 100;
+# K9's first cluster of two in float64 at p = 167 (one block in float32)
+# and in float32 at p = 238 (three blocks in float64); clusters at 300
+STEP_ORDER_BLOCKS = {100: (1, 1), 167: (1, 2), 238: (2, 3), 300: (2, 4)}
+
+
 @pytest.mark.parametrize("kind", ["random", "ties", "masked", "nan"])
-@pytest.mark.parametrize("p", [100, 300])
+@pytest.mark.parametrize("p", [100, 167, 238, 300])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_column_step_order_is_the_wide_loops(kind, p, dtype):
     """20 steps, alpha and alpha_prev bit for bit, over the plan's blocks
-    (p = 100: one block; p = 300: 4 blocks in float64, 2 in float32)."""
+    (STEP_ORDER_BLOCKS; p = 167 and 238 are K9's shapes on the card, whose
+    column blocks run this same step)."""
     plan = alpha_column_plan(np.dtype(dtype).itemsize, p)
-    assert plan["blocks"] == (1 if p == 100 else
-                              (4 if dtype == np.float64 else 2))
+    assert plan["blocks"] == STEP_ORDER_BLOCKS[p][dtype == np.float64]
     G, b, al, ap, masked, l_h = _scenario(kind, p, dtype, seed=p + len(kind))
     dt = np.dtype(dtype).type
     betas = _betas(dt(1.8), dt(1.05) * l_h, l_h, 20, dt)

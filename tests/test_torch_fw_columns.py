@@ -269,17 +269,22 @@ def _scenario(kind, p, n_ct, dtype, seed):
     return G.astype(dtype), b.astype(dtype), a.astype(dtype)
 
 
+# p -> the plan's blocks (float32, float64): one block at p = 100;
+# K10's first cluster of two in float64 at p = 169 (one block in float32)
+# and in float32 at p = 240 (three blocks in float64); clusters at 300
+STEP_ORDER_BLOCKS = {100: (1, 1), 169: (1, 2), 240: (2, 3), 300: (2, 4)}
+
+
 @pytest.mark.parametrize("kind", ["random", "ties", "zeros", "nan"])
-@pytest.mark.parametrize("p", [100, 300])
+@pytest.mark.parametrize("p", [100, 169, 240, 300])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_column_step_order_is_the_wide_loops(kind, p, dtype):
     """500 steps: the same vertex pair at every step, so alpha bit for
-    bit, over the plan's blocks (p = 100: one block; p = 300: 4 blocks in
-    float64, 2 in float32)."""
+    bit, over the plan's blocks (STEP_ORDER_BLOCKS; p = 169 and 240 are
+    K10's shapes on the card, whose column blocks run this same step)."""
     n_ct = p // 2
     plan = fw_column_plan(np.dtype(dtype).itemsize, p)
-    assert plan["blocks"] == (1 if p == 100 else
-                              (4 if dtype == np.float64 else 2))
+    assert plan["blocks"] == STEP_ORDER_BLOCKS[p][dtype == np.float64]
     G, b, a = _scenario(kind, p, n_ct, dtype, seed=p + len(kind))
     g0 = _gradient(G, b, a)
     if kind == "nan":

@@ -226,8 +226,15 @@ def _grams64(n_u, n_ct=N_CT, seed=20, n_s=N_S):
 @pytest.mark.parametrize("p,masked,dtype", [(6, False, "float64"),
                                             (6, True, "float64"),
                                             (6, False, "float32"),
-                                            (40, False, "float64")])
+                                            (40, False, "float64"),
+                                            (100, False, "float64"),
+                                            (100, False, "float32"),
+                                            (200, False, "float64"),
+                                            (200, True, "float64"),
+                                            (460, False, "float64")])
 def test_alpha_phase_matches_pallas(p, masked, dtype):
+    """p = 100 and 200 run K2's column blocks on the card (one block, a
+    cluster of two), p = 460 its device slabs past eight blocks."""
     dt = getattr(np, dtype)
     n_u = 2
     G, b, l_h, alpha = (np.asarray(x, dt) for x in _grams64(
@@ -261,10 +268,17 @@ def test_alpha_phase_matches_pallas(p, masked, dtype):
 @pytest.mark.parametrize("p,steps,dtype", [(6, 25, "float64"),
                                            (6, 100, "float64"),
                                            (6, 25, "float32"),
-                                           (40, 30, "float64")])
+                                           (40, 30, "float64"),
+                                           (100, 8, "float64"),
+                                           (100, 8, "float32"),
+                                           (200, 8, "float64"),
+                                           (490, 8, "float64")])
 def test_fw_phase_matches_pallas(p, steps, dtype):
     """n_steps <= 64 runs the JAX kernel's unrolled schedule, 100 its
-    chunked fori_loop; p = 40 the port's wide form."""
+    chunked fori_loop; p = 40 the port's two-row form, p = 100 and 200
+    K3's column blocks (one block, a cluster of two), p = 490 its device
+    slabs past eight blocks (8 steps: the interpret-mode schedule unrolls
+    them)."""
     dt = getattr(np, dtype)
     n_u = 2
     G, b = (np.asarray(x, dt)
