@@ -92,10 +92,11 @@ non-zero and prints no result line):
    bound with its launches counted; p in {33, 40, 64} in K2, K3, K5 and
    K6; above 64 rows K3's and K6's column blocks (a block, or a cluster
    of blocks, a column; p = 65-240, K6 with an inactive member and
-   per-member known blocks) and, past eight blocks, their device slabs
-   (p = 490); past one block's shared memory, K1's and K4's global layout
-   (weighted too) and K2's and K5's device slabs at p = 164-404 and
-   200-240, each timed; K2 and K5 with row
+   per-member known blocks), and past eight blocks the clusters of 9-16
+   blocks and the device rows past 16 of K2, K3, K5, K6, K9 and K10 (p =
+   453-2000, 16,484 in float32, ``phase_column_rows``); past one block's
+   shared memory, K1's and K4's global layout (weighted too) and K2's and
+   K5's column blocks at p = 200-240, each timed; K2 and K5 with row
    masks (all-ones bit-identical to none); K1 with Rt folded into the
    data block, bit-identical to the unfolded launch; K1's bf16_compute in
    the direct form against its twin and through
@@ -141,8 +142,8 @@ non-zero and prints no result line):
    p = 210 and purity at p = 180, 4 restarts of each at p = 209 and the
    purity weights bootstrap at p = 209 (float64, 20k x 10) through
    ``solvers.api`` and ``bootstrap_ci``, with launch counts that show K1's
-   and K4's global layout, K2's and K5's device slabs and K3's and K6's
-   column blocks (clusters of two blocks a column), each held to the
+   and K4's global layout and K2's, K3's, K5's and K6's column blocks
+   (clusters of two blocks a column), each held to the
    plain solver (``phase_past_envelope``); ``tall_svd``, NNDSVD,
    the dual ICA at 1M x 10, the primal ICA at 4096 x 10 and the three
    modes' SVD and ICA inits at 1M x 10, card against CPU in float64,
@@ -367,10 +368,10 @@ def counters():
             (k9, "forms:masked", "alpha_phase{masked}"),
             (k9, "forms:two_row", "alpha_phase{two-row}"),
             (k9, "forms:column_blocks", "alpha_phase{column blocks}"),
-            (k9, "forms:device_slabs", "alpha_phase{device slabs}"),
+            (k9, "forms:device_rows", "alpha_phase{device rows}"),
             (k10, "forms:two_row", "fw_phase{two-row}"),
             (k10, "forms:column_blocks", "fw_phase{column blocks}"),
-            (k10, "forms:device_slabs", "fw_phase{device slabs}"),
+            (k10, "forms:device_rows", "fw_phase{device rows}"),
             (k7, "launches", "u_phase"),
             (k7, "launches_bf16", "u_phase[bf16]"),
             (k8, "launches", "grams"),
@@ -392,23 +393,23 @@ def counters():
              "u_phase_grams_multi{n_u>8, state in device memory}"),
             (k2, "forms:wide", "alpha_phase_full{p>32}"),
             (k2, "forms:two_row", "alpha_phase_full{two-row}"),
-            (k2, "forms:device_slabs", "alpha_phase_full{device slabs}"),
+            (k2, "forms:device_rows", "alpha_phase_full{device rows}"),
             (k2, "forms:column_blocks", "alpha_phase_full{column blocks}"),
             (k2, "forms:masked", "alpha_phase_full{masked}"),
             (k3, "forms:wide", "fw_phase_full{p>32}"),
             (k3, "forms:two_row", "fw_phase_full{two-row}"),
-            (k3, "forms:device_slabs", "fw_phase_full{device slabs}"),
+            (k3, "forms:device_rows", "fw_phase_full{device rows}"),
             (k3, "forms:column_blocks", "fw_phase_full{column blocks}"),
             (k5, "forms:wide", "alpha_phase_full_multi{p>32}"),
             (k5, "forms:two_row", "alpha_phase_full_multi{two-row}"),
-            (k5, "forms:device_slabs",
-             "alpha_phase_full_multi{device slabs}"),
+            (k5, "forms:device_rows",
+             "alpha_phase_full_multi{device rows}"),
             (k5, "forms:column_blocks",
              "alpha_phase_full_multi{column blocks}"),
             (k5, "forms:masked", "alpha_phase_full_multi{masked}"),
             (k6, "forms:wide", "fw_phase_full_multi{p>32}"),
             (k6, "forms:two_row", "fw_phase_full_multi{two-row}"),
-            (k6, "forms:device_slabs", "fw_phase_full_multi{device slabs}"),
+            (k6, "forms:device_rows", "fw_phase_full_multi{device rows}"),
             (k6, "forms:column_blocks",
              "fw_phase_full_multi{column blocks}"),
             (k1, "launches", "u_phase_grams"),
@@ -1367,9 +1368,9 @@ def resample_weights(n_b, n, dtype, seed):
 
 
 def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
-                       weighted=False, n_s=N_S):
-    """Shared known blocks and B members' K4 blocks (from K4's twin) of a
-    200k-site problem, alpha stacks and scalar rows on the card; with
+                       weighted=False, n_s=N_S, n=200_000):
+    """Shared known blocks and B members' K4 blocks (from K4's twin) of an
+    n-site problem, alpha stacks and scalar rows on the card; with
     ``weighted``, resample weights per member, each member's own weighted
     known blocks, ||Rt||^2 and surviving-row max coverage (the weighted
     bootstrap's operands)."""
@@ -1381,7 +1382,6 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
     from demethify_tpu_torch.ops.gram import known_block_grams
 
     dtype = getattr(torch, dtype_name)
-    n = 200_000
     ydt, rtt, alpha_b, uut_b, scal_b = _multi_inputs(
         n, n_s, n_ct, n_u, n_b, dtype, seed, inactive)
     # the weights only where they are used, so that the unweighted cases
@@ -1418,7 +1418,7 @@ def _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
 
 
 def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
-             mask=None, n_s=N_S):
+             mask=None, n_s=N_S, n=200_000):
     """K5 against its twin; ``mask`` (B, p) the members' row masks, then
     also an all-ones mask held bit-identical to no mask."""
     import torch
@@ -1430,7 +1430,7 @@ def _k5_case(n_ct, n_u, dtype_name, n_b, inactive, seed=30, timed=False,
 
     (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
      scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
-                                  n_s=n_s)
+                                  n_s=n_s, n=n)
     args = (gtt, bt, gu, bu, usq, ydy)
     mk = None if mask is None else torch.as_tensor(mask, device=DEV,
                                                    dtype=alpha_b.dtype)
@@ -1561,7 +1561,8 @@ def _fw_flips_multi(args, alpha0_b, purity, scal_b, n_u, n_steps, members):
 
 
 def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
-             n_ct=N_CT, n_s=N_S, reps=7, inner=10, steps=P_INNER):
+             n_ct=N_CT, n_s=N_S, reps=7, inner=10, steps=P_INNER,
+             n=200_000):
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import ACTIVE, COST, L_W, N_SCAL
@@ -1570,7 +1571,7 @@ def _k6_case(dtype_name, n_b=8, inactive=(5,), seed=40, timed=False,
 
     (gtt, bt, gu, bu, _, ydy, alpha_b, _,
      scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive, seed,
-                                  n_s=n_s)
+                                  n_s=n_s, n=n)
     rng = np.random.default_rng(seed)
     purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s), device=DEV,
                              dtype=alpha_b.dtype)
@@ -1802,7 +1803,8 @@ def _expanded(n_b, *blocks):
     return tuple(x.expand(n_b, *x.shape).contiguous() for x in blocks)
 
 
-def _k5w_case(n_ct, n_u, dtype_name, n_b, inactive, seed=60, timed=False):
+def _k5w_case(n_ct, n_u, dtype_name, n_b, inactive, seed=60, timed=False,
+              n=200_000):
     """K5 with per-member known blocks against its twin; and per-member
     copies of shared blocks against the shared-block launch, bit for
     bit."""
@@ -1814,7 +1816,7 @@ def _k5w_case(n_ct, n_u, dtype_name, n_b, inactive, seed=60, timed=False):
 
     (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
      scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
-                                  weighted=True)
+                                  weighted=True, n=n)
     args = (gtt, bt, gu, bu, usq, ydy)
     ak, apk, sk = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
     alpha_phase_full_multi(*args, ak, apk, sk, N_INNER, n_u)
@@ -1823,7 +1825,7 @@ def _k5w_case(n_ct, n_u, dtype_name, n_b, inactive, seed=60, timed=False):
     # the shared-block form (the restarts' K5) against per-member copies
     (sgtt, sbt, sgu, sbu, susq, sydy, s_alpha, s_prev,
      s_scal) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive,
-                                  seed + 1)
+                                  seed + 1, n=n)
     outs = []
     for known in ((sgtt, sbt, sydy), _expanded(n_b, sgtt, sbt, sydy)):
         a, ap, sc = s_alpha.clone(), s_prev.clone(), s_scal.clone()
@@ -1889,7 +1891,7 @@ def phase_k5_weighted():
 
 
 def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False,
-              n_ct=N_CT, n_s=N_S, steps=P_INNER):
+              n_ct=N_CT, n_s=N_S, steps=P_INNER, n=200_000):
     """K6 with per-member known blocks against its twin; and per-member
     copies of shared blocks against the shared-block launch, bit for
     bit."""
@@ -1906,7 +1908,7 @@ def _k6w_case(dtype_name, n_b=8, inactive=(5,), seed=70, timed=False,
         nonlocal purity
         (gtt, bt, gu, bu, _, ydy, alpha_b, _,
          scal_b) = _glue_multi_inputs(n_ct, N_U, dtype_name, n_b, inactive,
-                                      sd, weighted=weighted, n_s=n_s)
+                                      sd, weighted=weighted, n_s=n_s, n=n)
         if purity is None:
             purity = torch.as_tensor(rng.uniform(0.3, 0.9, size=n_s),
                                      device=DEV, dtype=alpha_b.dtype)
@@ -3643,12 +3645,12 @@ def phase_layouts():
     ``state_in_device`` against ``dm_state_rows``, ``dm_state_in_device``);
     the global layout's plan (``cuda_kernels.global_plan``: its chunk,
     ring and rows for one K1 member and for K4's groups, against
-    ``dm_global_plan``); the glue kernels' device slabs
-    (``cuda_small.glue_work``), K2's, K3's, K5's and K6's column
-    blocks (``alpha_column_plan``, ``fw_column_plan``,
-    ``alpha_column_groups``, ``fw_column_groups`` at p = 65-700) and
-    K9's and K10's forms (``phase_plan`` at p = 1-1000) against their
-    exports."""
+    ``dm_global_plan``); K2's, K3's, K5's and K6's column blocks and
+    device rows (``alpha_column_plan``, ``fw_column_plan``,
+    ``alpha_column_groups``, ``fw_column_groups`` and the device rows'
+    buffer, ``column_work``, at p = 65-1000 and at the device rows'
+    edges to 25,601) and K9's and K10's forms (``phase_plan`` at
+    p = 1-1000 and at those edges) against their exports."""
     from demethify_tpu_torch.ops import _build
     from demethify_tpu_torch.ops.cuda_kernels import (
         SMEM_LIMIT, global_plan, lib_global_plan, state_in_device,
@@ -3656,10 +3658,9 @@ def phase_layouts():
     from demethify_tpu_torch.ops.cuda_small import REG_P
     from demethify_tpu_torch.ops.cuda_small import TWO_ROW_P as TWO_ROW_P_MAX
     from demethify_tpu_torch.ops.cuda_small import (
-        alpha_column_groups, alpha_column_plan, alpha_plan, fw_column_groups,
-        fw_column_plan, glue_smem, lib_alpha_column_plan, lib_fw_column_plan,
-        lib_phase_plan, phase_plan, two_row_stride)
-    from demethify_tpu_torch.ops.cuda_small import glue_work as work_elems
+        alpha_column_groups, alpha_column_plan, alpha_plan, column_work,
+        fw_column_groups, fw_column_plan, glue_smem, lib_alpha_column_plan,
+        lib_fw_column_plan, lib_phase_plan, phase_plan, two_row_stride)
 
     lib = _build.load().lib
     bad, n_checked = [], 0
@@ -3714,15 +3715,21 @@ def phase_layouts():
             for n_s in (1, 10, 16, 17, 100):
                 n_warps, smem = glue_smem(itemsize, p, n_s)
                 want = lib.dm_glue_smem(itemsize, p, n_s)
-                n_checked += 2
+                n_checked += 1
                 if want != smem:
                     bad.append(("glue", itemsize, p, n_s, want, smem))
-                work = lib.dm_glue_work(itemsize, p, n_s)
-                if work != work_elems(itemsize, p, n_s):
-                    bad.append(("glue work", itemsize, p, n_s, work))
-        # K2's, K3's, K5's and K6's column blocks: the plans and the
-        # cost's groups
-        for p in range(65, 701):
+        # K2's, K3's, K5's and K6's column blocks and device rows: the
+        # plans, the device rows' buffer and the cost's groups
+        for p in [*range(65, 1001), 2000, 4114, 4115, 8228, 8229, 16484,
+                  25600, 25601]:
+            for kernel in ("alpha", "fw"):
+                for n_s in (1, 10, 100):
+                    n_checked += 1
+                    work = getattr(lib, f"dm_{kernel}_column_work")(
+                        itemsize, p, n_s)
+                    if work != column_work(kernel, itemsize, p, n_s):
+                        bad.append(("column work", kernel, itemsize, p,
+                                    n_s, work))
             n_checked += 2
             if (lib_fw_column_plan(lib, itemsize, p)
                     != fw_column_plan(itemsize, p)):
@@ -3738,10 +3745,11 @@ def phase_layouts():
                 if (lib.dm_alpha_column_groups(itemsize, p, n_s)
                         != alpha_column_groups(itemsize, p, n_s)):
                     bad.append(("alpha column groups", itemsize, p, n_s))
-    # K9's and K10's forms at every p to 1000 (their plans)
+    # K9's and K10's forms at every p to 1000 and at the device rows'
+    # edges (their plans)
     for kernel in ("alpha", "fw"):
         for itemsize in (4, 8):
-            for p in range(1, 1001):
+            for p in [*range(1, 1001), 2000, 4115, 8229, 16484, 25601]:
                 n_checked += 1
                 if (lib_phase_plan(lib, kernel, itemsize, p)
                         != phase_plan(kernel, itemsize, p)):
@@ -4062,7 +4070,7 @@ def _glue_forms(case, want_two_row, columns=True):
     """Runs ``case()`` with the counters at 0 and checks each glue kernel
     it launched against its form counters: every launch in the two-row
     form (``want_two_row``), or none (p > 64: the column blocks where
-    ``columns``, else the device slabs). Returns the case's result."""
+    ``columns``, else the device rows). Returns the case's result."""
     reset_counts()
     res = case()
     got = read_counts()
@@ -4077,7 +4085,7 @@ def _glue_forms(case, want_two_row, columns=True):
         if got[k] and not want_two_row:
             cols = got[k] if columns else 0
             check(got[f"{k}{{column blocks}}"] == cols
-                  and got[f"{k}{{device slabs}}"] == got[k] - cols,
+                  and got[f"{k}{{device rows}}"] == got[k] - cols,
                   f"{k}: {got[k]} launches, "
                   f"{got[f'{k}{{column blocks}}']} in the column blocks, "
                   f"want {cols}")
@@ -4092,7 +4100,7 @@ def _nan_column_case(p, n_s=N_S, col=3):
     NaN, against their twins: that column comes out NaN in every row of
     alpha, as the twins and the JAX kernels give it, and the other
     columns agree at the alpha tolerance. The forms: register (p <= 32),
-    two-row (33-64), column blocks (to 452) and device slabs past them."""
+    two-row (33-64), column blocks (to 624) and device rows past them."""
     import torch
 
     from demethify_tpu_torch.ops.cuda_kernels import (
@@ -4159,7 +4167,7 @@ def phase_wide_glue():
     bit for bit to K2 and K3 on the same Grams), each launch counted in
     the two-row form; K2 and K5 with row masks at p = 40 and 64 (an
     all-ones mask bit-identical to none, masked rows exactly 0); K9 and
-    K10 above 64 rows in K2's and K3's column blocks and device slabs
+    K10 above 64 rows in K2's and K3's column blocks
     (``_phase_wide_cases``), with no two-row launch; K2's and K5's column
     blocks at p = 65 (both dtypes), 100
     (float32; float64 timed), 166 and 167 (float64) and 237 and 238
@@ -4168,10 +4176,11 @@ def phase_wide_glue():
     per-member known blocks; K3's and K6's column blocks at p = 65 and 100
     (both dtypes), 167 and 168 (float64), one block a column, K6 with an
     inactive member and at p = 100 with per-member known blocks; a column
-    whose v holds a NaN in each form of K2 and K5 (``_nan_column_case``).
+    whose v holds a NaN in each form of K2 and K5 (``_nan_column_case``,
+    to the device rows at p = 625).
     Returns the timed p = 40, n_s = 10, float64 cases (the kernels line's
-    rows), the timed p = 100 cases of K2's, K3's, K9's and K10's column
-    blocks and K9's and K10's device slabs."""
+    rows) and the timed p = 100 cases of K2's, K3's, K9's and K10's column
+    blocks."""
     timed = {}
     for p in TWO_ROW_P:
         for n_s in TWO_ROW_NS:
@@ -4213,8 +4222,8 @@ def phase_wide_glue():
                     mask=[0] + [1] * (p - 1)), True)
     # K9 and K10 above 64 rows: K2's and K3's column blocks (one block a
     # column to the plan's last, clusters of two just past it and at
-    # p = 200 and 240), K9 with row masks, and past eight blocks the
-    # device slabs (50k sites; K10 20 steps)
+    # p = 200 and 240), K9 with row masks (past 8 blocks:
+    # phase_column_rows)
     timed.update(_phase_wide_cases())
     # K2's and K5's column blocks: one block a column at p = 65 and 100
     # and to the plan's last (166 in float64, 237 in float32), clusters of
@@ -4246,7 +4255,7 @@ def phase_wide_glue():
         _glue_forms(lambda: _k5w_case(p - 4, 4, "float64", 3, (1,),
                                       seed=135 + p), False)
     # a column whose v holds a NaN, in every form of K2, K5 and K9
-    for p in (6, 40, 100, 200, 460):
+    for p in (6, 40, 100, 200, 460, 625):
         _nan_column_case(p)
     # K3's and K6's column blocks, one block a column up to p = 168 in
     # float64: K6 with an inactive member, and with per-member known blocks
@@ -4279,14 +4288,12 @@ def _last_single_block(plan, itemsize):
 
 def _phase_wide_cases():
     """K9 and K10 above 64 rows against their twins and K2's and K3's
-    bits, each launch counted in the column blocks (or past eight blocks
-    the device slabs): both at p = 65 and 100 (both dtypes), at their
-    plans' last single block and first cluster of two (K9 166 and 167 in
-    float64, 237 and 238 in float32; K10 168 and 169, 239 and 240), at
-    p = 200 (float64) and 240 (float32); K9 with row masks at p = 100
-    (n_s = 100) and 200; K9 at p = 460 and K10 at p = 490 (20 steps) in
-    the device slabs, 50k sites. Returns the timed float64 cases: the
-    column blocks at p = 100, the device slabs."""
+    bits, each launch counted in the column blocks: both at p = 65 and 100
+    (both dtypes), at their plans' last single block and first cluster of
+    two (K9 166 and 167 in float64, 237 and 238 in float32; K10 168 and
+    169, 239 and 240), at p = 200 (float64) and 240 (float32); K9 with row
+    masks at p = 100 (n_s = 100) and 200. Returns the timed float64
+    cases: the column blocks at p = 100."""
     from demethify_tpu_torch.ops.cuda_small import (
         alpha_column_plan, fw_column_plan)
 
@@ -4307,12 +4314,6 @@ def _phase_wide_cases():
     for p, n_s in ((100, 100), (200, N_S)):
         _glue_forms(lambda: _k9_case(p, "float64", n_s=n_s, seed=710 + p,
                                      mask=[1] * (p - 2) + [0, 1]), False)
-    out["k9 slabs"] = _glue_forms(lambda: _k9_case(
-        460, "float64", seed=720, timed=True, n=50_000), False,
-        columns=False)
-    out["k10 slabs"] = _glue_forms(lambda: _k10_case(
-        490, "float64", seed=721, timed=True, steps=20, n=50_000), False,
-        columns=False)
     return out
 
 
@@ -4324,13 +4325,11 @@ def phase_global_kernels():
     bf16 data); K4's
     (B = 10, 160 + 4 at n_s = 64; weighted B = 4, 205 + 4 at n_s = 10);
     K2 and K5 in their column blocks at p = 200 (K2 also at n_s = 100)
-    and at 240 in float32, and in their device slabs past eight blocks
-    (p = 460, K2 at n_s = 10, timed, and 100); K3 and K6 in their column
-    blocks at p = 200 (clusters of two; K6 also with per-member known
-    blocks) and at 240 in float32, and in their device slabs past eight
-    blocks (p = 490, 20 steps; K3 timed). Each at 200k sites (the device
-    slabs at 50k); the timed cases with a
-    launch's peak device memory. Then the global layout
+    and at 240 in float32, K2 in 9 blocks at p = 460 and n_s = 100; K3
+    and K6 in their column blocks at p = 200 (clusters of two; K6 also
+    with per-member known blocks) and at 240 in float32. Each at 200k
+    sites (p = 460 at 50k); the timed cases with a launch's peak device
+    memory. Then the global layout
     forced at shapes the shared layouts take, bit-identical to them: K1 at
     the main path's shape (1M x 10, 5 + 1, float32), in the direct form
     with n_u = 12 (the state and the residual rows on the chip), with
@@ -4379,9 +4378,8 @@ def phase_global_kernels():
     out["k4w"] = _k4w_case(4, "float64", 4, N_INNER, n_ct=205, inactive=(2,),
                            seed=405, timed=True, label="[global]", n=N_WIDE)
     # K2's and K5's column blocks in clusters of two at p = 200 (float64;
-    # K2 also at n_s = 100) and 240 (float32); past eight blocks (p = 460,
-    # float64) their device slabs, K2 also at n_s = 100 (the slab loop's
-    # warps capped as before)
+    # K2 also at n_s = 100) and 240 (float32); past eight blocks:
+    # phase_column_rows
     out["k2"] = _glue_forms(lambda: _k2_case(196, "float64", n_u=4,
                                              seed=406, timed=True), False)
     _glue_forms(lambda: _k2_case(196, "float64", n_u=4, seed=407, n_s=100),
@@ -4391,17 +4389,11 @@ def phase_global_kernels():
                                              seed=410, timed=True), False)
     _glue_forms(lambda: _k5_case(236, 4, "float32", 4, (1,), seed=427),
                 False)
-    out["k2 slabs"] = _glue_forms(lambda: _k2_case(
-        456, "float64", n_u=4, seed=428, n=50_000, timed=True, reps=3,
-        inner=2), False, columns=False)
     _glue_forms(lambda: _k2_case(456, "float64", n_u=4, seed=429, n=50_000,
-                                 n_s=100), False, columns=False)
-    _glue_forms(lambda: _k5_case(456, 4, "float64", 2, (1,), seed=430),
-                False, columns=False)
+                                 n_s=100), False)
     # K3's and K6's column blocks past one block's shared memory: clusters
     # of two blocks at p = 200 (float64) and 240 (float32), K6 also with
-    # per-member known blocks; past eight blocks (p = 490, float64) the
-    # device slabs, 20 steps
+    # per-member known blocks (past eight blocks: phase_column_rows)
     out["k3"] = _glue_forms(lambda: _k3_case(199, "float64", seed=409,
                                              timed=True), False)
     out["k6"] = _glue_forms(lambda: _k6_case("float64", n_ct=199, seed=411,
@@ -4411,11 +4403,203 @@ def phase_global_kernels():
     _glue_forms(lambda: _k3_case(239, "float32", seed=423), False)
     _glue_forms(lambda: _k6_case("float32", n_b=4, inactive=(1,), n_ct=239,
                                  seed=424), False)
-    out["k3 slabs"] = _glue_forms(lambda: _k3_case(
-        489, "float64", seed=425, n=50_000, steps=20, timed=True, reps=3,
-        inner=2), False, columns=False)
-    _glue_forms(lambda: _k6_case("float64", n_b=2, inactive=(1,), n_ct=489,
-                                 seed=426, steps=20), False, columns=False)
+    return out
+
+
+# The glue kernels past the portable 8 blocks a column: (p, dtype) of K2,
+# K5 and K9 (alpha) and of K3, K6 and K10 (fw): the old edge of 8 blocks,
+# p = 460 and 490 (9 blocks), the last cluster of 16, the first device
+# rows past it and p = 2000 (``cuda_small.alpha_column_plan``,
+# ``fw_column_plan``); their sites, and K9's and K10's threads that own
+# two rows each (p = 16 x 1024 + 100, float32)
+ROWS_ALPHA = ((453, "float64"), (460, "float64"), (624, "float64"),
+              (625, "float64"), (2000, "float64"), (651, "float32"),
+              (904, "float32"), (905, "float32"))
+ROWS_FW = ((473, "float64"), (490, "float64"), (670, "float64"),
+           (671, "float64"), (2000, "float64"), (673, "float32"),
+           (946, "float32"), (947, "float32"))
+ROWS_SITES = 20_000
+ROWS_TWO_A_THREAD = 16 * 1024 + 100
+
+
+def _k5_bits_case(n_ct, n_u, dtype_name, n_b, inactive, seed,
+                  weighted=False, n=200_000):
+    """K5 (B members; ``weighted``: per-member known blocks) held member by
+    member to K2 on that member's blocks, alpha, alpha_prev and the scalars
+    bit for bit, its inactive members unchanged. For float32 past 8 blocks
+    a column: there the Gram-identity cost cancels about three digits more
+    than ``_k5_case``'s scalar check (each slot relative to itself) allows
+    between two summation orders (3.5e-4 against 5e-5 at p = 651, 200k
+    sites, on an NVIDIA H100 80GB HBM3), while ``_k2_case`` at the same
+    shape holds K2 to its twin at TOL (the cost relative to sum(ydy)).
+    Returns the members held."""
+    import torch
+
+    from demethify_tpu_torch.ops.cuda_kernels import N_SCAL
+    from demethify_tpu_torch.ops.cuda_small import (
+        alpha_phase_full, alpha_phase_full_multi)
+
+    (gtt, bt, gu, bu, usq, ydy, alpha_b, alpha_prev_b,
+     scal_b) = _glue_multi_inputs(n_ct, n_u, dtype_name, n_b, inactive, seed,
+                                  weighted=weighted, n=n)
+    ak, apk, sk = alpha_b.clone(), alpha_prev_b.clone(), scal_b.clone()
+    alpha_phase_full_multi(gtt, bt, gu, bu, usq, ydy, ak, apk, sk, N_INNER,
+                           n_u)
+    same = []
+    for b in range(n_b):
+        if b in inactive:
+            same.append(torch.equal(ak[b], alpha_b[b])
+                        and torch.equal(apk[b], alpha_prev_b[b])
+                        and torch.equal(sk[b], scal_b[b]))
+            continue
+        known = (gtt[b], bt[b], ydy[b]) if weighted else (gtt, bt, ydy)
+        a1, ap1, s1 = (alpha_b[b].clone(), alpha_prev_b[b].clone(),
+                       scal_b[b, :N_SCAL].clone())
+        alpha_phase_full(known[0], known[1], gu[b], bu[b], usq[b:b + 1],
+                         known[2], a1, ap1, s1, N_INNER, n_u)
+        same.append(torch.equal(a1, ak[b]) and torch.equal(ap1, apk[b])
+                    and torch.equal(s1, sk[b, :N_SCAL]))
+    torch.cuda.synchronize()
+    log(f"[K5{'w' if weighted else ''}] B={n_b} (inactive {list(inactive)}) "
+        f"p={n_ct + n_u} {dtype_name}: each active member K2's bits on its "
+        f"blocks, each inactive member unchanged: {same}")
+    check(all(same), "K5's members differ from K2 on their blocks")
+    return {"p": n_ct + n_u, "dtype": dtype_name, "members": n_b,
+            "same_as_k2": same}
+
+
+def phase_column_rows():
+    """The glue kernels past 8 blocks a column against their twins, float64
+    at n_s = 10 unless named, 20k sites: first what the card places (the
+    largest cluster, ``cudaOccupancyMaxPotentialClusterSize``, and the
+    clusters it holds at once) at the plans' most shared memory (the last
+    cluster of 16) and in the device rows, which must be 16 or more; then
+    at each shape of ROWS_ALPHA K2, K5 (B = 8, member 3 inactive), K5 with
+    per-member known blocks (B = 3) and K9 (K5 in float32 held member by
+    member to K2's bits, ``_k5_bits_case``), and at each of ROWS_FW K3, K6
+    (B = 8, 20 steps), K6 with per-member known blocks and K10 (20 steps;
+    the per-member blocks not at p = 2000), each launch counted in the
+    column blocks or, past 16 blocks, the device rows; K2, K5 and K9 with
+    row masks at p = 460 and 625 (an all-ones mask bit-identical to none);
+    K9 and K10 at p = ROWS_TWO_A_THREAD, n_s = 1, float32, 5 steps (their
+    threads own two rows each; 500 sites: the inputs' Gram sums form p^2
+    products a site). The sites only make the inputs: a launch's work is
+    the p x p Grams'. Timed: K2 and K9 at p = 460 and 625, K3
+    and K10 at 490 and 671 (the kernels line's rows). Returns the timed
+    cases, the launches of each form in these checks and the card's
+    cluster capacity."""
+    from demethify_tpu_torch.ops import _build
+    from demethify_tpu_torch.ops.cuda_small import (
+        MAX_COLUMN_BLOCKS, alpha_column_plan, fw_column_plan,
+        lib_column_capacity)
+
+    lib = _build.load().lib
+    out = {"capacity": {}, "launches": {}}
+    for kernel, plan, shapes in (
+            ("alpha", alpha_column_plan, ((8, 624), (4, 904), (8, 625),
+                                          (8, 4115), (4, 16484))),
+            ("fw", fw_column_plan, ((8, 670), (4, 946), (8, 671),
+                                    (8, 25601), (4, 16484)))):
+        for itemsize, p in shapes:
+            cap = lib_column_capacity(lib, kernel, itemsize, p)
+            pl = plan(itemsize, p)
+            out["capacity"][f"{kernel}_{itemsize}_p{p}"] = dict(cap, **pl)
+            log(f"[rows] {kernel} p={p} itemsize {itemsize}: plan {pl}; "
+                f"the card places clusters of up to {cap['cluster']} "
+                f"blocks, {cap['clusters']} of {pl['blocks']} at once")
+            check(cap["cluster"] >= MAX_COLUMN_BLOCKS and cap["clusters"] >= 1,
+                  f"{kernel} p = {p}: the card places no cluster of "
+                  f"{MAX_COLUMN_BLOCKS} ({cap})")
+
+    def count(res):
+        for k, v in res["check_launches"].items():
+            if v and ("{column blocks}" in k or "{device rows}" in k):
+                out["launches"][k] = out["launches"].get(k, 0) + v
+        return res
+
+    def rows_form(plan, itemsize, p):
+        return plan(itemsize, p)["device"] == 0
+
+    for p, dt in ROWS_ALPHA:
+        size = 8 if dt == "float64" else 4
+        cols = rows_form(alpha_column_plan, size, p)
+        t = (p, dt) in ((460, "float64"), (625, "float64"))
+        seed = 1000 + p
+        res = count(_glue_forms(lambda: _k2_case(
+            p - 4, dt, n_u=4, seed=seed, n=ROWS_SITES, timed=t, reps=5,
+            inner=10), False, columns=cols))
+        if t:
+            out[f"k2 p{p}"] = res
+        if dt == "float64":
+            count(_glue_forms(lambda: _k5_case(p - 4, 4, dt, 8, (3,),
+                                               seed=seed + 1, n=ROWS_SITES),
+                              False, columns=cols))
+        else:
+            count(_glue_forms(lambda: _k5_bits_case(
+                p - 4, 4, dt, 8, (3,), seed + 1, n=ROWS_SITES), False,
+                columns=cols))
+        if p != 2000 and dt == "float64":
+            count(_glue_forms(lambda: _k5w_case(p - 4, 4, dt, 3, (1,),
+                                                seed=seed + 2, n=ROWS_SITES),
+                              False, columns=cols))
+        elif p != 2000:
+            count(_glue_forms(lambda: _k5_bits_case(
+                p - 4, 4, dt, 3, (1,), seed + 2, weighted=True,
+                n=ROWS_SITES), False, columns=cols))
+        res = count(_glue_forms(lambda: _k9_case(
+            p, dt, seed=seed + 3, n=ROWS_SITES, timed=t), False,
+            columns=cols))
+        if t:
+            out[f"k9 p{p}"] = res
+    for p in (460, 625):
+        cols = rows_form(alpha_column_plan, 8, p)
+        mask = [1] * (p - 2) + [0, 1]
+        count(_glue_forms(lambda: _k2_case(p - 4, "float64", n_u=4,
+                                           seed=1100 + p, n=ROWS_SITES,
+                                           mask=mask), False, columns=cols))
+        count(_glue_forms(lambda: _k2_case(p - 4, "float64", n_u=4,
+                                           seed=1101 + p, n=ROWS_SITES,
+                                           mask=[1] * p), False,
+                          columns=cols))
+        masks = np.ones((8, p))
+        masks[0, 3] = masks[7, p - 1] = 0.0
+        count(_glue_forms(lambda: _k5_case(p - 4, 4, "float64", 8, (3,),
+                                           seed=1102 + p,
+                                           mask=masks.tolist(),
+                                           n=ROWS_SITES), False,
+                          columns=cols))
+        count(_glue_forms(lambda: _k9_case(p, "float64", seed=1103 + p,
+                                           n=ROWS_SITES, mask=mask), False,
+                          columns=cols))
+    for p, dt in ROWS_FW:
+        size = 8 if dt == "float64" else 4
+        cols = rows_form(fw_column_plan, size, p)
+        t = (p, dt) in ((490, "float64"), (671, "float64"))
+        seed = 1200 + p
+        res = count(_glue_forms(lambda: _k3_case(
+            p - 1, dt, seed=seed, n=ROWS_SITES, steps=20, timed=t, reps=5,
+            inner=10), False, columns=cols))
+        if t:
+            out[f"k3 p{p}"] = res
+        count(_glue_forms(lambda: _k6_case(dt, n_b=8, inactive=(3,),
+                                           n_ct=p - 1, seed=seed + 1,
+                                           steps=20, n=ROWS_SITES), False,
+                          columns=cols))
+        if p != 2000:
+            count(_glue_forms(lambda: _k6w_case(dt, n_b=3, inactive=(1,),
+                                                n_ct=p - 1, seed=seed + 2,
+                                                steps=20, n=ROWS_SITES),
+                              False, columns=cols))
+        res = count(_glue_forms(lambda: _k10_case(
+            p, dt, seed=seed + 3, n=ROWS_SITES, steps=20, timed=t), False,
+            columns=cols))
+        if t:
+            out[f"k10 p{p}"] = res
+    for fn in (_k9_case, _k10_case):
+        count(_glue_forms(lambda: fn(ROWS_TWO_A_THREAD, "float32",
+                                     seed=1300, n=500, n_s=1, steps=5),
+                          False, columns=False))
+    log(f"[rows] launches in these checks: {out['launches']}")
     return out
 
 
@@ -5370,7 +5554,7 @@ def _phase_glue_inputs(p, n_ct, dtype_name, seed, n_s=N_S, n=200_000):
 
 
 def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
-             timed=False, n=200_000):
+             timed=False, n=200_000, steps=N_INNER):
     """K9 against its twin; with K2's inputs (n sites), K9 on K2's
     assembled G and b and K2's scalars gives K2's alpha, alpha_prev and
     scalars bit for bit (one loop body, ``glue_steps.cuh`` and
@@ -5390,12 +5574,12 @@ def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
     sc = (scal[A_ALPHA], scal[L_H_PREV], l_h)
     mask_t = None if mask is None else torch.as_tensor(
         mask, device=DEV, dtype=alpha.dtype)
-    ak, apk, a_k, l_k = alpha_phase(G, b, alpha, alpha_prev, *sc, N_INNER,
+    ak, apk, a_k, l_k = alpha_phase(G, b, alpha, alpha_prev, *sc, steps,
                                     row_mask=mask_t)
     a_pl, ap_pl, a_p, l_p = alpha_phase_plain(G, b, alpha, alpha_prev, *sc,
-                                              N_INNER, mask_t)
+                                              steps, mask_t)
     a2, ap2, s2 = alpha.clone(), alpha_prev.clone(), scal.clone()
-    alpha_phase_full(*blocks, a2, ap2, s2, N_INNER, p - n_ct,
+    alpha_phase_full(*blocks, a2, ap2, s2, steps, p - n_ct,
                      **({} if mask_t is None else {"row_mask": mask_t}))
     torch.cuda.synchronize()
     same_k2 = (torch.equal(ak, a2) and torch.equal(apk, ap2)
@@ -5410,13 +5594,13 @@ def _k9_case(p, dtype_name, n_ct=None, n_s=N_S, mask=None, seed=340,
            "alpha_max_abs": err_a, "same_as_k2": same_k2}
     if timed:
         def run():
-            return alpha_phase(G, b, alpha, alpha_prev, *sc, N_INNER,
+            return alpha_phase(G, b, alpha, alpha_prev, *sc, steps,
                                row_mask=mask_t)
         res["ms"] = queued_ms(run, inner=20)
         res["plain_ms"] = median_ms(lambda: alpha_phase_plain(
-            G, b, alpha, alpha_prev, *sc, N_INNER, mask_t), inner=5)
+            G, b, alpha, alpha_prev, *sc, steps, mask_t), inner=5)
         res["bound_ms"], res["bound_by"] = bound(
-            *phase_glue_work(p, n_s, N_INNER, alpha.element_size()),
+            *phase_glue_work(p, n_s, steps, alpha.element_size()),
             dtype_name)
     log(f"[K9] p={p} n_s={n_s} {dtype_name}"
         f"{' masked' if mask is not None else ''}: alpha, alpha_prev "
@@ -6065,13 +6249,17 @@ def _k3_outputs(shape):
 
 # K3's and K6's shapes above 64 rows ("p{p}_{dtype}": p, dtype, steps):
 # one block a column (65-168 in float64), clusters of two (200 in
-# float64, 240 in float32) and, past eight blocks, the device slabs (490)
+# float64, 240 in float32), past eight blocks (where the one-block loop
+# kept its slabs in device memory: 473-670 in float64, 673-946 in
+# float32) clusters of 9-16, and past 16 the device rows (671, 700, 947)
 COLUMN_SHAPES = {f"p{p}_{dt}": (p, dt, steps) for p, dt, steps in (
     (65, "float64", P_INNER), (65, "float32", P_INNER),
     (100, "float64", P_INNER), (100, "float32", P_INNER),
     (167, "float64", P_INNER), (168, "float64", P_INNER),
     (200, "float64", P_INNER), (240, "float32", P_INNER),
-    (490, "float64", 20))}
+    (473, "float64", 20), (490, "float64", 20), (670, "float64", 20),
+    (671, "float64", 20), (700, "float64", 20), (673, "float32", 20),
+    (947, "float32", 20))}
 
 
 def _column_outputs(shape):
@@ -6126,12 +6314,16 @@ def _column_outputs(shape):
 
 # K2's and K5's shapes above 64 rows ("p{p}_{dtype}": p, dtype): one
 # block a column (65-166 in float64, to 237 in float32), clusters of two
-# (167-233 in float64, 238-332 in float32), eight (452 in float64) and,
-# past eight blocks, the device slabs (460)
+# (167-233 in float64, 238-332 in float32), eight (452 in float64), past
+# eight (where the one-block loop kept its slabs in device memory: 453-624
+# in float64, 651-904 in float32) clusters of 9-16, and past 16 the device
+# rows (625, 700, 905)
 ALPHA_COLUMN_SHAPES = {f"p{p}_{dt}": (p, dt) for p, dt in (
     (65, "float64"), (65, "float32"), (100, "float64"), (100, "float32"),
     (166, "float64"), (167, "float64"), (200, "float64"), (237, "float32"),
-    (238, "float32"), (240, "float32"), (452, "float64"), (460, "float64"))}
+    (238, "float32"), (240, "float32"), (452, "float64"), (453, "float64"),
+    (460, "float64"), (624, "float64"), (625, "float64"), (700, "float64"),
+    (651, "float32"), (905, "float32"))}
 
 
 def _alpha_column_outputs(shape):
@@ -6187,14 +6379,16 @@ def _alpha_column_outputs(shape):
     return saved
 
 
-# K9's and K10's shapes above 64 rows that the one-block wide loop before
-# the column blocks ran (p <= 167 in float64, 237 in float32): (p, n_s,
-# dtype) by name
+# K9's and K10's shapes above 64 rows: those that the one-block wide loop
+# before the column blocks ran (p <= 167 in float64, 237 in float32), and
+# past eight blocks, where they took the device slabs (460 in clusters of
+# 9; 625, 671 and 905 in the device rows): (p, n_s, dtype) by name
 PHASE_SHAPES = {f"p{p}_ns{n_s}_{dt}": (p, n_s, dt) for p, n_s, dt in (
     (65, 10, "float64"), (100, 10, "float64"), (160, 10, "float64"),
     (166, 10, "float64"), (167, 10, "float64"), (100, 100, "float64"),
     (65, 10, "float32"), (100, 10, "float32"), (200, 10, "float32"),
-    (237, 10, "float32"), (100, 100, "float32"))}
+    (237, 10, "float32"), (100, 100, "float32"), (460, 10, "float64"),
+    (625, 10, "float64"), (671, 10, "float64"), (905, 10, "float32"))}
 
 
 def _phase_outputs(shape):
@@ -6503,9 +6697,10 @@ TIME_TABLES = {
     + (("past_paths", _past_path_times, {}),),
     # K9 and K10 (float64, n_s = 10) at p = 100 and 160, which the one-block
     # wide loop before the column blocks also ran, beside the kernels that
-    # share their column-block and device-slab bodies: K2, K3, K5 and K6 at
-    # p = 100 and 200, K2 at p = 460 and K3 at 490 (20 steps) in the device
-    # slabs, and the main path's K1 and K2 (float32)
+    # share their column-block bodies: K2, K3, K5 and K6 at p = 100 and
+    # 200, K2 at p = 460 and K3 at 490 (20 steps; clusters of 9 blocks,
+    # the device slabs before them), and the main path's K1 and K2
+    # (float32)
     "phase": (
         ("k1_main", _k1_case, dict(n=N_CPG, n_u=N_U, dtype_name="float32",
                                    timed=True)),
@@ -6522,9 +6717,38 @@ TIME_TABLES = {
                                     inner=2, n=50_000)),
        ("k3_p490", _glue_time, dict(kern="k3", p=490, n_s=N_S, dt="float64",
                                     steps=20, inner=2, n=50_000))),
+    # the column blocks past 8 blocks and the device rows past 16 (float64,
+    # n_s = 10; 20 steps), beside the parent's device slabs: K2, K9 and K5
+    # (B = 8) at p = 460 (9 blocks), K3, K10 and K6 at 490 (9), K2 and K9
+    # at 624 (16) and 625 (the device rows), K3 and K10 at 670 and 671, K2
+    # and K3 at p = 2000 (the device rows), and in float32 K2 and K9 at
+    # 905, K3 and K10 at 947 (the device rows); then the main path's K1
+    # and K2 and the column blocks at p = 100 and 200, which share the
+    # loops' bodies
+    "rows": tuple(
+        (f"{kern}_p{p}", _glue_time,
+         dict(kern=kern, p=p, n_s=N_S, dt="float64", steps=20,
+              inner=2 if p >= 2000 else 5, n=50_000))
+        for kern, p in (("k2", 460), ("k9", 460), ("k5", 460), ("k3", 490),
+                        ("k10", 490), ("k6", 490), ("k2", 624), ("k9", 624),
+                        ("k2", 625), ("k9", 625), ("k3", 670), ("k10", 670),
+                        ("k3", 671), ("k10", 671), ("k2", 2000),
+                        ("k3", 2000)))
+    + tuple((f"{kern}_p{p}_f32", _glue_time,
+             dict(kern=kern, p=p, n_s=N_S, dt="float32", steps=20, inner=5,
+                  n=50_000))
+            for kern, p in (("k2", 905), ("k9", 905), ("k3", 947),
+                            ("k10", 947)))
+    + (("k1_main", _k1_case, dict(n=N_CPG, n_u=N_U, dtype_name="float32",
+                                  timed=True)),
+       ("k2_main", _k2_case, dict(n_ct=N_CT, dtype_name="float32",
+                                  timed=True)))
+    + tuple((f"{kern}_p{p}", _glue_time,
+             dict(kern=kern, p=p, n_s=N_S, dt="float64"))
+            for p in (100, 200) for kern in ("k2", "k3", "k5", "k6")),
     # K9 and K10 where only the column blocks' tree runs them: p = 200
-    # (clusters of two), K9 at p = 460 and K10 at 490 (20 steps) in the
-    # device slabs; float64, n_s = 10
+    # (clusters of two), K9 at p = 460 and K10 at 490 (20 steps; clusters
+    # of 9, the device slabs before them); float64, n_s = 10
     "phase_new": (
         ("k9_p200", _glue_time, dict(kern="k9", p=200, n_s=N_S,
                                      dt="float64")),
@@ -6540,7 +6764,8 @@ TIME_TABLES = {
 
 def time_cases(root, table):
     """Times the cases of ``TIME_TABLES[table]`` ("global", "state",
-    "glue", "columns", "phase", "phase_new") with the tree at ``root``
+    "glue", "columns", "phase", "rows", "phase_new") with the tree at
+    ``root``
     and prints one JSON line: the card's
     ``nvidia-smi`` name and power limit and each case's result by name.
     For a parent/change comparison on one card run parent, change, change,
@@ -6731,23 +6956,24 @@ def time_k8(root="."):
 # bits); "no*" cut the row sum, the rank or the cumulative sum out of
 # the step, so their times (not their outputs) say what the piece costs
 _COL_SUM = "    for (int r = 0; r < p; ++r) ga += sg[r * rows + t] * a[r];"
-_COL_RANK = ("            for (int r = 0; r < p; ++r) {\n"
-             "                const T vr = vk[r];")
+_COL_RANK = ("                for (int r = 0; r < p; ++r) {\n"
+             "                    const T vr = peer_load<DEV>(vk + r);")
 _COL_CHAIN = ("        if (tid == 0) {\n"
               "            const T* __restrict__ u = srt;")
-_COL_V = ("            v = sat[q] + (b - column_row_dot(sg, sat, rows, tid, "
-          "p)) / l_h;")
+_COL_V = ("                v = sat[q] + (b_of(t) - column_row_dot(c.sg, sat, "
+          "rows, t, p))\n                                 / l_h;")
 _K2_SRC = "alpha_phase_full.cu"
+_STEPS_SRC = "column_steps.cuh"
 COLUMN_VARIANTS = {
     "base": None,
     "u8sum": ("small_common.cuh", _COL_SUM,
               "#pragma unroll 8\n" + _COL_SUM),
-    "u8rank": (_K2_SRC, _COL_RANK, "#pragma unroll 8\n" + _COL_RANK),
-    "nosum": (_K2_SRC, _COL_V, "            v = sat[q] + b / l_h;"),
-    "norank": (_K2_SRC, _COL_RANK, _COL_RANK.replace(
+    "u8rank": (_STEPS_SRC, _COL_RANK, "#pragma unroll 8\n" + _COL_RANK),
+    "nosum": (_STEPS_SRC, _COL_V, "                v = sat[q] + b_of(t) / l_h;"),
+    "norank": (_STEPS_SRC, _COL_RANK, _COL_RANK.replace(
         "for (int r = 0; r < p;", "rk = q; for (int r = 0; r < 0;")),
-    "nochain": (_K2_SRC, _COL_CHAIN, _COL_CHAIN.replace("tid == 0",
-                                                        "tid < 0")),
+    "nochain": (_STEPS_SRC, _COL_CHAIN, _COL_CHAIN.replace("tid == 0",
+                                                           "tid < 0")),
 }
 
 
@@ -6756,7 +6982,8 @@ def time_column_variants(cases=(("k2", 100, "float64"),
                                 ("k5", 200, "float64"),
                                 ("k2", 240, "float32"))):
     """K2's and K5's column blocks of this tree in each of
-    ``COLUMN_VARIANTS`` (``alpha_phase_full.cu`` and its headers rebuilt
+    ``COLUMN_VARIANTS`` (``alpha_phase_full.cu`` and its headers, the
+    step loops in ``column_steps.cuh``, rebuilt
     alone, one library a variant, loaded in place of the whole library
     for these calls) at ``cases`` (kernel, p, dtype; n_s = 10, B = 8 for K5, 20
     steps): ms a launch queued behind a device sleep, the smallest of
@@ -6774,7 +7001,8 @@ def time_column_variants(cases=(("k2", 100, "float64"),
     src_dir = os.path.join(HERE, "demethify_tpu_torch", "csrc")
     out_dir = os.path.join(_build.build_dir(), "column_variants")
     sources = {f: open(os.path.join(src_dir, f)).read()
-               for f in (_K2_SRC, "glue_steps.cuh", "small_common.cuh")}
+               for f in (_K2_SRC, _STEPS_SRC, "glue_steps.cuh",
+                         "small_common.cuh")}
     procs = {}
     for name, edit in COLUMN_VARIANTS.items():
         texts = dict(sources)
@@ -6799,10 +7027,10 @@ def time_column_variants(cases=(("k2", 100, "float64"),
         lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
-            fn.argtypes, fn.restype = [vp] * 12 + [ci] * 6 + [vp], ci
+            fn.argtypes, fn.restype = [vp] * 13 + [ci] * 6 + [vp], ci
             fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
             fn.argtypes = ([vp, ll] * 6 + [vp] * 2 + [ll, vp, ll] + [vp, ll]
-                           + [vp] * 2 + [ci] * 7 + [vp])
+                           + [vp] * 3 + [ci] * 7 + [vp])
             fn.restype = ci
         lib.dm_alpha_column_plan.argtypes = [ci, ci, vp]
         lib.dm_alpha_column_plan.restype = ll
@@ -7388,18 +7616,6 @@ def _envelope_rows(wide, k1_state, k4_state, glue, masks, folded,
                      "fw_phase{column blocks}"],
                  "its checks against the twin and K3 (no solver runs K10; "
                  "times: p=100, n_s=10, float64)"), redesigned=K3_COLUMNS),
-        row("alpha_phase{device slabs}", src + "alpha_phase.cu",
-            "demethify_tpu/ops/pallas_small.py:70 (p > 64, via :97)",
-            glue["k9 slabs"], glue["k9 slabs"]["check_launches"][
-                "alpha_phase{device slabs}"],
-            "its check against the twin and K2 (times: p=460, n_s=10, "
-            "float64)"),
-        row("fw_phase{device slabs}", src + "fw_phase.cu",
-            "demethify_tpu/ops/pallas_small.py:204 (p > 64, via :213)",
-            glue["k10 slabs"], glue["k10 slabs"]["check_launches"][
-                "fw_phase{device slabs}"],
-            "its check against the twin and K3 (times: p=490, n_s=10, "
-            "20 steps, float64)"),
         row("u_phase_grams{bf16_compute direct}", k1_src + ".cu",
             k1_at + " (bf16_compute direct fallback :299-311, via :499)",
             k1_bf16c_direct, k1_bf16c_direct["launches"],
@@ -7441,8 +7657,6 @@ def _global_rows(glob, past):
 
     k3_b = bound(*glue_work(200, N_S, 199, P_INNER, 8, fw=True), "float64")
     k3 = dict(glob["k3"], bound_ms=k3_b[0], bound_by=k3_b[1])
-    k3s_b = bound(*glue_work(490, N_S, 489, 20, 8, fw=True), "float64")
-    k3s = dict(glob["k3 slabs"], bound_ms=k3s_b[0], bound_by=k3s_b[1])
     return [
         row("u_phase_grams{global}", "u_phase_grams_global_f64.cu",
             k1_at + " (any p, via :499)", glob["k1"],
@@ -7485,28 +7699,60 @@ def _global_rows(glob, past):
                  glob["k6"], past["global purity restarts"][
                      "fw_phase_full_multi{column blocks}"],
                  "4 purity restarts 20k x 10, 205+4, float64 (times: p=200, "
-                 "B=8)"), redesigned=K3_COLUMNS),
-        row("alpha_phase_full{device slabs}", "alpha_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:261 (any p, via :299)",
-            glob["k2 slabs"], glob["k2 slabs"]["check_launches"][
-                "alpha_phase_full{device slabs}"],
-            "its check against the twin (no path runs p >= 453; times: "
-            "p=460, n_s=10, float64)"),
-        row("fw_phase_full{device slabs}", "fw_phase_full.cu",
-            "demethify_tpu/ops/pallas_small.py:636 (any p, via :653)", k3s,
-            glob["k3 slabs"]["check_launches"]["fw_phase_full{device slabs}"],
-            "its check against the twin (no path runs p >= 473; times: "
-            "p=490, n_s=10, 20 steps, float64)")]
+                 "B=8)"), redesigned=K3_COLUMNS)]
+
+
+def _column_rows_rows(col_rows):
+    """The kernels JSON line's rows of the glue kernels past 8 blocks a
+    column (no path runs them): clusters of 9-16 blocks, timed at p = 460
+    (K2, K9) and 490 (K3, K10), and the device rows past 16, timed at 625
+    and 671; float64, n_s = 10, 20 steps. ``launches`` counts each form's
+    launches in ``phase_column_rows``' checks (the column-block count
+    there is of clusters of 9-16 blocks only)."""
+    src = "demethify_tpu_torch/csrc/"
+    rows = []
+    for form, (pa, pf) in (("column blocks, 9-16 blocks", (460, 490)),
+                           ("device rows", (625, 671))):
+        counter = "device rows" if form == "device rows" else "column blocks"
+        for name, source, at, case, p in (
+                ("alpha_phase_full", "alpha_phase_full.cu",
+                 "pallas_small.py:261 (any p, via :299)", "k2", pa),
+                ("fw_phase_full", "fw_phase_full.cu",
+                 "pallas_small.py:636 (any p, via :653)", "k3", pf),
+                ("alpha_phase", "alpha_phase.cu",
+                 "pallas_small.py:70 (any p, via :97)", "k9", pa),
+                ("fw_phase", "fw_phase.cu",
+                 "pallas_small.py:204 (any p, via :213)", "k10", pf)):
+            res = col_rows[f"{case} p{p}"]
+            if case == "k3":
+                res = dict(res, **dict(zip(("bound_ms", "bound_by"), bound(
+                    *glue_work(p, N_S, p - 1, 20, 8, fw=True), "float64"))))
+            rows.append(dict(
+                {"name": f"{name}{{{form}}}", "route": "cuda",
+                 "source": src + source,
+                 "replaces": "demethify_tpu/ops/" + at,
+                 "launches": col_rows["launches"].get(
+                     f"{name}{{{counter}}}", 0),
+                 "max_abs_err": res["alpha_max_abs"], "ms": res["ms"],
+                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                 "bound_by": res["bound_by"], "library_ms": None,
+                 "path": f"its checks against the twin (no path runs p > "
+                         f"452; times: p={p}, n_s=10, 20 steps, float64)"},
+                redesigned=(K2_COLUMNS if case in ("k2", "k9")
+                            else K3_COLUMNS)))
+    return rows
 
 
 # what the kernels line says of the kernels this round redesigned
 K3_REDESIGN = ("row bucket P >= p; step sizes from a table; a warp per "
                "column over several blocks past 16 columns")
-K3_COLUMNS = ("p > 64: a block, or a cluster of up to 8 blocks, a column, "
-              "one row a thread, G_s rows in the blocks' shared memory, the "
+K3_COLUMNS = ("p > 64: a block, or a cluster of up to 16 blocks, a column, "
+              "one row a thread, G_s rows in the blocks' shared memory (past "
+              "16 blocks in device memory, up to 1024 threads a block), the "
               "minima folded through distributed shared memory")
-K2_COLUMNS = ("p > 64: a block, or a cluster of up to 8 blocks, a column, "
-              "one row a thread, G_s rows in the blocks' shared memory, v "
+K2_COLUMNS = ("p > 64: a block, or a cluster of up to 16 blocks, a column, "
+              "one row a thread, G_s rows in the blocks' shared memory (past "
+              "16 blocks in device memory, up to 1024 threads a block), v "
               "ranked across the cluster through distributed shared memory, "
               "one chain for the cumulative sum, the tests side by side")
 K4_REDESIGN = ("members in groups (k4_member_plan): steps back to back, "
@@ -7945,11 +8191,12 @@ LAUNCH_2D = ("import sys; from demethify_tpu_torch.cli import "
              "_run_shard_workers; sys.exit(_run_shard_workers(sys.argv[2:], "
              "int(sys.argv[1])))")
 # K1's main pass and K2's kernels by name in a trace (K2's register,
-# two-row, column-block and device-slab forms; K5 takes the same kernels
-# with a member grid, and runs on no path of this phase's profiled run)
+# two-row and column-block forms, the device rows among the last; K5
+# takes the same kernels with a member grid, and runs on no path of this
+# phase's profiled run)
 K1_KERNEL = "u_phase_grams_kernel"
 K2_KERNELS = ("alpha_phase_reg_kernel", "alpha_phase_two_row_kernel",
-              "alpha_phase_columns_kernel", "alpha_phase_slabs_kernel")
+              "alpha_phase_columns_kernel")
 
 
 def _same_csvs(a, b, what):
@@ -8916,6 +9163,7 @@ def main():
     k1_state, k4_state, state_cases = run_phase(phase_state_cols)
     glue = run_phase(phase_wide_glue)
     glob = run_phase(phase_global_kernels)
+    col_rows = run_phase(phase_column_rows)
     masks = run_phase(phase_masks)
     folded = run_phase(phase_rt_folded)
     k1_bf16c_direct = run_phase(phase_bf16c_direct, card)
@@ -9104,6 +9352,7 @@ def main():
         wide, k1_state, k4_state, glue, masks, folded, k1_bf16c_direct,
         mask_paths, env))
     kernels["kernels"].extend(_global_rows(glob, past))
+    kernels["kernels"].extend(_column_rows_rows(col_rows))
     kernels["kernels"].extend(_state_rows(state_cases, sweep))
     kernels["kernels"].extend(_single_phase_rows(single))
     for row in kernels["kernels"]:

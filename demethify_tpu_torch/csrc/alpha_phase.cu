@@ -23,16 +23,17 @@
 // (lane q holds rows q and q + 32, the warp's G_s in its slab of shared
 // memory at an odd row stride, the betas from a momentum table the block
 // builds once). Above 64 rows K2's column blocks (column_steps.cuh
-// alpha_column_steps): a block, or a thread-block cluster of C <= 8
+// alpha_column_steps): a block, or a thread-block cluster of C <= 16
 // blocks, a column, thread t of cluster block c owning row q = c R + t,
 // G_s's rows transposed in the blocks' shared memory, v ranked across
 // the cluster through distributed shared memory (K2's plan,
 // dm::alpha_column_plan: one block to p = 166 in float64, 237 in
-// float32). Past eight blocks (p >= 453 in float64, 651 in float32) K2's
-// device-slab loop: one block, each warp's column in its own slab of a
-// device buffer the wrapper allocates (dm_glue_work's elements), lane q
-// taking rows q, q + 32, ... (glue_steps.cuh alpha_steps_wide). Every
-// form gives the wide loop's bits above 64 rows, and no shape is refused.
+// float32, 16 to p = 624 and 904). Past 16 blocks K2's device rows: the
+// same loop with each block's rows of G_s in its region of a device
+// buffer the wrapper allocates (dm_alpha_column_work elements), up to
+// 1024 threads a block, the rows of p in shared memory while they fit.
+// Every form gives the one-warp wide loop's bits above 64 rows, and no
+// shape is refused.
 // The scalar chain the JAX wrapper replays on the host after the call
 // (pallas_small.py:137-142) is replayed by one thread on the device, so
 // the call reads nothing back: the scalars arrive in a small device vector
@@ -169,24 +170,27 @@ int launch_two_row(const void* G, const void* b, const void* alpha_in,
 namespace cg = cooperative_groups;
 
 // The column-block form (p > 64): cluster s of C = gridDim.x / n_s blocks
-// runs column s, block c of it rows [c R, c R + R), one a thread, in K2's
-// layout (dm::alpha_column_plan; the momentum table after the plan's
-// bytes where use_table). Block 0's thread 0 writes the scalar outputs.
-template <typename T>
-__global__ void __launch_bounds__(dm::kColumnThreads)
+// runs column s, block c of it rows [c R, c R + R), in K2's layout DEV
+// (dm::alpha_column_plan; G_s's rows in the block's region of `work`
+// past 16 blocks; the momentum table after the plan's bytes where
+// use_table). Block 0's thread 0 writes the scalar outputs.
+template <typename T, int DEV>
+__global__ void __launch_bounds__(dm::column_threads(DEV))
 alpha_phase_columns_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
         T* __restrict__ alpha, T* __restrict__ alpha_prev,
-        T* __restrict__ scal, const T* __restrict__ mask, int p, int n_s,
-        int n_steps, int rows, int use_table) {
+        T* __restrict__ scal, const T* __restrict__ mask,
+        T* __restrict__ work, int p, int n_s, int n_steps, int rows,
+        int use_table) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     cg::cluster_group cluster = cg::this_cluster();
     const int n_blocks = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
     const int s = blockIdx.x / n_blocks;
     const int tid = threadIdx.x;
     const int n_threads = blockDim.x;
-    const int q0 = static_cast<int>(cluster.block_rank()) * rows;
+    const int q0 = rank * rows;
     const int own = p - q0 < rows ? p - q0 : rows;
     const int q = q0 + tid;
     const bool row = tid < own;
@@ -195,7 +199,11 @@ alpha_phase_columns_kernel(
     const T l_h = scal[dm::kPhL];
     const T l_prev0 = scal[dm::kPhLPrev];
 
-    const dm::AlphaColumn<T> c(smem_raw, rows, p, use_table);
+    const dm::AlphaColumn<T> c = dm::alpha_column<DEV>(
+        smem_raw,
+        dm::column_region<DEV>(work, s, rank, n_blocks, rows, p,
+                               dm::kAlphaPRows, dm::kAlphaRRows),
+        rows, p, use_table);
     for (int k = tid; k < own * p; k += n_threads) {
         const int t = k / p;
         const int r = k - t * p;
@@ -206,58 +214,29 @@ alpha_phase_columns_kernel(
         c.sal[r] = alpha_in[r * n_s + s];
         c.sap[r] = alpha_prev_in[r * n_s + s];
     }
-    const T bq = row ? b[q * n_s + s] : T(0);
-    const bool masked = row && mask != nullptr && !(mask[q] > T(0));
-    dm::alpha_column_steps(cluster, c, bq, masked, row, q, p, rows, a0,
-                           l_prev0, l_h, n_steps);
-    if (row) {
-        alpha[q * n_s + s] = c.sal[q];
-        alpha_prev[q * n_s + s] = c.sap[q];
+    // row q0 + t's b and mask; the column blocks keep their one row's in
+    // registers, the device rows read them each step
+    auto b_of = [&](int t) { return b[(q0 + t) * n_s + s]; };
+    auto masked_of = [&](int t) {
+        return mask != nullptr && !(mask[q0 + t] > T(0));
+    };
+    const T bq = row ? b_of(tid) : T(0);
+    const bool masked = row && masked_of(tid);
+    dm::alpha_column_steps<DEV>(
+        cluster, c,
+        [&](int t) { return DEV == dm::kSharedRows ? bq : b_of(t); },
+        [&](int t) { return DEV == dm::kSharedRows ? masked : masked_of(t); },
+        own, q0, p, rows, a0, l_prev0, l_h, n_steps);
+    const int per = dm::rows_per_thread<DEV>(rows, n_threads);
+    for (int j = 0; j < per; ++j) {
+        const int t = tid + j * n_threads;
+        if (t < own) {
+            const int qq = q0 + t;
+            alpha[qq * n_s + s] = c.sal[qq];
+            alpha_prev[qq * n_s + s] = c.sap[qq];
+        }
     }
     if (blockIdx.x == 0 && tid == 0) dm::phase_scalars_out(scal, n_steps);
-}
-
-// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
-// block, each warp's column in its slab of the device buffer gslab,
-// warps looping over the columns
-template <typename T>
-__global__ void alpha_phase_slabs_kernel(
-        const T* __restrict__ G, const T* __restrict__ b,
-        const T* __restrict__ alpha_in, const T* __restrict__ alpha_prev_in,
-        T* __restrict__ alpha, T* __restrict__ alpha_prev,
-        T* __restrict__ scal, const T* __restrict__ mask,
-        T* __restrict__ gslab, int p, int n_s, int n_steps) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const T a0 = scal[dm::kPhA];
-    const T l_h = scal[dm::kPhL];
-    const T l_prev0 = scal[dm::kPhLPrev];
-    const long long pp = static_cast<long long>(p) * p;
-    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
-    T* sb = sg + pp;
-    T* sal = sb + p;
-    T* sap = sal + p;
-    T* sat = sap + p;
-    T* sv = sat + p;
-    T* srt = sv + p;
-    for (int s = warp; s < n_s; s += n_warps) {
-        for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
-        for (int q = lane; q < p; q += 32) {
-            sb[q] = b[q * n_s + s];
-            sal[q] = alpha_in[q * n_s + s];
-            sap[q] = alpha_prev_in[q * n_s + s];
-        }
-        __syncwarp();
-        dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, mask, lane, p,
-                             a0, l_prev0, l_h, n_steps);
-        for (int q = lane; q < p; q += 32) {
-            alpha[q * n_s + s] = sal[q];
-            alpha_prev[q * n_s + s] = sap[q];
-        }
-        __syncwarp();    // the slab is free for the next column
-    }
-    if (threadIdx.x == 0) dm::phase_scalars_out(scal, n_steps);
 }
 
 template <typename T, int P>
@@ -267,7 +246,8 @@ int launch_reg(const void* G, const void* b, const void* alpha_in,
                cudaStream_t stream) {
     auto kern = alpha_phase_kernel<T, P>;
     static const int max_warps = dm::max_block_warps(kern);
-    const int n_warps = dm::slab_warps(n_s, max_warps);
+    const int w = n_s < 32 ? n_s : 32;
+    const int n_warps = w < max_warps ? w : max_warps;
     kern<<<1, 32 * n_warps, 0, stream>>>(
         static_cast<const T*>(G), static_cast<const T*>(b),
         static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
@@ -276,39 +256,41 @@ int launch_reg(const void* G, const void* b, const void* alpha_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-// p > 64: K2's column blocks, or past eight blocks its device slabs in
-// `work` (min(n_s, 32) slabs, dm_glue_work)
+// p > 64: K2's column blocks in K2's layout, past 16 blocks its device
+// rows in `work` (dm_alpha_column_work elements)
+template <typename T, int DEV>
+int launch_columns(const void* G, const void* b, const void* alpha_in,
+                   const void* alpha_prev_in, void* alpha, void* alpha_prev,
+                   void* scal, const void* mask, void* work, int p, int n_s,
+                   int n_steps, const dm::ColumnPlan& plan,
+                   cudaStream_t stream) {
+    const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
+    const int use_table = dm::column_table_fits(plan, tab);
+    return dm::launch_column_blocks(
+        alpha_phase_columns_kernel<T, DEV>, plan, n_s, 1,
+        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0), stream,
+        static_cast<const T*>(G), static_cast<const T*>(b),
+        static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
+        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
+        static_cast<T*>(scal), static_cast<const T*>(mask),
+        static_cast<T*>(work), p, n_s, n_steps, plan.rows, use_table);
+}
+
 template <typename T>
 int launch_wide(const void* G, const void* b, const void* alpha_in,
                 const void* alpha_prev_in, void* alpha, void* alpha_prev,
                 void* scal, const void* mask, void* work, int p, int n_s,
                 int n_steps, cudaStream_t stream) {
     const dm::ColumnPlan plan = dm::alpha_column_plan(sizeof(T), p);
-    if (plan.blocks == 0) {
-        auto kern = alpha_phase_slabs_kernel<T>;
-        static const int max_warps = dm::max_block_warps(kern);
-        const int n_warps = dm::slab_warps(n_s, max_warps);
-        if (n_warps < 1 || work == nullptr)
-            return static_cast<int>(cudaErrorInvalidValue);
-        kern<<<1, 32 * n_warps, 0, stream>>>(
-            static_cast<const T*>(G), static_cast<const T*>(b),
-            static_cast<const T*>(alpha_in),
-            static_cast<const T*>(alpha_prev_in), static_cast<T*>(alpha),
-            static_cast<T*>(alpha_prev), static_cast<T*>(scal),
-            static_cast<const T*>(mask), static_cast<T*>(work), p, n_s,
-            n_steps);
-        return static_cast<int>(cudaGetLastError());
-    }
-    const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
-    const int use_table = dm::column_table_fits(plan, tab);
-    return dm::launch_column_blocks(
-        alpha_phase_columns_kernel<T>, plan, n_s, 1,
-        static_cast<size_t>(plan.bytes) + (use_table ? tab : 0), stream,
-        static_cast<const T*>(G), static_cast<const T*>(b),
-        static_cast<const T*>(alpha_in), static_cast<const T*>(alpha_prev_in),
-        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
-        static_cast<T*>(scal), static_cast<const T*>(mask), p, n_s, n_steps,
-        plan.rows, use_table);
+    if (plan.device != dm::kSharedRows && work == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K9_COLUMNS(DEV)                                                   \
+    launch_columns<T, DEV>(G, b, alpha_in, alpha_prev_in, alpha, alpha_prev, \
+                           scal, mask, work, p, n_s, n_steps, plan, stream)
+    if (plan.device == dm::kSharedRows) return DM_K9_COLUMNS(0);
+    if (plan.device == dm::kDeviceRows) return DM_K9_COLUMNS(1);
+    return DM_K9_COLUMNS(2);
+#undef DM_K9_COLUMNS
 }
 
 template <typename T>
@@ -342,8 +324,8 @@ extern "C" {
 
 // G (n_s, p, p), b (p, n_s), alpha/alpha_prev in and out (p, n_s), scal
 // the 5-slot scalar vector; mask: the (p,) row mask or NULL; work: the
-// device slabs' buffer past eight column blocks (dm_alpha_phase_plan form
-// 3; dm_glue_work elements), else unread
+// device rows' buffer past 16 column blocks (dm_alpha_phase_plan form 3;
+// dm_alpha_column_work elements), else unread
 int dm_alpha_phase_f32(const void* G, const void* b, const void* alpha_in,
                        const void* alpha_prev_in, void* alpha,
                        void* alpha_prev, void* scal, const void* mask,
@@ -364,9 +346,10 @@ int dm_alpha_phase_f64(const void* G, const void* b, const void* alpha_in,
 
 // K9's form at p rows of itemsize-byte values (dm::phase_plan on K2's
 // column plan): out[0] the form (0 register, 1 two-row, 2 column blocks,
-// 3 device slabs), out[1] the row bucket, out[2-4] the column blocks,
-// rows and threads; returns a block's dynamic shared memory before the
-// momentum table (ops/cuda_small.phase_plan is its Python copy)
+// 3 device rows), out[1] the row bucket, out[2-5] the column blocks, rows,
+// threads and where the values live; returns a block's dynamic shared
+// memory before the momentum table (ops/cuda_small.phase_plan is its
+// Python copy)
 long long dm_alpha_phase_plan(int itemsize, int p, int* out) {
     return dm::phase_plan(itemsize, p, dm::alpha_column_plan(itemsize, p),
                           out);

@@ -62,10 +62,10 @@
 // bank conflicts in the product); the product, the projection and the
 // member's grid are the register form's, extended to 64 rows, with the
 // cost summed by column_cost in the same fixed order. Its alpha and
-// alpha_prev are the wide form's bit for bit; the cost too wherever the
-// wide form's block held min(n_s, 32) warps. A block is one warp
-// holding one column: a step is bound by its SM's shuffle, FP64 and
-// issue throughput, so a column an SM is about the fastest.
+// alpha_prev are the column blocks' bit for bit; the cost too wherever
+// the one-block wide loop before them held min(n_s, 32) warps. A block
+// is one warp holding one column: a step is bound by its SM's shuffle,
+// FP64 and issue throughput, so a column an SM is about the fastest.
 // Above 64 rows the column-block form: each column of each member has a
 // thread block of its own (K5's members on the grid's y axis), or a
 // thread-block cluster of C blocks where one block's shared memory cannot
@@ -82,24 +82,24 @@
 // alpha, alpha_prev and a_t in every block alike, with the betas from the
 // block's momentum table where it fits after the plan's bytes.
 // Every value and every order is the one-warp wide loop's this form
-// replaced (glue_steps.cuh alpha_steps_wide: lane q taking rows q, q + 32,
-// ..., lane 0 taking the cumulative sum and rho alone), so alpha and
-// alpha_prev keep its bits. After the last step block 0 sums the
-// column's cost terms as that loop did (lane l over rows l, l + 32, ...,
-// then the shuffle-down tree), reading the other blocks' rows of b and
-// G_s alpha through distributed shared memory, and the member's last block
-// sums the columns in groups of that loop's warps (column_groups), so the
-// cost and l_w keep their bits as well. C is the fewest blocks whose
-// shared memory holds R rows of G_s and the seven rows of p the step
-// needs (dm::alpha_column_plan), at most 8, the portable cluster size:
-// one block to p = 166 in float64 (237 in float32), up to eight to
-// p = 452 (650).
-// Past eight blocks the device-slab loop stays: one block per member,
-// each warp's column (G_s, b_s, alpha, alpha_prev and work rows) in its
-// own slab of a device buffer the wrapper allocates (min(n_s, 32) slabs a
-// member, dm_glue_work), lane q taking rows q, q + 32, ..., the loop's
-// bits. A member's columns stay inside its own blocks, so each member's
-// arithmetic is K2's, bit for bit.
+// replaced (lane q taking rows q, q + 32, ..., lane 0 taking the
+// cumulative sum and rho alone), so alpha and alpha_prev keep its bits.
+// After the last step block 0 sums the column's cost terms as that loop
+// did (lane l over rows l, l + 32, ..., then the shuffle-down tree,
+// column_cost_terms), reading the other blocks' rows of b and G_s alpha
+// through distributed shared memory, and the member's last block sums
+// the columns in groups of that loop's warps (column_groups), so the cost
+// and l_w keep their bits as well. C is the fewest blocks whose shared
+// memory holds R rows of G_s and the seven rows of p the step needs
+// (dm::alpha_column_plan), at most 16, the largest cluster an H100
+// places: one block to p = 166 in float64 (237 in float32), up to 16 to
+// p = 624 (904). Past that the device rows: 16 blocks a column, each
+// block's R rows of G_s in its region of a device buffer the wrapper
+// allocates (dm_alpha_column_work elements a member), in the same
+// transposed layout, up to 1024 threads a block (a thread owning rows t,
+// t + 1024, ... past 16,384 rows), the rows of p in shared memory while
+// they fit (to p = 4,114 in float64, 8,228 in float32) and in the block's
+// region past that -- the same body and the same bits at every p.
 //
 // Row masks (the JAX kernels' row_mask / row_mask_b, pallas_small.py
 // :281-282, :409-410): a (p,) mask per member, or none; before each
@@ -334,7 +334,6 @@ namespace cg = cooperative_groups;
 
 using dm::ColumnPlan;
 using dm::column_row_dot;
-using dm::kColumnThreads;
 
 // The cost's group count (dm::column_groups): the wide loop's
 // device-slab kernels (K2's and K5's alike) took 128 registers a thread
@@ -351,15 +350,15 @@ int column_groups(int itemsize, int p, int n_s) {
 }
 
 // The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
-// runs column s of member mb, block c of it rows [c R, c R + R), one a
-// thread. Each block keeps its rows of G_s (transposed), its own copies
-// of alpha, alpha_prev and a_t, and the step's v, ranks and prefix sums
-// (dm::alpha_column_plan), then the momentum table where use_table; the
-// steps are column_steps.cuh alpha_column_steps. colsum (3, n_s) per
-// member and tickets[mb] as the register form's; `groups` is
-// column_groups.
-template <typename T, bool MULTI>
-__global__ void __launch_bounds__(kColumnThreads)
+// runs column s of member mb, block c of it rows [c R, c R + R), in
+// layout DEV (dm::alpha_column_plan's device): G_s's rows transposed in
+// the block's shared memory, or in its region of `work`, and its own
+// copies of alpha, alpha_prev and a_t, the step's v, ranks and prefix
+// sums, then the momentum table where use_table; the steps are
+// column_steps.cuh alpha_column_steps. colsum (3, n_s) per member and
+// tickets[mb] as the register form's; `groups` is column_groups.
+template <typename T, bool MULTI, int DEV>
+__global__ void __launch_bounds__(dm::column_threads(DEV))
 alpha_phase_columns_kernel(const T* __restrict__ gtt,
                            const T* __restrict__ bt,
                            const T* __restrict__ gu, const T* __restrict__ bu,
@@ -368,9 +367,10 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
                            T* __restrict__ alpha_prev, T* __restrict__ scal,
                            const T* __restrict__ mask,
                            T* __restrict__ colsum,
-                           unsigned* __restrict__ tickets, int n_s, int n_ct,
-                           int n_u, int n_steps, int rows, int groups,
-                           int use_table, dm::MemberStrides st) {
+                           unsigned* __restrict__ tickets,
+                           T* __restrict__ work, int n_s, int n_ct, int n_u,
+                           int n_steps, int rows, int groups, int use_table,
+                           dm::MemberStrides st) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     cg::cluster_group cluster = cg::this_cluster();
     const long long mb = MULTI ? blockIdx.y : 0;
@@ -389,7 +389,6 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
     const int warp = tid >> 5;
     const int q0 = rank * rows;                     // this block's rows
     const int own = p - q0 < rows ? p - q0 : rows;
-    const int q = q0 + tid;
     const bool row = tid < own;
     T* cs = colsum + mb * 3 * n_s;
 
@@ -397,7 +396,11 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
     const T l_h_prev0 = m.scal[dm::kLHPrev];
     const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
 
-    const dm::AlphaColumn<T> c(smem_raw, rows, p, use_table);
+    const dm::AlphaColumn<T> c = dm::alpha_column<DEV>(
+        smem_raw,
+        dm::column_region<DEV>(work, mb * n_s + s, rank, n_blocks, rows, p,
+                               dm::kAlphaPRows, dm::kAlphaRRows),
+        rows, p, use_table);
     // G_s's rows by the assembly rule of load_gram_row, read along r
     for (int k = tid; k < own * p; k += n_threads) {
         const int t = k / p;
@@ -416,121 +419,48 @@ alpha_phase_columns_kernel(const T* __restrict__ gtt,
         c.sal[r] = m.alpha[r * n_s + s];
         c.sap[r] = m.alpha_prev[r * n_s + s];
     }
-    const T b = row ? (q < n_ct ? m.bt[q * n_s + s]
-                                : m.bu[(q - n_ct) * n_s + s])
-                    : T(0);
-    const bool masked = row && m.mask != nullptr && !(m.mask[q] > T(0));
-    const T a_fin = dm::alpha_column_steps(cluster, c, b, masked, row, q, p,
-                                           rows, a0, l_h_prev0, l_h,
-                                           n_steps);
+    // row q0 + t's b and mask; the column blocks keep their one row's in
+    // registers, the device rows read them each step
+    auto b_of = [&](int t) {
+        const int qq = q0 + t;
+        return qq < n_ct ? m.bt[qq * n_s + s] : m.bu[(qq - n_ct) * n_s + s];
+    };
+    auto masked_of = [&](int t) {
+        return m.mask != nullptr && !(m.mask[q0 + t] > T(0));
+    };
+    const T b = row ? b_of(tid) : T(0);
+    const bool masked = row && masked_of(tid);
+    const T a_fin = dm::alpha_column_steps<DEV>(
+        cluster, c,
+        [&](int t) { return DEV == dm::kSharedRows ? b : b_of(t); },
+        [&](int t) { return DEV == dm::kSharedRows ? masked : masked_of(t); },
+        own, q0, p, rows, a0, l_h_prev0, l_h, n_steps);
 
-    // the column's cost terms in the wide loop's order: lane l over rows
-    // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide);
+    // the column's cost terms in the wide loop's order (column_cost_terms);
     // the rank rows are free now and hold b and G_s alpha of the rows
     T* sb = c.srt;
     T* sga = c.spi;
-    if (row) {
-        sga[tid] = column_row_dot(c.sg, c.sal, rows, tid, p);
-        sb[tid] = b;
-        m.alpha[q * n_s + s] = c.sal[q];
-        m.alpha_prev[q * n_s + s] = c.sap[q];
-    }
-    dm::column_sync(cluster, n_blocks);
-    if (rank == 0 && warp == 0) {
-        T ba = T(0), ag = T(0), lw = T(0);
-        for (int qq = lane; qq < p; qq += 32) {
-            const int cb = qq / rows;
-            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, cb) : sb;
-            const T* rga =
-                n_blocks > 1 ? cluster.map_shared_rank(sga, cb) : sga;
-            const T al = c.sal[qq];
-            const T bq = rb[qq - cb * rows];
-            const T ga = rga[qq - cb * rows];
-            ba += bq * al;
-            ag += al * (bq - ga);
-            if (qq >= p - n_u) lw += al * al;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            ba += __shfl_down_sync(dm::kFull, ba, off);
-            ag += __shfl_down_sync(dm::kFull, ag, off);
-            lw += __shfl_down_sync(dm::kFull, lw, off);
-        }
-        if (lane == 0) {
-            cs[s] = ba;
-            cs[n_s + s] = ag;
-            cs[2 * n_s + s] = lw;
+    const int per = dm::rows_per_thread<DEV>(rows, n_threads);
+    for (int j = 0; j < per; ++j) {
+        const int t = tid + j * n_threads;
+        if (t < own) {
+            const int qq = q0 + t;
+            sga[t] = column_row_dot(c.sg, c.sal, rows, t, p);
+            sb[t] = DEV == dm::kSharedRows ? b : b_of(t);
+            m.alpha[qq * n_s + s] = c.sal[qq];
+            m.alpha_prev[qq * n_s + s] = c.sap[qq];
         }
     }
-    // no block leaves while block 0 may still read its shared memory
+    dm::column_sync<DEV>(cluster, n_blocks);
+    if (rank == 0 && warp == 0)
+        dm::column_cost_terms<DEV>(cluster, n_blocks, c.stride, c.sal, sb,
+                                   sga, lane, rows, p, n_u, cs, s, n_s);
+    // no block leaves while block 0 may still read its copies
     if (n_blocks > 1) cluster.sync();
     T cost, lw;
     if (!dm::column_cost(cs, m.ydy, n_s, groups, tickets, mb, cost, lw))
         return;
     finish_member<T, MULTI>(m.scal, cost, lw, a_fin, l_h, n_steps);
-}
-
-// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
-// block per member, each warp's column in its slab of the device buffer
-// gslab (warp w of member block b at slab b * n_warps + w, min(n_s, 32)
-// slabs a member), warps looping over the columns; the cost summed per
-// warp, then over the warps in order (block_cost).
-template <typename T, bool MULTI>
-__global__ void alpha_phase_slabs_kernel(
-        const T* __restrict__ gtt, const T* __restrict__ bt,
-        const T* __restrict__ gu, const T* __restrict__ bu,
-        const T* __restrict__ usq, const T* __restrict__ ydy,
-        T* __restrict__ alpha, T* __restrict__ alpha_prev,
-        T* __restrict__ scal, const T* __restrict__ mask,
-        T* __restrict__ gslab, int n_s, int n_ct, int n_u, int n_steps,
-        dm::MemberStrides st) {
-    const Member<T> m = member<T, MULTI>(blockIdx.x, gtt, bt, gu, bu, usq,
-                                          ydy, alpha, alpha_prev, scal, mask,
-                                          st);
-    if constexpr (MULTI) {
-        if (m.scal[dm::kActive] == T(0)) return;     // uniform per block
-    }
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const int p = n_ct + n_u;
-
-    const T a0 = m.scal[dm::kAAlpha];
-    const T l_h_prev0 = m.scal[dm::kLHPrev];
-    const T l_h = (m.scal[dm::kRtSq] + m.usq[0]) * m.scal[dm::kDmax2];
-
-    T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
-    T* sb = sg + p * p;
-    T* sal = sb + p;
-    T* sap = sal + p;
-    T* sat = sap + p;
-    T* sv = sat + p;
-    T* srt = sv + p;
-    for (int s = warp; s < n_s; s += n_warps) {
-        dm::load_gram_wide(sg, sb, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s,
-                           n_ct, n_u);
-        for (int q = lane; q < p; q += 32) {
-            sal[q] = m.alpha[q * n_s + s];
-            sap[q] = m.alpha_prev[q * n_s + s];
-        }
-        __syncwarp();
-        dm::alpha_steps_wide(sg, sb, sal, sap, sat, sv, srt, m.mask, lane, p,
-                             a0, l_h_prev0, l_h, n_steps);
-        dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba, sum_ag,
-                                 sum_lw);
-        for (int q = lane; q < p; q += 32) {
-            m.alpha[q * n_s + s] = sal[q];
-            m.alpha_prev[q * n_s + s] = sap[q];
-        }
-        __syncwarp();    // the slab is free for the next column
-    }
-    T cost, lw;
-    if (dm::block_cost(sum_ba, sum_ag, sum_lw, m.ydy, n_s, cost, lw)) {
-        T a = a0;
-        for (int step = 0; step < n_steps; ++step) a = dm::nesterov(a);
-        finish_member<T, MULTI>(m.scal, cost, lw, a, l_h, n_steps);
-    }
 }
 
 template <typename T, bool MULTI, int P>
@@ -586,22 +516,22 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The column-block form: a cluster of plan.blocks blocks a column, the
-// momentum table after the plan's bytes where it fits
-// (dm::launch_column_blocks)
-template <typename T, bool MULTI>
+// The column-block form in layout DEV: a cluster of plan.blocks blocks a
+// column, the momentum table after the plan's bytes where it fits
+// (dm::launch_column_blocks); `work` the device rows' buffer
+template <typename T, bool MULTI, int DEV>
 int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* usq, const void* ydy,
                    void* alpha, void* alpha_prev, void* scal,
-                   const void* mask, void* colsum, void* tickets, int n_s,
-                   int n_ct, int n_u, int n_steps, int n_members,
-                   dm::MemberStrides st, cudaStream_t stream) {
+                   const void* mask, void* colsum, void* tickets, void* work,
+                   int n_s, int n_ct, int n_u, int n_steps, int n_members,
+                   const ColumnPlan& plan, dm::MemberStrides st,
+                   cudaStream_t stream) {
     const int p = n_ct + n_u;
-    const ColumnPlan plan = dm::alpha_column_plan(sizeof(T), p);
     const size_t tab = (static_cast<size_t>(n_steps) + 1) * sizeof(T);
     const int use_table = dm::column_table_fits(plan, tab);
     return dm::launch_column_blocks(
-        alpha_phase_columns_kernel<T, MULTI>, plan, n_s,
+        alpha_phase_columns_kernel<T, MULTI, DEV>, plan, n_s,
         MULTI ? n_members : 1,
         static_cast<size_t>(plan.bytes) + (use_table ? tab : 0), stream,
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
@@ -609,61 +539,39 @@ int launch_columns(const void* gtt, const void* bt, const void* gu,
         static_cast<const T*>(usq), static_cast<const T*>(ydy),
         static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
         static_cast<T*>(scal), static_cast<const T*>(mask),
-        static_cast<T*>(colsum), static_cast<unsigned*>(tickets), n_s, n_ct,
-        n_u, n_steps, plan.rows, column_groups(sizeof(T), p, n_s),
-        use_table, st);
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets),
+        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, plan.rows,
+        column_groups(sizeof(T), p, n_s), use_table, st);
 }
 
-// The device-slab loop: min(n_s, 32) warps a member, capped by the
-// kernel's registers and by the warps the loop took before the column
-// blocks (kSlabLoopWarps*, so that its cost keeps their order), each with
-// its slab in the device buffer `work`
-template <typename T, bool MULTI>
-int launch_slabs(const void* gtt, const void* bt, const void* gu,
-                 const void* bu, const void* usq, const void* ydy,
-                 void* alpha, void* alpha_prev, void* scal, const void* mask,
-                 void* work, int n_s, int n_ct, int n_u, int n_steps,
-                 int n_members, dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = alpha_phase_slabs_kernel<T, MULTI>;
-    static const int max_warps = dm::max_block_warps(kern);
-    const int cap = sizeof(T) == 8 ? kSlabLoopWarps64 : kSlabLoopWarps32;
-    const int n_warps =
-        dm::slab_warps(n_s, max_warps < cap ? max_warps : cap);
-    if (n_warps < 1 || work == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-    kern<<<n_members, 32 * n_warps, 0, stream>>>(
-        static_cast<const T*>(gtt), static_cast<const T*>(bt),
-        static_cast<const T*>(gu), static_cast<const T*>(bu),
-        static_cast<const T*>(usq), static_cast<const T*>(ydy),
-        static_cast<T*>(alpha), static_cast<T*>(alpha_prev),
-        static_cast<T*>(scal), static_cast<const T*>(mask),
-        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, st);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// p > 64: the column blocks, or past eight blocks the device slabs; else
-// the register form at row bucket `bucket` (8, 16 or 32, >= p) with
-// `cols` columns a block, or the two-row form at bucket 64 (a column a
-// block)
+// p > 64: the column blocks, or past 16 blocks the device rows (their
+// buffer `work`); else the register form at row bucket `bucket` (8, 16
+// or 32, >= p) with `cols` columns a block, or the two-row form at bucket
+// 64 (a column a block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* usq, const void* ydy, void* alpha, void* alpha_prev,
            void* scal, const void* mask, void* colsum, void* tickets,
-           int n_s, int n_ct, int n_u, int n_steps, int bucket, int cols,
-           int n_members, dm::MemberStrides st, void* stream) {
+           void* work, int n_s, int n_ct, int n_u, int n_steps, int bucket,
+           int cols, int n_members, dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP && dm::alpha_column_plan(sizeof(T), p).blocks == 0)
-        return launch_slabs<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                      alpha_prev, scal, mask, colsum, n_s,
-                                      n_ct, n_u, n_steps, n_members, st, s);
     if (colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (p > dm::kTwoRowP)
-        return launch_columns<T, MULTI>(gtt, bt, gu, bu, usq, ydy, alpha,
-                                        alpha_prev, scal, mask, colsum,
-                                        tickets, n_s, n_ct, n_u, n_steps,
-                                        n_members, st, s);
+    if (p > dm::kTwoRowP) {
+        const ColumnPlan plan = dm::alpha_column_plan(sizeof(T), p);
+        if (plan.device != dm::kSharedRows && work == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K2_COLUMNS(DEV)                                                   \
+    launch_columns<T, MULTI, DEV>(gtt, bt, gu, bu, usq, ydy, alpha,          \
+                                  alpha_prev, scal, mask, colsum, tickets,   \
+                                  work, n_s, n_ct, n_u, n_steps, n_members,  \
+                                  plan, st, s)
+        if (plan.device == dm::kSharedRows) return DM_K2_COLUMNS(0);
+        if (plan.device == dm::kDeviceRows) return DM_K2_COLUMNS(1);
+        return DM_K2_COLUMNS(2);
+#undef DM_K2_COLUMNS
+    }
     if (p > bucket) return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
         return bucket != dm::kTwoRowP
@@ -691,23 +599,22 @@ extern "C" {
 
 // mask: the (p,) row mask (rows <= 0 pushed to -1e30 before each
 // projection) or NULL; colsum (3, n_s) and tickets (1, zero) the
-// per-column cost terms and finished-block count (the register, two-row
-// and column-block forms); past eight column blocks (dm_alpha_column_plan)
-// tickets is unread and colsum is the device slabs' work buffer,
-// min(n_s, 32) slabs of p x p + 6 p values per member (dm_glue_work);
-// bucket the register and two-row forms' row bucket and cols the register
-// form's columns a block (ops/cuda_small.alpha_plan; unread in the
-// two-row form, a column a block, and above 64 rows)
+// per-column cost terms and finished-block count; work the device rows'
+// buffer past 16 column blocks (dm_alpha_column_plan's device; its
+// dm_alpha_column_work elements), else unread; bucket the register and
+// two-row forms' row bucket and cols the register form's columns a block
+// (ops/cuda_small.alpha_plan; unread in the two-row form, a column a
+// block, and above 64 rows)
 #define DM_K2_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* usq, const void* ydy, void* alpha,  \
              void* alpha_prev, void* scal, const void* mask, void* colsum,   \
-             void* tickets, int n_s, int n_ct, int n_u, int n_steps,         \
-             int bucket, int cols, void* stream) {                           \
+             void* tickets, void* work, int n_s, int n_ct, int n_u,          \
+             int n_steps, int bucket, int cols, void* stream) {              \
         return launch<T, false>(gtt, bt, gu, bu, usq, ydy, alpha,            \
                                 alpha_prev, scal, mask, colsum, tickets,     \
-                                n_s, n_ct, n_u, n_steps, bucket, cols, 1,    \
-                                dm::MemberStrides{}, stream);                \
+                                work, n_s, n_ct, n_u, n_steps, bucket, cols, \
+                                1, dm::MemberStrides{}, stream);             \
     }
 DM_K2_ENTRY(dm_alpha_phase_full_f32, float)
 DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
@@ -715,8 +622,8 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
 // K5: B members, member b's operands at b times the given element strides
 // (gtt, bt, ydy: 0 when the members share them); scal_stride is the
 // scalar row length; mask: the members' (B, p) row masks (row stride
-// mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's
-// (past eight column blocks, colsum the work buffer of B members).
+// mask_stride) or NULL; colsum (B, 3, n_s) and tickets (B, zero) as K2's;
+// work the device rows' buffer of B members, as K2's.
 #define DM_K5_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
@@ -724,15 +631,15 @@ DM_K2_ENTRY(dm_alpha_phase_full_f64, double)
              long long usq_stride, const void* ydy, long long ydy_stride,    \
              void* alpha, void* alpha_prev, long long alpha_stride,          \
              void* scal, long long scal_stride, const void* mask,            \
-             long long mask_stride, void* colsum, void* tickets, int n_s,    \
-             int n_ct, int n_u, int n_steps, int bucket, int cols,           \
+             long long mask_stride, void* colsum, void* tickets, void* work, \
+             int n_s, int n_ct, int n_u, int n_steps, int bucket, int cols,  \
              int n_members, void* stream) {                                  \
         const dm::MemberStrides st{gtt_stride,   bt_stride,  ydy_stride,     \
                                    gu_stride,    bu_stride,  usq_stride,     \
                                    alpha_stride, scal_stride, mask_stride};  \
         return launch<T, true>(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, \
-                               scal, mask, colsum, tickets, n_s, n_ct, n_u,  \
-                               n_steps, bucket, cols, n_members, st,         \
+                               scal, mask, colsum, tickets, work, n_s, n_ct, \
+                               n_u, n_steps, bucket, cols, n_members, st,    \
                                stream);                                      \
     }
 DM_K5_ENTRY(dm_alpha_phase_full_multi_f32, float)
@@ -749,9 +656,8 @@ int dm_two_row_stride(int p) { return dm::two_row_stride(p); }
 // bytes: 0 in the register form (p <= 32); in the two-row form the slab
 // of a block's one column (the momentum or step-size table follows it
 // where it fits); above 64 rows the one-block wide loop's slabs, which
-// the column blocks replaced (dm_alpha_column_plan, dm_fw_column_plan)
-// and whose warps their cost's groups keep (above the card's limit when
-// one warp's slab does not fit).
+// the column blocks replaced and whose warps their cost's groups keep
+// (above the card's limit when one warp's slab does not fit).
 long long dm_glue_smem(int itemsize, int p, int n_s) {
     if (p <= kMaxP) return 0;
     if (p <= dm::kTwoRowP)
@@ -760,27 +666,47 @@ long long dm_glue_smem(int itemsize, int p, int n_s) {
     return (w < 1 ? 1 : w) * dm::glue_warp_elems(p) * itemsize;
 }
 
-// Elements of the device slabs' work buffer per member at p rows and
-// n_s columns, which the glue kernels take past eight column blocks: 0
-// where the wide form's slabs fit shared memory (or p <= 64), else
-// min(n_s, 32) slabs in device memory.
-long long dm_glue_work(int itemsize, int p, int n_s) {
-    if (p <= dm::kTwoRowP || dm::glue_warps(itemsize, p, n_s) >= 1)
-        return 0;
-    return (n_s < 32 ? n_s : 32) * dm::glue_warp_elems(p);
-}
-
 // K2's and K5's column-block plan at p > 64 rows of itemsize-byte values:
-// out[0] blocks a column (0: the device slabs), out[1] rows a block,
-// out[2] threads a block; returns the block's dynamic shared memory
-// before the momentum table, in bytes (ops/cuda_small.alpha_column_plan
-// is its Python copy)
+// out[0] blocks a column, out[1] rows a block, out[2] threads a block,
+// out[3] where its values live (0 shared memory, 1 G_s's rows in device
+// memory, 2 all in device memory); returns the block's dynamic shared
+// memory before the momentum table, in bytes
+// (ops/cuda_small.alpha_column_plan is its Python copy)
 long long dm_alpha_column_plan(int itemsize, int p, int* out) {
     const ColumnPlan plan = dm::alpha_column_plan(itemsize, p);
     out[0] = plan.blocks;
     out[1] = plan.rows;
     out[2] = plan.threads;
+    out[3] = plan.device;
     return plan.bytes;
+}
+
+// Elements of the device rows' buffer a member at p rows and n_s columns
+// (K2, K5, K9: 0 in the column blocks)
+long long dm_alpha_column_work(int itemsize, int p, int n_s) {
+    const ColumnPlan plan = dm::alpha_column_plan(itemsize, p);
+    return static_cast<long long>(n_s) * plan.blocks
+           * dm::column_block_elems(plan.device, plan.rows, p,
+                                    dm::kAlphaPRows, dm::kAlphaRRows);
+}
+
+// What the card gives K2's column kernel at p rows (its layout there):
+// out[0] the largest cluster it would place, out[1] the clusters of the
+// plan's blocks it holds at once (dm::column_capacity)
+int dm_alpha_column_capacity(int itemsize, int p, int* out) {
+    const ColumnPlan plan = dm::alpha_column_plan(itemsize, p);
+    const size_t smem = static_cast<size_t>(plan.bytes);
+#define DM_K2_CAPACITY(T)                                                    \
+    (plan.device == dm::kSharedRows                                          \
+         ? dm::column_capacity(alpha_phase_columns_kernel<T, false, 0>,      \
+                               plan, smem, out)                              \
+         : plan.device == dm::kDeviceRows                                    \
+               ? dm::column_capacity(alpha_phase_columns_kernel<T, false, 1>,\
+                                     plan, smem, out)                        \
+               : dm::column_capacity(alpha_phase_columns_kernel<T, false, 2>,\
+                                     plan, smem, out))
+    return itemsize == 8 ? DM_K2_CAPACITY(double) : DM_K2_CAPACITY(float);
+#undef DM_K2_CAPACITY
 }
 
 // The groups in which K2's and K5's column blocks sum the columns

@@ -26,15 +26,16 @@
 // a column (lane q holds rows q and q + 32, the warp's G_s in its slab of
 // shared memory at an odd row stride). Above 64 rows K3's column blocks
 // (column_steps.cuh fw_column_steps): a block, or a thread-block cluster
-// of C <= 8 blocks, a column, thread t of cluster block c owning row
+// of C <= 16 blocks, a column, thread t of cluster block c owning row
 // q = c R + t, G_s's rows transposed in the blocks' shared memory, the
 // warps' minima folded through distributed shared memory (K3's plan,
-// dm::fw_column_plan: one block to p = 168 in float64, 239 in float32).
-// Past eight blocks (p >= 473 in float64, 673 in float32) K3's
-// device-slab loop: one block, each warp's column in its own slab of a
-// device buffer the wrapper allocates (dm_glue_work's elements), lane q
-// taking rows q, q + 32, ... (glue_steps.cuh fw_steps_wide). Every form
-// gives the wide loop's bits above 64 rows, and no shape is refused.
+// dm::fw_column_plan: one block to p = 168 in float64, 239 in float32,
+// 16 to p = 670 and 946). Past 16 blocks K3's device rows: the same loop
+// with each block's rows of G_s in its region of a device buffer the
+// wrapper allocates (dm_fw_column_work elements), up to 1024 threads a
+// block, a thread's rows' b and gradients in K3's rows of R values.
+// Every form gives the one-warp wide loop's bits above 64 rows, and no
+// shape is refused.
 // alpha1 and alpha2 are read from their inputs and written to separate
 // outputs, so the inputs stay as they were and no stacked copy is made.
 //
@@ -159,28 +160,34 @@ namespace cg = cooperative_groups;
 
 // The column-block form (p > 64): cluster s of C = gridDim.x / n_s blocks
 // runs column s, block c of it rows [c R, c R + R), one a thread, in K3's
-// layout (dm::fw_column_plan).
-template <typename T>
-__global__ void __launch_bounds__(dm::kColumnThreads)
+// layout DEV (dm::fw_column_plan; G_s's rows in the block's region of
+// `work` past 16 blocks, with the rows' b and gradients).
+template <typename T, int DEV>
+__global__ void __launch_bounds__(dm::column_threads(DEV))
 fw_phase_columns_kernel(
         const T* __restrict__ G, const T* __restrict__ b,
         const T* __restrict__ a1_in, const T* __restrict__ a2_in,
         T* __restrict__ a1, T* __restrict__ a2,
-        const T* __restrict__ purity, int p, int p1, int n_s, int n_steps,
-        int rows) {
+        const T* __restrict__ purity, T* __restrict__ work, int p, int p1,
+        int n_s, int n_steps, int rows) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     cg::cluster_group cluster = cg::this_cluster();
     const int n_blocks = static_cast<int>(cluster.num_blocks());
     const int s = blockIdx.x / n_blocks;
     const int tid = threadIdx.x;
-    const int q0 = static_cast<int>(cluster.block_rank()) * rows;
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int q0 = rank * rows;
     const int own = p - q0 < rows ? p - q0 : rows;
     const int q = q0 + tid;
     const bool row = tid < own;
     const long long pp = static_cast<long long>(p) * p;
 
-    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
-    T* sal = sg + rows * p;                         // alpha (p)
+    T* region = dm::column_region<DEV>(work, s, rank, n_blocks, rows, p,
+                                       dm::kFwPRows, dm::kFwRRows);
+    T* sg = dm::column_gram<DEV>(smem_raw, region);  // rows x p, transposed
+    T* sal = dm::column_line<DEV>(smem_raw, region, rows, p);  // alpha (p)
+    T* sb = sal + p;                                // the rows' b (DEV)
+    T* sgr = sb + rows;                             // their gradients (DEV)
     for (int k = tid; k < own * p; k += blockDim.x) {
         const int t = k / p;
         const int r = k - t * p;
@@ -189,50 +196,24 @@ fw_phase_columns_kernel(
     for (int r = tid; r < p; r += blockDim.x)
         sal[r] = alpha_at(a1_in, a2_in, r, s, p1, n_s);
     const T bq = row ? b[q * n_s + s] : T(0);
+    if constexpr (DEV != dm::kSharedRows) {
+        for (int t = tid; t < own; t += blockDim.x)
+            sb[t] = b[(q0 + t) * n_s + s];
+    }
     const T pur = purity[s];
-    __shared__ dm::WarpMin<T> red[2][dm::kColumnThreads / 32];
+    __shared__ dm::WarpMin<T> red[2][dm::column_threads(DEV) / 32];
     __syncthreads();
-    dm::fw_column_steps(cluster, n_blocks, red, sg, sal, bq, row, q < p1, q0,
-                        tid, tid & 31, tid >> 5,
-                        static_cast<int>(blockDim.x >> 5), p, rows, pur,
-                        T(1) - pur, n_steps);
-    if (row) alpha_at(a1, a2, q, s, p1, n_s) = sal[q];
+    dm::fw_column_steps<T, DEV>(cluster, n_blocks, red, sg, sal, bq, row,
+                                q < p1, q0, tid, tid & 31, tid >> 5,
+                                static_cast<int>(blockDim.x >> 5), p, rows,
+                                pur, T(1) - pur, n_steps, sb, sgr, own, p1);
+    const int per = dm::rows_per_thread<DEV>(rows, blockDim.x);
+    for (int j = 0; j < per; ++j) {
+        const int t = tid + j * static_cast<int>(blockDim.x);
+        if (t < own) alpha_at(a1, a2, q0 + t, s, p1, n_s) = sal[q0 + t];
+    }
     // no block leaves while another may still read its last minima
     if (n_blocks > 1) cluster.sync();
-}
-
-// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
-// block, each warp's column in its slab of the device buffer gslab,
-// warps looping over the columns
-template <typename T>
-__global__ void fw_phase_slabs_kernel(
-        const T* __restrict__ G, const T* __restrict__ b,
-        const T* __restrict__ a1_in, const T* __restrict__ a2_in,
-        T* __restrict__ a1, T* __restrict__ a2,
-        const T* __restrict__ purity, T* __restrict__ gslab, int p, int p1,
-        int n_s, int n_steps) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const long long pp = static_cast<long long>(p) * p;
-    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
-    T* sb = sg + pp;
-    T* sal = sb + p;
-    T* sgr = sal + p;
-    for (int s = warp; s < n_s; s += n_warps) {
-        for (long long k = lane; k < pp; k += 32) sg[k] = G[s * pp + k];
-        for (int q = lane; q < p; q += 32) {
-            sb[q] = b[q * n_s + s];
-            sal[q] = alpha_at(a1_in, a2_in, q, s, p1, n_s);
-        }
-        __syncwarp();
-        const T pur = purity[s];
-        dm::fw_steps_wide(sg, sb, sal, sgr, lane, p, p1, pur, T(1) - pur,
-                          n_steps);
-        for (int q = lane; q < p; q += 32)
-            alpha_at(a1, a2, q, s, p1, n_s) = sal[q];
-        __syncwarp();    // the slab is free for the next column
-    }
 }
 
 template <typename T, int P>
@@ -241,7 +222,8 @@ int launch_reg(const void* G, const void* b, const void* a1_in,
                int p, int p1, int n_s, int n_steps, cudaStream_t stream) {
     auto kern = fw_phase_kernel<T, P>;
     static const int max_warps = dm::max_block_warps(kern);
-    const int n_warps = dm::slab_warps(n_s, max_warps);
+    const int w = n_s < 32 ? n_s : 32;
+    const int n_warps = w < max_warps ? w : max_warps;
     const size_t tab = static_cast<size_t>(n_steps) * sizeof(T);
     const int use_table = tab <= kTabSmem;
     kern<<<1, 32 * n_warps, use_table ? tab : 0, stream>>>(
@@ -252,35 +234,37 @@ int launch_reg(const void* G, const void* b, const void* a1_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-// p > 64: K3's column blocks, or past eight blocks its device slabs in
-// `work` (min(n_s, 32) slabs, dm_glue_work)
+// p > 64: K3's column blocks in K3's layout, past 16 blocks its device
+// rows in `work` (dm_fw_column_work elements)
+template <typename T, int DEV>
+int launch_columns(const void* G, const void* b, const void* a1_in,
+                   const void* a2_in, void* a1, void* a2, const void* purity,
+                   void* work, int p, int p1, int n_s, int n_steps,
+                   const dm::ColumnPlan& plan, cudaStream_t stream) {
+    return dm::launch_column_blocks(
+        fw_phase_columns_kernel<T, DEV>, plan, n_s, 1,
+        static_cast<size_t>(plan.bytes), stream, static_cast<const T*>(G),
+        static_cast<const T*>(b), static_cast<const T*>(a1_in),
+        static_cast<const T*>(a2_in), static_cast<T*>(a1),
+        static_cast<T*>(a2), static_cast<const T*>(purity),
+        static_cast<T*>(work), p, p1, n_s, n_steps, plan.rows);
+}
+
 template <typename T>
 int launch_wide(const void* G, const void* b, const void* a1_in,
                 const void* a2_in, void* a1, void* a2, const void* purity,
                 void* work, int p, int p1, int n_s, int n_steps,
                 cudaStream_t stream) {
     const dm::ColumnPlan plan = dm::fw_column_plan(sizeof(T), p);
-    if (plan.blocks == 0) {
-        auto kern = fw_phase_slabs_kernel<T>;
-        static const int max_warps = dm::max_block_warps(kern);
-        const int n_warps = dm::slab_warps(n_s, max_warps);
-        if (n_warps < 1 || work == nullptr)
-            return static_cast<int>(cudaErrorInvalidValue);
-        kern<<<1, 32 * n_warps, 0, stream>>>(
-            static_cast<const T*>(G), static_cast<const T*>(b),
-            static_cast<const T*>(a1_in), static_cast<const T*>(a2_in),
-            static_cast<T*>(a1), static_cast<T*>(a2),
-            static_cast<const T*>(purity), static_cast<T*>(work), p, p1,
-            n_s, n_steps);
-        return static_cast<int>(cudaGetLastError());
-    }
-    return dm::launch_column_blocks(
-        fw_phase_columns_kernel<T>, plan, n_s, 1,
-        static_cast<size_t>(plan.bytes), stream, static_cast<const T*>(G),
-        static_cast<const T*>(b), static_cast<const T*>(a1_in),
-        static_cast<const T*>(a2_in), static_cast<T*>(a1),
-        static_cast<T*>(a2), static_cast<const T*>(purity), p, p1, n_s,
-        n_steps, plan.rows);
+    if (plan.device != dm::kSharedRows && work == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K10_COLUMNS(DEV)                                                  \
+    launch_columns<T, DEV>(G, b, a1_in, a2_in, a1, a2, purity, work, p, p1,  \
+                           n_s, n_steps, plan, stream)
+    if (plan.device == dm::kSharedRows) return DM_K10_COLUMNS(0);
+    if (plan.device == dm::kDeviceRows) return DM_K10_COLUMNS(1);
+    return DM_K10_COLUMNS(2);
+#undef DM_K10_COLUMNS
 }
 
 template <typename T>
@@ -314,9 +298,9 @@ int launch(const void* G, const void* b, const void* a1_in,
 extern "C" {
 
 // G (n_s, p, p), b (p, n_s), alpha1 (p1, n_s) and alpha2 (p - p1, n_s)
-// in and out, purity (n_s,); work: the device slabs' buffer past eight
-// column blocks (dm_fw_phase_plan form 3; dm_glue_work elements), else
-// unread
+// in and out, purity (n_s,); work: the device rows' buffer past 16
+// column blocks (dm_fw_phase_plan form 3; dm_fw_column_work elements),
+// else unread
 int dm_fw_phase_f32(const void* G, const void* b, const void* a1_in,
                     const void* a2_in, void* a1, void* a2,
                     const void* purity, void* work, int p, int p1, int n_s,

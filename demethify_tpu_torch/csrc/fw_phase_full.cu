@@ -58,9 +58,9 @@
 // block's minimum is the lanes' minimum over their two rows then a
 // butterfly, its first row comes from two ballots, the step sizes from
 // the table, and each column has its own block (K6's members on the
-// grid's y axis), the cost summed by column_cost: alpha is the wide
-// form's bit for bit, the cost too wherever the wide form's block held
-// min(n_s, 32) warps.
+// grid's y axis), the cost summed by column_cost: alpha is the column
+// blocks' bit for bit, the cost too wherever the one-block wide loop
+// before them held min(n_s, 32) warps.
 // Above 64 rows the column-block form: each column of each member has a
 // thread block of its own (K6's members on the grid's y axis), or a
 // thread-block cluster of C blocks where one block's shared memory cannot
@@ -88,13 +88,16 @@
 // columns in groups of that loop's warps (column_groups), so the cost and
 // l_w keep their bits as well. C is the fewest blocks whose shared memory
 // holds R rows of G_s, alpha and two rows of R (dm::fw_column_plan), at
-// most 8,
-// the portable cluster size: one block to p = 168 in float64 (239 in
-// float32), up to eight to p = 472 (672). Past eight blocks the
-// device-slab loop stays: one block per member, each warp's column (G_s,
-// b_s, alpha and the gradient) in its own slab of the device buffer
-// `work` (K2's layout, dm_glue_work), lane q taking rows q, q + 32, ...,
-// with the same bits.
+// most 16, the largest cluster an H100 places: one block to p = 168 in
+// float64 (239 in float32), up to 16 to p = 670 (946). Past that the
+// device rows: 16 blocks a column, each block's R rows of G_s in its
+// region of a device buffer the wrapper allocates (dm_fw_column_work
+// elements a member), in the same transposed layout, up to 1024 threads a
+// block (a thread owning rows t, t + 1024, ... past 16,384 rows, its
+// gradients in the row of R values that holds G_s alpha for the cost),
+// alpha and the rows of R values in shared memory while they fit (to
+// p = 25,600 in float64, 51,200 in float32) and in the block's region
+// past that -- the same body and the same bits at every p.
 
 // Device scalars `scal` (shared with K1 and K4; one row per member):
 // kLW and kCost (written), kDmax2 (read). K6 (MULTI) skips a member
@@ -266,7 +269,6 @@ namespace cg = cooperative_groups;
 
 using dm::ColumnPlan;
 using dm::column_row_dot;
-using dm::kColumnThreads;
 
 // The cost's group count (dm::column_groups): the wide loop's kernels
 // allowed 1024 threads a block in every instantiation but the float64
@@ -278,20 +280,21 @@ int column_groups(int itemsize, int p, int n_s) {
 
 // The column-block form: cluster (s, mb) of C = gridDim.x / n_s blocks
 // runs column s of member mb, block c of it rows [c R, c R + R)
-// (dm::fw_column_plan), the steps column_steps.cuh fw_column_steps; colsum
-// (3, n_s) per member receives each column's cost terms and tickets[mb]
-// counts the member's finished blocks, as the register form's; `groups`
-// is column_groups.
-template <typename T, bool MULTI>
-__global__ void __launch_bounds__(kColumnThreads)
+// (dm::fw_column_plan), in layout DEV: G_s's rows in the block's shared
+// memory, or in its region of `work`; the steps column_steps.cuh
+// fw_column_steps; colsum (3, n_s) per member receives each column's cost
+// terms and tickets[mb] counts the member's finished blocks, as the
+// register form's; `groups` is column_groups.
+template <typename T, bool MULTI, int DEV>
+__global__ void __launch_bounds__(dm::column_threads(DEV))
 fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
                         const T* __restrict__ gu, const T* __restrict__ bu,
                         const T* __restrict__ ydy, T* __restrict__ alpha,
                         const T* __restrict__ purity, T* __restrict__ scal,
                         T* __restrict__ colsum,
-                        unsigned* __restrict__ tickets, int n_s, int n_ct,
-                        int n_u, int n_steps, int rows, int groups,
-                        dm::MemberStrides st) {
+                        unsigned* __restrict__ tickets, T* __restrict__ work,
+                        int n_s, int n_ct, int n_u, int n_steps, int rows,
+                        int groups, dm::MemberStrides st) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     cg::cluster_group cluster = cg::this_cluster();
     const long long mb = MULTI ? blockIdx.y : 0;
@@ -315,10 +318,17 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
     T* cs = colsum + mb * 3 * n_s;
     const T dmax2 = m.scal[dm::kDmax2];
 
-    T* sg = reinterpret_cast<T*>(smem_raw);         // rows x p, transposed
-    T* sal = sg + rows * p;                         // alpha (p)
+    T* region = dm::column_region<DEV>(work, mb * n_s + s, rank, n_blocks,
+                                       rows, p, dm::kFwPRows, dm::kFwRRows);
+    T* sg = dm::column_gram<DEV>(smem_raw, region);  // rows x p, transposed
+    T* sal = dm::column_line<DEV>(smem_raw, region, rows, p);  // alpha (p)
     T* sb = sal + p;                                // b of the block's rows
     T* sga = sb + rows;                             // (G_s alpha) of them
+    const long long stride =
+        DEV == dm::kDeviceColumn
+            ? dm::column_block_elems(DEV, rows, p, dm::kFwPRows,
+                                     dm::kFwRRows)
+            : 0;
     // G_s's rows by the assembly rule of load_gram_row, read along r
     for (int k = tid; k < own * p; k += blockDim.x) {
         const int t = k / p;
@@ -334,105 +344,45 @@ fw_phase_columns_kernel(const T* __restrict__ gtt, const T* __restrict__ bt,
         sg[r * rows + t] = x;
     }
     for (int r = tid; r < p; r += blockDim.x) sal[r] = m.alpha[r * n_s + s];
-    const T b = row ? (known ? m.bt[q * n_s + s] : m.bu[(q - n_ct) * n_s + s])
-                    : T(0);
+    auto b_of = [&](int t) {
+        const int qq = q0 + t;
+        return qq < n_ct ? m.bt[qq * n_s + s] : m.bu[(qq - n_ct) * n_s + s];
+    };
+    const T b = row ? b_of(tid) : T(0);
+    const int per = dm::rows_per_thread<DEV>(rows, blockDim.x);
+    if constexpr (DEV != dm::kSharedRows) {     // the rows' b, once
+        for (int t = tid; t < own; t += blockDim.x) sb[t] = b_of(t);
+    }
     const T pur = purity[s];
-    __shared__ dm::WarpMin<T> red[2][kColumnThreads / 32];
+    __shared__ dm::WarpMin<T> red[2][dm::column_threads(DEV) / 32];
     __syncthreads();
-    dm::fw_column_steps(cluster, n_blocks, red, sg, sal, b, row, known, q0,
-                        tid, lane, warp, static_cast<int>(blockDim.x >> 5), p,
-                        rows, pur, T(1) - pur, n_steps);
+    dm::fw_column_steps<T, DEV>(cluster, n_blocks, red, sg, sal, b, row,
+                                known, q0, tid, lane, warp,
+                                static_cast<int>(blockDim.x >> 5), p, rows,
+                                pur, T(1) - pur, n_steps, sb, sga, own,
+                                n_ct);
 
-    // the column's cost terms in the wide loop's order: lane l over rows
-    // l, l + 32, ..., then the shuffle-down tree (add_column_sums_wide)
-    if (row) {
-        sga[tid] = column_row_dot(sg, sal, rows, tid, p);
-        sb[tid] = b;
-        m.alpha[q * n_s + s] = sal[q];
-    }
-    dm::column_sync(cluster, n_blocks);
-    if (rank == 0 && warp == 0) {
-        T ba = T(0), ag = T(0), lw = T(0);
-        for (int qq = lane; qq < p; qq += 32) {
-            const int c = qq / rows;
-            const T* rb = n_blocks > 1 ? cluster.map_shared_rank(sb, c) : sb;
-            const T* rga =
-                n_blocks > 1 ? cluster.map_shared_rank(sga, c) : sga;
-            const T a = sal[qq];
-            const T bq = rb[qq - c * rows];
-            const T ga = rga[qq - c * rows];
-            ba += bq * a;
-            ag += a * (bq - ga);
-            if (qq >= p - n_u) lw += a * a;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            ba += __shfl_down_sync(dm::kFull, ba, off);
-            ag += __shfl_down_sync(dm::kFull, ag, off);
-            lw += __shfl_down_sync(dm::kFull, lw, off);
-        }
-        if (lane == 0) {
-            cs[s] = ba;
-            cs[n_s + s] = ag;
-            cs[2 * n_s + s] = lw;
+    // the column's cost terms in the wide loop's order (column_cost_terms)
+    for (int j = 0; j < per; ++j) {
+        const int t = tid + j * static_cast<int>(blockDim.x);
+        if (t < own) {
+            const int qq = q0 + t;
+            sga[t] = column_row_dot(sg, sal, rows, t, p);
+            if (DEV == dm::kSharedRows) sb[t] = b;
+            m.alpha[qq * n_s + s] = sal[qq];
         }
     }
-    // no block leaves while block 0 may still read its shared memory
+    dm::column_sync<DEV>(cluster, n_blocks);
+    if (rank == 0 && warp == 0)
+        dm::column_cost_terms<DEV>(cluster, n_blocks, stride, sal, sb, sga,
+                                   lane, rows, p, n_u, cs, s, n_s);
+    // no block leaves while block 0 may still read its rows
     if (n_blocks > 1) cluster.sync();
     T cost, lw;
     if (!dm::column_cost(cs, m.ydy, n_s, groups, tickets, mb, cost, lw))
         return;
     m.scal[dm::kLW] = lw * dmax2;
     dm::set_cost<MULTI>(m.scal, cost);
-}
-
-// The device-slab loop (p > 64 where eight blocks cannot hold G_s): one
-// block per member, each warp's column in its slab of the device buffer
-// gslab (min(n_s, 32) slabs a member, K2's layout), warps looping over
-// the columns; the cost summed per warp, then over the warps in order
-// (block_cost).
-template <typename T, bool MULTI>
-__global__ void fw_phase_slabs_kernel(
-        const T* __restrict__ gtt, const T* __restrict__ bt,
-        const T* __restrict__ gu, const T* __restrict__ bu,
-        const T* __restrict__ ydy, T* __restrict__ alpha,
-        const T* __restrict__ purity, T* __restrict__ scal,
-        T* __restrict__ gslab, int n_s, int n_ct, int n_u, int n_steps,
-        dm::MemberStrides st) {
-    const Member<T> m = member<T, MULTI>(blockIdx.x, gtt, bt, gu, bu, ydy,
-                                          alpha, scal, st);
-    if constexpr (MULTI) {
-        if (m.scal[dm::kActive] == T(0)) return;     // uniform per block
-    }
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const int p = n_ct + n_u;
-    const T dmax2 = m.scal[dm::kDmax2];
-
-    T sum_ba = T(0), sum_ag = T(0), sum_lw = T(0);
-    T* sg = dm::warp_slab(gslab, warp, n_warps, p);
-    T* sb = sg + p * p;
-    T* sal = sb + p;
-    T* sgr = sal + p;
-    for (int s = warp; s < n_s; s += n_warps) {
-        dm::load_gram_wide(sg, sb, m.gtt, m.bt, m.gu, m.bu, s, lane, n_s,
-                           n_ct, n_u);
-        for (int q = lane; q < p; q += 32) sal[q] = m.alpha[q * n_s + s];
-        __syncwarp();
-        const T pur = purity[s];
-        dm::fw_steps_wide(sg, sb, sal, sgr, lane, p, n_ct, pur, T(1) - pur,
-                          n_steps);
-        dm::add_column_sums_wide(sg, sb, sal, lane, p, n_u, sum_ba, sum_ag,
-                                 sum_lw);
-        for (int q = lane; q < p; q += 32) m.alpha[q * n_s + s] = sal[q];
-        __syncwarp();    // the slab is free for the next column
-    }
-    T cost, lw;
-    if (dm::block_cost(sum_ba, sum_ag, sum_lw, m.ydy, n_s, cost, lw)) {
-        m.scal[dm::kLW] = lw * dmax2;
-        dm::set_cost<MULTI>(m.scal, cost);
-    }
 }
 
 template <typename T, bool MULTI, int P>
@@ -484,72 +434,55 @@ int launch_two_row(const void* gtt, const void* bt, const void* gu,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The column-block form: a cluster of plan.blocks blocks a column
-// (dm::launch_column_blocks)
-template <typename T, bool MULTI>
+// The column-block form in layout DEV: a cluster of plan.blocks blocks a
+// column (dm::launch_column_blocks); `work` the device rows' buffer
+template <typename T, bool MULTI, int DEV>
 int launch_columns(const void* gtt, const void* bt, const void* gu,
                    const void* bu, const void* ydy, void* alpha,
                    const void* purity, void* scal, void* colsum,
-                   void* tickets, int n_s, int n_ct, int n_u, int n_steps,
-                   int n_members, dm::MemberStrides st,
-                   cudaStream_t stream) {
+                   void* tickets, void* work, int n_s, int n_ct, int n_u,
+                   int n_steps, int n_members, const ColumnPlan& plan,
+                   dm::MemberStrides st, cudaStream_t stream) {
     const int p = n_ct + n_u;
-    const ColumnPlan plan = dm::fw_column_plan(sizeof(T), p);
     return dm::launch_column_blocks(
-        fw_phase_columns_kernel<T, MULTI>, plan, n_s, MULTI ? n_members : 1,
-        static_cast<size_t>(plan.bytes), stream, static_cast<const T*>(gtt),
-        static_cast<const T*>(bt), static_cast<const T*>(gu),
-        static_cast<const T*>(bu), static_cast<const T*>(ydy),
-        static_cast<T*>(alpha), static_cast<const T*>(purity),
-        static_cast<T*>(scal), static_cast<T*>(colsum),
-        static_cast<unsigned*>(tickets), n_s, n_ct, n_u, n_steps, plan.rows,
-        column_groups(sizeof(T), p, n_s), st);
-}
-
-// The device-slab loop: min(n_s, 32) warps a member, capped by the
-// kernel's registers, each with its slab in the device buffer `work`
-template <typename T, bool MULTI>
-int launch_slabs(const void* gtt, const void* bt, const void* gu,
-                 const void* bu, const void* ydy, void* alpha,
-                 const void* purity, void* scal, void* work, int n_s,
-                 int n_ct, int n_u, int n_steps, int n_members,
-                 dm::MemberStrides st, cudaStream_t stream) {
-    auto kern = fw_phase_slabs_kernel<T, MULTI>;
-    static const int max_warps = dm::max_block_warps(kern);
-    const int n_warps = dm::slab_warps(n_s, max_warps);
-    if (n_warps < 1 || work == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-    kern<<<n_members, 32 * n_warps, 0, stream>>>(
+        fw_phase_columns_kernel<T, MULTI, DEV>, plan, n_s,
+        MULTI ? n_members : 1, static_cast<size_t>(plan.bytes), stream,
         static_cast<const T*>(gtt), static_cast<const T*>(bt),
         static_cast<const T*>(gu), static_cast<const T*>(bu),
         static_cast<const T*>(ydy), static_cast<T*>(alpha),
         static_cast<const T*>(purity), static_cast<T*>(scal),
-        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, st);
-    return static_cast<int>(cudaGetLastError());
+        static_cast<T*>(colsum), static_cast<unsigned*>(tickets),
+        static_cast<T*>(work), n_s, n_ct, n_u, n_steps, plan.rows,
+        column_groups(sizeof(T), p, n_s), st);
 }
 
-// p > 64: the column blocks, or past eight blocks the device slabs;
-// else the register form at row bucket `bucket` (8, 16 or 32, >= p) with
-// `cols` columns a block, or the two-row form at bucket 64 (a column a
-// block)
+// p > 64: the column blocks, or past 16 blocks the device rows (their
+// buffer `work`); else the register form at row bucket `bucket` (8, 16 or
+// 32, >= p) with `cols` columns a block, or the two-row form at bucket 64
+// (a column a block)
 template <typename T, bool MULTI>
 int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
            const void* ydy, void* alpha, const void* purity, void* scal,
-           void* colsum, void* tickets, int n_s, int n_ct, int n_u,
-           int n_steps, int bucket, int cols, int n_members,
+           void* colsum, void* tickets, void* work, int n_s, int n_ct,
+           int n_u, int n_steps, int bucket, int cols, int n_members,
            dm::MemberStrides st, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int p = n_ct + n_u;
-    if (p > dm::kTwoRowP && dm::fw_column_plan(sizeof(T), p).blocks == 0)
-        return launch_slabs<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
-                                      scal, colsum, n_s, n_ct, n_u, n_steps,
-                                      n_members, st, s);
     if (colsum == nullptr || tickets == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (p > dm::kTwoRowP)
-        return launch_columns<T, MULTI>(gtt, bt, gu, bu, ydy, alpha, purity,
-                                        scal, colsum, tickets, n_s, n_ct,
-                                        n_u, n_steps, n_members, st, s);
+    if (p > dm::kTwoRowP) {
+        const ColumnPlan plan = dm::fw_column_plan(sizeof(T), p);
+        if (plan.device != dm::kSharedRows && work == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+#define DM_K3_COLUMNS(DEV)                                                   \
+    launch_columns<T, MULTI, DEV>(gtt, bt, gu, bu, ydy, alpha, purity, scal, \
+                                  colsum, tickets, work, n_s, n_ct, n_u,     \
+                                  n_steps, n_members, plan, st, s)
+        if (plan.device == dm::kSharedRows) return DM_K3_COLUMNS(0);
+        if (plan.device == dm::kDeviceRows) return DM_K3_COLUMNS(1);
+        return DM_K3_COLUMNS(2);
+#undef DM_K3_COLUMNS
+    }
     if (p > bucket) return static_cast<int>(cudaErrorInvalidValue);
     if (p > kMaxP)
         return bucket != dm::kTwoRowP
@@ -576,58 +509,87 @@ int launch(const void* gtt, const void* bt, const void* gu, const void* bu,
 extern "C" {
 
 // colsum (3, n_s) and tickets (1, zero) the per-column cost terms and
-// finished-block count (the register, two-row and column-block forms);
-// past eight column blocks (dm_fw_column_plan) tickets is unread and
-// colsum the device slabs' work buffer, as K2's (dm_glue_work); bucket
-// and cols the plan as K2's (ops/cuda_small.alpha_plan; unread above
-// 32 rows but the two-row form's bucket)
+// finished-block count; work the device rows' buffer past 16 column
+// blocks (dm_fw_column_plan's device; its dm_fw_column_work elements),
+// else unread; bucket and cols the plan as K2's (ops/cuda_small.alpha_plan;
+// unread above 32 rows but the two-row form's bucket)
 #define DM_K3_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, const void* bt, const void* gu,                \
              const void* bu, const void* ydy, void* alpha,                   \
              const void* purity, void* scal, void* colsum, void* tickets,    \
-             int n_s, int n_ct, int n_u, int n_steps, int bucket, int cols,  \
-             void* stream) {                                                 \
+             void* work, int n_s, int n_ct, int n_u, int n_steps,            \
+             int bucket, int cols, void* stream) {                           \
         return launch<T, false>(gtt, bt, gu, bu, ydy, alpha, purity, scal,   \
-                                colsum, tickets, n_s, n_ct, n_u, n_steps,    \
-                                bucket, cols, 1, dm::MemberStrides{},        \
-                                stream);                                     \
+                                colsum, tickets, work, n_s, n_ct, n_u,       \
+                                n_steps, bucket, cols, 1,                    \
+                                dm::MemberStrides{}, stream);                \
     }
 DM_K3_ENTRY(dm_fw_phase_full_f32, float)
 DM_K3_ENTRY(dm_fw_phase_full_f64, double)
 
 // K6: B members, member b's operands at b times the given element strides
 // (gtt, bt, ydy: 0 when the members share them; purity shared);
-// scal_stride is the scalar row length; colsum (B, 3, n_s) and tickets
-// (B, zero) as K3's.
+// scal_stride is the scalar row length; colsum (B, 3, n_s), tickets
+// (B, zero) and work (B members' rows) as K3's.
 #define DM_K6_ENTRY(NAME, T)                                                 \
     int NAME(const void* gtt, long long gtt_stride, const void* bt,          \
              long long bt_stride, const void* gu, long long gu_stride,       \
              const void* bu, long long bu_stride, const void* ydy,           \
              long long ydy_stride, void* alpha, long long alpha_stride,      \
              const void* purity, void* scal, long long scal_stride,          \
-             void* colsum, void* tickets, int n_s, int n_ct, int n_u,        \
-             int n_steps, int bucket, int cols, int n_members,               \
+             void* colsum, void* tickets, void* work, int n_s, int n_ct,     \
+             int n_u, int n_steps, int bucket, int cols, int n_members,      \
              void* stream) {                                                 \
         const dm::MemberStrides st{gtt_stride, bt_stride,    ydy_stride,     \
                                    gu_stride,  bu_stride,    0,              \
                                    alpha_stride, scal_stride, 0};            \
         return launch<T, true>(gtt, bt, gu, bu, ydy, alpha, purity, scal,    \
-                               colsum, tickets, n_s, n_ct, n_u, n_steps,     \
-                               bucket, cols, n_members, st, stream);         \
+                               colsum, tickets, work, n_s, n_ct, n_u,        \
+                               n_steps, bucket, cols, n_members, st,         \
+                               stream);                                      \
     }
 DM_K6_ENTRY(dm_fw_phase_full_multi_f32, float)
 DM_K6_ENTRY(dm_fw_phase_full_multi_f64, double)
 
 // K3's and K6's column-block plan at p > 64 rows of itemsize-byte values:
-// out[0] blocks a column (0: the device slabs), out[1] rows a block,
-// out[2] threads a block; returns the block's dynamic shared memory in
-// bytes (ops/cuda_small.fw_column_plan is its Python copy)
+// out[0] blocks a column, out[1] rows a block, out[2] threads a block,
+// out[3] where its values live (as dm_alpha_column_plan's); returns the
+// block's dynamic shared memory in bytes (ops/cuda_small.fw_column_plan
+// is its Python copy)
 long long dm_fw_column_plan(int itemsize, int p, int* out) {
     const ColumnPlan plan = dm::fw_column_plan(itemsize, p);
     out[0] = plan.blocks;
     out[1] = plan.rows;
     out[2] = plan.threads;
+    out[3] = plan.device;
     return plan.bytes;
+}
+
+// Elements of the device rows' buffer a member at p rows and n_s columns
+// (K3, K6, K10: 0 in the column blocks)
+long long dm_fw_column_work(int itemsize, int p, int n_s) {
+    const ColumnPlan plan = dm::fw_column_plan(itemsize, p);
+    return static_cast<long long>(n_s) * plan.blocks
+           * dm::column_block_elems(plan.device, plan.rows, p, dm::kFwPRows,
+                                    dm::kFwRRows);
+}
+
+// What the card gives K3's column kernel at p rows (its layout there), as
+// dm_alpha_column_capacity's
+int dm_fw_column_capacity(int itemsize, int p, int* out) {
+    const ColumnPlan plan = dm::fw_column_plan(itemsize, p);
+    const size_t smem = static_cast<size_t>(plan.bytes);
+#define DM_K3_CAPACITY(T)                                                    \
+    (plan.device == dm::kSharedRows                                          \
+         ? dm::column_capacity(fw_phase_columns_kernel<T, false, 0>, plan,   \
+                               smem, out)                                    \
+         : plan.device == dm::kDeviceRows                                    \
+               ? dm::column_capacity(fw_phase_columns_kernel<T, false, 1>,   \
+                                     plan, smem, out)                        \
+               : dm::column_capacity(fw_phase_columns_kernel<T, false, 2>,   \
+                                     plan, smem, out))
+    return itemsize == 8 ? DM_K3_CAPACITY(double) : DM_K3_CAPACITY(float);
+#undef DM_K3_CAPACITY
 }
 
 // The groups in which the column blocks' cost sums the columns

@@ -11,25 +11,22 @@
 //   - the Frank-Wolfe steps with the first-occurrence block argmin (the
 //     plain form of ops/frank_wolfe.frank_wolfe_gram).
 //
-// Three forms each, as small_common.cuh lays them out: lane q holds row q
-// of the column and of its Gram matrix in registers (p <= 32); lane q
+// Two forms each, as small_common.cuh lays them out: lane q holds row q
+// of the column and of its Gram matrix in registers (p <= 32); or lane q
 // holds rows q and q + 32 of the column in registers and the warp's slab
-// of shared memory holds the Gram matrix (the two-row form, p <= 64); or,
-// above, the column lives in the warp's slab of a device buffer and lane
-// q takes rows q, q + 32, ... (the wide form, every glue kernel's past
-// eight column blocks; below that they run a column on a block or a
-// cluster of blocks, column_steps.cuh, with the wide form's values),
-// with the register form's arithmetic in the same order.
+// of shared memory holds the Gram matrix (the two-row form, p <= 64).
+// Above 64 rows a column runs on a block or a cluster of blocks
+// (column_steps.cuh), with the same values.
 //
 // The two-row form is the register form's dataflow over 64 rows: the
 // product broadcasts alpha_r by shuffle and reads G_s at a padded row
 // stride (no bank conflicts), the projection ranks, gathers and tests in
 // the lanes (no lane works alone), Frank-Wolfe reads its step sizes from
 // the table, and nothing goes through shared memory between the stages.
-// Its values are the wide form's, bit for bit: each lane sums its rows
-// over r in index order, the rank is stable by comparison, the cumulative
-// sum runs in rank order and rho is the last index, and a block minimum
-// compares equal to the wide form's.
+// Its values are those of a loop over the rows in index order, bit for
+// bit: each lane sums its rows over r in index order, the rank is stable
+// by comparison, the cumulative sum runs in rank order and rho is the
+// last index, and a block minimum compares equal to the 32-lane one.
 //
 // What bounds the register form on an H100: latency. A step is a chain of
 // warp collectives (the product's shuffles, the rank's shuffles, a ballot
@@ -188,8 +185,9 @@ __device__ __forceinline__ void alpha_steps_reg(
 // cumulative sum in rank order, run in every lane, each lane keeping
 // ranks q and q + 32; each rank's test in its own lane, its division
 // included; rho the last rank whose test holds, from the two halves'
-// ballots (rank 0 when none does). The values, and their order, are
-// simplex_theta_wide's. Returns the projected rows (0 for a missing one).
+// ballots (rank 0 when none does). The values, and their order, are the
+// column blocks' (column_steps.cuh alpha_column_steps). Returns the
+// projected rows (0 for a missing one).
 template <typename T>
 __device__ __forceinline__ void project_simplex_two_row(T v0, T v1, int lane,
                                                         int p, T& out0,
@@ -253,7 +251,7 @@ __device__ __forceinline__ void project_simplex_two_row(T v0, T v1, int lane,
 // rows q and q + 32 of b_s (b0, b1), alpha (al0, al1) and alpha_prev (ap0,
 // ap1), updated in place; masked0/masked1 set the lane's rows to -1e30
 // before each projection. beta_tab as alpha_steps_reg's. Each step is the
-// wide form's arithmetic on the same values in the same order.
+// column blocks' arithmetic on the same values in the same order.
 template <typename T>
 __device__ __forceinline__ void alpha_steps_two_row(
         const T* __restrict__ sg, T b0, T b1, T& al0, T& al1, T& ap0, T& ap1,
@@ -286,85 +284,6 @@ __device__ __forceinline__ void alpha_steps_two_row(
         ap1 = al1;
         al0 = o0;
         al1 = o1;
-    }
-}
-
-// The same projection for the wide form: column v (p values) in this
-// warp's slab row sv; srt is a work row. Ranks as above (lane q takes rows
-// q, q + 32, ...), the cumulative sum and rho in lane 0 in rank order, so
-// each step is the register form's arithmetic in the same order. Returns
-// theta in every lane (NaN where the column holds a NaN).
-template <typename T>
-__device__ __forceinline__ T simplex_theta_wide(const T* __restrict__ sv,
-                                                T* __restrict__ srt,
-                                                int lane, int p) {
-    bool nan_row = false;
-    for (int q = lane; q < p; q += 32) {
-        const T v = sv[q];
-        int rank = 0;
-        for (int r = 0; r < p; ++r) {
-            const T vr = sv[r];
-            rank += (vr > v) || (vr == v && r < q);
-        }
-        nan_row |= v != v;
-        srt[rank] = v;
-    }
-    const bool nan_col = __any_sync(kFull, nan_row);
-    __syncwarp();
-    T theta = T(0);
-    if (lane == 0) {
-        T csum = T(0), pi_rho = T(0);
-        int rho = 0;
-        for (int j = 0; j < p; ++j) {
-            const T uj = srt[j];
-            csum += uj;
-            const T pi = csum - T(1);
-            if (j == 0) pi_rho = pi;
-            if ((uj - pi / T(j + 1)) > T(0)) {
-                rho = j;
-                pi_rho = pi;
-            }
-        }
-        theta = pi_rho / T(rho + 1);
-    }
-    __syncwarp();            // srt is free again
-    return __shfl_sync(kFull, theta, 0) + (nan_col ? quiet_nan<T>() : T(0));
-}
-
-// One column's alpha FISTA loop in the wide form (p > 64): the slab holds
-// G (sg), b (sb), alpha (sal), alpha_prev (sap) and the work rows at
-// (sat), v (sv) and the sorted values (srt). ``mask`` is the (p,) row
-// mask or null.
-template <typename T>
-__device__ __forceinline__ void alpha_steps_wide(
-        const T* __restrict__ sg, const T* __restrict__ sb,
-        T* __restrict__ sal, T* __restrict__ sap, T* __restrict__ sat,
-        T* __restrict__ sv, T* __restrict__ srt,
-        const T* __restrict__ mask, int lane, int p, T a, T l_prev,
-        const T l_h, int n_steps) {
-    for (int step = 0; step < n_steps; ++step) {
-        const T a2n = nesterov(a);
-        const T beta = min_nan((a - T(1)) / a2n,
-                               T(0.9999) * sqrt_t(l_prev / l_h));
-        for (int q = lane; q < p; q += 32)
-            sat[q] = sal[q] + beta * (sal[q] - sap[q]);
-        __syncwarp();
-        for (int q = lane; q < p; q += 32) {
-            const T ga = gram_row_dot(sg, sat, q, p);
-            T v = sat[q] + (sb[q] - ga) / l_h;
-            if (mask != nullptr && !(mask[q] > T(0))) v = T(-1e30);
-            sv[q] = v;
-        }
-        __syncwarp();
-        const T theta = simplex_theta_wide(sv, srt, lane, p);
-        for (int q = lane; q < p; q += 32) {
-            const T out = sv[q] - theta;
-            sap[q] = sal[q];
-            sal[q] = out < T(0) ? T(0) : out;
-        }
-        __syncwarp();
-        a = a2n;
-        l_prev = l_h;
     }
 }
 
@@ -454,8 +373,9 @@ __device__ __forceinline__ int first_row_two(bool hit0, bool hit1, int p) {
 // rows the 3.4e38 mask), then warp_min over the 32 lanes; its first row
 // comes from the two halves' ballots (first_row_two). gamma_tab holds the
 // step sizes (fw_gamma_table), or is null: then each step divides. The
-// values and ties are fw_steps_wide's: the same products in the same
-// order, a minimum that compares equal to its, the first occurrence.
+// values and ties are the column blocks' (column_steps.cuh
+// fw_column_steps): the same products in the same order, a minimum that
+// compares equal to theirs, the first occurrence.
 template <typename T>
 __device__ __forceinline__ void fw_steps_two_row(
         const T* __restrict__ sg, T b0, T b1, T& al0, T& al1, int lane,
@@ -489,55 +409,6 @@ __device__ __forceinline__ void fw_steps_two_row(
                             : T(2) / (static_cast<T>(k) + T(2));
         al0 = (T(1) - gamma) * al0 + gamma * vert0;
         al1 = row1 ? (T(1) - gamma) * al1 + gamma * vert1 : T(0);
-    }
-}
-
-// One column's Frank-Wolfe loop in the wide form (p > 64; K3, K6 and K10
-// run it past eight column blocks): the slab holds
-// G (sg), b (sb), alpha (sal) and the gradient row (sgr); lane q takes
-// rows q, q + 32, ... Each block's minimum is the NaN-propagating minimum
-// of the lanes' minima over their rows, and its first row the smallest
-// row index holding it (else p): the register form's values and ties.
-template <typename T>
-__device__ __forceinline__ void fw_steps_wide(
-        const T* __restrict__ sg, const T* __restrict__ sb,
-        T* __restrict__ sal, T* __restrict__ sgr, int lane, int p, int n_ct,
-        T pur, T pur2, int n_steps) {
-    const T big = T(3.4e38);                // the TPU kernel's block mask
-    const T pad = pos_inf<T>();
-    for (int k = 0; k < n_steps; ++k) {
-        for (int q = lane; q < p; q += 32)
-            sgr[q] = -(sb[q] - gram_row_dot(sg, sal, q, p));
-        __syncwarp();
-        T m1 = pad, m2 = pad;
-        for (int q = lane; q < p; q += 32) {
-            const bool known = q < n_ct;
-            m1 = min_nan(m1, known ? sgr[q] : big);
-            m2 = min_nan(m2, known ? big : sgr[q]);
-        }
-        m1 = warp_min(m1);
-        m2 = warp_min(m2);
-        int i1 = p, i2 = p;
-        for (int q = lane; q < p; q += 32) {
-            const bool known = q < n_ct;
-            if (i1 == p && (known ? sgr[q] : big) == m1) i1 = q;
-            if (i2 == p && (known ? big : sgr[q]) == m2) i2 = q;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const int o1 = __shfl_xor_sync(kFull, i1, off);
-            const int o2 = __shfl_xor_sync(kFull, i2, off);
-            i1 = o1 < i1 ? o1 : i1;
-            i2 = o2 < i2 ? o2 : i2;
-        }
-        const T gamma = T(2) / (static_cast<T>(k) + T(2));
-        for (int q = lane; q < p; q += 32) {
-            const T e1 = q == i1 ? T(1) : T(0);
-            const T e2 = q == i2 ? T(1) : T(0);
-            const T vert = e1 * pur + e2 * pur2;
-            sal[q] = (T(1) - gamma) * sal[q] + gamma * vert;
-        }
-        __syncwarp();
     }
 }
 

@@ -1,18 +1,15 @@
 // Pieces shared by the port's kernels: the solver's scalar slots and the
 // FISTA scalar arithmetic (K1, K2, K4, K5), and for the glue kernels K2
 // and K5 (alpha_phase_full.cu), K3 and K6 (fw_phase_full.cu) -- one warp
-// per sample column, over blocks of columns and members (one block per
-// member in the wide form) -- the Gram row assembly,
-// the product, the cost epilogue and the member bookkeeping, in three
-// forms: lane q holds row q of alpha and of the column's Gram matrix in
-// registers (p <= 32); lane q holds rows q and q + 32 of alpha and b in
-// registers and the warp keeps the column's Gram matrix in its slab of
-// shared memory (the two-row form, 32 < p <= 64); or, above 64 rows, each
-// warp keeps its column's Gram matrix, b and alpha in its own slab and
-// lane q takes rows q, q + 32, ... (the wide form, every glue kernel's
-// past eight column blocks, K9's and K10's too; below that they give a
-// column a block or a cluster of blocks, one row a thread:
-// column_steps.cuh).
+// per sample column, over blocks of columns and members -- the Gram row
+// assembly, the product, the cost epilogue and the member bookkeeping, in
+// two forms: lane q holds row q of alpha and of the column's Gram matrix
+// in registers (p <= 32); or lane q holds rows q and q + 32 of alpha and b
+// in registers and the warp keeps the column's Gram matrix in its slab of
+// shared memory (the two-row form, 32 < p <= 64). Above 64 rows every
+// glue kernel gives a column a block or a cluster of blocks, one row a
+// thread, with its plan here (column_plan) and its loops in
+// column_steps.cuh.
 
 #pragma once
 
@@ -39,15 +36,14 @@ constexpr int kPhA = 0, kPhL = 1, kPhLPrev = 2, kPhAOut = 3,
 constexpr int kMaxP = 32;          // rows of the register form
 constexpr unsigned kFull = 0xffffffffu;
 
-// The wide form's shared memory (p > 64): per warp the column's Gram matrix
-// (p x p) and six rows of p (b, alpha, alpha_prev and three work rows);
-// as many warps as fit under the card's opt-in limit (232,448 bytes on an
-// H100) less 1 KB for the kernels' static shared memory, at most 32 and
-// at most n_s. glue_warps returns 0 when one warp does not fit. No
-// kernel keeps these slabs in shared memory any more: the glue kernels
-// keep them in device memory (warp_slab) past eight column blocks, and
-// K2's, K3's, K5's and K6's column blocks group the cost's columns as
-// this form's blocks did.
+// The one-block wide loop's shared memory (p > 64), which the column
+// blocks replaced: per warp the column's Gram matrix (p x p) and six rows
+// of p (b, alpha, alpha_prev and three work rows); as many warps as fit
+// under the card's opt-in limit (232,448 bytes on an H100) less 1 KB for
+// the kernels' static shared memory, at most 32 and at most n_s.
+// glue_warps returns 0 when one warp does not fit. No kernel keeps these
+// slabs any more: the column blocks' cost groups its columns as that
+// loop's blocks did (column_groups).
 constexpr long long kGlueSmemLimit = 232448 - 1024;
 
 __host__ __device__ __forceinline__ long long glue_warp_elems(int p) {
@@ -72,23 +68,6 @@ __host__ __device__ __forceinline__ int glue_warps(int itemsize, int p,
     const long long fit = kGlueSmemLimit / (itemsize * glue_warp_elems(p));
     const long long w = n_s < 32 ? n_s : 32;
     return static_cast<int>(fit < w ? fit : w);
-}
-
-// Warps per block of a device-slab launch: min(n_s, 32) capped by the
-// kernel's registers (max_warps).
-inline int slab_warps(int n_s, int max_warps) {
-    const int n_warps = n_s < 32 ? n_s : 32;
-    return n_warps < max_warps ? n_warps : max_warps;
-}
-
-// This warp's slab of a device-slab block: slab blockIdx.x * n_warps +
-// warp of the device buffer gslab, at most 32 slabs a block, so the
-// buffer holds min(n_s, 32) a member
-template <typename T>
-__device__ __forceinline__ T* warp_slab(T* gslab, int warp, int n_warps,
-                                        int p) {
-    return gslab + (static_cast<long long>(blockIdx.x) * n_warps + warp)
-                       * glue_warp_elems(p);
 }
 
 // Per-member element strides of the glue kernels' operands: K2 and K3
@@ -254,47 +233,18 @@ __device__ __forceinline__ void add_column_sums(
     sum_lw += lw;
 }
 
-// Sums the warps' running sums in a fixed order. In thread 0 returns true
-// and sets cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and
-// lw = ||alpha_unknown||^2; other threads return false.
-template <typename T>
-__device__ __forceinline__ bool block_cost(T sum_ba, T sum_ag, T sum_lw,
-                                           const T* __restrict__ ydy,
-                                           int n_s, T& cost, T& lw) {
-    __shared__ T red[3][32];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-    if (lane == 0) {
-        red[0][warp] = sum_ba;
-        red[1][warp] = sum_ag;
-        red[2][warp] = sum_lw;
-    }
-    __syncthreads();
-    if (threadIdx.x != 0) return false;
-    T s_ydy = T(0), s_ba = T(0), s_ag = T(0), s_lw = T(0);
-    for (int s = 0; s < n_s; ++s) s_ydy += ydy[s];
-    for (int w = 0; w < n_warps; ++w) {
-        s_ba += red[0][w];
-        s_ag += red[1][w];
-        s_lw += red[2][w];
-    }
-    cost = s_ydy - s_ba - s_ag;
-    lw = s_lw;
-    return true;
-}
-
 // The cost epilogue over a grid (K2, K5, K3, K6): each column's terms
 // b.a, a.(b - G a) and ||alpha_unknown||^2 have been written to cs[s],
 // cs[n_s + s], cs[2 n_s + s]. The member's last block to finish (a ticket
 // taken with an integer atomic on tickets[mb], reset to zero for the next
 // launch; no ticket with one block) sums them in a fixed order that does
 // not depend on the grid: column s into group s mod `groups`, each group
-// in column order, then the groups in order -- the order of block_cost in
-// one block of `groups` warps. The register and two-row forms pass
-// min(n_s, 32) (cost_groups); K3's and K6's column blocks the warps of the
-// one-block wide loop they replace. Returns true in that block's thread
-// 0, with cost = sum(ydy) - sum(b.a) - sum(a.(b - G a)) and lw.
+// in column order, then the groups in order -- the order of one block of
+// `groups` warps, each summing its columns in turn, then the warps in
+// order. The register and two-row forms pass min(n_s, 32) (cost_groups);
+// the column blocks the warps of the one-block wide loop they replaced
+// (column_groups). Returns true in that block's thread 0, with cost =
+// sum(ydy) - sum(b.a) - sum(a.(b - G a)) and lw.
 __host__ __device__ __forceinline__ int cost_groups(int n_s) {
     return n_s < 32 ? n_s : 32;
 }
@@ -333,23 +283,42 @@ __device__ __forceinline__ bool column_cost(const T* __restrict__ cs,
 
 // ---- the column-block form (p > 64: K2, K3, K5, K6, K9, K10) ---------
 
-// the most blocks a column's cluster takes (the portable cluster size)
-// and threads a block (no plan asks for more: a block's R rows of G_s fit
-// shared memory only up to R = 242 in float32)
-constexpr int kMaxColumnBlocks = 8;
+// The most blocks a column's cluster takes: 16, the largest cluster an
+// H100 places (past the portable 8, with
+// cudaFuncAttributeNonPortableClusterSizeAllowed; chip_smoke.py records
+// cudaOccupancyMaxPotentialClusterSize at the plans' largest blocks).
+// Threads a block: up to 256 while G_s's rows sit in shared memory (R <=
+// 242 rows in float32), up to 1024 where they sit in device memory.
+constexpr int kMaxColumnBlocks = 16;
 constexpr int kColumnThreads = 256;
+constexpr int kDeviceRowThreads = 1024;
 
-// A column's launch plan: C blocks (0: past kMaxColumnBlocks, the device
-// slabs), R rows a block, its threads (R rounded up to warps) and its
-// dynamic shared memory.
+// Where a column's values live (ColumnPlan::device): all in the blocks'
+// shared memory (the column blocks); G_s's rows in device memory, the
+// rows of p values in shared memory (the device rows); or both in device
+// memory, where even the rows of p values do not fit
+constexpr int kSharedRows = 0, kDeviceRows = 1, kDeviceColumn = 2;
+
+// The device rows' blocks keep 2 KB of the card's limit for their static
+// shared memory (1 KB for the column blocks'): the Frank-Wolfe loop's
+// minima of 32 warps, double-buffered, take 1.5 KB in float64.
+constexpr long long kDeviceRowsLimit = kGlueSmemLimit - 1024;
+
+// A column's launch plan: C blocks, R rows a block, its threads (R
+// rounded up to warps, at most kDeviceRowThreads), where its values live
+// and a block's dynamic shared memory before any step table.
 struct ColumnPlan {
-    int blocks, rows, threads;
+    int blocks, rows, threads, device;
     long long bytes;
 };
 
 // The fewest blocks C <= kMaxColumnBlocks whose R = ceil(p / C) rows of
 // G_s, with p_rows rows of p values and r_rows rows of R values, fit one
-// block's shared memory (kGlueSmemLimit); all 0 past that
+// block's shared memory (kGlueSmemLimit). Past that the device rows:
+// C = kMaxColumnBlocks, G_s's rows in device memory and the rest in
+// shared memory where it fits (kDeviceRows, within kDeviceRowsLimit),
+// else in device memory too (kDeviceColumn, no dynamic shared memory).
+// Every p > 0 has a plan.
 inline ColumnPlan column_plan(int itemsize, int p, int p_rows, int r_rows) {
     for (int c = 1; c <= kMaxColumnBlocks; ++c) {
         const int rows = (p + c - 1) / c;
@@ -359,9 +328,33 @@ inline ColumnPlan column_plan(int itemsize, int p, int p_rows, int r_rows) {
                + static_cast<long long>(p_rows) * p
                + static_cast<long long>(r_rows) * rows);
         if (bytes <= kGlueSmemLimit)
-            return ColumnPlan{c, rows, 32 * ((rows + 31) / 32), bytes};
+            return ColumnPlan{c, rows, 32 * ((rows + 31) / 32), kSharedRows,
+                              bytes};
     }
-    return ColumnPlan{0, 0, 0, 0};
+    const int c = kMaxColumnBlocks;
+    const int rows = (p + c - 1) / c;
+    const int warps = (rows + 31) / 32;
+    const int threads =
+        32 * warps < kDeviceRowThreads ? 32 * warps : kDeviceRowThreads;
+    const long long line =
+        static_cast<long long>(itemsize)
+        * (static_cast<long long>(p_rows) * p
+           + static_cast<long long>(r_rows) * rows);
+    if (line <= kDeviceRowsLimit)
+        return ColumnPlan{c, rows, threads, kDeviceRows, line};
+    return ColumnPlan{c, rows, threads, kDeviceColumn, 0};
+}
+
+// Elements of one block's region of the device buffer in a layout: none
+// in the column blocks, its R rows of G_s in the device rows, and then
+// its rows of p and R values where they are in device memory too
+__host__ __device__ __forceinline__ long long column_block_elems(
+        int device, int rows, int p, int p_rows, int r_rows) {
+    if (device == kSharedRows) return 0;
+    const long long g = static_cast<long long>(rows) * p;
+    if (device == kDeviceRows) return g;
+    return g + static_cast<long long>(p_rows) * p
+           + static_cast<long long>(r_rows) * rows;
 }
 
 // The cost's group count of a column-block launch: the warps of the
@@ -377,8 +370,9 @@ inline int column_groups(int itemsize, int p, int n_s, int slab_cap) {
 }
 
 // (G_s a)_q for this thread's row t, from the block's transposed rows sg
-// (entry r at r * rows + t): summed over r in index order, as
-// gram_row_dot does. A plain loop: with loads a chunk of 8 ahead of the
+// (entry r at r * rows + t, in shared or device memory; rows * p < 2^31
+// for any G_s a card holds): summed over r in index order, as every
+// form's product is. A plain loop: with loads a chunk of 8 ahead of the
 // sum, or unrolled by 8, K3's column blocks took 4-37% longer on an H100
 // (chip_smoke.time_cases' "columns" cases).
 template <typename T>
@@ -428,7 +422,7 @@ int two_row_smem(K kern, int itemsize, int p, size_t tab, size_t& smem,
 }
 
 // The row bucket: the smallest of 8, 16 and 32 lanes holding p rows (the
-// register form), 64 for the two-row form, 0 above (the wide form)
+// register form), 64 for the two-row form, 0 above (the column blocks)
 // (ops/cuda_small.alpha_plan's rule; dm_row_bucket)
 __host__ __device__ __forceinline__ int row_bucket(int p) {
     return p <= 8 ? 8
@@ -469,7 +463,7 @@ __device__ __forceinline__ void load_gram_two_row(
 // (G_s a) at this lane's rows, lane and lane + 32, from the slab (row
 // stride ld): a_r is broadcast by shuffle from lane r mod 32 (a0 holds
 // rows 0-31, a1 rows 32 and up), and each row sums its terms over r in
-// index order, as gram_matvec and gram_row_dot do. A lane without a
+// index order, as gram_matvec does. A lane without a
 // second row reads its first row again for ga1, which no one uses.
 template <typename T>
 __device__ __forceinline__ void gram_two_row(const T* __restrict__ sg,
@@ -496,9 +490,10 @@ __device__ __forceinline__ void gram_two_row(const T* __restrict__ sg,
 
 // One column's terms of the Gram-identity cost in the two-row form: lane
 // q sums its rows q, q + 32 in order (b.a, a.(b - G a) and, for the
-// unknown rows, ||alpha_unknown||^2), then the 32-lane shuffle tree of
-// add_column_sums_wide: the same operations in the same order, so the
-// same bits. Valid in lane 0.
+// unknown rows, ||alpha_unknown||^2), then a 32-lane shuffle tree: the
+// operations and the order of the column blocks' cost terms (lane l over
+// rows l, l + 32, ...; column_steps.cuh column_cost_terms), so the same
+// bits. Valid in lane 0.
 template <typename T>
 __device__ __forceinline__ void column_sums_two_row(
         const T* __restrict__ sg, T b0, T b1, T al0, T al1, int lane, int p,
@@ -523,69 +518,6 @@ __device__ __forceinline__ void column_sums_two_row(
         ag += __shfl_down_sync(kFull, ag, off);
         lw += __shfl_down_sync(kFull, lw, off);
     }
-}
-
-// ---- the wide form (p > 64): this warp's slab of shared memory -------
-
-// G_s and b_s of column s into the slab (sg: p x p, sb: p), by the
-// assembly rule of load_gram_row; lane q fills entries q, q + 32, ...
-template <typename T>
-__device__ __forceinline__ void load_gram_wide(
-        T* __restrict__ sg, T* __restrict__ sb, const T* __restrict__ gtt,
-        const T* __restrict__ bt, const T* __restrict__ gu,
-        const T* __restrict__ bu, int s, int lane, int n_s, int n_ct,
-        int n_u) {
-    const int p = n_ct + n_u;
-    for (int k = lane; k < p * p; k += 32) {
-        const int q = k / p;
-        const int r = k % p;
-        T x;
-        if (q >= n_ct)
-            x = gu[(s * n_u + (q - n_ct)) * p + r];
-        else if (r >= n_ct)
-            x = gu[(s * n_u + (r - n_ct)) * p + q];
-        else
-            x = gtt[(s * n_ct + q) * n_ct + r];
-        sg[k] = x;
-    }
-    for (int q = lane; q < p; q += 32)
-        sb[q] = q < n_ct ? bt[q * n_s + s] : bu[(q - n_ct) * n_s + s];
-}
-
-// (G_s a)_q from the slab, summed over r in order as gram_matvec does
-template <typename T>
-__device__ __forceinline__ T gram_row_dot(const T* __restrict__ sg,
-                                          const T* __restrict__ a, int q,
-                                          int p) {
-    T ga = T(0);
-    for (int r = 0; r < p; ++r) ga += sg[q * p + r] * a[r];
-    return ga;
-}
-
-// add_column_sums for the wide form: each lane sums its rows in order,
-// then the same shuffle tree
-template <typename T>
-__device__ __forceinline__ void add_column_sums_wide(
-        const T* __restrict__ sg, const T* __restrict__ sb,
-        const T* __restrict__ al, int lane, int p, int n_u, T& sum_ba,
-        T& sum_ag, T& sum_lw) {
-    T ba = T(0), ag = T(0), lw = T(0);
-    for (int q = lane; q < p; q += 32) {
-        const T a = al[q];
-        const T ga = gram_row_dot(sg, al, q, p);
-        ba += sb[q] * a;
-        ag += a * (sb[q] - ga);
-        if (q >= p - n_u) lw += a * a;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        ba += __shfl_down_sync(kFull, ba, off);
-        ag += __shfl_down_sync(kFull, ag, off);
-        lw += __shfl_down_sync(kFull, lw, off);
-    }
-    sum_ba += ba;
-    sum_ag += ag;
-    sum_lw += lw;
 }
 
 }  // namespace dm

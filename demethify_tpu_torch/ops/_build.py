@@ -114,17 +114,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [_VOID, _INT, _INT, _VOID, _INT, _INT, _VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_{dt}")
-        fn.argtypes = [_VOID] * 12 + [_INT] * 6 + [_VOID]
+        fn.argtypes = [_VOID] * 13 + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_{dt}")
-        fn.argtypes = [_VOID] * 10 + [_INT] * 6 + [_VOID]
+        fn.argtypes = [_VOID] * 11 + [_INT] * 6 + [_VOID]
         fn.restype = _INT
         fn = getattr(lib, f"dm_alpha_phase_full_multi_{dt}")
         fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL, _VOID, _LL]
-                       + [_VOID, _LL] + [_VOID] * 2 + [_INT] * 7 + [_VOID])
+                       + [_VOID, _LL] + [_VOID] * 3 + [_INT] * 7 + [_VOID])
         fn.restype = _INT
         fn = getattr(lib, f"dm_fw_phase_full_multi_{dt}")
-        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_VOID] * 2
+        fn.argtypes = ([_VOID, _LL] * 6 + [_VOID] * 2 + [_LL] + [_VOID] * 3
                        + [_INT] * 7 + [_VOID])
         fn.restype = _INT
     lib.dm_row_bucket.argtypes = [_INT]
@@ -133,8 +133,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_two_row_stride.restype = _INT
     lib.dm_glue_smem.argtypes = [_INT] * 3
     lib.dm_glue_smem.restype = _LL
-    lib.dm_glue_work.argtypes = [_INT] * 3
-    lib.dm_glue_work.restype = _LL
+    for kernel in ("alpha", "fw"):
+        fn = getattr(lib, f"dm_{kernel}_column_work")
+        fn.argtypes = [_INT] * 3
+        fn.restype = _LL
+        fn = getattr(lib, f"dm_{kernel}_column_capacity")
+        fn.argtypes = [_INT, _INT, _VOID]
+        fn.restype = _INT
     lib.dm_fw_column_plan.argtypes = [_INT, _INT, _VOID]
     lib.dm_fw_column_plan.restype = _LL
     lib.dm_fw_column_groups.argtypes = [_INT] * 3

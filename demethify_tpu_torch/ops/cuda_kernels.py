@@ -407,8 +407,8 @@ def count_forms(forms: dict, **flags) -> None:
     The kernels' names: "wide" (K1/K4's wide layout; p > 32 in K2/K3/K5/
     K6), "two_row" (the glue kernels' two-row form, 32 < p <= 64),
     "global_layout" (K1/K4's global layout), "column_blocks" (the glue
-    kernels above 64 rows: a block or cluster a column), "device_slabs"
-    (the glue kernels past 8 column blocks, their slabs in device memory),
+    kernels above 64 rows: a block or cluster a column), "device_rows"
+    (the glue kernels past 16 column blocks, G_s's rows in device memory),
     "state_on_chip" (K1/K4 at n_u > REG_N_U, the state region in shared
     memory), "state_in_device" (the same, its region in device memory;
     K7's n_u > REG_N_U form, whose region always lives there),

@@ -35,28 +35,29 @@ Shapes: p <= 32 rows keep a column's Gram rows in the lanes' registers
 of the column in registers and the warp's slab of shared memory holds
 the column's Gram matrix at an odd row stride (the two-row form,
 ``two_row_stride``). Above 64 rows each column gets a block, or a
-thread-block cluster of up to 8 blocks, with one row a thread and the
-column's Gram rows spread over the blocks' shared memory (the
-column-block form, ``alpha_column_plan``, ``fw_column_plan``; the
-simplex projection ranks the column across the cluster); past 8 blocks
-(K2, K5 and K9 from p = 453 in float64, 651 in float32; K3, K6 and K10
-from 473 and 673) the one-block device-slab loop: each warp's column in
-its own slab of a device-memory work buffer the wrapper allocates
-(``glue_work``). Every kernel takes every p. The register form
+thread-block cluster of up to 16 blocks (the largest an H100 places),
+with one row a thread and the column's Gram rows spread over the blocks'
+shared memory (the column-block form, ``alpha_column_plan``,
+``fw_column_plan``; the simplex projection ranks the column across the
+cluster); past 16 blocks (K2, K5 and K9 from p = 625 in float64, 905 in
+float32; K3, K6 and K10 from 671 and 947) the device rows: the same
+loop on 16 blocks a column, each block's Gram rows in its region of a
+device-memory buffer the wrapper allocates (``column_work``), up to
+1024 threads a block. Every kernel takes every p. The register form
 of K2, K3, K5 and K6 runs its warp collectives to a row bucket of 8, 16
 or 32 lanes and gives every column its own warp, over several blocks
 past 16 columns (``alpha_plan``), with the cost summed in a fixed order
 that does not depend on the grid; K3 and K6 read their step sizes from
 a table built once per launch. The two-row form gives each column a
-block of its own, and its alpha is the wide loop's bit for bit, as the
-column blocks' alpha, cost and l_w are the wide loop's they replaced. A
-column whose v holds a NaN projects to NaN in every row in every form,
-as the JAX kernels and the twins give it.
+block of its own, and its alpha is the column blocks' bit for bit, as
+the column blocks' and the device rows' alpha, cost and l_w are those of
+the one-block wide loop they replaced. A column whose v holds a NaN
+projects to NaN in every row in every form, as the JAX kernels and the
+twins give it.
 K9 and K10 run K2's and K3's loops at the same bucket and plans
 (``phase_plan``): in one block in the register form, a column a block
-in the two-row form, K2's and K3's column blocks and device slabs above
-64 rows (``csrc/column_steps.cuh`` holds the column blocks' loops, one
-body each).
+in the two-row form, K2's and K3's column blocks and device rows above
+64 rows (``csrc/column_steps.cuh`` holds their loops, one body each).
 
 ``row_mask`` (K2, (p,)) and ``row_mask_b`` (K5, (B, p), one per member)
 are the JAX kernels' masks (``pallas_small.py:281-282, 409-410``): before
@@ -175,20 +176,11 @@ def _glue_scratch(like, n_b: int, n_s: int):
 
 def _reg_args(like, n_b, p, n_s):
     """The (colsum, tickets, bucket, cols) launch arguments of K2, K3, K5
-    and K6: the register and two-row forms' buffers and plan; above 64
-    rows, where ``_column_args`` finds no column-block plan, the device
-    slabs (``glue_work`` elements per member) in colsum's place, and the
-    work buffer itself (kept alive by the caller until the launch is
-    queued)."""
-    if p > TWO_ROW_P:
-        n_work = glue_work(like.element_size(), p, n_s)
-        if not n_work:
-            return None, None, 0, 0, None
-        work = like.new_empty((n_b * n_work,))
-        return work.data_ptr(), None, 0, 0, work
+    and K6 in the register and two-row forms (p <= 64): the per-column
+    cost terms, the tickets and the plan."""
     bucket, cols, _ = alpha_plan(p, n_s)
     colsum, tickets = _glue_scratch(like, n_b, n_s)
-    return colsum.data_ptr(), tickets.data_ptr(), bucket, cols, None
+    return colsum.data_ptr(), tickets.data_ptr(), bucket, cols
 
 
 def glue_smem(itemsize: int, p: int, n_s: int):
@@ -204,7 +196,7 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     p x p + 6 p values per warp and as many warps as fit, at most
     min(n_s, 32) -- the kernels' ``dm::glue_warps``. Both are the
     kernels' ``dm_glue_smem``, which ``chip_smoke.py`` holds this to. 0
-    warps when one slab does not fit (``glue_work``)."""
+    warps when one slab does not fit."""
     n_warps = min(n_s, 32)
     if p <= REG_P:
         return n_warps, 0
@@ -215,55 +207,73 @@ def glue_smem(itemsize: int, p: int, n_s: int):
     return n_warps, max(n_warps, 1) * slab
 
 
-def glue_work(itemsize: int, p: int, n_s: int) -> int:
-    """Elements per member of the device-memory slabs the glue kernels
-    take past 8 column blocks (``alpha_column_plan``, ``fw_column_plan``
-    blocks 0; ``phase_plan``'s "device_slabs"): min(n_s, 32) slabs of
-    p x p + 6 p values where one warp's slab does not fit shared memory
-    (``glue_smem`` gives 0 warps, as everywhere past 8 blocks); 0
-    otherwise. The kernels' ``dm_glue_work``, which ``chip_smoke.py``
-    holds this to."""
-    if p <= REG_P or glue_smem(itemsize, p, n_s)[0] >= 1:
-        return 0
-    return min(n_s, 32) * (p * p + 6 * p)
+# the column-block form (p > 64): at most MAX_COLUMN_BLOCKS blocks a
+# column, the largest cluster an H100 places (kMaxColumnBlocks; past the
+# portable 8 with cudaFuncAttributeNonPortableClusterSizeAllowed), and at
+# most DEVICE_ROW_THREADS threads a block in the device rows
+MAX_COLUMN_BLOCKS = 16
+DEVICE_ROW_THREADS = 1024
+COLUMN_PLAN_KEYS = ("blocks", "rows", "threads", "device")
+# where a column's values live ("device", csrc/small_common.cuh):
+# everything in shared memory (the column blocks), G_s's rows in device
+# memory (the device rows), or the rows of p values there too
+SHARED_ROWS, DEVICE_ROWS, DEVICE_COLUMN = 0, 1, 2
+# the device rows' blocks keep 2 KB of the card's limit for their static
+# shared memory (the Frank-Wolfe loop's double-buffered minima of 32 warps
+# take 1.5 KB in float64; kDeviceRowsLimit)
+_DEVICE_ROWS_LIMIT = _GLUE_LIMIT - 1024
+# the rows of p and of R values a block keeps beside its R rows of G_s
+# (K2, K5, K9: alpha, alpha_prev, a_t, v twice, the ranks and their sums;
+# K3, K6, K10: alpha, then b and G_s alpha of its rows)
+_LINES = {"alpha": (7, 0), "fw": (1, 2)}
 
 
-# the column-block form (p > 64): at most this many blocks a column, the
-# portable cluster size (kMaxColumnBlocks)
-MAX_COLUMN_BLOCKS = 8
-COLUMN_PLAN_KEYS = ("blocks", "rows", "threads")
-
-
-def _column_plan(itemsize: int, p: int, elems) -> dict:
+def _column_plan(itemsize: int, p: int, p_rows: int, r_rows: int) -> dict:
     """The fewest blocks C <= MAX_COLUMN_BLOCKS whose R = ceil(p / C) rows
-    take ``elems(R)`` values of shared memory within the card's limit
-    less 1 KB, as a plan dict; all 0 past MAX_COLUMN_BLOCKS."""
+    of G_s and p_rows rows of p values and r_rows of R values fit one
+    block's shared memory (the card's limit less 1 KB), as a plan dict
+    (device SHARED_ROWS); past that C = MAX_COLUMN_BLOCKS with G_s's rows
+    in device memory and the rest in shared memory (DEVICE_ROWS, "bytes"
+    the rest's), or where the rest does not fit, in device memory too
+    (DEVICE_COLUMN, "bytes" 0). "threads": R rounded up to warps, at most
+    DEVICE_ROW_THREADS (past that a thread owns several rows). The rest
+    stays in shared memory while it takes at most the card's limit less
+    2 KB."""
     for c in range(1, MAX_COLUMN_BLOCKS + 1):
         rows = -(-p // c)
-        n_bytes = itemsize * elems(rows)
+        n_bytes = itemsize * (rows * p + p_rows * p + r_rows * rows)
         if n_bytes <= _GLUE_LIMIT:
             return {"blocks": c, "rows": rows, "threads": 32 * -(-rows // 32),
-                    "bytes": n_bytes}
-    return {"blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
+                    "device": SHARED_ROWS, "bytes": n_bytes}
+    c = MAX_COLUMN_BLOCKS
+    rows = -(-p // c)
+    threads = min(DEVICE_ROW_THREADS, 32 * -(-rows // 32))
+    line = itemsize * (p_rows * p + r_rows * rows)
+    if line <= _DEVICE_ROWS_LIMIT:
+        return {"blocks": c, "rows": rows, "threads": threads,
+                "device": DEVICE_ROWS, "bytes": line}
+    return {"blocks": c, "rows": rows, "threads": threads,
+            "device": DEVICE_COLUMN, "bytes": 0}
 
 
 def fw_column_plan(itemsize: int, p: int) -> dict:
-    """K3's and K6's plan above 64 rows (``csrc/fw_phase_full.cu``
+    """K3's and K6's plan above 64 rows (``csrc/small_common.cuh``
     ``column_plan``; the kernels' ``dm_fw_column_plan``, which
     ``chip_smoke.py`` holds this to): "blocks" C, the fewest blocks of a
     thread-block cluster whose shared memory holds the column, at most
     MAX_COLUMN_BLOCKS; "rows" R = ceil(p / C), block c owning rows
     [c R, min(c R + R, p)), one a thread; "threads", R rounded up to
-    warps; "bytes", a block's dynamic shared memory: R rows of G_s, alpha
-    (p) and R values each of b and G_s alpha, at most the card's limit less
-    1 KB. Blocks 0 (and the rest 0) past MAX_COLUMN_BLOCKS: the device
-    slabs (``glue_work``). A launch is a grid of (n_s C, members) blocks
-    in clusters of C."""
-    return _column_plan(itemsize, p, lambda rows: rows * p + p + 2 * rows)
+    warps; "device" SHARED_ROWS; "bytes", a block's dynamic shared memory:
+    R rows of G_s, alpha (p) and R values each of b and G_s alpha, at most
+    the card's limit less 1 KB. Past MAX_COLUMN_BLOCKS the device rows
+    (``_column_plan``; one block's region of the buffer holds
+    ``column_work``'s share). A launch is a grid of (n_s C, members)
+    blocks in clusters of C."""
+    return _column_plan(itemsize, p, *_LINES["fw"])
 
 
 def alpha_column_plan(itemsize: int, p: int) -> dict:
-    """K2's and K5's plan above 64 rows (``csrc/alpha_phase_full.cu``
+    """K2's and K5's plan above 64 rows (``csrc/small_common.cuh``
     ``column_plan``; the kernels' ``dm_alpha_column_plan``, which
     ``chip_smoke.py`` holds this to), as ``fw_column_plan``'s but for the
     projection's rows: "bytes" holds R rows of G_s and seven rows of p
@@ -271,9 +281,27 @@ def alpha_column_plan(itemsize: int, p: int) -> dict:
     values in rank order and their prefix sums); the momentum table
     follows them in a launch where it fits. One block to p = 166 in
     float64 (237 in float32), clusters of up to MAX_COLUMN_BLOCKS to
-    p = 452 (650); past that blocks 0, the device slabs
-    (``glue_work``)."""
-    return _column_plan(itemsize, p, lambda rows: rows * p + 7 * p)
+    p = 624 (904); past that the device rows, the seven rows of p in
+    shared memory to p = 4,114 (8,228)."""
+    return _column_plan(itemsize, p, *_LINES["alpha"])
+
+
+def column_work(kernel: str, itemsize: int, p: int, n_s: int) -> int:
+    """Elements per member of the device buffer K2, K5 and K9 (``kernel``
+    "alpha") or K3, K6 and K10 ("fw") take at p rows and n_s columns: 0 in
+    the column blocks; in the device rows each block's R rows of G_s (and
+    in DEVICE_COLUMN its rows of p and R values), n_s C blocks a member.
+    The kernels' ``dm_alpha_column_work`` and ``dm_fw_column_work``,
+    which ``chip_smoke.py`` holds this to."""
+    p_rows, r_rows = _LINES[kernel]
+    plan = _column_plan(itemsize, p, p_rows, r_rows) if p > TWO_ROW_P else {
+        "device": SHARED_ROWS}
+    if plan["device"] == SHARED_ROWS:
+        return 0
+    block = plan["rows"] * p
+    if plan["device"] == DEVICE_COLUMN:
+        block += p_rows * p + r_rows * plan["rows"]
+    return n_s * plan["blocks"] * block
 
 
 def lib_fw_column_plan(lib, itemsize: int, p: int) -> dict:
@@ -292,10 +320,25 @@ def lib_alpha_column_plan(lib, itemsize: int, p: int) -> dict:
     return dict(zip(COLUMN_PLAN_KEYS, out), bytes=n_bytes)
 
 
+def lib_column_capacity(lib, kernel: str, itemsize: int, p: int) -> dict:
+    """What the card gives K2's (``kernel`` "alpha") or K3's ("fw")
+    column kernel at p rows, in the layout its plan takes there: "cluster",
+    the largest cluster it would place
+    (``cudaOccupancyMaxPotentialClusterSize``), and "clusters", how many
+    clusters of the plan's blocks it holds at once
+    (``cudaOccupancyMaxActiveClusters``). Raises on a CUDA error."""
+    out = (ctypes.c_int * 2)()
+    err = getattr(lib, f"dm_{kernel}_column_capacity")(int(itemsize), int(p),
+                                                        out)
+    _build.check(err, f"dm_{kernel}_column_capacity", f"p = {p}, itemsize "
+                 f"{itemsize}")
+    return {"cluster": out[0], "clusters": out[1]}
+
+
 # K9's and K10's forms, by the code of the kernels' plan exports
 # (csrc/column_steps.cuh PhaseForm)
-PHASE_FORMS = ("register", "two_row", "column_blocks", "device_slabs")
-PHASE_PLAN_KEYS = ("form", "bucket", "blocks", "rows", "threads")
+PHASE_FORMS = ("register", "two_row", "column_blocks", "device_rows")
+PHASE_PLAN_KEYS = ("form", "bucket", "blocks", "rows", "threads", "device")
 
 
 def phase_plan(kernel: str, itemsize: int, p: int) -> dict:
@@ -303,16 +346,17 @@ def phase_plan(kernel: str, itemsize: int, p: int) -> dict:
     itemsize-byte values, the kernels' ``dm_alpha_phase_plan`` and
     ``dm_fw_phase_plan`` (which ``chip_smoke.py`` holds this to): "form"
     one of PHASE_FORMS, "bucket" the row bucket (8, 16 or 32; 64 in the
-    two-row form; 0 above), "blocks", "rows" and "threads" K2's
-    (``alpha_column_plan``, K9) or K3's (``fw_column_plan``, K10) column
-    plan above 64 rows, "bytes" a block's dynamic shared memory before
-    any step table (the two-row slab, or the column plan's; 0 in the
-    register form and in the device slabs, whose device buffer holds
-    ``glue_work`` elements). The device slabs take the shapes past 8
-    column blocks; every p >= 1 has a form."""
+    two-row form; 0 above), "blocks", "rows", "threads" and "device"
+    K2's (``alpha_column_plan``, K9) or K3's (``fw_column_plan``, K10)
+    column plan above 64 rows, "bytes" a block's dynamic shared memory
+    before any step table (the two-row slab, or the column plan's; 0 in
+    the register form). The device rows take the shapes past 16 column
+    blocks, their buffer ``column_work`` elements; every p >= 1 has a
+    form."""
     if p < 1:
         raise ValueError(f"phase_plan: p = {p} rows")
-    plan = {"bucket": 0, "blocks": 0, "rows": 0, "threads": 0, "bytes": 0}
+    plan = {"bucket": 0, "blocks": 0, "rows": 0, "threads": 0,
+            "device": SHARED_ROWS, "bytes": 0}
     if p <= REG_P:
         return dict(plan, form="register", bucket=alpha_plan(p, 1)[0])
     if p <= TWO_ROW_P:
@@ -320,8 +364,8 @@ def phase_plan(kernel: str, itemsize: int, p: int) -> dict:
                     bytes=itemsize * p * two_row_stride(p))
     cols = {"alpha": alpha_column_plan, "fw": fw_column_plan}[kernel](
         itemsize, p)
-    return dict(cols, form="column_blocks" if cols["blocks"]
-                else "device_slabs", bucket=0)
+    return dict(cols, form="column_blocks" if cols["device"] == SHARED_ROWS
+                else "device_rows", bucket=0)
 
 
 def lib_phase_plan(lib, kernel: str, itemsize: int, p: int) -> dict:
@@ -338,7 +382,9 @@ def lib_phase_plan(lib, kernel: str, itemsize: int, p: int) -> dict:
 # the warps a block of the one-block wide loop took where its slabs were
 # in device memory, by itemsize: K3's and K6's kernels' registers allowed
 # 896 threads in float64 (cudaFuncGetAttributes on an H100), 1024 in
-# float32; K2's and K5's (128 and 95 registers a thread) 512 and 640
+# float32; K2's and K5's (128 and 95 registers a thread) 512 and 640. The
+# column blocks and the device rows keep that loop's groups, so its cost
+# and l_w keep their bits
 SLAB_LOOP_WARPS = {4: 32, 8: 28}
 ALPHA_SLAB_LOOP_WARPS = {4: 20, 8: 16}
 
@@ -361,37 +407,55 @@ def alpha_column_groups(itemsize: int, p: int, n_s: int) -> int:
     """The groups in which K2's and K5's column blocks sum a member's
     columns (``dm_alpha_column_groups``): the warps of the one-block wide
     loop they replaced, as ``fw_column_groups``, its device-slab kernels'
-    cap from ALPHA_SLAB_LOOP_WARPS. K2's and K5's device slabs past 8
-    blocks take at most those warps too."""
+    cap from ALPHA_SLAB_LOOP_WARPS."""
     return _column_groups(itemsize, p, n_s, ALPHA_SLAB_LOOP_WARPS[itemsize])
 
 
-def _column_args(lib_plan, like, n_b, p, n_s):
+def _column_args(kernel, like, n_b, p, n_s):
     """K2's, K3's, K5's and K6's launch arguments (colsum, tickets, bucket,
     cols, the work buffer) and, above 64 rows, the library's column plan
-    (``lib_plan``: ``lib_alpha_column_plan`` or ``lib_fw_column_plan``):
-    the register and two-row forms' as ``_reg_args``; the column blocks'
-    cost terms and tickets; past MAX_COLUMN_BLOCKS the device slabs in
-    colsum's place (the buffer kept alive by the caller until the launch
-    is queued)."""
+    of ``kernel`` ("alpha": ``lib_alpha_column_plan``, "fw":
+    ``lib_fw_column_plan``): the register and two-row forms' as
+    ``_reg_args``; the column blocks' cost terms and tickets; in the
+    device rows a work buffer of ``column_work`` elements a member (kept
+    alive by the caller until the launch is queued; else None)."""
     if p <= TWO_ROW_P:
-        return (*_reg_args(like, n_b, p, n_s), None)
+        return (*_reg_args(like, n_b, p, n_s), None, None)
+    lib_plan = {"alpha": lib_alpha_column_plan,
+                "fw": lib_fw_column_plan}[kernel]
     plan = lib_plan(_build.load().lib, like.element_size(), p)
-    if not plan["blocks"]:
-        return (*_reg_args(like, n_b, p, n_s), plan)
     colsum, tickets = _glue_scratch(like, n_b, n_s)
-    return colsum.data_ptr(), tickets.data_ptr(), 0, 0, None, plan
+    work = None
+    if plan["device"] != SHARED_ROWS:
+        work = like.new_empty(
+            (n_b * column_work(kernel, like.element_size(), p, n_s),))
+    return colsum.data_ptr(), tickets.data_ptr(), 0, 0, work, plan
+
+
+def _where(plan):
+    """A column plan in words, for an error."""
+    where = (f"C = {plan['blocks']}, {plan['rows']} rows and "
+             f"{plan['threads']} threads a block, {plan['bytes']} bytes of "
+             f"shared memory")
+    if plan["device"] == SHARED_ROWS:
+        return "column blocks " + where
+    return ("device rows " + where + (
+        ", G_s's rows in device memory" if plan["device"] == DEVICE_ROWS
+        else ", G_s's rows and the rows of p in device memory"))
 
 
 def _column_case(p, n_s, n_b, like, plan, n_steps=None):
     """A K2, K3, K5 or K6 launch's shape, dtype and plan, for its error
     (K2's and K5's with the steps, whose momentum table follows the
     plan's bytes where it fits)."""
-    where = ("device slabs" if not plan["blocks"] else
-             f"column blocks C = {plan['blocks']}, {plan['bytes']} bytes a "
-             f"block") if plan else "p <= 64"
+    where = _where(plan) if plan else "p <= 64"
     steps = "" if n_steps is None else f", {n_steps} steps"
     return f"p = {p}, n_s = {n_s}, B = {n_b}, {like.dtype}{steps}, {where}"
+
+
+def _ptr(t):
+    """A tensor's device pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _mask_arg(mask, like, shape, name):
@@ -432,6 +496,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count_glue(forms, p, work, masked=False):
+    """K2's, K3's, K5's and K6's launch by form (``count_forms``): above 32
+    rows ("wide"), the two-row form, the column blocks, or the device rows
+    (a work buffer)."""
+    count_forms(forms, wide=p > REG_P, two_row=REG_P < p <= TWO_ROW_P,
+                column_blocks=work is None and p > TWO_ROW_P,
+                device_rows=work is not None, masked=masked)
+
+
 def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
                      n_steps: int, n_u: int, row_mask=None):
     """One launch: Gram assembly, the alpha FISTA loop, l_w and the cost.
@@ -463,19 +536,16 @@ def alpha_phase_full(gtt, bt, gu, bu, usq, ydy, alpha, alpha_prev, scal,
           else lib.dm_alpha_phase_full_f64)
     with torch.cuda.device(alpha.device):
         colsum, tickets, bucket, cols, work, plan = _column_args(
-            lib_alpha_column_plan, alpha, 1, p, n_s)
+            "alpha", alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), usq.data_ptr(), ydy.data_ptr(),
                  alpha.data_ptr(), alpha_prev.data_ptr(), scal.data_ptr(),
-                 None if mask is None else mask.data_ptr(), colsum, tickets,
-                 n_s, n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
+                 _ptr(mask), colsum, tickets, _ptr(work), n_s, n_ct, n_u,
+                 n_steps, bucket, cols, _stream(alpha))
     _build.check(err, "alpha_phase_full",
                  _column_case(p, n_s, 1, alpha, plan, n_steps))
     alpha_phase_full.launches += 1
-    count_forms(alpha_phase_full.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P,
-                column_blocks=work is None and p > TWO_ROW_P,
-                device_slabs=work is not None, masked=mask is not None)
+    _count_glue(alpha_phase_full.forms, p, work, masked=mask is not None)
 
 
 alpha_phase_full.launches = 0
@@ -535,17 +605,15 @@ def fw_phase_full(gtt, bt, gu, bu, ydy, alpha, purity, scal, n_steps: int,
           else lib.dm_fw_phase_full_f64)
     with torch.cuda.device(alpha.device):
         colsum, tickets, bucket, cols, work, plan = _column_args(
-            lib_fw_column_plan, alpha, 1, p, n_s)
+            "fw", alpha, 1, p, n_s)
         err = fn(gtt.data_ptr(), bt.data_ptr(), gu.data_ptr(),
                  bu.data_ptr(), ydy.data_ptr(), alpha.data_ptr(),
-                 purity.data_ptr(), scal.data_ptr(), colsum, tickets, n_s,
-                 n_ct, n_u, n_steps, bucket, cols, _stream(alpha))
+                 purity.data_ptr(), scal.data_ptr(), colsum, tickets,
+                 _ptr(work), n_s, n_ct, n_u, n_steps, bucket, cols,
+                 _stream(alpha))
     _build.check(err, "fw_phase_full", _column_case(p, n_s, 1, alpha, plan))
     fw_phase_full.launches += 1
-    count_forms(fw_phase_full.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P,
-                column_blocks=work is None and p > TWO_ROW_P,
-                device_slabs=work is not None)
+    _count_glue(fw_phase_full.forms, p, work)
 
 
 fw_phase_full.launches = 0
@@ -652,24 +720,21 @@ def alpha_phase_full_multi(gtt, bt, gu_b, bu_b, usq_b, ydy, alpha_b,
           else lib.dm_alpha_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
         colsum, tickets, bucket, cols, work, plan = _column_args(
-            lib_alpha_column_plan, alpha_b, n_b, p, n_s)
+            "alpha", alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), usq_b.data_ptr(), usq_b.stride(0),
                  ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_prev_b.data_ptr(), alpha_b.stride(0),
                  scal_b.data_ptr(), N_SCAL_MULTI,
-                 None if mask is None else mask.data_ptr(),
-                 p,                               # the mask's row stride
-                 colsum, tickets, n_s, n_ct, n_u, n_steps, bucket, cols, n_b,
-                 _stream(alpha_b))
+                 _ptr(mask), p,                   # the mask's row stride
+                 colsum, tickets, _ptr(work), n_s, n_ct, n_u, n_steps,
+                 bucket, cols, n_b, _stream(alpha_b))
     _build.check(err, name, _column_case(p, n_s, n_b, alpha_b, plan,
                                          n_steps))
     alpha_phase_full_multi.launches += 1
-    count_forms(alpha_phase_full_multi.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P,
-                column_blocks=work is None and p > TWO_ROW_P,
-                device_slabs=work is not None, masked=mask is not None)
+    _count_glue(alpha_phase_full_multi.forms, p, work,
+                masked=mask is not None)
 
 
 alpha_phase_full_multi.launches = 0
@@ -773,19 +838,16 @@ def fw_phase_full_multi(gtt, bt, gu_b, bu_b, ydy, alpha_b, purity, scal_b,
           else lib.dm_fw_phase_full_multi_f64)
     with torch.cuda.device(alpha_b.device):
         colsum, tickets, bucket, cols, work, plan = _column_args(
-            lib_fw_column_plan, alpha_b, n_b, p, n_s)
+            "fw", alpha_b, n_b, p, n_s)
         err = fn(gtt.data_ptr(), st_gtt, bt.data_ptr(), st_bt,
                  gu_b.data_ptr(), gu_b.stride(0), bu_b.data_ptr(),
                  bu_b.stride(0), ydy.data_ptr(), st_ydy, alpha_b.data_ptr(),
                  alpha_b.stride(0), purity.data_ptr(), scal_b.data_ptr(),
-                 N_SCAL_MULTI, colsum, tickets, n_s, n_ct, n_u, n_steps,
-                 bucket, cols, n_b, _stream(alpha_b))
+                 N_SCAL_MULTI, colsum, tickets, _ptr(work), n_s, n_ct, n_u,
+                 n_steps, bucket, cols, n_b, _stream(alpha_b))
     _build.check(err, name, _column_case(p, n_s, n_b, alpha_b, plan))
     fw_phase_full_multi.launches += 1
-    count_forms(fw_phase_full_multi.forms, wide=p > REG_P,
-                two_row=REG_P < p <= TWO_ROW_P,
-                column_blocks=work is None and p > TWO_ROW_P,
-                device_slabs=work is not None)
+    _count_glue(fw_phase_full_multi.forms, p, work)
 
 
 fw_phase_full_multi.launches = 0
@@ -843,19 +905,19 @@ def _check_phase(name, G, b, p, like, others):
 
 def _phase_work(lib, kernel, like, p, n_s):
     """K9's or K10's plan from the library (``lib_phase_plan``) and, in
-    the device slabs, a work buffer of ``glue_work`` elements (else None;
+    the device rows, a work buffer of ``column_work`` elements (else None;
     the caller keeps it alive until the launch is queued)."""
     plan = lib_phase_plan(lib, kernel, like.element_size(), p)
-    if plan["form"] != "device_slabs":
+    if plan["form"] != "device_rows":
         return plan, None
-    return plan, like.new_empty((glue_work(like.element_size(), p, n_s),))
+    return plan, like.new_empty(
+        (column_work(kernel, like.element_size(), p, n_s),))
 
 
 def _phase_case(p, n_s, like, plan, n_steps):
     """A K9 or K10 launch's shape, dtype and plan, for its error."""
-    where = {"column_blocks": f"column blocks C = {plan['blocks']}, "
-                              f"{plan['bytes']} bytes a block",
-             "device_slabs": "device slabs"}.get(plan["form"], plan["form"])
+    where = (_where(plan) if plan["form"] in ("column_blocks", "device_rows")
+             else plan["form"])
     return f"p = {p}, n_s = {n_s}, {like.dtype}, {n_steps} steps, {where}"
 
 
@@ -863,7 +925,7 @@ def _count_phase(forms, plan, masked=False):
     """K9's and K10's launch by form (``count_forms``)."""
     count_forms(forms, two_row=plan["form"] == "two_row",
                 column_blocks=plan["form"] == "column_blocks",
-                device_slabs=plan["form"] == "device_slabs", masked=masked)
+                device_rows=plan["form"] == "device_rows", masked=masked)
 
 
 def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
@@ -896,8 +958,7 @@ def alpha_phase(G, b, alpha, alpha_prev, a, l_h_prev, l_h, n_steps: int,
         plan, work = _phase_work(lib, "alpha", alpha, p, n_s)
         err = fn(G.data_ptr(), b.data_ptr(), alpha.data_ptr(),
                  alpha_prev.data_ptr(), al.data_ptr(), ap.data_ptr(),
-                 scal.data_ptr(), None if mask is None else mask.data_ptr(),
-                 None if work is None else work.data_ptr(), p, n_s, n_steps,
+                 scal.data_ptr(), _ptr(mask), _ptr(work), p, n_s, n_steps,
                  _stream(alpha))
     _build.check(err, "alpha_phase", _phase_case(p, n_s, alpha, plan,
                                                  n_steps))
@@ -951,8 +1012,8 @@ def fw_phase(G, b, alpha1, alpha2, purity, n_steps: int):
         plan, work = _phase_work(lib, "fw", alpha1, p, n_s)
         err = fn(G.data_ptr(), b.data_ptr(), alpha1.data_ptr(),
                  alpha2.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-                 purity.data_ptr(), None if work is None else work.data_ptr(),
-                 p, p1, n_s, n_steps, _stream(alpha1))
+                 purity.data_ptr(), _ptr(work), p, p1, n_s, n_steps,
+                 _stream(alpha1))
     _build.check(err, "fw_phase", _phase_case(p, n_s, alpha1, plan, n_steps))
     fw_phase.launches += 1
     _count_phase(fw_phase.forms, plan)

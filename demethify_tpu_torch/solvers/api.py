@@ -4,7 +4,8 @@ Counterpart of ``demethify_tpu/solvers/api.py``: reference-based,
 partial-reference, purity-constrained and unsupervised. Routing: tensors
 on ``cuda`` use the kernel solvers (``solvers/fused.py``), which take any
 shape (past one block's shared memory the kernels keep their rows in
-device memory: K1/K4's global layout, K2/K3/K5/K6's device slabs);
+device memory: K1/K4's global layout, K2/K3/K5/K6's device rows past 16
+column blocks);
 tensors on ``cpu`` the plain ones (``solvers/partial_ref.py``,
 ``purity.py``, ``unsupervised.py``); a row-sharded dataset (``shard``,
 the JAX API's ``_use_fused_sharded``) the row-sharded kernel solvers

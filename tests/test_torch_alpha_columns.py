@@ -4,11 +4,13 @@ package's kernels.
 
 - The plan (``cuda_small.alpha_column_plan``; the kernels'
   ``dm_alpha_column_plan``, which ``chip_smoke.phase_layouts`` holds it to
-  on the card): over p = 65-700 in both dtypes, at most 8 blocks a column
-  or the device slabs, a block's bytes under the card's limit, every row
-  owned by one thread of one block; a few shapes pinned to hand-computed
+  on the card): over p = 65-700 in both dtypes, at most 16 blocks a
+  column, past that the device rows (G_s's rows in a work buffer the
+  wrapper sizes), a block's bytes under the card's limit, every row owned
+  by one thread of one block; a few shapes pinned to hand-computed
   numbers. The cost's groups (``alpha_column_groups``) are the warps of
-  the one-block wide loop the form replaced.
+  the one-block wide loop the form replaced, past the old edge of 8
+  blocks too.
 - A numpy transcription of the column blocks' step: rows dealt over C
   blocks of R threads, each row's v summed over r in index order, each
   row's stable rank from the gathered column, one chain of adds for the
@@ -61,8 +63,8 @@ from demethify_tpu_torch.ops.cuda_small import (
     MAX_COLUMN_BLOCKS,
     alpha_column_groups,
     alpha_column_plan,
+    column_work,
     glue_smem,
-    glue_work,
 )
 
 # the JAX kernels (Pallas in interpret mode), jitted: n_steps and n_u
@@ -82,25 +84,28 @@ def _elems(rows, p):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_column_plan_covers_every_shape(itemsize):
-    """p = 65-700: the fewest blocks (at most 8) whose shared memory holds
+    """p = 65-700: the fewest blocks (at most 16) whose shared memory holds
     the column, each owning a non-empty run of rows, every row owned once;
-    past 8 blocks the device slabs, whose work buffer the wrapper sizes."""
+    past 16 blocks the device rows (16 blocks, G_s's rows in device
+    memory, the seven rows of p in shared memory), whose work buffer the
+    wrapper sizes."""
     for p in range(65, 701):
         plan = alpha_column_plan(itemsize, p)
         c = plan["blocks"]
-        if c == 0:
-            assert plan == {"blocks": 0, "rows": 0, "threads": 0,
-                            "bytes": 0}
-            assert itemsize * _elems(-(-p // MAX_COLUMN_BLOCKS), p) > LIMIT
-            for n_s in (1, 10, 32, 500):
-                assert glue_work(itemsize, p, n_s) == min(n_s, 32) * (
-                    p * p + 6 * p)
-            continue
         assert 1 <= c <= MAX_COLUMN_BLOCKS
         rows = -(-p // c)
         assert plan["rows"] == rows
         assert plan["threads"] == 32 * -(-rows // 32) <= THREADS
-        assert plan["bytes"] == itemsize * _elems(rows, p) <= LIMIT
+        if plan["device"]:
+            assert c == MAX_COLUMN_BLOCKS and plan["device"] == 1
+            assert itemsize * _elems(rows, p) > LIMIT
+            assert plan["bytes"] == itemsize * 7 * p
+            for n_s in (1, 10, 32, 500):
+                assert column_work("alpha", itemsize, p, n_s) == (
+                    n_s * c * rows * p)
+        else:
+            assert plan["bytes"] == itemsize * _elems(rows, p) <= LIMIT
+            assert column_work("alpha", itemsize, p, 10) == 0
         if c > 1:
             assert itemsize * _elems(-(-p // (c - 1)), p) > LIMIT
         owned = [range(k * rows, min(k * rows + rows, p)) for k in range(c)]
@@ -108,25 +113,36 @@ def test_column_plan_covers_every_shape(itemsize):
         assert [q for r in owned for q in r] == list(range(p))
 
 
-# (itemsize, p) -> (blocks, rows, threads, bytes), worked out by hand:
-# bytes = itemsize (R p + 7 p), R = ceil(p / C), C the fewest blocks
-# under 232,448 - 1,024 = 231,424 bytes
+# (itemsize, p) -> (blocks, rows, threads, device, bytes), worked out by
+# hand: bytes = itemsize (R p + 7 p), R = ceil(p / C), C the fewest blocks
+# under 232,448 - 1,024 = 231,424 bytes, at most 16; past 16 the device
+# rows (device 1: bytes = itemsize 7 p, the rows of p in shared memory;
+# device 2 where those pass the limit less 1 KB more, 230,400 bytes:
+# bytes 0), threads R rounded up to warps, at most 1024
 PINNED = {
-    (8, 65): (1, 65, 96, 37_440),          # 8 (4,225 + 455)
-    (8, 100): (1, 100, 128, 85_600),       # 8 (10,000 + 700)
-    (8, 166): (1, 166, 192, 229_744),      # 8 (27,556 + 1,162)
-    (8, 167): (2, 84, 96, 121_576),        # one block: 8 x 29,058 > limit
-    (8, 200): (2, 100, 128, 171_200),      # 8 (20,000 + 1,400)
-    (8, 210): (2, 105, 128, 188_160),      # 8 (22,050 + 1,470)
-    (8, 452): (8, 57, 64, 231_424),        # 8 (25,764 + 3,164): the limit
-    (8, 453): (0, 0, 0, 0),                # 8 blocks: 8 x 28,992 > limit
-    (4, 65): (1, 65, 96, 18_720),
-    (4, 100): (1, 100, 128, 42_800),
-    (4, 237): (1, 237, 256, 231_312),      # 4 (56,169 + 1,659)
-    (4, 238): (2, 119, 128, 119_952),      # one block: 4 x 58,310 > limit
-    (4, 240): (2, 120, 128, 121_920),      # 4 (28,800 + 1,680)
-    (4, 650): (8, 82, 96, 231_400),        # 4 (53,300 + 4,550)
-    (4, 651): (0, 0, 0, 0),
+    (8, 65): (1, 65, 96, 0, 37_440),          # 8 (4,225 + 455)
+    (8, 100): (1, 100, 128, 0, 85_600),       # 8 (10,000 + 700)
+    (8, 166): (1, 166, 192, 0, 229_744),      # 8 (27,556 + 1,162)
+    (8, 167): (2, 84, 96, 0, 121_576),        # one block: 8 x 29,058 > limit
+    (8, 200): (2, 100, 128, 0, 171_200),      # 8 (20,000 + 1,400)
+    (8, 210): (2, 105, 128, 0, 188_160),      # 8 (22,050 + 1,470)
+    (8, 452): (8, 57, 64, 0, 231_424),        # 8 (25,764 + 3,164): the limit
+    (8, 453): (9, 51, 64, 0, 210_192),        # 8 blocks: 8 x 28,992 > limit
+    (8, 460): (9, 52, 64, 0, 217_120),        # 8 (23,920 + 3,220)
+    (8, 624): (16, 39, 64, 0, 229_632),       # 8 (24,336 + 4,368)
+    (8, 625): (16, 40, 64, 1, 35_000),        # 16: 8 x 29,375 > limit
+    (8, 4114): (16, 258, 288, 1, 230_384),    # 8 x 7 x 4,114
+    (8, 4115): (16, 258, 288, 2, 0),          # 8 x 7 x 4,115 > limit - 1 KB
+    (4, 65): (1, 65, 96, 0, 18_720),
+    (4, 100): (1, 100, 128, 0, 42_800),
+    (4, 237): (1, 237, 256, 0, 231_312),      # 4 (56,169 + 1,659)
+    (4, 238): (2, 119, 128, 0, 119_952),      # one block: 4 x 58,310 > limit
+    (4, 240): (2, 120, 128, 0, 121_920),      # 4 (28,800 + 1,680)
+    (4, 650): (8, 82, 96, 0, 231_400),        # 4 (53,300 + 4,550)
+    (4, 651): (9, 73, 96, 0, 208_320),        # 4 (47,523 + 4,557)
+    (4, 904): (16, 57, 64, 0, 231_424),       # 4 (51,528 + 6,328): the limit
+    (4, 905): (16, 57, 64, 1, 25_340),        # 4 x 7 x 905
+    (4, 16484): (16, 1031, 1024, 2, 0),       # 4 x 7 x 16,484 > limit
 }
 
 
@@ -134,10 +150,10 @@ PINNED = {
     f"{x}" for x in k))
 def test_column_plan_is_pinned(key):
     itemsize, p = key
-    blocks, rows, threads, n_bytes = PINNED[key]
+    blocks, rows, threads, device, n_bytes = PINNED[key]
     assert alpha_column_plan(itemsize, p) == {
         "blocks": blocks, "rows": rows, "threads": threads,
-        "bytes": n_bytes}
+        "device": device, "bytes": n_bytes}
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -157,6 +173,19 @@ def test_column_groups_are_the_old_warps(itemsize):
             assert got == want
             assert got == (glue_smem(itemsize, p, n_s)[0]
                            or min(n_s, regs))
+
+
+@pytest.mark.parametrize("p", [453, 460, 624, 625, 905, 2000, 4115])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_column_groups_hold_past_the_old_edge(itemsize, p):
+    """Past the old edge of 8 blocks (p = 453 in float64, 651 in float32),
+    where the one-block loop kept its slabs in device memory, the column
+    blocks and the device rows sum the columns in that loop's warps:
+    min(n_s, 16) in float64, min(n_s, 20) in float32 (its kernels'
+    registers, cudaFuncGetAttributes on an H100)."""
+    cap = {8: 16, 4: 20}[itemsize]
+    for n_s in (1, 10, 16, 17, 20, 21, 32, 100, 500):
+        assert alpha_column_groups(itemsize, p, n_s) == min(n_s, cap)
 
 
 # ------------------------------------------------- the step's order

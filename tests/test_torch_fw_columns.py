@@ -4,8 +4,8 @@ against the JAX package's kernels.
 
 - The plan (``cuda_small.fw_column_plan``; the kernels'
   ``dm_fw_column_plan``, which ``chip_smoke.phase_layouts`` holds it to
-  on the card): over p = 65-700 in both dtypes, at most 8 blocks a column
-  or the device slabs, a block's bytes under the card's limit, every row
+  on the card): over p = 65-700 in both dtypes, at most 16 blocks a
+  column or the device rows, a block's bytes under the card's limit, every row
   owned by one thread of one block; a few shapes pinned to hand-computed
   numbers. The cost's groups (``fw_column_groups``) are the warps of the
   one-block wide loop the form replaced.
@@ -53,8 +53,8 @@ from demethify_tpu_torch.ops.cuda_small import (
     MAX_COLUMN_BLOCKS,
     fw_column_groups,
     fw_column_plan,
+    column_work,
     glue_smem,
-    glue_work,
 )
 
 LIMIT = SMEM_LIMIT - 1024
@@ -71,25 +71,27 @@ def _owned(plan, p):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_column_plan_covers_every_shape(itemsize):
-    """p = 65-700: the fewest blocks (at most 8) whose shared memory holds
+    """p = 65-700: the fewest blocks (at most 16) whose shared memory holds
     the column, each owning a non-empty run of rows, every row owned once;
-    past 8 blocks the device slabs, whose work buffer the wrapper sizes."""
+    past 16 blocks the device rows (16 blocks, G_s's rows in device
+    memory, alpha and the rows of R values in shared memory), whose work
+    buffer the wrapper sizes."""
     for p in range(65, 701):
         plan = fw_column_plan(itemsize, p)
         c = plan["blocks"]
-        if c == 0:
-            assert plan == {"blocks": 0, "rows": 0, "threads": 0,
-                            "bytes": 0}
-            rows = -(-p // MAX_COLUMN_BLOCKS)
-            assert itemsize * (rows * p + p + 2 * rows) > LIMIT
-            for n_s in (1, 10, 32, 500):
-                assert glue_work(itemsize, p, n_s) == min(n_s, 32) * (
-                    p * p + 6 * p)
-            continue
         assert 1 <= c <= MAX_COLUMN_BLOCKS
         rows = -(-p // c)
         assert plan["rows"] == rows
         assert plan["threads"] == 32 * -(-rows // 32) <= THREADS
+        if plan["device"]:
+            assert c == MAX_COLUMN_BLOCKS and plan["device"] == 1
+            assert itemsize * (rows * p + p + 2 * rows) > LIMIT
+            assert plan["bytes"] == itemsize * (p + 2 * rows)
+            for n_s in (1, 10, 32, 500):
+                assert column_work("fw", itemsize, p, n_s) == (
+                    n_s * c * rows * p)
+            continue
+        assert column_work("fw", itemsize, p, 10) == 0
         assert plan["bytes"] == itemsize * (rows * p + p + 2 * rows) <= LIMIT
         if c > 1:
             fewer = -(-p // (c - 1))
@@ -99,25 +101,35 @@ def test_column_plan_covers_every_shape(itemsize):
         assert [q for r in owned for q in r] == list(range(p))
 
 
-# (itemsize, p) -> (blocks, rows, threads, bytes), worked out by hand:
-# bytes = itemsize (R p + p + 2 R), R = ceil(p / C), C the fewest blocks
-# under 232,448 - 1,024 = 231,424 bytes
+# (itemsize, p) -> (blocks, rows, threads, device, bytes), worked out by
+# hand: bytes = itemsize (R p + p + 2 R), R = ceil(p / C), C the fewest
+# blocks under 232,448 - 1,024 = 231,424 bytes, at most 16; past 16 the
+# device rows (device 1: bytes = itemsize (p + 2 R); device 2 where those
+# pass the limit less 1 KB more, 230,400 bytes: bytes 0), threads R
+# rounded up to warps, at most 1024
 PINNED = {
-    (8, 65): (1, 65, 96, 35_360),          # 8 (4,225 + 65 + 130)
-    (8, 100): (1, 100, 128, 82_400),       # 8 (10,000 + 100 + 200)
-    (8, 167): (1, 167, 192, 227_120),      # 8 (27,889 + 167 + 334)
-    (8, 168): (1, 168, 192, 229_824),      # 8 (28,224 + 168 + 336)
-    (8, 200): (2, 100, 128, 163_200),      # one block: 8 x 40,600 > limit
-    (8, 238): (2, 119, 128, 230_384),      # 8 (28,322 + 238 + 238)
-    (8, 480): (0, 0, 0, 0),                # 8 blocks: 8 x 29,400 > limit
-    (4, 65): (1, 65, 96, 17_680),
-    (4, 100): (1, 100, 128, 41_200),
-    (4, 167): (1, 167, 192, 113_560),
-    (4, 168): (1, 168, 192, 114_912),
-    (4, 200): (1, 200, 224, 162_400),      # 4 (40,000 + 200 + 400)
-    (4, 238): (1, 238, 256, 229_432),      # 4 (56,644 + 238 + 476)
-    (4, 240): (2, 120, 128, 117_120),      # one block: 4 x 58,320 > limit
-    (4, 480): (5, 96, 96, 187_008),        # 4 blocks: 4 x 58,320 > limit
+    (8, 65): (1, 65, 96, 0, 35_360),          # 8 (4,225 + 65 + 130)
+    (8, 100): (1, 100, 128, 0, 82_400),       # 8 (10,000 + 100 + 200)
+    (8, 167): (1, 167, 192, 0, 227_120),      # 8 (27,889 + 167 + 334)
+    (8, 168): (1, 168, 192, 0, 229_824),      # 8 (28,224 + 168 + 336)
+    (8, 200): (2, 100, 128, 0, 163_200),      # one block: 8 x 40,600 > limit
+    (8, 238): (2, 119, 128, 0, 230_384),      # 8 (28,322 + 238 + 238)
+    (8, 480): (9, 54, 64, 0, 212_064),        # 8 blocks: 8 x 29,400 > limit
+    (8, 670): (16, 42, 64, 0, 231_152),       # 8 (28,140 + 670 + 84)
+    (8, 671): (16, 42, 64, 1, 6_040),         # 8 (671 + 84)
+    (8, 25600): (16, 1600, 1024, 1, 230_400),  # 8 (25,600 + 3,200)
+    (8, 25601): (16, 1601, 1024, 2, 0),       # 8 (25,601 + 3,202) > 230,400
+    (4, 65): (1, 65, 96, 0, 17_680),
+    (4, 100): (1, 100, 128, 0, 41_200),
+    (4, 167): (1, 167, 192, 0, 113_560),
+    (4, 168): (1, 168, 192, 0, 114_912),
+    (4, 200): (1, 200, 224, 0, 162_400),      # 4 (40,000 + 200 + 400)
+    (4, 238): (1, 238, 256, 0, 229_432),      # 4 (56,644 + 238 + 476)
+    (4, 240): (2, 120, 128, 0, 117_120),      # one block: 4 x 58,320 > limit
+    (4, 480): (5, 96, 96, 0, 187_008),        # 4 blocks: 4 x 58,320 > limit
+    (4, 946): (16, 60, 64, 0, 231_304),       # 4 (56,760 + 946 + 120)
+    (4, 947): (16, 60, 64, 1, 4_268),         # 4 (947 + 120)
+    (4, 16484): (16, 1031, 1024, 1, 74_184),  # 4 (16,484 + 2,062)
 }
 
 
@@ -125,10 +137,10 @@ PINNED = {
     f"{x}" for x in k))
 def test_column_plan_is_pinned(key):
     itemsize, p = key
-    blocks, rows, threads, n_bytes = PINNED[key]
+    blocks, rows, threads, device, n_bytes = PINNED[key]
     assert fw_column_plan(itemsize, p) == {
         "blocks": blocks, "rows": rows, "threads": threads,
-        "bytes": n_bytes}
+        "device": device, "bytes": n_bytes}
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -145,6 +157,19 @@ def test_column_groups_are_the_old_warps(itemsize):
             got = fw_column_groups(itemsize, p, n_s)
             assert got == want
             assert got == (glue_smem(itemsize, p, n_s)[0] or min(n_s, regs))
+
+
+@pytest.mark.parametrize("p", [473, 480, 490, 670, 671, 947, 2000, 25601])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_column_groups_hold_past_the_old_edge(itemsize, p):
+    """Past the old edge of 8 blocks (p = 473 in float64, 673 in float32),
+    where the one-block loop kept its slabs in device memory, the column
+    blocks and the device rows sum the columns in that loop's warps:
+    min(n_s, 28) in float64, min(n_s, 32) in float32, its kernels'
+    registers' cap (cudaFuncGetAttributes on an H100)."""
+    cap = {8: 28, 4: 32}[itemsize]
+    for n_s in (1, 10, 27, 28, 29, 32, 33, 100, 500):
+        assert fw_column_groups(itemsize, p, n_s) == min(n_s, cap)
 
 
 @pytest.mark.parametrize("args,groups", [

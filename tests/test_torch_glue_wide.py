@@ -42,8 +42,8 @@ from demethify_tpu_torch.ops.cuda_kernels import (
 )
 from demethify_tpu_torch.ops.cuda_small import (
     alpha_plan,
+    column_work,
     glue_smem,
-    glue_work,
     two_row_stride,
 )
 
@@ -81,7 +81,8 @@ def test_two_row_plan_is_pinned(key, n_s):
     assert glue_smem(itemsize, p, n_s) == (1, PINNED[key])
     assert alpha_plan(p, n_s) == (64, 1, n_s)
     assert PINNED[key] <= SMEM_LIMIT - 1024
-    assert glue_work(itemsize, p, n_s) == 0
+    assert column_work("alpha", itemsize, p, n_s) == 0
+    assert column_work("fw", itemsize, p, n_s) == 0
 
 
 def test_two_row_plan_covers_every_shape():

@@ -7,10 +7,15 @@ takes at p rows, which since the column blocks is every p.
   register form to 32 rows (the row bucket 8, 16 or 32), the two-row form
   to 64 (its slab under the card's limit), above 64 K2's column plan for
   K9 and K3's for K10 (``alpha_column_plan``, ``fw_column_plan``),
-  equal entry by entry; the device slabs exactly where those plans give
-  no block (past 8), with ``glue_work`` > 0 there.
-- The pinned edges: the last single block, the first cluster of two and
-  the first device-slab shape of each kernel in each dtype.
+  equal entry by entry; the device rows exactly where those plans keep
+  G_s's rows in device memory (past 16 blocks), with ``column_work`` > 0
+  there.
+- p = 65-20000 in both dtypes: every plan launchable (at most 16 blocks
+  of at most 1024 threads, the bytes under the card's limit, every row
+  owned by one thread of one block), and every p has a form.
+- The pinned edges: the last single block, the first cluster of two, the
+  last cluster of 16 and the first device-rows shape of each kernel in
+  each dtype.
 - The wrappers count a launch under its plan's form
   (``_count_phase``), and on CPU tensors run their twins at every form's
   shapes (no refusal past one block's shared memory).
@@ -27,11 +32,12 @@ import torch
 from demethify_tpu_torch.ops import cuda_small
 from demethify_tpu_torch.ops.cuda_kernels import SMEM_LIMIT
 from demethify_tpu_torch.ops.cuda_small import (
+    DEVICE_ROW_THREADS,
     MAX_COLUMN_BLOCKS,
     PHASE_FORMS,
     alpha_column_plan,
+    column_work,
     fw_column_plan,
-    glue_work,
     phase_plan,
 )
 
@@ -58,39 +64,80 @@ def test_phase_plan_has_a_form_for_every_p(kernel, itemsize):
         cols = COLUMN_PLANS[kernel](itemsize, p)
         assert {k: plan[k] for k in cols} == cols
         assert plan["bucket"] == 0
-        if cols["blocks"]:
+        assert cols["bytes"] <= LIMIT
+        assert 1 <= cols["blocks"] <= MAX_COLUMN_BLOCKS
+        if cols["device"] == 0:
             assert plan["form"] == "column_blocks"
-            assert 1 <= cols["blocks"] <= MAX_COLUMN_BLOCKS
-            assert cols["bytes"] <= LIMIT
+            assert column_work(kernel, itemsize, p, 10) == 0
         else:
-            assert plan["form"] == "device_slabs"
+            assert plan["form"] == "device_rows"
+            assert cols["blocks"] == MAX_COLUMN_BLOCKS
             for n_s in (1, 10, 32, 100):
-                assert glue_work(itemsize, p, n_s) == min(n_s, 32) * (
-                    p * p + 6 * p) > 0
+                assert column_work(kernel, itemsize, p, n_s) == (
+                    n_s * MAX_COLUMN_BLOCKS * cols["rows"] * p) > 0
 
 
-# (kernel, itemsize) -> (the last single block, the first device slabs)
-EDGES = {("alpha", 8): (166, 453), ("alpha", 4): (237, 651),
-         ("fw", 8): (168, 473), ("fw", 4): (239, 673)}
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("kernel", ["alpha", "fw"])
+def test_device_rows_plan_launches_every_p(kernel, itemsize):
+    """p = 65-20000: a launchable plan at every p (at most 16 blocks a
+    cluster, a block at most 1024 threads in whole warps and its bytes
+    under the card's limit, rows dealt so that each is one thread's of
+    one block), the device rows past the last cluster of 16, the rows of
+    p values in device memory too only where they pass the limit; the
+    work buffer holds each block's rows."""
+    p_rows, r_rows = {"alpha": (7, 0), "fw": (1, 2)}[kernel]
+    plans = {"alpha": alpha_column_plan, "fw": fw_column_plan}[kernel]
+    for p in range(65, 20001):
+        plan = phase_plan(kernel, itemsize, p)
+        assert plan["form"] in ("column_blocks", "device_rows")
+        c, rows, threads = plan["blocks"], plan["rows"], plan["threads"]
+        assert 1 <= c <= MAX_COLUMN_BLOCKS and rows == -(-p // c)
+        assert threads % 32 == 0 and threads <= DEVICE_ROW_THREADS
+        assert threads >= min(rows, DEVICE_ROW_THREADS)
+        assert (c - 1) * rows < p <= c * rows    # no block without rows
+        assert 0 <= plan["bytes"] <= LIMIT
+        line = itemsize * (p_rows * p + r_rows * rows)
+        if plan["form"] == "column_blocks":
+            assert plan["device"] == 0 and threads <= 256
+            assert plan["bytes"] == itemsize * rows * p + line
+            continue
+        assert c == MAX_COLUMN_BLOCKS
+        assert itemsize * rows * p + line > LIMIT   # 16 blocks do not hold it
+        block = rows * p
+        if line <= LIMIT - 1024:      # 1 KB more for static shared memory
+            assert plan["device"] == 1 and plan["bytes"] == line
+        else:
+            assert plan["device"] == 2 and plan["bytes"] == 0
+            block += p_rows * p + r_rows * rows
+        assert column_work(kernel, itemsize, p, 3) == 3 * c * block
+        assert plans(itemsize, p) == {k: plan[k] for k in (
+            "blocks", "rows", "threads", "device", "bytes")}
+
+
+# (kernel, itemsize) -> (the last single block, the first device rows)
+EDGES = {("alpha", 8): (166, 625), ("alpha", 4): (237, 905),
+         ("fw", 8): (168, 671), ("fw", 4): (239, 947)}
 
 
 @pytest.mark.parametrize("key", sorted(EDGES), ids=lambda k: f"{k[0]}-{k[1]}")
 def test_phase_plan_edges_are_pinned(key):
     kernel, itemsize = key
-    last_one, first_slabs = EDGES[key]
+    last_one, first_rows = EDGES[key]
     assert phase_plan(kernel, itemsize, last_one)["blocks"] == 1
     assert phase_plan(kernel, itemsize, last_one + 1)["blocks"] == 2
-    assert phase_plan(kernel, itemsize, first_slabs - 1)["blocks"] == 8
-    assert phase_plan(kernel, itemsize,
-                      first_slabs)["form"] == "device_slabs"
+    assert phase_plan(kernel, itemsize, first_rows - 1)["blocks"] == 16
+    assert phase_plan(kernel, itemsize, first_rows)["form"] == "device_rows"
+    assert phase_plan(kernel, itemsize, first_rows)["blocks"] == 16
     forms = [phase_plan(kernel, itemsize, p)["form"] for p in range(65, 1001)]
-    assert forms == (["column_blocks"] * (first_slabs - 65)
-                     + ["device_slabs"] * (1001 - first_slabs))
+    assert forms == (["column_blocks"] * (first_rows - 65)
+                     + ["device_rows"] * (1001 - first_rows))
 
 
 @pytest.mark.parametrize("p,form", [(6, "register"), (40, "two_row"),
                                     (100, "column_blocks"),
-                                    (490, "device_slabs")])
+                                    (490, "column_blocks"),
+                                    (700, "device_rows")])
 def test_launches_count_under_their_form(p, form):
     forms = {}
     cuda_small._count_phase(forms, phase_plan("alpha", 8, p), masked=True)
@@ -104,8 +151,8 @@ def test_launches_count_under_their_form(p, form):
 @pytest.mark.parametrize("p", [168, 238, 460, 700])
 def test_wrappers_take_every_shape_on_the_cpu(p):
     """Past one block's shared memory (p = 168 in float64, 238 in float32)
-    and past 8 column blocks the wrappers run their twins, which a launch
-    on the card is held to."""
+    and past 16 column blocks (700) the wrappers run their twins, which a
+    launch on the card is held to."""
     rng = np.random.default_rng(p)
     n_s, steps = 2, 3
     X = rng.uniform(size=(n_s, p + 4, p))

@@ -231,10 +231,12 @@ def _grams64(n_u, n_ct=N_CT, seed=20, n_s=N_S):
                                             (100, False, "float32"),
                                             (200, False, "float64"),
                                             (200, True, "float64"),
-                                            (460, False, "float64")])
+                                            (460, False, "float64"),
+                                            (625, False, "float64")])
 def test_alpha_phase_matches_pallas(p, masked, dtype):
     """p = 100 and 200 run K2's column blocks on the card (one block, a
-    cluster of two), p = 460 its device slabs past eight blocks."""
+    cluster of two), p = 460 a cluster of nine, p = 625 its device rows
+    past 16 blocks."""
     dt = getattr(np, dtype)
     n_u = 2
     G, b, l_h, alpha = (np.asarray(x, dt) for x in _grams64(
@@ -272,13 +274,14 @@ def test_alpha_phase_matches_pallas(p, masked, dtype):
                                            (100, 8, "float64"),
                                            (100, 8, "float32"),
                                            (200, 8, "float64"),
-                                           (490, 8, "float64")])
+                                           (490, 8, "float64"),
+                                           (671, 8, "float64")])
 def test_fw_phase_matches_pallas(p, steps, dtype):
     """n_steps <= 64 runs the JAX kernel's unrolled schedule, 100 its
     chunked fori_loop; p = 40 the port's two-row form, p = 100 and 200
-    K3's column blocks (one block, a cluster of two), p = 490 its device
-    slabs past eight blocks (8 steps: the interpret-mode schedule unrolls
-    them)."""
+    K3's column blocks (one block, a cluster of two), p = 490 a cluster of
+    nine, p = 671 its device rows past 16 blocks (8 steps: the
+    interpret-mode schedule unrolls them)."""
     dt = getattr(np, dtype)
     n_u = 2
     G, b = (np.asarray(x, dt)

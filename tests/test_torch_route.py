@@ -1,16 +1,20 @@
 """The kernels' plans past one block's shared memory: K1/K4 take the
 global layout (the [Rt | u] rows in device memory) where even the wide
-layout would not fit, and K2/K3/K5/K6 keep their slabs in device memory
-where one warp's slab would not fit, so a CUDA tensor of any shape runs
-the kernels (``solvers.api`` has no other route on the card). The plans
-are plain Python, so they are tested here at the boundary shapes,
-float32, float64 and bf16 storage (a float32 state): where the rows stay
-in shared memory, and where they go to device memory, nothing raises.
+layout would not fit, and K2/K3/K5/K6 keep G_s's rows in device memory
+(the device rows) where a cluster of 16 blocks would not hold them, so a
+CUDA tensor of any shape runs the kernels (``solvers.api`` has no other
+route on the card). The plans are plain Python, so they are tested here
+at the boundary shapes, float32, float64 and bf16 storage (a float32
+state): where the rows stay in shared memory, and where they go to
+device memory, nothing raises.
 
 The boundaries, from the bytes of shared memory a block may use (232,448
 on an H100; the glue kernels keep 1 KB of it):
-- K2/K3/K5/K6 hold one p x p + 6 p slab: p <= 167 in float64, 237 in
-  float32;
+- K2/K5 hold R = ceil(p / C) rows of G_s and seven rows of p in each of
+  C <= 16 blocks: p <= 624 in float64, 904 in float32 (K3/K6 with alpha
+  and two rows of R: 670 and 946); the one-block wide loop they replaced
+  held one p x p + 6 p slab to p = 167 in float64, 237 in float32, whose
+  warps the cost's groups keep;
 - K1/K4's wide layout holds 2 min(n_s, 32) + p rows of 129 values (n_u
   more for K4's weights): at n_s >= 32, p <= 161 in float64 (159 with
   two weighted unknowns), 386 in float32.
@@ -25,25 +29,29 @@ from demethify_tpu_torch.ops.cuda_kernels import (
     u_phase_smem,
 )
 from demethify_tpu_torch.ops.cuda_multi import k4_member_plan
-from demethify_tpu_torch.ops.cuda_small import glue_smem, glue_work
+from demethify_tpu_torch.ops.cuda_small import column_work, glue_smem
 from demethify_tpu_torch.solvers import api
 
 F64, F32, BF16 = torch.float64, torch.float32, torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype,n_s,n_ct,n_u,weighted,want", [
-    (F64, 10, 166, 1, False, "shared"),      # p = 167: the glue's last
-    (F64, 10, 167, 1, False, "device"),      # p = 168: past one slab
+    (F64, 10, 166, 1, False, "shared"),      # p = 167: one old slab's last
+    (F64, 10, 167, 1, False, "shared"),      # p = 168: a cluster of two
     (F32, 10, 236, 1, False, "shared"),      # p = 237
-    (F32, 10, 237, 1, False, "device"),      # p = 238
+    (F32, 10, 237, 1, False, "shared"),      # p = 238
     (BF16, 10, 236, 1, False, "shared"),     # a float32 state
-    (BF16, 10, 237, 1, False, "device"),
+    (BF16, 10, 237, 1, False, "shared"),
+    (F64, 10, 623, 1, False, "device"),      # p = 624: K1 global; the
+    (F64, 10, 624, 1, False, "device"),      # glue's last cluster and
+    (F32, 10, 903, 1, False, "device"),      # its first device rows
+    (F32, 10, 904, 1, False, "device"),      # (p = 905)
     (F64, 64, 160, 1, False, "shared"),      # p = 161: K1 wide, last
     (F64, 64, 161, 1, False, "device"),      # p = 162: K1 global
-    (F32, 64, 236, 1, False, "shared"),      # the glue decides in float32
-    (F32, 64, 237, 1, False, "device"),
+    (F32, 64, 236, 1, False, "shared"),      # K1 wide, the glue in two
+    (F32, 64, 237, 1, False, "shared"),      # blocks a column
     (F64, 10, 157, 10, False, "shared"),     # direct form (100 > 30)
-    (F64, 10, 158, 10, False, "device"),
+    (F64, 10, 158, 10, False, "shared"),
     (F64, 64, 157, 2, True, "shared"),       # K4 weighted: p = 159
     (F64, 64, 158, 2, True, "device"),       # p = 160 weighted ...
     (F64, 64, 158, 2, False, "shared"),      # ... but not unweighted
@@ -62,10 +70,11 @@ def test_solver_route_at_the_plans_boundaries(dtype, n_s, n_ct, n_u,
                         weighted=weighted)
     assert (layout == "global") == (wide > SMEM_LIMIT)
     n_warps, _ = glue_smem(state, p, n_s)
-    work = glue_work(state, p, n_s)
-    assert (work > 0) == (n_warps == 0)
+    assert (n_warps == 0) == (p > (167 if state == 8 else 237))
+    work = column_work("alpha", state, p, n_s)
+    assert (work > 0) == (p > (624 if state == 8 else 904))
     if work:
-        assert work == min(n_s, 32) * (p * p + 6 * p)
+        assert work == n_s * 16 * -(-p // 16) * p
     if weighted and layout == "global":
         # 16 members in groups of 10: 2 x 32 rows of Y and D, the ring's
         # 2 slots of 4 rows of Rt and 10 x 2 x 2 u and w u rows, 112 rows
